@@ -12,9 +12,12 @@ Needs one CUDA card, ``nvcc`` and the repository checkout around this file
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the shapes the serving path gives it plus one shape per
    attention kernel that turns every option on (head_dim 128, KVH > 1,
-   softcap, sliding window). Times are CUDA-event medians with the L2
-   cache flushed before each launch; bounds use 3.35 TB/s and 989 TFLOP/s
-   (bf16 tensor rate; 67 TFLOP/s for fp32 inputs);
+   softcap, sliding window), and at the engine path's shapes (the
+   quickstart's int8 GEMM, ResNet-50's classifier and conv layers, the
+   mvout epilogue), where the int8 kernels must be bit-exact. Times are
+   CUDA-event medians with the L2 cache flushed before each launch;
+   bounds use 3.35 TB/s and 989 TFLOP/s (bf16 tensor rate; 67 TFLOP/s for
+   fp32 inputs, 1979 TOP/s for int8);
 4. serve: gemma3-1b at full width (26 layers, random weights from a seed)
    through ``ServingEngine``: four requests, prompts of 1000, 512, 300 and
    64 tokens, 32 new tokens each, 256-token prefill chunks; launch counts
@@ -23,7 +26,16 @@ Needs one CUDA card, ``nvcc`` and the repository checkout around this file
    the plain path on the CPU;
 5. end to end against plain: the smoke gemma3-1b and qwen1.5-4b configs in
    fp32 (model dtype and engine config) on the card and on the CPU, with
-   the same weights and prompts, must give equal greedy tokens.
+   the same weights and prompts, must give equal greedy tokens;
+6. engine: the Gemmini engine path on the quickstart's int8 BOTH instance:
+   the port's quickstart (header, int8 GEMM on OS and WS, conv by host
+   im2col and fused); the header against ``plan_gemm``; the mvout route
+   (int32 GEMM, then ``accumulator_epilogue``); and ResNet-50's 50-layer
+   stream from ``dse.resnet(50)`` at batch 1 (int8 convs from a seed, the
+   classifier as a GEMM) three ways: host im2col + OS GEMM, host im2col +
+   WS GEMM, and the fused conv kernel. Every output equals the plain
+   version bit for bit and OS equals WS; launch counts are zeroed just
+   before and read just after, and every engine kernel must have run.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``. Per-shape results and the
@@ -45,7 +57,7 @@ SRC = os.path.join(ROOT, "src")
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "int": 1979e12}
 REPS = 25
 
 
@@ -119,7 +131,18 @@ def check_close(torch, name, got, want, kind):
     """bf16: one bf16 ulp of the value (2^-7 relative) plus 2^-14 of the
     output's largest magnitude, since kernel and plain version sum in other
     orders and a value near a rounding boundary may round either way.
-    fp32: 1e-5 relative plus 1e-6 of the largest magnitude (sum order)."""
+    fp32: 1e-5 relative plus 1e-6 of the largest magnitude (sum order).
+    int: bit-exact, same dtype (the int32 sum is exact in any order)."""
+    if kind == "int":
+        if got.dtype != want.dtype or got.shape != want.shape:
+            fail(f"{name}: {got.dtype} {tuple(got.shape)} != {want.dtype} "
+                 f"{tuple(want.shape)}")
+        err = (got.long() - want.long()).abs().max().item() \
+            if got.numel() else 0
+        if err != 0:
+            fail(f"{name}: int kernel differs from the plain version, max "
+                 f"abs err {err}")
+        return float(err)
     g, w = got.float(), want.float()
     if g.shape != w.shape:
         fail(f"{name}: shape {tuple(g.shape)} != {tuple(w.shape)}")
@@ -278,7 +301,84 @@ def kernel_cases(torch, rng_seed=0):
     decode_case(serve_lengths, nh, nkv, hd, 64, 128, 32, cfg.local_window,
                 None, False)
     decode_case([77, 0, 16, 33], 8, 2, 128, 16, 40, 8, 24, 50.0, False)
+    engine_cases(torch, gen, cases)
     return cases
+
+
+def engine_cases(torch, gen, cases):
+    """The engine path's int8 kernels at its shapes: the quickstart GEMM
+    (bias, shift 7, ReLU), ResNet-50's classifier and a ragged GEMM on
+    both dataflows; the mvout epilogue; ResNet-50's stage-1 3x3 conv and
+    its stem conv."""
+    from repro_torch.core.config import Activation
+    from repro_torch.kernels import conv as kc
+    from repro_torch.kernels import epilogue as epi
+    from repro_torch.kernels import gemm as kg
+    from repro_torch.kernels.ref import conv2d_ref, gemm_ref
+
+    i8, i32 = torch.int8, torch.int32
+
+    def rint(lo, hi, *shape, dtype=i8):
+        return torch.randint(lo, hi, shape, generator=gen, device="cuda",
+                             dtype=dtype)
+
+    relu = Activation.RELU
+    for label, m, n, k, rep in (("quickstart", 1000, 512, 2048, True),
+                                ("classifier", 1, 1000, 2048, False),
+                                ("ragged", 37, 77, 147, False)):
+        a, b = rint(-128, 128, m, k), rint(-128, 128, k, n)
+        bias = rint(-1000, 1000, 1, n, dtype=i32)
+        kw = dict(acc_dtype=i32, out_dtype=i8, shift=7, activation=relu)
+        # torch._int_mm: the int32 product alone, no bias or epilogue; it
+        # takes M > 16 and K, N multiples of 8.
+        lib = (lambda a=a, b=b: torch._int_mm(a, b)) \
+            if m > 16 and k % 8 == 0 and n % 8 == 0 else None
+        if lib is not None:
+            try:                      # the yardstick only, never the port
+                lib()
+            except RuntimeError as e:
+                log(f"torch._int_mm refused M={m} N={n} K={k}: {e}")
+                lib = None
+        for kernel, fn in (("gemm[int8]", kg.gemm_os), ("gemm_ws", kg.gemm_ws)):
+            cases.append((
+                kernel, f"{label} M={m} N={n} K={k} bias shift=7 relu", rep,
+                "int", lambda a=a, b=b, bias=bias, fn=fn, kw=kw:
+                fn(a, b, bias, **kw),
+                lambda a=a, b=b, bias=bias, kw=kw: gemm_ref(a, b, bias, **kw),
+                lib, m * k + k * n + 4 * n + m * n, 2.0 * m * n * k))
+
+    acc = rint(-2 ** 31, 2 ** 31 - 1, 1000, 512, dtype=i32)
+    kw = dict(out_dtype=i8, shift=7, activation=relu)
+    cases.append(("accumulator_epilogue", "int32 (1000, 512) -> int8 shift=7 "
+                  "relu", True, "int",
+                  lambda acc=acc, kw=kw: kg.accumulator_epilogue(acc, **kw),
+                  lambda acc=acc, kw=kw: epi.apply(acc, **kw), None,
+                  5 * 1000 * 512, 0.0))
+    accf = torch.randn((3136, 256), generator=gen, device="cuda") * 8
+    kwf = dict(out_dtype=torch.float32, shift=2, activation=relu)
+    cases.append(("accumulator_epilogue", "fp32 (3136, 256) -> fp32 shift=2 "
+                  "relu", False, "fp32",
+                  lambda: kg.accumulator_epilogue(accf, **kwf),
+                  lambda: epi.apply(accf, **kwf), None, 8 * 3136 * 256,
+                  0.0))
+
+    for label, h, ci, co, kh, stride, pad, rep in (
+            ("stage-1 3x3", 56, 64, 64, 3, 1, 1, True),
+            ("conv1 7x7/2", 224, 3, 64, 7, 2, 3, False)):
+        x = rint(-64, 64, 1, h, h, ci)
+        w = rint(-32, 32, kh, kh, ci, co)
+        bias = rint(-500, 500, co, dtype=i32)
+        oh = (h + 2 * pad - kh) // stride + 1
+        kw = dict(stride=stride, padding=pad, acc_dtype=i32, out_dtype=i8,
+                  shift=8, activation=relu)
+        cases.append((
+            "conv2d_implicit", f"{label} 1x{h}x{h}x{ci} -> {oh}x{oh}x{co}",
+            rep, "int",
+            lambda x=x, w=w, bias=bias, kw=kw: kc.conv2d_implicit(x, w, bias,
+                                                                  **kw),
+            lambda x=x, w=w, bias=bias, kw=kw: conv2d_ref(x, w, bias, **kw),
+            None, x.numel() + w.numel() + 4 * co + oh * oh * co,
+            2.0 * oh * oh * co * kh * kh * ci))
 
 
 def run_kernel_phase(torch, timer):
@@ -350,6 +450,7 @@ def run_serve_phase(torch, np):
         if toks.shape != (SERVE_NEW,) or toks.min() < 0 or \
                 toks.max() >= cfg.vocab:
             fail(f"request {r['rid']}: bad tokens {toks}")
+    counts = {name: counts[name] for name in kernels.SERVING_KERNELS}
     for name, n in counts.items():
         if n <= 0:
             fail(f"kernel {name} was not launched on the serving path")
@@ -397,7 +498,9 @@ def run_serve_phase(torch, np):
 # ---------------------------------------------------------------------------
 # phase 4b: where a full-width decode step and prefill chunk spend time
 # ---------------------------------------------------------------------------
-_KERNEL_NAMES = (("gemm_bf16_kernel", "gemm"), ("gemm_f32_kernel", "gemm"),
+_KERNEL_NAMES = (("ConvA", "conv2d_implicit"), ("MatrixA", "gemm[int8]"),
+                 ("epilogue_kernel", "accumulator_epilogue"),
+                 ("gemm_bf16_kernel", "gemm"), ("gemm_f32_kernel", "gemm"),
                  ("paged_decode_kernel", "paged_decode_attention"),
                  ("true>", "paged_prefill_attention"),
                  ("prefill_attn_kernel", "flash_attention"))
@@ -410,13 +513,55 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
-def run_profile_phase(torch, engine):
-    """Wall time of one synchronised call against the device time of every
-    kernel ``torch.profiler`` saw in it, for one decode step of four slots
-    at 1000/512/300/64 cached tokens and for one 256-token continuation
-    chunk at position 768 (the serve phase's shapes)."""
+def profile_call(torch, name, fn, n=3):
+    """Wall time of one synchronised ``fn()`` (median of 5) against the
+    device time of every kernel ``torch.profiler`` saw in it (mean of n),
+    by kernel class; "gemm[int8]" covers the int8 GEMM in either order."""
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    by_class, launches = {}, {}
+    for a in prof.key_averages():
+        # Device activity only: an operator's entry repeats the time
+        # of the kernels it launched.
+        if not str(a.device_type).endswith("CUDA"):
+            continue
+        dev_us = a.self_device_time_total
+        cls = _kernel_class(a.key)
+        by_class[cls] = by_class.get(cls, 0.0) + dev_us / 1e3 / n
+        launches[cls] = launches.get(cls, 0) + a.count // n
+    wall = statistics.median(walls)
+    device = sum(by_class.values())
+    out = {"wall_ms": wall, "device_ms": device,
+           "device_busy_share": device / wall,
+           "device_ms_by_kernel": by_class, "launches_by_kernel": launches}
+    if device == 0.0:
+        log(f"profile {name}: wall {wall:.3f} ms; device time not "
+            f"measured (the profiler saw no CUDA kernel)")
+        return out
+    parts = ", ".join(f"{k} {v:.3f} ms x{launches[k]}" for k, v in
+                      sorted(by_class.items(), key=lambda kv: -kv[1]))
+    log(f"profile {name}: wall {wall:.3f} ms, device busy "
+        f"{device:.3f} ms ({device / wall:.1%}); {parts}")
+    return out
+
+
+def run_profile_phase(torch, engine):
+    """``profile_call`` for one decode step of four slots at
+    1000/512/300/64 cached tokens and for one 256-token continuation
+    chunk at position 768 (the serve phase's shapes)."""
     from repro_torch.models import transformer as tf
 
     cfg, ctx, params = engine.model_cfg, engine.engine, engine.params
@@ -437,47 +582,7 @@ def run_profile_phase(torch, engine):
             ctx, params, cfg, chunk, state, 0, state.tables[0], 768,
             page_size=page, kv_pages=16),
     }
-    out = {}
-    for name, fn in steps.items():
-        fn()
-        torch.cuda.synchronize()
-        walls = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        n = 3
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        by_class, launches = {}, {}
-        for a in prof.key_averages():
-            # Device activity only: an operator's entry repeats the time
-            # of the kernels it launched.
-            if not str(a.device_type).endswith("CUDA"):
-                continue
-            dev_us = a.self_device_time_total
-            cls = _kernel_class(a.key)
-            by_class[cls] = by_class.get(cls, 0.0) + dev_us / 1e3 / n
-            launches[cls] = launches.get(cls, 0) + a.count // n
-        wall = statistics.median(walls)
-        device = sum(by_class.values())
-        out[name] = {"wall_ms": wall, "device_ms": device,
-                     "device_busy_share": device / wall,
-                     "device_ms_by_kernel": by_class,
-                     "launches_by_kernel": launches}
-        if device == 0.0:
-            log(f"profile {name}: wall {wall:.3f} ms; device time not "
-                f"measured (the profiler saw no CUDA kernel)")
-            continue
-        parts = ", ".join(f"{k} {v:.3f} ms x{launches[k]}" for k, v in
-                          sorted(by_class.items(), key=lambda kv: -kv[1]))
-        log(f"profile {name}: wall {wall:.3f} ms, device busy "
-            f"{device:.3f} ms ({device / wall:.1%}); {parts}")
-    return out
+    return {name: profile_call(torch, name, fn) for name, fn in steps.items()}
 
 
 def _leaves(tree):
@@ -545,7 +650,151 @@ def run_e2e_phase(torch, np):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the Gemmini engine path (quickstart + ResNet-50 layer stream)
+# ---------------------------------------------------------------------------
+ENGINE_REPS = 3
+
+
+def resnet50_layers(torch, seed=0):
+    """``dse.resnet(50)``'s 50 GEMM-shaped layers at batch 1 as int8 convs
+    with data from a seed: the 7x7/2 stem on a 224x224x3 image, each 1x1
+    and 3x3 (pad 1) at its stage's width and resolution, and the classifier
+    as a 1x1 conv over a 1x1x2048 image (host route: the (1, 2048) x
+    (2048, 1000) GEMM). Returns (label, x, w, bias, stride, pad, act)."""
+    import math
+
+    from repro_torch.core import dse
+    from repro_torch.core.config import Activation
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    layers = []
+    for i, g in enumerate(dse.resnet(50).gemms):
+        if g.m == 1:
+            h, kh, stride, pad, ci = 1, 1, 1, 0, g.k
+        elif g.k == 7 * 7 * 3:
+            h, kh, stride, pad, ci = 224, 7, 2, 3, 3
+        elif g.k % 9 == 0:
+            h, kh, stride, pad, ci = math.isqrt(g.m), 3, 1, 1, g.k // 9
+        else:
+            h, kh, stride, pad, ci = math.isqrt(g.m), 1, 1, 0, g.k
+        oh = (h + 2 * pad - kh) // stride + 1
+        if oh * oh != g.m or kh * kh * ci != g.k:
+            fail(f"resnet50 layer {i}: {g} is not a square conv")
+        x = torch.randint(-64, 64, (1, h, h, ci), generator=gen,
+                          device="cuda", dtype=torch.int8)
+        w = torch.randint(-32, 32, (kh, kh, ci, g.n), generator=gen,
+                          device="cuda", dtype=torch.int8)
+        b = torch.randint(-500, 500, (g.n,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+        act = Activation.NONE if g.m == 1 else Activation.RELU
+        layers.append((f"{i}: {kh}x{kh}/{stride} {h}x{h}x{ci}->{g.n}", x, w,
+                       b, stride, pad, act))
+    return layers
+
+
+def run_engine_phase(torch, smi):
+    from repro_torch import kernels
+    from repro_torch.core.config import Activation, Dataflow
+    from repro_torch.core.generator import elaborate
+    from repro_torch.core.tiling import plan_gemm
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import gemm as kg
+    from repro_torch.kernels.ref import conv2d_ref, gemm_ref
+
+    cfg = quickstart.QUICKSTART_CFG
+    inst = elaborate(cfg)
+    layers = resnet50_layers(torch)
+    refs = [conv2d_ref(x, w, b, stride=st, padding=p, acc_dtype=torch.int32,
+                       out_dtype=torch.int8, shift=8, activation=act)
+            for _, x, w, b, st, p, act in layers]
+    a, b, bias, _, _ = quickstart.quickstart_operands("cuda")
+    want_q = gemm_ref(a, b, bias, acc_dtype=torch.int32, out_dtype=torch.int8,
+                      shift=7, activation=Activation.RELU)
+    torch.cuda.synchronize()
+
+    kernels.reset_launch_counts()
+    # the user's entry point: header, int8 GEMM on OS and WS, conv both ways
+    if quickstart.main(["--device", "cuda"]) != 0:
+        fail("the port's quickstart differs from its oracle on the card")
+    hdr = inst.header(1000, 512, 2048)
+    plan = plan_gemm(cfg, 1000, 512, 2048)
+    want_hdr = {"DIM": cfg.dim, "TILE_M": plan.tile_m, "TILE_N": plan.tile_n,
+                "TILE_K": plan.tile_k, "GRID": plan.grid,
+                "SPAD_BYTES": cfg.scratchpad_bytes,
+                "ACC_BYTES": cfg.accumulator_bytes,
+                "DATAFLOW": plan.dataflow.value,
+                "UTILIZATION": plan.utilization,
+                "ARITH_INTENSITY": plan.arithmetic_intensity}
+    if hdr != want_hdr:
+        fail(f"header {hdr} != plan_gemm's {want_hdr}")
+    # the mvout route: a raw int32 accumulator, then the epilogue pass
+    acc = elaborate(cfg.replace(output_dtype="int32")).gemm(
+        a, b, bias, dataflow=Dataflow.OS)
+    y = kg.accumulator_epilogue(acc, out_dtype=torch.int8, shift=7,
+                                activation=Activation.RELU)
+    if not torch.equal(y, want_q):
+        fail("mvout route (int32 GEMM + accumulator_epilogue) differs from "
+             "the fused epilogue's oracle")
+
+    routes = {
+        "host im2col + OS GEMM": dict(fused=False, dataflow=Dataflow.OS),
+        "host im2col + WS GEMM": dict(fused=False, dataflow=Dataflow.WS),
+        "fused conv kernel": dict(fused=True),
+    }
+
+    def stream(route):
+        return [inst.conv2d(x, w, b, stride=st, padding=p, shift=8,
+                            activation=act, **routes[route])
+                for _, x, w, b, st, p, act in layers]
+
+    outs = {}
+    for route in routes:
+        outs[route] = stream(route)
+        torch.cuda.synchronize()
+        for (label, *_), got, want in zip(layers, outs[route], refs):
+            if got.dtype != torch.int8 or not torch.equal(got, want):
+                fail(f"resnet50 [{route}] layer {label}: differs from "
+                     f"conv2d_ref")
+    for got_os, got_ws in zip(*(outs[r] for r in list(routes)[:2])):
+        if not torch.equal(got_os, got_ws):
+            fail("resnet50: OS and WS outputs differ")
+    counts = kernels.launch_counts()
+    for name in kernels.ENGINE_KERNELS:
+        if counts[name] <= 0:
+            fail(f"kernel {name} was not launched on the engine path")
+    log(f"engine launch counts: "
+        f"{ {n: counts[n] for n in kernels.ENGINE_KERNELS} }")
+
+    walls = {route: [] for route in routes}
+    for rep in range(ENGINE_REPS):
+        order = list(routes) if rep % 2 == 0 else list(routes)[::-1]
+        for route in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stream(route)
+            torch.cuda.synchronize()
+            walls[route].append((time.perf_counter() - t0) * 1e3)
+    ops = sum(2.0 * r.numel() * x.shape[-1] * w.shape[0] * w.shape[1]
+              for (_, x, w, *_), r in zip(layers, refs))
+    summary = {"layers": len(layers), "ops": ops, "routes": {}}
+    for route, ws in walls.items():
+        ms = statistics.median(ws)
+        summary["routes"][route] = {"wall_ms": ms, "walls_ms": ws}
+        log(f"resnet50 stream, {len(layers)} layers, batch 1, {route}: wall "
+            f"{ms:.3f} ms (median of {ENGINE_REPS}; {ops / ms / 1e9:.2f} "
+            f"TOP/s) on {smi}")
+    for route in routes:
+        summary["routes"][route]["profile"] = profile_call(
+            torch, f"resnet50 [{route}]", lambda route=route: stream(route))
+    log("engine: quickstart bit-exact on OS / WS / host conv / fused conv; "
+        "header equals plan_gemm; mvout route bit-exact; resnet50 stream "
+        "bit-exact on all three routes, OS == WS")
+    return counts, summary
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -593,8 +842,12 @@ def main() -> int:
 
     # 5. fp32 end to end, card against CPU
     run_e2e_phase(torch, np)
+    torch.cuda.empty_cache()
 
-    # 6. the kernels line
+    # 6. the Gemmini engine path (its own main path: counts zeroed inside)
+    engine_counts, engine_summary = run_engine_phase(torch, smi)
+
+    # 7. the kernels line
     meta = {
         "gemm": ("csrc/gemm.cu", "src/repro/kernels/gemm.py:105"),
         "flash_attention": ("csrc/attention.cu",
@@ -603,13 +856,20 @@ def main() -> int:
                                     "src/repro/kernels/attention.py:558"),
         "paged_decode_attention": ("csrc/attention.cu",
                                    "src/repro/kernels/attention.py:418"),
+        "gemm[int8]": ("csrc/gemm.cu", "src/repro/kernels/gemm.py:105"),
+        "gemm_ws": ("csrc/gemm.cu", "src/repro/kernels/gemm.py:184"),
+        "accumulator_epilogue": ("csrc/gemm.cu",
+                                 "src/repro/kernels/gemm.py:217"),
+        "conv2d_implicit": ("csrc/conv.cu", "src/repro/kernels/conv.py:140"),
     }
     line = []
     for name, (src, replaces) in meta.items():
         r = rep_rows[name]
+        launches = engine_counts[name] if name in kernels.ENGINE_KERNELS \
+            else counts[name]
         line.append({"name": name, "route": "cuda",
                      "source": "src/repro_torch/kernels/" + src,
-                     "replaces": replaces, "launches": counts[name],
+                     "replaces": replaces, "launches": launches,
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
@@ -617,8 +877,10 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"device": kind, "nvidia_smi": smi, "build_s": secs,
                    "ptxas": ptxas, "kernels": rows, "serve": serve_summary,
-                   "serve_launches": counts, "profile": profile}, f,
-                  indent=1)
+                   "serve_launches": counts, "profile": profile,
+                   "engine": engine_summary,
+                   "engine_launches": engine_counts}, f, indent=1)
+    log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

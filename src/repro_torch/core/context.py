@@ -2,12 +2,13 @@
 ``repro.core.context`` + the serving ops of ``repro.kernels.ops``).
 
 The context carries the elaborated :class:`GemminiConfig`; the ops are
-``ctx.gemm``, ``ctx.matmul``, ``ctx.flash_attention``,
+``ctx.gemm``, ``ctx.matmul``, ``ctx.conv2d``, ``ctx.flash_attention``,
 ``ctx.paged_attention`` and ``ctx.paged_prefill_attention``. There is no
 backend knob: the device of the operands decides. A CUDA tensor launches
 the hand-written kernel or the call raises; a CPU tensor runs the plain
 PyTorch version. No fallback runs in between. The mesh and the tuner are
-later slices.
+later slices; the kernels pick their own tiles, so no tile plan is solved
+on the dispatch path.
 """
 
 from __future__ import annotations
@@ -17,9 +18,12 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.config import Activation, GemminiConfig
+from repro_torch.core.config import Activation, Dataflow, GemminiConfig
+from repro_torch.core.tiling import _resolve_dataflow
 from repro_torch.kernels import attention as attn_kernels
+from repro_torch.kernels import conv as conv_kernel
 from repro_torch.kernels import gemm as gemm_kernel
+from repro_torch.kernels import ref
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,21 +40,61 @@ class ExecutionContext:
         return self.cfg
 
     def gemm(self, a: torch.Tensor, b: torch.Tensor,
-             d: Optional[torch.Tensor] = None, *, shift: int = 0,
+             d: Optional[torch.Tensor] = None, *,
+             dataflow: Optional[Dataflow] = None, shift: int = 0,
              activation: Activation = Activation.NONE) -> torch.Tensor:
         """C = act(round_shift(A @ B + D)) at the config's accumulator and
         output dtypes; a: (M, K), b: (K, N) with any strides, d:
-        broadcastable (1|M, N) bias."""
+        broadcastable (1|M, N) bias.
+
+        ``dataflow``: OS or WS on a BOTH instance; ``None`` takes the
+        instance's own, and a BOTH instance's plan resolves to WS
+        (``tiling._resolve_dataflow``, what ``plan_gemm`` would pick; no
+        plan is solved). Asking a single-dataflow instance for the other
+        dataflow raises ``ValueError`` on either device."""
         cfg = self._require_cfg("gemm")
         return gemm_kernel.gemm(a, b, d, acc_dtype=cfg.acc_torch,
                                 out_dtype=cfg.output_torch, shift=shift,
-                                activation=activation)
+                                activation=activation,
+                                dataflow=_resolve_dataflow(cfg, dataflow))
 
     def matmul(self, a: torch.Tensor, b: torch.Tensor, **kw) -> torch.Tensor:
         """Batched-LHS sugar over :meth:`gemm`: a (..., K), M = prod(lead)."""
         lead = a.shape[:-1]
         y = self.gemm(a.reshape(-1, a.shape[-1]), b, **kw)
         return y.reshape(*lead, b.shape[-1])
+
+    def conv2d(self, x: torch.Tensor, w: torch.Tensor,
+               b: Optional[torch.Tensor] = None, *, stride: int = 1,
+               padding: int = 0, shift: int = 0,
+               activation: Activation = Activation.NONE,
+               fused: bool = False,
+               dataflow: Optional[Dataflow] = None) -> torch.Tensor:
+        """Conv2D on the engine: x (N, H, W, CI), w (KH, KW, CI, CO), b
+        (CO,) -> (N, OH, OW, CO) at the config's dtypes.
+
+        On the card, ``fused=False`` is the paper's shipped design: im2col
+        in plain torch, then the engine GEMM on the instance's dataflow
+        (``dataflow`` as for :meth:`gemm`); ``fused=True`` is the
+        implicit-im2col conv kernel. On the CPU both are ``conv2d_ref``,
+        which equals either bit for bit on the int8 datapath."""
+        cfg = self._require_cfg("conv2d")
+        kw = dict(acc_dtype=cfg.acc_torch, out_dtype=cfg.output_torch,
+                  shift=shift, activation=activation)
+        if x.device.type == "cpu":
+            _resolve_dataflow(cfg, dataflow)
+            return ref.conv2d_ref(x, w, b, stride=stride, padding=padding,
+                                  **kw)
+        if fused:
+            return conv_kernel.conv2d_implicit(x, w, b, stride=stride,
+                                               padding=padding, **kw)
+        n, h, wd, _ = x.shape
+        kh, kwd, _, co = w.shape
+        oh, ow = conv_kernel.out_hw(h, wd, kh, kwd, stride, padding)
+        a = ref.im2col(x, kh, kwd, stride, padding)
+        y = self.gemm(a, w.reshape(-1, co), None if b is None else b[None, :],
+                      dataflow=dataflow, shift=shift, activation=activation)
+        return y.reshape(n, oh, ow, co)
 
     def flash_attention(self, q, k, v, *, causal: bool = True,
                         window: Optional[int] = None,

@@ -3,14 +3,27 @@ its plain PyTorch version. Nothing here builds or touches a card at
 import; ``_build`` compiles at the first launch."""
 
 
+SERVING_KERNELS = ("gemm", "flash_attention", "paged_prefill_attention",
+                   "paged_decode_attention")
+ENGINE_KERNELS = ("gemm[int8]", "gemm_ws", "accumulator_epilogue",
+                  "conv2d_implicit")
+
+
 def launch_counters():
-    """The four kernel wrappers of the serving path; each carries a plain
-    ``launches`` count that grows by one per kernel launch."""
-    from repro_torch.kernels import attention, gemm
+    """Every kernel, by the name the ``kernels`` report gives it, to the
+    wrapper whose plain ``launches`` count grows by one per launch of it:
+    the serving path's four, then the engine path's (int8 GEMM in OS order,
+    either GEMM in WS order, the mvout epilogue, the implicit-im2col
+    conv)."""
+    from repro_torch.kernels import attention, conv, gemm
     return {"gemm": gemm.gemm,
             "flash_attention": attention.flash_attention,
             "paged_prefill_attention": attention.paged_prefill_attention,
-            "paged_decode_attention": attention.paged_decode_attention}
+            "paged_decode_attention": attention.paged_decode_attention,
+            "gemm[int8]": gemm.gemm_os,
+            "gemm_ws": gemm.gemm_ws,
+            "accumulator_epilogue": gemm.accumulator_epilogue,
+            "conv2d_implicit": conv.conv2d_implicit}
 
 
 def reset_launch_counts() -> None:

@@ -1,10 +1,15 @@
-// Engine GEMM for Hopper: C = epilogue(A @ B + D).
+// Engine GEMM for Hopper: C = epilogue(A @ B + D), on both dataflows, and
+// the explicit mvout epilogue.
 //
-// Replaces: src/repro/kernels/gemm.py gemm_os (the output-stationary Pallas
-// kernel, _os_kernel). The C tile stays in an fp32 accumulator while A and
-// B stream through; D (bias, fp32, one row broadcast or a full (M, N)
-// matrix) and the epilogue -- activation, rounding shift, rounding to the
-// output type -- are applied once, when the tile is stored.
+// Replaces, in src/repro/kernels/gemm.py:
+//   gemm_os (_os_kernel)                    -> every launcher here, ws = 0
+//   gemm_ws (_ws_kernel)                    -> the same kernels, ws = 1
+//   accumulator_epilogue (_epilogue_kernel) -> epilogue_kernel
+// The C tile stays in an accumulator (fp32, or int32 for int8 inputs)
+// while A and B stream through; D (bias: one row broadcast or a full
+// (M, N) matrix) and the epilogue of epilogue.cuh -- activation, rounding
+// shift, saturation or rounding to the output type -- are applied once,
+// when the tile is stored.
 //
 // What bounds it on the H100: the serving path's GEMMs are skinny. At
 // decode M = 4 (one row per slot), so every weight byte is used four times
@@ -19,50 +24,51 @@
 //
 // Inputs: bf16 runs on the tensor cores through nvcuda::wmma bf16
 // fragments with fp32 accumulation; fp32 runs on plain FMAs (no TF32), so
-// the fp32 engine config stays IEEE. Ragged M, N and K edges are masked
-// here; callers pass operands at their true size.
+// the fp32 engine config stays IEEE; int8 runs on the int8 tensor cores
+// (igemm.cuh: mma.sync s8 with a wrapping int32 accumulator, the bias
+// preloaded). Ragged M, N and K edges are masked here; callers pass
+// operands at their true size.
 //
-// C interface: one launcher, gemm_launch; it returns cudaGetLastError().
+// Dataflows: on the TPU, WS is a weight-major grid (gn, gm, gk) around a
+// VMEM accumulator, with the same numerics as OS. Here ws = 1 walks the
+// blocks weight-major (all M tiles of one N strip before the next), and
+// the int8 kernel also keeps the block's weight strip resident in shared
+// memory across its M tiles (igemm.cuh). Every block computes its tile
+// the same way in both orders, so WS equals OS bit for bit.
+//
+// accumulator_epilogue: one elementwise pass over a raw (M, N) int32 or
+// fp32 accumulator, bound by its bytes (4 in, 1..4 out per element);
+// grid-stride, any shape.
+//
+// C interface: gemm_launch (bf16 / fp32 inputs), gemm_s8_launch (int8
+// inputs), epilogue_launch; each returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <type_traits>
+
+#include "epilogue.cuh"
+#include "igemm.cuh"
+
 using namespace nvcuda;
 
 namespace {
 
-enum { ACT_NONE = 0, ACT_RELU = 1, ACT_RELU6 = 2, ACT_GELU = 3, ACT_SILU = 4 };
 enum { DT_F32 = 0, DT_BF16 = 1 };
+enum { OUT_I32 = 0, OUT_I8 = 1 };
 
-__device__ __forceinline__ float activate(float x, int act) {
-  switch (act) {
-    case ACT_RELU: return fmaxf(x, 0.f);
-    case ACT_RELU6: return fminf(fmaxf(x, 0.f), 6.f);
-    case ACT_GELU: {  // tanh approximation, as jax.nn.gelu's default
-      const float c = 0.7978845608028654f;  // sqrt(2 / pi)
-      return 0.5f * x * (1.f + tanhf(c * (x + 0.044715f * x * x * x)));
-    }
-    case ACT_SILU: return x / (1.f + expf(-x));
-    default: return x;
-  }
-}
-
-__device__ __forceinline__ void put(float* c, long long i, float y) { c[i] = y; }
-__device__ __forceinline__ void put(__nv_bfloat16* c, long long i, float y) {
-  c[i] = __float2bfloat16(y);
-}
-
-// Epilogue for one output element: acc + D, activation, shift (a power-of-
-// two scale, exact), rounding to the output type.
+// fp32 epilogue for one output element of a float GEMM: acc + D, then
+// epilogue.cuh's activation, shift and rounding.
 template <typename OutT>
 __device__ __forceinline__ void store(OutT* C, const float* D, long long ldd,
                                       int r, int c, int N, float acc, int act,
                                       float out_scale) {
   if (D != nullptr) acc += D[(long long)r * ldd + c];
-  float y = activate(acc, act) * out_scale;
-  put(C, (long long)r * N + c, y);
+  epi::store_float(C, (long long)r * N + c, acc, act, out_scale);
 }
 
 // ---------------------------------------------------------------------------
@@ -76,7 +82,7 @@ gemm_bf16_kernel(const __nv_bfloat16* __restrict__ A,
                  const float* __restrict__ D, OutT* __restrict__ C,
                  int M, int N, int K, long long lda, long long ldb,
                  long long ldd, int act, float out_scale, int vec_a,
-                 int vec_b) {
+                 int vec_b, int ws) {
   static_assert((BM / WM) * (BN / WN) == 4, "four warps per block");
   constexpr int FM = WM / 16, FN = WN / 16;
   constexpr int APAD = BK + 8;                      // rows stay 16B aligned
@@ -91,7 +97,9 @@ gemm_bf16_kernel(const __nv_bfloat16* __restrict__ A,
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int wr = warp / (BN / WN), wc = warp % (BN / WN);
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  // ws: x walks the M tiles of the N strip y (weight-major).
+  const int m0 = (ws ? blockIdx.x : blockIdx.y) * BM;
+  const int n0 = (ws ? blockIdx.y : blockIdx.x) * BN;
   const __nv_bfloat16 zero = __float2bfloat16(0.f);
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
@@ -194,13 +202,14 @@ __global__ void __launch_bounds__(256)
 gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
                 const float* __restrict__ D, OutT* __restrict__ C, int M, int N,
                 int K, long long lda, long long ldb, long long ldd, int act,
-                float out_scale) {
+                float out_scale, int ws) {
   constexpr int BM = 64, BN = 64, BK = 16;
   __shared__ float As[BK][BM + 4];
   __shared__ float Bs[BK][BN + 4];
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int m0 = (ws ? blockIdx.x : blockIdx.y) * BM;
+  const int n0 = (ws ? blockIdx.y : blockIdx.x) * BN;
   float acc[4][4] = {};
 
   for (int k0 = 0; k0 < K; k0 += BK) {
@@ -242,67 +251,140 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
     }
 }
 
+// Grid (N tiles, M tiles) in OS order; (M tiles, N tiles) for ws, so that
+// consecutive blocks share one weight strip.
+inline dim3 tile_grid(int m, int n, int bm, int bn, int ws) {
+  const unsigned mt = (m + bm - 1) / bm, nt = (n + bn - 1) / bn;
+  return ws ? dim3(mt, nt) : dim3(nt, mt);
+}
+
 template <int BM, int BN, int WM, int WN, typename OutT>
 void launch_bf16(const void* a, const void* b, const float* d, OutT* c, int m,
                  int n, int k, long long lda, long long ldb, int b_trans,
                  long long ldd, int act, float out_scale, int vec_a, int vec_b,
-                 cudaStream_t s) {
-  dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
+                 int ws, cudaStream_t s) {
+  const dim3 grid = tile_grid(m, n, BM, BN, ws);
   const __nv_bfloat16* A = static_cast<const __nv_bfloat16*>(a);
   const __nv_bfloat16* B = static_cast<const __nv_bfloat16*>(b);
   if (b_trans)
     gemm_bf16_kernel<BM, BN, 32, WM, WN, true, OutT><<<grid, 128, 0, s>>>(
-        A, B, d, c, m, n, k, lda, ldb, ldd, act, out_scale, vec_a, vec_b);
+        A, B, d, c, m, n, k, lda, ldb, ldd, act, out_scale, vec_a, vec_b, ws);
   else
     gemm_bf16_kernel<BM, BN, 32, WM, WN, false, OutT><<<grid, 128, 0, s>>>(
-        A, B, d, c, m, n, k, lda, ldb, ldd, act, out_scale, vec_a, vec_b);
+        A, B, d, c, m, n, k, lda, ldb, ldd, act, out_scale, vec_a, vec_b, ws);
 }
 
 template <typename OutT>
 void launch_typed(const void* a, const void* b, const float* d, OutT* c, int m,
                   int n, int k, long long lda, long long ldb, int b_trans,
                   long long ldd, int in_dtype, int act, float out_scale,
-                  cudaStream_t s) {
+                  int ws, cudaStream_t s) {
   if (in_dtype == DT_BF16) {
     const int vec_a = (lda % 8 == 0) && (reinterpret_cast<uintptr_t>(a) % 16 == 0);
     const int vec_b = (ldb % 8 == 0) && (reinterpret_cast<uintptr_t>(b) % 16 == 0);
     if (m <= 16)
       launch_bf16<16, 64, 16, 16, OutT>(a, b, d, c, m, n, k, lda, ldb, b_trans,
-                                        ldd, act, out_scale, vec_a, vec_b, s);
+                                        ldd, act, out_scale, vec_a, vec_b, ws,
+                                        s);
     else
       launch_bf16<64, 64, 32, 32, OutT>(a, b, d, c, m, n, k, lda, ldb, b_trans,
-                                        ldd, act, out_scale, vec_a, vec_b, s);
+                                        ldd, act, out_scale, vec_a, vec_b, ws,
+                                        s);
     return;
   }
-  dim3 grid((n + 63) / 64, (m + 63) / 64);
+  const dim3 grid = tile_grid(m, n, 64, 64, ws);
   const float* A = static_cast<const float*>(a);
   const float* B = static_cast<const float*>(b);
   if (b_trans)
-    gemm_f32_kernel<true, OutT><<<grid, 256, 0, s>>>(A, B, d, c, m, n, k, lda,
-                                                     ldb, ldd, act, out_scale);
+    gemm_f32_kernel<true, OutT><<<grid, 256, 0, s>>>(
+        A, B, d, c, m, n, k, lda, ldb, ldd, act, out_scale, ws);
   else
-    gemm_f32_kernel<false, OutT><<<grid, 256, 0, s>>>(A, B, d, c, m, n, k, lda,
-                                                      ldb, ldd, act, out_scale);
+    gemm_f32_kernel<false, OutT><<<grid, 256, 0, s>>>(
+        A, B, d, c, m, n, k, lda, ldb, ldd, act, out_scale, ws);
+}
+
+template <typename AccT, typename OutT>
+__global__ void __launch_bounds__(256)
+epilogue_kernel(const AccT* __restrict__ acc, OutT* __restrict__ C,
+                long long count, int shift, int act, float out_scale) {
+  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < count;
+       i += (long long)gridDim.x * 256) {
+    if constexpr (std::is_integral<AccT>::value)
+      epi::store_int(C, i, acc[i], shift, act);
+    else
+      epi::store_float(C, i, acc[i], act, out_scale);
+  }
+}
+
+template <typename AccT, typename OutT>
+int launch_epilogue(const void* acc, void* c, long long count, int shift,
+                    int act, float out_scale, cudaStream_t s) {
+  const long long blocks = std::min<long long>((count + 255) / 256, 132 * 16);
+  epilogue_kernel<AccT, OutT><<<(unsigned)blocks, 256, 0, s>>>(
+      static_cast<const AccT*>(acc), static_cast<OutT*>(c), count, shift, act,
+      out_scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // a: (M, K) with row stride lda; b: (K, N) read as b[k * ldb + n], or as
 // b[n * ldb + k] when b_trans; d: fp32 bias, row stride ldd (0 broadcasts
-// one row), or null; c: contiguous (M, N) output.
+// one row), or null; c: contiguous (M, N) output; ws: weight-major order.
 extern "C" int gemm_launch(const void* a, const void* b, const void* d, void* c,
                            int m, int n, int k, long long lda, long long ldb,
                            int b_trans, long long ldd, int in_dtype,
-                           int out_dtype, int act, float out_scale,
+                           int out_dtype, int act, float out_scale, int ws,
                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* D = static_cast<const float*>(d);
   if (out_dtype == DT_BF16)
     launch_typed<__nv_bfloat16>(a, b, D, static_cast<__nv_bfloat16*>(c), m, n,
                                 k, lda, ldb, b_trans, ldd, in_dtype, act,
-                                out_scale, s);
+                                out_scale, ws, s);
   else
     launch_typed<float>(a, b, D, static_cast<float*>(c), m, n, k, lda, ldb,
-                        b_trans, ldd, in_dtype, act, out_scale, s);
+                        b_trans, ldd, in_dtype, act, out_scale, ws, s);
   return static_cast<int>(cudaGetLastError());
+}
+
+// int8 inputs, int32 accumulator: a, b as for gemm_launch; d: int32 bias,
+// row stride ldd (0 broadcasts one row), or null; c: contiguous (M, N)
+// int32 (out_dtype 0) or int8 (1); shift in [0, 31]; ws: weight-stationary.
+extern "C" int gemm_s8_launch(const void* a, const void* b, const void* d,
+                              void* c, int m, int n, int k, long long lda,
+                              long long ldb, int b_trans, long long ldd,
+                              int out_dtype, int act, int shift, int ws,
+                              void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const igemm::MatrixA al{static_cast<const int8_t*>(a), lda, k,
+                          (lda % 16 == 0) &&
+                              (reinterpret_cast<uintptr_t>(a) % 16 == 0)};
+  const int8_t* B = static_cast<const int8_t*>(b);
+  const int* D = static_cast<const int*>(d);
+  if (out_dtype == OUT_I8)
+    return igemm::launch(al, B, ldb, b_trans, D, ldd, static_cast<int8_t*>(c),
+                         m, n, k, shift, act, ws, s);
+  return igemm::launch(al, B, ldb, b_trans, D, ldd, static_cast<int*>(c), m, n,
+                       k, shift, act, ws, s);
+}
+
+// acc: contiguous int32 (acc_dtype 0) or fp32 (1) values; c: the same
+// count of int32 / int8 (int acc) or fp32 / bf16 (fp32 acc) outputs, by
+// out_dtype (0 = int32 or fp32, 1 = int8 or bf16).
+extern "C" int epilogue_launch(const void* acc, void* c, long long count,
+                               int acc_dtype, int out_dtype, int act,
+                               int shift, float out_scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (acc_dtype == 0)
+    return out_dtype == OUT_I8
+               ? launch_epilogue<int, int8_t>(acc, c, count, shift, act,
+                                              out_scale, s)
+               : launch_epilogue<int, int>(acc, c, count, shift, act,
+                                           out_scale, s);
+  return out_dtype == DT_BF16
+             ? launch_epilogue<float, __nv_bfloat16>(acc, c, count, shift, act,
+                                                     out_scale, s)
+             : launch_epilogue<float, float>(acc, c, count, shift, act,
+                                             out_scale, s);
 }

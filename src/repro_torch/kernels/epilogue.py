@@ -2,8 +2,14 @@
 
 Rounding bitshift (round half to even), saturation to the output
 bitwidth, and the activation units. This is the plain version; the CUDA
-GEMM applies the same float epilogue in its store loop
-(``csrc/gemm.cu``).
+kernels apply the same epilogue from one header, ``csrc/epilogue.cuh``
+(the GEMMs' and the conv's store loops, and ``accumulator_epilogue``).
+
+GELU and SiLU are float units: on an integer accumulator both port paths
+raise. (The JAX package's SiLU raises there too; its GELU casts the
+int32 value to fp32, applies the tanh formula and truncates the float
+result back to the integer type, which an integer datapath has no unit
+for.)
 """
 
 from __future__ import annotations
@@ -39,10 +45,17 @@ def activate(x: torch.Tensor, activation: Activation) -> torch.Tensor:
     raise ValueError(activation)
 
 
+def check_int_activation(activation: Activation) -> None:
+    if activation in (Activation.GELU, Activation.SILU):
+        raise ValueError(f"{activation.name} is a float unit: the integer "
+                         f"accumulator path has NONE, RELU and RELU6")
+
+
 def apply(acc: torch.Tensor, *, shift: int, activation: Activation,
           out_dtype: torch.dtype) -> torch.Tensor:
     """acc (int32 or fp32) -> activation(round_shift(acc)) saturated to out."""
     if not acc.is_floating_point():
+        check_int_activation(activation)
         y = _rounding_shift(acc.to(torch.int32), shift)
         y = activate(y, activation)
         if not out_dtype.is_floating_point and out_dtype != torch.int32:

@@ -1,12 +1,23 @@
-"""Engine GEMM: the CUDA kernel (``csrc/gemm.cu``) and its plain version.
+"""Engine GEMM on both dataflows, and the mvout epilogue: the CUDA kernels
+(``csrc/gemm.cu``, int8 main loop in ``csrc/igemm.cuh``) and their plain
+versions.
 
-Replaces ``repro.kernels.gemm.gemm_os``. ``gemm`` computes
-``C = act(round_shift(A @ B + D))`` at fp32 accumulation: a CUDA tensor
-launches the kernel (or raises), a CPU tensor takes the plain version
-``repro_torch.kernels.ref.gemm_ref``. The kernel masks ragged edges itself,
-so operands are never padded to a tile plan, and it reads B through its
-strides: a transposed view (the tied unembedding's ``table.T``) costs no
-copy. ``gemm.launches`` counts kernel launches.
+Replaces ``repro.kernels.gemm``: ``gemm_os``, ``gemm_ws``,
+``accumulator_epilogue`` and the dataflow dispatch ``gemm``. The GEMMs
+compute ``C = act(round_shift(A @ B + D))``: bf16 / fp32 inputs accumulate
+in fp32; int8 inputs accumulate in a wrapping int32 (the bias preloaded)
+and saturate to int8, or store int32. A CUDA tensor launches the kernel
+(or raises), a CPU tensor takes the plain version
+(``repro_torch.kernels.ref.gemm_ref``, ``epilogue.apply``). The kernels mask
+ragged edges themselves, so operands are never padded to a tile plan
+(zero padding changes no result: the unpadded output is the JAX package's
+``out[:m, :n]``), and they read B through its strides: a transposed view
+(the tied unembedding's ``table.T``) costs no copy.
+
+Launch counts, one per kernel of the ``kernels`` report:
+``gemm.launches`` the float kernel in OS order (the serving path's),
+``gemm_os.launches`` the int8 kernel in OS order, ``gemm_ws.launches``
+either kernel in WS order, ``accumulator_epilogue.launches``.
 """
 
 from __future__ import annotations
@@ -16,16 +27,21 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.config import Activation
+from repro_torch.core.config import Activation, Dataflow
 from repro_torch.kernels import _build
+from repro_torch.kernels import epilogue as epi
 from repro_torch.kernels.ref import gemm_ref
 
 _ACT = {Activation.NONE: 0, Activation.RELU: 1, Activation.RELU6: 2,
         Activation.GELU: 3, Activation.SILU: 4}
 _DT = {torch.float32: 0, torch.bfloat16: 1}
+_INT_OUT = {torch.int32: 0, torch.int8: 1}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _L, _I, _I, _I, _F, _P]
+_FLOAT_ARGS = [_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _L, _I, _I, _I, _F, _I,
+               _P]
+_S8_ARGS = [_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _L, _I, _I, _I, _I, _P]
+_EPI_ARGS = [_P, _P, _L, _I, _I, _I, _I, _F, _P]
 
 
 def _b_layout(b: torch.Tensor):
@@ -39,11 +55,16 @@ def _b_layout(b: torch.Tensor):
     return b, 0, b.stride(0)
 
 
-def gemm(a: torch.Tensor, b: torch.Tensor, d: Optional[torch.Tensor] = None,
-         *, acc_dtype: torch.dtype, out_dtype: torch.dtype, shift: int = 0,
-         activation: Activation = Activation.NONE) -> torch.Tensor:
-    """a: (M, K); b: (K, N) with any strides; d: bias broadcastable to
-    (M, N) (a (N,) / (1, N) row or a full (M, N) matrix)."""
+def _check_int_shift(shift: int) -> None:
+    if not 0 <= shift <= 31:
+        raise ValueError(f"int32 rounding shift must be in [0, 31], got {shift}")
+
+
+def _gemm(a: torch.Tensor, b: torch.Tensor, d: Optional[torch.Tensor], *,
+          acc_dtype: torch.dtype, out_dtype: torch.dtype, shift: int,
+          activation: Activation, ws: bool) -> torch.Tensor:
+    """The plain version for a CPU tensor; else the kernel of this datapath
+    in OS or WS order (or an error)."""
     if a.device.type == "cpu":
         return gemm_ref(a, b, d, acc_dtype=acc_dtype, out_dtype=out_dtype,
                         shift=shift, activation=activation)
@@ -55,19 +76,29 @@ def gemm(a: torch.Tensor, b: torch.Tensor, d: Optional[torch.Tensor] = None,
         raise ValueError(f"inner dims mismatch: {tuple(a.shape)} @ {tuple(b.shape)}")
     if b.device != a.device or (d is not None and d.device != a.device):
         raise ValueError("gemm: operands on different devices")
-    if a.dtype not in _DT or b.dtype != a.dtype:
+    if b.dtype != a.dtype:
+        raise NotImplementedError(f"gemm kernel takes inputs of one dtype, "
+                                  f"got {a.dtype} @ {b.dtype}")
+    integer = a.dtype == torch.int8
+    if integer:
+        if acc_dtype != torch.int32 or out_dtype not in _INT_OUT:
+            raise NotImplementedError(
+                f"int8 gemm kernel accumulates in int32 and writes int8 or "
+                f"int32, got acc {acc_dtype}, out {out_dtype}")
+        epi.check_int_activation(activation)
+        _check_int_shift(shift)
+    elif a.dtype not in _DT:
         raise NotImplementedError(
-            f"gemm kernel takes bf16 or fp32 inputs of one dtype, got "
-            f"{a.dtype} @ {b.dtype} (int8 -> int32 is ROADMAP queue B)")
-    if acc_dtype != torch.float32 or out_dtype not in _DT:
+            f"gemm kernel takes int8, bf16 or fp32 inputs, got {a.dtype}")
+    elif acc_dtype != torch.float32 or out_dtype not in _DT:
         raise NotImplementedError(
-            f"gemm kernel accumulates in fp32 and writes bf16/fp32, got "
-            f"acc {acc_dtype}, out {out_dtype}")
+            f"gemm kernel accumulates bf16/fp32 inputs in fp32 and writes "
+            f"bf16/fp32, got acc {acc_dtype}, out {out_dtype}")
     a = a.contiguous()
     b, trans, ldb = _b_layout(b)
     ldd = 0
     if d is not None:
-        d = d.to(torch.float32)
+        d = d.to(acc_dtype)
         if d.dim() == 2 and d.shape[0] == m and m > 1:
             d = d.expand(m, n).contiguous()
             ldd = n
@@ -76,15 +107,102 @@ def gemm(a: torch.Tensor, b: torch.Tensor, d: Optional[torch.Tensor] = None,
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if m == 0 or n == 0:
         return c
-    fn = _build.bind("gemm", "gemm_launch", _ARGTYPES)
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = fn(a.data_ptr(), b.data_ptr(), d.data_ptr() if d is not None else None,
-             c.data_ptr(), m, n, k, a.stride(0), ldb, trans, ldd, _DT[a.dtype],
-             _DT[out_dtype], _ACT[activation], 1.0 / (1 << shift) if shift > 0
-             else 1.0, stream)
-    _build.check(err, "gemm")
-    gemm.launches += 1
+    dptr = d.data_ptr() if d is not None else None
+    if integer:
+        fn = _build.bind("gemm", "gemm_s8_launch", _S8_ARGS)
+        err = fn(a.data_ptr(), b.data_ptr(), dptr, c.data_ptr(), m, n, k,
+                 a.stride(0), ldb, trans, ldd, _INT_OUT[out_dtype],
+                 _ACT[activation], shift, int(ws), stream)
+    else:
+        fn = _build.bind("gemm", "gemm_launch", _FLOAT_ARGS)
+        err = fn(a.data_ptr(), b.data_ptr(), dptr, c.data_ptr(), m, n, k,
+                 a.stride(0), ldb, trans, ldd, _DT[a.dtype], _DT[out_dtype],
+                 _ACT[activation], 1.0 / (1 << shift) if shift > 0 else 1.0,
+                 int(ws), stream)
+    _build.check(err, "gemm_ws" if ws else "gemm")
+    if ws:
+        gemm_ws.launches += 1
+    elif integer:
+        gemm_os.launches += 1
+    else:
+        gemm.launches += 1
+    return c
+
+
+def gemm_os(a: torch.Tensor, b: torch.Tensor, d: Optional[torch.Tensor] = None,
+            *, acc_dtype: torch.dtype, out_dtype: torch.dtype, shift: int = 0,
+            activation: Activation = Activation.NONE) -> torch.Tensor:
+    """Output-stationary GEMM. a: (M, K); b: (K, N) with any strides; d:
+    bias broadcastable to (M, N) (a (N,) / (1, N) row or a full (M, N)
+    matrix), cast to the accumulator dtype."""
+    return _gemm(a, b, d, acc_dtype=acc_dtype, out_dtype=out_dtype,
+                 shift=shift, activation=activation, ws=False)
+
+
+def gemm_ws(a: torch.Tensor, b: torch.Tensor, d: Optional[torch.Tensor] = None,
+            *, acc_dtype: torch.dtype, out_dtype: torch.dtype, shift: int = 0,
+            activation: Activation = Activation.NONE) -> torch.Tensor:
+    """Weight-stationary GEMM: the same function as :func:`gemm_os` (equal
+    bit for bit on the int8 path), the kernel walking the grid weight-major
+    with the weight strip resident in shared memory."""
+    return _gemm(a, b, d, acc_dtype=acc_dtype, out_dtype=out_dtype,
+                 shift=shift, activation=activation, ws=True)
+
+
+def gemm(a: torch.Tensor, b: torch.Tensor, d: Optional[torch.Tensor] = None,
+         *, acc_dtype: torch.dtype, out_dtype: torch.dtype, shift: int = 0,
+         activation: Activation = Activation.NONE,
+         dataflow: Dataflow = Dataflow.OS) -> torch.Tensor:
+    """Dispatch on a resolved dataflow (OS or WS; ``ctx.gemm`` resolves a
+    BOTH instance's and refuses the other dataflow of a single-dataflow
+    one)."""
+    if dataflow is Dataflow.BOTH:
+        raise ValueError("gemm: pass a resolved dataflow, OS or WS")
+    fn = gemm_ws if dataflow is Dataflow.WS else gemm_os
+    return fn(a, b, d, acc_dtype=acc_dtype, out_dtype=out_dtype, shift=shift,
+              activation=activation)
+
+
+def accumulator_epilogue(acc: torch.Tensor, *, out_dtype: torch.dtype,
+                         shift: int = 0,
+                         activation: Activation = Activation.NONE
+                         ) -> torch.Tensor:
+    """The mvout path: rounding shift, activation and saturation over a raw
+    accumulator of any shape (int32 -> int8 / int32, or fp32 -> fp32 /
+    bf16)."""
+    if acc.device.type == "cpu":
+        return epi.apply(acc, shift=shift, activation=activation,
+                         out_dtype=out_dtype)
+    if acc.device.type != "cuda":
+        raise ValueError(f"accumulator_epilogue: no kernel for device {acc.device}")
+    if acc.dtype == torch.int32:
+        if out_dtype not in _INT_OUT:
+            raise NotImplementedError(f"int32 accumulator -> {out_dtype}")
+        epi.check_int_activation(activation)
+        _check_int_shift(shift)
+        acc_code, out_code = 0, _INT_OUT[out_dtype]
+    elif acc.dtype == torch.float32:
+        if out_dtype not in _DT:
+            raise NotImplementedError(f"fp32 accumulator -> {out_dtype}")
+        acc_code, out_code = 1, _DT[out_dtype]
+    else:
+        raise NotImplementedError(f"accumulator dtype {acc.dtype}")
+    acc = acc.contiguous()
+    c = torch.empty(acc.shape, dtype=out_dtype, device=acc.device)
+    if acc.numel() == 0:
+        return c
+    fn = _build.bind("gemm", "epilogue_launch", _EPI_ARGS)
+    err = fn(acc.data_ptr(), c.data_ptr(), acc.numel(), acc_code, out_code,
+             _ACT[activation], shift,
+             1.0 / (1 << shift) if shift > 0 else 1.0,
+             torch.cuda.current_stream(acc.device).cuda_stream)
+    _build.check(err, "accumulator_epilogue")
+    accumulator_epilogue.launches += 1
     return c
 
 
 gemm.launches = 0
+gemm_os.launches = 0
+gemm_ws.launches = 0
+accumulator_epilogue.launches = 0

@@ -1,9 +1,10 @@
 """Plain PyTorch oracles (port of ``repro.kernels.ref``).
 
-``gemm_ref`` is the plain version of the engine GEMM: the CUDA kernel in
-``kernels/gemm.py`` is held against it on the card, and it is what a CPU
-tensor runs. The conv, attention and SSD oracles follow with their kernels
-in later slices.
+``gemm_ref`` is the plain version of the engine GEMM and ``conv2d_ref``
+(explicit ``im2col`` + ``gemm_ref``) that of the implicit-im2col conv: the
+CUDA kernels in ``kernels/gemm.py`` and ``kernels/conv.py`` are held
+against them on the card, and they are what a CPU tensor runs. The SSD
+oracle follows with its kernel in a later slice.
 """
 
 from __future__ import annotations
@@ -27,6 +28,20 @@ def _float_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
+def _int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact integer A @ B, wrapped to int32 as an int32 MAC array wraps.
+
+    CUDA has no integer matmul, so 8- and 16-bit operands multiply in
+    float64: every product and partial sum is an integer below 2^53
+    (|a*b| <= 2^30 and K < 2^22 for 16-bit inputs, 2^14 and K < 2^39 for
+    int8), so the sum is exact in any order. It is rounded to int64 and
+    wrapped to int32. Wider inputs take int64 products, on the CPU only."""
+    if a.element_size() <= 2 and b.element_size() <= 2:
+        acc = a.to(torch.float64) @ b.to(torch.float64)
+        return torch.round(acc).to(torch.int64).to(torch.int32)
+    return (a.to(torch.int64) @ b.to(torch.int64)).to(torch.int32)
+
+
 def gemm_ref(a: torch.Tensor, b: torch.Tensor, d: Optional[torch.Tensor],
              *, acc_dtype: torch.dtype, out_dtype: torch.dtype,
              shift: int = 0,
@@ -35,10 +50,44 @@ def gemm_ref(a: torch.Tensor, b: torch.Tensor, d: Optional[torch.Tensor],
     if acc_dtype.is_floating_point:
         acc = _float_matmul(a, b).to(acc_dtype)
     else:
-        # Integer datapath: int64 products summed exactly, then wrapped to
-        # the accumulator width (as an int32 MAC array would).
-        acc = (a.to(torch.int64) @ b.to(torch.int64)).to(acc_dtype)
+        acc = _int_matmul(a, b).to(acc_dtype)
     if d is not None:
         acc = acc + d.to(acc_dtype)
     return epi.apply(acc, shift=shift, activation=activation,
                      out_dtype=out_dtype)
+
+
+# -- Conv2D (explicit im2col, the paper's shipped host-side path) ------------
+def im2col(x: torch.Tensor, kh: int, kw: int, stride: int,
+           padding: int) -> torch.Tensor:
+    """NHWC -> (N*OH*OW, KH*KW*C) patch matrix, columns tap-major with the
+    channel fastest (the row order of an HWIO filter reshaped to
+    (KH*KW*C, CO))."""
+    n, h, w, c = x.shape
+    x = torch.nn.functional.pad(x, (0, 0, padding, padding, padding, padding))
+    oh = (h + 2 * padding - kh) // stride + 1
+    ow = (w + 2 * padding - kw) // stride + 1
+    patches = [x[:, i:i + (oh - 1) * stride + 1:stride,
+                 j:j + (ow - 1) * stride + 1:stride, :]
+               for i in range(kh) for j in range(kw)]
+    stacked = torch.stack(patches, dim=3)          # (N, OH, OW, KH*KW, C)
+    return stacked.reshape(n * oh * ow, kh * kw * c)
+
+
+def conv2d_ref(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+               *, stride: int = 1, padding: int = 0,
+               acc_dtype: torch.dtype = torch.int32,
+               out_dtype: torch.dtype = torch.int8, shift: int = 0,
+               activation: Activation = Activation.NONE) -> torch.Tensor:
+    """Conv2D NHWC x HWIO via explicit im2col + GEMM (paper section 3.3)."""
+    n, h, wd, c = x.shape
+    kh, kw, ci, co = w.shape
+    if ci != c:
+        raise ValueError(f"conv2d: input has {c} channels, filter {ci}")
+    oh = (h + 2 * padding - kh) // stride + 1
+    ow = (wd + 2 * padding - kw) // stride + 1
+    a = im2col(x, kh, kw, stride, padding)
+    d = None if b is None else b[None, :]
+    y = gemm_ref(a, w.reshape(kh * kw * c, co), d, acc_dtype=acc_dtype,
+                 out_dtype=out_dtype, shift=shift, activation=activation)
+    return y.reshape(n, oh, ow, co)

@@ -10,6 +10,8 @@ The first test to launch a kernel builds the kernels with ``nvcc``.
 Tolerances: fp32 1e-5 relative (plus 1e-5 of the largest magnitude), since
 the kernels sum in another order than the plain versions; bf16 one bf16
 ulp of the value (2^-7 relative) plus 2^-14 of the largest magnitude.
+The int8 datapath (GEMM on both dataflows, conv, the mvout epilogue) is
+bit-exact.
 """
 
 import numpy as np
@@ -17,8 +19,12 @@ import pytest
 import torch
 
 from repro_torch import kernels
+from repro_torch.core.config import Activation
 from repro_torch.kernels import attention as tak
+from repro_torch.kernels import conv as tconv
+from repro_torch.kernels import epilogue as tepi
 from repro_torch.kernels import gemm as tgemm
+from repro_torch.kernels import ref as tref
 from repro_torch.kernels.ref import gemm_ref
 
 pytestmark = pytest.mark.cuda
@@ -111,3 +117,125 @@ def test_attention_kernels_match_plain(card, dtype, d):
     for name in ("paged_decode_attention", "paged_prefill_attention",
                  "flash_attention"):
         assert after[name] == counts[name] + 1, name
+
+
+def _i8(g, shape, lo=-128, hi=128):
+    return torch.randint(lo, hi, shape, generator=g, device=g.device,
+                         dtype=torch.int8)
+
+
+def test_int_plain_matmul_on_card(card):
+    """The plain int path runs on CUDA (float64 products, exact) and equals
+    the int64 form on the CPU, through a sum that wraps past 2^31."""
+    g = torch.Generator(device=card).manual_seed(0)
+    a, b = _i8(g, (9, 300)), _i8(g, (300, 7))
+    want = (a.cpu().long() @ b.cpu().long()).to(torch.int32)
+    assert torch.equal(tref._int_matmul(a, b).cpu(), want)
+    big = torch.full((1, 140_000), 127, dtype=torch.int8, device=card)
+    got = tref._int_matmul(big, big.T.contiguous()).cpu()
+    want = (big.cpu().long() @ big.cpu().T.long()).to(torch.int32)
+    assert torch.equal(got, want) and int(want) < 0   # wrapped
+
+
+@pytest.mark.parametrize("dataflow", ["OS", "WS"])
+@pytest.mark.parametrize("m,n,k,bias,trans_b,out,shift,act", [
+    (1000, 512, 2048, "row", False, torch.int8, 7, "RELU"),   # quickstart
+    (1, 1000, 2048, "row", False, torch.int8, 7, "NONE"),     # classifier
+    (37, 77, 147, "full", False, torch.int32, 0, "RELU6"),    # ragged, stem K
+    (200, 136, 260, None, True, torch.int8, 5, "RELU"),       # B transposed
+    (130, 24, 4608, "row", False, torch.int8, 12, "NONE"),    # K beyond a strip
+])
+def test_int8_gemm_matches_plain(card, dataflow, m, n, k, bias, trans_b, out,
+                                 shift, act):
+    g = torch.Generator(device=card).manual_seed(m + n + k)
+    a = _i8(g, (m, k))
+    b = _i8(g, (n, k)).T if trans_b else _i8(g, (k, n))
+    d = {None: None,
+         "row": torch.randint(-5000, 5000, (n,), generator=g, device=card,
+                              dtype=torch.int32),
+         "full": torch.randint(-5000, 5000, (m, n), generator=g, device=card,
+                               dtype=torch.int32)}[bias]
+    kw = dict(acc_dtype=torch.int32, out_dtype=out, shift=shift,
+              activation=Activation[act])
+    fn = tgemm.gemm_ws if dataflow == "WS" else tgemm.gemm_os
+    n0 = fn.launches
+    got = fn(a, b, d, **kw)
+    assert fn.launches == n0 + 1
+    assert got.dtype == out and torch.equal(got, gemm_ref(a, b, d, **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_float_gemm_ws_matches_plain(card, dtype):
+    """The WS order on the float datapath: the same tiles, weight-major."""
+    g = torch.Generator(device=card).manual_seed(7)
+    a = torch.randn((300, 200), generator=g, device=card).to(dtype)
+    b = torch.randn((200, 130), generator=g, device=card).to(dtype)
+    kw = dict(acc_dtype=torch.float32, out_dtype=dtype)
+    got = tgemm.gemm_ws(a, b, **kw)
+    _close(got, gemm_ref(a, b, None, **kw), dtype)
+    assert torch.equal(got, tgemm.gemm_os(a, b, **kw))
+
+
+@pytest.mark.parametrize("acc_dtype,out_dtype,shape,shift,act", [
+    (torch.int32, torch.int8, (1000, 512), 7, "RELU"),
+    (torch.int32, torch.int32, (3, 5, 7), 31, "NONE"),
+    (torch.float32, torch.float32, (3136, 256), 2, "GELU"),
+    (torch.float32, torch.bfloat16, (33, 65), 0, "SILU"),
+])
+def test_accumulator_epilogue_matches_plain(card, acc_dtype, out_dtype, shape,
+                                            shift, act):
+    g = torch.Generator(device=card).manual_seed(1)
+    if acc_dtype == torch.int32:
+        acc = torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=g,
+                            device=card, dtype=torch.int32)
+    else:
+        acc = torch.randn(shape, generator=g, device=card) * 8
+    kw = dict(out_dtype=out_dtype, shift=shift, activation=Activation[act])
+    n0 = tgemm.accumulator_epilogue.launches
+    got = tgemm.accumulator_epilogue(acc, **kw)
+    assert tgemm.accumulator_epilogue.launches == n0 + 1
+    want = tepi.apply(acc, **kw)
+    if acc_dtype == torch.int32:
+        assert torch.equal(got, want)
+    else:
+        _close(got, want, out_dtype)
+
+
+@pytest.mark.parametrize("n,h,w,ci,co,kh,kw,stride,pad,bias", [
+    (1, 224, 224, 3, 64, 7, 7, 2, 3, True),    # ResNet-50 conv1 (stem)
+    (1, 56, 56, 64, 64, 3, 3, 1, 1, True),     # stage-1 3x3
+    (1, 28, 28, 128, 512, 1, 1, 1, 0, False),  # 1x1
+    (2, 15, 13, 8, 20, 3, 3, 2, 1, True),      # strided, CI % 16 != 0
+    (2, 14, 10, 16, 12, 5, 3, 1, 2, False),    # rectangular filter
+])
+def test_conv2d_implicit_matches_plain(card, n, h, w, ci, co, kh, kw, stride,
+                                       pad, bias):
+    g = torch.Generator(device=card).manual_seed(h * w + co)
+    x = _i8(g, (n, h, w, ci), -64, 64)
+    wt = _i8(g, (kh, kw, ci, co), -32, 32)
+    b = torch.randint(-500, 500, (co,), generator=g, device=card,
+                      dtype=torch.int32) if bias else None
+    kw_ = dict(stride=stride, padding=pad, acc_dtype=torch.int32,
+               out_dtype=torch.int8, shift=7, activation=Activation.RELU)
+    n0 = tconv.conv2d_implicit.launches
+    got = tconv.conv2d_implicit(x, wt, b, **kw_)
+    assert tconv.conv2d_implicit.launches == n0 + 1
+    assert torch.equal(got, tref.conv2d_ref(x, wt, b, **kw_))
+
+
+@pytest.mark.parametrize("act", ["GELU", "SILU"])
+def test_int_kernels_refuse_float_units(card, act):
+    """GELU / SiLU on an int32 accumulator raise before any launch, as
+    the plain version does."""
+    x = torch.ones((4, 32), dtype=torch.int8, device=card)
+    kw = dict(acc_dtype=torch.int32, out_dtype=torch.int8,
+              activation=Activation[act])
+    for fn in (tgemm.gemm_os, tgemm.gemm_ws):
+        with pytest.raises(ValueError, match="float unit"):
+            fn(x, x.T, **kw)
+    with pytest.raises(ValueError, match="float unit"):
+        tgemm.accumulator_epilogue(x.int(), out_dtype=torch.int8,
+                                   activation=Activation[act])
+    with pytest.raises(ValueError, match="float unit"):
+        tconv.conv2d_implicit(x.reshape(1, 2, 2, 32), x.reshape(1, 1, 32, 4),
+                              **kw)

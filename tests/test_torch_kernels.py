@@ -295,9 +295,10 @@ def test_cpu_tensors_take_the_plain_versions():
         x, torch.ones((8, 4)))
     q = torch.ones((1, 4, 2, 16))
     tak.flash_attention(q, q, q)
-    assert launch_counts() == {"gemm": 0, "flash_attention": 0,
-                               "paged_prefill_attention": 0,
-                               "paged_decode_attention": 0}
+    counts = launch_counts()
+    assert {"gemm", "flash_attention", "paged_prefill_attention",
+            "paged_decode_attention"} <= set(counts)
+    assert set(counts.values()) == {0}
 
 
 def test_unknown_device_raises_instead_of_falling_back():
