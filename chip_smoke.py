@@ -35,7 +35,37 @@ Needs one CUDA card, ``nvcc`` and the repository checkout around this file
    classifier as a GEMM) three ways: host im2col + OS GEMM, host im2col +
    WS GEMM, and the fused conv kernel. Every output equals the plain
    version bit for bit and OS equals WS; launch counts are zeroed just
-   before and read just after, and every engine kernel must have run.
+   before and read just after, and every engine kernel must have run;
+7. recurrent serve: mamba2-1.3b at its published widths (48 layers,
+   d_model 2048, d_state 128; bf16, weights from seed 0) on phase 4's
+   traffic; the chunked SSD must launch once per layer for every prefill
+   chunk, fresh and resumed, and no attention kernel may run; a 256-token
+   prompt's prefill logits are held against the CPU plain path in fp32
+   (``FP32_LOGITS_LIMIT``) and in bf16 (``hold_bf16``: the card's bf16
+   gap from the fp32 logits at most twice the CPU's);
+8. hybrid serve: hymba-1.5b at full width (128 meta tokens, window 1024),
+   two requests of 700 and 200 tokens, 16 new tokens each; the SSD, flash,
+   paged prefill, paged decode and GEMM kernels must all launch; prefill
+   logits against the CPU as in phase 7;
+9. gate: the port's ``serve_decode`` at smoke size, fp32 model and engine,
+   for gemma2-2b, mamba2-1.3b, hymba-1.5b and musicgen-medium: on the card
+   the engine's greedy tokens equal the static path's (dense decode
+   kernel), and both equal the CPU plain path's;
+10. static path: gemma3-1b at full width with phase 4's weights, bf16,
+   through ``prefill_into_cache`` and 16 ``decode_step`` calls on a
+   768-token prompt (the dense decode kernel's main path: it must launch
+   once per step and layer); the logits, teacher-forced with the card's
+   tokens on the CPU, are held by ``hold_bf16``.
+
+Phase 3 also holds the chunked SSD (mamba2-1.3b's and hymba-1.5b's
+widths, fresh and resumed, and a ragged 7-token prompt; final states
+against the naive recurrence in fp64) and dense decode attention in bf16
+at phase 10's shapes, at four sequences of 2048 and at hymba-1.5b's
+shape, and in fp32 at phase 9's (each attention arch's longest request,
+its windows and softcap). Every main path's launch counts are zeroed
+just before it and read just after; the kernels line takes each kernel's
+count from its own path: the serve phase, the engine phase, the recurrent
+serve (``ssd``) or the static path (``decode_attention``).
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``. Per-shape results and the
@@ -59,6 +89,18 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "int": 1979e12}
 REPS = 25
+
+# Full-width logits, card against the CPU plain path. fp32: each limit sits
+# between the card's fp32 reading and the bf16 gap (mamba2-1.3b 7.5e-4 vs
+# 2.9e-1, hymba-1.5b 2.2e-5 vs 4.6e-2, on an H100; PERF.md section 2).
+# bf16: see ``hold_bf16``.
+FP32_LOGITS_LIMIT = {"mamba2-1.3b": 5e-3, "hymba-1.5b": 1e-3}
+BF16_FACTOR = 2.0
+
+# Phase 10's static path: one gemma3-1b request, a prompt long enough that
+# the 512-token window drops keys, then greedy decode steps.
+STATIC_PROMPT = 768
+STATIC_STEPS = 16
 
 
 def log(msg: str) -> None:
@@ -302,7 +344,153 @@ def kernel_cases(torch, rng_seed=0):
                 None, False)
     decode_case([77, 0, 16, 33], 8, 2, 128, 16, 40, 8, 24, 50.0, False)
     engine_cases(torch, gen, cases)
+    recurrent_cases(torch, gen, cases)
     return cases
+
+
+def ssd_flops(t, h, p, g, n, chunk, carried):
+    """Operations the chunked SSD needs per batch row: per chunk of q rows
+    the causal C.B^T scores once per B/C group (2 q(q+1)/2 N), and per
+    head the weighted product with x (2 q(q+1)/2 P), the state update
+    (2 q N P) and, where a state is carried in, its term (2 q N P)."""
+    q = min(chunk, t)
+    total = 0.0
+    for t0 in range(0, t, q):
+        qq = min(q, t - t0)
+        tri = qq * (qq + 1) / 2
+        total += g * 2 * tri * n + h * (2 * tri * p + 2 * qq * n * p)
+        if t0 > 0 or carried:
+            total += h * 2 * qq * n * p
+    return total
+
+
+def recurrent_cases(torch, gen, cases):
+    """The chunked SSD at mamba2-1.3b's and hymba-1.5b's widths (bf16 x,
+    B, C; fp32 dt and states), fresh and resumed, and on a ragged 7-token
+    prompt; dense decode attention at gemma3-1b's shape (global and the
+    512 window) and hymba-1.5b's (GQA 25 / 5, head dim 64, window 1024).
+
+    The SSD's y is held against the plain version in bf16; its final
+    state against the naive recurrence in fp64 (``tests/_ssd_exact.py``)
+    within ``fp32_tolerance`` (exp of the per-chunk cumulative decay turns
+    that sum's fp32 rounding into a relative error). Its bound takes the
+    fp32 CUDA-core peak (67 TFLOP/s): the kernel's math is fp32 on CUDA
+    cores."""
+    from _ssd_exact import fp32_tolerance, ssd_fp64
+
+    from repro_torch import configs
+    from repro_torch.kernels import attention as ka
+    from repro_torch.kernels import mamba2 as km
+
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def randn(*shape, dtype=bf16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                ).to(dtype)
+
+    def ssd_case(arch, t, resume, rep):
+        cfg = configs.get(arch)
+        h, p, g, n = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups, \
+            cfg.d_state
+        chunk = cfg.ssm_chunk
+        x = randn(1, t, h, p)
+        b, c = randn(1, t, g, n, scale=0.3), randn(1, t, g, n, scale=0.3)
+        dt = torch.nn.functional.softplus(randn(1, t, h, dtype=f32))
+        a_log = torch.log(torch.linspace(1.0, 16.0, h, device="cuda"))
+        d_skip = torch.ones((h,), dtype=f32, device="cuda")
+        init = randn(1, h, n, p, dtype=f32, scale=0.5) if resume else None
+        kw = dict(d_skip=d_skip, chunk=chunk, initial_state=init,
+                  return_final_state=True)
+        name = f"ssd [{arch} T={t}]"
+
+        def check(got, want):
+            err = check_close(torch, name, got[0], want[0], "bf16")
+            _, exact = ssd_fp64(x, dt, a_log, b, c, d_skip=d_skip,
+                                initial_state=init)
+            tol = fp32_tolerance(dt, a_log, chunk)
+            st_err = (got[1].double() - exact).abs().max().item()
+            scale = exact.abs().max().item()
+            if not torch.isfinite(got[1]).all() or st_err > tol * scale:
+                fail(f"{name}: final state err {st_err:.3e} > {tol:.2e} x "
+                     f"{scale:.3e}")
+            log(f"{name}: final state err {st_err:.3e} (limit "
+                f"{tol * scale:.3e}, fp64 recurrence)")
+            return err
+
+        nbytes = (2 * 2 * t * h * p + 2 * 2 * t * g * n + 4 * t * h + 8 * h
+                  + 4 * h * n * p * (2 if resume else 1))
+        cases.append(("ssd", f"{arch} B=1 T={t} H={h} P={p} G={g} N={n} "
+                      f"chunk={chunk} {'resumed' if resume else 'fresh'}",
+                      rep, "bf16",
+                      lambda: km.ssd(x, dt, a_log, b, c, **kw),
+                      lambda: km.ssd_plain(x, dt, a_log, b, c, **kw), None,
+                      nbytes, ssd_flops(t, h, p, g, n, chunk, resume),
+                      dict(check=check, peak="fp32")))
+    ssd_case("mamba2-1.3b", 1000, False, True)
+    ssd_case("mamba2-1.3b", 1000, True, False)
+    ssd_case("hymba-1.5b", 1000, False, False)
+    ssd_case("hymba-1.5b", 1000, True, False)
+    ssd_case("mamba2-1.3b", 7, False, False)
+
+    def decode_case(b, s, h, kvh, dh, pos, window, softcap, rep,
+                    dtype=bf16):
+        q = randn(b, 1, h, dh, dtype=dtype)
+        k = randn(b, s, kvh, dh, dtype=dtype)
+        v = randn(b, s, kvh, dh, dtype=dtype)
+        kw = dict(window=window, softcap=softcap)
+        kpos = torch.arange(s, device="cuda")
+        lo = max(0, pos - window + 1) if window else 0
+        live = min(pos + 1, s) - lo
+        mask = (kpos <= pos) & (kpos >= lo)
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask[None, None, None, :], enable_gqa=True)
+        lib = library if softcap is None else None
+        if lib is not None:
+            try:                      # the yardstick only, never the port
+                lib()
+            except RuntimeError as e:
+                log(f"scaled_dot_product_attention refused: {e}")
+                lib = None
+        kind = "fp32" if dtype == f32 else "bf16"
+        nbytes = q.element_size() * (2 * b * h * dh + 2 * b * live * kvh * dh)
+        cases.append(("decode_attention",
+                      f"{kind} B={b} S={s} pos={pos} H={h} KVH={kvh} D={dh} "
+                      f"window={window} softcap={softcap}", rep, kind,
+                      lambda: ka.decode_attention(q, k, v, pos, **kw),
+                      lambda: ka.decode_attention_plain(q, k, v, pos, **kw),
+                      lib, nbytes, 4.0 * dh * h * b * live))
+    # phase 10's static path: gemma3-1b's last decode step, global and local
+    g3 = configs.get("gemma3-1b")
+    s_max = STATIC_PROMPT + STATIC_STEPS
+    decode_case(1, s_max, g3.n_heads, g3.n_kv_heads, g3.head_dim, s_max - 1,
+                None, None, True)
+    decode_case(1, s_max, g3.n_heads, g3.n_kv_heads, g3.head_dim, s_max - 1,
+                g3.local_window, None, False)
+    # and a batch of four at the serve phase's longest context
+    for window in (None, g3.local_window):
+        decode_case(4, 2048, g3.n_heads, g3.n_kv_heads, g3.head_dim, 1999,
+                    window, None, False)
+    hy = configs.get("hymba-1.5b")
+    decode_case(1, 2048, hy.n_heads, hy.n_kv_heads, hy.head_dim, 1500,
+                hy.local_window, None, False)
+    decode_case(2, 100, 8, 2, 128, 99, 24, 50.0, False)
+    # phase 9's gate in fp32: each attention arch's longest request at its
+    # last decode step, with its windows and softcap
+    from repro_torch.examples import serve_decode as sd
+    for arch in sd.ARCHS:
+        cfg = configs.get_smoke(arch)
+        if not cfg.has_attn:
+            continue
+        s_gate = max(p + cfg.n_meta_tokens + g
+                     for p, g in zip(sd.PROMPT_LENS, sd.GEN_LENS))
+        for window in (None, cfg.local_window) if cfg.local_window \
+                else (None,):
+            decode_case(1, s_gate, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                        s_gate - 1, window, cfg.attn_softcap, False,
+                        dtype=f32)
 
 
 def engine_cases(torch, gen, cases):
@@ -382,18 +570,28 @@ def engine_cases(torch, gen, cases):
 
 
 def run_kernel_phase(torch, timer):
+    """Each case: (kernel, label, representative, kind, run_kernel,
+    run_plain, run_library, bytes, flops[, opts]); ``opts["check"]``
+    replaces ``check_close`` for a kernel with several outputs and
+    ``opts["peak"]`` names the rate its operations run at, where that is
+    not the tolerance kind's."""
     rows, summary = [], {}
-    for (kernel, label, rep, kind, run_k, run_p, run_lib, nbytes,
-         flops) in kernel_cases(torch):
+    for (kernel, label, rep, kind, run_k, run_p, run_lib, nbytes, flops,
+         *opts) in kernel_cases(torch):
+        opts = opts[0] if opts else {}
         got = run_k()
         torch.cuda.synchronize()
         want = run_p()
-        err = check_close(torch, f"{kernel} [{label}]", got, want, kind)
+        if "check" in opts:
+            err = opts["check"](got, want)
+        else:
+            err = check_close(torch, f"{kernel} [{label}]", got, want, kind)
+        del got, want
         ms = timer(run_k)
         host_ms = timer.host_ms(run_k)
         plain_ms = timer(run_p)
         lib_ms = timer(run_lib) if run_lib is not None else None
-        b_ms, b_by = bound_ms(nbytes, flops, kind)
+        b_ms, b_by = bound_ms(nbytes, flops, opts.get("peak", kind))
         row = {"name": kernel, "shape": label, "max_abs_err": err, "ms": ms,
                "host_ms": host_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
@@ -492,13 +690,15 @@ def run_serve_phase(torch, np):
         f"error {rel:.3e} (limit 5e-2)")
     if not rel <= 5e-2:
         fail(f"full-width logits disagree with the plain path: {rel:.3e}")
-    return counts, s, run_profile_phase(torch, engine)
+    return counts, s, run_profile_phase(torch, engine), engine
 
 
 # ---------------------------------------------------------------------------
 # phase 4b: where a full-width decode step and prefill chunk spend time
 # ---------------------------------------------------------------------------
-_KERNEL_NAMES = (("ConvA", "conv2d_implicit"), ("MatrixA", "gemm[int8]"),
+_KERNEL_NAMES = (("ssd_kernel", "ssd"),
+                 ("dense_decode_kernel", "decode_attention"),
+                 ("ConvA", "conv2d_implicit"), ("MatrixA", "gemm[int8]"),
                  ("epilogue_kernel", "accumulator_epilogue"),
                  ("gemm_bf16_kernel", "gemm"), ("gemm_f32_kernel", "gemm"),
                  ("paged_decode_kernel", "paged_decode_attention"),
@@ -793,6 +993,321 @@ def run_engine_phase(torch, smi):
 
 
 # ---------------------------------------------------------------------------
+# phases 7-8: the recurrent and hybrid families served at full width
+# ---------------------------------------------------------------------------
+ATTN_KERNELS = ("flash_attention", "paged_prefill_attention",
+                "paged_decode_attention", "decode_attention")
+
+
+def serve_family(torch, np, arch, prompt_lens, new_tokens, chunk=256):
+    """``arch`` at its published widths (bf16, weights from seed 0) through
+    ``ServingEngine``: the requests are submitted at once, launch counts
+    zeroed just before ``run`` and read just after. Returns (engine,
+    prompts, counts, ssd launches on resumed chunks, summary)."""
+    from repro_torch import configs, kernels
+    from repro_torch.kernels import mamba2
+    from repro_torch.serving import ServingEngine
+
+    cfg = configs.get(arch)
+    t0 = time.perf_counter()
+    engine = ServingEngine(cfg, max_slots=4, max_context=2048, page_size=64,
+                           prefill_chunk=chunk, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(engine.params))
+    log(f"{arch} full width: {n_params / 1e9:.3f} B parameters, "
+        f"{cfg.n_layers} layers; init {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, (n,)).astype(np.int32)
+               for n in prompt_lens]
+    for p in prompts:
+        engine.submit(p, new_tokens)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    report = engine.run()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    resumed = mamba2.ssd.resumed_launches
+    for r in report["requests"]:
+        toks = np.asarray(r["tokens"])
+        if r["status"] != "finished" or r["new_tokens"] != new_tokens or \
+                toks.shape != (new_tokens,) or toks.min() < 0 or \
+                toks.max() >= cfg.vocab:
+            fail(f"{arch} request {r['rid']}: status {r['status']}, "
+                 f"{r['new_tokens']} of {new_tokens} tokens")
+    s = report["summary"]
+    log(f"{arch} serve: {int(s['requests'])} requests, "
+        f"{int(s['new_tokens'])} new tokens in {s['wall_s']:.3f} s = "
+        f"{s['tokens_per_s']:.2f} tok/s; TTFT p50 "
+        f"{s['p50_ttft_s'] * 1e3:.1f} ms p99 {s['p99_ttft_s'] * 1e3:.1f} ms; "
+        f"ITL p50 {s['p50_itl_s'] * 1e3:.2f} ms p95 "
+        f"{s['p95_itl_s'] * 1e3:.2f} ms; {int(s['prefill_chunks'])} "
+        f"prefill chunks, {int(s['iterations'])} iterations, "
+        f"{int(s['preemptions'])} preemptions; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"{arch} serve launch counts: {counts}; ssd on resumed chunks "
+        f"{resumed}")
+    return engine, prompts, counts, resumed, s
+
+
+def as_fp32(torch, engine):
+    """(model config, execution context, params) of ``engine`` in the fp32
+    model dtype and engine config."""
+    from repro_torch.core.config import GemminiConfig
+    from repro_torch.core.context import ExecutionContext
+
+    return (dataclasses.replace(engine.model_cfg, dtype=torch.float32),
+            ExecutionContext(cfg=GemminiConfig(
+                input_dtype="fp32", acc_dtype="fp32", output_dtype="fp32")),
+            _tree_map(lambda t: t.float(), engine.params))
+
+
+def prefill_logits(torch, engine, prompt, fp32=False):
+    """The prompt's fresh prefill logits on the card (kernels) and on the
+    CPU (plain path), same weights; ``fp32`` runs both in the fp32 model
+    dtype and engine config."""
+    from repro_torch.models import transformer as tf
+
+    cfg, ctx, params = as_fp32(torch, engine) if fp32 else \
+        (engine.model_cfg, engine.engine, engine.params)
+    mp = engine.max_pages_per_seq
+    pages = torch.arange(mp, dtype=torch.int32)
+    toks = torch.from_numpy(prompt[None])
+    outs = {}
+    for dev, p in (("cuda", params),
+                   ("cpu", _tree_map(lambda t: t.cpu(), params))):
+        state = tf.init_paged_state(cfg, 1, mp, engine.page_size, mp,
+                                    dtype=cfg.dtype, device=dev)
+        outs[dev], _ = tf.paged_prefill(ctx, p, cfg, toks.to(dev), state, 0,
+                                        pages.to(dev),
+                                        page_size=engine.page_size)
+    return outs["cuda"].float().cpu(), outs["cpu"].float()
+
+
+def rel_l2(got, want) -> float:
+    return ((got - want).norm() / want.norm()).item()
+
+
+def hold_bf16(name, card, cpu, exact):
+    """bf16 logits on the card (kernels) against bf16 logits on the CPU
+    (plain path), each measured from the CPU's fp32 logits on the same
+    weights and tokens: the card's bf16 gap may be at most BF16_FACTOR
+    times the CPU's. Both round at the same points (bf16 operands, fp32
+    sums) in other orders, so their gaps should be alike; a kernel fault
+    adds its own error on top. A fixed limit on the card-vs-CPU bf16 gap
+    would not do: these random-weight stacks amplify rounding layer by
+    layer (at mamba2-1.3b's 48 layers the CPU's own bf16 logits are
+    further from its fp32 ones than the card's bf16 logits are from the
+    CPU's), so that gap says more about depth than about the kernels."""
+    g_card, g_cpu = rel_l2(card, exact), rel_l2(cpu, exact)
+    log(f"{name}: bf16 relative L2 from the fp32 CPU logits: card "
+        f"{g_card:.3e}, CPU {g_cpu:.3e} (ratio {g_card / g_cpu:.3f}, limit "
+        f"{BF16_FACTOR}); card vs CPU in bf16 {rel_l2(card, cpu):.3e}")
+    if not g_card <= BF16_FACTOR * g_cpu:
+        fail(f"{name}: the card's bf16 logits are {g_card:.3e} from fp32, "
+             f"over {BF16_FACTOR} x the CPU's {g_cpu:.3e}")
+    return {"bf16_card_vs_fp32": g_card, "bf16_cpu_vs_fp32": g_cpu,
+            "bf16_card_vs_cpu": rel_l2(card, cpu)}
+
+
+def check_prefill_logits(torch, engine, prompt, name, fp32_limit):
+    """The prompt's fresh prefill logits on the card (kernels) against the
+    plain path on the CPU, same weights: in the fp32 model dtype and engine
+    config within ``fp32_limit`` relative L2, and in bf16 by
+    :func:`hold_bf16`."""
+    cfg = engine.model_cfg
+    out = {}
+    for fp32 in (True, False):
+        got, want = prefill_logits(torch, engine, prompt, fp32=fp32)
+        if got.shape != (1, len(prompt) + cfg.n_meta_tokens, cfg.vocab) or \
+                not torch.isfinite(got).all():
+            fail(f"{name} logits: shape {tuple(got.shape)} or non-finite")
+        out["fp32" if fp32 else "bf16"] = got, want
+    rel = {"fp32": rel_l2(*out["fp32"]), "fp32_limit": fp32_limit}
+    log(f"{name}: {len(prompt)}-token prefill logits vs the CPU plain path "
+        f"in fp32: relative L2 error {rel['fp32']:.3e} (limit {fp32_limit})")
+    if not rel["fp32"] <= fp32_limit:
+        fail(f"{name} fp32 logits disagree with the plain path: "
+             f"{rel['fp32']:.3e}")
+    rel.update(hold_bf16(name, *out["bf16"], out["fp32"][1]))
+    return rel
+
+
+def profile_family(torch, engine):
+    """``profile_call`` for one decode step of four slots at
+    1000/512/300/64 cached tokens and one 256-token continuation chunk at
+    position 768, with the recurrent state carried."""
+    from repro_torch.models import transformer as tf
+
+    cfg, ctx, params = engine.model_cfg, engine.engine, engine.params
+    mp, page = engine.max_pages_per_seq, engine.page_size
+    state = tf.init_paged_state(cfg, 4, 4 * mp, page, mp, dtype=cfg.dtype,
+                                device="cuda")
+    state.tables.copy_(torch.arange(4 * mp, dtype=torch.int32,
+                                    device="cuda").reshape(4, mp))
+    decode_state = state._replace(lengths=torch.tensor(
+        [1000, 512, 300, 64], dtype=torch.int32, device="cuda"))
+    active = torch.ones((4,), dtype=torch.bool, device="cuda")
+    toks = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
+    chunk = torch.zeros((1, 256), dtype=torch.int32, device="cuda")
+    steps = {
+        "decode_step": lambda: tf.paged_decode_step(
+            ctx, params, cfg, toks, decode_state, active, page_size=page),
+        "prefill_chunk": lambda: tf.paged_prefill_chunk(
+            ctx, params, cfg, chunk, state, 0, state.tables[0], 768,
+            page_size=page, kv_pages=16),
+    }
+    return {name: profile_call(torch, f"{cfg.name} {name}", fn)
+            for name, fn in steps.items()}
+
+
+def run_ssm_phase(torch, np):
+    """mamba2-1.3b, phase 4's traffic: the chunked SSD runs every prefill
+    chunk (fresh and resumed), the GEMM every projection, and no attention
+    kernel runs (the family has none)."""
+    engine, prompts, counts, resumed, s = serve_family(
+        torch, np, "mamba2-1.3b", SERVE_PROMPTS, SERVE_NEW)
+    L = engine.model_cfg.n_layers
+    chunks, reqs = int(s["prefill_chunks"]), int(s["requests"])
+    want = {"ssd": chunks * L, "resumed": (chunks - reqs) * L}
+    if counts["ssd"] != want["ssd"] or resumed != want["resumed"] or \
+            resumed <= 0 or counts["gemm"] <= 0 or \
+            any(counts[k] for k in ATTN_KERNELS) or s["preemptions"]:
+        fail(f"mamba2-1.3b launch counts {counts} (ssd resumed {resumed}) "
+             f"are not the path's: want ssd {want['ssd']} ({want['resumed']} "
+             f"resumed) for {chunks} chunks x {L} layers, gemm > 0, no "
+             f"attention kernel, no preemption")
+    rng = np.random.default_rng(1)
+    prompt = rng.integers(0, engine.model_cfg.vocab, (256,)).astype(np.int32)
+    rel = check_prefill_logits(torch, engine, prompt, "mamba2-1.3b",
+                               FP32_LOGITS_LIMIT["mamba2-1.3b"])
+    profile = profile_family(torch, engine)
+    return counts, resumed, {"summary": s, "logits_rel_l2": rel,
+                             "profile": profile}
+
+
+def run_hybrid_phase(torch, np):
+    """hymba-1.5b (128 meta tokens, window 1024): every serving kernel
+    runs -- flash on first chunks, paged prefill on continuations, paged
+    decode, the SSD fresh and resumed, the GEMM."""
+    engine, prompts, counts, resumed, s = serve_family(
+        torch, np, "hymba-1.5b", (700, 200), 16)
+    need = ("ssd", "flash_attention", "paged_prefill_attention",
+            "paged_decode_attention", "gemm")
+    if any(counts[k] <= 0 for k in need) or resumed <= 0:
+        fail(f"hymba-1.5b: kernels of the path not launched: {counts} "
+             f"(ssd resumed {resumed})")
+    rel = check_prefill_logits(torch, engine, prompts[1][:128],
+                               "hymba-1.5b", FP32_LOGITS_LIMIT["hymba-1.5b"])
+    profile = profile_family(torch, engine)
+    return counts, resumed, {"summary": s, "logits_rel_l2": rel,
+                             "profile": profile}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the four-family gate, engine vs static path vs CPU, in fp32
+# ---------------------------------------------------------------------------
+def run_gate_phase(torch):
+    """The port's ``serve_decode`` at smoke size with the fp32 model dtype
+    and engine config: on the card the engine's greedy tokens must equal
+    the static path's (dense decode kernel), and both the CPU plain
+    path's."""
+    from repro_torch import kernels
+    from repro_torch.examples import serve_decode
+
+    kernels.reset_launch_counts()
+    card = {a: serve_decode.run_arch(a, device="cuda", fp32=True,
+                                     verbose=False)
+            for a in serve_decode.ARCHS}
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    for arch in serve_decode.ARCHS:
+        cpu = serve_decode.run_arch(arch, device="cpu", fp32=True,
+                                    verbose=False)
+        got = card[arch]
+        if not got["ok"] or got["engine"] != cpu["engine"] or \
+                got["reference"] != cpu["reference"]:
+            fail(f"gate {arch} fp32: engine {got['engine']} / static "
+                 f"{got['reference']} on the card, engine {cpu['engine']} / "
+                 f"static {cpu['reference']} on the CPU")
+        log(f"gate {arch} fp32: engine == static path on the card == CPU "
+            f"({sum(len(t) for t in got['engine'])} tokens)")
+    if counts["decode_attention"] <= 0 or counts["ssd"] <= 0:
+        fail(f"gate: the static path's kernels did not launch: {counts}")
+    log(f"gate launch counts: {counts}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the static reference path at full width
+# ---------------------------------------------------------------------------
+def static_path(torch, ctx, cfg, params, prompt, device, tokens=None):
+    """``prefill_into_cache`` over ``prompt``, then STATIC_STEPS
+    ``decode_step`` calls, one request with a dense KV cache. Greedy on the
+    logits unless ``tokens`` gives the tokens to feed (teacher forcing).
+    Returns the fed tokens and the (STATIC_STEPS + 1, vocab) fp32 logits
+    of the prompt's last position and of every decode step."""
+    from repro_torch.models import transformer as tf
+
+    state = tf.init_decode_state(cfg, 1, len(prompt) + STATIC_STEPS,
+                                 dtype=cfg.dtype, device=device)
+    logits, state = tf.prefill_into_cache(
+        ctx, params, cfg, torch.from_numpy(prompt[None]).to(device), state)
+    rows, fed = [logits[0, -1].float().cpu()], []
+    del logits
+    for i in range(STATIC_STEPS):
+        fed.append(int(tokens[i]) if tokens is not None else
+                   int(torch.argmax(rows[-1])))
+        logits, state = tf.decode_step(
+            ctx, params, cfg, torch.tensor([[fed[-1]]], dtype=torch.int32,
+                                           device=device), state)
+        rows.append(logits[0, -1].float().cpu())
+    return fed, torch.stack(rows)
+
+
+def run_static_phase(torch, np, engine):
+    """gemma3-1b at full width with phase 4's weights through the static
+    path (``prefill_into_cache`` + ``decode_step``), bf16: the dense decode
+    kernel runs every decode step of every layer, at the shapes phase 3
+    holds it at. The card's logits are then held against the CPU plain
+    path's, teacher-forced with the card's tokens, by :func:`hold_bf16`."""
+    from repro_torch import kernels
+
+    cfg = engine.model_cfg
+    rng = np.random.default_rng(2)
+    prompt = rng.integers(0, cfg.vocab, (STATIC_PROMPT,)).astype(np.int32)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    toks, card = static_path(torch, engine.engine, cfg, engine.params,
+                             prompt, "cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    want = STATIC_STEPS * cfg.n_layers
+    if counts["decode_attention"] != want or \
+            any(counts[k] for k in ("paged_prefill_attention",
+                                    "paged_decode_attention")):
+        fail(f"static path launch counts {counts}: want decode_attention "
+             f"{want} ({STATIC_STEPS} steps x {cfg.n_layers} layers) and no "
+             f"paged kernel")
+    if not torch.isfinite(card).all() or min(toks) < 0 or \
+            max(toks) >= cfg.vocab:
+        fail(f"static path: non-finite logits or bad tokens {toks}")
+    log(f"static path gemma3-1b full width: {STATIC_PROMPT}-token prompt + "
+        f"{STATIC_STEPS} decode steps in {wall:.3f} s; launch counts "
+        f"{counts}")
+    cpu_params = _tree_map(lambda t: t.cpu(), engine.params)
+    _, cpu = static_path(torch, engine.engine, cfg, cpu_params, prompt,
+                         "cpu", tokens=toks)
+    del cpu_params
+    cfg32, ctx32, params32 = as_fp32(torch, engine)
+    _, exact = static_path(torch, ctx32, cfg32,
+                           _tree_map(lambda t: t.cpu(), params32), prompt,
+                           "cpu", tokens=toks)
+    rel = hold_bf16("static path gemma3-1b", card, cpu, exact)
+    return counts, {"wall_s": wall, "tokens": toks, "logits_rel_l2": rel}
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -801,6 +1316,7 @@ def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail(f"no src/repro_torch beside {__file__}: run it from a checkout")
     sys.path.insert(0, SRC)
+    sys.path.insert(0, os.path.join(ROOT, "tests"))     # _ssd_exact
     import numpy as np
 
     from repro_torch import kernels
@@ -837,7 +1353,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 4. serve at full width (the main path: counts zeroed inside)
-    counts, serve_summary, profile = run_serve_phase(torch, np)
+    counts, serve_summary, profile, engine = run_serve_phase(torch, np)
     torch.cuda.empty_cache()
 
     # 5. fp32 end to end, card against CPU
@@ -846,8 +1362,27 @@ def main() -> int:
 
     # 6. the Gemmini engine path (its own main path: counts zeroed inside)
     engine_counts, engine_summary = run_engine_phase(torch, smi)
+    torch.cuda.empty_cache()
 
-    # 7. the kernels line
+    # 7-8. the recurrent and hybrid families at full width (each its own
+    # main path: counts zeroed inside)
+    ssm_counts, ssm_resumed, ssm_summary = run_ssm_phase(torch, np)
+    torch.cuda.empty_cache()
+    hybrid_counts, hybrid_resumed, hybrid_summary = run_hybrid_phase(torch,
+                                                                     np)
+    torch.cuda.empty_cache()
+
+    # 9. the four-family gate at smoke size
+    gate_counts = run_gate_phase(torch)
+    torch.cuda.empty_cache()
+
+    # 10. the static path at full width (the dense decode kernel's main
+    # path: counts zeroed inside)
+    static_counts, static_summary = run_static_phase(torch, np, engine)
+    del engine
+    torch.cuda.empty_cache()
+
+    # 11. the kernels line
     meta = {
         "gemm": ("csrc/gemm.cu", "src/repro/kernels/gemm.py:105"),
         "flash_attention": ("csrc/attention.cu",
@@ -861,12 +1396,19 @@ def main() -> int:
         "accumulator_epilogue": ("csrc/gemm.cu",
                                  "src/repro/kernels/gemm.py:217"),
         "conv2d_implicit": ("csrc/conv.cu", "src/repro/kernels/conv.py:140"),
+        "ssd": ("csrc/ssd.cu", "src/repro/kernels/mamba2.py:151"),
+        "decode_attention": ("csrc/attention.cu",
+                             "src/repro/kernels/attention.py:276"),
     }
     line = []
     for name, (src, replaces) in meta.items():
         r = rep_rows[name]
-        launches = engine_counts[name] if name in kernels.ENGINE_KERNELS \
-            else counts[name]
+        launches = (engine_counts if name in kernels.ENGINE_KERNELS else
+                    ssm_counts if name in kernels.RECURRENT_KERNELS else
+                    static_counts if name in kernels.STATIC_KERNELS else
+                    counts)[name]
+        if launches <= 0:
+            fail(f"kernel {name}: no launch on its main path")
         line.append({"name": name, "route": "cuda",
                      "source": "src/repro_torch/kernels/" + src,
                      "replaces": replaces, "launches": launches,
@@ -879,7 +1421,14 @@ def main() -> int:
                    "ptxas": ptxas, "kernels": rows, "serve": serve_summary,
                    "serve_launches": counts, "profile": profile,
                    "engine": engine_summary,
-                   "engine_launches": engine_counts}, f, indent=1)
+                   "engine_launches": engine_counts,
+                   "ssm": ssm_summary, "ssm_launches": ssm_counts,
+                   "ssm_resumed_ssd_launches": ssm_resumed,
+                   "hybrid": hybrid_summary, "hybrid_launches": hybrid_counts,
+                   "hybrid_resumed_ssd_launches": hybrid_resumed,
+                   "gate_launches": gate_counts,
+                   "static": static_summary,
+                   "static_launches": static_counts}, f, indent=1)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {

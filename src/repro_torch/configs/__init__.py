@@ -1,5 +1,6 @@
-"""Architecture registry (port of ``repro.configs``) for the archs this
-slice serves. ``get(name)`` returns the full-size ModelConfig;
+"""Architecture registry (port of ``repro.configs``) for the archs the
+port serves: the dense gemma3-1b, gemma2-2b and qwen1.5-4b, the recurrent
+mamba2-1.3b, the hybrid hymba-1.5b and the multi-codebook musicgen-medium. ``get(name)`` returns the full-size ModelConfig;
 ``get_smoke(name)`` the reduced same-family config the CPU tests use."""
 
 from __future__ import annotations
@@ -31,10 +32,16 @@ def get_smoke(name: str) -> ModelConfig:
     reduction rule)."""
     cfg = get(name)
     kw = dict(n_layers=2, d_model=64, vocab=128, d_ff=128 if cfg.d_ff else 0,
-              head_dim=16, dtype=cfg.dtype, n_heads=4,
-              n_kv_heads=max(1, cfg.n_kv_heads * 4 // max(cfg.n_heads, 1)))
+              head_dim=16, dtype=cfg.dtype)
+    if cfg.has_attn:
+        kw.update(n_heads=4, n_kv_heads=max(1, cfg.n_kv_heads * 4
+                                            // max(cfg.n_heads, 1)))
+    if cfg.has_ssm:
+        kw.update(d_state=8, ssm_head_dim=8)
     if cfg.local_window:
         kw.update(local_window=8)
+    if cfg.n_meta_tokens:
+        kw.update(n_meta_tokens=4)
     return dataclasses.replace(cfg, **kw)
 
 
@@ -45,5 +52,7 @@ def _ensure_loaded():
     global _LOADED
     if _LOADED:
         return
-    from repro_torch.configs import gemma3_1b, qwen1_5_4b   # noqa: F401
+    from repro_torch.configs import (gemma2_2b, gemma3_1b,  # noqa: F401
+                                     hymba_1_5b, mamba2_1_3b,
+                                     musicgen_medium, qwen1_5_4b)
     _LOADED = True

@@ -3,7 +3,8 @@
 
 The context carries the elaborated :class:`GemminiConfig`; the ops are
 ``ctx.gemm``, ``ctx.matmul``, ``ctx.conv2d``, ``ctx.flash_attention``,
-``ctx.paged_attention`` and ``ctx.paged_prefill_attention``. There is no
+``ctx.decode_attention``, ``ctx.paged_attention``,
+``ctx.paged_prefill_attention`` and ``ctx.ssd``. There is no
 backend knob: the device of the operands decides. A CUDA tensor launches
 the hand-written kernel or the call raises; a CPU tensor runs the plain
 PyTorch version. No fallback runs in between. The mesh and the tuner are
@@ -23,6 +24,7 @@ from repro_torch.core.tiling import _resolve_dataflow
 from repro_torch.kernels import attention as attn_kernels
 from repro_torch.kernels import conv as conv_kernel
 from repro_torch.kernels import gemm as gemm_kernel
+from repro_torch.kernels import mamba2
 from repro_torch.kernels import ref
 
 
@@ -104,6 +106,15 @@ class ExecutionContext:
                                             window=window, softcap=softcap,
                                             scale=scale)
 
+    def decode_attention(self, q, k, v, pos: int, *,
+                         window: Optional[int] = None,
+                         softcap: Optional[float] = None,
+                         scale: Optional[float] = None) -> torch.Tensor:
+        """One query token against a dense (B, S, KVH, D) cache; keys at
+        positions <= ``pos`` (a host int) are live."""
+        return attn_kernels.decode_attention(q, k, v, pos, window=window,
+                                             softcap=softcap, scale=scale)
+
     def paged_attention(self, q, k_pool, v_pool, block_tables, lengths, *,
                         window: Optional[int] = None,
                         softcap: Optional[float] = None,
@@ -127,3 +138,17 @@ class ExecutionContext:
         return attn_kernels.paged_prefill_attention(
             q, k_pool, v_pool, block_table, start, window=window,
             softcap=softcap, scale=scale)
+
+    def ssd(self, x, dt, a_log, b, c, *, d_skip=None, chunk: int = 256,
+            initial_state=None, return_final_state: bool = False):
+        """The chunked Mamba-2 SSD (``repro.kernels.ops.ssd_impl``).
+
+        ``initial_state`` (B, H, N, P) fp32 resumes a previous segment;
+        None starts from zeros. Unlike the JAX dispatch, which sends a
+        resumed chunk to its XLA reference because the TPU kernel's state
+        scratch starts from zeros, the CUDA kernel takes the initial state
+        into its state accumulator: a continuation chunk runs on the card
+        too, and no plain version is on the card's path."""
+        return mamba2.ssd(x, dt, a_log, b, c, d_skip=d_skip, chunk=chunk,
+                          initial_state=initial_state,
+                          return_final_state=return_final_state)

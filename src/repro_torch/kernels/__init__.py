@@ -7,15 +7,18 @@ SERVING_KERNELS = ("gemm", "flash_attention", "paged_prefill_attention",
                    "paged_decode_attention")
 ENGINE_KERNELS = ("gemm[int8]", "gemm_ws", "accumulator_epilogue",
                   "conv2d_implicit")
+RECURRENT_KERNELS = ("ssd",)
+STATIC_KERNELS = ("decode_attention",)
 
 
 def launch_counters():
     """Every kernel, by the name the ``kernels`` report gives it, to the
     wrapper whose plain ``launches`` count grows by one per launch of it:
-    the serving path's four, then the engine path's (int8 GEMM in OS order,
+    the serving path's four, the engine path's (int8 GEMM in OS order,
     either GEMM in WS order, the mvout epilogue, the implicit-im2col
-    conv)."""
-    from repro_torch.kernels import attention, conv, gemm
+    conv), the recurrent families' chunked SSD and the static reference
+    path's dense decode attention."""
+    from repro_torch.kernels import attention, conv, gemm, mamba2
     return {"gemm": gemm.gemm,
             "flash_attention": attention.flash_attention,
             "paged_prefill_attention": attention.paged_prefill_attention,
@@ -23,12 +26,16 @@ def launch_counters():
             "gemm[int8]": gemm.gemm_os,
             "gemm_ws": gemm.gemm_ws,
             "accumulator_epilogue": gemm.accumulator_epilogue,
-            "conv2d_implicit": conv.conv2d_implicit}
+            "conv2d_implicit": conv.conv2d_implicit,
+            "ssd": mamba2.ssd,
+            "decode_attention": attention.decode_attention}
 
 
 def reset_launch_counts() -> None:
+    from repro_torch.kernels import mamba2
     for fn in launch_counters().values():
         fn.launches = 0
+    mamba2.ssd.resumed_launches = 0
 
 
 def launch_counts():

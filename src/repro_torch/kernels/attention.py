@@ -1,16 +1,19 @@
 """Attention kernels (``csrc/attention.cu``) and their plain versions.
 
 Replaces, in ``repro.kernels.attention``: ``flash_attention``,
-``paged_decode_attention`` and ``paged_prefill_attention``. Each wrapper
-launches its CUDA kernel for CUDA tensors (or raises) and runs its plain
-version for CPU tensors; ``<wrapper>.launches`` counts kernel launches.
+``decode_attention``, ``paged_decode_attention`` and
+``paged_prefill_attention``. Each wrapper launches its CUDA kernel for
+CUDA tensors (or raises) and runs its plain version for CPU tensors;
+``<wrapper>.launches`` counts kernel launches.
 
 The plain versions mirror the JAX package's XLA twins in
 ``repro.models.attention``: ``blockwise_attention`` is
 ``blockwise_attention_xla`` (online softmax over KV blocks clamped to a
-128-multiple of the key length), ``paged_decode_attention_plain`` is
-``paged_decode_attention_xla`` and ``paged_prefill_attention_plain`` is
-``paged_prefill_attention_xla``. Where the two differ from the TPU kernels
+128-multiple of the key length), ``decode_attention_plain`` is the dense
+``decode_attention`` (its default, repeat-GQA branch),
+``paged_decode_attention_plain`` is ``paged_decode_attention_xla`` and
+``paged_prefill_attention_plain`` is ``paged_prefill_attention_xla``.
+Where the paged two differ from the TPU kernels
 -- a decode slot with ``len == 0``, and dead page slots that hold
 non-finite garbage -- the plain versions follow the kernels: keys past the
 live length are zeroed before they are used, so an empty slot yields a
@@ -94,6 +97,33 @@ def blockwise_attention(q, k, v, *, causal: bool = True,
         m = m_new
     out = acc / torch.clamp_min(l, 1e-37)[..., None]
     return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def decode_attention_plain(q, k, v, pos: int, *,
+                           window: Optional[int] = None,
+                           softcap: Optional[float] = None,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """One query token against a dense cache (``models.attention.
+    decode_attention``): q (B, 1, H, D), k/v (B, S, KVH, D); keys at
+    positions <= ``pos`` (and inside the window) are live."""
+    b, tq, h, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    rep = h // kvh
+    sc = scale if scale is not None else 1.0 / math.sqrt(d)
+    kpos = torch.arange(s, device=q.device)
+    mask = kpos <= pos
+    if window is not None:
+        mask = mask & (kpos > pos - window)
+    kh = k.repeat_interleave(rep, dim=2)
+    vh = v.repeat_interleave(rep, dim=2)
+    sl = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32) * sc,
+                      kh.to(torch.float32))
+    if softcap is not None:
+        sl = softcap * torch.tanh(sl / softcap)
+    sl = torch.where(mask[None, None, None], sl, NEG_INF)
+    p = torch.softmax(sl, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vh.to(torch.float32))
+    return out.to(q.dtype)
 
 
 def _gather(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
@@ -221,6 +251,40 @@ def flash_attention(q, k, v, *, causal: bool = True,
     return o
 
 
+def decode_attention(q, k, v, pos: int, *, window: Optional[int] = None,
+                     softcap: Optional[float] = None,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B, 1, H, D); k/v: (B, S, KVH, D) dense cache; ``pos``: host int,
+    keys 0..pos live. Returns (B, 1, H, D) in q's dtype."""
+    pos = int(pos)
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k, v, pos, window=window,
+                                      softcap=softcap, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention: no kernel for device {q.device}")
+    b, tq, h, d = q.shape
+    _, s, kvh, _ = k.shape
+    if tq != 1:
+        raise ValueError("decode_attention: one query token")
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"decode_attention: q {tuple(q.shape)} against k "
+                         f"{tuple(k.shape)} / v {tuple(v.shape)}")
+    _check_head("decode_attention", q, k, h, kvh, d)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _check_cuda("decode_attention", (q, k, v))
+    o = torch.empty_like(q)
+    fn = _build.bind("attention", "decode_attention_launch",
+                     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
+                      _P])
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, h,
+             kvh, d, pos, int(window or 0), float(softcap or 0.0),
+             _scale(scale, d), _DT[q.dtype],
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "decode_attention")
+    decode_attention.launches += 1
+    return o
+
+
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
                            window: Optional[int] = None,
                            softcap: Optional[float] = None,
@@ -307,5 +371,6 @@ def paged_prefill_attention(q, k_pool, v_pool, block_table, start: int, *,
 
 
 flash_attention.launches = 0
+decode_attention.launches = 0
 paged_decode_attention.launches = 0
 paged_prefill_attention.launches = 0

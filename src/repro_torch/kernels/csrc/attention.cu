@@ -1,12 +1,14 @@
 // Attention kernels for Hopper: flash (fresh prompt), paged prefill
-// (continuation chunk) and paged decode (one token per slot).
+// (continuation chunk), paged decode (one token per slot) and dense decode
+// (one token against a contiguous cache, the static reference path).
 //
 // Replaces, in src/repro/kernels/attention.py:
 //   flash_attention          (_attn_kernel)          -> prefill_attn_kernel<PAGED=false>
 //   paged_prefill_attention  (_paged_prefill_kernel) -> prefill_attn_kernel<PAGED=true>
 //   paged_decode_attention   (_paged_decode_kernel)  -> paged_decode_kernel
+//   decode_attention         (_decode_kernel)        -> dense_decode_kernel
 //
-// All three compute the TPU kernels' online softmax in fp32: scores of the
+// All four compute the TPU kernels' online softmax in fp32: scores of the
 // scaled query against each key, optional softcap, the causal / window /
 // length masks with the -0.7 * FLT_MAX mask constant (a -inf would turn a
 // fully masked row into exp(-inf - -inf) = NaN), the running (m, l, acc)
@@ -31,13 +33,17 @@
 //    contiguous channels (16-byte loads for bf16 at D = 256), and the
 //    warps' partial softmax states are merged at the end. Keys before the
 //    window or past the length are never read, and pages are found through
-//    the block table in device memory (no host sync).
+//    the block table in device memory (no host sync). Dense decode is the
+//    same body with contiguous (B, S, KVH, D) addressing: keys 0..pos are
+//    live (pos a host int shared by the batch), and blocks outside
+//    [max(0, pos - window + 1), min(pos + 1, S)) are never read.
 //
 // Head dims 16, 32, 64, 128 and 256 are compiled; inputs are fp32 or bf16
 // (accumulation is always fp32, output in the input type).
 //
 // C interface: flash_attention_launch, paged_prefill_launch,
-// paged_decode_launch; each returns cudaGetLastError().
+// paged_decode_launch, decode_attention_launch; each returns
+// cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -278,27 +284,29 @@ cudaError_t prefill_dispatch(int dtype, int D, const PrefillArgs& a, int batch,
 }
 
 // ---------------------------------------------------------------------------
-// Decode: one block per (slot, kv head, group of up to 4 query heads).
+// Decode: one block per (slot, kv head, group of up to 4 query heads), over
+// a paged pool or a dense cache.
 // ---------------------------------------------------------------------------
 constexpr int DC_WARPS = 8;
 constexpr int DC_REP = 4;       // query heads per block
 
 struct DecodeArgs {
   const void* q;         // (S, 1, H, D) contiguous
-  const void* k;         // pool (KVH, NPOOL, PAGE, D)
+  const void* k;         // paged: pool (KVH, NPOOL, PAGE, D); dense: (B, S, KVH, D)
   const void* v;
   void* o;               // (S, 1, H, D)
-  const int* tables;     // (S, MP) page ids
-  const int* lengths;    // (S,) live tokens incl. the current one
+  const int* tables;     // paged: (S, MP) page ids
+  const int* lengths;    // paged: (S,) live tokens incl. the current one
   int MP, H, KVH, npool, page;
+  long long kv_bstride, kv_tstride;   // dense K/V strides (elements)
+  int S, pos;            // dense: cache length; keys <= pos are live
   int window;            // 0 = global
   float softcap;         // 0 = none
   float scale;
 };
 
-template <int D, typename T>
-__global__ void __launch_bounds__(DC_WARPS * 32)
-paged_decode_kernel(DecodeArgs p) {
+template <int D, typename T, bool PAGED>
+__device__ __forceinline__ void decode_body(const DecodeArgs& p) {
   constexpr int DPL = (D + 31) / 32;       // contiguous channels per lane
   extern __shared__ float red[];           // [DC_WARPS][DC_REP][D + 2]
   const T* q = static_cast<const T*>(p.q);
@@ -328,16 +336,26 @@ paged_decode_kernel(DecodeArgs p) {
     }
   }
 
-  const int len = p.lengths[b];
-  const int pos = len - 1;
+  int pos, k_end;
+  if constexpr (PAGED) {
+    pos = p.lengths[b] - 1;
+    k_end = min(pos + 1, p.MP * p.page);   // the table's reach
+  } else {
+    pos = p.pos;
+    k_end = max(0, min(pos + 1, p.S));     // the cache's end
+  }
   const int k_lo = p.window > 0 ? max(0, pos - p.window + 1) : 0;
-  const int k_end = min(len, p.MP * p.page);   // the table's reach
-  const int* table = p.tables + (long long)b * p.MP;
+  const int* table = PAGED ? p.tables + (long long)b * p.MP : nullptr;
 
   for (int kpos = k_lo + warp; kpos < k_end; kpos += DC_WARPS) {
-    const int pg = table[kpos / p.page];
-    const long long base =
-        (((long long)kvh * p.npool + pg) * p.page + kpos % p.page) * D + d0;
+    long long base;
+    if constexpr (PAGED) {
+      const int pg = table[kpos / p.page];
+      base = (((long long)kvh * p.npool + pg) * p.page + kpos % p.page) * D + d0;
+    } else {
+      base = (long long)b * p.kv_bstride + (long long)kpos * p.kv_tstride +
+             (long long)kvh * D + d0;
+    }
     float kv[DPL], vv[DPL];
     if (lane_on) {
       load_row<T, DPL>(k + base, kv);
@@ -397,30 +415,40 @@ paged_decode_kernel(DecodeArgs p) {
 }
 
 template <int D, typename T>
+__global__ void __launch_bounds__(DC_WARPS * 32)
+paged_decode_kernel(DecodeArgs p) { decode_body<D, T, true>(p); }
+
+template <int D, typename T>
+__global__ void __launch_bounds__(DC_WARPS * 32)
+dense_decode_kernel(DecodeArgs p) { decode_body<D, T, false>(p); }
+
+template <int D, typename T, bool PAGED>
 cudaError_t launch_decode(const DecodeArgs& a, int slots, cudaStream_t s) {
   const size_t smem = sizeof(float) * DC_WARPS * DC_REP * (D + 2);
+  void (*kernel)(DecodeArgs);
+  if constexpr (PAGED) kernel = paged_decode_kernel<D, T>;
+  else kernel = dense_decode_kernel<D, T>;
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_decode_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
     configured = true;
   }
   const int rep = a.H / a.KVH;
   dim3 grid(slots, a.KVH, (rep + DC_REP - 1) / DC_REP);
-  paged_decode_kernel<D, T><<<grid, DC_WARPS * 32, smem, s>>>(a);
+  kernel<<<grid, DC_WARPS * 32, smem, s>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool PAGED>
 cudaError_t decode_by_dim(int D, const DecodeArgs& a, int slots, cudaStream_t s) {
   switch (D) {
-    case 16: return launch_decode<16, T>(a, slots, s);
-    case 32: return launch_decode<32, T>(a, slots, s);
-    case 64: return launch_decode<64, T>(a, slots, s);
-    case 128: return launch_decode<128, T>(a, slots, s);
-    case 256: return launch_decode<256, T>(a, slots, s);
+    case 16: return launch_decode<16, T, PAGED>(a, slots, s);
+    case 32: return launch_decode<32, T, PAGED>(a, slots, s);
+    case 64: return launch_decode<64, T, PAGED>(a, slots, s);
+    case 128: return launch_decode<128, T, PAGED>(a, slots, s);
+    case 256: return launch_decode<256, T, PAGED>(a, slots, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -469,6 +497,23 @@ extern "C" int paged_decode_launch(
   a.MP = MP; a.H = H; a.KVH = KVH; a.npool = npool; a.page = page;
   a.window = window; a.softcap = softcap; a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_BF16) return (int)decode_by_dim<__nv_bfloat16>(D, a, S, s);
-  return (int)decode_by_dim<float>(D, a, S, s);
+  if (dtype == DT_BF16) return (int)decode_by_dim<__nv_bfloat16, true>(D, a, S, s);
+  return (int)decode_by_dim<float, true>(D, a, S, s);
+}
+
+extern "C" int decode_attention_launch(
+    const void* q, const void* k, const void* v, void* o, int B, int S, int H,
+    int KVH, int D, int pos, int window, float softcap, float scale, int dtype,
+    void* stream) {
+  DecodeArgs a{};
+  a.q = q; a.k = k; a.v = v; a.o = o;
+  a.tables = nullptr; a.lengths = nullptr;
+  a.MP = 0; a.H = H; a.KVH = KVH; a.npool = 0; a.page = 1;
+  a.kv_tstride = (long long)KVH * D;
+  a.kv_bstride = (long long)S * KVH * D;
+  a.S = S; a.pos = pos;
+  a.window = window; a.softcap = softcap; a.scale = scale;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == DT_BF16) return (int)decode_by_dim<__nv_bfloat16, false>(D, a, B, s);
+  return (int)decode_by_dim<float, false>(D, a, B, s);
 }

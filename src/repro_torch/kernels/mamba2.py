@@ -1,0 +1,206 @@
+"""Chunked Mamba-2 SSD (``csrc/ssd.cu``) and its plain version.
+
+Replaces ``repro.kernels.mamba2.ssd``. ``ssd`` launches the CUDA kernel for
+CUDA tensors (or raises) and runs ``ssd_plain`` for CPU tensors;
+``ssd.launches`` counts kernel launches.
+
+``ssd_plain`` is the JAX package's XLA route, ``repro.models.ssm``'s
+``ssd_chunked_xla`` plus ``_final_state``: per chunk of ``q = min(chunk,
+T)`` tokens an intra-chunk term ``(C B^T * L * dt) @ X`` with the decay
+matrix ``L[i, j] = exp(seg_i - seg_j)`` masked before the exponential, a
+carried-state term ``exp(seg) * (C @ S)``, the ``d_skip * x`` residual and
+the inter-chunk scan over the (N, P) state; the final state comes from the
+whole-sequence cumulative decay. ``initial_state`` resumes a previous
+segment (chunked prefill).
+
+One deliberate difference from the JAX dispatch (``ops.ssd_impl``): there,
+a chunk that resumes from a carried state leaves the TPU kernel for the XLA
+route, because the kernel's state scratch starts from zeros. The CUDA
+kernel loads the initial state into its state accumulator instead, so a
+continuation chunk runs on the card like a fresh prompt.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+P_DIMS = (8, 16, 32, 64)        # head dims the kernel is compiled for
+N_MAX = 128                     # largest state size it holds
+CHUNK_MAX = 256                 # longest chunk its per-chunk scan holds
+_DT = {torch.float32: 0, torch.bfloat16: 1}
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+# ---------------------------------------------------------------------------
+# plain version
+# ---------------------------------------------------------------------------
+def _ssd_chunked(x, dt, a_log, b, c, *, d_skip=None, chunk: int = 256,
+                 initial_state=None) -> torch.Tensor:
+    """``ssd_chunked_xla``: y (B, T, H, P) in x's dtype."""
+    bsz, t, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    hpg = h // g
+    q = min(chunk, t)
+    pad = (-t) % q
+    f32 = torch.float32
+    xf, dtf = x.to(f32), dt.to(f32)
+    bf, cf = b.to(f32), c.to(f32)
+    if pad:
+        xf = torch.nn.functional.pad(xf, (0, 0, 0, 0, 0, pad))
+        dtf = torch.nn.functional.pad(dtf, (0, 0, 0, pad))
+        bf = torch.nn.functional.pad(bf, (0, 0, 0, 0, 0, pad))
+        cf = torch.nn.functional.pad(cf, (0, 0, 0, 0, 0, pad))
+    tt = t + pad
+    nc = tt // q
+
+    a = -torch.exp(a_log.to(f32))
+    xf = xf.reshape(bsz, nc, q, h, p)
+    dtf = dtf.reshape(bsz, nc, q, h)
+    bf = bf.reshape(bsz, nc, q, g, n).repeat_interleave(hpg, dim=3)
+    cf = cf.reshape(bsz, nc, q, g, n).repeat_interleave(hpg, dim=3)
+
+    seg = torch.cumsum(dtf * a, dim=2)                         # inclusive
+    # L[i, j] = exp(seg_i - seg_j) for i >= j: masked BEFORE exp, so the
+    # i < j branch (a positive exponent) never overflows.
+    li = seg[:, :, :, None, :] - seg[:, :, None, :, :]         # (B,nc,Qi,Qj,H)
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool,
+                                device=x.device))[None, None, :, :, None]
+    zero = torch.zeros((), dtype=f32, device=x.device)
+    ldec = torch.where(tri, torch.exp(torch.where(tri, li, zero)), zero)
+
+    scores = torch.einsum("bcihn,bcjhn->bcijh", cf, bf)
+    y_diag = torch.einsum("bcijh,bcjh,bcjhp->bcihp", scores * ldec, dtf, xf)
+
+    decay_to_end = torch.exp(seg[:, :, -1:, :] - seg)          # (B,nc,Q,H)
+    s_chunk = torch.einsum("bcjh,bcjh,bcjhn,bcjhp->bchnp",
+                           decay_to_end, dtf, bf, xf)          # (B,nc,H,N,P)
+    chunk_decay = torch.exp(seg[:, :, -1, :])                  # (B,nc,H)
+
+    state = torch.zeros((bsz, h, n, p), dtype=f32, device=x.device) \
+        if initial_state is None else initial_state.to(f32)
+    y_off = []
+    for ci in range(nc):
+        y_off.append(torch.einsum("bihn,bhnp,bih->bihp", cf[:, ci], state,
+                                  torch.exp(seg[:, ci])))
+        state = state * chunk_decay[:, ci, :, None, None] + s_chunk[:, ci]
+    y = y_diag + torch.stack(y_off, dim=1)                     # (B,nc,Q,H,P)
+    y = y.reshape(bsz, tt, h, p)[:, :t]
+    if d_skip is not None:
+        y = y + d_skip[None, None, :, None] * x.to(f32)
+    return y.to(x.dtype)
+
+
+def _final_state(x, dt, a_log, b, initial_state=None) -> torch.Tensor:
+    """``repro.models.ssm._final_state``: the (B, H, N, P) fp32 state after
+    the sequence; ``initial_state`` decays by the whole segment."""
+    h = x.shape[2]
+    hpg = h // b.shape[2]
+    f32 = torch.float32
+    a = -torch.exp(a_log.to(f32))
+    seg = torch.cumsum(dt.to(f32) * a[None, None, :], dim=1)
+    decay_to_end = torch.exp(seg[:, -1:, :] - seg)
+    bh = b.to(f32).repeat_interleave(hpg, dim=2)
+    state = torch.einsum("bth,bth,bthn,bthp->bhnp", decay_to_end, dt.to(f32),
+                         bh, x.to(f32))
+    if initial_state is not None:
+        state = state + initial_state.to(f32) * \
+            torch.exp(seg[:, -1, :])[:, :, None, None]
+    return state
+
+
+def ssd_plain(x, dt, a_log, b, c, *, d_skip=None, chunk: int = 256,
+              initial_state=None, return_final_state: bool = False):
+    """x (B, T, H, P), dt (B, T, H) softplus'd fp32, a_log (H,), b/c
+    (B, T, G, N), head h on group h // (H // G); ``initial_state`` (B, H,
+    N, P) fp32 or None (zeros). Returns y (B, T, H, P) in x's dtype [and the
+    final (B, H, N, P) fp32 state]. Sums run in fp32."""
+    y = _ssd_chunked(x, dt, a_log, b, c, d_skip=d_skip, chunk=chunk,
+                     initial_state=initial_state)
+    if not return_final_state:
+        return y
+    return y, _final_state(x, dt, a_log, b, initial_state=initial_state)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrapper
+# ---------------------------------------------------------------------------
+def _inner_contiguous(t: torch.Tensor) -> torch.Tensor:
+    """The kernel reads (B, T, heads, width) operands by their strides but
+    wants the innermost axis packed."""
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def ssd(x, dt, a_log, b, c, *, d_skip=None, chunk: int = 256,
+        initial_state=None, return_final_state: bool = False):
+    """The chunked SSD on the card (CUDA tensors) or ``ssd_plain`` (CPU
+    tensors); arguments and results as for :func:`ssd_plain`. x, b and c
+    share the model dtype (fp32 or bf16) and are read by their strides,
+    so the model's views into its fused projection are never copied; y is
+    written in x's dtype, the states in fp32."""
+    if x.device.type == "cpu":
+        return ssd_plain(x, dt, a_log, b, c, d_skip=d_skip, chunk=chunk,
+                         initial_state=initial_state,
+                         return_final_state=return_final_state)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd: no kernel for device {x.device}")
+    bsz, t, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    q = min(chunk, t)
+    if x.dtype not in _DT or b.dtype != x.dtype or c.dtype != x.dtype:
+        raise NotImplementedError(f"ssd: x, b and c must share fp32 or bf16, "
+                                  f"got {x.dtype} / {b.dtype} / {c.dtype}")
+    if tuple(dt.shape) != (bsz, t, h) or tuple(c.shape) != tuple(b.shape) \
+            or b.shape[:2] != x.shape[:2] or h % g \
+            or tuple(a_log.shape) != (h,):
+        raise ValueError(f"ssd: x {tuple(x.shape)}, dt {tuple(dt.shape)}, "
+                         f"b {tuple(b.shape)}, c {tuple(c.shape)}, a_log "
+                         f"{tuple(a_log.shape)}")
+    if p not in P_DIMS or n > N_MAX or q > CHUNK_MAX or t == 0:
+        raise NotImplementedError(
+            f"ssd: head dim {p} (compiled: {P_DIMS}), state {n} (<= "
+            f"{N_MAX}), chunk {q} (<= {CHUNK_MAX}), T={t}")
+    dev = x.device
+    x, b, c = _inner_contiguous(x), _inner_contiguous(b), _inner_contiguous(c)
+    dt = _inner_contiguous(dt.to(torch.float32))
+    a_log = a_log.to(torch.float32).contiguous()
+    d = torch.zeros((h,), dtype=torch.float32, device=dev) if d_skip is None \
+        else d_skip.to(torch.float32).contiguous()
+    init = None
+    if initial_state is not None:
+        if tuple(initial_state.shape) != (bsz, h, n, p):
+            raise ValueError(f"ssd: initial_state {tuple(initial_state.shape)}"
+                             f" != {(bsz, h, n, p)}")
+        init = initial_state.to(torch.float32).contiguous()
+    for tns in (dt, a_log, b, c, d) + ((init,) if init is not None else ()):
+        if tns.device != dev:
+            raise ValueError("ssd: operands on different devices")
+    y = torch.empty((bsz, t, h, p), dtype=x.dtype, device=dev)
+    fin = torch.empty((bsz, h, n, p), dtype=torch.float32, device=dev) \
+        if return_final_state else None
+    fn = _build.bind("ssd", "ssd_launch",
+                     [_P, _L, _L, _L, _P, _L, _L, _L, _P, _P, _P, _L, _L, _L,
+                      _P, _L, _L, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                      _I, _P])
+    err = fn(x.data_ptr(), x.stride(0), x.stride(1), x.stride(2),
+             dt.data_ptr(), dt.stride(0), dt.stride(1), dt.stride(2),
+             a_log.data_ptr(), d.data_ptr(),
+             b.data_ptr(), b.stride(0), b.stride(1), b.stride(2),
+             c.data_ptr(), c.stride(0), c.stride(1), c.stride(2),
+             None if init is None else init.data_ptr(), y.data_ptr(),
+             None if fin is None else fin.data_ptr(),
+             bsz, t, h, g, n, p, q, _DT[x.dtype],
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "ssd")
+    ssd.launches += 1
+    if init is not None:
+        ssd.resumed_launches += 1
+    return (y, fin) if return_final_state else y
+
+
+ssd.launches = 0
+ssd.resumed_launches = 0        # the launches that carried a state in

@@ -3,8 +3,9 @@
 ``gemm_ref`` is the plain version of the engine GEMM and ``conv2d_ref``
 (explicit ``im2col`` + ``gemm_ref``) that of the implicit-im2col conv: the
 CUDA kernels in ``kernels/gemm.py`` and ``kernels/conv.py`` are held
-against them on the card, and they are what a CPU tensor runs. The SSD
-oracle follows with its kernel in a later slice.
+against them on the card, and they are what a CPU tensor runs. ``ssd_ref`` is the naive Mamba-2
+recurrence, the oracle the chunked SSD (``kernels/mamba2.py``) is held
+against in the tests.
 """
 
 from __future__ import annotations
@@ -91,3 +92,31 @@ def conv2d_ref(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     y = gemm_ref(a, w.reshape(kh * kw * c, co), d, acc_dtype=acc_dtype,
                  out_dtype=out_dtype, shift=shift, activation=activation)
     return y.reshape(n, oh, ow, co)
+
+
+# -- Mamba-2 SSD oracle -------------------------------------------------------
+def ssd_ref(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+            b: torch.Tensor, c: torch.Tensor, *,
+            d_skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Naive-recurrence SSD: x (B, T, H, P), dt (B, T, H) softplus'd, a_log
+    (H,), b/c (B, T, G, N); head h reads group h // (H // G). One step per
+    token, state (B, H, P, N) in fp32. Returns y (B, T, H, P) in x's dtype."""
+    bsz, t, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    hpg = h // g
+    a = -torch.exp(a_log.to(torch.float32))
+    dt = dt.to(torch.float32)
+    da = torch.exp(dt * a[None, None, :])
+    bf = b.to(torch.float32).repeat_interleave(hpg, dim=2)     # (B, T, H, N)
+    cf = c.to(torch.float32).repeat_interleave(hpg, dim=2)
+    xf = x.to(torch.float32)
+    state = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for i in range(t):
+        state = state * da[:, i, :, None, None] + \
+            (dt[:, i, :, None] * xf[:, i])[..., None] * bf[:, i, :, None, :]
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, cf[:, i]))
+    y = torch.stack(ys, dim=1)
+    if d_skip is not None:
+        y = y + d_skip[None, None, :, None] * xf
+    return y.to(x.dtype)

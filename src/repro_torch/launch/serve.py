@@ -5,7 +5,9 @@
 
 runs gemma3-1b at full width on the card with random weights drawn from
 ``--seed``; ``--smoke`` selects the reduced config and ``--device cpu`` the
-plain path on the CPU.
+plain path on the CPU. Every registered arch serves: the dense ones, the
+recurrent mamba2-1.3b, the hybrid hymba-1.5b and the four-codebook
+musicgen-medium (prompts and outputs then carry a trailing codebook axis).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ def serve(model_cfg, *, batch: int, prompt_len: int, gen_len: int,
           admission_policy: str = "fifo", kv_offload: bool = False,
           prefix_cache: bool = False, host_pool_pages: int = 0,
           device: str = "cuda"):
-    """Serve ``batch`` random-prompt requests; returns tokens (B, gen),
+    """Serve ``batch`` random-prompt requests; returns tokens (B, gen[, n_q]),
     t_prefill, t_decode, tok_per_s, and the engine's telemetry under
     ``report`` (the JAX CLI's schema)."""
     rng = np.random.default_rng(seed)
@@ -40,17 +42,20 @@ def serve(model_cfg, *, batch: int, prompt_len: int, gen_len: int,
         admission_policy=admission_policy, kv_offload=kv_offload,
         prefix_cache=prefix_cache, host_pool_pages=host_pool_pages or None,
         device=device)
+    tok_shape = (prompt_len, model_cfg.n_codebooks) \
+        if model_cfg.n_codebooks > 1 else (prompt_len,)
     for _ in range(batch):
-        prompt = rng.integers(0, model_cfg.vocab, (prompt_len,)).astype(np.int32)
+        prompt = rng.integers(0, model_cfg.vocab, tok_shape).astype(np.int32)
         engine.submit(prompt, gen_len, eos_id=eos_id)
     t0 = time.time()
     report = engine.run()
     wall = time.time() - t0
     outs = []
     for r in report["requests"]:
-        toks = np.asarray(r["tokens"], np.int32).reshape(-1)
-        outs.append(np.concatenate(
-            [toks, np.zeros((gen_len - toks.shape[0],), np.int32)]))
+        toks = np.asarray(r["tokens"], np.int32).reshape(
+            (-1,) + tok_shape[1:])
+        pad_shape = (gen_len - toks.shape[0],) + toks.shape[1:]
+        outs.append(np.concatenate([toks, np.zeros(pad_shape, np.int32)]))
     summ = report["summary"]
     ttft = max(r["ttft_s"] or 0.0 for r in report["requests"])
     return dict(tokens=np.stack(outs), t_prefill=ttft, t_decode=wall - ttft,

@@ -1,10 +1,12 @@
-"""Paged KV cache and the attention op routers (port of the serving half of
-``repro.models.attention``).
+"""KV caches and the attention op routers (port of the serving half of
+``repro.models.attention``): the paged cache of the serving engine and the
+dense cache of the static reference path.
 
-The page pools are updated in place (``index_put_`` through advanced
-indexing): a pool is the serving engine's whole KV arena, and a functional
-update would copy all of it for every token written. The plain attention
-versions live beside their kernels in ``repro_torch.kernels.attention``.
+Both caches are updated in place (``index_put_`` through advanced indexing,
+slice assignment): a pool is the serving engine's whole KV arena and a dense
+cache is sized for the whole sequence, and a functional update would copy
+all of it for every token written. The plain attention versions live
+beside their kernels in ``repro_torch.kernels.attention``.
 """
 
 from __future__ import annotations
@@ -12,6 +14,33 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+
+
+class KVCache(NamedTuple):
+    """One layer's dense KV cache (the static reference path)."""
+
+    k: torch.Tensor        # (B, S, KVH, D)
+    v: torch.Tensor        # (B, S, KVH, D)
+
+
+def update_cache(cache: KVCache, k_new, v_new, pos: int) -> KVCache:
+    """Write (B, T, KVH, D) at positions [pos, pos + T), in place (the JAX
+    package's dynamic-update-slice branch, its flag default)."""
+    t = k_new.shape[1]
+    cache.k[:, pos:pos + t] = k_new.to(cache.k.dtype)
+    cache.v[:, pos:pos + t] = v_new.to(cache.v.dtype)
+    return cache
+
+
+def decode_attention(ctx, q, cache: KVCache, pos: int, *, window=None,
+                     softcap: Optional[float] = None,
+                     scale: Optional[float] = None):
+    """One-token attention against the dense cache: q (B, 1, H, D), keys at
+    positions <= ``pos`` live. The JAX package's default (repeat-GQA)
+    branch on the CPU; the dense decode kernel on a card."""
+    return ctx.decode_attention(q, cache.k, cache.v, int(pos),
+                                window=_static_window(window),
+                                softcap=softcap, scale=scale)
 
 
 class PagedKVCache(NamedTuple):

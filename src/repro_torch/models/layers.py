@@ -9,7 +9,7 @@ float-LM shortcut (dot, round, then add the bias) has no counterpart here.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -117,3 +117,24 @@ def unembed_apply(ctx, table: torch.Tensor, x: torch.Tensor, *,
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
     return logits
+
+
+# ---------------------------------------------------------------------------
+# causal depthwise conv1d (the mamba2 prefix conv)
+# ---------------------------------------------------------------------------
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  state: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, T, C), w: (K, C) depthwise; state: (B, K-1, C) trailing
+    inputs of the previous segment (None = zeros). Taps accumulate in fp32
+    in tap order. Returns (y in x's dtype, the trailing K-1 inputs as the
+    new state)."""
+    k = w.shape[0]
+    b, t, c = x.shape
+    if state is None:
+        state = torch.zeros((b, k - 1, c), dtype=x.dtype, device=x.device)
+    xp = torch.cat([state.to(x.dtype), x], dim=1)            # (B, T+K-1, C)
+    y = torch.zeros((b, t, c), dtype=torch.float32, device=x.device)
+    for i in range(k):
+        y = y + xp[:, i:i + t, :].to(torch.float32) * w[i].to(torch.float32)
+    return y.to(x.dtype), xp[:, t:, :]

@@ -1,5 +1,12 @@
-"""Dense decoder over paged KV pools (port of the serving path of
-``repro.models.transformer``).
+"""Decoder stack for serving (port of the serving paths of
+``repro.models.transformer``): the paged entries of the continuous-batching
+engine and the static reference path (one dense KV cache).
+
+The families are dense (incl. musicgen's summed codebook embeddings and
+per-codebook heads), ssm (Mamba-2 blocks, no attention) and hybrid
+(hymba: attention and Mamba-2 side by side in every block, meta tokens in
+front of the prompt). MoE raises ``NotImplementedError`` naming its ROADMAP
+item.
 
 The parameter tree is the JAX package's: per-layer weights stacked along a
 leading ``L`` axis, the same names, the same (d_in, d_out) layout, so
@@ -7,21 +14,19 @@ leading ``L`` axis, the same names, the same (d_in, d_out) layout, so
 in a Python loop, so each layer's sliding window is a static int and the
 attention kernels run on gemma's local and global layers alike (the JAX
 package scans windows as traced data and demotes such models to XLA).
-
-Only the dense family is in this slice; MoE, SSM and hybrid blocks raise
-``NotImplementedError`` naming their ROADMAP item.
+Caches and recurrent state are written in place.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models import layers
+from repro_torch.models import layers, ssm
 
 Params = Dict[str, Any]
 
@@ -70,12 +75,32 @@ class ModelConfig:
     n_meta_tokens: int = 0
     dtype: Any = torch.bfloat16
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.n_codebooks != 1 or cfg.n_meta_tokens:
+    @property
+    def n_ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
+    def has_attn(self) -> bool:
+        return self.family in ("dense", "moe", "hybrid")
+
+    @property
+    def has_ssm(self) -> bool:
+        return self.family in ("ssm", "hybrid")
+
+    @property
+    def conv_dim(self) -> int:
+        return self.d_inner + 2 * self.ssm_groups * self.d_state
+
+
+def _require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
-            f"queue A: SSM/hybrid/audio is item 8, MoE item 9)")
+            f"queue A item 9: MoE)")
 
 
 def layer_windows(cfg: ModelConfig) -> np.ndarray:
@@ -109,10 +134,9 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *,
     the generator's). Same tree, names and stacked (L, ...) layout as the
     JAX package; the numbers differ (torch and jax draw differently), so
     tests convert JAX parameters through :mod:`repro_torch.convert`."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     device = torch.device(device) if device is not None else gen.device
     L, d, dt = cfg.n_layers, cfg.d_model, cfg.dtype
-    hq, hk = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
 
     def dense(d_in, d_out):
         return (torch.randn((L, d_in, d_out), generator=gen, device=device)
@@ -121,16 +145,24 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *,
     def norm(n):
         return torch.zeros((L, n), dtype=torch.float32, device=device)
 
-    att = {"wq": dense(d, hq), "wk": dense(d, hk), "wv": dense(d, hk),
-           "wo": dense(hq, d)}
-    if cfg.qkv_bias:
-        for name, n in (("bq", hq), ("bk", hk), ("bv", hk)):
-            att[name] = torch.zeros((L, n), dtype=dt, device=device)
-    blocks: Params = {"ln1": norm(d), "attn": att}
-    if cfg.qk_norm:
-        blocks["qnorm"] = norm(cfg.head_dim)
-        blocks["knorm"] = norm(cfg.head_dim)
-    if cfg.d_ff:
+    blocks: Params = {"ln1": norm(d)}
+    if cfg.has_attn:
+        hq, hk = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+        att = {"wq": dense(d, hq), "wk": dense(d, hk), "wv": dense(d, hk),
+               "wo": dense(hq, d)}
+        if cfg.qkv_bias:
+            for name, n in (("bq", hq), ("bk", hk), ("bv", hk)):
+                att[name] = torch.zeros((L, n), dtype=dt, device=device)
+        blocks["attn"] = att
+        if cfg.qk_norm:
+            blocks["qnorm"] = norm(cfg.head_dim)
+            blocks["knorm"] = norm(cfg.head_dim)
+    if cfg.has_ssm:
+        blocks["mamba"] = ssm.mamba2_init(
+            gen, L, d, d_inner=cfg.d_inner, n_heads=cfg.n_ssm_heads,
+            d_state=cfg.d_state, n_groups=cfg.ssm_groups, d_conv=cfg.d_conv,
+            dtype=dt, device=device)
+    if cfg.d_ff and cfg.family != "ssm":
         blocks["ln2"] = norm(d)
         blocks["mlp"] = {"wi": dense(d, cfg.d_ff), "wo": dense(cfg.d_ff, d),
                          "wg": dense(d, cfg.d_ff)}
@@ -138,13 +170,28 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *,
         blocks["post_ln1"] = norm(d)
         if "ln2" in blocks:
             blocks["post_ln2"] = norm(d)
-    p: Params = {"embed": layers.embed_init(gen, cfg.vocab, d, dtype=dt,
-                                            device=device),
+    if cfg.family == "hybrid":
+        blocks["attn_out_norm"] = norm(d)
+        blocks["ssm_out_norm"] = norm(d)
+
+    def embed():
+        return layers.embed_init(gen, cfg.vocab, d, dtype=dt, device=device)
+
+    def head():
+        return layers.dense_init(gen, d, cfg.vocab, dtype=dt, device=device)
+
+    cb = cfg.n_codebooks
+    p: Params = {"embed": torch.stack([embed() for _ in range(cb)])
+                 if cb > 1 else embed(),
                  "blocks": blocks,
                  "final_norm": layers.rmsnorm_init(d, device=device)}
-    if not cfg.tie_embeddings:
-        p["unembed"] = layers.dense_init(gen, d, cfg.vocab, dtype=dt,
-                                         device=device)
+    if cb > 1:
+        p["heads"] = torch.stack([head() for _ in range(cb)])
+    elif not cfg.tie_embeddings:
+        p["unembed"] = head()
+    if cfg.n_meta_tokens:
+        p["meta_tokens"] = (torch.randn((cfg.n_meta_tokens, d), generator=gen,
+                                        device=device) * 0.02).to(dt)
     return p
 
 
@@ -157,15 +204,21 @@ def layer_params(params: Params, i: int) -> Params:
     return take(params["blocks"])
 
 
+
+
 # ---------------------------------------------------------------------------
 # block forward
 # ---------------------------------------------------------------------------
 def _attn_branch(ctx, cfg: ModelConfig, bp: Params, h: torch.Tensor,
                  positions: torch.Tensor, window: int, rope_base: float,
-                 cache: attn.PagedKVCache, prefill_start: Optional[int] = None,
+                 cache, cache_pos: Optional[int] = None,
+                 prefill_start: Optional[int] = None,
                  kv_pages: Optional[int] = None):
-    """window: static int, 0 = global. ``prefill_start``: cache position of
-    a continuation chunk's first token (None = fresh prefill or decode)."""
+    """window: static int, 0 = global. ``cache``: a paged
+    :class:`attn.PagedKVCache` (the engine) or a dense :class:`attn.KVCache`
+    written at ``cache_pos`` (the static path). ``prefill_start``: cache
+    position of a continuation chunk's first token (None = fresh prefill
+    or decode). Returns (out, cache)."""
     b, t, _ = h.shape
     p = bp["attn"]
     q = layers.project(ctx, h, p["wq"], p.get("bq")).reshape(
@@ -180,9 +233,19 @@ def _attn_branch(ctx, cfg: ModelConfig, bp: Params, h: torch.Tensor,
     q = layers.rope(q, positions, base=rope_base)
     k = layers.rope(k, positions, base=rope_base)
 
+    if isinstance(cache, attn.KVCache):
+        cache = attn.update_cache(cache, k, v, cache_pos)
+        if t == 1:
+            o = attn.decode_attention(ctx, q, cache, cache_pos, window=window,
+                                      softcap=cfg.attn_softcap)
+        else:
+            # prefill from position 0: attend the t positions just written
+            o = attn.attn_op(ctx, q, cache.k[:, :t], cache.v[:, :t],
+                             causal=True, window=window,
+                             softcap=cfg.attn_softcap)
     # The continuation test precedes the t == 1 decode test: a final chunk
     # may be one token long.
-    if prefill_start is not None:
+    elif prefill_start is not None:
         cache = attn.paged_update_prefill(cache, k, v, cache.tables[0],
                                           start=prefill_start)
         o = attn.paged_prefill_attn_op(ctx, q, cache, prefill_start,
@@ -204,13 +267,33 @@ def _attn_branch(ctx, cfg: ModelConfig, bp: Params, h: torch.Tensor,
 
 
 def _block_apply(ctx, cfg: ModelConfig, bp: Params, h: torch.Tensor,
-                 positions, window: int, rope_base: float,
-                 cache: attn.PagedKVCache, prefill_start=None, kv_pages=None):
-    """One dense decoder block; returns h."""
+                 positions, window: int, rope_base: float, kv_cache=None,
+                 ssm_cache: Optional[ssm.SSMCache] = None,
+                 cache_pos: Optional[int] = None, prefill_start=None,
+                 kv_pages=None):
+    """One decoder block. Returns (h, kv_cache, ssm_cache)."""
     x = layers.rmsnorm(h, bp["ln1"])
-    mixed, _ = _attn_branch(ctx, cfg, bp, x, positions, window, rope_base,
-                            cache, prefill_start=prefill_start,
-                            kv_pages=kv_pages)
+    outs = []
+    if cfg.has_attn:
+        a_out, kv_cache = _attn_branch(ctx, cfg, bp, x, positions, window,
+                                       rope_base, kv_cache, cache_pos,
+                                       prefill_start=prefill_start,
+                                       kv_pages=kv_pages)
+        outs.append(a_out)
+    if cfg.has_ssm:
+        s_out, ssm_cache = ssm.mamba2_apply(
+            ctx, bp["mamba"], x, d_inner=cfg.d_inner,
+            n_heads=cfg.n_ssm_heads, d_state=cfg.d_state,
+            n_groups=cfg.ssm_groups, chunk=cfg.ssm_chunk, cache=ssm_cache)
+        outs.append(s_out)
+    if cfg.family == "hybrid":
+        # per-branch output norms, then the average in fp32 (hymba)
+        a = layers.rmsnorm(outs[0], bp["attn_out_norm"])
+        s = layers.rmsnorm(outs[1], bp["ssm_out_norm"])
+        mixed = (0.5 * (a.to(torch.float32) + s.to(torch.float32))
+                 ).to(h.dtype)
+    else:
+        mixed = outs[0]
     if cfg.post_norms:
         mixed = layers.rmsnorm(mixed, bp["post_ln1"])
     h = h + mixed
@@ -220,19 +303,42 @@ def _block_apply(ctx, cfg: ModelConfig, bp: Params, h: torch.Tensor,
         if cfg.post_norms:
             f = layers.rmsnorm(f, bp["post_ln2"])
         h = h + f
-    return h
+    return h, kv_cache, ssm_cache
 
 
-def embed_inputs(cfg: ModelConfig, params: Params,
-                 tokens: torch.Tensor) -> torch.Tensor:
-    _require_dense(cfg)
+def _embed_tokens(cfg: ModelConfig, params: Params,
+                  tokens: torch.Tensor) -> torch.Tensor:
+    """tokens (B, T) or, with codebooks, (B, T, n_q): musicgen sums the
+    per-codebook embeddings."""
+    if cfg.n_codebooks > 1:
+        return sum(layers.embed_apply(params["embed"][i], tokens[..., i])
+                   for i in range(cfg.n_codebooks))
     return layers.embed_apply(params["embed"], tokens,
                               scale_by_sqrt_dim=cfg.embed_scale)
 
 
+def embed_inputs(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
+                 with_meta: bool = True) -> torch.Tensor:
+    """Token embeddings with hymba's meta tokens in front; ``with_meta=
+    False`` leaves them out (a continuation chunk: the meta tokens live at
+    cache positions [0, n_meta))."""
+    _require_ported(cfg)
+    h = _embed_tokens(cfg, params, tokens)
+    if cfg.n_meta_tokens and with_meta:
+        meta = params["meta_tokens"][None].expand(
+            h.shape[0], cfg.n_meta_tokens, cfg.d_model)
+        h = torch.cat([meta.to(h.dtype), h], dim=1)
+    return h
+
+
 def unembed(ctx, cfg: ModelConfig, params: Params,
             h: torch.Tensor) -> torch.Tensor:
+    """fp32 logits (B, T, V), or (B, T, n_q, V) with codebooks."""
     h = layers.rmsnorm(h, params["final_norm"])
+    if cfg.n_codebooks > 1:
+        return torch.stack([layers.project(ctx, h, params["heads"][i])
+                            for i in range(cfg.n_codebooks)],
+                           dim=-2).to(torch.float32)
     if cfg.tie_embeddings:
         return layers.unembed_apply(ctx, params["embed"], h,
                                     softcap=cfg.final_softcap)
@@ -242,18 +348,114 @@ def unembed(ctx, cfg: ModelConfig, params: Params,
     return logits
 
 
+def _layers(cfg: ModelConfig, params: Params):
+    """(layer params, static window, rope base) per layer, in order."""
+    win, bases = layer_windows(cfg), layer_rope_bases(cfg)
+    for i in range(cfg.n_layers):
+        yield i, layer_params(params, i), int(win[i]), float(bases[i])
+
+
+def _conv_shape(cfg: ModelConfig, batch: int):
+    return (cfg.n_layers, batch, cfg.d_conv - 1, cfg.conv_dim)
+
+
+def _ssm_shape(cfg: ModelConfig, batch: int):
+    return (cfg.n_layers, batch, cfg.n_ssm_heads, cfg.d_state,
+            cfg.ssm_head_dim)
+
+
+# ---------------------------------------------------------------------------
+# the static reference path: one dense KV cache, one shared position
+# ---------------------------------------------------------------------------
+class DecodeState(NamedTuple):
+    kv_k: Optional[torch.Tensor]      # (L, B, S, KVH, D) or None
+    kv_v: Optional[torch.Tensor]
+    conv: Optional[torch.Tensor]      # (L, B, K-1, conv_dim) or None
+    ssm: Optional[torch.Tensor]       # (L, B, H, N, P) fp32 or None
+    pos: int                          # next write position (host int)
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
+                      dtype=torch.bfloat16, *, device="cpu") -> DecodeState:
+    _require_ported(cfg)
+    kv_k = kv_v = conv = st = None
+    if cfg.has_attn:
+        shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+        kv_k = torch.zeros(shape, dtype=dtype, device=device)
+        kv_v = torch.zeros(shape, dtype=dtype, device=device)
+    if cfg.has_ssm:
+        conv = torch.zeros(_conv_shape(cfg, batch), dtype=dtype, device=device)
+        st = torch.zeros(_ssm_shape(cfg, batch), dtype=torch.float32,
+                         device=device)
+    return DecodeState(kv_k, kv_v, conv, st, max_seq - 1)
+
+
+def _static_caches(state: DecodeState, i: int, fresh: bool):
+    kvc = attn.KVCache(state.kv_k[i], state.kv_v[i]) \
+        if state.kv_k is not None else None
+    ssc = None
+    if state.conv is not None:
+        # A fresh whole-prompt prefill spells its zero state None, as the
+        # JAX package does (the SSD starts from zeros).
+        ssc = ssm.SSMCache(state.conv[i], None if fresh else state.ssm[i])
+    return kvc, ssc
+
+
+def _store_ssm(state, i: int, ssc, rows=slice(None)) -> None:
+    """Write layer ``i``'s new conv / SSM state into ``rows`` in place."""
+    if ssc is not None:
+        state.conv[i, rows] = ssc.conv.to(state.conv.dtype)
+        state.ssm[i, rows] = ssc.state.to(state.ssm.dtype)
+
+
+def prefill_into_cache(ctx, params: Params, cfg: ModelConfig,
+                       tokens: torch.Tensor, state: DecodeState
+                       ) -> Tuple[torch.Tensor, DecodeState]:
+    """Forward over the prompt (tokens (B, P) [or (B, P, n_q)]) writing the
+    caches at positions [0, P'), P' = P + meta tokens. Returns (logits
+    (B, P', V), state with ``pos`` = P')."""
+    h = embed_inputs(cfg, params, tokens)
+    b, t, _ = h.shape
+    positions = torch.arange(t, device=h.device)[None].expand(b, t)
+    for i, bp, win, base in _layers(cfg, params):
+        kvc, ssc = _static_caches(state, i, fresh=True)
+        h, _, ssc = _block_apply(ctx, cfg, bp, h, positions, win, base,
+                                 kv_cache=kvc, ssm_cache=ssc, cache_pos=0)
+        _store_ssm(state, i, ssc)
+    logits = unembed(ctx, cfg, params, h)
+    return logits, state._replace(pos=t)
+
+
+def decode_step(ctx, params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                state: DecodeState) -> Tuple[torch.Tensor, DecodeState]:
+    """One step of the static path: tokens (B, 1) [or (B, 1, n_q)] at the
+    shared position ``state.pos``; returns the new token's logits and the
+    state one position on."""
+    h = _embed_tokens(cfg, params, tokens)
+    pos = int(state.pos)
+    positions = torch.full((h.shape[0], 1), pos, dtype=torch.int64,
+                           device=h.device)
+    for i, bp, win, base in _layers(cfg, params):
+        kvc, ssc = _static_caches(state, i, fresh=False)
+        h, _, ssc = _block_apply(ctx, cfg, bp, h, positions, win, base,
+                                 kv_cache=kvc, ssm_cache=ssc, cache_pos=pos)
+        _store_ssm(state, i, ssc)
+    logits = unembed(ctx, cfg, params, h)
+    return logits, state._replace(pos=pos + 1)
+
+
 # ---------------------------------------------------------------------------
 # paged serving steps
 # ---------------------------------------------------------------------------
 class PagedDecodeState(NamedTuple):
     """Decode-slot state over paged KV pools. The last pool page (id NP)
-    is the reserved trash page retired slots spill to. ``conv`` / ``ssm``
-    stay None for the dense family."""
+    is the reserved trash page retired slots spill to. ``kv_*`` are None
+    for the ssm family, ``conv`` / ``ssm`` for the attention-only ones."""
 
     kv_k: Optional[torch.Tensor]      # (L, KVH, NP + 1, page, D)
     kv_v: Optional[torch.Tensor]
-    conv: Optional[torch.Tensor]
-    ssm: Optional[torch.Tensor]
+    conv: Optional[torch.Tensor]      # (L, slots, K-1, conv_dim)
+    ssm: Optional[torch.Tensor]       # (L, slots, H, N, P) fp32
     tables: torch.Tensor              # (slots, MP) int32 page ids
     lengths: torch.Tensor             # (slots,) int32 cached tokens per slot
 
@@ -261,44 +463,54 @@ class PagedDecodeState(NamedTuple):
 def init_paged_state(cfg: ModelConfig, slots: int, n_pages: int,
                      page_size: int, max_pages: int, dtype=torch.bfloat16,
                      *, device="cpu") -> PagedDecodeState:
-    _require_dense(cfg)
-    shape = (cfg.n_layers, cfg.n_kv_heads, n_pages + 1, page_size,
-             cfg.head_dim)
+    _require_ported(cfg)
+    kv_k = kv_v = conv = st = None
+    if cfg.has_attn:
+        shape = (cfg.n_layers, cfg.n_kv_heads, n_pages + 1, page_size,
+                 cfg.head_dim)
+        kv_k = torch.zeros(shape, dtype=dtype, device=device)
+        kv_v = torch.zeros(shape, dtype=dtype, device=device)
+    if cfg.has_ssm:
+        conv = torch.zeros(_conv_shape(cfg, slots), dtype=dtype, device=device)
+        st = torch.zeros(_ssm_shape(cfg, slots), dtype=torch.float32,
+                         device=device)
     return PagedDecodeState(
-        torch.zeros(shape, dtype=dtype, device=device),
-        torch.zeros(shape, dtype=dtype, device=device), None, None,
+        kv_k, kv_v, conv, st,
         torch.zeros((slots, max_pages), dtype=torch.int32, device=device),
         torch.zeros((slots,), dtype=torch.int32, device=device))
 
 
-def _run_layers(ctx, cfg, params, h, positions, caches: List, **kw):
-    win, bases = layer_windows(cfg), layer_rope_bases(cfg)
-    for i in range(cfg.n_layers):
-        h = _block_apply(ctx, cfg, layer_params(params, i), h, positions,
-                         int(win[i]), float(bases[i]), caches[i], **kw)
-    return h
-
-
-def _prefill_caches(cfg, state, pages, page_size):
+def _prefill_kv(state: PagedDecodeState, i: int, pages, page_size: int):
+    if state.kv_k is None:
+        return None
     zero_len = torch.zeros((1,), dtype=torch.int32, device=pages.device)
-    return [attn.PagedKVCache(state.kv_k[i], state.kv_v[i], pages[None],
-                              zero_len, page_size)
-            for i in range(cfg.n_layers)]
+    return attn.PagedKVCache(state.kv_k[i], state.kv_v[i], pages[None],
+                             zero_len, page_size)
 
 
 def paged_prefill(ctx, params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   state: PagedDecodeState, slot: int, pages: torch.Tensor, *,
                   page_size: int, with_logits: bool = True
                   ) -> Tuple[Optional[torch.Tensor], PagedDecodeState]:
-    """Prefill ONE fresh request (tokens (1, P), bucket-padded) into its
-    pages (``pages``: (MP,) int32). Returns (logits (1, P, V) or None,
-    state); the pools are written in place and the caller owns the
-    table/length update."""
+    """Prefill ONE fresh request (tokens (1, P) [or (1, P, n_q)],
+    bucket-padded for attention-only families) into its pages (``pages``:
+    (MP,) int32) and into slot ``slot``'s recurrent state, which starts
+    from zeros (a retired tenant's state must not leak in). Returns
+    (logits (1, P', V) or None, state); the caller owns the table/length
+    update."""
     h = embed_inputs(cfg, params, tokens)
     t = h.shape[1]
     positions = torch.arange(t, device=h.device)[None]
-    h = _run_layers(ctx, cfg, params, h, positions,
-                    _prefill_caches(cfg, state, pages, page_size))
+    for i, bp, win, base in _layers(cfg, params):
+        ssc = None
+        if state.conv is not None:
+            ssc = ssm.SSMCache(torch.zeros_like(state.conv[i, slot:slot + 1]),
+                               None)
+        h, _, ssc = _block_apply(ctx, cfg, bp, h, positions, win, base,
+                                 kv_cache=_prefill_kv(state, i, pages,
+                                                      page_size),
+                                 ssm_cache=ssc)
+        _store_ssm(state, i, ssc, slice(slot, slot + 1))
     logits = unembed(ctx, cfg, params, h) if with_logits else None
     return logits, state
 
@@ -309,15 +521,24 @@ def paged_prefill_chunk(ctx, params: Params, cfg: ModelConfig,
                         page_size: int, with_logits: bool = True,
                         kv_pages: Optional[int] = None
                         ) -> Tuple[Optional[torch.Tensor], PagedDecodeState]:
-    """Prefill a CONTINUATION chunk (tokens (1, Tc)) at cache positions
-    [start, start + Tc); ``start`` is a host int. Attention reads cache
-    pages + the chunk through the block table, cut to ``kv_pages``."""
-    h = embed_inputs(cfg, params, tokens)
+    """Prefill a CONTINUATION chunk (tokens (1, Tc) [or (1, Tc, n_q)]) at
+    cache positions [start, start + Tc); ``start`` is a host int.
+    Attention reads cache pages + the chunk through the block table, cut
+    to ``kv_pages``; the slot's conv and SSM state are resumed."""
+    h = embed_inputs(cfg, params, tokens, with_meta=False)
     t = h.shape[1]
     positions = (int(start) + torch.arange(t, device=h.device))[None]
-    h = _run_layers(ctx, cfg, params, h, positions,
-                    _prefill_caches(cfg, state, pages, page_size),
-                    prefill_start=int(start), kv_pages=kv_pages)
+    rows = slice(slot, slot + 1)
+    for i, bp, win, base in _layers(cfg, params):
+        ssc = None
+        if state.conv is not None:
+            ssc = ssm.SSMCache(state.conv[i, rows], state.ssm[i, rows])
+        h, _, ssc = _block_apply(ctx, cfg, bp, h, positions, win, base,
+                                 kv_cache=_prefill_kv(state, i, pages,
+                                                      page_size),
+                                 ssm_cache=ssc, prefill_start=int(start),
+                                 kv_pages=kv_pages)
+        _store_ssm(state, i, ssc, rows)
     logits = unembed(ctx, cfg, params, h) if with_logits else None
     return logits, state
 
@@ -327,15 +548,31 @@ def paged_decode_step(ctx, params: Params, cfg: ModelConfig,
                       active: torch.Tensor, *, page_size: int
                       ) -> Tuple[torch.Tensor, PagedDecodeState]:
     """One continuous-batching decode step: every slot advances one token
-    (tokens (slots, 1)); inactive slots write the trash page and keep
-    frozen lengths. Each slot ropes and attends at its own position."""
-    h = embed_inputs(cfg, params, tokens)
+    (tokens (slots, 1) [or (slots, 1, n_q)]); inactive slots write the
+    trash page, keep frozen lengths and keep their conv / SSM state (a slot
+    mid-way through a chunked prefill rides the batch as padding). Each
+    slot ropes and attends at its own position."""
+    h = _embed_tokens(cfg, params, tokens)
     positions = state.lengths[:, None]
-    trash = state.kv_k.shape[2] - 1
-    caches = [attn.PagedKVCache(state.kv_k[i], state.kv_v[i], state.tables,
-                                state.lengths, page_size, active, trash)
-              for i in range(cfg.n_layers)]
-    h = _run_layers(ctx, cfg, params, h, positions, caches)
+    trash = state.kv_k.shape[2] - 1 if state.kv_k is not None else 0
+    for i, bp, win, base in _layers(cfg, params):
+        kvc = None
+        if state.kv_k is not None:
+            kvc = attn.PagedKVCache(state.kv_k[i], state.kv_v[i],
+                                    state.tables, state.lengths, page_size,
+                                    active, trash)
+        ssc = None
+        if state.conv is not None:
+            ssc = ssm.SSMCache(state.conv[i], state.ssm[i])
+        h, _, new = _block_apply(ctx, cfg, bp, h, positions, win, base,
+                                 kv_cache=kvc, ssm_cache=ssc)
+        if new is not None:
+            new = ssm.SSMCache(
+                torch.where(active[:, None, None],
+                            new.conv.to(state.conv.dtype), state.conv[i]),
+                torch.where(active[:, None, None, None], new.state,
+                            state.ssm[i]))
+            _store_ssm(state, i, new)
     logits = unembed(ctx, cfg, params, h)
     lengths = torch.where(active, state.lengths + 1, state.lengths)
     return logits, state._replace(lengths=lengths)

@@ -679,14 +679,22 @@ class ServingEngine(EngineControlPlane):
                               arena_pages(model_cfg, cfg, self.page_size)))
         self.kv_offload = bool(kv_offload)
         self.prefix_cache = bool(prefix_cache)
+        if self.prefix_cache and model_cfg.has_ssm:
+            # A prefix hit skips the chunks below the anchor, but an
+            # SSM/hybrid family's recurrent state is a function of every
+            # skipped position -- CoW pages cannot carry it.
+            raise ValueError("prefix_cache requires an attention-only "
+                             f"family; {model_cfg.name!r} has SSM state")
         self.alloc = PagedKVAllocator(
             n_pages, self.page_size, self.max_pages_per_seq,
             tracer=self.tracer,
             host_pool_pages=((host_pool_pages if host_pool_pages is not None
                               else n_pages) if self.kv_offload else 0))
-        # Dense families only: bucket-padded prompt positions are dead
-        # under the causal and length masks.
-        self.prefill_pad = self.page_size
+        # Prompt bucketing is legal only for attention-only families, where
+        # padded positions are dead under the causal and length masks; a
+        # recurrent state would absorb the padding, so SSM and hybrid
+        # families prefill at exact length.
+        self.prefill_pad = 1 if model_cfg.has_ssm else self.page_size
         if prefill_chunk is not None and prefill_chunk < 0:
             prefill_chunk = None
         elif prefill_chunk == 0:
@@ -715,7 +723,9 @@ class ServingEngine(EngineControlPlane):
                                          self.max_pages_per_seq,
                                          dtype=model_cfg.dtype,
                                          device=self.device)
-        self._next_token = np.zeros((max_slots,), np.int32)
+        tok_shape = (max_slots,) if model_cfg.n_codebooks == 1 \
+            else (max_slots, model_cfg.n_codebooks)
+        self._next_token = np.zeros(tok_shape, np.int32)
 
     # -- sampling ----------------------------------------------------------
     def _sample(self, logits: torch.Tensor) -> np.ndarray:
@@ -745,21 +755,33 @@ class ServingEngine(EngineControlPlane):
 
     # -- KV lifecycle compute hooks ----------------------------------------
     def _capture_spill(self, req: Request, page_ids: List[int]) -> Dict:
-        """Device->host copy of a preemption victim's committed pages; the
-        host copy completes before the pages can be re-issued."""
-        idx = torch.as_tensor(page_ids, dtype=torch.int64, device=self.device)
+        """Device->host copy of a preemption victim's committed pages (plus
+        its slot's conv / SSM state); the host copy completes before the
+        pages can be re-issued."""
         st = self.state
-        return {"kv_k": _to_host(st.kv_k[:, :, idx]),
-                "kv_v": _to_host(st.kv_v[:, :, idx])}
+        payload: Dict = {}
+        if st.kv_k is not None:
+            idx = torch.as_tensor(page_ids, dtype=torch.int64,
+                                  device=self.device)
+            payload["kv_k"] = _to_host(st.kv_k[:, :, idx])
+            payload["kv_v"] = _to_host(st.kv_v[:, :, idx])
+        if st.conv is not None:
+            payload["conv"] = _to_host(st.conv[:, req.slot])
+            payload["ssm"] = _to_host(st.ssm[:, req.slot])
+        return payload
 
     def _apply_restore(self, req: Request, slot: int, spill) -> None:
         """Host->device copy of a spilled victim's pages into the freshly
-        allocated slot's pages."""
-        pages = self.alloc.slot_pages(slot)[:spill.n_pages]
-        idx = torch.as_tensor(pages, dtype=torch.int64, device=self.device)
-        st = self.state
-        st.kv_k[:, :, idx] = _to_device(spill.payload["kv_k"], st.kv_k)
-        st.kv_v[:, :, idx] = _to_device(spill.payload["kv_v"], st.kv_v)
+        allocated slot's pages, and of its recurrent state into the slot."""
+        st, pl = self.state, spill.payload
+        if st.kv_k is not None:
+            pages = self.alloc.slot_pages(slot)[:spill.n_pages]
+            idx = torch.as_tensor(pages, dtype=torch.int64, device=self.device)
+            st.kv_k[:, :, idx] = _to_device(pl["kv_k"], st.kv_k)
+            st.kv_v[:, :, idx] = _to_device(pl["kv_v"], st.kv_v)
+        if st.conv is not None:
+            st.conv[:, slot] = _to_device(pl["conv"], st.conv)
+            st.ssm[:, slot] = _to_device(pl["ssm"], st.ssm)
 
     # -- model steps -------------------------------------------------------
     def _dispatch(self, which: str, args: tuple):
@@ -805,27 +827,30 @@ class ServingEngine(EngineControlPlane):
         ``_exec_chunk``): single-span chunks run the whole-prompt path,
         first chunks the fresh prefill, continuation chunks the
         paged-prefill chunk. Only the last chunk samples and makes the
-        slot's device length live."""
+        slot's device length live. Chunk spans count cache positions, so
+        hymba's meta tokens (prepended by the first chunk) shift the prompt
+        slice."""
         req, slot = w.req, w.slot
+        meta = self.model_cfg.n_meta_tokens
         prompt = req.serve_prompt()
         if w.first and w.last:
             toks = prompt
             pad = self._bucket(len(prompt)) - len(prompt)
             if pad:
-                toks = np.pad(toks, ((0, pad),))
+                toks = np.pad(toks, ((0, pad),) + ((0, 0),) * (toks.ndim - 1))
             row = self._tokens(self._table_row(slot))
             logits, self.state = self._run_guarded(
                 "prefill", "prefill",
                 (self.params, self._tokens(toks[None]), self.state, slot,
                  row))
-            true_len = len(prompt)
+            true_len = len(prompt) + meta
             self._set_length(slot, true_len)
             self._sync_tables([slot])
             return self._sample(logits[0, true_len - 1])
-        toks = prompt[max(0, w.start): w.true_end]
+        toks = prompt[max(0, w.start - meta): w.true_end - meta]
         pad = (w.padded_end - w.true_end)
         if pad:
-            toks = np.pad(toks, ((0, pad),))
+            toks = np.pad(toks, ((0, pad),) + ((0, 0),) * (toks.ndim - 1))
         row = self._tokens(self._table_row(slot))
         if w.first:
             which = "prefill" if w.last else "prefill_nl"
@@ -844,12 +869,12 @@ class ServingEngine(EngineControlPlane):
         if not w.last:
             return None
         self._sync_tables([slot])
-        true_len = len(prompt)
+        true_len = len(prompt) + meta
         self._set_length(slot, true_len)
         return self._sample(logits[0, (true_len - 1) - w.start])
 
     def _exec_decode(self, active_np: np.ndarray) -> np.ndarray:
-        toks = self._tokens(self._next_token[:, None])
+        toks = self._tokens(self._next_token[:, None])      # (slots, 1[, n_q])
         active = self._tokens(active_np)
         logits, self.state = self._run_guarded(
             "decode", "decode", (self.params, toks, self.state, active))
@@ -860,10 +885,11 @@ class ServingEngine(EngineControlPlane):
         """Compact live pages to the arena front: permute the device pools
         (the trash page stays last) and rewrite every slot's table."""
         perm = self.alloc.defrag()
-        inv = np.argsort(perm)
-        idx = torch.as_tensor(np.concatenate([inv, [self.alloc.n_pages]]),
-                              dtype=torch.int64, device=self.device)
         st = self.state
-        st.kv_k.copy_(st.kv_k.index_select(2, idx))
-        st.kv_v.copy_(st.kv_v.index_select(2, idx))
+        if st.kv_k is not None:
+            inv = np.argsort(perm)
+            idx = torch.as_tensor(np.concatenate([inv, [self.alloc.n_pages]]),
+                                  dtype=torch.int64, device=self.device)
+            st.kv_k.copy_(st.kv_k.index_select(2, idx))
+            st.kv_v.copy_(st.kv_v.index_select(2, idx))
         self._sync_tables(list(self.sched.running))

@@ -11,7 +11,9 @@ Tolerances: fp32 1e-5 relative (plus 1e-5 of the largest magnitude), since
 the kernels sum in another order than the plain versions; bf16 one bf16
 ulp of the value (2^-7 relative) plus 2^-14 of the largest magnitude.
 The int8 datapath (GEMM on both dataflows, conv, the mvout epilogue) is
-bit-exact.
+bit-exact. The SSD's fp32 results are held against the naive recurrence
+in fp64 within ``_ssd_exact.fp32_tolerance`` (the cumulative decay's
+rounding, which the exponentials turn into a relative error).
 """
 
 import numpy as np
@@ -24,8 +26,11 @@ from repro_torch.kernels import attention as tak
 from repro_torch.kernels import conv as tconv
 from repro_torch.kernels import epilogue as tepi
 from repro_torch.kernels import gemm as tgemm
+from repro_torch.kernels import mamba2 as tm2
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.ref import gemm_ref
+
+from _ssd_exact import fp32_tolerance, ssd_fp64
 
 pytestmark = pytest.mark.cuda
 
@@ -239,3 +244,80 @@ def test_int_kernels_refuse_float_units(card, act):
     with pytest.raises(ValueError, match="float unit"):
         tconv.conv2d_implicit(x.reshape(1, 2, 2, 32), x.reshape(1, 1, 32, 4),
                               **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t,h,p,g,n,chunk", [(1000, 8, 64, 1, 128, 256),
+                                             (300, 10, 64, 1, 16, 256),
+                                             (7, 4, 8, 1, 8, 256),
+                                             (70, 8, 16, 2, 32, 32)])
+@pytest.mark.parametrize("resume", [False, True])
+def test_ssd_matches_plain(card, dtype, t, h, p, g, n, chunk, resume):
+    """The chunked SSD kernel: ragged chunks, grouped B/C, x/B/C read as
+    strided views of one fused buffer (as the model hands them over), and
+    a resumed segment's initial state taken into the kernel."""
+    rng = np.random.default_rng(t + h + n)
+    bsz = 2
+    d_in = h * p
+    fused = torch.tensor(rng.standard_normal((bsz, t, d_in + 2 * g * n)),
+                         dtype=torch.float32).to(card, dtype)
+    x = fused[..., :d_in].reshape(bsz, t, h, p)
+    b = fused[..., d_in:d_in + g * n].reshape(bsz, t, g, n) * 0.3
+    c = fused[..., d_in + g * n:].reshape(bsz, t, g, n) * 0.3
+    dt = torch.tensor(np.abs(rng.standard_normal((bsz, t, h))) * 0.5 + 0.01,
+                      dtype=torch.float32, device=card)
+    a_log = torch.tensor(np.log(np.linspace(1.0, 16.0, h)),
+                         dtype=torch.float32, device=card)
+    d_skip = torch.tensor(rng.standard_normal(h), dtype=torch.float32,
+                          device=card)
+    init = torch.tensor(rng.standard_normal((bsz, h, n, p)) * 0.5,
+                        dtype=torch.float32, device=card) if resume else None
+    kw = dict(d_skip=d_skip, chunk=chunk, return_final_state=True)
+    kernels.reset_launch_counts()
+    y, fs = tm2.ssd(x, dt, a_log, b, c, initial_state=init, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["ssd"] == 1
+    # fp32 results against the naive recurrence in fp64 on the same inputs,
+    # within the rounding the decay exponentials amplify (fp32_tolerance);
+    # bf16 outputs against the plain version in bf16.
+    tol = fp32_tolerance(dt, a_log, chunk)
+    exact_y, exact_fs = ssd_fp64(x, dt, a_log, b, c, d_skip=d_skip,
+                                 initial_state=init)
+    if dtype == torch.bfloat16:
+        _close(y, tm2.ssd_plain(x, dt, a_log, b, c, initial_state=init,
+                                **kw)[0], dtype)
+    else:
+        torch.testing.assert_close(y.double(), exact_y, rtol=0,
+                                   atol=tol * exact_y.abs().max().item())
+    torch.testing.assert_close(fs.double(), exact_fs, rtol=0,
+                               atol=tol * exact_fs.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,h,kvh,d,pos,window,softcap",
+                         [(4, 2048, 4, 1, 256, 1999, None, None),
+                          (4, 2048, 4, 1, 256, 1999, 512, None),
+                          (1, 784, 4, 1, 256, 783, 512, None),
+                          (2, 700, 25, 5, 64, 650, 1024, None),
+                          (3, 100, 8, 2, 128, 99, 24, 50.0),
+                          (2, 64, 4, 4, 16, 0, None, None)])
+def test_decode_attention_matches_plain(card, dtype, b, s, h, kvh, d, pos,
+                                        window, softcap):
+    """Dense decode against a cache whose rows past ``pos`` hold NaN (the
+    kernel must never read them; the plain version gets zeros there)."""
+    rng = np.random.default_rng(s + h)
+    q = torch.tensor(rng.standard_normal((b, 1, h, d)),
+                     dtype=torch.float32).to(card, dtype)
+    k = torch.tensor(rng.standard_normal((b, s, kvh, d)),
+                     dtype=torch.float32).to(card, dtype)
+    v = torch.tensor(rng.standard_normal((b, s, kvh, d)),
+                     dtype=torch.float32).to(card, dtype)
+    kw = dict(window=window, softcap=softcap)
+    want = tak.decode_attention_plain(q, k, v, pos, **kw)
+    k[:, pos + 1:] = float("nan")
+    v[:, pos + 1:] = float("nan")
+    kernels.reset_launch_counts()
+    got = tak.decode_attention(q, k, v, pos, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["decode_attention"] == 1
+    _close(got, want, dtype)

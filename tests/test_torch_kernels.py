@@ -40,6 +40,7 @@ from repro_torch.core.context import ExecutionContext
 from repro_torch.kernels import attention as tak
 from repro_torch.kernels import gemm as tgemm
 from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels import mamba2 as tm2
 
 ATTN_TOL = 1e-5
 
@@ -295,9 +296,15 @@ def test_cpu_tensors_take_the_plain_versions():
         x, torch.ones((8, 4)))
     q = torch.ones((1, 4, 2, 16))
     tak.flash_attention(q, q, q)
+    tak.decode_attention(q[:, :1], q, q, 2)
+    x = torch.ones((1, 5, 2, 8))
+    b = torch.ones((1, 5, 1, 8))
+    tm2.ssd(x, torch.ones((1, 5, 2)), torch.zeros((2,)), b, b,
+            initial_state=torch.zeros((1, 2, 8, 8)), return_final_state=True)
     counts = launch_counts()
     assert {"gemm", "flash_attention", "paged_prefill_attention",
-            "paged_decode_attention"} <= set(counts)
+            "paged_decode_attention", "ssd", "decode_attention"} <= \
+        set(counts)
     assert set(counts.values()) == {0}
 
 
