@@ -62,7 +62,12 @@ widths, fresh and resumed, and a ragged 7-token prompt; final states
 against the naive recurrence in fp64) and dense decode attention in bf16
 at phase 10's shapes, at four sequences of 2048 and at hymba-1.5b's
 shape, and in fp32 at phase 9's (each attention arch's longest request,
-its windows and softcap). Every main path's launch counts are zeroed
+its windows and softcap), flash attention at hymba-1.5b's first chunk and
+in fp32 at phase 9's prompts (the CUDA-core kernel that the fp32 gate
+runs), and logs each redesigned kernel's grid and ``ptxas`` registers and
+spills; dense decode's yardsticks are SDPA over the whole cache under a
+boolean mask and (its ``library_ms``) SDPA without a mask over the live
+key slice. Every main path's launch counts are zeroed
 just before it and read just after; the kernels line takes each kernel's
 count from its own path: the serve phase, the engine phase, the recurrent
 serve (``ssd``) or the static path (``decode_attention``).
@@ -205,6 +210,25 @@ def check_close(torch, name, got, want, kind):
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
+def flash_grid(t_q, t_k, h, dh, window):
+    """(blocks per cluster, blocks) of the bf16 flash kernel, from its
+    tiling (``flash_cluster`` in ``attention.cu``): 16-row query tiles x
+    heads x a cluster of 4-warp blocks, enough of them (at most 4, a power
+    of two) that the busiest tile's key tiles go one to a warp."""
+    kt = 16 if dh >= 256 else 32 if dh >= 128 else 64
+    most = 0
+    for row0 in range(0, t_q, 16):
+        q0 = t_k - t_q + row0
+        lo = max(0, q0 - window + 1) if window else 0
+        hi = min(t_k, q0 + 16)
+        if hi > lo:
+            most = max(most, -(-hi // kt) - lo // kt)
+    cl = 1
+    while cl < 4 and cl * 4 < most:
+        cl *= 2
+    return cl, cl * -(-t_q // 16) * h
+
+
 def kernel_cases(torch, rng_seed=0):
     """(kernel, label, representative, kind, run_kernel, run_plain,
     run_library, nbytes, flops) for every checked shape."""
@@ -259,31 +283,56 @@ def kernel_cases(torch, rng_seed=0):
                   4 * (64 * d + d * nh * hd * 2), 2.0 * 64 * d * nh * hd))
 
     # -- flash_attention: a fresh prompt or first chunk, local and global
-    def flash_case(t_q, t_k, h, kvh, dh, window, softcap, rep):
-        q = randn(1, t_q, h, dh)
-        k, v = randn(1, t_k, kvh, dh), randn(1, t_k, kvh, dh)
+    def flash_case(t_q, t_k, h, kvh, dh, window, softcap, rep, dtype=bf16):
+        q = randn(1, t_q, h, dh, dtype=dtype)
+        k = randn(1, t_k, kvh, dh, dtype=dtype)
+        v = randn(1, t_k, kvh, dh, dtype=dtype)
         kw = dict(causal=True, window=window, softcap=softcap)
         pairs = sum(min(i + t_k - t_q + 1, window or 1 << 30)
                     for i in range(t_q))
-        nbytes = 2 * (2 * t_q * h * dh + 2 * t_k * kvh * dh)
+        nbytes = q.element_size() * (2 * t_q * h * dh + 2 * t_k * kvh * dh)
 
         def library():
             return torch.nn.functional.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 is_causal=True, enable_gqa=True)
-        lib = library if (window is None and softcap is None and
-                          t_q == t_k) else None
+        # SDPA computes the same function where the window cuts no key.
+        lib = library if ((window is None or window >= t_k) and
+                          softcap is None and t_q == t_k) else None
+        kind = "fp32" if dtype == f32 else "bf16"
+        if dtype == bf16:
+            cl, blocks = flash_grid(t_q, t_k, h, dh, window)
+            grid = f"{blocks} blocks, clusters of {cl}"
+        else:
+            grid = f"{-(-t_q // 64) * h} blocks (CUDA cores)"
         cases.append(("flash_attention",
-                      f"Tq={t_q} Tk={t_k} H={h} KVH={kvh} D={dh} "
-                      f"window={window} softcap={softcap}", rep, "bf16",
+                      f"{kind} Tq={t_q} Tk={t_k} H={h} KVH={kvh} D={dh} "
+                      f"window={window} softcap={softcap}", rep, kind,
                       lambda: ka.flash_attention(q, k, v, **kw),
                       lambda: ka.blockwise_attention(q, k, v, **kw), lib,
-                      nbytes, 4.0 * dh * h * pairs))
+                      nbytes, 4.0 * dh * h * pairs, dict(grid=grid)))
     flash_case(256, 256, nh, nkv, hd, None, None, True)
     flash_case(256, 256, nh, nkv, hd, cfg.local_window, None, False)
     flash_case(64, 64, nh, nkv, hd, None, None, False)
     flash_case(64, 64, nh, nkv, hd, cfg.local_window, None, False)
     flash_case(100, 200, 8, 2, 128, 64, 50.0, False)
+    # hymba-1.5b's first chunk as phase 8 launches it: 256 cache positions
+    # (its 128 meta tokens lead the prompt), GQA 25 / 5, head dim 64
+    hy = configs.get("hymba-1.5b")
+    flash_case(256, 256, hy.n_heads, hy.n_kv_heads, hy.head_dim,
+               hy.local_window, None, False)
+    # phase 9's gate in fp32 (the CUDA-core kernel): each attention arch's
+    # longest prompt as the static path prefills it, windows and softcap
+    from repro_torch.examples import serve_decode as sd
+    for arch in sd.ARCHS:
+        sc = configs.get_smoke(arch)
+        if not sc.has_attn:
+            continue
+        t = max(sd.PROMPT_LENS) + sc.n_meta_tokens
+        for window in (None, sc.local_window) if sc.local_window \
+                else (None,):
+            flash_case(t, t, sc.n_heads, sc.n_kv_heads, sc.head_dim, window,
+                       sc.attn_softcap, False, dtype=f32)
 
     # -- paged attention pools as the engine holds them: page 64, 2048-token
     # context (32 pages per slot), 128 pages + the trash page
@@ -442,26 +491,41 @@ def recurrent_cases(torch, gen, cases):
         lo = max(0, pos - window + 1) if window else 0
         live = min(pos + 1, s) - lo
         mask = (kpos <= pos) & (kpos >= lo)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
 
-        def library():
-            return torch.nn.functional.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                attn_mask=mask[None, None, None, :], enable_gqa=True)
-        lib = library if softcap is None else None
-        if lib is not None:
+        # Two one-call yardsticks: the whole cache under a boolean mask,
+        # and (the faster) no mask over the live key slice.
+        def masked():
+            return sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), attn_mask=mask[None, None, None, :],
+                        enable_gqa=True)
+
+        def live_slice():
+            return sdpa(q.transpose(1, 2), k[:, lo:pos + 1].transpose(1, 2),
+                        v[:, lo:pos + 1].transpose(1, 2), enable_gqa=True)
+        libs = {"masked": masked, "live_slice": live_slice} \
+            if softcap is None else {}
+        for name, fn in list(libs.items()):
             try:                      # the yardstick only, never the port
-                lib()
+                fn()
             except RuntimeError as e:
-                log(f"scaled_dot_product_attention refused: {e}")
-                lib = None
+                log(f"scaled_dot_product_attention ({name}) refused: {e}")
+                del libs[name]
         kind = "fp32" if dtype == f32 else "bf16"
         nbytes = q.element_size() * (2 * b * h * dh + 2 * b * live * kvh * dh)
+        splits, groups, _, split, _ = ka.decode_plan(b, s, h, kvh, dh, pos,
+                                                     window)
+        opts = dict(grid=f"{splits * groups} blocks ({splits} splits of "
+                    f"{split} keys x {groups})")
+        if "masked" in libs:
+            opts["library_masked"] = libs["masked"]
         cases.append(("decode_attention",
                       f"{kind} B={b} S={s} pos={pos} H={h} KVH={kvh} D={dh} "
                       f"window={window} softcap={softcap}", rep, kind,
                       lambda: ka.decode_attention(q, k, v, pos, **kw),
                       lambda: ka.decode_attention_plain(q, k, v, pos, **kw),
-                      lib, nbytes, 4.0 * dh * h * b * live))
+                      libs.get("live_slice"), nbytes, 4.0 * dh * h * b * live,
+                      opts))
     # phase 10's static path: gemma3-1b's last decode step, global and local
     g3 = configs.get("gemma3-1b")
     s_max = STATIC_PROMPT + STATIC_STEPS
@@ -572,9 +636,10 @@ def engine_cases(torch, gen, cases):
 def run_kernel_phase(torch, timer):
     """Each case: (kernel, label, representative, kind, run_kernel,
     run_plain, run_library, bytes, flops[, opts]); ``opts["check"]``
-    replaces ``check_close`` for a kernel with several outputs and
+    replaces ``check_close`` for a kernel with several outputs,
     ``opts["peak"]`` names the rate its operations run at, where that is
-    not the tolerance kind's."""
+    not the tolerance kind's, ``opts["grid"]`` describes the kernel's grid
+    and ``opts["library_masked"]`` is a second one-call yardstick."""
     rows, summary = [], {}
     for (kernel, label, rep, kind, run_k, run_p, run_lib, nbytes, flops,
          *opts) in kernel_cases(torch):
@@ -596,11 +661,18 @@ def run_kernel_phase(torch, timer):
                "host_ms": host_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
                "flops": flops}
+        extra = ""
+        if "library_masked" in opts:
+            row["library_masked_ms"] = timer(opts["library_masked"])
+            extra += f"  masked library {row['library_masked_ms']:.4f} ms"
+        if "grid" in opts:
+            row["grid"] = opts["grid"]
+            extra += f"  grid {opts['grid']}"
         rows.append(row)
         log(f"{kernel:<24} {label:<62} err {err:.2e}  kernel {ms:8.4f} ms "
             f"(host {host_ms:7.4f})  plain {plain_ms:8.4f} ms  library "
             f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms':>10}  bound "
-            f"{b_ms:.4f} ms ({b_by})")
+            f"{b_ms:.4f} ms ({b_by}){extra}")
         if rep:
             summary[kernel] = row
     # Launch counts of the checks are not the main path's: reset below.
@@ -697,7 +769,8 @@ def run_serve_phase(torch, np):
 # phase 4b: where a full-width decode step and prefill chunk spend time
 # ---------------------------------------------------------------------------
 _KERNEL_NAMES = (("ssd_kernel", "ssd"),
-                 ("dense_decode_kernel", "decode_attention"),
+                 ("decode_split_kernel", "decode_attention"),
+                 ("flash_tc_kernel", "flash_attention"),
                  ("ConvA", "conv2d_implicit"), ("MatrixA", "gemm[int8]"),
                  ("epilogue_kernel", "accumulator_epilogue"),
                  ("gemm_bf16_kernel", "gemm"), ("gemm_f32_kernel", "gemm"),
@@ -1343,8 +1416,14 @@ def main() -> int:
         f"({', '.join(f'{k} {v:.1f} s' for k, v in secs.items())}) into "
         f"{_build.build_dir()}")
     ptxas = {name: [ln.strip() for ln in _build.build_log(name).splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if "entry function" in ln or "registers" in ln
+                    or "spill" in ln]
              for name in secs}
+    # the redesigned attention kernels: entry, spills, registers
+    att = ptxas.get("attention", [])
+    for i, ln in enumerate(att):
+        if "flash_tc_kernel" in ln or "decode_split_kernel" in ln:
+            log("ptxas " + " | ".join(att[i:i + 3]))
 
     # 3. kernels
     timer = Timer(torch)

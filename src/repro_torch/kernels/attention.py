@@ -224,7 +224,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     softcap: Optional[float] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q: (B, Tq, H, D); k/v: (B, Tk, KVH, D); queries right-aligned to
-    the keys. Returns (B, Tq, H, D) in q's dtype."""
+    the keys. Returns (B, Tq, H, D) in q's dtype. On the card bf16 runs
+    the tensor-core kernel and fp32 the CUDA-core one (IEEE fp32)."""
     if q.device.type == "cpu":
         return blockwise_attention(q, k, v, causal=causal, window=window,
                                    softcap=softcap, scale=scale)
@@ -255,7 +256,11 @@ def decode_attention(q, k, v, pos: int, *, window: Optional[int] = None,
                      softcap: Optional[float] = None,
                      scale: Optional[float] = None) -> torch.Tensor:
     """q: (B, 1, H, D); k/v: (B, S, KVH, D) dense cache; ``pos``: host int,
-    keys 0..pos live. Returns (B, 1, H, D) in q's dtype."""
+    keys 0..pos live. Returns (B, 1, H, D) in q's dtype.
+
+    The kernel splits the live keys over blocks (``decode_plan``) and
+    merges their partial softmax states in the same launch, in a
+    workspace of its own for each call."""
     pos = int(pos)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, pos, window=window,
@@ -272,17 +277,31 @@ def decode_attention(q, k, v, pos: int, *, window: Optional[int] = None,
     _check_head("decode_attention", q, k, h, kvh, d)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     _check_cuda("decode_attention", (q, k, v))
+    ws = torch.empty(decode_plan(b, s, h, kvh, d, pos, window)[4],
+                     dtype=torch.float32, device=q.device)
     o = torch.empty_like(q)
     fn = _build.bind("attention", "decode_attention_launch",
                      [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
-                      _P])
+                      _P, _P])
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, h,
              kvh, d, pos, int(window or 0), float(softcap or 0.0),
              _scale(scale, d), _DT[q.dtype],
-             torch.cuda.current_stream(q.device).cuda_stream)
+             torch.cuda.current_stream(q.device).cuda_stream, ws.data_ptr())
     _build.check(err, "decode_attention")
     decode_attention.launches += 1
     return o
+
+
+def decode_plan(b: int, s: int, h: int, kvh: int, d: int, pos: int,
+                window: Optional[int] = None) -> tuple:
+    """The split decode kernel's plan for a call: (splits, groups, query
+    heads per block, keys per split, 4-byte words of workspace); its grid
+    is splits x groups blocks."""
+    out = (ctypes.c_longlong * 5)()
+    fn = _build.bind("attention", "decode_attention_plan", [_I] * 7 + [_P])
+    _build.check(fn(b, s, h, kvh, d, int(pos), int(window or 0),
+                    ctypes.addressof(out)), "decode_attention_plan")
+    return tuple(out)
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,

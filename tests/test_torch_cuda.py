@@ -321,3 +321,113 @@ def test_decode_attention_matches_plain(card, dtype, b, s, h, kvh, d, pos,
     torch.cuda.synchronize()
     assert kernels.launch_counts()["decode_attention"] == 1
     _close(got, want, dtype)
+
+
+def _bf16(rng, shape, card):
+    return torch.tensor(rng.standard_normal(shape),
+                        dtype=torch.float32).to(card, torch.bfloat16)
+
+
+def _flash_inputs(card, b, tq, tk, h, kvh, d, seed):
+    rng = np.random.default_rng(seed)
+    return (_bf16(rng, (b, tq, h, d), card), _bf16(rng, (b, tk, kvh, d), card),
+            _bf16(rng, (b, tk, kvh, d), card))
+
+
+@pytest.mark.parametrize("tq,tk", [(tq, tk) for tq in (1, 15, 17, 45, 256)
+                                   for tk in sorted({tq, 70, 200})
+                                   if tk >= tq])
+def test_flash_bf16_ragged_shapes(card, tq, tk):
+    """The tensor-core flash kernel on ragged query and key counts (row and
+    key predicates, no padded copies), MQA 4/1 at head dim 256, causal."""
+    q, k, v = _flash_inputs(card, 1, tq, tk, 4, 1, 256, tq * 1000 + tk)
+    n0 = tak.flash_attention.launches
+    got = tak.flash_attention(q, k, v)
+    assert tak.flash_attention.launches == n0 + 1
+    _close(got, tak.blockwise_attention(q, k, v), torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,tq,tk,h,kvh,d,window,softcap", [
+    (1, 45, 200, 4, 1, 256, 24, None),      # window edge inside a key tile
+    (2, 100, 130, 8, 2, 64, 40, None),      # ... at a 64-key tile
+    (1, 64, 64, 4, 1, 256, None, 50.0),     # softcap
+    (1, 384, 384, 25, 5, 64, 1024, None),   # hymba's GQA 25 / 5
+    (1, 256, 256, 4, 1, 256, None, None),   # gemma3's MQA 4 / 1
+    (2, 33, 90, 4, 2, 16, 20, 30.0),        # head dim 16
+    (1, 50, 77, 6, 3, 32, None, None),      # head dim 32
+    (1, 70, 70, 2, 2, 128, 16, None),       # head dim 128, MHA
+])
+def test_flash_bf16_matches_plain(card, b, tq, tk, h, kvh, d, window,
+                                  softcap):
+    q, k, v = _flash_inputs(card, b, tq, tk, h, kvh, d, tq + tk + d)
+    kw = dict(window=window, softcap=softcap)
+    got = tak.flash_attention(q, k, v, **kw)
+    _close(got, tak.blockwise_attention(q, k, v, **kw), torch.bfloat16)
+
+
+def test_flash_bf16_rerun_is_bit_identical(card):
+    """The partials merge in a fixed order, so two runs at gemma3-1b's
+    first-chunk shape agree bit for bit."""
+    q, k, v = _flash_inputs(card, 1, 256, 256, 4, 1, 256, 11)
+    first = tak.flash_attention(q, k, v)
+    assert torch.equal(first, tak.flash_attention(q, k, v))
+
+
+def _decode_inputs(card, dtype, b, s, h, kvh, d, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.tensor(rng.standard_normal(shape),
+                              dtype=torch.float32).to(card, dtype)
+                 for shape in ((b, 1, h, d), (b, s, kvh, d), (b, s, kvh, d)))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,h,kvh,d,pos,window", [
+    (1, 300, 4, 1, 256, "split-1", None),    # the last key closes a split
+    (1, 300, 4, 1, 256, "split", None),      # ... and one past it
+    (2, 300, 8, 2, 128, "2split", 100),
+    (1, 100, 4, 1, 256, 0, None),            # one live key
+    (2, 300, 4, 1, 256, 250, 24),            # window inside one split
+    (4, 2048, 4, 1, 256, 1999, 700),         # four sequences, ragged splits
+    (1, 500, 25, 5, 64, 420, None),          # hymba's GQA 25 / 5
+    (2, 90, 6, 2, 16, 80, 50),               # head dim 16
+])
+def test_decode_split_edges(card, dtype, b, s, h, kvh, d, pos, window):
+    """The split-KV decode kernel where splits begin and end, with NaN in
+    every row past ``pos`` (never read): one launch per call, two calls
+    bit-identical."""
+    split = tak.decode_plan(b, s, h, kvh, d, s - 1)[3]
+    pos = {"split-1": split - 1, "split": split,
+           "2split": 2 * split}.get(pos, pos)
+    q, k, v = _decode_inputs(card, dtype, b, s, h, kvh, d, s + h + d)
+    want = tak.decode_attention_plain(q, k, v, pos, window=window)
+    k[:, pos + 1:] = float("nan")
+    v[:, pos + 1:] = float("nan")
+    kernels.reset_launch_counts()
+    got = tak.decode_attention(q, k, v, pos, window=window)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["decode_attention"] == 1
+    _close(got, want, dtype)
+    assert torch.equal(got, tak.decode_attention(q, k, v, pos, window=window))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_split_on_concurrent_streams(card, dtype):
+    """Calls on two streams at once, each of many splits: every call zeroes
+    the tickets of its own workspace, so the two never merge each other's
+    partials."""
+    b, s, h, kvh, d = 4, 2048, 4, 1, 256
+    assert tak.decode_plan(b, s, h, kvh, d, s - 1)[0] > 1
+    inputs = [_decode_inputs(card, dtype, b, s, h, kvh, d, seed)
+              for seed in (5, 6)]
+    wants = [tak.decode_attention_plain(q, k, v, s - 1) for q, k, v in inputs]
+    streams = [torch.cuda.Stream(card) for _ in inputs]
+    torch.cuda.synchronize()
+    gots = [[], []]
+    for _ in range(8):
+        for i, (st, (q, k, v)) in enumerate(zip(streams, inputs)):
+            with torch.cuda.stream(st):
+                gots[i].append(tak.decode_attention(q, k, v, s - 1))
+    torch.cuda.synchronize()
+    for got, want in zip(gots, wants):
+        for g in got:
+            _close(g, want, dtype)

@@ -161,6 +161,7 @@ def test_gemm_int8_datapath_bit_exact():
     (40, 40, 4, 1, 16, None),        # MQA, sliding window
     (40, 40, 4, 2, None, 30.0),      # GQA, softcap
     (24, 56, 4, 2, 8, 20.0),         # Tq < Tk right-aligned, all options
+    (17, 70, 4, 2, 24, None),        # ragged tiles, a window inside a tile
 ])
 def test_flash_attention_matches_jax(tq, tk, h, kvh, window, softcap):
     rng = np.random.default_rng(4)

@@ -223,7 +223,8 @@ def test_ssd_split_equals_single_pass():
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("h,kvh,pos,window,softcap",
                          [(4, 1, 37, None, None), (8, 2, 63, 16, 50.0),
-                          (4, 4, 0, None, None), (5, 5, 20, 8, None)])
+                          (4, 4, 0, None, None), (5, 5, 20, 8, None),
+                          (4, 1, 0, 8, None)])
 def test_decode_attention_plain_matches_jax(h, kvh, pos, window, softcap):
     rng = np.random.default_rng(5)
     b, s, d = 2, 64, 16
