@@ -67,7 +67,13 @@ in fp32 at phase 9's prompts (the CUDA-core kernel that the fp32 gate
 runs), and logs each redesigned kernel's grid and ``ptxas`` registers and
 spills; dense decode's yardsticks are SDPA over the whole cache under a
 boolean mask and (its ``library_ms``) SDPA without a mask over the live
-key slice. Every main path's launch counts are zeroed
+key slice. The bf16 GEMM rows (gemma3-1b's 7 projections and the tied
+unembedding at M = 4, 64 and 256) log their plan (``gemm.gemm_plan``:
+regime, tile, K splits, grid, workspace) and ``torch.matmul`` beside each;
+the biased rows time ``torch.addmm`` (fp32 with TF32 off); the log and
+the JSON carry the GEMM's sums over one decode step (M = 4) and one
+prefill chunk (M = 256), 7 projections per layer and the unembedding.
+Every main path's launch counts are zeroed
 just before it and read just after; the kernels line takes each kernel's
 count from its own path: the serve phase, the engine phase, the recurrent
 serve (``ssd``) or the static path (``decode_attention``).
@@ -229,6 +235,61 @@ def flash_grid(t_q, t_k, h, dh, window):
     return cl, cl * -(-t_q // 16) * h
 
 
+GEMM_ROWS = (4, 64, 256)   # decode (4 slots), a short prompt, a chunk
+
+
+def gemm_serving_cases(torch, randn, gemm):
+    """gemma3-1b's bf16 GEMMs at the serving path's row counts: (name, M,
+    N, K, run_kernel, run_plain, run_library) for every projection and
+    the tied unembedding (B = ``table.T``), ``randn(*shape, scale=)``
+    making the operands; the yardstick is ``torch.matmul``."""
+    from repro_torch import configs
+    from repro_torch.kernels.ref import gemm_ref
+
+    cfg = configs.get("gemma3-1b")
+    d, hd, nh, nkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    proj = [("wq", d, nh * hd), ("wk", d, nkv * hd), ("wv", d, nkv * hd),
+            ("wo", nh * hd, d), ("wi", d, cfg.d_ff), ("wg", d, cfg.d_ff),
+            ("mlp.wo", cfg.d_ff, d)]
+    table = randn(cfg.vocab, d, scale=d ** -0.5)
+    kw = dict(acc_dtype=torch.float32, out_dtype=torch.bfloat16)
+    out = []
+    for m in GEMM_ROWS:
+        for name, k, n in proj + [("unembed", d, cfg.vocab)]:
+            a = randn(m, k)
+            b = table.T if name == "unembed" else randn(k, n, scale=k ** -0.5)
+            out.append((name, m, n, k,
+                        lambda a=a, b=b: gemm(a, b, **kw),
+                        lambda a=a, b=b: gemm_ref(a, b, None, **kw),
+                        lambda a=a, b=b: torch.matmul(a, b)))
+    return out
+
+
+def gemm_step_sums(rows, n_layers):
+    """Per row count M: one step's sum over its 7 x n_layers projections
+    and the unembedding, for each of ``ms``, ``library_ms`` and
+    ``bound_ms`` in ``rows`` (dicts with ``shape`` "name M=.. ...")."""
+    sums = {}
+    for r in rows:
+        name, m = r["shape"].split()[0], int(r["shape"].split()[1][2:])
+        times = 1 if name == "unembed" else n_layers
+        acc = sums.setdefault(m, {"ms": 0.0, "library_ms": 0.0,
+                                  "bound_ms": 0.0})
+        for key in acc:
+            if r.get(key) is not None:
+                acc[key] += times * r[key]
+    return sums
+
+
+def gemm_plan_text(kg, m, n, k, b_trans=False):
+    """The bf16 GEMM's plan for a shape, as phase 3 logs it."""
+    p = kg.gemm_plan(m, n, k, b_trans)
+    bm, bn, bk = p["tile"]
+    return (f"{p['regime']} {bm}x{bn}x{bk}, {p['splits']} K splits, "
+            f"{p['grid']} blocks x {p['threads']}, {p['stages']} stages, "
+            f"{p['smem']} B shared, workspace {p['workspace_bytes']} B")
+
+
 def kernel_cases(torch, rng_seed=0):
     """(kernel, label, representative, kind, run_kernel, run_plain,
     run_library, nbytes, flops) for every checked shape."""
@@ -249,37 +310,34 @@ def kernel_cases(torch, rng_seed=0):
     cases = []
 
     # -- gemm: every projection and the tied unembedding at the serving
-    # path's row counts (decode: 4 slots; chunks: 256; the short prompt: 64)
-    proj = [("wq", d, nh * hd), ("wk", d, nkv * hd), ("wv", d, nkv * hd),
-            ("wo", nh * hd, d), ("wi", d, cfg.d_ff), ("wg", d, cfg.d_ff),
-            ("mlp.wo", cfg.d_ff, d)]
-    table = randn(cfg.vocab, d, scale=d ** -0.5)
-    for m in (4, 64, 256):
-        for pname, k, n in proj + [("unembed", d, cfg.vocab)]:
-            a = randn(m, k)
-            b = table.T if pname == "unembed" else randn(k, n, scale=k ** -0.5)
-            kw = dict(acc_dtype=f32, out_dtype=bf16)
-            nbytes = 2 * (m * k + k * n + m * n)
-            cases.append((
-                "gemm", f"{pname} M={m} N={n} K={k}",
-                pname == "unembed" and m == 4, "bf16",
-                lambda a=a, b=b, kw=kw: kg.gemm(a, b, **kw),
-                lambda a=a, b=b, kw=kw: gemm_ref(a, b, None, **kw),
-                lambda a=a, b=b: torch.matmul(a, b),
-                nbytes, 2.0 * m * n * k))
-    # the D input (qwen's QKV bias) and the fp32 datapath (fp32 engine)
+    # path's row counts, each with its plan (regime, tile, K splits, grid)
+    for pname, m, n, k, run_k, run_p, run_lib in gemm_serving_cases(
+            torch, randn, kg.gemm):
+        nbytes = 2 * (m * k + k * n + m * n)
+        cases.append((
+            "gemm", f"{pname} M={m} N={n} K={k}",
+            pname == "unembed" and m == 4, "bf16", run_k, run_p, run_lib,
+            nbytes, 2.0 * m * n * k,
+            {"plan": gemm_plan_text(kg, m, n, k, pname == "unembed")}))
+    # the D input (qwen's QKV bias) and the fp32 datapath (fp32 engine),
+    # each beside the one PyTorch call that computes it: torch.addmm (in
+    # fp32 with TF32 off, as main sets it)
     a, b = randn(64, d), randn(d, nh * hd, scale=d ** -0.5)
     bias = randn(nh * hd)
+    bias16 = bias.to(bf16)
     kw = dict(acc_dtype=f32, out_dtype=bf16)
     cases.append(("gemm", "wq+bias M=64", False, "bf16",
                   lambda: kg.gemm(a, b, bias, **kw),
-                  lambda: gemm_ref(a, b, bias, **kw), None,
-                  2 * (64 * d + d * nh * hd * 2), 2.0 * 64 * d * nh * hd))
+                  lambda: gemm_ref(a, b, bias, **kw),
+                  lambda: torch.addmm(bias16, a, b),
+                  2 * (64 * d + d * nh * hd * 2), 2.0 * 64 * d * nh * hd,
+                  {"plan": gemm_plan_text(kg, 64, nh * hd, d)}))
     a32, b32, bias32 = a.float(), b.float(), bias.float()
     kw32 = dict(acc_dtype=f32, out_dtype=f32)
     cases.append(("gemm", "fp32 wq+bias M=64", False, "fp32",
                   lambda: kg.gemm(a32, b32, bias32, **kw32),
-                  lambda: gemm_ref(a32, b32, bias32, **kw32), None,
+                  lambda: gemm_ref(a32, b32, bias32, **kw32),
+                  lambda: torch.addmm(bias32, a32, b32),
                   4 * (64 * d + d * nh * hd * 2), 2.0 * 64 * d * nh * hd))
 
     # -- flash_attention: a fresh prompt or first chunk, local and global
@@ -638,8 +696,9 @@ def run_kernel_phase(torch, timer):
     run_plain, run_library, bytes, flops[, opts]); ``opts["check"]``
     replaces ``check_close`` for a kernel with several outputs,
     ``opts["peak"]`` names the rate its operations run at, where that is
-    not the tolerance kind's, ``opts["grid"]`` describes the kernel's grid
-    and ``opts["library_masked"]`` is a second one-call yardstick."""
+    not the tolerance kind's, ``opts["grid"]`` describes the kernel's grid,
+    ``opts["plan"]`` the bf16 GEMM's plan, and ``opts["library_masked"]``
+    is a second one-call yardstick."""
     rows, summary = [], {}
     for (kernel, label, rep, kind, run_k, run_p, run_lib, nbytes, flops,
          *opts) in kernel_cases(torch):
@@ -668,6 +727,9 @@ def run_kernel_phase(torch, timer):
         if "grid" in opts:
             row["grid"] = opts["grid"]
             extra += f"  grid {opts['grid']}"
+        if "plan" in opts:
+            row["plan"] = opts["plan"]
+            extra += f"  plan {opts['plan']}"
         rows.append(row)
         log(f"{kernel:<24} {label:<62} err {err:.2e}  kernel {ms:8.4f} ms "
             f"(host {host_ms:7.4f})  plain {plain_ms:8.4f} ms  library "
@@ -773,7 +835,8 @@ _KERNEL_NAMES = (("ssd_kernel", "ssd"),
                  ("flash_tc_kernel", "flash_attention"),
                  ("ConvA", "conv2d_implicit"), ("MatrixA", "gemm[int8]"),
                  ("epilogue_kernel", "accumulator_epilogue"),
-                 ("gemm_bf16_kernel", "gemm"), ("gemm_f32_kernel", "gemm"),
+                 ("hgemm::skinny_kernel", "gemm"),
+                 ("hgemm::wide_kernel", "gemm"), ("gemm_f32_kernel", "gemm"),
                  ("paged_decode_kernel", "paged_decode_attention"),
                  ("true>", "paged_prefill_attention"),
                  ("prefill_attn_kernel", "flash_attention"))
@@ -1419,16 +1482,27 @@ def main() -> int:
                     if "entry function" in ln or "registers" in ln
                     or "spill" in ln]
              for name in secs}
-    # the redesigned attention kernels: entry, spills, registers
-    att = ptxas.get("attention", [])
-    for i, ln in enumerate(att):
-        if "flash_tc_kernel" in ln or "decode_split_kernel" in ln:
-            log("ptxas " + " | ".join(att[i:i + 3]))
+    # the redesigned kernels: entry, spills, registers
+    for src, names in (("attention", ("flash_tc_kernel", "decode_split_kernel")),
+                       ("gemm", ("skinny_kernel", "wide_kernel"))):
+        lines = ptxas.get(src, [])
+        for i, ln in enumerate(lines):
+            if "entry function" in ln and any(n in ln for n in names):
+                log("ptxas " + " | ".join(lines[i:i + 3]))
 
     # 3. kernels
     timer = Timer(torch)
     rows, rep_rows = run_kernel_phase(torch, timer)
     del timer
+    from repro_torch import configs
+    serving = [r for r in rows if r["name"] == "gemm" and r["shape"].split()[0]
+               in ("wq", "wk", "wv", "wo", "wi", "wg", "mlp.wo", "unembed")]
+    gemm_sums = gemm_step_sums(serving, configs.get("gemma3-1b").n_layers)
+    for m, sm in sorted(gemm_sums.items()):
+        log(f"gemm step sum M={m} (7 projections x {configs.get('gemma3-1b').n_layers}"
+            f" layers + unembedding): kernel "
+            f"{sm['ms']:.4f} ms  torch.matmul {sm['library_ms']:.4f} ms  "
+            f"bound {sm['bound_ms']:.4f} ms")
     torch.cuda.empty_cache()
 
     # 4. serve at full width (the main path: counts zeroed inside)
@@ -1497,7 +1571,8 @@ def main() -> int:
                      "library_ms": r["library_ms"], "shape": r["shape"]})
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"device": kind, "nvidia_smi": smi, "build_s": secs,
-                   "ptxas": ptxas, "kernels": rows, "serve": serve_summary,
+                   "ptxas": ptxas, "kernels": rows,
+                   "gemm_step_sums": gemm_sums, "serve": serve_summary,
                    "serve_launches": counts, "profile": profile,
                    "engine": engine_summary,
                    "engine_launches": engine_counts,

@@ -1,6 +1,6 @@
 """Engine GEMM on both dataflows, and the mvout epilogue: the CUDA kernels
-(``csrc/gemm.cu``, int8 main loop in ``csrc/igemm.cuh``) and their plain
-versions.
+(``csrc/gemm.cu``; bf16 main loops in ``csrc/hgemm.cuh``, int8 in
+``csrc/igemm.cuh``) and their plain versions.
 
 Replaces ``repro.kernels.gemm``: ``gemm_os``, ``gemm_ws``,
 ``accumulator_epilogue`` and the dataflow dispatch ``gemm``. The GEMMs
@@ -14,6 +14,11 @@ ragged edges themselves, so operands are never padded to a tile plan
 ``out[:m, :n]``), and they read B through its strides: a transposed view
 (the tied unembedding's ``table.T``) costs no copy.
 
+bf16 inputs run one of two kernels by the shape alone (:func:`gemm_plan`):
+split-K ``mma.sync`` for M <= 16 (decode) and ``wgmma`` for wider M
+(prefill), both one launch per call. Where the plan splits K, the call
+uses its stream's workspace (:func:`_workspace`), made once per stream.
+
 Launch counts, one per kernel of the ``kernels`` report:
 ``gemm.launches`` the float kernel in OS order (the serving path's),
 ``gemm_os.launches`` the int8 kernel in OS order, ``gemm_ws.launches``
@@ -23,7 +28,7 @@ either kernel in WS order, ``accumulator_epilogue.launches``.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -39,7 +44,7 @@ _INT_OUT = {torch.int32: 0, torch.int8: 1}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _FLOAT_ARGS = [_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _L, _I, _I, _I, _F, _I,
-               _P]
+               _P, _P]
 _S8_ARGS = [_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _L, _I, _I, _I, _I, _P]
 _EPI_ARGS = [_P, _P, _L, _I, _I, _I, _I, _F, _P]
 
@@ -53,6 +58,61 @@ def _b_layout(b: torch.Tensor):
         return b, 1, b.stride(1)
     b = b.contiguous()
     return b, 0, b.stride(0)
+
+
+_PLAN_KEYS = ("wide", "bm", "bn", "bk", "splits", "blocks", "threads",
+              "stages", "smem", "workspace_words")
+_PLANS: Dict[Tuple[int, int, int, bool, int], dict] = {}
+_WORKSPACE: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def gemm_plan(m: int, n: int, k: int, b_trans: bool = False,
+              device=None) -> dict:
+    """The bf16 kernel's plan for an (M, N, K) call on a card, B row-major
+    or (``b_trans``) read as the transpose of a row-major (N, K) buffer:
+    ``regime`` ("skinny": split-K ``mma.sync`` for M <= 16; "wide":
+    ``wgmma``), ``tile`` (rows, columns, k per stage), ``splits`` of K,
+    ``grid`` (blocks), ``threads`` per block, ``stages`` of the load ring
+    (skinny: 1, loads go straight to registers), ``smem`` bytes and
+    ``workspace_bytes`` (tickets and partials, 0 for one split). It
+    depends on the shape, B's layout and the card's SM count only, so OS
+    and WS take the same plan."""
+    if device is None:
+        index = torch.cuda.current_device()
+    else:
+        index = torch.device(device).index
+        index = torch.cuda.current_device() if index is None else index
+    key = (m, n, k, bool(b_trans), index)
+    plan = _PLANS.get(key)
+    if plan is None:
+        out = (ctypes.c_longlong * len(_PLAN_KEYS))()
+        fn = _build.bind("gemm", "gemm_plan", [_I, _I, _I, _I, _P])
+        with torch.cuda.device(index):
+            _build.check(fn(m, n, k, int(bool(b_trans)),
+                            ctypes.addressof(out)), "gemm_plan")
+        raw = dict(zip(_PLAN_KEYS, out))
+        plan = {"regime": "wide" if raw["wide"] else "skinny",
+                "tile": (raw["bm"], raw["bn"], raw["bk"]),
+                "splits": raw["splits"], "grid": raw["blocks"],
+                "threads": raw["threads"], "stages": raw["stages"],
+                "smem": raw["smem"],
+                "workspace_bytes": 4 * raw["workspace_words"]}
+        _PLANS[key] = plan
+    return plan
+
+
+def _workspace(device: torch.device, stream: int, nbytes: int):
+    """The calling stream's workspace, at least ``nbytes``: tickets then
+    partials. Made zeroed once per stream (and again only to grow); the
+    kernel leaves every ticket at 0, so a call needs no memset, and two
+    streams never share a ticket."""
+    key = (device.index, stream)
+    buf = _WORKSPACE.get(key)
+    if buf is None or buf.numel() * 4 < nbytes:
+        words = max(nbytes // 4, 2 * buf.numel() if buf is not None else 0)
+        buf = torch.zeros(words, dtype=torch.int32, device=device)
+        _WORKSPACE[key] = buf
+    return buf
 
 
 def _check_int_shift(shift: int) -> None:
@@ -115,11 +175,18 @@ def _gemm(a: torch.Tensor, b: torch.Tensor, d: Optional[torch.Tensor], *,
                  a.stride(0), ldb, trans, ldd, _INT_OUT[out_dtype],
                  _ACT[activation], shift, int(ws), stream)
     else:
+        wsp = None
+        if a.dtype == torch.bfloat16:
+            plan = _PLANS.get((m, n, k, bool(trans), a.device.index)) or \
+                gemm_plan(m, n, k, trans, a.device)
+            need = plan["workspace_bytes"]
+            if need:
+                wsp = _workspace(a.device, stream, need).data_ptr()
         fn = _build.bind("gemm", "gemm_launch", _FLOAT_ARGS)
         err = fn(a.data_ptr(), b.data_ptr(), dptr, c.data_ptr(), m, n, k,
                  a.stride(0), ldb, trans, ldd, _DT[a.dtype], _DT[out_dtype],
                  _ACT[activation], 1.0 / (1 << shift) if shift > 0 else 1.0,
-                 int(ws), stream)
+                 int(ws), stream, wsp)
     _build.check(err, "gemm_ws" if ws else "gemm")
     if ws:
         gemm_ws.launches += 1

@@ -8,8 +8,10 @@ module imports no JAX, so it runs where only PyTorch is installed:
 
 The first test to launch a kernel builds the kernels with ``nvcc``.
 Tolerances: fp32 1e-5 relative (plus 1e-5 of the largest magnitude), since
-the kernels sum in another order than the plain versions; bf16 one bf16
-ulp of the value (2^-7 relative) plus 2^-14 of the largest magnitude.
+the kernels sum in another order than the plain versions (the bf16 GEMM's
+fp32 outputs: the bound on a float sum's order, ``_close_bf16_gemm``);
+bf16 one bf16 ulp of the value (2^-7 relative) plus 2^-14 of the largest
+magnitude.
 The int8 datapath (GEMM on both dataflows, conv, the mvout epilogue) is
 bit-exact. The SSD's fp32 results are held against the naive recurrence
 in fp64 within ``_ssd_exact.fp32_tolerance`` (the cumulative decay's
@@ -179,6 +181,178 @@ def test_float_gemm_ws_matches_plain(card, dtype):
     got = tgemm.gemm_ws(a, b, **kw)
     _close(got, gemm_ref(a, b, None, **kw), dtype)
     assert torch.equal(got, tgemm.gemm_os(a, b, **kw))
+
+
+# ---------------------------------------------------------------------------
+# the bf16 GEMM's two regimes (skinny split-K mma.sync, M <= 16; wide
+# wgmma) at ragged shapes, every option, every split count
+# ---------------------------------------------------------------------------
+def _bf16_operands(g, m, n, k, trans_b):
+    a = torch.randn((m, k), generator=g, device=g.device).to(torch.bfloat16)
+    bt = (torch.randn((n, k), generator=g, device=g.device) * k ** -0.5
+          ).to(torch.bfloat16)
+    return a, (bt.T if trans_b else bt.T.contiguous())
+
+
+def _close_bf16_gemm(got, want, a, b, out_dtype):
+    """bf16 outputs: ``_close`` (one bf16 ulp, since the fp32 sums may
+    round either way). fp32 outputs: the bf16 products are exact in fp32,
+    so kernel and plain version differ only in the order of their fp32
+    sums; each lies within K * 2^-24 * sum_k |a_ik b_kj| of the exact sum
+    (the standard bound on a float sum in any order), hence twice that,
+    plus 1e-5 relative for the activation's own rounding."""
+    if out_dtype == torch.bfloat16:
+        _close(got, want, out_dtype)
+        return
+    k = a.shape[1]
+    mag = (a.float().abs() @ b.float().abs()).cpu()
+    g, w = got.float().cpu(), want.float().cpu()
+    assert torch.isfinite(g).all()
+    bound = 2 * k * 2.0 ** -24 * mag + 1e-5 * w.abs() + 1e-30
+    assert ((g - w).abs() <= bound).all(), float(((g - w).abs() - bound).max())
+
+
+@pytest.mark.parametrize("k", [300, 1152, 6912])
+@pytest.mark.parametrize("n", [77, 256, 1000])
+@pytest.mark.parametrize("m", [1, 3, 4, 5, 16, 17, 63, 64, 65, 256, 1000])
+def test_bf16_gemm_ragged_shapes(card, m, n, k):
+    """Both regimes at ragged M, N and K, B row-major and as the transpose
+    of a row-major (N, K) buffer (the tied unembedding's layout): one
+    launch per call."""
+    g = torch.Generator(device=card).manual_seed(m * 7 + n * 3 + k)
+    kw = dict(acc_dtype=torch.float32, out_dtype=torch.bfloat16)
+    for trans_b in (False, True):
+        a, b = _bf16_operands(g, m, n, k, trans_b)
+        n0 = tgemm.gemm.launches
+        got = tgemm.gemm(a, b, **kw)
+        assert tgemm.gemm.launches == n0 + 1
+        _close(got, gemm_ref(a, b, None, **kw), torch.bfloat16)
+
+
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bias", [None, "row", "full"])
+@pytest.mark.parametrize("act,shift", [("NONE", 0), ("RELU", 0),
+                                       ("RELU6", 2), ("GELU", 0),
+                                       ("SILU", 1)])
+def test_bf16_gemm_epilogue_options(card, act, shift, bias, out):
+    """Bias as one row or a full (M, N) matrix, every activation, a shift,
+    bf16 and fp32 outputs, both B layouts, in both regimes (with K
+    splits)."""
+    g = torch.Generator(device=card).manual_seed(len(act) + shift)
+    for m, n, k in ((4, 200, 1152), (100, 300, 700)):
+        d = {None: None,
+             "row": torch.randn((n,), generator=g, device=card),
+             "full": torch.randn((m, n), generator=g, device=card)}[bias]
+        kw = dict(acc_dtype=torch.float32, out_dtype=out, shift=shift,
+                  activation=Activation[act])
+        for trans_b in (False, True):
+            a, b = _bf16_operands(g, m, n, k, trans_b)
+            got = tgemm.gemm(a, b, d, **kw)
+            assert got.dtype == out
+            _close_bf16_gemm(got, gemm_ref(a, b, d, **kw), a, b, out)
+
+
+@pytest.mark.parametrize("m,n,k", [(4, 130, 1150), (100, 130, 1150),
+                                   (129, 16700, 70)])   # 128 x 256 tiles
+@pytest.mark.parametrize("which", ["a", "b", "both"])
+def test_bf16_gemm_misaligned_operands(card, m, n, k, which):
+    """Rows that are not 16-byte aligned (a 4-byte offset, a row stride
+    that is no multiple of 8): no tensor map, loaded element by element,
+    same result."""
+    g = torch.Generator(device=card).manual_seed(m)
+    kw = dict(acc_dtype=torch.float32, out_dtype=torch.bfloat16)
+    a, b = _bf16_operands(g, m, n, k, False)
+    if which in ("a", "both"):
+        flat = torch.empty(m * k + 2, dtype=torch.bfloat16, device=card)
+        flat[2:] = a.reshape(-1)
+        a = flat[2:].view(m, k)
+        assert a.data_ptr() % 16 == 4 and a.stride(0) % 8 != 0
+    if which in ("b", "both"):
+        flat = torch.empty(n * k + 2, dtype=torch.bfloat16, device=card)
+        flat[2:] = b.T.reshape(-1)
+        b = flat[2:].view(n, k).T                   # B = table.T, ldb = 1150
+        assert b.data_ptr() % 16 == 4
+    _close(tgemm.gemm(a, b, **kw), gemm_ref(a, b, None, **kw),
+           torch.bfloat16)
+
+
+def _split_shape(regime, splits):
+    """A one-tile shape whose K the plan splits ``splits`` ways on any
+    card: skinny (row-major B, one 64-deep round of loads per split,
+    ragged K), or wide (M = 64, 128 columns, four stages per split)."""
+    if regime == "skinny":
+        return 3, 200, 64 * splits - 5
+    return 64, 128, 256 * splits
+
+
+@pytest.mark.parametrize("regime,splits",
+                         [("skinny", s) for s in range(1, 33)] +
+                         [("wide", s) for s in range(1, 9)])
+def test_bf16_gemm_every_split_count(card, regime, splits):
+    """Every split count the plan can choose covers K exactly once: with
+    small integers the fp32 sum is exact, so the kernel must equal the
+    plain version bit for bit; every ticket is back at 0 afterwards."""
+    m, n, k = _split_shape(regime, splits)
+    plan = tgemm.gemm_plan(m, n, k)
+    assert plan["regime"] == regime and plan["splits"] == splits
+    g = torch.Generator(device=card).manual_seed(splits)
+    a = torch.randint(-3, 4, (m, k), generator=g, device=card).to(
+        torch.bfloat16)
+    b = torch.randint(-3, 4, (k, n), generator=g, device=card).to(
+        torch.bfloat16)
+    kw = dict(acc_dtype=torch.float32, out_dtype=torch.float32)
+    got = tgemm.gemm(a, b, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gemm_ref(a, b, None, **kw))
+    if splits > 1:
+        ws = tgemm._WORKSPACE[(card.index or 0,
+                               torch.cuda.current_stream(card).cuda_stream)]
+        assert int(ws[:1024].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("m,n,k,trans_b", [
+    (4, 1024, 1152, False),      # skinny, K split 17 ways
+    (16, 6912, 1152, True),      # skinny, two MMAs per 16 k
+    (64, 256, 6912, False),      # wide, one warpgroup, K split
+    (256, 1152, 1024, True),     # wide, two warpgroups, K split
+    (1000, 1000, 300, False),    # wide, 8 M tiles, one split
+    (1000, 8000, 304, False),    # wide, 128 x 256 tiles by TMA
+    (200, 17000, 136, True),     # the same, B = table.T
+])
+def test_bf16_gemm_ws_equals_os_and_reruns(card, m, n, k, trans_b):
+    """The plan depends on the shape alone and every partial is merged in
+    split order: WS equals OS and a rerun equals the first run, bit for
+    bit."""
+    g = torch.Generator(device=card).manual_seed(m + n)
+    a, b = _bf16_operands(g, m, n, k, trans_b)
+    kw = dict(acc_dtype=torch.float32, out_dtype=torch.bfloat16)
+    got = tgemm.gemm_os(a, b, **kw)
+    _close(got, gemm_ref(a, b, None, **kw), torch.bfloat16)
+    assert torch.equal(got, tgemm.gemm_ws(a, b, **kw))
+    assert torch.equal(got, tgemm.gemm_os(a, b, **kw))
+
+
+@pytest.mark.parametrize("m,n,k", [(4, 1152, 6912), (256, 256, 1152)])
+def test_bf16_gemm_split_on_concurrent_streams(card, m, n, k):
+    """Calls that split K, on two streams at once: each stream has its own
+    workspace and tickets, so every result equals the single-stream one
+    bit for bit."""
+    assert tgemm.gemm_plan(m, n, k)["splits"] > 1
+    g = torch.Generator(device=card).manual_seed(k)
+    kw = dict(acc_dtype=torch.float32, out_dtype=torch.bfloat16)
+    inputs = [_bf16_operands(g, m, n, k, False) for _ in range(2)]
+    wants = [tgemm.gemm(a, b, **kw) for a, b in inputs]
+    streams = [torch.cuda.Stream(card) for _ in inputs]
+    torch.cuda.synchronize()
+    gots = [[], []]
+    for _ in range(8):
+        for i, (st, (a, b)) in enumerate(zip(streams, inputs)):
+            with torch.cuda.stream(st):
+                gots[i].append(tgemm.gemm(a, b, **kw))
+    torch.cuda.synchronize()
+    for got, want in zip(gots, wants):
+        for x in got:
+            assert torch.equal(x, want)
 
 
 @pytest.mark.parametrize("acc_dtype,out_dtype,shape,shift,act", [
