@@ -58,8 +58,9 @@ Needs one CUDA card, ``nvcc`` and the repository checkout around this file
    tokens on the CPU, are held by ``hold_bf16``.
 
 Phase 3 also holds the chunked SSD (mamba2-1.3b's and hymba-1.5b's
-widths, fresh and resumed, and a ragged 7-token prompt; final states
-against the naive recurrence in fp64) and dense decode attention in bf16
+widths: the serving call, one 256-token chunk resumed, and 1000 tokens
+fresh and resumed, and a ragged 7-token prompt; final states against the
+naive recurrence in fp64) and dense decode attention in bf16
 at phase 10's shapes, at four sequences of 2048 and at hymba-1.5b's
 shape, and in fp32 at phase 9's (each attention arch's longest request,
 its windows and softcap), flash attention at hymba-1.5b's first chunk and
@@ -437,6 +438,12 @@ def kernel_cases(torch, rng_seed=0):
         kw = dict(window=window, softcap=softcap)
         live = sum(min(n, window or 1 << 30) for n in lengths)
         nbytes = 2 * (2 * s * h * dh + 2 * live * kvh * dh) + 4 * s * (mp + 1)
+        splits, groups, _, split, _ = ka.paged_decode_plan(s, mp, page, h,
+                                                           kvh, dh, window)
+        first = [(max(0, n - window) if window else 0) // split
+                 for n in lengths]
+        busy = sum(-(-n // split) - f if n else 1
+                   for n, f in zip(lengths, first)) * (groups // s)
         cases.append(("paged_decode_attention",
                       f"S={s} lengths={lengths} H={h} KVH={kvh} D={dh} "
                       f"window={window} softcap={softcap}", rep, "bf16",
@@ -444,7 +451,9 @@ def kernel_cases(torch, rng_seed=0):
                                                         lens, **kw),
                       lambda: ka.paged_decode_attention_plain(
                           q, kp, vp, tables, lens, **kw), None,
-                      nbytes, 4.0 * dh * h * live))
+                      nbytes, 4.0 * dh * h * live,
+                      dict(grid=f"{splits * groups} blocks ({splits} splits "
+                           f"of {split} keys x {groups}), {busy} live")))
     serve_lengths = [1010, 530, 310, 80]
     decode_case(serve_lengths, nh, nkv, hd, 64, 128, 32, None, None, True)
     decode_case(serve_lengths, nh, nkv, hd, 64, 128, 32, cfg.local_window,
@@ -471,18 +480,34 @@ def ssd_flops(t, h, p, g, n, chunk, carried):
     return total
 
 
+def ssd_grid(t, h, g, n, chunk):
+    """The bf16 SSD kernel's launches and blocks (``launch_tc`` in
+    ``ssd.cu``): one launch per chunk, each with an output block per
+    (64-row tile, pair of heads of a group) and a state block per (64-row
+    slice of N, head), per batch row."""
+    q = min(chunk, t)
+    out = -(-q // 64) * g * -(-(h // g) // 2)
+    state = -(-(-(-n // 16) * 16) // 64) * h
+    return (f"{-(-t // q)} launches of {out + state} blocks ({out} output, "
+            f"{state} state)")
+
+
 def recurrent_cases(torch, gen, cases):
     """The chunked SSD at mamba2-1.3b's and hymba-1.5b's widths (bf16 x,
     B, C; fp32 dt and states), fresh and resumed, and on a ragged 7-token
     prompt; dense decode attention at gemma3-1b's shape (global and the
     512 window) and hymba-1.5b's (GQA 25 / 5, head dim 64, window 1024).
 
-    The SSD's y is held against the plain version in bf16; its final
-    state against the naive recurrence in fp64 (``tests/_ssd_exact.py``)
-    within ``fp32_tolerance`` (exp of the per-chunk cumulative decay turns
-    that sum's fp32 rounding into a relative error). Its bound takes the
-    fp32 CUDA-core peak (67 TFLOP/s): the kernel's math is fp32 on CUDA
-    cores."""
+    The SSD runs at T = 256 resumed (the call serving makes: one chunk
+    with a carried state; mamba2-1.3b's is the representative row) and at
+    T = 1000 (four chunks, fresh and resumed). Its y is held against the
+    plain version in bf16; its final state against the naive recurrence in
+    fp64 (``tests/_ssd_exact.py``) within ``fp32_tolerance`` (exp of the
+    per-chunk cumulative decay turns that sum's fp32 rounding into a
+    relative error). Its bound takes the bf16 tensor-core peak (the bf16
+    kernel's products run on tensor cores); the row also logs the bound at
+    the fp32 CUDA-core peak (67 TFLOP/s, ``bound_fp32_ms``), the bound of
+    the fp32 kernel."""
     from _ssd_exact import fp32_tolerance, ssd_fp64
 
     from repro_torch import configs
@@ -526,14 +551,19 @@ def recurrent_cases(torch, gen, cases):
 
         nbytes = (2 * 2 * t * h * p + 2 * 2 * t * g * n + 4 * t * h + 8 * h
                   + 4 * h * n * p * (2 if resume else 1))
+        flops = ssd_flops(t, h, p, g, n, chunk, resume)
         cases.append(("ssd", f"{arch} B=1 T={t} H={h} P={p} G={g} N={n} "
                       f"chunk={chunk} {'resumed' if resume else 'fresh'}",
                       rep, "bf16",
                       lambda: km.ssd(x, dt, a_log, b, c, **kw),
                       lambda: km.ssd_plain(x, dt, a_log, b, c, **kw), None,
-                      nbytes, ssd_flops(t, h, p, g, n, chunk, resume),
-                      dict(check=check, peak="fp32")))
-    ssd_case("mamba2-1.3b", 1000, False, True)
+                      nbytes, flops,
+                      dict(check=check, grid=ssd_grid(t, h, g, n, chunk),
+                           bound_fp32_ms=bound_ms(nbytes, flops,
+                                                  "fp32")[0])))
+    ssd_case("mamba2-1.3b", 256, True, True)
+    ssd_case("hymba-1.5b", 256, True, False)
+    ssd_case("mamba2-1.3b", 1000, False, False)
     ssd_case("mamba2-1.3b", 1000, True, False)
     ssd_case("hymba-1.5b", 1000, False, False)
     ssd_case("hymba-1.5b", 1000, True, False)
@@ -695,10 +725,10 @@ def run_kernel_phase(torch, timer):
     """Each case: (kernel, label, representative, kind, run_kernel,
     run_plain, run_library, bytes, flops[, opts]); ``opts["check"]``
     replaces ``check_close`` for a kernel with several outputs,
-    ``opts["peak"]`` names the rate its operations run at, where that is
-    not the tolerance kind's, ``opts["grid"]`` describes the kernel's grid,
-    ``opts["plan"]`` the bf16 GEMM's plan, and ``opts["library_masked"]``
-    is a second one-call yardstick."""
+    ``opts["grid"]`` describes the kernel's grid, ``opts["plan"]`` the bf16
+    GEMM's plan, ``opts["bound_fp32_ms"]`` a second bound (at the fp32
+    CUDA-core peak) and ``opts["library_masked"]`` a second one-call
+    yardstick."""
     rows, summary = [], {}
     for (kernel, label, rep, kind, run_k, run_p, run_lib, nbytes, flops,
          *opts) in kernel_cases(torch):
@@ -715,7 +745,7 @@ def run_kernel_phase(torch, timer):
         host_ms = timer.host_ms(run_k)
         plain_ms = timer(run_p)
         lib_ms = timer(run_lib) if run_lib is not None else None
-        b_ms, b_by = bound_ms(nbytes, flops, opts.get("peak", kind))
+        b_ms, b_by = bound_ms(nbytes, flops, kind)
         row = {"name": kernel, "shape": label, "max_abs_err": err, "ms": ms,
                "host_ms": host_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
@@ -730,6 +760,9 @@ def run_kernel_phase(torch, timer):
         if "plan" in opts:
             row["plan"] = opts["plan"]
             extra += f"  plan {opts['plan']}"
+        if "bound_fp32_ms" in opts:
+            row["bound_fp32_ms"] = opts["bound_fp32_ms"]
+            extra += f"  fp32 bound {opts['bound_fp32_ms']:.4f} ms"
         rows.append(row)
         log(f"{kernel:<24} {label:<62} err {err:.2e}  kernel {ms:8.4f} ms "
             f"(host {host_ms:7.4f})  plain {plain_ms:8.4f} ms  library "
@@ -830,14 +863,14 @@ def run_serve_phase(torch, np):
 # ---------------------------------------------------------------------------
 # phase 4b: where a full-width decode step and prefill chunk spend time
 # ---------------------------------------------------------------------------
-_KERNEL_NAMES = (("ssd_kernel", "ssd"),
+_KERNEL_NAMES = (("ssd_kernel", "ssd"), ("ssd_tc_kernel", "ssd"),
+                 ("PagedDecodeKV", "paged_decode_attention"),
                  ("decode_split_kernel", "decode_attention"),
                  ("flash_tc_kernel", "flash_attention"),
                  ("ConvA", "conv2d_implicit"), ("MatrixA", "gemm[int8]"),
                  ("epilogue_kernel", "accumulator_epilogue"),
                  ("hgemm::skinny_kernel", "gemm"),
                  ("hgemm::wide_kernel", "gemm"), ("gemm_f32_kernel", "gemm"),
-                 ("paged_decode_kernel", "paged_decode_attention"),
                  ("true>", "paged_prefill_attention"),
                  ("prefill_attn_kernel", "flash_attention"))
 
@@ -1484,7 +1517,8 @@ def main() -> int:
              for name in secs}
     # the redesigned kernels: entry, spills, registers
     for src, names in (("attention", ("flash_tc_kernel", "decode_split_kernel")),
-                       ("gemm", ("skinny_kernel", "wide_kernel"))):
+                       ("gemm", ("skinny_kernel", "wide_kernel")),
+                       ("ssd", ("ssd_tc_kernel",))):
         lines = ptxas.get(src, [])
         for i, ln in enumerate(lines):
             if "entry function" in ln and any(n in ln for n in names):

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -35,6 +35,7 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 _DT = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_WORKSPACE: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 # ---------------------------------------------------------------------------
@@ -219,6 +220,26 @@ def _scale(scale: Optional[float], d: int) -> float:
     return scale if scale is not None else 1.0 / math.sqrt(d)
 
 
+def _workspace(device: torch.device, stream: int, tickets: int,
+               words: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The calling stream's split-decode workspace: (tickets, partials),
+    at least ``tickets`` int32 and ``words`` fp32. The tickets are made
+    zeroed and the kernel leaves each at 0, so a call needs no memset;
+    partials are written before they are read. Made once per stream (and
+    again only to grow), so two streams never share a ticket and a call
+    allocates nothing."""
+    key = (device.index, stream)
+    tk, part = _WORKSPACE.get(key, (None, None))
+    if tk is None or tk.numel() < tickets:
+        tk = torch.zeros(max(tickets, 2 * tk.numel() if tk is not None
+                             else 0), dtype=torch.int32, device=device)
+    if part is None or part.numel() < max(words, 1):
+        part = torch.empty(max(words, 1, 2 * part.numel() if part is not None
+                               else 0), dtype=torch.float32, device=device)
+    _WORKSPACE[key] = (tk, part)
+    return tk, part
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None,
                     softcap: Optional[float] = None,
@@ -259,8 +280,8 @@ def decode_attention(q, k, v, pos: int, *, window: Optional[int] = None,
     keys 0..pos live. Returns (B, 1, H, D) in q's dtype.
 
     The kernel splits the live keys over blocks (``decode_plan``) and
-    merges their partial softmax states in the same launch, in a
-    workspace of its own for each call."""
+    merges their partial softmax states in the same launch, in its
+    stream's workspace."""
     pos = int(pos)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, pos, window=window,
@@ -277,16 +298,17 @@ def decode_attention(q, k, v, pos: int, *, window: Optional[int] = None,
     _check_head("decode_attention", q, k, h, kvh, d)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     _check_cuda("decode_attention", (q, k, v))
-    ws = torch.empty(decode_plan(b, s, h, kvh, d, pos, window)[4],
-                     dtype=torch.float32, device=q.device)
+    plan = decode_plan(b, s, h, kvh, d, pos, window)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    tickets, ws = _workspace(q.device, stream, plan[1], plan[4])
     o = torch.empty_like(q)
     fn = _build.bind("attention", "decode_attention_launch",
                      [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
-                      _P, _P])
+                      _P, _P, _P])
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, h,
              kvh, d, pos, int(window or 0), float(softcap or 0.0),
-             _scale(scale, d), _DT[q.dtype],
-             torch.cuda.current_stream(q.device).cuda_stream, ws.data_ptr())
+             _scale(scale, d), _DT[q.dtype], stream, ws.data_ptr(),
+             tickets.data_ptr())
     _build.check(err, "decode_attention")
     decode_attention.launches += 1
     return o
@@ -294,14 +316,33 @@ def decode_attention(q, k, v, pos: int, *, window: Optional[int] = None,
 
 def decode_plan(b: int, s: int, h: int, kvh: int, d: int, pos: int,
                 window: Optional[int] = None) -> tuple:
-    """The split decode kernel's plan for a call: (splits, groups, query
-    heads per block, keys per split, 4-byte words of workspace); its grid
-    is splits x groups blocks."""
+    """The split decode kernel's plan for a dense call: (splits, groups,
+    query heads per block, keys per split, fp32 words of partials); its
+    grid is splits x groups blocks, and each group takes one ticket."""
     out = (ctypes.c_longlong * 5)()
     fn = _build.bind("attention", "decode_attention_plan", [_I] * 7 + [_P])
     _build.check(fn(b, s, h, kvh, d, int(pos), int(window or 0),
                     ctypes.addressof(out)), "decode_attention_plan")
     return tuple(out)
+
+
+_PAGED_PLANS: Dict[tuple, tuple] = {}
+
+
+def paged_decode_plan(slots: int, max_pages: int, page: int, h: int,
+                      kvh: int, d: int, window: Optional[int] = None) -> tuple:
+    """The same for a paged call, from the shapes alone: the splits the
+    table's reach (``max_pages * page`` keys) or the window can hold, so
+    the grid never depends on the lengths; a block whose split is past its
+    slot's live keys returns at once."""
+    key = (slots, max_pages, page, h, kvh, d, int(window or 0))
+    plan = _PAGED_PLANS.get(key)
+    if plan is None:
+        out = (ctypes.c_longlong * 5)()
+        fn = _build.bind("attention", "paged_decode_plan", [_I] * 7 + [_P])
+        _build.check(fn(*key, ctypes.addressof(out)), "paged_decode_plan")
+        plan = _PAGED_PLANS[key] = tuple(out)
+    return plan
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
@@ -310,7 +351,8 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
                            scale: Optional[float] = None) -> torch.Tensor:
     """q: (S, 1, H, D); pools: (KVH, NP, page, D); block_tables: (S, MP)
     int32; lengths: (S,) int32 live tokens including the current one. The
-    kernel reads tables and lengths in device memory."""
+    kernel reads tables and lengths in device memory; one launch, whose
+    grid (``paged_decode_plan``) and workspace come from the shapes."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
                                             lengths, window=window,
@@ -333,15 +375,19 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
     tables = block_tables.to(torch.int32).contiguous()
     lens = lengths.to(torch.int32).contiguous()
     _check_cuda("paged_decode_attention", (q, k_pool, v_pool), (tables, lens))
+    mp = tables.shape[1]
+    plan = paged_decode_plan(s, mp, page, h, kvh, d, window)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    tickets, ws = _workspace(q.device, stream, plan[1], plan[4])
     o = torch.empty_like(q)
     fn = _build.bind("attention", "paged_decode_launch",
                      [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                      _F, _F, _I, _P])
+                      _F, _F, _I, _P, _P, _P])
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-             tables.data_ptr(), lens.data_ptr(), o.data_ptr(), s,
-             tables.shape[1], h, kvh, d, npool, page, int(window or 0),
-             float(softcap or 0.0), _scale(scale, d), _DT[q.dtype],
-             torch.cuda.current_stream(q.device).cuda_stream)
+             tables.data_ptr(), lens.data_ptr(), o.data_ptr(), s, mp, h, kvh,
+             d, npool, page, int(window or 0), float(softcap or 0.0),
+             _scale(scale, d), _DT[q.dtype], stream, ws.data_ptr(),
+             tickets.data_ptr())
     _build.check(err, "paged_decode_attention")
     paged_decode_attention.launches += 1
     return o

@@ -7,7 +7,7 @@
 //   flash_attention          (_attn_kernel)          bf16 -> flash_tc_kernel<D, DenseKV>
 //                                                    fp32 -> prefill_attn_kernel<D, float, false>
 //   paged_prefill_attention  (_paged_prefill_kernel) both -> prefill_attn_kernel<D, T, true>
-//   paged_decode_attention   (_paged_decode_kernel)  both -> paged_decode_kernel
+//   paged_decode_attention   (_paged_decode_kernel)  both -> decode_split_kernel<D, T, REP, PagedDecodeKV>
 //   decode_attention         (_decode_kernel)        both -> decode_split_kernel<D, T, REP, DenseDecodeKV>
 //
 // All compute the TPU kernels' online softmax with fp32 statistics: scores
@@ -46,29 +46,36 @@
 //    (IEEE fp32, which the tensor cores do not offer), a 64-row query tile
 //    in shared memory, 32-key K/V tiles; tiles no row can see are skipped
 //    (the TPU kernels' block_live), so a local layer costs O(T * window).
-//  * Decode (paged and dense): bytes, and at one sequence, latency. One
-//    query per head reads every live K/V row once; a block handles the
-//    query heads of its kv head together (up to 4 in paged decode, 8 in
-//    dense), so K/V are read once per kv head (GQA). Keys before the
-//    window or past the length are never read. paged_decode_kernel runs
-//    one block per (slot, kv head, head group) and finds pages through the
-//    block table in device memory. decode_split_kernel splits the live
-//    keys [max(0, pos - window + 1), min(pos + 1, S)) into splits of
-//    DS_SPLIT = 64 keys, one block each, with 16-byte vector loads; each
-//    block writes its partial (m, l, acc) to a workspace, and the last
-//    block of a (sequence, kv head, head group) to finish -- found by an
-//    atomic ticket, zeroed on the stream before each launch -- merges the
-//    splits in a fixed order, in the same launch (a single split finalizes
-//    in place). Its key range and row addressing are a loader policy
-//    (DenseDecodeKV), as flash's are (DenseKV).
+//  * decode_split_kernel (dense and paged decode): bytes, and at a few
+//    sequences, latency. One query per head reads every live K/V row once;
+//    a block handles the query heads of its kv head together (up to 8), so
+//    K/V are read once per kv head (GQA). The live keys [max(0, pos -
+//    window + 1), min(pos + 1, reach)) go in splits of DS_SPLIT = 64 keys,
+//    one block each, with 16-byte vector loads; each block writes its
+//    partial (m, l, acc) to a workspace, and the last block of a
+//    (sequence, kv head, head group) to finish -- found by an atomic ticket
+//    -- merges the splits in a fixed order, in the same launch (a single
+//    split finalizes in place), and sets the ticket back to 0, so no
+//    launch needs a memset. Keys before the window or past the length are
+//    never read. The key range and row addressing are a loader policy, as
+//    flash's are (DenseKV): DenseDecodeKV takes the range from the host's
+//    pos and the host plans exactly the live splits; PagedDecodeKV takes
+//    it from the slot's length in device memory and finds each row's page
+//    through the block table, and its grid comes from the shapes alone --
+//    the splits the table's reach (or the window) can hold -- with each
+//    block working out from the length whether its split is live; a dead
+//    one returns at once. So a paged decode step is one launch whose grid
+//    and arguments do not change with the lengths (it can be captured in
+//    a CUDA graph). Paged splits start on multiples of 64 keys, so at page
+//    64 a split is one page.
 //
 // Head dims 16, 32, 64, 128 and 256 are compiled; inputs are fp32 or bf16
 // (accumulation is always fp32, output in the input type).
 //
 // C interface: flash_attention_launch, paged_prefill_launch,
 // paged_decode_launch, decode_attention_launch (each returns
-// cudaGetLastError()), and decode_attention_plan, which reports the grid
-// and the workspace a decode call will use.
+// cudaGetLastError()), and decode_attention_plan / paged_decode_plan,
+// which report the grid and the workspace a decode call will use.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -313,153 +320,6 @@ cudaError_t prefill_dispatch(int dtype, int D, const PrefillArgs& a, int batch,
   return prefill_by_dim<float, PAGED>(D, a, batch, s);
 }
 
-
-// ---------------------------------------------------------------------------
-// Paged decode: one block per (slot, kv head, group of up to 4 query heads).
-// ---------------------------------------------------------------------------
-constexpr int DC_WARPS = 8;
-constexpr int DC_REP = 4;       // query heads per block
-
-struct DecodeArgs {
-  const void* q;         // (S, 1, H, D) contiguous
-  const void* k;         // pool (KVH, NPOOL, PAGE, D)
-  const void* v;
-  void* o;               // (S, 1, H, D)
-  const int* tables;     // paged: (S, MP) page ids
-  const int* lengths;    // paged: (S,) live tokens incl. the current one
-  int MP, H, KVH, npool, page;
-  int window;            // 0 = global
-  float softcap;         // 0 = none
-  float scale;
-};
-
-template <int D, typename T>
-__global__ void __launch_bounds__(DC_WARPS * 32)
-paged_decode_kernel(DecodeArgs p) {
-  constexpr int DPL = (D + 31) / 32;       // contiguous channels per lane
-  extern __shared__ float red[];           // [DC_WARPS][DC_REP][D + 2]
-  const T* q = static_cast<const T*>(p.q);
-  const T* k = static_cast<const T*>(p.k);
-  const T* v = static_cast<const T*>(p.v);
-  T* o = static_cast<T*>(p.o);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int b = blockIdx.x, kvh = blockIdx.y;
-  const int rep = p.H / p.KVH;
-  const int r0 = blockIdx.z * DC_REP;
-  const int nrep = min(DC_REP, rep - r0);
-  const int d0 = lane * DPL;               // this lane's first channel
-  const bool lane_on = d0 < D;
-
-  float qr[DC_REP][DPL], acc[DC_REP][DPL], m[DC_REP], l[DC_REP];
-#pragma unroll
-  for (int r = 0; r < DC_REP; ++r) {
-    m[r] = NEG;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DPL; ++c) { qr[r][c] = 0.f; acc[r][c] = 0.f; }
-    if (r < nrep && lane_on) {
-      const int h = kvh * rep + r0 + r;
-      load_row<T, DPL>(q + ((long long)b * p.H + h) * D + d0, qr[r]);
-#pragma unroll
-      for (int c = 0; c < DPL; ++c) qr[r][c] *= p.scale;
-    }
-  }
-
-  const int pos = p.lengths[b] - 1;
-  const int k_end = min(pos + 1, p.MP * p.page);   // the table's reach
-  const int k_lo = p.window > 0 ? max(0, pos - p.window + 1) : 0;
-  const int* table = p.tables + (long long)b * p.MP;
-
-  for (int kpos = k_lo + warp; kpos < k_end; kpos += DC_WARPS) {
-    const int pg = table[kpos / p.page];
-    const long long base =
-        (((long long)kvh * p.npool + pg) * p.page + kpos % p.page) * D + d0;
-    float kv[DPL], vv[DPL];
-    if (lane_on) {
-      load_row<T, DPL>(k + base, kv);
-      load_row<T, DPL>(v + base, vv);
-    } else {
-#pragma unroll
-      for (int c = 0; c < DPL; ++c) { kv[c] = 0.f; vv[c] = 0.f; }
-    }
-#pragma unroll
-    for (int r = 0; r < DC_REP; ++r) {
-      if (r >= nrep) break;
-      float part = 0.f;
-#pragma unroll
-      for (int c = 0; c < DPL; ++c) part = fmaf(qr[r][c], kv[c], part);
-      float s = warp_sum(part);
-      if (p.softcap > 0.f) s = p.softcap * tanhf(s / p.softcap);
-      const float m_new = fmaxf(m[r], s);
-      const float corr = expf(m[r] - m_new);
-      const float pv = expf(s - m_new);
-      l[r] = l[r] * corr + pv;
-      m[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < DPL; ++c) acc[r][c] = fmaf(pv, vv[c], acc[r][c] * corr);
-    }
-  }
-
-  // Merge the warps' partial states. A warp that saw no key holds
-  // (NEG, 0, 0) and adds nothing; a slot with len == 0 ends as a zero row.
-  float* mine = red + (long long)warp * DC_REP * (D + 2);
-#pragma unroll
-  for (int r = 0; r < DC_REP; ++r) {
-    if (lane == 0) {
-      mine[r * (D + 2) + D] = m[r];
-      mine[r * (D + 2) + D + 1] = l[r];
-    }
-    if (lane_on) {
-#pragma unroll
-      for (int c = 0; c < DPL; ++c) mine[r * (D + 2) + d0 + c] = acc[r][c];
-    }
-  }
-  __syncthreads();
-  for (int e = tid; e < nrep * D; e += DC_WARPS * 32) {
-    const int r = e / D, d = e % D;
-    float mm = NEG;
-    for (int w = 0; w < DC_WARPS; ++w)
-      mm = fmaxf(mm, red[((long long)w * DC_REP + r) * (D + 2) + D]);
-    float ls = 0.f, os = 0.f;
-    for (int w = 0; w < DC_WARPS; ++w) {
-      const float* part = red + ((long long)w * DC_REP + r) * (D + 2);
-      const float f = expf(part[D] - mm);
-      ls += part[D + 1] * f;
-      os += part[d] * f;
-    }
-    const int h = kvh * rep + r0 + r;
-    st(o + ((long long)b * p.H + h) * D + d, os / fmaxf(ls, 1e-37f));
-  }
-}
-
-template <int D, typename T>
-cudaError_t launch_decode(const DecodeArgs& a, int slots, cudaStream_t s) {
-  const size_t smem = sizeof(float) * DC_WARPS * DC_REP * (D + 2);
-  void (*kernel)(DecodeArgs) = paged_decode_kernel<D, T>;
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-    configured = true;
-  }
-  const int rep = a.H / a.KVH;
-  dim3 grid(slots, a.KVH, (rep + DC_REP - 1) / DC_REP);
-  kernel<<<grid, DC_WARPS * 32, smem, s>>>(a);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t decode_by_dim(int D, const DecodeArgs& a, int slots, cudaStream_t s) {
-  switch (D) {
-    case 16: return launch_decode<16, T>(a, slots, s);
-    case 32: return launch_decode<32, T>(a, slots, s);
-    case 64: return launch_decode<64, T>(a, slots, s);
-    case 128: return launch_decode<128, T>(a, slots, s);
-    case 256: return launch_decode<256, T>(a, slots, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
 
 // ---------------------------------------------------------------------------
 // flash_attention, bf16: tensor cores, a 16-row query tile per block, keys
@@ -901,7 +761,8 @@ cudaError_t flash_tc_by_dim(int D, const FlashArgs& a, int batch,
 }
 
 // ---------------------------------------------------------------------------
-// Dense decode: the live keys split over blocks, merged in the same launch.
+// Decode, dense and paged: the live keys split over blocks, merged in the
+// same launch.
 // ---------------------------------------------------------------------------
 constexpr int DS_WARPS = 8;
 // Keys per block. A sweep of 32, 64, 128 and 256 on the H100, at B=1 S=784
@@ -910,14 +771,18 @@ constexpr int DS_SPLIT = 64;
 
 struct SplitArgs {
   const void* q;       // (B, 1, H, D) contiguous
-  const void* k;       // (B, S, KVH, D) contiguous
+  const void* k;       // dense: (B, S, KVH, D); paged: pool (KVH, NPOOL, PAGE, D)
   const void* v;
   void* o;             // (B, 1, H, D)
   float* ws;           // [groups][n_splits][REP][D + 2] partials
-  int* tickets;        // [groups], zeroed on the stream before the launch
-  int H, KVH, S, pos;  // keys <= pos are live
+  int* tickets;        // [groups], 0 before a launch and again after it
+  int H, KVH;
+  int S, pos;          // dense: keys <= pos of S are live
+  const int* tables;   // paged: (B, MP) page ids
+  const int* lengths;  // paged: (B,) live tokens incl. the current one
+  int MP, npool, page; // paged geometry
   int window;          // 0 = global
-  int n_splits;        // blocks per (sequence, kv head, head group)
+  int n_splits;        // blocks per (sequence, kv head, head group): the grid
   int nz, groups;      // head groups per kv head; B * KVH * nz
   float softcap;       // 0 = none
   float scale;
@@ -943,17 +808,19 @@ __host__ __device__ __forceinline__ void decode_keys(int S, int pos,
   if (hi < 0) hi = 0;
 }
 
-// The split decode kernel's K/V loader policy: the live keys [lo, hi) of
-// sequence b, and where key row kpos of kv head kvh lies, in 16-byte words
-// from channel d0. A paged loader would take the range from the sequence's
-// length and look the row's page up in a block table here, and leave the
-// kernel as it is.
+// The split decode kernel's K/V loader policies: the live keys [lo, hi) of
+// sequence b; where split 0 starts (split s covers [first + s * DS_SPLIT,
+// first + (s + 1) * DS_SPLIT) inside [lo, hi)); and where key row kpos of
+// kv head kvh lies, in 16-byte words from channel d0.
+//
+// Dense: the range from the host's pos, splits from lo (the host plans
+// exactly the live splits).
 template <typename T>
 struct DenseDecodeKV {
   const uint4* k;
   const uint4* v;
   long long row_words;   // 16-byte words between consecutive keys
-  int lo, hi;
+  int lo, hi, first;
   __device__ DenseDecodeKV(const SplitArgs& p, int b, int kvh, int D,
                            int d0) {
     const long long row = (long long)p.KVH * D;
@@ -962,9 +829,44 @@ struct DenseDecodeKV {
     v = reinterpret_cast<const uint4*>(static_cast<const T*>(p.v) + base);
     row_words = row * (long long)sizeof(T) / 16;
     decode_keys(p.S, p.pos, p.window, lo, hi);
+    first = lo;
   }
   __device__ const uint4* k_row(int kpos) const { return k + kpos * row_words; }
   __device__ const uint4* v_row(int kpos) const { return v + kpos * row_words; }
+};
+
+// Paged: the range from the slot's length in device memory (the host never
+// reads it, so a step's launch is the same whatever the lengths), within
+// the table's reach; splits on multiples of DS_SPLIT, so where the page
+// divides DS_SPLIT a split covers whole pages (page 64: one page, one
+// table entry). A row's page comes from the slot's block table; a key
+// outside [lo, hi) is never read, nor its table entry.
+template <typename T>
+struct PagedDecodeKV {
+  const T* k;
+  const T* v;
+  const int* table;
+  int page, dim, lo, hi, first;
+  __device__ PagedDecodeKV(const SplitArgs& p, int b, int kvh, int D,
+                           int d0) {
+    const long long base = (long long)kvh * p.npool * p.page * D + d0;
+    k = static_cast<const T*>(p.k) + base;
+    v = static_cast<const T*>(p.v) + base;
+    table = p.tables + (long long)b * p.MP;
+    page = p.page;
+    dim = D;
+    decode_keys(p.MP * p.page, p.lengths[b] - 1, p.window, lo, hi);
+    first = lo / DS_SPLIT * DS_SPLIT;
+  }
+  __device__ long long row(int kpos) const {
+    return ((long long)__ldg(table + kpos / page) * page + kpos % page) * dim;
+  }
+  __device__ const uint4* k_row(int kpos) const {
+    return reinterpret_cast<const uint4*>(k + row(kpos));
+  }
+  __device__ const uint4* v_row(int kpos) const {
+    return reinterpret_cast<const uint4*>(v + row(kpos));
+  }
 };
 
 template <typename T, int E>
@@ -1013,6 +915,15 @@ decode_split_kernel(SplitArgs p) {
   const int nrep = min(REP, rep - r0);
   const int d0 = gl * E;
 
+  // This group's live splits; a block past them returns before its ticket.
+  // A sequence with no live key still has one split: it writes a zero row.
+  const Loader kv(p, b, kvh, D, d0);
+  const int live = kv.hi > kv.lo
+                       ? (kv.hi - kv.first + DS_SPLIT - 1) / DS_SPLIT : 1;
+  if (split >= live) return;
+  const int k_lo = max(kv.lo, kv.first + split * DS_SPLIT);
+  const int k_hi = min(kv.hi, kv.first + (split + 1) * DS_SPLIT);
+
   float qr[REP][E], acc[REP][E], m[REP], l[REP];
 #pragma unroll
   for (int r = 0; r < REP; ++r) {
@@ -1027,10 +938,6 @@ decode_split_kernel(SplitArgs p) {
       for (int c = 0; c < E; ++c) qr[r][c] *= p.scale;
     }
   }
-
-  const Loader kv(p, b, kvh, D, d0);
-  const int k_lo = kv.lo + split * DS_SPLIT;
-  const int k_hi = min(kv.hi, k_lo + DS_SPLIT);
 
   // Every group runs the same number of rounds, so the shuffles inside a
   // group never diverge; a key past the split only skips the update.
@@ -1095,7 +1002,7 @@ decode_split_kernel(SplitArgs p) {
   }
   __syncthreads();
   const int h0 = kvh * rep + r0;
-  if (p.n_splits == 1) {                   // one split: no workspace
+  if (live == 1) {                         // one split: no workspace
     for (int e = tid; e < nrep * D; e += DS_WARPS * 32) {
       const int r = e / D, d = e % D;
       float mm = NEG;
@@ -1130,23 +1037,25 @@ decode_split_kernel(SplitArgs p) {
     ws_split[r * (D + 2) + d] = val;
   }
 
-  // The last block of this (sequence, kv head, head group) merges every
-  // split in a fixed order.
+  // The last live block of this (sequence, kv head, head group) merges
+  // every split in a fixed order and leaves the ticket at 0 for the next
+  // launch (no memset).
   __threadfence();                         // release the partial
   __syncthreads();
-  if (tid == 0) last = atomicAdd(p.tickets + gi, 1) == p.n_splits - 1;
+  if (tid == 0) last = atomicAdd(p.tickets + gi, 1) == live - 1;
   __syncthreads();
   if (!last) return;
   __threadfence();                         // acquire the others'
+  if (tid == 0) p.tickets[gi] = 0;
   const float* ws_g = p.ws + (long long)gi * p.n_splits * part_stride;
   const int warp = tid >> 5, lane = tid & 31;
   if (warp < nrep) {                       // head `warp`: max and sum
     float mm = NEG;
-    for (int sp = lane; sp < p.n_splits; sp += 32)
+    for (int sp = lane; sp < live; sp += 32)
       mm = fmaxf(mm, __ldcg(ws_g + sp * part_stride + warp * (D + 2) + D));
     mm = warp_max(mm);
     float ls = 0.f;
-    for (int sp = lane; sp < p.n_splits; sp += 32) {
+    for (int sp = lane; sp < live; sp += 32) {
       const float* pr = ws_g + sp * part_stride + warp * (D + 2);
       ls += __ldcg(pr + D + 1) * expf(__ldcg(pr + D) - mm);
     }
@@ -1158,7 +1067,7 @@ decode_split_kernel(SplitArgs p) {
     const int r = e / D, d = e % D;
     float os = 0.f;
 #pragma unroll 4
-    for (int sp = 0; sp < p.n_splits; ++sp) {
+    for (int sp = 0; sp < live; ++sp) {
       const float* pr = ws_g + sp * part_stride + r * (D + 2);
       os += __ldcg(pr + d) * expf(__ldcg(pr + D) - m_all[r]);
     }
@@ -1169,29 +1078,48 @@ decode_split_kernel(SplitArgs p) {
 // Query heads per block: every head of a kv head where there are at most 8.
 inline int split_rep(int H, int KVH) { return H / KVH <= 4 ? 4 : 8; }
 
-// plan: [0] splits, [1] groups (B * KVH * head groups), [2] query heads per
-// block, [3] keys per split, [4] 4-byte words of workspace: the partials
-// and then one ticket per group (none for a single split).
+// plan: [0] splits (the grid's, per group), [1] groups (B * KVH * head
+// groups), [2] query heads per block, [3] keys per split, [4] 4-byte words
+// of partials (none where a group has one split). Each group also takes
+// one ticket, in a buffer of its own.
+void fill_plan(int splits, int B, int H, int KVH, int D, long long* plan) {
+  const int rep_blk = split_rep(H, KVH);
+  const int rep = H / KVH;
+  plan[0] = splits;
+  plan[1] = (long long)B * KVH * ((rep + rep_blk - 1) / rep_blk);
+  plan[2] = rep_blk;
+  plan[3] = DS_SPLIT;
+  plan[4] = splits > 1 ? splits * plan[1] * rep_blk * (D + 2LL) : 0;
+}
+
+// Dense: exactly the live splits of the host's pos.
 void decode_plan(int B, int S, int H, int KVH, int D, int pos, int window,
                  long long* plan) {
   int lo, hi;
   decode_keys(S, pos, window, lo, hi);
   const int live = hi > lo ? hi - lo : 0;
-  const int rep_blk = split_rep(H, KVH);
-  const int rep = H / KVH;
-  plan[0] = live > 0 ? (live + DS_SPLIT - 1) / DS_SPLIT : 1;
-  plan[1] = (long long)B * KVH * ((rep + rep_blk - 1) / rep_blk);
-  plan[2] = rep_blk;
-  plan[3] = DS_SPLIT;
-  plan[4] = plan[0] > 1 ? plan[0] * plan[1] * rep_blk * (D + 2LL) + plan[1]
-                        : 0;
+  fill_plan(live > 0 ? (live + DS_SPLIT - 1) / DS_SPLIT : 1, B, H, KVH, D,
+            plan);
 }
 
-template <int D, typename T, int REP>
+// Paged: from the shapes alone, the most splits any length can make live:
+// the table's reach, or a window (one more where it starts mid-split).
+void paged_plan(int S, int MP, int page, int H, int KVH, int D, int window,
+                long long* plan) {
+  const long long reach = (long long)MP * page;
+  long long splits = (reach + DS_SPLIT - 1) / DS_SPLIT;
+  if (window > 0) {
+    const long long w = (window + DS_SPLIT - 1) / DS_SPLIT + 1;
+    if (w < splits) splits = w;
+  }
+  fill_plan(splits > 1 ? (int)splits : 1, S, H, KVH, D, plan);
+}
+
+template <int D, typename T, int REP, typename Loader>
 cudaError_t launch_split(const SplitArgs& a, cudaStream_t s) {
   using Sh = SplitShape<D, T>;
   const int smem = (int)sizeof(float) * Sh::NG * REP * (D + 2);
-  auto kernel = decode_split_kernel<D, T, REP, DenseDecodeKV<T>>;
+  auto kernel = decode_split_kernel<D, T, REP, Loader>;
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -1199,32 +1127,31 @@ cudaError_t launch_split(const SplitArgs& a, cudaStream_t s) {
     if (e != cudaSuccess) return e;
     configured = true;
   }
-  if (a.n_splits > 1) {
-    cudaError_t e = cudaMemsetAsync(a.tickets, 0, sizeof(int) * a.groups, s);
-    if (e != cudaSuccess) return e;
-  }
   const dim3 grid(a.n_splits, a.groups);
   kernel<<<grid, DS_WARPS * 32, smem, s>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, int REP>
+template <typename T, int REP, template <typename> class Loader>
 cudaError_t split_by_dim(int D, const SplitArgs& a, cudaStream_t s) {
   switch (D) {
-    case 16: return launch_split<16, T, REP>(a, s);
-    case 32: return launch_split<32, T, REP>(a, s);
-    case 64: return launch_split<64, T, REP>(a, s);
-    case 128: return launch_split<128, T, REP>(a, s);
-    case 256: return launch_split<256, T, REP>(a, s);
+    case 16: return launch_split<16, T, REP, Loader<T>>(a, s);
+    case 32: return launch_split<32, T, REP, Loader<T>>(a, s);
+    case 64: return launch_split<64, T, REP, Loader<T>>(a, s);
+    case 128: return launch_split<128, T, REP, Loader<T>>(a, s);
+    case 256: return launch_split<256, T, REP, Loader<T>>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
-cudaError_t split_dispatch(int D, int rep_blk, const SplitArgs& a,
+template <template <typename> class Loader>
+cudaError_t split_dispatch(int dtype, int D, int rep_blk, const SplitArgs& a,
                            cudaStream_t s) {
-  return rep_blk == 4 ? split_by_dim<T, 4>(D, a, s)
-                      : split_by_dim<T, 8>(D, a, s);
+  if (dtype == DT_BF16)
+    return rep_blk == 4 ? split_by_dim<bf16, 4, Loader>(D, a, s)
+                        : split_by_dim<bf16, 8, Loader>(D, a, s);
+  return rep_blk == 4 ? split_by_dim<float, 4, Loader>(D, a, s)
+                      : split_by_dim<float, 8, Loader>(D, a, s);
 }
 
 }  // namespace
@@ -1268,23 +1195,8 @@ extern "C" int paged_prefill_launch(
                                      static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int paged_decode_launch(
-    const void* q, const void* k_pool, const void* v_pool, const int* tables,
-    const int* lengths, void* o, int S, int MP, int H, int KVH, int D,
-    int npool, int page, int window, float softcap, float scale, int dtype,
-    void* stream) {
-  DecodeArgs a{};
-  a.q = q; a.k = k_pool; a.v = v_pool; a.o = o;
-  a.tables = tables; a.lengths = lengths;
-  a.MP = MP; a.H = H; a.KVH = KVH; a.npool = npool; a.page = page;
-  a.window = window; a.softcap = softcap; a.scale = scale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_BF16) return (int)decode_by_dim<__nv_bfloat16>(D, a, S, s);
-  return (int)decode_by_dim<float>(D, a, S, s);
-}
-
-// The split decode kernel's plan for a call (see decode_plan); launches
-// nothing.
+// The split decode kernel's plan for a dense call (see decode_plan) and for
+// a paged one (see paged_plan); launch nothing.
 extern "C" int decode_attention_plan(int B, int S, int H, int KVH, int D,
                                      int pos, int window, long long* plan) {
   if (KVH <= 0 || H % KVH) return (int)cudaErrorInvalidValue;
@@ -1292,25 +1204,51 @@ extern "C" int decode_attention_plan(int B, int S, int H, int KVH, int D,
   return 0;
 }
 
-// ws: the plan's workspace, plan[4] words; its tickets are zeroed on the
-// stream before the kernel, so calls on any streams never share them.
+extern "C" int paged_decode_plan(int S, int MP, int page, int H, int KVH,
+                                 int D, int window, long long* plan) {
+  if (KVH <= 0 || H % KVH || MP <= 0 || page <= 0)
+    return (int)cudaErrorInvalidValue;
+  paged_plan(S, MP, page, H, KVH, D, window, plan);
+  return 0;
+}
+
+// ws: the plan's partials (plan[4] words); tickets: plan[1] ints, 0 on
+// entry, left at 0 by the kernel. Calls on other streams need their own.
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int S, int H,
     int KVH, int D, int pos, int window, float softcap, float scale, int dtype,
-    void* stream, float* ws) {
+    void* stream, float* ws, int* tickets) {
   long long plan[5];
   const int err = decode_attention_plan(B, S, H, KVH, D, pos, window, plan);
   if (err) return err;
   SplitArgs a{};
-  a.q = q; a.k = k; a.v = v; a.o = o; a.ws = ws;
+  a.q = q; a.k = k; a.v = v; a.o = o; a.ws = ws; a.tickets = tickets;
   a.n_splits = (int)plan[0]; a.groups = (int)plan[1];
-  a.tickets = reinterpret_cast<int*>(
-      ws + (long long)a.n_splits * a.groups * plan[2] * (D + 2));
   a.H = H; a.KVH = KVH; a.S = S; a.pos = pos; a.window = window;
   a.nz = (H / KVH + (int)plan[2] - 1) / (int)plan[2];
   a.softcap = softcap; a.scale = scale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_BF16)
-    return (int)split_dispatch<__nv_bfloat16>(D, (int)plan[2], a, s);
-  return (int)split_dispatch<float>(D, (int)plan[2], a, s);
+  return (int)split_dispatch<DenseDecodeKV>(
+      dtype, D, (int)plan[2], a, static_cast<cudaStream_t>(stream));
+}
+
+// One launch whatever the lengths: the grid comes from the shapes, and
+// each block reads its slot's length on the card.
+extern "C" int paged_decode_launch(
+    const void* q, const void* k_pool, const void* v_pool, const int* tables,
+    const int* lengths, void* o, int S, int MP, int H, int KVH, int D,
+    int npool, int page, int window, float softcap, float scale, int dtype,
+    void* stream, float* ws, int* tickets) {
+  long long plan[5];
+  const int err = paged_decode_plan(S, MP, page, H, KVH, D, window, plan);
+  if (err) return err;
+  SplitArgs a{};
+  a.q = q; a.k = k_pool; a.v = v_pool; a.o = o; a.ws = ws;
+  a.tickets = tickets; a.tables = tables; a.lengths = lengths;
+  a.n_splits = (int)plan[0]; a.groups = (int)plan[1];
+  a.H = H; a.KVH = KVH; a.MP = MP; a.npool = npool; a.page = page;
+  a.window = window;
+  a.nz = (H / KVH + (int)plan[2] - 1) / (int)plan[2];
+  a.softcap = softcap; a.scale = scale;
+  return (int)split_dispatch<PagedDecodeKV>(
+      dtype, D, (int)plan[2], a, static_cast<cudaStream_t>(stream));
 }

@@ -2,7 +2,7 @@
 
 Replaces ``repro.kernels.mamba2.ssd``. ``ssd`` launches the CUDA kernel for
 CUDA tensors (or raises) and runs ``ssd_plain`` for CPU tensors;
-``ssd.launches`` counts kernel launches.
+``ssd.launches`` counts the calls that launched it.
 
 ``ssd_plain`` is the JAX package's XLA route, ``repro.models.ssm``'s
 ``ssd_chunked_xla`` plus ``_final_state``: per chunk of ``q = min(chunk,
@@ -13,11 +13,15 @@ the inter-chunk scan over the (N, P) state; the final state comes from the
 whole-sequence cumulative decay. ``initial_state`` resumes a previous
 segment (chunked prefill).
 
+On the card bf16 inputs run the tensor-core kernel, one launch per chunk
+of the sequence (a serving call is one chunk), and fp32 inputs the
+CUDA-core kernel, one launch per call.
+
 One deliberate difference from the JAX dispatch (``ops.ssd_impl``): there,
 a chunk that resumes from a carried state leaves the TPU kernel for the XLA
 route, because the kernel's state scratch starts from zeros. The CUDA
-kernel loads the initial state into its state accumulator instead, so a
-continuation chunk runs on the card like a fresh prompt.
+kernels load the initial state instead, so a continuation chunk runs on
+the card like a fresh prompt.
 """
 
 from __future__ import annotations
@@ -135,6 +139,14 @@ def _inner_contiguous(t: torch.Tensor) -> torch.Tensor:
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
+def _rows16(*ts: torch.Tensor) -> bool:
+    """Whether every row of each (B, T, heads, width) bf16 operand starts
+    on 16 bytes and spans whole 16-byte words, so the bf16 kernel copies
+    rows with 16-byte ``cp.async`` (else element by element)."""
+    return all(t.data_ptr() % 16 == 0 and t.shape[-1] % 8 == 0 and
+               all(st % 8 == 0 for st in t.stride()[:-1]) for t in ts)
+
+
 def ssd(x, dt, a_log, b, c, *, d_skip=None, chunk: int = 256,
         initial_state=None, return_final_state: bool = False):
     """The chunked SSD on the card (CUDA tensors) or ``ssd_plain`` (CPU
@@ -176,16 +188,22 @@ def ssd(x, dt, a_log, b, c, *, d_skip=None, chunk: int = 256,
             raise ValueError(f"ssd: initial_state {tuple(initial_state.shape)}"
                              f" != {(bsz, h, n, p)}")
         init = initial_state.to(torch.float32).contiguous()
+        if init.data_ptr() % 16:          # the kernels copy 16-byte words
+            init = init.clone()
     for tns in (dt, a_log, b, c, d) + ((init,) if init is not None else ()):
         if tns.device != dev:
             raise ValueError("ssd: operands on different devices")
     y = torch.empty((bsz, t, h, p), dtype=x.dtype, device=dev)
     fin = torch.empty((bsz, h, n, p), dtype=torch.float32, device=dev) \
         if return_final_state else None
+    # Between chunks the bf16 kernel carries the state in two buffers.
+    scratch = torch.empty((2, bsz, h, n, p), dtype=torch.float32,
+                          device=dev) \
+        if x.dtype == torch.bfloat16 and t > q else None
     fn = _build.bind("ssd", "ssd_launch",
                      [_P, _L, _L, _L, _P, _L, _L, _L, _P, _P, _P, _L, _L, _L,
-                      _P, _L, _L, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                      _I, _P])
+                      _P, _L, _L, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                      _I, _I, _I, _P])
     err = fn(x.data_ptr(), x.stride(0), x.stride(1), x.stride(2),
              dt.data_ptr(), dt.stride(0), dt.stride(1), dt.stride(2),
              a_log.data_ptr(), d.data_ptr(),
@@ -193,7 +211,8 @@ def ssd(x, dt, a_log, b, c, *, d_skip=None, chunk: int = 256,
              c.data_ptr(), c.stride(0), c.stride(1), c.stride(2),
              None if init is None else init.data_ptr(), y.data_ptr(),
              None if fin is None else fin.data_ptr(),
-             bsz, t, h, g, n, p, q, _DT[x.dtype],
+             None if scratch is None else scratch.data_ptr(),
+             bsz, t, h, g, n, p, q, _DT[x.dtype], int(_rows16(x, b, c)),
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "ssd")
     ssd.launches += 1

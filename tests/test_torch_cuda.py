@@ -126,6 +126,108 @@ def test_attention_kernels_match_plain(card, dtype, d):
         assert after[name] == counts[name] + 1, name
 
 
+def _paged_decode_inputs(card, dtype, lens, page, mp, h, kvh, d, window,
+                         seed):
+    """q, pools, tables and lengths for paged decode. Every key row a slot
+    must not read holds NaN: the rows of its pages past its length and
+    before its window, and every page no slot owns; the table entries past
+    a slot's pages point at an all-NaN page."""
+    rng = np.random.default_rng(seed)
+    owned = sum(-(-n // page) for n in lens)
+    n_pool = owned + 3
+    pk = np.full((kvh, n_pool, page, d), np.nan, np.float32)
+    pv = np.full((kvh, n_pool, page, d), np.nan, np.float32)
+    free = list(rng.permutation(n_pool - 1))
+    tables = np.full((len(lens), mp), n_pool - 1, np.int32)
+    for b, n in enumerate(lens):
+        lo = max(0, n - window) if window else 0
+        for j in range(-(-n // page)):
+            pid = free.pop()
+            tables[b, j] = pid
+            for r in range(page):
+                if lo <= j * page + r < n:
+                    pk[:, pid, r] = rng.standard_normal((kvh, d))
+                    pv[:, pid, r] = rng.standard_normal((kvh, d))
+    q = torch.from_numpy(rng.standard_normal((len(lens), 1, h, d))
+                         ).to(card, dtype)
+    return (q, torch.from_numpy(pk).to(card, dtype),
+            torch.from_numpy(pv).to(card, dtype),
+            torch.from_numpy(tables).to(card),
+            torch.tensor(lens, dtype=torch.int32, device=card))
+
+
+_PAGED_EDGES = [
+    # lengths, page, pages per slot, H, KVH, D, window
+    ([0, 1, 63, 64, 65, 2048], 64, 32, 4, 1, 256, None),
+    ([0, 1, 63, 64, 65, 2048], 16, 128, 4, 1, 256, None),
+    ([0, 1, 63, 64, 65, 208], 16, 13, 4, 1, 256, None),   # reach 208
+    ([300, 320, 64, 0, 208], 16, 20, 4, 1, 256, 100),     # window mid-split
+    ([320, 384, 128, 1], 64, 8, 4, 1, 256, 128),          # ... on a boundary
+    ([1010, 530, 310, 80], 64, 32, 4, 1, 256, 512),       # gemma3's local
+    ([700, 1, 0], 64, 16, 25, 5, 64, 1024),               # hymba's GQA
+    ([700, 130, 5], 64, 16, 25, 5, 64, None),
+    ([90, 33], 16, 8, 8, 2, 128, 24),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", range(len(_PAGED_EDGES)))
+def test_paged_decode_split_edges(card, dtype, case):
+    """Paged decode where splits begin and end: lengths 0, 1, 63, 64, 65
+    and the table's whole reach, pages of 16 and 64, a reach that is not a
+    multiple of 64 keys, a window edge inside a split and on a split
+    boundary, GQA 25 / 5 at head dim 64. NaN in every row the kernel must
+    not read; one launch per call; a zero row for an empty slot; a rerun
+    bit-identical."""
+    lens, page, mp, h, kvh, d, window = _PAGED_EDGES[case]
+    q, pk, pv, tables, lengths = _paged_decode_inputs(
+        card, dtype, lens, page, mp, h, kvh, d, window, case)
+    kw = dict(window=window, softcap=30.0 if case == 8 else None)
+    want = tak.paged_decode_attention_plain(q, pk, pv, tables, lengths, **kw)
+    kernels.reset_launch_counts()
+    got = tak.paged_decode_attention(q, pk, pv, tables, lengths, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["paged_decode_attention"] == 1
+    _close(got, want, dtype)
+    for b, n in enumerate(lens):
+        if n == 0:
+            assert (got[b] == 0).all()
+    again = tak.paged_decode_attention(q, pk, pv, tables, lengths, **kw)
+    assert torch.equal(got, again)
+
+
+def test_paged_decode_plan_from_shapes(card):
+    """The grid comes from the shapes alone: the table's reach in 64-key
+    splits, or the window's (one more where it starts mid-split)."""
+    assert tak.paged_decode_plan(4, 32, 64, 4, 1, 256)[:2] == (32, 4)
+    assert tak.paged_decode_plan(4, 32, 64, 4, 1, 256, 512)[:2] == (9, 4)
+    assert tak.paged_decode_plan(2, 13, 16, 4, 1, 256)[0] == 4
+    assert tak.paged_decode_plan(1, 1, 16, 4, 1, 256) == (1, 1, 4, 64, 0)
+    assert tak.paged_decode_plan(3, 16, 64, 25, 5, 64, 1024)[:3] == (16, 15, 8)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_decode_on_concurrent_streams(card, dtype):
+    """Calls on two streams at once at gemma3-1b's serving shape: each
+    stream has its own tickets and partials, so every result equals the
+    single-stream one."""
+    inputs = [_paged_decode_inputs(card, dtype, [1010, 530, 310, 80], 64, 32,
+                                   4, 1, 256, None, seed)
+              for seed in (5, 6)]
+    wants = [tak.paged_decode_attention(*args) for args in inputs]
+    streams = [torch.cuda.Stream(card) for _ in inputs]
+    torch.cuda.synchronize()
+    gots = [[], []]
+    for _ in range(8):
+        for i, (st, args) in enumerate(zip(streams, inputs)):
+            with torch.cuda.stream(st):
+                gots[i].append(tak.paged_decode_attention(*args))
+    torch.cuda.synchronize()
+    for got, want in zip(gots, wants):
+        for g in got:
+            assert torch.equal(g, want)
+
+
 def _i8(g, shape, lo=-128, hi=128):
     return torch.randint(lo, hi, shape, generator=g, device=g.device,
                          dtype=torch.int8)
@@ -420,24 +522,19 @@ def test_int_kernels_refuse_float_units(card, act):
                               **kw)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("t,h,p,g,n,chunk", [(1000, 8, 64, 1, 128, 256),
-                                             (300, 10, 64, 1, 16, 256),
-                                             (7, 4, 8, 1, 8, 256),
-                                             (70, 8, 16, 2, 32, 32)])
-@pytest.mark.parametrize("resume", [False, True])
-def test_ssd_matches_plain(card, dtype, t, h, p, g, n, chunk, resume):
-    """The chunked SSD kernel: ragged chunks, grouped B/C, x/B/C read as
-    strided views of one fused buffer (as the model hands them over), and
-    a resumed segment's initial state taken into the kernel."""
-    rng = np.random.default_rng(t + h + n)
-    bsz = 2
+def _ssd_inputs(card, dtype, bsz, t, h, p, g, n, seed, pad=0, resume=True):
+    """x, B and C as strided views of one fused projection (``pad`` extra
+    columns make its rows miss 16-byte words), dt, a_log, d_skip and the
+    initial state (or None)."""
+    rng = np.random.default_rng(seed)
     d_in = h * p
-    fused = torch.tensor(rng.standard_normal((bsz, t, d_in + 2 * g * n)),
-                         dtype=torch.float32).to(card, dtype)
+    fused = torch.tensor(rng.standard_normal((bsz, t, d_in + 2 * g * n + pad)),
+                         dtype=torch.float32)
+    fused[..., d_in:] *= 0.3
+    fused = fused.to(card, dtype)
     x = fused[..., :d_in].reshape(bsz, t, h, p)
-    b = fused[..., d_in:d_in + g * n].reshape(bsz, t, g, n) * 0.3
-    c = fused[..., d_in + g * n:].reshape(bsz, t, g, n) * 0.3
+    b = fused[..., d_in:d_in + g * n].reshape(bsz, t, g, n)
+    c = fused[..., d_in + g * n:d_in + 2 * g * n].reshape(bsz, t, g, n)
     dt = torch.tensor(np.abs(rng.standard_normal((bsz, t, h))) * 0.5 + 0.01,
                       dtype=torch.float32, device=card)
     a_log = torch.tensor(np.log(np.linspace(1.0, 16.0, h)),
@@ -446,6 +543,31 @@ def test_ssd_matches_plain(card, dtype, t, h, p, g, n, chunk, resume):
                           device=card)
     init = torch.tensor(rng.standard_normal((bsz, h, n, p)) * 0.5,
                         dtype=torch.float32, device=card) if resume else None
+    return x, dt, a_log, b, c, d_skip, init
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t,h,p,g,n,chunk,pad", [
+    (1000, 8, 64, 1, 128, 256, 0),    # four chunks, the last ragged
+    (300, 10, 64, 1, 16, 256, 0),
+    (7, 4, 8, 1, 8, 256, 1),          # rows off 16-byte words
+    (70, 8, 16, 2, 32, 32, 0),        # short chunks, two groups
+    (1, 4, 16, 1, 16, 256, 0),        # one token
+    (64, 6, 32, 2, 128, 256, 0),      # one row tile
+    (255, 8, 64, 1, 128, 256, 0),     # a ragged last row tile
+    (256, 64, 64, 1, 128, 256, 0),    # mamba2-1.3b's serving call
+    (256, 50, 64, 1, 16, 256, 0),     # hymba-1.5b's
+    (257, 5, 8, 1, 16, 256, 3),       # one token into a second chunk
+    (1000, 6, 32, 2, 16, 256, 0),
+])
+@pytest.mark.parametrize("resume", [False, True])
+def test_ssd_matches_plain(card, dtype, t, h, p, g, n, chunk, pad, resume):
+    """The chunked SSD kernels: ragged chunks and row tiles, grouped B/C
+    (an odd number of heads per group), x/B/C read as strided views of one
+    fused buffer (as the model hands them over, aligned or not), and a
+    resumed segment's initial state taken into the kernel."""
+    x, dt, a_log, b, c, d_skip, init = _ssd_inputs(
+        card, dtype, 2, t, h, p, g, n, t + h + n, pad, resume)
     kw = dict(d_skip=d_skip, chunk=chunk, return_final_state=True)
     kernels.reset_launch_counts()
     y, fs = tm2.ssd(x, dt, a_log, b, c, initial_state=init, **kw)
@@ -465,6 +587,46 @@ def test_ssd_matches_plain(card, dtype, t, h, p, g, n, chunk, resume):
                                    atol=tol * exact_y.abs().max().item())
     torch.testing.assert_close(fs.double(), exact_fs, rtol=0,
                                atol=tol * exact_fs.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t", [7, 256, 600])
+def test_ssd_without_skip_or_state(card, dtype, t):
+    """No ``d_skip``, no initial state, no final state asked for: y alone,
+    against the plain version."""
+    x, dt, a_log, b, c, _, _ = _ssd_inputs(card, dtype, 1, t, 6, 16, 2, 16,
+                                           t, resume=False)
+    y = tm2.ssd(x, dt, a_log, b, c, chunk=256)
+    want = tm2.ssd_plain(x, dt, a_log, b, c, chunk=256)
+    if dtype == torch.bfloat16:
+        _close(y, want, dtype)
+    else:
+        exact_y, _ = ssd_fp64(x, dt, a_log, b, c)
+        tol = fp32_tolerance(dt, a_log, 256)
+        torch.testing.assert_close(y.double(), exact_y, rtol=0,
+                                   atol=tol * exact_y.abs().max().item())
+
+
+def test_ssd_rerun_and_streams_are_bit_identical(card):
+    """mamba2-1.3b's serving call (bf16, 256 tokens resumed) and a 1000-token
+    one: a rerun, and calls on two streams at once, give the first result
+    bit for bit (the kernel has no atomics; its sums run in a fixed
+    order)."""
+    for t in (256, 1000):
+        args = _ssd_inputs(card, torch.bfloat16, 1, t, 64, 64, 1, 128, t)
+        x, dt, a_log, b, c, d_skip, init = args
+        kw = dict(d_skip=d_skip, initial_state=init, return_final_state=True)
+        y0, s0 = tm2.ssd(x, dt, a_log, b, c, **kw)
+        streams = [torch.cuda.Stream(card) for _ in range(2)]
+        torch.cuda.synchronize()
+        outs = []
+        for _ in range(4):
+            for st in streams:
+                with torch.cuda.stream(st):
+                    outs.append(tm2.ssd(x, dt, a_log, b, c, **kw))
+        torch.cuda.synchronize()
+        for y, s_ in outs:
+            assert torch.equal(y, y0) and torch.equal(s_, s0)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -586,8 +748,8 @@ def test_decode_split_edges(card, dtype, b, s, h, kvh, d, pos, window):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_decode_split_on_concurrent_streams(card, dtype):
-    """Calls on two streams at once, each of many splits: every call zeroes
-    the tickets of its own workspace, so the two never merge each other's
+    """Calls on two streams at once, each of many splits: each stream has
+    its own tickets and partials, so the two never merge each other's
     partials."""
     b, s, h, kvh, d = 4, 2048, 4, 1, 256
     assert tak.decode_plan(b, s, h, kvh, d, s - 1)[0] > 1

@@ -1,0 +1,154 @@
+"""Where the bf16 SSD kernel's time goes, phase by phase, on a card.
+
+Builds a copy of ``csrc/ssd.cu`` with ``globaltimer`` stamps (thread 0 of
+every block, at the phase boundaries marked below), swaps it in for the
+``ssd`` library, runs the serving call (one 256-token chunk with a carried
+state) at mamba2-1.3b's and hymba-1.5b's widths, and prints, per kind of
+block, the microseconds from the launch's first stamp at which each phase
+ended (min, median, max over the blocks):
+
+  python3 tools/ssd_phases.py
+
+Output blocks by row tile: ``loads`` (C, the carried states, dt, seg and
+the decay factors in), ``carried`` (the C @ S term), ``tile k in`` and
+``tile k done`` per key tile, ``done``; state blocks: ``computed`` (before
+the row split's reduction). The stamps cost a few instructions each, so
+the times are the instrumented kernel's. Needs a card and ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+STAMPS = 16
+
+# (anchor line in ssd.cu, stamp slot, stamp before the line?)
+MARKS = [
+    ("  const int r_lo = warp * 16;", "0", True),
+    ("  __syncthreads();                         // C, states, seg and "
+     "factors in", "1", False),
+    ("  __syncthreads();                         // the states' bytes are "
+     "free", "2", False),
+    ("    __syncthreads();                       // tile jt is in",
+     "3 + jt", False),
+    ("    if (jt < it) __syncthreads();          // stage st is free for "
+     "jt + 2", "7 + jt", True),
+    ("  // y = acc + d_skip x; the last key tile is this row tile, so its "
+     "stage", "11", True),
+    ("  const int grp = h / (p.H / p.G), n0 = ns * NSL;", "12", True),
+    ("  if (wk > 1) {                            // the row split's partials",
+     "14", True),
+]
+
+
+def stamp(slot: str) -> str:
+    return ("\n  if (threadIdx.x == 0 && g_stamps) { unsigned long long t_; "
+            "asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t_)); "
+            f"g_stamps[(blockIdx.y * gridDim.x + blockIdx.x) * {STAMPS} + "
+            f"({slot})] = t_; }}\n")
+
+
+def build(out: Path) -> Path:
+    from repro_torch.kernels import _build
+
+    src = (ROOT / "src/repro_torch/kernels/csrc/ssd.cu").read_text()
+    src = src.replace("constexpr int TC_THREADS = 128;",
+                      "__device__ unsigned long long* g_stamps;\n"
+                      "constexpr int TC_THREADS = 128;")
+    for line, slot, before in MARKS:
+        if line not in src:
+            raise SystemExit(f"ssd_phases: anchor not in ssd.cu: {line!r}")
+        src = src.replace(line, stamp(slot) + line if before
+                          else line + stamp(slot))
+    src += ('\nextern "C" void ssd_set_stamps(void* p) {\n'
+            '  cudaMemcpyToSymbol(g_stamps, &p, sizeof(p));\n}\n')
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "ssd_phases.cu").write_text(src)
+    lib = out / "libssd_phases.so"
+    r = subprocess.run(_build.nvcc_command(out / "ssd_phases.cu", lib),
+                       capture_output=True, text=True)
+    if r.returncode:
+        raise SystemExit(r.stdout + r.stderr)
+    return lib
+
+
+def spread(vals):
+    vals = [v for v in vals if v is not None]
+    if not vals:
+        return "-"
+    return (f"{min(vals):.2f} / {statistics.median(vals):.2f} / "
+            f"{max(vals):.2f}")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("ssd_phases: needs a CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import configs
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import mamba2 as km
+
+    lib = ctypes.CDLL(str(build(ROOT / "build" / "ssd_phases")))
+    lib.ssd_set_stamps.argtypes = [ctypes.c_void_p]
+    _build._LIBS["ssd"] = lib
+    _build._FNS.pop(("ssd", "ssd_launch"), None)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    for arch in ("mamba2-1.3b", "hymba-1.5b"):
+        cfg = configs.get(arch)
+        t, h, p = 256, cfg.n_ssm_heads, cfg.ssm_head_dim
+        g, n = cfg.ssm_groups, cfg.d_state
+
+        def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+            return (torch.randn(shape, generator=gen, device="cuda")
+                    * scale).to(dtype)
+        x = randn(1, t, h, p)
+        b, c = randn(1, t, g, n, scale=0.3), randn(1, t, g, n, scale=0.3)
+        dt = torch.nn.functional.softplus(randn(1, t, h, dtype=torch.float32))
+        a_log = torch.log(torch.linspace(1.0, 16.0, h, device="cuda"))
+        kw = dict(d_skip=torch.ones(h, device="cuda"), return_final_state=True,
+                  initial_state=randn(1, h, n, p, scale=0.5,
+                                      dtype=torch.float32))
+        stamps = torch.zeros(4096 * STAMPS, dtype=torch.int64, device="cuda")
+        for _ in range(3):                 # the last of three, L2 flushed
+            stamps.zero_()
+            flush.zero_()
+            torch.cuda.synchronize()
+            lib.ssd_set_stamps(stamps.data_ptr())
+            km.ssd(x, dt, a_log, b, c, **kw)
+            torch.cuda.synchronize()
+        lib.ssd_set_stamps(None)
+        n_rt, n_hs = t // 64, g * -(-(h // g) // 2)
+        n_out, n_state = n_rt * n_hs, -(-(-(-n // 16) * 16) // 64) * h
+        raw = stamps.view(-1, STAMPS)[:n_out + n_state].cpu().tolist()
+        t0 = min(v for row in raw for v in row if v > 0)
+        us = [[(v - t0) / 1e3 if v > 0 else None for v in row] for row in raw]
+        print(f"{arch} T={t} resumed: {n_out} output + {n_state} state "
+              f"blocks; us from the first stamp, min / median / max")
+        for it in range(n_rt - 1, -1, -1):
+            rows = [us[i] for i in range(n_out) if n_rt - 1 - i // n_hs == it]
+            parts = [("loads", 1), ("carried", 2)]
+            for k in range(it + 1):
+                parts += [(f"tile {k} in", 3 + k), (f"tile {k} done", 7 + k)]
+            parts.append(("done", 11))
+            print(f"  output, row tile {it}: " + "; ".join(
+                f"{name} {spread([r[s] for r in rows])}"
+                for name, s in parts))
+        print(f"  state: computed "
+              f"{spread([r[14] for r in us[n_out:]])}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -2,13 +2,16 @@
 bf16 engine GEMM at gemma3-1b's 24 serving shapes (7 projections and the
 tied unembedding at M = 4, 64 and 256, the rows of ``chip_smoke.py`` phase
 3, with ``torch.matmul`` beside each), fp32 ``flash_attention`` at the fp32
-gate's prompts and the paged attention kernels at gemma3-1b's serving
-shapes. It times the ``repro_torch`` package found under ``--src``, so two
-checkouts compare on one card, run after run:
+gate's prompts, the paged attention kernels at gemma3-1b's serving shapes
+(paged decode global and with the 512-key window), and the bf16 chunked
+SSD at mamba2-1.3b's and hymba-1.5b's widths (the serving call, 256 tokens
+resumed, and 1000 tokens fresh). It times the ``repro_torch`` package
+found under ``--src``, so two checkouts compare on one card, run after
+run:
 
   python3 tools/time_kernels.py --src OTHER_CHECKOUT/src --tag parent
   python3 tools/time_kernels.py --tag change
-  python3 tools/time_kernels.py --only gemm        # one group: gemm, attention
+  python3 tools/time_kernels.py --only ssd    # one group: gemm, attention, ssd
 
 Each output is held against its plain version (``chip_smoke.check_close``)
 and timed with ``chip_smoke.Timer`` (CUDA events, L2 flushed, median of
@@ -47,7 +50,8 @@ def gemm_cases(torch, cs):
 
 
 def attention_cases(torch):
-    """(kernel, label, kind, run_kernel, run_plain, None, None)."""
+    """(kernel, label, kind, run_kernel, run_plain, None, (bytes,
+    operations) or None)."""
     from repro_torch import configs
     from repro_torch.examples import serve_decode as sd
     from repro_torch.kernels import attention as ka
@@ -91,10 +95,54 @@ def attention_cases(torch):
     tables = perm[:4 * 32].reshape(4, 32).to(torch.int32)
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     qd = randn(4, 1, h, d)
-    out.append(("paged_decode_attention", f"lengths={lengths} global", "bf16",
-                lambda: ka.paged_decode_attention(qd, kp, vp, tables, lens),
-                lambda: ka.paged_decode_attention_plain(qd, kp, vp, tables,
-                                                        lens), None, None))
+    for window in (None, g3.local_window):
+        live = sum(min(n, window or 1 << 30) for n in lengths)
+        work = (2 * (2 * 4 * h * d + 2 * live * kvh * d) + 4 * 4 * 33,
+                4.0 * d * h * live)
+        out.append(("paged_decode_attention",
+                    f"lengths={lengths} window={window}", "bf16",
+                    lambda w=window: ka.paged_decode_attention(
+                        qd, kp, vp, tables, lens, window=w),
+                    lambda w=window: ka.paged_decode_attention_plain(
+                        qd, kp, vp, tables, lens, window=w), None, work))
+    return out
+
+
+def ssd_cases(torch, cs):
+    """The bf16 chunked SSD (y held against the plain version)."""
+    from repro_torch import configs
+    from repro_torch.kernels import mamba2 as km
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = []
+    for arch in ("mamba2-1.3b", "hymba-1.5b"):
+        cfg = configs.get(arch)
+        h, p, g, n = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups, \
+            cfg.d_state
+        for t, resume in ((256, True), (1000, False)):
+            def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+                return (torch.randn(shape, generator=gen, device="cuda")
+                        * scale).to(dtype)
+            x = randn(1, t, h, p)
+            b, c = randn(1, t, g, n, scale=0.3), randn(1, t, g, n, scale=0.3)
+            dt = torch.nn.functional.softplus(randn(1, t, h,
+                                                    dtype=torch.float32))
+            a_log = torch.log(torch.linspace(1.0, 16.0, h, device="cuda"))
+            kw = dict(d_skip=torch.ones((h,), device="cuda"),
+                      chunk=cfg.ssm_chunk, return_final_state=True,
+                      initial_state=randn(1, h, n, p, scale=0.5,
+                                          dtype=torch.float32)
+                      if resume else None)
+            nbytes = (2 * 2 * t * h * p + 2 * 2 * t * g * n + 4 * t * h +
+                      8 * h + 4 * h * n * p * (2 if resume else 1))
+            out.append(("ssd", f"{arch} T={t} "
+                        f"{'resumed' if resume else 'fresh'}", "bf16",
+                        lambda x=x, b=b, c=c, dt=dt, a=a_log, kw=kw:
+                            km.ssd(x, dt, a, b, c, **kw)[0],
+                        lambda x=x, b=b, c=c, dt=dt, a=a_log, kw=kw:
+                            km.ssd_plain(x, dt, a, b, c, **kw)[0], None,
+                        (nbytes, cs.ssd_flops(t, h, p, g, n, cfg.ssm_chunk,
+                                              resume))))
     return out
 
 
@@ -117,7 +165,7 @@ def main() -> int:
     ap.add_argument("--src", default=os.path.join(ROOT, "src"),
                     help="directory holding the repro_torch package to time")
     ap.add_argument("--tag", default="", help="names the run in the output")
-    ap.add_argument("--only", choices=("gemm", "attention"),
+    ap.add_argument("--only", choices=("gemm", "attention", "ssd"),
                     help="time one group of kernels")
     args = ap.parse_args()
     import torch
@@ -138,6 +186,8 @@ def main() -> int:
         cases += gemm_cases(torch, cs)
     if args.only in (None, "attention"):
         cases += attention_cases(torch)
+    if args.only in (None, "ssd"):
+        cases += ssd_cases(torch, cs)
     rows = []
     for kernel, label, kind, run_k, run_p, run_lib, work in cases:
         err = cs.check_close(torch, f"{kernel} {label}", run_k(), run_p(),
