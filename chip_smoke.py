@@ -65,13 +65,18 @@ at phase 10's shapes, at four sequences of 2048 and at hymba-1.5b's
 shape, and in fp32 at phase 9's (each attention arch's longest request,
 its windows and softcap), flash attention at hymba-1.5b's first chunk and
 in fp32 at phase 9's prompts (the CUDA-core kernel that the fp32 gate
-runs), and logs each redesigned kernel's grid and ``ptxas`` registers and
-spills; dense decode's yardsticks are SDPA over the whole cache under a
-boolean mask and (its ``library_ms``) SDPA without a mask over the live
-key slice. The bf16 GEMM rows (gemma3-1b's 7 projections and the tied
-unembedding at M = 4, 64 and 256) log their plan (``gemm.gemm_plan``:
+runs), paged prefill at hymba-1.5b's continuation chunk (T=256 at 768,
+GQA 25 / 5, window 1024), and logs each redesigned kernel's grid and
+``ptxas`` registers and spills; each bf16 paged prefill row also times the
+dense flash kernel on the same keys gathered beforehand (what the block
+table costs); dense decode's yardsticks are SDPA over the whole cache
+under a boolean mask and (its ``library_ms``) SDPA without a mask over the
+live key slice. The bf16 GEMM rows (gemma3-1b's 7 projections and the
+tied unembedding at M = 4, 64 and 256) log their plan (``gemm.gemm_plan``:
 regime, tile, K splits, grid, workspace) and ``torch.matmul`` beside each;
-the biased rows time ``torch.addmm`` (fp32 with TF32 off); the log and
+the fp32 rows (wq with a bias at M = 64; mamba2-1.3b's in_proj at M = 256,
+as phase 7's fp32 logits run it) log theirs, beside ``torch.addmm`` /
+``torch.matmul`` in fp32 with TF32 off; the log and
 the JSON carry the GEMM's sums over one decode step (M = 4) and one
 prefill chunk (M = 256), 7 projections per layer and the unembedding.
 Every main path's launch counts are zeroed
@@ -282,9 +287,46 @@ def gemm_step_sums(rows, n_layers):
     return sums
 
 
-def gemm_plan_text(kg, m, n, k, b_trans=False):
-    """The bf16 GEMM's plan for a shape, as phase 3 logs it."""
-    p = kg.gemm_plan(m, n, k, b_trans)
+def fp32_gemm_cases(torch, randn):
+    """The fp32 engine GEMM (the fp32 engine config's datapath) at the
+    shapes the fp32 paths give it: (name, M, N, K, run_kernel, run_plain,
+    run_library, bytes). gemma3-1b's wq with a bias row at a
+    64-token prompt (the D input: qwen's QKV bias) and mamba2-1.3b's
+    widest projection, in_proj (2048 -> 8512), at the 256-token prompt of
+    phase 7's fp32 logits. The yardstick is the one PyTorch call that
+    computes the same function, in fp32 with TF32 off: ``torch.addmm``
+    with a bias, ``torch.matmul`` without. Bytes: A, B, the bias and C,
+    each once, 4 bytes an element."""
+    from repro_torch import configs
+    from repro_torch.kernels import gemm as kg
+    from repro_torch.kernels.ref import gemm_ref
+
+    g3, m2 = configs.get("gemma3-1b"), configs.get("mamba2-1.3b")
+    d_inner = m2.ssm_expand * m2.d_model
+    n_heads = d_inner // m2.ssm_head_dim
+    in_dim = 2 * d_inner + 2 * m2.ssm_groups * m2.d_state + n_heads
+    f32 = torch.float32
+    kw = dict(acc_dtype=f32, out_dtype=f32)
+    out = []
+    for name, m, k, n, bias in (
+            ("wq+bias", 64, g3.d_model, g3.n_heads * g3.head_dim, True),
+            ("mamba2 in_proj", 256, m2.d_model, in_dim, False)):
+        a = randn(m, k, dtype=f32)
+        b = randn(k, n, dtype=f32, scale=k ** -0.5)
+        d = randn(n, dtype=f32) if bias else None
+        lib = (lambda a=a, b=b, d=d: torch.addmm(d, a, b)) if bias else \
+            (lambda a=a, b=b: torch.matmul(a, b))
+        out.append((name, m, n, k,
+                    lambda a=a, b=b, d=d: kg.gemm(a, b, d, **kw),
+                    lambda a=a, b=b, d=d: gemm_ref(a, b, d, **kw), lib,
+                    4 * (m * k + k * n + m * n + (n if bias else 0))))
+    return out
+
+
+def gemm_plan_text(kg, m, n, k, b_trans=False, **kw):
+    """The float GEMM's plan for a shape (bf16 inputs unless ``dtype=`` is
+    given), as phase 3 logs it."""
+    p = kg.gemm_plan(m, n, k, b_trans, **kw)
     bm, bn, bk = p["tile"]
     return (f"{p['regime']} {bm}x{bn}x{bk}, {p['splits']} K splits, "
             f"{p['grid']} blocks x {p['threads']}, {p['stages']} stages, "
@@ -320,26 +362,24 @@ def kernel_cases(torch, rng_seed=0):
             pname == "unembed" and m == 4, "bf16", run_k, run_p, run_lib,
             nbytes, 2.0 * m * n * k,
             {"plan": gemm_plan_text(kg, m, n, k, pname == "unembed")}))
-    # the D input (qwen's QKV bias) and the fp32 datapath (fp32 engine),
-    # each beside the one PyTorch call that computes it: torch.addmm (in
-    # fp32 with TF32 off, as main sets it)
-    a, b = randn(64, d), randn(d, nh * hd, scale=d ** -0.5)
-    bias = randn(nh * hd)
-    bias16 = bias.to(bf16)
+    # the D input (qwen's QKV bias) beside the one PyTorch call that
+    # computes it, torch.addmm; bytes: A, B, the bias and C, each once
+    n = nh * hd
+    a, b = randn(64, d), randn(d, n, scale=d ** -0.5)
+    bias = randn(n)
     kw = dict(acc_dtype=f32, out_dtype=bf16)
-    cases.append(("gemm", "wq+bias M=64", False, "bf16",
+    cases.append(("gemm", f"wq+bias M=64 N={n} K={d}", False, "bf16",
                   lambda: kg.gemm(a, b, bias, **kw),
                   lambda: gemm_ref(a, b, bias, **kw),
-                  lambda: torch.addmm(bias16, a, b),
-                  2 * (64 * d + d * nh * hd * 2), 2.0 * 64 * d * nh * hd,
-                  {"plan": gemm_plan_text(kg, 64, nh * hd, d)}))
-    a32, b32, bias32 = a.float(), b.float(), bias.float()
-    kw32 = dict(acc_dtype=f32, out_dtype=f32)
-    cases.append(("gemm", "fp32 wq+bias M=64", False, "fp32",
-                  lambda: kg.gemm(a32, b32, bias32, **kw32),
-                  lambda: gemm_ref(a32, b32, bias32, **kw32),
-                  lambda: torch.addmm(bias32, a32, b32),
-                  4 * (64 * d + d * nh * hd * 2), 2.0 * 64 * d * nh * hd))
+                  lambda: torch.addmm(bias, a, b),
+                  2 * (64 * d + d * n + 64 * n + n), 2.0 * 64 * d * n,
+                  {"plan": gemm_plan_text(kg, 64, n, d)}))
+    # the fp32 datapath (fp32 engine config), TF32 off as main sets it
+    for pname, m, n, k, run_k, run_p, run_lib, nbytes in fp32_gemm_cases(
+            torch, randn):
+        cases.append(("gemm", f"fp32 {pname} M={m} N={n} K={k}", False,
+                      "fp32", run_k, run_p, run_lib, nbytes, 2.0 * m * n * k,
+                      {"plan": gemm_plan_text(kg, m, n, k, dtype=f32)}))
 
     # -- flash_attention: a fresh prompt or first chunk, local and global
     def flash_case(t_q, t_k, h, kvh, dh, window, softcap, rep, dtype=bf16):
@@ -410,6 +450,11 @@ def kernel_cases(torch, rng_seed=0):
         live = start + t if window is None else min(start + t,
                                                     window - 1 + t)
         nbytes = 2 * (2 * t * h * dh + 2 * live * kvh * dh) + 4 * kv_pages
+        cl, blocks = flash_grid(t, start + t, h, dh, window)
+        # the dense flash kernel on the same keys gathered beforehand: what
+        # reading them through the block table costs (not a library call)
+        kg_, vg_ = (ka._gather(x, table[None])[:, :start + t].contiguous()
+                    for x in (kp, vp))
         cases.append(("paged_prefill_attention",
                       f"T={t} start={start} H={h} KVH={kvh} D={dh} "
                       f"kv_pages={kv_pages} window={window} softcap={softcap}",
@@ -418,7 +463,10 @@ def kernel_cases(torch, rng_seed=0):
                                                          start, **kw),
                       lambda: ka.paged_prefill_attention_plain(
                           q, kp, vp, table, start, **kw), None,
-                      nbytes, 4.0 * dh * h * pairs))
+                      nbytes, 4.0 * dh * h * pairs,
+                      dict(grid=f"{blocks} blocks, clusters of {cl}",
+                           dense=lambda: ka.flash_attention(q, kg_, vg_,
+                                                            **kw))))
     for start in (256, 512, 768):
         prefill_case(256, start, nh, nkv, hd, 64, 128, 16, None, None,
                      start == 768)
@@ -426,6 +474,10 @@ def kernel_cases(torch, rng_seed=0):
                      None, False)
     prefill_case(64, 256, nh, nkv, hd, 64, 128, 5, None, None, False)
     prefill_case(50, 37, 8, 2, 128, 16, 40, 6, 24, 50.0, False)
+    # hymba-1.5b's continuation chunk as phase 8's profile runs it: T=256 at
+    # 768, GQA 25 / 5, head dim 64, its 1024-token window
+    prefill_case(256, 768, hy.n_heads, hy.n_kv_heads, hy.head_dim, 64, 128,
+                 16, hy.local_window, None, False)
 
     def decode_case(lengths, h, kvh, dh, page, n_pages, mp, window, softcap,
                     rep):
@@ -725,10 +777,11 @@ def run_kernel_phase(torch, timer):
     """Each case: (kernel, label, representative, kind, run_kernel,
     run_plain, run_library, bytes, flops[, opts]); ``opts["check"]``
     replaces ``check_close`` for a kernel with several outputs,
-    ``opts["grid"]`` describes the kernel's grid, ``opts["plan"]`` the bf16
-    GEMM's plan, ``opts["bound_fp32_ms"]`` a second bound (at the fp32
-    CUDA-core peak) and ``opts["library_masked"]`` a second one-call
-    yardstick."""
+    ``opts["grid"]`` describes the kernel's grid, ``opts["plan"]`` the
+    float GEMM's plan, ``opts["bound_fp32_ms"]`` a second bound (at the
+    fp32 CUDA-core peak), ``opts["library_masked"]`` a second one-call
+    yardstick and ``opts["dense"]`` the dense kernel on keys gathered
+    beforehand (timed beside the paged one)."""
     rows, summary = [], {}
     for (kernel, label, rep, kind, run_k, run_p, run_lib, nbytes, flops,
          *opts) in kernel_cases(torch):
@@ -754,6 +807,10 @@ def run_kernel_phase(torch, timer):
         if "library_masked" in opts:
             row["library_masked_ms"] = timer(opts["library_masked"])
             extra += f"  masked library {row['library_masked_ms']:.4f} ms"
+        if "dense" in opts:
+            row["dense_flash_ms"] = timer(opts["dense"])
+            extra += (f"  dense flash on the gathered keys "
+                      f"{row['dense_flash_ms']:.4f} ms")
         if "grid" in opts:
             row["grid"] = opts["grid"]
             extra += f"  grid {opts['grid']}"
@@ -866,11 +923,12 @@ def run_serve_phase(torch, np):
 _KERNEL_NAMES = (("ssd_kernel", "ssd"), ("ssd_tc_kernel", "ssd"),
                  ("PagedDecodeKV", "paged_decode_attention"),
                  ("decode_split_kernel", "decode_attention"),
+                 ("PagedKV", "paged_prefill_attention"),
                  ("flash_tc_kernel", "flash_attention"),
                  ("ConvA", "conv2d_implicit"), ("MatrixA", "gemm[int8]"),
                  ("epilogue_kernel", "accumulator_epilogue"),
                  ("hgemm::skinny_kernel", "gemm"),
-                 ("hgemm::wide_kernel", "gemm"), ("gemm_f32_kernel", "gemm"),
+                 ("hgemm::wide_kernel", "gemm"), ("sgemm_kernel", "gemm"),
                  ("true>", "paged_prefill_attention"),
                  ("prefill_attn_kernel", "flash_attention"))
 
@@ -1517,7 +1575,8 @@ def main() -> int:
              for name in secs}
     # the redesigned kernels: entry, spills, registers
     for src, names in (("attention", ("flash_tc_kernel", "decode_split_kernel")),
-                       ("gemm", ("skinny_kernel", "wide_kernel")),
+                       ("gemm", ("skinny_kernel", "wide_kernel",
+                                 "sgemm_kernel")),
                        ("ssd", ("ssd_tc_kernel",))):
         lines = ptxas.get(src, [])
         for i, ln in enumerate(lines):

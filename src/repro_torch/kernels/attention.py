@@ -400,7 +400,9 @@ def paged_prefill_attention(q, k_pool, v_pool, block_table, start: int, *,
     """q: (1, T, H, D) at logical positions [start, start + T); pools:
     (KVH, NP, page, D) holding the chunk's own KV already; block_table:
     (kv_pages,) int32 with ``kv_pages * page >= start + T``; ``start`` is
-    a host int."""
+    a host int. On the card bf16 runs the tensor-core flash kernel reading
+    K/V through the block table (one launch; its grid comes from T, start
+    and the window), fp32 the CUDA-core one (IEEE fp32)."""
     start = int(start)
     if q.device.type == "cpu":
         return paged_prefill_attention_plain(q, k_pool, v_pool, block_table,
@@ -418,6 +420,9 @@ def paged_prefill_attention(q, k_pool, v_pool, block_table, start: int, *,
                          f"{block_table.shape[0]} pages cannot hold positions "
                          f"up to {start + tq}")
     _check_head("paged_prefill_attention", q, k_pool, h, kvh, d)
+    if npool * page >= 1 << 31:
+        raise ValueError(f"paged_prefill_attention: a pool of {npool} pages "
+                         f"of {page} rows per kv head exceeds 2^31 rows")
     q = q.contiguous()
     k_pool, v_pool = k_pool.contiguous(), v_pool.contiguous()
     table = block_table.to(torch.int32).contiguous()

@@ -5,8 +5,9 @@
 // Replaces, in src/repro/kernels/attention.py, and the kernel each entry
 // point reaches per dtype:
 //   flash_attention          (_attn_kernel)          bf16 -> flash_tc_kernel<D, DenseKV>
-//                                                    fp32 -> prefill_attn_kernel<D, float, false>
-//   paged_prefill_attention  (_paged_prefill_kernel) both -> prefill_attn_kernel<D, T, true>
+//                                                    fp32 -> prefill_attn_kernel<D, false>
+//   paged_prefill_attention  (_paged_prefill_kernel) bf16 -> flash_tc_kernel<D, PagedKV>
+//                                                    fp32 -> prefill_attn_kernel<D, true>
 //   paged_decode_attention   (_paged_decode_kernel)  both -> decode_split_kernel<D, T, REP, PagedDecodeKV>
 //   decode_attention         (_decode_kernel)        both -> decode_split_kernel<D, T, REP, DenseDecodeKV>
 //
@@ -40,9 +41,13 @@
 //    fragment's lane quad. The warps' (m, l, acc) partials merge in shared
 //    memory, then the cluster's block partials over distributed shared
 //    memory, each block finalizing a slice of the head dim. K/V
-//    addressing is a loader policy (DenseKV), so a paged loader can reuse
-//    the kernel.
-//  * prefill_attn_kernel (fp32 flash, paged prefill): CUDA-core fp32 FMAs
+//    addressing is a loader policy: DenseKV for flash; PagedKV for bf16
+//    paged prefill (one request's chunk at [start, start + T): queries
+//    offset by start, keys [0, start + T) through the block table), which
+//    finds each key row's page once per row of a tile -- lanes look up
+//    their rows, the 16-byte chunks take the row by shuffle -- so pages
+//    smaller than a key tile cost nothing more.
+//  * prefill_attn_kernel (fp32 flash, fp32 paged prefill): CUDA-core fp32 FMAs
 //    (IEEE fp32, which the tensor cores do not offer), a 64-row query tile
 //    in shared memory, 32-key K/V tiles; tiles no row can see are skipped
 //    (the TPU kernels' block_live), so a local layer costs O(T * window).
@@ -159,7 +164,7 @@ struct PrefillArgs {
   float scale;
 };
 
-template <int D, typename T, bool PAGED>
+template <int D, bool PAGED>
 __global__ void __launch_bounds__(PF_WARPS * 32)
 prefill_attn_kernel(PrefillArgs p) {
   constexpr int DPL = (D + 31) / 32;       // channels per lane in P @ V
@@ -168,10 +173,10 @@ prefill_attn_kernel(PrefillArgs p) {
   float* Ks = Qs + BQ * D;                 // [BKV][D + 1]
   float* Vs = Ks + BKV * (D + 1);          // [BKV][D]
 
-  const T* q = static_cast<const T*>(p.q);
-  const T* k = static_cast<const T*>(p.k);
-  const T* v = static_cast<const T*>(p.v);
-  T* o = static_cast<T*>(p.o);
+  const float* q = static_cast<const float*>(p.q);
+  const float* k = static_cast<const float*>(p.k);
+  const float* v = static_cast<const float*>(p.v);
+  float* o = static_cast<float*>(p.o);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int row0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (p.H / p.KVH);
@@ -275,7 +280,7 @@ prefill_attn_kernel(PrefillArgs p) {
     const int gr = row0 + warp * ROWS + r;
     if (gr >= p.Tq) continue;
     const float lf = fmaxf(l[r], 1e-37f);
-    T* out = o + (((long long)b * p.Tq + gr) * p.H + h) * D;
+    float* out = o + (((long long)b * p.Tq + gr) * p.H + h) * D;
 #pragma unroll
     for (int c = 0; c < DPL; ++c) {
       const int d = lane + 32 * c;
@@ -284,40 +289,33 @@ prefill_attn_kernel(PrefillArgs p) {
   }
 }
 
-template <int D, typename T, bool PAGED>
+template <int D, bool PAGED>
 cudaError_t launch_prefill(const PrefillArgs& a, int batch, cudaStream_t s) {
   const size_t smem = sizeof(float) * (BQ * D + BKV * (D + 1) + BKV * D);
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        prefill_attn_kernel<D, T, PAGED>,
+        prefill_attn_kernel<D, PAGED>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
     configured = true;
   }
   dim3 grid((a.Tq + BQ - 1) / BQ, a.H, batch);
-  prefill_attn_kernel<D, T, PAGED><<<grid, PF_WARPS * 32, smem, s>>>(a);
+  prefill_attn_kernel<D, PAGED><<<grid, PF_WARPS * 32, smem, s>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, bool PAGED>
+template <bool PAGED>
 cudaError_t prefill_by_dim(int D, const PrefillArgs& a, int batch,
                            cudaStream_t s) {
   switch (D) {
-    case 16: return launch_prefill<16, T, PAGED>(a, batch, s);
-    case 32: return launch_prefill<32, T, PAGED>(a, batch, s);
-    case 64: return launch_prefill<64, T, PAGED>(a, batch, s);
-    case 128: return launch_prefill<128, T, PAGED>(a, batch, s);
-    case 256: return launch_prefill<256, T, PAGED>(a, batch, s);
+    case 16: return launch_prefill<16, PAGED>(a, batch, s);
+    case 32: return launch_prefill<32, PAGED>(a, batch, s);
+    case 64: return launch_prefill<64, PAGED>(a, batch, s);
+    case 128: return launch_prefill<128, PAGED>(a, batch, s);
+    case 256: return launch_prefill<256, PAGED>(a, batch, s);
     default: return cudaErrorInvalidValue;
   }
-}
-
-template <bool PAGED>
-cudaError_t prefill_dispatch(int dtype, int D, const PrefillArgs& a, int batch,
-                             cudaStream_t s) {
-  if (dtype == DT_BF16) return prefill_by_dim<__nv_bfloat16, PAGED>(D, a, batch, s);
-  return prefill_by_dim<float, PAGED>(D, a, batch, s);
 }
 
 
@@ -350,20 +348,24 @@ struct FlashTile {
 
 struct FlashArgs {
   const bf16* q;       // (B, Tq, H, D) contiguous
-  const bf16* k;       // (B, Tk, KVH, D) contiguous
+  const bf16* k;       // dense: (B, Tk, KVH, D); paged: pool (KVH, NPOOL, PAGE, D)
   const bf16* v;
   bf16* o;             // (B, Tq, H, D)
+  const int* table;    // paged: logical page -> pool page (B = 1)
   int Tq, Tk, H, KVH;
   int q_offset;        // position of query row 0 (Tk - Tq: right-aligned)
   int causal, window;  // window 0 = global
+  int npool, page;     // paged geometry
   int stages;          // K/V stages per warp: 1 or 2
   float softcap;       // 0 = none
   float scale;
 };
 
 // The K/V loader policy: where key row kpos of (sequence b, kv head kvh)
-// lives. Dense rows are strided; a paged loader would look the row's page
-// up in a block table here and leave the kernel as it is.
+// lives. row(kpos) names the row (one lookup per key row of a tile, only
+// for keys below Tk); k_row / v_row turn a name into its address, and
+// name 0 is always a valid address (the zero-filled slots point there).
+// Dense rows are strided: the name is the position.
 struct DenseKV {
   const bf16* k;
   const bf16* v;
@@ -374,8 +376,29 @@ struct DenseKV {
     k = p.k + base;
     v = p.v + base;
   }
-  __device__ const bf16* k_row(int kpos) const { return k + kpos * stride; }
-  __device__ const bf16* v_row(int kpos) const { return v + kpos * stride; }
+  __device__ int row(int kpos) const { return kpos; }
+  __device__ const bf16* k_row(int r) const { return k + r * stride; }
+  __device__ const bf16* v_row(int r) const { return v + r * stride; }
+};
+
+// Paged (one request, B = 1): the name is the row's place in the kv head's
+// pool, page * PAGE + offset, from the request's block table.
+struct PagedKV {
+  const bf16* k;
+  const bf16* v;
+  const int* table;
+  int page, dim;
+  __device__ PagedKV(const FlashArgs& p, int, int kvh, int D)
+      : table(p.table), page(p.page), dim(D) {
+    const long long base = (long long)kvh * p.npool * p.page * D;
+    k = p.k + base;
+    v = p.v + base;
+  }
+  __device__ int row(int kpos) const {
+    return __ldg(table + kpos / page) * page + kpos % page;
+  }
+  __device__ const bf16* k_row(int r) const { return k + (long long)r * dim; }
+  __device__ const bf16* v_row(int r) const { return v + (long long)r * dim; }
 };
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -477,16 +500,32 @@ flash_tc_kernel(FlashArgs p) {
   const int t_end = k_hi > k_lo ? (k_hi + KT - 1) / KT : 0;
   const int n_split = CL * FT_WARPS;
 
+  // Lane j names the tile's rows j and j + 32 (one lookup each); the lanes
+  // copying a row's 16-byte chunks take its name by shuffle. Keys no row
+  // of the tile can see -- at or past Tk, or before the window's first --
+  // are never looked up or read: their slots are zero-filled (and masked).
+  constexpr int RPL = (KT + 31) / 32;
   auto load_tile = [&](int t, int stage) {
     bf16* ks = stage0 + stage * Tl::STAGE;
     bf16* vs = ks + KT * LD;
+    int names[RPL];
+#pragma unroll
+    for (int i = 0; i < RPL; ++i) {
+      const int r = lane + 32 * i, kpos = t * KT + r;
+      names[i] = r < KT && kpos >= k_lo && kpos < k_hi ? kv.row(kpos) : 0;
+    }
 #pragma unroll
     for (int c = lane; c < KT * D / 8; c += 32) {
       const int r = c / (D / 8), col = (c % (D / 8)) * 8;
       const int kpos = t * KT + r;
-      const bool ok = kpos < p.Tk;
-      cp_async16(ks + r * LD + col, kv.k_row(ok ? kpos : 0) + col, ok);
-      cp_async16(vs + r * LD + col, kv.v_row(ok ? kpos : 0) + col, ok);
+      const bool ok = kpos >= k_lo && kpos < k_hi;
+      int name = __shfl_sync(FULL, names[0], r & 31);
+      if constexpr (RPL > 1) {
+        const int hi = __shfl_sync(FULL, names[RPL - 1], r & 31);
+        if (r >= 32) name = hi;
+      }
+      cp_async16(ks + r * LD + col, kv.k_row(name) + col, ok);
+      cp_async16(vs + r * LD + col, kv.v_row(name) + col, ok);
     }
   };
 
@@ -719,12 +758,12 @@ int flash_cluster(const FlashArgs& a, int& stages) {
   return cl;
 }
 
-template <int D>
+template <int D, typename Loader>
 cudaError_t launch_flash_tc(FlashArgs a, int batch, cudaStream_t s) {
   const int cl = flash_cluster<D>(a, a.stages);
   const dim3 grid(cl, (a.Tq + FT_ROWS - 1) / FT_ROWS, a.H * batch);
-  auto kernel = flash_tc_kernel<D, DenseKV>;
-  static bool configured = false;
+  auto kernel = flash_tc_kernel<D, Loader>;
+  static bool configured = false;     // per instantiation: per loader
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -748,14 +787,15 @@ cudaError_t launch_flash_tc(FlashArgs a, int batch, cudaStream_t s) {
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
+template <typename Loader>
 cudaError_t flash_tc_by_dim(int D, const FlashArgs& a, int batch,
                             cudaStream_t s) {
   switch (D) {
-    case 16: return launch_flash_tc<16>(a, batch, s);
-    case 32: return launch_flash_tc<32>(a, batch, s);
-    case 64: return launch_flash_tc<64>(a, batch, s);
-    case 128: return launch_flash_tc<128>(a, batch, s);
-    case 256: return launch_flash_tc<256>(a, batch, s);
+    case 16: return launch_flash_tc<16, Loader>(a, batch, s);
+    case 32: return launch_flash_tc<32, Loader>(a, batch, s);
+    case 64: return launch_flash_tc<64, Loader>(a, batch, s);
+    case 128: return launch_flash_tc<128, Loader>(a, batch, s);
+    case 256: return launch_flash_tc<256, Loader>(a, batch, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1167,7 +1207,7 @@ extern "C" int flash_attention_launch(
     a.v = static_cast<const bf16*>(v); a.o = static_cast<bf16*>(o);
     a.Tq = Tq; a.Tk = Tk; a.H = H; a.KVH = KVH; a.q_offset = Tk - Tq;
     a.causal = causal; a.window = window; a.softcap = softcap; a.scale = scale;
-    return (int)flash_tc_by_dim(D, a, B, s);
+    return (int)flash_tc_by_dim<DenseKV>(D, a, B, s);
   }
   PrefillArgs a{};
   a.q = q; a.k = k; a.v = v; a.o = o; a.table = nullptr;
@@ -1177,13 +1217,28 @@ extern "C" int flash_attention_launch(
   a.q_offset = Tk - Tq; a.kv_len = Tk;
   a.causal = causal; a.window = window; a.npool = 0; a.page = 1;
   a.softcap = softcap; a.scale = scale;
-  return (int)prefill_by_dim<float, false>(D, a, B, s);
+  return (int)prefill_by_dim<false>(D, a, B, s);
 }
 
+// bf16: the tensor-core flash kernel through PagedKV, the queries at
+// [start, start + Tq), keys [0, start + Tq); its grid and cluster come
+// from these arguments alone. fp32: the CUDA-core kernel (IEEE fp32).
 extern "C" int paged_prefill_launch(
     const void* q, const void* k_pool, const void* v_pool, const int* table,
     void* o, int Tq, int start, int H, int KVH, int D, int npool, int page,
     int window, float softcap, float scale, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == DT_BF16) {
+    FlashArgs a{};
+    a.q = static_cast<const bf16*>(q);
+    a.k = static_cast<const bf16*>(k_pool);
+    a.v = static_cast<const bf16*>(v_pool);
+    a.o = static_cast<bf16*>(o);
+    a.table = table; a.npool = npool; a.page = page;
+    a.Tq = Tq; a.Tk = start + Tq; a.H = H; a.KVH = KVH; a.q_offset = start;
+    a.causal = 1; a.window = window; a.softcap = softcap; a.scale = scale;
+    return (int)flash_tc_by_dim<PagedKV>(D, a, 1, s);
+  }
   PrefillArgs a{};
   a.q = q; a.k = k_pool; a.v = v_pool; a.o = o; a.table = table;
   a.kv_bstride = 0; a.kv_tstride = 0;
@@ -1191,8 +1246,7 @@ extern "C" int paged_prefill_launch(
   a.q_offset = start; a.kv_len = start + Tq;
   a.causal = 1; a.window = window; a.npool = npool; a.page = page;
   a.softcap = softcap; a.scale = scale;
-  return (int)prefill_dispatch<true>(dtype, D, a, 1,
-                                     static_cast<cudaStream_t>(stream));
+  return (int)prefill_by_dim<true>(D, a, 1, s);
 }
 
 // The split decode kernel's plan for a dense call (see decode_plan) and for

@@ -21,7 +21,9 @@
 // Inputs: bf16 runs hgemm.cuh (two regimes by M: split-K mma.sync fed
 // straight into registers for M <= 16, wgmma fed by TMA for wider M; its
 // header says what bounds each and what the design does about it); fp32
-// runs on plain FMAs (no TF32), so the fp32 engine config stays IEEE; int8
+// runs sgemm.cuh on CUDA-core FMAs (no TF32), so the fp32 engine config
+// stays IEEE (register micro-tiles, a cp.async ring, split K where the
+// tiles leave SMs idle); int8
 // runs on the int8 tensor cores (igemm.cuh: mma.sync s8 with a wrapping
 // int32 accumulator, the bias preloaded). Ragged M, N and K edges are
 // masked here; callers pass operands at their true size.
@@ -31,15 +33,15 @@
 // blocks weight-major (all M tiles of one N strip before the next), and
 // the int8 kernel also keeps the block's weight strip resident in shared
 // memory across its M tiles (igemm.cuh). Every block computes its tile
-// the same way in both orders (the bf16 plan depends on the shape alone),
-// so WS equals OS bit for bit.
+// the same way in both orders (the bf16 and fp32 plans depend on the shape
+// alone), so WS equals OS bit for bit.
 //
 // accumulator_epilogue: one elementwise pass over a raw (M, N) int32 or
 // fp32 accumulator, bound by its bytes (4 in, 1..4 out per element);
 // grid-stride, any shape.
 //
-// C interface: gemm_launch (bf16 / fp32 inputs), gemm_plan (the bf16
-// kernel's plan for a shape), gemm_s8_launch (int8 inputs),
+// C interface: gemm_launch (bf16 / fp32 inputs), gemm_plan (the bf16 or
+// fp32 kernel's plan for a shape), gemm_s8_launch (int8 inputs),
 // epilogue_launch; each launch returns cudaGetLastError().
 
 #include <cuda_runtime.h>
@@ -52,85 +54,12 @@
 #include "epilogue.cuh"
 #include "hgemm.cuh"
 #include "igemm.cuh"
+#include "sgemm.cuh"
 
 namespace {
 
 enum { DT_F32 = 0, DT_BF16 = 1 };
 enum { OUT_I32 = 0, OUT_I8 = 1 };
-
-// fp32 epilogue for one output element of a float GEMM: acc + D, then
-// epilogue.cuh's activation, shift and rounding.
-template <typename OutT>
-__device__ __forceinline__ void store(OutT* C, const float* D, long long ldd,
-                                      int r, int c, int N, float acc, int act,
-                                      float out_scale) {
-  if (D != nullptr) acc += D[(long long)r * ldd + c];
-  epi::store_float(C, (long long)r * N + c, acc, act, out_scale);
-}
-
-// ---------------------------------------------------------------------------
-// fp32 inputs: 64 x 64 tile, 256 threads, 4 x 4 outputs each, IEEE FMAs.
-// ---------------------------------------------------------------------------
-template <bool TRANS_B, typename OutT>
-__global__ void __launch_bounds__(256)
-gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                const float* __restrict__ D, OutT* __restrict__ C, int M, int N,
-                int K, long long lda, long long ldb, long long ldd, int act,
-                float out_scale, int ws) {
-  constexpr int BM = 64, BN = 64, BK = 16;
-  __shared__ float As[BK][BM + 4];
-  __shared__ float Bs[BK][BN + 4];
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int m0 = (ws ? blockIdx.x : blockIdx.y) * BM;
-  const int n0 = (ws ? blockIdx.y : blockIdx.x) * BN;
-  float acc[4][4] = {};
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int e = tid; e < BM * BK; e += 256) {
-      const int r = e / BK, c = e % BK;
-      const int gr = m0 + r, gk = k0 + c;
-      As[c][r] = (gr < M && gk < K) ? A[(long long)gr * lda + gk] : 0.f;
-    }
-    for (int e = tid; e < BK * BN; e += 256) {
-      int kr, nc;
-      if (TRANS_B) { nc = e / BK; kr = e % BK; } else { kr = e / BN; nc = e % BN; }
-      const int gk = k0 + kr, gn = n0 + nc;
-      float v = 0.f;
-      if (gk < K && gn < N)
-        v = TRANS_B ? B[(long long)gn * ldb + gk] : B[(long long)gk * ldb + gn];
-      Bs[kr][nc] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gr = m0 + ty * 4 + i, gc = n0 + tx * 4 + j;
-      if (gr < M && gc < N) store(C, D, ldd, gr, gc, N, acc[i][j], act, out_scale);
-    }
-}
-
-// Grid (N tiles, M tiles) in OS order; (M tiles, N tiles) for ws, so that
-// consecutive blocks share one weight strip.
-inline dim3 tile_grid(int m, int n, int bm, int bn, int ws) {
-  const unsigned mt = (m + bm - 1) / bm, nt = (n + bn - 1) / bn;
-  return ws ? dim3(mt, nt) : dim3(nt, mt);
-}
 
 template <typename OutT>
 int launch_typed(const void* a, const void* b, const float* d, OutT* c, int m,
@@ -142,16 +71,9 @@ int launch_typed(const void* a, const void* b, const float* d, OutT* c, int m,
         static_cast<const __nv_bfloat16*>(a),
         static_cast<const __nv_bfloat16*>(b), d, c, m, n, k, lda, ldb,
         b_trans, ldd, act, out_scale, ws, workspace, s));
-  const dim3 grid = tile_grid(m, n, 64, 64, ws);
-  const float* A = static_cast<const float*>(a);
-  const float* B = static_cast<const float*>(b);
-  if (b_trans)
-    gemm_f32_kernel<true, OutT><<<grid, 256, 0, s>>>(
-        A, B, d, c, m, n, k, lda, ldb, ldd, act, out_scale, ws);
-  else
-    gemm_f32_kernel<false, OutT><<<grid, 256, 0, s>>>(
-        A, B, d, c, m, n, k, lda, ldb, ldd, act, out_scale, ws);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(sgemm::launch<OutT>(
+      static_cast<const float*>(a), static_cast<const float*>(b), d, c, m, n,
+      k, lda, ldb, b_trans, ldd, act, out_scale, ws, workspace, s));
 }
 
 template <typename AccT, typename OutT>
@@ -182,8 +104,8 @@ int launch_epilogue(const void* acc, void* c, long long count, int shift,
 // a: (M, K) with row stride lda; b: (K, N) read as b[k * ldb + n], or as
 // b[n * ldb + k] when b_trans; d: fp32 bias, row stride ldd (0 broadcasts
 // one row), or null; c: contiguous (M, N) output; ws: weight-major order;
-// workspace: bf16 inputs whose plan splits K, gemm_plan's plan[9] 4-byte
-// words owned by the stream (tickets zeroed when it was made), else null.
+// workspace: inputs whose plan splits K, gemm_plan's plan[9] 4-byte words
+// owned by the stream (tickets zeroed when it was made), else null.
 extern "C" int gemm_launch(const void* a, const void* b, const void* d, void* c,
                            int m, int n, int k, long long lda, long long ldb,
                            int b_trans, long long ldd, int in_dtype,
@@ -200,14 +122,23 @@ extern "C" int gemm_launch(const void* a, const void* b, const void* d, void* c,
                              workspace, s);
 }
 
-// The bf16 kernel's plan for an (M, N, K) call on the current device, B
-// row-major (b_trans 0) or read as a transpose (1); launches nothing.
-// plan: [0] regime (0 skinny, 1 wide), [1] block rows, [2] block columns,
-// [3] k per stage, [4] K splits, [5] blocks, [6] threads per block, [7]
-// ring stages, [8] shared memory bytes, [9] workspace 4-byte words (0 for
-// one split).
-extern "C" int gemm_plan(int m, int n, int k, int b_trans, long long* plan) {
+// The float kernel's plan for an (M, N, K) call with bf16 (in_dtype 1) or
+// fp32 (0) inputs on the current device, B row-major (b_trans 0) or read
+// as a transpose (1); launches nothing. plan: [0] regime (0 skinny, 1
+// wide, 2 fp32 CUDA cores), [1] block rows, [2] block columns, [3] k per
+// stage, [4] K splits, [5] blocks, [6] threads per block, [7] ring stages,
+// [8] shared memory bytes, [9] workspace 4-byte words (0 for one split).
+extern "C" int gemm_plan(int m, int n, int k, int b_trans, int in_dtype,
+                         long long* plan) {
   if (m < 0 || n < 0 || k < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (in_dtype == DT_F32) {
+    const sgemm::Plan p = sgemm::plan(m, n, k, b_trans, hgemm::sm_count());
+    const long long out[10] = {2,        p.bm,     p.bn,      p.bk,
+                               p.splits, p.blocks, p.threads, p.stages,
+                               p.smem,   p.ws_words};
+    for (int i = 0; i < 10; ++i) plan[i] = out[i];
+    return 0;
+  }
   const hgemm::Plan p = hgemm::plan(m, n, k, b_trans, hgemm::sm_count());
   const long long out[10] = {p.wide,   p.bm,     p.bn,      p.bk,
                              p.splits, p.blocks, p.threads, p.stages,

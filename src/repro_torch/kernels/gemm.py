@@ -16,8 +16,10 @@ ragged edges themselves, so operands are never padded to a tile plan
 
 bf16 inputs run one of two kernels by the shape alone (:func:`gemm_plan`):
 split-K ``mma.sync`` for M <= 16 (decode) and ``wgmma`` for wider M
-(prefill), both one launch per call. Where the plan splits K, the call
-uses its stream's workspace (:func:`_workspace`), made once per stream.
+(prefill); fp32 inputs run the CUDA-core kernel (IEEE FMAs, register
+micro-tiles, split K where the tiles leave SMs idle). Each is one launch
+per call. Where the plan splits K, the call uses its stream's workspace
+(:func:`_workspace`), made once per stream.
 
 Launch counts, one per kernel of the ``kernels`` report:
 ``gemm.launches`` the float kernel in OS order (the serving path's),
@@ -60,38 +62,42 @@ def _b_layout(b: torch.Tensor):
     return b, 0, b.stride(0)
 
 
-_PLAN_KEYS = ("wide", "bm", "bn", "bk", "splits", "blocks", "threads",
+_PLAN_KEYS = ("regime", "bm", "bn", "bk", "splits", "blocks", "threads",
               "stages", "smem", "workspace_words")
-_PLANS: Dict[Tuple[int, int, int, bool, int], dict] = {}
+_REGIMES = ("skinny", "wide", "fp32")
+_PLANS: Dict[Tuple[int, int, int, bool, int, torch.dtype], dict] = {}
 _WORKSPACE: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def gemm_plan(m: int, n: int, k: int, b_trans: bool = False,
-              device=None) -> dict:
-    """The bf16 kernel's plan for an (M, N, K) call on a card, B row-major
-    or (``b_trans``) read as the transpose of a row-major (N, K) buffer:
-    ``regime`` ("skinny": split-K ``mma.sync`` for M <= 16; "wide":
-    ``wgmma``), ``tile`` (rows, columns, k per stage), ``splits`` of K,
-    ``grid`` (blocks), ``threads`` per block, ``stages`` of the load ring
-    (skinny: 1, loads go straight to registers), ``smem`` bytes and
-    ``workspace_bytes`` (tickets and partials, 0 for one split). It
-    depends on the shape, B's layout and the card's SM count only, so OS
-    and WS take the same plan."""
+              device=None, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The float kernel's plan for an (M, N, K) call on a card with
+    ``dtype`` inputs (bf16 or fp32), B row-major or (``b_trans``) read as
+    the transpose of a row-major (N, K) buffer: ``regime`` (bf16:
+    "skinny", split-K ``mma.sync`` for M <= 16, or "wide", ``wgmma``;
+    "fp32": CUDA-core FMAs), ``tile`` (rows, columns, k per stage),
+    ``splits`` of K, ``grid`` (blocks), ``threads`` per block, ``stages``
+    of the load ring (skinny: 1, loads go straight to registers), ``smem``
+    bytes and ``workspace_bytes`` (tickets and partials, 0 for one split).
+    It depends on the shape, B's layout and the card's SM count only, so
+    OS and WS take the same plan."""
+    if dtype not in _DT:
+        raise NotImplementedError(f"gemm_plan: no float kernel for {dtype}")
     if device is None:
         index = torch.cuda.current_device()
     else:
         index = torch.device(device).index
         index = torch.cuda.current_device() if index is None else index
-    key = (m, n, k, bool(b_trans), index)
+    key = (m, n, k, bool(b_trans), index, dtype)
     plan = _PLANS.get(key)
     if plan is None:
         out = (ctypes.c_longlong * len(_PLAN_KEYS))()
-        fn = _build.bind("gemm", "gemm_plan", [_I, _I, _I, _I, _P])
+        fn = _build.bind("gemm", "gemm_plan", [_I, _I, _I, _I, _I, _P])
         with torch.cuda.device(index):
-            _build.check(fn(m, n, k, int(bool(b_trans)),
+            _build.check(fn(m, n, k, int(bool(b_trans)), _DT[dtype],
                             ctypes.addressof(out)), "gemm_plan")
         raw = dict(zip(_PLAN_KEYS, out))
-        plan = {"regime": "wide" if raw["wide"] else "skinny",
+        plan = {"regime": _REGIMES[raw["regime"]],
                 "tile": (raw["bm"], raw["bn"], raw["bk"]),
                 "splits": raw["splits"], "grid": raw["blocks"],
                 "threads": raw["threads"], "stages": raw["stages"],
@@ -176,12 +182,11 @@ def _gemm(a: torch.Tensor, b: torch.Tensor, d: Optional[torch.Tensor], *,
                  _ACT[activation], shift, int(ws), stream)
     else:
         wsp = None
-        if a.dtype == torch.bfloat16:
-            plan = _PLANS.get((m, n, k, bool(trans), a.device.index)) or \
-                gemm_plan(m, n, k, trans, a.device)
-            need = plan["workspace_bytes"]
-            if need:
-                wsp = _workspace(a.device, stream, need).data_ptr()
+        plan = _PLANS.get((m, n, k, bool(trans), a.device.index, a.dtype)) \
+            or gemm_plan(m, n, k, trans, a.device, a.dtype)
+        need = plan["workspace_bytes"]
+        if need:
+            wsp = _workspace(a.device, stream, need).data_ptr()
         fn = _build.bind("gemm", "gemm_launch", _FLOAT_ARGS)
         err = fn(a.data_ptr(), b.data_ptr(), dptr, c.data_ptr(), m, n, k,
                  a.stride(0), ldb, trans, ldd, _DT[a.dtype], _DT[out_dtype],

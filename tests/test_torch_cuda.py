@@ -767,3 +767,237 @@ def test_decode_split_on_concurrent_streams(card, dtype):
     for got, want in zip(gots, wants):
         for g in got:
             _close(g, want, dtype)
+
+
+# ---------------------------------------------------------------------------
+# bf16 paged prefill: the tensor-core flash kernel through the block table
+# ---------------------------------------------------------------------------
+def _paged_prefill_inputs(card, page, start, t, h, kvh, d, seed):
+    """q, pools and the request's table for a chunk at [start, start + t).
+    The live rows (positions below start + t) sit on random pages; every
+    other pool row holds NaN -- the rows of the last page past the chunk,
+    every page the request does not own -- and the table's last entry,
+    past the frontier, points at an all-NaN page."""
+    rng = np.random.default_rng(seed)
+    live = start + t
+    n_live = -(-live // page)
+    n_pool = n_live + 3
+    pk = np.full((kvh, n_pool, page, d), np.nan, np.float32)
+    pv = np.full((kvh, n_pool, page, d), np.nan, np.float32)
+    order = rng.permutation(n_pool)
+    table = np.empty(n_live + 1, np.int32)
+    table[:n_live] = order[:n_live]
+    table[n_live] = order[n_live]
+    for j in range(n_live):
+        rows = min(page, live - j * page)
+        pk[:, table[j], :rows] = rng.standard_normal((kvh, rows, d))
+        pv[:, table[j], :rows] = rng.standard_normal((kvh, rows, d))
+    return (_bf16(rng, (1, t, h, d), card),
+            torch.from_numpy(pk).to(card, torch.bfloat16),
+            torch.from_numpy(pv).to(card, torch.bfloat16),
+            torch.from_numpy(table).to(card))
+
+
+@pytest.mark.parametrize("page", [16, 64])
+@pytest.mark.parametrize("start,t", [(0, 1), (0, 50), (0, 256), (40, 1),
+                                     (40, 50), (40, 256), (768, 1),
+                                     (768, 50), (768, 256)])
+def test_paged_prefill_bf16_matches_plain(card, page, start, t):
+    """gemma3-1b's MQA 4 / 1 at head dim 256: start 0, mid-page (40) and
+    768, T of 1, 50 and 256, pages smaller and larger than a key tile; no
+    NaN of a dead pool row reaches the output; one launch per call."""
+    q, kp, vp, table = _paged_prefill_inputs(card, page, start, t, 4, 1, 256,
+                                             start * 7 + t + page)
+    n0 = tak.paged_prefill_attention.launches
+    got = tak.paged_prefill_attention(q, kp, vp, table, start)
+    assert tak.paged_prefill_attention.launches == n0 + 1
+    _close(got, tak.paged_prefill_attention_plain(q, kp, vp, table, start),
+           torch.bfloat16)
+
+
+@pytest.mark.parametrize("page,start,t,h,kvh,d,window,softcap", [
+    (16, 40, 50, 4, 1, 256, 24, None),       # window starts mid-page
+    (64, 768, 256, 4, 1, 256, 512, None),    # gemma3-1b's local layers
+    (16, 768, 256, 4, 1, 256, 100, 50.0),    # window and softcap
+    (64, 768, 256, 25, 5, 64, 1024, None),   # hymba-1.5b's GQA 25 / 5
+    (16, 37, 60, 25, 5, 64, 20, 30.0),       # the same, page 16
+    (16, 40, 50, 4, 2, 16, 24, 30.0),        # head dim 16
+    (64, 100, 77, 6, 3, 32, None, None),     # head dim 32
+    (16, 13, 45, 8, 2, 64, None, 50.0),      # head dim 64, softcap
+    (64, 200, 70, 2, 2, 128, 16, None),      # head dim 128, MHA
+])
+def test_paged_prefill_bf16_options(card, page, start, t, h, kvh, d, window,
+                                    softcap):
+    q, kp, vp, table = _paged_prefill_inputs(card, page, start, t, h, kvh, d,
+                                             start + t + d)
+    kw = dict(window=window, softcap=softcap)
+    got = tak.paged_prefill_attention(q, kp, vp, table, start, **kw)
+    _close(got, tak.paged_prefill_attention_plain(q, kp, vp, table, start,
+                                                  **kw), torch.bfloat16)
+
+
+def test_paged_prefill_bf16_rerun_is_bit_identical(card):
+    """A gemma3-1b continuation chunk (T=256 at 768, page 64): the merge
+    order is fixed, so two runs agree bit for bit, and equal the dense
+    flash kernel on the same keys gathered beforehand."""
+    q, kp, vp, table = _paged_prefill_inputs(card, 64, 768, 256, 4, 1, 256,
+                                             3)
+    first = tak.paged_prefill_attention(q, kp, vp, table, 768)
+    assert torch.equal(first, tak.paged_prefill_attention(q, kp, vp, table,
+                                                          768))
+    k, v = (tak._gather(x, table[None])[:, :1024].contiguous()
+            for x in (kp, vp))
+    assert torch.equal(first, tak.flash_attention(q, k, v))
+
+
+# ---------------------------------------------------------------------------
+# the fp32 GEMM (CUDA-core FMAs): ragged shapes, both B layouts, every
+# option, every split count
+# ---------------------------------------------------------------------------
+def _f32_operands(g, m, n, k, trans_b):
+    a = torch.randn((m, k), generator=g, device=g.device)
+    bt = torch.randn((n, k), generator=g, device=g.device) * k ** -0.5
+    return a, (bt.T if trans_b else bt.T.contiguous())
+
+
+@pytest.mark.parametrize("k", [1, 300, 1151])
+@pytest.mark.parametrize("n", [77, 128, 1000])
+@pytest.mark.parametrize("m", [1, 4, 17, 64, 65, 129, 256, 1000])
+def test_fp32_gemm_ragged_shapes(card, m, n, k):
+    """Ragged M, N and K (K = 1151: rows not 16-byte aligned, 4-byte
+    copies), B row-major and as the transpose of a row-major (N, K) buffer:
+    one launch per call, IEEE fp32 within the sum-order tolerance."""
+    g = torch.Generator(device=card).manual_seed(m * 7 + n * 3 + k)
+    kw = dict(acc_dtype=torch.float32, out_dtype=torch.float32)
+    for trans_b in (False, True):
+        a, b = _f32_operands(g, m, n, k, trans_b)
+        n0 = tgemm.gemm.launches
+        got = tgemm.gemm(a, b, **kw)
+        assert tgemm.gemm.launches == n0 + 1
+        _close(got, gemm_ref(a, b, None, **kw), torch.float32)
+
+
+@pytest.mark.parametrize("which", ["a", "b", "both"])
+def test_fp32_gemm_misaligned_operands(card, which):
+    """Operands 4 bytes past a 16-byte boundary: 4-byte copies, same
+    result."""
+    m, n, k = 70, 130, 300
+    g = torch.Generator(device=card).manual_seed(len(which))
+    kw = dict(acc_dtype=torch.float32, out_dtype=torch.float32)
+    a, b = _f32_operands(g, m, n, k, False)
+    if which in ("a", "both"):
+        flat = torch.empty(m * k + 1, device=card)
+        flat[1:] = a.reshape(-1)
+        a = flat[1:].view(m, k)
+        assert a.data_ptr() % 16 == 4
+    if which in ("b", "both"):
+        flat = torch.empty(n * k + 1, device=card)
+        flat[1:] = b.T.reshape(-1)
+        b = flat[1:].view(n, k).T
+        assert b.data_ptr() % 16 == 4
+    _close(tgemm.gemm(a, b, **kw), gemm_ref(a, b, None, **kw), torch.float32)
+
+
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bias", [None, "row", "full"])
+@pytest.mark.parametrize("act,shift", [("NONE", 0), ("RELU", 0),
+                                       ("RELU6", 2), ("GELU", 0),
+                                       ("SILU", 1)])
+def test_fp32_gemm_epilogue_options(card, act, shift, bias, out):
+    """Bias as one row or a full (M, N) matrix, every activation, a shift,
+    bf16 and fp32 outputs, both B layouts, with and without K splits."""
+    g = torch.Generator(device=card).manual_seed(len(act) + shift)
+    for m, n, k in ((4, 200, 1152), (100, 300, 700)):
+        d = {None: None,
+             "row": torch.randn((n,), generator=g, device=card),
+             "full": torch.randn((m, n), generator=g, device=card)}[bias]
+        kw = dict(acc_dtype=torch.float32, out_dtype=out, shift=shift,
+                  activation=Activation[act])
+        for trans_b in (False, True):
+            a, b = _f32_operands(g, m, n, k, trans_b)
+            got = tgemm.gemm(a, b, d, **kw)
+            assert got.dtype == out
+            _close(got, gemm_ref(a, b, d, **kw), out)
+
+
+@pytest.mark.parametrize("splits", range(1, 17))
+def test_fp32_gemm_every_split_count(card, splits):
+    """Every split count the plan can choose (one 64 x 128 tile, ragged K)
+    covers K exactly once: with small integers the fp32 sum is exact, so
+    the kernel equals the plain version bit for bit; every ticket is back
+    at 0 afterwards."""
+    m, n, k = 64, 128, 64 * splits - 3
+    plan = tgemm.gemm_plan(m, n, k, dtype=torch.float32)
+    assert plan["regime"] == "fp32" and plan["splits"] == splits
+    g = torch.Generator(device=card).manual_seed(splits)
+    a = torch.randint(-3, 4, (m, k), generator=g, device=card).float()
+    b = torch.randint(-3, 4, (k, n), generator=g, device=card).float()
+    kw = dict(acc_dtype=torch.float32, out_dtype=torch.float32)
+    got = tgemm.gemm(a, b, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gemm_ref(a, b, None, **kw))
+    if splits > 1:
+        ws = tgemm._WORKSPACE[(card.index or 0,
+                               torch.cuda.current_stream(card).cuda_stream)]
+        assert int(ws[:1024].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("m,n,k,trans_b", [
+    (4, 1024, 1152, False),      # decode rows, K split 16 ways
+    (64, 1024, 1152, False),     # wq at a 64-token prompt, K split
+    (256, 8512, 2048, False),    # mamba2-1.3b's in_proj, one split
+    (256, 2048, 4096, True),     # K split, B = table.T
+    (256, 33000, 40, True),      # 128 x 128 tiles, B = table.T
+])
+def test_fp32_gemm_ws_equals_os_and_reruns(card, m, n, k, trans_b):
+    """The plan depends on the shape alone and the partials merge in split
+    order: WS equals OS and a rerun equals the first run, bit for bit."""
+    g = torch.Generator(device=card).manual_seed(m + n)
+    a, b = _f32_operands(g, m, n, k, trans_b)
+    kw = dict(acc_dtype=torch.float32, out_dtype=torch.float32)
+    got = tgemm.gemm_os(a, b, **kw)
+    _close(got, gemm_ref(a, b, None, **kw), torch.float32)
+    assert torch.equal(got, tgemm.gemm_ws(a, b, **kw))
+    assert torch.equal(got, tgemm.gemm_os(a, b, **kw))
+
+
+def test_fp32_gemm_plan_tiles(card):
+    """128-row tiles unless 64-row ones pad M less; K splits where the
+    tiles alone leave SMs idle or end in a thin last wave, never more
+    blocks than two waves' worth where tiles are few."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    p = tgemm.gemm_plan(64, 1024, 1152, dtype=torch.float32)
+    assert p["regime"] == "fp32" and p["tile"] == (64, 128, 16)
+    assert p["threads"] == 128 and 1 < p["splits"] <= 16
+    assert p["grid"] == 8 * p["splits"] <= 2 * sms
+    assert p["workspace_bytes"] > 0
+    p = tgemm.gemm_plan(130, 1024, 1152, dtype=torch.float32)
+    assert p["tile"][0] == 64                  # 192 rows, not 256
+    p = tgemm.gemm_plan(256, 6912, 1152, dtype=torch.float32)
+    assert p["tile"][0] == 128 and p["threads"] == 256
+    p = tgemm.gemm_plan(256, 33000, 40, True, dtype=torch.float32)
+    assert p["tile"][0] == 128 and p["splits"] == 1
+    assert p["workspace_bytes"] == 0
+
+
+@pytest.mark.parametrize("m,n,k", [(4, 1152, 6912), (64, 1024, 1152)])
+def test_fp32_gemm_split_on_concurrent_streams(card, m, n, k):
+    """Calls that split K, on two streams at once: each stream has its own
+    workspace and tickets, so every result equals the single-stream one
+    bit for bit."""
+    assert tgemm.gemm_plan(m, n, k, dtype=torch.float32)["splits"] > 1
+    g = torch.Generator(device=card).manual_seed(k)
+    kw = dict(acc_dtype=torch.float32, out_dtype=torch.float32)
+    inputs = [_f32_operands(g, m, n, k, False) for _ in range(2)]
+    wants = [tgemm.gemm(a, b, **kw) for a, b in inputs]
+    streams = [torch.cuda.Stream(card) for _ in inputs]
+    torch.cuda.synchronize()
+    gots = [[], []]
+    for _ in range(8):
+        for i, (st, (a, b)) in enumerate(zip(streams, inputs)):
+            with torch.cuda.stream(st):
+                gots[i].append(tgemm.gemm(a, b, **kw))
+    torch.cuda.synchronize()
+    for got, want in zip(gots, wants):
+        for x in got:
+            assert torch.equal(x, want)

@@ -285,6 +285,41 @@ def test_paged_prefill_matches_jax(start, window, softcap):
                                    atol=ATTN_TOL)
 
 
+@pytest.mark.parametrize("h,kvh,start,t,window,softcap", [
+    (5, 1, 24, 21, None, None),      # start mid-page, T not a multiple of 16
+    (10, 2, 40, 50, 20, None),       # a window that crosses pages
+    (5, 1, 0, 1, None, 30.0),        # one token, softcap
+    (5, 1, 7, 33, 12, 30.0),         # window and softcap, start mid-page
+])
+def test_paged_prefill_matches_jax_at_card_shapes(h, kvh, start, t, window,
+                                                  softcap):
+    """The shapes the card tests hold the bf16 kernel at, against the
+    interpret kernel and the XLA twin: page 16, an H / KVH ratio of 5,
+    ``start`` mid-page, ragged T, windows that start mid-page; unowned
+    pages hold NaN, the table's tail past the frontier points at an owned
+    page."""
+    rng = np.random.default_rng(start * 100 + t)
+    d, page = 16, 16
+    kv_pages = -(-(start + t) // page) + 1
+    pk, pv, tables = _paged_case(rng, 1, h, kvh, d, page, kv_pages + 1, 24,
+                                 np.array([start + t], np.int32))
+    tables[0, -(-(start + t) // page):] = tables[0, 0]
+    table = tables[0]
+    q = rng.standard_normal((1, t, h, d)).astype(np.float32)
+    kw = dict(window=window, softcap=softcap, kv_pages=kv_pages)
+    jargs = (jnp.asarray(q), jnp.asarray(pk), jnp.asarray(pv),
+             jnp.asarray(table), jnp.int32(start))
+    want_kernel = JContext(backend="interpret").paged_prefill_attention(
+        *jargs, **kw)
+    want_xla = JContext(backend="xla").paged_prefill_attention(*jargs, **kw)
+    got = ExecutionContext().paged_prefill_attention(
+        _t(q), _t(pk), _t(pv), _t(table), start, **kw)
+    assert np.isfinite(_np(got)).all()
+    for want in (want_kernel, want_xla):
+        np.testing.assert_allclose(_np(got), _np(want), rtol=ATTN_TOL,
+                                   atol=ATTN_TOL)
+
+
 # ---------------------------------------------------------------------------
 # dispatch by device
 # ---------------------------------------------------------------------------
