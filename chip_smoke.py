@@ -13,8 +13,11 @@ Needs one CUDA card, ``nvcc`` and the repository checkout around this file
    the card, at the shapes the serving path gives it plus one shape per
    attention kernel that turns every option on (head_dim 128, KVH > 1,
    softcap, sliding window), and at the engine path's shapes (the
-   quickstart's int8 GEMM, ResNet-50's classifier and conv layers, the
-   mvout epilogue), where the int8 kernels must be bit-exact. Times are
+   quickstart's int8 GEMM and every distinct layer of ResNet-50's stream
+   as a GEMM on both dataflows, each with its ``gemm_s8_plan`` and
+   ``torch._int_mm`` beside it where that call takes the shape; the conv
+   kernel at every distinct conv of the stream; the mvout epilogue),
+   where the int8 kernels must be bit-exact. Times are
    CUDA-event medians with the L2 cache flushed before each launch;
    bounds use 3.35 TB/s and 989 TFLOP/s (bf16 tensor rate; 67 TFLOP/s for
    fp32 inputs, 1979 TOP/s for int8);
@@ -33,9 +36,10 @@ Needs one CUDA card, ``nvcc`` and the repository checkout around this file
    (int32 GEMM, then ``accumulator_epilogue``); and ResNet-50's 50-layer
    stream from ``dse.resnet(50)`` at batch 1 (int8 convs from a seed, the
    classifier as a GEMM) three ways: host im2col + OS GEMM, host im2col +
-   WS GEMM, and the fused conv kernel. Every output equals the plain
-   version bit for bit and OS equals WS; launch counts are zeroed just
-   before and read just after, and every engine kernel must have run;
+   WS GEMM, and the fused conv kernel, with each route's device time
+   whole and per stage. Every output equals the plain version bit for
+   bit and OS equals WS; launch counts are zeroed just before and read
+   just after, and every engine kernel must have run;
 7. recurrent serve: mamba2-1.3b at its published widths (48 layers,
    d_model 2048, d_state 128; bf16, weights from seed 0) on phase 4's
    traffic; the chunked SSD must launch once per layer for every prefill
@@ -66,7 +70,9 @@ shape, and in fp32 at phase 9's (each attention arch's longest request,
 its windows and softcap), flash attention at hymba-1.5b's first chunk and
 in fp32 at phase 9's prompts (the CUDA-core kernel that the fp32 gate
 runs), paged prefill at hymba-1.5b's continuation chunk (T=256 at 768,
-GQA 25 / 5, window 1024), and logs each redesigned kernel's grid and
+GQA 25 / 5, window 1024) and in fp32 at the gate's last chunks, the
+fp32 SSD at phases 7-8's fp32 prompt (y and final state against the
+fp64 recurrence), and logs each redesigned kernel's grid and
 ``ptxas`` registers and spills; each bf16 paged prefill row also times the
 dense flash kernel on the same keys gathered beforehand (what the block
 table costs); dense decode's yardsticks are SDPA over the whole cache
@@ -440,33 +446,35 @@ def kernel_cases(torch, rng_seed=0):
                 randn(kvh, n_pages + 1, page, dh))
 
     def prefill_case(t, start, h, kvh, dh, page, n_pages, kv_pages, window,
-                     softcap, rep):
-        kp, vp = pools(kvh, n_pages, page, dh)
+                     softcap, rep, dtype=bf16):
+        kp, vp = (x.to(dtype) for x in pools(kvh, n_pages, page, dh))
         perm = torch.randperm(n_pages, generator=gen, device="cuda")
         table = perm[:kv_pages].to(torch.int32)
-        q = randn(1, t, h, dh)
+        q = randn(1, t, h, dh, dtype=dtype)
         kw = dict(window=window, softcap=softcap)
         pairs = sum(min(start + i + 1, window or 1 << 30) for i in range(t))
         live = start + t if window is None else min(start + t,
                                                     window - 1 + t)
-        nbytes = 2 * (2 * t * h * dh + 2 * live * kvh * dh) + 4 * kv_pages
-        cl, blocks = flash_grid(t, start + t, h, dh, window)
+        kind = "fp32" if dtype == f32 else "bf16"
+        nbytes = q.element_size() * (2 * t * h * dh + 2 * live * kvh * dh) \
+            + 4 * kv_pages
         # the dense flash kernel on the same keys gathered beforehand: what
         # reading them through the block table costs (not a library call)
         kg_, vg_ = (ka._gather(x, table[None])[:, :start + t].contiguous()
                     for x in (kp, vp))
+        opts = dict(dense=lambda: ka.flash_attention(q, kg_, vg_, **kw))
+        if dtype == bf16:
+            cl, blocks = flash_grid(t, start + t, h, dh, window)
+            opts["grid"] = f"{blocks} blocks, clusters of {cl}"
         cases.append(("paged_prefill_attention",
-                      f"T={t} start={start} H={h} KVH={kvh} D={dh} "
-                      f"kv_pages={kv_pages} window={window} softcap={softcap}",
-                      rep, "bf16",
+                      f"{'fp32 ' if dtype == f32 else ''}T={t} start={start} "
+                      f"H={h} KVH={kvh} D={dh} kv_pages={kv_pages} "
+                      f"window={window} softcap={softcap}", rep, kind,
                       lambda: ka.paged_prefill_attention(q, kp, vp, table,
                                                          start, **kw),
                       lambda: ka.paged_prefill_attention_plain(
                           q, kp, vp, table, start, **kw), None,
-                      nbytes, 4.0 * dh * h * pairs,
-                      dict(grid=f"{blocks} blocks, clusters of {cl}",
-                           dense=lambda: ka.flash_attention(q, kg_, vg_,
-                                                            **kw))))
+                      nbytes, 4.0 * dh * h * pairs, opts))
     for start in (256, 512, 768):
         prefill_case(256, start, nh, nkv, hd, 64, 128, 16, None, None,
                      start == 768)
@@ -478,6 +486,20 @@ def kernel_cases(torch, rng_seed=0):
     # 768, GQA 25 / 5, head dim 64, its 1024-token window
     prefill_case(256, 768, hy.n_heads, hy.n_kv_heads, hy.head_dim, 64, 128,
                  16, hy.local_window, None, False)
+    # phase 9's gate in fp32 (the CUDA-core kernel): each attention arch's
+    # last continuation chunk of its longest prompt, as the gate's engine
+    # runs it (page 16, 24 pages, chunks of sd.PREFILL_CHUNK)
+    for arch in sd.ARCHS:
+        sc = configs.get_smoke(arch)
+        if not sc.has_attn:
+            continue
+        t = sd.PREFILL_CHUNK
+        start = max(sd.PROMPT_LENS) + sc.n_meta_tokens - t
+        for window in (None, sc.local_window) if sc.local_window \
+                else (None,):
+            prefill_case(t, start, sc.n_heads, sc.n_kv_heads, sc.head_dim, 16,
+                         24, -(-(start + t) // 16), window, sc.attn_softcap,
+                         False, dtype=f32)
 
     def decode_case(lengths, h, kvh, dh, page, n_pages, mp, window, softcap,
                     rep):
@@ -621,6 +643,48 @@ def recurrent_cases(torch, gen, cases):
     ssd_case("hymba-1.5b", 1000, True, False)
     ssd_case("mamba2-1.3b", 7, False, False)
 
+    def ssd32_case(arch, t):
+        """The fp32 CUDA-core kernel at the shape of phases 7-8's fp32
+        logits (one fresh 256-token prompt): y and the final state held
+        against the fp64 recurrence within ``fp32_tolerance``."""
+        cfg = configs.get(arch)
+        h, p, g, n = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups, \
+            cfg.d_state
+        chunk = cfg.ssm_chunk
+        x = randn(1, t, h, p, dtype=f32)
+        b = randn(1, t, g, n, dtype=f32, scale=0.3)
+        c = randn(1, t, g, n, dtype=f32, scale=0.3)
+        dt = torch.nn.functional.softplus(randn(1, t, h, dtype=f32))
+        a_log = torch.log(torch.linspace(1.0, 16.0, h, device="cuda"))
+        d_skip = torch.ones((h,), dtype=f32, device="cuda")
+        kw = dict(d_skip=d_skip, chunk=chunk, return_final_state=True)
+        name = f"ssd [fp32 {arch} T={t}]"
+
+        def check(got, want):
+            exact_y, exact = ssd_fp64(x, dt, a_log, b, c, d_skip=d_skip)
+            tol = fp32_tolerance(dt, a_log, chunk)
+            worst = 0.0
+            for what, v, e in (("y", got[0], exact_y), ("state", got[1],
+                                                        exact)):
+                err = (v.double() - e).abs().max().item()
+                if not torch.isfinite(v).all() or \
+                        err > tol * e.abs().max().item():
+                    fail(f"{name}: {what} err {err:.3e} > {tol:.2e} x "
+                         f"{e.abs().max().item():.3e}")
+                worst = max(worst, err)
+            return worst
+
+        nbytes = (4 * 2 * t * h * p + 4 * 2 * t * g * n + 4 * t * h + 8 * h
+                  + 4 * h * n * p)
+        flops = ssd_flops(t, h, p, g, n, chunk, False)
+        cases.append(("ssd", f"fp32 {arch} B=1 T={t} H={h} P={p} G={g} N={n} "
+                      f"chunk={chunk} fresh", False, "fp32",
+                      lambda: km.ssd(x, dt, a_log, b, c, **kw),
+                      lambda: km.ssd_plain(x, dt, a_log, b, c, **kw), None,
+                      nbytes, flops, dict(check=check)))
+    ssd32_case("mamba2-1.3b", 256)
+    ssd32_case("hymba-1.5b", 256)
+
     def decode_case(b, s, h, kvh, dh, pos, window, softcap, rep,
                     dtype=bf16):
         q = randn(b, 1, h, dh, dtype=dtype)
@@ -697,11 +761,51 @@ def recurrent_cases(torch, gen, cases):
                         dtype=f32)
 
 
+def resnet50_shapes():
+    """dse.resnet(50)'s distinct layers at batch 1, as phase 6 runs them:
+    (label, GEMM (M, N, K), conv (H, CI, CO, KH, stride, pad), count)."""
+    import math
+
+    from repro_torch.core import dse
+
+    out = {}
+    for g in dse.resnet(50).gemms:
+        if g.m == 1:
+            label, conv = "classifier", (1, g.k, g.n, 1, 1, 0)
+        elif g.k == 7 * 7 * 3:
+            label, conv = "conv1 7x7/2", (224, 3, g.n, 7, 2, 3)
+        else:
+            h = math.isqrt(g.m)
+            stage = {56: 1, 28: 2, 14: 3, 7: 4}[h]
+            if g.k % 9 == 0:
+                label, conv = f"stage-{stage} 3x3", (h, g.k // 9, g.n, 3, 1, 1)
+            else:
+                label, conv = f"stage-{stage} 1x1", (h, g.k, g.n, 1, 1, 0)
+        key = (g.m, g.n, g.k)
+        if key in out:
+            out[key][3] += 1
+        else:
+            out[key] = [label, key, conv, 1]
+    return [tuple(v) for v in out.values()]
+
+
+def s8_plan_text(kg, m, n, k):
+    """The int8 kernel's plan for a shape (both dataflows take it), as
+    phase 3 logs it."""
+    p = kg.gemm_s8_plan(m, n, k)
+    bm, bn, bk = p["tile"]
+    return (f"{p['regime']} {bm}x{bn}x{bk}, {p['splits']} K splits, "
+            f"{p['grid']} blocks x {p['threads']}, {p['stages']} stages, "
+            f"{p['smem']} B shared, workspace {p['workspace_bytes']} B")
+
+
 def engine_cases(torch, gen, cases):
     """The engine path's int8 kernels at its shapes: the quickstart GEMM
-    (bias, shift 7, ReLU), ResNet-50's classifier and a ragged GEMM on
-    both dataflows; the mvout epilogue; ResNet-50's stage-1 3x3 conv and
-    its stem conv."""
+    (bias, shift 7, ReLU), every distinct layer of ResNet-50's stream as a
+    GEMM (classifier included) and a ragged GEMM, each on both dataflows
+    with its plan (``gemm_s8_plan``) and ``torch._int_mm`` beside it where
+    that call takes the shape; the mvout epilogue; the conv kernel at
+    every distinct conv of the stream (stem, 1x1 and 3x3 per stage)."""
     from repro_torch.core.config import Activation
     from repro_torch.kernels import conv as kc
     from repro_torch.kernels import epilogue as epi
@@ -715,9 +819,11 @@ def engine_cases(torch, gen, cases):
                              dtype=dtype)
 
     relu = Activation.RELU
-    for label, m, n, k, rep in (("quickstart", 1000, 512, 2048, True),
-                                ("classifier", 1, 1000, 2048, False),
-                                ("ragged", 37, 77, 147, False)):
+    shapes = resnet50_shapes()
+    gemms = [("quickstart", 1000, 512, 2048, True)] + \
+        [(f"resnet50 {label}", *mnk, False) for label, mnk, _, _ in shapes] + \
+        [("ragged", 37, 77, 147, False)]
+    for label, m, n, k, rep in gemms:
         a, b = rint(-128, 128, m, k), rint(-128, 128, k, n)
         bias = rint(-1000, 1000, 1, n, dtype=i32)
         kw = dict(acc_dtype=i32, out_dtype=i8, shift=7, activation=relu)
@@ -731,13 +837,15 @@ def engine_cases(torch, gen, cases):
             except RuntimeError as e:
                 log(f"torch._int_mm refused M={m} N={n} K={k}: {e}")
                 lib = None
-        for kernel, fn in (("gemm[int8]", kg.gemm_os), ("gemm_ws", kg.gemm_ws)):
+        for kernel, fn in (("gemm[int8]", kg.gemm_os),
+                           ("gemm_ws", kg.gemm_ws)):
             cases.append((
                 kernel, f"{label} M={m} N={n} K={k} bias shift=7 relu", rep,
                 "int", lambda a=a, b=b, bias=bias, fn=fn, kw=kw:
                 fn(a, b, bias, **kw),
                 lambda a=a, b=b, bias=bias, kw=kw: gemm_ref(a, b, bias, **kw),
-                lib, m * k + k * n + 4 * n + m * n, 2.0 * m * n * k))
+                lib, m * k + k * n + 4 * n + m * n, 2.0 * m * n * k,
+                {"plan": s8_plan_text(kg, m, n, k)}))
 
     acc = rint(-2 ** 31, 2 ** 31 - 1, 1000, 512, dtype=i32)
     kw = dict(out_dtype=i8, shift=7, activation=relu)
@@ -754,9 +862,18 @@ def engine_cases(torch, gen, cases):
                   lambda: epi.apply(accf, **kwf), None, 8 * 3136 * 256,
                   0.0))
 
-    for label, h, ci, co, kh, stride, pad, rep in (
-            ("stage-1 3x3", 56, 64, 64, 3, 1, 1, True),
-            ("conv1 7x7/2", 224, 3, 64, 7, 2, 3, False)):
+    # PyTorch has no int8 convolution on the card: the conv rows have no
+    # library yardstick (logged once).
+    try:
+        torch.nn.functional.conv2d(rint(-4, 4, 1, 8, 8, 8),
+                                   rint(-4, 4, 8, 8, 3, 3), padding=1)
+        log("torch.nn.functional.conv2d ran on int8 CUDA tensors")
+    except RuntimeError as e:
+        log(f"torch.nn.functional.conv2d on int8 CUDA tensors raised "
+            f"RuntimeError: {str(e).splitlines()[0]}")
+    for label, mnk, (h, ci, co, kh, stride, pad), _ in shapes:
+        if label == "classifier":
+            continue
         x = rint(-64, 64, 1, h, h, ci)
         w = rint(-32, 32, kh, kh, ci, co)
         bias = rint(-500, 500, co, dtype=i32)
@@ -765,12 +882,13 @@ def engine_cases(torch, gen, cases):
                   shift=8, activation=relu)
         cases.append((
             "conv2d_implicit", f"{label} 1x{h}x{h}x{ci} -> {oh}x{oh}x{co}",
-            rep, "int",
+            label == "stage-1 3x3", "int",
             lambda x=x, w=w, bias=bias, kw=kw: kc.conv2d_implicit(x, w, bias,
                                                                   **kw),
             lambda x=x, w=w, bias=bias, kw=kw: conv2d_ref(x, w, bias, **kw),
             None, x.numel() + w.numel() + 4 * co + oh * oh * co,
-            2.0 * oh * oh * co * kh * kh * ci))
+            2.0 * oh * oh * co * kh * kh * ci,
+            {"plan": s8_plan_text(kg, *mnk)}))
 
 
 def run_kernel_phase(torch, timer):
@@ -925,7 +1043,8 @@ _KERNEL_NAMES = (("ssd_kernel", "ssd"), ("ssd_tc_kernel", "ssd"),
                  ("decode_split_kernel", "decode_attention"),
                  ("PagedKV", "paged_prefill_attention"),
                  ("flash_tc_kernel", "flash_attention"),
-                 ("ConvA", "conv2d_implicit"), ("MatrixA", "gemm[int8]"),
+                 ("ConvTapsA", "conv2d_implicit"),
+                 ("ConvRowsA", "conv2d_implicit"), ("MatrixA", "gemm[int8]"),
                  ("epilogue_kernel", "accumulator_epilogue"),
                  ("hgemm::skinny_kernel", "gemm"),
                  ("hgemm::wide_kernel", "gemm"), ("sgemm_kernel", "gemm"),
@@ -940,10 +1059,11 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
-def profile_call(torch, name, fn, n=3):
+def profile_call(torch, name, fn, n=3, quiet=False):
     """Wall time of one synchronised ``fn()`` (median of 5) against the
     device time of every kernel ``torch.profiler`` saw in it (mean of n),
-    by kernel class; "gemm[int8]" covers the int8 GEMM in either order."""
+    by kernel class; "gemm[int8]" covers the int8 GEMM in either order.
+    ``quiet``: no log line (the caller logs a summary)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -977,6 +1097,8 @@ def profile_call(torch, name, fn, n=3):
     if device == 0.0:
         log(f"profile {name}: wall {wall:.3f} ms; device time not "
             f"measured (the profiler saw no CUDA kernel)")
+        return out
+    if quiet:
         return out
     parts = ", ".join(f"{k} {v:.3f} ms x{launches[k]}" for k, v in
                       sorted(by_class.items(), key=lambda kv: -kv[1]))
@@ -1169,10 +1291,10 @@ def run_engine_phase(torch, smi):
         "fused conv kernel": dict(fused=True),
     }
 
-    def stream(route):
+    def stream(route, part=layers):
         return [inst.conv2d(x, w, b, stride=st, padding=p, shift=8,
                             activation=act, **routes[route])
-                for _, x, w, b, st, p, act in layers]
+                for _, x, w, b, st, p, act in part]
 
     outs = {}
     for route in routes:
@@ -1213,6 +1335,27 @@ def run_engine_phase(torch, smi):
     for route in routes:
         summary["routes"][route]["profile"] = profile_call(
             torch, f"resnet50 [{route}]", lambda route=route: stream(route))
+    # device time per stage (by input resolution), each route
+    stages = {}
+    for layer in layers:
+        h = layer[1].shape[1]
+        name = {224: "stem", 56: "stage 1", 28: "stage 2", 14: "stage 3",
+                7: "stage 4", 1: "classifier"}[h]
+        stages.setdefault(name, []).append(layer)
+    for route in routes:
+        per = {}
+        for name, part in stages.items():
+            prof = profile_call(torch, f"resnet50 [{route}] {name}",
+                                lambda route=route, part=part:
+                                stream(route, part), quiet=True)
+            per[name] = {k: prof[k] for k in ("device_ms",
+                                              "device_ms_by_kernel",
+                                              "launches_by_kernel")}
+            per[name]["layers"] = len(part)
+        summary["routes"][route]["stages"] = per
+        log(f"resnet50 [{route}] device ms per stage: " + ", ".join(
+            f"{n} {v['device_ms']:.4f} ({v['layers']} layers)"
+            for n, v in per.items()))
     log("engine: quickstart bit-exact on OS / WS / host conv / fused conv; "
         "header equals plan_gemm; mvout route bit-exact; resnet50 stream "
         "bit-exact on all three routes, OS == WS")
@@ -1576,7 +1719,8 @@ def main() -> int:
     # the redesigned kernels: entry, spills, registers
     for src, names in (("attention", ("flash_tc_kernel", "decode_split_kernel")),
                        ("gemm", ("skinny_kernel", "wide_kernel",
-                                 "sgemm_kernel")),
+                                 "sgemm_kernel", "igemm")),
+                       ("conv", ("igemm",)),
                        ("ssd", ("ssd_tc_kernel",))):
         lines = ptxas.get(src, [])
         for i, ln in enumerate(lines):

@@ -1,11 +1,16 @@
 """Conv2D as an implicit-im2col GEMM: the CUDA kernel (``csrc/conv.cu``)
 and its plain version.
 
-Replaces ``repro.kernels.conv.conv2d_implicit``. The patch matrix is never
-materialised: the kernel gathers each A tile from the NHWC image with the
-stride in the address and the padding as a load predicate, accumulates
-int8 products into a wrapping int32 accumulator with the bias preloaded,
-and runs the GEMM's epilogue once, after the last tap. A CUDA tensor
+Replaces ``repro.kernels.conv.conv2d_implicit``. The kernel is the int8
+GEMM's main loop (``csrc/igemm.cuh``) over the implicit GEMM (N*OH*OW,
+CO, KH*KW*CI), with its plan (:func:`repro_torch.kernels.gemm.gemm_s8_plan`):
+tiles and K splits over the taps from the shape, the splits merged
+through the stream's workspace. The patch matrix is never materialised:
+the kernel gathers each A tile from the NHWC image by ``cp.async``, the
+stride in the address and the padding as the copy's zero-fill; 1x1
+filters at stride 1 without padding read the image as a row-major
+(N*H*W, CI) matrix. Products accumulate in a wrapping int32, and the bias
+and the GEMM's epilogue run once, after the last tap. A CUDA tensor
 launches the kernel (or raises); a CPU tensor takes the plain version
 ``repro_torch.kernels.ref.conv2d_ref`` (explicit im2col + GEMM).
 ``conv2d_implicit.launches`` counts kernel launches.
@@ -24,11 +29,13 @@ import torch
 from repro_torch.core.config import Activation
 from repro_torch.kernels import _build
 from repro_torch.kernels import epilogue as epi
-from repro_torch.kernels.gemm import _ACT, _INT_OUT, _check_int_shift
+from repro_torch.kernels.gemm import (_ACT, _INT_OUT, _S8_PLANS,
+                                      _check_int_shift, _workspace,
+                                      gemm_s8_plan)
 from repro_torch.kernels.ref import conv2d_ref
 
 _I, _P = ctypes.c_int, ctypes.c_void_p
-_ARGS = [_P, _P, _P, _P] + [_I] * 14 + [_P]
+_ARGS = [_P, _P, _P, _P] + [_I] * 14 + [_P, _P]
 
 
 def out_hw(h: int, w: int, kh: int, kw: int, stride: int,
@@ -72,11 +79,17 @@ def conv2d_implicit(x: torch.Tensor, w: torch.Tensor,
     x, w = x.contiguous(), w.contiguous()
     if b is not None:
         b = b.to(torch.int32).reshape(co).contiguous()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    m, k = n * oh * ow, kh * kw * ci
+    plan = _S8_PLANS.get((m, co, k, False, x.device.index)) \
+        or gemm_s8_plan(m, co, k, device=x.device)
+    need = plan["workspace_bytes"]
+    wsp = _workspace(x.device, stream, need).data_ptr() if need else None
     fn = _build.bind("conv", "conv2d_s8_launch", _ARGS)
     err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr() if b is not None
              else None, out.data_ptr(), n, h, wd, ci, co, kh, kw, stride,
              padding, oh, ow, _INT_OUT[out_dtype], _ACT[activation], shift,
-             torch.cuda.current_stream(x.device).cuda_stream)
+             stream, wsp)
     _build.check(err, "conv2d_implicit")
     conv2d_implicit.launches += 1
     return out

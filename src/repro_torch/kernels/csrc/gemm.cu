@@ -23,18 +23,18 @@
 // header says what bounds each and what the design does about it); fp32
 // runs sgemm.cuh on CUDA-core FMAs (no TF32), so the fp32 engine config
 // stays IEEE (register micro-tiles, a cp.async ring, split K where the
-// tiles leave SMs idle); int8
-// runs on the int8 tensor cores (igemm.cuh: mma.sync s8 with a wrapping
-// int32 accumulator, the bias preloaded). Ragged M, N and K edges are
-// masked here; callers pass operands at their true size.
+// tiles leave SMs idle); int8 runs on the int8 tensor cores (igemm.cuh:
+// mma.sync s8 fed by a cp.async ring, tiles and K splits from the shape,
+// every int32 add wrapping, the tile staged through shared memory for the
+// bias and the epilogue). Ragged M, N and K edges are masked here; callers
+// pass operands at their true size.
 //
 // Dataflows: on the TPU, WS is a weight-major grid (gn, gm, gk) around a
 // VMEM accumulator, with the same numerics as OS. Here ws = 1 walks the
-// blocks weight-major (all M tiles of one N strip before the next), and
-// the int8 kernel also keeps the block's weight strip resident in shared
-// memory across its M tiles (igemm.cuh). Every block computes its tile
-// the same way in both orders (the bf16 and fp32 plans depend on the shape
-// alone), so WS equals OS bit for bit.
+// blocks weight-major (all M tiles of one N strip before the next). Every
+// block computes its tile the same way in both orders (the tiles and K
+// splits of every plan depend on the shape alone, and int sums wrap), so
+// WS equals OS bit for bit.
 //
 // accumulator_epilogue: one elementwise pass over a raw (M, N) int32 or
 // fp32 accumulator, bound by its bytes (4 in, 1..4 out per element);
@@ -42,6 +42,7 @@
 //
 // C interface: gemm_launch (bf16 / fp32 inputs), gemm_plan (the bf16 or
 // fp32 kernel's plan for a shape), gemm_s8_launch (int8 inputs),
+// gemm_s8_plan (the int8 kernel's plan, for the GEMM and the conv),
 // epilogue_launch; each launch returns cudaGetLastError().
 
 #include <cuda_runtime.h>
@@ -147,25 +148,39 @@ extern "C" int gemm_plan(int m, int n, int k, int b_trans, int in_dtype,
   return 0;
 }
 
+// The int8 kernel's plan for an (M, N, K) call on the current device, B
+// row-major (b_trans 0) or read as a transpose (1), in either order;
+// launches nothing. plan: [0] regime (0 skinny 16 x 64, 1 square 64 x 64),
+// [1] block rows, [2] block columns, [3] k per stage, [4] K splits, [5]
+// blocks, [6] threads per block, [7] ring stages, [8] shared memory bytes,
+// [9] workspace 4-byte words (0 for one split).
+extern "C" int gemm_s8_plan(int m, int n, int k, int b_trans,
+                            long long* plan) {
+  if (m < 0 || n < 0 || k < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const igemm::Plan p = igemm::plan_here(m, n, k, b_trans);
+  const long long out[10] = {p.regime, p.bm,     p.bn,      igemm::BK,
+                             p.splits, p.blocks, p.threads, p.stages,
+                             p.smem,   p.ws_words};
+  for (int i = 0; i < 10; ++i) plan[i] = out[i];
+  return 0;
+}
+
 // int8 inputs, int32 accumulator: a, b as for gemm_launch; d: int32 bias,
 // row stride ldd (0 broadcasts one row), or null; c: contiguous (M, N)
-// int32 (out_dtype 0) or int8 (1); shift in [0, 31]; ws: weight-stationary.
+// int32 (out_dtype 0) or int8 (1); shift in [0, 31]; ws: weight-stationary;
+// workspace: inputs whose plan splits K, gemm_s8_plan's plan[9] 4-byte
+// words owned by the stream (tickets zeroed when it was made), else null.
 extern "C" int gemm_s8_launch(const void* a, const void* b, const void* d,
                               void* c, int m, int n, int k, long long lda,
                               long long ldb, int b_trans, long long ldd,
                               int out_dtype, int act, int shift, int ws,
-                              void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const igemm::MatrixA al{static_cast<const int8_t*>(a), lda, k,
-                          (lda % 16 == 0) &&
-                              (reinterpret_cast<uintptr_t>(a) % 16 == 0)};
-  const int8_t* B = static_cast<const int8_t*>(b);
-  const int* D = static_cast<const int*>(d);
-  if (out_dtype == OUT_I8)
-    return igemm::launch(al, B, ldb, b_trans, D, ldd, static_cast<int8_t*>(c),
-                         m, n, k, shift, act, ws, s);
-  return igemm::launch(al, B, ldb, b_trans, D, ldd, static_cast<int*>(c), m, n,
-                       k, shift, act, ws, s);
+                              void* stream, void* workspace) {
+  const int8_t* A = static_cast<const int8_t*>(a);
+  const igemm::MatrixA al{A, lda, m, k, igemm::granule(A, lda)};
+  return static_cast<int>(igemm::launch(
+      al, static_cast<const int8_t*>(b), ldb, b_trans,
+      static_cast<const int*>(d), ldd, c, out_dtype == OUT_I8, m, n, k, shift,
+      act, ws, workspace, static_cast<cudaStream_t>(stream)));
 }
 
 // acc: contiguous int32 (acc_dtype 0) or fp32 (1) values; c: the same

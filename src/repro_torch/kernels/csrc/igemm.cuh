@@ -2,36 +2,65 @@
 // shared by gemm.cu (gemm_os, gemm_ws) and conv.cu (conv2d_implicit).
 //
 // C = epilogue(A @ B + D): A (M, K) int8 comes through a loader policy
-// (a row-major matrix, or the implicit-im2col gather of an NHWC image), B
-// (K, N) int8 by its strides (row-major weights, or the transpose of a
-// row-major (N, K) buffer), D an int32 bias preloaded into the
-// accumulator (one row broadcast, or a full (M, N) matrix), and the
-// epilogue of epilogue.cuh runs once, in the store loop.
+// (a row-major matrix, or conv.cu's implicit-im2col gather of an NHWC
+// image), B (K, N) int8 by its strides (row-major weights and HWIO
+// filters, or the transpose of a row-major (N, K) buffer), D an int32 bias
+// (one row broadcast, or a full (M, N) matrix), and the epilogue of
+// epilogue.cuh (rounding shift, activation, saturation) runs once per
+// output element.
 //
-// Numerics: mma.sync m16n8k32 s8.s8.s32 without .satfinite, so the int32
-// accumulator wraps, as the plain version's (float64-exact sum wrapped to
-// int32) and the TPU kernel's int32 dot do; the sum is then order-free, so
-// every tile order gives the same bits.
+// Numerics: mma.sync m16n8k32 s8.s8.s32 without .satfinite, and every
+// other int32 add here (K splits merged, the bias) wraps modulo 2^32, as
+// the plain version's (float64-exact sum wrapped to int32) and the TPU
+// kernel's int32 dot do. A wrapping int sum is order-free: the bits depend
+// neither on the split count nor on the merge order nor on where the bias
+// goes in, so OS equals WS, and the kernel the plain version, bit for bit.
+// Keep it so: no saturating add anywhere before the epilogue.
 //
-// Shared memory holds A as [m][k] and B as [n][k] (k contiguous), rows
-// padded by 16 bytes: every fragment register is one aligned 32-bit load
-// and the eight row groups of a warp hit distinct banks. B arrives k-major
-// (K, N) from device memory; 4x4-byte blocks are transposed in registers
-// (__byte_perm) on the way in. Ragged M, N and K are masked in the loads
-// (zeros), never padded in memory; K need not be a multiple of 32 (the
-// conv stem has K = 7*7*3 = 147).
-//
-// Tile orders (one kernel, chosen at launch):
-//   output-stationary (gemm_os): one (BM, BN) output tile per block, A and
-//     B stream through in BK = 64 slabs.
-//   weight-stationary (gemm_ws): blocks walk the grid weight-major (every
-//     M tile of one N strip before the next strip); a block loads its
-//     (K, BN) weight strip into shared memory once, where it fits the
-//     227 KB a block may hold, and keeps it across the M tiles it serves,
-//     streaming only A. Where it does not fit, the strip goes in the
-//     largest K slabs that do, reloaded per M tile.
-//
-// Simple and right first: no cp.async / TMA pipeline, no wgmma yet.
+// What bounds it on the H100: ResNet-50 at batch 1 does 0.1-0.24 GOP a
+// layer against a few hundred KB of image and filter, the quickstart 2.1
+// GOP against 1.5 MB: operations at the int8 tensor rate (1979 TOP/s) in
+// principle; in practice a layer's few microseconds go to latency (the
+// launch, the first slab's round trip, a split's ticket and merge, the
+// epilogue) and to the rate at which an SM's cp.async copies land (14-19
+// GB/s an SM at these tiles; PERF.md, section 5). The design:
+//   - A plan from the shape alone (plan(): M, N, K and B's layout; both
+//     dataflows take it): 16 x 64 tiles of 4 warps for M <= 16 (the
+//     classifier at batch 1), else 64 x 64 tiles of 8 warps (on the H100,
+//     4 warps on that tile were slower, and 128 x 128 tiles no faster at
+//     the quickstart with a longer split-K tail). K splits over blocks
+//     from a waves x k-steps model (fill and merge counted in k steps).
+//   - Loads in flight: a 4-stage ring of 64-byte k slabs in shared memory,
+//     filled by 16-byte cp.async copies; ragged rows, ragged K and the
+//     conv's padding become zero-fill through the copy's source size,
+//     nothing is padded in memory. Rows that are not 16-byte aligned take
+//     8- or 4-byte copies, and only rows with no 4-byte alignment (the
+//     stem's K = 147) a byte path of plain loads.
+//   - B k-contiguous, as mma wants it: a (N, K) buffer is copied as it is;
+//     row-major (K, N) weights land as [k][n] in a staging slot of the ring
+//     (16-byte chunks XOR-swizzled by k / 4, so the transpose reads with at
+//     most 2-way bank conflicts) and are transposed shared to shared by 4 x
+//     4 byte blocks (__byte_perm) into a double buffer one slab ahead of
+//     the MMAs, which read it with ldmatrix.
+//   - The bias is preloaded into split 0's accumulator, its loads in
+//     flight beside the first slabs (added in the epilogue, its round trip
+//     sat on every layer's critical path).
+//   - Split K: each split stores its int32 partial in the stream's
+//     workspace and takes a ticket for its tile (tickets are left at 0,
+//     no memset: hgemm.cuh's protocol, with release and acquire on the
+//     ticket's atomic instead of two fences); the tile's last block adds
+//     the partials (wrapping, several partials' loads in flight at once)
+//     and runs the epilogue, in the same launch.
+//   - The epilogue stages the int32 tile in shared memory and stores
+//     16-byte rows of int8 (or of int32).
+// Tile orders (hgemm::tile_coords), one tile a block, the splits of a tile
+// side by side: output-stationary (gemm_os) walks tiles in groups of 8 M
+// tiles; weight-stationary (gemm_ws) walks them weight-major, all M tiles
+// of one N strip before the next. Both take the same plan, so each tile is
+// computed the same way in both orders. WS keeps no B strip resident in
+// shared memory across M tiles: at ResNet-50's and the quickstart's
+// shapes B's strips sit in L2 anyway, and one block per SM, the grid that
+// residency needs, measured slower than OS on the H100 (PERF.md, section 7).
 
 #pragma once
 
@@ -41,19 +70,122 @@
 #include <algorithm>
 
 #include "epilogue.cuh"
+#include "hgemm.cuh"
 
 namespace igemm {
 
-constexpr int BK = 64;   // k bytes per A slab
-constexpr int PAD = 16;  // bytes of padding per shared row
+constexpr int BK = 64;          // k bytes per ring stage
+constexpr int PAD = 16;         // bytes of padding per shared row
+constexpr int LDA = BK + PAD;   // A rows and [n][k] B rows of a stage
+constexpr int MAX_SPLITS = 16;  // partials a tile merges at most
+constexpr int FILL = 3;         // a split's fill and drain, in k steps
 
+enum Regime { SKINNY = 0, SQUARE = 1 };
+
+// Block tile, warps (WM x WN), ring stages and the blocks an SM holds
+// (registers and shared memory allow it; __launch_bounds__ holds the
+// compiler to it).
+template <int R> struct Cfg;
+template <> struct Cfg<SKINNY> {
+  static constexpr int BM = 16, BN = 64, WM = 1, WN = 4, STAGES = 4,
+                       PER_SM = 4;
+};
+template <> struct Cfg<SQUARE> {
+  static constexpr int BM = 64, BN = 64, WM = 2, WN = 4, STAGES = 4,
+                       PER_SM = 2;
+};
+
+// Shared memory bytes of a block: the ring (per stage an A slab and a B
+// slab: [n][k] for a (N, K) buffer, a [k][n] staging slab for row-major
+// B), then, for row-major B, a double buffer of one slab transposed.
+inline int smem_bytes(int bm, int bn, int stages, int b_trans) {
+  const int stage = bm * LDA + (b_trans ? bn * LDA : BK * (bn + PAD));
+  return stages * stage + (b_trans ? 0 : 2 * bn * LDA);
+}
+
+struct Plan {
+  int regime, bm, bn, threads, stages, smem;
+  int tiles_m, tiles_n, ksteps, splits;
+  long long blocks;
+  long long ws_words;    // workspace: tickets then partials, 0 for one split
+};
+
+template <int R>
+inline int set_regime(Plan& p) {
+  p.regime = R;
+  p.bm = Cfg<R>::BM;
+  p.bn = Cfg<R>::BN;
+  p.threads = 32 * Cfg<R>::WM * Cfg<R>::WN;
+  p.stages = Cfg<R>::STAGES;
+  return Cfg<R>::PER_SM;
+}
+
+// The plan of a call: (M, N, K), B's layout and the card's SM count only.
+//   - 16 x 64 tiles of 4 warps for M <= 16, else 64 x 64 tiles of 8 warps.
+//   - K splits s minimizing waves(s) * (ksteps / s + FILL) + (s - 1) *
+//     merge: the blocks' waves over the resident slots times a split's k
+//     steps plus its fill, and the last block's reads of the other
+//     partials (a partial's bytes over a k step's operand bytes, halved:
+//     the merge keeps more loads in flight than a k step).
+inline Plan plan(int m, int n, int k, int b_trans, int sms) {
+  using hgemm::ceil_div;
+  Plan p{};
+  const int ksteps = k > 0 ? ceil_div(k, BK) : 1;
+  const int per_sm = m <= 16 ? set_regime<SKINNY>(p) : set_regime<SQUARE>(p);
+  p.tiles_m = ceil_div(m, p.bm);
+  p.tiles_n = ceil_div(n, p.bn);
+  p.ksteps = ksteps;
+  const long long tiles = (long long)p.tiles_m * p.tiles_n;
+  const long long slots = (long long)sms * per_sm;
+  const double merge = 0.5 * p.bm * p.bn * 4 / ((p.bm + p.bn) * BK);
+  int most = std::min(ksteps, MAX_SPLITS);
+  if (tiles > hgemm::MAX_TICKETS) most = 1;
+  int s = 1;
+  double best = 0.0;
+  for (int c = 1; c <= most; ++c) {
+    const double waves = (double)((tiles * c + slots - 1) / slots);
+    const double cost = waves * (ceil_div(ksteps, c) + FILL) + (c - 1) * merge;
+    if (c == 1 || cost < best) { best = cost; s = c; }
+  }
+  p.splits = s;
+  p.smem = smem_bytes(p.bm, p.bn, p.stages, b_trans);
+  p.blocks = tiles * s;
+  p.ws_words = s > 1 ? hgemm::MAX_TICKETS + tiles * s * p.bm * p.bn : 0;
+  return p;
+}
+
+struct Args {
+  const int8_t* B;  // B(k, n) = B[k * ldb + n], or B[n * ldb + k] (b_trans)
+  long long ldb;
+  int gb;           // bytes per copy of B: 16, 8, 4, or 1 (plain loads)
+  const int* D;     // int32 bias, row stride ldd (0: one row), or null
+  long long ldd;
+  void* C;          // contiguous (M, N), int8 (out8) or int32
+  int out8, vec_c;  // vec_c: C 16-byte aligned and rows of whole vectors
+  int M, N, K, shift, act;
+  int tiles_m, tiles_n, ksteps, splits;
+  int ws;           // weight-major tile order
+  int* tickets;     // splits > 1: one per tile, 0 between calls
+  int* part;        // splits > 1: [tile][split][partial]
+};
+
+// ---------------------------------------------------------------------------
+// device helpers
+// ---------------------------------------------------------------------------
 __device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
-                                       const unsigned (&b)[2]) {
+                                       unsigned b0, unsigned b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
 }
 
 __device__ __forceinline__ void set_byte(uint4& v, int e, int8_t x) {
@@ -61,246 +193,426 @@ __device__ __forceinline__ void set_byte(uint4& v, int e, int8_t x) {
   w[e >> 2] |= static_cast<unsigned>(static_cast<uint8_t>(x)) << (8 * (e & 3));
 }
 
-// A as a row-major (M, K) matrix with row stride lda.
+// cp.async of g = 16, 8 or 4 bytes (src g-aligned), `bytes` of them read
+// and the rest zero-filled; `bytes` = 0 reads nothing (src may be any
+// aligned address then).
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
+                                         int g, int bytes) {
+  if (g == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+  else if (g == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+
+// The 16 bytes at src, `left` of them inside the matrix (<= 0: none), into
+// the 16 shared bytes at dst, zeros past `left`: cp.async pieces of g
+// bytes, or for g = 1 plain byte loads and one shared store (visible after
+// the ring's next barrier, like a landed copy). `safe`: an address any
+// copy may name.
+__device__ __forceinline__ void copy16(int8_t* dst, const int8_t* src,
+                                       int left, int g, const int8_t* safe) {
+  if (g == 16) {
+    const int b = min(max(left, 0), 16);
+    cp_async(hgemm::smem_u32(dst), b > 0 ? src : safe, 16, b);
+    return;
+  }
+  if (g == 1) {
+    uint4 v = make_uint4(0, 0, 0, 0);
+    for (int e = 0; e < 16 && e < left; ++e) set_byte(v, e, src[e]);
+    *reinterpret_cast<uint4*>(dst) = v;
+    return;
+  }
+  const uint32_t d = hgemm::smem_u32(dst);
+  for (int o = 0; o < 16; o += g) {
+    const int b = min(max(left - o, 0), g);
+    cp_async(d + o, b > 0 ? src + o : safe, g, b);
+  }
+}
+
+// The largest copy (16, 8, 4 or 1 bytes) that rows at stride ld from p
+// allow.
+inline int granule(const void* p, long long ld) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p) | (uintptr_t)ld;
+  return a % 16 == 0 ? 16 : a % 8 == 0 ? 8 : a % 4 == 0 ? 4 : 1;
+}
+
+// A as a row-major (M, K) matrix with row stride lda, g its copy granule.
 struct MatrixA {
   const int8_t* a;
   long long lda;
-  int K;
-  int vec;  // lda % 16 == 0 and a 16-byte aligned
-  // 16 bytes of row m (m < M), columns k..k+15, zero past K.
-  __device__ __forceinline__ uint4 load16(int m, int k) const {
-    const int8_t* p = a + (long long)m * lda + k;
-    if (vec && k + 16 <= K) return *reinterpret_cast<const uint4*>(p);
-    uint4 v = make_uint4(0, 0, 0, 0);
-    for (int e = 0; e < 16 && k + e < K; ++e) set_byte(v, e, p[e]);
-    return v;
+  int M, K, g;
+  struct Row {
+    const int8_t* p;
+    int ok;
+  };
+  using Cursor = int;  // k of the thread's chunk
+  __device__ __forceinline__ Row row(int m) const {
+    return {a + (long long)m * lda, m < M};
+  }
+  __device__ __forceinline__ Cursor cursor(int k) const { return k; }
+  __device__ __forceinline__ void advance(Cursor& k, int by) const { k += by; }
+  __device__ __forceinline__ void load(int8_t* dst, const Row& r,
+                                       Cursor k) const {
+    copy16(dst, r.p + k, r.ok ? K - k : 0, g, a);
   }
 };
 
-// Fill Bs[n][k] (n < BN, k < ks, row stride ldsb) with B(s0 + k, n0 + n),
-// zero outside (K, N).
+// 4 x 4 byte blocks of the [k][n] staging slab st (row stride BN + PAD,
+// 16-byte chunks swizzled by k / 4) into [n][k] rows of dst (stride LDA).
 template <int BN, int NT>
-__device__ __forceinline__ void load_b(int8_t* Bs, int ldsb,
-                                       const int8_t* __restrict__ B,
-                                       long long ldb, int b_trans, int vec_b,
-                                       int n0, int s0, int ks, int K, int N) {
-  const int tid = threadIdx.x;
-  if (b_trans) {
-    // B(k, n) = B[n * ldb + k]: 16-byte chunks along k, copied as they are.
-    const int per_row = ks / 16;
-    for (int ch = tid; ch < BN * per_row; ch += NT) {
-      const int nr = ch / per_row, k16 = (ch % per_row) * 16;
-      const int n = n0 + nr, k = s0 + k16;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (n < N) {
-        const int8_t* p = B + (long long)n * ldb + k;
-        if (vec_b && k + 16 <= K) {
-          v = *reinterpret_cast<const uint4*>(p);
-        } else {
-          for (int e = 0; e < 16 && k + e < K; ++e) set_byte(v, e, p[e]);
-        }
-      }
-      *reinterpret_cast<uint4*>(Bs + nr * ldsb + k16) = v;
-    }
-    return;
-  }
-  // B(k, n) = B[k * ldb + n]: 4 (k) x 4 (n) byte blocks, read as four
-  // 32-bit row words (neighbouring threads on neighbouring n), transposed
-  // in registers, written as four 32-bit [n][k] words.
-  constexpr int NQ = BN / 4;
-  for (int q = tid; q < (ks / 4) * NQ; q += NT) {
-    const int kq = q / NQ, nq = q % NQ;
-    const int k = s0 + kq * 4, n = n0 + nq * 4;
+__device__ __forceinline__ void transpose_b(const int8_t* st, int8_t* dst) {
+  constexpr int LDS = BN + PAD;
+  constexpr int KQ = BK / 4;
+#pragma unroll
+  for (int item = threadIdx.x; item < KQ * (BN / 4); item += NT) {
+    const int kq = item % KQ, nq = item / KQ;
+    const int8_t* s = st + 4 * kq * LDS + 16 * ((nq >> 2) ^ (kq & 3)) +
+                      4 * (nq & 3);
     unsigned r[4];
-    if (vec_b && n + 4 <= N && k + 4 <= K) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        r[e] = *reinterpret_cast<const unsigned*>(B + (long long)(k + e) * ldb + n);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        r[e] = 0;
-        for (int f = 0; f < 4; ++f)
-          if (k + e < K && n + f < N)
-            r[e] |= static_cast<unsigned>(static_cast<uint8_t>(
-                        B[(long long)(k + e) * ldb + n + f])) << (8 * f);
-      }
-    }
+    for (int e = 0; e < 4; ++e)
+      r[e] = *reinterpret_cast<const unsigned*>(s + e * LDS);
     const unsigned t0 = __byte_perm(r[0], r[1], 0x5140);
     const unsigned t1 = __byte_perm(r[0], r[1], 0x7362);
     const unsigned t2 = __byte_perm(r[2], r[3], 0x5140);
     const unsigned t3 = __byte_perm(r[2], r[3], 0x7362);
-    unsigned c[4];
-    c[0] = __byte_perm(t0, t2, 0x5410);
-    c[1] = __byte_perm(t0, t2, 0x7632);
-    c[2] = __byte_perm(t1, t3, 0x5410);
-    c[3] = __byte_perm(t1, t3, 0x7632);
-#pragma unroll
-    for (int f = 0; f < 4; ++f)
-      *reinterpret_cast<unsigned*>(Bs + (nq * 4 + f) * ldsb + kq * 4) = c[f];
+    unsigned* d = reinterpret_cast<unsigned*>(dst + 4 * nq * LDA + 4 * kq);
+    constexpr int w = LDA / 4;
+    d[0] = __byte_perm(t0, t2, 0x5410);
+    d[w] = __byte_perm(t0, t2, 0x7632);
+    d[2 * w] = __byte_perm(t1, t3, 0x5410);
+    d[3 * w] = __byte_perm(t1, t3, 0x7632);
   }
 }
 
-template <int BM, int BN, int WARPS_M, int WARPS_N, typename ALoad,
-          typename OutT>
-__global__ void __launch_bounds__(WARPS_M * WARPS_N * 32)
-kernel(ALoad aload, const int8_t* __restrict__ B, long long ldb, int b_trans,
-       int vec_b, const int* __restrict__ D, long long ldd,
-       OutT* __restrict__ C, int M, int N, int K, int shift, int act,
-       int m_tiles, int n_tiles, int tiles_per_block, int weight_major,
-       int ks) {
-  constexpr int NT = WARPS_M * WARPS_N * 32;
-  constexpr int WTM = BM / WARPS_M, WTN = BN / WARPS_N;
+// Take the tile's ticket once this block's partial is stored; true in
+// every thread of the block that finishes the tile last, which then sees
+// every other block's partial. Release and acquire ride on the ticket's
+// atomic (thread 0, after the block's barrier), not on two full fences as
+// in hgemm::last_of_tile: a split's tail is a few microseconds here, and
+// the fences cost one of them. The last block sets the ticket back to 0
+// for the next call on this stream.
+__device__ __forceinline__ bool last_block(int* ticket, int splits) {
+  __shared__ int last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int old;
+    asm volatile("atom.add.acq_rel.gpu.s32 %0, [%1], 1;\n"
+                 : "=r"(old) : "l"(ticket) : "memory");
+    last = old == splits - 1;
+    if (last) *ticket = 0;
+  }
+  __syncthreads();
+  return last;
+}
+
+// One int32 output after the bias: rounding shift, activation.
+__device__ __forceinline__ int finish(int v, int shift, int act) {
+  return epi::activate_int(epi::rounding_shift(v, shift), act);
+}
+__device__ __forceinline__ int wrap_add(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
+}
+
+template <int R, bool TRANS_B, typename ALoad>
+__global__ void __launch_bounds__(32 * Cfg<R>::WM * Cfg<R>::WN,
+                                  Cfg<R>::PER_SM)
+kernel(Args p, ALoad al) {
+  using CF = Cfg<R>;
+  constexpr int BM = CF::BM, BN = CF::BN, NT = 32 * CF::WM * CF::WN;
+  constexpr int STAGES = CF::STAGES;
+  constexpr int WTM = BM / CF::WM, WTN = BN / CF::WN;
   constexpr int FM = WTM / 16, FN = WTN / 8;
-  constexpr int LDA = BK + PAD;
-  static_assert(FM >= 1 && FN >= 1 && BN % 4 == 0, "warp tile");
-  const int LDB = ks + PAD;
-  extern __shared__ __align__(16) int8_t smem[];
-  int8_t* As = smem;
-  int8_t* Bs = smem + BM * LDA;
+  constexpr int A_BYTES = BM * LDA;
+  constexpr int STAGE = A_BYTES + (TRANS_B ? BN * LDA : BK * (BN + PAD));
+  constexpr int A_ITEMS = (BM * (BK / 16) + NT - 1) / NT;
+  constexpr int LDC = BN + 4;  // int32 words per row of the staged C tile
+  static_assert(FN % 2 == 0 && NT % 4 == 0, "warp tile");
+  static_assert(BM * LDC * 4 <= STAGES * STAGE, "C tile must fit the ring");
+  extern __shared__ __align__(128) int8_t ig_smem[];
+  // Row-major B transposed: a double buffer of one slab after the ring.
+  int8_t* const bt_base = ig_smem + STAGES * STAGE;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm0 = (warp / WARPS_N) * WTM, wn0 = (warp % WARPS_N) * WTN;
+  const int wm0 = (warp / CF::WN) * WTM, wn0 = (warp % CF::WN) * WTN;
+  const int S = p.splits, split = blockIdx.x % S;
+  int mt, nt;
+  hgemm::tile_coords(blockIdx.x / S, p.tiles_m, p.tiles_n, p.ws, mt, nt);
+  int lo, hi;
+  hgemm::split_range(split, S, p.ksteps, lo, hi);
+  const int steps = hi - lo;
+  const int m0 = mt * BM, n0 = nt * BN;
+  // B transposed for the slab of k step `step`.
+  auto bt = [&](int step) { return bt_base + (step & 1) * BN * LDA; };
 
-  int strip, mt_begin, mt_end;
-  if (weight_major) {
-    const int groups = (m_tiles + tiles_per_block - 1) / tiles_per_block;
-    strip = blockIdx.x / groups;
-    mt_begin = (blockIdx.x % groups) * tiles_per_block;
-    mt_end = min(mt_begin + tiles_per_block, m_tiles);
-  } else {
-    mt_begin = blockIdx.x / n_tiles;
-    strip = blockIdx.x % n_tiles;
-    mt_end = mt_begin + 1;
+  typename ALoad::Row rows[A_ITEMS];
+#pragma unroll
+  for (int i = 0; i < A_ITEMS; ++i)
+    rows[i] = al.row(m0 + (tid + i * NT) / (BK / 16));
+  typename ALoad::Cursor cur = al.cursor(lo * BK + (tid % (BK / 16)) * 16);
+
+  // Ring slot it % STAGES takes k step lo + it.
+  auto load_stage = [&](int it) {
+    int8_t* as = ig_smem + (it % STAGES) * STAGE;
+#pragma unroll
+    for (int i = 0; i < A_ITEMS; ++i) {
+      const int item = tid + i * NT;
+      if (item < BM * (BK / 16))
+        al.load(as + (item / (BK / 16)) * LDA + (item % (BK / 16)) * 16,
+                rows[i], cur);
+    }
+    al.advance(cur, BK);
+    const int k0 = (lo + it) * BK;
+    int8_t* bs = as + A_BYTES;
+    if constexpr (TRANS_B) {
+#pragma unroll
+      for (int item = tid; item < BN * (BK / 16); item += NT) {
+        const int nr = item / (BK / 16), c = (item % (BK / 16)) * 16;
+        const int n = n0 + nr, k = k0 + c;
+        copy16(bs + nr * LDA + c, p.B + (long long)n * p.ldb + k,
+               n < p.N ? p.K - k : 0, p.gb, p.B);
+      }
+    } else {
+      constexpr int CH = BN / 16;
+#pragma unroll
+      for (int item = tid; item < BK * CH; item += NT) {
+        const int kr = item / CH, c = item % CH;
+        const int k = k0 + kr, n = n0 + 16 * c;
+        copy16(bs + kr * (BN + PAD) + 16 * (c ^ ((kr >> 2) & 3)),
+               p.B + (long long)k * p.ldb + n, k < p.K ? p.N - n : 0,
+               p.gb, p.B);
+      }
+    }
+  };
+
+  // The bias preloaded into split 0's accumulator (its loads in flight
+  // beside the ring's first slabs, not in the epilogue's path).
+  int acc[FM][FN][4];
+  const int* const bias = split == 0 ? p.D : nullptr;
+#pragma unroll
+  for (int i = 0; i < FM; ++i)
+#pragma unroll
+    for (int j = 0; j < FN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = m0 + wm0 + 16 * i + (lane >> 2) + 8 * (e >> 1);
+        const int c = n0 + wn0 + 8 * j + 2 * (lane & 3) + (e & 1);
+        acc[i][j][e] = bias != nullptr && r < p.M && c < p.N
+                           ? __ldg(bias + (long long)r * p.ldd + c) : 0;
+      }
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < steps) load_stage(s);
+    hgemm::cp_async_commit();
   }
-  const int n0 = strip * BN;
-  const int kp = (K + BK - 1) / BK * BK;
-  const bool resident = ks >= kp;
+  if (!TRANS_B) {
+    hgemm::cp_async_wait<STAGES - 2>();   // slab 0 has landed
+    __syncthreads();
+    transpose_b<BN, NT>(ig_smem + A_BYTES, bt(lo));
+  }
+  for (int it = 0; it < steps; ++it) {
+    // Slab it landed, and it + 1 where B is transposed a slab ahead; the
+    // barrier makes them every thread's, and frees slab it - 1's slot.
+    if (!TRANS_B)
+      hgemm::cp_async_wait<STAGES - 3>();
+    else
+      hgemm::cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (it + STAGES - 1 < steps) load_stage(it + STAGES - 1);
+    hgemm::cp_async_commit();
+    if (!TRANS_B && it + 1 < steps)
+      transpose_b<BN, NT>(ig_smem + ((it + 1) % STAGES) * STAGE + A_BYTES,
+                          bt(lo + it + 1));
+    const int8_t* as = ig_smem + (it % STAGES) * STAGE;
+    const int8_t* bs = TRANS_B ? as + A_BYTES : bt(lo + it);
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 32) {
+      unsigned af[FM][4], bf[FN][2];
+#pragma unroll
+      for (int i = 0; i < FM; ++i)
+        ldsm_x4(af[i], hgemm::smem_u32(
+                           as + (wm0 + 16 * i + (lane & 7) +
+                                 ((lane >> 3) & 1) * 8) * LDA +
+                           kk + (lane >> 4) * 16));
+#pragma unroll
+      for (int j = 0; j < FN; j += 2) {
+        unsigned r[4];
+        ldsm_x4(r, hgemm::smem_u32(
+                       bs + (wn0 + 8 * j + (lane & 7) + (lane >> 4) * 8) *
+                                LDA +
+                       kk + ((lane >> 3) & 1) * 16));
+        bf[j][0] = r[0]; bf[j][1] = r[1];
+        bf[j + 1][0] = r[2]; bf[j + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int i = 0; i < FM; ++i)
+#pragma unroll
+        for (int j = 0; j < FN; ++j)
+          mma_s8(acc[i][j], af[i], bf[j][0], bf[j][1]);
+    }
+  }
+  hgemm::cp_async_wait<0>();
 
-  for (int mt = mt_begin; mt < mt_end; ++mt) {
-    const int m0 = mt * BM;
-    int acc[FM][FN][4];
+  if (S > 1) {
+    // The partial as int4s, int4 i of this thread at i * NT + tid, so a
+    // warp's stores and loads are 512 contiguous bytes; the last block of
+    // the tile adds the others' (wrapping).
+    constexpr int F4 = FM * FN;
+    const int tile = nt * p.tiles_m + mt;
+    const long long stride = (long long)NT * F4 * 4;
+    int4* const base = reinterpret_cast<int4*>(
+        p.part + (long long)tile * S * stride) + tid;
 #pragma unroll
     for (int i = 0; i < FM; ++i)
 #pragma unroll
       for (int j = 0; j < FN; ++j)
+        base[split * (stride / 4) + (i * FN + j) * NT] =
+            make_int4(acc[i][j][0], acc[i][j][1], acc[i][j][2], acc[i][j][3]);
+    if (!last_block(p.tickets + tile, S)) return;
+    // GP partials' loads in flight at a time (16 int4 a thread), so the
+    // merge waits about (S - 1) / GP round trips to L2, not S - 1.
+    constexpr int GP = F4 >= 16 ? 1 : 16 / F4;
+    for (int s0 = 0; s0 < S; s0 += GP) {
+      int4 v[GP][F4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = m0 + wm0 + i * 16 + g + (e >> 1) * 8;
-          const int c = n0 + wn0 + j * 8 + t * 2 + (e & 1);
-          acc[i][j][e] = (D != nullptr && r < M && c < N)
-                             ? D[(long long)r * ldd + c] : 0;
-        }
-
-    for (int s0 = 0; s0 < K; s0 += ks) {
-      if (!resident || mt == mt_begin)
-        load_b<BN, NT>(Bs, LDB, B, ldb, b_trans, vec_b, n0, s0, ks, K, N);
-      const int s1 = min(s0 + ks, K);
-      for (int k0 = s0; k0 < s1; k0 += BK) {
-        for (int ch = tid; ch < BM * (BK / 16); ch += NT) {
-          const int r = ch / (BK / 16), c16 = (ch % (BK / 16)) * 16;
-          const int gr = m0 + r;
-          const uint4 v = gr < M ? aload.load16(gr, k0 + c16)
-                                 : make_uint4(0, 0, 0, 0);
-          *reinterpret_cast<uint4*>(As + r * LDA + c16) = v;
-        }
-        __syncthreads();
-        const int8_t* Bk = Bs + (k0 - s0);
+      for (int u = 0; u < GP; ++u)
+        if (s0 + u < S && s0 + u != split)
 #pragma unroll
-        for (int kk = 0; kk < BK; kk += 32) {
-          unsigned af[FM][4], bf[FN][2];
+          for (int f = 0; f < F4; ++f)
+            v[u][f] = __ldcg(base + (s0 + u) * (stride / 4) + f * NT);
 #pragma unroll
-          for (int i = 0; i < FM; ++i) {
-            const int8_t* p = As + (wm0 + i * 16 + g) * LDA + kk + t * 4;
-            af[i][0] = *reinterpret_cast<const unsigned*>(p);
-            af[i][1] = *reinterpret_cast<const unsigned*>(p + 8 * LDA);
-            af[i][2] = *reinterpret_cast<const unsigned*>(p + 16);
-            af[i][3] = *reinterpret_cast<const unsigned*>(p + 8 * LDA + 16);
-          }
-#pragma unroll
-          for (int j = 0; j < FN; ++j) {
-            const int8_t* p = Bk + (wn0 + j * 8 + g) * LDB + kk + t * 4;
-            bf[j][0] = *reinterpret_cast<const unsigned*>(p);
-            bf[j][1] = *reinterpret_cast<const unsigned*>(p + 16);
-          }
+      for (int u = 0; u < GP; ++u)
+        if (s0 + u < S && s0 + u != split)
 #pragma unroll
           for (int i = 0; i < FM; ++i)
 #pragma unroll
-            for (int j = 0; j < FN; ++j) mma_s8(acc[i][j], af[i], bf[j]);
-        }
-        __syncthreads();
-      }
+            for (int j = 0; j < FN; ++j) {
+              const int4 w = v[u][i * FN + j];
+              acc[i][j][0] = wrap_add(acc[i][j][0], w.x);
+              acc[i][j][1] = wrap_add(acc[i][j][1], w.y);
+              acc[i][j][2] = wrap_add(acc[i][j][2], w.z);
+              acc[i][j][3] = wrap_add(acc[i][j][3], w.w);
+            }
     }
+  }
 
+  // The epilogue: the tile through shared memory (the ring is free), then
+  // one compact loop of 16-byte stores, consecutive threads on consecutive
+  // columns.
+  __syncthreads();
+  int* ct = reinterpret_cast<int*>(ig_smem);  // [BM][LDC]
+  {
+    const int g = lane >> 2, t = lane & 3;
 #pragma unroll
     for (int i = 0; i < FM; ++i)
 #pragma unroll
-      for (int j = 0; j < FN; ++j)
+      for (int j = 0; j < FN; ++j) {
+        int* c0 = ct + (wm0 + 16 * i + g) * LDC + wn0 + 8 * j + 2 * t;
+        *reinterpret_cast<int2*>(c0) = make_int2(acc[i][j][0], acc[i][j][1]);
+        *reinterpret_cast<int2*>(c0 + 8 * LDC) =
+            make_int2(acc[i][j][2], acc[i][j][3]);
+      }
+  }
+  __syncthreads();
+  const int G = p.out8 ? 16 : 4;  // outputs per 16-byte store
+  const int per_row = BN / G;
+#pragma unroll 1
+  for (int e = tid; e < BM * per_row; e += NT) {
+    const int r = e / per_row, c = (e % per_row) * G;
+    const int gr = m0 + r, gc = n0 + c;
+    if (gr >= p.M || gc >= p.N) continue;
+    const int* src = ct + r * LDC + c;
+    const long long at = (long long)gr * p.N + gc;
+    const bool whole = p.vec_c && gc + G <= p.N;
+    if (p.out8) {
+      unsigned w[4] = {0, 0, 0, 0};
+      int8_t* C = static_cast<int8_t*>(p.C) + at;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = m0 + wm0 + i * 16 + g + (e >> 1) * 8;
-          const int c = n0 + wn0 + j * 8 + t * 2 + (e & 1);
-          if (r < M && c < N)
-            epi::store_int(C, (long long)r * N + c, acc[i][j][e], shift, act);
-        }
+      for (int q = 0; q < 16; ++q) {
+        const int y = min(max(finish(src[q], p.shift, p.act), -128), 127);
+        w[q >> 2] |= static_cast<unsigned>(static_cast<uint8_t>(y))
+                     << (8 * (q & 3));
+        if (!whole && gc + q < p.N) C[q] = static_cast<int8_t>(y);
+      }
+      if (whole)
+        *reinterpret_cast<uint4*>(C) = make_uint4(w[0], w[1], w[2], w[3]);
+    } else {
+      int y[4];
+      int* C = static_cast<int*>(p.C) + at;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        y[q] = finish(src[q], p.shift, p.act);
+        if (!whole && gc + q < p.N) C[q] = y[q];
+      }
+      if (whole)
+        *reinterpret_cast<int4*>(C) = make_int4(y[0], y[1], y[2], y[3]);
+    }
   }
 }
 
-template <int BM, int BN, int WARPS_M, int WARPS_N, typename ALoad,
-          typename OutT>
-int launch_tiles(const ALoad& al, const int8_t* B, long long ldb, int b_trans,
-                 int vec_b, const int* D, long long ldd, OutT* C, int M, int N,
-                 int K, int shift, int act, int ws, cudaStream_t s) {
-  const int m_tiles = (M + BM - 1) / BM, n_tiles = (N + BN - 1) / BN;
-  const int kp = (K + BK - 1) / BK * BK;
-  const size_t a_bytes = (size_t)BM * (BK + PAD);
-  int ks = BK, tiles_per_block = 1, blocks = m_tiles * n_tiles;
-  if (ws) {
-    int dev = 0, sms = 0, max_smem = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                           dev);
-    // The largest K slab of the (K, BN) weight strip that fits beside the
-    // A tile: the whole strip where it can.
-    const long long fit =
-        ((long long)(max_smem - (int)a_bytes) / BN - PAD) / BK * BK;
-    ks = (int)std::max<long long>(BK, std::min<long long>(kp, fit));
-    // Enough M groups to give every SM a block; each group's M tiles share
-    // one load of the strip.
-    int groups = std::min(m_tiles, std::max(1, (sms + n_tiles - 1) / n_tiles));
-    tiles_per_block = (m_tiles + groups - 1) / groups;
-    groups = (m_tiles + tiles_per_block - 1) / tiles_per_block;
-    blocks = groups * n_tiles;
-  }
-  const size_t smem = a_bytes + (size_t)BN * (ks + PAD);
-  auto kern = kernel<BM, BN, WARPS_M, WARPS_N, ALoad, OutT>;
-  if (smem > 48 * 1024) {
+template <int R, bool TB, typename ALoad>
+cudaError_t launch_regime(const Args& a, const ALoad& al, const Plan& pl,
+                          cudaStream_t s) {
+  auto kern = kernel<R, TB, ALoad>;
+  static int configured = 0;  // largest dynamic shared memory allowed yet
+  if (pl.smem > 48 * 1024 && pl.smem > configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
+    if (e != cudaSuccess) return e;
+    configured = pl.smem;
   }
-  kern<<<blocks, WARPS_M * WARPS_N * 32, smem, s>>>(
-      al, B, ldb, b_trans, vec_b, D, ldd, C, M, N, K, shift, act, m_tiles,
-      n_tiles, tiles_per_block, ws, ks);
-  return static_cast<int>(cudaGetLastError());
+  kern<<<(unsigned)pl.blocks, pl.threads, pl.smem, s>>>(a, al);
+  return cudaGetLastError();
 }
 
-// One launch of the int8 GEMM: a 16-row tile for M <= 16 (the classifier
-// at batch 1 computes no padded rows), 64 x 64 tiles otherwise.
-template <typename ALoad, typename OutT>
-int launch(const ALoad& al, const int8_t* B, long long ldb, int b_trans,
-           const int* D, long long ldd, OutT* C, int M, int N, int K,
-           int shift, int act, int ws, cudaStream_t s) {
-  const uintptr_t pb = reinterpret_cast<uintptr_t>(B);
-  const int vec_b = b_trans ? (ldb % 16 == 0 && pb % 16 == 0)
-                            : (ldb % 4 == 0 && pb % 4 == 0);
-  if (M <= 16)
-    return launch_tiles<16, 64, 1, 4>(al, B, ldb, b_trans, vec_b, D, ldd, C,
-                                      M, N, K, shift, act, ws, s);
-  return launch_tiles<64, 64, 2, 2>(al, B, ldb, b_trans, vec_b, D, ldd, C, M,
-                                    N, K, shift, act, ws, s);
+template <bool TB, typename ALoad>
+cudaError_t launch_plan(const Args& a, const ALoad& al, const Plan& pl,
+                        cudaStream_t s) {
+  if (pl.regime == SKINNY) return launch_regime<SKINNY, TB>(a, al, pl, s);
+  return launch_regime<SQUARE, TB>(a, al, pl, s);
+}
+
+inline Plan plan_here(int m, int n, int k, int b_trans) {
+  return plan(m, n, k, b_trans, hgemm::sm_count());
+}
+
+// One call: A through `al`, B (K, N) at ldb (b_trans: the transpose of a
+// row-major (N, K) buffer), D, C as Args says; workspace: plan().ws_words
+// 4-byte words owned by the calling stream (tickets zeroed when it was
+// made), may be null for one split. TRANS_B_OK: whether this source
+// instantiates the (N, K) path (the conv's filters are never transposed).
+template <typename ALoad, bool TRANS_B_OK = true>
+cudaError_t launch(const ALoad& al, const int8_t* B, long long ldb,
+                   int b_trans, const int* D, long long ldd, void* C,
+                   int out8, int M, int N, int K, int shift, int act, int ws,
+                   void* workspace, cudaStream_t s) {
+  const Plan pl = plan_here(M, N, K, b_trans);
+  if (pl.splits > 1 && workspace == nullptr) return cudaErrorInvalidValue;
+  Args a{};
+  a.B = B; a.ldb = ldb; a.gb = granule(B, ldb);
+  a.D = D; a.ldd = ldd;
+  a.C = C; a.out8 = out8;
+  a.vec_c = reinterpret_cast<uintptr_t>(C) % 16 == 0 &&
+            N % (out8 ? 16 : 4) == 0;
+  a.M = M; a.N = N; a.K = K; a.shift = shift; a.act = act;
+  a.tiles_m = pl.tiles_m; a.tiles_n = pl.tiles_n;
+  a.ksteps = pl.ksteps; a.splits = pl.splits;
+  a.ws = ws;
+  a.tickets = static_cast<int*>(workspace);
+  a.part = workspace ? static_cast<int*>(workspace) + hgemm::MAX_TICKETS
+                     : nullptr;
+  if constexpr (TRANS_B_OK) {
+    if (b_trans) return launch_plan<true>(a, al, pl, s);
+  } else {
+    if (b_trans) return cudaErrorInvalidValue;
+  }
+  return launch_plan<false>(a, al, pl, s);
 }
 
 }  // namespace igemm

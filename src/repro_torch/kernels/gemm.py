@@ -5,8 +5,9 @@
 Replaces ``repro.kernels.gemm``: ``gemm_os``, ``gemm_ws``,
 ``accumulator_epilogue`` and the dataflow dispatch ``gemm``. The GEMMs
 compute ``C = act(round_shift(A @ B + D))``: bf16 / fp32 inputs accumulate
-in fp32; int8 inputs accumulate in a wrapping int32 (the bias preloaded)
-and saturate to int8, or store int32. A CUDA tensor launches the kernel
+in fp32; int8 inputs accumulate in a wrapping int32 (the bias added once,
+modulo 2^32 like every int32 add of the kernel) and saturate to int8, or
+store int32. A CUDA tensor launches the kernel
 (or raises), a CPU tensor takes the plain version
 (``repro_torch.kernels.ref.gemm_ref``, ``epilogue.apply``). The kernels mask
 ragged edges themselves, so operands are never padded to a tile plan
@@ -17,9 +18,13 @@ ragged edges themselves, so operands are never padded to a tile plan
 bf16 inputs run one of two kernels by the shape alone (:func:`gemm_plan`):
 split-K ``mma.sync`` for M <= 16 (decode) and ``wgmma`` for wider M
 (prefill); fp32 inputs run the CUDA-core kernel (IEEE FMAs, register
-micro-tiles, split K where the tiles leave SMs idle). Each is one launch
-per call. Where the plan splits K, the call uses its stream's workspace
-(:func:`_workspace`), made once per stream.
+micro-tiles, split K where the tiles leave SMs idle); int8 inputs run
+``igemm.cuh``'s tensor-core main loop (:func:`gemm_s8_plan`: 16 x 64 or
+64 x 64 tiles by the shape, a 4-stage ``cp.async`` ring, K split by a
+waves x k-steps model and merged exactly, since int32 sums wrap). Each
+is one launch per call, and WS walks the same tiles weight-major. Where the plan splits K, the call
+uses its stream's workspace (:func:`_workspace`), made once per stream
+and shared by every GEMM and conv on it.
 
 Launch counts, one per kernel of the ``kernels`` report:
 ``gemm.launches`` the float kernel in OS order (the serving path's),
@@ -47,7 +52,8 @@ _INT_OUT = {torch.int32: 0, torch.int8: 1}
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _FLOAT_ARGS = [_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _L, _I, _I, _I, _F, _I,
                _P, _P]
-_S8_ARGS = [_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _L, _I, _I, _I, _I, _P]
+_S8_ARGS = [_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _L, _I, _I, _I, _I, _P,
+            _P]
 _EPI_ARGS = [_P, _P, _L, _I, _I, _I, _I, _F, _P]
 
 
@@ -83,11 +89,7 @@ def gemm_plan(m: int, n: int, k: int, b_trans: bool = False,
     OS and WS take the same plan."""
     if dtype not in _DT:
         raise NotImplementedError(f"gemm_plan: no float kernel for {dtype}")
-    if device is None:
-        index = torch.cuda.current_device()
-    else:
-        index = torch.device(device).index
-        index = torch.cuda.current_device() if index is None else index
+    index = _device_index(device)
     key = (m, n, k, bool(b_trans), index, dtype)
     plan = _PLANS.get(key)
     if plan is None:
@@ -104,6 +106,49 @@ def gemm_plan(m: int, n: int, k: int, b_trans: bool = False,
                 "smem": raw["smem"],
                 "workspace_bytes": 4 * raw["workspace_words"]}
         _PLANS[key] = plan
+    return plan
+
+
+_S8_REGIMES = ("skinny", "square")
+_S8_PLANS: Dict[Tuple[int, int, int, bool, int], dict] = {}
+
+
+def _device_index(device) -> int:
+    if device is None:
+        return torch.cuda.current_device()
+    index = torch.device(device).index
+    return torch.cuda.current_device() if index is None else index
+
+
+def gemm_s8_plan(m: int, n: int, k: int, b_trans: bool = False,
+                 device=None) -> dict:
+    """The int8 kernel's plan (``csrc/igemm.cuh``) for an (M, N, K) call on
+    a card, B row-major or (``b_trans``) read as the transpose of a
+    row-major (N, K) buffer: ``regime`` ("skinny": 16 x 64 tiles of 4
+    warps for M <= 16, "square": 64 x 64 tiles of 8 warps), ``tile``
+    (rows, columns, k per stage), ``splits`` of K, ``grid`` (blocks),
+    ``threads`` per block, ``stages`` of the cp.async ring, ``smem`` bytes
+    and ``workspace_bytes`` (tickets and int32 partials, 0 for one split).
+    It depends on the shape, B's layout and the card's SM count only, so
+    OS and WS take the same plan and sum every tile alike; a conv's plan is
+    that of its implicit GEMM, (N*OH*OW, CO, KH*KW*CI), B row-major."""
+    index = _device_index(device)
+    key = (m, n, k, bool(b_trans), index)
+    plan = _S8_PLANS.get(key)
+    if plan is None:
+        out = (ctypes.c_longlong * len(_PLAN_KEYS))()
+        fn = _build.bind("gemm", "gemm_s8_plan", [_I, _I, _I, _I, _P])
+        with torch.cuda.device(index):
+            _build.check(fn(m, n, k, int(bool(b_trans)),
+                            ctypes.addressof(out)), "gemm_s8_plan")
+        raw = dict(zip(_PLAN_KEYS, out))
+        plan = {"regime": _S8_REGIMES[raw["regime"]],
+                "tile": (raw["bm"], raw["bn"], raw["bk"]),
+                "splits": raw["splits"], "grid": raw["blocks"],
+                "threads": raw["threads"], "stages": raw["stages"],
+                "smem": raw["smem"],
+                "workspace_bytes": 4 * raw["workspace_words"]}
+        _S8_PLANS[key] = plan
     return plan
 
 
@@ -176,10 +221,14 @@ def _gemm(a: torch.Tensor, b: torch.Tensor, d: Optional[torch.Tensor], *,
     stream = torch.cuda.current_stream(a.device).cuda_stream
     dptr = d.data_ptr() if d is not None else None
     if integer:
+        plan = _S8_PLANS.get((m, n, k, bool(trans), a.device.index)) \
+            or gemm_s8_plan(m, n, k, trans, a.device)
+        need = plan["workspace_bytes"]
+        wsp = _workspace(a.device, stream, need).data_ptr() if need else None
         fn = _build.bind("gemm", "gemm_s8_launch", _S8_ARGS)
         err = fn(a.data_ptr(), b.data_ptr(), dptr, c.data_ptr(), m, n, k,
                  a.stride(0), ldb, trans, ldd, _INT_OUT[out_dtype],
-                 _ACT[activation], shift, int(ws), stream)
+                 _ACT[activation], shift, int(ws), stream, wsp)
     else:
         wsp = None
         plan = _PLANS.get((m, n, k, bool(trans), a.device.index, a.dtype)) \
@@ -216,8 +265,8 @@ def gemm_ws(a: torch.Tensor, b: torch.Tensor, d: Optional[torch.Tensor] = None,
             *, acc_dtype: torch.dtype, out_dtype: torch.dtype, shift: int = 0,
             activation: Activation = Activation.NONE) -> torch.Tensor:
     """Weight-stationary GEMM: the same function as :func:`gemm_os` (equal
-    bit for bit on the int8 path), the kernel walking the grid weight-major
-    with the weight strip resident in shared memory."""
+    bit for bit on the int8 path), the kernel walking the grid
+    weight-major."""
     return _gemm(a, b, d, acc_dtype=acc_dtype, out_dtype=out_dtype,
                  shift=shift, activation=activation, ws=True)
 

@@ -273,6 +273,213 @@ def test_int8_gemm_matches_plain(card, dataflow, m, n, k, bias, trans_b, out,
     assert got.dtype == out and torch.equal(got, gemm_ref(a, b, d, **kw))
 
 
+# ---------------------------------------------------------------------------
+# the int8 main loop (igemm.cuh): every plan regime at ResNet-50's shapes,
+# split-K wrapping, both B layouts, misaligned operands, streams
+# ---------------------------------------------------------------------------
+_S8_REGIMES = [  # (M, N, K, regime): dse.resnet(50)'s shapes, the quickstart
+    (1, 1000, 2048, "skinny"), (16, 1000, 2048, "skinny"),
+    (17, 512, 4608, "square"), (49, 512, 4608, "square"),
+    (49, 2048, 512, "square"), (196, 256, 2304, "square"),
+    (196, 1024, 256, "square"), (784, 128, 1152, "square"),
+    (784, 512, 128, "square"), (1000, 512, 2048, "square"),
+    (3136, 64, 576, "square"), (3136, 256, 64, "square"),
+    (12544, 64, 147, "square"),
+]
+
+
+def _s8_case(g, m, n, k, trans_b, card, lo=-128, hi=128):
+    a = _i8(g, (m, k), lo, hi)
+    b = _i8(g, (n, k), lo, hi).T if trans_b else _i8(g, (k, n), lo, hi)
+    d = torch.randint(-2 ** 20, 2 ** 20, (n,), generator=g, device=card,
+                      dtype=torch.int32)
+    return a, b, d
+
+
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("m,n,k,regime", _S8_REGIMES)
+def test_int8_gemm_plan_regimes(card, m, n, k, regime, trans_b):
+    """Every regime of the plan at ResNet-50's N and K: bit-exact against
+    the plain version in both dataflows, OS equal to WS, int8 and int32
+    outputs, and each call one launch."""
+    assert tgemm.gemm_s8_plan(m, n, k, trans_b)["regime"] == regime
+    g = torch.Generator(device=card).manual_seed(m * 7 + n + k)
+    a, b, d = _s8_case(g, m, n, k, trans_b, card)
+    for out, shift, act in ((torch.int8, 9, "RELU"), (torch.int32, 0, "NONE")):
+        kw = dict(acc_dtype=torch.int32, out_dtype=out, shift=shift,
+                  activation=Activation[act])
+        want = gemm_ref(a, b, d, **kw)
+        n0, w0 = tgemm.gemm_os.launches, tgemm.gemm_ws.launches
+        got = tgemm.gemm_os(a, b, d, **kw)
+        assert tgemm.gemm_os.launches == n0 + 1
+        assert got.dtype == out and torch.equal(got, want)
+        assert torch.equal(tgemm.gemm_ws(a, b, d, **kw), got)
+        assert tgemm.gemm_ws.launches == w0 + 1
+
+
+@pytest.mark.parametrize("dataflow", ["OS", "WS"])
+def test_int8_gemm_split_k_wraps(card, dataflow):
+    """A K split 16 ways whose partials and bias carry the int32 sum past
+    2^31: the merge wraps as the plain version does, bit for bit, and
+    every ticket is back at 0 afterwards."""
+    m, n, k = 17, 64, 150_000
+    assert tgemm.gemm_s8_plan(m, n, k)["splits"] == 16
+    a = torch.full((m, k), 127, dtype=torch.int8, device=card)
+    b = torch.full((k, n), 127, dtype=torch.int8, device=card)
+    a[:, ::3] = 100
+    d = torch.full((n,), 2 ** 31 - 7, dtype=torch.int32, device=card)
+    kw = dict(acc_dtype=torch.int32, out_dtype=torch.int32)
+    fn = tgemm.gemm_ws if dataflow == "WS" else tgemm.gemm_os
+    got = fn(a, b, d, **kw)
+    torch.cuda.synchronize()
+    exact = (a[:1].cpu().long() @ b[:, :1].cpu().long()).item() + 2 ** 31 - 7
+    assert exact > 2 ** 32 and int(got[0, 0]) == (exact + 2 ** 31) % 2 ** 32 \
+        - 2 ** 31
+    assert torch.equal(got, gemm_ref(a, b, d, **kw))
+    ws = tgemm._WORKSPACE[(card.index or 0,
+                           torch.cuda.current_stream(card).cuda_stream)]
+    assert int(ws[:1024].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("which", ["a", "b", "both"])
+@pytest.mark.parametrize("m,n,k", [(200, 136, 260), (5, 96, 1024),
+                                   (784, 128, 1152)])
+def test_int8_gemm_misaligned_operands(card, m, n, k, which, trans_b):
+    """Operands one byte past an aligned address (rows of 1- to 16-byte
+    granules: the byte path and 4- to 16-byte copies), both B layouts,
+    bit-exact and OS equal to WS."""
+    g = torch.Generator(device=card).manual_seed(m + k)
+
+    def shifted(shape):
+        flat = _i8(g, (shape[0] * shape[1] + 1,))
+        return flat[1:].view(shape)
+
+    a = shifted((m, k)) if which in ("a", "both") else _i8(g, (m, k))
+    if which in ("b", "both"):
+        b = shifted((n, k)).T if trans_b else shifted((k, n))
+    else:
+        b = _i8(g, (n, k)).T if trans_b else _i8(g, (k, n))
+    kw = dict(acc_dtype=torch.int32, out_dtype=torch.int8, shift=8,
+              activation=Activation.RELU)
+    got = tgemm.gemm_os(a, b, **kw)
+    assert torch.equal(got, gemm_ref(a, b, None, **kw))
+    assert torch.equal(tgemm.gemm_ws(a, b, **kw), got)
+
+
+def test_int8_gemm_on_concurrent_streams(card):
+    """Split-K calls on two streams back to back: each stream has its own
+    workspace and tickets, every result equals the single-stream one bit
+    for bit, and both streams' tickets are at 0 afterwards."""
+    m, n, k = 49, 512, 4608
+    assert tgemm.gemm_s8_plan(m, n, k)["splits"] > 1
+    g = torch.Generator(device=card).manual_seed(k)
+    kw = dict(acc_dtype=torch.int32, out_dtype=torch.int8, shift=10)
+    inputs = [_s8_case(g, m, n, k, False, card) for _ in range(2)]
+    wants = [tgemm.gemm_os(a, b, d, **kw) for a, b, d in inputs]
+    streams = [torch.cuda.Stream(card) for _ in inputs]
+    torch.cuda.synchronize()
+    gots = [[], []]
+    for _ in range(8):
+        for i, (st, (a, b, d)) in enumerate(zip(streams, inputs)):
+            with torch.cuda.stream(st):
+                gots[i].append(tgemm.gemm_os(a, b, d, **kw))
+                gots[i].append(tgemm.gemm_ws(a, b, d, **kw))
+    torch.cuda.synchronize()
+    for got, want in zip(gots, wants):
+        for x in got:
+            assert torch.equal(x, want)
+    for st in streams:
+        ws = tgemm._WORKSPACE[(card.index or 0, st.cuda_stream)]
+        assert int(ws[:1024].abs().sum()) == 0
+
+
+def test_int8_gemm_plan(card):
+    """The plan fills the card: K splits > 1 wherever the tiles alone are
+    fewer than the SMs and K has the steps; one split for one k step; 16-row
+    tiles of 4 warps for M <= 16, else 64 x 64 tiles of 8 warps; one tile a
+    block (both dataflows take this plan)."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for m, n, k, _ in _S8_REGIMES:
+        for trans_b in (False, True):
+            p = tgemm.gemm_s8_plan(m, n, k, trans_b)
+            bm, bn, bk = p["tile"]
+            tiles = -(-m // bm) * -(-n // bn)
+            if tiles < sms and -(-k // bk) >= 4:
+                assert p["splits"] > 1, (m, n, k, p)
+            assert p["grid"] == tiles * p["splits"]
+            assert (p["workspace_bytes"] > 0) == (p["splits"] > 1)
+    assert tgemm.gemm_s8_plan(3136, 256, 64)["splits"] == 1
+    p = tgemm.gemm_s8_plan(1000, 512, 2048)
+    assert p["tile"] == (64, 64, 64) and p["threads"] == 256
+    p = tgemm.gemm_s8_plan(1, 1000, 2048)
+    assert p["tile"] == (16, 64, 64) and p["threads"] == 128
+
+
+def _resnet50_conv_shapes():
+    """The distinct (H, CI, CO, KH, stride, pad) of dse.resnet(50)'s layers
+    as chip_smoke.py's phase 6 runs them, classifier and stem included
+    (``chip_smoke.resnet50_shapes``)."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return [conv for _, _, conv, _ in cs.resnet50_shapes()]
+
+
+@pytest.mark.parametrize("case", range(18))
+def test_conv2d_implicit_resnet50_shapes(card, case):
+    """Every distinct conv of dse.resnet(50)'s stream (1x1 by the matrix
+    loader, 3x3 per stage and the stem by the tap gather): bit-exact
+    against the plain version and the host route (im2col, then the GEMM
+    on OS and on WS), int8 and int32 out."""
+    shapes = _resnet50_conv_shapes()
+    assert len(shapes) == 18
+    h, ci, co, kh, stride, pad = shapes[case]
+    g = torch.Generator(device=card).manual_seed(case)
+    x = _i8(g, (1, h, h, ci), -64, 64)
+    wt = _i8(g, (kh, kh, ci, co), -32, 32)
+    b = torch.randint(-500, 500, (co,), generator=g, device=card,
+                      dtype=torch.int32)
+    for out, act in ((torch.int8, Activation.RELU), (torch.int32,
+                                                     Activation.NONE)):
+        kw_ = dict(stride=stride, padding=pad, acc_dtype=torch.int32,
+                   out_dtype=out, shift=8, activation=act)
+        n0 = tconv.conv2d_implicit.launches
+        got = tconv.conv2d_implicit(x, wt, b, **kw_)
+        assert tconv.conv2d_implicit.launches == n0 + 1
+        assert torch.equal(got, tref.conv2d_ref(x, wt, b, **kw_))
+        a = tref.im2col(x, kh, kh, stride, pad)
+        for fn in (tgemm.gemm_os, tgemm.gemm_ws):
+            host = fn(a, wt.reshape(-1, co), b[None, :], acc_dtype=torch.int32,
+                      out_dtype=out, shift=8, activation=act)
+            assert torch.equal(host.reshape(got.shape), got)
+
+
+@pytest.mark.parametrize("n,h,w,ci,co,kh,kw,stride,pad", [
+    (2, 7, 9, 64, 24, 5, 3, 1, 2),     # padding on every border, g = 16
+    (1, 6, 5, 8, 40, 3, 3, 1, 1),      # CI = 8: 8-byte copies
+    (2, 9, 9, 12, 16, 3, 3, 2, 1),     # CI = 12: 4-byte copies
+    (1, 10, 10, 3, 16, 7, 7, 2, 3),    # CI = 3: the byte path
+    (1, 5, 5, 64, 16, 3, 3, 1, 1),     # deep narrow, K = 576 split
+    (3, 4, 4, 20, 8, 1, 1, 1, 0),      # 1x1, CI = 20: matrix loader
+    (1, 9, 9, 32, 16, 1, 1, 2, 0),     # 1x1 strided: the tap gather
+])
+def test_conv2d_implicit_edges(card, n, h, w, ci, co, kh, kw, stride, pad):
+    g = torch.Generator(device=card).manual_seed(h * w + ci)
+    x = _i8(g, (n, h, w, ci), -64, 64)
+    wt = _i8(g, (kh, kw, ci, co), -32, 32)
+    b = torch.randint(-500, 500, (co,), generator=g, device=card,
+                      dtype=torch.int32)
+    kw_ = dict(stride=stride, padding=pad, acc_dtype=torch.int32,
+               out_dtype=torch.int8, shift=6, activation=Activation.RELU6)
+    assert torch.equal(tconv.conv2d_implicit(x, wt, b, **kw_),
+                       tref.conv2d_ref(x, wt, b, **kw_))
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_float_gemm_ws_matches_plain(card, dtype):
     """The WS order on the float datapath: the same tiles, weight-major."""

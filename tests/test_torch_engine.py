@@ -87,6 +87,31 @@ def test_int8_gemm_matches_jax_kernels(m, n, k, df, bias, shift, act):
 
 
 @pytest.mark.parametrize("out", ["int8", "int32"])
+@pytest.mark.parametrize("df", ["OS", "WS"])
+@pytest.mark.parametrize("m,n,k,lo", [(40, 24, 384, 120), (17, 136, 200, 96)])
+def test_int8_gemm_wraps_like_jax(m, n, k, lo, df, out):
+    """The int32 sum wraps modulo 2^32, in the JAX kernels and in the port:
+    all-positive operands and a bias within 2^20 of 2^31 - 1 carry every
+    output past it (the bits the card's split-K merge must keep)."""
+    rng = np.random.default_rng(m * k + n)
+    a, b = _i8(rng, (m, k), lo, 128), _i8(rng, (k, n), lo, 128)
+    d = rng.integers(2 ** 31 - 2 ** 20, 2 ** 31 - 1, (1, n)).astype(np.int32)
+    assert (d.astype(np.int64) + lo * lo * k > 2 ** 31 - 1).all()
+    jcfg = JGemminiConfig(dataflow=JDataflow.BOTH, output_dtype=out)
+    want = JContext(cfg=jcfg, backend="interpret").gemm(
+        jnp.asarray(a), jnp.asarray(b), jnp.asarray(d),
+        dataflow=JDataflow[df], shift=3, activation=JActivation.NONE)
+    ctx = ExecutionContext(cfg=GemminiConfig(dataflow=Dataflow.BOTH,
+                                             output_dtype=out))
+    got = ctx.gemm(_t(a), _t(b), _t(d), dataflow=Dataflow[df], shift=3,
+                   activation=Activation.NONE)
+    _eq(got, want)
+    if out == "int32":
+        exact = (a.astype(np.int64) @ b.astype(np.int64) + d) >> 3
+        assert (np.asarray(want) < 0).all() and (exact > 2 ** 28).all()
+
+
+@pytest.mark.parametrize("out", ["int8", "int32"])
 @pytest.mark.parametrize("act,shift", [("RELU", 5), ("NONE", 0),
                                        ("RELU6", 31)])
 def test_accumulator_epilogue_matches_jax(out, act, shift):
@@ -193,6 +218,27 @@ def test_conv2d_matches_jax_kernel(fused, n, h, w, ci, co, kh, kw, stride,
         _t(x), _t(wt), None if b is None else _t(b), stride=stride,
         padding=pad, shift=7, activation=Activation.RELU, fused=fused)
     _eq(got, want)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("df", ["OS", "WS"])
+def test_deep_narrow_conv_matches_jax_kernel(fused, df):
+    """3x3 over 5x5x64 -> 16 (K = 576, the depth the card splits over its
+    taps), padding on every border, through both conv routes and, on the
+    host route, both dataflows."""
+    rng = np.random.default_rng(576)
+    x = _i8(rng, (1, 5, 5, 64))
+    wt = _i8(rng, (3, 3, 64, 16))
+    b = rng.integers(-2 ** 20, 2 ** 20, (16,)).astype(np.int32)
+    want = jconv.conv2d_implicit(
+        jnp.asarray(x), jnp.asarray(wt), jnp.asarray(b),
+        cfg=JGemminiConfig(), stride=1, padding=1, shift=9,
+        activation=JActivation.RELU, co_tile=8, interpret=True)
+    got = ExecutionContext(cfg=GemminiConfig(dataflow=Dataflow.BOTH)).conv2d(
+        _t(x), _t(wt), _t(b), stride=1, padding=1, shift=9,
+        activation=Activation.RELU, fused=fused, dataflow=Dataflow[df])
+    _eq(got, want)
+    assert np.asarray(want).any()
 
 
 @pytest.mark.parametrize("kh,stride,pad", [(3, 1, 1), (3, 2, 0), (7, 2, 3)])

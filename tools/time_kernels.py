@@ -9,13 +9,18 @@ window 1024; the dense flash kernel on the same keys gathered beforehand
 beside each), paged decode at gemma3-1b's serving shape (global and with
 the 512-key window), and the bf16 chunked
 SSD at mamba2-1.3b's and hymba-1.5b's widths (the serving call, 256 tokens
-resumed, and 1000 tokens fresh). It times the ``repro_torch`` package
+resumed, and 1000 tokens fresh), and the int8 engine (``--only engine``:
+the quickstart GEMM and ResNet-50's distinct layers as GEMMs on both
+dataflows beside ``torch._int_mm``, the conv kernel at the stream's
+distinct convs, and the device time of the 50-layer stream per route). It
+times the ``repro_torch`` package
 found under ``--src``, so two checkouts compare on one card, run after
 run:
 
   python3 tools/time_kernels.py --src OTHER_CHECKOUT/src --tag parent
   python3 tools/time_kernels.py --tag change
-  python3 tools/time_kernels.py --only ssd    # one group: gemm, attention, ssd
+  python3 tools/time_kernels.py --only ssd    # one group: gemm, attention,
+                                              # ssd, engine
 
 Each output is held against its plain version (``chip_smoke.check_close``;
 a miss is reported in the row's ``check``, not fatal) and timed with ``chip_smoke.Timer`` (CUDA events, L2 flushed, median of
@@ -182,6 +187,90 @@ def ssd_cases(torch, cs):
     return out
 
 
+def engine_cases(torch, cs):
+    """The int8 engine kernels: the quickstart GEMM and every distinct
+    layer of ResNet-50's stream as a GEMM (``chip_smoke.resnet50_shapes``),
+    each on both dataflows with ``torch._int_mm`` (the product alone)
+    beside the OS row where it takes the shape, and the conv kernel at
+    every distinct conv of the stream. Bit-exact against the plain
+    version."""
+    from repro_torch.core.config import Activation
+    from repro_torch.kernels import conv as kc
+    from repro_torch.kernels import gemm as kg
+    from repro_torch.kernels.ref import conv2d_ref, gemm_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    i8, i32 = torch.int8, torch.int32
+
+    def rint(lo, hi, *shape, dtype=i8):
+        return torch.randint(lo, hi, shape, generator=gen, device="cuda",
+                             dtype=dtype)
+
+    kw = dict(acc_dtype=i32, out_dtype=i8, shift=7,
+              activation=Activation.RELU)
+    shapes = cs.resnet50_shapes()
+    out = []
+    for label, m, n, k in [("quickstart", 1000, 512, 2048)] + [
+            (f"resnet50 {lab}", *mnk) for lab, mnk, _, _ in shapes]:
+        a, b = rint(-128, 128, m, k), rint(-128, 128, k, n)
+        bias = rint(-1000, 1000, 1, n, dtype=i32)
+        lib = (lambda a=a, b=b: torch._int_mm(a, b)) \
+            if m > 16 and k % 8 == 0 and n % 8 == 0 else None
+        work = (m * k + k * n + 4 * n + m * n, 2.0 * m * n * k)
+        for kernel, fn in (("gemm[int8]", kg.gemm_os),
+                           ("gemm_ws", kg.gemm_ws)):
+            out.append((kernel, f"{label} M={m} N={n} K={k}", "int",
+                        lambda a=a, b=b, bias=bias, fn=fn: fn(a, b, bias,
+                                                              **kw),
+                        lambda a=a, b=b, bias=bias: gemm_ref(a, b, bias,
+                                                             **kw),
+                        lib if kernel == "gemm[int8]" else None, work))
+    for label, _, (h, ci, co, kh, stride, pad), _ in shapes:
+        if label == "classifier":
+            continue
+        x, w = rint(-64, 64, 1, h, h, ci), rint(-32, 32, kh, kh, ci, co)
+        bias = rint(-500, 500, co, dtype=i32)
+        oh = (h + 2 * pad - kh) // stride + 1
+        ckw = dict(stride=stride, padding=pad, acc_dtype=i32, out_dtype=i8,
+                   shift=8, activation=Activation.RELU)
+        out.append(("conv2d_implicit",
+                    f"{label} 1x{h}x{h}x{ci} -> {oh}x{oh}x{co}", "int",
+                    lambda x=x, w=w, bias=bias, ckw=ckw:
+                        kc.conv2d_implicit(x, w, bias, **ckw),
+                    lambda x=x, w=w, bias=bias, ckw=ckw:
+                        conv2d_ref(x, w, bias, **ckw), None,
+                    (x.numel() + w.numel() + 4 * co + oh * oh * co,
+                     2.0 * oh * oh * co * kh * kh * ci)))
+    return out
+
+
+def engine_streams(torch, cs):
+    """Device ms of ResNet-50's 50-layer stream at batch 1 per route (host
+    im2col + OS GEMM, host im2col + WS GEMM, fused conv), from
+    ``torch.profiler`` device events as ``chip_smoke.py`` phase 6 reads
+    them (``profile_call``: mean of 3 passes)."""
+    from repro_torch.core.config import Dataflow
+    from repro_torch.core.generator import elaborate
+    from repro_torch.examples import quickstart
+
+    inst = elaborate(quickstart.QUICKSTART_CFG)
+    layers = cs.resnet50_layers(torch)
+    routes = {"host im2col + OS GEMM": dict(fused=False, dataflow=Dataflow.OS),
+              "host im2col + WS GEMM": dict(fused=False, dataflow=Dataflow.WS),
+              "fused conv kernel": dict(fused=True)}
+    out = {}
+    for route, kw in routes.items():
+        prof = cs.profile_call(
+            torch, route, lambda kw=kw: [
+                inst.conv2d(x, w, b, stride=st, padding=p, shift=8,
+                            activation=act, **kw)
+                for _, x, w, b, st, p, act in layers], quiet=True)
+        out[route] = {"device_ms": prof["device_ms"],
+                      "device_ms_by_kernel": prof["device_ms_by_kernel"],
+                      "wall_ms": prof["wall_ms"]}
+    return out
+
+
 def enqueue_us(torch, fn, n=50):
     """Host microseconds per call of ``fn`` launched back to back (the
     wrapper's own cost: argument checks, plan and workspace lookups, the
@@ -201,7 +290,7 @@ def main() -> int:
     ap.add_argument("--src", default=os.path.join(ROOT, "src"),
                     help="directory holding the repro_torch package to time")
     ap.add_argument("--tag", default="", help="names the run in the output")
-    ap.add_argument("--only", choices=("gemm", "attention", "ssd"),
+    ap.add_argument("--only", choices=("gemm", "attention", "ssd", "engine"),
                     help="time one group of kernels")
     args = ap.parse_args()
     import torch
@@ -224,6 +313,8 @@ def main() -> int:
         cases += attention_cases(torch)
     if args.only in (None, "ssd"):
         cases += ssd_cases(torch, cs)
+    if args.only in (None, "engine"):
+        cases += engine_cases(torch, cs)
     rows = []
     for kernel, label, kind, run_k, run_p, run_lib, work in cases:
         # A timing tool reports a miss and goes on (``chip_smoke.py`` is the
@@ -237,6 +328,8 @@ def main() -> int:
         row = {"kernel": kernel, "shape": label, "max_abs_err": err,
                "check": check, "ms": timer(run_k),
                "enqueue_us": enqueue_us(torch, run_k)}
+        if kernel in ("gemm[int8]", "gemm_ws", "conv2d_implicit"):
+            row["plain_ms"] = timer(run_p)
         if run_lib is not None:
             row["library_ms"] = timer(run_lib)
         if work is not None:
@@ -254,9 +347,15 @@ def main() -> int:
         print(f"[time_kernels] {args.tag} gemm step sum M={m}: kernel "
               f"{sm['ms']:.4f} ms  torch.matmul {sm['library_ms']:.4f} ms",
               flush=True)
+    streams = engine_streams(torch, cs) if args.only in (None, "engine") \
+        else {}
+    for route, st in streams.items():
+        print(f"[time_kernels] {args.tag} resnet50 stream, {route}: device "
+              f"{st['device_ms']:.4f} ms (wall {st['wall_ms']:.3f} ms)",
+              flush=True)
     print(json.dumps({"tag": args.tag, "device": torch.cuda.get_device_name(0),
                       "src": os.path.abspath(args.src), "rows": rows,
-                      "gemm_step_sums": sums}))
+                      "gemm_step_sums": sums, "engine_streams": streams}))
     return 0
 
 
