@@ -17,10 +17,18 @@ Needs one CUDA card, ``nvcc`` and the repository checkout around this file
    as a GEMM on both dataflows, each with its ``gemm_s8_plan`` and
    ``torch._int_mm`` beside it where that call takes the shape; the conv
    kernel at every distinct conv of the stream; the mvout epilogue),
-   where the int8 kernels must be bit-exact. Times are
+   where the int8 kernels must be bit-exact, and at phase 6b's (the fp16
+   and int16 GEMMs at the quickstart shape on both dataflows, fp16 beside
+   ``torch.matmul``; int16 and fp16 outputs of the int8 and bf16 kernels
+   and of the mvout epilogue; the fp32, bf16, fp16 and int16 conv kernels
+   at the stem, stage-1 3x3 and stage-4 3x3 beside
+   ``torch.nn.functional.conv2d``; PyTorch's errors for int16 matmul and
+   conv on the card are logged), int16 bit-exact. Times are
    CUDA-event medians with the L2 cache flushed before each launch;
-   bounds use 3.35 TB/s and 989 TFLOP/s (bf16 tensor rate; 67 TFLOP/s for
-   fp32 inputs, 1979 TOP/s for int8);
+   bounds use 3.35 TB/s and 989 TFLOP/s (bf16 / fp16 tensor rate; 67
+   TFLOP/s for fp32 inputs, 1979 TOP/s for int8, and for int16 the INT32
+   multiply-add rate of the card's CUDA cores, 64 lanes an SM at its
+   maximum SM clock);
 4. serve: gemma3-1b at full width (26 layers, random weights from a seed)
    through ``ServingEngine``: four requests, prompts of 1000, 512, 300 and
    64 tokens, 32 new tokens each, 256-token prefill chunks; launch counts
@@ -40,6 +48,16 @@ Needs one CUDA card, ``nvcc`` and the repository checkout around this file
    whole and per stage. Every output equals the plain version bit for
    bit and OS equals WS; launch counts are zeroed just before and read
    just after, and every engine kernel must have run;
+6b. datapaths: the same 50-layer stream on four BOTH instances, each
+   layer drawn at the instance's input type from a seed: Table 1's design
+   point 4 (fp32 -> fp32 -> fp32), bf16 -> fp32 -> bf16 (the serving
+   engine's datapath), fp16 -> fp32 -> fp16 and int16 -> int32 -> int16,
+   through all three routes; every output held against ``conv2d_ref`` at
+   the same dtypes (int16 bit-exact, floats by ``check_close``'s rules),
+   OS equal to WS bit for bit, int16 saturations counted; launch counts
+   zeroed just before and read just after, and every kernel of
+   ``DATAPATH_KERNELS`` must have run; each route's wall (median of 3) and
+   device time, whole and per stage;
 7. recurrent serve: mamba2-1.3b at its published widths (48 layers,
    d_model 2048, d_state 128; bf16, weights from seed 0) on phase 4's
    traffic; the chunked SSD must launch once per layer for every prefill
@@ -87,8 +105,9 @@ the JSON carry the GEMM's sums over one decode step (M = 4) and one
 prefill chunk (M = 256), 7 projections per layer and the unembedding.
 Every main path's launch counts are zeroed
 just before it and read just after; the kernels line takes each kernel's
-count from its own path: the serve phase, the engine phase, the recurrent
-serve (``ssd``) or the static path (``decode_attention``).
+count from its own path: the serve phase, the engine phase, phase 6b (the
+fp16 / int16 GEMMs and the fp32 / bf16 / fp16 / int16 convs), the
+recurrent serve (``ssd``) or the static path (``decode_attention``).
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``. Per-shape results and the
@@ -110,7 +129,13 @@ SRC = os.path.join(ROOT, "src")
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "int": 1979e12}
+# Peaks by check kind: the tensor-core rates (bf16 and fp16 989 TFLOP/s,
+# int8 1979 TOP/s), fp32 on CUDA cores 67 TFLOP/s, and int16 on CUDA cores:
+# no int16 tensor-core MMA, so the INT32 multiply-add rate, 64 lanes an SM
+# at 2 operations each; 132 SMs at 1.98 GHz here, replaced in ``main`` by
+# the card's SM count and maximum SM clock.
+PEAK_FLOPS = {"bf16": 989e12, "fp16": 989e12, "fp32": 67e12, "int": 1979e12,
+              "int16": 64 * 2 * 132 * 1.98e9}
 REPS = 25
 
 # Full-width logits, card against the CPU plain path. fp32: each limit sits
@@ -196,9 +221,12 @@ def check_close(torch, name, got, want, kind):
     """bf16: one bf16 ulp of the value (2^-7 relative) plus 2^-14 of the
     output's largest magnitude, since kernel and plain version sum in other
     orders and a value near a rounding boundary may round either way.
-    fp32: 1e-5 relative plus 1e-6 of the largest magnitude (sum order).
-    int: bit-exact, same dtype (the int32 sum is exact in any order)."""
-    if kind == "int":
+    fp16: the same with one fp16 ulp (2^-10 relative), and infinities (an
+    fp16 overflow) in the same places with the same sign; the largest
+    magnitude is the largest finite one. fp32: 1e-5 relative plus 1e-6 of
+    the largest magnitude (sum order). int, int16: bit-exact, same dtype
+    (the int32 sum is exact in any order)."""
+    if kind in ("int", "int16"):
         if got.dtype != want.dtype or got.shape != want.shape:
             fail(f"{name}: {got.dtype} {tuple(got.shape)} != {want.dtype} "
                  f"{tuple(want.shape)}")
@@ -211,12 +239,22 @@ def check_close(torch, name, got, want, kind):
     g, w = got.float(), want.float()
     if g.shape != w.shape:
         fail(f"{name}: shape {tuple(g.shape)} != {tuple(w.shape)}")
+    if kind == "fp16":
+        inf = torch.isinf(w)
+        if not torch.equal(torch.isinf(g), inf) or \
+                not torch.equal(g[inf], w[inf]):
+            fail(f"{name}: infinities differ from the plain version's "
+                 f"({int(torch.isinf(g).sum())} against {int(inf.sum())})")
+        g, w = g[~inf], w[~inf]
     if not torch.isfinite(g).all():
         fail(f"{name}: non-finite kernel output")
+    if g.numel() == 0:
+        return 0.0
     err = (g - w).abs()
     scale = w.abs().max().item()
-    rtol, atol = (2.0 ** -7, 2.0 ** -14 * scale) if kind == "bf16" \
-        else (1e-5, 1e-6 * scale)
+    rtol, atol = {"bf16": (2.0 ** -7, 2.0 ** -14 * scale),
+                  "fp16": (2.0 ** -10, 2.0 ** -14 * scale)}.get(
+                      kind, (1e-5, 1e-6 * scale))
     bad = err > rtol * w.abs() + atol
     if bad.any():
         fail(f"{name}: {int(bad.sum())} of {bad.numel()} elements outside "
@@ -534,6 +572,7 @@ def kernel_cases(torch, rng_seed=0):
                 None, False)
     decode_case([77, 0, 16, 33], 8, 2, 128, 16, 40, 8, 24, 50.0, False)
     engine_cases(torch, gen, cases)
+    datapath_cases(torch, gen, cases)
     recurrent_cases(torch, gen, cases)
     return cases
 
@@ -891,6 +930,173 @@ def engine_cases(torch, gen, cases):
             {"plan": s8_plan_text(kg, *mnk)}))
 
 
+# The float and 16-bit datapaths (phase 6b): each kernel's report name,
+# and each input type's check kind and epilogue shift.
+DATAPATH_KERNELS = ("gemm[fp16]", "gemm[int16]", "conv2d_implicit[fp32]",
+                    "conv2d_implicit[bf16]", "conv2d_implicit[fp16]",
+                    "conv2d_implicit[int16]")
+DATAPATH_KIND = {"fp32": "fp32", "bf16": "bf16", "fp16": "fp16",
+                 "int16": "int16"}
+
+
+def datapath_operands(torch, gen, dtype, shape_x, shape_w, n):
+    """Operands at ``dtype`` from ``gen``: floats x ~ N(0, 1), w ~ N(0, 1) /
+    sqrt(K) (K: the product of w's leading dimensions) and an fp32 N(0, 1)
+    bias, shift 1; int16 x in [-2^14, 2^14), w in [-2^8, 2^8) and an int32
+    bias in [-2^24, 2^24), shift 10 (enough for some outputs to
+    saturate). Returns (x, w, bias, shift)."""
+    import math
+
+    k = math.prod(shape_w[:-1])
+    if dtype.is_floating_point:
+        x = torch.randn(shape_x, generator=gen, device="cuda").to(dtype)
+        w = (torch.randn(shape_w, generator=gen, device="cuda") * k ** -0.5
+             ).to(dtype)
+        return x, w, torch.randn((n,), generator=gen, device="cuda"), 1
+    x = torch.randint(-2 ** 14, 2 ** 14, shape_x, generator=gen,
+                      device="cuda", dtype=dtype)
+    w = torch.randint(-2 ** 8, 2 ** 8, shape_w, generator=gen, device="cuda",
+                      dtype=dtype)
+    b = torch.randint(-2 ** 24, 2 ** 24, (n,), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    return x, w, b, 10
+
+
+def conv_plan_text(kc, m, n, k, dtype):
+    """The conv kernel's plan for a datapath and an implicit GEMM."""
+    p = kc.conv_plan(m, n, k, dtype)
+    bm, bn, bk = p["tile"]
+    return (f"{p['regime']} {bm}x{bn}x{bk}, {p['splits']} K splits, "
+            f"{p['grid']} blocks x {p['threads']}, {p['stages']} stages, "
+            f"{p['smem']} B shared, workspace {p['workspace_bytes']} B")
+
+
+def datapath_cases(torch, gen, cases):
+    """The float and 16-bit datapaths' kernels at phase 6b's shapes:
+    gemm[fp16] and gemm[int16] at the quickstart GEMM (1000 x 512 x 2048,
+    bias, ReLU) on both dataflows, fp16 beside ``torch.matmul``; the int8
+    kernel with int16 outputs and the bf16 kernel with fp16 outputs there;
+    the mvout epilogue to int16 and to fp16; and each conv kernel (fp32,
+    bf16, fp16, int16) at the stem, stage-1 3x3 and stage-4 3x3 convs
+    beside ``torch.nn.functional.conv2d`` on channels-last views (conv and
+    bias; fp32 with TF32 off, as ``main`` sets it). PyTorch has no int16
+    matmul or conv on the card: the errors are logged, and those rows have
+    no library time. Each row logs its kernel's plan."""
+    from repro_torch.core.config import Activation
+    from repro_torch.kernels import conv as kc
+    from repro_torch.kernels import epilogue as epi
+    from repro_torch.kernels import gemm as kg
+    from repro_torch.kernels.ref import conv2d_ref, gemm_ref
+
+    f32, i32 = torch.float32, torch.int32
+    dtypes = {"fp32": f32, "bf16": torch.bfloat16, "fp16": torch.float16,
+              "int16": torch.int16}
+    relu = Activation.RELU
+    probe = torch.ones((4, 4), dtype=torch.int16, device="cuda")
+    for what, call in (
+            ("torch.matmul", lambda: probe @ probe),
+            ("torch.nn.functional.conv2d",
+             lambda: torch.nn.functional.conv2d(probe[None, None],
+                                                probe[None, None]))):
+        try:                          # the yardstick only, never the port
+            call()
+            log(f"{what} ran on int16 CUDA tensors")
+        except RuntimeError as e:
+            log(f"{what} on int16 CUDA tensors raised RuntimeError: "
+                f"{str(e).splitlines()[0]}")
+
+    m, n, k = 1000, 512, 2048
+    for kind, name in (("fp16", "gemm[fp16]"), ("int16", "gemm[int16]")):
+        dt = dtypes[kind]
+        a, b, bias, shift = datapath_operands(torch, gen, dt, (m, k), (k, n),
+                                              n)
+        kw = dict(acc_dtype=f32 if dt.is_floating_point else i32,
+                  out_dtype=dt, shift=shift, activation=relu)
+        lib = (lambda a=a, b=b: torch.matmul(a, b)) if kind == "fp16" \
+            else None
+        plan = gemm_plan_text(kg, m, n, k, dtype=dt)
+        for kernel, fn in ((name, kg.gemm_os), ("gemm_ws", kg.gemm_ws)):
+            cases.append((
+                kernel, f"{kind} quickstart M={m} N={n} K={k} bias "
+                f"shift={shift} relu", kernel == name, kind,
+                lambda a=a, b=b, bias=bias, fn=fn, kw=kw: fn(a, b, bias, **kw),
+                lambda a=a, b=b, bias=bias, kw=kw: gemm_ref(a, b, bias, **kw),
+                lib if kernel == name else None,
+                2 * (m * k + k * n + m * n) + 4 * n, 2.0 * m * n * k,
+                {"plan": plan}))
+    # the older kernels' new outputs: int8 -> int16, bf16 -> fp16
+    for kernel, dt, out, kind, label in (
+            ("gemm[int8]", torch.int8, torch.int16, "int", "int8 -> int16"),
+            ("gemm", torch.bfloat16, torch.float16, "fp16", "bf16 -> fp16")):
+        if dt.is_floating_point:
+            a, b, bias, shift = datapath_operands(torch, gen, dt, (m, k),
+                                                  (k, n), n)
+        else:
+            a = torch.randint(-128, 128, (m, k), generator=gen,
+                              device="cuda", dtype=dt)
+            b = torch.randint(-128, 128, (k, n), generator=gen,
+                              device="cuda", dtype=dt)
+            bias = torch.randint(-2 ** 20, 2 ** 20, (n,), generator=gen,
+                                 device="cuda", dtype=i32)
+            shift = 4
+        kw = dict(acc_dtype=f32 if dt.is_floating_point else i32,
+                  out_dtype=out, shift=shift, activation=relu)
+        cases.append((
+            kernel, f"{label} quickstart M={m} N={n} K={k} bias "
+            f"shift={shift} relu", False, kind,
+            lambda a=a, b=b, bias=bias, kw=kw: kg.gemm_os(a, b, bias, **kw),
+            lambda a=a, b=b, bias=bias, kw=kw: gemm_ref(a, b, bias, **kw),
+            None, a.element_size() * (m * k + k * n) + 2 * m * n + 4 * n,
+            2.0 * m * n * k))
+    acc = torch.randint(-2 ** 31, 2 ** 31 - 1, (1000, 512), generator=gen,
+                        device="cuda", dtype=i32)
+    accf = torch.randn((3136, 256), generator=gen, device="cuda") * 2.0 ** 14
+    for acc_t, out, kind, shift in ((acc, torch.int16, "int", 9),
+                                    (accf, torch.float16, "fp16", 0)):
+        kw = dict(out_dtype=out, shift=shift, activation=relu)
+        cases.append((
+            "accumulator_epilogue", f"{str(acc_t.dtype)[6:]} "
+            f"{tuple(acc_t.shape)} -> {str(out)[6:]} shift={shift} relu",
+            False, kind,
+            lambda acc_t=acc_t, kw=kw: kg.accumulator_epilogue(acc_t, **kw),
+            lambda acc_t=acc_t, kw=kw: epi.apply(acc_t, **kw), None,
+            6 * acc_t.numel(), 0.0))
+
+    shapes = {label: (mnk, conv) for label, mnk, conv, _ in resnet50_shapes()}
+    for kind, dt in dtypes.items():
+        name = f"conv2d_implicit[{kind}]"
+        for label in ("conv1 7x7/2", "stage-1 3x3", "stage-4 3x3"):
+            (mm, co, kk), (h, ci, _, kh, stride, pad) = shapes[label]
+            x, w, bias, shift = datapath_operands(
+                torch, gen, dt, (1, h, h, ci), (kh, kh, ci, co), co)
+            acc_t = f32 if dt.is_floating_point else i32
+            kw = dict(stride=stride, padding=pad, acc_dtype=acc_t,
+                      out_dtype=dt, shift=shift, activation=relu)
+            lib = None
+            if dt.is_floating_point:
+                # the library's own layout, made once: NCHW views of the
+                # NHWC image and an OIHW channels-last filter
+                xl = x.permute(0, 3, 1, 2)
+                wl = w.permute(3, 2, 0, 1).contiguous(
+                    memory_format=torch.channels_last)
+                bl = bias.to(dt)
+                lib = (lambda xl=xl, wl=wl, bl=bl, stride=stride, pad=pad:
+                       torch.nn.functional.conv2d(xl, wl, bl, stride=stride,
+                                                  padding=pad))
+            oh = (h + 2 * pad - kh) // stride + 1
+            es = x.element_size()
+            cases.append((
+                name, f"{label} 1x{h}x{h}x{ci} -> {oh}x{oh}x{co}",
+                label == "stage-1 3x3", DATAPATH_KIND[kind],
+                lambda x=x, w=w, bias=bias, kw=kw: kc.conv2d_implicit(
+                    x, w, bias, **kw),
+                lambda x=x, w=w, bias=bias, kw=kw: conv2d_ref(x, w, bias,
+                                                              **kw),
+                lib, es * (x.numel() + w.numel() + oh * oh * co) + 4 * co,
+                2.0 * oh * oh * co * kh * kh * ci,
+                {"plan": conv_plan_text(kc, mm, co, kk, dt)}))
+
+
 def run_kernel_phase(torch, timer):
     """Each case: (kernel, label, representative, kind, run_kernel,
     run_plain, run_library, bytes, flops[, opts]); ``opts["check"]``
@@ -1044,10 +1250,12 @@ _KERNEL_NAMES = (("ssd_kernel", "ssd"), ("ssd_tc_kernel", "ssd"),
                  ("PagedKV", "paged_prefill_attention"),
                  ("flash_tc_kernel", "flash_attention"),
                  ("ConvTapsA", "conv2d_implicit"),
-                 ("ConvRowsA", "conv2d_implicit"), ("MatrixA", "gemm[int8]"),
+                 ("ConvRowsA", "conv2d_implicit"),
+                 ("ConvRowsQ", "conv2d_implicit"),
                  ("epilogue_kernel", "accumulator_epilogue"),
                  ("hgemm::skinny_kernel", "gemm"),
                  ("hgemm::wide_kernel", "gemm"), ("sgemm_kernel", "gemm"),
+                 ("MatrixA", "gemm[int8]"),
                  ("true>", "paged_prefill_attention"),
                  ("prefill_attn_kernel", "flash_attention"))
 
@@ -1062,9 +1270,11 @@ def _kernel_class(name: str) -> str:
 def profile_call(torch, name, fn, n=3, quiet=False):
     """Wall time of one synchronised ``fn()`` (median of 5) against the
     device time of every kernel ``torch.profiler`` saw in it (mean of n),
-    by kernel class; "gemm[int8]" covers the int8 GEMM in either order.
+    by kernel class; "gemm[int8]" covers the int8 GEMM in either order,
+    "gemm" every other GEMM (bf16, fp16, fp32, int16), "conv2d_implicit"
+    the conv on every datapath.
     ``quiet``: no log line (the caller logs a summary)."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
@@ -1074,21 +1284,34 @@ def profile_call(torch, name, fn, n=3, quiet=False):
         fn()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    by_class, launches = {}, {}
-    for a in prof.key_averages():
-        # Device activity only: an operator's entry repeats the time
-        # of the kernels it launched.
-        if not str(a.device_type).endswith("CUDA"):
-            continue
-        dev_us = a.self_device_time_total
-        cls = _kernel_class(a.key)
-        by_class[cls] = by_class.get(cls, 0.0) + dev_us / 1e3 / n
-        launches[cls] = launches.get(cls, 0) + a.count // n
+    # One warm-up pass inside the profiler, its events dropped: without it
+    # the window's first kernel went unrecorded on the H100 (one launch
+    # short per window: a one-layer stage read about 2/3 of its time). A
+    # window that recorded no device activity at all (now and then, in the
+    # shortest windows) is taken again, at most twice.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=n,
+                                       repeat=1)) as prof:
+            for _ in range(n + 1):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        by_class, launches = {}, {}
+        for a in prof.key_averages():
+            # Device activity only: an operator's entry repeats the time
+            # of the kernels it launched, and a step's mark spans the step.
+            if not str(a.device_type).endswith("CUDA") or \
+                    a.key.startswith("ProfilerStep"):
+                continue
+            cls = _kernel_class(a.key)
+            by_class[cls] = (by_class.get(cls, 0.0) +
+                             a.self_device_time_total / 1e3 / n)
+            launches[cls] = launches.get(cls, 0) + a.count
+        if by_class:
+            break
+    launches = {cls: c // n for cls, c in launches.items()}
     wall = statistics.median(walls)
     device = sum(by_class.values())
     out = {"wall_ms": wall, "device_ms": device,
@@ -1204,12 +1427,14 @@ def run_e2e_phase(torch, np):
 ENGINE_REPS = 3
 
 
-def resnet50_layers(torch, seed=0):
-    """``dse.resnet(50)``'s 50 GEMM-shaped layers at batch 1 as int8 convs
-    with data from a seed: the 7x7/2 stem on a 224x224x3 image, each 1x1
-    and 3x3 (pad 1) at its stage's width and resolution, and the classifier
-    as a 1x1 conv over a 1x1x2048 image (host route: the (1, 2048) x
-    (2048, 1000) GEMM). Returns (label, x, w, bias, stride, pad, act)."""
+def resnet50_layers(torch, seed=0, dtype=None):
+    """``dse.resnet(50)``'s 50 GEMM-shaped layers at batch 1 as convs with
+    data from a seed: the 7x7/2 stem on a 224x224x3 image, each 1x1 and
+    3x3 (pad 1) at its stage's width and resolution, and the classifier as
+    a 1x1 conv over a 1x1x2048 image (host route: the (1, 2048) x (2048,
+    1000) GEMM). int8 (``dtype`` None): x in [-64, 64), w in [-32, 32),
+    an int32 bias in [-500, 500); another dtype draws each layer by
+    ``datapath_operands``. Returns (label, x, w, bias, stride, pad, act)."""
     import math
 
     from repro_torch.core import dse
@@ -1229,12 +1454,16 @@ def resnet50_layers(torch, seed=0):
         oh = (h + 2 * pad - kh) // stride + 1
         if oh * oh != g.m or kh * kh * ci != g.k:
             fail(f"resnet50 layer {i}: {g} is not a square conv")
-        x = torch.randint(-64, 64, (1, h, h, ci), generator=gen,
-                          device="cuda", dtype=torch.int8)
-        w = torch.randint(-32, 32, (kh, kh, ci, g.n), generator=gen,
-                          device="cuda", dtype=torch.int8)
-        b = torch.randint(-500, 500, (g.n,), generator=gen, device="cuda",
-                          dtype=torch.int32)
+        if dtype is not None:
+            x, w, b, _ = datapath_operands(torch, gen, dtype, (1, h, h, ci),
+                                           (kh, kh, ci, g.n), g.n)
+        else:
+            x = torch.randint(-64, 64, (1, h, h, ci), generator=gen,
+                              device="cuda", dtype=torch.int8)
+            w = torch.randint(-32, 32, (kh, kh, ci, g.n), generator=gen,
+                              device="cuda", dtype=torch.int8)
+            b = torch.randint(-500, 500, (g.n,), generator=gen,
+                              device="cuda", dtype=torch.int32)
         act = Activation.NONE if g.m == 1 else Activation.RELU
         layers.append((f"{i}: {kh}x{kh}/{stride} {h}x{h}x{ci}->{g.n}", x, w,
                        b, stride, pad, act))
@@ -1285,80 +1514,185 @@ def run_engine_phase(torch, smi):
         fail("mvout route (int32 GEMM + accumulator_epilogue) differs from "
              "the fused epilogue's oracle")
 
-    routes = {
-        "host im2col + OS GEMM": dict(fused=False, dataflow=Dataflow.OS),
-        "host im2col + WS GEMM": dict(fused=False, dataflow=Dataflow.WS),
-        "fused conv kernel": dict(fused=True),
-    }
-
-    def stream(route, part=layers):
-        return [inst.conv2d(x, w, b, stride=st, padding=p, shift=8,
-                            activation=act, **routes[route])
-                for _, x, w, b, st, p, act in part]
-
     outs = {}
-    for route in routes:
-        outs[route] = stream(route)
+    for route in ENGINE_ROUTES:
+        outs[route] = run_stream(inst, layers, 8, route)
         torch.cuda.synchronize()
         for (label, *_), got, want in zip(layers, outs[route], refs):
             if got.dtype != torch.int8 or not torch.equal(got, want):
                 fail(f"resnet50 [{route}] layer {label}: differs from "
                      f"conv2d_ref")
-    for got_os, got_ws in zip(*(outs[r] for r in list(routes)[:2])):
+    for got_os, got_ws in zip(*(outs[r] for r in ENGINE_ROUTES[:2])):
         if not torch.equal(got_os, got_ws):
             fail("resnet50: OS and WS outputs differ")
     counts = kernels.launch_counts()
-    for name in kernels.ENGINE_KERNELS:
+    int8_kernels = [n for n in kernels.ENGINE_KERNELS
+                    if n not in DATAPATH_KERNELS]
+    for name in int8_kernels:
         if counts[name] <= 0:
             fail(f"kernel {name} was not launched on the engine path")
-    log(f"engine launch counts: "
-        f"{ {n: counts[n] for n in kernels.ENGINE_KERNELS} }")
-
-    walls = {route: [] for route in routes}
-    for rep in range(ENGINE_REPS):
-        order = list(routes) if rep % 2 == 0 else list(routes)[::-1]
-        for route in order:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            stream(route)
-            torch.cuda.synchronize()
-            walls[route].append((time.perf_counter() - t0) * 1e3)
-    ops = sum(2.0 * r.numel() * x.shape[-1] * w.shape[0] * w.shape[1]
-              for (_, x, w, *_), r in zip(layers, refs))
-    summary = {"layers": len(layers), "ops": ops, "routes": {}}
-    for route, ws in walls.items():
-        ms = statistics.median(ws)
-        summary["routes"][route] = {"wall_ms": ms, "walls_ms": ws}
-        log(f"resnet50 stream, {len(layers)} layers, batch 1, {route}: wall "
-            f"{ms:.3f} ms (median of {ENGINE_REPS}; {ops / ms / 1e9:.2f} "
-            f"TOP/s) on {smi}")
-    for route in routes:
-        summary["routes"][route]["profile"] = profile_call(
-            torch, f"resnet50 [{route}]", lambda route=route: stream(route))
-    # device time per stage (by input resolution), each route
-    stages = {}
-    for layer in layers:
-        h = layer[1].shape[1]
-        name = {224: "stem", 56: "stage 1", 28: "stage 2", 14: "stage 3",
-                7: "stage 4", 1: "classifier"}[h]
-        stages.setdefault(name, []).append(layer)
-    for route in routes:
-        per = {}
-        for name, part in stages.items():
-            prof = profile_call(torch, f"resnet50 [{route}] {name}",
-                                lambda route=route, part=part:
-                                stream(route, part), quiet=True)
-            per[name] = {k: prof[k] for k in ("device_ms",
-                                              "device_ms_by_kernel",
-                                              "launches_by_kernel")}
-            per[name]["layers"] = len(part)
-        summary["routes"][route]["stages"] = per
-        log(f"resnet50 [{route}] device ms per stage: " + ", ".join(
-            f"{n} {v['device_ms']:.4f} ({v['layers']} layers)"
-            for n, v in per.items()))
+    log(f"engine launch counts: { {n: counts[n] for n in int8_kernels} }")
+    summary = {"layers": len(layers),
+               "routes": time_routes(torch, "int8", inst, layers, 8, smi)}
     log("engine: quickstart bit-exact on OS / WS / host conv / fused conv; "
         "header equals plan_gemm; mvout route bit-exact; resnet50 stream "
         "bit-exact on all three routes, OS == WS")
+    return counts, summary
+
+
+# ---------------------------------------------------------------------------
+# phases 6 and 6b: a stream's routes and their times
+# ---------------------------------------------------------------------------
+ENGINE_ROUTES = ("host im2col + OS GEMM", "host im2col + WS GEMM",
+                 "fused conv kernel")
+
+
+def run_stream(inst, layers, shift, route):
+    """One pass of ``layers`` through the instance's ``conv2d`` on one of
+    ``ENGINE_ROUTES``: im2col in plain torch then the GEMM on OS or on WS,
+    or the fused implicit-im2col conv."""
+    from repro_torch.core.config import Dataflow
+
+    kw = {"host im2col + OS GEMM": dict(fused=False, dataflow=Dataflow.OS),
+          "host im2col + WS GEMM": dict(fused=False, dataflow=Dataflow.WS),
+          "fused conv kernel": dict(fused=True)}[route]
+    return [inst.conv2d(x, w, b, stride=st, padding=p, shift=shift,
+                        activation=act, **kw)
+            for _, x, w, b, st, p, act in layers]
+
+
+def stage_of(layer) -> str:
+    return {224: "stem", 56: "stage 1", 28: "stage 2", 14: "stage 3",
+            7: "stage 4", 1: "classifier"}[layer[1].shape[1]]
+
+
+def time_routes(torch, name, inst, layers, shift, smi):
+    """Each route's wall (median of ``ENGINE_REPS`` synchronised passes,
+    the routes in turn) and device time from ``profile_call``, whole and
+    per stage (by input resolution); one log line per route."""
+    walls = {route: [] for route in ENGINE_ROUTES}
+    for rep in range(ENGINE_REPS):
+        for route in ENGINE_ROUTES[::1 if rep % 2 == 0 else -1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_stream(inst, layers, shift, route)
+            torch.cuda.synchronize()
+            walls[route].append((time.perf_counter() - t0) * 1e3)
+    ops = sum(2.0 * x.shape[-1] * w.shape[0] * w.shape[1] * w.shape[3] *
+              ((x.shape[1] + 2 * p - w.shape[0]) // st + 1) ** 2
+              for _, x, w, _, st, p, _ in layers)
+    stages = {}
+    for layer in layers:
+        stages.setdefault(stage_of(layer), []).append(layer)
+    out = {}
+    for route in ENGINE_ROUTES:
+        prof = profile_call(torch, f"resnet50 {name} [{route}]",
+                            lambda: run_stream(inst, layers, shift, route),
+                            quiet=True)
+        per = {}
+        for stage, part in stages.items():
+            sp = profile_call(torch, f"resnet50 {name} [{route}] {stage}",
+                              lambda: run_stream(inst, part, shift, route),
+                              quiet=True)
+            per[stage] = {k: sp[k] for k in ("device_ms",
+                                             "device_ms_by_kernel",
+                                             "launches_by_kernel")}
+            per[stage]["layers"] = len(part)
+        wall = statistics.median(walls[route])
+        out[route] = {"wall_ms": wall, "walls_ms": walls[route],
+                      "ops": ops, "profile": prof, "stages": per}
+        kernels = ", ".join(f"{k} {v:.4f} x{prof['launches_by_kernel'][k]}"
+                            for k, v in prof["device_ms_by_kernel"].items())
+        log(f"resnet50 {name}, {len(layers)} layers, batch 1, [{route}]: "
+            f"wall {wall:.3f} ms (median of {ENGINE_REPS}; "
+            f"{ops / wall / 1e9:.2f} T ops/s), device {prof['device_ms']:.4f}"
+            f" ms ({kernels}); per stage " + ", ".join(
+                f"{st} {v['device_ms']:.4f}" for st, v in per.items()) +
+            f"; on {smi}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: the float and 16-bit datapaths on ResNet-50's stream
+# ---------------------------------------------------------------------------
+def datapath_instances():
+    """Phase 6b's four instances, each elaborated with both dataflows:
+    Table 1's design point 4 (fp32 -> fp32 -> fp32), bf16 -> fp32 -> bf16
+    (the serving engine's datapath), fp16 -> fp32 -> fp16 and int16 ->
+    int32 -> int16. Returns [(name, config)]."""
+    from repro_torch.core.config import (DESIGN_POINTS, Dataflow,
+                                         GemminiConfig)
+
+    both = Dataflow.BOTH
+    return [("fp32", DESIGN_POINTS[4].replace(dataflow=both))] + [
+        (i, GemminiConfig(dataflow=both, input_dtype=i, acc_dtype=a,
+                          output_dtype=i))
+        for i, a in (("bf16", "fp32"), ("fp16", "fp32"), ("int16", "int32"))]
+
+
+def run_datapath_phase(torch, smi):
+    """ResNet-50's 50-layer stream (``resnet50_layers`` at the instance's
+    input type, seed 1) on each of ``datapath_instances`` through all three
+    routes: host im2col + OS GEMM, host im2col + WS GEMM, the fused conv.
+    Every output is held against ``conv2d_ref`` at the instance's dtypes
+    (``check_close``: int16 bit-exact, fp32 / bf16 / fp16 by their rules)
+    and OS must equal WS bit for bit. Launch counts are zeroed just before
+    the four checked streams and read just after; every kernel of
+    ``DATAPATH_KERNELS`` must have run. Then each route's wall (median of
+    3 synchronised passes, routes in turn) and device time (profiler),
+    whole and per stage. Returns (counts, summary)."""
+    from repro_torch import kernels
+    from repro_torch.core.generator import elaborate
+    from repro_torch.kernels.ref import conv2d_ref
+
+    runs = []
+    for name, cfg in datapath_instances():
+        shift = 1 if cfg.input_torch.is_floating_point else 10
+        layers = resnet50_layers(torch, seed=1, dtype=cfg.input_torch)
+        refs = [conv2d_ref(x, w, b, stride=st, padding=p,
+                           acc_dtype=cfg.acc_torch,
+                           out_dtype=cfg.output_torch, shift=shift,
+                           activation=act)
+                for _, x, w, b, st, p, act in layers]
+        runs.append((name, elaborate(cfg), shift, layers, refs))
+    torch.cuda.synchronize()
+
+    kernels.reset_launch_counts()
+    summary = {}
+    for name, inst, shift, layers, refs in runs:
+        kind = DATAPATH_KIND[name]
+        outs = {}
+        for route in ENGINE_ROUTES:
+            outs[route] = run_stream(inst, layers, shift, route)
+            torch.cuda.synchronize()
+            for (label, *_), got, want in zip(layers, outs[route], refs):
+                check_close(torch, f"resnet50 {name} [{route}] layer "
+                            f"{label}", got, want, kind)
+        for got_os, got_ws in zip(*(outs[r] for r in ENGINE_ROUTES[:2])):
+            if not torch.equal(got_os, got_ws):
+                fail(f"resnet50 {name}: OS and WS outputs differ")
+        fused = outs["fused conv kernel"]
+        info = {"layers": len(layers), "outputs": sum(y.numel()
+                                                      for y in fused)}
+        if name == "int16":
+            info["saturated"] = sum(int(((y == 32767) | (y == -32768)).sum())
+                                    for y in fused)
+        else:
+            info["inf"] = sum(int(torch.isinf(y).sum()) for y in fused)
+        summary[name] = {"instance": inst.cfg.describe(), **info}
+        log(f"resnet50 {name} ({inst.cfg.describe()}): all three routes "
+            f"within the {kind} rule of conv2d_ref, OS == WS; {info}")
+        del outs, fused
+    counts = kernels.launch_counts()
+    for kname in DATAPATH_KERNELS:
+        if counts[kname] <= 0:
+            fail(f"kernel {kname} was not launched on phase 6b's path")
+    log(f"phase 6b launch counts: "
+        f"{ {n: counts[n] for n in DATAPATH_KERNELS + ('gemm', 'gemm_ws')} }")
+
+    for name, inst, shift, layers, _ in runs:
+        summary[name]["routes"] = time_routes(torch, name, inst, layers,
+                                              shift, smi)
     return counts, summary
 
 
@@ -1677,6 +2011,30 @@ def run_static_phase(torch, np, engine):
     return counts, {"wall_s": wall, "tokens": toks, "logits_rel_l2": rel}
 
 
+def ptxas_summary(lines, names) -> str:
+    """Per kernel name: its instantiations, their register range and the
+    most spill bytes any of them has, from ``-Xptxas=-v`` lines (an entry
+    line, its spill line, its register line)."""
+    import re
+
+    out = []
+    for name in names:
+        regs, spills = [], []
+        for i, ln in enumerate(lines):
+            if "entry function" not in ln or name not in ln:
+                continue
+            block = " ".join(lines[i + 1:i + 3])
+            r = re.search(r"Used (\d+) registers", block)
+            if r:
+                regs.append(int(r.group(1)))
+            spills.append(sum(int(v) for v in re.findall(
+                r"(\d+) bytes spill", block)))
+        if regs:
+            out.append(f"{name} x{len(regs)}: {min(regs)}-{max(regs)} "
+                       f"registers, spills up to {max(spills)} bytes")
+    return "; ".join(out) or "no entries"
+
+
 # ---------------------------------------------------------------------------
 def main() -> int:
     t_start = time.perf_counter()
@@ -1705,6 +2063,16 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}; python {sys.version.split()[0]}")
+    # int16 on CUDA cores: 64 INT32 multiply-add lanes an SM at the card's
+    # maximum SM clock
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    PEAK_FLOPS["int16"] = 64 * 2 * sms * clock_mhz * 1e6
+    log(f"int16 peak: 64 lanes x 2 ops x {sms} SMs x {clock_mhz:.0f} MHz "
+        f"= {PEAK_FLOPS['int16'] / 1e12:.2f} TOP/s")
 
     # 2. build
     t0 = time.perf_counter()
@@ -1716,16 +2084,16 @@ def main() -> int:
                     if "entry function" in ln or "registers" in ln
                     or "spill" in ln]
              for name in secs}
-    # the redesigned kernels: entry, spills, registers
+    # the redesigned kernels: instantiations, registers and spills per
+    # kernel and source (each entry's lines in chip_smoke.json)
     for src, names in (("attention", ("flash_tc_kernel", "decode_split_kernel")),
                        ("gemm", ("skinny_kernel", "wide_kernel",
                                  "sgemm_kernel", "igemm")),
-                       ("conv", ("igemm",)),
+                       ("gemm16", ("skinny_kernel", "wide_kernel",
+                                   "sgemm_kernel")),
+                       ("conv", ("igemm", "sgemm_kernel")),
                        ("ssd", ("ssd_tc_kernel",))):
-        lines = ptxas.get(src, [])
-        for i, ln in enumerate(lines):
-            if "entry function" in ln and any(n in ln for n in names):
-                log("ptxas " + " | ".join(lines[i:i + 3]))
+        log(f"ptxas {src}: " + ptxas_summary(ptxas.get(src, []), names))
 
     # 3. kernels
     timer = Timer(torch)
@@ -1752,6 +2120,11 @@ def main() -> int:
 
     # 6. the Gemmini engine path (its own main path: counts zeroed inside)
     engine_counts, engine_summary = run_engine_phase(torch, smi)
+    torch.cuda.empty_cache()
+
+    # 6b. the float and 16-bit datapaths on the same stream (their own
+    # main path: counts zeroed inside)
+    datapath_counts, datapath_summary = run_datapath_phase(torch, smi)
     torch.cuda.empty_cache()
 
     # 7-8. the recurrent and hybrid families at full width (each its own
@@ -1786,6 +2159,11 @@ def main() -> int:
         "accumulator_epilogue": ("csrc/gemm.cu",
                                  "src/repro/kernels/gemm.py:217"),
         "conv2d_implicit": ("csrc/conv.cu", "src/repro/kernels/conv.py:140"),
+        "gemm[fp16]": ("csrc/gemm16.cu", "src/repro/kernels/gemm.py:105"),
+        "gemm[int16]": ("csrc/gemm16.cu", "src/repro/kernels/gemm.py:105"),
+        **{f"conv2d_implicit[{d}]": ("csrc/conv.cu",
+                                     "src/repro/kernels/conv.py:140")
+           for d in ("fp32", "bf16", "fp16", "int16")},
         "ssd": ("csrc/ssd.cu", "src/repro/kernels/mamba2.py:151"),
         "decode_attention": ("csrc/attention.cu",
                              "src/repro/kernels/attention.py:276"),
@@ -1793,7 +2171,8 @@ def main() -> int:
     line = []
     for name, (src, replaces) in meta.items():
         r = rep_rows[name]
-        launches = (engine_counts if name in kernels.ENGINE_KERNELS else
+        launches = (datapath_counts if name in DATAPATH_KERNELS else
+                    engine_counts if name in kernels.ENGINE_KERNELS else
                     ssm_counts if name in kernels.RECURRENT_KERNELS else
                     static_counts if name in kernels.STATIC_KERNELS else
                     counts)[name]
@@ -1813,6 +2192,8 @@ def main() -> int:
                    "serve_launches": counts, "profile": profile,
                    "engine": engine_summary,
                    "engine_launches": engine_counts,
+                   "datapaths": datapath_summary,
+                   "datapath_launches": datapath_counts,
                    "ssm": ssm_summary, "ssm_launches": ssm_counts,
                    "ssm_resumed_ssd_launches": ssm_resumed,
                    "hybrid": hybrid_summary, "hybrid_launches": hybrid_counts,

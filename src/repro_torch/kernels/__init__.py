@@ -6,18 +6,23 @@ import; ``_build`` compiles at the first launch."""
 SERVING_KERNELS = ("gemm", "flash_attention", "paged_prefill_attention",
                    "paged_decode_attention")
 ENGINE_KERNELS = ("gemm[int8]", "gemm_ws", "accumulator_epilogue",
-                  "conv2d_implicit")
+                  "conv2d_implicit", "gemm[fp16]", "gemm[int16]",
+                  "conv2d_implicit[fp32]", "conv2d_implicit[bf16]",
+                  "conv2d_implicit[fp16]", "conv2d_implicit[int16]")
 RECURRENT_KERNELS = ("ssd",)
 STATIC_KERNELS = ("decode_attention",)
 
 
 def launch_counters():
     """Every kernel, by the name the ``kernels`` report gives it, to the
-    wrapper whose plain ``launches`` count grows by one per launch of it:
-    the serving path's four, the engine path's (int8 GEMM in OS order,
-    either GEMM in WS order, the mvout epilogue, the implicit-im2col
-    conv), the recurrent families' chunked SSD and the static reference
-    path's dense decode attention."""
+    wrapper (or the wrapper's per-datatype count) whose plain ``launches``
+    count grows by one per launch of it: the serving path's four, the
+    engine path's (the int8, fp16 and int16 GEMMs in OS order, any GEMM
+    in WS order, the mvout epilogue, the implicit-im2col conv per input
+    datatype), the recurrent families' chunked SSD and the static
+    reference path's dense decode attention."""
+    import torch
+
     from repro_torch.kernels import attention, conv, gemm, mamba2
     return {"gemm": gemm.gemm,
             "flash_attention": attention.flash_attention,
@@ -27,6 +32,12 @@ def launch_counters():
             "gemm_ws": gemm.gemm_ws,
             "accumulator_epilogue": gemm.accumulator_epilogue,
             "conv2d_implicit": conv.conv2d_implicit,
+            "gemm[fp16]": gemm.OS_COUNTS[torch.float16],
+            "gemm[int16]": gemm.OS_COUNTS[torch.int16],
+            "conv2d_implicit[fp32]": conv.COUNTS[torch.float32],
+            "conv2d_implicit[bf16]": conv.COUNTS[torch.bfloat16],
+            "conv2d_implicit[fp16]": conv.COUNTS[torch.float16],
+            "conv2d_implicit[int16]": conv.COUNTS[torch.int16],
             "ssd": mamba2.ssd,
             "decode_attention": attention.decode_attention}
 

@@ -4,12 +4,13 @@
 //
 // Replaces: src/repro/kernels/epilogue.py apply (run inside every Pallas
 // kernel's flush). Two datapaths:
-//   int32 accumulator (bias already preloaded into it): rounding right
-//     shift with round-half-to-even, then the activation (NONE, RELU,
-//     RELU6 on integers), then saturation to the output type (int8; int32
+//   int32 accumulator (bias already added into it): rounding right shift
+//     with round-half-to-even, then the activation (NONE, RELU, RELU6 on
+//     integers), then saturation to the output type (int8 or int16; int32
 //     is stored as it is).
 //   fp32 accumulator: + bias, activation, times 2^-shift (exact), rounded
-//     to the output type (fp32 or bf16).
+//     to nearest even in the output type (fp32, bf16 or fp16). No
+//     saturation: an fp16 overflow stores +-inf, as JAX's astype does.
 // GELU and SiLU exist on the float path only; the wrappers refuse them on
 // an integer accumulator, as the plain version does.
 
@@ -17,6 +18,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace epi {
@@ -36,9 +38,21 @@ __device__ __forceinline__ float activate(float x, int act) {
   }
 }
 
-__device__ __forceinline__ void put(float* c, long long i, float y) { c[i] = y; }
-__device__ __forceinline__ void put(__nv_bfloat16* c, long long i, float y) {
-  c[i] = __float2bfloat16(y);
+// An fp32 value rounded to the output type: round to nearest even; a value
+// past fp16's range rounds to +-inf.
+template <typename OutT> __device__ __forceinline__ OutT to(float y);
+template <> __device__ __forceinline__ float to<float>(float y) { return y; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 to<__nv_bfloat16>(float y) {
+  return __float2bfloat16(y);
+}
+template <> __device__ __forceinline__ __half to<__half>(float y) {
+  return __float2half_rn(y);
+}
+
+template <typename OutT>
+__device__ __forceinline__ void put(OutT* c, long long i, float y) {
+  c[i] = to<OutT>(y);
 }
 
 // fp32 epilogue for one accumulator value (bias already added):
@@ -70,6 +84,9 @@ __device__ __forceinline__ int activate_int(int x, int act) {
 
 __device__ __forceinline__ void put_int(int8_t* c, long long i, int y) {
   c[i] = static_cast<int8_t>(min(max(y, -128), 127));
+}
+__device__ __forceinline__ void put_int(int16_t* c, long long i, int y) {
+  c[i] = static_cast<int16_t>(min(max(y, -32768), 32767));
 }
 __device__ __forceinline__ void put_int(int* c, long long i, int y) { c[i] = y; }
 

@@ -26,8 +26,11 @@
 // tiles leave SMs idle); int8 runs on the int8 tensor cores (igemm.cuh:
 // mma.sync s8 fed by a cp.async ring, tiles and K splits from the shape,
 // every int32 add wrapping, the tile staged through shared memory for the
-// bias and the epilogue). Ragged M, N and K edges are masked here; callers
-// pass operands at their true size.
+// bias and the epilogue). fp16 and int16 inputs run the same headers'
+// fp16 and int16 instantiations from gemm16.cu, a source of their own so
+// that its build runs beside this one. Float inputs store fp32, bf16 or
+// fp16; int8 inputs int32, int8 or int16. Ragged M, N and K edges are
+// masked here; callers pass operands at their true size.
 //
 // Dataflows: on the TPU, WS is a weight-major grid (gn, gm, gk) around a
 // VMEM accumulator, with the same numerics as OS. Here ws = 1 walks the
@@ -40,13 +43,14 @@
 // fp32 accumulator, bound by its bytes (4 in, 1..4 out per element);
 // grid-stride, any shape.
 //
-// C interface: gemm_launch (bf16 / fp32 inputs), gemm_plan (the bf16 or
-// fp32 kernel's plan for a shape), gemm_s8_launch (int8 inputs),
-// gemm_s8_plan (the int8 kernel's plan, for the GEMM and the conv),
-// epilogue_launch; each launch returns cudaGetLastError().
+// C interface: gemm_launch (bf16 / fp32 inputs), gemm_plan (the bf16,
+// fp16, fp32 or int16 kernel's plan for a shape), gemm_s8_launch (int8
+// inputs), gemm_s8_plan (the int8 kernel's plan), epilogue_launch; each
+// launch returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 #include <algorithm>
@@ -59,8 +63,10 @@
 
 namespace {
 
-enum { DT_F32 = 0, DT_BF16 = 1 };
-enum { OUT_I32 = 0, OUT_I8 = 1 };
+// Float codes (inputs and outputs), and int16 inputs in gemm_plan.
+enum { DT_F32 = 0, DT_BF16 = 1, DT_F16 = 2, DT_I16 = 3 };
+// Integer output codes.
+enum { OUT_I32 = 0, OUT_I8 = 1, OUT_I16 = 2 };
 
 template <typename OutT>
 int launch_typed(const void* a, const void* b, const float* d, OutT* c, int m,
@@ -68,13 +74,13 @@ int launch_typed(const void* a, const void* b, const float* d, OutT* c, int m,
                  long long ldd, int in_dtype, int act, float out_scale, int ws,
                  void* workspace, cudaStream_t s) {
   if (in_dtype == DT_BF16)
-    return static_cast<int>(hgemm::launch<OutT>(
+    return static_cast<int>(hgemm::launch<__nv_bfloat16, OutT>(
         static_cast<const __nv_bfloat16*>(a),
         static_cast<const __nv_bfloat16*>(b), d, c, m, n, k, lda, ldb,
         b_trans, ldd, act, out_scale, ws, workspace, s));
-  return static_cast<int>(sgemm::launch<OutT>(
+  return static_cast<int>(sgemm::launch_gemm<float, OutT>(
       static_cast<const float*>(a), static_cast<const float*>(b), d, c, m, n,
-      k, lda, ldb, b_trans, ldd, act, out_scale, ws, workspace, s));
+      k, lda, ldb, b_trans, ldd, act, 0, out_scale, ws, workspace, s));
 }
 
 template <typename AccT, typename OutT>
@@ -104,9 +110,10 @@ int launch_epilogue(const void* acc, void* c, long long count, int shift,
 
 // a: (M, K) with row stride lda; b: (K, N) read as b[k * ldb + n], or as
 // b[n * ldb + k] when b_trans; d: fp32 bias, row stride ldd (0 broadcasts
-// one row), or null; c: contiguous (M, N) output; ws: weight-major order;
-// workspace: inputs whose plan splits K, gemm_plan's plan[9] 4-byte words
-// owned by the stream (tickets zeroed when it was made), else null.
+// one row), or null; c: contiguous (M, N) output; in_dtype fp32 (0) or
+// bf16 (1); out_dtype fp32 (0), bf16 (1) or fp16 (2); ws: weight-major
+// order; workspace: inputs whose plan splits K, gemm_plan's plan[9] 4-byte
+// words owned by the stream (tickets zeroed when it was made), else null.
 extern "C" int gemm_launch(const void* a, const void* b, const void* d, void* c,
                            int m, int n, int k, long long lda, long long ldb,
                            int b_trans, long long ldd, int in_dtype,
@@ -118,23 +125,34 @@ extern "C" int gemm_launch(const void* a, const void* b, const void* d, void* c,
     return launch_typed<__nv_bfloat16>(
         a, b, D, static_cast<__nv_bfloat16*>(c), m, n, k, lda, ldb, b_trans,
         ldd, in_dtype, act, out_scale, ws, workspace, s);
+  if (out_dtype == DT_F16)
+    return launch_typed<__half>(a, b, D, static_cast<__half*>(c), m, n, k, lda,
+                                ldb, b_trans, ldd, in_dtype, act, out_scale,
+                                ws, workspace, s);
   return launch_typed<float>(a, b, D, static_cast<float*>(c), m, n, k, lda,
                              ldb, b_trans, ldd, in_dtype, act, out_scale, ws,
                              workspace, s);
 }
 
-// The float kernel's plan for an (M, N, K) call with bf16 (in_dtype 1) or
-// fp32 (0) inputs on the current device, B row-major (b_trans 0) or read
-// as a transpose (1); launches nothing. plan: [0] regime (0 skinny, 1
-// wide, 2 fp32 CUDA cores), [1] block rows, [2] block columns, [3] k per
-// stage, [4] K splits, [5] blocks, [6] threads per block, [7] ring stages,
-// [8] shared memory bytes, [9] workspace 4-byte words (0 for one split).
+// The kernel's plan for an (M, N, K) call with fp32 (in_dtype 0), bf16
+// (1), fp16 (2) or int16 (3) inputs on the current device, B row-major
+// (b_trans 0) or read as a transpose (1); launches nothing. bf16 and fp16
+// take the same plan (hgemm.cuh's, from the shape alone), fp32 and int16
+// sgemm.cuh's tiles and splits. plan: [0] regime (0 skinny, 1 wide, 2 fp32
+// CUDA cores, 3 int16 CUDA cores), [1] block rows, [2] block columns, [3] k
+// per stage, [4] K splits, [5] blocks, [6] threads per block, [7] ring
+// stages, [8] shared memory bytes, [9] workspace 4-byte words (0 for one
+// split).
 extern "C" int gemm_plan(int m, int n, int k, int b_trans, int in_dtype,
                          long long* plan) {
   if (m < 0 || n < 0 || k < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (in_dtype == DT_F32) {
-    const sgemm::Plan p = sgemm::plan(m, n, k, b_trans, hgemm::sm_count());
-    const long long out[10] = {2,        p.bm,     p.bn,      p.bk,
+  if (in_dtype == DT_F32 || in_dtype == DT_I16) {
+    const sgemm::Plan p =
+        in_dtype == DT_F32
+            ? sgemm::plan<float>(m, n, k, b_trans, hgemm::sm_count())
+            : sgemm::plan<int16_t>(m, n, k, b_trans, hgemm::sm_count());
+    const long long out[10] = {in_dtype == DT_F32 ? 2 : 3,
+                               p.bm,     p.bn,      p.bk,
                                p.splits, p.blocks, p.threads, p.stages,
                                p.smem,   p.ws_words};
     for (int i = 0; i < 10; ++i) plan[i] = out[i];
@@ -167,7 +185,8 @@ extern "C" int gemm_s8_plan(int m, int n, int k, int b_trans,
 
 // int8 inputs, int32 accumulator: a, b as for gemm_launch; d: int32 bias,
 // row stride ldd (0 broadcasts one row), or null; c: contiguous (M, N)
-// int32 (out_dtype 0) or int8 (1); shift in [0, 31]; ws: weight-stationary;
+// int32 (out_dtype 0), int8 (1) or int16 (2); shift in [0, 31]; ws:
+// weight-stationary;
 // workspace: inputs whose plan splits K, gemm_s8_plan's plan[9] 4-byte
 // words owned by the stream (tickets zeroed when it was made), else null.
 extern "C" int gemm_s8_launch(const void* a, const void* b, const void* d,
@@ -177,28 +196,35 @@ extern "C" int gemm_s8_launch(const void* a, const void* b, const void* d,
                               void* stream, void* workspace) {
   const int8_t* A = static_cast<const int8_t*>(a);
   const igemm::MatrixA al{A, lda, m, k, igemm::granule(A, lda)};
-  return static_cast<int>(igemm::launch(
+  return static_cast<int>(igemm::launch<int8_t>(
       al, static_cast<const int8_t*>(b), ldb, b_trans,
-      static_cast<const int*>(d), ldd, c, out_dtype == OUT_I8, m, n, k, shift,
-      act, ws, workspace, static_cast<cudaStream_t>(stream)));
+      static_cast<const int*>(d), ldd, c, out_dtype, m, n, k, shift, 1.f, act,
+      ws, workspace, static_cast<cudaStream_t>(stream)));
 }
 
 // acc: contiguous int32 (acc_dtype 0) or fp32 (1) values; c: the same
-// count of int32 / int8 (int acc) or fp32 / bf16 (fp32 acc) outputs, by
-// out_dtype (0 = int32 or fp32, 1 = int8 or bf16).
+// count of int32 / int8 / int16 (int acc) or fp32 / bf16 / fp16 (fp32 acc)
+// outputs, by out_dtype (0 = int32 or fp32, 1 = int8 or bf16, 2 = int16 or
+// fp16).
 extern "C" int epilogue_launch(const void* acc, void* c, long long count,
                                int acc_dtype, int out_dtype, int act,
                                int shift, float out_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (acc_dtype == 0)
-    return out_dtype == OUT_I8
-               ? launch_epilogue<int, int8_t>(acc, c, count, shift, act,
-                                              out_scale, s)
-               : launch_epilogue<int, int>(acc, c, count, shift, act,
+  if (acc_dtype == 0) {
+    if (out_dtype == OUT_I8)
+      return launch_epilogue<int, int8_t>(acc, c, count, shift, act,
+                                          out_scale, s);
+    if (out_dtype == OUT_I16)
+      return launch_epilogue<int, int16_t>(acc, c, count, shift, act,
                                            out_scale, s);
-  return out_dtype == DT_BF16
-             ? launch_epilogue<float, __nv_bfloat16>(acc, c, count, shift, act,
-                                                     out_scale, s)
-             : launch_epilogue<float, float>(acc, c, count, shift, act,
-                                             out_scale, s);
+    return launch_epilogue<int, int>(acc, c, count, shift, act, out_scale, s);
+  }
+  if (out_dtype == DT_BF16)
+    return launch_epilogue<float, __nv_bfloat16>(acc, c, count, shift, act,
+                                                 out_scale, s);
+  if (out_dtype == DT_F16)
+    return launch_epilogue<float, __half>(acc, c, count, shift, act,
+                                          out_scale, s);
+  return launch_epilogue<float, float>(acc, c, count, shift, act, out_scale,
+                                       s);
 }

@@ -1,8 +1,16 @@
-// bf16 x bf16 -> fp32 GEMM for Hopper: the float datapath of the engine
-// GEMM in gemm.cu, C = epilogue(A @ B + D), for bf16 inputs.
+// bf16 x bf16 -> fp32 and fp16 x fp16 -> fp32 GEMM for Hopper: the 16-bit
+// float datapaths of the engine GEMM, C = epilogue(A @ B + D), for bf16
+// inputs (gemm.cu) and fp16 inputs (gemm16.cu).
 //
 // Replaces, in src/repro/kernels/gemm.py, gemm_os (:81, pallas_call :105)
-// and gemm_ws (:160, pallas_call :184) for bf16 inputs.
+// and gemm_ws (:160, pallas_call :184) for bf16 and fp16 inputs.
+//
+// The element type Elt (bf16 or __half) is a template parameter of every
+// kernel: Hopper's mma.sync and wgmma take .f16 operands at the shapes
+// they take .bf16, and the tensor map names its element type. Nothing
+// else depends on it: the plan, the tiles, the loads (16-bit words moved
+// as bits) and the sum order are the same for both, so the bf16
+// instantiations are the code they were before fp16 existed.
 //
 // Two regimes, chosen by the shape alone (plan()), so OS and WS always run
 // the same plan and every output element is summed in the same order: WS
@@ -77,9 +85,11 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 #include <mutex>
+#include <type_traits>
 #include <unordered_map>
 
 #include "epilogue.cuh"
@@ -187,9 +197,10 @@ inline Plan plan(int m, int n, int k, int b_trans, int sms) {
   return p;
 }
 
+template <typename Elt>
 struct Args {
-  const bf16* A;     // (M, K), row stride lda
-  const bf16* B;     // B(k, n) = B[k * ldb + n], or B[n * ldb + k] (TRANS_B)
+  const Elt* A;      // (M, K), row stride lda
+  const Elt* B;      // B(k, n) = B[k * ldb + n], or B[n * ldb + k] (TRANS_B)
   const float* D;    // fp32 bias, row stride ldd (0: one row), or null
   void* C;           // contiguous (M, N)
   int M, N, K;
@@ -220,7 +231,7 @@ __device__ __forceinline__ void cp_async_wait() {
 // Element-wise form of load_chunk, for rows that are not 16-byte aligned
 // (kept out of line: the aligned path is the hot one).
 static __device__ __noinline__ void load_chunk_slow(uint32_t dst,
-                                                    const bf16* src,
+                                                    const void* src,
                                                     int left) {
   const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
   uint32_t w[4];
@@ -239,9 +250,9 @@ static __device__ __noinline__ void load_chunk_slow(uint32_t dst,
 // none), into the 16 bytes at shared address dst, zeros past `left`: by
 // cp.async (src 16-byte aligned) when vec, else element by element. `safe`
 // is any valid address, handed to a cp.async that reads nothing.
-__device__ __forceinline__ void load_chunk(uint32_t dst, const bf16* src,
+__device__ __forceinline__ void load_chunk(uint32_t dst, const void* src,
                                            int left, int vec,
-                                           const bf16* safe) {
+                                           const void* safe) {
   if (!vec) {
     load_chunk_slow(dst, src, left);
     return;
@@ -252,15 +263,22 @@ __device__ __forceinline__ void load_chunk(uint32_t dst, const bf16* src,
                : "memory");
 }
 
-// c += a (16x16, row) * b (16x8, col); bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// c += a (16x16, row) * b (16x8, col); bf16 or fp16 in, fp32 accumulate.
+#define HG_MMA(TY)                                                    \
+  asm volatile(                                                       \
+      "mma.sync.aligned.m16n8k16.row.col.f32." TY "." TY ".f32 "      \
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"       \
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])                \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1))
+template <typename Elt>
+__device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4],
+                                      uint32_t b0, uint32_t b1) {
+  if constexpr (std::is_same<Elt, bf16>::value)
+    HG_MMA("bf16");
+  else
+    HG_MMA("f16");
 }
+#undef HG_MMA
 
 // wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
 // and stride byte offsets, each in 16-byte units.
@@ -273,43 +291,51 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
 
 // d (64 x 128 fp32, a warpgroup's fragments) += A (64 x 16) B (16 x 128).
 // TRANS: 0 B K-major, 1 B MN-major.
-template <int TRANS>
+// (One asm text for both element types, which the instruction names.)
+#define HG_WGMMA_128(TY)                                            \
+  asm volatile(                                                     \
+      "{\n"                                                         \
+      ".reg .pred p;\n"                                             \
+      "setp.ne.b32 p, %66, 0;\n"                                    \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "  \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "                           \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                      \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                    \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                    \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                    \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "                    \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "                    \
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "                   \
+      "%64, %65, p, 1, 1, 0, %67;\n"                                \
+      "}\n"                                                         \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),             \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),             \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),           \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),         \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),         \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),         \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),         \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),         \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),         \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),         \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),         \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),         \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),         \
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),         \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),         \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])          \
+      : "l"(da), "l"(db), "r"(1), "n"(TRANS)                        \
+      : "memory")
+template <typename Elt, int TRANS>
 __device__ __forceinline__ void wgmma_128(float (&d)[64], uint64_t da,
                                           uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, %67;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1), "n"(TRANS)
-      : "memory");
+  if constexpr (std::is_same<Elt, bf16>::value)
+    HG_WGMMA_128("bf16");
+  else
+    HG_WGMMA_128("f16");
 }
+#undef HG_WGMMA_128
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -322,74 +348,81 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 
 // d (64 x 256 fp32) += A (64 x 16) B (16 x 256); TRANS as wgmma_128.
-template <int TRANS>
+// (One asm text for both element types, which the instruction names.)
+#define HG_WGMMA_256(TY)                                            \
+  asm volatile(                                                     \
+      "{\n"                                                         \
+      ".reg .pred p;\n"                                             \
+      "setp.ne.b32 p, %130, 0;\n"                                   \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " "  \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "                           \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                      \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                    \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                    \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                    \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "                    \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "                    \
+      "%56, %57, %58, %59, %60, %61, %62, %63, "                    \
+      "%64, %65, %66, %67, %68, %69, %70, %71, "                    \
+      "%72, %73, %74, %75, %76, %77, %78, %79, "                    \
+      "%80, %81, %82, %83, %84, %85, %86, %87, "                    \
+      "%88, %89, %90, %91, %92, %93, %94, %95, "                    \
+      "%96, %97, %98, %99, %100, %101, %102, %103, "                \
+      "%104, %105, %106, %107, %108, %109, %110, %111, "            \
+      "%112, %113, %114, %115, %116, %117, %118, %119, "            \
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "           \
+      "%128, %129, p, 1, 1, 0, %131;\n"                             \
+      "}\n"                                                         \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),             \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),             \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),           \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),         \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),         \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),         \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),         \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),         \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),         \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),         \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),         \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),         \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),         \
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),         \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),         \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),         \
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),         \
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),         \
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),         \
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),         \
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),         \
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),         \
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),         \
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),         \
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),         \
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),     \
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),     \
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),     \
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),     \
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),     \
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),     \
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])      \
+      : "l"(da), "l"(db), "r"(1), "n"(TRANS)                        \
+      : "memory")
+template <typename Elt, int TRANS>
 __device__ __forceinline__ void wgmma_256(float (&d)[128], uint64_t da,
                                           uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, "
-      "%104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, %131;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
-        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
-        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
-        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
-        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1), "n"(TRANS)
-      : "memory");
+  if constexpr (std::is_same<Elt, bf16>::value)
+    HG_WGMMA_256("bf16");
+  else
+    HG_WGMMA_256("f16");
 }
+#undef HG_WGMMA_256
 
 // The BN-wide product of one warpgroup.
-template <int BN, int TRANS>
+template <typename Elt, int BN, int TRANS>
 __device__ __forceinline__ void wgmma_bn(float (&d)[BN / 2], uint64_t da,
                                          uint64_t db) {
-  if constexpr (BN == 128) wgmma_128<TRANS>(d, da, db);
-  else wgmma_256<TRANS>(d, da, db);
+  if constexpr (BN == 128) wgmma_128<Elt, TRANS>(d, da, db);
+  else wgmma_256<Elt, TRANS>(d, da, db);
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
@@ -431,12 +464,11 @@ __device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map,
 
 // fp32 value of output (r, c) with bias, activation and shift, rounded to
 // the output type: epilogue.cuh's float path.
-template <typename OutT>
-__device__ __forceinline__ OutT finish(const Args& p, int r, int c, float v) {
+template <typename OutT, typename Elt>
+__device__ __forceinline__ OutT finish(const Args<Elt>& p, int r, int c,
+                                       float v) {
   if (p.D != nullptr) v += p.D[(long long)r * p.ldd + c];
-  const float y = epi::activate(v, p.act) * p.out_scale;
-  if constexpr (sizeof(OutT) == 2) return __float2bfloat16(y);
-  else return y;
+  return epi::to<OutT>(epi::activate(v, p.act) * p.out_scale);
 }
 
 // The k steps [lo, hi) of split `split` of `splits` over `ksteps`.
@@ -463,41 +495,52 @@ __device__ __forceinline__ bool last_of_tile(int* ticket, int splits) {
   return last;
 }
 
-// A split's partial tile in the workspace: float4 i of thread tid's
-// fragment at float4 i * T + tid, so a warp's stores and loads are 512
-// contiguous bytes.
-// The last block of a tile: acc (FR floats, this thread's fragment) becomes
-// the sum of the S partials in split order, its own split `own` taken from
-// acc; part is this thread's first float4 in split 0, `stride` floats
-// between splits. The loads of 4 splits go out before their sums, so the
-// merge waits about S / 4 round trips to L2, not S.
-template <int FR, int T>
-__device__ __forceinline__ void store_partial(const float* acc, float* part) {
-  float4* dst = reinterpret_cast<float4*>(part);
-#pragma unroll
-  for (int i = 0; i < FR / 4; ++i)
-    dst[i * T] = make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2],
-                             acc[4 * i + 3]);
+// A split's partial tile in the workspace: vector i (4 values) of thread
+// tid's fragment at vector i * T + tid, so a warp's stores and loads are
+// 512 contiguous bytes. V: float, or int for sgemm.cuh's int16 datapath,
+// whose adds wrap modulo 2^32 (add()).
+template <typename V> struct Vec4;
+template <> struct Vec4<float> { using type = float4; };
+template <> struct Vec4<int> { using type = int4; };
+__device__ __forceinline__ float add(float a, float b) { return a + b; }
+__device__ __forceinline__ int add(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
 }
 
-template <int FR, int T>
-__device__ __forceinline__ void merge_partials(float* acc, const float* part,
+template <int FR, int T, typename V = float>
+__device__ __forceinline__ void store_partial(const V* acc, V* part) {
+  using V4 = typename Vec4<V>::type;
+  V4* dst = reinterpret_cast<V4*>(part);
+#pragma unroll
+  for (int i = 0; i < FR / 4; ++i)
+    dst[i * T] = V4{acc[4 * i], acc[4 * i + 1], acc[4 * i + 2],
+                    acc[4 * i + 3]};
+}
+
+// The last block of a tile: acc (FR values, this thread's fragment) becomes
+// the sum of the S partials in split order, its own split `own` taken from
+// acc; part is this thread's first vector in split 0, `stride` values
+// between splits. The loads of 4 splits go out before their sums, so the
+// merge waits about S / 4 round trips to L2, not S.
+template <int FR, int T, typename V = float>
+__device__ __forceinline__ void merge_partials(V* acc, const V* part,
                                                long long stride, int S,
                                                int own) {
+  using V4 = typename Vec4<V>::type;
   constexpr int PIECE = FR < 16 ? FR : 16;
 #pragma unroll
   for (int b = 0; b < FR; b += PIECE) {
-    float tot[PIECE];
+    V tot[PIECE];
 #pragma unroll
-    for (int i = 0; i < PIECE; ++i) tot[i] = 0.f;
+    for (int i = 0; i < PIECE; ++i) tot[i] = 0;
     for (int s0 = 0; s0 < S; s0 += 4) {
-      float4 v[4][PIECE / 4];
+      V4 v[4][PIECE / 4];
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const int s = s0 + u;
         if (s < S && s != own) {
-          const float4* ps =
-              reinterpret_cast<const float4*>(part + s * stride) + b / 4 * T;
+          const V4* ps =
+              reinterpret_cast<const V4*>(part + s * stride) + b / 4 * T;
 #pragma unroll
           for (int i = 0; i < PIECE / 4; ++i) v[u][i] = __ldcg(ps + i * T);
         }
@@ -508,12 +551,14 @@ __device__ __forceinline__ void merge_partials(float* acc, const float* part,
         if (s >= S) break;
         if (s == own) {
 #pragma unroll
-          for (int i = 0; i < PIECE; ++i) tot[i] += acc[b + i];
+          for (int i = 0; i < PIECE; ++i) tot[i] = add(tot[i], acc[b + i]);
         } else {
 #pragma unroll
           for (int i = 0; i < PIECE / 4; ++i) {
-            tot[4 * i] += v[u][i].x; tot[4 * i + 1] += v[u][i].y;
-            tot[4 * i + 2] += v[u][i].z; tot[4 * i + 3] += v[u][i].w;
+            tot[4 * i] = add(tot[4 * i], v[u][i].x);
+            tot[4 * i + 1] = add(tot[4 * i + 1], v[u][i].y);
+            tot[4 * i + 2] = add(tot[4 * i + 2], v[u][i].z);
+            tot[4 * i + 3] = add(tot[4 * i + 3], v[u][i].w);
           }
         }
       }
@@ -532,7 +577,7 @@ __device__ __forceinline__ void merge_partials(float* acc, const float* part,
 // else element by element. B is read once (no L1 allocation); A is read by
 // every block (cached).
 template <bool STREAM>
-__device__ __forceinline__ uint4 ld8(const bf16* p, int left, int vec) {
+__device__ __forceinline__ uint4 ld8(const void* p, int left, int vec) {
   if (vec && left >= 8) {
     uint4 v;
     if (STREAM)
@@ -554,7 +599,7 @@ __device__ __forceinline__ uint4 ld8(const bf16* p, int left, int vec) {
 }
 
 // 2 consecutive elements of A at p, `left` of them inside (<= 0: none).
-__device__ __forceinline__ uint32_t ld2(const bf16* p, int left) {
+__device__ __forceinline__ uint32_t ld2(const void* p, int left) {
   const unsigned short* s = reinterpret_cast<const unsigned short*>(p);
   const uint32_t lo = left > 0 ? __ldg(s) : 0u;
   const uint32_t hi = left > 1 ? __ldg(s + 1) : 0u;
@@ -578,9 +623,9 @@ __device__ __forceinline__ uint32_t word(const uint4& v, int i) {
 //     k rows 2t, 2t + 1, 2t + 8, 2t + 9 of 4 steps of 16 k (512
 //     contiguous bytes of each k row per block), pairs the k rows with
 //     byte permutes, and runs 4 MMAs per step, one per column of its 8.
-template <bool TRANS_B, int WN, int KW, int MT, typename OutT>
+template <typename Elt, bool TRANS_B, int WN, int KW, int MT, typename OutT>
 __global__ void __launch_bounds__(128)
-skinny_kernel(const Args p) {
+skinny_kernel(const Args<Elt> p) {
   constexpr int BN = (TRANS_B ? 16 : 64) * WN;
   constexpr int WK = 4 / WN;               // warps splitting a chunk's k
   constexpr int CHUNK = TRANS_B ? SK_TRANS_CHUNK : 16 * KW * WK;
@@ -606,8 +651,8 @@ skinny_kernel(const Args p) {
 
   if (TRANS_B) {
     const int r0 = n0 + 16 * wn + g, r1 = r0 + 8;
-    const bf16* b0 = p.B + (long long)(r0 < p.N ? r0 : 0) * p.ldb;
-    const bf16* b1 = p.B + (long long)(r1 < p.N ? r1 : 0) * p.ldb;
+    const Elt* b0 = p.B + (long long)(r0 < p.N ? r0 : 0) * p.ldb;
+    const Elt* b1 = p.B + (long long)(r1 < p.N ? r1 : 0) * p.ldb;
     for (int c = c_lo; c < c_hi; ++c) {
       uint4 vb0[U], vb1[U], va[MT][U];
 #pragma unroll
@@ -631,7 +676,7 @@ skinny_kernel(const Args p) {
                                  word(vb1[u], 2 * h + 1)};
 #pragma unroll
           for (int t = 0; t < MT; ++t)
-            mma_bf16(acc[0][t], a, word(va[t][u], 2 * h),
+            mma16<Elt>(acc[0][t], a, word(va[t][u], 2 * h),
                      word(va[t][u], 2 * h + 1));
         }
     }
@@ -652,7 +697,7 @@ skinny_kernel(const Args p) {
 #pragma unroll
         for (int t = 0; t < MT; ++t) {
           const int m = 8 * t + g;
-          const bf16* ar = p.A + (long long)(m < p.M ? m : 0) * p.lda;
+          const Elt* ar = p.A + (long long)(m < p.M ? m : 0) * p.lda;
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int k = kb + 2 * t4 + 8 * h;
@@ -674,7 +719,7 @@ skinny_kernel(const Args p) {
               __byte_perm(word(vb[u][2], w + 2), word(vb[u][3], w + 2), sel)};
 #pragma unroll
           for (int t = 0; t < MT; ++t)
-            mma_bf16(acc[f][t], a, va[t][u][0], va[t][u][1]);
+            mma16<Elt>(acc[f][t], a, va[t][u][0], va[t][u][1]);
         }
     }
   }
@@ -759,9 +804,10 @@ struct WideShape {
   static constexpr int SMEM = ST * STAGE + 1024;   // + alignment slack
 };
 
-template <bool TRANS_B, int WGS, int BN, bool DEEP, bool TMA, typename OutT>
+template <typename Elt, bool TRANS_B, int WGS, int BN, bool DEEP, bool TMA,
+          typename OutT>
 __global__ void __launch_bounds__(128 * WGS, 1)
-wide_kernel(const Args p, const __grid_constant__ CUtensorMap tma_a,
+wide_kernel(const Args<Elt> p, const __grid_constant__ CUtensorMap tma_a,
             const __grid_constant__ CUtensorMap tma_b) {
   using Sh = WideShape<WGS, BN, DEEP>;
   constexpr int BM = Sh::BM, T = Sh::T, ST = Sh::ST;
@@ -859,7 +905,7 @@ wide_kernel(const Args p, const __grid_constant__ CUtensorMap tma_a,
       const uint64_t da = sw128_desc(sa + wg * (64 * 128) + 32 * j, 16, 1024);
       const uint64_t db = TRANS_B ? sw128_desc(sb + 32 * j, 16, 1024)
                                   : sw128_desc(sb + 2048 * j, BK * 128, 1024);
-      wgmma_bn<BN, TRANS_B ? 0 : 1>(acc, da, db);
+      wgmma_bn<Elt, BN, TRANS_B ? 0 : 1>(acc, da, db);
     }
     wgmma_commit();
   };
@@ -976,15 +1022,15 @@ cudaError_t allow_smem(Kernel kernel, int bytes, bool& configured) {
   return e;
 }
 
-template <bool TB, int MT, typename OutT>
-cudaError_t launch_skinny(const Args& a, const Plan& pl, cudaStream_t s) {
+template <typename Elt, bool TB, int MT, typename OutT>
+cudaError_t launch_skinny(const Args<Elt>& a, const Plan& pl, cudaStream_t s) {
   const unsigned grid = (unsigned)pl.blocks;
   if (TB || pl.warps_n == 4)
-    skinny_kernel<TB, 4, 4, MT, OutT><<<grid, 128, 0, s>>>(a);
+    skinny_kernel<Elt, TB, 4, 4, MT, OutT><<<grid, 128, 0, s>>>(a);
   else if (pl.bk == SK_ROW_CHUNK)
-    skinny_kernel<TB, 1, 1, MT, OutT><<<grid, 128, 0, s>>>(a);
+    skinny_kernel<Elt, TB, 1, 1, MT, OutT><<<grid, 128, 0, s>>>(a);
   else
-    skinny_kernel<TB, 1, 4, MT, OutT><<<grid, 128, 0, s>>>(a);
+    skinny_kernel<Elt, TB, 1, 4, MT, OutT><<<grid, 128, 0, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -1029,15 +1075,20 @@ struct MapKeyHash {
   }
 };
 
-// The 128-byte-swizzled bf16 tensor map of a row-major (outer, inner)
-// matrix with a row stride of `stride` elements, read in boxes of
-// (box_inner, box_outer). A map depends on these numbers alone, so it is
-// encoded once per distinct key and kept: a weight keeps its map across
-// calls, and an activation buffer that the caching allocator hands out
-// again finds its map made. False where the driver refuses it.
-inline bool tensor_map(const void* ptr, uint64_t inner, uint64_t outer,
-                       uint64_t stride, uint32_t box_inner,
-                       uint32_t box_outer, CUtensorMap& out) {
+// The 128-byte-swizzled tensor map of a row-major (outer, inner) matrix of
+// Elt (bf16 or fp16) with a row stride of `stride` elements, read in boxes
+// of (box_inner, box_outer). A map depends on these numbers alone (each
+// element type keeps its own maps), so it is encoded once per distinct key
+// and kept: a weight keeps its map across calls, and an activation buffer
+// that the caching allocator hands out again finds its map made. False
+// where cuTensorMapEncodeTiled refuses it.
+template <typename Elt>
+bool tensor_map(const Elt* ptr, uint64_t inner, uint64_t outer,
+                uint64_t stride, uint32_t box_inner, uint32_t box_outer,
+                CUtensorMap& out) {
+  constexpr CUtensorMapDataType dtype =
+      std::is_same<Elt, bf16>::value ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                   : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
   static std::mutex mu;
   static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> cache;
   const MapKey key{reinterpret_cast<uintptr_t>(ptr), inner, outer, stride,
@@ -1054,7 +1105,7 @@ inline bool tensor_map(const void* ptr, uint64_t inner, uint64_t outer,
   const cuuint64_t strides[1] = {stride * 2};
   const cuuint32_t box[2] = {box_inner, box_outer};
   const cuuint32_t unit[2] = {1, 1};
-  if (fn(&out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+  if (fn(&out, dtype, 2, const_cast<Elt*>(ptr),
          dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
@@ -1064,11 +1115,12 @@ inline bool tensor_map(const void* ptr, uint64_t inner, uint64_t outer,
   return true;
 }
 
-template <bool TB, int WGS, int BN, bool DEEP, bool TMA, typename OutT>
-cudaError_t launch_wide_kernel(const Args& a, const Plan& pl,
+template <typename Elt, bool TB, int WGS, int BN, bool DEEP, bool TMA,
+          typename OutT>
+cudaError_t launch_wide_kernel(const Args<Elt>& a, const Plan& pl,
                                const CUtensorMap& ta, const CUtensorMap& tb,
                                cudaStream_t s) {
-  auto kernel = wide_kernel<TB, WGS, BN, DEEP, TMA, OutT>;
+  auto kernel = wide_kernel<Elt, TB, WGS, BN, DEEP, TMA, OutT>;
   constexpr int smem = WideShape<WGS, BN, DEEP>::SMEM;
   static bool configured = false;
   const cudaError_t e = allow_smem(kernel, smem, configured);
@@ -1079,8 +1131,8 @@ cudaError_t launch_wide_kernel(const Args& a, const Plan& pl,
 
 // TMA where both operands allow a tensor map (rows 16-byte aligned), else
 // the cp.async ring.
-template <bool TB, int WGS, int BN, bool DEEP, typename OutT>
-cudaError_t launch_wide(const Args& a, const Plan& pl, cudaStream_t s) {
+template <typename Elt, bool TB, int WGS, int BN, bool DEEP, typename OutT>
+cudaError_t launch_wide(const Args<Elt>& a, const Plan& pl, cudaStream_t s) {
   CUtensorMap ta{}, tb{};
   const bool tma =
       a.vec_a && a.vec_b && a.K > 0 &&
@@ -1088,34 +1140,36 @@ cudaError_t launch_wide(const Args& a, const Plan& pl, cudaStream_t s) {
       (TB ? tensor_map(a.B, a.K, a.N, a.ldb, BK, BN, tb)
           : tensor_map(a.B, a.N, a.K, a.ldb, 64, BK, tb));
   return tma
-      ? launch_wide_kernel<TB, WGS, BN, DEEP, true, OutT>(a, pl, ta, tb, s)
-      : launch_wide_kernel<TB, WGS, BN, DEEP, false, OutT>(a, pl, ta, tb, s);
+      ? launch_wide_kernel<Elt, TB, WGS, BN, DEEP, true, OutT>(a, pl, ta, tb, s)
+      : launch_wide_kernel<Elt, TB, WGS, BN, DEEP, false, OutT>(a, pl, ta, tb,
+                                                              s);
 }
 
-template <bool TB, typename OutT>
-cudaError_t dispatch(const Args& a, const Plan& pl, cudaStream_t s) {
+template <typename Elt, bool TB, typename OutT>
+cudaError_t dispatch(const Args<Elt>& a, const Plan& pl, cudaStream_t s) {
   if (pl.wide) {
     if (pl.bm == 64)
       return pl.stages == wide_stages(1, 128, true)
-                 ? launch_wide<TB, 1, 128, true, OutT>(a, pl, s)
-                 : launch_wide<TB, 1, 128, false, OutT>(a, pl, s);
-    return pl.bn == 256 ? launch_wide<TB, 2, 256, false, OutT>(a, pl, s)
-                        : launch_wide<TB, 2, 128, false, OutT>(a, pl, s);
+                 ? launch_wide<Elt, TB, 1, 128, true, OutT>(a, pl, s)
+                 : launch_wide<Elt, TB, 1, 128, false, OutT>(a, pl, s);
+    return pl.bn == 256 ? launch_wide<Elt, TB, 2, 256, false, OutT>(a, pl, s)
+                        : launch_wide<Elt, TB, 2, 128, false, OutT>(a, pl, s);
   }
-  return a.M > 8 ? launch_skinny<TB, 2, OutT>(a, pl, s)
-                 : launch_skinny<TB, 1, OutT>(a, pl, s);
+  return a.M > 8 ? launch_skinny<Elt, TB, 2, OutT>(a, pl, s)
+                 : launch_skinny<Elt, TB, 1, OutT>(a, pl, s);
 }
 
 // One call. ws: the workspace of plan().ws_words 4-byte words (tickets,
 // then partials), owned by the calling stream; may be null for one split.
-template <typename OutT>
-cudaError_t launch(const bf16* A, const bf16* B, const float* D, OutT* C,
+// One call; Elt: bf16 or __half.
+template <typename Elt, typename OutT>
+cudaError_t launch(const Elt* A, const Elt* B, const float* D, OutT* C,
                    int m, int n, int k, long long lda, long long ldb,
                    int b_trans, long long ldd, int act, float out_scale,
                    int ws, void* workspace, cudaStream_t s) {
   const Plan pl = plan(m, n, k, b_trans, sm_count());
   if (pl.splits > 1 && workspace == nullptr) return cudaErrorInvalidValue;
-  Args a{};
+  Args<Elt> a{};
   a.A = A; a.B = B; a.D = D; a.C = C;
   a.M = m; a.N = n; a.K = k;
   a.lda = lda; a.ldb = ldb; a.ldd = ldd;
@@ -1127,8 +1181,8 @@ cudaError_t launch(const bf16* A, const bf16* B, const float* D, OutT* C,
   a.ksteps = pl.ksteps; a.splits = pl.splits;
   a.tickets = static_cast<int*>(workspace);
   a.part = workspace ? static_cast<float*>(workspace) + MAX_TICKETS : nullptr;
-  return b_trans ? dispatch<true, OutT>(a, pl, s)
-                 : dispatch<false, OutT>(a, pl, s);
+  return b_trans ? dispatch<Elt, true, OutT>(a, pl, s)
+                 : dispatch<Elt, false, OutT>(a, pl, s);
 }
 
 }  // namespace hgemm

@@ -1,5 +1,20 @@
-// int8 x int8 -> int32 GEMM main loop on Hopper's int8 tensor cores,
-// shared by gemm.cu (gemm_os, gemm_ws) and conv.cu (conv2d_implicit).
+// The mma.sync main loop on Hopper's tensor cores for 8- and 16-bit
+// inputs: int8 x int8 -> int32, shared by gemm.cu (gemm_os, gemm_ws) and
+// conv.cu (conv2d_implicit), and bf16 / fp16 x the same -> fp32, conv.cu's
+// conv2d_implicit for those inputs (the 16-bit GEMMs run hgemm.cuh).
+//
+// The loop's geometry is in bytes: a ring stage holds a 64-byte k slab of A
+// and B, an MMA step takes 32 bytes of k. mma.sync m16n8k32 (s8) and
+// m16n8k16 (bf16, f16) lay their A and B fragments out alike in bytes, so
+// the A loaders and the ldmatrix reads of A serve both widths unchanged
+// (a 16-bit A is loaded as bytes: 2 a value). What differs (Dp below):
+//   - row-major B: int8 slabs are transposed to [n][k] in shared memory
+//     (4 x 4 byte blocks); 16-bit slabs stay [k][n] and are read with
+//     ldmatrix.trans;
+//   - the accumulator: int32, every add wrapping; fp32 for 16-bit inputs,
+//     whose K split partials are added in split order (so a rerun equals
+//     the first run) and whose epilogue is the float one (activation,
+//     2^-shift, rounding to fp32 / bf16 / fp16).
 //
 // C = epilogue(A @ B + D): A (M, K) int8 comes through a loader policy
 // (a row-major matrix, or conv.cu's implicit-im2col gather of an NHWC
@@ -9,7 +24,7 @@
 // epilogue.cuh (rounding shift, activation, saturation) runs once per
 // output element.
 //
-// Numerics: mma.sync m16n8k32 s8.s8.s32 without .satfinite, and every
+// Numerics, int8: mma.sync m16n8k32 s8.s8.s32 without .satfinite, and every
 // other int32 add here (K splits merged, the bias) wraps modulo 2^32, as
 // the plain version's (float64-exact sum wrapped to int32) and the TPU
 // kernel's int32 dot do. A wrapping int sum is order-free: the bits depend
@@ -74,6 +89,17 @@
 
 namespace igemm {
 
+// The datapath of an input type: the accumulator, and whether it is the
+// wrapping int32 one.
+template <typename In> struct Dp {       // bf16, __half
+  using Acc = float;
+  static constexpr bool INT = false;
+};
+template <> struct Dp<int8_t> {
+  using Acc = int;
+  static constexpr bool INT = true;
+};
+
 constexpr int BK = 64;          // k bytes per ring stage
 constexpr int PAD = 16;         // bytes of padding per shared row
 constexpr int LDA = BK + PAD;   // A rows and [n][k] B rows of a stage
@@ -95,12 +121,18 @@ template <> struct Cfg<SQUARE> {
                        PER_SM = 2;
 };
 
+// Bytes of a row-major B slab of es-byte elements: BK / es k rows of bn
+// elements and PAD bytes.
+__host__ __device__ constexpr int b_slab(int bn, int es) {
+  return BK / es * (bn * es + PAD);
+}
+
 // Shared memory bytes of a block: the ring (per stage an A slab and a B
 // slab: [n][k] for a (N, K) buffer, a [k][n] staging slab for row-major
-// B), then, for row-major B, a double buffer of one slab transposed.
-inline int smem_bytes(int bm, int bn, int stages, int b_trans) {
-  const int stage = bm * LDA + (b_trans ? bn * LDA : BK * (bn + PAD));
-  return stages * stage + (b_trans ? 0 : 2 * bn * LDA);
+// B), then, for int8 row-major B, a double buffer of one slab transposed.
+inline int smem_bytes(int bm, int bn, int stages, int b_trans, int es) {
+  const int stage = bm * LDA + (b_trans ? bn * LDA : b_slab(bn, es));
+  return stages * stage + (b_trans || es > 1 ? 0 : 2 * bn * LDA);
 }
 
 struct Plan {
@@ -120,14 +152,16 @@ inline int set_regime(Plan& p) {
   return Cfg<R>::PER_SM;
 }
 
-// The plan of a call: (M, N, K), B's layout and the card's SM count only.
+// The plan of a call: (M, N, K), B's layout and the card's SM count only;
+// k counts bytes (K elements of es bytes: es K), and es sets the shared
+// memory.
 //   - 16 x 64 tiles of 4 warps for M <= 16, else 64 x 64 tiles of 8 warps.
 //   - K splits s minimizing waves(s) * (ksteps / s + FILL) + (s - 1) *
 //     merge: the blocks' waves over the resident slots times a split's k
 //     steps plus its fill, and the last block's reads of the other
 //     partials (a partial's bytes over a k step's operand bytes, halved:
 //     the merge keeps more loads in flight than a k step).
-inline Plan plan(int m, int n, int k, int b_trans, int sms) {
+inline Plan plan(int m, int n, int k, int b_trans, int sms, int es = 1) {
   using hgemm::ceil_div;
   Plan p{};
   const int ksteps = k > 0 ? ceil_div(k, BK) : 1;
@@ -148,25 +182,32 @@ inline Plan plan(int m, int n, int k, int b_trans, int sms) {
     if (c == 1 || cost < best) { best = cost; s = c; }
   }
   p.splits = s;
-  p.smem = smem_bytes(p.bm, p.bn, p.stages, b_trans);
+  p.smem = smem_bytes(p.bm, p.bn, p.stages, b_trans, es);
   p.blocks = tiles * s;
   p.ws_words = s > 1 ? hgemm::MAX_TICKETS + tiles * s * p.bm * p.bn : 0;
   return p;
 }
 
+// Output codes: int8 inputs OUT_32 int32, OUT_8 int8, OUT_16 int16;
+// 16-bit inputs OUT_32 fp32, OUT_BF16 bf16, OUT_16 fp16.
+enum { OUT_32 = 0, OUT_8 = 1, OUT_16 = 2, OUT_BF16 = 3 };
+
+template <typename In>
 struct Args {
-  const int8_t* B;  // B(k, n) = B[k * ldb + n], or B[n * ldb + k] (b_trans)
+  using Acc = typename Dp<In>::Acc;
+  const In* B;      // B(k, n) = B[k * ldb + n], or B[n * ldb + k] (b_trans)
   long long ldb;
   int gb;           // bytes per copy of B: 16, 8, 4, or 1 (plain loads)
-  const int* D;     // int32 bias, row stride ldd (0: one row), or null
+  const Acc* D;     // bias, row stride ldd (0: one row), or null
   long long ldd;
-  void* C;          // contiguous (M, N), int8 (out8) or int32
-  int out8, vec_c;  // vec_c: C 16-byte aligned and rows of whole vectors
-  int M, N, K, shift, act;
+  void* C;          // contiguous (M, N), of the output code `out`
+  int out, vec_c;   // vec_c: C 16-byte aligned and rows of whole vectors
+  int M, N, K, shift, act;  // K in elements
+  float out_scale;  // 16-bit inputs: 2^-shift
   int tiles_m, tiles_n, ksteps, splits;
   int ws;           // weight-major tile order
   int* tickets;     // splits > 1: one per tile, 0 between calls
-  int* part;        // splits > 1: [tile][split][partial]
+  Acc* part;        // splits > 1: [tile][split][partial]
 };
 
 // ---------------------------------------------------------------------------
@@ -184,6 +225,13 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
 __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
 }
@@ -319,17 +367,40 @@ __device__ __forceinline__ int wrap_add(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
 }
 
-template <int R, bool TRANS_B, typename ALoad>
+// One 16-byte run of G = 16 / sizeof(OutT) outputs of a staged row, src
+// the accumulators: one vector store when whole, else the `left` of them
+// inside the matrix, one by one. y(v) finishes one value.
+template <typename OutT, typename Acc, typename Y>
+__device__ __forceinline__ void store_run(OutT* C, const Acc* src, int left,
+                                          bool whole, Y y) {
+  constexpr int G = 16 / (int)sizeof(OutT);
+  OutT v[G];
+#pragma unroll
+  for (int q = 0; q < G; ++q) {
+    v[q] = y(src[q]);
+    if (!whole && q < left) C[q] = v[q];
+  }
+  if (whole) *reinterpret_cast<uint4*>(C) = *reinterpret_cast<const uint4*>(v);
+}
+
+template <typename In, int R, bool TRANS_B, typename ALoad>
 __global__ void __launch_bounds__(32 * Cfg<R>::WM * Cfg<R>::WN,
                                   Cfg<R>::PER_SM)
-kernel(Args p, ALoad al) {
+kernel(Args<In> p, ALoad al) {
   using CF = Cfg<R>;
+  using Acc = typename Dp<In>::Acc;
+  constexpr bool INT = Dp<In>::INT;
+  constexpr int ES = (int)sizeof(In), KE = BK / ES;  // k values a slab
+  // int8 row-major B is transposed to [n][k] a slab ahead of the MMAs;
+  // 16-bit row-major B is read [k][n] by ldmatrix.trans.
+  constexpr bool XPOSE = INT && !TRANS_B;
   constexpr int BM = CF::BM, BN = CF::BN, NT = 32 * CF::WM * CF::WN;
+  constexpr int LDB = BN * ES + PAD;  // bytes per k row of a [k][n] slab
   constexpr int STAGES = CF::STAGES;
   constexpr int WTM = BM / CF::WM, WTN = BN / CF::WN;
   constexpr int FM = WTM / 16, FN = WTN / 8;
   constexpr int A_BYTES = BM * LDA;
-  constexpr int STAGE = A_BYTES + (TRANS_B ? BN * LDA : BK * (BN + PAD));
+  constexpr int STAGE = A_BYTES + (TRANS_B ? BN * LDA : b_slab(BN, ES));
   constexpr int A_ITEMS = (BM * (BK / 16) + NT - 1) / NT;
   constexpr int LDC = BN + 4;  // int32 words per row of the staged C tile
   static_assert(FN % 2 == 0 && NT % 4 == 0, "warp tile");
@@ -367,7 +438,7 @@ kernel(Args p, ALoad al) {
                 rows[i], cur);
     }
     al.advance(cur, BK);
-    const int k0 = (lo + it) * BK;
+    const int k0 = (lo + it) * KE;
     int8_t* bs = as + A_BYTES;
     if constexpr (TRANS_B) {
 #pragma unroll
@@ -377,7 +448,7 @@ kernel(Args p, ALoad al) {
         copy16(bs + nr * LDA + c, p.B + (long long)n * p.ldb + k,
                n < p.N ? p.K - k : 0, p.gb, p.B);
       }
-    } else {
+    } else if constexpr (INT) {
       constexpr int CH = BN / 16;
 #pragma unroll
       for (int item = tid; item < BK * CH; item += NT) {
@@ -387,13 +458,25 @@ kernel(Args p, ALoad al) {
                p.B + (long long)k * p.ldb + n, k < p.K ? p.N - n : 0,
                p.gb, p.B);
       }
+    } else {
+      // [k][n] as it lies: KE rows of BN values, 16-byte chunks
+      constexpr int CH = BN * ES / 16;
+      const int8_t* const b8 = reinterpret_cast<const int8_t*>(p.B);
+#pragma unroll
+      for (int item = tid; item < KE * CH; item += NT) {
+        const int kr = item / CH, c = item % CH;
+        const int k = k0 + kr, n = n0 + 16 / ES * c;
+        copy16(bs + kr * LDB + 16 * c,
+               b8 + ((long long)k * p.ldb + n) * ES,
+               k < p.K ? (p.N - n) * ES : 0, p.gb, b8);
+      }
     }
   };
 
   // The bias preloaded into split 0's accumulator (its loads in flight
   // beside the ring's first slabs, not in the epilogue's path).
-  int acc[FM][FN][4];
-  const int* const bias = split == 0 ? p.D : nullptr;
+  Acc acc[FM][FN][4];
+  const Acc* const bias = split == 0 ? p.D : nullptr;
 #pragma unroll
   for (int i = 0; i < FM; ++i)
 #pragma unroll
@@ -411,7 +494,7 @@ kernel(Args p, ALoad al) {
     if (s < steps) load_stage(s);
     hgemm::cp_async_commit();
   }
-  if (!TRANS_B) {
+  if (XPOSE) {
     hgemm::cp_async_wait<STAGES - 2>();   // slab 0 has landed
     __syncthreads();
     transpose_b<BN, NT>(ig_smem + A_BYTES, bt(lo));
@@ -419,18 +502,18 @@ kernel(Args p, ALoad al) {
   for (int it = 0; it < steps; ++it) {
     // Slab it landed, and it + 1 where B is transposed a slab ahead; the
     // barrier makes them every thread's, and frees slab it - 1's slot.
-    if (!TRANS_B)
+    if (XPOSE)
       hgemm::cp_async_wait<STAGES - 3>();
     else
       hgemm::cp_async_wait<STAGES - 2>();
     __syncthreads();
     if (it + STAGES - 1 < steps) load_stage(it + STAGES - 1);
     hgemm::cp_async_commit();
-    if (!TRANS_B && it + 1 < steps)
+    if (XPOSE && it + 1 < steps)
       transpose_b<BN, NT>(ig_smem + ((it + 1) % STAGES) * STAGE + A_BYTES,
                           bt(lo + it + 1));
     const int8_t* as = ig_smem + (it % STAGES) * STAGE;
-    const int8_t* bs = TRANS_B ? as + A_BYTES : bt(lo + it);
+    const int8_t* bs = XPOSE ? bt(lo + it) : as + A_BYTES;
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 32) {
       unsigned af[FM][4], bf[FN][2];
@@ -443,43 +526,68 @@ kernel(Args p, ALoad al) {
 #pragma unroll
       for (int j = 0; j < FN; j += 2) {
         unsigned r[4];
-        ldsm_x4(r, hgemm::smem_u32(
-                       bs + (wn0 + 8 * j + (lane & 7) + (lane >> 4) * 8) *
-                                LDA +
-                       kk + ((lane >> 3) & 1) * 16));
+        if constexpr (INT || TRANS_B)     // [n][k]
+          ldsm_x4(r, hgemm::smem_u32(
+                         bs + (wn0 + 8 * j + (lane & 7) + (lane >> 4) * 8) *
+                                  LDA +
+                         kk + ((lane >> 3) & 1) * 16));
+        else                              // [k][n], transposed by the read
+          ldsm_x4_trans(r, hgemm::smem_u32(
+                               bs + (kk / ES + ((lane >> 3) & 1) * 8 +
+                                     (lane & 7)) * LDB +
+                               (wn0 + 8 * j + (lane >> 4) * 8) * ES));
         bf[j][0] = r[0]; bf[j][1] = r[1];
         bf[j + 1][0] = r[2]; bf[j + 1][1] = r[3];
       }
 #pragma unroll
       for (int i = 0; i < FM; ++i)
 #pragma unroll
-        for (int j = 0; j < FN; ++j)
-          mma_s8(acc[i][j], af[i], bf[j][0], bf[j][1]);
+        for (int j = 0; j < FN; ++j) {
+          if constexpr (INT)
+            mma_s8(acc[i][j], af[i], bf[j][0], bf[j][1]);
+          else
+            hgemm::mma16<In>(acc[i][j], af[i], bf[j][0], bf[j][1]);
+        }
     }
   }
   hgemm::cp_async_wait<0>();
 
   if (S > 1) {
-    // The partial as int4s, int4 i of this thread at i * NT + tid, so a
-    // warp's stores and loads are 512 contiguous bytes; the last block of
-    // the tile adds the others' (wrapping).
+    // The partial as 4-vectors (int4 / float4), vector i of this thread at
+    // i * NT + tid, so a warp's stores and loads are 512 contiguous bytes;
+    // the last block of the tile adds the others': int32 sums wrapping, in
+    // any order; fp32 sums in split order, its own partial at its place
+    // (so a rerun gives the same bits whichever block comes last).
+    using V4 = typename hgemm::Vec4<Acc>::type;
     constexpr int F4 = FM * FN;
     const int tile = nt * p.tiles_m + mt;
     const long long stride = (long long)NT * F4 * 4;
-    int4* const base = reinterpret_cast<int4*>(
+    V4* const base = reinterpret_cast<V4*>(
         p.part + (long long)tile * S * stride) + tid;
 #pragma unroll
     for (int i = 0; i < FM; ++i)
 #pragma unroll
       for (int j = 0; j < FN; ++j)
         base[split * (stride / 4) + (i * FN + j) * NT] =
-            make_int4(acc[i][j][0], acc[i][j][1], acc[i][j][2], acc[i][j][3]);
+            V4{acc[i][j][0], acc[i][j][1], acc[i][j][2], acc[i][j][3]};
     if (!last_block(p.tickets + tile, S)) return;
-    // GP partials' loads in flight at a time (16 int4 a thread), so the
+    Acc own[FM][FN][4];    // fp32: this split's partial, added at its place
+    if constexpr (!INT) {
+#pragma unroll
+      for (int i = 0; i < FM; ++i)
+#pragma unroll
+        for (int j = 0; j < FN; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            own[i][j][e] = acc[i][j][e];
+            acc[i][j][e] = 0.f;
+          }
+    }
+    // GP partials' loads in flight at a time (16 vectors a thread), so the
     // merge waits about (S - 1) / GP round trips to L2, not S - 1.
     constexpr int GP = F4 >= 16 ? 1 : 16 / F4;
     for (int s0 = 0; s0 < S; s0 += GP) {
-      int4 v[GP][F4];
+      V4 v[GP][F4];
 #pragma unroll
       for (int u = 0; u < GP; ++u)
         if (s0 + u < S && s0 + u != split)
@@ -488,16 +596,20 @@ kernel(Args p, ALoad al) {
             v[u][f] = __ldcg(base + (s0 + u) * (stride / 4) + f * NT);
 #pragma unroll
       for (int u = 0; u < GP; ++u)
-        if (s0 + u < S && s0 + u != split)
+        if (s0 + u < S && (!INT || s0 + u != split))
 #pragma unroll
           for (int i = 0; i < FM; ++i)
 #pragma unroll
             for (int j = 0; j < FN; ++j) {
-              const int4 w = v[u][i * FN + j];
-              acc[i][j][0] = wrap_add(acc[i][j][0], w.x);
-              acc[i][j][1] = wrap_add(acc[i][j][1], w.y);
-              acc[i][j][2] = wrap_add(acc[i][j][2], w.z);
-              acc[i][j][3] = wrap_add(acc[i][j][3], w.w);
+              V4 w = v[u][i * FN + j];
+              if constexpr (!INT)
+                if (s0 + u == split)
+                  w = V4{own[i][j][0], own[i][j][1], own[i][j][2],
+                         own[i][j][3]};
+              acc[i][j][0] = hgemm::add(acc[i][j][0], w.x);
+              acc[i][j][1] = hgemm::add(acc[i][j][1], w.y);
+              acc[i][j][2] = hgemm::add(acc[i][j][2], w.z);
+              acc[i][j][3] = hgemm::add(acc[i][j][3], w.w);
             }
     }
   }
@@ -506,31 +618,42 @@ kernel(Args p, ALoad al) {
   // one compact loop of 16-byte stores, consecutive threads on consecutive
   // columns.
   __syncthreads();
-  int* ct = reinterpret_cast<int*>(ig_smem);  // [BM][LDC]
+  using V2 = std::conditional_t<INT, int2, float2>;
+  Acc* ct = reinterpret_cast<Acc*>(ig_smem);  // [BM][LDC]
   {
     const int g = lane >> 2, t = lane & 3;
 #pragma unroll
     for (int i = 0; i < FM; ++i)
 #pragma unroll
       for (int j = 0; j < FN; ++j) {
-        int* c0 = ct + (wm0 + 16 * i + g) * LDC + wn0 + 8 * j + 2 * t;
-        *reinterpret_cast<int2*>(c0) = make_int2(acc[i][j][0], acc[i][j][1]);
-        *reinterpret_cast<int2*>(c0 + 8 * LDC) =
-            make_int2(acc[i][j][2], acc[i][j][3]);
+        Acc* c0 = ct + (wm0 + 16 * i + g) * LDC + wn0 + 8 * j + 2 * t;
+        *reinterpret_cast<V2*>(c0) = V2{acc[i][j][0], acc[i][j][1]};
+        *reinterpret_cast<V2*>(c0 + 8 * LDC) = V2{acc[i][j][2], acc[i][j][3]};
       }
   }
   __syncthreads();
-  const int G = p.out8 ? 16 : 4;  // outputs per 16-byte store
+  // outputs per 16-byte store
+  const int G = p.out == OUT_8 ? 16 : p.out == OUT_32 ? 4 : 8;
   const int per_row = BN / G;
 #pragma unroll 1
   for (int e = tid; e < BM * per_row; e += NT) {
     const int r = e / per_row, c = (e % per_row) * G;
     const int gr = m0 + r, gc = n0 + c;
     if (gr >= p.M || gc >= p.N) continue;
-    const int* src = ct + r * LDC + c;
+    const Acc* src = ct + r * LDC + c;
     const long long at = (long long)gr * p.N + gc;
     const bool whole = p.vec_c && gc + G <= p.N;
-    if (p.out8) {
+    if constexpr (!INT) {
+      auto y = [&](float v) { return epi::activate(v, p.act) * p.out_scale; };
+      if (p.out == OUT_32)
+        store_run(static_cast<float*>(p.C) + at, src, p.N - gc, whole, y);
+      else if (p.out == OUT_BF16)
+        store_run(static_cast<__nv_bfloat16*>(p.C) + at, src, p.N - gc,
+                  whole, [&](float v) { return epi::to<__nv_bfloat16>(y(v)); });
+      else
+        store_run(static_cast<__half*>(p.C) + at, src, p.N - gc, whole,
+                  [&](float v) { return epi::to<__half>(y(v)); });
+    } else if (p.out == OUT_8) {
       unsigned w[4] = {0, 0, 0, 0};
       int8_t* C = static_cast<int8_t*>(p.C) + at;
 #pragma unroll
@@ -542,24 +665,23 @@ kernel(Args p, ALoad al) {
       }
       if (whole)
         *reinterpret_cast<uint4*>(C) = make_uint4(w[0], w[1], w[2], w[3]);
+    } else if (p.out == OUT_16) {
+      store_run(static_cast<int16_t*>(p.C) + at, src, p.N - gc, whole,
+                [&](int v) {
+                  return static_cast<int16_t>(
+                      min(max(finish(v, p.shift, p.act), -32768), 32767));
+                });
     } else {
-      int y[4];
-      int* C = static_cast<int*>(p.C) + at;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        y[q] = finish(src[q], p.shift, p.act);
-        if (!whole && gc + q < p.N) C[q] = y[q];
-      }
-      if (whole)
-        *reinterpret_cast<int4*>(C) = make_int4(y[0], y[1], y[2], y[3]);
+      store_run(static_cast<int*>(p.C) + at, src, p.N - gc, whole,
+                [&](int v) { return finish(v, p.shift, p.act); });
     }
   }
 }
 
-template <int R, bool TB, typename ALoad>
-cudaError_t launch_regime(const Args& a, const ALoad& al, const Plan& pl,
+template <typename In, int R, bool TB, typename ALoad>
+cudaError_t launch_regime(const Args<In>& a, const ALoad& al, const Plan& pl,
                           cudaStream_t s) {
-  auto kern = kernel<R, TB, ALoad>;
+  auto kern = kernel<In, R, TB, ALoad>;
   static int configured = 0;  // largest dynamic shared memory allowed yet
   if (pl.smem > 48 * 1024 && pl.smem > configured) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -571,48 +693,55 @@ cudaError_t launch_regime(const Args& a, const ALoad& al, const Plan& pl,
   return cudaGetLastError();
 }
 
-template <bool TB, typename ALoad>
-cudaError_t launch_plan(const Args& a, const ALoad& al, const Plan& pl,
+template <typename In, bool TB, typename ALoad>
+cudaError_t launch_plan(const Args<In>& a, const ALoad& al, const Plan& pl,
                         cudaStream_t s) {
-  if (pl.regime == SKINNY) return launch_regime<SKINNY, TB>(a, al, pl, s);
-  return launch_regime<SQUARE, TB>(a, al, pl, s);
+  if (pl.regime == SKINNY) return launch_regime<In, SKINNY, TB>(a, al, pl, s);
+  return launch_regime<In, SQUARE, TB>(a, al, pl, s);
 }
 
-inline Plan plan_here(int m, int n, int k, int b_trans) {
-  return plan(m, n, k, b_trans, hgemm::sm_count());
+// The plan of a call with K values of es bytes.
+inline Plan plan_here(int m, int n, int k, int b_trans, int es = 1) {
+  return plan(m, n, k * es, b_trans, hgemm::sm_count(), es);
 }
 
-// One call: A through `al`, B (K, N) at ldb (b_trans: the transpose of a
-// row-major (N, K) buffer), D, C as Args says; workspace: plan().ws_words
-// 4-byte words owned by the calling stream (tickets zeroed when it was
-// made), may be null for one split. TRANS_B_OK: whether this source
-// instantiates the (N, K) path (the conv's filters are never transposed).
-template <typename ALoad, bool TRANS_B_OK = true>
-cudaError_t launch(const ALoad& al, const int8_t* B, long long ldb,
-                   int b_trans, const int* D, long long ldd, void* C,
-                   int out8, int M, int N, int K, int shift, int act, int ws,
-                   void* workspace, cudaStream_t s) {
-  const Plan pl = plan_here(M, N, K, b_trans);
+// One call: A through `al` (its k counted in bytes), B (K, N) at ldb
+// (b_trans: the transpose of a row-major (N, K) buffer; int8 only), D, C,
+// `out` (OUT_*) as Args says, out_scale 2^-shift for 16-bit inputs;
+// workspace: plan().ws_words 4-byte words owned by the calling stream
+// (tickets zeroed when it was made), may be null for one split.
+// TRANS_B_OK: whether this source instantiates the (N, K) path (the
+// conv's filters are never transposed).
+template <typename In, typename ALoad, bool TRANS_B_OK = true>
+cudaError_t launch(const ALoad& al, const In* B, long long ldb, int b_trans,
+                   const typename Dp<In>::Acc* D, long long ldd, void* C,
+                   int out, int M, int N, int K, int shift, float out_scale,
+                   int act, int ws, void* workspace, cudaStream_t s) {
+  using Acc = typename Dp<In>::Acc;
+  constexpr int ES = (int)sizeof(In);
+  const Plan pl = plan_here(M, N, K, b_trans, ES);
   if (pl.splits > 1 && workspace == nullptr) return cudaErrorInvalidValue;
-  Args a{};
-  a.B = B; a.ldb = ldb; a.gb = granule(B, ldb);
+  Args<In> a{};
+  a.B = B; a.ldb = ldb; a.gb = granule(B, ldb * ES);
   a.D = D; a.ldd = ldd;
-  a.C = C; a.out8 = out8;
+  a.C = C; a.out = out;
   a.vec_c = reinterpret_cast<uintptr_t>(C) % 16 == 0 &&
-            N % (out8 ? 16 : 4) == 0;
+            N % (out == OUT_8 ? 16 : out == OUT_32 ? 4 : 8) == 0;
   a.M = M; a.N = N; a.K = K; a.shift = shift; a.act = act;
+  a.out_scale = out_scale;
   a.tiles_m = pl.tiles_m; a.tiles_n = pl.tiles_n;
   a.ksteps = pl.ksteps; a.splits = pl.splits;
   a.ws = ws;
   a.tickets = static_cast<int*>(workspace);
-  a.part = workspace ? static_cast<int*>(workspace) + hgemm::MAX_TICKETS
+  a.part = workspace ? reinterpret_cast<Acc*>(static_cast<int*>(workspace) +
+                                              hgemm::MAX_TICKETS)
                      : nullptr;
   if constexpr (TRANS_B_OK) {
-    if (b_trans) return launch_plan<true>(a, al, pl, s);
+    if (b_trans) return launch_plan<In, true>(a, al, pl, s);
   } else {
     if (b_trans) return cudaErrorInvalidValue;
   }
-  return launch_plan<false>(a, al, pl, s);
+  return launch_plan<In, false>(a, al, pl, s);
 }
 
 }  // namespace igemm

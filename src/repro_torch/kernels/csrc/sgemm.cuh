@@ -1,39 +1,63 @@
-// fp32 x fp32 -> fp32 GEMM for Hopper on CUDA-core FMAs: the float datapath
-// of the engine GEMM in gemm.cu, C = epilogue(A @ B + D), for fp32 inputs
-// (the fp32 engine config).
+// The engine's CUDA-core main loop for Hopper, two datapaths:
+//   fp32 x fp32 -> fp32 on IEEE FMAs (the fp32 engine config, Table 1's
+//     design point 4), and
+//   int16 x int16 -> int32 on integer multiply-adds (an int16 instance;
+//     Hopper has no int16 tensor-core MMA),
+// C = epilogue(A @ B + D), for the engine GEMM (gemm.cu: fp32; gemm16.cu:
+// int16) and the implicit-im2col conv (conv.cu: fp32 and int16), A coming
+// through a loader policy (ALoad: a row-major matrix here, or conv.cu's tap
+// gather of an NHWC image) as igemm.cuh's A does.
 //
 // Replaces, in src/repro/kernels/gemm.py, gemm_os (:81, pallas_call :105)
-// and gemm_ws (:160, pallas_call :184) for fp32 inputs.
+// and gemm_ws (:160, pallas_call :184) for fp32 and int16 inputs, and in
+// src/repro/kernels/conv.py conv2d_implicit (:88, pallas_call :140) for
+// the same inputs.
+//
+// One loop for both, templated on the element type: the tiles, the ring,
+// the loads and the plan are the same, a quad of 4 k values is one 16-byte
+// (fp32) or 8-byte (int16) copy, and only the multiply-add, the sum and
+// the epilogue differ (Dp below). Why not a header of its own for int16:
+// it would repeat this file's loads, ring, split and epilogue line for line.
 //
 // IEEE fp32: every product is an fmaf on the CUDA cores -- no TF32, no
 // split into TF32 pieces -- so the fp32 engine config keeps fp32's 24-bit
 // significand; only the order of the sum differs from the plain version's.
+// int16: each product fits in int32 exactly, and every add (products, K
+// splits, the bias) is done on unsigned words, so sums wrap modulo 2^32 as
+// the plain version's and the TPU kernel's int32 dot do (a signed overflow
+// would be undefined in C++, and the compiler may exploit it). A wrapping
+// sum is exact in any order: no blocked sum, and OS equals WS and the plain
+// version bit for bit.
 // What bounds it on the H100: at the fp32 prefill shapes (M = 64-256 rows
-// against 1-50 k columns) the CUDA-core fp32 rate, 67 TFLOP/s; at decode
-// rows (M <= 16) the bytes of B. At M = 64 a 64-row tile gives N / 128
-// tiles (8 for gemma3-1b's wq), so the tiles alone leave most SMs idle.
+// against 1-50 k columns) the CUDA-core fp32 rate, 67 TFLOP/s; int16 the
+// INT32 multiply-add rate (64 lanes an SM, half the fp32 FMA rate); at
+// decode rows (M <= 16) the bytes of B. At M = 64 a 64-row tile gives
+// N / 128 tiles (8 for gemma3-1b's wq), so the tiles alone leave most SMs
+// idle.
 //
 // The design:
 //   - Block tiles of 128 x 128 (256 threads), or 64 x 128 (128 threads)
 //     where those pad M less (M <= 64, the M = 64 prompt). Each thread
-//     holds an 8 x 8 register micro-tile: per 4 k, 8 float4 loads of A and
-//     8 of B from shared memory feed 256 FMAs.
-//   - Operands by 16-byte cp.async into a 4-stage ring of BK = 16 k
-//     slices: three slices are in flight while one computes, and one
-//     block-wide barrier per slice.
-//   - A K-major in shared memory, as it lies in device memory. B in the
-//     layout it lies in: row-major (K, N) weights N-major (a thread's 8
-//     columns are two float4 runs 64 apart, so a quarter warp reads 128
-//     contiguous bytes), the tied unembedding's table.T K-major, never
-//     copied (a thread's columns 16 apart; K-major rows are padded to 20
-//     floats, so the 8 rows a quarter warp reads fall in 8 bank groups).
-//   - A blocked sum: each slice's 16 products per output are summed apart
-//     and then added to the running sum, so the fp32 error grows with
-//     K / 16 + 16 terms, not K (one chain over mamba2-1.3b's K = 2048 left
-//     outputs outside the fp32 tolerance against the plain version).
+//     holds an 8 x 8 register micro-tile: per 4 k, 8 quad loads of A and 8
+//     of B from shared memory feed 256 multiply-adds.
+//   - Operands by cp.async into a 4-stage ring of BK = 16 k slices: three
+//     slices are in flight while one computes, and one block-wide barrier
+//     per slice.
+//   - A K-major in shared memory, as it lies in device memory (or as the
+//     conv's gather lays it down). B in the layout it lies in: row-major
+//     (K, N) weights and HWIO filters N-major (a thread's 8 columns are two
+//     quads 64 apart, so a quarter warp reads 128 contiguous bytes of
+//     fp32), the tied unembedding's table.T K-major, never copied (a
+//     thread's columns 16 apart; K-major rows are padded to 20 elements,
+//     so the 8 rows a quarter warp reads fall in 8 bank groups).
+//   - fp32 only, a blocked sum: each slice's 16 products per output are
+//     summed apart and then added to the running sum, so the fp32 error
+//     grows with K / 16 + 16 terms, not K (one chain over mamba2-1.3b's K =
+//     2048 left outputs outside the fp32 tolerance against the plain
+//     version; ResNet-50's stage-4 3x3 conv has K = 4608).
 //   - Ragged M, N and K are masked in the loads: cp.async zero-fills what
-//     lies outside. Operands whose rows are not 16-byte aligned load in
-//     4-byte cp.async copies instead, still asynchronous.
+//     lies outside. Rows that are not aligned to a quad load element by
+//     element instead (fp32: 4-byte cp.async copies; int16: plain loads).
 //   - Split K where the tiles leave SMs idle or end in a thin last wave,
 //     at least 4 slices (64 k) per split and at most 16 splits. Each split
 //     writes its partial to the stream's workspace; the tile's last block,
@@ -43,16 +67,17 @@
 //   - The epilogue stages the tile in shared memory and finishes it in one
 //     compact loop (finishing the 64 values in registers unrolls the
 //     activation 64 times, and fetching that code took longer than a short
-//     split's main loop).
+//     split's main loop). The bias (D) is added there, once per output.
 // What it does not reach: an 8 x 8 micro-tile from shared memory needs a
 // quarter of a word per FMA, the H100's whole shared-memory bandwidth at
 // the FMA rate, and the blocked sum holds the registers a larger
 // micro-tile would need; at mamba2-1.3b's in_proj (M = 256) it takes
 // 1.35x torch.matmul's time (PERF.md).
-// The plan depends on the shape, B's layout and the SM count only, and
-// each tile is computed the same way whatever order the blocks walk, so
-// WS (weight-major tile order) equals OS bit for bit, and a rerun equals
-// the first run.
+// The plan depends on the shape, B's layout and the SM count only (the
+// int16 datapath takes fp32's tiles and splits; only its shared memory is
+// smaller), and each tile is computed the same way whatever order the
+// blocks walk, so WS (weight-major tile order) equals OS bit for bit, and
+// a rerun equals the first run.
 
 #pragma once
 
@@ -68,11 +93,47 @@ namespace sgemm {
 constexpr int BN = 128;          // block columns
 constexpr int BK = 16;           // k per ring stage
 constexpr int STAGES = 4;
-constexpr int LDK = BK + 4;      // floats per K-major row (80 bytes)
-constexpr int LDN = BN + 4;      // floats per N-major row
-constexpr int LDT = BN + 4;      // floats per row of the staged C tile
+constexpr int LDK = BK + 4;      // elements per K-major row
+constexpr int LDN = BN + 4;      // elements per N-major row
+constexpr int LDT = BN + 4;      // accumulators per row of the staged C tile
 constexpr int MIN_STEPS = 4;     // stages a split walks at least
 constexpr int MAX_SPLITS = 16;   // partials a tile merges at most
+
+// The datapath of an element type: its accumulator, and whether the sum is
+// blocked (fp32) or wraps in any order (int16).
+template <typename In> struct Dp;
+template <> struct Dp<float> {
+  using Acc = float;
+  static constexpr bool INT = false;
+};
+template <> struct Dp<int16_t> {
+  using Acc = int;
+  static constexpr bool INT = true;
+};
+
+// 4 accumulator values of a quad in shared memory.
+template <typename Acc> struct Q4 { Acc x, y, z, w; };
+__device__ __forceinline__ Q4<float> quad(const float* p) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  return {v.x, v.y, v.z, v.w};
+}
+__device__ __forceinline__ Q4<int> quad(const int16_t* p) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  return {static_cast<int>(v.x << 16) >> 16, static_cast<int>(v.x) >> 16,
+          static_cast<int>(v.y << 16) >> 16, static_cast<int>(v.y) >> 16};
+}
+template <typename Acc>
+__device__ __forceinline__ Acc quad_at(const Q4<Acc>& q, int i) {
+  return i == 0 ? q.x : i == 1 ? q.y : i == 2 ? q.z : q.w;
+}
+// c += a * b: an IEEE FMA, or a multiply-add modulo 2^32.
+__device__ __forceinline__ void mac(float& c, float a, float b) {
+  c = fmaf(a, b, c);
+}
+__device__ __forceinline__ void mac(int& c, int a, int b) {
+  c = static_cast<int>(static_cast<unsigned>(c) +
+                       static_cast<unsigned>(a) * static_cast<unsigned>(b));
+}
 
 struct Plan {
   int bm, bn, bk, threads, stages, smem;
@@ -81,24 +142,29 @@ struct Plan {
   long long ws_words;   // workspace: tickets then partials, 0 for one split
 };
 
-template <int BM, bool TRANS_B>
+template <typename In, int BM, bool TRANS_B>
 struct Shape {
   static constexpr int T = BM * BN / 64;          // 8 x 8 outputs a thread
   static constexpr int TY = BM / 8, TX = BN / 8;  // thread grid (TX = 16)
-  static constexpr int A_FLOATS = BM * LDK;
-  static constexpr int B_FLOATS = TRANS_B ? BN * LDK : BK * LDN;
-  static constexpr int STAGE = A_FLOATS + B_FLOATS;
-  static constexpr int SMEM = STAGES * STAGE * 4;
-  static_assert(STAGES * STAGE >= BM * LDT, "the C tile must fit the ring");
+  static constexpr int A_ELEMS = BM * LDK;
+  static constexpr int B_ELEMS = TRANS_B ? BN * LDK : BK * LDN;
+  static constexpr int STAGE = A_ELEMS + B_ELEMS;
+  static constexpr int RING = STAGES * STAGE * (int)sizeof(In);
+  static constexpr int TILE = BM * LDT * 4;       // the staged C tile
+  static constexpr int SMEM = RING > TILE ? RING : TILE;
+  static constexpr int A_ITEMS = BM * (BK / 4) / T;   // A quads a thread
+  static_assert(A_ITEMS * T == BM * (BK / 4), "A quads per thread");
 };
 
+template <typename In>
 inline int smem_bytes(int bm, int b_trans) {
   if (bm == 128)
-    return b_trans ? Shape<128, true>::SMEM : Shape<128, false>::SMEM;
-  return b_trans ? Shape<64, true>::SMEM : Shape<64, false>::SMEM;
+    return b_trans ? Shape<In, 128, true>::SMEM : Shape<In, 128, false>::SMEM;
+  return b_trans ? Shape<In, 64, true>::SMEM : Shape<In, 64, false>::SMEM;
 }
 
-// The plan of a call: shape, B's layout and SM count only.
+// The plan of a call: shape, B's layout and SM count only (and the element
+// type's shared memory).
 //   - 128-row tiles unless 64-row ones pad M less (M <= 64, M = 129..192):
 //     a 128 x 128 tile did more per SM than two 64 x 128 ones at M = 256
 //     on the H100.
@@ -106,9 +172,10 @@ inline int smem_bytes(int bm, int b_trans) {
 //     blocks' waves over the resident slots (one 256-thread block or two
 //     128-thread ones per SM, by their registers) times a split's k steps
 //     plus its fill and merge, in k steps. Fitted to a sweep of s on the
-//     H100: mamba2-1.3b's in_proj (134 tiles, a thin second wave unsplit)
-//     ran fastest at 4-8 splits, gemma3-1b's wq at M = 64 (8 tiles) at
-//     12-16.
+//     H100 in fp32: mamba2-1.3b's in_proj (134 tiles, a thin second wave
+//     unsplit) ran fastest at 4-8 splits, gemma3-1b's wq at M = 64 (8
+//     tiles) at 12-16.
+template <typename In>
 inline Plan plan(int m, int n, int k, int b_trans, int sms) {
   using hgemm::ceil_div;
   Plan p{};
@@ -117,7 +184,7 @@ inline Plan plan(int m, int n, int k, int b_trans, int sms) {
   p.bk = BK;
   p.threads = p.bm * BN / 64;
   p.stages = STAGES;
-  p.smem = smem_bytes(p.bm, b_trans);
+  p.smem = smem_bytes<In>(p.bm, b_trans);
   p.tiles_m = ceil_div(m, p.bm);
   p.tiles_n = ceil_div(n, BN);
   p.ksteps = ceil_div(k, BK);
@@ -139,49 +206,103 @@ inline Plan plan(int m, int n, int k, int b_trans, int sms) {
   return p;
 }
 
+template <typename In>
 struct Args {
-  const float* A;    // (M, K), row stride lda
-  const float* B;    // B(k, n) = B[k * ldb + n], or B[n * ldb + k] (TRANS_B)
-  const float* D;    // fp32 bias, row stride ldd (0: one row), or null
+  using Acc = typename Dp<In>::Acc;
+  const In* B;       // B(k, n) = B[k * ldb + n], or B[n * ldb + k] (TRANS_B)
+  const Acc* D;      // bias, row stride ldd (0: one row), or null
   void* C;           // contiguous (M, N)
   int M, N, K;
-  long long lda, ldb, ldd;
-  int act;
-  float out_scale;
-  int vec_a, vec_b;  // rows 16-byte aligned: 16-byte copies, else 4-byte
+  long long ldb, ldd;
+  int act, shift;    // shift: the int32 rounding shift
+  float out_scale;   // 2^-shift, the fp32 path's
+  int vec_b;         // B's rows aligned to a quad: one copy a quad
   int ws;            // weight-major tile order
   int tiles_m, tiles_n, ksteps, splits;
-  float* part;       // splits > 1: [tile][split][partial]
+  Acc* part;         // splits > 1: [tile][split][partial]
   int* tickets;      // splits > 1: one per tile, 0 between calls
 };
 
-// 4 consecutive floats at src, `left` of them inside the matrix (<= 0:
-// none), into the 16 bytes at shared address dst, zeros past `left`: one
-// 16-byte copy when vec (src 16-byte aligned), else four 4-byte copies.
-// `safe` is any valid address, handed to a copy that reads nothing.
-__device__ __forceinline__ void load4(uint32_t dst, const float* src, int left,
-                                      int vec, const float* safe) {
+// The quad of 4 elements at src, `left` of them inside the matrix (<= 0:
+// none), into the shared address dst, zeros past `left`: one cp.async of
+// the whole quad when vec (src aligned to it), else element by element
+// (fp32: 4-byte cp.async copies; int16: plain loads and one shared store,
+// visible after the ring's next barrier like a landed copy). `safe` is any
+// valid address, handed to a copy that reads nothing.
+template <typename In>
+__device__ __forceinline__ void load4(uint32_t dst, const In* src, int left,
+                                      int vec, const In* safe) {
+  constexpr int Q = 4 * (int)sizeof(In);
   if (vec) {
-    const int bytes = left >= 4 ? 16 : left > 0 ? 4 * left : 0;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(dst), "l"(bytes > 0 ? src : safe), "r"(bytes)
-                 : "memory");
+    const int bytes = left >= 4 ? Q : left > 0 ? (int)sizeof(In) * left : 0;
+    const void* from = bytes > 0 ? static_cast<const void*>(src) : safe;
+    if constexpr (Q == 16)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                   :: "r"(dst), "l"(from), "r"(bytes) : "memory");
+    else
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                   :: "r"(dst), "l"(from), "r"(bytes) : "memory");
     return;
   }
+  if constexpr (sizeof(In) == 4) {
 #pragma unroll
-  for (int e = 0; e < 4; ++e)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-                 :: "r"(dst + 4 * e), "l"(e < left ? src + e : safe),
-                    "r"(e < left ? 4 : 0)
-                 : "memory");
+    for (int e = 0; e < 4; ++e)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                   :: "r"(dst + 4 * e), "l"(e < left ? src + e : safe),
+                      "r"(e < left ? 4 : 0)
+                   : "memory");
+  } else {
+    const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
+    uint32_t w[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const uint32_t lo = 2 * e < left ? s[2 * e] : 0u;
+      const uint32_t hi = 2 * e + 1 < left ? s[2 * e + 1] : 0u;
+      w[e] = lo | (hi << 16);
+    }
+    asm volatile("st.shared.v2.u32 [%0], {%1, %2};\n"
+                 :: "r"(dst), "r"(w[0]), "r"(w[1]) : "memory");
+  }
 }
 
-template <int BM, bool TRANS_B, typename OutT>
+// A as a row-major (M, K) matrix with row stride lda; vec: rows aligned to
+// a quad. Loader policy (igemm.cuh's, in elements of k): row(m) once per
+// tile, a cursor per thread advanced one slice per stage, load() of one
+// quad into shared memory.
+template <typename In>
+struct MatrixA {
+  const In* a;
+  long long lda;
+  int M, K, vec;
+  struct Row {
+    const In* p;
+    int ok;
+  };
+  using Cursor = int;  // k of the thread's quad
+  __device__ __forceinline__ Row row(int m) const {
+    return {a + (long long)m * lda, m < M};
+  }
+  __device__ __forceinline__ Cursor cursor(int k) const { return k; }
+  __device__ __forceinline__ void advance(Cursor& k, int by) const { k += by; }
+  __device__ __forceinline__ void load(void* dst, const Row& r,
+                                       Cursor k) const {
+    load4<In>(hgemm::smem_u32(dst), r.p + k, r.ok ? K - k : 0, vec, a);
+  }
+};
+
+template <typename In>
+inline int quad_aligned(const In* p, long long ld) {
+  return ld % 4 == 0 && reinterpret_cast<uintptr_t>(p) % (4 * sizeof(In)) == 0;
+}
+
+template <typename In, int BM, bool TRANS_B, typename OutT, typename ALoad>
 __global__ void __launch_bounds__(BM * 2)
-sgemm_kernel(Args p) {
-  using Sh = Shape<BM, TRANS_B>;
-  constexpr int T = Sh::T, TY = Sh::TY;
+sgemm_kernel(Args<In> p, ALoad al) {
+  using Sh = Shape<In, BM, TRANS_B>;
+  using Acc = typename Dp<In>::Acc;
+  constexpr int T = Sh::T, TY = Sh::TY, A_ITEMS = Sh::A_ITEMS;
   extern __shared__ __align__(16) float sg_smem[];
+  In* const ring = reinterpret_cast<In*>(sg_smem);
   const int tid = threadIdx.x, ty = tid / Sh::TX, tx = tid % Sh::TX;
   const int S = p.splits, split = blockIdx.x % S, tile = blockIdx.x / S;
   int mt, nt;
@@ -191,40 +312,84 @@ sgemm_kernel(Args p) {
   hgemm::split_range(split, S, p.ksteps, lo, hi);
   const int steps = hi - lo;
 
-  // One k slice (k0 = BK * step) into ring stage st.
+  // A quad item e = tid + i * T: row e / 4, k (e % 4) * 4 of each slice.
+  typename ALoad::Row rows[A_ITEMS];
+#pragma unroll
+  for (int i = 0; i < A_ITEMS; ++i)
+    rows[i] = al.row(m0 + (tid + i * T) / (BK / 4));
+  typename ALoad::Cursor cur = al.cursor(lo * BK + (tid % (BK / 4)) * 4);
+
+  // One k slice (k0 = BK * step) into ring stage st; slices are loaded in
+  // order, the A cursor one slice further each time.
   auto load_stage = [&](int st, int step) {
-    float* as = sg_smem + st * Sh::STAGE;
-    float* bs = as + Sh::A_FLOATS;
+    In* as = ring + st * Sh::STAGE;
+    In* bs = as + Sh::A_ELEMS;
     const int k0 = step * BK;
 #pragma unroll
-    for (int e = tid; e < BM * BK / 4; e += T) {
-      const int r = e / (BK / 4), kc = (e % (BK / 4)) * 4;
-      const int gm = m0 + r, gk = k0 + kc;
-      load4(hgemm::smem_u32(as + r * LDK + kc), p.A + gm * p.lda + gk,
-            gm < p.M ? p.K - gk : 0, p.vec_a, p.A);
+    for (int i = 0; i < A_ITEMS; ++i) {
+      const int e = tid + i * T;
+      al.load(as + (e / (BK / 4)) * LDK + (e % (BK / 4)) * 4, rows[i], cur);
     }
+    al.advance(cur, BK);
 #pragma unroll
     for (int e = tid; e < BN * BK / 4; e += T) {
       if constexpr (TRANS_B) {
         const int r = e / (BK / 4), kc = (e % (BK / 4)) * 4;
         const int gn = n0 + r, gk = k0 + kc;
-        load4(hgemm::smem_u32(bs + r * LDK + kc), p.B + gn * p.ldb + gk,
-              gn < p.N ? p.K - gk : 0, p.vec_b, p.B);
+        load4<In>(hgemm::smem_u32(bs + r * LDK + kc),
+                  p.B + (long long)gn * p.ldb + gk, gn < p.N ? p.K - gk : 0,
+                  p.vec_b, p.B);
       } else {
         const int r = e / (BN / 4), nc = (e % (BN / 4)) * 4;
         const int gk = k0 + r, gn = n0 + nc;
-        load4(hgemm::smem_u32(bs + r * LDN + nc), p.B + gk * p.ldb + gn,
-              gk < p.K ? p.N - gn : 0, p.vec_b, p.B);
+        load4<In>(hgemm::smem_u32(bs + r * LDN + nc),
+                  p.B + (long long)gk * p.ldb + gn, gk < p.K ? p.N - gn : 0,
+                  p.vec_b, p.B);
       }
     }
   };
 
   // acc[8 i + j]: C(m0 + ty + TY i, n0 + col(j)), col(j) = tx + 16 j
-  // (table.T) or 4 tx + j % 4 + 64 (j / 4) (row-major B); a slice's
-  // products go into part, its sum into acc (the blocked sum).
-  float acc[64];
+  // (table.T) or 4 tx + j % 4 + 64 (j / 4) (row-major B).
+  Acc acc[64];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int i = 0; i < 64; ++i) acc[i] = 0;
+
+  // The products of the slice in stage `it % STAGES`, added into c.
+  auto slice = [&](int it, Acc (&c)[64]) {
+    const In* as = ring + (it % STAGES) * Sh::STAGE;
+    const In* bs = as + Sh::A_ELEMS;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 4) {
+      Q4<Acc> a[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = quad(as + (ty + TY * i) * LDK + kk);
+      Acc b[4][8];
+      if constexpr (TRANS_B) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const Q4<Acc> v = quad(bs + (tx + 16 * j) * LDK + kk);
+          b[0][j] = v.x; b[1][j] = v.y; b[2][j] = v.z; b[3][j] = v.w;
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const Q4<Acc> l = quad(bs + (kk + q) * LDN + 4 * tx);
+          const Q4<Acc> h = quad(bs + (kk + q) * LDN + 64 + 4 * tx);
+          b[q][0] = l.x; b[q][1] = l.y; b[q][2] = l.z; b[q][3] = l.w;
+          b[q][4] = h.x; b[q][5] = h.y; b[q][6] = h.z; b[q][7] = h.w;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const Acc av = quad_at(a[i], q);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) mac(c[8 * i + j], av, b[q][j]);
+        }
+    }
+  };
 
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
@@ -237,75 +402,44 @@ sgemm_kernel(Args p) {
     if (it + STAGES - 1 < steps)
       load_stage((it + STAGES - 1) % STAGES, lo + it + STAGES - 1);
     hgemm::cp_async_commit();
-    const float* as = sg_smem + (it % STAGES) * Sh::STAGE;
-    const float* bs = as + Sh::A_FLOATS;
-    float part[64];
+    if constexpr (Dp<In>::INT) {
+      slice(it, acc);                     // wraps: exact in any order
+    } else {
+      // the blocked sum: a slice's products apart, then into acc
+      Acc part[64];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) part[i] = 0.f;
+      for (int i = 0; i < 64; ++i) part[i] = 0;
+      slice(it, part);
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 4) {
-      float4 a[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        a[i] = *reinterpret_cast<const float4*>(as + (ty + TY * i) * LDK + kk);
-      float b[4][8];
-      if constexpr (TRANS_B) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float4 v =
-              *reinterpret_cast<const float4*>(bs + (tx + 16 * j) * LDK + kk);
-          b[0][j] = v.x; b[1][j] = v.y; b[2][j] = v.z; b[3][j] = v.w;
-        }
-      } else {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float4 l =
-              *reinterpret_cast<const float4*>(bs + (kk + q) * LDN + 4 * tx);
-          const float4 h = *reinterpret_cast<const float4*>(
-              bs + (kk + q) * LDN + 64 + 4 * tx);
-          b[q][0] = l.x; b[q][1] = l.y; b[q][2] = l.z; b[q][3] = l.w;
-          b[q][4] = h.x; b[q][5] = h.y; b[q][6] = h.z; b[q][7] = h.w;
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float av = q == 0 ? a[i].x : q == 1 ? a[i].y
-                           : q == 2 ? a[i].z : a[i].w;
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            part[8 * i + j] = fmaf(av, b[q][j], part[8 * i + j]);
-        }
+      for (int i = 0; i < 64; ++i) acc[i] += part[i];
     }
-#pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] += part[i];
   }
   hgemm::cp_async_wait<0>();
 
   if (S > 1) {
     const long long stride = (long long)T * 64;
-    float* const base = p.part + (long long)tile * S * stride + 4 * tid;
-    hgemm::store_partial<64, T>(acc, base + split * stride);
+    Acc* const base = p.part + (long long)tile * S * stride + 4 * tid;
+    hgemm::store_partial<64, T, Acc>(acc, base + split * stride);
     if (!hgemm::last_of_tile(p.tickets + tile, S)) return;
-    hgemm::merge_partials<64, T>(acc, base, stride, S, split);
+    hgemm::merge_partials<64, T, Acc>(acc, base, stride, S, split);
   }
 
   // The epilogue: the tile through shared memory (the ring is free), then
   // one compact loop, consecutive threads on consecutive columns.
   __syncthreads();
-  float* tile_s = sg_smem;                // [BM][LDT]
+  Acc* tile_s = reinterpret_cast<Acc*>(sg_smem);   // [BM][LDT]
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    float* row = tile_s + (ty + TY * i) * LDT;
+    Acc* row = tile_s + (ty + TY * i) * LDT;
     if constexpr (TRANS_B) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) row[tx + 16 * j] = acc[8 * i + j];
     } else {
-      *reinterpret_cast<float4*>(row + 4 * tx) = make_float4(
-          acc[8 * i], acc[8 * i + 1], acc[8 * i + 2], acc[8 * i + 3]);
-      *reinterpret_cast<float4*>(row + 64 + 4 * tx) = make_float4(
-          acc[8 * i + 4], acc[8 * i + 5], acc[8 * i + 6], acc[8 * i + 7]);
+      using V4 = typename hgemm::Vec4<Acc>::type;
+      *reinterpret_cast<V4*>(row + 4 * tx) =
+          V4{acc[8 * i], acc[8 * i + 1], acc[8 * i + 2], acc[8 * i + 3]};
+      *reinterpret_cast<V4*>(row + 64 + 4 * tx) = V4{
+          acc[8 * i + 4], acc[8 * i + 5], acc[8 * i + 6], acc[8 * i + 7]};
     }
   }
   __syncthreads();
@@ -314,50 +448,77 @@ sgemm_kernel(Args p) {
   for (int e = tid; e < BM * BN; e += T) {
     const int r = m0 + e / BN, c = n0 + e % BN;
     if (r >= p.M || c >= p.N) continue;
-    float v = tile_s[(e / BN) * LDT + e % BN];
-    if (p.D != nullptr) v += p.D[(long long)r * p.ldd + c];
-    epi::store_float(C, (long long)r * p.N + c, v, p.act, p.out_scale);
+    Acc v = tile_s[(e / BN) * LDT + e % BN];
+    if (p.D != nullptr) v = hgemm::add(v, p.D[(long long)r * p.ldd + c]);
+    if constexpr (Dp<In>::INT)
+      epi::store_int(C, (long long)r * p.N + c, v, p.shift, p.act);
+    else
+      epi::store_float(C, (long long)r * p.N + c, v, p.act, p.out_scale);
   }
 }
 
-template <int BM, bool TB, typename OutT>
-cudaError_t launch_tile(const Args& a, const Plan& pl, cudaStream_t s) {
-  auto kernel = sgemm_kernel<BM, TB, OutT>;
+template <typename In, int BM, bool TB, typename OutT, typename ALoad>
+cudaError_t launch_tile(const Args<In>& a, const ALoad& al, const Plan& pl,
+                        cudaStream_t s) {
+  auto kernel = sgemm_kernel<In, BM, TB, OutT, ALoad>;
   static bool configured = false;
   const cudaError_t e =
-      hgemm::allow_smem(kernel, Shape<BM, TB>::SMEM, configured);
+      hgemm::allow_smem(kernel, Shape<In, BM, TB>::SMEM, configured);
   if (e != cudaSuccess) return e;
-  kernel<<<(unsigned)pl.blocks, Shape<BM, TB>::T, Shape<BM, TB>::SMEM, s>>>(a);
+  kernel<<<(unsigned)pl.blocks, Shape<In, BM, TB>::T,
+           Shape<In, BM, TB>::SMEM, s>>>(a, al);
   return cudaGetLastError();
 }
 
-// One call. workspace: plan().ws_words 4-byte words (tickets, then
-// partials), owned by the calling stream; may be null for one split.
-template <typename OutT>
-cudaError_t launch(const float* A, const float* B, const float* D, OutT* C,
-                   int m, int n, int k, long long lda, long long ldb,
-                   int b_trans, long long ldd, int act, float out_scale,
-                   int ws, void* workspace, cudaStream_t s) {
-  const Plan pl = plan(m, n, k, b_trans, hgemm::sm_count());
+// One call: A through `al`, B (K, N) at ldb (b_trans: the transpose of a
+// row-major (N, K) buffer), D an fp32 / int32 bias, C as Args says.
+// workspace: plan().ws_words 4-byte words (tickets, then partials), owned
+// by the calling stream; may be null for one split. TRANS_B_OK: whether
+// this source instantiates the (N, K) path (the conv's filters are never
+// transposed).
+template <typename In, typename OutT, typename ALoad, bool TRANS_B_OK = true>
+cudaError_t launch(const ALoad& al, const In* B,
+                   const typename Dp<In>::Acc* D, OutT* C, int m, int n,
+                   int k, long long ldb, int b_trans, long long ldd, int act,
+                   int shift, float out_scale, int ws, void* workspace,
+                   cudaStream_t s) {
+  using Acc = typename Dp<In>::Acc;
+  const Plan pl = plan<In>(m, n, k, b_trans, hgemm::sm_count());
   if (pl.splits > 1 && workspace == nullptr) return cudaErrorInvalidValue;
-  Args a{};
-  a.A = A; a.B = B; a.D = D; a.C = C;
+  Args<In> a{};
+  a.B = B; a.D = D; a.C = C;
   a.M = m; a.N = n; a.K = k;
-  a.lda = lda; a.ldb = ldb; a.ldd = ldd;
-  a.act = act; a.out_scale = out_scale;
-  a.vec_a = lda % 4 == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0;
-  a.vec_b = ldb % 4 == 0 && reinterpret_cast<uintptr_t>(B) % 16 == 0;
+  a.ldb = ldb; a.ldd = ldd;
+  a.act = act; a.shift = shift; a.out_scale = out_scale;
+  a.vec_b = quad_aligned(B, ldb);
   a.ws = ws;
   a.tiles_m = pl.tiles_m; a.tiles_n = pl.tiles_n;
   a.ksteps = pl.ksteps; a.splits = pl.splits;
   a.tickets = static_cast<int*>(workspace);
-  a.part = workspace ? static_cast<float*>(workspace) + hgemm::MAX_TICKETS
+  a.part = workspace ? reinterpret_cast<Acc*>(static_cast<int*>(workspace) +
+                                              hgemm::MAX_TICKETS)
                      : nullptr;
-  if (pl.bm == 128)
-    return b_trans ? launch_tile<128, true, OutT>(a, pl, s)
-                   : launch_tile<128, false, OutT>(a, pl, s);
-  return b_trans ? launch_tile<64, true, OutT>(a, pl, s)
-                 : launch_tile<64, false, OutT>(a, pl, s);
+  if constexpr (TRANS_B_OK) {
+    if (b_trans)
+      return pl.bm == 128 ? launch_tile<In, 128, true, OutT>(a, al, pl, s)
+                          : launch_tile<In, 64, true, OutT>(a, al, pl, s);
+  } else {
+    if (b_trans) return cudaErrorInvalidValue;
+  }
+  return pl.bm == 128 ? launch_tile<In, 128, false, OutT>(a, al, pl, s)
+                      : launch_tile<In, 64, false, OutT>(a, al, pl, s);
+}
+
+// The GEMM: A a row-major (M, K) matrix with row stride lda.
+template <typename In, typename OutT>
+cudaError_t launch_gemm(const In* A, const In* B,
+                        const typename Dp<In>::Acc* D, OutT* C, int m, int n,
+                        int k, long long lda, long long ldb, int b_trans,
+                        long long ldd, int act, int shift, float out_scale,
+                        int ws, void* workspace, cudaStream_t s) {
+  const MatrixA<In> al{A, lda, m, k, quad_aligned(A, lda)};
+  return launch<In, OutT>(al, B, D, C, m, n, k, ldb, b_trans, ldd, act,
+                          shift, out_scale, ws, workspace, s);
 }
 
 }  // namespace sgemm

@@ -1,40 +1,51 @@
 """Engine GEMM on both dataflows, and the mvout epilogue: the CUDA kernels
-(``csrc/gemm.cu``; bf16 main loops in ``csrc/hgemm.cuh``, int8 in
-``csrc/igemm.cuh``) and their plain versions.
+(``csrc/gemm.cu`` for int8, bf16 and fp32 inputs, ``csrc/gemm16.cu`` for
+fp16 and int16 inputs; main loops in ``csrc/hgemm.cuh`` (bf16, fp16),
+``csrc/sgemm.cuh`` (fp32, int16) and ``csrc/igemm.cuh`` (int8)) and their
+plain versions.
 
 Replaces ``repro.kernels.gemm``: ``gemm_os``, ``gemm_ws``,
 ``accumulator_epilogue`` and the dataflow dispatch ``gemm``. The GEMMs
-compute ``C = act(round_shift(A @ B + D))``: bf16 / fp32 inputs accumulate
-in fp32; int8 inputs accumulate in a wrapping int32 (the bias added once,
-modulo 2^32 like every int32 add of the kernel) and saturate to int8, or
-store int32. A CUDA tensor launches the kernel
-(or raises), a CPU tensor takes the plain version
+compute ``C = act(round_shift(A @ B + D))`` on every datapath a Gemmini
+instance of the dtype table elaborates: float inputs (bf16, fp16, fp32)
+accumulate in fp32 and store bf16, fp16 or fp32 (rounded to nearest even;
+an fp16 overflow stores +-inf, as JAX's ``astype`` does); integer inputs
+(int8, int16) accumulate in a wrapping int32 (the bias added once, modulo
+2^32 like every int32 add of the kernel) and saturate to int8 or int16, or
+store int32. Other combinations (int32 inputs, another accumulator, mixed
+input dtypes) raise ``NotImplementedError`` on the card. A CUDA tensor
+launches the kernel (or raises), a CPU tensor takes the plain version
 (``repro_torch.kernels.ref.gemm_ref``, ``epilogue.apply``). The kernels mask
 ragged edges themselves, so operands are never padded to a tile plan
 (zero padding changes no result: the unpadded output is the JAX package's
 ``out[:m, :n]``), and they read B through its strides: a transposed view
 (the tied unembedding's ``table.T``) costs no copy.
 
-bf16 inputs run one of two kernels by the shape alone (:func:`gemm_plan`):
-split-K ``mma.sync`` for M <= 16 (decode) and ``wgmma`` for wider M
-(prefill); fp32 inputs run the CUDA-core kernel (IEEE FMAs, register
-micro-tiles, split K where the tiles leave SMs idle); int8 inputs run
-``igemm.cuh``'s tensor-core main loop (:func:`gemm_s8_plan`: 16 x 64 or
+bf16 and fp16 inputs run one of two kernels by the shape alone
+(:func:`gemm_plan`): split-K ``mma.sync`` for M <= 16 (decode) and
+``wgmma`` for wider M (prefill); fp32 and int16 inputs run the CUDA-core
+kernel (IEEE FMAs with a blocked sum, or wrapping integer multiply-adds;
+register micro-tiles, split K where the tiles leave SMs idle); int8 inputs
+run ``igemm.cuh``'s tensor-core main loop (:func:`gemm_s8_plan`: 16 x 64 or
 64 x 64 tiles by the shape, a 4-stage ``cp.async`` ring, K split by a
 waves x k-steps model and merged exactly, since int32 sums wrap). Each
-is one launch per call, and WS walks the same tiles weight-major. Where the plan splits K, the call
-uses its stream's workspace (:func:`_workspace`), made once per stream
-and shared by every GEMM and conv on it.
+is one launch per call, and WS walks the same tiles weight-major, so WS
+equals OS bit for bit on every datapath. Where the plan splits K, the
+call uses its stream's workspace (:func:`_workspace`), made once per
+stream and shared by every GEMM and conv on it.
 
 Launch counts, one per kernel of the ``kernels`` report:
-``gemm.launches`` the float kernel in OS order (the serving path's),
-``gemm_os.launches`` the int8 kernel in OS order, ``gemm_ws.launches``
-either kernel in WS order, ``accumulator_epilogue.launches``.
+``gemm.launches`` the bf16 / fp32 kernel in OS order (the serving
+path's), ``gemm_os.launches`` the int8 kernel in OS order,
+``OS_COUNTS[dtype].launches`` the fp16 / int16 kernel in OS order,
+``gemm_ws.launches`` any of them in WS order,
+``accumulator_epilogue.launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -46,14 +57,22 @@ from repro_torch.kernels.ref import gemm_ref
 
 _ACT = {Activation.NONE: 0, Activation.RELU: 1, Activation.RELU6: 2,
         Activation.GELU: 3, Activation.SILU: 4}
-_DT = {torch.float32: 0, torch.bfloat16: 1}
-_INT_OUT = {torch.int32: 0, torch.int8: 1}
+# Float input / output codes and integer output codes of the C interface;
+# gemm_plan's input codes add int16.
+_DT = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_INT_OUT = {torch.int32: 0, torch.int8: 1, torch.int16: 2}
+_PLAN_DT = {**_DT, torch.int16: 3}
+# The integer inputs and their kernels' libraries: (library, entry point).
+_INT_IN = {torch.int8: ("gemm", "gemm_s8_launch"),
+           torch.int16: ("gemm16", "gemm_s16_launch")}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _FLOAT_ARGS = [_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _L, _I, _I, _I, _F, _I,
                _P, _P]
 _S8_ARGS = [_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _L, _I, _I, _I, _I, _P,
             _P]
+_F16_ARGS = [_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _L, _I, _I, _F, _I, _P,
+             _P]
 _EPI_ARGS = [_P, _P, _L, _I, _I, _I, _I, _F, _P]
 
 
@@ -70,25 +89,26 @@ def _b_layout(b: torch.Tensor):
 
 _PLAN_KEYS = ("regime", "bm", "bn", "bk", "splits", "blocks", "threads",
               "stages", "smem", "workspace_words")
-_REGIMES = ("skinny", "wide", "fp32")
+_REGIMES = ("skinny", "wide", "fp32", "int16")
 _PLANS: Dict[Tuple[int, int, int, bool, int, torch.dtype], dict] = {}
 _WORKSPACE: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def gemm_plan(m: int, n: int, k: int, b_trans: bool = False,
               device=None, dtype: torch.dtype = torch.bfloat16) -> dict:
-    """The float kernel's plan for an (M, N, K) call on a card with
-    ``dtype`` inputs (bf16 or fp32), B row-major or (``b_trans``) read as
-    the transpose of a row-major (N, K) buffer: ``regime`` (bf16:
-    "skinny", split-K ``mma.sync`` for M <= 16, or "wide", ``wgmma``;
-    "fp32": CUDA-core FMAs), ``tile`` (rows, columns, k per stage),
+    """The kernel's plan for an (M, N, K) call on a card with ``dtype``
+    inputs (bf16, fp16, fp32 or int16; int8 has :func:`gemm_s8_plan`), B
+    row-major or (``b_trans``) read as the transpose of a row-major (N, K)
+    buffer: ``regime`` (bf16 and fp16: "skinny", split-K ``mma.sync`` for
+    M <= 16, or "wide", ``wgmma``; "fp32": CUDA-core FMAs; "int16":
+    CUDA-core integer multiply-adds), ``tile`` (rows, columns, k per stage),
     ``splits`` of K, ``grid`` (blocks), ``threads`` per block, ``stages``
     of the load ring (skinny: 1, loads go straight to registers), ``smem``
     bytes and ``workspace_bytes`` (tickets and partials, 0 for one split).
     It depends on the shape, B's layout and the card's SM count only, so
     OS and WS take the same plan."""
-    if dtype not in _DT:
-        raise NotImplementedError(f"gemm_plan: no float kernel for {dtype}")
+    if dtype not in _PLAN_DT:
+        raise NotImplementedError(f"gemm_plan: no kernel plan for {dtype}")
     index = _device_index(device)
     key = (m, n, k, bool(b_trans), index, dtype)
     plan = _PLANS.get(key)
@@ -96,7 +116,7 @@ def gemm_plan(m: int, n: int, k: int, b_trans: bool = False,
         out = (ctypes.c_longlong * len(_PLAN_KEYS))()
         fn = _build.bind("gemm", "gemm_plan", [_I, _I, _I, _I, _I, _P])
         with torch.cuda.device(index):
-            _build.check(fn(m, n, k, int(bool(b_trans)), _DT[dtype],
+            _build.check(fn(m, n, k, int(bool(b_trans)), _PLAN_DT[dtype],
                             ctypes.addressof(out)), "gemm_plan")
         raw = dict(zip(_PLAN_KEYS, out))
         plan = {"regime": _REGIMES[raw["regime"]],
@@ -190,21 +210,22 @@ def _gemm(a: torch.Tensor, b: torch.Tensor, d: Optional[torch.Tensor], *,
     if b.dtype != a.dtype:
         raise NotImplementedError(f"gemm kernel takes inputs of one dtype, "
                                   f"got {a.dtype} @ {b.dtype}")
-    integer = a.dtype == torch.int8
+    integer = a.dtype in _INT_IN
     if integer:
         if acc_dtype != torch.int32 or out_dtype not in _INT_OUT:
             raise NotImplementedError(
-                f"int8 gemm kernel accumulates in int32 and writes int8 or "
-                f"int32, got acc {acc_dtype}, out {out_dtype}")
+                f"{a.dtype} gemm kernel accumulates in int32 and writes int8, "
+                f"int16 or int32, got acc {acc_dtype}, out {out_dtype}")
         epi.check_int_activation(activation)
         _check_int_shift(shift)
     elif a.dtype not in _DT:
         raise NotImplementedError(
-            f"gemm kernel takes int8, bf16 or fp32 inputs, got {a.dtype}")
+            f"gemm kernel takes int8, int16, bf16, fp16 or fp32 inputs, got "
+            f"{a.dtype}")
     elif acc_dtype != torch.float32 or out_dtype not in _DT:
         raise NotImplementedError(
-            f"gemm kernel accumulates bf16/fp32 inputs in fp32 and writes "
-            f"bf16/fp32, got acc {acc_dtype}, out {out_dtype}")
+            f"gemm kernel accumulates float inputs in fp32 and writes bf16, "
+            f"fp16 or fp32, got acc {acc_dtype}, out {out_dtype}")
     a = a.contiguous()
     b, trans, ldb = _b_layout(b)
     ldd = 0
@@ -220,32 +241,37 @@ def _gemm(a: torch.Tensor, b: torch.Tensor, d: Optional[torch.Tensor], *,
         return c
     stream = torch.cuda.current_stream(a.device).cuda_stream
     dptr = d.data_ptr() if d is not None else None
-    if integer:
+    if a.dtype == torch.int8:
         plan = _S8_PLANS.get((m, n, k, bool(trans), a.device.index)) \
             or gemm_s8_plan(m, n, k, trans, a.device)
-        need = plan["workspace_bytes"]
-        wsp = _workspace(a.device, stream, need).data_ptr() if need else None
-        fn = _build.bind("gemm", "gemm_s8_launch", _S8_ARGS)
+    else:
+        plan = _PLANS.get((m, n, k, bool(trans), a.device.index, a.dtype)) \
+            or gemm_plan(m, n, k, trans, a.device, a.dtype)
+    need = plan["workspace_bytes"]
+    wsp = _workspace(a.device, stream, need).data_ptr() if need else None
+    scale = 1.0 / (1 << shift) if shift > 0 else 1.0
+    if integer:
+        fn = _build.bind(*_INT_IN[a.dtype], _S8_ARGS)
         err = fn(a.data_ptr(), b.data_ptr(), dptr, c.data_ptr(), m, n, k,
                  a.stride(0), ldb, trans, ldd, _INT_OUT[out_dtype],
                  _ACT[activation], shift, int(ws), stream, wsp)
+    elif a.dtype == torch.float16:
+        fn = _build.bind("gemm16", "gemm_f16_launch", _F16_ARGS)
+        err = fn(a.data_ptr(), b.data_ptr(), dptr, c.data_ptr(), m, n, k,
+                 a.stride(0), ldb, trans, ldd, _DT[out_dtype],
+                 _ACT[activation], scale, int(ws), stream, wsp)
     else:
-        wsp = None
-        plan = _PLANS.get((m, n, k, bool(trans), a.device.index, a.dtype)) \
-            or gemm_plan(m, n, k, trans, a.device, a.dtype)
-        need = plan["workspace_bytes"]
-        if need:
-            wsp = _workspace(a.device, stream, need).data_ptr()
         fn = _build.bind("gemm", "gemm_launch", _FLOAT_ARGS)
         err = fn(a.data_ptr(), b.data_ptr(), dptr, c.data_ptr(), m, n, k,
                  a.stride(0), ldb, trans, ldd, _DT[a.dtype], _DT[out_dtype],
-                 _ACT[activation], 1.0 / (1 << shift) if shift > 0 else 1.0,
-                 int(ws), stream, wsp)
+                 _ACT[activation], scale, int(ws), stream, wsp)
     _build.check(err, "gemm_ws" if ws else "gemm")
     if ws:
         gemm_ws.launches += 1
-    elif integer:
+    elif a.dtype == torch.int8:
         gemm_os.launches += 1
+    elif a.dtype in OS_COUNTS:
+        OS_COUNTS[a.dtype].launches += 1
     else:
         gemm.launches += 1
     return c
@@ -265,7 +291,7 @@ def gemm_ws(a: torch.Tensor, b: torch.Tensor, d: Optional[torch.Tensor] = None,
             *, acc_dtype: torch.dtype, out_dtype: torch.dtype, shift: int = 0,
             activation: Activation = Activation.NONE) -> torch.Tensor:
     """Weight-stationary GEMM: the same function as :func:`gemm_os` (equal
-    bit for bit on the int8 path), the kernel walking the grid
+    bit for bit on every datapath), the kernel walking the grid
     weight-major."""
     return _gemm(a, b, d, acc_dtype=acc_dtype, out_dtype=out_dtype,
                  shift=shift, activation=activation, ws=True)
@@ -290,8 +316,8 @@ def accumulator_epilogue(acc: torch.Tensor, *, out_dtype: torch.dtype,
                          activation: Activation = Activation.NONE
                          ) -> torch.Tensor:
     """The mvout path: rounding shift, activation and saturation over a raw
-    accumulator of any shape (int32 -> int8 / int32, or fp32 -> fp32 /
-    bf16)."""
+    accumulator of any shape (int32 -> int8 / int16 / int32, or fp32 ->
+    fp32 / bf16 / fp16)."""
     if acc.device.type == "cpu":
         return epi.apply(acc, shift=shift, activation=activation,
                          out_dtype=out_dtype)
@@ -327,3 +353,7 @@ gemm.launches = 0
 gemm_os.launches = 0
 gemm_ws.launches = 0
 accumulator_epilogue.launches = 0
+# The fp16 and int16 kernels' launches in OS order (gemm_os and gemm run
+# them; the kernels report names them gemm[fp16] and gemm[int16]).
+OS_COUNTS = {torch.float16: SimpleNamespace(launches=0),
+             torch.int16: SimpleNamespace(launches=0)}

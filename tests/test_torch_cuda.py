@@ -1208,3 +1208,303 @@ def test_fp32_gemm_split_on_concurrent_streams(card, m, n, k):
     for got, want in zip(gots, wants):
         for x in got:
             assert torch.equal(x, want)
+
+
+# ---------------------------------------------------------------------------
+# the float and 16-bit datapaths: the fp16 and int16 GEMMs, int16 / fp16
+# outputs, the conv on fp32, bf16, fp16 and int16 inputs
+# ---------------------------------------------------------------------------
+_F32, _BF16, _F16 = torch.float32, torch.bfloat16, torch.float16
+_I8, _I16, _I32 = torch.int8, torch.int16, torch.int32
+_DATAPATHS = {  # (input, accumulator, output)
+    "fp32": (_F32, _F32, _F32), "bf16": (_BF16, _F32, _BF16),
+    "fp16": (_F16, _F32, _F16), "int16": (_I16, _I32, _I16),
+    "int16-int32": (_I16, _I32, _I32), "int8-int16": (_I8, _I32, _I16)}
+
+
+def _dp_operands(g, dp, shape_a, shape_b, n):
+    """Floats: x ~ N(0, 1), w ~ N(0, 1) / sqrt(K), a N(0, 1) bias, shift 1;
+    int16: x in [-2^14, 2^14), w in [-2^8, 2^8), an int32 bias, shift 10
+    (some outputs saturate); int8: full range, a bias within 2^20, shift
+    7."""
+    dt = _DATAPATHS[dp][0]
+    k = int(np.prod(shape_b[:-1]))
+    dev = g.device
+    if dt.is_floating_point:
+        a = torch.randn(shape_a, generator=g, device=dev).to(dt)
+        b = (torch.randn(shape_b, generator=g, device=dev) * k ** -0.5).to(dt)
+        return a, b, torch.randn((n,), generator=g, device=dev), 1
+    lo_a, lo_b, lo_d, shift = ((2 ** 14, 2 ** 8, 2 ** 24, 10) if dt == _I16
+                               else (128, 128, 2 ** 20, 7))
+    a = torch.randint(-lo_a, lo_a, shape_a, generator=g, device=dev, dtype=dt)
+    b = torch.randint(-lo_b, lo_b, shape_b, generator=g, device=dev, dtype=dt)
+    d = torch.randint(-lo_d, lo_d, (n,), generator=g, device=dev,
+                      dtype=_I32)
+    return a, b, d, shift
+
+
+def _close_dp(got, want, out_dtype):
+    """Integers bit-exact. Floats: bf16 / fp16 one ulp of the output type
+    plus 2^-14 of the largest finite magnitude, fp32 1e-5 relative plus
+    1e-6 of it (the sums' order differs); infinities (an fp16 overflow) in
+    the same places with the same sign."""
+    assert got.dtype == want.dtype == out_dtype
+    assert got.shape == want.shape
+    if not out_dtype.is_floating_point:
+        assert torch.equal(got, want)
+        return
+    g, w = got.float().cpu(), want.float().cpu()
+    inf = torch.isinf(w)
+    assert torch.equal(torch.isinf(g), inf) and torch.equal(g[inf], w[inf])
+    g, w = g[~inf], w[~inf]
+    assert torch.isfinite(g).all()
+    scale = w.abs().max().item() if w.numel() else 0.0
+    rtol, atol = {_BF16: (2.0 ** -7, 2.0 ** -14 * scale),
+                  _F16: (2.0 ** -10, 2.0 ** -14 * scale),
+                  _F32: (1e-5, 1e-6 * scale)}[out_dtype]
+    torch.testing.assert_close(g, w, rtol=rtol, atol=atol)
+
+
+def _os_count(dtype):
+    """The launch count an OS GEMM of ``dtype`` inputs adds to."""
+    return {_I8: tgemm.gemm_os, _F16: tgemm.OS_COUNTS[_F16],
+            _I16: tgemm.OS_COUNTS[_I16]}.get(dtype, tgemm.gemm)
+
+
+@pytest.mark.parametrize("m,n,k,trans_b", [
+    (1, 1000, 2048, False),      # the classifier (skinny / one M tile)
+    (3, 77, 300, True),          # ragged, B = table.T
+    (37, 77, 147, False),        # ragged, the stem's K
+    (200, 136, 260, True),       # ragged, B transposed
+    (1000, 512, 2048, False),    # the quickstart
+    (49, 512, 4608, False),      # stage 4's 3x3 as a GEMM: K split
+])
+@pytest.mark.parametrize("dp", list(_DATAPATHS))
+def test_datapath_gemm_matches_plain_os_equals_ws(card, dp, m, n, k,
+                                                  trans_b):
+    """Each datapath's GEMM at ragged M / N / K with bias, shift and ReLU:
+    within its rule of the plain version, one launch per call on its
+    count, WS equal to OS bit for bit, and a rerun equal to the first."""
+    g = torch.Generator(device=card).manual_seed(m + n + k)
+    dt, acc, out = _DATAPATHS[dp]
+    a, bt, d, shift = _dp_operands(g, dp, (m, k), (n, k), n)
+    b = bt.T if trans_b else bt.T.contiguous()
+    kw = dict(acc_dtype=acc, out_dtype=out, shift=shift,
+              activation=Activation.RELU)
+    count = _os_count(dt)
+    n0, w0 = count.launches, tgemm.gemm_ws.launches
+    got = tgemm.gemm_os(a, b, d, **kw)
+    assert count.launches == n0 + 1
+    _close_dp(got, gemm_ref(a, b, d, **kw), out)
+    assert torch.equal(tgemm.gemm_ws(a, b, d, **kw), got)
+    assert tgemm.gemm_ws.launches == w0 + 1
+    assert torch.equal(tgemm.gemm_os(a, b, d, **kw), got)
+
+
+@pytest.mark.parametrize("dataflow", ["OS", "WS"])
+def test_int16_gemm_split_k_wraps(card, dataflow):
+    """int16 operands near 2^15 over K = 4608 (the plan splits K): every
+    true sum passes 2^31, partials and the bias wrap modulo 2^32, and the
+    int16 / int32 outputs equal the plain version's bit for bit; every
+    ticket is back at 0."""
+    m, n, k = 49, 512, 4608
+    assert tgemm.gemm_plan(m, n, k, dtype=_I16)["splits"] > 1
+    g = torch.Generator(device=card).manual_seed(16)
+    a = torch.randint(2 ** 14, 2 ** 15, (m, k), generator=g, device=card,
+                      dtype=_I16)
+    b = torch.randint(2 ** 14, 2 ** 15, (k, n), generator=g, device=card,
+                      dtype=_I16)
+    d = torch.full((n,), 2 ** 31 - 1, dtype=_I32, device=card)
+    fn = tgemm.gemm_ws if dataflow == "WS" else tgemm.gemm_os
+    for out, shift in ((_I32, 0), (_I16, 3)):
+        kw = dict(acc_dtype=_I32, out_dtype=out, shift=shift)
+        got = fn(a, b, d, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, gemm_ref(a, b, d, **kw))
+    exact = a.double() @ b.double()
+    assert bool((exact > 2 ** 31).all())
+    assert int((got == 32767).sum()) > 0 and int((got == -32768).sum()) > 0
+    ws = tgemm._WORKSPACE[(card.index or 0,
+                           torch.cuda.current_stream(card).cuda_stream)]
+    assert int(ws[:1024].abs().sum()) == 0
+
+
+def test_fp16_gemm_overflows_to_inf(card):
+    """fp16 outputs past 65504 round to +-inf, as the plain version's
+    cast does, on both dataflows."""
+    g = torch.Generator(device=card).manual_seed(5)
+    a = (torch.randn((64, 256), generator=g, device=card) * 60).to(_F16)
+    b = (torch.randn((256, 96), generator=g, device=card) * 60).to(_F16)
+    kw = dict(acc_dtype=_F32, out_dtype=_F16)
+    want = gemm_ref(a, b, None, **kw)
+    for fn in (tgemm.gemm_os, tgemm.gemm_ws):
+        _close_dp(fn(a, b, **kw), want, _F16)
+    assert bool((want == float("inf")).any() & (want == -float("inf")).any())
+
+
+@pytest.mark.parametrize("which", ["a", "b"])
+def test_fp16_gemm_misaligned_operands(card, which):
+    """fp16 rows that are not 16-byte aligned: no tensor map, the cp.async
+    ring's element loads, the same result."""
+    g = torch.Generator(device=card).manual_seed(11)
+    m, n, k = 100, 130, 1150
+    a, b, _, _ = _dp_operands(g, "fp16", (m, k), (k, n), n)
+    src = a if which == "a" else b
+    flat = torch.empty(src.numel() + 2, dtype=_F16, device=card)
+    flat[2:] = src.reshape(-1)
+    moved = flat[2:].view(src.shape)
+    assert moved.data_ptr() % 16 == 4
+    a, b = (moved, b) if which == "a" else (a, moved)
+    kw = dict(acc_dtype=_F32, out_dtype=_F16)
+    _close_dp(tgemm.gemm(a, b, **kw), gemm_ref(a, b, None, **kw), _F16)
+
+
+# gemma3-1b's serving GEMMs (7 projections x M = 4, 64, 256, and the tied
+# unembedding read as table.T) and the bf16 plan each had before fp16
+# shared its kernels: (M, N, K, b_trans) -> (regime, tile, splits, grid,
+# threads, stages, smem, workspace bytes), on a 132-SM H100.
+_GEMMA3_PLANS = {
+    **{(4, n, k, False): p for n, k, p in (
+        (1024, 1152, ("skinny", (8, 64, 64), 17, 272, 128, 1, 0, 561152)),
+        (256, 1152, ("skinny", (8, 64, 64), 18, 72, 128, 1, 0, 151552)),
+        (1152, 1024, ("skinny", (8, 64, 64), 15, 270, 128, 1, 0, 557056)),
+        (6912, 1152, ("skinny", (8, 256, 64), 10, 270, 128, 1, 0, 2215936)),
+        (1152, 6912, ("skinny", (8, 64, 256), 15, 270, 128, 1, 0, 557056)))},
+    (4, 262144, 1152, True): ("skinny", (8, 64, 256), 1, 4096, 128, 1, 0, 0),
+    **{(64, n, k, False): p for n, k, p in (
+        (1024, 1152, ("wide", (64, 128, 64), 4, 32, 128, 8, 197632, 1052672)),
+        (256, 1152, ("wide", (64, 128, 64), 4, 8, 128, 8, 197632, 266240)),
+        (1152, 1024, ("wide", (64, 128, 64), 4, 36, 128, 8, 197632, 1183744)),
+        (6912, 1152, ("wide", (64, 128, 64), 2, 108, 128, 8, 197632,
+                      3543040)),
+        (1152, 6912, ("wide", (64, 128, 64), 8, 72, 128, 8, 197632,
+                      2363392)))},
+    (64, 262144, 1152, True): ("wide", (64, 128, 64), 1, 2048, 128, 4, 99328,
+                               0),
+    **{(256, n, k, False): p for n, k, p in (
+        (1024, 1152, ("wide", (64, 128, 64), 4, 128, 128, 8, 197632,
+                      4198400)),
+        (256, 1152, ("wide", (64, 128, 64), 4, 32, 128, 8, 197632, 1052672)),
+        (1152, 1024, ("wide", (64, 128, 64), 3, 108, 128, 8, 197632,
+                      3543040)),
+        (6912, 1152, ("wide", (128, 128, 64), 1, 108, 256, 6, 197632, 0)),
+        (1152, 6912, ("wide", (64, 128, 64), 3, 108, 128, 8, 197632,
+                      3543040)))},
+    (256, 262144, 1152, True): ("wide", (128, 256, 64), 1, 2048, 256, 4,
+                                197632, 0),
+}
+
+
+def test_bf16_plan_unchanged_and_fp16_takes_it(card):
+    """Templating the 16-bit kernels on their element type left bf16's
+    plan as it was at gemma3-1b's shapes, and fp16 takes the same plan;
+    int16 takes fp32's tiles and splits on its own regime."""
+    if torch.cuda.get_device_properties(card).multi_processor_count != 132:
+        pytest.skip("the recorded plans are a 132-SM H100's")
+    keys = ("regime", "tile", "splits", "grid", "threads", "stages", "smem",
+            "workspace_bytes")
+    for (m, n, k, trans), want in _GEMMA3_PLANS.items():
+        got = tgemm.gemm_plan(m, n, k, trans, dtype=_BF16)
+        assert tuple(got[key] for key in keys) == want, (m, n, k, trans)
+        assert tgemm.gemm_plan(m, n, k, trans, dtype=_F16) == got
+    for m, n, k in ((1000, 512, 2048), (49, 512, 4608), (12544, 64, 147)):
+        p16 = tgemm.gemm_plan(m, n, k, dtype=_I16)
+        p32 = tgemm.gemm_plan(m, n, k, dtype=_F32)
+        assert p16["regime"] == "int16" and p32["regime"] == "fp32"
+        for key in ("tile", "splits", "grid", "threads", "workspace_bytes"):
+            assert p16[key] == p32[key]
+
+
+@pytest.mark.parametrize("acc_dtype,out_dtype,shape,shift,act", [
+    (_I32, _I16, (1000, 512), 9, "RELU"),
+    (_I32, _I16, (3, 5, 7), 0, "RELU6"),
+    (_F32, _F16, (3136, 256), 2, "GELU"),
+    (_F32, _F16, (33, 65), 0, "NONE"),
+])
+def test_accumulator_epilogue_new_outputs(card, acc_dtype, out_dtype, shape,
+                                          shift, act):
+    """int32 -> int16 (saturating) and fp32 -> fp16 (magnitudes up to 2^18:
+    overflow to +-inf) against the plain version."""
+    g = torch.Generator(device=card).manual_seed(2)
+    if acc_dtype == _I32:
+        acc = torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=g,
+                            device=card, dtype=_I32)
+    else:
+        acc = torch.randn(shape, generator=g, device=card) * 2.0 ** \
+            torch.randint(0, 19, shape, generator=g, device=card)
+    kw = dict(out_dtype=out_dtype, shift=shift, activation=Activation[act])
+    n0 = tgemm.accumulator_epilogue.launches
+    got = tgemm.accumulator_epilogue(acc, **kw)
+    assert tgemm.accumulator_epilogue.launches == n0 + 1
+    _close_dp(got, tepi.apply(acc, **kw), out_dtype)
+
+
+def _conv_counter(dtype):
+    return tconv.conv2d_implicit if dtype == _I8 else tconv.COUNTS[dtype]
+
+
+def _datapath_conv(card, dp, n, h, w, ci, co, kh, kw, stride, pad, seed,
+                   act=Activation.RELU):
+    """One conv of the datapath against the plain version and the host
+    route (im2col, then the GEMM on OS and WS); a float conv reruns to the
+    same bits."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    dt, acc, out = _DATAPATHS[dp]
+    x, wt, b, shift = _dp_operands(g, dp, (n, h, w, ci), (kh, kw, ci, co),
+                                   co)
+    kw_ = dict(stride=stride, padding=pad, acc_dtype=acc, out_dtype=out,
+               shift=shift, activation=act)
+    count = _conv_counter(dt)
+    n0 = count.launches
+    got = tconv.conv2d_implicit(x, wt, b, **kw_)
+    assert count.launches == n0 + 1
+    _close_dp(got, tref.conv2d_ref(x, wt, b, **kw_), out)
+    if dt.is_floating_point:
+        assert torch.equal(tconv.conv2d_implicit(x, wt, b, **kw_), got)
+    a = tref.im2col(x, kh, kw, stride, pad)
+    for fn in (tgemm.gemm_os, tgemm.gemm_ws):
+        host = fn(a, wt.reshape(-1, co), b[None, :], acc_dtype=acc,
+                  out_dtype=out, shift=shift, activation=act)
+        _close_dp(host.reshape(got.shape), got, out)
+    return got
+
+
+@pytest.mark.parametrize("case", range(18))
+@pytest.mark.parametrize("dp", ["fp32", "bf16", "fp16", "int16",
+                                "int8-int16"])
+def test_datapath_conv_resnet50_shapes(card, dp, case):
+    """Every distinct conv of dse.resnet(50)'s stream (the stem's CI = 3,
+    stage 4's 3x3 with K = 4608) on each new datapath."""
+    h, ci, co, kh, stride, pad = _resnet50_conv_shapes()[case]
+    _datapath_conv(card, dp, 1, h, h, ci, co, kh, kh, stride, pad, case)
+
+
+@pytest.mark.parametrize("n,h,w,ci,co,kh,kw,stride,pad", [
+    (2, 7, 9, 64, 24, 5, 3, 1, 2),     # padding on every border
+    (1, 6, 5, 8, 40, 3, 3, 1, 1),      # CI = 8
+    (2, 9, 9, 12, 16, 3, 3, 2, 1),     # CI = 12: no 16-byte granule
+    (1, 10, 10, 3, 16, 7, 7, 2, 3),    # CI = 3: element loads
+    (1, 8, 8, 5, 24, 3, 3, 1, 1),      # CI = 5, odd
+    (1, 9, 7, 6, 16, 3, 3, 1, 1),      # CI = 6: 4-byte copies of int16
+    (1, 5, 5, 64, 16, 3, 3, 1, 1),     # deep narrow, K = 576 split
+    (3, 4, 4, 20, 8, 1, 1, 1, 0),      # 1x1, CI = 20: the matrix loader
+    (1, 9, 9, 32, 16, 1, 1, 2, 0),     # 1x1 strided: the tap gather
+])
+@pytest.mark.parametrize("dp", ["fp32", "bf16", "fp16", "int16"])
+def test_datapath_conv_edges(card, dp, n, h, w, ci, co, kh, kw, stride, pad):
+    _datapath_conv(card, dp, n, h, w, ci, co, kh, kw, stride, pad, h * w + ci,
+                   act=Activation.RELU6)
+
+
+def test_int16_conv_wraps_and_saturates(card):
+    """A 3x3 int16 conv whose every true sum passes 2^31: the int32
+    accumulator wraps and the int16 output saturates, bit-exact."""
+    g = torch.Generator(device=card).manual_seed(3)
+    x = torch.randint(2 ** 14, 2 ** 15, (1, 14, 14, 64), generator=g,
+                      device=card, dtype=_I16)
+    wt = torch.randint(2 ** 14, 2 ** 15, (3, 3, 64, 32), generator=g,
+                       device=card, dtype=_I16)
+    kw_ = dict(acc_dtype=_I32, out_dtype=_I16, shift=6)
+    got = tconv.conv2d_implicit(x, wt, **kw_)
+    assert torch.equal(got, tref.conv2d_ref(x, wt, None, **kw_))
+    assert int((got == 32767).sum()) > 0 and int((got == -32768).sum()) > 0

@@ -230,8 +230,8 @@ def test_engine_has_no_fallback_step():
 
 def test_nvcc_command_targets_sm90a_into_ignored_build_dir():
     src = _build.sources()
-    assert {p.name for p in src} == {"gemm.cu", "attention.cu", "conv.cu",
-                                     "ssd.cu"}
+    assert {p.name for p in src} == {"gemm.cu", "gemm16.cu", "attention.cu",
+                                     "conv.cu", "ssd.cu"}
     cmd = _build.nvcc_command(src[0], _build.build_dir() / "lib.so")
     assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
     rel = _build.build_dir().relative_to(REPO)

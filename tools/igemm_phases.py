@@ -36,15 +36,15 @@ PHASES = ("issued", "landed", "loop_end", "ticket", "merged", "done")
 # (anchor lines in igemm.cuh, stamp slot, anchor lines before the stamp)
 MARKS = [
     ("  const int S = p.splits, split = blockIdx.x % S;", 0, 0),
-    ("  if (!TRANS_B) {\n    hgemm::cp_async_wait<STAGES - 2>();   // slab 0 "
+    ("  if (XPOSE) {\n    hgemm::cp_async_wait<STAGES - 2>();   // slab 0 "
      "has landed", 1, 0),
     ("    __syncthreads();\n    if (it + STAGES - 1 < steps) "
      "load_stage(it + STAGES - 1);", 2, 1),
     ("  hgemm::cp_async_wait<0>();\n\n  if (S > 1) {", 3, 1),
     ("    if (!last_block(p.tickets + tile, S)) return;", 4, 1),
     ("  // The epilogue: the tile through shared memory", 5, 0),
-    ("        *reinterpret_cast<int4*>(C) = make_int4(y[0], y[1], y[2], "
-     "y[3]);\n    }\n  }", 6, 3),
+    ("                [&](int v) { return finish(v, p.shift, p.act); });"
+     "\n    }\n  }", 6, 3),
 ]
 
 
@@ -64,7 +64,7 @@ def build(out: Path) -> Path:
     for anchor, extra in (
             ("namespace igemm {\n",
              "inline unsigned long long* g_stamps = nullptr;\n"),
-            ("  int* part;        // splits > 1: [tile][split][partial]\n",
+            ("  Acc* part;        // splits > 1: [tile][split][partial]\n",
              "  unsigned long long* stamps;\n"),
             ("  a.ws = ws;\n", "  a.stamps = g_stamps;\n")):
         if src.count(anchor) != 1:

@@ -9,10 +9,16 @@ window 1024; the dense flash kernel on the same keys gathered beforehand
 beside each), paged decode at gemma3-1b's serving shape (global and with
 the 512-key window), and the bf16 chunked
 SSD at mamba2-1.3b's and hymba-1.5b's widths (the serving call, 256 tokens
-resumed, and 1000 tokens fresh), and the int8 engine (``--only engine``:
-the quickstart GEMM and ResNet-50's distinct layers as GEMMs on both
-dataflows beside ``torch._int_mm``, the conv kernel at the stream's
-distinct convs, and the device time of the 50-layer stream per route). It
+resumed, and 1000 tokens fresh), and the engine (``--only engine``: the
+int8 quickstart GEMM and ResNet-50's distinct layers as GEMMs on both
+dataflows beside ``torch._int_mm``, the int8 conv kernel at the stream's
+distinct convs, phase 3's rows of the float and 16-bit datapaths
+(``chip_smoke.datapath_cases``: the fp16 and int16 GEMMs at the
+quickstart shape, the fp32 / bf16 / fp16 / int16 convs at the stem,
+stage-1 3x3 and stage-4 3x3, each beside its library call where PyTorch
+has one), and the device time of the 50-layer stream per route, int8 and
+on phase 6b's four instances; a checkout without those datapaths skips
+them). It
 times the ``repro_torch`` package
 found under ``--src``, so two checkouts compare on one card, run after
 run:
@@ -241,33 +247,58 @@ def engine_cases(torch, cs):
                         conv2d_ref(x, w, bias, **ckw), None,
                     (x.numel() + w.numel() + 4 * co + oh * oh * co,
                      2.0 * oh * oh * co * kh * kh * ci)))
-    return out
+    rows = []
+    try:
+        cs.datapath_cases(torch, gen, rows)
+    except (AttributeError, NotImplementedError) as e:
+        print(f"[time_kernels] no float / 16-bit datapath kernels in this "
+              f"checkout ({type(e).__name__}: {e})", flush=True)
+    return out + [(kernel, label, kind, run_k, run_p, run_lib,
+                   (nbytes, flops))
+                  for kernel, label, _, kind, run_k, run_p, run_lib, nbytes,
+                  flops, *_ in rows]
 
 
 def engine_streams(torch, cs):
     """Device ms of ResNet-50's 50-layer stream at batch 1 per route (host
     im2col + OS GEMM, host im2col + WS GEMM, fused conv), from
-    ``torch.profiler`` device events as ``chip_smoke.py`` phase 6 reads
-    them (``profile_call``: mean of 3 passes)."""
+    ``torch.profiler`` device events as ``chip_smoke.py`` phases 6 and 6b
+    read them (``profile_call``: mean of 3 passes): on the quickstart's
+    int8 instance ("int8 <route>") and on each of phase 6b's instances
+    ("<datapath> <route>"), where this checkout runs them."""
     from repro_torch.core.config import Dataflow
     from repro_torch.core.generator import elaborate
     from repro_torch.examples import quickstart
 
-    inst = elaborate(quickstart.QUICKSTART_CFG)
-    layers = cs.resnet50_layers(torch)
     routes = {"host im2col + OS GEMM": dict(fused=False, dataflow=Dataflow.OS),
               "host im2col + WS GEMM": dict(fused=False, dataflow=Dataflow.WS),
               "fused conv kernel": dict(fused=True)}
+    streams = [("int8", quickstart.QUICKSTART_CFG, 8,
+                cs.resnet50_layers(torch))]
+    if hasattr(cs, "datapath_instances"):
+        streams += [(name, cfg, 1 if cfg.input_torch.is_floating_point
+                     else 10, cs.resnet50_layers(torch, seed=1,
+                                                 dtype=cfg.input_torch))
+                    for name, cfg in cs.datapath_instances()]
     out = {}
-    for route, kw in routes.items():
-        prof = cs.profile_call(
-            torch, route, lambda kw=kw: [
-                inst.conv2d(x, w, b, stride=st, padding=p, shift=8,
-                            activation=act, **kw)
-                for _, x, w, b, st, p, act in layers], quiet=True)
-        out[route] = {"device_ms": prof["device_ms"],
-                      "device_ms_by_kernel": prof["device_ms_by_kernel"],
-                      "wall_ms": prof["wall_ms"]}
+    for name, cfg, shift, layers in streams:
+        inst = elaborate(cfg)
+        for route, kw in routes.items():
+            def run(kw=kw):
+                return [inst.conv2d(x, w, b, stride=st, padding=p,
+                                    shift=shift, activation=act, **kw)
+                        for _, x, w, b, st, p, act in layers]
+            try:
+                run()
+            except NotImplementedError as e:
+                print(f"[time_kernels] {name} {route}: not in this checkout "
+                      f"({e})", flush=True)
+                continue
+            prof = cs.profile_call(torch, f"{name} {route}", run, quiet=True)
+            out[f"{name} {route}"] = {
+                "device_ms": prof["device_ms"],
+                "device_ms_by_kernel": prof["device_ms_by_kernel"],
+                "wall_ms": prof["wall_ms"]}
     return out
 
 
@@ -298,6 +329,7 @@ def main() -> int:
         print("time_kernels: needs a CUDA card", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
     sys.path.insert(0, os.path.abspath(args.src))
@@ -328,7 +360,8 @@ def main() -> int:
         row = {"kernel": kernel, "shape": label, "max_abs_err": err,
                "check": check, "ms": timer(run_k),
                "enqueue_us": enqueue_us(torch, run_k)}
-        if kernel in ("gemm[int8]", "gemm_ws", "conv2d_implicit"):
+        if kernel in ("gemm[int8]", "gemm_ws", "accumulator_epilogue") or \
+                kernel.startswith(("conv2d_implicit", "gemm[")):
             row["plain_ms"] = timer(run_p)
         if run_lib is not None:
             row["library_ms"] = timer(run_lib)
@@ -340,9 +373,10 @@ def main() -> int:
         print(f"[time_kernels] {args.tag} {kernel:<24} {label:<60} "
               f"{row['ms']:.4f} ms{lib}  enqueue {row['enqueue_us']:.1f} us  "
               f"err {err:.2e} ({check})", flush=True)
-    sums = cs.gemm_step_sums([r for r in rows if r["kernel"] == "gemm" and
-                              not r["shape"].startswith("fp32")],
-                             configs.get("gemma3-1b").n_layers)
+    sums = cs.gemm_step_sums(
+        [r for r in rows if r["kernel"] == "gemm" and r["shape"].split()[0]
+         in ("wq", "wk", "wv", "wo", "wi", "wg", "mlp.wo", "unembed")],
+        configs.get("gemma3-1b").n_layers)
     for m, sm in sorted(sums.items()):
         print(f"[time_kernels] {args.tag} gemm step sum M={m}: kernel "
               f"{sm['ms']:.4f} ms  torch.matmul {sm['library_ms']:.4f} ms",
