@@ -1615,6 +1615,30 @@ def time_routes(torch, name, inst, layers, shift, smi):
 # ---------------------------------------------------------------------------
 # phase 6b: the float and 16-bit datapaths on ResNet-50's stream
 # ---------------------------------------------------------------------------
+def library_stream(torch, name, layers):
+    """The yardstick of a float stream's fused route: cuDNN's ``conv2d``
+    (``torch.nn.functional.conv2d``; TF32 off, as ``main`` sets it) on the
+    stream's convs, the classifier left out, each on channels-last views
+    of the same NHWC image and filter and the bias in the image's dtype,
+    one pass of them profiled as ``profile_call`` profiles the stream.
+    Returns (convs, profile)."""
+    args = []
+    for _, x, w, b, st, p, _ in layers:
+        if x.shape[1] == 1:              # the classifier: a GEMM
+            continue
+        args.append((x.permute(0, 3, 1, 2),
+                     w.permute(3, 2, 0, 1).contiguous(
+                         memory_format=torch.channels_last),
+                     b.to(x.dtype), st, p))
+
+    def run():
+        return [torch.nn.functional.conv2d(xl, wl, bl, stride=st, padding=p)
+                for xl, wl, bl, st, p in args]
+
+    return len(args), profile_call(torch, f"resnet50 {name} [cuDNN conv2d]",
+                                   run, quiet=True)
+
+
 def datapath_instances():
     """Phase 6b's four instances, each elaborated with both dataflows:
     Table 1's design point 4 (fp32 -> fp32 -> fp32), bf16 -> fp32 -> bf16
@@ -1690,9 +1714,35 @@ def run_datapath_phase(torch, smi):
     log(f"phase 6b launch counts: "
         f"{ {n: counts[n] for n in DATAPATH_KERNELS + ('gemm', 'gemm_ws')} }")
 
+    from repro_torch.kernels import conv as kc
+
     for name, inst, shift, layers, _ in runs:
         summary[name]["routes"] = time_routes(torch, name, inst, layers,
                                               shift, smi)
+        plans = {}
+        for _, x, w, _, st, p, _ in layers:
+            kh, ci, co = w.shape[0], w.shape[2], w.shape[3]
+            oh = (x.shape[1] + 2 * p - kh) // st + 1
+            plans.setdefault(
+                f"{x.shape[1]}x{x.shape[2]}x{ci} {kh}x{kh}/{st} -> {co}",
+                conv_plan_text(kc, oh * oh, co, kh * kh * ci, x.dtype))
+        summary[name]["conv_plans"] = plans
+        log(f"resnet50 {name} conv plans: " + "; ".join(
+            f"{k}: {v}" for k, v in plans.items()))
+        if not inst.cfg.input_torch.is_floating_point:
+            continue
+        convs, prof = library_stream(torch, name, layers)
+        fused = summary[name]["routes"]["fused conv kernel"]
+        convs_ms = (fused["profile"]["device_ms"] -
+                    fused["stages"]["classifier"]["device_ms"])
+        summary[name]["library"] = {"convs": convs, "device_ms":
+                                    prof["device_ms"], "profile": prof,
+                                    "fused_convs_ms": convs_ms}
+        log(f"resnet50 {name}: cuDNN conv2d over the stream's {convs} "
+            f"convs {prof['device_ms']:.4f} ms of device time; the fused "
+            f"route's conv2d_implicit {convs_ms:.4f} ms on the same convs "
+            f"({fused['profile']['device_ms']:.4f} ms with the classifier)"
+            f"; on {smi}")
     return counts, summary
 
 

@@ -7,13 +7,17 @@ accumulate in a wrapping int32 and store int8, int16 (saturated) or
 int32; bf16, fp16 and fp32 inputs accumulate in fp32 and store bf16, fp16
 or fp32 (rounded to nearest even; an fp16 overflow stores +-inf). The
 kernel runs the implicit GEMM (N*OH*OW, CO, KH*KW*CI) on one of two main
-loops, with that loop's plan (:func:`conv_plan`: tiles and K splits over
-the taps from the shape, the splits merged through the stream's
-workspace): int8, bf16 and fp16 on the tensor cores (``csrc/igemm.cuh``),
-fp32 and int16 on the CUDA cores (``csrc/sgemm.cuh``; fp32 with its
-blocked sum). The patch matrix is never materialised: the kernel gathers
-each A tile from the NHWC image by ``cp.async``, the stride in the
-address and the padding as the copy's zero-fill; 1x1 filters at stride 1
+loops, with a plan (:func:`conv_plan`: tiles and K splits over the taps
+from the shape, the splits merged through the stream's workspace): int8,
+bf16 and fp16 on the tensor cores (``csrc/igemm.cuh``, the GEMM's plan),
+fp32 and int16 on the CUDA cores (``csrc/sgemm.cuh`` with the conv's own
+plan: 56 x 64 tiles of 7 x 8 micro-tiles, 4 groups of threads splitting
+each tile's k, no split longer than 512 k, so fp32's chains stay
+short). The patch matrix is never materialised: the kernel
+gathers each A tile from the NHWC image by ``cp.async``, the stride in
+the address and the padding as the copy's zero-fill; an image whose tap
+is less than 16 bytes of channels (the stem's CI = 3) has the strips a
+tile reads staged in shared memory first; 1x1 filters at stride 1
 without padding read the image as a row-major (N*H*W, CI) matrix. The
 bias and the GEMM's epilogue run once per output, after the last tap. A
 CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
@@ -66,12 +70,15 @@ def conv_plan(m: int, n: int, k: int, dtype: torch.dtype = torch.int8,
     """The conv kernel's plan for ``dtype`` inputs and the implicit GEMM
     (M, N, K) = (N*OH*OW, CO, KH*KW*CI) on a card: ``regime`` ("skinny" 16
     x 64 or "square" 64 x 64 tiles on the tensor cores, int8 / bf16 /
-    fp16; "cuda cores", fp32 / int16), ``tile`` (rows, columns, k per
-    stage: bytes on the tensor cores, values on the CUDA cores),
+    fp16; "cuda cores", fp32 / int16: 56 x 64 tiles), ``tile`` (rows,
+    columns, k per stage: bytes on the tensor cores, values on the CUDA
+    cores),
     ``splits`` of K, ``grid`` (blocks), ``threads``, ``stages``, ``smem``
-    bytes and ``workspace_bytes`` (0 for one split). It depends on the
-    shape, the dtype and the card's SM count only; int8's equals
-    :func:`repro_torch.kernels.gemm.gemm_s8_plan` of the implicit GEMM."""
+    bytes (the loop's; the stem's strips add to it) and
+    ``workspace_bytes`` (0 for one split). It depends on the shape, the
+    dtype and the card's SM count only; int8's equals
+    :func:`repro_torch.kernels.gemm.gemm_s8_plan` of the implicit GEMM,
+    int16's equals fp32's."""
     if dtype not in _IN:
         raise NotImplementedError(f"conv_plan: no conv kernel for {dtype}")
     index = _device_index(device)

@@ -471,6 +471,14 @@ __device__ __forceinline__ OutT finish(const Args<Elt>& p, int r, int c,
   return epi::to<OutT>(epi::activate(v, p.act) * p.out_scale);
 }
 
+// Whether an A-loader policy stages what a tile reads into shared memory
+// before the main loop (a stage(m0) member, which leaves its copies landed:
+// conv.cu's ConvStripA); the kernel then takes a barrier.
+template <typename L, typename = void>
+struct Staged : std::false_type {};
+template <typename L>
+struct Staged<L, std::void_t<decltype(&L::stage)>> : std::true_type {};
+
 // The k steps [lo, hi) of split `split` of `splits` over `ksteps`.
 __device__ __forceinline__ void split_range(int split, int splits, int ksteps,
                                             int& lo, int& hi) {

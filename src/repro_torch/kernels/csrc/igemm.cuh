@@ -290,6 +290,8 @@ inline int granule(const void* p, long long ld) {
 }
 
 // A as a row-major (M, K) matrix with row stride lda, g its copy granule.
+// (A loader with a stage(m0) member first stages what the tile reads into
+// shared memory after the plan's own: conv.cu's ConvStripA.)
 struct MatrixA {
   const int8_t* a;
   long long lda;
@@ -420,6 +422,11 @@ kernel(Args<In> p, ALoad al) {
   const int m0 = mt * BM, n0 = nt * BN;
   // B transposed for the slab of k step `step`.
   auto bt = [&](int step) { return bt_base + (step & 1) * BN * LDA; };
+
+  if constexpr (hgemm::Staged<ALoad>::value) {
+    al.stage(m0);                         // what the tile's A reads
+    __syncthreads();
+  }
 
   typename ALoad::Row rows[A_ITEMS];
 #pragma unroll
@@ -709,17 +716,20 @@ inline Plan plan_here(int m, int n, int k, int b_trans, int es = 1) {
 // (b_trans: the transpose of a row-major (N, K) buffer; int8 only), D, C,
 // `out` (OUT_*) as Args says, out_scale 2^-shift for 16-bit inputs;
 // workspace: plan().ws_words 4-byte words owned by the calling stream
-// (tickets zeroed when it was made), may be null for one split.
+// (tickets zeroed when it was made), may be null for one split;
+// extra_smem: bytes a staging loader takes after the plan's shared memory.
 // TRANS_B_OK: whether this source instantiates the (N, K) path (the
 // conv's filters are never transposed).
 template <typename In, typename ALoad, bool TRANS_B_OK = true>
 cudaError_t launch(const ALoad& al, const In* B, long long ldb, int b_trans,
                    const typename Dp<In>::Acc* D, long long ldd, void* C,
                    int out, int M, int N, int K, int shift, float out_scale,
-                   int act, int ws, void* workspace, cudaStream_t s) {
+                   int act, int ws, void* workspace, cudaStream_t s,
+                   int extra_smem = 0) {
   using Acc = typename Dp<In>::Acc;
   constexpr int ES = (int)sizeof(In);
-  const Plan pl = plan_here(M, N, K, b_trans, ES);
+  Plan pl = plan_here(M, N, K, b_trans, ES);
+  pl.smem += extra_smem;
   if (pl.splits > 1 && workspace == nullptr) return cudaErrorInvalidValue;
   Args<In> a{};
   a.B = B; a.ldb = ldb; a.gb = granule(B, ldb * ES);

@@ -35,7 +35,7 @@
 // N / 128 tiles (8 for gemma3-1b's wq), so the tiles alone leave most SMs
 // idle.
 //
-// The design:
+// The design, the GEMM's (sgemm::plan):
 //   - Block tiles of 128 x 128 (256 threads), or 64 x 128 (128 threads)
 //     where those pad M less (M <= 64, the M = 64 prompt). Each thread
 //     holds an 8 x 8 register micro-tile: per 4 k, 8 quad loads of A and 8
@@ -46,7 +46,7 @@
 //   - A K-major in shared memory, as it lies in device memory (or as the
 //     conv's gather lays it down). B in the layout it lies in: row-major
 //     (K, N) weights and HWIO filters N-major (a thread's 8 columns are two
-//     quads 64 apart, so a quarter warp reads 128 contiguous bytes of
+//     quads BN / 2 apart, so a quarter warp reads 128 contiguous bytes of
 //     fp32), the tied unembedding's table.T K-major, never copied (a
 //     thread's columns 16 apart; K-major rows are padded to 20 elements,
 //     so the 8 rows a quarter warp reads fall in 8 bank groups).
@@ -54,7 +54,7 @@
 //     summed apart and then added to the running sum, so the fp32 error
 //     grows with K / 16 + 16 terms, not K (one chain over mamba2-1.3b's K =
 //     2048 left outputs outside the fp32 tolerance against the plain
-//     version; ResNet-50's stage-4 3x3 conv has K = 4608).
+//     version).
 //   - Ragged M, N and K are masked in the loads: cp.async zero-fills what
 //     lies outside. Rows that are not aligned to a quad load element by
 //     element instead (fp32: 4-byte cp.async copies; int16: plain loads).
@@ -68,6 +68,20 @@
 //     compact loop (finishing the 64 values in registers unrolls the
 //     activation 64 times, and fetching that code took longer than a short
 //     split's main loop). The bias (D) is added there, once per output.
+// The conv's shape (conv.cu's plan: ResNet-50's layers at batch 1 have
+// too few outputs for 8 x 8 micro-tiles to give each SM 8 warps):
+//   - 56 x 64 tiles of 7 x 8 micro-tiles and KG = 4 k groups of 64
+//     threads on one tile: group g multiplies k quads g, g + KG, ... of
+//     each slice, so a tile has KG times the warps without a split's
+//     traffic; the groups' sums meet in shared memory, added in group
+//     order. At most 128 registers, so two such blocks share an SM.
+//   - No blocked sum: K splits keep each chain within 512 k instead (its
+//     second set of accumulators held the registers the groups need).
+//   - Partials lie in the workspace as the tile does (a block's stores and
+//     the merge's loads contiguous, all threads merging, 4 splits' loads
+//     in flight), and each thread finishes one column in a compact loop of
+//     its output type, its bias loaded once, beside the groups' sums (the
+//     GEMM's loop loads it for every output, each load a round trip).
 // What it does not reach: an 8 x 8 micro-tile from shared memory needs a
 // quarter of a word per FMA, the H100's whole shared-memory bandwidth at
 // the FMA rate, and the blocked sum holds the registers a larger
@@ -90,12 +104,10 @@
 
 namespace sgemm {
 
-constexpr int BN = 128;          // block columns
+constexpr int BN = 128;          // the GEMM's block columns
 constexpr int BK = 16;           // k per ring stage
 constexpr int STAGES = 4;
 constexpr int LDK = BK + 4;      // elements per K-major row
-constexpr int LDN = BN + 4;      // elements per N-major row
-constexpr int LDT = BN + 4;      // accumulators per row of the staged C tile
 constexpr int MIN_STEPS = 4;     // stages a split walks at least
 constexpr int MAX_SPLITS = 16;   // partials a tile merges at most
 
@@ -142,29 +154,47 @@ struct Plan {
   long long ws_words;   // workspace: tickets then partials, 0 for one split
 };
 
-template <typename In, int BM, bool TRANS_B>
+// A block of KG groups of TY x TX threads, each thread an MR x 8
+// micro-tile of the BM = MR TY by BN = 8 TX block tile; group g takes k
+// quads g, g + KG, ... of every slice, and the groups' sums are added in
+// group order at the end (KG > 1, the conv's: KG times the warps on a
+// tile, so small convs fill the SMs with fewer K splits).
+template <typename In, int MR, int TY, int TX, int KG, bool TRANS_B>
 struct Shape {
-  static constexpr int T = BM * BN / 64;          // 8 x 8 outputs a thread
-  static constexpr int TY = BM / 8, TX = BN / 8;  // thread grid (TX = 16)
+  static constexpr int BM = MR * TY, BN = 8 * TX, G = TY * TX, T = G * KG;
+  static constexpr int FR = MR * 8;               // outputs a thread
+  static constexpr int LDN = BN + 4;              // elements per N-major row
+  static constexpr int LDT = BN + 4;              // per row of the C tile
   static constexpr int A_ELEMS = BM * LDK;
   static constexpr int B_ELEMS = TRANS_B ? BN * LDK : BK * LDN;
   static constexpr int STAGE = A_ELEMS + B_ELEMS;
   static constexpr int RING = STAGES * STAGE * (int)sizeof(In);
-  static constexpr int TILE = BM * LDT * 4;       // the staged C tile
+  static constexpr int TILE = KG * BM * LDT * 4;  // the staged C tile(s)
   static constexpr int SMEM = RING > TILE ? RING : TILE;
-  static constexpr int A_ITEMS = BM * (BK / 4) / T;   // A quads a thread
-  static_assert(A_ITEMS * T == BM * (BK / 4), "A quads per thread");
+  static constexpr int A_QUADS = BM * (BK / 4);   // A quads a slice
+  static constexpr int A_ITEMS = (A_QUADS + T - 1) / T;   // ... a thread
+  static constexpr int PER = BM * BN / T;         // KG > 1: outputs a thread
+  static_assert(T % (BK / 4) == 0, "a thread's k quad is tid % 4");
+  static_assert((BK / 4) % KG == 0, "k quads a group");
+  static_assert(KG == 1 || (T % BN == 0 && PER * T == BM * BN),
+                "KG > 1: a thread's outputs lie in one column");
 };
+
+// The GEMM's tiles: 8 x 8 micro-tiles, 128 columns, one k group.
+template <typename In, int BM, bool TB>
+using GemmShape = Shape<In, 8, BM / 8, BN / 8, 1, TB>;
 
 template <typename In>
 inline int smem_bytes(int bm, int b_trans) {
   if (bm == 128)
-    return b_trans ? Shape<In, 128, true>::SMEM : Shape<In, 128, false>::SMEM;
-  return b_trans ? Shape<In, 64, true>::SMEM : Shape<In, 64, false>::SMEM;
+    return b_trans ? GemmShape<In, 128, true>::SMEM
+                   : GemmShape<In, 128, false>::SMEM;
+  return b_trans ? GemmShape<In, 64, true>::SMEM
+                 : GemmShape<In, 64, false>::SMEM;
 }
 
-// The plan of a call: shape, B's layout and SM count only (and the element
-// type's shared memory).
+// The plan of a GEMM call: shape, B's layout and SM count only (and the
+// element type's shared memory).
 //   - 128-row tiles unless 64-row ones pad M less (M <= 64, M = 129..192):
 //     a 128 x 128 tile did more per SM than two 64 x 128 ones at M = 256
 //     on the H100.
@@ -175,6 +205,7 @@ inline int smem_bytes(int bm, int b_trans) {
 //     H100 in fp32: mamba2-1.3b's in_proj (134 tiles, a thin second wave
 //     unsplit) ran fastest at 4-8 splits, gemma3-1b's wq at M = 64 (8
 //     tiles) at 12-16.
+// The conv has a plan of its own (conv.cu).
 template <typename In>
 inline Plan plan(int m, int n, int k, int b_trans, int sms) {
   using hgemm::ceil_div;
@@ -206,12 +237,18 @@ inline Plan plan(int m, int n, int k, int b_trans, int sms) {
   return p;
 }
 
+// OutT = AnyOut: the output type is the call's (Args::out), chosen in the
+// epilogue: 0 the accumulator's 32-bit type, 1 bf16 or int8, 2 fp16 or
+// int16. One kernel then serves every output (the conv's instantiations).
+struct AnyOut {};
+
 template <typename In>
 struct Args {
   using Acc = typename Dp<In>::Acc;
   const In* B;       // B(k, n) = B[k * ldb + n], or B[n * ldb + k] (TRANS_B)
   const Acc* D;      // bias, row stride ldd (0: one row), or null
   void* C;           // contiguous (M, N)
+  int out;           // AnyOut's output code
   int M, N, K;
   long long ldb, ldd;
   int act, shift;    // shift: the int32 rounding shift
@@ -268,7 +305,8 @@ __device__ __forceinline__ void load4(uint32_t dst, const In* src, int left,
 // A as a row-major (M, K) matrix with row stride lda; vec: rows aligned to
 // a quad. Loader policy (igemm.cuh's, in elements of k): row(m) once per
 // tile, a cursor per thread advanced one slice per stage, load() of one
-// quad into shared memory.
+// quad into shared memory. (A loader with a stage(m0) member first stages
+// what the tile reads into shared memory: conv.cu's ConvStripA.)
 template <typename In>
 struct MatrixA {
   const In* a;
@@ -295,15 +333,159 @@ inline int quad_aligned(const In* p, long long ld) {
   return ld % 4 == 0 && reinterpret_cast<uintptr_t>(p) % (4 * sizeof(In)) == 0;
 }
 
-template <typename In, int BM, bool TRANS_B, typename OutT, typename ALoad>
-__global__ void __launch_bounds__(BM * 2)
-sgemm_kernel(Args<In> p, ALoad al) {
-  using Sh = Shape<In, BM, TRANS_B>;
+// One output after the bias: the epilogue into OutT, or into the call's
+// type (AnyOut).
+template <typename In, typename OutT>
+__device__ __forceinline__ void store_out(const Args<In>& p, long long i,
+                                          typename Dp<In>::Acc v) {
+  if constexpr (std::is_same<OutT, AnyOut>::value) {
+    if constexpr (Dp<In>::INT) {
+      if (p.out == 1) store_out<In, int8_t>(p, i, v);
+      else if (p.out == 2) store_out<In, int16_t>(p, i, v);
+      else store_out<In, int>(p, i, v);
+    } else {
+      if (p.out == 1) store_out<In, __nv_bfloat16>(p, i, v);
+      else if (p.out == 2) store_out<In, __half>(p, i, v);
+      else store_out<In, float>(p, i, v);
+    }
+  } else if constexpr (Dp<In>::INT) {
+    epi::store_int(static_cast<OutT*>(p.C), i, v, p.shift, p.act);
+  } else {
+    epi::store_float(static_cast<OutT*>(p.C), i, v, p.act, p.out_scale);
+  }
+}
+
+// The epilogue of one column c of a KG > 1 tile, rows r0 + i T / BN from
+// the staged tile at `mine` (LDT apart a row step), into OutT.
+template <typename Sh, typename In, typename OutT>
+__device__ __forceinline__ void finish_column(const Args<In>& p,
+                                              const typename Dp<In>::Acc* mine,
+                                              typename Dp<In>::Acc bias,
+                                              int r0, int c) {
+  constexpr int STEP = Sh::T / Sh::BN;
+#pragma unroll 1
+  for (int q = 0; q < Sh::PER; ++q) {
+    const int r = r0 + q * STEP;
+    if (r >= p.M) break;
+    typename Dp<In>::Acc y = mine[q * STEP * Sh::LDT];
+    if (p.D != nullptr)
+      y = hgemm::add(y, p.ldd == 0 ? bias : p.D[(long long)r * p.ldd + c]);
+    store_out<In, OutT>(p, (long long)r * p.N + c, y);
+  }
+}
+
+// The end of a block of KG > 1 groups: the groups' tiles staged in shared
+// memory and added in group order; with K split, this split's tile goes
+// to the workspace as it lies (a block's stores and loads contiguous) and
+// the tile's last block adds the partials in split order (its own at its
+// place), U splits' loads in flight at a time; then the epilogue, each
+// thread in one column (its bias loaded once) and PER rows.
+template <typename Sh, typename In, typename OutT>
+__device__ __forceinline__ void finish_groups(
+    const Args<In>& p, const typename Dp<In>::Acc (&acc)[Sh::FR], int tid,
+    int grp, int ty, int tx, int tile, int split, int m0, int n0) {
   using Acc = typename Dp<In>::Acc;
-  constexpr int T = Sh::T, TY = Sh::TY, A_ITEMS = Sh::A_ITEMS;
+  using V4 = typename hgemm::Vec4<Acc>::type;
+  constexpr int T = Sh::T, BM = Sh::BM, BN = Sh::BN, LDT = Sh::LDT;
+  constexpr int MR = Sh::FR / 8, TY = Sh::G / (BN / 8), PER = Sh::PER;
+  constexpr int KG = T / Sh::G;
+  extern __shared__ __align__(16) float sg_smem[];
+  Acc* const red = reinterpret_cast<Acc*>(sg_smem);   // [KG][BM][LDT]
+  // output q of this thread: row (tid + T q) / BN, column tid % BN; its
+  // bias in flight beside the sums
+  const int col = tid % BN, row0 = tid / BN, c = n0 + col;
+  const Acc bias =
+      p.D != nullptr && p.ldd == 0 && c < p.N ? p.D[c] : Acc(0);
+  __syncthreads();                                    // the ring is read
+#pragma unroll
+  for (int i = 0; i < MR; ++i) {
+    Acc* row = red + (grp * BM + ty + TY * i) * LDT;
+    *reinterpret_cast<V4*>(row + 4 * tx) =
+        V4{acc[8 * i], acc[8 * i + 1], acc[8 * i + 2], acc[8 * i + 3]};
+    *reinterpret_cast<V4*>(row + BN / 2 + 4 * tx) =
+        V4{acc[8 * i + 4], acc[8 * i + 5], acc[8 * i + 6], acc[8 * i + 7]};
+  }
+  __syncthreads();
+  Acc v[PER];
+#pragma unroll
+  for (int q = 0; q < PER; ++q) {
+    const Acc* e = red + (row0 + q * (T / BN)) * LDT + col;
+    v[q] = e[0];
+#pragma unroll
+    for (int g = 1; g < KG; ++g) v[q] = hgemm::add(v[q], e[g * BM * LDT]);
+  }
+  const int S = p.splits;
+  if (S > 1) {
+    Acc* const base = p.part + (long long)tile * S * (BM * BN) + tid;
+#pragma unroll
+    for (int q = 0; q < PER; ++q) base[split * (BM * BN) + q * T] = v[q];
+    if (!hgemm::last_of_tile(p.tickets + tile, S)) return;
+    constexpr int U = PER >= 64 ? 1 : 64 / PER;
+    Acc tot[PER];
+#pragma unroll
+    for (int q = 0; q < PER; ++q) tot[q] = 0;
+    for (int s0 = 0; s0 < S; s0 += U) {
+      Acc w[U][PER];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (s0 + u < S && s0 + u != split)
+#pragma unroll
+          for (int q = 0; q < PER; ++q)
+            w[u][q] = __ldcg(base + (s0 + u) * (BM * BN) + q * T);
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (s0 + u < S)
+#pragma unroll
+          for (int q = 0; q < PER; ++q)
+            tot[q] = hgemm::add(tot[q], s0 + u == split ? v[q] : w[u][q]);
+    }
+#pragma unroll
+    for (int q = 0; q < PER; ++q) v[q] = tot[q];
+  }
+  // back to this thread's places in the staged tile, then a compact loop
+  // per output type: the epilogue's code fetched once, not PER times, and
+  // the type chosen once, not per output
+#pragma unroll
+  for (int q = 0; q < PER; ++q) red[(row0 + q * (T / BN)) * LDT + col] = v[q];
+  if (c >= p.N) return;
+  const Acc* const mine = red + row0 * LDT + col;
+  if constexpr (std::is_same<OutT, AnyOut>::value) {
+    if constexpr (Dp<In>::INT) {
+      if (p.out == 1)
+        finish_column<Sh, In, int8_t>(p, mine, bias, m0 + row0, c);
+      else if (p.out == 2)
+        finish_column<Sh, In, int16_t>(p, mine, bias, m0 + row0, c);
+      else
+        finish_column<Sh, In, int>(p, mine, bias, m0 + row0, c);
+    } else {
+      if (p.out == 1)
+        finish_column<Sh, In, __nv_bfloat16>(p, mine, bias, m0 + row0, c);
+      else if (p.out == 2)
+        finish_column<Sh, In, __half>(p, mine, bias, m0 + row0, c);
+      else
+        finish_column<Sh, In, float>(p, mine, bias, m0 + row0, c);
+    }
+  } else {
+    finish_column<Sh, In, OutT>(p, mine, bias, m0 + row0, c);
+  }
+}
+
+// BLOCKED: the fp32 GEMM's blocked sum; the conv bounds its chains by
+// splitting K instead (conv.cu), and int16 wraps.
+// KG > 1 (the conv): two blocks an SM, so at most 128 registers a thread.
+template <typename In, int MR, int TY, int TX, int KG, bool TRANS_B,
+          bool BLOCKED, typename OutT, typename ALoad>
+__global__ void __launch_bounds__(TY * TX * KG, KG > 1 ? 2 : 1)
+sgemm_kernel(Args<In> p, ALoad al) {
+  using Sh = Shape<In, MR, TY, TX, KG, TRANS_B>;
+  using Acc = typename Dp<In>::Acc;
+  constexpr int T = Sh::T, BM = Sh::BM, BN = Sh::BN, FR = Sh::FR;
+  constexpr int LDN = Sh::LDN, LDT = Sh::LDT, A_ITEMS = Sh::A_ITEMS;
   extern __shared__ __align__(16) float sg_smem[];
   In* const ring = reinterpret_cast<In*>(sg_smem);
-  const int tid = threadIdx.x, ty = tid / Sh::TX, tx = tid % Sh::TX;
+  const int tid = threadIdx.x;
+  const int grp = KG > 1 ? tid / Sh::G : 0, lt = KG > 1 ? tid % Sh::G : tid;
+  const int ty = lt / TX, tx = lt % TX;
   const int S = p.splits, split = blockIdx.x % S, tile = blockIdx.x / S;
   int mt, nt;
   hgemm::tile_coords(tile, p.tiles_m, p.tiles_n, p.ws, mt, nt);
@@ -311,6 +493,11 @@ sgemm_kernel(Args<In> p, ALoad al) {
   int lo, hi;
   hgemm::split_range(split, S, p.ksteps, lo, hi);
   const int steps = hi - lo;
+
+  if constexpr (hgemm::Staged<ALoad>::value) {
+    al.stage(m0);                         // what the tile's A reads
+    __syncthreads();
+  }
 
   // A quad item e = tid + i * T: row e / 4, k (e % 4) * 4 of each slice.
   typename ALoad::Row rows[A_ITEMS];
@@ -328,7 +515,9 @@ sgemm_kernel(Args<In> p, ALoad al) {
 #pragma unroll
     for (int i = 0; i < A_ITEMS; ++i) {
       const int e = tid + i * T;
-      al.load(as + (e / (BK / 4)) * LDK + (e % (BK / 4)) * 4, rows[i], cur);
+      if (Sh::A_QUADS % T == 0 || e < Sh::A_QUADS)
+        al.load(as + (e / (BK / 4)) * LDK + (e % (BK / 4)) * 4, rows[i],
+                cur);
     }
     al.advance(cur, BK);
 #pragma unroll
@@ -349,33 +538,35 @@ sgemm_kernel(Args<In> p, ALoad al) {
     }
   };
 
-  // acc[8 i + j]: C(m0 + ty + TY i, n0 + col(j)), col(j) = tx + 16 j
-  // (table.T) or 4 tx + j % 4 + 64 (j / 4) (row-major B).
-  Acc acc[64];
+  // acc[8 i + j]: C(m0 + ty + TY i, n0 + col(j)), col(j) = tx + TX j
+  // (table.T) or 4 tx + j % 4 + BN / 2 (j / 4) (row-major B).
+  Acc acc[FR];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0;
+  for (int i = 0; i < FR; ++i) acc[i] = 0;
 
-  // The products of the slice in stage `it % STAGES`, added into c.
-  auto slice = [&](int it, Acc (&c)[64]) {
+  // The products of the slice in stage `it % STAGES` (this group's k
+  // quads), added into c.
+  auto slice = [&](int it, Acc (&c)[FR]) {
     const In* as = ring + (it % STAGES) * Sh::STAGE;
     const In* bs = as + Sh::A_ELEMS;
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 4) {
-      Q4<Acc> a[8];
+    for (int u = 0; u < BK / (4 * KG); ++u) {
+      const int kk = 4 * (grp + KG * u);
+      Q4<Acc> a[MR];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = quad(as + (ty + TY * i) * LDK + kk);
+      for (int i = 0; i < MR; ++i) a[i] = quad(as + (ty + TY * i) * LDK + kk);
       Acc b[4][8];
       if constexpr (TRANS_B) {
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
-          const Q4<Acc> v = quad(bs + (tx + 16 * j) * LDK + kk);
+          const Q4<Acc> v = quad(bs + (tx + TX * j) * LDK + kk);
           b[0][j] = v.x; b[1][j] = v.y; b[2][j] = v.z; b[3][j] = v.w;
         }
       } else {
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const Q4<Acc> l = quad(bs + (kk + q) * LDN + 4 * tx);
-          const Q4<Acc> h = quad(bs + (kk + q) * LDN + 64 + 4 * tx);
+          const Q4<Acc> h = quad(bs + (kk + q) * LDN + BN / 2 + 4 * tx);
           b[q][0] = l.x; b[q][1] = l.y; b[q][2] = l.z; b[q][3] = l.w;
           b[q][4] = h.x; b[q][5] = h.y; b[q][6] = h.z; b[q][7] = h.w;
         }
@@ -383,7 +574,7 @@ sgemm_kernel(Args<In> p, ALoad al) {
 #pragma unroll
       for (int q = 0; q < 4; ++q)
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
+        for (int i = 0; i < MR; ++i) {
           const Acc av = quad_at(a[i], q);
 #pragma unroll
           for (int j = 0; j < 8; ++j) mac(c[8 * i + j], av, b[q][j]);
@@ -402,91 +593,92 @@ sgemm_kernel(Args<In> p, ALoad al) {
     if (it + STAGES - 1 < steps)
       load_stage((it + STAGES - 1) % STAGES, lo + it + STAGES - 1);
     hgemm::cp_async_commit();
-    if constexpr (Dp<In>::INT) {
-      slice(it, acc);                     // wraps: exact in any order
+    if constexpr (!BLOCKED) {
+      slice(it, acc);                     // one chain a split
     } else {
       // the blocked sum: a slice's products apart, then into acc
-      Acc part[64];
+      Acc part[FR];
 #pragma unroll
-      for (int i = 0; i < 64; ++i) part[i] = 0;
+      for (int i = 0; i < FR; ++i) part[i] = 0;
       slice(it, part);
 #pragma unroll
-      for (int i = 0; i < 64; ++i) acc[i] += part[i];
+      for (int i = 0; i < FR; ++i) acc[i] += part[i];
     }
   }
   hgemm::cp_async_wait<0>();
-
-  if (S > 1) {
-    const long long stride = (long long)T * 64;
-    Acc* const base = p.part + (long long)tile * S * stride + 4 * tid;
-    hgemm::store_partial<64, T, Acc>(acc, base + split * stride);
-    if (!hgemm::last_of_tile(p.tickets + tile, S)) return;
-    hgemm::merge_partials<64, T, Acc>(acc, base, stride, S, split);
-  }
-
-  // The epilogue: the tile through shared memory (the ring is free), then
-  // one compact loop, consecutive threads on consecutive columns.
-  __syncthreads();
-  Acc* tile_s = reinterpret_cast<Acc*>(sg_smem);   // [BM][LDT]
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    Acc* row = tile_s + (ty + TY * i) * LDT;
-    if constexpr (TRANS_B) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) row[tx + 16 * j] = acc[8 * i + j];
-    } else {
-      using V4 = typename hgemm::Vec4<Acc>::type;
-      *reinterpret_cast<V4*>(row + 4 * tx) =
-          V4{acc[8 * i], acc[8 * i + 1], acc[8 * i + 2], acc[8 * i + 3]};
-      *reinterpret_cast<V4*>(row + 64 + 4 * tx) = V4{
-          acc[8 * i + 4], acc[8 * i + 5], acc[8 * i + 6], acc[8 * i + 7]};
+  if constexpr (KG > 1) {
+    finish_groups<Sh, In, OutT>(p, acc, tid, grp, ty, tx, tile, split, m0,
+                                n0);
+  } else {
+    if (S > 1) {
+      const long long stride = (long long)T * FR;
+      Acc* const base = p.part + (long long)tile * S * stride + 4 * tid;
+      hgemm::store_partial<FR, T, Acc>(acc, base + split * stride);
+      if (!hgemm::last_of_tile(p.tickets + tile, S)) return;
+      hgemm::merge_partials<FR, T, Acc>(acc, base, stride, S, split);
     }
-  }
-  __syncthreads();
-  OutT* C = static_cast<OutT*>(p.C);
+
+    // The epilogue: the tile through shared memory (the ring is free), then
+    // one compact loop, consecutive threads on consecutive columns.
+    __syncthreads();
+    Acc* tile_s = reinterpret_cast<Acc*>(sg_smem);   // [BM][LDT]
+#pragma unroll
+    for (int i = 0; i < MR; ++i) {
+      Acc* row = tile_s + (ty + TY * i) * LDT;
+      if constexpr (TRANS_B) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) row[tx + TX * j] = acc[8 * i + j];
+      } else {
+        using V4 = typename hgemm::Vec4<Acc>::type;
+        *reinterpret_cast<V4*>(row + 4 * tx) =
+            V4{acc[8 * i], acc[8 * i + 1], acc[8 * i + 2], acc[8 * i + 3]};
+        *reinterpret_cast<V4*>(row + BN / 2 + 4 * tx) = V4{
+            acc[8 * i + 4], acc[8 * i + 5], acc[8 * i + 6], acc[8 * i + 7]};
+      }
+    }
+    __syncthreads();
 #pragma unroll 1
-  for (int e = tid; e < BM * BN; e += T) {
-    const int r = m0 + e / BN, c = n0 + e % BN;
-    if (r >= p.M || c >= p.N) continue;
-    Acc v = tile_s[(e / BN) * LDT + e % BN];
-    if (p.D != nullptr) v = hgemm::add(v, p.D[(long long)r * p.ldd + c]);
-    if constexpr (Dp<In>::INT)
-      epi::store_int(C, (long long)r * p.N + c, v, p.shift, p.act);
-    else
-      epi::store_float(C, (long long)r * p.N + c, v, p.act, p.out_scale);
+    for (int e = tid; e < BM * BN; e += T) {
+      const int r = m0 + e / BN, c = n0 + e % BN;
+      if (r >= p.M || c >= p.N) continue;
+      Acc v = tile_s[(e / BN) * LDT + e % BN];
+      if (p.D != nullptr) v = hgemm::add(v, p.D[(long long)r * p.ldd + c]);
+      store_out<In, OutT>(p, (long long)r * p.N + c, v);
+    }
   }
 }
 
-template <typename In, int BM, bool TB, typename OutT, typename ALoad>
-cudaError_t launch_tile(const Args<In>& a, const ALoad& al, const Plan& pl,
-                        cudaStream_t s) {
-  auto kernel = sgemm_kernel<In, BM, TB, OutT, ALoad>;
-  static bool configured = false;
-  const cudaError_t e =
-      hgemm::allow_smem(kernel, Shape<In, BM, TB>::SMEM, configured);
-  if (e != cudaSuccess) return e;
-  kernel<<<(unsigned)pl.blocks, Shape<In, BM, TB>::T,
-           Shape<In, BM, TB>::SMEM, s>>>(a, al);
+// One launch of the kernel of that shape: `blocks` blocks, `smem` bytes of
+// dynamic shared memory (the ring or the C tile, and what a staging loader
+// adds).
+template <typename In, int MR, int TY, int TX, int KG, bool TB, bool BLOCKED,
+          typename OutT, typename ALoad>
+cudaError_t launch_shape(const Args<In>& a, const ALoad& al, long long blocks,
+                         int smem, cudaStream_t s) {
+  auto kernel = sgemm_kernel<In, MR, TY, TX, KG, TB, BLOCKED, OutT, ALoad>;
+  static int configured = 0;   // largest dynamic shared memory allowed yet
+  if (smem > 48 * 1024 && smem > configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    configured = smem;
+  }
+  kernel<<<(unsigned)blocks, TY * TX * KG, smem, s>>>(a, al);
   return cudaGetLastError();
 }
 
-// One call: A through `al`, B (K, N) at ldb (b_trans: the transpose of a
-// row-major (N, K) buffer), D an fp32 / int32 bias, C as Args says.
-// workspace: plan().ws_words 4-byte words (tickets, then partials), owned
-// by the calling stream; may be null for one split. TRANS_B_OK: whether
-// this source instantiates the (N, K) path (the conv's filters are never
-// transposed).
-template <typename In, typename OutT, typename ALoad, bool TRANS_B_OK = true>
-cudaError_t launch(const ALoad& al, const In* B,
-                   const typename Dp<In>::Acc* D, OutT* C, int m, int n,
-                   int k, long long ldb, int b_trans, long long ldd, int act,
-                   int shift, float out_scale, int ws, void* workspace,
-                   cudaStream_t s) {
+// The arguments of a call with plan pl: B (K, N) at ldb, D an fp32 / int32
+// bias, C with output code `out` (AnyOut), workspace: pl.ws_words 4-byte
+// words (tickets, then partials) owned by the calling stream, may be null
+// for one split.
+template <typename In>
+Args<In> make_args(const Plan& pl, const In* B,
+                   const typename Dp<In>::Acc* D, void* C, int out, int m,
+                   int n, int k, long long ldb, long long ldd, int act,
+                   int shift, float out_scale, int ws, void* workspace) {
   using Acc = typename Dp<In>::Acc;
-  const Plan pl = plan<In>(m, n, k, b_trans, hgemm::sm_count());
-  if (pl.splits > 1 && workspace == nullptr) return cudaErrorInvalidValue;
   Args<In> a{};
-  a.B = B; a.D = D; a.C = C;
+  a.B = B; a.D = D; a.C = C; a.out = out;
   a.M = m; a.N = n; a.K = k;
   a.ldb = ldb; a.ldd = ldd;
   a.act = act; a.shift = shift; a.out_scale = out_scale;
@@ -498,15 +690,34 @@ cudaError_t launch(const ALoad& al, const In* B,
   a.part = workspace ? reinterpret_cast<Acc*>(static_cast<int*>(workspace) +
                                               hgemm::MAX_TICKETS)
                      : nullptr;
-  if constexpr (TRANS_B_OK) {
-    if (b_trans)
-      return pl.bm == 128 ? launch_tile<In, 128, true, OutT>(a, al, pl, s)
-                          : launch_tile<In, 64, true, OutT>(a, al, pl, s);
-  } else {
-    if (b_trans) return cudaErrorInvalidValue;
-  }
-  return pl.bm == 128 ? launch_tile<In, 128, false, OutT>(a, al, pl, s)
-                      : launch_tile<In, 64, false, OutT>(a, al, pl, s);
+  return a;
+}
+
+// One GEMM call: A through `al`, B (K, N) at ldb (b_trans: the transpose
+// of a row-major (N, K) buffer), D, C as Args says; the GEMM's plan.
+template <typename In, typename OutT, typename ALoad>
+cudaError_t launch(const ALoad& al, const In* B,
+                   const typename Dp<In>::Acc* D, OutT* C, int m, int n,
+                   int k, long long ldb, int b_trans, long long ldd, int act,
+                   int shift, float out_scale, int ws, void* workspace,
+                   cudaStream_t s) {
+  constexpr bool BL = !Dp<In>::INT;
+  const Plan pl = plan<In>(m, n, k, b_trans, hgemm::sm_count());
+  if (pl.splits > 1 && workspace == nullptr) return cudaErrorInvalidValue;
+  const Args<In> a = make_args<In>(pl, B, D, C, 0, m, n, k, ldb, ldd, act,
+                                   shift, out_scale, ws, workspace);
+  const long long g = pl.blocks;
+  if (b_trans)
+    return pl.bm == 128
+               ? launch_shape<In, 8, 16, 16, 1, true, BL, OutT>(
+                     a, al, g, pl.smem, s)
+               : launch_shape<In, 8, 8, 16, 1, true, BL, OutT>(
+                     a, al, g, pl.smem, s);
+  return pl.bm == 128
+             ? launch_shape<In, 8, 16, 16, 1, false, BL, OutT>(
+                   a, al, g, pl.smem, s)
+             : launch_shape<In, 8, 8, 16, 1, false, BL, OutT>(
+                   a, al, g, pl.smem, s);
 }
 
 // The GEMM: A a row-major (M, K) matrix with row stride lda.

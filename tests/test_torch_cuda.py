@@ -461,9 +461,12 @@ def test_conv2d_implicit_resnet50_shapes(card, case):
 
 @pytest.mark.parametrize("n,h,w,ci,co,kh,kw,stride,pad", [
     (2, 7, 9, 64, 24, 5, 3, 1, 2),     # padding on every border, g = 16
-    (1, 6, 5, 8, 40, 3, 3, 1, 1),      # CI = 8: 8-byte copies
-    (2, 9, 9, 12, 16, 3, 3, 2, 1),     # CI = 12: 4-byte copies
-    (1, 10, 10, 3, 16, 7, 7, 2, 3),    # CI = 3: the byte path
+    (1, 6, 5, 8, 40, 3, 3, 1, 1),      # CI = 8: the strip loader
+    (2, 9, 9, 12, 16, 3, 3, 2, 1),     # CI = 12: the strip loader
+    (1, 6, 5, 24, 40, 3, 3, 1, 1),     # CI = 24: 8-byte copies
+    (2, 9, 9, 20, 16, 3, 3, 2, 1),     # CI = 20: 4-byte copies
+    (1, 7, 7, 17, 16, 3, 3, 1, 1),     # CI = 17: element loads
+    (1, 10, 10, 3, 16, 7, 7, 2, 3),    # CI = 3: the strip loader
     (1, 5, 5, 64, 16, 3, 3, 1, 1),     # deep narrow, K = 576 split
     (3, 4, 4, 20, 8, 1, 1, 1, 0),      # 1x1, CI = 20: matrix loader
     (1, 9, 9, 32, 16, 1, 1, 2, 0),     # 1x1 strided: the tap gather
@@ -1483,9 +1486,10 @@ def test_datapath_conv_resnet50_shapes(card, dp, case):
     (2, 7, 9, 64, 24, 5, 3, 1, 2),     # padding on every border
     (1, 6, 5, 8, 40, 3, 3, 1, 1),      # CI = 8
     (2, 9, 9, 12, 16, 3, 3, 2, 1),     # CI = 12: no 16-byte granule
-    (1, 10, 10, 3, 16, 7, 7, 2, 3),    # CI = 3: element loads
-    (1, 8, 8, 5, 24, 3, 3, 1, 1),      # CI = 5, odd
-    (1, 9, 7, 6, 16, 3, 3, 1, 1),      # CI = 6: 4-byte copies of int16
+    (1, 10, 10, 3, 16, 7, 7, 2, 3),    # CI = 3: the strip loader
+    (1, 8, 8, 5, 24, 3, 3, 1, 1),      # CI = 5, odd: 16-bit strips
+    (1, 9, 7, 6, 16, 3, 3, 1, 1),      # CI = 6: 16-bit strips
+    (1, 7, 7, 9, 24, 3, 3, 1, 1),      # CI = 9: 16-bit element loads
     (1, 5, 5, 64, 16, 3, 3, 1, 1),     # deep narrow, K = 576 split
     (3, 4, 4, 20, 8, 1, 1, 1, 0),      # 1x1, CI = 20: the matrix loader
     (1, 9, 9, 32, 16, 1, 1, 2, 0),     # 1x1 strided: the tap gather
@@ -1508,3 +1512,82 @@ def test_int16_conv_wraps_and_saturates(card):
     got = tconv.conv2d_implicit(x, wt, **kw_)
     assert torch.equal(got, tref.conv2d_ref(x, wt, None, **kw_))
     assert int((got == 32767).sum()) > 0 and int((got == -32768).sum()) > 0
+
+
+# ---------------------------------------------------------------------------
+# the CUDA-core conv's own plan (fp32, int16) and the strip loader of the
+# stem (CI = 3) on every datapath
+# ---------------------------------------------------------------------------
+def _resnet50_conv_gemms():
+    """(label, (M, N, K)) of each distinct layer of dse.resnet(50)'s stream,
+    as chip_smoke.py's phase 6 runs them."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return [(label, mnk) for label, mnk, _, _ in cs.resnet50_shapes()]
+
+
+@pytest.mark.parametrize("case", range(18))
+def test_cuda_core_conv_plan_resnet50_shapes(card, case):
+    """The fp32 / int16 conv's plan at each distinct layer: 56 x 64 tiles
+    (7 x 8 micro-tiles: 64 columns where CO = 64) of 256 threads, no split
+    longer than 512 k (the fp32 chains), the SMs all but filled on
+    stages 3 and 4 (M = 196, 49), the workspace its splits need, and
+    int16's plan equal to fp32's but for the shared memory."""
+    label, (m, n, k) = _resnet50_conv_gemms()[case]
+    p = tconv.conv_plan(m, n, k, _F32)
+    p16 = tconv.conv_plan(m, n, k, _I16)
+    assert {**p, "smem": 0} == {**p16, "smem": 0}    # int16's ring is half
+    bm, bn, bk = p["tile"]
+    assert p["regime"] == "cuda cores" and (bm, bn, bk) == (56, 64, 16)
+    assert p["threads"] == 256
+    tiles = -(-m // bm) * -(-n // bn)
+    assert p["grid"] == tiles * p["splits"]
+    assert -(-k // (16 * p["splits"])) * 16 <= 512
+    if m in (196, 49):
+        # power-of-two splits of the stage's 8-64 tiles: 128 blocks on
+        # the H100's 132 SMs, or 256 two an SM (an uneven split that
+        # reached 132 measured slower: tools/conv_phases.py --splits)
+        sms = torch.cuda.get_device_properties(card).multi_processor_count
+        assert p["grid"] >= 0.96 * sms, (label, p)
+    want_ws = 4 * (1024 + p["grid"] * bm * bn) if p["splits"] > 1 else 0
+    assert p["workspace_bytes"] == want_ws
+
+
+@pytest.mark.parametrize("n,h,w,co,kh,stride", [
+    (1, 224, 224, 64, 7, 2),    # ResNet-50's stem
+    (2, 37, 37, 24, 7, 2),      # batch 2: tiles across images, ragged M
+    (3, 19, 23, 16, 7, 1),      # stride 1, W != H
+    (1, 30, 30, 130, 5, 2),     # CO ragged past two column tiles
+])
+@pytest.mark.parametrize("dp", ["fp32", "bf16", "fp16", "int16",
+                                "int8-int16"])
+def test_conv_strip_loader(card, dp, n, h, w, co, kh, stride):
+    """CI = 3 with padding 3: every datapath's conv reads the image through
+    the strip loader (strips staged in shared memory, zeros in the
+    padding), within its rule of the plain version, equal to the host
+    route on OS and on WS, and a rerun to the same bits."""
+    _datapath_conv(card, dp, n, h, w, 3, co, kh, kh, stride, 3,
+                   h * w + co + kh)
+
+
+@pytest.mark.parametrize("dp", ["fp32", "fp16", "int16", "int8-int16"])
+def test_conv_strip_loader_unaligned_image(card, dp):
+    """The stem read from an image one element into its buffer (no row or
+    strip 16-byte aligned): the strips' windows keep each address's
+    residue, and the result equals the aligned image's."""
+    g = torch.Generator(device=card).manual_seed(11)
+    dt, acc, out = _DATAPATHS[dp]
+    x, wt, b, shift = _dp_operands(g, dp, (1, 41, 41, 3), (7, 7, 3, 64), 64)
+    buf = torch.zeros(x.numel() + 1, dtype=dt, device=card)
+    buf[1:] = x.flatten()
+    xo = buf[1:].view(x.shape)
+    kw_ = dict(stride=2, padding=3, acc_dtype=acc, out_dtype=out,
+               shift=shift, activation=Activation.RELU)
+    got = tconv.conv2d_implicit(xo, wt, b, **kw_)
+    _close_dp(got, tref.conv2d_ref(x, wt, b, **kw_), out)
+    assert torch.equal(got, tconv.conv2d_implicit(x, wt, b, **kw_))

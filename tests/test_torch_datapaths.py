@@ -289,3 +289,26 @@ def test_fp16_conv_overflows_to_inf_like_jax(fused):
     _check(got, want, "fp16")
     w = np.asarray(want).astype(np.float32)
     assert (w == np.inf).any() and (w == -np.inf).any()
+
+
+@pytest.mark.parametrize("n,h", [(2, 13), (1, 21)], ids=["b2-13", "b1-21"])
+@pytest.mark.parametrize("dp", [("fp32", "fp32", "fp32"),
+                                ("fp16", "fp32", "fp16")], ids="-".join)
+def test_conv2d_ref_matches_jax_at_stem_geometry(dp, n, h):
+    """The plain version the card's stem loader is held against
+    (``conv2d_ref``: CI = 3, 7x7, stride 2, padding 3, so every output
+    row starts in the padding), against the JAX kernel in interpret mode,
+    at images whose output rows are not a multiple of any tile."""
+    from repro_torch.kernels.ref import conv2d_ref
+
+    rng = np.random.default_rng(h + n)
+    x, wt, b, shift = _operands(rng, dp, (n, h, h, 3), (7, 7, 3, 24), 24)
+    jcfg, _ = _cfgs(dp)
+    want = jconv.conv2d_implicit(
+        jnp.asarray(x), jnp.asarray(wt), jnp.asarray(b), cfg=jcfg, stride=2,
+        padding=3, shift=shift, activation=JActivation.RELU, co_tile=8,
+        interpret=True)
+    got = conv2d_ref(_t(x), _t(wt), _t(b), stride=2, padding=3,
+                     acc_dtype=torch.float32, out_dtype=dtype_of(dp[2]),
+                     shift=shift, activation=Activation.RELU)
+    _check(got, want, dp[2])

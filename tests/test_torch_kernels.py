@@ -109,14 +109,20 @@ def test_gemm_matches_jax(in_dt, out_dt, bias):
 
 def test_gemm_reads_transposed_b_view():
     """The tied unembedding hands the GEMM ``table.T``, a strided view;
-    the result equals the product with a contiguous copy."""
+    the result equals the product with a contiguous copy, and the exact
+    product. Small integer values make every partial sum exact in fp32,
+    so the comparison holds bit for bit whatever order the CPU BLAS sums
+    in (it picks another kernel for a transposed operand), and a wrong
+    stride still shows."""
     rng = np.random.default_rng(1)
-    table = _t(rng.standard_normal((50, 24)).astype(np.float32))
-    x = _t(rng.standard_normal((3, 24)).astype(np.float32))
+    table = rng.integers(-8, 8, (50, 24)).astype(np.float32)
+    x = rng.integers(-8, 8, (3, 24)).astype(np.float32)
     kw = dict(acc_dtype=torch.float32, out_dtype=torch.float32)
-    got = tgemm.gemm(x, table.T, **kw)
-    want = tgemm.gemm(x, table.T.contiguous(), **kw)
+    got = tgemm.gemm(_t(x), _t(table).T, **kw)
+    want = tgemm.gemm(_t(x), _t(table).T.contiguous(), **kw)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+    exact = torch.from_numpy(x.astype(np.float64) @ table.T.astype(np.float64))
+    torch.testing.assert_close(got.double(), exact, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("activation,shift", [

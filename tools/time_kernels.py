@@ -18,7 +18,11 @@ quickstart shape, the fp32 / bf16 / fp16 / int16 convs at the stem,
 stage-1 3x3 and stage-4 3x3, each beside its library call where PyTorch
 has one), and the device time of the 50-layer stream per route, int8 and
 on phase 6b's four instances; a checkout without those datapaths skips
-them). It
+them), and the conv (``--only conv``, not in the default set: the fp32,
+bf16, fp16 and int16 conv at every distinct conv of the stream beside
+cuDNN's ``conv2d``, with each checkout's plan, and the fused stream's
+device time on phase 6b's four instances beside cuDNN's on the same 49
+convs). It
 times the ``repro_torch`` package
 found under ``--src``, so two checkouts compare on one card, run after
 run:
@@ -26,7 +30,7 @@ run:
   python3 tools/time_kernels.py --src OTHER_CHECKOUT/src --tag parent
   python3 tools/time_kernels.py --tag change
   python3 tools/time_kernels.py --only ssd    # one group: gemm, attention,
-                                              # ssd, engine
+                                              # ssd, engine, conv
 
 Each output is held against its plain version (``chip_smoke.check_close``;
 a miss is reported in the row's ``check``, not fatal) and timed with ``chip_smoke.Timer`` (CUDA events, L2 flushed, median of
@@ -259,6 +263,86 @@ def engine_cases(torch, cs):
                   flops, *_ in rows]
 
 
+def conv_cases(torch, cs):
+    """The conv kernel on the fp32, bf16, fp16 and int16 datapaths at every
+    distinct conv of ResNet-50's stream, the classifier's 1x1 over a 1x1
+    image included (``chip_smoke.resnet50_shapes``; operands as phase 6b
+    draws them, ``chip_smoke.datapath_operands``; bias, the instance's
+    shift, ReLU), each beside cuDNN's ``conv2d`` on channels-last views
+    where PyTorch has one (floats; fp32 with TF32 off) and with the plan
+    of the checkout timed."""
+    from repro_torch.core.config import Activation
+    from repro_torch.kernels import conv as kc
+    from repro_torch.kernels.ref import conv2d_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = []
+    for kind, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16),
+                     ("fp16", torch.float16), ("int16", torch.int16)):
+        for label, (m, n, k), (h, ci, co, kh, stride, pad), _ in \
+                cs.resnet50_shapes():
+            x, w, b, shift = cs.datapath_operands(
+                torch, gen, dt, (1, h, h, ci), (kh, kh, ci, co), co)
+            kw = dict(stride=stride, padding=pad,
+                      acc_dtype=torch.float32 if dt.is_floating_point
+                      else torch.int32, out_dtype=dt, shift=shift,
+                      activation=Activation.RELU)
+            lib = None
+            if dt.is_floating_point:
+                xl = x.permute(0, 3, 1, 2)
+                wl = w.permute(3, 2, 0, 1).contiguous(
+                    memory_format=torch.channels_last)
+                bl = b.to(dt)
+                lib = (lambda xl=xl, wl=wl, bl=bl, stride=stride, pad=pad:
+                       torch.nn.functional.conv2d(xl, wl, bl, stride=stride,
+                                                  padding=pad))
+            try:
+                plan = cs.conv_plan_text(kc, m, n, k, dt)
+            except (AttributeError, NotImplementedError) as e:
+                plan = f"no plan ({type(e).__name__})"
+            es = x.element_size()
+            out.append((f"conv2d_implicit[{kind}]",
+                        f"{label} 1x{h}x{h}x{ci} -> {m}x{co} plan {plan}",
+                        kind, lambda x=x, w=w, b=b, kw=kw:
+                            kc.conv2d_implicit(x, w, b, **kw),
+                        lambda x=x, w=w, b=b, kw=kw: conv2d_ref(x, w, b,
+                                                                **kw),
+                        lib, (es * (x.numel() + w.numel() + m * co) + 4 * co,
+                              2.0 * m * co * k)))
+    return out
+
+
+def conv_streams(torch, cs):
+    """Device ms of ResNet-50's 50-layer stream on the fused route (the
+    conv kernel on every layer) on phase 6b's four instances, and of
+    cuDNN's ``conv2d`` on the same 49 convs (``chip_smoke.library_stream``;
+    floats, TF32 off), both read as ``chip_smoke.py`` phase 6b reads
+    them."""
+    from repro_torch.core.generator import elaborate
+
+    out = {}
+    for name, cfg in cs.datapath_instances():
+        inst = elaborate(cfg)
+        shift = 1 if cfg.input_torch.is_floating_point else 10
+        layers = cs.resnet50_layers(torch, seed=1, dtype=cfg.input_torch)
+
+        def run():
+            return [inst.conv2d(x, w, b, stride=st, padding=p, shift=shift,
+                                activation=act, fused=True)
+                    for _, x, w, b, st, p, act in layers]
+
+        prof = cs.profile_call(torch, f"{name} fused", run, quiet=True)
+        out[f"{name} fused conv kernel"] = {
+            "device_ms": prof["device_ms"], "wall_ms": prof["wall_ms"],
+            "device_ms_by_kernel": prof["device_ms_by_kernel"]}
+        if cfg.input_torch.is_floating_point:
+            convs, lib = cs.library_stream(torch, name, layers)
+            out[f"{name} cuDNN conv2d, {convs} convs"] = {
+                "device_ms": lib["device_ms"], "wall_ms": lib["wall_ms"],
+                "device_ms_by_kernel": lib["device_ms_by_kernel"]}
+    return out
+
+
 def engine_streams(torch, cs):
     """Device ms of ResNet-50's 50-layer stream at batch 1 per route (host
     im2col + OS GEMM, host im2col + WS GEMM, fused conv), from
@@ -321,7 +405,8 @@ def main() -> int:
     ap.add_argument("--src", default=os.path.join(ROOT, "src"),
                     help="directory holding the repro_torch package to time")
     ap.add_argument("--tag", default="", help="names the run in the output")
-    ap.add_argument("--only", choices=("gemm", "attention", "ssd", "engine"),
+    ap.add_argument("--only", choices=("gemm", "attention", "ssd", "engine",
+                                       "conv"),
                     help="time one group of kernels")
     args = ap.parse_args()
     import torch
@@ -347,6 +432,8 @@ def main() -> int:
         cases += ssd_cases(torch, cs)
     if args.only in (None, "engine"):
         cases += engine_cases(torch, cs)
+    if args.only == "conv":
+        cases += conv_cases(torch, cs)
     rows = []
     for kernel, label, kind, run_k, run_p, run_lib, work in cases:
         # A timing tool reports a miss and goes on (``chip_smoke.py`` is the
@@ -382,7 +469,7 @@ def main() -> int:
               f"{sm['ms']:.4f} ms  torch.matmul {sm['library_ms']:.4f} ms",
               flush=True)
     streams = engine_streams(torch, cs) if args.only in (None, "engine") \
-        else {}
+        else conv_streams(torch, cs) if args.only == "conv" else {}
     for route, st in streams.items():
         print(f"[time_kernels] {args.tag} resnet50 stream, {route}: device "
               f"{st['device_ms']:.4f} ms (wall {st['wall_ms']:.3f} ms)",
