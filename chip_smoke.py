@@ -85,12 +85,16 @@ fresh and resumed, and a ragged 7-token prompt; final states against the
 naive recurrence in fp64) and dense decode attention in bf16
 at phase 10's shapes, at four sequences of 2048 and at hymba-1.5b's
 shape, and in fp32 at phase 9's (each attention arch's longest request,
-its windows and softcap), flash attention at hymba-1.5b's first chunk and
-in fp32 at phase 9's prompts (the CUDA-core kernel that the fp32 gate
-runs), paged prefill at hymba-1.5b's continuation chunk (T=256 at 768,
-GQA 25 / 5, window 1024) and in fp32 at the gate's last chunks, the
-fp32 SSD at phases 7-8's fp32 prompt (y and final state against the
-fp64 recurrence), and logs each redesigned kernel's grid and
+its windows and softcap), paged decode in fp32 at phase 9's two slots,
+flash attention at hymba-1.5b's first chunk (bf16, and fp32 as phase 8's
+fp32 logits run it) and in fp32 at phase 9's prompts (the CUDA-core
+kernel that the fp32 gate runs; SDPA beside each row without a softcap,
+under the window's mask where it cuts keys), paged prefill at
+hymba-1.5b's continuation chunk (T=256 at 768, GQA 25 / 5, window 1024)
+and in fp32 at the gate's last chunks, the fp32 SSD at mamba2-1.3b's
+and hymba-1.5b's widths (phases 7-8's fp32 prompt, 256 tokens fresh; a
+resumed chunk; 1000 tokens fresh; y and final state against the fp64
+recurrence), and logs each redesigned kernel's grid and
 ``ptxas`` registers and spills; each bf16 paged prefill row also times the
 dense flash kernel on the same keys gathered beforehand (what the block
 table costs); dense decode's yardsticks are SDPA over the whole cache
@@ -103,6 +107,9 @@ as phase 7's fp32 logits run it) log theirs, beside ``torch.addmm`` /
 ``torch.matmul`` in fp32 with TF32 off; the log and
 the JSON carry the GEMM's sums over one decode step (M = 4) and one
 prefill chunk (M = 256), 7 projections per layer and the unembedding.
+Every profiler window (phases 4b, 6, 6b, 7-8) is held to the launch
+counters' growth over its passes (``profile_call``): a short window is
+taken again, and one that stays short fails the run.
 Every main path's launch counts are zeroed
 just before it and read just after; the kernels line takes each kernel's
 count from its own path: the serve phase, the engine phase, phase 6b (the
@@ -435,13 +442,19 @@ def kernel_cases(torch, rng_seed=0):
                     for i in range(t_q))
         nbytes = q.element_size() * (2 * t_q * h * dh + 2 * t_k * kvh * dh)
 
+        # SDPA computes the same function without a softcap: causal, and
+        # where the window cuts keys, under the window's boolean mask.
+        band = None
+        if window is not None and window < t_k:
+            i = torch.arange(t_q, device="cuda")[:, None] + t_k - t_q
+            j = torch.arange(t_k, device="cuda")[None, :]
+            band = (j <= i) & (j > i - window)
+
         def library():
             return torch.nn.functional.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                is_causal=True, enable_gqa=True)
-        # SDPA computes the same function where the window cuts no key.
-        lib = library if ((window is None or window >= t_k) and
-                          softcap is None and t_q == t_k) else None
+                attn_mask=band, is_causal=band is None, enable_gqa=True)
+        lib = library if softcap is None and t_q == t_k else None
         kind = "fp32" if dtype == f32 else "bf16"
         if dtype == bf16:
             cl, blocks = flash_grid(t_q, t_k, h, dh, window)
@@ -464,6 +477,9 @@ def kernel_cases(torch, rng_seed=0):
     hy = configs.get("hymba-1.5b")
     flash_case(256, 256, hy.n_heads, hy.n_kv_heads, hy.head_dim,
                hy.local_window, None, False)
+    # and in fp32, as phase 8's fp32 logits run it (the CUDA-core kernel)
+    flash_case(256, 256, hy.n_heads, hy.n_kv_heads, hy.head_dim,
+               hy.local_window, None, False, dtype=f32)
     # phase 9's gate in fp32 (the CUDA-core kernel): each attention arch's
     # longest prompt as the static path prefills it, windows and softcap
     from repro_torch.examples import serve_decode as sd
@@ -540,16 +556,18 @@ def kernel_cases(torch, rng_seed=0):
                          False, dtype=f32)
 
     def decode_case(lengths, h, kvh, dh, page, n_pages, mp, window, softcap,
-                    rep):
-        kp, vp = pools(kvh, n_pages, page, dh)
+                    rep, dtype=bf16):
+        kp, vp = (x.to(dtype) for x in pools(kvh, n_pages, page, dh))
         s = len(lengths)
         perm = torch.randperm(n_pages, generator=gen, device="cuda")
         tables = perm[:s * mp].reshape(s, mp).to(torch.int32)
         lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-        q = randn(s, 1, h, dh)
+        q = randn(s, 1, h, dh, dtype=dtype)
         kw = dict(window=window, softcap=softcap)
         live = sum(min(n, window or 1 << 30) for n in lengths)
-        nbytes = 2 * (2 * s * h * dh + 2 * live * kvh * dh) + 4 * s * (mp + 1)
+        nbytes = (q.element_size() * (2 * s * h * dh + 2 * live * kvh * dh)
+                  + 4 * s * (mp + 1))
+        kind = "fp32" if dtype == f32 else "bf16"
         splits, groups, _, split, _ = ka.paged_decode_plan(s, mp, page, h,
                                                            kvh, dh, window)
         first = [(max(0, n - window) if window else 0) // split
@@ -557,8 +575,9 @@ def kernel_cases(torch, rng_seed=0):
         busy = sum(-(-n // split) - f if n else 1
                    for n, f in zip(lengths, first)) * (groups // s)
         cases.append(("paged_decode_attention",
-                      f"S={s} lengths={lengths} H={h} KVH={kvh} D={dh} "
-                      f"window={window} softcap={softcap}", rep, "bf16",
+                      f"{'fp32 ' if dtype == f32 else ''}S={s} "
+                      f"lengths={lengths} H={h} KVH={kvh} D={dh} "
+                      f"window={window} softcap={softcap}", rep, kind,
                       lambda: ka.paged_decode_attention(q, kp, vp, tables,
                                                         lens, **kw),
                       lambda: ka.paged_decode_attention_plain(
@@ -571,6 +590,20 @@ def kernel_cases(torch, rng_seed=0):
     decode_case(serve_lengths, nh, nkv, hd, 64, 128, 32, cfg.local_window,
                 None, False)
     decode_case([77, 0, 16, 33], 8, 2, 128, 16, 40, 8, 24, 50.0, False)
+    # phase 9's gate in fp32: the engine's two slots at the last decode step
+    # of the first two requests (page 16, 24 pages), each attention arch's
+    # windows and softcap
+    for arch in sd.ARCHS:
+        sc = configs.get_smoke(arch)
+        if not sc.has_attn:
+            continue
+        lengths = [p + sc.n_meta_tokens + g - 1
+                   for p, g in zip(sd.PROMPT_LENS[:2], sd.GEN_LENS[:2])]
+        for window in (None, sc.local_window) if sc.local_window \
+                else (None,):
+            decode_case(lengths, sc.n_heads, sc.n_kv_heads, sc.head_dim, 16,
+                        24, -(-max(lengths) // 16), window, sc.attn_softcap,
+                        False, dtype=f32)
     engine_cases(torch, gen, cases)
     datapath_cases(torch, gen, cases)
     recurrent_cases(torch, gen, cases)
@@ -603,6 +636,39 @@ def ssd_grid(t, h, g, n, chunk):
     state = -(-(-(-n // 16) * 16) // 64) * h
     return (f"{-(-t // q)} launches of {out + state} blocks ({out} output, "
             f"{state} state)")
+
+
+def ssd32_grid(t, h, g, n, chunk):
+    """The fp32 SSD kernel's launches and blocks (``launch_f32`` in
+    ``ssd.cu``): one launch per chunk of clusters of two blocks, each with
+    a cluster per (32-row tile, pair of heads of a group), its two blocks
+    splitting the key tiles, and a state block per (64-row slice of N,
+    32 where N <= 32, head; their count made even), per batch row."""
+    q = min(chunk, t)
+    out = 2 * -(-q // 32) * g * -(-(h // g) // 2)
+    state = -(-n // (64 if n > 32 else 32)) * h
+    state += state % 2
+    return (f"{-(-t // q)} launches of {out + state} blocks in clusters of 2 "
+            f"({out} output, {state} state)")
+
+
+def ssd32_check(torch, name, got, x, dt, a_log, b, c, d_skip, init, chunk):
+    """The fp32 SSD's y and final state against the fp64 recurrence
+    (``tests/_ssd_exact.py``) within ``fp32_tolerance`` of each one's
+    largest magnitude; returns the larger error."""
+    from _ssd_exact import fp32_tolerance, ssd_fp64
+
+    exact_y, exact = ssd_fp64(x, dt, a_log, b, c, d_skip=d_skip,
+                              initial_state=init)
+    tol = fp32_tolerance(dt, a_log, chunk)
+    worst = 0.0
+    for what, v, e in (("y", got[0], exact_y), ("state", got[1], exact)):
+        err = (v.double() - e).abs().max().item()
+        if not torch.isfinite(v).all() or err > tol * e.abs().max().item():
+            fail(f"{name}: {what} err {err:.3e} > {tol:.2e} x "
+                 f"{e.abs().max().item():.3e}")
+        worst = max(worst, err)
+    return worst
 
 
 def recurrent_cases(torch, gen, cases):
@@ -682,9 +748,10 @@ def recurrent_cases(torch, gen, cases):
     ssd_case("hymba-1.5b", 1000, True, False)
     ssd_case("mamba2-1.3b", 7, False, False)
 
-    def ssd32_case(arch, t):
+    def ssd32_case(arch, t, resume=False):
         """The fp32 CUDA-core kernel at the shape of phases 7-8's fp32
-        logits (one fresh 256-token prompt): y and the final state held
+        logits (one fresh 256-token prompt), a resumed chunk and a fresh
+        1000-token call (four launches): y and the final state held
         against the fp64 recurrence within ``fp32_tolerance``."""
         cfg = configs.get(arch)
         h, p, g, n = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups, \
@@ -696,33 +763,31 @@ def recurrent_cases(torch, gen, cases):
         dt = torch.nn.functional.softplus(randn(1, t, h, dtype=f32))
         a_log = torch.log(torch.linspace(1.0, 16.0, h, device="cuda"))
         d_skip = torch.ones((h,), dtype=f32, device="cuda")
-        kw = dict(d_skip=d_skip, chunk=chunk, return_final_state=True)
-        name = f"ssd [fp32 {arch} T={t}]"
+        init = randn(1, h, n, p, dtype=f32, scale=0.5) if resume else None
+        kw = dict(d_skip=d_skip, chunk=chunk, initial_state=init,
+                  return_final_state=True)
+        name = f"ssd [fp32 {arch} T={t}{' resumed' if resume else ''}]"
 
         def check(got, want):
-            exact_y, exact = ssd_fp64(x, dt, a_log, b, c, d_skip=d_skip)
-            tol = fp32_tolerance(dt, a_log, chunk)
-            worst = 0.0
-            for what, v, e in (("y", got[0], exact_y), ("state", got[1],
-                                                        exact)):
-                err = (v.double() - e).abs().max().item()
-                if not torch.isfinite(v).all() or \
-                        err > tol * e.abs().max().item():
-                    fail(f"{name}: {what} err {err:.3e} > {tol:.2e} x "
-                         f"{e.abs().max().item():.3e}")
-                worst = max(worst, err)
-            return worst
+            return ssd32_check(torch, name, got, x, dt, a_log, b, c, d_skip,
+                               init, chunk)
 
         nbytes = (4 * 2 * t * h * p + 4 * 2 * t * g * n + 4 * t * h + 8 * h
-                  + 4 * h * n * p)
-        flops = ssd_flops(t, h, p, g, n, chunk, False)
+                  + 4 * h * n * p * (2 if resume else 1))
+        flops = ssd_flops(t, h, p, g, n, chunk, resume)
         cases.append(("ssd", f"fp32 {arch} B=1 T={t} H={h} P={p} G={g} N={n} "
-                      f"chunk={chunk} fresh", False, "fp32",
+                      f"chunk={chunk} {'resumed' if resume else 'fresh'}",
+                      False, "fp32",
                       lambda: km.ssd(x, dt, a_log, b, c, **kw),
                       lambda: km.ssd_plain(x, dt, a_log, b, c, **kw), None,
-                      nbytes, flops, dict(check=check)))
+                      nbytes, flops,
+                      dict(check=check, grid=ssd32_grid(t, h, g, n, chunk))))
     ssd32_case("mamba2-1.3b", 256)
     ssd32_case("hymba-1.5b", 256)
+    ssd32_case("mamba2-1.3b", 256, resume=True)
+    ssd32_case("hymba-1.5b", 256, resume=True)
+    ssd32_case("mamba2-1.3b", 1000)
+    ssd32_case("hymba-1.5b", 1000)
 
     def decode_case(b, s, h, kvh, dh, pos, window, softcap, rep,
                     dtype=bf16):
@@ -1252,12 +1317,28 @@ _KERNEL_NAMES = (("ssd_kernel", "ssd"), ("ssd_tc_kernel", "ssd"),
                  ("ConvTapsA", "conv2d_implicit"),
                  ("ConvRowsA", "conv2d_implicit"),
                  ("ConvRowsQ", "conv2d_implicit"),
+                 ("ConvStripA", "conv2d_implicit"),
                  ("epilogue_kernel", "accumulator_epilogue"),
                  ("hgemm::skinny_kernel", "gemm"),
                  ("hgemm::wide_kernel", "gemm"), ("sgemm_kernel", "gemm"),
                  ("MatrixA", "gemm[int8]"),
                  ("true>", "paged_prefill_attention"),
                  ("prefill_attn_kernel", "flash_attention"))
+
+# Each launch counter of ``repro_torch.kernels.launch_counts`` by the
+# kernel class its launches show up as; "gemm_ws" counts a GEMM in WS
+# order of either GEMM class (``window_short`` splits it).
+_COUNTER_CLASS = {"gemm": "gemm", "gemm[fp16]": "gemm", "gemm[int16]": "gemm",
+                  "gemm[int8]": "gemm[int8]",
+                  "accumulator_epilogue": "accumulator_epilogue",
+                  "conv2d_implicit": "conv2d_implicit",
+                  **{f"conv2d_implicit[{d}]": "conv2d_implicit"
+                     for d in ("fp32", "bf16", "fp16", "int16")},
+                  "ssd": "ssd", "flash_attention": "flash_attention",
+                  "paged_prefill_attention": "paged_prefill_attention",
+                  "paged_decode_attention": "paged_decode_attention",
+                  "decode_attention": "decode_attention"}
+PROFILE_RETAKES = 4     # windows taken again before a short one is fatal
 
 
 def _kernel_class(name: str) -> str:
@@ -1267,14 +1348,52 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
+def window_short(recorded, by_key, counted, n):
+    """Why a profiler window over ``n`` passes is short, or None where it
+    is whole. ``recorded``: the window's launches per kernel class;
+    ``by_key``: its launches per kernel name; ``counted``: the launch
+    counters' growth over the same ``n`` passes (``launch_counts`` names).
+    Whole means: every counted class recorded exactly its counters' launches
+    (a WS GEMM's in either GEMM class), and every kernel name a whole
+    number of passes' worth (the passes launch the same kernels)."""
+    if not by_key:
+        return "no CUDA kernel recorded"
+    want = {}
+    for name, c in counted.items():
+        if name != "gemm_ws" and c:
+            cls = _COUNTER_CLASS[name]
+            want[cls] = want.get(cls, 0) + c
+    gemms = ("gemm", "gemm[int8]")
+    extra = [recorded.get(cls, 0) - want.get(cls, 0) for cls in gemms]
+    ws = counted.get("gemm_ws", 0)
+    if min(extra) < 0 or sum(extra) != ws:
+        return (f"GEMM launches recorded {[recorded.get(c, 0) for c in gemms]}"
+                f", counted {[want.get(c, 0) for c in gemms]} + {ws} in WS "
+                f"order")
+    for cls in set(_COUNTER_CLASS.values()) - set(gemms):
+        if recorded.get(cls, 0) != want.get(cls, 0):
+            return (f"{cls}: {recorded.get(cls, 0)} launches recorded, "
+                    f"{want.get(cls, 0)} counted")
+    odd = [key for key, c in by_key.items() if c % n]
+    if odd:
+        return f"{len(odd)} kernels recorded a part of a pass, e.g. {odd[0]}"
+    return None
+
+
 def profile_call(torch, name, fn, n=3, quiet=False):
     """Wall time of one synchronised ``fn()`` (median of 5) against the
     device time of every kernel ``torch.profiler`` saw in it (mean of n),
     by kernel class; "gemm[int8]" covers the int8 GEMM in either order,
     "gemm" every other GEMM (bf16, fp16, fp32, int16), "conv2d_implicit"
-    the conv on every datapath.
+    the conv on every datapath. A window whose launches fall short of the
+    launch counters' growth over its passes (``window_short``) is taken
+    again, at most ``PROFILE_RETAKES`` times, and then fails: no device
+    time is reported from a short window. ``windows`` in the result says
+    how many were taken.
     ``quiet``: no log line (the caller logs a summary)."""
     from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch import kernels
 
     fn()
     torch.cuda.synchronize()
@@ -1286,19 +1405,22 @@ def profile_call(torch, name, fn, n=3, quiet=False):
         walls.append((time.perf_counter() - t0) * 1e3)
     # One warm-up pass inside the profiler, its events dropped: without it
     # the window's first kernel went unrecorded on the H100 (one launch
-    # short per window: a one-layer stage read about 2/3 of its time). A
-    # window that recorded no device activity at all (now and then, in the
-    # shortest windows) is taken again, at most twice.
-    for _ in range(3):
+    # short per window: a one-layer stage read about 2/3 of its time).
+    # Windows still lose launches now and then (PR 19, PR 20): each is held
+    # to the launch counters.
+    for window in range(1, PROFILE_RETAKES + 2):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=n,
                                        repeat=1)) as prof:
-            for _ in range(n + 1):
+            for i in range(n + 1):
+                if i == 1:
+                    before = kernels.launch_counts()
                 fn()
                 torch.cuda.synchronize()
                 prof.step()
-        by_class, launches = {}, {}
+        after = kernels.launch_counts()
+        by_class, launches, by_key = {}, {}, {}
         for a in prof.key_averages():
             # Device activity only: an operator's entry repeats the time
             # of the kernels it launched, and a step's mark spans the step.
@@ -1309,24 +1431,29 @@ def profile_call(torch, name, fn, n=3, quiet=False):
             by_class[cls] = (by_class.get(cls, 0.0) +
                              a.self_device_time_total / 1e3 / n)
             launches[cls] = launches.get(cls, 0) + a.count
-        if by_class:
+            by_key[a.key] = by_key.get(a.key, 0) + a.count
+        why = window_short(launches, by_key,
+                           {k: after[k] - before[k] for k in after}, n)
+        if why is None:
             break
+        log(f"profile {name}: window {window} short ({why}); taken again")
+    else:
+        fail(f"profile {name}: {PROFILE_RETAKES + 1} windows, every one "
+             f"short ({why})")
     launches = {cls: c // n for cls, c in launches.items()}
     wall = statistics.median(walls)
     device = sum(by_class.values())
     out = {"wall_ms": wall, "device_ms": device,
            "device_busy_share": device / wall,
-           "device_ms_by_kernel": by_class, "launches_by_kernel": launches}
-    if device == 0.0:
-        log(f"profile {name}: wall {wall:.3f} ms; device time not "
-            f"measured (the profiler saw no CUDA kernel)")
-        return out
+           "device_ms_by_kernel": by_class, "launches_by_kernel": launches,
+           "windows": window}
     if quiet:
         return out
     parts = ", ".join(f"{k} {v:.3f} ms x{launches[k]}" for k, v in
                       sorted(by_class.items(), key=lambda kv: -kv[1]))
     log(f"profile {name}: wall {wall:.3f} ms, device busy "
-        f"{device:.3f} ms ({device / wall:.1%}); {parts}")
+        f"{device:.3f} ms ({device / wall:.1%}); {parts}"
+        + (f" ({window} windows)" if window > 1 else ""))
     return out
 
 
@@ -2142,7 +2269,7 @@ def main() -> int:
                        ("gemm16", ("skinny_kernel", "wide_kernel",
                                    "sgemm_kernel")),
                        ("conv", ("igemm", "sgemm_kernel")),
-                       ("ssd", ("ssd_tc_kernel",))):
+                       ("ssd", ("ssd_tc_kernel", "ssd_kernel"))):
         log(f"ptxas {src}: " + ptxas_summary(ptxas.get(src, []), names))
 
     # 3. kernels

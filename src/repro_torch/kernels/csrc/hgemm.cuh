@@ -9,8 +9,7 @@
 // kernel: Hopper's mma.sync and wgmma take .f16 operands at the shapes
 // they take .bf16, and the tensor map names its element type. Nothing
 // else depends on it: the plan, the tiles, the loads (16-bit words moved
-// as bits) and the sum order are the same for both, so the bf16
-// instantiations are the code they were before fp16 existed.
+// as bits) and the sum order are the same for both.
 //
 // Two regimes, chosen by the shape alone (plan()), so OS and WS always run
 // the same plan and every output element is summed in the same order: WS
@@ -40,48 +39,55 @@
 //     table.T feed it unchanged; row-major B is paired along k with byte
 //     permutes.
 // Wide, M > 16 (prefill chunks of 256, a short prompt's 64, the engine's
-// M up to ~1000). Towards the tensor-core rate (989 TFLOP/s bf16), bound
-// by feeding it from L2 and device memory:
+// M up to ~12544). Towards the tensor-core rate (989 TFLOP/s bf16), bound
+// by feeding it from L2 and device memory and, at the serving and engine
+// shapes (a few us each), by the fixed costs around the loop: the first
+// stage's arrival (~2 us), a K split's merge and the epilogue (phases by
+// tools/hgemm_phases.py, PERF.md). The design:
 //   - wgmma m64nNk16 (sm_90a) on operands in shared memory in the 128-byte
 //     swizzled layout wgmma reads: A K-major; B K-major (table.T) or
-//     MN-major (row-major weights, the descriptor's transpose bit). One
-//     consumer warpgroup per 64 rows: 64 x 128 tiles where 128 rows would
-//     leave most SMs idle, else 128 x 128, and 128 x 256 where those still
-//     fill the card (the prefill unembedding: half the operand traffic per
-//     flop).
-//   - Operands by TMA into a ring of 4-8 stages (96-192 KB; 8 where
-//     64-row tiles are too few to fill the SMs and one block per SM can
-//     hold them), ST - 1 of them in flight: thread 0 refills a stage once
-//     every warp has
-//     released it (full / empty mbarriers, no block-wide barrier in the
-//     loop), and wgmma keeps one group in flight. Tensor maps are encoded
-//     once per (pointer, shape, stride, box) and kept, so a weight's map is
-//     made once and a reused activation buffer finds its map made.
-//     Operands whose rows are not 16-byte aligned (no tensor map) go
-//     through a cp.async ring instead.
-//   - The epilogue stages the fp32 tile in shared memory and finishes it
-//     in one compact loop of 16-byte stores (finishing 64-128 values in
-//     registers unrolls it that many times, and fetching that code cost
-//     more than the tile's main loop).
+//     MN-major (row-major weights, the descriptor's transpose bit).
+//   - A block of two consumer warpgroups and one producer warp: 128-row
+//     tiles, each warpgroup 64 rows of 64, 128 or 256 columns (64 for N <=
+//     64, 256 where those tiles still fill the card, else 128), or for M <=
+//     64 one 64 x 256 tile, each warpgroup 128 of its columns. Two
+//     warpgroups share each stage's B (or A): less operand traffic per
+//     flop than one on 64 x 128, and one's wgmma overlaps the other's wait.
+//   - Operands by TMA into a ring of 4-8 stages (about 200 KB), all of them
+//     in flight: the producer warp's lane refills a stage once the 8
+//     consumer warps have released it (full / empty mbarriers); a consumer
+//     never issues a copy, and each warpgroup keeps one wgmma group in
+//     flight. Tensor maps are encoded once per (pointer, shape, stride,
+//     box) and kept. Operands whose rows are not 16-byte aligned (no tensor
+//     map) go through a cp.async ring that every thread fills.
+//   - Split K by clusters: where the tiles leave SMs idle, the S splits of
+//     a tile (at most 8, each at least 4 k steps) run as one cluster of S
+//     blocks. Every block stages its fp32 tile in its shared memory; after
+//     a cluster barrier block s adds rows [s BM / S, (s + 1) BM / S) of all
+//     S tiles over distributed shared memory, in split order, and finishes
+//     them. No workspace, ticket or memset: the call is capturable, two
+//     streams share nothing, and every output is summed in a fixed order.
+//   - The epilogue reads the staged tile in one compact loop (bias, a
+//     branch-light activation with GELU / SiLU out of line, shift,
+//     rounding) and stores 16 bytes a thread.
 //   - Tile order: WS walks every M tile of an N strip before the next
 //     strip; OS walks groups of 8 M tiles n-major, so the prefill
 //     unembedding (2 M tiles) reads the 604 MB table from device memory
 //     once, not once per M tile.
-//   - Split K where the tiles alone leave SMs idle (wk/wv at M = 256: 8
-//     tiles of 64 x 128), at least 4 stages per split, at most 8 splits.
-// Split K, both regimes: each block writes its fp32 partial to the
-// workspace (coalesced: a warp's 512 bytes contiguous) and takes an atomic
-// ticket for its tile; the last block of a tile adds the partials in split
-// order (its own from registers, 4 splits' loads in flight at a time),
-// applies bias and epilogue once and stores the tile, all in the same
-// launch. The tickets sit at the head of a workspace kept per stream:
-// zeroed once when it is made, and each last block sets its ticket back to
-// 0, so a call needs no memset and calls on two streams never share one.
+// Split K, skinny: each block writes its fp32 partial to the workspace
+// (coalesced: a warp's 512 bytes contiguous) and takes an atomic ticket for
+// its tile; the last block of a tile adds the partials in split order (its
+// own from registers, 4 splits' loads in flight at a time), applies bias
+// and epilogue once and stores the tile, all in the same launch. The
+// tickets sit at the head of a workspace kept per stream: zeroed once when
+// it is made, and each last block sets its ticket back to 0, so a call
+// needs no memset and calls on two streams never share one.
 // Ragged M, N and K are masked in the loads (zeros, or TMA's out-of-bounds
 // fill); rows that are not 16-byte aligned are loaded element by element.
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -96,6 +102,7 @@
 
 namespace hgemm {
 
+namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
 
 constexpr int BK = 64;              // k per wide stage
@@ -103,13 +110,24 @@ constexpr int BK = 64;              // k per wide stage
 constexpr int SK_TRANS_CHUNK = 256;    // B = table.T
 constexpr int SK_ROW_CHUNK = 64;       // row-major B
 constexpr int SK_MAX_SPLITS = 32;
-// wide ring depth: 4-8 stages of (BM + BN) x 64 bf16 (96-192 KB); deep:
-// 64-row tiles too few to fill the SMs, one block per SM with 8 stages
-constexpr int wide_stages(int wgs, int bn, bool deep) {
-  return deep ? 8 : bn == 256 ? 4 : wgs == 1 ? 4 : 6;
+// wide tiles (rows x columns): two consumer warpgroups split the rows of
+// a 128-row tile, or the columns of a 64-row one
+enum { WIDE_128x64 = 0, WIDE_128x128 = 1, WIDE_128x256 = 2, WIDE_64x256 = 3 };
+constexpr int WIDE_THREADS = 288;   // 2 consumer warpgroups + a TMA warp
+constexpr int WD_MIN_STEPS = 4;     // k steps a wide split walks at least
+constexpr int WD_MAX_SPLITS = 8;    // a tile's splits: one cluster of blocks
+// ring depth: as many (BM + BN) x 64 stages as fit in 200 KB, at most 8
+constexpr int wide_stages(int bm, int bn) {
+  return 200 * 1024 / ((bm + bn) * BK * 2) < 8
+             ? 200 * 1024 / ((bm + bn) * BK * 2) : 8;
 }
-constexpr int WD_MIN_STEPS = 4;     // stages a wide split walks at least
-constexpr int WD_MAX_SPLITS = 8;    // partials a wide tile merges at most
+// dynamic shared memory: the ring, or the fp32 tile staged after it (rows
+// of bn + 8 floats), whichever is larger, and alignment slack
+constexpr int wide_smem(int bm, int bn) {
+  return (wide_stages(bm, bn) * (bm + bn) * BK * 2 > bm * (bn + 8) * 4
+              ? wide_stages(bm, bn) * (bm + bn) * BK * 2
+              : bm * (bn + 8) * 4) + 1024;
+}
 constexpr int GROUP_M = 8;          // OS order: M tiles per group
 constexpr int MAX_TICKETS = 1024;   // 4-byte words ahead of the partials
 
@@ -125,6 +143,54 @@ struct Plan {
 };
 
 inline int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
+
+inline int max_clusters(int size);
+
+// A wide plan of tile shape `shape` with `splits` K splits (0: as many as
+// fill the SMs, each at least WD_MIN_STEPS k steps, at most WD_MAX_SPLITS,
+// and no more than one wave of clusters: a split count whose clusters the
+// card cannot hold at once, one block an SM, is cut back). The splits of a
+// tile run as one cluster of blocks and add their partials over
+// distributed shared memory, so a wide plan needs no workspace.
+inline void plan_wide(int m, int n, int k, int shape, int splits, int sms,
+                      Plan& p) {
+  p.wide = 1;
+  p.bm = shape == WIDE_64x256 ? 64 : 128;
+  p.bn = shape == WIDE_128x64 ? 64 : shape == WIDE_128x128 ? 128 : 256;
+  p.bk = BK;
+  p.threads = WIDE_THREADS;
+  p.stages = wide_stages(p.bm, p.bn);
+  p.smem = wide_smem(p.bm, p.bn);
+  p.ksteps = ceil_div(k, BK);
+  p.tiles_m = ceil_div(m, p.bm);
+  p.tiles_n = ceil_div(n, p.bn);
+  const long long tiles = (long long)p.tiles_m * p.tiles_n;
+  int s = splits;
+  if (s <= 0) {
+    s = tiles < sms ? (int)(sms / tiles) : 1;
+    const int most = p.ksteps / WD_MIN_STEPS;
+    s = s < most ? s : most;
+    s = s < WD_MAX_SPLITS ? s : WD_MAX_SPLITS;
+    while (s > 1 && tiles > max_clusters(s)) --s;
+  }
+  s = s < WD_MAX_SPLITS ? s : WD_MAX_SPLITS;
+  s = s < p.ksteps ? s : p.ksteps;
+  p.splits = s > 1 ? s : 1;
+  p.part_words = 0;
+}
+
+// The wide tile for a shape: the narrowest of 128 x 64, 128 x 128 and 128
+// x 256 (64 x 256 for M <= 64, whose warpgroups split the columns) whose
+// tiles fit one wave of blocks, else the widest (a third of 128 x 64's
+// operand traffic per flop). At the serving and engine shapes the most
+// tiles win: K splits fill the rest of the card (tools/hgemm_phases.py
+// --sweep, PERF.md).
+inline int wide_shape(int m, int n, int sms) {
+  const int tm = ceil_div(m, 128);
+  if ((long long)tm * ceil_div(n, 64) <= sms) return WIDE_128x64;
+  if ((long long)tm * ceil_div(n, 128) <= sms) return WIDE_128x128;
+  return m <= 64 ? WIDE_64x256 : WIDE_128x256;
+}
 
 // The plan of a call: shape, B's layout and SM count only.
 inline Plan plan(int m, int n, int k, int b_trans, int sms) {
@@ -158,42 +224,13 @@ inline Plan plan(int m, int n, int k, int b_trans, int sms) {
     p.splits = s > 1 ? s : 1;
     p.part_words = 32LL * p.warps_n * (b_trans ? 4 : 16) * (m > 8 ? 2 : 1);
   } else {
-    // one warpgroup (64 rows) where 128-row tiles would leave most SMs
-    // without a tile
-    const int wgs = m <= 64 || 2LL * ceil_div(m, 128) * ceil_div(n, 128) < sms
-                        ? 1 : 2;
-    p.wide = 1;
-    p.bm = 64 * wgs;
-    p.tiles_m = ceil_div(m, p.bm);
-    // 256 columns where the tiles still fill the card: half the operand
-    // traffic per flop of 128
-    p.bn = wgs == 2 && (long long)p.tiles_m * ceil_div(n, 256) >= sms ? 256
-                                                                      : 128;
-    p.bk = BK;
-    p.threads = 128 * wgs;
-    p.ksteps = ceil_div(k, BK);
-    p.tiles_n = ceil_div(n, p.bn);
-    const long long tiles = (long long)p.tiles_m * p.tiles_n;
-    const bool deep = wgs == 1 && tiles < sms;
-    p.stages = wide_stages(wgs, p.bn, deep);
-    p.smem = p.stages * (p.bm + p.bn) * BK * 2 + 1024;
-    const int slots = wgs == 1 && !deep ? 2 * sms : sms;   // resident blocks
-    int s = 1;
-    if (deep || 2 * tiles < slots) {
-      s = (int)(slots / tiles);
-      const int deep = p.ksteps / WD_MIN_STEPS;
-      s = s < deep ? s : deep;
-      s = s < WD_MAX_SPLITS ? s : WD_MAX_SPLITS;
-      if (s < 1) s = 1;
-    }
-    p.splits = s;
-    p.part_words = (long long)p.bm * p.bn;
+    plan_wide(m, n, k, wide_shape(m, n, sms), 0, sms, p);
   }
   const long long tiles = (long long)p.tiles_m * p.tiles_n;
-  if (tiles > MAX_TICKETS) p.splits = 1;
+  if (!p.wide && tiles > MAX_TICKETS) p.splits = 1;
   p.blocks = tiles * p.splits;
   p.part_words = p.splits > 1 ? p.blocks * p.part_words : 0;
-  p.ws_words = p.splits > 1 ? MAX_TICKETS + p.part_words : 0;
+  p.ws_words = !p.wide && p.splits > 1 ? MAX_TICKETS + p.part_words : 0;
   return p;
 }
 
@@ -417,11 +454,45 @@ __device__ __forceinline__ void wgmma_256(float (&d)[128], uint64_t da,
 }
 #undef HG_WGMMA_256
 
+// d (64 x 64 fp32) += A (64 x 16) B (16 x 64); TRANS as wgmma_128.
+#define HG_WGMMA_64(TY)                                             \
+  asm volatile(                                                     \
+      "{\n"                                                         \
+      ".reg .pred p;\n"                                             \
+      "setp.ne.b32 p, %34, 0;\n"                                    \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "   \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "                           \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                      \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                    \
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "                   \
+      "%32, %33, p, 1, 1, 0, %35;\n"                                \
+      "}\n"                                                         \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),             \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),             \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),           \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),         \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),         \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),         \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),         \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])          \
+      : "l"(da), "l"(db), "r"(1), "n"(TRANS)                        \
+      : "memory")
+template <typename Elt, int TRANS>
+__device__ __forceinline__ void wgmma_64(float (&d)[32], uint64_t da,
+                                         uint64_t db) {
+  if constexpr (std::is_same<Elt, bf16>::value)
+    HG_WGMMA_64("bf16");
+  else
+    HG_WGMMA_64("f16");
+}
+#undef HG_WGMMA_64
+
 // The BN-wide product of one warpgroup.
 template <typename Elt, int BN, int TRANS>
 __device__ __forceinline__ void wgmma_bn(float (&d)[BN / 2], uint64_t da,
                                          uint64_t db) {
-  if constexpr (BN == 128) wgmma_128<Elt, TRANS>(d, da, db);
+  if constexpr (BN == 64) wgmma_64<Elt, TRANS>(d, da, db);
+  else if constexpr (BN == 128) wgmma_128<Elt, TRANS>(d, da, db);
   else wgmma_256<Elt, TRANS>(d, da, db);
 }
 
@@ -777,7 +848,7 @@ skinny_kernel(const Args<Elt> p) {
 }
 
 // ---------------------------------------------------------------------------
-// wide: M > 16, wgmma from a cp.async ring in 128-byte swizzled tiles
+// wide: M > 16, wgmma on 128-byte swizzled tiles fed by a TMA warp
 // ---------------------------------------------------------------------------
 // Tile t of the grid in OS (groups of GROUP_M M tiles, n-major inside a
 // group) or WS order (all M tiles of an N strip, then the next strip).
@@ -799,26 +870,152 @@ __device__ __forceinline__ void tile_coords(int t, int tm, int tn, int ws,
 // at (c ^ r % 8) * 16), then B: K-major as A (BN rows n), or MN-major as
 // BN / 64 blocks of 64 columns, each 64 k rows (row k at k * 128, chunk c
 // at (c ^ k % 8) * 16). Every 8 rows are one 1024-byte swizzle atom: the
-// layout TMA writes with 128-byte swizzle and wgmma reads.
-// TMA: thread 0 loads each stage with 2-5 tensor-map copies completing on
-// the stage's mbarrier; else every thread copies 16-byte chunks (cp.async,
-// or element by element for rows that are not 16-byte aligned).
-template <int WGS, int BN, bool DEEP>
+// layout TMA writes with 128-byte swizzle and wgmma reads. Warpgroup w
+// multiplies rows 64 w of A by all of B (WM = 2), or all 64 rows of A by
+// columns BN / 2 w of B (WM = 1): WBN columns each.
+template <int WM, int BN>
 struct WideShape {
-  static constexpr int BM = 64 * WGS, T = 128 * WGS;
-  static constexpr int ST = wide_stages(WGS, BN, DEEP);
-  static constexpr int A_BYTES = BM * BK * 2, B_BYTES = BN * BK * 2;
-  static constexpr int STAGE = A_BYTES + B_BYTES;
-  static constexpr int SMEM = ST * STAGE + 1024;   // + alignment slack
+  static constexpr int BM = 64 * WM, WBN = WM == 2 ? BN : BN / 2;
+  static constexpr int ST = wide_stages(BM, BN);
+  static constexpr int A_BYTES = BM * BK * 2, STAGE = (BM + BN) * BK * 2;
+  static constexpr int CLD = BN + 8;   // floats per staged row: no conflicts
+  static constexpr int SMEM = wide_smem(BM, BN);
 };
 
-template <typename Elt, bool TRANS_B, int WGS, int BN, bool DEEP, bool TMA,
-          typename OutT>
-__global__ void __launch_bounds__(128 * WGS, 1)
+// Activations past ReLU (ReLU6, GELU, SiLU) out of line, so the
+// epilogue's loop, unrolled over a store's values, stays short.
+static __device__ __noinline__ float activate_rare(float x, int act) {
+  return epi::activate(x, act);
+}
+__device__ __forceinline__ float activate_wide(float x, int act) {
+  return act == epi::ACT_NONE   ? x
+         : act == epi::ACT_RELU ? fmaxf(x, 0.f)
+                                : activate_rare(x, act);
+}
+
+// Two fp32 values rounded to the 16-bit output type, as one 32-bit word
+// (round to nearest even; an fp16 overflow is +-inf).
+template <typename OutT>
+__device__ __forceinline__ uint32_t pack2(float a, float b) {
+  if constexpr (std::is_same<OutT, bf16>::value) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  } else {
+    const __half2 h = __floats2half2_rn(a, b);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  }
+}
+__device__ __forceinline__ float lane4(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ void add4(float4& v, const float4& w) {
+  v.x += w.x; v.y += w.y; v.z += w.z; v.w += w.w;
+}
+
+// The block of a K split's cluster that finishes the tile's rows [lo, hi):
+// their sums over the S blocks' staged tiles in split order, bias,
+// activation, shift and rounding, 16-byte stores. The values stay in
+// float4 registers end to end: an array reinterpreted for the 16-byte store
+// would be placed in local memory.
+template <typename Elt, typename OutT, int BM, int BN, int CLD>
+__device__ __forceinline__ void finish_rows(const Args<Elt>& p,
+                                            const float* cs,
+                                            const float* bias_row, int S,
+                                            int lo, int hi, int m0, int n0) {
+  constexpr int VEC = 16 / (int)sizeof(OutT), CPR = BN / VEC;
+  constexpr int NV = VEC / 4;                  // float4s per store
+  OutT* C = static_cast<OutT*>(p.C);
+  const bool vec_c = p.N % VEC == 0;
+  const float* D = p.D;
+  const long long ldd = p.ldd;
+  const int act = p.act;
+  const float scale = p.out_scale;
+  cg::cluster_group cluster = cg::this_cluster();
+#pragma unroll 1
+  for (int q = threadIdx.x; q < (hi - lo) * CPR; q += WIDE_THREADS) {
+    const int r = lo + q / CPR, c = (q % CPR) * VEC;
+    const int gr = m0 + r, gc = n0 + c;
+    if (gr >= p.M || gc >= p.N) continue;
+    const float* own = cs + r * CLD + c;
+    float4 v[NV];
+    if (S == 1) {
+#pragma unroll
+      for (int i = 0; i < NV; ++i)
+        v[i] = *reinterpret_cast<const float4*>(own + 4 * i);
+    } else {
+      // every split's loads in flight at once, then the sums in split order
+      float4 w[WD_MAX_SPLITS][NV];
+#pragma unroll
+      for (int s = 0; s < WD_MAX_SPLITS; ++s) {
+        if (s >= S) break;
+        const float* ps = cluster.map_shared_rank(own, s);
+#pragma unroll
+        for (int i = 0; i < NV; ++i)
+          w[s][i] = *reinterpret_cast<const float4*>(ps + 4 * i);
+      }
+#pragma unroll
+      for (int i = 0; i < NV; ++i) v[i] = w[0][i];
+#pragma unroll
+      for (int s = 1; s < WD_MAX_SPLITS; ++s) {
+        if (s >= S) break;
+#pragma unroll
+        for (int i = 0; i < NV; ++i) add4(v[i], w[s][i]);
+      }
+    }
+    const bool whole = vec_c && gc + VEC <= p.N;
+    const int live = whole ? VEC : min(VEC, p.N - gc);
+    if (bias_row != nullptr) {       // the tile's bias row, zeros past N
+#pragma unroll
+      for (int i = 0; i < NV; ++i)
+        add4(v[i], *reinterpret_cast<const float4*>(bias_row + c + 4 * i));
+    } else if (D != nullptr) {
+      const float* d = D + (long long)gr * ldd + gc;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        v[i].x += 4 * i < live ? d[4 * i] : 0.f;
+        v[i].y += 4 * i + 1 < live ? d[4 * i + 1] : 0.f;
+        v[i].z += 4 * i + 2 < live ? d[4 * i + 2] : 0.f;
+        v[i].w += 4 * i + 3 < live ? d[4 * i + 3] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      v[i].x = activate_wide(v[i].x, act) * scale;
+      v[i].y = activate_wide(v[i].y, act) * scale;
+      v[i].z = activate_wide(v[i].z, act) * scale;
+      v[i].w = activate_wide(v[i].w, act) * scale;
+    }
+    OutT* dst = C + (long long)gr * p.N + gc;
+    if (whole) {
+      if constexpr (std::is_same<OutT, float>::value) {
+        *reinterpret_cast<float4*>(dst) = v[0];
+      } else {
+        *reinterpret_cast<uint4*>(dst) =
+            make_uint4(pack2<OutT>(v[0].x, v[0].y), pack2<OutT>(v[0].z, v[0].w),
+                       pack2<OutT>(v[1].x, v[1].y), pack2<OutT>(v[1].z, v[1].w));
+      }
+    } else {
+      for (int e = 0; e < live; ++e)
+        dst[e] = epi::to<OutT>(lane4(e < 4 ? v[0] : v[NV - 1], e & 3));
+    }
+  }
+}
+
+// Block: warpgroups 0 and 1 multiply, warp 8 (the producer) keeps the ring
+// full. TMA: one lane of the producer refills a stage once all 8 consumer
+// warps have released it (full / empty mbarriers, no block-wide barrier in
+// the loop); each warpgroup keeps one wgmma group in flight. Without
+// tensor maps (rows not 16-byte aligned) every thread copies 16-byte
+// chunks into a cp.async ring (or element by element) and the block
+// barriers once per stage. Split s of a tile's S runs as block s of a
+// cluster; after the loop every block stages its fp32 tile in shared
+// memory and finishes BM / S of the tile's rows (finish_rows).
+template <typename Elt, bool TRANS_B, int WM, int BN, bool TMA, typename OutT>
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
 wide_kernel(const Args<Elt> p, const __grid_constant__ CUtensorMap tma_a,
             const __grid_constant__ CUtensorMap tma_b) {
-  using Sh = WideShape<WGS, BN, DEEP>;
-  constexpr int BM = Sh::BM, T = Sh::T, ST = Sh::ST;
+  using Sh = WideShape<WM, BN>;
+  constexpr int BM = Sh::BM, WBN = Sh::WBN, ST = Sh::ST, CLD = Sh::CLD;
   constexpr int L = ST - 2;          // cp.async: stages loaded ahead
   constexpr int A_BYTES = Sh::A_BYTES, STAGE = Sh::STAGE;
   extern __shared__ uint8_t smem_raw[];
@@ -829,7 +1026,7 @@ wide_kernel(const Args<Elt> p, const __grid_constant__ CUtensorMap tma_a,
   uint8_t* smem = smem_raw + (sbase - raw);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wg = tid >> 7;
+  const int wg = warp >> 2;            // 0, 1: consumers; 2: the producer
   const int S = p.splits, split = blockIdx.x % S, t = blockIdx.x / S;
   int mt, nt;
   tile_coords(t, p.tiles_m, p.tiles_n, p.ws, mt, nt);
@@ -837,27 +1034,27 @@ wide_kernel(const Args<Elt> p, const __grid_constant__ CUtensorMap tma_a,
   int s_lo, s_hi;
   split_range(split, S, p.ksteps, s_lo, s_hi);
   const int nsteps = s_hi - s_lo;
-
-  if (TMA) {
-    if (tid == 0) {
-      // fetch both descriptors while the barriers are set up
-      asm volatile("prefetch.tensormap [%0];\n"
-                   :: "l"(reinterpret_cast<uint64_t>(&tma_a)) : "memory");
-      asm volatile("prefetch.tensormap [%0];\n"
-                   :: "l"(reinterpret_cast<uint64_t>(&tma_b)) : "memory");
-      for (int i = 0; i < ST; ++i) {
-        mbar_init(smem_u32(&full[i]), 1);
-        mbar_init(smem_u32(&empty[i]), 4 * WGS);
-      }
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  const int wm = WM == 2 ? wg : 0, wn = WM == 2 ? 0 : wg;
+  // A bias row (16-byte aligned) goes to shared memory by cp.async from
+  // the producer warp while the loop runs; the epilogue reads it there.
+  __shared__ __align__(16) float bias_s[BN];
+  const bool row_bias = p.D != nullptr && p.ldd == 0 &&
+                        (reinterpret_cast<uintptr_t>(p.D) & 15) == 0;
+  auto load_bias = [&]() {
+    for (int c = 4 * lane; c < BN; c += 128) {
+      const int left = p.N - (n0 + c);
+      const int bytes = left >= 4 ? 16 : left > 0 ? 4 * left : 0;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                   :: "r"(smem_u32(bias_s + c)),
+                      "l"(bytes > 0 ? p.D + n0 + c : p.D), "r"(bytes)
+                   : "memory");
     }
-    __syncthreads();
-  }
+  };
 
   auto load = [&](int stage, int step) {
     const int k0 = step * BK;
     const uint32_t sa = sbase + stage * STAGE, sb = sa + A_BYTES;
-    if constexpr (TMA) {                     // thread 0 only
+    if constexpr (TMA) {                     // the producer's lane 0 only
       const uint32_t bar = smem_u32(&full[stage]);
       mbar_expect(bar, STAGE);
       tma_2d(sa, &tma_a, k0, m0, bar);
@@ -869,18 +1066,17 @@ wide_kernel(const Args<Elt> p, const __grid_constant__ CUtensorMap tma_a,
           tma_2d(sb + h * (BK * 128), &tma_b, n0 + 64 * h, k0, bar);
       }
     } else {
-#pragma unroll
-      for (int i = 0; i < BM * 8 / T; ++i) {
-        const int q = tid + T * i, r = q >> 3, c = q & 7;
+#pragma unroll 1
+      for (int q = tid; q < BM * 8; q += WIDE_THREADS) {
+        const int r = q >> 3, c = q & 7;
         const int gr = m0 + r, k = k0 + 8 * c;
         const int left = gr < p.M ? p.K - k : 0;
         load_chunk(sa + r * 128 + ((c ^ (r & 7)) << 4),
                    left > 0 ? p.A + (long long)gr * p.lda + k : p.A, left,
                    p.vec_a, p.A);
       }
-#pragma unroll
-      for (int i = 0; i < BN * 8 / T; ++i) {
-        const int q = tid + T * i;
+#pragma unroll 1
+      for (int q = tid; q < BN * 8; q += WIDE_THREADS) {
         if (TRANS_B) {
           const int r = q >> 3, c = q & 7, gn = n0 + r, k = k0 + 8 * c;
           const int left = gn < p.N ? p.K - k : 0;
@@ -900,40 +1096,67 @@ wide_kernel(const Args<Elt> p, const __grid_constant__ CUtensorMap tma_a,
     }
   };
 
-  float acc[BN / 2];
+  float acc[WBN / 2];
 #pragma unroll
-  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < WBN / 2; ++i) acc[i] = 0.f;
 
-  // One k step: the warpgroup's 64 x BN product from stage `stage`.
+  // One k step: the warpgroup's 64 x WBN product from stage `stage`.
   auto mma_stage = [&](int stage) {
-    const uint32_t sa = sbase + stage * STAGE, sb = sa + A_BYTES;
+    const uint32_t sa = sbase + stage * STAGE + wm * (64 * 128);
+    const uint32_t sb = sbase + stage * STAGE + A_BYTES + wn * (WBN * 128);
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < BK / 16; ++j) {
-      const uint64_t da = sw128_desc(sa + wg * (64 * 128) + 32 * j, 16, 1024);
+      const uint64_t da = sw128_desc(sa + 32 * j, 16, 1024);
       const uint64_t db = TRANS_B ? sw128_desc(sb + 32 * j, 16, 1024)
                                   : sw128_desc(sb + 2048 * j, BK * 128, 1024);
-      wgmma_bn<Elt, BN, TRANS_B ? 0 : 1>(acc, da, db);
+      wgmma_bn<Elt, WBN, TRANS_B ? 0 : 1>(acc, da, db);
     }
     wgmma_commit();
   };
 
   if constexpr (TMA) {
-    // ST - 1 stages in flight: thread 0 refills a stage as soon as every
-    // warp has released it (empty), with no block-wide barrier in the loop.
-    if (tid == 0)
-      for (int i = 0; i < ST - 1 && i < nsteps; ++i) load(i, s_lo + i);
-    for (int i = 0; i < nsteps; ++i) {
-      mbar_wait(smem_u32(&full[i % ST]), (i / ST) & 1);
-      mma_stage(i % ST);
-      wgmma_wait<1>();               // the product of step i - 1 is done
-      if (i > 0 && lane == 0) mbar_arrive(smem_u32(&empty[(i - 1) % ST]));
-      if (tid == 0 && i + ST - 1 < nsteps) {
-        if (i > 0) mbar_wait(smem_u32(&empty[(i - 1) % ST]), ((i - 1) / ST) & 1);
-        load((i + ST - 1) % ST, s_lo + i + ST - 1);
+    // The producer's lane sets up the barriers and puts the first ST
+    // stages in flight before the block's one barrier; then it refills a
+    // stage once all 8 consumer warps have released it.
+    if (wg == 2) {
+      if (lane == 0) {
+        asm volatile("prefetch.tensormap [%0];\n"
+                     :: "l"(reinterpret_cast<uint64_t>(&tma_a)) : "memory");
+        asm volatile("prefetch.tensormap [%0];\n"
+                     :: "l"(reinterpret_cast<uint64_t>(&tma_b)) : "memory");
+        for (int i = 0; i < ST; ++i) {
+          mbar_init(smem_u32(&full[i]), 1);
+          mbar_init(smem_u32(&empty[i]), 8);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+        for (int i = 0; i < ST && i < nsteps; ++i) load(i, s_lo + i);
       }
+      if (row_bias) load_bias();
+      cp_async_commit();
+      __syncwarp();
+    }
+    __syncthreads();                 // the barriers are set up
+    if (wg == 2) {
+      for (int i = ST; i < nsteps; ++i) {
+        if (lane == 0) {
+          mbar_wait(smem_u32(&empty[i % ST]), ((i / ST) - 1) & 1);
+          load(i % ST, s_lo + i);
+        }
+        __syncwarp();
+      }
+      cp_async_wait<0>();            // the bias row
+    } else {
+      for (int i = 0; i < nsteps; ++i) {
+        mbar_wait(smem_u32(&full[i % ST]), (i / ST) & 1);
+        mma_stage(i % ST);
+        wgmma_wait<1>();               // the product of step i - 1 is done
+        if (i > 0 && lane == 0) mbar_arrive(smem_u32(&empty[(i - 1) % ST]));
+      }
+      wgmma_wait<0>();
     }
   } else {
+    if (wg == 2 && row_bias) load_bias();    // with stage 0's group
 #pragma unroll 1
     for (int i = 0; i < L; ++i) {
       if (i < nsteps) load(i, s_lo + i);
@@ -943,65 +1166,45 @@ wide_kernel(const Args<Elt> p, const __grid_constant__ CUtensorMap tma_a,
       cp_async_wait<L - 1>();
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       __syncthreads();   // stage i landed; every group of stage i - 2 is done
-      mma_stage(i % ST);
+      if (wg < 2) mma_stage(i % ST);
       if (i + L < nsteps) load((i + L) % ST, s_lo + i + L);
       cp_async_commit();
-      wgmma_wait<1>();
+      if (wg < 2) wgmma_wait<1>();
     }
+    if (wg < 2) wgmma_wait<0>();
+    cp_async_wait<0>();
   }
-  wgmma_wait<0>();
 #pragma unroll
-  for (int i = 0; i < BN / 2; ++i) asm volatile("" : "+f"(acc[i]) :: "memory");
-  if (!TMA) cp_async_wait<0>();
+  for (int i = 0; i < WBN / 2; ++i) asm volatile("" : "+f"(acc[i]) :: "memory");
   __syncthreads();                   // the ring is free for the C tile
 
-  if (BN == 128 && S > 1) {          // the plan splits 128-wide tiles only
-    constexpr int FR = BN / 2;
-    const long long stride = (long long)BM * BN;
-    float* const base = p.part + (long long)t * S * stride + 4 * tid;
-    store_partial<FR, T>(acc, base + split * stride);
-    if (!last_of_tile(p.tickets + t, S)) return;
-    merge_partials<FR, T>(acc, base, stride, S, split);
-  }
-
-  // acc[4j + 2h + v]: C(m0 + 64 wg + 16 (warp % 4) + lane / 4 + 8h,
-  // n0 + 8j + 2 (lane % 4) + v). The sums go through shared memory in
-  // fp32; one compact loop finishes them (bias, activation, rounding) and
-  // stores 16-byte rows. (Finishing the values in registers unrolls the
-  // epilogue once per value, and its instruction fetch then costs more
-  // than the tile's main loop.)
-  constexpr int CLD = BN + 8;        // floats per shared row: no bank conflicts
+  // acc[4j + 2h + v]: C(64 wm + 16 (warp % 4) + lane / 4 + 8h, WBN wn + 8j
+  // + 2 (lane % 4) + v) of the tile, staged in fp32.
   float* const cs = reinterpret_cast<float*>(smem);
-  const int g = lane >> 2, t4 = lane & 3;
+  if (wg < 2) {
+    const int r = 64 * wm + 16 * (warp & 3) + (lane >> 2);
+    const int c = WBN * wn + 2 * (lane & 3);
 #pragma unroll
-  for (int j = 0; j < BN / 8; ++j)
+    for (int j = 0; j < WBN / 8; ++j)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = 64 * wg + 16 * (warp & 3) + g + 8 * h, c = 8 * j + 2 * t4;
-      *reinterpret_cast<float2*>(cs + r * CLD + c) =
-          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-    }
-  __syncthreads();
-  constexpr int VEC = 16 / (int)sizeof(OutT), CPR = BN / VEC;
-  OutT* C = static_cast<OutT*>(p.C);
-  const bool vec_c = p.N % VEC == 0;
-#pragma unroll 1
-  for (int q = tid; q < BM * CPR; q += T) {
-    const int r = q / CPR, c = (q % CPR) * VEC;
-    const int gr = m0 + r, gc = n0 + c;
-    if (gr >= p.M || gc >= p.N) continue;
-    OutT* dst = C + (long long)gr * p.N + gc;
-    const float* src = cs + r * CLD + c;
-    if (vec_c && gc + VEC <= p.N) {
-      OutT v[VEC];
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) v[e] = finish<OutT>(p, gr, gc + e, src[e]);
-      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
-    } else {
-      for (int e = 0; e < VEC && gc + e < p.N; ++e)
-        dst[e] = finish<OutT>(p, gr, gc + e, src[e]);
-    }
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(cs + (r + 8 * h) * CLD + c + 8 * j) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
   }
+  if (S == 1) {
+    __syncthreads();
+    finish_rows<Elt, OutT, BM, BN, CLD>(p, cs, row_bias ? bias_s : nullptr,
+                                        1, 0, BM, m0, n0);
+    return;
+  }
+  // Each block of the cluster finishes BM / S rows of the tile from all S
+  // staged tiles; none leaves while the others may still read its tile.
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  finish_rows<Elt, OutT, BM, BN, CLD>(p, cs, row_bias ? bias_s : nullptr,
+                                      S, split * BM / S, (split + 1) * BM / S,
+                                      m0, n0);
+  cluster.sync();
 }
 
 // ---------------------------------------------------------------------------
@@ -1028,6 +1231,38 @@ cudaError_t allow_smem(Kernel kernel, int bytes, bool& configured) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e == cudaSuccess) configured = true;
   return e;
+}
+
+// Clusters of `size` wide blocks (one an SM: the wide kernels' shared
+// memory) that the current card holds at once; cached per card and size.
+inline int max_clusters(int size) {
+  static int cached[64][WD_MAX_SPLITS + 1] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) dev = 0;
+  if (size < 1 || size > WD_MAX_SPLITS) return 0;
+  if (cached[dev][size] == 0) {
+    auto kernel = wide_kernel<bf16, false, 1, 256, true, bf16>;
+    static bool configured = false;
+    int n = 0;
+    if (allow_smem(kernel, wide_smem(64, 256), configured) == cudaSuccess) {
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(size);
+      cfg.blockDim = dim3(WIDE_THREADS);
+      cfg.dynamicSmemBytes = wide_smem(64, 256);
+      cudaLaunchAttribute attr[1];
+      attr[0].id = cudaLaunchAttributeClusterDimension;
+      attr[0].val.clusterDim.x = size;
+      attr[0].val.clusterDim.y = 1;
+      attr[0].val.clusterDim.z = 1;
+      cfg.attrs = attr;
+      cfg.numAttrs = 1;
+      if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess)
+        n = 0;
+    }
+    cudaGetLastError();              // a refused query leaves no error
+    cached[dev][size] = n > 0 ? n : sm_count() / size;
+  }
+  return cached[dev][size];
 }
 
 template <typename Elt, bool TB, int MT, typename OutT>
@@ -1123,60 +1358,70 @@ bool tensor_map(const Elt* ptr, uint64_t inner, uint64_t outer,
   return true;
 }
 
-template <typename Elt, bool TB, int WGS, int BN, bool DEEP, bool TMA,
-          typename OutT>
+// A wide launch: one block per (tile, K split), the splits of a tile one
+// cluster (blocks t * S .. t * S + S - 1).
+template <typename Elt, bool TB, int WM, int BN, bool TMA, typename OutT>
 cudaError_t launch_wide_kernel(const Args<Elt>& a, const Plan& pl,
                                const CUtensorMap& ta, const CUtensorMap& tb,
                                cudaStream_t s) {
-  auto kernel = wide_kernel<Elt, TB, WGS, BN, DEEP, TMA, OutT>;
-  constexpr int smem = WideShape<WGS, BN, DEEP>::SMEM;
+  auto kernel = wide_kernel<Elt, TB, WM, BN, TMA, OutT>;
+  constexpr int smem = WideShape<WM, BN>::SMEM;
   static bool configured = false;
   const cudaError_t e = allow_smem(kernel, smem, configured);
   if (e != cudaSuccess) return e;
-  kernel<<<(unsigned)pl.blocks, 128 * WGS, smem, s>>>(a, ta, tb);
-  return cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)pl.blocks);
+  cfg.blockDim = dim3(WIDE_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = pl.splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = pl.splits > 1 ? 1 : 0;
+  const cudaError_t le = cudaLaunchKernelEx(&cfg, kernel, a, ta, tb);
+  return le != cudaSuccess ? le : cudaGetLastError();
 }
 
 // TMA where both operands allow a tensor map (rows 16-byte aligned), else
 // the cp.async ring.
-template <typename Elt, bool TB, int WGS, int BN, bool DEEP, typename OutT>
+template <typename Elt, bool TB, int WM, int BN, typename OutT>
 cudaError_t launch_wide(const Args<Elt>& a, const Plan& pl, cudaStream_t s) {
   CUtensorMap ta{}, tb{};
   const bool tma =
       a.vec_a && a.vec_b && a.K > 0 &&
-      tensor_map(a.A, a.K, a.M, a.lda, BK, 64 * WGS, ta) &&
+      tensor_map(a.A, a.K, a.M, a.lda, BK, 64 * WM, ta) &&
       (TB ? tensor_map(a.B, a.K, a.N, a.ldb, BK, BN, tb)
           : tensor_map(a.B, a.N, a.K, a.ldb, 64, BK, tb));
-  return tma
-      ? launch_wide_kernel<Elt, TB, WGS, BN, DEEP, true, OutT>(a, pl, ta, tb, s)
-      : launch_wide_kernel<Elt, TB, WGS, BN, DEEP, false, OutT>(a, pl, ta, tb,
-                                                              s);
+  return tma ? launch_wide_kernel<Elt, TB, WM, BN, true, OutT>(a, pl, ta, tb, s)
+             : launch_wide_kernel<Elt, TB, WM, BN, false, OutT>(a, pl, ta, tb,
+                                                               s);
 }
 
 template <typename Elt, bool TB, typename OutT>
 cudaError_t dispatch(const Args<Elt>& a, const Plan& pl, cudaStream_t s) {
   if (pl.wide) {
-    if (pl.bm == 64)
-      return pl.stages == wide_stages(1, 128, true)
-                 ? launch_wide<Elt, TB, 1, 128, true, OutT>(a, pl, s)
-                 : launch_wide<Elt, TB, 1, 128, false, OutT>(a, pl, s);
-    return pl.bn == 256 ? launch_wide<Elt, TB, 2, 256, false, OutT>(a, pl, s)
-                        : launch_wide<Elt, TB, 2, 128, false, OutT>(a, pl, s);
+    if (pl.bm == 64) return launch_wide<Elt, TB, 1, 256, OutT>(a, pl, s);
+    return pl.bn == 64    ? launch_wide<Elt, TB, 2, 64, OutT>(a, pl, s)
+           : pl.bn == 128 ? launch_wide<Elt, TB, 2, 128, OutT>(a, pl, s)
+                          : launch_wide<Elt, TB, 2, 256, OutT>(a, pl, s);
   }
   return a.M > 8 ? launch_skinny<Elt, TB, 2, OutT>(a, pl, s)
                  : launch_skinny<Elt, TB, 1, OutT>(a, pl, s);
 }
 
-// One call. ws: the workspace of plan().ws_words 4-byte words (tickets,
-// then partials), owned by the calling stream; may be null for one split.
-// One call; Elt: bf16 or __half.
+// One call; Elt: bf16 or __half. workspace: the plan's ws_words 4-byte
+// words (tickets, then partials), owned by the calling stream; null where
+// the plan needs none (one skinny split, or any wide plan).
 template <typename Elt, typename OutT>
 cudaError_t launch(const Elt* A, const Elt* B, const float* D, OutT* C,
                    int m, int n, int k, long long lda, long long ldb,
                    int b_trans, long long ldd, int act, float out_scale,
                    int ws, void* workspace, cudaStream_t s) {
   const Plan pl = plan(m, n, k, b_trans, sm_count());
-  if (pl.splits > 1 && workspace == nullptr) return cudaErrorInvalidValue;
+  if (pl.ws_words > 0 && workspace == nullptr) return cudaErrorInvalidValue;
   Args<Elt> a{};
   a.A = A; a.B = B; a.D = D; a.C = C;
   a.M = m; a.N = n; a.K = k;

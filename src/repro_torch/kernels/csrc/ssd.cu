@@ -57,268 +57,52 @@
 // it. More warps in flight (wgmma, or more rows per block) is the next
 // step.
 //
-// fp32 inputs (the fp32 gate and logits checks) keep ssd_kernel, the first
-// version: one block per (head, batch) walks its chunks with S resident in
-// shared memory, 4 x 4 fp32 register micro-tiles on the CUDA cores (IEEE
-// fp32, which the tensor cores do not offer), tiles past the causal
-// diagonal skipped.
+// fp32 inputs (the fp32 gate, phases 7-8's fp32 logits) run ssd_kernel on
+// the CUDA cores in IEEE fp32 (the tensor cores take no fp32 operands),
+// one launch per chunk like the bf16 kernel. Bound by operations there (67
+// TFLOP/s): at mamba2-1.3b's widths a fresh 256-token chunk is ~0.54 GFLOP,
+// ~8 us, spread over the card as clusters of two 128-thread blocks:
+//  * output pairs, one per (32-row tile of the chunk, pair of heads of one
+//    B/C group, batch row), longest row tile first. The two blocks split
+//    the 32-key tiles at or before the row tile (block r takes tiles r, r
+//    + 2, ...), so the last row tile's chain of 8 key tiles is 4 long.
+//    Each loads its C tile and dt at once; the block without the diagonal
+//    tile also takes the carried term, only where a state came in. The key
+//    tiles stream through two cp.async stages. A tile's scores C_i B_j^T
+//    are computed once for both heads (4 x 2 per thread, float4 reads along
+//    N), weighted per head into a shared tile with the decay factored below
+//    the diagonal as for bf16, and multiplied with x (4 rows x 4 channels
+//    per thread). The block with the diagonal tile adds the other's sums
+//    over distributed shared memory, then d_skip x, and stores y;
+//  * state blocks, one per (64-row slice of N, head, batch row; 32 rows
+//    where N <= 32), when a state is asked for: S_out = exp(seg_last) S_in
+//    + B^T (w * X), the chunk's rows streaming through two stages (8 x 4,
+//    or 4 x 4, per thread); they run after the later half of the row
+//    tiles.
+// seg is a warp's scan (warp_seg). Every sum runs in a fixed order and
+// there are no atomics, so a rerun is bit-identical.
 //
 // Both read x, B, C and dt through their strides (the model's views into
-// its fused projection; the bf16 kernel copies 16-byte rows with cp.async
-// where the views allow it, else element by element) and handle ragged
-// chunks with row predicates, never a padded copy. Head dims P in {8, 16,
-// 32, 64} are compiled; N <= 128 and Q <= 256 are runtime values. dt,
-// a_log, d_skip and the states are fp32; y comes out in x's type.
+// its fused projection), copying 16-byte rows with cp.async where the views
+// allow it, else element by element, and handle ragged chunks with row
+// predicates, never a padded copy. Head dims P in {8, 16, 32, 64} are
+// compiled; N <= 128 and Q <= 256 are runtime values. dt, a_log, d_skip
+// and the states are fp32; y comes out in x's type.
 //
 // C interface: ssd_launch, returning cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int QMAX = 256;     // longest chunk
 constexpr int NMAX = 128;     // largest state size
 enum { DT_F32 = 0, DT_BF16 = 1 };
-
-// ---------------------------------------------------------------------------
-// fp32: ssd_kernel, one block per (head, batch) on the CUDA cores.
-// ---------------------------------------------------------------------------
-constexpr int THREADS = 256;
-constexpr int TILE = 64;      // rows of a chunk per tile (outputs and keys)
-
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ void st(float* p, float v) { *p = v; }
-
-struct SsdArgs {
-  const void* x; long long xsb, xst, xsh;    // (B, T, H, P), strides in elements
-  const float* dt; long long dsb, dst, dsh;  // (B, T, H)
-  const float* a_log;                        // (H,)
-  const float* d_skip;                       // (H,)
-  const void* b; long long bsb, bst, bsg;    // (B, T, G, N)
-  const void* c; long long csb, cst, csg;
-  const float* init;                         // (B, H, N, P) or null (zeros)
-  void* y;                                   // (B, T, H, P) contiguous
-  float* fin;                                // (B, H, N, P) or null
-  int T, H, G, N, chunk;
-};
-
-// Shared floats for a state size n and head dim P.
-__host__ __device__ constexpr int smem_floats(int n, int P) {
-  return n * P + 2 * TILE * (n | 1) + TILE * P + TILE * (TILE + 1) + 2 * QMAX;
-}
-
-template <int P>
-__global__ void __launch_bounds__(THREADS) ssd_kernel(SsdArgs p) {
-  using T = float;
-  constexpr int RSTEP = THREADS / P;          // rows between a thread's outputs
-  constexpr int OUT = TILE * P / THREADS;     // outputs per thread in a tile
-  constexpr int SE = NMAX * P / THREADS;      // state elements per thread (max)
-  constexpr int WS = TILE + 1;                // row stride of the weight tile
-  const int N = p.N, NS = p.N | 1;            // odd row stride: no bank conflicts
-  extern __shared__ float sm[];
-  float* S = sm;                              // [N][P] the running state
-  float* Cs = S + N * P;                      // [TILE][NS] C rows of the tile
-  float* Bs = Cs + TILE * NS;                 // [TILE][NS] B rows (key tile)
-  float* Xs = Bs + TILE * NS;                 // [TILE][P]  x rows (key tile)
-  float* W = Xs + TILE * P;                   // [TILE][WS] masked weights
-  float* seg = W + TILE * WS;                 // [QMAX] cumulative dt * a
-  float* dtc = seg + QMAX;                    // [QMAX] the chunk's dt
-
-  const int tid = threadIdx.x;
-  const int h = blockIdx.x, bb = blockIdx.y;
-  const int g = h / (p.H / p.G);
-  const float a = -expf(p.a_log[h]);
-  const float dsk = p.d_skip[h];
-  const T* x = static_cast<const T*>(p.x) + bb * p.xsb + h * p.xsh;
-  const float* dtp = p.dt + bb * p.dsb + h * p.dsh;
-  const T* bp = static_cast<const T*>(p.b) + bb * p.bsb + g * p.bsg;
-  const T* cp = static_cast<const T*>(p.c) + bb * p.csb + g * p.csg;
-  T* y = static_cast<T*>(p.y) + ((long long)bb * p.T * p.H + h) * P;
-  const long long ystride = (long long)p.H * P;
-  const long long soff = ((long long)bb * p.H + h) * N * P;
-
-  for (int e = tid; e < N * P; e += THREADS)
-    S[e] = p.init ? p.init[soff + e] : 0.f;
-
-  const int pc = tid % P;                     // this thread's channel
-  const int rbase = tid / P;                  // its first row / state row
-  const int tr = tid / 16, tc = tid % 16;     // 4 x 4 score micro-tile
-
-  for (int t0 = 0; t0 < p.T; t0 += p.chunk) {
-    const int q = min(p.chunk, p.T - t0);
-    __syncthreads();                          // last chunk is done with dtc/seg/S
-    for (int i = tid; i < q; i += THREADS) dtc[i] = dtp[(long long)(t0 + i) * p.dst];
-    __syncthreads();
-    if (tid == 0) {
-      // In order and without FMA contraction: the rounding of seg is that
-      // of the reference's product-then-cumsum, and exp(seg_i - seg_j)
-      // turns any difference in it into a relative error of the result.
-      float s = 0.f;
-      for (int i = 0; i < q; ++i) {
-        s = __fadd_rn(s, __fmul_rn(dtc[i], a));
-        seg[i] = s;
-      }
-    }
-    __syncthreads();
-    const float seg_last = seg[q - 1];
-
-    // -- outputs, one 64-row tile at a time ---------------------------------
-    for (int i0 = 0; i0 < q; i0 += TILE) {
-      const int ni = min(TILE, q - i0);
-      __syncthreads();                        // Cs / W readers of the last tile
-      for (int e = tid; e < TILE * N; e += THREADS) {
-        const int r = e / N, n = e % N;
-        Cs[r * NS + n] = r < ni ? ld(cp + (long long)(t0 + i0 + r) * p.cst + n) : 0.f;
-      }
-      __syncthreads();
-
-      // carried-state term with S from before this chunk's update
-      float acc[OUT];
-#pragma unroll
-      for (int k = 0; k < OUT; ++k) acc[k] = 0.f;
-      for (int n = 0; n < N; ++n) {
-        const float s = S[n * P + pc];
-#pragma unroll
-        for (int k = 0; k < OUT; ++k)
-          acc[k] = fmaf(Cs[(rbase + k * RSTEP) * NS + n], s, acc[k]);
-      }
-#pragma unroll
-      for (int k = 0; k < OUT; ++k) {
-        const int r = rbase + k * RSTEP;
-        acc[k] = r < ni ? acc[k] * expf(seg[i0 + r]) : 0.f;
-      }
-
-      // intra-chunk term over the key tiles on or before the diagonal
-      for (int j0 = 0; j0 <= i0; j0 += TILE) {
-        const int nj = min(TILE, q - j0);
-        __syncthreads();                      // Bs / Xs / W readers are done
-        for (int e = tid; e < TILE * N; e += THREADS) {
-          const int r = e / N, n = e % N;
-          Bs[r * NS + n] = r < nj ? ld(bp + (long long)(t0 + j0 + r) * p.bst + n) : 0.f;
-        }
-        for (int e = tid; e < TILE * P; e += THREADS) {
-          const int r = e / P, pp = e % P;
-          Xs[e] = r < nj ? ld(x + (long long)(t0 + j0 + r) * p.xst + pp) : 0.f;
-        }
-        __syncthreads();
-        float s4[4][4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-#pragma unroll
-          for (int v = 0; v < 4; ++v) s4[u][v] = 0.f;
-        for (int n = 0; n < N; ++n) {
-          float cr[4], br[4];
-#pragma unroll
-          for (int u = 0; u < 4; ++u) cr[u] = Cs[(tr * 4 + u) * NS + n];
-#pragma unroll
-          for (int v = 0; v < 4; ++v) br[v] = Bs[(tc + 16 * v) * NS + n];
-#pragma unroll
-          for (int u = 0; u < 4; ++u)
-#pragma unroll
-            for (int v = 0; v < 4; ++v) s4[u][v] = fmaf(cr[u], br[v], s4[u][v]);
-        }
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int i = i0 + tr * 4 + u;
-#pragma unroll
-          for (int v = 0; v < 4; ++v) {
-            const int j = j0 + tc + 16 * v;
-            float w = 0.f;
-            if (i < q && j <= i)              // mask before exp
-              w = s4[u][v] * expf(seg[i] - seg[j]) * dtc[j];
-            W[(tr * 4 + u) * WS + tc + 16 * v] = w;
-          }
-        }
-        __syncthreads();
-        for (int cc = 0; cc < nj; ++cc) {
-          const float xv = Xs[cc * P + pc];
-#pragma unroll
-          for (int k = 0; k < OUT; ++k)
-            acc[k] = fmaf(W[(rbase + k * RSTEP) * WS + cc], xv, acc[k]);
-        }
-      }
-
-#pragma unroll
-      for (int k = 0; k < OUT; ++k) {
-        const int r = rbase + k * RSTEP;
-        if (r < ni) {
-          const long long t = t0 + i0 + r;
-          const float xv = ld(x + t * p.xst + pc);
-          st(y + t * ystride + pc, acc[k] + dsk * xv);
-        }
-      }
-    }
-
-    // -- state update: S = exp(seg_last) S + sum_j w_j B_j^T x_j ------------
-    float ds[SE];
-#pragma unroll
-    for (int k = 0; k < SE; ++k) ds[k] = 0.f;
-    for (int j0 = 0; j0 < q; j0 += TILE) {
-      const int nj = min(TILE, q - j0);
-      __syncthreads();                        // every output tile read S, Bs, Xs
-      if (tid < TILE)
-        W[tid] = tid < nj ? expf(seg_last - seg[j0 + tid]) * dtc[j0 + tid] : 0.f;
-      __syncthreads();
-      for (int e = tid; e < TILE * N; e += THREADS) {
-        const int r = e / N, n = e % N;
-        Bs[r * NS + n] =
-            r < nj ? ld(bp + (long long)(t0 + j0 + r) * p.bst + n) * W[r] : 0.f;
-      }
-      for (int e = tid; e < TILE * P; e += THREADS) {
-        const int r = e / P, pp = e % P;
-        Xs[e] = r < nj ? ld(x + (long long)(t0 + j0 + r) * p.xst + pp) : 0.f;
-      }
-      __syncthreads();
-      for (int cc = 0; cc < nj; ++cc) {
-        const float xv = Xs[cc * P + pc];
-#pragma unroll
-        for (int k = 0; k < SE; ++k) {
-          const int n = rbase + k * RSTEP;
-          if (n < N) ds[k] = fmaf(Bs[cc * NS + n], xv, ds[k]);
-        }
-      }
-    }
-    const float dec = expf(seg_last);
-#pragma unroll
-    for (int k = 0; k < SE; ++k) {
-      const int n = rbase + k * RSTEP;
-      if (n < N) S[n * P + pc] = S[n * P + pc] * dec + ds[k];
-    }
-  }
-
-  if (p.fin) {
-    __syncthreads();
-    for (int e = tid; e < N * P; e += THREADS) p.fin[soff + e] = S[e];
-  }
-}
-
-template <int P>
-cudaError_t launch(const SsdArgs& a, int batch, cudaStream_t s) {
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        ssd_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)(sizeof(float) * smem_floats(NMAX, P)));
-    if (e != cudaSuccess) return e;
-    configured = true;
-  }
-  const size_t smem = sizeof(float) * smem_floats(a.N, P);
-  dim3 grid(a.H, batch);
-  ssd_kernel<P><<<grid, THREADS, smem, s>>>(a);
-  return cudaGetLastError();
-}
-
-cudaError_t by_dim(int P, const SsdArgs& a, int batch, cudaStream_t s) {
-  switch (P) {
-    case 8: return launch<8>(a, batch, s);
-    case 16: return launch<16>(a, batch, s);
-    case 32: return launch<32>(a, batch, s);
-    case 64: return launch<64>(a, batch, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16: ssd_tc_kernel, one chunk per launch on tensor cores.
@@ -483,7 +267,8 @@ __device__ __forceinline__ void load_tile_f32(float* dst, int ld,
 
 // dt of head h for the chunk's rows [0, len), zeros past them: loads all
 // in flight at once.
-__device__ __forceinline__ void load_dt(const TcArgs& p, int bb, int h,
+template <typename Args>
+__device__ __forceinline__ void load_dt(const Args& p, int bb, int h,
                                         int len, float* dts) {
 #pragma unroll
   for (int k = 0; k < QMAX / TC_THREADS; ++k) {
@@ -950,6 +735,543 @@ cudaError_t launch_tc(TcArgs a, int batch, int chunk, const float* init,
   return cudaSuccess;
 }
 
+// ---------------------------------------------------------------------------
+// fp32: ssd_kernel, one chunk per launch on the CUDA cores.
+// ---------------------------------------------------------------------------
+constexpr int F_THREADS = TC_THREADS;   // 4 warps (the loaders' stride)
+constexpr int FRT = 32;       // chunk rows per output block
+constexpr int FKT = 32;       // keys per key tile (== FRT: the last key tile
+                              // of an output block is its own row tile)
+// state rows (of N) per state block: 64 where N > 32, else 32
+__host__ __device__ constexpr int f32_state_rows(int n) {
+  return n > 32 ? 64 : 32;
+}
+
+struct F32Args {
+  const float* x; long long xsb, xst, xsh;   // (B, T, H, P), in elements
+  const float* dt; long long dsb, dst, dsh;  // (B, T, H)
+  const float* a_log;                        // (H,)
+  const float* d_skip;                       // (H,)
+  const float* b; long long bsb, bst, bsg;   // (B, T, G, N)
+  const float* c; long long csb, cst, csg;
+  const float* s_in;                         // (B, H, N, P) or null (zeros)
+  float* s_out;                              // (B, H, N, P) or null (none)
+  float* y;                                  // (B, T, H, P) contiguous
+  int T, H, G, N;
+  int t0, q;                                 // this chunk: rows [t0, t0 + q)
+  int n_rt, n_hs, n_ns;                      // row tiles, head pairs, N slices
+  int n_yblk, n_state;                       // output / state blocks per row
+  int vec;                                   // 16-byte rows: cp.async
+};
+
+__host__ __device__ constexpr int round4(int v) { return (v + 3) & ~3; }
+
+// Per head dim: the product's threads. Thread t owns TM rows (row group
+// t / PT) and 4 consecutive channels (column group t % PT) of a 32-row
+// tile; P = 8 leaves half the threads out of it.
+template <int P>
+struct FShape {
+  static constexpr int PT = P / 4;
+  static constexpr int RG = F_THREADS / PT < FRT ? F_THREADS / PT : FRT;
+  static constexpr int TM = FRT / RG;
+  static constexpr int ACTIVE = RG * PT;
+  static constexpr int LDP = P + 4;          // floats per x / state row
+};
+
+// Shared floats. Output block: seg, dt and column factors of two heads,
+// the C tile, both heads' weight tiles, then one region that holds first
+// both heads' carried states and then two stages of key tiles (B and both
+// heads' x). State block: dt (then seg), the weights, two stages of the B
+// slice and x.
+template <int P>
+__host__ __device__ constexpr int f32_region_floats(int n) {
+  return 2 * (FKT * (round4(n) + 4) + 2 * FKT * FShape<P>::LDP) >
+                 2 * round4(n) * FShape<P>::LDP
+             ? 2 * (FKT * (round4(n) + 4) + 2 * FKT * FShape<P>::LDP)
+             : 2 * round4(n) * FShape<P>::LDP;
+}
+template <int P>
+__host__ __device__ constexpr int f32_smem_bytes(int n) {
+  const int out = 6 * QMAX + FRT * (round4(n) + 4) + 2 * FRT * (FKT + 4) +
+                  f32_region_floats<P>(n);
+  const int state = 2 * QMAX + 4 + 2 * (FKT * (64 + 4) + FKT * FShape<P>::LDP);
+  return 4 * (out > state ? out : state);
+}
+
+// rows x cols of an fp32 tile into shared memory (row stride ld) from rows
+// rs elements apart; rows >= live_r and columns >= live_c become zeros.
+// vec: 16-byte cp.async (rows 16-byte aligned, cols and live_c multiples
+// of 4, cols <= 512); else element by element. A thread keeps one column
+// and walks rows (one division per call, not one per chunk). The caller
+// waits.
+__device__ __forceinline__ void load_f32(float* dst, int ld, const float* src,
+                                         long long rs, int rows, int live_r,
+                                         int cols, int live_c, int vec) {
+  if (vec) {
+    const int cw = cols / 4, step = F_THREADS / cw;
+    const int r0 = threadIdx.x / cw, c = (threadIdx.x - r0 * cw) * 4;
+    if (r0 >= step) return;
+    for (int r = r0; r < rows; r += step) {
+      const bool ok = r < live_r && c < live_c;
+      cp_async16(dst + r * ld + c, ok ? src + r * rs + c : src, ok);
+    }
+    return;
+  }
+  for (int e = threadIdx.x; e < rows * cols; e += F_THREADS) {
+    const int r = e / cols, c = e % cols;
+    dst[r * ld + c] = r < live_r && c < live_c ? src[r * rs + c] : 0.f;
+  }
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float at(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// Output block: rows [i0, i0 + 32) of the chunk for a pair of heads of one
+// group, on the CUDA cores; one of a cluster of two that split the key
+// tiles at or before the row tile (rank r takes tiles r, r + 2, ...). The
+// rank without the diagonal tile also takes the carried term and hands its
+// sums to the other over distributed shared memory, which adds them, the
+// skip term, and stores. Each rank's first loads (C, the carried states,
+// dt) are in flight at once; its key tiles stream through two stages.
+template <int P>
+__device__ void f32_out_block(const F32Args& p, int it, int hs, int rank,
+                              int bb, float* sm) {
+  using Sh = FShape<P>;
+  constexpr int LDP = Sh::LDP, TM = Sh::TM, PT = Sh::PT, LDW = FKT + 4;
+  const int N = p.N, NP = round4(N), LDN = NP + 4;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* segs = sm;                                  // [2][QMAX]
+  float* dts = segs + 2 * QMAX;                      // [2][QMAX]
+  float* cfs = dts + 2 * QMAX;                       // [2][QMAX] column factors
+  float* Cs = cfs + 2 * QMAX;                        // [FRT][LDN]
+  float* Ws = Cs + FRT * LDN;                        // [2][FRT][LDW]
+  float* region = Ws + 2 * FRT * LDW;
+  float* Ss = region;                                // [2][NP][LDP]
+  const int stage = FKT * LDN + 2 * FKT * LDP;       // B [FKT][LDN], x [2][FKT][LDP]
+  auto Bs = [&](int st) { return region + st * stage; };
+  auto Xs = [&](int st, int hh) {
+    return region + st * stage + FKT * LDN + hh * FKT * LDP;
+  };
+
+  const int hpg = p.H / p.G, sets = (hpg + 1) / 2;
+  const int grp = hs / sets, h0 = grp * hpg + (hs % sets) * 2;
+  const int nh = min(2, grp * hpg + hpg - h0);
+  const int i0 = it * FRT, ni = min(FRT, p.q - i0), jend = i0 + ni;
+  const int diag = it & 1;                  // the rank with the diagonal tile
+  const bool carries = p.s_in != nullptr && rank != diag;
+  const int count = it >= rank ? (it - rank) / 2 + 1 : 0;   // key tiles
+  const float* xb = p.x + bb * p.xsb + (long long)p.t0 * p.xst;
+  const float* bp = p.b + bb * p.bsb + (long long)p.t0 * p.bst + grp * p.bsg;
+  const float* cp = p.c + bb * p.csb + (long long)p.t0 * p.cst + grp * p.csg;
+
+  load_f32(Cs, LDN, cp + (long long)i0 * p.cst, p.cst, FRT, ni, NP, N, p.vec);
+  if (carries)
+    for (int hh = 0; hh < nh; ++hh)
+      load_f32(Ss + hh * NP * LDP, LDP,
+               p.s_in + ((long long)bb * p.H + h0 + hh) * N * P, P, NP, N,
+               P, P, 1);
+  cp_async_commit();
+  for (int hh = 0; hh < 2; ++hh)
+    load_dt(p, bb, h0 + min(hh, nh - 1), hh < nh ? jend : 0, dts + hh * QMAX);
+  __syncthreads();
+  if (warp < nh)
+    warp_seg(dts + warp * QMAX, segs + warp * QMAX, jend,
+             -expf(p.a_log[h0 + warp]), lane);
+  __syncthreads();
+  // Below the diagonal tile the decay factors: exp(seg_i - seg_j) =
+  // exp(seg_i - seg_e) exp(seg_e - seg_j), e the last key of j's tile,
+  // both exponents <= 0. The column half, times dt_j, once per block.
+  for (int e = tid; e < 2 * QMAX; e += F_THREADS) {
+    const int hh = e / QMAX, j = e % QMAX;
+    if (hh < nh && j < i0)
+      cfs[e] = expf(segs[hh * QMAX + (j / FKT) * FKT + FKT - 1] -
+                    segs[hh * QMAX + j]) * dts[e];
+  }
+  cp_async_wait<0>();
+  __syncthreads();                         // C, states, dt, seg, factors in
+
+  // The product's place: rows r0 .. r0 + TM - 1, channels c0 .. c0 + 3.
+  const bool active = tid < Sh::ACTIVE;
+  const int r0 = (tid / PT) * TM, c0 = (tid % PT) * 4;
+  float acc[2][TM][4];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+    for (int u = 0; u < TM; ++u)
+      acc[hh][u][0] = acc[hh][u][1] = acc[hh][u][2] = acc[hh][u][3] = 0.f;
+
+  // Carried term exp(seg_i) C_i @ S per head, only where a state came in.
+  if (carries && active) {
+#pragma unroll 2
+    for (int n = 0; n < NP; n += 4) {
+      float4 a[TM];
+#pragma unroll
+      for (int u = 0; u < TM; ++u) a[u] = ld4(Cs + (r0 + u) * LDN + n);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        if (hh >= nh) break;
+        const float* sb = Ss + hh * NP * LDP + n * LDP + c0;
+        const float4 b[4] = {ld4(sb), ld4(sb + LDP), ld4(sb + 2 * LDP),
+                             ld4(sb + 3 * LDP)};
+#pragma unroll
+        for (int u = 0; u < TM; ++u)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) {
+            float s = acc[hh][u][v];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) s = fmaf(at(a[u], k), at(b[k], v), s);
+            acc[hh][u][v] = s;
+          }
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int u = 0; u < TM; ++u) {
+        const int i = i0 + r0 + u;
+        const float f = hh < nh && i < jend ? expf(segs[hh * QMAX + i]) : 0.f;
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[hh][u][v] *= f;
+      }
+  }
+  __syncthreads();                         // the states' floats are free
+
+  // Intra-chunk term over this rank's key tiles, each tile's loads issued
+  // while the one before it is computed. The scores C_i B_j^T of a tile
+  // once for both heads (thread: rows 4 (tid / 16) .. + 3, keys 2 (tid %
+  // 16), + 1), weighted per head into its W tile, then W @ x per head.
+  auto load_keys = [&](int jt, int st) {
+    const int j0 = jt * FKT, nj = min(FKT, p.q - j0);
+    load_f32(Bs(st), LDN, bp + (long long)j0 * p.bst, p.bst, FKT, nj, NP, N,
+             p.vec);
+    for (int hh = 0; hh < nh; ++hh)
+      load_f32(Xs(st, hh), LDP,
+               xb + (long long)j0 * p.xst + (long long)(h0 + hh) * p.xsh,
+               p.xst, FKT, nj, P, P, p.vec);
+    cp_async_commit();
+  };
+  const int sr = (tid >> 4) * 4, sk = (tid & 15) * 2;
+  if (count > 0) load_keys(rank, 0);
+#pragma unroll 1
+  for (int c = 0; c < count; ++c) {
+    const int jt = rank + 2 * c, st = c & 1;
+    if (c + 1 < count) {
+      load_keys(jt + 2, st ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();                       // key tile jt is in
+    const int j0 = jt * FKT;
+    const float* bs = Bs(st);
+    float sc[4][2];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) sc[u][0] = sc[u][1] = 0.f;
+#pragma unroll 4
+    for (int n = 0; n < NP; n += 4) {
+      float4 cr[4], br[2];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) cr[u] = ld4(Cs + (sr + u) * LDN + n);
+#pragma unroll
+      for (int v = 0; v < 2; ++v) br[v] = ld4(bs + (sk + v) * LDN + n);
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          float s = sc[u][v];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) s = fmaf(at(cr[u], k), at(br[v], k), s);
+          sc[u][v] = s;
+        }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      if (hh >= nh) break;
+      const float* sg = segs + hh * QMAX;
+      float* w = Ws + hh * FRT * LDW;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + sr + u;
+        if (jt < it) {                     // every pair live: factors
+          const float rf = i < jend ? expf(sg[i] - sg[j0 + FKT - 1]) : 0.f;
+#pragma unroll
+          for (int v = 0; v < 2; ++v)
+            w[(sr + u) * LDW + sk + v] =
+                sc[u][v] * rf * cfs[hh * QMAX + j0 + sk + v];
+        } else {                           // the diagonal: masked, then exp
+#pragma unroll
+          for (int v = 0; v < 2; ++v) {
+            const int j = j0 + sk + v;
+            w[(sr + u) * LDW + sk + v] =
+                j <= i && i < jend
+                    ? sc[u][v] * expf(sg[i] - sg[j]) * dts[hh * QMAX + j]
+                    : 0.f;
+          }
+        }
+      }
+    }
+    __syncthreads();                       // both W tiles in
+    if (active) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        if (hh >= nh) break;
+        const float* w = Ws + hh * FRT * LDW;
+        const float* xs = Xs(st, hh) + c0;
+#pragma unroll
+        for (int k = 0; k < FKT; k += 4) {
+          const float4 b[4] = {ld4(xs + k * LDP), ld4(xs + (k + 1) * LDP),
+                               ld4(xs + (k + 2) * LDP),
+                               ld4(xs + (k + 3) * LDP)};
+#pragma unroll
+          for (int u = 0; u < TM; ++u) {
+            const float4 a = ld4(w + (r0 + u) * LDW + k);
+#pragma unroll
+            for (int v = 0; v < 4; ++v) {
+              float s = acc[hh][u][v];
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk)
+                s = fmaf(at(a, kk), at(b[kk], v), s);
+              acc[hh][u][v] = s;
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();                       // stage st and the W tiles free
+  }
+
+  // The pair's sums: the other rank's through its shared memory (its
+  // stages are free now), added to this one's; y = sum + d_skip x, x from
+  // the diagonal tile's stage (this row tile).
+  cg::cluster_group cluster = cg::this_cluster();
+  float* red = region;                               // [2][FRT][P]
+  if (rank != diag && active)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int u = 0; u < TM; ++u)
+        *reinterpret_cast<float4*>(red + (hh * FRT + r0 + u) * P + c0) =
+            make_float4(acc[hh][u][0], acc[hh][u][1], acc[hh][u][2],
+                        acc[hh][u][3]);
+  cluster.sync();
+  if (rank == diag && active) {
+    const float* other = cluster.map_shared_rank(red, rank ^ 1);
+    const float* xd = Xs((count - 1) & 1, 0);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      if (hh >= nh) break;
+      const float dsk = p.d_skip[h0 + hh];
+#pragma unroll
+      for (int u = 0; u < TM; ++u) {
+        const int r = r0 + u;
+        if (r >= ni) continue;
+        const float4 o = ld4(other + (hh * FRT + r) * P + c0);
+        const float4 xv = ld4(xd + hh * FKT * LDP + r * LDP + c0);
+        const long long t = p.t0 + i0 + r;
+        *reinterpret_cast<float4*>(
+            p.y + ((bb * (long long)p.T + t) * p.H + h0 + hh) * P + c0) =
+            make_float4(fmaf(dsk, xv.x, acc[hh][u][0] + o.x),
+                        fmaf(dsk, xv.y, acc[hh][u][1] + o.y),
+                        fmaf(dsk, xv.z, acc[hh][u][2] + o.z),
+                        fmaf(dsk, xv.w, acc[hh][u][3] + o.w));
+      }
+    }
+  }
+  cluster.sync();                          // the other rank's sums are read
+}
+
+// State block: rows [n0, n0 + NS) of N of one head's state after the
+// chunk, S_out = exp(seg_last) S_in + B^T (w * X) over the chunk's rows,
+// the key tiles streaming through two stages. Thread: state rows n0 + NR
+// (tid / PT) .. + NR - 1, channels 4 (tid % PT) .. + 3. NR = 8 (three
+// shared loads per 32 multiply-adds) where N > 32; else NR = 4, so a
+// small state still spreads over the block's threads.
+template <int P, int NR>
+__device__ void f32_state_block(const F32Args& p, int ns, int h, int bb,
+                                float* sm) {
+  using Sh = FShape<P>;
+  constexpr int NS = 8 * NR;                         // state rows a block
+  constexpr int LDP = Sh::LDP, PT = Sh::PT, LDB = NS + 4;
+  const int N = p.N, q = p.q, nkt = (q + FKT - 1) / FKT;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* dts = sm;                                   // [QMAX] dt, then seg
+  float* wj = dts + QMAX;                            // [QMAX] decay * dt
+  float* seg_last = wj + QMAX;                       // [4]
+  float* region = seg_last + 4;
+  const int stage = FKT * LDB + FKT * LDP;           // B slice, x
+  auto Bt = [&](int st) { return region + st * stage; };
+  auto Xt = [&](int st) { return region + st * stage + FKT * LDB; };
+
+  const int grp = h / (p.H / p.G), n0 = ns * NS;
+  const int live_n = min(NS, N - n0);
+  const float* bp = p.b + bb * p.bsb + (long long)p.t0 * p.bst + grp * p.bsg +
+                    n0;
+  const float* xp = p.x + bb * p.xsb + (long long)p.t0 * p.xst +
+                    (long long)h * p.xsh;
+  auto load_keys = [&](int jt) {
+    const int j0 = jt * FKT, nj = min(FKT, q - j0), st = jt & 1;
+    load_f32(Bt(st), LDB, bp + (long long)j0 * p.bst, p.bst, FKT, nj, NS,
+             live_n, p.vec);
+    load_f32(Xt(st), LDP, xp + (long long)j0 * p.xst, p.xst, FKT, nj, P, P,
+             p.vec);
+    cp_async_commit();
+  };
+  load_keys(0);
+  load_dt(p, bb, h, q, dts);
+  __syncthreads();
+  if (warp == 0) {
+    float dtv[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) dtv[e] = dts[lane * 8 + e];
+    __syncwarp();
+    warp_seg(dts, dts, q, -expf(p.a_log[h]), lane);  // in place: lane-local
+    __syncwarp();
+    const float last = dts[q - 1];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int j = lane * 8 + e;
+      wj[j] = j < q ? expf(last - dts[j]) * dtv[e] : 0.f;
+    }
+    if (lane == 0) seg_last[0] = last;
+  }
+
+  const bool active = tid < 8 * PT;
+  const int nr = (tid / PT) * NR, c0 = (tid % PT) * 4;
+  // The carried-in state this thread decays, fetched while the tiles land.
+  const long long base = ((long long)bb * p.H + h) * N * P;
+  float4 s_old[NR];
+#pragma unroll
+  for (int u = 0; u < NR; ++u) {
+    const int row = n0 + nr + u;
+    s_old[u] = p.s_in && active && row < N
+                   ? ld4(p.s_in + base + (long long)row * P + c0)
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  float acc[NR][4];
+#pragma unroll
+  for (int u = 0; u < NR; ++u)
+    acc[u][0] = acc[u][1] = acc[u][2] = acc[u][3] = 0.f;
+#pragma unroll 1
+  for (int jt = 0; jt < nkt; ++jt) {
+    if (jt + 1 < nkt) {
+      load_keys(jt + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();                       // tile jt (and the weights) in
+    if (active) {
+      const float* bt = Bt(jt & 1) + nr;
+      const float* xt = Xt(jt & 1) + c0;
+      const float* w = wj + jt * FKT;
+#pragma unroll 4
+      for (int j = 0; j < FKT; ++j) {
+        const float4 b0 = ld4(bt + j * LDB);
+        const float4 b1 = NR > 4 ? ld4(bt + j * LDB + 4) : b0;
+        const float4 xv = ld4(xt + j * LDP);
+        const float wv = w[j];
+        const float xw[4] = {xv.x * wv, xv.y * wv, xv.z * wv, xv.w * wv};
+#pragma unroll
+        for (int u = 0; u < NR; ++u) {
+          const float bu = at(u < 4 ? b0 : b1, u & 3);
+#pragma unroll
+          for (int v = 0; v < 4; ++v) acc[u][v] = fmaf(bu, xw[v], acc[u][v]);
+        }
+      }
+    }
+    __syncthreads();                       // stage jt & 1 is free
+  }
+  if (!active) return;
+  const float dec = expf(seg_last[0]);
+#pragma unroll
+  for (int u = 0; u < NR; ++u) {
+    const int row = n0 + nr + u;
+    if (row >= N) continue;
+    *reinterpret_cast<float4*>(p.s_out + base + (long long)row * P + c0) =
+        make_float4(fmaf(s_old[u].x, dec, acc[u][0]),
+                    fmaf(s_old[u].y, dec, acc[u][1]),
+                    fmaf(s_old[u].z, dec, acc[u][2]),
+                    fmaf(s_old[u].w, dec, acc[u][3]));
+  }
+}
+
+// Clusters of two blocks, longest work first: the output pairs of the
+// later half of the row tiles (longest row tile first), then the state
+// blocks (a row tile's worth of keys each; their count made even), then
+// the output pairs of the earlier row tiles.
+template <int P>
+__global__ void __launch_bounds__(F_THREADS) ssd_kernel(F32Args p) {
+  extern __shared__ __align__(16) float fsm[];
+  const int bb = blockIdx.y;
+  const int n_long = 2 * (p.n_rt - p.n_rt / 2) * p.n_hs;
+  const int n_state = (p.n_state + 1) & ~1;
+  int bx = blockIdx.x;
+  if (bx >= n_long && bx < n_long + n_state) {
+    const int s = bx - n_long;
+    if (s < p.n_state) {
+      if (p.N > 32)
+        f32_state_block<P, 8>(p, s % p.n_ns, s / p.n_ns, bb, fsm);
+      else
+        f32_state_block<P, 4>(p, s % p.n_ns, s / p.n_ns, bb, fsm);
+    }
+    return;
+  }
+  if (bx >= n_long) bx -= n_state;
+  const int pair = bx >> 1;
+  f32_out_block<P>(p, p.n_rt - 1 - pair / p.n_hs, pair % p.n_hs, bx & 1, bb,
+                   fsm);
+}
+
+// One launch per chunk; the state between chunks goes through scratch,
+// two (B, H, N, P) buffers used in turn.
+template <int P>
+cudaError_t launch_f32(F32Args a, int batch, int chunk, const float* init,
+                       float* fin, float* scratch, cudaStream_t s) {
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        ssd_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        f32_smem_bytes<P>(NMAX));
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  const long long state = (long long)batch * a.H * a.N * P;
+  const int hpg = a.H / a.G;
+  a.n_hs = a.G * ((hpg + 1) / 2);
+  a.n_ns = (a.N + f32_state_rows(a.N) - 1) / f32_state_rows(a.N);
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(F_THREADS);
+  cfg.dynamicSmemBytes = f32_smem_bytes<P>(a.N);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 2;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  a.s_in = init;
+  for (int c = 0, t0 = 0; t0 < a.T; ++c, t0 += chunk) {
+    a.t0 = t0;
+    a.q = min(chunk, a.T - t0);
+    const bool last = t0 + a.q >= a.T;
+    if (!last && !scratch) return cudaErrorInvalidValue;
+    a.s_out = last ? fin : scratch + (c % 2) * state;
+    a.n_rt = (a.q + FRT - 1) / FRT;
+    a.n_yblk = 2 * a.n_rt * a.n_hs;
+    a.n_state = a.s_out ? a.n_ns * a.H : 0;
+    cfg.gridDim = dim3(a.n_yblk + ((a.n_state + 1) & ~1), batch);
+    const cudaError_t e = cudaLaunchKernelEx(&cfg, ssd_kernel<P>, a);
+    if (e != cudaSuccess) return e;
+    a.s_in = a.s_out;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" int ssd_launch(
@@ -962,16 +1284,25 @@ extern "C" int ssd_launch(
     int H, int G, int N, int P, int chunk, int dtype, int vec, void* stream) {
   if (N < 1 || N > NMAX || chunk < 1 || chunk > QMAX || G < 1 || H % G)
     return (int)cudaErrorInvalidValue;
-  SsdArgs a{};
-  a.x = x; a.xsb = xsb; a.xst = xst; a.xsh = xsh;
-  a.dt = dt; a.dsb = dsb; a.dst = dst; a.dsh = dsh;
-  a.a_log = a_log; a.d_skip = d_skip;
-  a.b = b; a.bsb = bsb; a.bst = bst; a.bsg = bsg;
-  a.c = c; a.csb = csb; a.cst = cst; a.csg = csg;
-  a.init = init; a.y = y; a.fin = fin;
-  a.T = T; a.H = H; a.G = G; a.N = N; a.chunk = chunk;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype != DT_BF16) return (int)by_dim(P, a, B, s);
+  if (dtype != DT_BF16) {
+    F32Args f{};
+    f.x = static_cast<const float*>(x); f.xsb = xsb; f.xst = xst; f.xsh = xsh;
+    f.dt = dt; f.dsb = dsb; f.dst = dst; f.dsh = dsh;
+    f.a_log = a_log; f.d_skip = d_skip;
+    f.b = static_cast<const float*>(b); f.bsb = bsb; f.bst = bst; f.bsg = bsg;
+    f.c = static_cast<const float*>(c); f.csb = csb; f.cst = cst; f.csg = csg;
+    f.y = static_cast<float*>(y);
+    f.T = T; f.H = H; f.G = G; f.N = N;
+    f.vec = vec;
+    switch (P) {
+      case 8: return (int)launch_f32<8>(f, B, chunk, init, fin, scratch, s);
+      case 16: return (int)launch_f32<16>(f, B, chunk, init, fin, scratch, s);
+      case 32: return (int)launch_f32<32>(f, B, chunk, init, fin, scratch, s);
+      case 64: return (int)launch_f32<64>(f, B, chunk, init, fin, scratch, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   TcArgs t{};
   t.x = static_cast<const bf16*>(x); t.xsb = xsb; t.xst = xst; t.xsh = xsh;
   t.dt = dt; t.dsb = dsb; t.dst = dst; t.dsh = dsh;

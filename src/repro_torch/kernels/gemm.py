@@ -23,9 +23,12 @@ ragged edges themselves, so operands are never padded to a tile plan
 
 bf16 and fp16 inputs run one of two kernels by the shape alone
 (:func:`gemm_plan`): split-K ``mma.sync`` for M <= 16 (decode) and
-``wgmma`` for wider M (prefill); fp32 and int16 inputs run the CUDA-core
-kernel (IEEE FMAs with a blocked sum, or wrapping integer multiply-adds;
-register micro-tiles, split K where the tiles leave SMs idle); int8 inputs
+``wgmma`` for wider M (prefill; two consumer warpgroups fed by a TMA
+warp, K split over a cluster of blocks that adds its partials in
+distributed shared memory, so it needs no workspace); fp32 and int16
+inputs run the CUDA-core kernel (IEEE FMAs with a blocked sum, or
+wrapping integer multiply-adds; register micro-tiles, split K where the
+tiles leave SMs idle); int8 inputs
 run ``igemm.cuh``'s tensor-core main loop (:func:`gemm_s8_plan`: 16 x 64 or
 64 x 64 tiles by the shape, a 4-stage ``cp.async`` ring, K split by a
 waves x k-steps model and merged exactly, since int32 sums wrap). Each
@@ -104,9 +107,10 @@ def gemm_plan(m: int, n: int, k: int, b_trans: bool = False,
     CUDA-core integer multiply-adds), ``tile`` (rows, columns, k per stage),
     ``splits`` of K, ``grid`` (blocks), ``threads`` per block, ``stages``
     of the load ring (skinny: 1, loads go straight to registers), ``smem``
-    bytes and ``workspace_bytes`` (tickets and partials, 0 for one split).
-    It depends on the shape, B's layout and the card's SM count only, so
-    OS and WS take the same plan."""
+    bytes and ``workspace_bytes`` (tickets and partials; 0 for one split
+    and for every wide plan, whose splits merge within a cluster). It
+    depends on the shape, B's layout and the card's SM count only, so OS
+    and WS take the same plan."""
     if dtype not in _PLAN_DT:
         raise NotImplementedError(f"gemm_plan: no kernel plan for {dtype}")
     index = _device_index(device)

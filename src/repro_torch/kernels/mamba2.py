@@ -13,9 +13,9 @@ the inter-chunk scan over the (N, P) state; the final state comes from the
 whole-sequence cumulative decay. ``initial_state`` resumes a previous
 segment (chunked prefill).
 
-On the card bf16 inputs run the tensor-core kernel, one launch per chunk
-of the sequence (a serving call is one chunk), and fp32 inputs the
-CUDA-core kernel, one launch per call.
+On the card bf16 inputs run the tensor-core kernel and fp32 inputs the
+CUDA-core kernel, each one launch per chunk of the sequence (a serving
+call is one chunk); ``ssd.launches`` grows by one per call.
 
 One deliberate difference from the JAX dispatch (``ops.ssd_impl``): there,
 a chunk that resumes from a carried state leaves the TPU kernel for the XLA
@@ -140,11 +140,13 @@ def _inner_contiguous(t: torch.Tensor) -> torch.Tensor:
 
 
 def _rows16(*ts: torch.Tensor) -> bool:
-    """Whether every row of each (B, T, heads, width) bf16 operand starts
-    on 16 bytes and spans whole 16-byte words, so the bf16 kernel copies
-    rows with 16-byte ``cp.async`` (else element by element)."""
-    return all(t.data_ptr() % 16 == 0 and t.shape[-1] % 8 == 0 and
-               all(st % 8 == 0 for st in t.stride()[:-1]) for t in ts)
+    """Whether every row of each (B, T, heads, width) operand starts on 16
+    bytes and spans whole 16-byte words, so the kernels copy rows with
+    16-byte ``cp.async`` (else element by element)."""
+    return all(t.data_ptr() % 16 == 0 and
+               t.shape[-1] * t.element_size() % 16 == 0 and
+               all(st * t.element_size() % 16 == 0 for st in t.stride()[:-1])
+               for t in ts)
 
 
 def ssd(x, dt, a_log, b, c, *, d_skip=None, chunk: int = 256,
@@ -196,10 +198,9 @@ def ssd(x, dt, a_log, b, c, *, d_skip=None, chunk: int = 256,
     y = torch.empty((bsz, t, h, p), dtype=x.dtype, device=dev)
     fin = torch.empty((bsz, h, n, p), dtype=torch.float32, device=dev) \
         if return_final_state else None
-    # Between chunks the bf16 kernel carries the state in two buffers.
+    # Between chunks the kernels carry the state in two buffers.
     scratch = torch.empty((2, bsz, h, n, p), dtype=torch.float32,
-                          device=dev) \
-        if x.dtype == torch.bfloat16 and t > q else None
+                          device=dev) if t > q else None
     fn = _build.bind("ssd", "ssd_launch",
                      [_P, _L, _L, _L, _P, _L, _L, _L, _P, _P, _P, _L, _L, _L,
                       _P, _L, _L, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -589,9 +589,10 @@ def test_bf16_gemm_misaligned_operands(card, m, n, k, which):
 
 
 def _split_shape(regime, splits):
-    """A one-tile shape whose K the plan splits ``splits`` ways on any
-    card: skinny (row-major B, one 64-deep round of loads per split,
-    ragged K), or wide (M = 64, 128 columns, four stages per split)."""
+    """A shape whose K the plan splits ``splits`` ways on any card: skinny
+    (one tile, row-major B, one 64-deep round of loads per split, ragged
+    K), or wide (M = 64, two 128 x 64 tiles, four k steps per split: one
+    cluster of ``splits`` blocks per tile)."""
     if regime == "skinny":
         return 3, 200, 64 * splits - 5
     return 64, 128, 256 * splits
@@ -603,7 +604,8 @@ def _split_shape(regime, splits):
 def test_bf16_gemm_every_split_count(card, regime, splits):
     """Every split count the plan can choose covers K exactly once: with
     small integers the fp32 sum is exact, so the kernel must equal the
-    plain version bit for bit; every ticket is back at 0 afterwards."""
+    plain version bit for bit. A skinny split leaves every ticket back at
+    0; a wide one merges within its cluster and takes no workspace."""
     m, n, k = _split_shape(regime, splits)
     plan = tgemm.gemm_plan(m, n, k)
     assert plan["regime"] == regime and plan["splits"] == splits
@@ -616,7 +618,9 @@ def test_bf16_gemm_every_split_count(card, regime, splits):
     got = tgemm.gemm(a, b, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got, gemm_ref(a, b, None, **kw))
-    if splits > 1:
+    if regime == "wide":
+        assert plan["workspace_bytes"] == 0
+    elif splits > 1:
         ws = tgemm._WORKSPACE[(card.index or 0,
                                torch.cuda.current_stream(card).cuda_stream)]
         assert int(ws[:1024].abs().sum()) == 0
@@ -625,9 +629,9 @@ def test_bf16_gemm_every_split_count(card, regime, splits):
 @pytest.mark.parametrize("m,n,k,trans_b", [
     (4, 1024, 1152, False),      # skinny, K split 17 ways
     (16, 6912, 1152, True),      # skinny, two MMAs per 16 k
-    (64, 256, 6912, False),      # wide, one warpgroup, K split
-    (256, 1152, 1024, True),     # wide, two warpgroups, K split
-    (1000, 1000, 300, False),    # wide, 8 M tiles, one split
+    (64, 256, 6912, False),      # wide, 128 x 64 tiles, a cluster per tile
+    (256, 1152, 1024, True),     # wide, K split over clusters, table.T
+    (1000, 1000, 300, False),    # wide, 128 x 128 tiles, cp.async ring
     (1000, 8000, 304, False),    # wide, 128 x 256 tiles by TMA
     (200, 17000, 136, True),     # the same, B = table.T
 ])
@@ -642,6 +646,72 @@ def test_bf16_gemm_ws_equals_os_and_reruns(card, m, n, k, trans_b):
     _close(got, gemm_ref(a, b, None, **kw), torch.bfloat16)
     assert torch.equal(got, tgemm.gemm_ws(a, b, **kw))
     assert torch.equal(got, tgemm.gemm_os(a, b, **kw))
+
+
+# One shape per wide tile (the narrowest whose tiles fit one wave of
+# blocks on a 132-SM card; 64 x 256 for M <= 64 past that), K split.
+_WIDE_TILES = [((300, 200, 640), (128, 64)), ((256, 6912, 256), (128, 128)),
+               ((256, 9000, 128), (128, 256)), ((64, 20000, 128), (64, 256))]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("case", range(len(_WIDE_TILES)))
+def test_wide_gemm_tile_shapes(card, case, trans_b, dtype):
+    """Each wide tile shape (two consumer warpgroups on 128 rows, or on the
+    columns of 64 x 256) with B either way round: small integers make the
+    fp32 sum exact, so OS, WS and a rerun equal the plain version bit for
+    bit, and the fp16 / bf16 epilogue (bias, ReLU, shift 1) rounds the same
+    sums the same way."""
+    if torch.cuda.get_device_properties(card).multi_processor_count != 132:
+        pytest.skip("the tile choices are a 132-SM H100's")
+    (m, n, k), tile = _WIDE_TILES[case]
+    plan = tgemm.gemm_plan(m, n, k, trans_b, dtype=dtype)
+    assert plan["regime"] == "wide" and plan["tile"][:2] == tile
+    assert plan["threads"] == 288 and plan["workspace_bytes"] == 0
+    g = torch.Generator(device=card).manual_seed(m + n + k)
+    a = torch.randint(-3, 4, (m, k), generator=g, device=card).to(dtype)
+    b = torch.randint(-3, 4, (n, k) if trans_b else (k, n), generator=g,
+                      device=card).to(dtype)
+    b = b.T if trans_b else b
+    d = torch.randint(-8, 8, (n,), generator=g, device=card).float()
+    for out, kw in ((torch.float32, {}),
+                    (dtype, dict(shift=1, activation=Activation.RELU))):
+        args = dict(acc_dtype=torch.float32, out_dtype=out, **kw)
+        got = tgemm.gemm_os(a, b, d, **args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, gemm_ref(a, b, d, **args))
+        assert torch.equal(got, tgemm.gemm_ws(a, b, d, **args))
+        assert torch.equal(got, tgemm.gemm_os(a, b, d, **args))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_wide_gemm_clusters_on_concurrent_streams(card, dtype):
+    """The fp16 quickstart GEMM (K split over clusters) and gemma3-1b's wq
+    at M = 256, on two streams at once: the splits merge in distributed
+    shared memory, so the streams share nothing and every result equals
+    the single-stream one bit for bit."""
+    g = torch.Generator(device=card).manual_seed(21)
+    kw = dict(acc_dtype=torch.float32, out_dtype=dtype)
+    inputs = []
+    for m, n, k in ((1000, 512, 2048), (256, 1024, 1152)):
+        assert tgemm.gemm_plan(m, n, k, dtype=dtype)["splits"] > 1
+        a = torch.randn((m, k), generator=g, device=card).to(dtype)
+        b = (torch.randn((k, n), generator=g, device=card) / k ** 0.5
+             ).to(dtype)
+        inputs.append((a, b))
+    wants = [tgemm.gemm(a, b, **kw) for a, b in inputs]
+    streams = [torch.cuda.Stream(card) for _ in inputs]
+    torch.cuda.synchronize()
+    gots = [[], []]
+    for _ in range(8):
+        for i, (st, (a, b)) in enumerate(zip(streams, inputs)):
+            with torch.cuda.stream(st):
+                gots[i].append(tgemm.gemm(a, b, **kw))
+    torch.cuda.synchronize()
+    for got, want in zip(gots, wants):
+        for x in got:
+            assert torch.equal(x, want)
 
 
 @pytest.mark.parametrize("m,n,k", [(4, 1152, 6912), (256, 256, 1152)])
@@ -766,6 +836,7 @@ def _ssd_inputs(card, dtype, bsz, t, h, p, g, n, seed, pad=0, resume=True):
     (64, 6, 32, 2, 128, 256, 0),      # one row tile
     (255, 8, 64, 1, 128, 256, 0),     # a ragged last row tile
     (256, 64, 64, 1, 128, 256, 0),    # mamba2-1.3b's serving call
+    (1000, 64, 64, 1, 128, 256, 0),   # its widths over four chunks
     (256, 50, 64, 1, 16, 256, 0),     # hymba-1.5b's
     (257, 5, 8, 1, 16, 256, 3),       # one token into a second chunk
     (1000, 6, 32, 2, 16, 256, 0),
@@ -825,6 +896,28 @@ def test_ssd_rerun_and_streams_are_bit_identical(card):
     for t in (256, 1000):
         args = _ssd_inputs(card, torch.bfloat16, 1, t, 64, 64, 1, 128, t)
         x, dt, a_log, b, c, d_skip, init = args
+        kw = dict(d_skip=d_skip, initial_state=init, return_final_state=True)
+        y0, s0 = tm2.ssd(x, dt, a_log, b, c, **kw)
+        streams = [torch.cuda.Stream(card) for _ in range(2)]
+        torch.cuda.synchronize()
+        outs = []
+        for _ in range(4):
+            for st in streams:
+                with torch.cuda.stream(st):
+                    outs.append(tm2.ssd(x, dt, a_log, b, c, **kw))
+        torch.cuda.synchronize()
+        for y, s_ in outs:
+            assert torch.equal(y, y0) and torch.equal(s_, s0)
+
+
+def test_ssd_fp32_rerun_and_streams_are_bit_identical(card):
+    """The fp32 kernel at mamba2-1.3b's widths (256 tokens resumed, and
+    1000 fresh: four launches): a rerun, and calls on two streams at once,
+    give the first result bit for bit (no atomics; every sum runs in a
+    fixed order)."""
+    for t, resume in ((256, True), (1000, False)):
+        x, dt, a_log, b, c, d_skip, init = _ssd_inputs(
+            card, torch.float32, 1, t, 64, 64, 1, 128, t, resume=resume)
         kw = dict(d_skip=d_skip, initial_state=init, return_final_state=True)
         y0, s0 = tm2.ssd(x, dt, a_log, b, c, **kw)
         streams = [torch.cuda.Stream(card) for _ in range(2)]
@@ -1363,9 +1456,14 @@ def test_fp16_gemm_misaligned_operands(card, which):
 
 
 # gemma3-1b's serving GEMMs (7 projections x M = 4, 64, 256, and the tied
-# unembedding read as table.T) and the bf16 plan each had before fp16
-# shared its kernels: (M, N, K, b_trans) -> (regime, tile, splits, grid,
-# threads, stages, smem, workspace bytes), on a 132-SM H100.
+# unembedding read as table.T) and their plans on a 132-SM H100: (M, N, K,
+# b_trans) -> (regime, tile, splits, grid, threads, stages, smem, workspace
+# bytes). The skinny plans (M = 4) are the ones bf16 had before fp16
+# shared its kernels. The wide plans are the redesign's (128 x 64 tiles
+# where they fit one wave of blocks, else 128 x 128, else 128 x 256 / 64 x
+# 256; two consumer warpgroups and a producer warp; no workspace): their
+# K splits (None here) follow how many clusters the card holds at once,
+# which its GPC layout sets, so the test holds them to the rule instead.
 _GEMMA3_PLANS = {
     **{(4, n, k, False): p for n, k, p in (
         (1024, 1152, ("skinny", (8, 64, 64), 17, 272, 128, 1, 0, 561152)),
@@ -1374,41 +1472,41 @@ _GEMMA3_PLANS = {
         (6912, 1152, ("skinny", (8, 256, 64), 10, 270, 128, 1, 0, 2215936)),
         (1152, 6912, ("skinny", (8, 64, 256), 15, 270, 128, 1, 0, 557056)))},
     (4, 262144, 1152, True): ("skinny", (8, 64, 256), 1, 4096, 128, 1, 0, 0),
-    **{(64, n, k, False): p for n, k, p in (
-        (1024, 1152, ("wide", (64, 128, 64), 4, 32, 128, 8, 197632, 1052672)),
-        (256, 1152, ("wide", (64, 128, 64), 4, 8, 128, 8, 197632, 266240)),
-        (1152, 1024, ("wide", (64, 128, 64), 4, 36, 128, 8, 197632, 1183744)),
-        (6912, 1152, ("wide", (64, 128, 64), 2, 108, 128, 8, 197632,
-                      3543040)),
-        (1152, 6912, ("wide", (64, 128, 64), 8, 72, 128, 8, 197632,
-                      2363392)))},
-    (64, 262144, 1152, True): ("wide", (64, 128, 64), 1, 2048, 128, 4, 99328,
-                               0),
-    **{(256, n, k, False): p for n, k, p in (
-        (1024, 1152, ("wide", (64, 128, 64), 4, 128, 128, 8, 197632,
-                      4198400)),
-        (256, 1152, ("wide", (64, 128, 64), 4, 32, 128, 8, 197632, 1052672)),
-        (1152, 1024, ("wide", (64, 128, 64), 3, 108, 128, 8, 197632,
-                      3543040)),
-        (6912, 1152, ("wide", (128, 128, 64), 1, 108, 256, 6, 197632, 0)),
-        (1152, 6912, ("wide", (64, 128, 64), 3, 108, 128, 8, 197632,
-                      3543040)))},
-    (256, 262144, 1152, True): ("wide", (128, 256, 64), 1, 2048, 256, 4,
+    **{(m, n, k, False): ("wide", tile, None, None, 288, st, 197632, 0)
+       for m in (64, 256) for n, k, tile, st in (
+           (1024, 1152, (128, 64, 64), 8), (256, 1152, (128, 64, 64), 8),
+           (1152, 1024, (128, 64, 64), 8), (1152, 6912, (128, 64, 64), 8),
+           (6912, 1152, (128, 64, 64) if m == 64 else (128, 128, 64),
+            8 if m == 64 else 6))},
+    (64, 262144, 1152, True): ("wide", (64, 256, 64), 1, 1024, 288, 5,
+                               205824, 0),
+    (256, 262144, 1152, True): ("wide", (128, 256, 64), 1, 2048, 288, 4,
                                 197632, 0),
 }
 
 
 def test_bf16_plan_unchanged_and_fp16_takes_it(card):
     """Templating the 16-bit kernels on their element type left bf16's
-    plan as it was at gemma3-1b's shapes, and fp16 takes the same plan;
-    int16 takes fp32's tiles and splits on its own regime."""
+    skinny plan as it was at gemma3-1b's shapes; the wide plan is the
+    redesign's: the recorded tile, threads, stages and shared memory, no
+    workspace, and K splits as many as fill the SMs (at most 8, each at
+    least four k steps) that the card holds as clusters in one wave. fp16
+    takes the same plan; int16 takes fp32's tiles and splits on its own
+    regime."""
     if torch.cuda.get_device_properties(card).multi_processor_count != 132:
         pytest.skip("the recorded plans are a 132-SM H100's")
     keys = ("regime", "tile", "splits", "grid", "threads", "stages", "smem",
             "workspace_bytes")
     for (m, n, k, trans), want in _GEMMA3_PLANS.items():
         got = tgemm.gemm_plan(m, n, k, trans, dtype=_BF16)
-        assert tuple(got[key] for key in keys) == want, (m, n, k, trans)
+        for key, w in zip(keys, want):
+            assert w is None or got[key] == w, (m, n, k, trans, key)
+        if want[2] is None:
+            bm, bn, bk = got["tile"]
+            tiles = -(-m // bm) * -(-n // bn)
+            most = min(132 // tiles, -(-k // bk) // 4, 8)
+            assert 1 <= got["splits"] <= max(most, 1)
+            assert got["grid"] == tiles * got["splits"]
         assert tgemm.gemm_plan(m, n, k, trans, dtype=_F16) == got
     for m, n, k in ((1000, 512, 2048), (49, 512, 4608), (12544, 64, 147)):
         p16 = tgemm.gemm_plan(m, n, k, dtype=_I16)
@@ -1591,3 +1689,49 @@ def test_conv_strip_loader_unaligned_image(card, dp):
     got = tconv.conv2d_implicit(xo, wt, b, **kw_)
     _close_dp(got, tref.conv2d_ref(x, wt, b, **kw_), out)
     assert torch.equal(got, tconv.conv2d_implicit(x, wt, b, **kw_))
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (its profiler helpers)."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+def test_profile_call_retakes_a_short_window(card):
+    """``chip_smoke.profile_call`` holds each profiler window to the launch
+    counters' growth over its passes. A window in which the counters grew
+    by one launch more than the profiler could see (a counted launch that
+    never ran, standing in for one the profiler lost) is taken again; a
+    call whose windows all stay short fails rather than report a device
+    time."""
+    cs = _chip_smoke()
+    g = torch.Generator(device=card).manual_seed(5)
+    a, b = _bf16_operands(g, 256, 1024, 1152, False)
+    kw = dict(acc_dtype=torch.float32, out_dtype=torch.bfloat16)
+    calls = [0]
+
+    def short_once():
+        # profile_call runs fn once, then 5 timed walls, then per window a
+        # warm-up pass and 3 profiled ones: call 9 is the first window's
+        # second profiled pass
+        calls[0] += 1
+        tgemm.gemm(a, b, **kw)
+        if calls[0] == 9:
+            tgemm.gemm.launches += 1
+
+    out = cs.profile_call(torch, "short once", short_once, quiet=True)
+    assert calls[0] == 14 and out["windows"] == 2
+    assert out["launches_by_kernel"]["gemm"] == 1
+
+    def always_short():
+        tgemm.gemm(a, b, **kw)
+        tgemm.gemm.launches += 1
+
+    with pytest.raises(SystemExit):
+        cs.profile_call(torch, "always short", always_short, quiet=True)

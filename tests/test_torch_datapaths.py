@@ -131,6 +131,26 @@ def test_gemm_datapaths_match_jax_kernels(dp, m, n, k, df):
 
 
 @pytest.mark.parametrize("df", ["OS", "WS"])
+def test_fp16_gemm_plain_matches_jax_at_quickstart(df):
+    """The plain version the card's fp16 wide GEMM is held against (the
+    port's ctx.gemm on the CPU), at the quickstart GEMM (1000 x 512 x 2048;
+    a bias row, shift 1, ReLU), against the JAX GEMM on its XLA twin, each
+    dataflow: the fp16 rule."""
+    rng = np.random.default_rng(1000)
+    dp = ("fp16", "fp32", "fp16")
+    a, b, d, shift = _operands(rng, dp, (1000, 2048), (2048, 512), 512)
+    jcfg, cfg = _cfgs(dp)
+    want = JContext(cfg=jcfg, backend="xla_twin").gemm(
+        jnp.asarray(a), jnp.asarray(b), jnp.asarray(d)[None, :],
+        dataflow=JDataflow[df], shift=shift, activation=JActivation.RELU)
+    got = ExecutionContext(cfg=cfg).gemm(
+        _t(a), _t(b), _t(d)[None, :], dataflow=Dataflow[df], shift=shift,
+        activation=Activation.RELU)
+    _check(got, want, "fp16")
+    assert shift == 1 and np.asarray(want).astype(np.float32).any()
+
+
+@pytest.mark.parametrize("df", ["OS", "WS"])
 def test_int16_gemm_wraps_and_saturates_like_jax(df):
     """int16 operands near 2^15 over K = 64: every true sum passes 2^31, so
     the int32 accumulator wraps, in the JAX kernels and in the port; after

@@ -150,6 +150,31 @@ def test_ssd_plain_matches_jax_chunked(case, resume):
     assert _rel(tfs.numpy(), jfs) <= SSD_TOL
 
 
+@pytest.mark.parametrize("resume", [False, True])
+def test_ssd_plain_matches_jax_at_mamba2_geometry(resume):
+    """The fp32 plain version the card's fp32 SSD kernel is held against,
+    at mamba2-1.3b's head geometry (P = 64, N = 128, G = 1; 4 of its 64
+    heads) on one 256-token chunk, fresh and resumed, against the JAX
+    chunked SSD (the XLA route and ``_final_state``): SSD_TOL of the
+    largest magnitude, y and the final state."""
+    bsz, t, h, p, g, n, chunk = 1, 256, 4, 64, 1, 128, 256
+    d = _ssd_inputs(7, bsz, t, h, p, g, n)
+    init = (np.random.default_rng(8).standard_normal((bsz, h, n, p)) * 0.5
+            ).astype(np.float32) if resume else None
+    jin = [jnp.asarray(d[k]) for k in ("x", "dt", "a_log", "b", "c")]
+    jinit = None if init is None else jnp.asarray(init)
+    jy = _jit_chunked(*jin, d_skip=jnp.asarray(d["d_skip"]), chunk=chunk,
+                      initial_state=jinit)
+    _, jfs = _jit_final(*jin, initial_state=jinit)
+    ty, tfs = tm2.ssd_plain(*(_t(d[k]) for k in ("x", "dt", "a_log", "b",
+                                                   "c")),
+                            d_skip=_t(d["d_skip"]), chunk=chunk,
+                            initial_state=None if init is None else _t(init),
+                            return_final_state=True)
+    assert _rel(ty.numpy(), jy) <= SSD_TOL
+    assert _rel(tfs.numpy(), jfs) <= SSD_TOL
+
+
 @pytest.mark.parametrize("case", SSD_CASES)
 def test_ssd_plain_matches_recurrence_and_pallas(case):
     """Zero initial state: the naive recurrence (the port's and the JAX

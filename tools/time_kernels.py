@@ -1,15 +1,18 @@
 """Device time of kernels for a same-card comparison of two checkouts: the
 bf16 engine GEMM at gemma3-1b's 24 serving shapes (7 projections and the
 tied unembedding at M = 4, 64 and 256, the rows of ``chip_smoke.py`` phase
-3, with ``torch.matmul`` beside each) and the fp32 GEMM at phase 3's fp32
-shapes (``torch.addmm`` / ``torch.matmul`` beside, TF32 off), fp32
+3, with ``torch.matmul`` beside each), the fp32 GEMM at phase 3's fp32
+shapes (``torch.addmm`` / ``torch.matmul`` beside, TF32 off) and the fp16
+GEMM at the quickstart (OS and WS) and at ResNet-50's host-im2col shapes
+(``torch.matmul`` beside), fp32
 ``flash_attention`` at the fp32 gate's prompts, bf16 paged prefill at a
 256-token chunk at 768 (gemma3-1b global and window 512, hymba-1.5b
 window 1024; the dense flash kernel on the same keys gathered beforehand
 beside each), paged decode at gemma3-1b's serving shape (global and with
-the 512-key window), and the bf16 chunked
-SSD at mamba2-1.3b's and hymba-1.5b's widths (the serving call, 256 tokens
-resumed, and 1000 tokens fresh), and the engine (``--only engine``: the
+the 512-key window), and the chunked SSD at mamba2-1.3b's and
+hymba-1.5b's widths (bf16: the serving call, 256 tokens resumed, and 1000
+tokens fresh; fp32: 256 tokens fresh and resumed, 1000 fresh, held against
+the fp64 recurrence), and the engine (``--only engine``: the
 int8 quickstart GEMM and ResNet-50's distinct layers as GEMMs on both
 dataflows beside ``torch._int_mm``, the int8 conv kernel at the stream's
 distinct convs, phase 3's rows of the float and 16-bit datapaths
@@ -66,10 +69,45 @@ def gemm_cases(torch, cs):
              run_lib, (2 * (m * k + k * n + m * n), 2.0 * m * n * k))
             for name, m, n, k, run_k, run_p, run_lib
             in cs.gemm_serving_cases(torch, randn, kg.gemm)]
-    return rows + [("gemm", f"fp32 {name} M={m} N={n} K={k}", "fp32", run_k,
-                    run_p, run_lib, (nbytes, 2.0 * m * n * k))
-                   for name, m, n, k, run_k, run_p, run_lib, nbytes
-                   in cs.fp32_gemm_cases(torch, randn)]
+    rows += [("gemm", f"fp32 {name} M={m} N={n} K={k}", "fp32", run_k,
+              run_p, run_lib, (nbytes, 2.0 * m * n * k))
+             for name, m, n, k, run_k, run_p, run_lib, nbytes
+             in cs.fp32_gemm_cases(torch, randn)]
+    return rows + fp16_gemm_cases(torch, cs, gen)
+
+
+def fp16_gemm_cases(torch, cs, gen):
+    """The fp16 engine GEMM (phase 6b's fp16 instance) on OS at the
+    quickstart (1000 x 512 x 2048) and at every host-im2col GEMM of
+    ResNet-50's stream that takes the wide kernel
+    (``chip_smoke.resnet50_shapes``), and on WS at the quickstart: bias,
+    shift 1, ReLU, operands as phase 6b draws them; ``torch.matmul`` (the
+    product alone) beside each."""
+    from repro_torch.core.config import Activation
+    from repro_torch.kernels import gemm as kg
+    from repro_torch.kernels.ref import gemm_ref
+
+    f16 = torch.float16
+    out = []
+    shapes = [("quickstart", (1000, 512, 2048))] + [
+        (f"resnet50 {lab}", mnk) for lab, mnk, _, _ in cs.resnet50_shapes()
+        if mnk[0] > 16]
+    for label, (m, n, k) in shapes:
+        a, b, d, shift = cs.datapath_operands(torch, gen, f16, (m, k), (k, n),
+                                              n)
+        kw = dict(acc_dtype=torch.float32, out_dtype=f16, shift=shift,
+                  activation=Activation.RELU)
+        for kernel, fn in (("gemm[fp16]", kg.gemm_os),
+                           ("gemm_ws", kg.gemm_ws)):
+            if kernel == "gemm_ws" and label != "quickstart":
+                continue
+            out.append((kernel, f"fp16 {label} M={m} N={n} K={k}", "fp16",
+                        lambda a=a, b=b, d=d, kw=kw, fn=fn: fn(a, b, d, **kw),
+                        lambda a=a, b=b, d=d, kw=kw: gemm_ref(a, b, d, **kw),
+                        lambda a=a, b=b: torch.matmul(a, b),
+                        (2 * (m * k + k * n + m * n) + 4 * n,
+                         2.0 * m * n * k)))
+    return out
 
 
 def attention_cases(torch):
@@ -194,6 +232,49 @@ def ssd_cases(torch, cs):
                             km.ssd_plain(x, dt, a, b, c, **kw)[0], None,
                         (nbytes, cs.ssd_flops(t, h, p, g, n, cfg.ssm_chunk,
                                               resume))))
+    return out + ssd32_cases(torch, cs, gen)
+
+
+def ssd32_cases(torch, cs, gen):
+    """The fp32 chunked SSD at mamba2-1.3b's and hymba-1.5b's widths: T =
+    256 fresh (phases 7-8's fp32 logits), 256 resumed and 1000 fresh (four
+    launches); y and the final state held against the fp64 recurrence
+    within ``fp32_tolerance`` (``chip_smoke.ssd32_check``)."""
+    from repro_torch import configs
+    from repro_torch.kernels import mamba2 as km
+
+    f32 = torch.float32
+    out = []
+    for arch in ("mamba2-1.3b", "hymba-1.5b"):
+        cfg = configs.get(arch)
+        h, p, g, n = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups, \
+            cfg.d_state
+        chunk = cfg.ssm_chunk
+        for t, resume in ((256, False), (256, True), (1000, False)):
+            def randn(*shape, scale=1.0):
+                return torch.randn(shape, generator=gen, device="cuda",
+                                   dtype=f32) * scale
+            x = randn(1, t, h, p)
+            b, c = randn(1, t, g, n, scale=0.3), randn(1, t, g, n, scale=0.3)
+            dt = torch.nn.functional.softplus(randn(1, t, h))
+            a_log = torch.log(torch.linspace(1.0, 16.0, h, device="cuda"))
+            d_skip = torch.ones((h,), device="cuda")
+            init = randn(1, h, n, p, scale=0.5) if resume else None
+            kw = dict(d_skip=d_skip, chunk=chunk, initial_state=init,
+                      return_final_state=True)
+            label = f"fp32 {arch} T={t} {'resumed' if resume else 'fresh'}"
+            nbytes = (4 * 2 * t * h * p + 4 * 2 * t * g * n + 4 * t * h +
+                      8 * h + 4 * h * n * p * (2 if resume else 1))
+            out.append(("ssd", label, "fp32",
+                        lambda x=x, b=b, c=c, dt=dt, a=a_log, kw=kw:
+                            km.ssd(x, dt, a, b, c, **kw),
+                        lambda x=x, b=b, c=c, dt=dt, a=a_log, kw=kw:
+                            km.ssd_plain(x, dt, a, b, c, **kw), None,
+                        (nbytes, cs.ssd_flops(t, h, p, g, n, chunk, resume)),
+                        lambda got, x=x, b=b, c=c, dt=dt, a=a_log, d=d_skip,
+                        init=init, label=label, chunk=chunk:
+                            cs.ssd32_check(torch, f"ssd {label}", got, x, dt,
+                                           a, b, c, d, init, chunk)))
     return out
 
 
@@ -416,6 +497,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.join(ROOT, "tests"))     # _ssd_exact
     import chip_smoke as cs
     sys.path.insert(0, os.path.abspath(args.src))
     from repro_torch import configs
@@ -435,15 +517,20 @@ def main() -> int:
     if args.only == "conv":
         cases += conv_cases(torch, cs)
     rows = []
-    for kernel, label, kind, run_k, run_p, run_lib, work in cases:
+    for kernel, label, kind, run_k, run_p, run_lib, work, *held in cases:
         # A timing tool reports a miss and goes on (``chip_smoke.py`` is the
         # gate): an older checkout's kernel is timed even where it misses.
+        # ``held``: a check of the kernel's own (the fp32 SSD's, against
+        # the fp64 recurrence) in place of the plain version's rule.
         try:
-            err, check = cs.check_close(torch, f"{kernel} {label}", run_k(),
-                                        run_p(), kind), "ok"
+            err, check = (held[0](run_k()) if held else cs.check_close(
+                torch, f"{kernel} {label}", run_k(), run_p(), kind)), "ok"
         except SystemExit:
-            got, want = run_k().float(), run_p().float()
-            err, check = (got - want).abs().max().item(), "outside tolerance"
+            got, want = run_k(), run_p()
+            if isinstance(got, tuple):
+                got, want = got[0], want[0]
+            err = (got.float() - want.float()).abs().max().item()
+            check = "outside tolerance"
         row = {"kernel": kernel, "shape": label, "max_abs_err": err,
                "check": check, "ms": timer(run_k),
                "enqueue_us": enqueue_us(torch, run_k)}
