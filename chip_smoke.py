@@ -26,9 +26,9 @@ Needs one CUDA card, ``nvcc`` and the repository checkout around this file
    conv on the card are logged), int16 bit-exact. Times are
    CUDA-event medians with the L2 cache flushed before each launch;
    bounds use 3.35 TB/s and 989 TFLOP/s (bf16 / fp16 tensor rate; 67
-   TFLOP/s for fp32 inputs, 1979 TOP/s for int8, and for int16 the INT32
-   multiply-add rate of the card's CUDA cores, 64 lanes an SM at its
-   maximum SM clock);
+   TFLOP/s for fp32 inputs, 1979 TOP/s for int8, and for int16 the int8
+   tensor rate over the four byte-plane products an int16 product takes
+   there, 1979 / 4 TOP/s);
 4. serve: gemma3-1b at full width (26 layers, random weights from a seed)
    through ``ServingEngine``: four requests, prompts of 1000, 512, 300 and
    64 tokens, 32 new tokens each, 256-token prefill chunks; launch counts
@@ -90,9 +90,10 @@ flash attention at hymba-1.5b's first chunk (bf16, and fp32 as phase 8's
 fp32 logits run it) and in fp32 at phase 9's prompts (the CUDA-core
 kernel that the fp32 gate runs; SDPA beside each row without a softcap,
 under the window's mask where it cuts keys), paged prefill at
-hymba-1.5b's continuation chunk (T=256 at 768, GQA 25 / 5, window 1024)
-and in fp32 at the gate's last chunks, the fp32 SSD at mamba2-1.3b's
-and hymba-1.5b's widths (phases 7-8's fp32 prompt, 256 tokens fresh; a
+hymba-1.5b's continuation chunk (T=256 at 768, GQA 25 / 5, window 1024;
+bf16 and fp32) and in fp32 at the gate's last chunks, the fp32 SSD at
+mamba2-1.3b's and hymba-1.5b's widths (phases 7-8's fp32 prompt, 256
+tokens fresh; a
 resumed chunk; 1000 tokens fresh; y and final state against the fp64
 recurrence), and logs each redesigned kernel's grid and
 ``ptxas`` registers and spills; each bf16 paged prefill row also times the
@@ -137,12 +138,13 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
 HBM_BYTES_PER_S = 3.35e12
 # Peaks by check kind: the tensor-core rates (bf16 and fp16 989 TFLOP/s,
-# int8 1979 TOP/s), fp32 on CUDA cores 67 TFLOP/s, and int16 on CUDA cores:
-# no int16 tensor-core MMA, so the INT32 multiply-add rate, 64 lanes an SM
-# at 2 operations each; 132 SMs at 1.98 GHz here, replaced in ``main`` by
-# the card's SM count and maximum SM clock.
+# int8 1979 TOP/s), fp32 on CUDA cores 67 TFLOP/s, and int16: Hopper has no
+# int16 MMA, but an int16 product is exact as four int8 products of byte
+# planes (signed high x signed high, the two mixed, unsigned low x
+# unsigned low; ``csrc/igemm.cuh``), so the card's least time is the int8
+# tensor rate over four, 1979 / 4 TOP/s.
 PEAK_FLOPS = {"bf16": 989e12, "fp16": 989e12, "fp32": 67e12, "int": 1979e12,
-              "int16": 64 * 2 * 132 * 1.98e9}
+              "int16": 1979e12 / 4}
 REPS = 25
 
 # Full-width logits, card against the CPU plain path. fp32: each limit sits
@@ -290,6 +292,29 @@ def flash_grid(t_q, t_k, h, dh, window):
     while cl < 4 and cl * 4 < most:
         cl *= 2
     return cl, cl * -(-t_q // 16) * h
+
+
+def f32_grid(t_q, t_k, h, kvh, dh, causal, window, sms=132):
+    """The fp32 flash kernel's grid (``f32_plan`` in ``attention.cu``):
+    row tiles of 8 x RPL (position, query head) pairs of one kv head (RPL
+    4, 2, 1 for D <= 64, 128, 256), position-major, x kv heads, in
+    clusters of 1-4 blocks of 4 warps, doubled while the busiest tile's
+    16-key tiles outnumber the cluster's warps and the grid is short of
+    the SMs."""
+    rb = 8 * (4 if dh <= 64 else 2 if dh == 128 else 1)
+    g, off = h // kvh, t_k - t_q
+    nrb = -(-t_q * g // rb)
+    most = 0
+    for rb0 in range(0, t_q * g, rb):
+        p0, p1 = off + rb0 // g, off + (min(rb0 + rb, t_q * g) - 1) // g
+        lo = max(0, p0 - window + 1) if window else 0
+        hi = min(t_k, p1 + 1) if causal else t_k
+        if hi > lo:
+            most = max(most, -(-hi // 16) - lo // 16)
+    cl = 1
+    while cl < 4 and cl * 4 < most and nrb * kvh * cl < sms:
+        cl *= 2
+    return f"{cl * nrb * kvh} blocks of {rb} rows, clusters of {cl}"
 
 
 GEMM_ROWS = (4, 64, 256)   # decode (4 slots), a short prompt, a chunk
@@ -460,7 +485,7 @@ def kernel_cases(torch, rng_seed=0):
             cl, blocks = flash_grid(t_q, t_k, h, dh, window)
             grid = f"{blocks} blocks, clusters of {cl}"
         else:
-            grid = f"{-(-t_q // 64) * h} blocks (CUDA cores)"
+            grid = f32_grid(t_q, t_k, h, kvh, dh, True, window)
         cases.append(("flash_attention",
                       f"{kind} Tq={t_q} Tk={t_k} H={h} KVH={kvh} D={dh} "
                       f"window={window} softcap={softcap}", rep, kind,
@@ -520,6 +545,8 @@ def kernel_cases(torch, rng_seed=0):
         if dtype == bf16:
             cl, blocks = flash_grid(t, start + t, h, dh, window)
             opts["grid"] = f"{blocks} blocks, clusters of {cl}"
+        else:
+            opts["grid"] = f32_grid(t, start + t, h, kvh, dh, True, window)
         cases.append(("paged_prefill_attention",
                       f"{'fp32 ' if dtype == f32 else ''}T={t} start={start} "
                       f"H={h} KVH={kvh} D={dh} kv_pages={kv_pages} "
@@ -540,6 +567,9 @@ def kernel_cases(torch, rng_seed=0):
     # 768, GQA 25 / 5, head dim 64, its 1024-token window
     prefill_case(256, 768, hy.n_heads, hy.n_kv_heads, hy.head_dim, 64, 128,
                  16, hy.local_window, None, False)
+    # and in fp32 (the CUDA-core kernel on hymba's widths)
+    prefill_case(256, 768, hy.n_heads, hy.n_kv_heads, hy.head_dim, 64, 128,
+                 16, hy.local_window, None, False, dtype=f32)
     # phase 9's gate in fp32 (the CUDA-core kernel): each attention arch's
     # last continuation chunk of its longest prompt, as the gate's engine
     # runs it (page 16, 24 pages, chunks of sd.PREFILL_CHUNK)
@@ -1321,9 +1351,9 @@ _KERNEL_NAMES = (("ssd_kernel", "ssd"), ("ssd_tc_kernel", "ssd"),
                  ("epilogue_kernel", "accumulator_epilogue"),
                  ("hgemm::skinny_kernel", "gemm"),
                  ("hgemm::wide_kernel", "gemm"), ("sgemm_kernel", "gemm"),
+                 ("igemm::kernel<short", "gemm"),
                  ("MatrixA", "gemm[int8]"),
-                 ("true>", "paged_prefill_attention"),
-                 ("prefill_attn_kernel", "flash_attention"))
+                 ("flash_f32_kernel", "flash_attention"))
 
 # Each launch counter of ``repro_torch.kernels.launch_counts`` by the
 # kernel class its launches show up as; "gemm_ws" counts a GEMM in WS
@@ -2240,16 +2270,6 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}; python {sys.version.split()[0]}")
-    # int16 on CUDA cores: 64 INT32 multiply-add lanes an SM at the card's
-    # maximum SM clock
-    clock_mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.split()[0])
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    PEAK_FLOPS["int16"] = 64 * 2 * sms * clock_mhz * 1e6
-    log(f"int16 peak: 64 lanes x 2 ops x {sms} SMs x {clock_mhz:.0f} MHz "
-        f"= {PEAK_FLOPS['int16'] / 1e12:.2f} TOP/s")
 
     # 2. build
     t0 = time.perf_counter()
@@ -2263,11 +2283,11 @@ def main() -> int:
              for name in secs}
     # the redesigned kernels: instantiations, registers and spills per
     # kernel and source (each entry's lines in chip_smoke.json)
-    for src, names in (("attention", ("flash_tc_kernel", "decode_split_kernel")),
+    for src, names in (("attention", ("flash_tc_kernel", "flash_f32_kernel",
+                                      "decode_split_kernel")),
                        ("gemm", ("skinny_kernel", "wide_kernel",
                                  "sgemm_kernel", "igemm")),
-                       ("gemm16", ("skinny_kernel", "wide_kernel",
-                                   "sgemm_kernel")),
+                       ("gemm16", ("skinny_kernel", "wide_kernel", "igemm")),
                        ("conv", ("igemm", "sgemm_kernel")),
                        ("ssd", ("ssd_tc_kernel", "ssd_kernel"))):
         log(f"ptxas {src}: " + ptxas_summary(ptxas.get(src, []), names))

@@ -5,9 +5,9 @@
 // Replaces, in src/repro/kernels/attention.py, and the kernel each entry
 // point reaches per dtype:
 //   flash_attention          (_attn_kernel)          bf16 -> flash_tc_kernel<D, DenseKV>
-//                                                    fp32 -> prefill_attn_kernel<D, false>
+//                                                    fp32 -> flash_f32_kernel<D, DenseKV32>
 //   paged_prefill_attention  (_paged_prefill_kernel) bf16 -> flash_tc_kernel<D, PagedKV>
-//                                                    fp32 -> prefill_attn_kernel<D, true>
+//                                                    fp32 -> flash_f32_kernel<D, PagedKV32>
 //   paged_decode_attention   (_paged_decode_kernel)  both -> decode_split_kernel<D, T, REP, PagedDecodeKV>
 //   decode_attention         (_decode_kernel)        both -> decode_split_kernel<D, T, REP, DenseDecodeKV>
 //
@@ -47,10 +47,24 @@
 //    finds each key row's page once per row of a tile -- lanes look up
 //    their rows, the 16-byte chunks take the row by shuffle -- so pages
 //    smaller than a key tile cost nothing more.
-//  * prefill_attn_kernel (fp32 flash, fp32 paged prefill): CUDA-core fp32 FMAs
-//    (IEEE fp32, which the tensor cores do not offer), a 64-row query tile
-//    in shared memory, 32-key K/V tiles; tiles no row can see are skipped
-//    (the TPU kernels' block_live), so a local layer costs O(T * window).
+//  * flash_f32_kernel (fp32 flash, fp32 paged prefill): IEEE fp32 on the
+//    CUDA cores (the tensor cores offer no fp32; tf32-split products did
+//    not pay in the fp32 SSD). Bound by operations at hymba-1.5b's 256-row
+//    chunk (4 D pairs FLOP at 67 TFLOP/s), by latency at the gate's small
+//    ones. flash_tc_kernel's plan carried to the CUDA cores: a block owns
+//    RB = 8-32 rows (by D) of one kv head's (position, query head) pairs,
+//    position-major, so every K/V tile is read once per GQA group, not
+//    once per query head; its 4 warps, and the 1-4 blocks of its cluster
+//    where the grid is short of the SMs, split the live 16-key tiles
+//    round robin; each warp streams its K/V tiles by 16-byte cp.async,
+//    double buffered where it has more than one (paged rows find their
+//    page once per row, as PagedKV does). Scores and P V are register
+//    micro-tiles from shared memory by 16-byte reads (a lane: RPL rows x 4
+//    keys, then RPL rows x D / 4 channels; P through the warp's shared
+//    tile), every product an fmaf. The row max and sum reduce over a lane
+//    quad. Row tiles go latest first (causal rows see the most keys), dead
+//    key tiles are skipped (block_live), and the warps' and the cluster's
+//    partials merge as flash_tc_kernel's do, in a fixed order.
 //  * decode_split_kernel (dense and paged decode): bytes, and at a few
 //    sequences, latency. One query per head reads every live K/V row once;
 //    a block handles the query heads of its kv head together (up to 8), so
@@ -136,185 +150,6 @@ __device__ __forceinline__ void load_row(const T* p, float (&out)[N]) {
   } else {
 #pragma unroll
     for (int i = 0; i < N; ++i) out[i] = ld(p + i);
-  }
-}
-
-
-// ---------------------------------------------------------------------------
-// Prefill: a 64-row query tile against 32-key K/V tiles.
-// ---------------------------------------------------------------------------
-constexpr int BQ = 64;          // query rows per block
-constexpr int BKV = 32;         // keys per tile (one per lane)
-constexpr int PF_WARPS = 16;    // 4 query rows per warp
-constexpr int ROWS = BQ / PF_WARPS;
-
-struct PrefillArgs {
-  const void* q;       // (B, Tq, H, D) contiguous
-  const void* k;       // dense: (B, Tk, KVH, D); paged: pool (KVH, NPOOL, PAGE, D)
-  const void* v;
-  void* o;             // (B, Tq, H, D)
-  const int* table;    // paged: logical page -> pool page
-  long long kv_bstride, kv_tstride;   // dense K/V strides (elements)
-  int Tq, H, KVH;
-  int q_offset;        // global position of query row 0
-  int kv_len;          // live keys are [0, kv_len)
-  int causal, window;  // window 0 = global
-  int npool, page;     // paged geometry
-  float softcap;       // 0 = none
-  float scale;
-};
-
-template <int D, bool PAGED>
-__global__ void __launch_bounds__(PF_WARPS * 32)
-prefill_attn_kernel(PrefillArgs p) {
-  constexpr int DPL = (D + 31) / 32;       // channels per lane in P @ V
-  extern __shared__ float smem[];
-  float* Qs = smem;                        // [BQ][D], pre-scaled
-  float* Ks = Qs + BQ * D;                 // [BKV][D + 1]
-  float* Vs = Ks + BKV * (D + 1);          // [BKV][D]
-
-  const float* q = static_cast<const float*>(p.q);
-  const float* k = static_cast<const float*>(p.k);
-  const float* v = static_cast<const float*>(p.v);
-  float* o = static_cast<float*>(p.o);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int row0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (p.H / p.KVH);
-  const int q0 = p.q_offset + row0;        // global position of the tile
-
-  for (int e = tid; e < BQ * D; e += PF_WARPS * 32) {
-    const int r = e / D, d = e % D, gr = row0 + r;
-    Qs[e] = gr < p.Tq
-        ? ld(q + (((long long)b * p.Tq + gr) * p.H + h) * D + d) * p.scale
-        : 0.f;
-  }
-
-  // Keys any row of the tile can see; whole tiles outside are skipped.
-  int k_lo = 0, k_hi = p.kv_len;
-  if (p.window > 0) k_lo = max(0, q0 - p.window + 1);
-  if (p.causal) k_hi = min(k_hi, q0 + BQ);
-
-  float m[ROWS], l[ROWS], acc[ROWS][DPL];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    m[r] = NEG;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DPL; ++c) acc[r][c] = 0.f;
-  }
-
-  for (int k0 = (k_lo / BKV) * BKV; k0 < k_hi; k0 += BKV) {
-    __syncthreads();                       // last tile's readers are done
-    for (int e = tid; e < BKV * D; e += PF_WARPS * 32) {
-      const int kr = e / D, d = e % D, kpos = k0 + kr;
-      float kval = 0.f, vval = 0.f;
-      if (kpos < p.kv_len) {
-        long long base;
-        if constexpr (PAGED) {
-          const int pg = p.table[kpos / p.page];
-          base = (((long long)kvh * p.npool + pg) * p.page + kpos % p.page) * D;
-        } else {
-          base = (long long)b * p.kv_bstride + (long long)kpos * p.kv_tstride +
-                 (long long)kvh * D;
-        }
-        kval = ld(k + base + d);
-        vval = ld(v + base + d);
-      }
-      Ks[kr * (D + 1) + d] = kval;
-      Vs[kr * D + d] = vval;
-    }
-    __syncthreads();
-
-    // Scores: lane = key, the warp's ROWS query rows.
-    float s[ROWS];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) s[r] = 0.f;
-    const float* krow = Ks + lane * (D + 1);
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float kd = krow[d];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r)
-        s[r] = fmaf(Qs[(warp * ROWS + r) * D + d], kd, s[r]);
-    }
-
-    const int kpos = k0 + lane;
-    float pr[ROWS];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      float sv = s[r];
-      if (p.softcap > 0.f) sv = p.softcap * tanhf(sv / p.softcap);
-      const int qpos = q0 + warp * ROWS + r;
-      bool ok = kpos < p.kv_len;
-      if (p.causal) ok = ok && kpos <= qpos;
-      if (p.window > 0) ok = ok && kpos > qpos - p.window;
-      sv = ok ? sv : NEG;
-      const float m_new = fmaxf(m[r], warp_max(sv));
-      const float pv = expf(sv - m_new);
-      const float corr = expf(m[r] - m_new);
-      l[r] = l[r] * corr + warp_sum(pv);
-      m[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < DPL; ++c) acc[r][c] *= corr;
-      pr[r] = pv;
-    }
-
-    // acc += P @ V: lane owns channels lane + 32 * c.
-#pragma unroll 4
-    for (int kk = 0; kk < BKV; ++kk) {
-      float pk[ROWS];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) pk[r] = __shfl_sync(FULL, pr[r], kk);
-#pragma unroll
-      for (int c = 0; c < DPL; ++c) {
-        const int d = lane + 32 * c;
-        const float vv = d < D ? Vs[kk * D + d] : 0.f;
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) acc[r][c] = fmaf(pk[r], vv, acc[r][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    const int gr = row0 + warp * ROWS + r;
-    if (gr >= p.Tq) continue;
-    const float lf = fmaxf(l[r], 1e-37f);
-    float* out = o + (((long long)b * p.Tq + gr) * p.H + h) * D;
-#pragma unroll
-    for (int c = 0; c < DPL; ++c) {
-      const int d = lane + 32 * c;
-      if (d < D) st(out + d, acc[r][c] / lf);
-    }
-  }
-}
-
-template <int D, bool PAGED>
-cudaError_t launch_prefill(const PrefillArgs& a, int batch, cudaStream_t s) {
-  const size_t smem = sizeof(float) * (BQ * D + BKV * (D + 1) + BKV * D);
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        prefill_attn_kernel<D, PAGED>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-    configured = true;
-  }
-  dim3 grid((a.Tq + BQ - 1) / BQ, a.H, batch);
-  prefill_attn_kernel<D, PAGED><<<grid, PF_WARPS * 32, smem, s>>>(a);
-  return cudaGetLastError();
-}
-
-template <bool PAGED>
-cudaError_t prefill_by_dim(int D, const PrefillArgs& a, int batch,
-                           cudaStream_t s) {
-  switch (D) {
-    case 16: return launch_prefill<16, PAGED>(a, batch, s);
-    case 32: return launch_prefill<32, PAGED>(a, batch, s);
-    case 64: return launch_prefill<64, PAGED>(a, batch, s);
-    case 128: return launch_prefill<128, PAGED>(a, batch, s);
-    case 256: return launch_prefill<256, PAGED>(a, batch, s);
-    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -801,6 +636,501 @@ cudaError_t flash_tc_by_dim(int D, const FlashArgs& a, int batch,
 }
 
 // ---------------------------------------------------------------------------
+// flash_attention and paged_prefill_attention, fp32: CUDA cores (IEEE fp32
+// FMAs), a block per row tile of one kv head's query heads, key tiles split
+// over its warps and its cluster's blocks.
+// ---------------------------------------------------------------------------
+constexpr int F32_WARPS = 4;          // key splitters per block
+constexpr int F32_KT = 16;            // keys per tile
+constexpr int F32_KPL = F32_KT / 4;   // keys a lane
+static_assert(F32_KT % 4 == 0 && F32_KT <= 32, "a lane names a tile row");
+constexpr int F32_MAX_CLUSTER = 4;    // blocks per cluster (a power of two)
+
+// Per head dim: a lane's rows (RPL; the block's RB = 8 RPL rows keep a
+// lane's accumulators at RPL x D / 4 <= 64 floats), the padded shared rows
+// (4 floats past D or past the tile's keys: the 8 rows a quarter warp
+// reads by 16-byte vectors fall in 8 distinct bank quads), a stage of K
+// and V tiles, and the block's shared memory: Q, each warp's P tile, the
+// merge's factors, then each warp's ring of stages, whose first stage
+// holds its partial (m[RB], l[RB], acc[RB][D]) after the loop.
+template <int D>
+struct F32Tile {
+  static constexpr int RPL = D <= 64 ? 4 : D == 128 ? 2 : 1;
+  static constexpr int RB = 8 * RPL;
+  static constexpr int LD = D + 4;
+  static constexpr int LDP = F32_KT + 4;
+  static constexpr int STAGE = 2 * F32_KT * LD;             // floats
+  static constexpr int MAX_STAGES = D >= 256 ? 1 : 2;
+  static constexpr int HEAD = RB * LD + F32_WARPS * RB * LDP +
+                              (F32_WARPS + 2) * RB;         // floats
+  static constexpr int smem(int stages) {
+    return 4 * (HEAD + F32_WARPS * stages * STAGE);
+  }
+  static_assert(STAGE >= 2 * RB + RB * D, "partial must fit a stage");
+  static_assert(HEAD % 4 == 0 && D % 16 == 0, "16-byte rows");
+};
+
+struct F32Args {
+  const float* q;      // (B, Tq, H, D) contiguous
+  const float* k;      // dense: (B, Tk, KVH, D); paged: pool (KVH, NPOOL, PAGE, D)
+  const float* v;
+  float* o;            // (B, Tq, H, D)
+  const int* table;    // paged: logical page -> pool page (B = 1)
+  int Tq, H, KVH;
+  int q_offset;        // position of query row 0
+  int kv_len;          // live keys are [0, kv_len)
+  int causal, window;  // window 0 = global
+  int npool, page;     // paged geometry
+  int stages;          // K/V stages per warp: 1 or 2
+  float softcap;       // 0 = none
+  float scale;
+};
+
+// The fp32 kernel's K/V loaders, as DenseKV / PagedKV: row(kpos) names key
+// row kpos (one lookup per row of a tile), k_row / v_row its address; name
+// 0 is always a valid address.
+struct DenseKV32 {
+  const float* k;
+  const float* v;
+  long long stride;    // elements between consecutive keys
+  __device__ DenseKV32(const F32Args& p, int b, int kvh, int D)
+      : stride((long long)p.KVH * D) {
+    const long long base = (long long)b * p.kv_len * stride + (long long)kvh * D;
+    k = p.k + base;
+    v = p.v + base;
+  }
+  __device__ int row(int kpos) const { return kpos; }
+  __device__ const float* k_row(int r) const { return k + r * stride; }
+  __device__ const float* v_row(int r) const { return v + r * stride; }
+};
+
+struct PagedKV32 {
+  const float* k;
+  const float* v;
+  const int* table;
+  int page, dim;
+  __device__ PagedKV32(const F32Args& p, int, int kvh, int D)
+      : table(p.table), page(p.page), dim(D) {
+    const long long base = (long long)kvh * p.npool * p.page * D;
+    k = p.k + base;
+    v = p.v + base;
+  }
+  __device__ int row(int kpos) const {
+    return __ldg(table + kpos / page) * page + kpos % page;
+  }
+  __device__ const float* k_row(int r) const { return k + (long long)r * dim; }
+  __device__ const float* v_row(int r) const { return v + (long long)r * dim; }
+};
+
+// Rows of a block: row r is the pair (position, query head) number rb0 + r
+// of the kv head's Tq x G pairs, position-major, so a block's rows share
+// few positions and one K/V tile serves them all. Live keys [lo, hi) of
+// the rows [rb0, rb0 + RB) (the TPU kernels' block_live rule, per block).
+__host__ __device__ __forceinline__ void f32_block_keys(
+    int rb0, int rb, int G, const F32Args& a, int& lo, int& hi) {
+  const int last = (rb0 + rb < a.Tq * G ? rb0 + rb : a.Tq * G) - 1;
+  const int p0 = a.q_offset + rb0 / G, p1 = a.q_offset + last / G;
+  lo = a.window > 0 ? (p0 - a.window + 1 > 0 ? p0 - a.window + 1 : 0) : 0;
+  hi = a.causal && p1 + 1 < a.kv_len ? p1 + 1 : a.kv_len;
+}
+
+__device__ __forceinline__ float at(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+template <int D, typename Loader>
+__global__ void __launch_bounds__(F32_WARPS * 32)
+flash_f32_kernel(F32Args p) {
+  using Tl = F32Tile<D>;
+  constexpr int RPL = Tl::RPL, RB = Tl::RB, LD = Tl::LD, LDP = Tl::LDP,
+                KT = F32_KT, KPL = F32_KPL, NC = D / 16,
+                NT = F32_WARPS * 32;
+  extern __shared__ __align__(16) float f32s[];
+  float* const qs = f32s;                              // [RB][LD], scaled
+  float* const ps = qs + RB * LD;                      // [warp][RB][LDP]
+  float* const fac = ps + F32_WARPS * RB * LDP;        // [(W + 2) RB]
+  const int warp_floats = p.stages * Tl::STAGE;
+  auto warp_part = [&](int w) { return f32s + Tl::HEAD + w * warp_floats; };
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int CL = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rg = lane >> 2, kg = lane & 3;   // rows rg + 8 i, keys kg + 4 j
+  const int G = p.H / p.KVH, rows = p.Tq * G;
+  const int kvh = blockIdx.y % p.KVH, b = blockIdx.y / p.KVH;
+  const int rb0 = (gridDim.z - 1 - blockIdx.z) * RB;  // the latest rows first
+  const Loader kv(p, b, kvh, D);
+  float* const ring = warp_part(warp);
+  float* const pw = ps + warp * RB * LDP;
+  // the address of row r's head (position, query head), r < rows
+  auto row_at = [&](auto* base, int r) {
+    return base + (((long long)b * p.Tq + r / G) * p.H + kvh * G + r % G) * D;
+  };
+
+  int k_lo, k_hi;
+  f32_block_keys(rb0, RB, G, p, k_lo, k_hi);
+  const int t_end = k_hi > k_lo ? (k_hi + KT - 1) / KT : 0;
+  const int n_split = CL * F32_WARPS;
+  // Lane j < KT names row j of key tile t (one lookup); the lanes copying a
+  // row's 16-byte chunks take its name by shuffle. Keys no row of the
+  // block can see are never looked up or read: zero-filled (and masked).
+  auto name_of = [&](int tile) {
+    const int kl = tile * KT + (lane & (KT - 1));
+    return lane < KT && kl >= k_lo && kl < k_hi ? kv.row(kl) : 0;
+  };
+  int t = k_lo / KT + rank * F32_WARPS + warp, stage = 0;
+  const int name0 = t < t_end ? name_of(t) : 0;  // (paged: in flight with Q)
+
+  // Q by 16-byte cp.async (rows past the last zero-filled), in flight
+  // beside the first K/V tile; each thread scales the chunks it copied.
+  for (int e = threadIdx.x; e < RB * D / 4; e += NT) {
+    const int r = e / (D / 4), c = (e % (D / 4)) * 4;
+    const bool ok = rb0 + r < rows;
+    cp_async16(qs + r * LD + c, ok ? row_at(p.q, rb0 + r) + c : p.q, ok);
+  }
+  cp_async_commit();
+  int qpos[RPL];       // rows past the last take the last position
+#pragma unroll
+  for (int i = 0; i < RPL; ++i) {
+    const int r = rb0 + rg + 8 * i;
+    qpos[i] = p.q_offset + (r < rows ? r / G : p.Tq - 1);
+  }
+
+  // Keys every row of the block sees, [all_lo, all_hi): tiles inside need
+  // no mask.
+  const int p_last = p.q_offset + (min(rb0 + RB, rows) - 1) / G;
+  const int all_lo = p.window > 0 ? p_last - p.window + 1 : 0;
+  const int all_hi = p.causal ? min(p.kv_len, p.q_offset + rb0 / G + 1)
+                              : p.kv_len;
+
+  auto load_tile = [&](int tile, int slot, int name) {
+    float* ks = ring + slot * Tl::STAGE;
+    float* vs = ks + KT * LD;
+#pragma unroll
+    for (int c = lane; c < KT * D / 4; c += 32) {
+      const int r = c / (D / 4), col = (c % (D / 4)) * 4;
+      const int kpos = tile * KT + r;
+      const bool ok = kpos >= k_lo && kpos < k_hi;
+      const int nm = __shfl_sync(FULL, name, r);
+      cp_async16(ks + r * LD + col, kv.k_row(nm) + col, ok);
+      cp_async16(vs + r * LD + col, kv.v_row(nm) + col, ok);
+    }
+  };
+
+  float acc[RPL][NC][4], m[RPL], l[RPL];
+#pragma unroll
+  for (int i = 0; i < RPL; ++i) {
+    m[i] = NEG;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      acc[i][c][0] = acc[i][c][1] = acc[i][c][2] = acc[i][c][3] = 0.f;
+  }
+
+  if (t < t_end) load_tile(t, 0, name0);
+  cp_async_commit();
+  cp_async_wait<1>();                     // this thread's Q chunks
+  for (int e = threadIdx.x; e < RB * D / 4; e += NT) {
+    float4* x = reinterpret_cast<float4*>(qs + (e / (D / 4)) * LD +
+                                          (e % (D / 4)) * 4);
+    float4 y = *x;
+    y.x *= p.scale; y.y *= p.scale; y.z *= p.scale; y.w *= p.scale;
+    *x = y;
+  }
+  __syncthreads();                        // Q is every warp's
+  for (; t < t_end; t += n_split) {
+    const int next = t + n_split;
+    if (p.stages == 2 && next < t_end)
+      load_tile(next, stage ^ 1, name_of(next));
+    cp_async_commit();
+    if (p.stages == 2) cp_async_wait<1>();  // tile t has landed
+    else cp_async_wait<0>();
+    __syncwarp();
+    const float* ks = ring + stage * Tl::STAGE;
+    const float* vs = ks + KT * LD;
+
+    // S = Q K^T as an RPL x KPL micro-tile a lane: per 4 channels, RPL +
+    // KPL vector reads feed 4 RPL KPL FMAs; each score one fmaf chain
+    // over d.
+    float s[RPL][KPL];
+#pragma unroll
+    for (int i = 0; i < RPL; ++i)
+#pragma unroll
+      for (int j = 0; j < KPL; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      float4 qv[RPL], kv4[KPL];
+#pragma unroll
+      for (int i = 0; i < RPL; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(qs + (rg + 8 * i) * LD + d);
+#pragma unroll
+      for (int j = 0; j < KPL; ++j)
+        kv4[j] = *reinterpret_cast<const float4*>(ks + (kg + 4 * j) * LD + d);
+#pragma unroll
+      for (int i = 0; i < RPL; ++i)
+#pragma unroll
+        for (int j = 0; j < KPL; ++j) {
+          s[i][j] = fmaf(qv[i].x, kv4[j].x, s[i][j]);
+          s[i][j] = fmaf(qv[i].y, kv4[j].y, s[i][j]);
+          s[i][j] = fmaf(qv[i].z, kv4[j].z, s[i][j]);
+          s[i][j] = fmaf(qv[i].w, kv4[j].w, s[i][j]);
+        }
+    }
+
+    // Softcap and mask (a tile every row sees whole needs none); online
+    // softmax per row over its lane quad; P to the warp's shared tile.
+    const bool whole = t * KT >= all_lo && t * KT + KT <= all_hi;
+#pragma unroll
+    for (int i = 0; i < RPL; ++i) {
+      float mx = m[i];
+#pragma unroll
+      for (int j = 0; j < KPL; ++j) {
+        float x = s[i][j];
+        if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap);
+        if (!whole) {
+          const int kpos = t * KT + kg + 4 * j;
+          bool ok = kpos < p.kv_len;
+          if (p.causal) ok = ok && kpos <= qpos[i];
+          if (p.window > 0) ok = ok && kpos > qpos[i] - p.window;
+          x = ok ? x : NEG;
+        }
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+      const float corr = expf(m[i] - mx);
+      m[i] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < KPL; ++j) {
+        const float e = expf(s[i][j] - mx);
+        sum += e;
+        pw[(rg + 8 * i) * LDP + kg + 4 * j] = e;
+      }
+      l[i] = l[i] * corr + sum;           // this lane's share of the row
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        acc[i][c][0] *= corr; acc[i][c][1] *= corr;
+        acc[i][c][2] *= corr; acc[i][c][3] *= corr;
+      }
+    }
+    __syncwarp();
+
+    // acc += P V as an RPL x (4 x NC) micro-tile a lane (channels 4 kg +
+    // 16 c, + 3): per 4 keys, RPL + 4 NC vector reads feed 16 RPL NC FMAs;
+    // keys in order.
+#pragma unroll
+    for (int k4 = 0; k4 < KT; k4 += 4) {
+      float4 pv[RPL];
+#pragma unroll
+      for (int i = 0; i < RPL; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(pw + (rg + 8 * i) * LDP + k4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float* vrow = vs + (k4 + e) * LD + 4 * kg;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const float4 vv = *reinterpret_cast<const float4*>(vrow + 16 * c);
+#pragma unroll
+          for (int i = 0; i < RPL; ++i) {
+            const float pk = at(pv[i], e);
+            acc[i][c][0] = fmaf(pk, vv.x, acc[i][c][0]);
+            acc[i][c][1] = fmaf(pk, vv.y, acc[i][c][1]);
+            acc[i][c][2] = fmaf(pk, vv.z, acc[i][c][2]);
+            acc[i][c][3] = fmaf(pk, vv.w, acc[i][c][3]);
+          }
+        }
+      }
+    }
+    __syncwarp();                         // stage and P are free again
+    if (p.stages == 2) stage ^= 1;
+    else if (next < t_end) load_tile(next, 0, name_of(next));
+  }
+  cp_async_wait<0>();
+  __syncwarp();
+
+  // This warp's partial over its tiles, in its first stage. A warp that
+  // saw no live key of a row holds m = NEG there and weighs 0.
+#pragma unroll
+  for (int i = 0; i < RPL; ++i) {
+    l[i] += __shfl_xor_sync(FULL, l[i], 1);
+    l[i] += __shfl_xor_sync(FULL, l[i], 2);
+    if (kg == 0) {
+      ring[rg + 8 * i] = m[i];
+      ring[RB + rg + 8 * i] = l[i];
+    }
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      *reinterpret_cast<float4*>(ring + 2 * RB + (rg + 8 * i) * D + 4 * kg +
+                                 16 * c) =
+          make_float4(acc[i][c][0], acc[i][c][1], acc[i][c][2], acc[i][c][3]);
+  }
+  __syncthreads();
+
+  // Merge the block's warps in warp order into warp 0's partial, in
+  // place: each element is read and written by one thread.
+  if (threadIdx.x < RB) {
+    const int row = threadIdx.x;
+    float mm = NEG;
+#pragma unroll
+    for (int w = 0; w < F32_WARPS; ++w) mm = fmaxf(mm, warp_part(w)[row]);
+    float ls = 0.f;
+#pragma unroll
+    for (int w = 0; w < F32_WARPS; ++w) {
+      const float f = expf(warp_part(w)[row] - mm);
+      fac[w * RB + row] = f;
+      ls += warp_part(w)[RB + row] * f;
+    }
+    fac[F32_WARPS * RB + row] = mm;
+    fac[(F32_WARPS + 1) * RB + row] = ls;
+  }
+  __syncthreads();
+  float* blk = warp_part(0);
+  for (int e = threadIdx.x * 4; e < RB * D; e += NT * 4) {
+    const int row = e / D;
+    float4 a = *reinterpret_cast<const float4*>(blk + 2 * RB + e);
+    const float f0 = fac[row];
+    a.x *= f0; a.y *= f0; a.z *= f0; a.w *= f0;
+#pragma unroll
+    for (int w = 1; w < F32_WARPS; ++w) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(warp_part(w) + 2 * RB + e);
+      const float f = fac[w * RB + row];
+      a.x += v.x * f; a.y += v.y * f; a.z += v.z * f; a.w += v.w * f;
+    }
+    *reinterpret_cast<float4*>(blk + 2 * RB + e) = a;
+  }
+  if (threadIdx.x < RB) {
+    blk[threadIdx.x] = fac[F32_WARPS * RB + threadIdx.x];
+    blk[RB + threadIdx.x] = fac[(F32_WARPS + 1) * RB + threadIdx.x];
+  }
+  if (CL > 1) cluster.sync();
+  else __syncthreads();
+
+  // Merge the cluster's block partials in rank order over distributed
+  // shared memory; block `rank` finalizes the columns [rank * D / CL,
+  // (rank + 1) * D / CL), four at a time.
+  const int cols = D / CL, c0 = rank * cols;
+  for (int e = threadIdx.x; e < RB * cols / 4; e += NT) {
+    const int row = e / (cols / 4), c = c0 + (e % (cols / 4)) * 4;
+    float mb[F32_MAX_CLUSTER], lb[F32_MAX_CLUSTER];
+    float4 ab[F32_MAX_CLUSTER];
+#pragma unroll
+    for (int r = 0; r < F32_MAX_CLUSTER; ++r) {
+      if (r < CL) {
+        const float* pr = CL > 1 ? cluster.map_shared_rank(blk, r) : blk;
+        mb[r] = pr[row];
+        lb[r] = pr[RB + row];
+        ab[r] = *reinterpret_cast<const float4*>(pr + 2 * RB + row * D + c);
+      }
+    }
+    if (rb0 + row >= rows) continue;
+    float mm = NEG;
+#pragma unroll
+    for (int r = 0; r < F32_MAX_CLUSTER; ++r)
+      if (r < CL) mm = fmaxf(mm, mb[r]);
+    float ls = 0.f;
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int r = 0; r < F32_MAX_CLUSTER; ++r) {
+      if (r < CL) {
+        const float f = expf(mb[r] - mm);
+        ls += lb[r] * f;
+        o.x += ab[r].x * f; o.y += ab[r].y * f;
+        o.z += ab[r].z * f; o.w += ab[r].w * f;
+      }
+    }
+    ls = fmaxf(ls, 1e-37f);
+    *reinterpret_cast<float4*>(row_at(p.o, rb0 + row) + c) =
+        make_float4(o.x / ls, o.y / ls, o.z / ls, o.w / ls);
+  }
+  if (CL > 1) cluster.sync();             // peers stop reading our partials
+}
+
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
+
+// The fp32 kernel's grid: row tiles (nrb) x kv heads x sequences, in
+// clusters of cl blocks. The busiest row tile's key tiles go one to a warp
+// where the block's warps alone are too few, doubling the cluster (at most
+// F32_MAX_CLUSTER) while the grid is short of the SMs; a warp streams two
+// stages where it has more than one tile (one for D = 256).
+template <int D>
+int f32_plan(const F32Args& a, int batch, int& nrb, int& stages) {
+  constexpr int RB = F32Tile<D>::RB;
+  const int G = a.H / a.KVH;
+  nrb = (a.Tq * G + RB - 1) / RB;
+  int most = 0;
+  for (int rb0 = 0; rb0 < a.Tq * G; rb0 += RB) {
+    int lo, hi;
+    f32_block_keys(rb0, RB, G, a, lo, hi);
+    if (hi > lo) {
+      const int n = (hi + F32_KT - 1) / F32_KT - lo / F32_KT;
+      most = n > most ? n : most;
+    }
+  }
+  const long long blocks = (long long)nrb * a.KVH * batch;
+  int cl = 1;
+  while (cl < F32_MAX_CLUSTER && cl * F32_WARPS < most &&
+         blocks * cl < sm_count())
+    cl *= 2;
+  stages = F32Tile<D>::MAX_STAGES > 1 && most > cl * F32_WARPS ? 2 : 1;
+  return cl;
+}
+
+template <int D, typename Loader>
+cudaError_t launch_f32(F32Args a, int batch, cudaStream_t s) {
+  int nrb;
+  const int cl = f32_plan<D>(a, batch, nrb, a.stages);
+  if (nrb == 0 || batch == 0) return cudaSuccess;
+  if (nrb > 65535 || (long long)a.KVH * batch > 65535)
+    return cudaErrorInvalidValue;
+  auto kernel = flash_f32_kernel<D, Loader>;
+  static bool configured = false;     // per instantiation: per loader
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        F32Tile<D>::smem(F32Tile<D>::MAX_STAGES));
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cl, a.KVH * batch, nrb);
+  cfg.blockDim = dim3(F32_WARPS * 32);
+  cfg.dynamicSmemBytes = F32Tile<D>::smem(a.stages);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cl > 1 ? 1 : 0;   // a launch without clusters is one of 1
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+template <typename Loader>
+cudaError_t f32_by_dim(int D, const F32Args& a, int batch, cudaStream_t s) {
+  switch (D) {
+    case 16: return launch_f32<16, Loader>(a, batch, s);
+    case 32: return launch_f32<32, Loader>(a, batch, s);
+    case 64: return launch_f32<64, Loader>(a, batch, s);
+    case 128: return launch_f32<128, Loader>(a, batch, s);
+    case 256: return launch_f32<256, Loader>(a, batch, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Decode, dense and paged: the live keys split over blocks, merged in the
 // same launch.
 // ---------------------------------------------------------------------------
@@ -1209,20 +1539,21 @@ extern "C" int flash_attention_launch(
     a.causal = causal; a.window = window; a.softcap = softcap; a.scale = scale;
     return (int)flash_tc_by_dim<DenseKV>(D, a, B, s);
   }
-  PrefillArgs a{};
-  a.q = q; a.k = k; a.v = v; a.o = o; a.table = nullptr;
-  a.kv_tstride = (long long)KVH * D;
-  a.kv_bstride = (long long)Tk * KVH * D;
+  F32Args a{};
+  a.q = static_cast<const float*>(q); a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v); a.o = static_cast<float*>(o);
+  a.table = nullptr;
   a.Tq = Tq; a.H = H; a.KVH = KVH;
   a.q_offset = Tk - Tq; a.kv_len = Tk;
   a.causal = causal; a.window = window; a.npool = 0; a.page = 1;
   a.softcap = softcap; a.scale = scale;
-  return (int)prefill_by_dim<false>(D, a, B, s);
+  return (int)f32_by_dim<DenseKV32>(D, a, B, s);
 }
 
 // bf16: the tensor-core flash kernel through PagedKV, the queries at
 // [start, start + Tq), keys [0, start + Tq); its grid and cluster come
-// from these arguments alone. fp32: the CUDA-core kernel (IEEE fp32).
+// from these arguments alone. fp32: the CUDA-core flash kernel through
+// PagedKV32 (IEEE fp32), likewise.
 extern "C" int paged_prefill_launch(
     const void* q, const void* k_pool, const void* v_pool, const int* table,
     void* o, int Tq, int start, int H, int KVH, int D, int npool, int page,
@@ -1239,14 +1570,17 @@ extern "C" int paged_prefill_launch(
     a.causal = 1; a.window = window; a.softcap = softcap; a.scale = scale;
     return (int)flash_tc_by_dim<PagedKV>(D, a, 1, s);
   }
-  PrefillArgs a{};
-  a.q = q; a.k = k_pool; a.v = v_pool; a.o = o; a.table = table;
-  a.kv_bstride = 0; a.kv_tstride = 0;
+  F32Args a{};
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k_pool);
+  a.v = static_cast<const float*>(v_pool);
+  a.o = static_cast<float*>(o);
+  a.table = table;
   a.Tq = Tq; a.H = H; a.KVH = KVH;
   a.q_offset = start; a.kv_len = start + Tq;
   a.causal = 1; a.window = window; a.npool = npool; a.page = page;
   a.softcap = softcap; a.scale = scale;
-  return (int)prefill_by_dim<true>(D, a, 1, s);
+  return (int)f32_by_dim<PagedKV32>(D, a, 1, s);
 }
 
 // The split decode kernel's plan for a dense call (see decode_plan) and for

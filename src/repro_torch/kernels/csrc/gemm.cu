@@ -26,9 +26,9 @@
 // tiles leave SMs idle); int8 runs on the int8 tensor cores (igemm.cuh:
 // mma.sync s8 fed by a cp.async ring, tiles and K splits from the shape,
 // every int32 add wrapping, the tile staged through shared memory for the
-// bias and the epilogue). fp16 and int16 inputs run the same headers'
-// fp16 and int16 instantiations from gemm16.cu, a source of their own so
-// that its build runs beside this one. Float inputs store fp32, bf16 or
+// bias and the epilogue). fp16 and int16 inputs run hgemm.cuh's fp16 and
+// igemm.cuh's int16 (byte-plane) instantiations from gemm16.cu, a source
+// of their own so that its build runs beside this one. Float inputs store fp32, bf16 or
 // fp16; int8 inputs int32, int8 or int16. Ragged M, N and K edges are
 // masked here; callers pass operands at their true size.
 //
@@ -137,22 +137,29 @@ extern "C" int gemm_launch(const void* a, const void* b, const void* d, void* c,
 // The kernel's plan for an (M, N, K) call with fp32 (in_dtype 0), bf16
 // (1), fp16 (2) or int16 (3) inputs on the current device, B row-major
 // (b_trans 0) or read as a transpose (1); launches nothing. bf16 and fp16
-// take the same plan (hgemm.cuh's, from the shape alone), fp32 and int16
-// sgemm.cuh's tiles and splits. plan: [0] regime (0 skinny, 1 wide, 2 fp32
-// CUDA cores, 3 int16 CUDA cores), [1] block rows, [2] block columns, [3] k
-// per stage, [4] K splits, [5] blocks, [6] threads per block, [7] ring
-// stages, [8] shared memory bytes, [9] workspace 4-byte words (0 for one
-// split).
+// take the same plan (hgemm.cuh's, from the shape alone), fp32
+// sgemm.cuh's tiles and splits, int16 igemm.cuh's (the int8 plan over 2 K
+// bytes). plan: [0] regime (0 skinny: mma.sync split K for bf16 / fp16,
+// 16 x 64 tiles for int16; 1 wide; 2 fp32 CUDA cores; 3 square: int16's 64
+// x 64 tiles), [1] block rows, [2] block columns, [3] k per stage, [4] K
+// splits, [5] blocks, [6] threads per block, [7] ring stages, [8] shared
+// memory bytes, [9] workspace 4-byte words (0 for one split).
 extern "C" int gemm_plan(int m, int n, int k, int b_trans, int in_dtype,
                          long long* plan) {
   if (m < 0 || n < 0 || k < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (in_dtype == DT_F32 || in_dtype == DT_I16) {
+  if (in_dtype == DT_F32) {
     const sgemm::Plan p =
-        in_dtype == DT_F32
-            ? sgemm::plan<float>(m, n, k, b_trans, hgemm::sm_count())
-            : sgemm::plan<int16_t>(m, n, k, b_trans, hgemm::sm_count());
-    const long long out[10] = {in_dtype == DT_F32 ? 2 : 3,
-                               p.bm,     p.bn,      p.bk,
+        sgemm::plan<float>(m, n, k, b_trans, hgemm::sm_count());
+    const long long out[10] = {2,        p.bm,     p.bn,      p.bk,
+                               p.splits, p.blocks, p.threads, p.stages,
+                               p.smem,   p.ws_words};
+    for (int i = 0; i < 10; ++i) plan[i] = out[i];
+    return 0;
+  }
+  if (in_dtype == DT_I16) {
+    const igemm::Plan p = igemm::plan_here(m, n, k, b_trans, 2);
+    const long long out[10] = {p.regime == igemm::SKINNY ? 0 : 3,
+                               p.bm,     p.bn,     igemm::BK / 2,
                                p.splits, p.blocks, p.threads, p.stages,
                                p.smem,   p.ws_words};
     for (int i = 0; i < 10; ++i) plan[i] = out[i];

@@ -12,12 +12,16 @@
 // mma.sync for M <= 16, wgmma fed by TMA above) is bf16's, a function of
 // the shape alone, and mma.sync / wgmma take .f16 operands at the same
 // shapes, so the bound is the same tensor-core rate (989 TFLOP/s dense)
-// and bytes. int16 runs sgemm.cuh's CUDA-core loop instantiated for
-// int16_t: Hopper has no int16 tensor-core MMA, so the bound is the INT32
-// multiply-add rate (64 lanes an SM); each product is exact in int32 and
-// every add wraps modulo 2^32, as the plain version and the TPU kernel's
-// int32 dot do. Both take the tiles and K splits of their plan in either
-// order, so WS (weight-major tile order) equals OS bit for bit.
+// and bytes. int16 runs igemm.cuh's int8 tensor-core loop on byte planes
+// (Hopper has no int16 MMA): each operand splits into a signed high and an
+// unsigned low byte, and four mma.sync m16n8k32 products, combined with
+// shifts on unsigned words, give the wrapped int32 sum exactly, as the
+// plain version and the TPU kernel's int32 dot do; so the bound is the
+// int8 tensor rate over four products (1979 / 4 TOP/s). The plan is the
+// int8 kernel's, the k geometry in bytes (igemm::plan_here, es = 2):
+// 16 x 64 tiles for M <= 16, else 64 x 64, K split by its waves model.
+// Both inputs take the tiles and K splits of their plan in either order,
+// so WS (weight-major tile order) equals OS bit for bit.
 //
 // gemm.cu keeps the int8, bf16 and fp32 inputs, gemm_plan (every input's
 // plan) and the mvout epilogue; this source is apart so that its build
@@ -33,12 +37,11 @@
 
 #include "epilogue.cuh"
 #include "hgemm.cuh"
-#include "sgemm.cuh"
+#include "igemm.cuh"
 
 namespace {
 
 enum { DT_F32 = 0, DT_BF16 = 1, DT_F16 = 2 };    // float outputs
-enum { OUT_I32 = 0, OUT_I8 = 1, OUT_I16 = 2 };   // integer outputs
 
 template <typename OutT>
 int launch_f16(const void* a, const void* b, const void* d, void* c, int m,
@@ -49,17 +52,6 @@ int launch_f16(const void* a, const void* b, const void* d, void* c, int m,
       static_cast<const __half*>(a), static_cast<const __half*>(b),
       static_cast<const float*>(d), static_cast<OutT*>(c), m, n, k, lda, ldb,
       b_trans, ldd, act, out_scale, ws, workspace, s));
-}
-
-template <typename OutT>
-int launch_s16(const void* a, const void* b, const void* d, void* c, int m,
-               int n, int k, long long lda, long long ldb, int b_trans,
-               long long ldd, int act, int shift, int ws, void* workspace,
-               cudaStream_t s) {
-  return static_cast<int>(sgemm::launch_gemm<int16_t, OutT>(
-      static_cast<const int16_t*>(a), static_cast<const int16_t*>(b),
-      static_cast<const int*>(d), static_cast<OutT*>(c), m, n, k, lda, ldb,
-      b_trans, ldd, act, shift, 1.f, ws, workspace, s));
 }
 
 }  // namespace
@@ -96,13 +88,11 @@ extern "C" int gemm_s16_launch(const void* a, const void* b, const void* d,
                                long long ldb, int b_trans, long long ldd,
                                int out_dtype, int act, int shift, int ws,
                                void* stream, void* workspace) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (out_dtype == OUT_I8)
-    return launch_s16<int8_t>(a, b, d, c, m, n, k, lda, ldb, b_trans, ldd,
-                              act, shift, ws, workspace, s);
-  if (out_dtype == OUT_I16)
-    return launch_s16<int16_t>(a, b, d, c, m, n, k, lda, ldb, b_trans, ldd,
-                               act, shift, ws, workspace, s);
-  return launch_s16<int>(a, b, d, c, m, n, k, lda, ldb, b_trans, ldd, act,
-                         shift, ws, workspace, s);
+  // A as bytes: rows of 2 K bytes at a stride of 2 lda
+  const int8_t* A = static_cast<const int8_t*>(a);
+  const igemm::MatrixA al{A, 2 * lda, m, 2 * k, igemm::granule(A, 2 * lda)};
+  return static_cast<int>(igemm::launch<int16_t>(
+      al, static_cast<const int16_t*>(b), ldb, b_trans,
+      static_cast<const int*>(d), ldd, c, out_dtype, m, n, k, shift, 1.f, act,
+      ws, workspace, static_cast<cudaStream_t>(stream)));
 }

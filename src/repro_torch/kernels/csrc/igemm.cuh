@@ -1,7 +1,9 @@
 // The mma.sync main loop on Hopper's tensor cores for 8- and 16-bit
-// inputs: int8 x int8 -> int32, shared by gemm.cu (gemm_os, gemm_ws) and
-// conv.cu (conv2d_implicit), and bf16 / fp16 x the same -> fp32, conv.cu's
-// conv2d_implicit for those inputs (the 16-bit GEMMs run hgemm.cuh).
+// inputs: int8 x int8 -> int32 and int16 x int16 -> int32 (the latter as
+// four int8 products of byte planes, below), shared by gemm.cu (gemm_os,
+// gemm_ws: int8), gemm16.cu (the same: int16) and conv.cu
+// (conv2d_implicit: int8), and bf16 / fp16 x the same -> fp32, conv.cu's
+// conv2d_implicit for those inputs (the 16-bit float GEMMs run hgemm.cuh).
 //
 // The loop's geometry is in bytes: a ring stage holds a 64-byte k slab of A
 // and B, an MMA step takes 32 bytes of k. mma.sync m16n8k32 (s8) and
@@ -11,26 +13,48 @@
 //   - row-major B: int8 slabs are transposed to [n][k] in shared memory
 //     (4 x 4 byte blocks); 16-bit slabs stay [k][n] and are read with
 //     ldmatrix.trans;
-//   - the accumulator: int32, every add wrapping; fp32 for 16-bit inputs,
-//     whose K split partials are added in split order (so a rerun equals
-//     the first run) and whose epilogue is the float one (activation,
-//     2^-shift, rounding to fp32 / bf16 / fp16).
+//   - the accumulator: int32, every add wrapping; fp32 for 16-bit float
+//     inputs, whose K split partials are added in split order (so a rerun
+//     equals the first run) and whose epilogue is the float one
+//     (activation, 2^-shift, rounding to fp32 / bf16 / fp16).
 //
-// C = epilogue(A @ B + D): A (M, K) int8 comes through a loader policy
-// (a row-major matrix, or conv.cu's implicit-im2col gather of an NHWC
-// image), B (K, N) int8 by its strides (row-major weights and HWIO
-// filters, or the transpose of a row-major (N, K) buffer), D an int32 bias
-// (one row broadcast, or a full (M, N) matrix), and the epilogue of
-// epilogue.cuh (rounding shift, activation, saturation) runs once per
-// output element.
+// int16 on the int8 tensor cores (Hopper has no int16 MMA): each value is
+// a = a_h * 2^8 + a_l, a_h = a >> 8 signed (s8), a_l = a & 0xff unsigned
+// (u8), and B alike, so
+//   A B = 2^16 A_h B_h + 2^8 (A_h B_l + A_l B_h) + A_l B_l,
+// four mma.sync m16n8k32 products (.s8.s8, .s8.u8, .u8.s8, .u8.u8) into
+// three int32 accumulators, combined on unsigned words after the loop:
+// modulo 2^32, every step is exact, so the result equals the plain
+// version's wrapped int32 sum bit for bit (at K = 4608, ResNet-50's
+// largest, each partial sum even fits int32 unwrapped). The operands load
+// as 16-bit ones (bf16's byte geometry: A by ldmatrix, row-major B [k][n]
+// by ldmatrix.trans, an (N, K) B [n][k] by ldmatrix); one 64-byte slab
+// (32 k) is one m16n8k32 step, whose s8 fragments are gathered from two
+// 16-bit fragments by __byte_perm (the low bytes of four values into one
+// u8 x 4 register, the high bytes into one s8 x 4). That permutes k inside
+// the step -- lane quad t holds k {2t, 2t+1, 2t+8, 2t+9} of each 16-k half
+// where the MMA expects k 4t..4t+3 -- but A and B take the same
+// permutation, and an integer sum is exact in any order. The bias goes
+// into the A_l B_l accumulator (weight 1), the K split partials are the
+// combined int32 values, so split-K, its tickets and the epilogue are the
+// int8 path's. The bound is the int8 tensor rate over the four products,
+// a quarter of the int8 rate, far above the CUDA cores' INT32 lanes.
 //
-// Numerics, int8: mma.sync m16n8k32 s8.s8.s32 without .satfinite, and every
-// other int32 add here (K splits merged, the bias) wraps modulo 2^32, as
-// the plain version's (float64-exact sum wrapped to int32) and the TPU
-// kernel's int32 dot do. A wrapping int sum is order-free: the bits depend
-// neither on the split count nor on the merge order nor on where the bias
-// goes in, so OS equals WS, and the kernel the plain version, bit for bit.
-// Keep it so: no saturating add anywhere before the epilogue.
+// C = epilogue(A @ B + D): A (M, K) comes through a loader policy (a
+// row-major matrix, or conv.cu's implicit-im2col gather of an NHWC image),
+// B (K, N) by its strides (row-major weights and HWIO filters, or the
+// transpose of a row-major (N, K) buffer), D an int32 bias (one row
+// broadcast, or a full (M, N) matrix), and the epilogue of epilogue.cuh
+// (rounding shift, activation, saturation) runs once per output element.
+//
+// Numerics, int8 and int16: mma.sync .s32 without .satfinite, and every
+// other int32 add here (the planes' combine, K splits merged, the bias)
+// wraps modulo 2^32, as the plain version's (float64-exact sum wrapped to
+// int32) and the TPU kernel's int32 dot do. A wrapping int sum is
+// order-free: the bits depend neither on the split count nor on the merge
+// order nor on where the bias goes in, so OS equals WS, and the kernel the
+// plain version, bit for bit. Keep it so: no saturating add anywhere
+// before the epilogue.
 //
 // What bounds it on the H100: ResNet-50 at batch 1 does 0.1-0.24 GOP a
 // layer against a few hundred KB of image and filter, the quickstart 2.1
@@ -96,6 +120,10 @@ template <typename In> struct Dp {       // bf16, __half
   static constexpr bool INT = false;
 };
 template <> struct Dp<int8_t> {
+  using Acc = int;
+  static constexpr bool INT = true;
+};
+template <> struct Dp<int16_t> {         // on byte planes
   using Acc = int;
   static constexpr bool INT = true;
 };
@@ -213,13 +241,32 @@ struct Args {
 // ---------------------------------------------------------------------------
 // device helpers
 // ---------------------------------------------------------------------------
+#define IGEMM_MMA8(AT, BT)                                                 \
+  asm volatile(                                                           \
+      "mma.sync.aligned.m16n8k32.row.col.s32." AT "." BT ".s32 "           \
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"             \
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])                    \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1))
+
+// c += a (16 x 32) b (32 x 8) on 8-bit operands, each signed (SA, SB: s8)
+// or unsigned (u8); int32 sums, wrapping.
+template <bool SA = true, bool SB = true>
 __device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
                                        unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  if constexpr (SA && SB) IGEMM_MMA8("s8", "s8");
+  else if constexpr (SA) IGEMM_MMA8("s8", "u8");
+  else if constexpr (SB) IGEMM_MMA8("u8", "s8");
+  else IGEMM_MMA8("u8", "u8");
+}
+#undef IGEMM_MMA8
+
+// Byte planes of four 16-bit values (two registers of 16-bit pairs, x the
+// first two): the high bytes (s8 x 4) and the low bytes (u8 x 4).
+__device__ __forceinline__ unsigned hi_bytes(unsigned x, unsigned y) {
+  return __byte_perm(x, y, 0x7531);
+}
+__device__ __forceinline__ unsigned lo_bytes(unsigned x, unsigned y) {
+  return __byte_perm(x, y, 0x6420);
 }
 
 __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], uint32_t addr) {
@@ -393,9 +440,11 @@ kernel(Args<In> p, ALoad al) {
   using Acc = typename Dp<In>::Acc;
   constexpr bool INT = Dp<In>::INT;
   constexpr int ES = (int)sizeof(In), KE = BK / ES;  // k values a slab
+  // int16: four int8 products of byte planes, a slab one m16n8k32 step.
+  constexpr bool PLANES = INT && ES == 2;
   // int8 row-major B is transposed to [n][k] a slab ahead of the MMAs;
   // 16-bit row-major B is read [k][n] by ldmatrix.trans.
-  constexpr bool XPOSE = INT && !TRANS_B;
+  constexpr bool XPOSE = INT && ES == 1 && !TRANS_B;
   constexpr int BM = CF::BM, BN = CF::BN, NT = 32 * CF::WM * CF::WN;
   constexpr int LDB = BN * ES + PAD;  // bytes per k row of a [k][n] slab
   constexpr int STAGES = CF::STAGES;
@@ -448,14 +497,16 @@ kernel(Args<In> p, ALoad al) {
     const int k0 = (lo + it) * KE;
     int8_t* bs = as + A_BYTES;
     if constexpr (TRANS_B) {
+      // [n][k] rows of BK bytes, as A's
+      const int8_t* const b8 = reinterpret_cast<const int8_t*>(p.B);
 #pragma unroll
       for (int item = tid; item < BN * (BK / 16); item += NT) {
         const int nr = item / (BK / 16), c = (item % (BK / 16)) * 16;
-        const int n = n0 + nr, k = k0 + c;
-        copy16(bs + nr * LDA + c, p.B + (long long)n * p.ldb + k,
-               n < p.N ? p.K - k : 0, p.gb, p.B);
+        const int n = n0 + nr, kb = k0 * ES + c;
+        copy16(bs + nr * LDA + c, b8 + (long long)n * p.ldb * ES + kb,
+               n < p.N ? p.K * ES - kb : 0, p.gb, b8);
       }
-    } else if constexpr (INT) {
+    } else if constexpr (XPOSE) {
       constexpr int CH = BN / 16;
 #pragma unroll
       for (int item = tid; item < BK * CH; item += NT) {
@@ -482,6 +533,7 @@ kernel(Args<In> p, ALoad al) {
 
   // The bias preloaded into split 0's accumulator (its loads in flight
   // beside the ring's first slabs, not in the epilogue's path).
+  // (int16: the A_l B_l accumulator; hh and mid take the other planes.)
   Acc acc[FM][FN][4];
   const Acc* const bias = split == 0 ? p.D : nullptr;
 #pragma unroll
@@ -495,6 +547,8 @@ kernel(Args<In> p, ALoad al) {
         acc[i][j][e] = bias != nullptr && r < p.M && c < p.N
                            ? __ldg(bias + (long long)r * p.ldd + c) : 0;
       }
+  int hh[PLANES ? FM : 1][PLANES ? FN : 1][4] = {};   // A_h B_h
+  int mid[PLANES ? FM : 1][PLANES ? FN : 1][4] = {};  // A_h B_l + A_l B_h
 
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
@@ -521,9 +575,8 @@ kernel(Args<In> p, ALoad al) {
                           bt(lo + it + 1));
     const int8_t* as = ig_smem + (it % STAGES) * STAGE;
     const int8_t* bs = XPOSE ? bt(lo + it) : as + A_BYTES;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      unsigned af[FM][4], bf[FN][2];
+    // A and B fragments of the 32-byte k step at kk.
+    auto frags = [&](int kk, unsigned (&af)[FM][4], unsigned (&bf)[FN][2]) {
 #pragma unroll
       for (int i = 0; i < FM; ++i)
         ldsm_x4(af[i], hgemm::smem_u32(
@@ -533,7 +586,7 @@ kernel(Args<In> p, ALoad al) {
 #pragma unroll
       for (int j = 0; j < FN; j += 2) {
         unsigned r[4];
-        if constexpr (INT || TRANS_B)     // [n][k]
+        if constexpr (XPOSE || TRANS_B)   // [n][k]
           ldsm_x4(r, hgemm::smem_u32(
                          bs + (wn0 + 8 * j + (lane & 7) + (lane >> 4) * 8) *
                                   LDA +
@@ -546,16 +599,69 @@ kernel(Args<In> p, ALoad al) {
         bf[j][0] = r[0]; bf[j][1] = r[1];
         bf[j + 1][0] = r[2]; bf[j + 1][1] = r[3];
       }
+    };
+    if constexpr (PLANES) {
+      // The slab's two 16-k halves as 16-bit fragments (lane quad t: k 2t,
+      // 2t + 1 in registers 0 / 1, k 2t + 8, 2t + 9 in 2 / 3 of A and 1 of
+      // B), regathered into one m16n8k32 step of each byte plane: A
+      // register 2h + r <- half h, row g + 8r; B register h <- half h.
+      unsigned af[2][FM][4], bf[2][FN][2];
+      frags(0, af[0], bf[0]);
+      frags(32, af[1], bf[1]);
+      unsigned ah[FM][4], al[FM][4], bh[FN][2], bl[FN][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int i = 0; i < FM; ++i)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            ah[i][2 * h + r] = hi_bytes(af[h][i][r], af[h][i][r + 2]);
+            al[i][2 * h + r] = lo_bytes(af[h][i][r], af[h][i][r + 2]);
+          }
+#pragma unroll
+        for (int j = 0; j < FN; ++j) {
+          bh[j][h] = hi_bytes(bf[h][j][0], bf[h][j][1]);
+          bl[j][h] = lo_bytes(bf[h][j][0], bf[h][j][1]);
+        }
+      }
 #pragma unroll
       for (int i = 0; i < FM; ++i)
 #pragma unroll
         for (int j = 0; j < FN; ++j) {
-          if constexpr (INT)
-            mma_s8(acc[i][j], af[i], bf[j][0], bf[j][1]);
-          else
-            hgemm::mma16<In>(acc[i][j], af[i], bf[j][0], bf[j][1]);
+          mma_s8<true, true>(hh[i][j], ah[i], bh[j][0], bh[j][1]);
+          mma_s8<true, false>(mid[i][j], ah[i], bl[j][0], bl[j][1]);
+          mma_s8<false, true>(mid[i][j], al[i], bh[j][0], bh[j][1]);
+          mma_s8<false, false>(acc[i][j], al[i], bl[j][0], bl[j][1]);
         }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 32) {
+        unsigned af[FM][4], bf[FN][2];
+        frags(kk, af, bf);
+#pragma unroll
+        for (int i = 0; i < FM; ++i)
+#pragma unroll
+          for (int j = 0; j < FN; ++j) {
+            if constexpr (INT)
+              mma_s8(acc[i][j], af[i], bf[j][0], bf[j][1]);
+            else
+              hgemm::mma16<In>(acc[i][j], af[i], bf[j][0], bf[j][1]);
+          }
+      }
     }
+  }
+  if constexpr (PLANES) {
+    // 2^16 hh + 2^8 mid + ll, on unsigned words (wrapping)
+#pragma unroll
+    for (int i = 0; i < FM; ++i)
+#pragma unroll
+      for (int j = 0; j < FN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[i][j][e] = static_cast<int>(
+              static_cast<unsigned>(acc[i][j][e]) +
+              (static_cast<unsigned>(mid[i][j][e]) << 8) +
+              (static_cast<unsigned>(hh[i][j][e]) << 16));
   }
   hgemm::cp_async_wait<0>();
 
@@ -713,7 +819,7 @@ inline Plan plan_here(int m, int n, int k, int b_trans, int es = 1) {
 }
 
 // One call: A through `al` (its k counted in bytes), B (K, N) at ldb
-// (b_trans: the transpose of a row-major (N, K) buffer; int8 only), D, C,
+// (b_trans: the transpose of a row-major (N, K) buffer), D, C,
 // `out` (OUT_*) as Args says, out_scale 2^-shift for 16-bit inputs;
 // workspace: plan().ws_words 4-byte words owned by the calling stream
 // (tickets zeroed when it was made), may be null for one split;

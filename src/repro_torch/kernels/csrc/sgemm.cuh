@@ -1,17 +1,17 @@
 // The engine's CUDA-core main loop for Hopper, two datapaths:
 //   fp32 x fp32 -> fp32 on IEEE FMAs (the fp32 engine config, Table 1's
 //     design point 4), and
-//   int16 x int16 -> int32 on integer multiply-adds (an int16 instance;
-//     Hopper has no int16 tensor-core MMA),
-// C = epilogue(A @ B + D), for the engine GEMM (gemm.cu: fp32; gemm16.cu:
-// int16) and the implicit-im2col conv (conv.cu: fp32 and int16), A coming
-// through a loader policy (ALoad: a row-major matrix here, or conv.cu's tap
-// gather of an NHWC image) as igemm.cuh's A does.
+//   int16 x int16 -> int32 on integer multiply-adds (an int16 instance's
+//     conv; its GEMM runs igemm.cuh's int8 tensor-core loop on byte planes),
+// C = epilogue(A @ B + D), for the engine GEMM (gemm.cu: fp32) and the
+// implicit-im2col conv (conv.cu: fp32 and int16), A coming through a
+// loader policy (ALoad: a row-major matrix here, or conv.cu's tap gather
+// of an NHWC image) as igemm.cuh's A does.
 //
 // Replaces, in src/repro/kernels/gemm.py, gemm_os (:81, pallas_call :105)
-// and gemm_ws (:160, pallas_call :184) for fp32 and int16 inputs, and in
+// and gemm_ws (:160, pallas_call :184) for fp32 inputs, and in
 // src/repro/kernels/conv.py conv2d_implicit (:88, pallas_call :140) for
-// the same inputs.
+// fp32 and int16 inputs.
 //
 // One loop for both, templated on the element type: the tiles, the ring,
 // the loads and the plan are the same, a quad of 4 k values is one 16-byte
@@ -87,9 +87,8 @@
 // the FMA rate, and the blocked sum holds the registers a larger
 // micro-tile would need; at mamba2-1.3b's in_proj (M = 256) it takes
 // 1.35x torch.matmul's time (PERF.md).
-// The plan depends on the shape, B's layout and the SM count only (the
-// int16 datapath takes fp32's tiles and splits; only its shared memory is
-// smaller), and each tile is computed the same way whatever order the
+// The plan depends on the shape, B's layout and the SM count only, and
+// each tile is computed the same way whatever order the
 // blocks walk, so WS (weight-major tile order) equals OS bit for bit, and
 // a rerun equals the first run.
 

@@ -1,7 +1,7 @@
 """Engine GEMM on both dataflows, and the mvout epilogue: the CUDA kernels
 (``csrc/gemm.cu`` for int8, bf16 and fp32 inputs, ``csrc/gemm16.cu`` for
 fp16 and int16 inputs; main loops in ``csrc/hgemm.cuh`` (bf16, fp16),
-``csrc/sgemm.cuh`` (fp32, int16) and ``csrc/igemm.cuh`` (int8)) and their
+``csrc/sgemm.cuh`` (fp32) and ``csrc/igemm.cuh`` (int8, int16)) and their
 plain versions.
 
 Replaces ``repro.kernels.gemm``: ``gemm_os``, ``gemm_ws``,
@@ -25,13 +25,15 @@ bf16 and fp16 inputs run one of two kernels by the shape alone
 (:func:`gemm_plan`): split-K ``mma.sync`` for M <= 16 (decode) and
 ``wgmma`` for wider M (prefill; two consumer warpgroups fed by a TMA
 warp, K split over a cluster of blocks that adds its partials in
-distributed shared memory, so it needs no workspace); fp32 and int16
-inputs run the CUDA-core kernel (IEEE FMAs with a blocked sum, or
-wrapping integer multiply-adds; register micro-tiles, split K where the
-tiles leave SMs idle); int8 inputs
+distributed shared memory, so it needs no workspace); fp32 inputs run
+the CUDA-core kernel (IEEE FMAs with a blocked sum; register micro-tiles,
+split K where the tiles leave SMs idle); int8 inputs
 run ``igemm.cuh``'s tensor-core main loop (:func:`gemm_s8_plan`: 16 x 64 or
 64 x 64 tiles by the shape, a 4-stage ``cp.async`` ring, K split by a
-waves x k-steps model and merged exactly, since int32 sums wrap). Each
+waves x k-steps model and merged exactly, since int32 sums wrap), and
+int16 inputs the same loop on byte planes (each value a signed high and
+an unsigned low byte, four int8 products combined with shifts, modulo
+2^32 exact; the int8 plan over 2 K bytes). Each
 is one launch per call, and WS walks the same tiles weight-major, so WS
 equals OS bit for bit on every datapath. Where the plan splits K, the
 call uses its stream's workspace (:func:`_workspace`), made once per
@@ -92,7 +94,7 @@ def _b_layout(b: torch.Tensor):
 
 _PLAN_KEYS = ("regime", "bm", "bn", "bk", "splits", "blocks", "threads",
               "stages", "smem", "workspace_words")
-_REGIMES = ("skinny", "wide", "fp32", "int16")
+_REGIMES = ("skinny", "wide", "fp32", "square")
 _PLANS: Dict[Tuple[int, int, int, bool, int, torch.dtype], dict] = {}
 _WORKSPACE: Dict[Tuple[int, int], torch.Tensor] = {}
 
@@ -103,14 +105,16 @@ def gemm_plan(m: int, n: int, k: int, b_trans: bool = False,
     inputs (bf16, fp16, fp32 or int16; int8 has :func:`gemm_s8_plan`), B
     row-major or (``b_trans``) read as the transpose of a row-major (N, K)
     buffer: ``regime`` (bf16 and fp16: "skinny", split-K ``mma.sync`` for
-    M <= 16, or "wide", ``wgmma``; "fp32": CUDA-core FMAs; "int16":
-    CUDA-core integer multiply-adds), ``tile`` (rows, columns, k per stage),
-    ``splits`` of K, ``grid`` (blocks), ``threads`` per block, ``stages``
-    of the load ring (skinny: 1, loads go straight to registers), ``smem``
-    bytes and ``workspace_bytes`` (tickets and partials; 0 for one split
-    and for every wide plan, whose splits merge within a cluster). It
-    depends on the shape, B's layout and the card's SM count only, so OS
-    and WS take the same plan."""
+    M <= 16, or "wide", ``wgmma``; "fp32": CUDA-core FMAs; int16, the
+    int8 tensor-core loop on byte planes: "skinny", 16 x 64 tiles of 4
+    warps for M <= 16, or "square", 64 x 64 tiles of 8 warps, the int8
+    plan of :func:`gemm_s8_plan` over 2 K bytes), ``tile`` (rows, columns,
+    k per stage), ``splits`` of K, ``grid`` (blocks), ``threads`` per
+    block, ``stages`` of the load ring (bf16 / fp16 skinny: 1, loads go
+    straight to registers), ``smem`` bytes and ``workspace_bytes`` (tickets
+    and partials; 0 for one split and for every wide plan, whose splits
+    merge within a cluster). It depends on the shape, B's layout and the
+    card's SM count only, so OS and WS take the same plan."""
     if dtype not in _PLAN_DT:
         raise NotImplementedError(f"gemm_plan: no kernel plan for {dtype}")
     index = _device_index(device)

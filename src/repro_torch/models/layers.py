@@ -18,7 +18,7 @@ Params = Dict[str, Any]
 
 
 # ---------------------------------------------------------------------------
-# init helpers (seeded torch.Generator; numbers differ from jax.random)
+# init helpers (seeded torch.Generator; its numbers are not jax.random's)
 # ---------------------------------------------------------------------------
 def _normal(gen: torch.Generator, shape, device) -> torch.Tensor:
     return torch.randn(shape, generator=gen, device=device, dtype=torch.float32)

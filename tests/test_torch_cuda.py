@@ -1491,8 +1491,10 @@ def test_bf16_plan_unchanged_and_fp16_takes_it(card):
     redesign's: the recorded tile, threads, stages and shared memory, no
     workspace, and K splits as many as fill the SMs (at most 8, each at
     least four k steps) that the card holds as clusters in one wave. fp16
-    takes the same plan; int16 takes fp32's tiles and splits on its own
-    regime."""
+    takes the same plan; int16 takes the int8 tensor-core loop's plan over
+    its 2 K bytes (the byte planes): the int8 plan's regime, tile rows and
+    columns, splits, grid, threads, stages and workspace, 32 k a stage,
+    and shared memory of its own (no transposed B slab)."""
     if torch.cuda.get_device_properties(card).multi_processor_count != 132:
         pytest.skip("the recorded plans are a 132-SM H100's")
     keys = ("regime", "tile", "splits", "grid", "threads", "stages", "smem",
@@ -1508,12 +1510,16 @@ def test_bf16_plan_unchanged_and_fp16_takes_it(card):
             assert 1 <= got["splits"] <= max(most, 1)
             assert got["grid"] == tiles * got["splits"]
         assert tgemm.gemm_plan(m, n, k, trans, dtype=_F16) == got
-    for m, n, k in ((1000, 512, 2048), (49, 512, 4608), (12544, 64, 147)):
-        p16 = tgemm.gemm_plan(m, n, k, dtype=_I16)
-        p32 = tgemm.gemm_plan(m, n, k, dtype=_F32)
-        assert p16["regime"] == "int16" and p32["regime"] == "fp32"
-        for key in ("tile", "splits", "grid", "threads", "workspace_bytes"):
-            assert p16[key] == p32[key]
+    for m, n, k in ((1000, 512, 2048), (49, 512, 4608), (12544, 64, 147),
+                    (1, 1000, 2048)):
+        for trans in (False, True):
+            p16 = tgemm.gemm_plan(m, n, k, trans, dtype=_I16)
+            p8 = tgemm.gemm_s8_plan(m, n, 2 * k, trans)
+            assert p16["regime"] == ("skinny" if m <= 16 else "square")
+            assert p16["tile"] == (*p8["tile"][:2], 32)
+            for key in ("regime", "splits", "grid", "threads", "stages",
+                        "workspace_bytes"):
+                assert p16[key] == p8[key], (m, n, k, trans, key)
 
 
 @pytest.mark.parametrize("acc_dtype,out_dtype,shape,shift,act", [
@@ -1735,3 +1741,193 @@ def test_profile_call_retakes_a_short_window(card):
 
     with pytest.raises(SystemExit):
         cs.profile_call(torch, "always short", always_short, quiet=True)
+
+
+# ---------------------------------------------------------------------------
+# the int16 GEMM on the int8 tensor cores (byte planes): full range, ragged
+# and misaligned operands, every output, shift and activation, streams
+# ---------------------------------------------------------------------------
+def _i16_full_range(g, shape, card):
+    """int16 over its whole range, with the first row all -32768 and the
+    second all 32767 (both byte planes at their ends)."""
+    x = torch.randint(-2 ** 15, 2 ** 15, shape, generator=g, device=card,
+                      dtype=_I16)
+    x[0] = -2 ** 15
+    if shape[0] > 1:
+        x[1] = 2 ** 15 - 1
+    return x
+
+
+@pytest.mark.parametrize("out", [_I32, _I16, _I8])
+@pytest.mark.parametrize("act", ["NONE", "RELU", "RELU6"])
+@pytest.mark.parametrize("m,n,k,trans_b", [
+    (5, 70, 37, False),          # skinny, K not a multiple of 32
+    (3, 77, 100, True),          # skinny, B = table.T
+    (130, 72, 4608, False),      # square, K split, every true sum wraps
+    (67, 129, 1000, True),       # ragged past a tile, K not of 64
+])
+def test_int16_gemm_full_range(card, out, act, m, n, k, trans_b):
+    """Full-range operands (rows of -32768 and of 32767 on both sides) and
+    a full-range int32 bias, every output type, shifts 0 / 7 / 31 and each
+    activation: bit-exact against the plain version, OS equal to WS, one
+    launch per call on gemm[int16]."""
+    g = torch.Generator(device=card).manual_seed(m * n + k)
+    a = _i16_full_range(g, (m, k), card)
+    bt = _i16_full_range(g, (n, k), card)
+    b = bt.T if trans_b else bt.T.contiguous()
+    d = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), generator=g, device=card,
+                      dtype=_I32)
+    if k == 4608:     # the planes' rows against the planes' columns
+        assert (a[:2].double() @ b[:, :2].double()).abs().min() > 2 ** 31
+    for shift in (0, 7, 31):
+        kw = dict(acc_dtype=_I32, out_dtype=out, shift=shift,
+                  activation=Activation[act])
+        n0 = tgemm.OS_COUNTS[_I16].launches
+        got = tgemm.gemm_os(a, b, d, **kw)
+        assert tgemm.OS_COUNTS[_I16].launches == n0 + 1
+        assert torch.equal(got, gemm_ref(a, b, d, **kw)), shift
+        assert torch.equal(tgemm.gemm_ws(a, b, d, **kw), got)
+
+
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("offset_a,offset_b", [(1, 0), (0, 1), (3, 5)])
+def test_int16_gemm_misaligned_operands(card, trans_b, offset_a, offset_b):
+    """A and B read from buffers an odd number of elements in (no 16-byte
+    granule) and rows of odd stride: the 8-, 4- and byte copies of the
+    ring, bit-exact against the plain version on both dataflows."""
+    g = torch.Generator(device=card).manual_seed(offset_a * 10 + offset_b)
+    m, n, k = 45, 66, 301
+    abuf = _i16_full_range(g, (m * k + offset_a,), card)
+    bbuf = _i16_full_range(g, (n * k + offset_b,), card)
+    a = abuf[offset_a:].view(m, k)
+    bt = bbuf[offset_b:].view(n, k)
+    b = bt.T if trans_b else bbuf[offset_b:].view(k, n)
+    kw = dict(acc_dtype=_I32, out_dtype=_I16, shift=9,
+              activation=Activation.RELU)
+    want = gemm_ref(a, b, None, **kw)
+    assert torch.equal(tgemm.gemm_os(a, b, **kw), want)
+    assert torch.equal(tgemm.gemm_ws(a, b, **kw), want)
+
+
+def test_int16_gemm_reruns_and_streams_are_bit_identical(card):
+    """The quickstart shape and a K-split shape, each on its own stream,
+    eight times over at once: every result equals the plain version's
+    (each stream has its own tickets and partials)."""
+    shapes = ((1000, 512, 2048), (49, 512, 4608))
+    assert tgemm.gemm_plan(49, 512, 4608, dtype=_I16)["splits"] > 1
+    g = torch.Generator(device=card).manual_seed(21)
+    inputs = [(_i16_full_range(g, (m, k), card),
+               _i16_full_range(g, (k, n), card)) for m, n, k in shapes]
+    kw = dict(acc_dtype=_I32, out_dtype=_I32)
+    wants = [gemm_ref(a, b, None, **kw) for a, b in inputs]
+    streams = [torch.cuda.Stream(card) for _ in inputs]
+    torch.cuda.synchronize()
+    gots = [[], []]
+    for _ in range(8):
+        for i, (st, (a, b)) in enumerate(zip(streams, inputs)):
+            with torch.cuda.stream(st):
+                gots[i].append(tgemm.gemm_os(a, b, **kw))
+    torch.cuda.synchronize()
+    for got, want in zip(gots, wants):
+        for x in got:
+            assert torch.equal(x, want)
+
+
+# ---------------------------------------------------------------------------
+# fp32 flash and paged prefill: the CUDA-core flash kernel (row tiles of a
+# kv head's query heads, key tiles over warps and clusters)
+# ---------------------------------------------------------------------------
+def _f32(rng, shape, card):
+    return torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                        device=card)
+
+
+@pytest.mark.parametrize("rep", [1, 2, 5, 8])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("b,tq,tk,causal,window,softcap", [
+    (1, 37, 37, True, None, None),      # ragged rows
+    (2, 20, 75, True, 16, 30.0),        # right-aligned, window, softcap
+    (1, 9, 300, False, None, None),     # few rows, many keys: clusters
+    (1, 130, 130, False, 40, None),     # non-causal window
+])
+def test_flash_fp32_matches_plain(card, rep, d, b, tq, tk, causal, window,
+                                  softcap):
+    """GQA 1 / 2 / 5 / 8 at every head dim, causal or not, windows and
+    softcap, ragged Tq / Tk: the fp32 rule of the plain version, one launch
+    per call, a rerun equal bit for bit."""
+    rng = np.random.default_rng(rep * 1000 + d + tq + tk)
+    kvh = 2 if rep < 8 else 1
+    q = _f32(rng, (b, tq, rep * kvh, d), card)
+    k, v = (_f32(rng, (b, tk, kvh, d), card) for _ in range(2))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    n0 = tak.flash_attention.launches
+    got = tak.flash_attention(q, k, v, **kw)
+    assert tak.flash_attention.launches == n0 + 1
+    _close(got, tak.blockwise_attention(q, k, v, **kw), torch.float32)
+    assert torch.equal(got, tak.flash_attention(q, k, v, **kw))
+
+
+def _paged_prefill_f32(card, page, start, t, h, kvh, d, seed):
+    """_paged_prefill_inputs' layout (dead rows NaN) in fp32."""
+    q, kp, vp, table = _paged_prefill_inputs(card, page, start, t, h, kvh, d,
+                                             seed)
+    rng = np.random.default_rng(seed + 1)
+    live = ~torch.isnan(kp.float())
+    kp, vp = (torch.where(live, torch.from_numpy(
+        rng.standard_normal(kp.shape)).to(card, torch.float32),
+        torch.full_like(kp, float("nan"), dtype=torch.float32))
+        for _ in range(2))
+    return _f32(rng, (1, t, h, d), card), kp, vp, table
+
+
+@pytest.mark.parametrize("page", [16, 64])
+@pytest.mark.parametrize("rep", [1, 2, 5, 8])
+@pytest.mark.parametrize("start,t,d,window,softcap", [
+    (0, 50, 64, None, None),            # a fresh chunk
+    (12, 8, 16, 8, 50.0),               # the gate's last chunk
+    (40, 1, 32, None, None),            # one row, mid-page
+    (768, 256, 64, 1024, None),         # hymba-1.5b's continuation chunk
+    (200, 70, 128, 16, None),           # head dim 128, a short window
+    (100, 33, 256, None, 30.0),         # head dim 256, softcap
+])
+def test_paged_prefill_fp32_matches_plain(card, page, rep, start, t, d,
+                                          window, softcap):
+    """Start offsets, pages 16 / 64, GQA 1 / 2 / 5 / 8 and every head dim:
+    no NaN of a dead pool row reaches the output, the fp32 rule of the
+    plain version, one launch per call, a rerun equal bit for bit."""
+    kvh = 2 if rep < 8 else 1
+    q, kp, vp, table = _paged_prefill_f32(card, page, start, t, rep * kvh,
+                                          kvh, d, start + t + d + rep)
+    kw = dict(window=window, softcap=softcap)
+    n0 = tak.paged_prefill_attention.launches
+    got = tak.paged_prefill_attention(q, kp, vp, table, start, **kw)
+    assert tak.paged_prefill_attention.launches == n0 + 1
+    _close(got, tak.paged_prefill_attention_plain(q, kp, vp, table, start,
+                                                  **kw), torch.float32)
+    assert torch.equal(got, tak.paged_prefill_attention(q, kp, vp, table,
+                                                        start, **kw))
+
+
+def test_fp32_attention_on_concurrent_streams(card):
+    """fp32 flash at hymba-1.5b's first chunk and fp32 paged prefill at its
+    continuation chunk, each on its own stream, eight times over at once:
+    every result equals the first run bit for bit."""
+    rng = np.random.default_rng(25)
+    q = _f32(rng, (1, 256, 25, 64), card)
+    k, v = (_f32(rng, (1, 256, 5, 64), card) for _ in range(2))
+    qp, kp, vp, table = _paged_prefill_f32(card, 64, 768, 256, 25, 5, 64, 9)
+    calls = [lambda: tak.flash_attention(q, k, v, window=1024),
+             lambda: tak.paged_prefill_attention(qp, kp, vp, table, 768,
+                                                 window=1024)]
+    wants = [fn() for fn in calls]
+    streams = [torch.cuda.Stream(card) for _ in calls]
+    torch.cuda.synchronize()
+    gots = [[], []]
+    for _ in range(8):
+        for i, (st, fn) in enumerate(zip(streams, calls)):
+            with torch.cuda.stream(st):
+                gots[i].append(fn())
+    torch.cuda.synchronize()
+    for got, want in zip(gots, wants):
+        for x in got:
+            assert torch.equal(x, want)

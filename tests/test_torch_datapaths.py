@@ -174,6 +174,69 @@ def test_int16_gemm_wraps_and_saturates_like_jax(df):
     assert (w < 0).any()                   # true sums are all positive
 
 
+def _byte_plane_gemm(a: torch.Tensor, b: torch.Tensor, d: torch.Tensor,
+                     **kw) -> torch.Tensor:
+    """The card's int16 GEMM as ``csrc/igemm.cuh`` computes it: each
+    operand split into a signed high byte (a >> 8) and an unsigned low byte
+    (a & 0xff); the four int8 products A_h B_h, A_h B_l, A_l B_h and A_l
+    B_l, each over k in the kernel's order (in every 32-k MMA step, lane
+    quad t holds k {2t, 2t + 1, 2t + 8, 2t + 9} of each 16-k half where the
+    MMA takes k 4t..4t + 3: one permutation for both operands), summed
+    into three int32 accumulators (the bias in A_l B_l's) and combined as
+    2^16 hh + 2^8 mid + ll, every add wrapping modulo 2^32; then the
+    epilogue."""
+    from repro_torch.kernels import epilogue as tepi
+
+    k = a.shape[1]
+    step = torch.tensor([16 * h + 2 * t + e for h in (0, 1) for t in range(4)
+                         for e in (0, 1, 8, 9)])
+    steps = -(-k // 32)
+    order = (torch.arange(steps)[:, None] * 32 + step[None, :]).flatten()
+    order = order[order < k]
+    assert sorted(order.tolist()) == list(range(k))
+    a, b = a.long()[:, order], b.long()[order]
+    ah, al, bh, bl = a >> 8, a & 0xFF, b >> 8, b & 0xFF
+    assert ah.min() >= -128 and ah.max() <= 127 and al.max() <= 255
+
+    def wrap(x):                        # an int32 register, modulo 2^32
+        return ((x + 2 ** 31) % 2 ** 32) - 2 ** 31
+
+    hh = wrap(ah @ bh)
+    mid = wrap(wrap(ah @ bl) + wrap(al @ bh))
+    ll = wrap(wrap(al @ bl) + d.long()[None, :])
+    acc = wrap(wrap(ll + wrap(mid * 2 ** 8)) + wrap(hh * 2 ** 16))
+    return tepi.apply(acc.to(torch.int32), **kw)
+
+
+@pytest.mark.parametrize("out,shift,act", [("int16", 9, "RELU"),
+                                           ("int32", 0, "NONE")])
+@pytest.mark.parametrize("k", [64, 4608])
+def test_int16_byte_planes_match_jax_kernel(k, out, shift, act):
+    """The identity the card's int16 GEMM rests on: four int8 products of
+    byte planes (high bytes signed, low bytes unsigned) combined with
+    shifts in wrapping int32, k permuted within each MMA step as the
+    kernel's fragments take it, equal bit for bit to the JAX gemm_os int16
+    kernel in interpret mode, on full-range operands with a row of all
+    -32768 and one of all 32767 on each side, at K = 64 and 4608 (the true
+    sums pass 2^31)."""
+    rng = np.random.default_rng(k + shift)
+    m, n = 8, 24
+    a = rng.integers(-2 ** 15, 2 ** 15, (m, k)).astype(np.int16)
+    b = rng.integers(-2 ** 15, 2 ** 15, (k, n)).astype(np.int16)
+    a[0], a[1], b[:, 0], b[:, 1] = -2 ** 15, 2 ** 15 - 1, -2 ** 15, 2 ** 15 - 1
+    d = rng.integers(-2 ** 31, 2 ** 31, (n,)).astype(np.int32)
+    exact = a.astype(np.int64) @ b.astype(np.int64)
+    assert (np.abs(exact[:2, :2]) > 2 ** 31).all()
+    jcfg, _ = _cfgs(("int16", "int32", out))
+    want = JContext(cfg=jcfg, backend="interpret").gemm(
+        jnp.asarray(a), jnp.asarray(b), jnp.asarray(d)[None, :],
+        dataflow=JDataflow.OS, shift=shift, activation=JActivation[act])
+    got = _byte_plane_gemm(_t(a), _t(b), _t(d), shift=shift,
+                           activation=Activation[act], out_dtype=dtype_of(out))
+    _check(got, want, out)
+    assert np.asarray(want).astype(np.int64).any()
+
+
 @pytest.mark.parametrize("df", ["OS", "WS"])
 def test_fp16_gemm_overflows_to_inf_like_jax(df):
     """fp16 outputs past 65504 are +-inf on both sides (JAX's astype does

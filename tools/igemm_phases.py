@@ -1,15 +1,17 @@
-"""Where the int8 GEMM's time goes, phase by phase, on a card.
+"""Where the int8 (or int16) GEMM's time goes, phase by phase, on a card.
 
-Builds a copy of ``csrc/gemm.cu`` whose ``igemm.cuh`` carries
-``globaltimer`` stamps (thread 0 of every block, at the phase boundaries
-marked below), swaps it in for the ``gemm`` library, runs the quickstart
+Builds a copy of ``csrc/gemm.cu`` (``--int16``: ``csrc/gemm16.cu``, the
+int16 GEMM on byte planes) whose ``igemm.cuh`` carries ``globaltimer``
+stamps (thread 0 of every block, at the phase boundaries marked below),
+swaps it in for the ``gemm`` (``gemm16``) library, runs the quickstart
 GEMM and every distinct layer of ``dse.resnet(50)``'s stream as a GEMM
-(``chip_smoke.resnet50_shapes``; OS, int8 out, bias, shift and ReLU) and
-prints, per shape, the microseconds from each block's entry at which each
-phase ended (median over the blocks that reach it) and the launch's span
-from its first entry to its last store:
+(``chip_smoke.resnet50_shapes``; OS, bias, shift and ReLU; int8: int8
+out, full-range operands; int16: int16 out, operands as phase 6b draws
+them) and prints, per shape, the microseconds from each block's entry at
+which each phase ended (median over the blocks that reach it) and the
+launch's span from its first entry to its last store:
 
-  python3 tools/igemm_phases.py
+  python3 tools/igemm_phases.py [--int16]
 
 Phases: ``issued`` (the ring's first slabs in flight), ``landed`` (slab 0
 in shared memory), ``loop_end`` (the last MMA), ``ticket`` (a split's
@@ -19,6 +21,7 @@ last block holds the tile's ticket), ``merged`` (partials added), ``done``
 timer's floor, a one-element ``add_`` timed the same way. The stamps cost
 a few instructions each, so the phases are the instrumented kernel's.
 Needs a card and ``nvcc``; builds into ``build/igemm_phases/``.
+(``landed`` is stamped only where int8 B is transposed in shared memory.)
 """
 
 from __future__ import annotations
@@ -55,7 +58,7 @@ def stamp(slot: int) -> str:
             f"\"=l\"(t_)); p.stamps[blockIdx.x * {STAMPS} + {slot}] = t_; }}")
 
 
-def build(out: Path) -> Path:
+def build(out: Path, lib_name: str = "gemm") -> Path:
     from repro_torch.kernels import _build
 
     src = (_build.CSRC / "igemm.cuh").read_text()
@@ -80,15 +83,15 @@ def build(out: Path) -> Path:
                                              + lines[at:]))
     out.mkdir(parents=True, exist_ok=True)
     (out / "igemm.cuh").write_text(src)
-    gemm = (_build.CSRC / "gemm.cu").read_text()
+    gemm = (_build.CSRC / f"{lib_name}.cu").read_text()
     gemm += ('\nextern "C" void igemm_set_stamps(void* p) {\n'
              '  igemm::g_stamps = static_cast<unsigned long long*>(p);\n}\n')
-    (out / "gemm.cu").write_text(gemm)    # includes the stamped igemm.cuh
-    lib = out / "libgemm_phases.so"
+    (out / f"{lib_name}.cu").write_text(gemm)    # the stamped igemm.cuh
+    lib = out / f"lib{lib_name}_phases.so"
     # -fno-gnu-unique: the launchers' function-local statics (the kernel's
     # shared-memory attribute, set once) stay this library's own, not
-    # bound to the loaded gemm library's copies
-    cmd = _build.nvcc_command(out / "gemm.cu", lib)
+    # bound to the loaded library's copies
+    cmd = _build.nvcc_command(out / f"{lib_name}.cu", lib)
     r = subprocess.run(cmd[:1] + [f"-I{_build.CSRC}", "-Xcompiler",
                                   "-fno-gnu-unique"] + cmd[1:],
                        capture_output=True, text=True)
@@ -98,6 +101,12 @@ def build(out: Path) -> Path:
 
 
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--int16", action="store_true",
+                    help="the int16 GEMM (byte planes) instead of int8")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("igemm_phases: needs a CUDA card", file=sys.stderr)
@@ -119,13 +128,22 @@ def main() -> int:
         return torch.randint(lo, hi, shape, generator=gen, device="cuda",
                              dtype=dtype)
 
-    kw = dict(acc_dtype=torch.int32, out_dtype=torch.int8, shift=9,
-              activation=Activation.RELU)
     shapes = [("quickstart", (1000, 512, 2048))] + \
         [(label, mnk) for label, mnk, _, _ in cs.resnet50_shapes()]
-    ops = [(label, (m, n, k), rint(-128, 128, m, k), rint(-128, 128, k, n),
-            rint(-1000, 1000, n, dtype=torch.int32))
-           for label, (m, n, k) in shapes]
+    if args.int16:
+        lib_name, dt = "gemm16", torch.int16
+        kw = dict(acc_dtype=torch.int32, out_dtype=dt, shift=10,
+                  activation=Activation.RELU)
+        ops = [(label, mnk) + cs.datapath_operands(
+            torch, gen, dt, mnk[::2], mnk[:0:-1], mnk[1])[:3]
+            for label, mnk in shapes]
+    else:
+        lib_name, dt = "gemm", torch.int8
+        kw = dict(acc_dtype=torch.int32, out_dtype=dt, shift=9,
+                  activation=Activation.RELU)
+        ops = [(label, (m, n, k), rint(-128, 128, m, k),
+                rint(-128, 128, k, n), rint(-1000, 1000, n, dtype=torch.int32))
+               for label, (m, n, k) in shapes]
     timer = cs.Timer(torch)
     floor_x = torch.zeros(1, device="cuda")
     print(f"timer floor (one-element add_): "
@@ -133,15 +151,16 @@ def main() -> int:
     events = {mnk: timer(lambda a=a, b=b, d=d: kg.gemm_os(a, b, d, **kw))
               for _, mnk, a, b, d in ops}
 
-    lib = ctypes.CDLL(str(build(ROOT / "build" / "igemm_phases")))
+    lib = ctypes.CDLL(str(build(ROOT / "build" / "igemm_phases", lib_name)))
     lib.igemm_set_stamps.argtypes = [ctypes.c_void_p]
-    _build._LIBS["gemm"] = lib
-    for key in [k for k in _build._FNS if k[0] == "gemm"]:
+    _build._LIBS[lib_name] = lib
+    for key in [k for k in _build._FNS if k[0] == lib_name]:
         del _build._FNS[key]
     print("us from each block's entry, median over the blocks reaching the "
           "phase; span: first entry to last store")
     for label, (m, n, k), a, b, d in ops:
-        plan = kg.gemm_s8_plan(m, n, k)
+        plan = kg.gemm_plan(m, n, k, dtype=dt) if args.int16 \
+            else kg.gemm_s8_plan(m, n, k)
         stamps = torch.zeros(plan["grid"] * STAMPS, dtype=torch.int64,
                              device="cuda")
         for _ in range(3):                 # the last of three, L2 flushed

@@ -2,10 +2,13 @@
 bf16 engine GEMM at gemma3-1b's 24 serving shapes (7 projections and the
 tied unembedding at M = 4, 64 and 256, the rows of ``chip_smoke.py`` phase
 3, with ``torch.matmul`` beside each), the fp32 GEMM at phase 3's fp32
-shapes (``torch.addmm`` / ``torch.matmul`` beside, TF32 off) and the fp16
+shapes (``torch.addmm`` / ``torch.matmul`` beside, TF32 off), the fp16
 GEMM at the quickstart (OS and WS) and at ResNet-50's host-im2col shapes
-(``torch.matmul`` beside), fp32
-``flash_attention`` at the fp32 gate's prompts, bf16 paged prefill at a
+(``torch.matmul`` beside) and the int16 GEMM at the same shapes on both
+dataflows (PyTorch has no int16 matmul on the card), fp32
+``flash_attention`` at the fp32 gate's prompts and at hymba-1.5b's first
+chunk, fp32 paged prefill at the gate's last chunks and at hymba-1.5b's
+256-token continuation chunk at 768, bf16 paged prefill at a
 256-token chunk at 768 (gemma3-1b global and window 512, hymba-1.5b
 window 1024; the dense flash kernel on the same keys gathered beforehand
 beside each), paged decode at gemma3-1b's serving shape (global and with
@@ -73,7 +76,37 @@ def gemm_cases(torch, cs):
               run_p, run_lib, (nbytes, 2.0 * m * n * k))
              for name, m, n, k, run_k, run_p, run_lib, nbytes
              in cs.fp32_gemm_cases(torch, randn)]
-    return rows + fp16_gemm_cases(torch, cs, gen)
+    return rows + fp16_gemm_cases(torch, cs, gen) + int16_gemm_cases(torch,
+                                                                     cs, gen)
+
+
+def int16_gemm_cases(torch, cs, gen):
+    """The int16 engine GEMM (phase 6b's int16 instance) at the quickstart
+    (1000 x 512 x 2048) and at every host-im2col GEMM of ResNet-50's stream
+    with M > 16 (``chip_smoke.resnet50_shapes``), each on OS and on WS:
+    bias, shift 10, ReLU, int16 out, operands as phase 6b draws them."""
+    from repro_torch.core.config import Activation
+    from repro_torch.kernels import gemm as kg
+    from repro_torch.kernels.ref import gemm_ref
+
+    i16 = torch.int16
+    out = []
+    shapes = [("quickstart", (1000, 512, 2048))] + [
+        (f"resnet50 {lab}", mnk) for lab, mnk, _, _ in cs.resnet50_shapes()
+        if mnk[0] > 16]
+    for label, (m, n, k) in shapes:
+        a, b, d, shift = cs.datapath_operands(torch, gen, i16, (m, k), (k, n),
+                                              n)
+        kw = dict(acc_dtype=torch.int32, out_dtype=i16, shift=shift,
+                  activation=Activation.RELU)
+        for kernel, fn in (("gemm[int16]", kg.gemm_os),
+                           ("gemm_ws", kg.gemm_ws)):
+            out.append((kernel, f"int16 {label} M={m} N={n} K={k}", "int16",
+                        lambda a=a, b=b, d=d, kw=kw, fn=fn: fn(a, b, d, **kw),
+                        lambda a=a, b=b, d=d, kw=kw: gemm_ref(a, b, d, **kw),
+                        None, (2 * (m * k + k * n + m * n) + 4 * n,
+                               2.0 * m * n * k)))
+    return out
 
 
 def fp16_gemm_cases(torch, cs, gen):
@@ -141,6 +174,27 @@ def attention_cases(torch):
                             ka.flash_attention(q, k, v, **kw),
                         lambda q=q, k=k, v=v, kw=kw:
                             ka.blockwise_attention(q, k, v, **kw), None, None))
+        # the gate's last continuation chunk of its longest prompt (page
+        # 16, 24 pages, chunks of sd.PREFILL_CHUNK), as phase 3 runs it
+        tc = sd.PREFILL_CHUNK
+        start = t - tc
+        kvp = -(-t // 16)
+        kp, vp = (randn(sc.n_kv_heads, 25, 16, sc.head_dim,
+                        dtype=torch.float32) for _ in range(2))
+        tab = torch.randperm(24, generator=gen, device="cuda")[:kvp].to(
+            torch.int32)
+        qc = randn(1, tc, sc.n_heads, sc.head_dim, dtype=torch.float32)
+        for window in (None, sc.local_window) if sc.local_window else (None,):
+            kw = dict(window=window, softcap=sc.attn_softcap)
+            out.append(("paged_prefill_attention",
+                        f"fp32 {arch} T={tc} start={start} page=16 "
+                        f"window={window} softcap={sc.attn_softcap}", "fp32",
+                        lambda q=qc, k=kp, v=vp, tab=tab, s=start, kw=kw:
+                            ka.paged_prefill_attention(q, k, v, tab, s, **kw),
+                        lambda q=qc, k=kp, v=vp, tab=tab, s=start, kw=kw:
+                            ka.paged_prefill_attention_plain(q, k, v, tab, s,
+                                                             **kw),
+                        None, None))
 
     # paged prefill at a 256-token continuation chunk at 768 (gemma3-1b:
     # global and window 512; hymba-1.5b: window 1024), and the dense flash
@@ -178,6 +232,37 @@ def attention_cases(torch):
                         lambda q=qp, k=kg, v=vg, w=window:
                             ka.blockwise_attention(q, k, v, window=w), None,
                         work))
+    # fp32 at hymba-1.5b's widths: flash at its first chunk (256 cache
+    # positions, as phase 8's fp32 logits run it) and paged prefill at its
+    # 256-token continuation chunk at 768 (window 1024)
+    h, kvh, d, window = hy.n_heads, hy.n_kv_heads, hy.head_dim, \
+        hy.local_window
+    f32 = torch.float32
+    q32 = randn(1, 256, h, d, dtype=f32)
+    k32, v32 = (randn(1, 256, kvh, d, dtype=f32) for _ in range(2))
+    pairs = 256 * 257 // 2
+    out.append(("flash_attention",
+                f"fp32 hymba-1.5b T=256 H={h} KVH={kvh} D={d} "
+                f"window={window}", "fp32",
+                lambda w=window: ka.flash_attention(q32, k32, v32, window=w),
+                lambda w=window: ka.blockwise_attention(q32, k32, v32,
+                                                        window=w),
+                None, (4 * (2 * 256 * h * d + 2 * 256 * kvh * d),
+                       4.0 * d * h * pairs)))
+    kp32, vp32 = (randn(kvh, n_pages + 1, page, d, dtype=f32)
+                  for _ in range(2))
+    qp32 = randn(1, t, h, d, dtype=f32)
+    pairs = sum(min(start + i + 1, window) for i in range(t))
+    live = min(start + t, window - 1 + t)
+    out.append(("paged_prefill_attention",
+                f"fp32 hymba-1.5b T={t} start={start} window={window}",
+                "fp32",
+                lambda s=start, w=window: ka.paged_prefill_attention(
+                    qp32, kp32, vp32, table, s, window=w),
+                lambda s=start, w=window: ka.paged_prefill_attention_plain(
+                    qp32, kp32, vp32, table, s, window=w), None,
+                (4 * (2 * t * h * d + 2 * live * kvh * d) + 4 * 16,
+                 4.0 * d * h * pairs)))
     h, kvh, d = g3.n_heads, g3.n_kv_heads, g3.head_dim
     kp, vp = (randn(kvh, n_pages + 1, page, d) for _ in range(2))
     lengths = [1010, 530, 310, 80]
