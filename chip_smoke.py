@@ -16,19 +16,21 @@ Needs one CUDA card, ``nvcc`` and the repository checkout around this file
    quickstart's int8 GEMM and every distinct layer of ResNet-50's stream
    as a GEMM on both dataflows, each with its ``gemm_s8_plan`` and
    ``torch._int_mm`` beside it where that call takes the shape; the conv
-   kernel at every distinct conv of the stream; the mvout epilogue),
-   where the int8 kernels must be bit-exact, and at phase 6b's (the fp16
-   and int16 GEMMs at the quickstart shape on both dataflows, fp16 beside
-   ``torch.matmul``; int16 and fp16 outputs of the int8 and bf16 kernels
-   and of the mvout epilogue; the fp32, bf16, fp16 and int16 conv kernels
+   kernel at every distinct conv of the stream; the mvout epilogue at its
+   six datapaths, int32 -> int8 / int16 / int32 and fp32 -> fp32 / bf16 /
+   fp16, at (1000, 512) and at (999, 513) read from 4 bytes past a
+   16-byte boundary, fp32 -> fp32 / fp16 also at (3136, 256)), where the
+   int8 kernels must be bit-exact, and at
+   phase 6b's (the fp16 and int16 GEMMs at the quickstart shape on both
+   dataflows, fp16 beside ``torch.matmul``; int16 and fp16 outputs of the
+   int8 and bf16 kernels; the fp32, bf16, fp16 and int16 conv kernels
    at the stem, stage-1 3x3 and stage-4 3x3 beside
    ``torch.nn.functional.conv2d``; PyTorch's errors for int16 matmul and
    conv on the card are logged), int16 bit-exact. Times are
    CUDA-event medians with the L2 cache flushed before each launch;
-   bounds use 3.35 TB/s and 989 TFLOP/s (bf16 / fp16 tensor rate; 67
-   TFLOP/s for fp32 inputs, 1979 TOP/s for int8, and for int16 the int8
-   tensor rate over the four byte-plane products an int16 product takes
-   there, 1979 / 4 TOP/s);
+   bounds use the peaks of ``repro_torch.analysis.roofline`` (3.35 TB/s;
+   989 TFLOP/s bf16 / fp16, 67 TFLOP/s fp32, 1979 TOP/s int8, 1979 / 4
+   TOP/s int16);
 4. serve: gemma3-1b at full width (26 layers, random weights from a seed)
    through ``ServingEngine``: four requests, prompts of 1000, 512, 300 and
    64 tokens, 32 new tokens each, 256-token prefill chunks; launch counts
@@ -64,11 +66,15 @@ Needs one CUDA card, ``nvcc`` and the repository checkout around this file
    chunk, fresh and resumed, and no attention kernel may run; a 256-token
    prompt's prefill logits are held against the CPU plain path in fp32
    (``FP32_LOGITS_LIMIT``) and in bf16 (``hold_bf16``: the card's bf16
-   gap from the fp32 logits at most twice the CPU's);
+   gap from the fp32 logits at most twice the CPU's); one decode step of
+   four active slots through the engine's envelope is timed with the NaN
+   guard off and on, alternating (on: the active slots' conv / SSM rows
+   copied before the step, the logits' finiteness read after it);
 8. hybrid serve: hymba-1.5b at full width (128 meta tokens, window 1024),
    two requests of 700 and 200 tokens, 16 new tokens each; the SSD, flash,
    paged prefill, paged decode and GEMM kernels must all launch; prefill
-   logits against the CPU as in phase 7;
+   logits against the CPU and the guarded decode step's cost as in
+   phase 7;
 9. gate: the port's ``serve_decode`` at smoke size, fp32 model and engine,
    for gemma2-2b, mamba2-1.3b, hymba-1.5b and musicgen-medium: on the card
    the engine's greedy tokens equal the static path's (dense decode
@@ -77,7 +83,26 @@ Needs one CUDA card, ``nvcc`` and the repository checkout around this file
    through ``prefill_into_cache`` and 16 ``decode_step`` calls on a
    768-token prompt (the dense decode kernel's main path: it must launch
    once per step and layer); the logits, teacher-forced with the card's
-   tokens on the CPU, are held by ``hold_bf16``.
+   tokens on the CPU, are held by ``hold_bf16``;
+11. robustness and profiler: (a) phase 4's traffic on phase 4's weights
+   under ``FAULT_PLAN`` (a NaN-poisoned decode step and an Inf-poisoned
+   prefill step, each re-run from its pre-call state; three transient
+   failures, each retried), the NaN guard on: every request finishes,
+   retries and fallbacks equal the injector's firings, each re-run inside
+   ``_dispatch_fallback`` launches its primary step's kernels as many
+   times and gives phase 4's logits of that step bit for bit, and every
+   request's tokens equal phase 4's; the same traffic runs unfaulted
+   just before (guard off, then on) and after (off), for walls taken on
+   the same host at the same time; (b) phase 5's smoke gemma3-1b in
+   fp32 under the chaos suite's ``MIXED_PLAN``: tokens equal the
+   unfaulted card's and the CPU's, counters and firings the CPU's; (c)
+   the op profiler over phase 4b's decode step and continuation chunk
+   (each op's events bracket its device work: a spin kernel holds the
+   stream while the host enqueues it): per bucket calls, best time,
+   achieved TFLOP/s and TB/s and roofline share (none above 1.0), each
+   op's calls equal to its kernel's launches, logits equal to the
+   unprofiled step's bit for bit. Every other phase's engines retry no
+   step and fall back on none (``assert_clean``).
 
 Phase 3 also holds the chunked SSD (mamba2-1.3b's and hymba-1.5b's
 widths: the serving call, one 256-token chunk resumed, and 1000 tokens
@@ -136,15 +161,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
-HBM_BYTES_PER_S = 3.35e12
-# Peaks by check kind: the tensor-core rates (bf16 and fp16 989 TFLOP/s,
-# int8 1979 TOP/s), fp32 on CUDA cores 67 TFLOP/s, and int16: Hopper has no
-# int16 MMA, but an int16 product is exact as four int8 products of byte
-# planes (signed high x signed high, the two mixed, unsigned low x
-# unsigned low; ``csrc/igemm.cuh``), so the card's least time is the int8
-# tensor rate over four, 1979 / 4 TOP/s.
-PEAK_FLOPS = {"bf16": 989e12, "fp16": 989e12, "fp32": 67e12, "int": 1979e12,
-              "int16": 1979e12 / 4}
+# The input dtype of each check kind, whose peak rate bounds it
+# (``repro_torch.analysis.roofline``; "int" is the int8 datapath).
+KIND_DTYPE = {"bf16": "bfloat16", "fp16": "float16", "fp32": "float32",
+              "int": "int8", "int16": "int16"}
 REPS = 25
 
 # Full-width logits, card against the CPU plain path. fp32: each limit sits
@@ -167,6 +187,14 @@ def log(msg: str) -> None:
 def fail(msg: str) -> None:
     log(f"FAIL: {msg}")
     sys.exit(1)
+
+
+def assert_clean(name: str, summary) -> None:
+    """An unfaulted run retries no step and re-runs none (a NaN guard that
+    trips here is a kernel fault)."""
+    if summary["retries"] or summary["fallbacks"]:
+        fail(f"{name}: {int(summary['retries'])} retries and "
+             f"{int(summary['fallbacks'])} fallbacks in an unfaulted run")
 
 
 # ---------------------------------------------------------------------------
@@ -221,8 +249,11 @@ class Timer:
 
 
 def bound_ms(nbytes: float, flops: float, kind: str):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[kind] * 1e3
+    import torch
+    from repro_torch.analysis.roofline import HBM_BW, peak_ops
+
+    t_bytes = nbytes / HBM_BW * 1e3
+    t_ops = flops / peak_ops(getattr(torch, KIND_DTYPE[kind])) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -635,6 +666,7 @@ def kernel_cases(torch, rng_seed=0):
                         24, -(-max(lengths) // 16), window, sc.attn_softcap,
                         False, dtype=f32)
     engine_cases(torch, gen, cases)
+    epilogue_cases(torch, gen, cases)
     datapath_cases(torch, gen, cases)
     recurrent_cases(torch, gen, cases)
     return cases
@@ -942,7 +974,6 @@ def engine_cases(torch, gen, cases):
     every distinct conv of the stream (stem, 1x1 and 3x3 per stage)."""
     from repro_torch.core.config import Activation
     from repro_torch.kernels import conv as kc
-    from repro_torch.kernels import epilogue as epi
     from repro_torch.kernels import gemm as kg
     from repro_torch.kernels.ref import conv2d_ref, gemm_ref
 
@@ -981,21 +1012,6 @@ def engine_cases(torch, gen, cases):
                 lib, m * k + k * n + 4 * n + m * n, 2.0 * m * n * k,
                 {"plan": s8_plan_text(kg, m, n, k)}))
 
-    acc = rint(-2 ** 31, 2 ** 31 - 1, 1000, 512, dtype=i32)
-    kw = dict(out_dtype=i8, shift=7, activation=relu)
-    cases.append(("accumulator_epilogue", "int32 (1000, 512) -> int8 shift=7 "
-                  "relu", True, "int",
-                  lambda acc=acc, kw=kw: kg.accumulator_epilogue(acc, **kw),
-                  lambda acc=acc, kw=kw: epi.apply(acc, **kw), None,
-                  5 * 1000 * 512, 0.0))
-    accf = torch.randn((3136, 256), generator=gen, device="cuda") * 8
-    kwf = dict(out_dtype=torch.float32, shift=2, activation=relu)
-    cases.append(("accumulator_epilogue", "fp32 (3136, 256) -> fp32 shift=2 "
-                  "relu", False, "fp32",
-                  lambda: kg.accumulator_epilogue(accf, **kwf),
-                  lambda: epi.apply(accf, **kwf), None, 8 * 3136 * 256,
-                  0.0))
-
     # PyTorch has no int8 convolution on the card: the conv rows have no
     # library yardstick (logged once).
     try:
@@ -1023,6 +1039,62 @@ def engine_cases(torch, gen, cases):
             None, x.numel() + w.numel() + 4 * co + oh * oh * co,
             2.0 * oh * oh * co * kh * kh * ci,
             {"plan": s8_plan_text(kg, *mnk)}))
+
+
+# The mvout epilogue's six datapaths: (accumulator, output, check kind,
+# rounding shift). The fp16 rows scale their fp32 values by 2^14, so some
+# overflow to inf (as JAX's astype stores them).
+EPILOGUE_PAIRS = (("int32", "int8", "int", 7), ("int32", "int16", "int", 9),
+                  ("int32", "int32", "int", 7), ("fp32", "fp32", "fp32", 2),
+                  ("fp32", "bf16", "bf16", 2), ("fp32", "fp16", "fp16", 0))
+# A shape whose count is no multiple of four, read from a slice that starts
+# one element (4 bytes) past a 16-byte boundary: the kernel's scalar head
+# and tail, and runs whose outputs are stored one by one.
+EPILOGUE_ODD = (999, 513)
+
+
+def epilogue_cases(torch, gen, cases):
+    """accumulator_epilogue at its six datapaths, each at the mvout
+    route's shape (1000, 512) and at ``EPILOGUE_ODD`` misaligned, and
+    fp32 -> fp32 / fp16 at (3136, 256) (ResNet-50's stage-1 output; fp16
+    overflow to inf); ReLU throughout. The int32 -> int8 row at (1000,
+    512) is the kernels line's."""
+    from repro_torch.core.config import Activation
+    from repro_torch.kernels import epilogue as epi
+    from repro_torch.kernels import gemm as kg
+
+    dtypes = {"int32": torch.int32, "int8": torch.int8,
+              "int16": torch.int16, "fp32": torch.float32,
+              "bf16": torch.bfloat16, "fp16": torch.float16}
+
+    def accumulator(acc_name, out_name, count):
+        if acc_name == "int32":
+            return torch.randint(-2 ** 31, 2 ** 31 - 1, (count,),
+                                 generator=gen, device="cuda",
+                                 dtype=torch.int32)
+        scale = 2.0 ** 14 if out_name == "fp16" else 8.0
+        return torch.randn((count,), generator=gen, device="cuda") * scale
+
+    shapes = [((1000, 512), 0), (EPILOGUE_ODD, 1)]
+    for acc_name, out_name, kind, shift in EPILOGUE_PAIRS:
+        runs = shapes + ([((3136, 256), 0)] if acc_name == "fp32" and
+                         out_name != "bf16" else [])
+        for shape, offset in runs:
+            count = shape[0] * shape[1]
+            acc = accumulator(acc_name, out_name, count + offset)[
+                offset:].view(shape)
+            out = dtypes[out_name]
+            kw = dict(out_dtype=out, shift=shift,
+                      activation=Activation.RELU)
+            label = (f"{acc_name} {shape} -> {out_name} shift={shift} relu"
+                     + (f" at +{4 * offset} bytes" if offset else ""))
+            cases.append((
+                "accumulator_epilogue", label,
+                (acc_name, out_name, shape) == ("int32", "int8", (1000, 512)),
+                kind,
+                lambda acc=acc, kw=kw: kg.accumulator_epilogue(acc, **kw),
+                lambda acc=acc, kw=kw: epi.apply(acc, **kw), None,
+                (4 + out.itemsize) * count, 0.0))
 
 
 # The float and 16-bit datapaths (phase 6b): each kernel's report name,
@@ -1071,15 +1143,14 @@ def datapath_cases(torch, gen, cases):
     gemm[fp16] and gemm[int16] at the quickstart GEMM (1000 x 512 x 2048,
     bias, ReLU) on both dataflows, fp16 beside ``torch.matmul``; the int8
     kernel with int16 outputs and the bf16 kernel with fp16 outputs there;
-    the mvout epilogue to int16 and to fp16; and each conv kernel (fp32,
-    bf16, fp16, int16) at the stem, stage-1 3x3 and stage-4 3x3 convs
+    and each conv kernel (fp32, bf16, fp16, int16) at the stem, stage-1
+    3x3 and stage-4 3x3 convs
     beside ``torch.nn.functional.conv2d`` on channels-last views (conv and
     bias; fp32 with TF32 off, as ``main`` sets it). PyTorch has no int16
     matmul or conv on the card: the errors are logged, and those rows have
     no library time. Each row logs its kernel's plan."""
     from repro_torch.core.config import Activation
     from repro_torch.kernels import conv as kc
-    from repro_torch.kernels import epilogue as epi
     from repro_torch.kernels import gemm as kg
     from repro_torch.kernels.ref import conv2d_ref, gemm_ref
 
@@ -1143,20 +1214,6 @@ def datapath_cases(torch, gen, cases):
             lambda a=a, b=b, bias=bias, kw=kw: gemm_ref(a, b, bias, **kw),
             None, a.element_size() * (m * k + k * n) + 2 * m * n + 4 * n,
             2.0 * m * n * k))
-    acc = torch.randint(-2 ** 31, 2 ** 31 - 1, (1000, 512), generator=gen,
-                        device="cuda", dtype=i32)
-    accf = torch.randn((3136, 256), generator=gen, device="cuda") * 2.0 ** 14
-    for acc_t, out, kind, shift in ((acc, torch.int16, "int", 9),
-                                    (accf, torch.float16, "fp16", 0)):
-        kw = dict(out_dtype=out, shift=shift, activation=relu)
-        cases.append((
-            "accumulator_epilogue", f"{str(acc_t.dtype)[6:]} "
-            f"{tuple(acc_t.shape)} -> {str(out)[6:]} shift={shift} relu",
-            False, kind,
-            lambda acc_t=acc_t, kw=kw: kg.accumulator_epilogue(acc_t, **kw),
-            lambda acc_t=acc_t, kw=kw: epi.apply(acc_t, **kw), None,
-            6 * acc_t.numel(), 0.0))
-
     shapes = {label: (mnk, conv) for label, mnk, conv, _ in resnet50_shapes()}
     for kind, dt in dtypes.items():
         name = f"conv2d_implicit[{kind}]"
@@ -1278,10 +1335,22 @@ def run_serve_phase(torch, np):
     for p in prompts:
         engine.submit(p, SERVE_NEW)
 
+    # Every step's logits, kept on the card for phase 11, which holds the
+    # NaN guard's re-runs against this clean run's same steps.
+    clean_logits = []
+    primary = engine._dispatch
+
+    def keep_logits(which, args):
+        logits, state = primary(which, args)
+        clean_logits.append(logits)
+        return logits, state
+
+    engine._dispatch = keep_logits
     kernels.reset_launch_counts()
     report = engine.run()
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
+    del engine._dispatch
 
     for r in report["requests"]:
         if r["status"] != "finished" or r["new_tokens"] != SERVE_NEW:
@@ -1296,6 +1365,7 @@ def run_serve_phase(torch, np):
         if n <= 0:
             fail(f"kernel {name} was not launched on the serving path")
     s = report["summary"]
+    assert_clean("serve", s)
     log(f"serve: {int(s['requests'])} requests, {int(s['new_tokens'])} new "
         f"tokens in {s['wall_s']:.3f} s = {s['tokens_per_s']:.2f} tok/s; "
         f"TTFT p50 {s['p50_ttft_s'] * 1e3:.1f} ms p99 "
@@ -1333,7 +1403,10 @@ def run_serve_phase(torch, np):
         f"error {rel:.3e} (limit 5e-2)")
     if not rel <= 5e-2:
         fail(f"full-width logits disagree with the plain path: {rel:.3e}")
-    return counts, s, run_profile_phase(torch, engine), engine
+    clean = {"tokens": [np.asarray(r["tokens"]).tolist()
+                        for r in report["requests"]],
+             "logits": clean_logits, "wall_s": s["wall_s"]}
+    return counts, s, run_profile_phase(torch, engine), engine, clean
 
 
 # ---------------------------------------------------------------------------
@@ -1491,6 +1564,14 @@ def run_profile_phase(torch, engine):
     """``profile_call`` for one decode step of four slots at
     1000/512/300/64 cached tokens and for one 256-token continuation
     chunk at position 768 (the serve phase's shapes)."""
+    return {name: profile_call(torch, name, fn)
+            for name, fn in profile_steps(torch, engine).items()}
+
+
+def profile_steps(torch, engine):
+    """Phase 4b's two steps as calls: one decode step of four slots at
+    1000/512/300/64 cached tokens and one 256-token continuation chunk at
+    position 768, each returning (logits, state)."""
     from repro_torch.models import transformer as tf
 
     cfg, ctx, params = engine.model_cfg, engine.engine, engine.params
@@ -1504,14 +1585,13 @@ def run_profile_phase(torch, engine):
     active = torch.ones((4,), dtype=torch.bool, device="cuda")
     toks = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
     chunk = torch.zeros((1, 256), dtype=torch.int32, device="cuda")
-    steps = {
+    return {
         "decode_step": lambda: tf.paged_decode_step(
             ctx, params, cfg, toks, decode_state, active, page_size=page),
         "prefill_chunk": lambda: tf.paged_prefill_chunk(
             ctx, params, cfg, chunk, state, 0, state.tables[0], 768,
             page_size=page, kv_pages=16),
     }
-    return {name: profile_call(torch, name, fn) for name, fn in steps.items()}
 
 
 def _leaves(tree):
@@ -1569,6 +1649,7 @@ def run_e2e_phase(torch, np):
             for p in prompts:
                 eng.submit(p, 12)
             rep = eng.run()
+            assert_clean(f"{arch} fp32 on {device}", rep["summary"])
             streams[device] = [np.asarray(r["tokens"]).tolist()
                                for r in rep["requests"]]
         if streams["cuda"] != streams["cpu"]:
@@ -1946,6 +2027,7 @@ def serve_family(torch, np, arch, prompt_lens, new_tokens, chunk=256):
             fail(f"{arch} request {r['rid']}: status {r['status']}, "
                  f"{r['new_tokens']} of {new_tokens} tokens")
     s = report["summary"]
+    assert_clean(f"{arch} serve", s)
     log(f"{arch} serve: {int(s['requests'])} requests, "
         f"{int(s['new_tokens'])} new tokens in {s['wall_s']:.3f} s = "
         f"{s['tokens_per_s']:.2f} tok/s; TTFT p50 "
@@ -2071,6 +2153,58 @@ def profile_family(torch, engine):
             for name, fn in steps.items()}
 
 
+def guard_cost(torch, engine, reps=8):
+    """One decode step of every slot, all active, at the engine's widths
+    through its envelope (``_run_guarded``) with the NaN guard off and on,
+    alternating call by call; the median and best wall of each,
+    synchronised after the step. The guarded step also copies the active
+    slots' conv / SSM rows before it (timed alone by CUDA events, its
+    ``nonzero`` read of the active mask included) and reads the logits'
+    finiteness after it."""
+    from repro_torch.models import transformer as tf
+
+    cfg, n = engine.model_cfg, engine.max_slots
+    mp, page = engine.max_pages_per_seq, engine.page_size
+    state = tf.init_paged_state(cfg, n, n * mp, page, mp, dtype=cfg.dtype,
+                                device="cuda")
+    args = (engine.params, torch.zeros((n, 1), dtype=torch.int32,
+                                       device="cuda"),
+            state, torch.ones((n,), dtype=torch.bool, device="cuda"))
+    walls = {False: [], True: []}
+    try:
+        for rep in range(reps + 1):
+            for guard in (False, True):
+                engine.nan_guard = guard
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                engine._run_guarded("decode", "decode", args)
+                torch.cuda.synchronize()
+                if rep:                               # the first is warm-up
+                    walls[guard].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        engine.nan_guard = False
+    copy_ms = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        engine._recurrent_snapshot("decode", args)
+        end.record()
+        end.synchronize()
+        copy_ms.append(start.elapsed_time(end))
+    copied = n * (state.conv[:, 0].nbytes + state.ssm[:, 0].nbytes)
+    off, on = statistics.median(walls[False]), statistics.median(walls[True])
+    copy = statistics.median(copy_ms)
+    log(f"{cfg.name} guarded decode step ({n} active slots, "
+        f"{copied / 2**20:.1f} MiB of recurrent rows copied in {copy:.4f} "
+        f"ms): median {on:.3f} ms (best {min(walls[True]):.3f}) against "
+        f"{off:.3f} ms (best {min(walls[False]):.3f}) unguarded "
+        f"({on / off:.3f}x), {reps} calls each, alternating")
+    return {"unguarded_ms": off, "guarded_ms": on, "copy_ms": copy,
+            "copied_bytes": copied, "walls_ms": {
+                "unguarded": walls[False], "guarded": walls[True]}}
+
+
 def run_ssm_phase(torch, np):
     """mamba2-1.3b, phase 4's traffic: the chunked SSD runs every prefill
     chunk (fresh and resumed), the GEMM every projection, and no attention
@@ -2092,8 +2226,9 @@ def run_ssm_phase(torch, np):
     rel = check_prefill_logits(torch, engine, prompt, "mamba2-1.3b",
                                FP32_LOGITS_LIMIT["mamba2-1.3b"])
     profile = profile_family(torch, engine)
+    guard = guard_cost(torch, engine)
     return counts, resumed, {"summary": s, "logits_rel_l2": rel,
-                             "profile": profile}
+                             "profile": profile, "guard": guard}
 
 
 def run_hybrid_phase(torch, np):
@@ -2110,8 +2245,9 @@ def run_hybrid_phase(torch, np):
     rel = check_prefill_logits(torch, engine, prompts[1][:128],
                                "hymba-1.5b", FP32_LOGITS_LIMIT["hymba-1.5b"])
     profile = profile_family(torch, engine)
+    guard = guard_cost(torch, engine)
     return counts, resumed, {"summary": s, "logits_rel_l2": rel,
-                             "profile": profile}
+                             "profile": profile, "guard": guard}
 
 
 # ---------------------------------------------------------------------------
@@ -2135,6 +2271,8 @@ def run_gate_phase(torch):
         cpu = serve_decode.run_arch(arch, device="cpu", fp32=True,
                                     verbose=False)
         got = card[arch]
+        assert_clean(f"gate {arch} on the card", got["summary"])
+        assert_clean(f"gate {arch} on the CPU", cpu["summary"])
         if not got["ok"] or got["engine"] != cpu["engine"] or \
                 got["reference"] != cpu["reference"]:
             fail(f"gate {arch} fp32: engine {got['engine']} / static "
@@ -2216,6 +2354,268 @@ def run_static_phase(torch, np, engine):
                            "cpu", tokens=toks)
     rel = hold_bf16("static path gemma3-1b", card, cpu, exact)
     return counts, {"wall_s": wall, "tokens": toks, "logits_rel_l2": rel}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the robustness envelope and the op profiler at full width
+# ---------------------------------------------------------------------------
+# Part a's plan: one NaN-poisoned decode step and one Inf-poisoned prefill
+# step (each re-run from its pre-call state), two transient decode
+# failures and one transient prefill failure (each retried).
+FAULT_PLAN = ("seed=3;nan@decode:max=1;inf@prefill:max=1;"
+              "transient@decode:max=2;transient@prefill:max=1")
+# tests/test_chaos.py's MIXED_PLAN: NaN-poisoned decodes, a failed prefill
+# dispatch, straggler-delayed steps and three steps of arena pressure.
+MIXED_PLAN = ("seed=3;nan@decode:p=1,max=2;transient@prefill:max=1;"
+              "straggler@step:delay=0.001,start=6,max=2;"
+              "arena:pages=2,start=3,max=3")
+# The counters part b holds between the card and the CPU.
+ROBUST_COUNTERS = ("retries", "fallbacks", "injected_faults", "shed",
+                   "preemptions", "prefill_chunks")
+# Each op phase 4b's steps dispatch, by the launch counter of the kernel
+# it launches (bf16 GEMMs count under "gemm").
+OP_KERNEL = {"matmul": "gemm", "paged_attention": "paged_decode_attention",
+             "paged_prefill_attention": "paged_prefill_attention"}
+
+
+def robust_full_width(torch, np, engine, clean):
+    """Part a: phase 4's traffic on phase 4's weights under ``FAULT_PLAN``
+    with the NaN guard on. Every request finishes; retries and fallbacks
+    equal the injector's firings; each re-run inside
+    ``_dispatch_fallback`` launches the kernels its primary step launched,
+    as many times, and gives phase 4's logits of the same step bit for
+    bit (from the restored pre-call state); every request's tokens equal
+    phase 4's. The same traffic runs unfaulted just before (the guard off,
+    then on) and just after (off), so the faulted wall has neighbours
+    taken on the same host at the same time."""
+    from repro_torch import kernels
+    from repro_torch.serving import ServingEngine
+
+    cfg = engine.model_cfg
+
+    def serving(faults=None, nan_guard=None):
+        eng = ServingEngine(cfg, max_slots=4, max_context=2048, page_size=64,
+                            prefill_chunk=256, seed=0, params=engine.params,
+                            faults=faults, nan_guard=nan_guard,
+                            device="cuda")
+        rng = np.random.default_rng(0)
+        for n in SERVE_PROMPTS:
+            eng.submit(rng.integers(0, cfg.vocab, (n,)).astype(np.int32),
+                       SERVE_NEW)
+        return eng
+
+    def unfaulted(name, nan_guard):
+        rep = serving(nan_guard=nan_guard).run()
+        torch.cuda.synchronize()
+        assert_clean(name, rep["summary"])
+        toks = [np.asarray(r["tokens"]).tolist() for r in rep["requests"]]
+        if toks != clean["tokens"]:
+            fail(f"{name}: tokens differ from phase 4's")
+        return rep["summary"]
+
+    neighbours = [unfaulted("unfaulted serve, guard off", False),
+                  unfaulted("unfaulted serve, guard on", True)]
+    eng = serving(faults=FAULT_PLAN)
+    primary, fallback = eng._dispatch, eng._dispatch_fallback
+    seen = {"steps": 0, "launched": [], "reruns": []}
+
+    def grown(before):
+        return {k: v - before[k] for k, v in kernels.launch_counts().items()
+                if v > before[k]}
+
+    def watch_primary(which, args):
+        before = kernels.launch_counts()
+        out = primary(which, args)
+        seen["launched"].append(grown(before))
+        seen["steps"] += 1
+        return out
+
+    def watch_fallback(which, args):
+        before = kernels.launch_counts()
+        logits, state = fallback(which, args)
+        torch.cuda.synchronize()
+        step = seen["steps"] - 1
+        launched, want = grown(before), seen["launched"][step]
+        if launched != want:
+            fail(f"the re-run of {which} step {step} launched {launched}, "
+                 f"its primary call {want}")
+        ref = clean["logits"][step]
+        if ref is None or not torch.equal(logits, ref):
+            fail(f"the re-run of {which} step {step}: logits differ from "
+                 f"phase 4's same step")
+        seen["reruns"].append({"which": which, "step": step,
+                               "launches": sum(launched.values())})
+        return logits, state
+
+    eng._dispatch, eng._dispatch_fallback = watch_primary, watch_fallback
+    report = eng.run()
+    torch.cuda.synchronize()
+    s, fired = report["summary"], report["faults"]
+    for r in report["requests"]:
+        if r["status"] != "finished" or r["new_tokens"] != SERVE_NEW:
+            fail(f"faulted request {r['rid']}: status {r['status']}, "
+                 f"{r['new_tokens']} of {SERVE_NEW} tokens")
+    want = {"retries": sum(v for k, v in fired.items()
+                           if k.startswith("transient@")),
+            "fallbacks": sum(v for k, v in fired.items()
+                             if k.startswith(("nan@", "inf@")))}
+    if fired != {"inf@prefill": 1, "nan@decode": 1, "transient@decode": 2,
+                 "transient@prefill": 1} or \
+            {k: int(s[k]) for k in want} != want or \
+            len(seen["reruns"]) != want["fallbacks"]:
+        fail(f"faulted run: fired {fired}, retries {s['retries']}, "
+             f"fallbacks {s['fallbacks']}, re-runs {len(seen['reruns'])}")
+    if not seen["launched"] or not all(seen["launched"]):
+        fail(f"a primary step launched no kernel: {seen['launched']}")
+    tokens = [np.asarray(r["tokens"]).tolist() for r in report["requests"]]
+    if tokens != clean["tokens"]:
+        fail(f"faulted tokens {tokens} differ from phase 4's "
+             f"{clean['tokens']}")
+    neighbours.append(unfaulted("unfaulted serve, guard off", False))
+    walls = {"guard off before": neighbours[0], "guard on": neighbours[1],
+             "faulted": s, "guard off after": neighbours[2]}
+    log(f"faulted serve: {int(s['requests'])} requests finished, fired "
+        f"{fired}; {int(s['retries'])} retries, {int(s['fallbacks'])} "
+        f"re-runs {seen['reruns']} (each its primary step's kernels, "
+        f"logits equal to phase 4's step bit for bit); all tokens equal "
+        f"phase 4's; wall {s['wall_s']:.3f} s against phase 4's "
+        f"{clean['wall_s']:.3f} s")
+    log("phase 4's traffic in phase 11, in order: " + "; ".join(
+        f"{k} {v['wall_s']:.3f} s (ITL p50 {v['p50_itl_s'] * 1e3:.2f} ms, "
+        f"TTFT p50 {v['p50_ttft_s'] * 1e3:.1f} ms)" for k, v in walls.items()))
+    return {"summary": s, "faults": fired, "reruns": seen["reruns"],
+            "wall_s": s["wall_s"], "clean_wall_s": clean["wall_s"],
+            "neighbours": dict(zip(("guard off before", "guard on",
+                                    "guard off after"), neighbours))}
+
+
+def robust_mixed_fp32(torch, np):
+    """Part b: phase 5's smoke gemma3-1b (fp32 model and engine config) on
+    the chaos suite's traffic (two slots, 8-token pages and chunks, three
+    prompts of 5, 11 and 19 tokens, 6 new each) under ``MIXED_PLAN``, on
+    the card and on the CPU, and unfaulted on the card: equal tokens, and
+    the card's counters and firings equal the CPU's."""
+    from repro_torch import configs
+    from repro_torch.core.config import GemminiConfig
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import ServingEngine
+
+    cfg = dataclasses.replace(configs.get_smoke("gemma3-1b"),
+                              dtype=torch.float32, n_layers=6,
+                              global_period=3)
+    f32 = GemminiConfig(input_dtype="fp32", acc_dtype="fp32",
+                        output_dtype="fp32")
+    params = tf.init_params(torch.Generator().manual_seed(1), cfg)
+    runs = {}
+    for name, device, plan in (("card", "cuda", MIXED_PLAN),
+                               ("card unfaulted", "cuda", None),
+                               ("cpu", "cpu", MIXED_PLAN)):
+        eng = ServingEngine(cfg, max_slots=2, max_context=32, page_size=8,
+                            n_pages=8, prefill_chunk=8, engine_cfg=f32,
+                            params=_tree_map(lambda t: t.to(device), params),
+                            faults=plan, seed=0, device=device)
+        rng = np.random.default_rng(0)
+        for n in (5, 11, 19):
+            eng.submit(rng.integers(0, cfg.vocab, (n,)).astype(np.int32), 6)
+        rep = eng.run()
+        runs[name] = {"tokens": [np.asarray(r["tokens"]).tolist()
+                                 for r in rep["requests"]],
+                      "status": [r["status"] for r in rep["requests"]],
+                      "counters": {k: int(rep["summary"][k])
+                                   for k in ROBUST_COUNTERS},
+                      "faults": rep.get("faults")}
+    card, cpu, clean = runs["card"], runs["cpu"], runs["card unfaulted"]
+    if card["tokens"] != clean["tokens"] or card["tokens"] != cpu["tokens"]:
+        fail(f"MIXED_PLAN fp32 tokens: card {card['tokens']}, unfaulted "
+             f"card {clean['tokens']}, CPU {cpu['tokens']}")
+    if (card["counters"], card["faults"], card["status"]) != \
+            (cpu["counters"], cpu["faults"], cpu["status"]):
+        fail(f"MIXED_PLAN counters: card {card['counters']} "
+             f"{card['faults']}, CPU {cpu['counters']} {cpu['faults']}")
+    if card["counters"]["fallbacks"] < 1 or card["counters"]["retries"] < 1:
+        fail(f"MIXED_PLAN fired no fallback or retry: {card['counters']}")
+    log(f"MIXED_PLAN smoke gemma3-1b fp32: tokens equal on the card, the "
+        f"unfaulted card and the CPU; counters {card['counters']}, fired "
+        f"{card['faults']} on both")
+    return runs
+
+
+def profiler_full_width(torch, engine):
+    """Part c: the profiler over phase 4b's decode step and continuation
+    chunk. Per bucket: op, shape, calls, best ms, achieved TFLOP/s and
+    TB/s, share of the roofline (the larger of the compute and memory
+    shares, against ``repro_torch.analysis.roofline``'s peak for the op's
+    input dtype); each op's calls equal the growth of its kernel's launch
+    counter, no share exceeds 1.0, and the profiled step's logits equal
+    the unprofiled step's bit for bit."""
+    from repro_torch import kernels
+    from repro_torch.obs import profile as oprofile
+
+    out = {}
+    for name, fn in profile_steps(torch, engine).items():
+        want, _ = fn()
+        torch.cuda.synchronize()
+        walls, pwalls, outs = [], [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        prof = oprofile.install(oprofile.Profiler())
+        try:
+            before = kernels.launch_counts()
+            for _ in range(3):
+                t0 = time.perf_counter()
+                got, _ = fn()
+                torch.cuda.synchronize()
+                pwalls.append((time.perf_counter() - t0) * 1e3)
+                outs.append(got)
+            after = kernels.launch_counts()
+        finally:
+            oprofile.deactivate()
+        grew = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+        calls = {}
+        for b in prof.buckets.values():
+            kernel = OP_KERNEL.get(b.op, b.op)
+            calls[kernel] = calls.get(kernel, 0) + b.calls
+        if calls != grew:
+            fail(f"profile {name}: bucket calls {calls} against the launch "
+                 f"counters' growth {grew}")
+        if not all(torch.equal(got, want) for got in outs):
+            fail(f"profile {name}: profiled logits differ from the "
+                 f"unprofiled step's")
+        rows = []
+        for r in prof.table():
+            share = max(r["compute_util"] or 0.0, r["memory_util"] or 0.0)
+            row = {"op": r["op"], "contract": r["contract"], "sig": r["sig"],
+                   "calls": r["calls"], "best_ms": r["min_s"] * 1e3,
+                   "tflops": r["flops"] / r["min_s"] / 1e12,
+                   "tbps": r["bytes"] / r["min_s"] / 1e12,
+                   "share": share, "bound": r["bound"]}
+            rows.append(row)
+            log(f"profile {name}: {row['op']:<24} calls {row['calls']:>4}  "
+                f"best {row['best_ms']:.4f} ms  {row['tflops']:8.3f} "
+                f"TFLOP/s  {row['tbps']:.3f} TB/s  share {share:.3f} "
+                f"({row['bound']})  {row['sig']}")
+            if share > 1.0:
+                fail(f"profile {name}: {row['op']} at {share:.3f} of the "
+                     f"roofline ({row['sig']})")
+        wall, pwall = statistics.median(walls), statistics.median(pwalls)
+        log(f"profile {name}: {len(rows)} buckets, launches {grew}; "
+            f"profiled wall {pwall:.3f} ms against {wall:.3f} ms unprofiled "
+            f"({pwall / wall:.2f}x); logits equal bit for bit")
+        out[name] = {"buckets": rows, "launches": grew, "wall_ms": wall,
+                     "profiled_wall_ms": pwall}
+    return out
+
+
+def run_robust_phase(torch, np, engine, clean):
+    """Phase 11: parts a, b and c."""
+    out = {"faulted": robust_full_width(torch, np, engine, clean)}
+    torch.cuda.empty_cache()
+    out["mixed_fp32"] = robust_mixed_fp32(torch, np)
+    out["profiler"] = profiler_full_width(torch, engine)
+    return out
 
 
 def ptxas_summary(lines, names) -> str:
@@ -2308,7 +2708,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 4. serve at full width (the main path: counts zeroed inside)
-    counts, serve_summary, profile, engine = run_serve_phase(torch, np)
+    counts, serve_summary, profile, engine, clean = run_serve_phase(torch,
+                                                                    np)
     torch.cuda.empty_cache()
 
     # 5. fp32 end to end, card against CPU
@@ -2339,10 +2740,14 @@ def main() -> int:
     # 10. the static path at full width (the dense decode kernel's main
     # path: counts zeroed inside)
     static_counts, static_summary = run_static_phase(torch, np, engine)
-    del engine
     torch.cuda.empty_cache()
 
-    # 11. the kernels line
+    # 11. the robustness envelope and the profiler at full width
+    robust = run_robust_phase(torch, np, engine, clean)
+    del engine, clean
+    torch.cuda.empty_cache()
+
+    # 12. the kernels line
     meta = {
         "gemm": ("csrc/gemm.cu", "src/repro/kernels/gemm.py:105"),
         "flash_attention": ("csrc/attention.cu",
@@ -2397,7 +2802,8 @@ def main() -> int:
                    "hybrid_resumed_ssd_launches": hybrid_resumed,
                    "gate_launches": gate_counts,
                    "static": static_summary,
-                   "static_launches": static_counts}, f, indent=1)
+                   "static_launches": static_counts,
+                   "robust": robust}, f, indent=1)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,11 +10,24 @@ the hand-written kernel or the call raises; a CPU tensor runs the plain
 PyTorch version. No fallback runs in between. The mesh and the tuner are
 later slices; the kernels pick their own tiles, so no tile plan is solved
 on the dispatch path.
+
+Op boundary (``repro.core.context._faulted_op`` / ``_profiled_op``):
+every op is wrapped once. An installed fault injector
+(``repro_torch.runtime.faults.install``) runs ``check_transient`` at site
+``op:<name>`` before the call and ``poison`` on the first output after
+it; an installed profiler (``repro_torch.obs.profile``) times the call
+into its (op, shape) bucket. Both pass through untouched while
+``torch.compile`` traces or a CUDA graph captures (``faults.capturing``),
+and on a context made with ``hooks=False`` (the serving engine's NaN-guard
+re-run, which must neither fault nor be timed again). With neither
+installed an op costs one None check more than its kernel call, and no
+value changes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -26,14 +39,49 @@ from repro_torch.kernels import conv as conv_kernel
 from repro_torch.kernels import gemm as gemm_kernel
 from repro_torch.kernels import mamba2
 from repro_torch.kernels import ref
+from repro_torch.obs import profile as oprofile
+from repro_torch.runtime import faults as rfaults
+
+
+def _op(fn):
+    """Wrap the op ``fn`` (named ``_<op>``) with the injector's and the
+    profiler's op-boundary hooks, innermost the profiler: its timing
+    excludes the injector's bookkeeping, and a poisoned output is still
+    the op the bucket timed."""
+    name = fn.__name__.lstrip("_")
+    site = f"op:{name}"
+
+    @functools.wraps(fn)
+    def op(self, *args, **kw):
+        inj, prof = rfaults._ACTIVE, oprofile._ACTIVE
+        if (inj is None and prof is None) or not self.hooks or \
+                rfaults.capturing():
+            return fn(self, *args, **kw)
+        if inj is not None:
+            inj.check_transient(site)
+        if prof is not None:
+            out = prof.call(prof.bucket(name, args, kw, self.cfg), fn,
+                            (self,) + args, kw)
+        else:
+            out = fn(self, *args, **kw)
+        if inj is None:
+            return out
+        if isinstance(out, tuple):
+            return (inj.poison(site, out[0]),) + out[1:]
+        return inj.poison(site, out)
+
+    op.__name__ = op.__qualname__ = name
+    return op
 
 
 @dataclasses.dataclass(frozen=True)
 class ExecutionContext:
     """One engine's dispatch value: the elaborated config the GEMM
-    datapath follows (``None`` is legal for the attention ops only)."""
+    datapath follows (``None`` is legal for the attention ops only), and
+    whether the op-boundary hooks fire (``hooks``)."""
 
     cfg: Optional[GemminiConfig] = None
+    hooks: bool = True
 
     def _require_cfg(self, op: str) -> GemminiConfig:
         if self.cfg is None:
@@ -41,10 +89,10 @@ class ExecutionContext:
                              f"this context has cfg=None")
         return self.cfg
 
-    def gemm(self, a: torch.Tensor, b: torch.Tensor,
-             d: Optional[torch.Tensor] = None, *,
-             dataflow: Optional[Dataflow] = None, shift: int = 0,
-             activation: Activation = Activation.NONE) -> torch.Tensor:
+    def _gemm(self, a: torch.Tensor, b: torch.Tensor,
+              d: Optional[torch.Tensor] = None, *,
+              dataflow: Optional[Dataflow] = None, shift: int = 0,
+              activation: Activation = Activation.NONE) -> torch.Tensor:
         """C = act(round_shift(A @ B + D)) at the config's accumulator and
         output dtypes; a: (M, K), b: (K, N) with any strides, d:
         broadcastable (1|M, N) bias.
@@ -60,18 +108,18 @@ class ExecutionContext:
                                 activation=activation,
                                 dataflow=_resolve_dataflow(cfg, dataflow))
 
-    def matmul(self, a: torch.Tensor, b: torch.Tensor, **kw) -> torch.Tensor:
+    def _matmul(self, a: torch.Tensor, b: torch.Tensor, **kw) -> torch.Tensor:
         """Batched-LHS sugar over :meth:`gemm`: a (..., K), M = prod(lead)."""
         lead = a.shape[:-1]
-        y = self.gemm(a.reshape(-1, a.shape[-1]), b, **kw)
+        y = self._gemm(a.reshape(-1, a.shape[-1]), b, **kw)
         return y.reshape(*lead, b.shape[-1])
 
-    def conv2d(self, x: torch.Tensor, w: torch.Tensor,
-               b: Optional[torch.Tensor] = None, *, stride: int = 1,
-               padding: int = 0, shift: int = 0,
-               activation: Activation = Activation.NONE,
-               fused: bool = False,
-               dataflow: Optional[Dataflow] = None) -> torch.Tensor:
+    def _conv2d(self, x: torch.Tensor, w: torch.Tensor,
+                b: Optional[torch.Tensor] = None, *, stride: int = 1,
+                padding: int = 0, shift: int = 0,
+                activation: Activation = Activation.NONE,
+                fused: bool = False,
+                dataflow: Optional[Dataflow] = None) -> torch.Tensor:
         """Conv2D on the engine: x (N, H, W, CI), w (KH, KW, CI, CO), b
         (CO,) -> (N, OH, OW, CO) at the config's dtypes.
 
@@ -94,41 +142,42 @@ class ExecutionContext:
         kh, kwd, _, co = w.shape
         oh, ow = conv_kernel.out_hw(h, wd, kh, kwd, stride, padding)
         a = ref.im2col(x, kh, kwd, stride, padding)
-        y = self.gemm(a, w.reshape(-1, co), None if b is None else b[None, :],
-                      dataflow=dataflow, shift=shift, activation=activation)
+        y = self._gemm(a, w.reshape(-1, co),
+                       None if b is None else b[None, :], dataflow=dataflow,
+                       shift=shift, activation=activation)
         return y.reshape(n, oh, ow, co)
 
-    def flash_attention(self, q, k, v, *, causal: bool = True,
-                        window: Optional[int] = None,
-                        softcap: Optional[float] = None,
-                        scale: Optional[float] = None) -> torch.Tensor:
+    def _flash_attention(self, q, k, v, *, causal: bool = True,
+                         window: Optional[int] = None,
+                         softcap: Optional[float] = None,
+                         scale: Optional[float] = None) -> torch.Tensor:
         return attn_kernels.flash_attention(q, k, v, causal=causal,
                                             window=window, softcap=softcap,
                                             scale=scale)
 
-    def decode_attention(self, q, k, v, pos: int, *,
-                         window: Optional[int] = None,
-                         softcap: Optional[float] = None,
-                         scale: Optional[float] = None) -> torch.Tensor:
+    def _decode_attention(self, q, k, v, pos: int, *,
+                          window: Optional[int] = None,
+                          softcap: Optional[float] = None,
+                          scale: Optional[float] = None) -> torch.Tensor:
         """One query token against a dense (B, S, KVH, D) cache; keys at
         positions <= ``pos`` (a host int) are live."""
         return attn_kernels.decode_attention(q, k, v, pos, window=window,
                                              softcap=softcap, scale=scale)
 
-    def paged_attention(self, q, k_pool, v_pool, block_tables, lengths, *,
-                        window: Optional[int] = None,
-                        softcap: Optional[float] = None,
-                        scale: Optional[float] = None) -> torch.Tensor:
+    def _paged_attention(self, q, k_pool, v_pool, block_tables, lengths, *,
+                         window: Optional[int] = None,
+                         softcap: Optional[float] = None,
+                         scale: Optional[float] = None) -> torch.Tensor:
         return attn_kernels.paged_decode_attention(
             q, k_pool, v_pool, block_tables, lengths, window=window,
             softcap=softcap, scale=scale)
 
-    def paged_prefill_attention(self, q, k_pool, v_pool, block_table,
-                                start: int, *, window: Optional[int] = None,
-                                softcap: Optional[float] = None,
-                                scale: Optional[float] = None,
-                                kv_pages: Optional[int] = None
-                                ) -> torch.Tensor:
+    def _paged_prefill_attention(self, q, k_pool, v_pool, block_table,
+                                 start: int, *, window: Optional[int] = None,
+                                 softcap: Optional[float] = None,
+                                 scale: Optional[float] = None,
+                                 kv_pages: Optional[int] = None
+                                 ) -> torch.Tensor:
         """``kv_pages``: the static bound on table entries that can hold
         live keys (the engine's admission-time prompt footprint); the
         table is cut to it before either path runs
@@ -139,8 +188,8 @@ class ExecutionContext:
             q, k_pool, v_pool, block_table, start, window=window,
             softcap=softcap, scale=scale)
 
-    def ssd(self, x, dt, a_log, b, c, *, d_skip=None, chunk: int = 256,
-            initial_state=None, return_final_state: bool = False):
+    def _ssd(self, x, dt, a_log, b, c, *, d_skip=None, chunk: int = 256,
+             initial_state=None, return_final_state: bool = False):
         """The chunked Mamba-2 SSD (``repro.kernels.ops.ssd_impl``).
 
         ``initial_state`` (B, H, N, P) fp32 resumes a previous segment;
@@ -152,3 +201,12 @@ class ExecutionContext:
         return mamba2.ssd(x, dt, a_log, b, c, d_skip=d_skip, chunk=chunk,
                           initial_state=initial_state,
                           return_final_state=return_final_state)
+
+    gemm = _op(_gemm)
+    matmul = _op(_matmul)
+    conv2d = _op(_conv2d)
+    flash_attention = _op(_flash_attention)
+    decode_attention = _op(_decode_attention)
+    paged_attention = _op(_paged_attention)
+    paged_prefill_attention = _op(_paged_prefill_attention)
+    ssd = _op(_ssd)

@@ -82,19 +82,41 @@ __device__ __forceinline__ int activate_int(int x, int act) {
   return x;
 }
 
+// An int32 value saturated to the output type (int32 is stored as it is).
+template <typename OutT> __device__ __forceinline__ OutT saturate(int y);
+template <> __device__ __forceinline__ int8_t saturate<int8_t>(int y) {
+  return static_cast<int8_t>(min(max(y, -128), 127));
+}
+template <> __device__ __forceinline__ int16_t saturate<int16_t>(int y) {
+  return static_cast<int16_t>(min(max(y, -32768), 32767));
+}
+template <> __device__ __forceinline__ int saturate<int>(int y) { return y; }
+
 __device__ __forceinline__ void put_int(int8_t* c, long long i, int y) {
-  c[i] = static_cast<int8_t>(min(max(y, -128), 127));
+  c[i] = saturate<int8_t>(y);
 }
 __device__ __forceinline__ void put_int(int16_t* c, long long i, int y) {
-  c[i] = static_cast<int16_t>(min(max(y, -32768), 32767));
+  c[i] = saturate<int16_t>(y);
 }
 __device__ __forceinline__ void put_int(int* c, long long i, int y) { c[i] = y; }
+
+// The output value of one int32 accumulator value (bias included) and of
+// one fp32 value: what store_int / store_float write.
+template <typename OutT>
+__device__ __forceinline__ OutT int_value(int acc, int shift, int act) {
+  return saturate<OutT>(activate_int(rounding_shift(acc, shift), act));
+}
+template <typename OutT>
+__device__ __forceinline__ OutT float_value(float acc, int act,
+                                            float out_scale) {
+  return to<OutT>(activate(acc, act) * out_scale);
+}
 
 // int32 epilogue for one accumulator value (bias included).
 template <typename OutT>
 __device__ __forceinline__ void store_int(OutT* C, long long i, int acc,
                                           int shift, int act) {
-  put_int(C, i, activate_int(rounding_shift(acc, shift), act));
+  C[i] = int_value<OutT>(acc, shift, act);
 }
 
 }  // namespace epi

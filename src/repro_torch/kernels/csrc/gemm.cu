@@ -40,8 +40,9 @@
 // WS equals OS bit for bit.
 //
 // accumulator_epilogue: one elementwise pass over a raw (M, N) int32 or
-// fp32 accumulator, bound by its bytes (4 in, 1..4 out per element);
-// grid-stride, any shape.
+// fp32 accumulator, bound by its bytes (4 in, 1..4 out per element): runs
+// of four values, one 16-byte load and one packed store each, on a grid
+// of at most four blocks an SM; any shape and any 4-byte-aligned base.
 //
 // C interface: gemm_launch (bf16 / fp32 inputs), gemm_plan (the bf16,
 // fp16, fp32 or int16 kernel's plan for a shape), gemm_s8_launch (int8
@@ -83,26 +84,121 @@ int launch_typed(const void* a, const void* b, const float* d, OutT* c, int m,
       k, lda, ldb, b_trans, ldd, act, 0, out_scale, ws, workspace, s));
 }
 
+// accumulator_epilogue. Each thread takes whole runs of four values: one
+// 16-byte load of the accumulator, four epilogues, and one packed store of
+// the four outputs (4, 8 or 16 bytes), two runs in flight per iteration.
+// The elements before the first 16-byte-aligned accumulator address (the
+// head) and after the last whole run (the tail) are done one by one. Where
+// the head leaves the output off its packed alignment (C is written from
+// element 0, the accumulator read from a slice's offset), the runs store
+// their four outputs one by one.
+constexpr int kEpiThreads = 256;
+
+template <typename AccT> struct Vec4;
+template <> struct Vec4<int> { using T = int4; };
+template <> struct Vec4<float> { using T = float4; };
+
+__device__ __forceinline__ unsigned bits(int8_t x) {
+  return static_cast<uint8_t>(x);
+}
+__device__ __forceinline__ unsigned bits(int16_t x) {
+  return static_cast<uint16_t>(x);
+}
+__device__ __forceinline__ unsigned bits(__half x) { return __half_as_ushort(x); }
+__device__ __forceinline__ unsigned bits(__nv_bfloat16 x) {
+  return __bfloat16_as_ushort(x);
+}
+__device__ __forceinline__ unsigned bits(int x) { return static_cast<unsigned>(x); }
+__device__ __forceinline__ unsigned bits(float x) { return __float_as_uint(x); }
+
 template <typename AccT, typename OutT>
-__global__ void __launch_bounds__(256)
+__device__ __forceinline__ OutT epi_value(AccT a, int shift, int act,
+                                          float out_scale) {
+  if constexpr (std::is_integral<AccT>::value)
+    return epi::int_value<OutT>(a, shift, act);
+  else
+    return epi::float_value<OutT>(a, act, out_scale);
+}
+
+// Four outputs at c (packed: c aligned to 4 outputs; else one by one).
+template <typename OutT>
+__device__ __forceinline__ void store4(OutT* c, const OutT (&o)[4],
+                                       bool packed) {
+  if (!packed) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) c[j] = o[j];
+  } else if constexpr (sizeof(OutT) == 1) {
+    *reinterpret_cast<unsigned*>(c) = bits(o[0]) | bits(o[1]) << 8 |
+                                      bits(o[2]) << 16 | bits(o[3]) << 24;
+  } else if constexpr (sizeof(OutT) == 2) {
+    *reinterpret_cast<uint2*>(c) = make_uint2(bits(o[0]) | bits(o[1]) << 16,
+                                              bits(o[2]) | bits(o[3]) << 16);
+  } else {
+    *reinterpret_cast<uint4*>(c) =
+        make_uint4(bits(o[0]), bits(o[1]), bits(o[2]), bits(o[3]));
+  }
+}
+
+template <typename AccT, typename OutT>
+__device__ __forceinline__ void epi_run(const typename Vec4<AccT>::T& v,
+                                        OutT* c, bool packed, int shift,
+                                        int act, float out_scale) {
+  const OutT o[4] = {epi_value<AccT, OutT>(v.x, shift, act, out_scale),
+                     epi_value<AccT, OutT>(v.y, shift, act, out_scale),
+                     epi_value<AccT, OutT>(v.z, shift, act, out_scale),
+                     epi_value<AccT, OutT>(v.w, shift, act, out_scale)};
+  store4(c, o, packed);
+}
+
+// acc[0, head) and acc[head + 4 * runs, count) one by one; the runs of
+// four in between from 16-byte-aligned loads.
+template <typename AccT, typename OutT>
+__global__ void __launch_bounds__(kEpiThreads)
 epilogue_kernel(const AccT* __restrict__ acc, OutT* __restrict__ C,
-                long long count, int shift, int act, float out_scale) {
-  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < count;
-       i += (long long)gridDim.x * 256) {
-    if constexpr (std::is_integral<AccT>::value)
-      epi::store_int(C, i, acc[i], shift, act);
-    else
-      epi::store_float(C, i, acc[i], act, out_scale);
+                long long count, int head, int packed, int shift, int act,
+                float out_scale) {
+  using V = typename Vec4<AccT>::T;
+  const long long runs = (count - head) / 4;
+  const long long tid = blockIdx.x * (long long)kEpiThreads + threadIdx.x;
+  const long long stride = (long long)gridDim.x * kEpiThreads;
+  const long long tail = head + 4 * runs;
+  if (tid < head)
+    C[tid] = epi_value<AccT, OutT>(acc[tid], shift, act, out_scale);
+  if (tid < count - tail)
+    C[tail + tid] =
+        epi_value<AccT, OutT>(acc[tail + tid], shift, act, out_scale);
+  const V* av = reinterpret_cast<const V*>(acc + head);
+  OutT* c = C + head;
+  for (long long r = tid; r < runs; r += 2 * stride) {
+    const long long r2 = r + stride;
+    const V v0 = av[r];
+    V v1;
+    if (r2 < runs) v1 = av[r2];
+    epi_run<AccT, OutT>(v0, c + 4 * r, packed, shift, act, out_scale);
+    if (r2 < runs)
+      epi_run<AccT, OutT>(v1, c + 4 * r2, packed, shift, act, out_scale);
   }
 }
 
 template <typename AccT, typename OutT>
 int launch_epilogue(const void* acc, void* c, long long count, int shift,
                     int act, float out_scale, cudaStream_t s) {
-  const long long blocks = std::min<long long>((count + 255) / 256, 132 * 16);
-  epilogue_kernel<AccT, OutT><<<(unsigned)blocks, 256, 0, s>>>(
-      static_cast<const AccT*>(acc), static_cast<OutT*>(c), count, shift, act,
-      out_scale);
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(acc);
+  if (addr % sizeof(AccT)) return static_cast<int>(cudaErrorMisalignedAddress);
+  const long long head = std::min<long long>(
+      count, (16 - addr % 16) % 16 / sizeof(AccT));
+  const bool packed = reinterpret_cast<uintptr_t>(static_cast<OutT*>(c) +
+                                                  head) %
+                          (4 * sizeof(OutT)) ==
+                      0;
+  const long long runs = (count - head) / 4;
+  // Two runs a thread; at most four blocks an SM, looping beyond that.
+  const long long want = (runs + 2 * kEpiThreads - 1) / (2 * kEpiThreads);
+  const long long blocks = std::max<long long>(
+      1, std::min<long long>(want, 4LL * hgemm::sm_count()));
+  epilogue_kernel<AccT, OutT><<<(unsigned)blocks, kEpiThreads, 0, s>>>(
+      static_cast<const AccT*>(acc), static_cast<OutT*>(c), count,
+      static_cast<int>(head), packed ? 1 : 0, shift, act, out_scale);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,6 +8,13 @@ runs gemma3-1b at full width on the card with random weights drawn from
 plain path on the CPU. Every registered arch serves: the dense ones, the
 recurrent mamba2-1.3b, the hybrid hymba-1.5b and the four-codebook
 musicgen-medium (prompts and outputs then carry a trailing codebook axis).
+
+The robustness and observability flags are the JAX CLI's: ``--faults``
+(a ``GEMMINI_FAULTS``-grammar plan), ``--enforce-deadlines`` and
+``--deadline S``, ``--trace`` / ``--trace-out PATH`` (a Chrome trace,
+summarized by ``python -m repro_torch.obs PATH``) and ``--profile``
+(every ExecutionContext op timed, on a card by CUDA events, and its
+achieved share of the card's roofline printed per bucket).
 """
 
 from __future__ import annotations
@@ -18,6 +25,8 @@ import time
 import numpy as np
 
 from repro_torch import configs
+from repro_torch.obs import profile as oprofile
+from repro_torch.obs import trace as otrace
 from repro_torch.serving import ServingEngine
 
 
@@ -25,12 +34,21 @@ def serve(model_cfg, *, batch: int, prompt_len: int, gen_len: int,
           temperature: float = 1.0, seed: int = 0, eos_id: int = -1,
           policy: str = "continuous", max_slots: int = 0,
           page_size: int = 0, prefill_chunk: int = 0,
-          admission_policy: str = "fifo", kv_offload: bool = False,
+          admission_policy: str = "fifo", faults: str = "",
+          enforce_deadlines: bool = False, deadline_s: float = 0.0,
+          trace=None, kv_offload: bool = False,
           prefix_cache: bool = False, host_pool_pages: int = 0,
           device: str = "cuda"):
     """Serve ``batch`` random-prompt requests; returns tokens (B, gen[, n_q]),
     t_prefill, t_decode, tok_per_s, and the engine's telemetry under
-    ``report`` (the JAX CLI's schema)."""
+    ``report`` (the JAX CLI's schema).
+
+    ``faults``: a ``GEMMINI_FAULTS``-grammar plan (empty = env / off);
+    ``enforce_deadlines`` sheds expired requests instead of serving them;
+    ``deadline_s`` stamps every request with a relative SLO (0 =
+    best-effort). ``trace`` follows ``ServingEngine(trace=)``; the
+    engine's tracer is installed process-globally for the run, so fault
+    firings and profiled op spans land on the same timeline."""
     rng = np.random.default_rng(seed)
     max_slots = max_slots or min(batch, 8)
     max_context = prompt_len + gen_len + 64
@@ -39,16 +57,25 @@ def serve(model_cfg, *, batch: int, prompt_len: int, gen_len: int,
         page_size=page_size or None, seed=seed, temperature=temperature,
         policy=policy,
         prefill_chunk=None if prefill_chunk < 0 else prefill_chunk,
-        admission_policy=admission_policy, kv_offload=kv_offload,
-        prefix_cache=prefix_cache, host_pool_pages=host_pool_pages or None,
-        device=device)
+        admission_policy=admission_policy, faults=faults or None,
+        enforce_deadlines=enforce_deadlines, trace=trace,
+        kv_offload=kv_offload, prefix_cache=prefix_cache,
+        host_pool_pages=host_pool_pages or None, device=device)
+    if engine.tracer is not None:
+        otrace.install(engine.tracer)
     tok_shape = (prompt_len, model_cfg.n_codebooks) \
         if model_cfg.n_codebooks > 1 else (prompt_len,)
+    # Deadlines are absolute timestamps on the engine's clock.
+    deadline = (engine.now() + deadline_s) if deadline_s > 0 else None
     for _ in range(batch):
         prompt = rng.integers(0, model_cfg.vocab, tok_shape).astype(np.int32)
-        engine.submit(prompt, gen_len, eos_id=eos_id)
+        engine.submit(prompt, gen_len, eos_id=eos_id, deadline=deadline)
     t0 = time.time()
-    report = engine.run()
+    try:
+        report = engine.run()
+    finally:
+        if engine.tracer is not None and otrace.active() is engine.tracer:
+            otrace.deactivate()
     wall = time.time() - t0
     outs = []
     for r in report["requests"]:
@@ -85,17 +112,54 @@ def main(argv=None):
     ap.add_argument("--kv-offload", action="store_true")
     ap.add_argument("--host-pool-pages", type=int, default=0)
     ap.add_argument("--prefix-cache", action="store_true")
+    ap.add_argument("--faults", default="",
+                    help="deterministic fault-injection spec "
+                         "(GEMMINI_FAULTS grammar, e.g. "
+                         "'seed=7;nan@decode:p=0.2,max=2'); empty = "
+                         "$GEMMINI_FAULTS / off")
+    ap.add_argument("--enforce-deadlines", action="store_true",
+                    help="shed requests whose deadline passed "
+                         "(terminal deadline_missed status) instead of "
+                         "serving them to completion")
+    ap.add_argument("--deadline", type=float, default=0.0, metavar="S",
+                    help="per-request SLO: stamp every request with "
+                         "submit-time + S seconds (0 = best-effort)")
+    ap.add_argument("--trace", action="store_true",
+                    help="record request/engine/allocator/fault spans and "
+                         "export a Chrome-trace JSON (see --trace-out); "
+                         "off by default, also togglable via $GEMMINI_TRACE")
+    ap.add_argument("--trace-out", default="TRACE_serve.json", metavar="PATH",
+                    help="Chrome-trace output path for --trace (default: "
+                         "TRACE_serve.json; summarize with python -m "
+                         "repro_torch.obs PATH)")
+    ap.add_argument("--profile", action="store_true",
+                    help="time every ExecutionContext op (CUDA events on "
+                         "a card, synchronised per op) and print achieved-"
+                         "vs-roofline utilization per kernel bucket")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels, default) or cpu (plain path)")
     args = ap.parse_args(argv)
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
-    out = serve(cfg, batch=args.batch, prompt_len=args.prompt_len,
-                gen_len=args.gen, temperature=args.temperature,
-                seed=args.seed, policy=args.policy, max_slots=args.slots,
-                page_size=args.page_size, prefill_chunk=args.prefill_chunk,
-                admission_policy=args.admission, kv_offload=args.kv_offload,
-                prefix_cache=args.prefix_cache,
-                host_pool_pages=args.host_pool_pages, device=args.device)
+    profiler = None
+    if args.profile:
+        profiler = oprofile.install(oprofile.Profiler())
+        print("[serve] profiling: per-op timing, one synchronisation per op")
+    try:
+        out = serve(cfg, batch=args.batch, prompt_len=args.prompt_len,
+                    gen_len=args.gen, temperature=args.temperature,
+                    seed=args.seed, policy=args.policy, max_slots=args.slots,
+                    page_size=args.page_size,
+                    prefill_chunk=args.prefill_chunk,
+                    admission_policy=args.admission, faults=args.faults,
+                    enforce_deadlines=args.enforce_deadlines,
+                    deadline_s=args.deadline,
+                    trace=True if args.trace else None,
+                    kv_offload=args.kv_offload,
+                    prefix_cache=args.prefix_cache,
+                    host_pool_pages=args.host_pool_pages, device=args.device)
+    finally:
+        if profiler is not None:
+            oprofile.deactivate()
     s = out["report"]["summary"]
 
     def ms(v):
@@ -108,6 +172,22 @@ def main(argv=None):
           f"{int(s['prefill_chunks'])} prefill chunks, "
           f"preemptions {int(s['preemptions'])}, out shape "
           f"{out['tokens'].shape}")
+    if s["injected_faults"] or s["retries"] or s["fallbacks"] or s["shed"]:
+        faults_seen = out["report"].get("faults", {})
+        print(f"[serve] robustness: {int(s['injected_faults'])} injected "
+              f"({faults_seen}), {int(s['retries'])} retries, "
+              f"{int(s['fallbacks'])} re-run fallbacks, "
+              f"{int(s['shed'])} shed, "
+              f"{int(s['straggler_steps'])} straggler steps, "
+              f"quarantined {out['report']['quarantined'] or 'none'}")
+    tracer = out["engine"].tracer
+    if tracer is not None and args.trace:
+        tracer.export_chrome(args.trace_out)
+        print(f"[serve] trace: {len(tracer.events)} events "
+              f"({tracer.dropped} dropped) -> {args.trace_out} "
+              f"(summarize: python -m repro_torch.obs {args.trace_out})")
+    if profiler is not None:
+        print(profiler.report())
     return out
 
 

@@ -166,11 +166,21 @@ class FaultPlan:
         return plan if plan.specs else None
 
 
-def _is_tracer(x) -> bool:
-    # The torch counterpart of a jax tracer: a value seen while
-    # torch.compile traces, where a host-level poison would be baked in.
+def capturing() -> bool:
+    """True while ``torch.compile`` traces or the current CUDA stream
+    captures a graph: the torch counterparts of a jax trace, where a
+    host-level fault or timer would be baked into the compiled artifact.
+    No graph can be capturing before CUDA is initialised."""
     import torch
-    return torch.compiler.is_compiling()
+    return torch.compiler.is_compiling() or (
+        torch.cuda.is_initialized() and
+        torch.cuda.is_current_stream_capturing())
+
+
+def _is_tracer(x) -> bool:
+    # The torch counterpart of a jax tracer: a value seen while compiling
+    # or capturing, where a host-level poison would be baked in.
+    return capturing()
 
 
 class FaultInjector:

@@ -12,13 +12,20 @@ runs their plain versions.
     engine.submit(prompt, max_new_tokens=32)
     report = engine.run()            # drains the queue
 
-The robustness envelope's device half (fault injection, the NaN guard and
-its fallback re-run, schedule quarantine) is a later slice: the engine
-refuses ``faults=`` and ``nan_guard=True`` rather than run without it.
+The robustness envelope runs as in the JAX engine: deterministic fault
+injection (``faults=`` / ``$GEMMINI_FAULTS``), bounded retries of
+transient step failures, and the NaN guard, which counts a step whose
+logits are not finite in ``fallbacks`` and re-runs it from the state it
+received. The JAX engine re-runs it on its XLA twin; here the re-run
+launches the same kernels, with the op hooks off, so an injected fault is
+recovered and a kernel that itself gives non-finite logits raises instead
+of being hidden behind plain versions. Schedule quarantine waits for the
+tuner.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from typing import Dict, List, Optional
@@ -41,6 +48,12 @@ from repro_torch.serving.scheduler import ContinuousScheduler, Request, summariz
 DEFAULT_PAGE_SIZE = 64
 
 
+def _all_finite(logits: torch.Tensor) -> bool:
+    """The NaN guard's test: one reduction where the logits live, read
+    once on the host."""
+    return bool(torch.isfinite(logits).all())
+
+
 def _env_check_default() -> bool:
     """``$GEMMINI_CHECK`` truthiness: the step-boundary allocator-invariant
     knob's environment default (off unless set to 1/true/on/yes)."""
@@ -60,7 +73,7 @@ class EngineControlPlane:
     compute work is behind the hooks below, which a subclass implements:
 
     * :meth:`_dispatch` / :meth:`_dispatch_fallback` -- run one model step
-      (primary / degraded-mode twin), returning ``(logits, state)``.
+      (primary / the NaN guard's re-run), returning ``(logits, state)``.
     * :meth:`_exec_chunk` -- execute one prefill chunk's compute; returns
       the sampled token for the last chunk, else None.
     * :meth:`_exec_decode` -- execute one decode step's compute; returns
@@ -149,7 +162,8 @@ class EngineControlPlane:
         raise NotImplementedError
 
     def _dispatch_fallback(self, which: str, args: tuple):
-        """Run one degraded-mode (bit-exact twin) model step."""
+        """Run the NaN guard's re-run of one model step from its pre-call
+        state."""
         raise NotImplementedError
 
     def _exec_chunk(self, w):
@@ -317,24 +331,24 @@ class EngineControlPlane:
         resolved under); prefill trips still fall back + count, but have
         no single schedule to blame."""
         # The port has no tuner yet (ROADMAP queue A item 12), so there is
-        # no tuned schedule to bar; engines that could trip a guard are
-        # refused at construction (ServingEngine).
+        # no tuned schedule to bar: a guard trip falls back and counts.
         return
 
     def _run_guarded(self, site: str, which: str, args: tuple):
         """One model step under the robustness envelope.
 
-        Order of events: (1) injected transient failures raise *before*
-        the call and retry with bounded exponential backoff -- state is
-        untouched, so a retry is a plain re-dispatch; (2) the injector may
-        poison the returned logits (host-level: compiled functions stay
-        byte-identical to the fault-free run); (3) with ``nan_guard`` on,
-        non-finite logits trigger one retry of the SAME step on the XLA
-        twin from the SAME pre-call state (non-donating jits keep it
-        alive), the tuned schedule is quarantined, and the fallback is
-        counted in telemetry. A twin that still produces non-finite
-        logits means the model itself diverged -- that raises, because
-        sampling from NaN logits would silently emit garbage tokens.
+        Order of events: (1) injected transient failures raise before
+        the step's call, or from an op inside it, and retry with bounded
+        exponential backoff from the step's pre-call state (``_dispatch``
+        puts back what a failed step wrote), so a retry is a plain
+        re-dispatch; (2) the injector may poison the returned logits
+        (host-level: the kernels stay identical to the fault-free run);
+        (3) with ``nan_guard`` on, non-finite logits trigger one re-run of
+        the SAME step from the SAME pre-call state, the tuned schedule is
+        quarantined, and the fallback is counted in telemetry. A re-run
+        that still produces non-finite logits means a kernel fault or a
+        diverged model -- that raises, because sampling from NaN logits
+        would silently emit garbage tokens.
         """
         self.observed_buckets.setdefault(which, set()).add(
             self._bucket_key(which, args))
@@ -357,17 +371,18 @@ class EngineControlPlane:
         if inj is not None and logits is not None:
             logits = inj.poison(site, logits)
         if self.nan_guard and logits is not None and \
-                not bool(np.isfinite(np.asarray(logits)).all()):
+                not _all_finite(logits):
             self.metrics.counter("fallbacks", site=site).inc()
             if self.tracer is not None:
                 self.tracer.instant("fallback", cat="engine", site=site,
                                     which=which)
             self._quarantine(site)
             logits, state = self._dispatch_fallback(which, args)
-            if not bool(np.isfinite(np.asarray(logits)).all()):
+            if not _all_finite(logits):
                 raise FloatingPointError(
-                    f"non-finite logits at {site!r} survived the XLA "
-                    f"fallback: model divergence, not a kernel fault")
+                    f"non-finite logits at {site!r} survived a re-run of "
+                    f"the step from its pre-call state: a kernel fault or "
+                    f"model divergence, not an injected fault")
         return logits, state
 
     # -- execution (control skeletons over the compute hooks) --------------
@@ -612,14 +627,20 @@ class ServingEngine(EngineControlPlane):
     paged-arena geometry), ``engine_cfg`` (the GEMM datapath; default bf16
     in, fp32 accumulate, bf16 out), ``prefill_token_budget``,
     ``prefill_chunk`` (None or negative = single pass, 0 = one page),
-    ``policy``, ``admission_policy``, ``enforce_deadlines``,
-    ``assert_invariants``, ``kv_offload`` / ``host_pool_pages`` /
-    ``prefix_cache``, ``watchdog``, ``trace`` and ``clock``.
+    ``policy``, ``admission_policy``, ``faults`` / ``nan_guard`` /
+    ``max_step_retries`` / ``retry_backoff_s`` / ``enforce_deadlines``
+    (the robustness envelope: ``faults=None`` consults
+    ``$GEMMINI_FAULTS``; the guard is on iff faults are, unless
+    ``nan_guard`` says otherwise), ``assert_invariants``, ``kv_offload`` /
+    ``host_pool_pages`` / ``prefix_cache``, ``watchdog``, ``trace`` and
+    ``clock``.
 
     ``device`` (default ``"cuda"``) decides the datapath: on a CUDA
     device every projection and attention runs its hand-written kernel;
     on ``"cpu"`` they run their plain versions. There is no backend knob
-    and no silent fallback: asking for CUDA on a host without it raises.
+    and no silent fallback: asking for CUDA on a host without it raises,
+    and a kernel that fails to build or launch raises. The NaN guard's
+    counted re-run (``_dispatch_fallback``) launches the same kernels.
     ``params`` is the port's parameter tree (see
     :func:`repro_torch.convert.params_from_numpy`); ``None`` draws random
     weights from ``seed``.
@@ -638,6 +659,8 @@ class ServingEngine(EngineControlPlane):
                  admission_policy: str = "fifo",
                  faults=None,
                  nan_guard: Optional[bool] = None,
+                 max_step_retries: int = 2,
+                 retry_backoff_s: float = 0.0,
                  enforce_deadlines: bool = False,
                  assert_invariants: Optional[bool] = None,
                  kv_offload: bool = False,
@@ -647,19 +670,14 @@ class ServingEngine(EngineControlPlane):
                  trace=None,
                  clock=None,
                  device="cuda"):
-        if faults is not None or nan_guard or \
-                os.environ.get(rfaults.ENV_VAR, "").strip():
-            raise ValueError(
-                "the torch engine has no recovery ladder yet: fault "
-                "injection and the NaN guard are ROADMAP queue A item 13 "
-                "(robustness and observability); drop faults=/nan_guard= "
-                f"and ${rfaults.ENV_VAR}")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ServingEngine: CUDA is not available on this "
                                "host; pass device='cpu' for the plain path")
         super().__init__(model_cfg, max_slots=max_slots, policy=policy,
-                         faults=None, nan_guard=False,
+                         faults=faults, nan_guard=nan_guard,
+                         max_step_retries=max_step_retries,
+                         retry_backoff_s=retry_backoff_s,
                          assert_invariants=assert_invariants,
                          watchdog=watchdog, trace=trace, clock=clock)
         self.temperature = temperature
@@ -668,6 +686,11 @@ class ServingEngine(EngineControlPlane):
                                           acc_dtype="fp32",
                                           output_dtype="bf16")
         self.engine = ExecutionContext(cfg=cfg)
+        # The NaN guard's re-run: the same kernels, no op hooks (an op
+        # fault or timer fires once per step, on its primary call).
+        self._rerun = dataclasses.replace(self.engine, hooks=False)
+        # The recurrent-state rows of the step in flight (_run_guarded).
+        self._pre_step = None
 
         page_size = page_size or DEFAULT_PAGE_SIZE
         self.page_size = max(8, min(page_size, max_context))
@@ -784,8 +807,58 @@ class ServingEngine(EngineControlPlane):
             st.ssm[:, slot] = _to_device(pl["ssm"], st.ssm)
 
     # -- model steps -------------------------------------------------------
+    def _run_guarded(self, site: str, which: str, args: tuple):
+        """The control plane's envelope around a copy of the recurrent-state
+        rows the step overwrites, taken when the step can be run twice (the
+        NaN guard is on, or an injector is installed for the op hooks) and
+        dropped once the step is accepted. The steps write the KV pools and
+        the recurrent state in place; a second run rewrites the same KV
+        rows, and the recurrent rows are put back first."""
+        self._pre_step = self._recurrent_snapshot(which, args) \
+            if self.nan_guard or rfaults._ACTIVE is not None else None
+        try:
+            return super()._run_guarded(site, which, args)
+        finally:
+            self._pre_step = None
+
     def _dispatch(self, which: str, args: tuple):
-        ctx, mc, ps = self.engine, self.model_cfg, self.page_size
+        try:
+            return self._step(self.engine, which, args)
+        except rfaults.TransientOpError:
+            # An op failed mid-step: the retry starts from the state the
+            # step received.
+            self._restore_pre_step(args)
+            raise
+
+    def _dispatch_fallback(self, which: str, args: tuple):
+        """The step again, on the same kernels with the op hooks off, from
+        the state the primary step received."""
+        self._restore_pre_step(args)
+        return self._step(self._rerun, which, args)
+
+    def _recurrent_snapshot(self, which: str, args: tuple):
+        """(rows, conv, ssm): copies of the recurrent-state rows the step
+        reads and overwrites (the chunk's slot, or a decode step's active
+        slots), or None where it reads none (attention-only families, and
+        a fresh prefill, which starts its slot from zeros)."""
+        st = args[2]
+        if st.conv is None or which in ("prefill", "prefill_nl"):
+            return None
+        if which in ("chunk", "chunk_nl"):
+            rows = slice(args[3], args[3] + 1)
+            return rows, st.conv[:, rows].clone(), st.ssm[:, rows].clone()
+        rows = torch.nonzero(args[3]).flatten()     # indexing copies
+        return rows, st.conv[:, rows], st.ssm[:, rows]
+
+    def _restore_pre_step(self, args: tuple) -> None:
+        if self._pre_step is not None:
+            rows, conv, ssm = self._pre_step
+            st = args[2]
+            st.conv[:, rows] = conv
+            st.ssm[:, rows] = ssm
+
+    def _step(self, ctx, which: str, args: tuple):
+        mc, ps = self.model_cfg, self.page_size
         if which in ("prefill", "prefill_nl"):
             p, tok, st, slot, pages = args
             return tf.paged_prefill(ctx, p, mc, tok, st, slot, pages,
@@ -801,12 +874,6 @@ class ServingEngine(EngineControlPlane):
             p, tok, st, act = args
             return tf.paged_decode_step(ctx, p, mc, tok, st, act, page_size=ps)
         raise ValueError(f"unknown step {which!r}")
-
-    def _dispatch_fallback(self, which: str, args: tuple):
-        raise NotImplementedError(
-            "no degraded-mode twin in the torch engine (ROADMAP queue A "
-            "item 13); the NaN guard that would reach it is refused at "
-            "construction")
 
     @staticmethod
     def _bucket_key(which: str, args: tuple):

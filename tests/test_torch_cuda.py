@@ -762,6 +762,36 @@ def test_accumulator_epilogue_matches_plain(card, acc_dtype, out_dtype, shape,
         _close(got, want, out_dtype)
 
 
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("count", [1, 3, 4, 5, 1021, 4099])
+@pytest.mark.parametrize("acc_dtype,out_dtype", [
+    (torch.int32, torch.int8), (torch.int32, torch.int16),
+    (torch.int32, torch.int32), (torch.float32, torch.float32),
+    (torch.float32, torch.bfloat16), (torch.float32, torch.float16)])
+def test_accumulator_epilogue_misaligned_odd_lengths(card, acc_dtype,
+                                                     out_dtype, count,
+                                                     offset):
+    """A slice that starts 0-3 elements past a 16-byte boundary, at counts
+    that leave a head, a tail or no whole run of four: the scalar head and
+    tail and the runs between them write every element once."""
+    g = torch.Generator(device=card).manual_seed(count + offset)
+    if acc_dtype == torch.int32:
+        base = torch.randint(-2 ** 31, 2 ** 31 - 1, (count + 4,), generator=g,
+                             device=card, dtype=torch.int32)
+        kw = dict(out_dtype=out_dtype, shift=5, activation=Activation.RELU6)
+    else:
+        base = torch.randn((count + 4,), generator=g, device=card) * 2.0 ** 13
+        kw = dict(out_dtype=out_dtype, shift=1, activation=Activation.NONE)
+    acc = base[offset:offset + count]
+    assert acc.data_ptr() % 16 == 4 * offset
+    n0 = tgemm.accumulator_epilogue.launches
+    got = tgemm.accumulator_epilogue(acc, **kw)
+    assert tgemm.accumulator_epilogue.launches == n0 + 1
+    # One value in, one out, no sum: every datapath is bit-exact (fp16's
+    # overflows to inf included).
+    assert torch.equal(got, tepi.apply(acc, **kw))
+
+
 @pytest.mark.parametrize("n,h,w,ci,co,kh,kw,stride,pad,bias", [
     (1, 224, 224, 3, 64, 7, 7, 2, 3, True),    # ResNet-50 conv1 (stem)
     (1, 56, 56, 64, 64, 3, 3, 1, 1, True),     # stage-1 3x3
@@ -1931,3 +1961,52 @@ def test_fp32_attention_on_concurrent_streams(card):
     for got, want in zip(gots, wants):
         for x in got:
             assert torch.equal(x, want)
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "hymba-1.5b"])
+def test_guard_rerun_launches_the_steps_kernels(card, arch):
+    """The NaN guard's re-run of a poisoned step launches the kernels its
+    primary call launched, as many times (hymba-1.5b: attention and the
+    SSD), and gives the primary call's logits bit for bit from the
+    restored state; every poisoned step falls back once and every request
+    finishes with the unfaulted run's tokens."""
+    from repro_torch import configs
+    from repro_torch.serving import ServingEngine
+
+    def serve(plan):
+        eng = ServingEngine(configs.get_smoke(arch), device=card,
+                            max_slots=2, max_context=96, page_size=8,
+                            prefill_chunk=8, faults=plan)
+        primary, fallback = eng._dispatch, eng._dispatch_fallback
+        last = {}
+
+        def watch_primary(which, args):
+            before = kernels.launch_counts()
+            logits, state = primary(which, args)
+            last["grew"] = {k: v - before[k] for k, v in
+                            kernels.launch_counts().items() if v > before[k]}
+            last["logits"] = None if logits is None else logits.clone()
+            return logits, state
+
+        def watch_fallback(which, args):
+            before = kernels.launch_counts()
+            logits, state = fallback(which, args)
+            grew = {k: v - before[k] for k, v in
+                    kernels.launch_counts().items() if v > before[k]}
+            assert grew == last["grew"] and grew, which
+            assert torch.equal(logits, last["logits"]), which
+            return logits, state
+
+        eng._dispatch, eng._dispatch_fallback = watch_primary, watch_fallback
+        rng = np.random.default_rng(3)
+        for n in (30, 7):
+            eng.submit(rng.integers(0, 128, (n,)).astype(np.int32), 5)
+        return eng.run()
+
+    rep, clean = serve("seed=1;inf@prefill:max=1;nan@chunk:max=1;"
+                       "nan@decode:max=1"), serve(None)
+    assert all(r["status"] == "finished" for r in rep["requests"])
+    # A first chunk that samples no token has no logits to poison.
+    assert rep["summary"]["fallbacks"] == sum(rep["faults"].values()) >= 2
+    assert [np.asarray(r["tokens"]).tolist() for r in rep["requests"]] == \
+        [np.asarray(r["tokens"]).tolist() for r in clean["requests"]]

@@ -214,18 +214,49 @@ def test_engine_defaults_to_cuda_and_raises_without_it():
         ServingEngine(tconfigs.get_smoke("gemma3-1b"))
 
 
-@pytest.mark.parametrize("kw", [dict(faults="nan@decode:1"),
+@pytest.mark.parametrize("kw", [dict(faults="nan@decode:max=1"),
                                 dict(nan_guard=True)])
-def test_engine_refuses_faults_and_nan_guard(kw):
-    with pytest.raises(ValueError, match="ROADMAP queue A"):
-        ServingEngine(tconfigs.get_smoke("gemma3-1b"), device="cpu", **kw)
-
-
-def test_engine_has_no_fallback_step():
+def test_engine_accepts_faults_and_nan_guard(kw):
+    """Either argument turns the NaN guard on (faults imply it, as in the
+    JAX engine); only ``faults=`` makes an injector."""
     eng = ServingEngine(tconfigs.get_smoke("gemma3-1b"), device="cpu",
-                        max_context=32)
-    with pytest.raises(NotImplementedError):
-        eng._dispatch_fallback("decode", ())
+                        max_context=32, **kw)
+    assert eng.nan_guard
+    assert (eng.faults is not None) == ("faults" in kw)
+    assert eng.max_step_retries == 2 and eng.retry_backoff_s == 0.0
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "hymba-1.5b", "mamba2-1.3b"])
+def test_dispatch_fallback_equals_dispatch_on_cpu(arch):
+    """``_dispatch_fallback`` re-runs a step on the engine's own path from
+    the state the step received, so on the arguments of every guarded
+    step (fresh prefill, continuation chunks, decode) it gives the logits
+    ``_dispatch`` gave, bit for bit, and leaves the same state: the
+    recurrent rows the primary step consumed are put back first."""
+    eng = ServingEngine(tconfigs.get_smoke(arch), device="cpu",
+                        max_context=64, page_size=8, prefill_chunk=8,
+                        max_slots=2, nan_guard=True)
+    primary = eng._dispatch
+    seen = set()
+
+    def both(which, args):
+        logits, st = primary(which, args)
+        after = [None if t is None else t.clone() for t in st]
+        fb_logits, fb_st = eng._dispatch_fallback(which, args)
+        if logits is not None:
+            assert torch.equal(fb_logits, logits), which
+        for a, b in zip(after, fb_st):
+            assert (a is None and b is None) or torch.equal(a, b), which
+        seen.add(which)
+        return fb_logits, fb_st
+
+    eng._dispatch = both
+    rng = np.random.default_rng(5)
+    for n in (21, 6):
+        eng.submit(rng.integers(0, 128, (n,)).astype(np.int32), 4)
+    rep = eng.run()
+    assert all(r["status"] == "finished" for r in rep["requests"])
+    assert {"prefill_nl", "chunk", "decode"} <= seen
 
 
 def test_nvcc_command_targets_sm90a_into_ignored_build_dir():

@@ -24,7 +24,9 @@ quickstart shape, the fp32 / bf16 / fp16 / int16 convs at the stem,
 stage-1 3x3 and stage-4 3x3, each beside its library call where PyTorch
 has one), and the device time of the 50-layer stream per route, int8 and
 on phase 6b's four instances; a checkout without those datapaths skips
-them), and the conv (``--only conv``, not in the default set: the fp32,
+them), the mvout epilogue (``--only epilogue``: its six datapaths at
+(1000, 512) and at a misaligned odd shape, and fp32 -> fp32 / fp16 at
+(3136, 256)), and the conv (``--only conv``, not in the default set: the fp32,
 bf16, fp16 and int16 conv at every distinct conv of the stream beside
 cuDNN's ``conv2d``, with each checkout's plan, and the fused stream's
 device time on phase 6b's four instances beside cuDNN's on the same 49
@@ -36,7 +38,7 @@ run:
   python3 tools/time_kernels.py --src OTHER_CHECKOUT/src --tag parent
   python3 tools/time_kernels.py --tag change
   python3 tools/time_kernels.py --only ssd    # one group: gemm, attention,
-                                              # ssd, engine, conv
+                                              # ssd, engine, epilogue, conv
 
 Each output is held against its plain version (``chip_smoke.check_close``;
 a miss is reported in the row's ``check``, not fatal) and timed with ``chip_smoke.Timer`` (CUDA events, L2 flushed, median of
@@ -429,6 +431,32 @@ def engine_cases(torch, cs):
                   flops, *_ in rows]
 
 
+def epilogue_cases(torch, cs):
+    """The mvout epilogue at ``chip_smoke.epilogue_cases``' rows: its six
+    datapaths at (1000, 512) and at a misaligned odd shape, and fp32 ->
+    fp32 / fp16 at (3136, 256); and one run of four values, int32 ->
+    int8, whose time is the launch and the timer's own (the floor under
+    every row).
+    Bit-exact or within ``check_close``'s rule."""
+    from repro_torch.core.config import Activation
+    from repro_torch.kernels import epilogue as epi
+    from repro_torch.kernels import gemm as kg
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    cs.epilogue_cases(torch, gen, rows)
+    tiny = torch.randint(-2 ** 31, 2 ** 31 - 1, (1, 4), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    kw = dict(out_dtype=torch.int8, shift=7, activation=Activation.RELU)
+    rows.append(("accumulator_epilogue", "int32 (1, 4) -> int8 shift=7 relu "
+                 "(launch floor)", False, "int",
+                 lambda: kg.accumulator_epilogue(tiny, **kw),
+                 lambda: epi.apply(tiny, **kw), None, 20, 0.0))
+    return [(kernel, label, kind, run_k, run_p, run_lib, (nbytes, flops))
+            for kernel, label, _, kind, run_k, run_p, run_lib, nbytes,
+            flops, *_ in rows]
+
+
 def conv_cases(torch, cs):
     """The conv kernel on the fp32, bf16, fp16 and int16 datapaths at every
     distinct conv of ResNet-50's stream, the classifier's 1x1 over a 1x1
@@ -572,7 +600,7 @@ def main() -> int:
                     help="directory holding the repro_torch package to time")
     ap.add_argument("--tag", default="", help="names the run in the output")
     ap.add_argument("--only", choices=("gemm", "attention", "ssd", "engine",
-                                       "conv"),
+                                       "epilogue", "conv"),
                     help="time one group of kernels")
     args = ap.parse_args()
     import torch
@@ -599,6 +627,8 @@ def main() -> int:
         cases += ssd_cases(torch, cs)
     if args.only in (None, "engine"):
         cases += engine_cases(torch, cs)
+    if args.only in (None, "epilogue"):
+        cases += epilogue_cases(torch, cs)
     if args.only == "conv":
         cases += conv_cases(torch, cs)
     rows = []
