@@ -37,9 +37,10 @@ Needs one CUDA card, ``nvcc`` and the repository checkout around this file
    are zeroed just before and read just after, and every kernel must have
    run; the first request's prefill logits at full width are held against
    the plain path on the CPU;
-5. end to end against plain: the smoke gemma3-1b and qwen1.5-4b configs in
-   fp32 (model dtype and engine config) on the card and on the CPU, with
-   the same weights and prompts, must give equal greedy tokens;
+5. end to end against plain: the smoke gemma3-1b, qwen1.5-4b,
+   granite-moe-3b-a800m and llama4-scout-17b-a16e configs in fp32 (model
+   dtype and engine config) on the card and on the CPU, with the same
+   weights and prompts, must give equal greedy tokens;
 6. engine: the Gemmini engine path on the quickstart's int8 BOTH instance:
    the port's quickstart (header, int8 GEMM on OS and WS, conv by host
    im2col and fused); the header against ``plan_gemm``; the mvout route
@@ -102,7 +103,17 @@ Needs one CUDA card, ``nvcc`` and the repository checkout around this file
    achieved TFLOP/s and TB/s and roofline share (none above 1.0), each
    op's calls equal to its kernel's launches, logits equal to the
    unprofiled step's bit for bit. Every other phase's engines retry no
-   step and fall back on none (``assert_clean``).
+   step and fall back on none (``assert_clean``);
+12. MoE: granite-moe-3b-a800m at its published widths (32 layers, 40
+   experts padded to 48 slots, top-8, vocab 49155; bf16, weights from
+   seed 0) on phase 4's traffic: the bf16 GEMM, the fp32 GEMM (the
+   router: fp32 in, bf16 out), flash, paged prefill and paged decode must
+   each launch, the router once a layer; a routing census of one decode
+   step and one chunk (every layer's loads sum to tokens x 8, none on
+   slots 40-47); a 256-token prompt's prefill logits held against the CPU
+   plain path in fp32 (``FP32_LOGITS_LIMIT``) and by ``hold_bf16``; the
+   two phase-4b steps profiled, the expert ``bmm``'s device time apart
+   and the largest other kernels named.
 
 Phase 3 also holds the chunked SSD (mamba2-1.3b's and hymba-1.5b's
 widths: the serving call, one 256-token chunk resumed, and 1000 tokens
@@ -116,7 +127,12 @@ fp32 logits run it) and in fp32 at phase 9's prompts (the CUDA-core
 kernel that the fp32 gate runs; SDPA beside each row without a softcap,
 under the window's mask where it cuts keys), paged prefill at
 hymba-1.5b's continuation chunk (T=256 at 768, GQA 25 / 5, window 1024;
-bf16 and fp32) and in fp32 at the gate's last chunks, the fp32 SSD at
+bf16 and fp32) and in fp32 at the gate's last chunks, granite-moe-3b-a800m's
+shapes in bf16 (flash at its first chunk, paged prefill at T=256 from 768
+and paged decode at phase 4b's four slots, GQA 24 / 8, head dim 64; the
+tied unembedding at M = 4, N = 49155, odd; the router GEMM, fp32 in and
+bf16 out, at M = 4 and 256, N = 48, beside ``torch.matmul`` in fp32 with
+TF32 off and a cast, held by the bf16 rule), the fp32 SSD at
 mamba2-1.3b's and hymba-1.5b's widths (phases 7-8's fp32 prompt, 256
 tokens fresh; a
 resumed chunk; 1000 tokens fresh; y and final state against the fp64
@@ -140,7 +156,8 @@ Every main path's launch counts are zeroed
 just before it and read just after; the kernels line takes each kernel's
 count from its own path: the serve phase, the engine phase, phase 6b (the
 fp16 / int16 GEMMs and the fp32 / bf16 / fp16 / int16 convs), the
-recurrent serve (``ssd``) or the static path (``decode_attention``).
+recurrent serve (``ssd``), the static path (``decode_attention``) or the
+MoE serve (``gemm[fp32]``, the fp32 GEMM's own count).
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``. Per-shape results and the
@@ -169,9 +186,11 @@ REPS = 25
 
 # Full-width logits, card against the CPU plain path. fp32: each limit sits
 # between the card's fp32 reading and the bf16 gap (mamba2-1.3b 7.5e-4 vs
-# 2.9e-1, hymba-1.5b 2.2e-5 vs 4.6e-2, on an H100; PERF.md section 2).
+# 2.9e-1, hymba-1.5b 2.2e-5 vs 4.6e-2, granite-moe-3b-a800m 1.2e-6 vs
+# 3.6e-2, on an H100; PERF.md section 2).
 # bf16: see ``hold_bf16``.
-FP32_LOGITS_LIMIT = {"mamba2-1.3b": 5e-3, "hymba-1.5b": 1e-3}
+FP32_LOGITS_LIMIT = {"mamba2-1.3b": 5e-3, "hymba-1.5b": 1e-3,
+                     "granite-moe-3b-a800m": 5e-3}
 BF16_FACTOR = 2.0
 
 # Phase 10's static path: one gemma3-1b request, a prompt long enough that
@@ -430,6 +449,43 @@ def fp32_gemm_cases(torch, randn):
     return out
 
 
+def moe_gemm_cases(torch, randn):
+    """granite-moe-3b-a800m's GEMMs that no other path gives the card:
+    (name, M, N, K, kind, run_kernel, run_plain, run_library, bytes,
+    b_trans). The router is ``layers.project`` on fp32 input, so under the
+    bf16 serving config the fp32 kernel writes bf16 (N = 48 slots, at a
+    decode step's 4 rows and a chunk's 256); its yardstick is
+    ``torch.matmul`` in fp32 with TF32 off, then the cast. The tied
+    unembedding has an odd N (49155): the bf16 kernel's scalar store path,
+    beside ``torch.matmul``. Bytes: A, B and C, each once."""
+    from repro_torch import configs
+    from repro_torch.kernels import gemm as kg
+    from repro_torch.kernels.ref import gemm_ref
+    from repro_torch.models.moe import pad_experts
+
+    cfg = configs.get("granite-moe-3b-a800m")
+    d, e_pad = cfg.d_model, pad_experts(cfg.n_experts, cfg.expert_padding)
+    f32, bf16 = torch.float32, torch.bfloat16
+    kw = dict(acc_dtype=f32, out_dtype=bf16)
+    out = []
+    router = randn(d, e_pad, dtype=f32, scale=d ** -0.5)
+    for m in (4, 256):
+        a = randn(m, d, dtype=f32)
+        out.append(("router fp32->bf16", m, e_pad, d, "fp32",
+                    lambda a=a: kg.gemm(a, router, **kw),
+                    lambda a=a: gemm_ref(a, router, None, **kw),
+                    lambda a=a: torch.matmul(a, router).to(bf16),
+                    4 * (m * d + d * e_pad) + 2 * m * e_pad, False))
+    table = randn(cfg.vocab, d, scale=d ** -0.5)
+    a = randn(4, d)
+    out.append(("granite unembed", 4, cfg.vocab, d, "bf16",
+                lambda: kg.gemm(a, table.T, **kw),
+                lambda: gemm_ref(a, table.T, None, **kw),
+                lambda: torch.matmul(a, table.T),
+                2 * (4 * d + d * cfg.vocab + 4 * cfg.vocab), True))
+    return out
+
+
 def gemm_plan_text(kg, m, n, k, b_trans=False, **kw):
     """The float GEMM's plan for a shape (bf16 inputs unless ``dtype=`` is
     given), as phase 3 logs it."""
@@ -484,9 +540,24 @@ def kernel_cases(torch, rng_seed=0):
     # the fp32 datapath (fp32 engine config), TF32 off as main sets it
     for pname, m, n, k, run_k, run_p, run_lib, nbytes in fp32_gemm_cases(
             torch, randn):
-        cases.append(("gemm", f"fp32 {pname} M={m} N={n} K={k}", False,
+        cases.append(("gemm[fp32]", f"fp32 {pname} M={m} N={n} K={k}", False,
                       "fp32", run_k, run_p, run_lib, nbytes, 2.0 * m * n * k,
                       {"plan": gemm_plan_text(kg, m, n, k, dtype=f32)}))
+    # granite-moe-3b-a800m (phase 12): the router, fp32 in and bf16 out
+    # (held by the bf16 rule: the two sum orders may round a value either
+    # way; bounded at the fp32 rate), and the odd-N tied unembedding
+    for pname, m, n, k, kind, run_k, run_p, run_lib, nbytes, trans in \
+            moe_gemm_cases(torch, randn):
+        router = kind == "fp32"
+        label = f"{pname} M={m} N={n} K={k}"
+        opts = {"plan": gemm_plan_text(kg, m, n, k, trans,
+                                       dtype=f32 if router else bf16)}
+        if router:
+            opts["check"] = lambda got, want, label=label: check_close(
+                torch, f"gemm[fp32] [{label}]", got, want, "bf16")
+        cases.append(("gemm[fp32]" if router else "gemm", label,
+                      router and m == 4, kind, run_k, run_p, run_lib, nbytes,
+                      2.0 * m * n * k, opts))
 
     # -- flash_attention: a fresh prompt or first chunk, local and global
     def flash_case(t_q, t_k, h, kvh, dh, window, softcap, rep, dtype=bf16):
@@ -536,6 +607,10 @@ def kernel_cases(torch, rng_seed=0):
     # and in fp32, as phase 8's fp32 logits run it (the CUDA-core kernel)
     flash_case(256, 256, hy.n_heads, hy.n_kv_heads, hy.head_dim,
                hy.local_window, None, False, dtype=f32)
+    # granite-moe-3b-a800m's first chunk (phase 12): GQA 24 / 8, head dim 64
+    gr = configs.get("granite-moe-3b-a800m")
+    flash_case(256, 256, gr.n_heads, gr.n_kv_heads, gr.head_dim, None, None,
+               False)
     # phase 9's gate in fp32 (the CUDA-core kernel): each attention arch's
     # longest prompt as the static path prefills it, windows and softcap
     from repro_torch.examples import serve_decode as sd
@@ -601,6 +676,9 @@ def kernel_cases(torch, rng_seed=0):
     # and in fp32 (the CUDA-core kernel on hymba's widths)
     prefill_case(256, 768, hy.n_heads, hy.n_kv_heads, hy.head_dim, 64, 128,
                  16, hy.local_window, None, False, dtype=f32)
+    # granite-moe-3b-a800m's continuation chunk (phase 12): T=256 at 768
+    prefill_case(256, 768, gr.n_heads, gr.n_kv_heads, gr.head_dim, 64, 128,
+                 16, None, None, False)
     # phase 9's gate in fp32 (the CUDA-core kernel): each attention arch's
     # last continuation chunk of its longest prompt, as the gate's engine
     # runs it (page 16, 24 pages, chunks of sd.PREFILL_CHUNK)
@@ -651,6 +729,9 @@ def kernel_cases(torch, rng_seed=0):
     decode_case(serve_lengths, nh, nkv, hd, 64, 128, 32, cfg.local_window,
                 None, False)
     decode_case([77, 0, 16, 33], 8, 2, 128, 16, 40, 8, 24, 50.0, False)
+    # granite-moe-3b-a800m's decode step (phase 12): GQA 24 / 8, head dim 64
+    decode_case(serve_lengths, gr.n_heads, gr.n_kv_heads, gr.head_dim, 64,
+                128, 32, None, None, False)
     # phase 9's gate in fp32: the engine's two slots at the last decode step
     # of the first two requests (page 16, 24 pages), each attention arch's
     # windows and softcap
@@ -1431,7 +1512,8 @@ _KERNEL_NAMES = (("ssd_kernel", "ssd"), ("ssd_tc_kernel", "ssd"),
 # Each launch counter of ``repro_torch.kernels.launch_counts`` by the
 # kernel class its launches show up as; "gemm_ws" counts a GEMM in WS
 # order of either GEMM class (``window_short`` splits it).
-_COUNTER_CLASS = {"gemm": "gemm", "gemm[fp16]": "gemm", "gemm[int16]": "gemm",
+_COUNTER_CLASS = {"gemm": "gemm", "gemm[fp32]": "gemm", "gemm[fp16]": "gemm",
+                  "gemm[int16]": "gemm",
                   "gemm[int8]": "gemm[int8]",
                   "accumulator_epilogue": "accumulator_epilogue",
                   "conv2d_implicit": "conv2d_implicit",
@@ -1483,7 +1565,7 @@ def window_short(recorded, by_key, counted, n):
     return None
 
 
-def profile_call(torch, name, fn, n=3, quiet=False):
+def profile_call(torch, name, fn, n=3, quiet=False, op_keys=()):
     """Wall time of one synchronised ``fn()`` (median of 5) against the
     device time of every kernel ``torch.profiler`` saw in it (mean of n),
     by kernel class; "gemm[int8]" covers the int8 GEMM in either order,
@@ -1493,7 +1575,10 @@ def profile_call(torch, name, fn, n=3, quiet=False):
     again, at most ``PROFILE_RETAKES`` times, and then fails: no device
     time is reported from a short window. ``windows`` in the result says
     how many were taken.
-    ``quiet``: no log line (the caller logs a summary)."""
+    ``quiet``: no log line (the caller logs a summary). ``op_keys``:
+    PyTorch operators (e.g. ``aten::bmm``) whose kernels' device time, per
+    pass, goes to ``device_ms_by_op`` beside the kernel classes (those
+    kernels also count in their class, "other" for a library's)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from repro_torch import kernels
@@ -1523,8 +1608,11 @@ def profile_call(torch, name, fn, n=3, quiet=False):
                 torch.cuda.synchronize()
                 prof.step()
         after = kernels.launch_counts()
-        by_class, launches, by_key = {}, {}, {}
+        by_class, launches, by_key, other = {}, {}, {}, {}
+        by_op = dict.fromkeys(op_keys, 0.0)
         for a in prof.key_averages():
+            if a.key in by_op:
+                by_op[a.key] += a.device_time_total / 1e3 / n
             # Device activity only: an operator's entry repeats the time
             # of the kernels it launched, and a step's mark spans the step.
             if not str(a.device_type).endswith("CUDA") or \
@@ -1533,6 +1621,10 @@ def profile_call(torch, name, fn, n=3, quiet=False):
             cls = _kernel_class(a.key)
             by_class[cls] = (by_class.get(cls, 0.0) +
                              a.self_device_time_total / 1e3 / n)
+            if cls == "other":
+                other[a.key] = (other.get(a.key, (0.0, 0))[0] +
+                                a.self_device_time_total / 1e3 / n,
+                                other.get(a.key, (0.0, 0))[1] + a.count)
             launches[cls] = launches.get(cls, 0) + a.count
             by_key[a.key] = by_key.get(a.key, 0) + a.count
         why = window_short(launches, by_key,
@@ -1550,10 +1642,15 @@ def profile_call(torch, name, fn, n=3, quiet=False):
            "device_busy_share": device / wall,
            "device_ms_by_kernel": by_class, "launches_by_kernel": launches,
            "windows": window}
+    out["top_other"] = [[k, ms, c // n] for k, (ms, c) in sorted(
+        other.items(), key=lambda kv: -kv[1][0])[:8]]
+    if op_keys:
+        out["device_ms_by_op"] = by_op
     if quiet:
         return out
     parts = ", ".join(f"{k} {v:.3f} ms x{launches[k]}" for k, v in
                       sorted(by_class.items(), key=lambda kv: -kv[1]))
+    parts += "".join(f"; of which {k} {v:.3f} ms" for k, v in by_op.items())
     log(f"profile {name}: wall {wall:.3f} ms, device busy "
         f"{device:.3f} ms ({device / wall:.1%}); {parts}"
         + (f" ({window} windows)" if window > 1 else ""))
@@ -1568,10 +1665,11 @@ def run_profile_phase(torch, engine):
             for name, fn in profile_steps(torch, engine).items()}
 
 
-def profile_steps(torch, engine):
+def profile_steps(torch, engine, seed=None):
     """Phase 4b's two steps as calls: one decode step of four slots at
     1000/512/300/64 cached tokens and one 256-token continuation chunk at
-    position 768, each returning (logits, state)."""
+    position 768, each returning (logits, state). The tokens are zeros, or
+    drawn from ``seed``."""
     from repro_torch.models import transformer as tf
 
     cfg, ctx, params = engine.model_cfg, engine.engine, engine.params
@@ -1583,8 +1681,15 @@ def profile_steps(torch, engine):
     decode_state = state._replace(lengths=torch.tensor(
         [1000, 512, 300, 64], dtype=torch.int32, device="cuda"))
     active = torch.ones((4,), dtype=torch.bool, device="cuda")
-    toks = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
-    chunk = torch.zeros((1, 256), dtype=torch.int32, device="cuda")
+    gen = None if seed is None else \
+        torch.Generator(device="cuda").manual_seed(seed)
+
+    def tokens(*shape):
+        if gen is None:
+            return torch.zeros(shape, dtype=torch.int32, device="cuda")
+        return torch.randint(0, cfg.vocab, shape, generator=gen,
+                             device="cuda", dtype=torch.int32)
+    toks, chunk = tokens(4, 1), tokens(1, 256)
     return {
         "decode_step": lambda: tf.paged_decode_step(
             ctx, params, cfg, toks, decode_state, active, page_size=page),
@@ -1620,9 +1725,11 @@ def run_e2e_phase(torch, np):
 
     f32 = GemminiConfig(input_dtype="fp32", acc_dtype="fp32",
                         output_dtype="fp32")
-    # gemma3 with six layers, every third global, so both window kinds run
+    # gemma3 with six layers, every third global, so both window kinds run;
+    # the MoE archs route every token on the card's fp32 router GEMM
     for arch, kw in (("gemma3-1b", dict(n_layers=6, global_period=3)),
-                     ("qwen1.5-4b", {})):
+                     ("qwen1.5-4b", {}), ("granite-moe-3b-a800m", {}),
+                     ("llama4-scout-17b-a16e", {})):
         cfg = dataclasses.replace(configs.get_smoke(arch),
                                   dtype=torch.float32, **kw)
         rng = np.random.default_rng(1)
@@ -1950,7 +2057,8 @@ def run_datapath_phase(torch, smi):
         if counts[kname] <= 0:
             fail(f"kernel {kname} was not launched on phase 6b's path")
     log(f"phase 6b launch counts: "
-        f"{ {n: counts[n] for n in DATAPATH_KERNELS + ('gemm', 'gemm_ws')} }")
+        f"{ {n: counts[n] for n in DATAPATH_KERNELS + ('gemm', 'gemm[fp32]',
+                                                     'gemm_ws')} }")
 
     from repro_torch.kernels import conv as kc
 
@@ -2125,32 +2233,13 @@ def check_prefill_logits(torch, engine, prompt, name, fp32_limit):
     return rel
 
 
-def profile_family(torch, engine):
+def profile_family(torch, engine, op_keys=()):
     """``profile_call`` for one decode step of four slots at
     1000/512/300/64 cached tokens and one 256-token continuation chunk at
-    position 768, with the recurrent state carried."""
-    from repro_torch.models import transformer as tf
-
-    cfg, ctx, params = engine.model_cfg, engine.engine, engine.params
-    mp, page = engine.max_pages_per_seq, engine.page_size
-    state = tf.init_paged_state(cfg, 4, 4 * mp, page, mp, dtype=cfg.dtype,
-                                device="cuda")
-    state.tables.copy_(torch.arange(4 * mp, dtype=torch.int32,
-                                    device="cuda").reshape(4, mp))
-    decode_state = state._replace(lengths=torch.tensor(
-        [1000, 512, 300, 64], dtype=torch.int32, device="cuda"))
-    active = torch.ones((4,), dtype=torch.bool, device="cuda")
-    toks = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
-    chunk = torch.zeros((1, 256), dtype=torch.int32, device="cuda")
-    steps = {
-        "decode_step": lambda: tf.paged_decode_step(
-            ctx, params, cfg, toks, decode_state, active, page_size=page),
-        "prefill_chunk": lambda: tf.paged_prefill_chunk(
-            ctx, params, cfg, chunk, state, 0, state.tables[0], 768,
-            page_size=page, kv_pages=16),
-    }
-    return {name: profile_call(torch, f"{cfg.name} {name}", fn)
-            for name, fn in steps.items()}
+    position 768, with the recurrent state carried (phase 4b's steps)."""
+    return {name: profile_call(torch, f"{engine.model_cfg.name} {name}", fn,
+                               op_keys=op_keys)
+            for name, fn in profile_steps(torch, engine).items()}
 
 
 def guard_cost(torch, engine, reps=8):
@@ -2618,6 +2707,104 @@ def run_robust_phase(torch, np, engine, clean):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the MoE family at full width (granite-moe-3b-a800m)
+# ---------------------------------------------------------------------------
+MOE_ARCH = "granite-moe-3b-a800m"
+# The prompt whose prefill logits are held against the CPU: the CPU's
+# dense expert products (48 slots x every token row) set its cost.
+MOE_LOGITS_PROMPT = 256
+
+
+def routing_census(torch, engine, seed=3):
+    """Every layer's expert loads on one decode step (4 tokens) and one
+    256-token continuation chunk (phase 4b's steps, tokens from ``seed``),
+    read from ``moe.route`` while the steps run: each layer's loads sum to
+    tokens x top_k, and no padded slot gets a token."""
+    from repro_torch.models import moe
+
+    cfg = engine.model_cfg
+    e_pad = moe.pad_experts(cfg.n_experts, cfg.expert_padding)
+    seen, primary = [], moe.route
+
+    def recording(*args, **kw):
+        weights, idx = primary(*args, **kw)
+        seen.append(idx)
+        return weights, idx
+
+    out = {}
+    moe.route = recording
+    try:
+        for name, fn in profile_steps(torch, engine, seed=seed).items():
+            seen.clear()
+            fn()
+            loads = torch.stack([torch.bincount(i.reshape(-1),
+                                                minlength=e_pad)
+                                 for i in seen]).cpu()
+            n_tok = seen[0].shape[0]
+            if len(seen) != cfg.n_layers or \
+                    (loads.sum(1) != n_tok * cfg.top_k).any() or \
+                    loads[:, cfg.n_experts:].any():
+                fail(f"{MOE_ARCH} {name}: routing census over {len(seen)} "
+                     f"layers: loads {loads.tolist()} (want {n_tok} x "
+                     f"{cfg.top_k} a layer, none on slots "
+                     f"{cfg.n_experts}-{e_pad - 1})")
+            used = (loads[:, :cfg.n_experts] > 0).sum(1)
+            out[name] = {"tokens": n_tok, "loads": loads.tolist(),
+                         "experts_used_min": int(used.min()),
+                         "experts_used_max": int(used.max()),
+                         "max_load": int(loads.max())}
+            log(f"{MOE_ARCH} {name} routing: {n_tok} tokens x top-"
+                f"{cfg.top_k} on each of {len(seen)} layers, loads summing "
+                f"to {n_tok * cfg.top_k}, none on the {e_pad - cfg.n_experts}"
+                f" padded slots; {int(used.min())}-{int(used.max())} of "
+                f"{cfg.n_experts} experts used a layer, busiest expert "
+                f"{int(loads.max())} tokens")
+    finally:
+        moe.route = primary
+    return out
+
+
+def run_moe_phase(torch, np):
+    """granite-moe-3b-a800m at its published widths (32 layers, 40 experts
+    in 48 slots, top-8; bf16, weights from seed 0) on phase 4's traffic:
+    the bf16 GEMM, the fp32 router GEMM, flash, paged prefill and paged
+    decode must each launch (and neither the SSD nor dense decode); the
+    routing census; a prompt's prefill logits against the CPU plain path
+    in fp32 and by ``hold_bf16``; the two steps' device time by kernel
+    class, the expert ``bmm`` apart."""
+    engine, prompts, counts, _, s = serve_family(torch, np, MOE_ARCH,
+                                                 SERVE_PROMPTS, SERVE_NEW)
+    L = engine.model_cfg.n_layers
+    need = ("gemm", "gemm[fp32]", "flash_attention",
+            "paged_prefill_attention", "paged_decode_attention")
+    if any(counts[k] <= 0 for k in need) or counts["gemm[fp32]"] % L or \
+            counts["ssd"] or counts["decode_attention"]:
+        fail(f"{MOE_ARCH} launch counts {counts}: want {need} each > 0, "
+             f"the router once a layer, no ssd or decode_attention")
+    census = routing_census(torch, engine)
+    rng = np.random.default_rng(1)
+    prompt = rng.integers(0, engine.model_cfg.vocab,
+                          (MOE_LOGITS_PROMPT,)).astype(np.int32)
+    t0 = time.perf_counter()
+    rel = check_prefill_logits(torch, engine, prompt, MOE_ARCH,
+                               FP32_LOGITS_LIMIT[MOE_ARCH])
+    log(f"{MOE_ARCH} logits holds: {time.perf_counter() - t0:.1f} s")
+    profile = profile_family(torch, engine, op_keys=("aten::bmm",))
+    for name, prof in profile.items():
+        log(f"{MOE_ARCH} {name}: expert bmm "
+            f"{prof['device_ms_by_op']['aten::bmm']:.3f} ms ({L} layers x 3"
+            f" products) of {prof['device_ms']:.3f} ms device time; the "
+            f"port's kernels " + ", ".join(
+                f"{k} {v:.3f} ms" for k, v in
+                sorted(prof["device_ms_by_kernel"].items()) if k != "other"))
+        log(f"{MOE_ARCH} {name}: the largest other kernels (ms, launches): "
+            + "; ".join(f"{k[:90]} {ms:.3f} x{c}"
+                        for k, ms, c in prof["top_other"]))
+    return counts, {"summary": s, "census": census, "logits_rel_l2": rel,
+                    "profile": profile}
+
+
 def ptxas_summary(lines, names) -> str:
     """Per kernel name: its instantiations, their register range and the
     most spill bytes any of them has, from ``-Xptxas=-v`` lines (an entry
@@ -2747,9 +2934,15 @@ def main() -> int:
     del engine, clean
     torch.cuda.empty_cache()
 
-    # 12. the kernels line
+    # 12. the MoE family at full width (its own main path: counts zeroed
+    # inside)
+    moe_counts, moe_summary = run_moe_phase(torch, np)
+    torch.cuda.empty_cache()
+
+    # the kernels line
     meta = {
         "gemm": ("csrc/gemm.cu", "src/repro/kernels/gemm.py:105"),
+        "gemm[fp32]": ("csrc/gemm.cu", "src/repro/kernels/gemm.py:105"),
         "flash_attention": ("csrc/attention.cu",
                             "src/repro/kernels/attention.py:162"),
         "paged_prefill_attention": ("csrc/attention.cu",
@@ -2777,6 +2970,7 @@ def main() -> int:
                     engine_counts if name in kernels.ENGINE_KERNELS else
                     ssm_counts if name in kernels.RECURRENT_KERNELS else
                     static_counts if name in kernels.STATIC_KERNELS else
+                    moe_counts if name in kernels.MOE_KERNELS else
                     counts)[name]
         if launches <= 0:
             fail(f"kernel {name}: no launch on its main path")
@@ -2803,7 +2997,8 @@ def main() -> int:
                    "gate_launches": gate_counts,
                    "static": static_summary,
                    "static_launches": static_counts,
-                   "robust": robust}, f, indent=1)
+                   "robust": robust, "moe": moe_summary,
+                   "moe_launches": moe_counts}, f, indent=1)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,9 @@
 """Architecture registry (port of ``repro.configs``) for the archs the
 port serves: the dense gemma3-1b, gemma2-2b and qwen1.5-4b, the recurrent
-mamba2-1.3b, the hybrid hymba-1.5b and the multi-codebook musicgen-medium. ``get(name)`` returns the full-size ModelConfig;
-``get_smoke(name)`` the reduced same-family config the CPU tests use."""
+mamba2-1.3b, the hybrid hymba-1.5b, the multi-codebook musicgen-medium and
+the MoE granite-moe-3b-a800m and llama4-scout-17b-a16e. ``get(name)``
+returns the full-size ModelConfig; ``get_smoke(name)`` the reduced
+same-family config the CPU tests use."""
 
 from __future__ import annotations
 
@@ -36,6 +38,9 @@ def get_smoke(name: str) -> ModelConfig:
     if cfg.has_attn:
         kw.update(n_heads=4, n_kv_heads=max(1, cfg.n_kv_heads * 4
                                             // max(cfg.n_heads, 1)))
+    if cfg.family == "moe":
+        kw.update(n_experts=4, top_k=min(cfg.top_k, 2), moe_d_ff=32,
+                  expert_padding=1)
     if cfg.has_ssm:
         kw.update(d_state=8, ssm_head_dim=8)
     if cfg.local_window:
@@ -53,6 +58,7 @@ def _ensure_loaded():
     if _LOADED:
         return
     from repro_torch.configs import (gemma2_2b, gemma3_1b,  # noqa: F401
-                                     hymba_1_5b, mamba2_1_3b,
+                                     granite_moe_3b, hymba_1_5b,
+                                     llama4_scout, mamba2_1_3b,
                                      musicgen_medium, qwen1_5_4b)
     _LOADED = True

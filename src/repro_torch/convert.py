@@ -7,8 +7,10 @@ extension dtype (moved by bit pattern) or as float32 with ``dtype=
 torch.bfloat16`` requested; bf16 -> f32 -> bf16 is lossless, so both give
 the same bits. The tree may hold any family's leaves: attention and MLP
 weights, Mamba-2 blocks (``in_proj``, ``conv_w``, ``a_log``, ``d_skip``,
-``dt_bias``, ``norm``, ``out_proj``), hymba's ``meta_tokens`` and
-musicgen's stacked codebook tables and ``heads``. Nothing here imports JAX.
+``dt_bias``, ``norm``, ``out_proj``), hymba's ``meta_tokens``,
+musicgen's stacked codebook tables and ``heads``, and MoE blocks
+(``router``, the stacked experts ``wi`` / ``wg`` / ``wo``, ``shared``).
+Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ def params_from_numpy(tree: Mapping[str, Any], device="cpu",
     """``dtype`` casts the floating leaves the JAX package keeps in the
     model dtype -- pass it when the tree arrives as fp32 copies; the leaves
     it keeps in fp32 (rmsnorm scales, the SSM's ``a_log``, ``d_skip`` and
-    ``dt_bias``) stay fp32."""
+    ``dt_bias``, the MoE ``router``) stay fp32."""
     def conv(name, node):
         if isinstance(node, Mapping):
             return {k: conv(k, v) for k, v in node.items()}
@@ -53,7 +55,7 @@ def params_from_numpy(tree: Mapping[str, Any], device="cpu",
 FP32_LEAVES = frozenset({"ln1", "ln2", "post_ln1", "post_ln2", "qnorm",
                          "knorm", "final_norm", "attn_out_norm",
                          "ssm_out_norm", "norm", "a_log", "d_skip",
-                         "dt_bias"})
+                         "dt_bias", "router"})
 
 
 def _getter(state: Any):

@@ -11,6 +11,9 @@ ENGINE_KERNELS = ("gemm[int8]", "gemm_ws", "accumulator_epilogue",
                   "conv2d_implicit[fp16]", "conv2d_implicit[int16]")
 RECURRENT_KERNELS = ("ssd",)
 STATIC_KERNELS = ("decode_attention",)
+# The MoE serving path's own: its router is an fp32-input GEMM on every
+# engine config.
+MOE_KERNELS = ("gemm[fp32]",)
 
 
 def launch_counters():
@@ -19,8 +22,9 @@ def launch_counters():
     count grows by one per launch of it: the serving path's four, the
     engine path's (the int8, fp16 and int16 GEMMs in OS order, any GEMM
     in WS order, the mvout epilogue, the implicit-im2col conv per input
-    datatype), the recurrent families' chunked SSD and the static
-    reference path's dense decode attention."""
+    datatype), the fp32 GEMM in OS order (the fp32 engine config's, and the
+    MoE router's on every config), the recurrent families' chunked SSD and
+    the static reference path's dense decode attention."""
     import torch
 
     from repro_torch.kernels import attention, conv, gemm, mamba2
@@ -32,6 +36,7 @@ def launch_counters():
             "gemm_ws": gemm.gemm_ws,
             "accumulator_epilogue": gemm.accumulator_epilogue,
             "conv2d_implicit": conv.conv2d_implicit,
+            "gemm[fp32]": gemm.OS_COUNTS[torch.float32],
             "gemm[fp16]": gemm.OS_COUNTS[torch.float16],
             "gemm[int16]": gemm.OS_COUNTS[torch.int16],
             "conv2d_implicit[fp32]": conv.COUNTS[torch.float32],

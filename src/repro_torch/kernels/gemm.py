@@ -40,9 +40,9 @@ call uses its stream's workspace (:func:`_workspace`), made once per
 stream and shared by every GEMM and conv on it.
 
 Launch counts, one per kernel of the ``kernels`` report:
-``gemm.launches`` the bf16 / fp32 kernel in OS order (the serving
-path's), ``gemm_os.launches`` the int8 kernel in OS order,
-``OS_COUNTS[dtype].launches`` the fp16 / int16 kernel in OS order,
+``gemm.launches`` the bf16 kernel in OS order (the serving path's),
+``gemm_os.launches`` the int8 kernel in OS order,
+``OS_COUNTS[dtype].launches`` the fp32 / fp16 / int16 kernel in OS order,
 ``gemm_ws.launches`` any of them in WS order,
 ``accumulator_epilogue.launches``.
 """
@@ -361,7 +361,9 @@ gemm.launches = 0
 gemm_os.launches = 0
 gemm_ws.launches = 0
 accumulator_epilogue.launches = 0
-# The fp16 and int16 kernels' launches in OS order (gemm_os and gemm run
-# them; the kernels report names them gemm[fp16] and gemm[int16]).
-OS_COUNTS = {torch.float16: SimpleNamespace(launches=0),
+# The fp32, fp16 and int16 kernels' launches in OS order (gemm_os and gemm
+# run them; the kernels report names them gemm[fp32], gemm[fp16] and
+# gemm[int16]).
+OS_COUNTS = {torch.float32: SimpleNamespace(launches=0),
+             torch.float16: SimpleNamespace(launches=0),
              torch.int16: SimpleNamespace(launches=0)}

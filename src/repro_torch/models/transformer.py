@@ -3,10 +3,11 @@
 engine and the static reference path (one dense KV cache).
 
 The families are dense (incl. musicgen's summed codebook embeddings and
-per-codebook heads), ssm (Mamba-2 blocks, no attention) and hybrid
-(hymba: attention and Mamba-2 side by side in every block, meta tokens in
-front of the prompt). MoE raises ``NotImplementedError`` naming its ROADMAP
-item.
+per-codebook heads), moe (attention, then a routed expert FFN:
+:mod:`repro_torch.models.moe`, dropless on every entry here, since each
+serves), ssm (Mamba-2 blocks, no attention) and hybrid (hymba: attention
+and Mamba-2 side by side in every block, meta tokens in front of the
+prompt). Another family raises ``NotImplementedError``.
 
 The parameter tree is the JAX package's: per-layer weights stacked along a
 leading ``L`` axis, the same names, the same (d_in, d_out) layout, so
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models import layers, ssm
+from repro_torch.models import layers, moe, ssm
 
 Params = Dict[str, Any]
 
@@ -97,10 +98,10 @@ class ModelConfig:
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
-            f"queue A item 9: MoE)")
+            f"{cfg.name}: family {cfg.family!r} is not one the port serves "
+            f"(dense, moe, ssm, hybrid)")
 
 
 def layer_windows(cfg: ModelConfig) -> np.ndarray:
@@ -162,7 +163,13 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *,
             gen, L, d, d_inner=cfg.d_inner, n_heads=cfg.n_ssm_heads,
             d_state=cfg.d_state, n_groups=cfg.ssm_groups, d_conv=cfg.d_conv,
             dtype=dt, device=device)
-    if cfg.d_ff and cfg.family != "ssm":
+    if cfg.family == "moe":
+        blocks["ln2"] = norm(d)
+        blocks["moe"] = moe.moe_init(
+            gen, d, cfg.moe_d_ff, cfg.n_experts, ep=cfg.expert_padding,
+            n_shared=cfg.n_shared_experts, n_layers=L, dtype=dt,
+            device=device)
+    elif cfg.d_ff and cfg.family != "ssm":
         blocks["ln2"] = norm(d)
         blocks["mlp"] = {"wi": dense(d, cfg.d_ff), "wo": dense(cfg.d_ff, d),
                          "wg": dense(d, cfg.d_ff)}
@@ -297,9 +304,21 @@ def _block_apply(ctx, cfg: ModelConfig, bp: Params, h: torch.Tensor,
     if cfg.post_norms:
         mixed = layers.rmsnorm(mixed, bp["post_ln1"])
     h = h + mixed
-    if "mlp" in bp:
+    if "moe" in bp or "mlp" in bp:
         x2 = layers.rmsnorm(h, bp["ln2"])
-        f = layers.mlp_apply(ctx, bp["mlp"], x2, activation=cfg.activation)
+        if "moe" in bp:
+            # Every entry of this module serves (a KV cache is always
+            # given), so the JAX package's ``serving`` test is true: no
+            # token is dropped.
+            f = moe.moe_apply(ctx, bp["moe"], x2, n_experts=cfg.n_experts,
+                              top_k=cfg.top_k,
+                              capacity_factor=cfg.capacity_factor,
+                              activation=cfg.activation,
+                              router_weights_before=cfg.router_weights_before,
+                              dropless=True)
+        else:
+            f = layers.mlp_apply(ctx, bp["mlp"], x2,
+                                 activation=cfg.activation)
         if cfg.post_norms:
             f = layers.rmsnorm(f, bp["post_ln2"])
         h = h + f

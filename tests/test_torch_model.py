@@ -1,4 +1,4 @@
-"""The port's dense model against the JAX package, on the CPU.
+"""The port's dense and MoE models against the JAX package, on the CPU.
 
 The JAX side runs ``ExecutionContext(cfg=f32, backend="xla_twin")``: the
 JAX engine's datapath (every projection through the engine GEMM, bias on
@@ -10,7 +10,9 @@ model fails in JAX with a scan-carry dtype error.
 Tolerance: logits agree to 2e-5 absolute / 1e-4 relative. Both sides
 compute in fp32, but their matmuls sum in different orders (MKL vs XLA's
 dot) and the difference of ~1e-7 per op compounds over six layers and a
-softmax; weights are O(1/sqrt(d)) so logits are O(1).
+softmax; weights are O(1/sqrt(d)) so logits are O(1). The MoE archs route
+each token by its fp32 logits: a routing flip between the two sides would
+show as an O(1) gap, far outside this tolerance.
 """
 
 import dataclasses
@@ -40,7 +42,12 @@ ATOL, RTOL = 2e-5, 1e-4
 ARCHS = {
     "gemma3-1b": dict(n_layers=6, global_period=3),
     "qwen1.5-4b": dict(),
+    "granite-moe-3b-a800m": dict(),
+    "llama4-scout-17b-a16e": dict(),
 }
+MOE_ARCHS = ("granite-moe-3b-a800m", "llama4-scout-17b-a16e")
+# Archs of the JAX registry the port does not serve yet (ROADMAP A17).
+NOT_PORTED = {"gemma3-4b", "llava-next-34b"}
 
 
 def _configs(arch):
@@ -182,8 +189,74 @@ def test_layer_windows_and_rope_bases_match_jax(model):
 
 
 def test_non_dense_family_raises():
-    """MoE is the one family not ported yet (ROADMAP queue A item 9)."""
-    cfg = ttf.ModelConfig(name="m", family="moe", n_layers=1, d_model=8,
+    """Every family of the JAX package's ModelConfig (dense, moe, ssm,
+    hybrid) is ported; a family outside them raises."""
+    for family in ("dense", "moe", "ssm", "hybrid"):
+        ttf._require_ported(ttf.ModelConfig(name="m", family=family,
+                                            n_layers=1, d_model=8, vocab=8))
+    cfg = ttf.ModelConfig(name="m", family="vlm", n_layers=1, d_model=8,
                           vocab=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 9"):
+    with pytest.raises(NotImplementedError, match="not one the port serves"):
         ttf.init_params(torch.Generator().manual_seed(0), cfg)
+
+
+@pytest.mark.parametrize("arch", sorted(set(jconfigs.names()) - NOT_PORTED))
+def test_registry_matches_jax(arch):
+    """Every arch of the JAX registry but those still to port gives the
+    same ModelConfig in the port, full size and smoke (the JAX package's
+    reduction rule, its MoE branch included), the dtype mapped."""
+    dtypes = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}
+    for get_j, get_t in ((jconfigs.get, tconfigs.get),
+                         (jconfigs.get_smoke, tconfigs.get_smoke)):
+        jc, tc = get_j(arch), get_t(arch)
+        for f in dataclasses.fields(jc):
+            want = getattr(jc, f.name)
+            want = dtypes[want] if f.name == "dtype" else want
+            assert getattr(tc, f.name) == want, (arch, f.name)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_static_path_logits_match_jax(arch):
+    """``prefill_into_cache`` over a 9-token prompt, then three
+    ``decode_step`` tokens (the JAX static path serves, so it is dropless
+    too): logits and the KV cache against JAX."""
+    jc, tc = _configs(arch)
+    npt = _params(jc, seed=2)
+    f32 = dict(input_dtype="fp32", acc_dtype="fp32", output_dtype="fp32")
+    jctx = JContext(cfg=JGemminiConfig(**f32), backend="xla_twin")
+    tctx = ExecutionContext(cfg=GemminiConfig(**f32))
+    jp, tp = jax.tree.map(jnp.asarray, npt), params_from_numpy(npt)
+    toks = np.random.default_rng(8).integers(0, tc.vocab, (2, 9)).astype(
+        np.int32)
+    js = jtf.init_decode_state(jc, 2, 13, dtype=jnp.float32)
+    js = js._replace(pos=jnp.zeros((), jnp.int32))
+    ts = ttf.init_decode_state(tc, 2, 13, dtype=torch.float32)._replace(pos=0)
+    jl, js = jtf.prefill_into_cache(jctx, jp, jc, jnp.asarray(toks), js)
+    tl, ts = ttf.prefill_into_cache(tctx, tp, tc, torch.from_numpy(toks), ts)
+    _close(jl, tl)
+    for _ in range(3):
+        nxt = np.array(jnp.argmax(jl[:, -1:], axis=-1), np.int32)
+        jl, js = jtf.decode_step(jctx, jp, jc, jnp.asarray(nxt), js)
+        tl, ts = ttf.decode_step(tctx, tp, tc, torch.from_numpy(nxt), ts)
+        _close(jl, tl)
+    assert ts.pos == int(js.pos) == 12
+    _close(js.kv_k, ts.kv_k)
+    _close(js.kv_v, ts.kv_v)
+
+
+def test_moe_blocks_keep_the_router_in_fp32():
+    """``init_params`` draws the router in fp32 at any model dtype (the JAX
+    ``moe_init`` does), and ``params_from_numpy(..., dtype=bf16)`` leaves it
+    fp32 while the experts take bf16."""
+    jc = jconfigs.get_smoke("granite-moe-3b-a800m")
+    tc = tconfigs.get_smoke("granite-moe-3b-a800m")
+    got = ttf.init_params(torch.Generator().manual_seed(0), tc)["blocks"]
+    assert got["moe"]["router"].dtype == torch.float32
+    assert got["moe"]["wi"].dtype == torch.bfloat16
+    tree = jax.tree.map(lambda a: np.asarray(a, np.float32),
+                        jtf.init_params(jax.random.PRNGKey(0), jc))
+    conv = params_from_numpy(tree, dtype=torch.bfloat16)["blocks"]["moe"]
+    assert conv["router"].dtype == torch.float32
+    np.testing.assert_array_equal(conv["router"].numpy(),
+                                  tree["blocks"]["moe"]["router"])
+    assert {conv[k].dtype for k in ("wi", "wg", "wo")} == {torch.bfloat16}

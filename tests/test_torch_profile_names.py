@@ -48,7 +48,7 @@ NAMES = [
      "(anonymous namespace)::ConvTapsA<8, 2>)", "conv2d_implicit[int16]"),
     ("void sgemm::sgemm_kernel<float, 8, 16, 16, 1, false, true, float, "
      "sgemm::MatrixA<float>>(sgemm::Args<float>, sgemm::MatrixA<float>)",
-     "gemm"),
+     "gemm[fp32]"),
 ]
 
 

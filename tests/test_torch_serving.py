@@ -36,7 +36,9 @@ from repro_torch.serving import engine as tengine
 
 REPO = Path(__file__).resolve().parents[1]
 F32 = dict(input_dtype="fp32", acc_dtype="fp32", output_dtype="fp32")
-ARCHS = {"gemma3-1b": dict(n_layers=6, global_period=3), "qwen1.5-4b": {}}
+ARCHS = {"gemma3-1b": dict(n_layers=6, global_period=3), "qwen1.5-4b": {},
+         "granite-moe-3b-a800m": {}, "llama4-scout-17b-a16e": {}}
+MOE_ARCHS = ("granite-moe-3b-a800m", "llama4-scout-17b-a16e")
 _NORMS = ("ln1", "ln2", "post_ln1", "post_ln2", "qnorm", "knorm",
           "final_norm", "bq", "bk", "bv")
 
@@ -125,6 +127,34 @@ def test_prefix_cache_tokens_match_jax():
     (jt, js), (tt, ts) = _pair("qwen1.5-4b", prompts, 5, max_slots=2,
                                max_context=64, page_size=8, n_pages=16,
                                prefill_chunk=8, prefix_cache=True)
+    assert ts["prefix_hit_tokens"] > 0
+    assert tt == jt
+    assert ts["prefix_hit_tokens"] == js["prefix_hit_tokens"]
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_preemption_tokens_match_jax(arch):
+    """The MoE archs under forced preemption: two slots over four pages
+    evict a request mid-decode, and its recomputed prefill routes its
+    tokens again; streams and counters equal the JAX engine's."""
+    (jt, js), (tt, ts) = _pair(arch, _prompts(1, (19, 19)), 8,
+                               max_slots=2, max_context=32, page_size=8,
+                               n_pages=4, prefill_chunk=8)
+    assert js["preemptions"] >= 1
+    assert tt == jt
+    for key in ("preemptions", "prefill_tokens"):
+        assert ts[key] == js[key], key
+
+
+def test_moe_prefix_cache_tokens_match_jax():
+    """granite with the copy-on-write prefix cache: shared prefix pages
+    are mapped, not recomputed, and the suffix tokens route as in JAX."""
+    rng = np.random.default_rng(2)
+    shared = rng.integers(0, 128, (24,)).astype(np.int32)
+    prompts = [np.concatenate([shared, t]) for t in _prompts(3, (7,) * 4)]
+    (jt, js), (tt, ts) = _pair("granite-moe-3b-a800m", prompts, 5,
+                               max_slots=2, max_context=64, page_size=8,
+                               n_pages=16, prefill_chunk=8, prefix_cache=True)
     assert ts["prefix_hit_tokens"] > 0
     assert tt == jt
     assert ts["prefix_hit_tokens"] == js["prefix_hit_tokens"]
