@@ -37,10 +37,11 @@ Needs one CUDA card, ``nvcc`` and the repository checkout around this file
    are zeroed just before and read just after, and every kernel must have
    run; the first request's prefill logits at full width are held against
    the plain path on the CPU;
-5. end to end against plain: the smoke gemma3-1b, qwen1.5-4b,
-   granite-moe-3b-a800m and llama4-scout-17b-a16e configs in fp32 (model
-   dtype and engine config) on the card and on the CPU, with the same
-   weights and prompts, must give equal greedy tokens;
+5. end to end against plain: the smoke gemma3-1b, gemma3-4b, qwen1.5-4b,
+   llava-next-34b (text only), granite-moe-3b-a800m and
+   llama4-scout-17b-a16e configs in fp32 (model dtype and engine config)
+   on the card and on the CPU, with the same weights and prompts, must
+   give equal greedy tokens;
 6. engine: the Gemmini engine path on the quickstart's int8 BOTH instance:
    the port's quickstart (header, int8 GEMM on OS and WS, conv by host
    im2col and fused); the header against ``plan_gemm``; the mvout route
@@ -113,7 +114,36 @@ Needs one CUDA card, ``nvcc`` and the repository checkout around this file
    slots 40-47); a 256-token prompt's prefill logits held against the CPU
    plain path in fp32 (``FP32_LOGITS_LIMIT``) and by ``hold_bf16``; the
    two phase-4b steps profiled, the expert ``bmm``'s device time apart
-   and the largest other kernels named.
+   and the largest other kernels named;
+13. train, smoke: every registry arch at smoke size in fp32 (model and
+   engine), one ``make_train_step`` on the card and on the CPU from the
+   same weights and batch (llava-next-34b with an ``extra_embeds``
+   prefix, musicgen-medium with four codebooks, the MoE archs capacity
+   bound): the loss and every gradient leaf agree within
+   ``TRAIN_SMOKE_GRAD_LIMIT``, the step's metrics too, and its updated
+   parameters within the update's own bound; the fp32 GEMM and its
+   backward products (``gemm[bwd]``) must launch;
+14. train, full width: gemma3-1b at its published widths (26 layers,
+   vocab 262144; bf16, the serving engine config), ``remat=True``, AdamW
+   under a cosine schedule, ``TRAIN_STEPS`` steps of 4 x 1024 tokens of
+   ``SyntheticLM`` from seed 0 (launch counts zeroed just before, read
+   just after): every step launches the forward GEMM and ``gemm[bwd]``
+   exactly as ``train_gemm_launches`` works them out from the model
+   (forward, the remat recompute, two backward products per projection;
+   attention and the SSD run their model functions, so no other kernel);
+   losses finite, the last three's mean below the first three's; the
+   state after step 4 saved, restored into a fresh state bit for bit
+   (parameters and AdamW state) and step 5 from it giving the
+   uninterrupted run's loss; one step profiled (wall, device time, idle
+   share; free memory read before the phase); the first step's loss and
+   gradient norm in fp32 at batch 1 x 128 against the CPU plain path
+   (``TRAIN_CPU_LIMITS``); the launcher (``repro_torch.launch.train``)
+   with ``--fail-at`` restarting from its checkpoint;
+15. gemma3-4b at its published widths (34 layers, GQA 8 / 4, head dim 256,
+   window 1024; bf16, weights from seed 0) on phase 4's traffic: every
+   serving kernel must launch; a 256-token prompt's prefill logits held
+   against the CPU plain path in fp32 (``FP32_LOGITS_LIMIT``) and by
+   ``hold_bf16``.
 
 Phase 3 also holds the chunked SSD (mamba2-1.3b's and hymba-1.5b's
 widths: the serving call, one 256-token chunk resumed, and 1000 tokens
@@ -149,6 +179,12 @@ as phase 7's fp32 logits run it) log theirs, beside ``torch.addmm`` /
 ``torch.matmul`` in fp32 with TF32 off; the log and
 the JSON carry the GEMM's sums over one decode step (M = 4) and one
 prefill chunk (M = 256), 7 projections per layer and the unembedding.
+The ``gemm[bwd]`` rows are the training step's backward products at its
+4 x 1024 token rows: dA = dC B^T and dB = A^T dC of every projection and
+of the tied unembedding (``kernels.gemm.grad_a`` / ``grad_b``), each with
+its plan, ``torch.matmul`` on the same operands, its launches per
+training step and the bytes ``grad_b`` copies to give the kernel a
+row-major operand.
 Every profiler window (phases 4b, 6, 6b, 7-8) is held to the launch
 counters' growth over its passes (``profile_call``): a short window is
 taken again, and one that stays short fails the run.
@@ -156,8 +192,10 @@ Every main path's launch counts are zeroed
 just before it and read just after; the kernels line takes each kernel's
 count from its own path: the serve phase, the engine phase, phase 6b (the
 fp16 / int16 GEMMs and the fp32 / bf16 / fp16 / int16 convs), the
-recurrent serve (``ssd``), the static path (``decode_attention``) or the
-MoE serve (``gemm[fp32]``, the fp32 GEMM's own count).
+recurrent serve (``ssd``), the static path (``decode_attention``), the
+MoE serve (``gemm[fp32]``, the fp32 GEMM's own count) or the full-width
+training run (``gemm[bwd]``, the backward products on any float
+datapath).
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``. Per-shape results and the
@@ -190,7 +228,7 @@ REPS = 25
 # 3.6e-2, on an H100; PERF.md section 2).
 # bf16: see ``hold_bf16``.
 FP32_LOGITS_LIMIT = {"mamba2-1.3b": 5e-3, "hymba-1.5b": 1e-3,
-                     "granite-moe-3b-a800m": 5e-3}
+                     "granite-moe-3b-a800m": 5e-3, "gemma3-4b": 1e-3}
 BF16_FACTOR = 2.0
 
 # Phase 10's static path: one gemma3-1b request, a prompt long enough that
@@ -413,6 +451,89 @@ def gemm_step_sums(rows, n_layers):
     return sums
 
 
+TRAIN_ROWS = 4 * 1024      # the training phase's batch x sequence
+
+
+def gemm_backward_cases(torch, randn):
+    """The engine GEMM's backward products at gemma3-1b's training shapes
+    (M = 4 x 1024 token rows): (op, name, M, N, K, b_trans, run_kernel,
+    run_plain, run_library, bytes copied, note, run_exact) for dA = dC
+    B^T and dB =
+    A^T dC of every projection and of the tied unembedding (B =
+    ``table.T``), M x N x K the product's own (dA: M tokens, N = the
+    layer's input width, K = its output width; dB: M = input width, N =
+    output width, K tokens). ``kernels.gemm.grad_a`` / ``grad_b`` are the
+    calls the autograd Function makes; the yardstick is ``torch.matmul``
+    on the same operands; the bytes are the operand ``grad_b`` makes
+    contiguous (A^T or dC^T, whichever is smaller), beside the other."""
+    from repro_torch import configs
+    from repro_torch.kernels import gemm as kg
+    from repro_torch.kernels.ref import gemm_ref
+
+    cfg = configs.get("gemma3-1b")
+    d, hd, nh, nkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    proj = [("wq", d, nh * hd), ("wk", d, nkv * hd), ("wv", d, nkv * hd),
+            ("wo", nh * hd, d), ("wi", d, cfg.d_ff), ("wg", d, cfg.d_ff),
+            ("mlp.wo", cfg.d_ff, d)]
+    m = TRAIN_ROWS
+    bf16, kw = torch.bfloat16, dict(acc_dtype=torch.float32,
+                                    out_dtype=torch.bfloat16)
+    table = randn(cfg.vocab, d, scale=d ** -0.5)
+    out = []
+    for name, k, n in proj + [("unembed", d, cfg.vocab)]:
+        a = randn(m, k)
+        b = table.T if name == "unembed" else randn(k, n, scale=k ** -0.5)
+        dc = randn(m, n, scale=1e-3)
+        # dA: dC (m x n) @ B^T (n x k); B^T is read in place
+        out.append(("dA", name, m, k, n, name != "unembed",
+                    lambda dc=dc, b=b: kg.grad_a(dc, b, bf16),
+                    lambda dc=dc, b=b: gemm_ref(dc, b.t(), None, **kw),
+                    lambda dc=dc, b=b: torch.matmul(dc, b.t()), 0, "",
+                    lambda dc=dc, b=b: dc.double() @ b.t().double()))
+        copy_a, copy_dc = 2 * m * k, 2 * m * n
+        note = (f"copies A^T {copy_a} B (dC^T would be {copy_dc} B)"
+                if k <= n else
+                f"copies dC^T {copy_dc} B (A^T would be {copy_a} B)")
+        out.append(("dB", name, k, n, m, False,
+                    lambda a=a, dc=dc: kg.grad_b(a, dc, bf16),
+                    lambda a=a, dc=dc: gemm_ref(a.t(), dc, None, **kw),
+                    lambda a=a, dc=dc: torch.matmul(a.t(), dc),
+                    min(copy_a, copy_dc), note,
+                    lambda a=a, dc=dc: a.t().double() @ dc.double()))
+    return out
+
+
+# A product over this many terms or more is held to the exact (fp64)
+# product by ``hold_long_k`` rather than elementwise by ``check_close``.
+LONG_K = 1 << 16
+
+
+def hold_long_k(torch, name, exact_fn):
+    """A check for a bf16 product with a long inner dimension (the tied
+    unembedding's dA sums 262144 products): the tensor cores add each
+    k-step's products into the fp32 accumulator rounding toward zero, so
+    over thousands of steps the kernel's fp32 sums drift from the IEEE
+    plain version's by about 1e-3 of their partial sums, and small outputs
+    then round to another bf16 value than the plain version's, two steps
+    apart at a few borderline elements. Both are held to the exact
+    product instead, as ``hold_bf16`` holds logits: the kernel's relative
+    L2 gap from the fp64 product at most ``BF16_FACTOR`` times the plain
+    version's (whose gap is its bf16 output rounding)."""
+    def check(got, want):
+        exact = exact_fn()
+        g_k, g_p = rel_l2(got, exact), rel_l2(want, exact)
+        err = (got.double() - exact).abs().max().item()
+        del exact
+        log(f"{name}: relative L2 from the fp64 product: kernel {g_k:.3e}, "
+            f"plain {g_p:.3e} (ratio {g_k / g_p:.3f}, limit {BF16_FACTOR});"
+            f" kernel max abs err {err:.3e}")
+        if not torch.isfinite(got).all() or not g_k <= BF16_FACTOR * g_p:
+            fail(f"{name}: the kernel is {g_k:.3e} from the exact product, "
+                 f"over {BF16_FACTOR} x the plain version's {g_p:.3e}")
+        return err
+    return check
+
+
 def fp32_gemm_cases(torch, randn):
     """The fp32 engine GEMM (the fp32 engine config's datapath) at the
     shapes the fp32 paths give it: (name, M, N, K, run_kernel, run_plain,
@@ -537,6 +658,24 @@ def kernel_cases(torch, rng_seed=0):
                   lambda: torch.addmm(bias, a, b),
                   2 * (64 * d + d * n + 64 * n + n), 2.0 * 64 * d * n,
                   {"plan": gemm_plan_text(kg, 64, n, d)}))
+    # -- gemm[bwd]: the training step's backward products (dA, dB) of every
+    # projection and the tied unembedding; each runs once a layer a step
+    # (the unembedding's once a step)
+    for op, pname, m, n, k, b_trans, run_k, run_p, run_lib, copied, note, \
+            run_exact in gemm_backward_cases(torch, randn):
+        plan_mnk = (m, n, k) if op == "dA" or copied == 2 * k * m else \
+            (n, m, k)
+        label = f"{op} {pname} M={m} N={n} K={k}"
+        opts = {"plan": gemm_plan_text(kg, *plan_mnk, b_trans),
+                "launches_per_step": 1 if pname == "unembed" else
+                cfg.n_layers, "copied_bytes": copied, "note": note}
+        if k >= LONG_K:
+            opts["check"] = hold_long_k(torch, f"gemm[bwd] [{label}]",
+                                        run_exact)
+        cases.append((
+            "gemm[bwd]", label, pname == "unembed" and op == "dB", "bf16",
+            run_k, run_p, run_lib, 2 * (m * k + k * n + m * n),
+            2.0 * m * n * k, opts))
     # the fp32 datapath (fp32 engine config), TF32 off as main sets it
     for pname, m, n, k, run_k, run_p, run_lib, nbytes in fp32_gemm_cases(
             torch, randn):
@@ -1377,6 +1516,11 @@ def run_kernel_phase(torch, timer):
         if "bound_fp32_ms" in opts:
             row["bound_fp32_ms"] = opts["bound_fp32_ms"]
             extra += f"  fp32 bound {opts['bound_fp32_ms']:.4f} ms"
+        if "launches_per_step" in opts:
+            row["launches_per_step"] = opts["launches_per_step"]
+            row["copied_bytes"] = opts["copied_bytes"]
+            extra += (f"  {opts['launches_per_step']} a training step"
+                      + (f"; {opts['note']}" if opts["note"] else ""))
         rows.append(row)
         log(f"{kernel:<24} {label:<62} err {err:.2e}  kernel {ms:8.4f} ms "
             f"(host {host_ms:7.4f})  plain {plain_ms:8.4f} ms  library "
@@ -1513,6 +1657,7 @@ _KERNEL_NAMES = (("ssd_kernel", "ssd"), ("ssd_tc_kernel", "ssd"),
 # kernel class its launches show up as; "gemm_ws" counts a GEMM in WS
 # order of either GEMM class (``window_short`` splits it).
 _COUNTER_CLASS = {"gemm": "gemm", "gemm[fp32]": "gemm", "gemm[fp16]": "gemm",
+                  "gemm[bwd]": "gemm",
                   "gemm[int16]": "gemm",
                   "gemm[int8]": "gemm[int8]",
                   "accumulator_epilogue": "accumulator_epilogue",
@@ -1726,9 +1871,13 @@ def run_e2e_phase(torch, np):
     f32 = GemminiConfig(input_dtype="fp32", acc_dtype="fp32",
                         output_dtype="fp32")
     # gemma3 with six layers, every third global, so both window kinds run;
-    # the MoE archs route every token on the card's fp32 router GEMM
+    # the MoE archs route every token on the card's fp32 router GEMM;
+    # llava-next-34b serves text only (its image stub feeds the training
+    # forward alone)
     for arch, kw in (("gemma3-1b", dict(n_layers=6, global_period=3)),
-                     ("qwen1.5-4b", {}), ("granite-moe-3b-a800m", {}),
+                     ("gemma3-4b", dict(n_layers=6, global_period=3)),
+                     ("qwen1.5-4b", {}), ("llava-next-34b", {}),
+                     ("granite-moe-3b-a800m", {}),
                      ("llama4-scout-17b-a16e", {})):
         cfg = dataclasses.replace(configs.get_smoke(arch),
                                   dtype=torch.float32, **kw)
@@ -2185,7 +2334,9 @@ def prefill_logits(torch, engine, prompt, fp32=False):
 
 
 def rel_l2(got, want) -> float:
-    return ((got - want).norm() / want.norm()).item()
+    """Relative L2 gap, in fp64 on the host (0 where both are zero)."""
+    g, w = got.double().cpu(), want.double().cpu()
+    return ((g - w).norm() / w.norm().clamp_min(1e-300)).item()
 
 
 def hold_bf16(name, card, cpu, exact):
@@ -2805,6 +2956,332 @@ def run_moe_phase(torch, np):
                     "profile": profile}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: one training step of every arch at smoke size, card against CPU
+# ---------------------------------------------------------------------------
+# fp32 model and engine on both sides; the GEMMs and attention's einsums
+# sum in other orders (1e-7 an op), which the loss and the backward
+# compound: a gradient leaf's relative L2 error reads about 1e-6 and the
+# limit is 1e-4. The step's updated parameters: AdamW's first step moves
+# each weight by lr * g / (|g| + eps), about the learning rate whatever
+# the gradient's size, so where a gradient is rounding noise on both
+# sides (qwen's key bias: the softmax cancels it) the two steps may go
+# either way. The bound held is that of the update itself: no weight
+# more than twice the learning rate (plus its decay) from the CPU's.
+TRAIN_SMOKE_GRAD_LIMIT = 1e-4
+TRAIN_SMOKE_LR = 1e-3
+
+
+def run_train_smoke_phase(torch, np):
+    """Every registry arch at smoke size in fp32 (model and engine): one
+    ``make_train_step`` on the card and on the CPU from the same weights
+    and batch (llava with an ``extra_embeds`` prefix, musicgen with its
+    codebooks, the MoE archs capacity-bound), the loss and every gradient
+    leaf (``steps.loss_and_grads``, the call the step makes), the step's
+    metrics and its updated parameters compared. The card must launch the
+    fp32 GEMM and its backward products."""
+    from repro_torch import configs, kernels
+    from repro_torch.core import tree as tu
+    from repro_torch.core.config import GemminiConfig
+    from repro_torch.core.context import ExecutionContext
+    from repro_torch.data import SyntheticLM, SyntheticLMConfig, make_batch
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+
+    ctx = ExecutionContext(cfg=GemminiConfig(
+        input_dtype="fp32", acc_dtype="fp32", output_dtype="fp32"))
+    out = {}
+    for arch in configs.names():
+        cfg = dataclasses.replace(configs.get_smoke(arch),
+                                  dtype=torch.float32)
+        state = steps.init_train_state(cfg, seed=2, device="cpu")
+        gen = SyntheticLM(SyntheticLMConfig(
+            vocab=cfg.vocab, seq=16, global_batch=2, seed=2,
+            n_codebooks=cfg.n_codebooks))
+        extra = dict(extra_embed_dim=cfg.d_model, extra_tokens=4) \
+            if cfg.modality == "vlm" else {}
+        batch = make_batch(gen, 0, "cpu", **extra)
+        opt_cfg = adamw.AdamWConfig(lr=TRAIN_SMOKE_LR)
+        step_fn = steps.make_train_step(ctx, cfg, opt_cfg)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            st = tu.tree_map(lambda t: t.to(dev), state)
+            b = {k: v.to(dev) for k, v in batch.items()}
+            kernels.reset_launch_counts()
+            loss, grads = steps.loss_and_grads(ctx, cfg, st.params, b)
+            new, metrics = step_fn(st, b)
+            res[dev] = (loss, grads, new, metrics, kernels.launch_counts())
+        (l_c, g_c, n_c, m_c, counts), (l_p, g_p, n_p, m_p, _) = \
+            res["cuda"], res["cpu"]
+        if counts["gemm[fp32]"] <= 0 or counts["gemm[bwd]"] <= 0:
+            fail(f"{arch} smoke train step: counts {counts}, want the fp32 "
+                 f"GEMM and gemm[bwd] launched")
+        if not torch.isfinite(l_c) or l_c.item() != m_c["loss"].item():
+            fail(f"{arch}: the card's loss {l_c.item()} is not finite or "
+                 f"differs from its train step's {m_c['loss'].item()}")
+        rels = {"loss": rel_l2(l_c, l_p),
+                "grad_norm": rel_l2(m_c["grad_norm"], m_p["grad_norm"])}
+        grad_rel = {path: rel_l2(g, dict(tu.flatten_with_paths(g_p))[path])
+                    for path, g in tu.flatten_with_paths(g_c)}
+        old = dict(tu.flatten_with_paths(state.params))
+        new_cpu = dict(tu.flatten_with_paths(n_p.params))
+        # each weight's gap from the CPU's, over the update's own bound
+        param_gap = {
+            path: ((x.cpu() - new_cpu[path]).abs() / (
+                2 * opt_cfg.lr * (1 + opt_cfg.weight_decay *
+                                  old[path].abs()))).max().item()
+            for path, x in tu.flatten_with_paths(n_c.params)}
+        worst_g = max(grad_rel, key=grad_rel.get)
+        worst_p = max(param_gap, key=param_gap.get)
+        log(f"{arch} smoke fp32 train step, card vs CPU: loss "
+            f"{l_c.item():.6f} (rel {rels['loss']:.2e}), grad norm rel "
+            f"{rels['grad_norm']:.2e}; {len(grad_rel)} gradient leaves, "
+            f"worst {worst_g} {grad_rel[worst_g]:.2e} (limit "
+            f"{TRAIN_SMOKE_GRAD_LIMIT}); updated parameters: largest gap "
+            f"from the CPU's {worst_p} {param_gap[worst_p]:.2e} of the "
+            f"update's bound; launches gemm[fp32] {counts['gemm[fp32]']}, "
+            f"gemm[bwd] {counts['gemm[bwd]']}")
+        if rels["loss"] > 1e-5 or rels["grad_norm"] > TRAIN_SMOKE_GRAD_LIMIT \
+                or grad_rel[worst_g] > TRAIN_SMOKE_GRAD_LIMIT or \
+                param_gap[worst_p] > 1.0:
+            fail(f"{arch} smoke fp32 train step: card and CPU disagree")
+        out[arch] = {**rels, "worst_grad": [worst_g, grad_rel[worst_g]],
+                     "worst_param_gap": [worst_p, param_gap[worst_p]]}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: gemma3-1b trained at full width
+# ---------------------------------------------------------------------------
+TRAIN_ARCH = "gemma3-1b"
+TRAIN_BATCH, TRAIN_SEQ = 4, 1024           # TRAIN_ROWS token rows a step
+TRAIN_STEPS, TRAIN_CKPT_AT, TRAIN_LR = 8, 4, 1e-3
+# The CPU comparison: the first step's loss and global gradient norm in
+# fp32 at batch 1 x 128; the card's fp32 GEMMs and the CPU's sum in other
+# orders, so they agree to about 1e-6.
+TRAIN_CPU_LIMITS = {"loss": 1e-5, "grad_norm": 1e-4}
+# The launcher's --fail-at restart at full width: three steps of batch 1 x
+# 128, a checkpoint every two, one failure at step 2.
+TRAIN_RESTART_ARGS = ("--steps", "3", "--batch", "1", "--seq", "128",
+                      "--ckpt-every", "2", "--fail-at", "2", "--log-every",
+                      "1")
+
+
+def train_gemm_launches(cfg):
+    """The engine GEMM's launches in one training step with ``remat``
+    (policy ``full``): each layer's 7 projections and the unembedding
+    forward, the layers' 7 again when the backward recomputes each block,
+    and two backward products (dA, dB) per forward GEMM."""
+    fwd = 7 * cfg.n_layers + 1
+    return {"gemm": fwd + 7 * cfg.n_layers, "gemm[bwd]": 2 * fwd}
+
+
+def run_train_phase(torch, np):
+    """gemma3-1b at its published widths (26 layers, vocab 262144; bf16,
+    the serving engine config bf16 -> fp32 -> bf16), ``remat=True``, AdamW
+    under a cosine schedule, batches of 4 x 1024 from ``SyntheticLM`` seed
+    0, ``TRAIN_STEPS`` steps: each step's GEMM launches equal
+    ``train_gemm_launches`` (and no attention or SSD kernel runs: training
+    takes the model functions); every loss finite and the last three's
+    mean below the first three's; the state after ``TRAIN_CKPT_AT`` steps
+    saved, restored into a fresh state bit for bit, and the next step from
+    it gives the uninterrupted run's loss; a profiled step's wall, device
+    time and idle share; the first step's loss and gradient norm in fp32
+    at batch 1 x 128 against the CPU; the launcher's ``--fail-at``
+    restart resuming from its checkpoint."""
+    import shutil
+
+    from repro_torch import configs, kernels
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import tree as tu
+    from repro_torch.core.config import GemminiConfig
+    from repro_torch.core.context import ExecutionContext
+    from repro_torch.data import SyntheticLM, SyntheticLMConfig, make_batch
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw, schedule
+
+    free, total = torch.cuda.mem_get_info()
+    log(f"train phase: {free / 2**30:.1f} GiB of {total / 2**30:.1f} GiB "
+        f"free on the card before it starts")
+    cfg = configs.get(TRAIN_ARCH)
+    ctx = ExecutionContext(cfg=GemminiConfig(
+        input_dtype="bf16", acc_dtype="fp32", output_dtype="bf16"))
+    t0 = time.perf_counter()
+    state = steps.init_train_state(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tu.leaves(state.params))
+    log(f"{TRAIN_ARCH} train: {n_params / 1e9:.3f} B parameters, "
+        f"{cfg.n_layers} layers, AdamW state fp32; init "
+        f"{time.perf_counter() - t0:.1f} s")
+    gen = SyntheticLM(SyntheticLMConfig(vocab=cfg.vocab, seq=TRAIN_SEQ,
+                                        global_batch=TRAIN_BATCH, seed=0))
+    batches = [make_batch(gen, i, "cuda") for i in range(TRAIN_STEPS)]
+    train_step = steps.make_train_step(
+        ctx, cfg, adamw.AdamWConfig(lr=TRAIN_LR),
+        lr_schedule=lambda s: schedule.cosine_schedule(s, TRAIN_STEPS,
+                                                       warmup_steps=1))
+    want = train_gemm_launches(cfg)
+    ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    mgr = CheckpointManager(ckpt_dir, keep=1)
+
+    losses, norms, walls = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    for i in range(TRAIN_STEPS):
+        before = kernels.launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batches[i])
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        after = kernels.launch_counts()
+        got = {k: after[k] - before[k] for k in after if after[k] - before[k]}
+        if got != want:
+            fail(f"train step {i}: launches {got}, want {want}")
+        if i + 1 == TRAIN_CKPT_AT:
+            t0 = time.perf_counter()
+            mgr.save(TRAIN_CKPT_AT, state, extra_meta={"arch": cfg.name})
+            saved, ckpt_s = state, time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"{TRAIN_ARCH} train: {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}, losses " + ", ".join(f"{x:.4f}" for x in losses)
+        + "; grad norms " + ", ".join(f"{x:.3f}" for x in norms)
+        + f"; step walls (s) " + ", ".join(f"{x:.3f}" for x in walls)
+        + f"; peak memory {peak:.2f} GiB; launches per step {want}")
+    if not all(np.isfinite(losses)) or \
+            not np.mean(losses[-3:]) < np.mean(losses[:3]):
+        fail(f"{TRAIN_ARCH} train: losses {losses} not finite or not "
+             f"falling (last three's mean against the first three's)")
+
+    # a profiled step: wall, device time, idle share
+    prof = profile_call(torch, f"{TRAIN_ARCH} train step",
+                        lambda: train_step(state, batches[0]), n=2)
+    log(f"{TRAIN_ARCH} train step: {TRAIN_ROWS / prof['wall_ms'] * 1e3:.0f}"
+        f" tokens/s, device idle {1 - prof['device_busy_share']:.1%} of "
+        f"the step's wall")
+    del state
+    torch.cuda.empty_cache()
+
+    # the checkpoint: restored into a fresh state, bit for bit; the next
+    # step from it gives the uninterrupted run's loss
+    t0 = time.perf_counter()
+    step_found, restored = mgr.restore_latest(
+        steps.init_train_state(cfg, seed=1, device="cuda"),
+        expect_meta={"arch": cfg.name})
+    restore_s = time.perf_counter() - t0
+    pairs = list(zip(tu.leaves(restored), tu.leaves(saved)))
+    differ = [i for i, (x, y) in enumerate(pairs)
+              if x.dtype != y.dtype or not torch.equal(x, y)]
+    if step_found != TRAIN_CKPT_AT or differ:
+        fail(f"checkpoint: step {step_found}, {len(differ)} of "
+             f"{len(pairs)} leaves differ from the saved state")
+    del saved
+    _, m5 = train_step(restored, batches[TRAIN_CKPT_AT])
+    resumed_loss = float(m5["loss"])
+    del restored, m5
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if resumed_loss != losses[TRAIN_CKPT_AT]:
+        fail(f"checkpoint: step {TRAIN_CKPT_AT + 1}'s loss from the "
+             f"restored state {resumed_loss} != the uninterrupted run's "
+             f"{losses[TRAIN_CKPT_AT]}")
+    log(f"{TRAIN_ARCH} checkpoint at step {TRAIN_CKPT_AT}: saved in "
+        f"{ckpt_s:.1f} s, restored into a fresh state in {restore_s:.1f} s, "
+        f"{len(pairs)} leaves (params and AdamW state) equal bit for bit; "
+        f"step {TRAIN_CKPT_AT + 1}'s loss from it {resumed_loss:.6f} equals "
+        f"the uninterrupted run's")
+
+    torch.cuda.empty_cache()
+
+    # the first step's loss and gradient norm in fp32 against the CPU
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    ctx32 = ExecutionContext(cfg=GemminiConfig(
+        input_dtype="fp32", acc_dtype="fp32", output_dtype="fp32"))
+    params = tf.init_params(torch.Generator().manual_seed(0), cfg32)
+    small = make_batch(SyntheticLM(SyntheticLMConfig(
+        vocab=cfg.vocab, seq=128, global_batch=1, seed=0)), 0)
+    cmp = {}
+    t0 = time.perf_counter()
+    for dev in ("cuda", "cpu"):
+        p = tu.tree_map(lambda t: t.to(dev), params)
+        loss, grads = steps.loss_and_grads(
+            ctx32, cfg32, p, {k: v.to(dev) for k, v in small.items()})
+        cmp[dev] = (loss.cpu(), adamw.global_norm(grads).cpu())
+        del p, grads
+    rel = {"loss": rel_l2(cmp["cuda"][0], cmp["cpu"][0]),
+           "grad_norm": rel_l2(cmp["cuda"][1], cmp["cpu"][1])}
+    log(f"{TRAIN_ARCH} fp32 first step at 1 x 128, card vs CPU: loss "
+        f"{cmp['cuda'][0].item():.6f} vs {cmp['cpu'][0].item():.6f} (rel "
+        f"{rel['loss']:.2e}), grad norm {cmp['cuda'][1].item():.4f} vs "
+        f"{cmp['cpu'][1].item():.4f} (rel {rel['grad_norm']:.2e}); limits "
+        f"{TRAIN_CPU_LIMITS}; {time.perf_counter() - t0:.1f} s")
+    if any(rel[k] > TRAIN_CPU_LIMITS[k] for k in rel):
+        fail(f"{TRAIN_ARCH} fp32 first step: card and CPU disagree {rel}")
+    del params
+    torch.cuda.empty_cache()
+
+    # the launcher's --fail-at restart, resuming from its checkpoint
+    restart_dir = os.path.join(ROOT, "build", "chip_smoke_restart")
+    shutil.rmtree(restart_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    res = train_cli.main(["--arch", TRAIN_ARCH, *TRAIN_RESTART_ARGS,
+                          "--ckpt-dir", restart_dir])
+    restart_s = time.perf_counter() - t0
+    shutil.rmtree(restart_dir, ignore_errors=True)
+    if res.start_step != 2 or res.steps_done != 3 or \
+            not np.isfinite(res.losses).all():
+        fail(f"launcher restart: resumed from step {res.start_step}, "
+             f"{res.steps_done} steps, losses {res.losses}")
+    log(f"launcher restart ({' '.join(TRAIN_RESTART_ARGS)}): failed at "
+        f"step 2, resumed from the step-2 checkpoint, finished 3 steps in "
+        f"{restart_s:.1f} s")
+    torch.cuda.empty_cache()
+    return counts, {"losses": losses, "grad_norms": norms, "step_s": walls,
+                    "peak_gib": peak, "free_gib_before": free / 2**30,
+                    "launches_per_step": want, "checkpoint_s": ckpt_s,
+                    "restore_s": restore_s, "resumed_loss": resumed_loss,
+                    "profile": prof, "fp32_vs_cpu": rel,
+                    "restart_s": restart_s}
+
+
+# ---------------------------------------------------------------------------
+# phase 15: gemma3-4b served at full width
+# ---------------------------------------------------------------------------
+G4_ARCH = "gemma3-4b"
+G4_LOGITS_PROMPT = 256
+
+
+def run_gemma3_4b_phase(torch, np):
+    """gemma3-4b at its published widths (34 layers, GQA 8 / 4, head dim
+    256, window 1024; bf16, weights from seed 0) on phase 4's traffic:
+    every serving kernel must launch (and neither the SSD, dense decode nor
+    the fp32 GEMM); a 256-token prompt's prefill logits against the CPU
+    plain path in fp32 (``FP32_LOGITS_LIMIT``) and by ``hold_bf16``."""
+    from repro_torch import kernels
+
+    engine, prompts, counts, _, s = serve_family(torch, np, G4_ARCH,
+                                                 SERVE_PROMPTS, SERVE_NEW)
+    if any(counts[k] <= 0 for k in kernels.SERVING_KERNELS) or \
+            counts["ssd"] or counts["decode_attention"] or \
+            counts["gemm[fp32]"]:
+        fail(f"{G4_ARCH} launch counts {counts}: want every serving kernel "
+             f"launched, no ssd, decode_attention or fp32 GEMM")
+    rng = np.random.default_rng(1)
+    prompt = rng.integers(0, engine.model_cfg.vocab,
+                          (G4_LOGITS_PROMPT,)).astype(np.int32)
+    t0 = time.perf_counter()
+    rel = check_prefill_logits(torch, engine, prompt, G4_ARCH,
+                               FP32_LOGITS_LIMIT[G4_ARCH])
+    log(f"{G4_ARCH} logits holds: {time.perf_counter() - t0:.1f} s")
+    del engine
+    torch.cuda.empty_cache()
+    return counts, {"summary": s, "logits_rel_l2": rel}
+
+
 def ptxas_summary(lines, names) -> str:
     """Per kernel name: its instantiations, their register range and the
     most spill bytes any of them has, from ``-Xptxas=-v`` lines (an entry
@@ -2939,6 +3416,19 @@ def main() -> int:
     moe_counts, moe_summary = run_moe_phase(torch, np)
     torch.cuda.empty_cache()
 
+    # 13. one fp32 training step of every arch at smoke size, card vs CPU
+    train_smoke = run_train_smoke_phase(torch, np)
+    torch.cuda.empty_cache()
+
+    # 14. gemma3-1b trained at full width (the training path's main run:
+    # counts zeroed inside)
+    train_counts, train_summary = run_train_phase(torch, np)
+    torch.cuda.empty_cache()
+
+    # 15. gemma3-4b served at full width
+    g4_counts, g4_summary = run_gemma3_4b_phase(torch, np)
+    torch.cuda.empty_cache()
+
     # the kernels line
     meta = {
         "gemm": ("csrc/gemm.cu", "src/repro/kernels/gemm.py:105"),
@@ -2962,6 +3452,7 @@ def main() -> int:
         "ssd": ("csrc/ssd.cu", "src/repro/kernels/mamba2.py:151"),
         "decode_attention": ("csrc/attention.cu",
                              "src/repro/kernels/attention.py:276"),
+        "gemm[bwd]": ("csrc/gemm.cu", "src/repro/kernels/gemm.py:105"),
     }
     line = []
     for name, (src, replaces) in meta.items():
@@ -2971,6 +3462,7 @@ def main() -> int:
                     ssm_counts if name in kernels.RECURRENT_KERNELS else
                     static_counts if name in kernels.STATIC_KERNELS else
                     moe_counts if name in kernels.MOE_KERNELS else
+                    train_counts if name in kernels.TRAIN_KERNELS else
                     counts)[name]
         if launches <= 0:
             fail(f"kernel {name}: no launch on its main path")
@@ -2998,7 +3490,10 @@ def main() -> int:
                    "static": static_summary,
                    "static_launches": static_counts,
                    "robust": robust, "moe": moe_summary,
-                   "moe_launches": moe_counts}, f, indent=1)
+                   "moe_launches": moe_counts, "train_smoke": train_smoke,
+                   "train": train_summary, "train_launches": train_counts,
+                   "gemma3_4b": g4_summary, "gemma3_4b_launches": g4_counts},
+                  f, indent=1)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,7 @@
-"""Architecture registry (port of ``repro.configs``) for the archs the
-port serves: the dense gemma3-1b, gemma2-2b and qwen1.5-4b, the recurrent
+"""Architecture registry (port of ``repro.configs``), every arch of the
+JAX package's: the dense gemma3-1b, gemma3-4b, gemma2-2b and qwen1.5-4b,
+the vision-language llava-next-34b (a dense backbone; its image tower is
+a stub that hands patch embeddings to the training forward), the recurrent
 mamba2-1.3b, the hybrid hymba-1.5b, the multi-codebook musicgen-medium and
 the MoE granite-moe-3b-a800m and llama4-scout-17b-a16e. ``get(name)``
 returns the full-size ModelConfig; ``get_smoke(name)`` the reduced
@@ -27,6 +29,11 @@ def get(name: str) -> ModelConfig:
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]()
+
+
+def names():
+    _ensure_loaded()
+    return sorted(_REGISTRY)
 
 
 def get_smoke(name: str) -> ModelConfig:
@@ -58,7 +65,8 @@ def _ensure_loaded():
     if _LOADED:
         return
     from repro_torch.configs import (gemma2_2b, gemma3_1b,  # noqa: F401
-                                     granite_moe_3b, hymba_1_5b,
-                                     llama4_scout, mamba2_1_3b,
-                                     musicgen_medium, qwen1_5_4b)
+                                     gemma3_4b, granite_moe_3b, hymba_1_5b,
+                                     llama4_scout, llava_next_34b,
+                                     mamba2_1_3b, musicgen_medium,
+                                     qwen1_5_4b)
     _LOADED = True

@@ -1,0 +1,4 @@
+from repro_torch.data.pipeline import (SyntheticLMConfig, SyntheticLM,
+                                       make_batch)
+
+__all__ = ["SyntheticLMConfig", "SyntheticLM", "make_batch"]

@@ -14,6 +14,8 @@ STATIC_KERNELS = ("decode_attention",)
 # The MoE serving path's own: its router is an fp32-input GEMM on every
 # engine config.
 MOE_KERNELS = ("gemm[fp32]",)
+# The training path's own: the engine GEMM's backward products.
+TRAIN_KERNELS = ("gemm[bwd]",)
 
 
 def launch_counters():
@@ -23,8 +25,9 @@ def launch_counters():
     engine path's (the int8, fp16 and int16 GEMMs in OS order, any GEMM
     in WS order, the mvout epilogue, the implicit-im2col conv per input
     datatype), the fp32 GEMM in OS order (the fp32 engine config's, and the
-    MoE router's on every config), the recurrent families' chunked SSD and
-    the static reference path's dense decode attention."""
+    MoE router's on every config), the GEMM's backward products on any
+    float datapath (the training path's), the recurrent families' chunked
+    SSD and the static reference path's dense decode attention."""
     import torch
 
     from repro_torch.kernels import attention, conv, gemm, mamba2
@@ -37,6 +40,7 @@ def launch_counters():
             "accumulator_epilogue": gemm.accumulator_epilogue,
             "conv2d_implicit": conv.conv2d_implicit,
             "gemm[fp32]": gemm.OS_COUNTS[torch.float32],
+            "gemm[bwd]": gemm.BWD_COUNT,
             "gemm[fp16]": gemm.OS_COUNTS[torch.float16],
             "gemm[int16]": gemm.OS_COUNTS[torch.int16],
             "conv2d_implicit[fp32]": conv.COUNTS[torch.float32],

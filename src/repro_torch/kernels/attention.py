@@ -7,9 +7,10 @@ CUDA tensors (or raises) and runs its plain version for CPU tensors;
 ``<wrapper>.launches`` counts kernel launches.
 
 The plain versions mirror the JAX package's XLA twins in
-``repro.models.attention``: ``blockwise_attention`` is
-``blockwise_attention_xla`` (online softmax over KV blocks clamped to a
-128-multiple of the key length), ``decode_attention_plain`` is the dense
+``repro.models.attention``: flash attention's is the model function
+``repro_torch.models.attention.blockwise_attention`` (the port of
+``blockwise_attention_xla``, which the training forward calls itself),
+``decode_attention_plain`` is the dense
 ``decode_attention`` (its default, repeat-GQA branch),
 ``paged_decode_attention_plain`` is ``paged_decode_attention_xla`` and
 ``paged_prefill_attention_plain`` is ``paged_prefill_attention_xla``.
@@ -29,8 +30,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.models.attention import NEG_INF, blockwise_attention
 
-NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 HEAD_DIMS = (16, 32, 64, 128, 256)
 _DT = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -41,65 +42,6 @@ _WORKSPACE: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
-def blockwise_attention(q, k, v, *, causal: bool = True,
-                        window: Optional[int] = None,
-                        softcap: Optional[float] = None,
-                        scale: Optional[float] = None, block_k: int = 1024,
-                        q_offset: Optional[int] = None,
-                        kv_len: Optional[int] = None) -> torch.Tensor:
-    """Online-softmax attention scanning KV blocks (``blockwise_attention_xla``).
-
-    q: (B, Tq, H, D), k/v: (B, Tk, KVH, D). ``q_offset``: global position
-    of query row 0 (default ``Tk - Tq``, right-aligned); ``kv_len``: live
-    keys (default ``Tk``); keys at or past it are masked and zeroed."""
-    b, tq, h, d = q.shape
-    _, tk, kvh, _ = k.shape
-    rep = h // kvh
-    sc = scale if scale is not None else 1.0 / math.sqrt(d)
-    dev = q.device
-    if q_offset is None:
-        q_offset = tk - tq
-    if kv_len is None:
-        kv_len = tk
-    live = (torch.arange(tk, device=dev) < kv_len)[None, :, None, None]
-    k = torch.where(live, k, torch.zeros((), dtype=k.dtype, device=dev))
-    v = torch.where(live, v, torch.zeros((), dtype=v.dtype, device=dev))
-    block_k = min(block_k, -(-max(tk, 1) // 128) * 128)
-    nb = -(-tk // block_k)
-    pad = nb * block_k - tk
-    if pad:
-        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
-        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
-
-    qf = q.to(torch.float32) * sc
-    qpos = torch.arange(tq, device=dev) + q_offset
-    m = torch.full((b, h, tq), NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((b, h, tq), dtype=torch.float32, device=dev)
-    acc = torch.zeros((b, h, tq, d), dtype=torch.float32, device=dev)
-    for i in range(nb):
-        kh = k[:, i * block_k:(i + 1) * block_k].repeat_interleave(rep, dim=2)
-        vh = v[:, i * block_k:(i + 1) * block_k].repeat_interleave(rep, dim=2)
-        s = torch.einsum("bqhd,bkhd->bhqk", qf, kh.to(torch.float32))
-        if softcap is not None:
-            s = softcap * torch.tanh(s / softcap)
-        kpos = i * block_k + torch.arange(block_k, device=dev)
-        mask = (kpos[None, :] <= kv_len - 1).expand(tq, block_k)
-        if causal:
-            mask = mask & (kpos[None, :] <= qpos[:, None])
-        if window is not None:
-            mask = mask & (kpos[None, :] > qpos[:, None] - window)
-        s = torch.where(mask[None, None], s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum(
-            "bhqk,bkhd->bhqd", p, vh.to(torch.float32))
-        m = m_new
-    out = acc / torch.clamp_min(l, 1e-37)[..., None]
-    return out.permute(0, 2, 1, 3).to(q.dtype)
-
-
 def decode_attention_plain(q, k, v, pos: int, *,
                            window: Optional[int] = None,
                            softcap: Optional[float] = None,

@@ -39,16 +39,37 @@ equals OS bit for bit on every datapath. Where the plan splits K, the
 call uses its stream's workspace (:func:`_workspace`), made once per
 stream and shared by every GEMM and conv on it.
 
+The gradient (:class:`_GemmGrad`, the training path's; the JAX kernels
+have none: JAX trains on XLA's dot). When an operand requires grad,
+:func:`gemm` runs the float datapath through a ``torch.autograd.Function``
+whose backward products run on the same kernels, fp32 accumulation, each
+output in its operand's dtype (JAX's grads take the parameter's dtype):
+``dA = dC @ B^T``, with B^T read through :func:`_b_layout` (no copy), and
+``dB = A^T @ dC``, or ``(dC^T @ A)^T`` where that copies fewer bytes (the
+kernel reads A row-major, so A^T or dC^T is made contiguous: M x K
+elements against M x N; the tied unembedding's dB, N = vocab, copies
+A); the bias's gradient is dC summed over rows in fp32. The output
+rounding passes the gradient straight through, as JAX's ``astype``
+transposes. A shift, an activation or an integer datapath has no
+derivative here and raises ``NotImplementedError`` under grad. On the CPU
+the same Function runs the plain versions; on the card it launches only
+kernels. :func:`gemm_tape` lets the training forward's ``dots`` remat
+policy keep the GEMM outputs instead of recomputing them.
+
 Launch counts, one per kernel of the ``kernels`` report:
 ``gemm.launches`` the bf16 kernel in OS order (the serving path's),
 ``gemm_os.launches`` the int8 kernel in OS order,
 ``OS_COUNTS[dtype].launches`` the fp32 / fp16 / int16 kernel in OS order,
 ``gemm_ws.launches`` any of them in WS order,
+``BWD_COUNT.launches`` either backward product, any float datapath
+(``gemm[bwd]``),
 ``accumulator_epilogue.launches``.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 from types import SimpleNamespace
 from typing import Dict, Optional, Tuple
@@ -201,9 +222,11 @@ def _check_int_shift(shift: int) -> None:
 
 def _gemm(a: torch.Tensor, b: torch.Tensor, d: Optional[torch.Tensor], *,
           acc_dtype: torch.dtype, out_dtype: torch.dtype, shift: int,
-          activation: Activation, ws: bool) -> torch.Tensor:
+          activation: Activation, ws: bool, bwd: bool = False
+          ) -> torch.Tensor:
     """The plain version for a CPU tensor; else the kernel of this datapath
-    in OS or WS order (or an error)."""
+    in OS or WS order (or an error). ``bwd``: a backward product, counted
+    in ``BWD_COUNT``."""
     if a.device.type == "cpu":
         return gemm_ref(a, b, d, acc_dtype=acc_dtype, out_dtype=out_dtype,
                         shift=shift, activation=activation)
@@ -274,7 +297,9 @@ def _gemm(a: torch.Tensor, b: torch.Tensor, d: Optional[torch.Tensor], *,
                  a.stride(0), ldb, trans, ldd, _DT[a.dtype], _DT[out_dtype],
                  _ACT[activation], scale, int(ws), stream, wsp)
     _build.check(err, "gemm_ws" if ws else "gemm")
-    if ws:
+    if bwd:
+        BWD_COUNT.launches += 1
+    elif ws:
         gemm_ws.launches += 1
     elif a.dtype == torch.int8:
         gemm_os.launches += 1
@@ -311,12 +336,105 @@ def gemm(a: torch.Tensor, b: torch.Tensor, d: Optional[torch.Tensor] = None,
          dataflow: Dataflow = Dataflow.OS) -> torch.Tensor:
     """Dispatch on a resolved dataflow (OS or WS; ``ctx.gemm`` resolves a
     BOTH instance's and refuses the other dataflow of a single-dataflow
-    one)."""
+    one). Under grad (an operand requires it) the call goes through
+    :class:`_GemmGrad`."""
     if dataflow is Dataflow.BOTH:
         raise ValueError("gemm: pass a resolved dataflow, OS or WS")
-    fn = gemm_ws if dataflow is Dataflow.WS else gemm_os
+    ws = dataflow is Dataflow.WS
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (a, b, d)):
+        if not acc_dtype.is_floating_point or shift or \
+                activation is not Activation.NONE:
+            raise NotImplementedError(
+                f"gemm: no gradient through acc {acc_dtype}, shift {shift}, "
+                f"activation {activation.name}; the training path runs the "
+                f"float datapath with neither")
+        return _GemmGrad.apply(a, b, d, acc_dtype, out_dtype, ws)
+    fn = gemm_ws if ws else gemm_os
     return fn(a, b, d, acc_dtype=acc_dtype, out_dtype=out_dtype, shift=shift,
               activation=activation)
+
+
+# The dots remat policy's record of GEMM outputs: ("record", list) while a
+# checkpointed block runs forward, ("replay", deque) while it is
+# recomputed; None otherwise.
+_TAPE: Optional[Tuple[str, collections.deque]] = None
+
+
+@contextlib.contextmanager
+def _taping(mode: str, tape: collections.deque):
+    global _TAPE
+    prev, _TAPE = _TAPE, (mode, tape)
+    try:
+        yield
+    finally:
+        _TAPE = prev
+
+
+def gemm_tape():
+    """A ``context_fn`` for ``torch.utils.checkpoint.checkpoint``: the
+    forward context records each differentiable GEMM's output, the
+    recompute context hands them back in order instead of launching (JAX's
+    ``dots_with_no_batch_dims_saveable``: the products are saved, the
+    elementwise work is recomputed)."""
+    tape: collections.deque = collections.deque()
+    return _taping("record", tape), _taping("replay", tape)
+
+
+def grad_a(dc: torch.Tensor, b: torch.Tensor,
+           dtype: torch.dtype) -> torch.Tensor:
+    """dA = dC @ B^T, fp32 sums, written in ``dtype``: B^T is read through
+    :func:`_b_layout` (a row-major weight is read transposed, the tied
+    unembedding's ``table.T`` row-major), so nothing is copied but a
+    non-contiguous dC."""
+    return _gemm(dc, b.t(), None, acc_dtype=torch.float32, out_dtype=dtype,
+                 shift=0, activation=Activation.NONE, ws=False, bwd=True)
+
+
+def grad_b(a: torch.Tensor, dc: torch.Tensor,
+           dtype: torch.dtype) -> torch.Tensor:
+    """dB = A^T @ dC, fp32 sums, written in ``dtype``. The kernel reads its
+    A operand row-major, so either A^T (M x K elements) or dC^T (M x N) is
+    copied: A^T @ dC where K <= N, else (dC^T @ A)^T."""
+    kw = dict(acc_dtype=torch.float32, out_dtype=dtype, shift=0,
+              activation=Activation.NONE, ws=False, bwd=True)
+    if a.shape[1] <= dc.shape[1]:
+        return _gemm(a.t(), dc, None, **kw)
+    return _gemm(dc.t(), a, None, **kw).t()
+
+
+class _GemmGrad(torch.autograd.Function):
+    """C = A @ B (+ D), fp32 accumulation, rounded to ``out_dtype``; the
+    backward products on the same kernels (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, a, b, d, acc_dtype, out_dtype, ws):
+        ctx.save_for_backward(a, b)
+        ctx.d_shape = None if d is None else (d.shape, d.dtype)
+        if _TAPE is not None and _TAPE[0] == "replay" and _TAPE[1]:
+            return _TAPE[1].popleft()
+        c = _gemm(a, b, d, acc_dtype=acc_dtype, out_dtype=out_dtype,
+                  shift=0, activation=Activation.NONE, ws=ws)
+        if _TAPE is not None and _TAPE[0] == "record":
+            _TAPE[1].append(c.detach())
+        return c
+
+    @staticmethod
+    def backward(ctx, dc):
+        a, b = ctx.saved_tensors
+        need_a, need_b, need_d = ctx.needs_input_grad[:3]
+        # the output rounding transposes to a cast; widening is exact
+        dc = dc.to(a.dtype)
+        da = grad_a(dc, b, a.dtype) if need_a else None
+        db = grad_b(a, dc, b.dtype) if need_b else None
+        dd = None
+        if need_d:
+            shape, dtype = ctx.d_shape
+            if len(shape) == 2 and shape[0] == dc.shape[0] and shape[0] > 1:
+                dd = dc.to(dtype)
+            else:
+                dd = dc.to(torch.float32).sum(0).reshape(shape).to(dtype)
+        return da, db, dd, None, None, None
 
 
 def accumulator_epilogue(acc: torch.Tensor, *, out_dtype: torch.dtype,
@@ -367,3 +485,6 @@ accumulator_epilogue.launches = 0
 OS_COUNTS = {torch.float32: SimpleNamespace(launches=0),
              torch.float16: SimpleNamespace(launches=0),
              torch.int16: SimpleNamespace(launches=0)}
+# Either backward product of :class:`_GemmGrad`, on any float datapath (the
+# kernels report names it gemm[bwd]).
+BWD_COUNT = SimpleNamespace(launches=0)

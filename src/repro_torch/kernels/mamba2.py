@@ -4,8 +4,10 @@ Replaces ``repro.kernels.mamba2.ssd``. ``ssd`` launches the CUDA kernel for
 CUDA tensors (or raises) and runs ``ssd_plain`` for CPU tensors;
 ``ssd.launches`` counts the calls that launched it.
 
-``ssd_plain`` is the JAX package's XLA route, ``repro.models.ssm``'s
-``ssd_chunked_xla`` plus ``_final_state``: per chunk of ``q = min(chunk,
+``ssd_plain`` is the JAX package's XLA route: the model function
+``repro_torch.models.ssm.ssd_chunked`` (the port of ``ssd_chunked_xla``,
+which the training forward calls itself) plus ``_final_state``: per chunk
+of ``q = min(chunk,
 T)`` tokens an intra-chunk term ``(C B^T * L * dt) @ X`` with the decay
 matrix ``L[i, j] = exp(seg_i - seg_j)`` masked before the exponential, a
 carried-state term ``exp(seg) * (C @ S)``, the ``d_skip * x`` residual and
@@ -31,6 +33,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.models.ssm import ssd_chunked
 
 P_DIMS = (8, 16, 32, 64)        # head dims the kernel is compiled for
 N_MAX = 128                     # largest state size it holds
@@ -43,62 +46,6 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # ---------------------------------------------------------------------------
 # plain version
 # ---------------------------------------------------------------------------
-def _ssd_chunked(x, dt, a_log, b, c, *, d_skip=None, chunk: int = 256,
-                 initial_state=None) -> torch.Tensor:
-    """``ssd_chunked_xla``: y (B, T, H, P) in x's dtype."""
-    bsz, t, h, p = x.shape
-    g, n = b.shape[2], b.shape[3]
-    hpg = h // g
-    q = min(chunk, t)
-    pad = (-t) % q
-    f32 = torch.float32
-    xf, dtf = x.to(f32), dt.to(f32)
-    bf, cf = b.to(f32), c.to(f32)
-    if pad:
-        xf = torch.nn.functional.pad(xf, (0, 0, 0, 0, 0, pad))
-        dtf = torch.nn.functional.pad(dtf, (0, 0, 0, pad))
-        bf = torch.nn.functional.pad(bf, (0, 0, 0, 0, 0, pad))
-        cf = torch.nn.functional.pad(cf, (0, 0, 0, 0, 0, pad))
-    tt = t + pad
-    nc = tt // q
-
-    a = -torch.exp(a_log.to(f32))
-    xf = xf.reshape(bsz, nc, q, h, p)
-    dtf = dtf.reshape(bsz, nc, q, h)
-    bf = bf.reshape(bsz, nc, q, g, n).repeat_interleave(hpg, dim=3)
-    cf = cf.reshape(bsz, nc, q, g, n).repeat_interleave(hpg, dim=3)
-
-    seg = torch.cumsum(dtf * a, dim=2)                         # inclusive
-    # L[i, j] = exp(seg_i - seg_j) for i >= j: masked BEFORE exp, so the
-    # i < j branch (a positive exponent) never overflows.
-    li = seg[:, :, :, None, :] - seg[:, :, None, :, :]         # (B,nc,Qi,Qj,H)
-    tri = torch.tril(torch.ones((q, q), dtype=torch.bool,
-                                device=x.device))[None, None, :, :, None]
-    zero = torch.zeros((), dtype=f32, device=x.device)
-    ldec = torch.where(tri, torch.exp(torch.where(tri, li, zero)), zero)
-
-    scores = torch.einsum("bcihn,bcjhn->bcijh", cf, bf)
-    y_diag = torch.einsum("bcijh,bcjh,bcjhp->bcihp", scores * ldec, dtf, xf)
-
-    decay_to_end = torch.exp(seg[:, :, -1:, :] - seg)          # (B,nc,Q,H)
-    s_chunk = torch.einsum("bcjh,bcjh,bcjhn,bcjhp->bchnp",
-                           decay_to_end, dtf, bf, xf)          # (B,nc,H,N,P)
-    chunk_decay = torch.exp(seg[:, :, -1, :])                  # (B,nc,H)
-
-    state = torch.zeros((bsz, h, n, p), dtype=f32, device=x.device) \
-        if initial_state is None else initial_state.to(f32)
-    y_off = []
-    for ci in range(nc):
-        y_off.append(torch.einsum("bihn,bhnp,bih->bihp", cf[:, ci], state,
-                                  torch.exp(seg[:, ci])))
-        state = state * chunk_decay[:, ci, :, None, None] + s_chunk[:, ci]
-    y = y_diag + torch.stack(y_off, dim=1)                     # (B,nc,Q,H,P)
-    y = y.reshape(bsz, tt, h, p)[:, :t]
-    if d_skip is not None:
-        y = y + d_skip[None, None, :, None] * x.to(f32)
-    return y.to(x.dtype)
-
-
 def _final_state(x, dt, a_log, b, initial_state=None) -> torch.Tensor:
     """``repro.models.ssm._final_state``: the (B, H, N, P) fp32 state after
     the sequence; ``initial_state`` decays by the whole segment."""
@@ -123,7 +70,7 @@ def ssd_plain(x, dt, a_log, b, c, *, d_skip=None, chunk: int = 256,
     (B, T, G, N), head h on group h // (H // G); ``initial_state`` (B, H,
     N, P) fp32 or None (zeros). Returns y (B, T, H, P) in x's dtype [and the
     final (B, H, N, P) fp32 state]. Sums run in fp32."""
-    y = _ssd_chunked(x, dt, a_log, b, c, d_skip=d_skip, chunk=chunk,
+    y = ssd_chunked(x, dt, a_log, b, c, d_skip=d_skip, chunk=chunk,
                      initial_state=initial_state)
     if not return_final_state:
         return y

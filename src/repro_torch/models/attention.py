@@ -1,6 +1,8 @@
-"""KV caches and the attention op routers (port of the serving half of
-``repro.models.attention``): the paged cache of the serving engine and the
-dense cache of the static reference path.
+"""KV caches, the attention op routers and the training path's
+blockwise attention (port of ``repro.models.attention``): the paged cache
+of the serving engine, the dense cache of the static reference path, and
+:func:`blockwise_attention`, the model function the training forward
+differentiates.
 
 Both caches are updated in place (``index_put_`` through advanced indexing,
 slice assignment): a pool is the serving engine's whole KV arena and a dense
@@ -11,9 +13,12 @@ beside their kernels in ``repro_torch.kernels.attention``.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
+
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 
 class KVCache(NamedTuple):
@@ -30,6 +35,75 @@ def update_cache(cache: KVCache, k_new, v_new, pos: int) -> KVCache:
     cache.k[:, pos:pos + t] = k_new.to(cache.k.dtype)
     cache.v[:, pos:pos + t] = v_new.to(cache.v.dtype)
     return cache
+
+
+def blockwise_attention(q, k, v, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        softcap: Optional[float] = None,
+                        scale: Optional[float] = None, block_k: int = 1024,
+                        q_offset: Optional[int] = None,
+                        kv_len: Optional[int] = None) -> torch.Tensor:
+    """Online-softmax attention scanning KV blocks: the port of
+    ``repro.models.attention.blockwise_attention_xla``, the same blocking
+    (``block_k`` keys clamped to a 128-multiple of the key length), online
+    softmax, causal mask, window, softcap and GQA.
+
+    q: (B, Tq, H, D), k/v: (B, Tk, KVH, D). ``q_offset``: global position
+    of query row 0 (default ``Tk - Tq``, right-aligned); ``kv_len``: live
+    keys (default ``Tk``); keys at or past it are masked and zeroed.
+
+    Autograd differentiates it, so it is the training forward's attention
+    (``transformer.forward`` calls it, not :func:`attn_op`): the JAX
+    package trains on this XLA route on every backend, because its Pallas
+    flash kernel has no VJP (``repro/models/transformer.py:518-524``). It
+    is also the plain version the flash kernels are held against
+    (``repro_torch.kernels.attention``)."""
+    b, tq, h, d = q.shape
+    _, tk, kvh, _ = k.shape
+    rep = h // kvh
+    sc = scale if scale is not None else 1.0 / math.sqrt(d)
+    dev = q.device
+    if q_offset is None:
+        q_offset = tk - tq
+    if kv_len is None:
+        kv_len = tk
+    live = (torch.arange(tk, device=dev) < kv_len)[None, :, None, None]
+    k = torch.where(live, k, torch.zeros((), dtype=k.dtype, device=dev))
+    v = torch.where(live, v, torch.zeros((), dtype=v.dtype, device=dev))
+    block_k = min(block_k, -(-max(tk, 1) // 128) * 128)
+    nb = -(-tk // block_k)
+    pad = nb * block_k - tk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+
+    qf = q.to(torch.float32) * sc
+    qpos = torch.arange(tq, device=dev) + q_offset
+    m = torch.full((b, h, tq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, h, tq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, h, tq, d), dtype=torch.float32, device=dev)
+    for i in range(nb):
+        kh = k[:, i * block_k:(i + 1) * block_k].repeat_interleave(rep, dim=2)
+        vh = v[:, i * block_k:(i + 1) * block_k].repeat_interleave(rep, dim=2)
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kh.to(torch.float32))
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        kpos = i * block_k + torch.arange(block_k, device=dev)
+        mask = (kpos[None, :] <= kv_len - 1).expand(tq, block_k)
+        if causal:
+            mask = mask & (kpos[None, :] <= qpos[:, None])
+        if window is not None:
+            mask = mask & (kpos[None, :] > qpos[:, None] - window)
+        s = torch.where(mask[None, None], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p, vh.to(torch.float32))
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-37)[..., None]
+    return out.permute(0, 2, 1, 3).to(q.dtype)
 
 
 def decode_attention(ctx, q, cache: KVCache, pos: int, *, window=None,

@@ -27,8 +27,11 @@ order, so bf16 results can be held against it:
 
 Groups = 1 only: the JAX module's grouped dispatch (``_dispatch_grid``,
 the ``moe_grouped_dispatch`` flag) needs a device mesh and comes with the
-multi-device port (ROADMAP A15). ``aux_load_balance_loss`` is training
-only and comes with the training forward (ROADMAP A10).
+multi-device port (ROADMAP A15). The training forward calls
+:func:`moe_apply` with the capacity bound (``dropless=False``) and
+differentiates it: the gate weights, the dispatch's row writes and the
+expert products all carry gradients, as the JAX module's do.
+:func:`aux_load_balance_loss` is the Switch-style auxiliary loss.
 
 Cost: serving is dropless (capacity = tokens), so the expert products run
 every slot over every token row, padded slots included: for granite 48
@@ -100,22 +103,12 @@ def route(ctx, p: Params, x: torch.Tensor, *, n_experts: int,
                                   stable=True)
     gate_w, gate_idx = gate_w[:, :top_k], gate_idx[:, :top_k]
     if top_k == 1:
-        weights = _sigmoid(gate_w)
+        weights = layers.sigmoid(gate_w)
     else:
         # jax.nn.softmax's ops, each rounded at the logits' dtype
         u = torch.exp(gate_w - gate_w.amax(dim=-1, keepdim=True))
         weights = u / u.sum(dim=-1, keepdim=True)
     return weights.to(x.dtype), gate_idx
-
-
-def _sigmoid(v: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.sigmoid`` as XLA expands it: 1 / (1 + exp(-v)), each op
-    rounded at v's dtype (``torch.sigmoid`` rounds once, so bf16 results
-    differ in a third of the values)."""
-    return 1.0 / (1.0 + torch.exp(-v))
-
-
-_ACTS = {"silu": lambda v: v * _sigmoid(v), "gelu": layers._ACTS["gelu"]}
 
 
 def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -165,7 +158,7 @@ def moe_apply(ctx, p: Params, x: torch.Tensor, *, n_experts: int,
     expert_in = buf[:-1].reshape(e_pad, capacity, d)
 
     # expert FFNs: fp32 sums, the gated product rounded to x's dtype
-    act = _ACTS[activation]
+    act = layers._ACTS[activation]
     h = _bmm_f32(expert_in, p["wi"])
     g = _bmm_f32(expert_in, p["wg"])
     h = (act(g) * h).to(x.dtype)
@@ -185,3 +178,16 @@ def moe_apply(ctx, p: Params, x: torch.Tensor, *, n_experts: int,
     if "shared" in p:
         y = y + layers.mlp_apply(ctx, p["shared"], x, activation=activation)
     return y
+
+
+def aux_load_balance_loss(logits: torch.Tensor, gate_idx: torch.Tensor,
+                          n_experts: int, top_k: int) -> torch.Tensor:
+    """Switch-style auxiliary loss: E * sum(f_e * p_e), f_e the share of
+    the choices ``gate_idx`` sends to expert e, p_e its mean router
+    probability over the tokens (logits (N, e_pad), padded slots -inf)."""
+    probs = torch.softmax(logits, dim=-1)[..., :n_experts]
+    counts = torch.bincount(gate_idx.reshape(-1),
+                            minlength=n_experts)[:n_experts].to(torch.float32)
+    f = counts / counts.sum()
+    pm = probs.mean(dim=0)
+    return n_experts * torch.sum(f * pm)

@@ -5,7 +5,8 @@ heads H of dim P, state size N and G B/C groups (grouped like GQA). The
 chunked SSD runs through ``ctx.ssd``: the CUDA kernel on a card, its plain
 version on the CPU. A one-token step (decode) is the recurrence itself in
 plain torch ops on either device, as in the JAX package, where it has no
-kernel either. The train route (no cache) takes the plain chunked SSD.
+kernel either. The train route (no cache) takes :func:`ssd_chunked`, the
+port of the JAX model function ``ssd_chunked_xla``.
 """
 
 from __future__ import annotations
@@ -16,7 +17,6 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import mamba2
 from repro_torch.models import layers
 
 Params = Dict[str, Any]
@@ -66,6 +66,72 @@ def _split_in_proj(zxbcdt, d_inner, n_groups, d_state, n_heads):
     c = zxbcdt[..., splits[2]:splits[3]]
     dt = zxbcdt[..., splits[3]:]
     return z, x, b, c, dt
+
+
+def ssd_chunked(x, dt, a_log, b, c, *, d_skip=None, chunk: int = 256,
+                initial_state=None) -> torch.Tensor:
+    """The port of ``repro.models.ssm.ssd_chunked_xla``, op for op: x (B,
+    T, H, P), dt (B, T, H), a_log (H,), b / c (B, T, G, N) -> y (B, T, H,
+    P) in x's dtype. ``initial_state`` (B, H, N, P) fp32 resumes a previous
+    segment; None starts from zeros.
+
+    Autograd differentiates it (the decay matrix is masked before its
+    exponential, so the backward never meets inf * 0), so it is the
+    training forward's SSD: the JAX package trains on this route on every
+    backend, because its Pallas SSD kernel has no VJP
+    (``repro/models/ssm.py:211-217``). It is also the plain version the SSD
+    kernels are held against (``repro_torch.kernels.mamba2.ssd_plain``)."""
+    bsz, t, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    hpg = h // g
+    q = min(chunk, t)
+    pad = (-t) % q
+    f32 = torch.float32
+    xf, dtf = x.to(f32), dt.to(f32)
+    bf, cf = b.to(f32), c.to(f32)
+    if pad:
+        xf = torch.nn.functional.pad(xf, (0, 0, 0, 0, 0, pad))
+        dtf = torch.nn.functional.pad(dtf, (0, 0, 0, pad))
+        bf = torch.nn.functional.pad(bf, (0, 0, 0, 0, 0, pad))
+        cf = torch.nn.functional.pad(cf, (0, 0, 0, 0, 0, pad))
+    tt = t + pad
+    nc = tt // q
+
+    a = -torch.exp(a_log.to(f32))
+    xf = xf.reshape(bsz, nc, q, h, p)
+    dtf = dtf.reshape(bsz, nc, q, h)
+    bf = bf.reshape(bsz, nc, q, g, n).repeat_interleave(hpg, dim=3)
+    cf = cf.reshape(bsz, nc, q, g, n).repeat_interleave(hpg, dim=3)
+
+    seg = torch.cumsum(dtf * a, dim=2)                         # inclusive
+    # L[i, j] = exp(seg_i - seg_j) for i >= j: masked BEFORE exp, so the
+    # i < j branch (a positive exponent) never overflows.
+    li = seg[:, :, :, None, :] - seg[:, :, None, :, :]         # (B,nc,Qi,Qj,H)
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool,
+                                device=x.device))[None, None, :, :, None]
+    zero = torch.zeros((), dtype=f32, device=x.device)
+    ldec = torch.where(tri, torch.exp(torch.where(tri, li, zero)), zero)
+
+    scores = torch.einsum("bcihn,bcjhn->bcijh", cf, bf)
+    y_diag = torch.einsum("bcijh,bcjh,bcjhp->bcihp", scores * ldec, dtf, xf)
+
+    decay_to_end = torch.exp(seg[:, :, -1:, :] - seg)          # (B,nc,Q,H)
+    s_chunk = torch.einsum("bcjh,bcjh,bcjhn,bcjhp->bchnp",
+                           decay_to_end, dtf, bf, xf)          # (B,nc,H,N,P)
+    chunk_decay = torch.exp(seg[:, :, -1, :])                  # (B,nc,H)
+
+    state = torch.zeros((bsz, h, n, p), dtype=f32, device=x.device) \
+        if initial_state is None else initial_state.to(f32)
+    y_off = []
+    for ci in range(nc):
+        y_off.append(torch.einsum("bihn,bhnp,bih->bihp", cf[:, ci], state,
+                                  torch.exp(seg[:, ci])))
+        state = state * chunk_decay[:, ci, :, None, None] + s_chunk[:, ci]
+    y = y_diag + torch.stack(y_off, dim=1)                     # (B,nc,Q,H,P)
+    y = y.reshape(bsz, tt, h, p)[:, :t]
+    if d_skip is not None:
+        y = y + d_skip[None, None, :, None] * x.to(f32)
+    return y.to(x.dtype)
 
 
 def ssd_decode_step(state, x_t, dt_t, a_log, b_t, c_t, *, d_skip=None):
@@ -126,8 +192,10 @@ def mamba2_apply(ctx, p: Params, u: torch.Tensor, *, d_inner: int,
                                  return_final_state=True)
         new_cache = SSMCache(new_conv, final_state)
     else:
-        y = mamba2.ssd_plain(xh, dt, p["a_log"], bh, ch, d_skip=p["d_skip"],
-                             chunk=chunk)
+        # Train / forward route: the chunked model function, as the JAX
+        # package's on every backend (its SSD kernel has no VJP).
+        y = ssd_chunked(xh, dt, p["a_log"], bh, ch, d_skip=p["d_skip"],
+                        chunk=chunk)
         new_cache = None
 
     y = y.reshape(bsz, t, d_inner)

@@ -1,13 +1,14 @@
-"""Decoder stack for serving (port of the serving paths of
-``repro.models.transformer``): the paged entries of the continuous-batching
-engine and the static reference path (one dense KV cache).
+"""Decoder stack (port of ``repro.models.transformer``): the paged entries
+of the continuous-batching engine, the static reference path (one dense KV
+cache) and the training forward and loss (:func:`forward`,
+:func:`loss_fn`).
 
 The families are dense (incl. musicgen's summed codebook embeddings and
 per-codebook heads), moe (attention, then a routed expert FFN:
-:mod:`repro_torch.models.moe`, dropless on every entry here, since each
-serves), ssm (Mamba-2 blocks, no attention) and hybrid (hymba: attention
-and Mamba-2 side by side in every block, meta tokens in front of the
-prompt). Another family raises ``NotImplementedError``.
+:mod:`repro_torch.models.moe`, dropless on every serving entry, capacity
+bound in training), ssm (Mamba-2 blocks, no attention) and hybrid
+(hymba: attention and Mamba-2 side by side in every block, meta tokens in
+front of the prompt). Another family raises ``NotImplementedError``.
 
 The parameter tree is the JAX package's: per-layer weights stacked along a
 leading ``L`` axis, the same names, the same (d_in, d_out) layout, so
@@ -25,7 +26,10 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
+from repro_torch.core import flags
+from repro_torch.kernels import gemm as gemm_kernel
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, moe, ssm
 
@@ -95,6 +99,30 @@ class ModelConfig:
     @property
     def conv_dim(self) -> int:
         return self.d_inner + 2 * self.ssm_groups * self.d_state
+
+    def param_count(self) -> int:
+        """Analytic parameter count (for MODEL_FLOPS roofline terms)."""
+        d, l = self.d_model, self.n_layers
+        n = self.vocab * d * self.n_codebooks          # embed
+        if not self.tie_embeddings or self.n_codebooks > 1:
+            n += self.vocab * d * self.n_codebooks     # unembed heads
+        per_layer = 0
+        if self.has_attn:
+            per_layer += d * (self.n_heads + 2 * self.n_kv_heads) * \
+                self.head_dim + self.n_heads * self.head_dim * d
+        if self.has_ssm:
+            in_dim = 2 * self.d_inner + 2 * self.ssm_groups * self.d_state \
+                + self.n_ssm_heads
+            per_layer += d * in_dim + self.d_inner * d
+        if self.family == "moe":
+            e = self.n_experts
+            per_layer += d * e                                   # router
+            per_layer += 3 * d * self.moe_d_ff * e               # experts
+            if self.n_shared_experts:
+                per_layer += 3 * d * self.moe_d_ff * self.n_shared_experts
+        elif self.family in ("dense", "hybrid") and self.d_ff:
+            per_layer += 3 * d * self.d_ff
+        return n + l * per_layer
 
 
 def _require_ported(cfg: ModelConfig) -> None:
@@ -221,11 +249,11 @@ def _attn_branch(ctx, cfg: ModelConfig, bp: Params, h: torch.Tensor,
                  cache, cache_pos: Optional[int] = None,
                  prefill_start: Optional[int] = None,
                  kv_pages: Optional[int] = None):
-    """window: static int, 0 = global. ``cache``: a paged
-    :class:`attn.PagedKVCache` (the engine) or a dense :class:`attn.KVCache`
-    written at ``cache_pos`` (the static path). ``prefill_start``: cache
-    position of a continuation chunk's first token (None = fresh prefill
-    or decode). Returns (out, cache)."""
+    """window: static int, 0 = global. ``cache``: None (the training
+    forward), a paged :class:`attn.PagedKVCache` (the engine) or a dense
+    :class:`attn.KVCache` written at ``cache_pos`` (the static path).
+    ``prefill_start``: cache position of a continuation chunk's first
+    token (None = fresh prefill or decode). Returns (out, cache)."""
     b, t, _ = h.shape
     p = bp["attn"]
     q = layers.project(ctx, h, p["wq"], p.get("bq")).reshape(
@@ -240,7 +268,13 @@ def _attn_branch(ctx, cfg: ModelConfig, bp: Params, h: torch.Tensor,
     q = layers.rope(q, positions, base=rope_base)
     k = layers.rope(k, positions, base=rope_base)
 
-    if isinstance(cache, attn.KVCache):
+    if cache is None:
+        # the training forward: the differentiable model function, not the
+        # flash kernel (``attn.blockwise_attention``)
+        o = attn.blockwise_attention(q, k, v, causal=True,
+                                     window=window or None,
+                                     softcap=cfg.attn_softcap)
+    elif isinstance(cache, attn.KVCache):
         cache = attn.update_cache(cache, k, v, cache_pos)
         if t == 1:
             o = attn.decode_attention(ctx, q, cache, cache_pos, window=window,
@@ -307,15 +341,16 @@ def _block_apply(ctx, cfg: ModelConfig, bp: Params, h: torch.Tensor,
     if "moe" in bp or "mlp" in bp:
         x2 = layers.rmsnorm(h, bp["ln2"])
         if "moe" in bp:
-            # Every entry of this module serves (a KV cache is always
-            # given), so the JAX package's ``serving`` test is true: no
-            # token is dropped.
+            # The JAX package's ``serving`` test: an entry with a cache
+            # serves and drops no token; the training forward (no cache)
+            # keeps the capacity bound.
+            serving = kv_cache is not None or ssm_cache is not None
             f = moe.moe_apply(ctx, bp["moe"], x2, n_experts=cfg.n_experts,
                               top_k=cfg.top_k,
                               capacity_factor=cfg.capacity_factor,
                               activation=cfg.activation,
                               router_weights_before=cfg.router_weights_before,
-                              dropless=True)
+                              dropless=serving)
         else:
             f = layers.mlp_apply(ctx, bp["mlp"], x2,
                                  activation=cfg.activation)
@@ -336,13 +371,18 @@ def _embed_tokens(cfg: ModelConfig, params: Params,
                               scale_by_sqrt_dim=cfg.embed_scale)
 
 
-def embed_inputs(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
+def embed_inputs(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                 extra_embeds: Optional[torch.Tensor] = None, *,
                  with_meta: bool = True) -> torch.Tensor:
-    """Token embeddings with hymba's meta tokens in front; ``with_meta=
-    False`` leaves them out (a continuation chunk: the meta tokens live at
-    cache positions [0, n_meta))."""
+    """Token embeddings, the ``extra_embeds`` (B, Ti, D) prefix (precomputed
+    VLM patch or audio-frame embeddings, the frontend stub) in front of
+    them, then hymba's meta tokens in front of all, in the JAX package's
+    order; ``with_meta=False`` leaves the meta tokens out (a continuation
+    chunk: they live at cache positions [0, n_meta))."""
     _require_ported(cfg)
     h = _embed_tokens(cfg, params, tokens)
+    if extra_embeds is not None:
+        h = torch.cat([extra_embeds.to(h.dtype), h], dim=1)
     if cfg.n_meta_tokens and with_meta:
         meta = params["meta_tokens"][None].expand(
             h.shape[0], cfg.n_meta_tokens, cfg.d_model)
@@ -365,6 +405,86 @@ def unembed(ctx, cfg: ModelConfig, params: Params,
     if cfg.final_softcap:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits
+
+
+# ---------------------------------------------------------------------------
+# full forward (train / prefill) and the loss
+# ---------------------------------------------------------------------------
+def _unbound_blocks(params: Params, n_layers: int):
+    """Per-layer block trees from one ``unbind`` of each stacked leaf.
+    Autograd then stacks the layers' gradients once per leaf
+    (``UnbindBackward``), where a ``select`` per layer would write each
+    layer's gradient into a zeroed copy of the whole stack."""
+    def split(node):
+        if isinstance(node, dict):
+            return {k: split(v) for k, v in node.items()}
+        return node.unbind(0)
+
+    def take(node, i):
+        if isinstance(node, dict):
+            return {k: take(v, i) for k, v in node.items()}
+        return node[i]
+    parts = split(params["blocks"])
+    return [take(parts, i) for i in range(n_layers)]
+
+
+def forward(ctx, params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            extra_embeds: Optional[torch.Tensor] = None, *,
+            remat: bool = False) -> torch.Tensor:
+    """The training (and whole-sequence) forward: tokens (B, T) [or (B, T,
+    n_q)], ``extra_embeds`` (B, Ti, D) or None -> fp32 logits over every
+    position (prefix and meta tokens included), as the JAX ``forward``.
+
+    Layers run in a Python loop with static windows and rope bases.
+    Attention is :func:`attn.blockwise_attention` and the SSD
+    :func:`ssm.ssd_chunked`, the model functions autograd differentiates
+    (the JAX package keeps training off its Pallas kernels for want of a
+    VJP, ``repro/models/transformer.py:518-524``); every projection runs
+    the engine GEMM, whose backward products run on the same kernels
+    (``kernels.gemm._GemmGrad``). A MoE block keeps its capacity bound.
+
+    ``remat``: each block under ``torch.utils.checkpoint`` (non-reentrant),
+    by ``flags.get("remat_policy")``: ``full`` saves nothing and recomputes
+    the block in the backward, ``dots`` saves the engine GEMMs' outputs
+    (``gemm_kernel.gemm_tape``) and recomputes the rest, ``none`` saves
+    everything (no checkpoint)."""
+    _require_ported(cfg)
+    h = embed_inputs(cfg, params, tokens, extra_embeds)
+    b, t, _ = h.shape
+    positions = torch.arange(t, device=h.device)[None].expand(b, t)
+    win, bases = layer_windows(cfg), layer_rope_bases(cfg)
+    policy = flags.get("remat_policy") if remat else "none"
+    ckpt_kw = dict(use_reentrant=False)
+    if policy == "dots":
+        ckpt_kw["context_fn"] = gemm_kernel.gemm_tape
+    for i, bp in enumerate(_unbound_blocks(params, cfg.n_layers)):
+        def body(h, bp=bp, window=int(win[i]), base=float(bases[i])):
+            return _block_apply(ctx, cfg, bp, h, positions, window, base)[0]
+        if policy == "none":
+            h = body(h)
+        else:
+            h = torch.utils.checkpoint.checkpoint(body, h, **ckpt_kw)
+    return unembed(ctx, cfg, params, h)
+
+
+def loss_fn(ctx, params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            labels: torch.Tensor, extra_embeds: Optional[torch.Tensor] = None,
+            **fwd_kw) -> torch.Tensor:
+    """Next-token cross-entropy (fp32 scalar); labels == -100 are masked.
+    The prefix and meta positions carry no loss; with codebooks the loss
+    averages over every codebook's targets."""
+    logits = forward(ctx, params, cfg, tokens, extra_embeds, **fwd_kw)
+    if extra_embeds is not None:       # prefix positions carry no loss
+        logits = logits[:, extra_embeds.shape[1]:]
+    if cfg.n_meta_tokens:
+        logits = logits[:, cfg.n_meta_tokens:]
+    logits = logits[:, :-1]            # (B, T-1, V) or (B, T-1, n_q, V)
+    tgt = labels[:, 1:].long()
+    mask = (tgt >= 0).to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, tgt.clamp_min(0)[..., None])[..., 0]
+    nll = (lse - ll) * mask
+    return nll.sum() / torch.clamp_min(mask.sum(), 1.0)
 
 
 def _layers(cfg: ModelConfig, params: Params):

@@ -2060,3 +2060,73 @@ def test_moe_apply_on_card(card, top_k, shared):
     g, w = got[0].float().cpu()[same], cpu[0].float()[same]
     assert torch.isfinite(g).all()
     assert ((g - w).norm() / w.norm()).item() <= 2.0 ** -7
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n,b_trans", [(37, 45, 29, False),
+                                           (37, 45, 29, True),
+                                           (4096, 1152, 6912, False)])
+def test_gemm_backward_matches_plain(card, dtype, m, k, n, b_trans):
+    """The engine GEMM under grad (a bias row on the D input): dA and dB
+    launch the kernels (``gemm[bwd]`` counts two launches) and equal the
+    plain versions of the same products on the card, by the dtype's rule;
+    the bias's gradient is dC's fp32 row sum. A small ragged shape with B
+    row-major and read transposed (the tied unembedding's layout), and
+    gemma3-1b's wi at the training phase's 4 x 1024 token rows."""
+    g = torch.Generator(device=card).manual_seed(m + n)
+    a = torch.randn((m, k), generator=g, device=card).to(dtype)
+    b = (torch.randn((n, k), generator=g, device=card) * k ** -0.5
+         ).to(dtype)
+    b = b.T if b_trans else b.T.contiguous()
+    d = torch.randn((n,), generator=g, device=card).to(dtype)
+    dc = (torch.randn((m, n), generator=g, device=card) * 1e-2).to(dtype)
+    leaves = [x.clone().requires_grad_(True) for x in (a, b, d)]
+    n0 = tgemm.BWD_COUNT.launches
+    c = tgemm.gemm(*leaves, acc_dtype=torch.float32, out_dtype=dtype)
+    c.backward(dc)
+    torch.cuda.synchronize()
+    assert tgemm.BWD_COUNT.launches == n0 + 2
+    kw = dict(acc_dtype=torch.float32, out_dtype=dtype)
+    _close(leaves[0].grad, gemm_ref(dc, b.t(), None, **kw), dtype)
+    _close(leaves[1].grad, gemm_ref(a.t(), dc, None, **kw), dtype)
+    _close(leaves[2].grad, dc.float().sum(0).to(dtype), dtype)
+    assert [x.grad.dtype for x in leaves] == [dtype] * 3
+
+
+def test_smoke_train_step_matches_cpu(card):
+    """One fp32 training step of smoke gemma3-1b on the card and on the
+    CPU from the same weights and batch: loss within 1e-5 relative, every
+    gradient leaf within 1e-4 relative L2 (the kernels and the CPU sum in
+    other orders), and the card launched the fp32 GEMM and its backward
+    products (``remat`` recomputes each block: 7 more a layer)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.core import tree as tu
+    from repro_torch.core.config import GemminiConfig
+    from repro_torch.core.context import ExecutionContext
+    from repro_torch.launch import steps
+
+    cfg = dataclasses.replace(configs.get_smoke("gemma3-1b"),
+                              dtype=torch.float32)
+    ctx = ExecutionContext(cfg=GemminiConfig(
+        input_dtype="fp32", acc_dtype="fp32", output_dtype="fp32"))
+    params = steps.init_train_state(cfg, seed=3, device="cpu").params
+    toks = torch.randint(0, cfg.vocab, (2, 24),
+                         generator=torch.Generator().manual_seed(3),
+                         dtype=torch.int32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = tu.tree_map(lambda t: t.to(dev), params)
+        kernels.reset_launch_counts()
+        loss, grads = steps.loss_and_grads(
+            ctx, cfg, p, {"tokens": toks.to(dev), "labels": toks.to(dev)})
+        out[dev] = loss.cpu(), [x.cpu() for x in tu.leaves(grads)], \
+            kernels.launch_counts()
+    (lc, gc, counts), (lp, gp, _) = out["cuda"], out["cpu"]
+    fwd = 7 * cfg.n_layers + 1
+    assert counts["gemm[fp32]"] == fwd + 7 * cfg.n_layers
+    assert counts["gemm[bwd]"] == 2 * fwd
+    torch.testing.assert_close(lc, lp, rtol=1e-5, atol=0)
+    for x, y in zip(gc, gp):
+        assert ((x - y).norm() / y.norm().clamp_min(1e-30)).item() <= 1e-4

@@ -46,8 +46,6 @@ ARCHS = {
     "llama4-scout-17b-a16e": dict(),
 }
 MOE_ARCHS = ("granite-moe-3b-a800m", "llama4-scout-17b-a16e")
-# Archs of the JAX registry the port does not serve yet (ROADMAP A17).
-NOT_PORTED = {"gemma3-4b", "llava-next-34b"}
 
 
 def _configs(arch):
@@ -200,11 +198,13 @@ def test_non_dense_family_raises():
         ttf.init_params(torch.Generator().manual_seed(0), cfg)
 
 
-@pytest.mark.parametrize("arch", sorted(set(jconfigs.names()) - NOT_PORTED))
+@pytest.mark.parametrize("arch", sorted(jconfigs.names()))
 def test_registry_matches_jax(arch):
-    """Every arch of the JAX registry but those still to port gives the
-    same ModelConfig in the port, full size and smoke (the JAX package's
-    reduction rule, its MoE branch included), the dtype mapped."""
+    """Every arch of the JAX registry gives the same ModelConfig in the
+    port, full size and smoke (the JAX package's reduction rule, its MoE
+    branch included), the dtype mapped, and the same analytic parameter
+    count; the two registries name the same archs."""
+    assert tconfigs.names() == sorted(jconfigs.names())
     dtypes = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}
     for get_j, get_t in ((jconfigs.get, tconfigs.get),
                          (jconfigs.get_smoke, tconfigs.get_smoke)):
@@ -213,6 +213,7 @@ def test_registry_matches_jax(arch):
             want = getattr(jc, f.name)
             want = dtypes[want] if f.name == "dtype" else want
             assert getattr(tc, f.name) == want, (arch, f.name)
+        assert tc.param_count() == jc.param_count()
 
 
 @pytest.mark.parametrize("arch", MOE_ARCHS)

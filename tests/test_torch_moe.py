@@ -15,13 +15,10 @@ Tolerances, each with its reason:
   bit for bit: the same roundings at the same points (logits, the
   softmax's and sigmoid's ops, the gated product, the expert outputs, each
   choice's weighted row, each add of the combine), and the fp32 sums in
-  between agree to far below half a bf16 step at these widths. With a
-  shared expert (llama4) the output is within 2^-7 of its largest
-  magnitude: the shared expert is the port's dense gated MLP
-  (``layers.mlp_apply``), whose silu rounds once in bf16 where XLA's
-  rounds after each of its ops, as in every dense model's MLP, which the
-  port holds to JAX by a tolerance in bf16; the gap reaches 2^-8 of the
-  MLP's output and then the rounding of the sum.
+  between agree to far below half a bf16 step at these widths. A shared
+  expert (llama4) is the port's dense gated MLP (``layers.mlp_apply``),
+  whose activation follows XLA's op order too since ROADMAP C6 was
+  repaired, so the output with it is bit for bit as well.
 """
 
 import dataclasses
@@ -131,8 +128,6 @@ def test_moe_apply_matches_jax(dtype, case, dropless):
     scale = np.abs(want).max()
     if dtype == "fp32":
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * scale)
-    elif c.n_shared:
-        np.testing.assert_allclose(got, want, rtol=0, atol=2 ** -7 * scale)
     else:
         np.testing.assert_array_equal(got, want)
 
