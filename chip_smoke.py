@@ -67,7 +67,7 @@ Needs one CUDA card, ``nvcc`` and the repository checkout around this file
    traffic; the chunked SSD must launch once per layer for every prefill
    chunk, fresh and resumed, and no attention kernel may run; a 256-token
    prompt's prefill logits are held against the CPU plain path in fp32
-   (``FP32_LOGITS_LIMIT``) and in bf16 (``hold_bf16``: the card's bf16
+   (``hold_fp32``) and in bf16 (``hold_bf16``: the card's bf16
    gap from the fp32 logits at most twice the CPU's); one decode step of
    four active slots through the engine's envelope is timed with the NaN
    guard off and on, alternating (on: the active slots' conv / SSM rows
@@ -112,7 +112,7 @@ Needs one CUDA card, ``nvcc`` and the repository checkout around this file
    each launch, the router once a layer; a routing census of one decode
    step and one chunk (every layer's loads sum to tokens x 8, none on
    slots 40-47); a 256-token prompt's prefill logits held against the CPU
-   plain path in fp32 (``FP32_LOGITS_LIMIT``) and by ``hold_bf16``; the
+   plain path in fp32 (``hold_fp32``) and by ``hold_bf16``; the
    two phase-4b steps profiled, the expert ``bmm``'s device time apart
    and the largest other kernels named;
 13. train, smoke: every registry arch at smoke size in fp32 (model and
@@ -121,7 +121,8 @@ Needs one CUDA card, ``nvcc`` and the repository checkout around this file
    prefix, musicgen-medium with four codebooks, the MoE archs capacity
    bound): the loss and every gradient leaf agree within
    ``TRAIN_SMOKE_GRAD_LIMIT``, the step's metrics too, and its updated
-   parameters within the update's own bound; the fp32 GEMM and its
+   parameters within ``TRAIN_SMOKE_PARAM_LIMIT`` of the update's own bound
+   (qwen's key bias, rounding noise, within the bound); the fp32 GEMM and its
    backward products (``gemm[bwd]``) must launch;
 14. train, full width: gemma3-1b at its published widths (26 layers,
    vocab 262144; bf16, the serving engine config), ``remat=True``, AdamW
@@ -142,8 +143,23 @@ Needs one CUDA card, ``nvcc`` and the repository checkout around this file
 15. gemma3-4b at its published widths (34 layers, GQA 8 / 4, head dim 256,
    window 1024; bf16, weights from seed 0) on phase 4's traffic: every
    serving kernel must launch; a 256-token prompt's prefill logits held
-   against the CPU plain path in fp32 (``FP32_LOGITS_LIMIT``) and by
-   ``hold_bf16``.
+   against the CPU plain path in fp32 (``hold_fp32``) and by
+   ``hold_bf16``;
+16. tune (the kernel-schedule tuner, ``repro_torch.tune``; every earlier
+   phase runs with tuning off): under ``GEMMINI_TUNE=full``, with a cache
+   under ``build/`` deleted afterwards, the distinct GEMMs of gemma3-1b's
+   decode step (M = 4) and 256-token chunk, the training step's two
+   unembedding products, ResNet-50's distinct convs on the int8 and fp32
+   instances, phase 3's flash shape and phase 4's page size (4 slots,
+   2048 context) are tuned; each winner within ``TIE_BAND`` of the static
+   plan on the same measurement and held against its plain version by
+   phase 3's rules, with ``torch.matmul`` / cuDNN / SDPA logged beside
+   it; then a fresh cache object in ``cached`` mode and an engine warmed
+   for phase 4's prompts serve phase 4's traffic with no cache miss, the
+   first request's first 256 tokens' prefill logits held by
+   ``hold_bf16`` and the decode step's wall logged beside phase 4b's; a
+   guard trip under ``FAULT_PLAN`` quarantines the paged key, whose next
+   resolution is the static page.
 
 Phase 3 also holds the chunked SSD (mamba2-1.3b's and hymba-1.5b's
 widths: the serving call, one 256-token chunk resumed, and 1000 tokens
@@ -222,13 +238,14 @@ KIND_DTYPE = {"bf16": "bfloat16", "fp16": "float16", "fp32": "float32",
               "int": "int8", "int16": "int16"}
 REPS = 25
 
-# Full-width logits, card against the CPU plain path. fp32: each limit sits
-# between the card's fp32 reading and the bf16 gap (mamba2-1.3b 7.5e-4 vs
-# 2.9e-1, hymba-1.5b 2.2e-5 vs 4.6e-2, granite-moe-3b-a800m 1.2e-6 vs
-# 3.6e-2, on an H100; PERF.md section 2).
-# bf16: see ``hold_bf16``.
-FP32_LOGITS_LIMIT = {"mamba2-1.3b": 5e-3, "hymba-1.5b": 1e-3,
-                     "granite-moe-3b-a800m": 5e-3, "gemma3-4b": 1e-3}
+# Full-width logits, card against the CPU plain path: fp32 by ``hold_fp32``
+# (the card's gap at most FP32_FACTOR times the CPU's own gap when every
+# fp32 weight moves by up to half an ulp, drawn from FP32_PERTURB_SEED;
+# on an H100 the ratio read 1.80 for mamba2-1.3b, 1.38 hymba-1.5b, 1.21
+# granite-moe-3b-a800m and 1.15 gemma3-4b, and another draw put
+# mamba2-1.3b's at 2.9: PERF.md, PR 26), bf16 by ``hold_bf16``.
+FP32_FACTOR = 4.0
+FP32_PERTURB_SEED = 7
 BF16_FACTOR = 2.0
 
 # Phase 10's static path: one gemma3-1b request, a prompt long enough that
@@ -1669,6 +1686,13 @@ _COUNTER_CLASS = {"gemm": "gemm", "gemm[fp32]": "gemm", "gemm[fp16]": "gemm",
                   "paged_decode_attention": "paged_decode_attention",
                   "decode_attention": "decode_attention"}
 PROFILE_RETAKES = 4     # windows taken again before a short one is fatal
+# Idle time at each edge of a profiler window, in seconds. The profiler
+# keeps a device activity only where its converted timestamps fall inside
+# the window's host-clock span; a pass that starts right after the window
+# opens (or ends right before it closes) lost its edge kernels when the two
+# clocks disagreed by more than the gap. ``tools/profile_windows.py``
+# counts the short windows with and without it.
+PROFILE_PAD_S = 0.02
 
 
 def _kernel_class(name: str) -> str:
@@ -1749,8 +1773,11 @@ def profile_call(torch, name, fn, n=3, quiet=False, op_keys=()):
             for i in range(n + 1):
                 if i == 1:
                     before = kernels.launch_counts()
+                    time.sleep(PROFILE_PAD_S)
                 fn()
                 torch.cuda.synchronize()
+                if i == n:
+                    time.sleep(PROFILE_PAD_S)
                 prof.step()
         after = kernels.launch_counts()
         by_class, launches, by_key, other = {}, {}, {}, {}
@@ -2311,10 +2338,32 @@ def as_fp32(torch, engine):
             _tree_map(lambda t: t.float(), engine.params))
 
 
-def prefill_logits(torch, engine, prompt, fp32=False):
+def perturb_fp32(torch, params, seed, to="cpu"):
+    """Every fp32 leaf times (1 + u 2^-24), u uniform in [-1, 1) drawn
+    where the leaf lies from ``seed``, moved to ``to``: w + w u 2^-24 in
+    fp32, the small product exact to its own last bit, so each weight
+    rounds to the nearest fp32 of w (1 + u 2^-24) and moves by at most
+    half an ulp (about a quarter of them by one ulp)."""
+    gens = {}
+
+    def one(t):
+        if t.dtype != torch.float32:
+            return t.to(to)
+        gen = gens.get(t.device)
+        if gen is None:
+            gen = gens[t.device] = torch.Generator(
+                device=t.device).manual_seed(seed)
+        u = torch.rand(t.shape, generator=gen, device=t.device)
+        return (t + t * ((2 * u - 1) * 2.0 ** -24)).to(to)
+    return _tree_map(one, params)
+
+
+def prefill_logits(torch, engine, prompt, fp32=False, cpu_only=False):
     """The prompt's fresh prefill logits on the card (kernels) and on the
     CPU (plain path), same weights; ``fp32`` runs both in the fp32 model
-    dtype and engine config."""
+    dtype and engine config, and adds the CPU's logits from the weights
+    ``perturb_fp32`` moved ("cpu_perturbed"); ``cpu_only``: the CPU's
+    logits alone."""
     from repro_torch.models import transformer as tf
 
     cfg, ctx, params = as_fp32(torch, engine) if fp32 else \
@@ -2323,14 +2372,25 @@ def prefill_logits(torch, engine, prompt, fp32=False):
     pages = torch.arange(mp, dtype=torch.int32)
     toks = torch.from_numpy(prompt[None])
     outs = {}
-    for dev, p in (("cuda", params),
-                   ("cpu", _tree_map(lambda t: t.cpu(), params))):
+    cpu = _tree_map(lambda t: t.cpu(), params)
+    runs = [("cpu", "cpu", cpu)] if cpu_only else \
+        [("cuda", "cuda", params), ("cpu", "cpu", cpu)]
+    if fp32 and not cpu_only:
+        # drawn on the card, leaf by leaf, then moved
+        runs.append(("cpu_perturbed", "cpu",
+                     perturb_fp32(torch, params, FP32_PERTURB_SEED)))
+    for name, dev, p in runs:
         state = tf.init_paged_state(cfg, 1, mp, engine.page_size, mp,
                                     dtype=cfg.dtype, device=dev)
-        outs[dev], _ = tf.paged_prefill(ctx, p, cfg, toks.to(dev), state, 0,
-                                        pages.to(dev),
-                                        page_size=engine.page_size)
-    return outs["cuda"].float().cpu(), outs["cpu"].float()
+        outs[name], _ = tf.paged_prefill(ctx, p, cfg, toks.to(dev), state,
+                                         0, pages.to(dev),
+                                         page_size=engine.page_size)
+    outs = {k: v.float().cpu() for k, v in outs.items()}
+    if cpu_only:
+        return outs["cpu"]
+    if fp32:
+        return outs["cuda"], outs["cpu"], outs["cpu_perturbed"]
+    return outs["cuda"], outs["cpu"]
 
 
 def rel_l2(got, want) -> float:
@@ -2361,25 +2421,40 @@ def hold_bf16(name, card, cpu, exact):
             "bf16_card_vs_cpu": rel_l2(card, cpu)}
 
 
-def check_prefill_logits(torch, engine, prompt, name, fp32_limit):
+def hold_fp32(name, card, cpu, cpu_perturbed):
+    """fp32 logits on the card (kernels) against the CPU's (plain path),
+    same weights and tokens: the card's relative L2 gap may be at most
+    FP32_FACTOR times the CPU's own gap when ``perturb_fp32`` moves every
+    weight by up to half an ulp. The card sums in other orders, a rounding
+    per operation like the perturbation's one per weight, and the stack
+    amplifies both alike (mamba2-1.3b's 48 layers read about 40 times
+    hymba-1.5b's gap on either side), so one factor holds every arch where
+    a fixed limit could not; a kernel fault adds its own error on top."""
+    g_card, g_own = rel_l2(card, cpu), rel_l2(cpu_perturbed, cpu)
+    log(f"{name}: fp32 logits, card vs CPU relative L2 {g_card:.3e}; the "
+        f"CPU's own under a half-ulp weight perturbation {g_own:.3e} "
+        f"(ratio {g_card / max(g_own, 1e-300):.3f}, limit {FP32_FACTOR})")
+    if not g_card <= FP32_FACTOR * g_own:
+        fail(f"{name}: the card's fp32 logits are {g_card:.3e} from the "
+             f"CPU's, over {FP32_FACTOR} x the CPU's own {g_own:.3e}")
+    return {"fp32": g_card, "fp32_cpu_perturbed": g_own,
+            "fp32_factor": FP32_FACTOR}
+
+
+def check_prefill_logits(torch, engine, prompt, name):
     """The prompt's fresh prefill logits on the card (kernels) against the
     plain path on the CPU, same weights: in the fp32 model dtype and engine
-    config within ``fp32_limit`` relative L2, and in bf16 by
-    :func:`hold_bf16`."""
+    config by :func:`hold_fp32`, and in bf16 by :func:`hold_bf16`."""
     cfg = engine.model_cfg
     out = {}
     for fp32 in (True, False):
-        got, want = prefill_logits(torch, engine, prompt, fp32=fp32)
+        res = prefill_logits(torch, engine, prompt, fp32=fp32)
+        got = res[0]
         if got.shape != (1, len(prompt) + cfg.n_meta_tokens, cfg.vocab) or \
                 not torch.isfinite(got).all():
             fail(f"{name} logits: shape {tuple(got.shape)} or non-finite")
-        out["fp32" if fp32 else "bf16"] = got, want
-    rel = {"fp32": rel_l2(*out["fp32"]), "fp32_limit": fp32_limit}
-    log(f"{name}: {len(prompt)}-token prefill logits vs the CPU plain path "
-        f"in fp32: relative L2 error {rel['fp32']:.3e} (limit {fp32_limit})")
-    if not rel["fp32"] <= fp32_limit:
-        fail(f"{name} fp32 logits disagree with the plain path: "
-             f"{rel['fp32']:.3e}")
+        out["fp32" if fp32 else "bf16"] = res
+    rel = hold_fp32(name, *out["fp32"])
     rel.update(hold_bf16(name, *out["bf16"], out["fp32"][1]))
     return rel
 
@@ -2463,8 +2538,7 @@ def run_ssm_phase(torch, np):
              f"attention kernel, no preemption")
     rng = np.random.default_rng(1)
     prompt = rng.integers(0, engine.model_cfg.vocab, (256,)).astype(np.int32)
-    rel = check_prefill_logits(torch, engine, prompt, "mamba2-1.3b",
-                               FP32_LOGITS_LIMIT["mamba2-1.3b"])
+    rel = check_prefill_logits(torch, engine, prompt, "mamba2-1.3b")
     profile = profile_family(torch, engine)
     guard = guard_cost(torch, engine)
     return counts, resumed, {"summary": s, "logits_rel_l2": rel,
@@ -2483,7 +2557,7 @@ def run_hybrid_phase(torch, np):
         fail(f"hymba-1.5b: kernels of the path not launched: {counts} "
              f"(ssd resumed {resumed})")
     rel = check_prefill_logits(torch, engine, prompts[1][:128],
-                               "hymba-1.5b", FP32_LOGITS_LIMIT["hymba-1.5b"])
+                               "hymba-1.5b")
     profile = profile_family(torch, engine)
     guard = guard_cost(torch, engine)
     return counts, resumed, {"summary": s, "logits_rel_l2": rel,
@@ -2938,8 +3012,7 @@ def run_moe_phase(torch, np):
     prompt = rng.integers(0, engine.model_cfg.vocab,
                           (MOE_LOGITS_PROMPT,)).astype(np.int32)
     t0 = time.perf_counter()
-    rel = check_prefill_logits(torch, engine, prompt, MOE_ARCH,
-                               FP32_LOGITS_LIMIT[MOE_ARCH])
+    rel = check_prefill_logits(torch, engine, prompt, MOE_ARCH)
     log(f"{MOE_ARCH} logits holds: {time.perf_counter() - t0:.1f} s")
     profile = profile_family(torch, engine, op_keys=("aten::bmm",))
     for name, prof in profile.items():
@@ -2964,12 +3037,19 @@ def run_moe_phase(torch, np):
 # compound: a gradient leaf's relative L2 error reads about 1e-6 and the
 # limit is 1e-4. The step's updated parameters: AdamW's first step moves
 # each weight by lr * g / (|g| + eps), about the learning rate whatever
-# the gradient's size, so where a gradient is rounding noise on both
-# sides (qwen's key bias: the softmax cancels it) the two steps may go
-# either way. The bound held is that of the update itself: no weight
-# more than twice the learning rate (plus its decay) from the CPU's.
+# the gradient's size, so each weight's gap from the CPU's is read as a
+# share of the update's own bound, 2 lr (1 + wd |w|). Where a gradient
+# is rounding noise on both sides the two steps may go either way: qwen's
+# key bias, whose gradient the softmax cancels (a constant added to a
+# row's scores), is held only to that bound (TRAIN_SMOKE_NOISE_LEAVES);
+# every other leaf to TRAIN_SMOKE_PARAM_LIMIT of it: on an H100 the
+# largest reading was 1.78e-2 (musicgen-medium's mlp/wg, whose small
+# gradients AdamW's eps leaves sensitive), the next 8.6e-3 (PERF.md, PR
+# 26), so 5e-2 leaves a factor of 2.8.
 TRAIN_SMOKE_GRAD_LIMIT = 1e-4
 TRAIN_SMOKE_LR = 1e-3
+TRAIN_SMOKE_NOISE_LEAVES = ("blocks/attn/bk",)
+TRAIN_SMOKE_PARAM_LIMIT = 5e-2
 
 
 def run_train_smoke_phase(torch, np):
@@ -3032,21 +3112,29 @@ def run_train_smoke_phase(torch, np):
                                   old[path].abs()))).max().item()
             for path, x in tu.flatten_with_paths(n_c.params)}
         worst_g = max(grad_rel, key=grad_rel.get)
-        worst_p = max(param_gap, key=param_gap.get)
+        held = {k: v for k, v in param_gap.items()
+                if k not in TRAIN_SMOKE_NOISE_LEAVES}
+        noise = {k: v for k, v in param_gap.items()
+                 if k in TRAIN_SMOKE_NOISE_LEAVES}
+        worst_p = max(held, key=held.get)
+        worst_n = max(noise.values(), default=0.0)
         log(f"{arch} smoke fp32 train step, card vs CPU: loss "
             f"{l_c.item():.6f} (rel {rels['loss']:.2e}), grad norm rel "
             f"{rels['grad_norm']:.2e}; {len(grad_rel)} gradient leaves, "
             f"worst {worst_g} {grad_rel[worst_g]:.2e} (limit "
             f"{TRAIN_SMOKE_GRAD_LIMIT}); updated parameters: largest gap "
-            f"from the CPU's {worst_p} {param_gap[worst_p]:.2e} of the "
-            f"update's bound; launches gemm[fp32] {counts['gemm[fp32]']}, "
+            f"from the CPU's {worst_p} {held[worst_p]:.2e} of the "
+            f"update's bound (limit {TRAIN_SMOKE_PARAM_LIMIT}; "
+            f"{', '.join(sorted(noise)) or 'no leaf'} held to 1.0: "
+            f"{worst_n:.2e}); launches gemm[fp32] {counts['gemm[fp32]']}, "
             f"gemm[bwd] {counts['gemm[bwd]']}")
         if rels["loss"] > 1e-5 or rels["grad_norm"] > TRAIN_SMOKE_GRAD_LIMIT \
                 or grad_rel[worst_g] > TRAIN_SMOKE_GRAD_LIMIT or \
-                param_gap[worst_p] > 1.0:
+                held[worst_p] > TRAIN_SMOKE_PARAM_LIMIT or worst_n > 1.0:
             fail(f"{arch} smoke fp32 train step: card and CPU disagree")
         out[arch] = {**rels, "worst_grad": [worst_g, grad_rel[worst_g]],
-                     "worst_param_gap": [worst_p, param_gap[worst_p]]}
+                     "worst_param_gap": [worst_p, held[worst_p]],
+                     "noise_param_gap": worst_n}
     return out
 
 
@@ -3260,7 +3348,7 @@ def run_gemma3_4b_phase(torch, np):
     256, window 1024; bf16, weights from seed 0) on phase 4's traffic:
     every serving kernel must launch (and neither the SSD, dense decode nor
     the fp32 GEMM); a 256-token prompt's prefill logits against the CPU
-    plain path in fp32 (``FP32_LOGITS_LIMIT``) and by ``hold_bf16``."""
+    plain path by ``hold_fp32`` and ``hold_bf16``."""
     from repro_torch import kernels
 
     engine, prompts, counts, _, s = serve_family(torch, np, G4_ARCH,
@@ -3274,12 +3362,359 @@ def run_gemma3_4b_phase(torch, np):
     prompt = rng.integers(0, engine.model_cfg.vocab,
                           (G4_LOGITS_PROMPT,)).astype(np.int32)
     t0 = time.perf_counter()
-    rel = check_prefill_logits(torch, engine, prompt, G4_ARCH,
-                               FP32_LOGITS_LIMIT[G4_ARCH])
+    rel = check_prefill_logits(torch, engine, prompt, G4_ARCH)
     log(f"{G4_ARCH} logits holds: {time.perf_counter() - t0:.1f} s")
     del engine
     torch.cuda.empty_cache()
     return counts, {"summary": s, "logits_rel_l2": rel}
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the kernel-schedule tuner on the card
+# ---------------------------------------------------------------------------
+TUNE_CACHE = os.path.join(ROOT, "build", "chip_smoke_tune.json")
+
+
+def tune_gemm_shapes(torch):
+    """The GEMMs phase 16 tunes: gemma3-1b's distinct engine GEMMs at a
+    decode step (M = 4) and a 256-token chunk, and the training step's two
+    unembedding products (dA: K = 262144; dB: N = 262144), as (label,
+    dtypes, ws, M, N, K, bias, B transposed)."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as tf
+
+    cfg = configs.get("gemma3-1b")
+    eng = (torch.bfloat16, torch.float32, torch.bfloat16)
+    out, seen = [], set()
+    for rows, seq in ((4, 1), (1, 256)):
+        for (m, n, k, bias, fp32_in, b_trans) in tf.model_gemm_calls(
+                cfg, rows, seq, include_decode=False):
+            if (m, n, k, b_trans) not in seen:
+                seen.add((m, n, k, b_trans))
+                out.append((f"M={m} N={n} K={k}" + (" B^T" if b_trans
+                                                    else ""),
+                            eng, False, m, n, k, bias, b_trans))
+    d, v = cfg.d_model, cfg.vocab
+    out.append(("unembed dA", eng, False, TRAIN_ROWS, d, v, False, False))
+    out.append(("unembed dB", eng, False, d, v, TRAIN_ROWS, False, False))
+    return out
+
+
+def _retime(torch, static_fn, winner_fn, rounds=4):
+    """The static plan and the winner timed again, apart from the tuner's
+    measurement: ``rounds`` timings of each (``measure.time_callable``'s
+    min of 5, L2 flushed), interleaved static, winner, winner, static, ...
+    so drift falls on both; the min of each, in us."""
+    from repro_torch.tune import measure
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    t = ([], [])
+    for r in range(rounds):
+        for i in ((0, 1) if r % 2 == 0 else (1, 0)):
+            t[i].append(measure.time_callable(
+                (static_fn, winner_fn)[i], device=dev)["min_us"])
+    return min(t[0]), min(t[1])
+
+
+def _tune_log(torch, name, rep, static_fn, winner_fn, extra=""):
+    """A report's static and winning times; where another plan than the
+    static one won, the TIE_BAND check on a fresh measurement
+    (``_retime``): the winner fails if it is more than TIE_BAND slower
+    than the static plan there."""
+    from repro_torch.tune import tuner
+
+    static = rep.candidates[0]
+    win = next(c for c in rep.candidates if c.sched == rep.winner)
+    row = {"static_us": static.min_us, "winner": win.sched,
+           "winner_us": win.min_us, "candidates": len(rep.candidates),
+           "cache_key": rep.cache_key}
+    again = ""
+    if not win.is_static:
+        s_us, w_us = _retime(torch, static_fn, winner_fn)
+        row.update(recheck_static_us=s_us, recheck_winner_us=w_us)
+        again = (f"; again {s_us:.2f} against {w_us:.2f} us "
+                 f"({s_us / w_us:.3f}x)")
+        if not w_us <= s_us * (1 + tuner.TIE_BAND):
+            fail(f"tune {name}: the winner {win.sched} takes {w_us:.2f} us "
+                 f"in a fresh measurement, beyond {tuner.TIE_BAND} of the "
+                 f"static plan's {s_us:.2f} us")
+    log(f"tune {name}: {len(rep.candidates)} candidates; static "
+        f"{static.min_us:.2f} us, winner {win.sched} {win.min_us:.2f} us "
+        f"({static.min_us / win.min_us:.3f}x){again}{extra}")
+    return row
+
+
+def _library_us(torch, fn):
+    from repro_torch.tune import measure
+    return measure.time_callable(fn, device=torch.device("cuda"))["min_us"]
+
+
+def tune_and_hold(torch, np):
+    """Phase 16a: under ``full``, tune every shape of the list below and
+    hold each winner's output against the plain version by phase 3's
+    rules; a winner other than the static plan within TIE_BAND of it in a
+    fresh, interleaved measurement (``_tune_log``); every persisted entry,
+    read back by a fresh cache object, the plan that won."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.config import Activation
+    from repro_torch.kernels import attention as ka
+    from repro_torch.kernels.ref import conv2d_ref, gemm_ref
+    from repro_torch.tune import cache as tcache
+    from repro_torch.tune import measure, schedules, tuner
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rows = {}
+    for (label, dtypes, ws, m, n, k, bias, bt) in tune_gemm_shapes(torch):
+        rep = tuner._tune_gemm(dtypes, ws, m, n, k, bias, bt, dev)
+        run = measure.gemm_case(dtypes, ws, m, n, k, bias, bt, dev)
+        a, b, d = run.operands
+        lib = _library_us(torch, lambda: torch.matmul(a, b))
+        row = _tune_log(torch, f"gemm {label}", rep,
+                        lambda: run(schedules.STATIC),
+                        lambda: run(rep.winner),
+                        f"; torch.matmul {lib:.2f} us")
+        got = run(rep.winner)
+        kw = dict(acc_dtype=dtypes[1], out_dtype=dtypes[2], shift=0,
+                  activation=Activation.NONE)
+        want = gemm_ref(a, b, d, **kw)
+        if k >= LONG_K:
+            hold_long_k(torch, f"tune gemm {label}",
+                        lambda: a.double() @ b.double())(got, want)
+        else:
+            check_close(torch, f"tune gemm {label}", got, want, "bf16")
+        del run, a, b, d, got, want
+        rows[f"gemm {label}"] = {**row, "library_us": lib}
+    torch.cuda.empty_cache()
+    for inst, dtypes, kind in (
+            ("int8", (torch.int8, torch.int32, torch.int8), "int"),
+            ("fp32", (torch.float32,) * 3, "fp32")):
+        for label, (m, n, k), (h, ci, co, kh, st, pad), _ in \
+                resnet50_shapes():
+            label = f"{label} {m}x{n}x{k}"   # the stage's 1x1 layers differ
+            rep = tuner._tune_conv(dtypes, 1, h, h, ci, co, kh, kh, st, pad,
+                                   True, dev)
+            run = measure.conv_case(dtypes, 1, h, h, ci, co, kh, kh, st,
+                                    pad, True, dev)
+            x, w, bias = run.operands
+            extra, lib = "", None
+            if kind == "fp32":
+                xc = x.permute(0, 3, 1, 2)
+                wc = w.permute(3, 2, 0, 1).contiguous(
+                    memory_format=torch.channels_last)
+                lib = _library_us(torch, lambda: F.conv2d(
+                    xc, wc, bias, stride=st, padding=pad))
+                extra = f"; cuDNN conv2d {lib:.2f} us"
+            row = _tune_log(torch, f"conv {inst} {label}", rep,
+                            lambda: run(schedules.STATIC),
+                            lambda: run(rep.winner), extra)
+            want = conv2d_ref(x, w, bias, stride=st, padding=pad,
+                              acc_dtype=dtypes[1], out_dtype=dtypes[2])
+            check_close(torch, f"tune conv {inst} {label}", run(rep.winner),
+                        want, kind)
+            rows[f"conv {inst} {label}"] = {**row, "library_us": lib}
+    flash = (1, 256, 256, 4, 1, 256, True, None, torch.bfloat16)
+    rep = tuner._tune_attention(*flash, dev)
+    run = measure.attn_case(*flash, dev)
+    q, k, v = run.operands
+    lib = _library_us(torch, lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2).expand(-1, 4, -1, -1),
+        v.transpose(1, 2).expand(-1, 4, -1, -1), is_causal=True))
+    row = _tune_log(torch, "flash (1, 256, 256, H 4 / 1, D 256)", rep,
+                    lambda: run(schedules.FLASH_STATIC),
+                    lambda: run(rep.winner), f"; SDPA {lib:.2f} us")
+    check_close(torch, "tune flash", run(rep.winner),
+                ka.blockwise_attention(q, k, v, causal=True), "bf16")
+    rows["flash"] = {**row, "library_us": lib}
+    paged = (4, 4, 1, 256, 2048)
+    rep = tuner.tune_paged_attention(None, *paged, dtype=torch.bfloat16,
+                                     device=dev)
+    win = rep.winner
+    static = schedules.default_paged_schedule().effective(2048)
+    run = measure.paged_case(*paged, win.page_size, None, torch.bfloat16,
+                             dev)
+    run_static = measure.paged_case(*paged, static.page_size, None,
+                                    torch.bfloat16, dev)
+    row = _tune_log(torch, "paged (4 slots, 2048 context)", rep,
+                    lambda: run_static({"split_keys": static.split_keys}),
+                    lambda: run({"split_keys": win.split_keys}))
+    del run_static
+    q, kp, vp, tables, lengths = run.operands
+    check_close(torch, "tune paged decode", run(
+        {"split_keys": win.split_keys}),
+        ka.paged_decode_attention_plain(q, kp, vp, tables, lengths), "bf16")
+    rows["paged"] = {**row, "winner": dataclasses.asdict(win)}
+    rows["paged"]["static"] = dataclasses.asdict(static)
+    tcache.reset_cache()                 # a fresh object reads the file
+    pc = tcache.get_cache()
+    for name, row in rows.items():
+        want = row["winner"] if isinstance(row["winner"], dict) else \
+            dataclasses.asdict(row["winner"])
+        got = pc.lookup_schedule(row["cache_key"], ())
+        if got != want:
+            fail(f"tune {name}: the persisted entry reads back as {got}, "
+                 f"not the winner {want}")
+    log(f"tune: {len(rows)} persisted entries read back by a fresh cache "
+        f"as the plans that won")
+    return rows
+
+
+def decode_walls(torch, engine, reps=8):
+    """Phase 4b's decode step on ``engine``, synchronised, alternating
+    call by call between ``cached`` (its resolved plans) and ``off`` (the
+    kernels' own plans and decode split), after one warm-up of each: the
+    walls in ms."""
+    from repro_torch.core import flags
+
+    tuned = engine.engine
+    steps = {"cached": profile_steps(torch, engine)["decode_step"]}
+    engine.engine = dataclasses.replace(tuned, decode_split=0)
+    steps["off"] = profile_steps(torch, engine)["decode_step"]
+    engine.engine = tuned
+    walls = {"cached": [], "off": []}
+    prev = flags.get("tune_mode")
+    try:
+        for rep in range(reps + 1):
+            for mode, fn in steps.items():
+                flags.set_flag("tune_mode", mode)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                if rep:                               # the first is warm-up
+                    walls[mode].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        flags.set_flag("tune_mode", prev)
+    return walls
+
+
+def run_tune_phase(torch, np, phase4b_decode_ms):
+    """Phase 16: (a) tune and hold (``tune_and_hold``); (b) a fresh
+    process-local cache in ``cached`` mode, an engine warmed for phase 4's
+    prompts serves phase 4's traffic: no cache miss while it serves, every
+    request finishes, the first request's first 256 tokens' prefill logits
+    held by ``hold_bf16``, and the decode step's wall beside phase 4b's;
+    (c) a guard trip under ``FAULT_PLAN`` quarantines the paged key, whose
+    next resolution is the static page. The cache lives under ``build/``
+    and is deleted afterwards; the flags are restored."""
+    from repro_torch import configs, kernels, tune
+    from repro_torch.core import flags
+    from repro_torch.serving import ServingEngine
+    from repro_torch.tune import cache as tcache
+    from repro_torch.tune import schedules
+
+    t_phase = time.perf_counter()
+    prev = flags.get("tune_mode"), flags.get("tune_cache")
+    if os.path.exists(TUNE_CACHE):
+        os.remove(TUNE_CACHE)
+    flags.set_flag("tune_cache", TUNE_CACHE)
+    tcache.reset_cache()
+    out = {}
+    try:
+        flags.set_flag("tune_mode", "full")
+        t0 = time.perf_counter()
+        out["tuned"] = tune_and_hold(torch, np)
+        out["tune_s"] = time.perf_counter() - t0
+        log(f"tune: {len(out['tuned'])} shapes tuned, held and persisted "
+            f"in {out['tune_s']:.1f} s")
+
+        # (b) warm, then serve from a fresh cache object in cached mode
+        flags.set_flag("tune_mode", "cached")
+        tcache.reset_cache()
+        pc = tcache.get_cache()
+        cfg = configs.get("gemma3-1b")
+        t0 = time.perf_counter()
+        engine = ServingEngine(cfg, max_slots=4, max_context=2048,
+                               prefill_chunk=256, seed=0, device="cuda",
+                               warm_prompt_lens=SERVE_PROMPTS)
+        warm = engine.warm_stats
+        log(f"tune: engine made and warmed in "
+            f"{time.perf_counter() - t0:.2f} s: {warm}; page "
+            f"{engine.page_size}, decode split "
+            f"{engine.engine.decode_split or schedules.DEFAULT_SPLIT_KEYS}")
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab, (n,)).astype(np.int32)
+                   for n in SERVE_PROMPTS]
+        for p in prompts:
+            engine.submit(p, SERVE_NEW)
+        h0, m0 = pc.hits, pc.misses
+        kernels.reset_launch_counts()
+        report = engine.run()
+        torch.cuda.synchronize()
+        hits, misses = pc.hits - h0, pc.misses - m0
+        counts = kernels.launch_counts()
+        if any(counts[k] <= 0 for k in kernels.SERVING_KERNELS):
+            fail(f"tune serve: a serving kernel did not launch: {counts}")
+        s = report["summary"]
+        assert_clean("tune serve", s)
+        for r in report["requests"]:
+            if r["status"] != "finished" or r["new_tokens"] != SERVE_NEW:
+                fail(f"tune serve: request {r['rid']} {r['status']}, "
+                     f"{r['new_tokens']} of {SERVE_NEW} tokens")
+        log(f"tune serve (cached): {s['tokens_per_s']:.2f} tok/s, ITL p50 "
+            f"{s['p50_itl_s'] * 1e3:.2f} ms; cache hits {hits}, misses "
+            f"{misses} while serving")
+        if misses:
+            fail(f"tune serve: {misses} cache misses on the request path "
+                 f"after the warm-up")
+        exact = prefill_logits(torch, engine, prompts[0][:256], fp32=True,
+                               cpu_only=True)
+        card, cpu = prefill_logits(torch, engine, prompts[0][:256])
+        rel = hold_bf16("tune serve prefill (256 tokens)", card, cpu, exact)
+        del exact, card, cpu
+        walls = decode_walls(torch, engine)
+        tuned_ms = statistics.median(walls["cached"])
+        static_ms = statistics.median(walls["off"])
+        log(f"tune: decode step wall {tuned_ms:.3f} ms resolved (cached) "
+            f"against {static_ms:.3f} ms with tuning off, same engine and "
+            f"page, {len(walls['off'])} calls each, alternating; phase 4b's "
+            f"{phase4b_decode_ms:.3f} ms")
+        out["serve"] = {"summary": s, "warm": warm, "hits": hits,
+                        "launches": {k: counts[k] for k in
+                                     kernels.SERVING_KERNELS},
+                        "misses": misses, "page_size": engine.page_size,
+                        "decode_split": engine.engine.decode_split,
+                        "logits": rel, "decode_wall_ms": tuned_ms,
+                        "decode_wall_off_ms": static_ms,
+                        "decode_walls_ms": walls,
+                        "phase4b_decode_wall_ms": phase4b_decode_ms}
+
+        # (c) a guard trip quarantines the paged key
+        flags.set_flag("tune_mode", "cached")
+        faulted = ServingEngine(cfg, max_slots=4, max_context=2048,
+                                prefill_chunk=256, seed=0, device="cuda",
+                                params=engine.params, faults=FAULT_PLAN)
+        del engine
+        for p in prompts:
+            faulted.submit(p, SERVE_NEW)
+        rep = faulted.run()
+        key = faulted._paged_sched_key
+        static = schedules.default_paged_schedule().effective(2048)
+        again = tune.resolve_paged_attn_schedule(
+            None, 4, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 2048,
+            dtype=cfg.dtype)
+        log(f"tune: FAULT_PLAN quarantined {rep['quarantined']} (the paged "
+            f"key {key}); fallbacks {int(rep['summary']['fallbacks'])}; "
+            f"next resolution {again}")
+        if key is None or rep["quarantined"] != [key] or \
+                not tcache.get_cache().is_quarantined(key) or \
+                again != static:
+            fail(f"tune: the guard trip did not quarantine the paged key "
+                 f"{key} ({rep['quarantined']}) or its resolution {again} "
+                 f"is not the static {static}")
+        out["quarantine"] = {"key": key, "quarantined": rep["quarantined"],
+                             "next": dataclasses.asdict(again)}
+        del faulted
+    finally:
+        flags.set_flag("tune_mode", prev[0])
+        flags.set_flag("tune_cache", prev[1])
+        tcache.reset_cache()
+        if os.path.exists(TUNE_CACHE):
+            os.remove(TUNE_CACHE)
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"tune phase: {out['phase_s']:.1f} s")
+    return out
 
 
 def ptxas_summary(lines, names) -> str:
@@ -3429,6 +3864,11 @@ def main() -> int:
     g4_counts, g4_summary = run_gemma3_4b_phase(torch, np)
     torch.cuda.empty_cache()
 
+    # 16. the kernel-schedule tuner (its own cache, deleted afterwards;
+    # every earlier phase ran with tuning off)
+    tune_summary = run_tune_phase(torch, np,
+                                  profile["decode_step"]["wall_ms"])
+
     # the kernels line
     meta = {
         "gemm": ("csrc/gemm.cu", "src/repro/kernels/gemm.py:105"),
@@ -3492,8 +3932,9 @@ def main() -> int:
                    "robust": robust, "moe": moe_summary,
                    "moe_launches": moe_counts, "train_smoke": train_smoke,
                    "train": train_summary, "train_launches": train_counts,
-                   "gemma3_4b": g4_summary, "gemma3_4b_launches": g4_counts},
-                  f, indent=1)
+                   "gemma3_4b": g4_summary, "gemma3_4b_launches": g4_counts,
+                   "tune": tune_summary},
+                  f, indent=1, default=str)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,9 +7,14 @@ The context carries the elaborated :class:`GemminiConfig`; the ops are
 ``ctx.paged_prefill_attention`` and ``ctx.ssd``. There is no
 backend knob: the device of the operands decides. A CUDA tensor launches
 the hand-written kernel or the call raises; a CPU tensor runs the plain
-PyTorch version. No fallback runs in between. The mesh and the tuner are
-later slices; the kernels pick their own tiles, so no tile plan is solved
-on the dispatch path.
+PyTorch version. No fallback runs in between. The mesh is a later slice.
+The kernels run the plan of their shape unless the tuner names another:
+under the process flag ``tune_mode`` (``GEMMINI_TUNE``) ``cached`` /
+``full`` the GEMM, conv and flash wrappers resolve a schedule per shape
+(``repro_torch.tune``); ``decode_split`` is the paged decode kernel's
+keys per split that the serving engine resolved with its page size (0:
+the kernel's own). The JAX context's per-context ``tune_mode`` is not
+ported: nothing in the port scopes the flag (ROADMAP A12).
 
 Op boundary (``repro.core.context._faulted_op`` / ``_profiled_op``):
 every op is wrapped once. An installed fault injector
@@ -77,11 +82,13 @@ def _op(fn):
 @dataclasses.dataclass(frozen=True)
 class ExecutionContext:
     """One engine's dispatch value: the elaborated config the GEMM
-    datapath follows (``None`` is legal for the attention ops only), and
-    whether the op-boundary hooks fire (``hooks``)."""
+    datapath follows (``None`` is legal for the attention ops only),
+    whether the op-boundary hooks fire (``hooks``) and the paged decode
+    kernel's keys per split (``decode_split``, 0 for its own)."""
 
     cfg: Optional[GemminiConfig] = None
     hooks: bool = True
+    decode_split: int = 0
 
     def _require_cfg(self, op: str) -> GemminiConfig:
         if self.cfg is None:
@@ -170,7 +177,9 @@ class ExecutionContext:
                          scale: Optional[float] = None) -> torch.Tensor:
         return attn_kernels.paged_decode_attention(
             q, k_pool, v_pool, block_tables, lengths, window=window,
-            softcap=softcap, scale=scale)
+            softcap=softcap, scale=scale,
+            plan={"split_keys": self.decode_split} if self.decode_split
+            else None)
 
     def _paged_prefill_attention(self, q, k_pool, v_pool, block_table,
                                  start: int, *, window: Optional[int] = None,

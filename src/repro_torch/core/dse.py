@@ -82,9 +82,10 @@ def evaluate(cfg: GemminiConfig, wl: Workload, sys: isa.SystemParams,
              dataflow: Optional[Dataflow] = None,
              plan_fn: Optional[PlanFn] = None) -> Dict[str, float]:
     """``plan_fn`` swaps the schedule source: default is the greedy analytic
-    solver; pass ``repro.tune.tuned_plan_fn()`` to evaluate design points on
-    *measured* schedules -- the measured-cost backend that calibrates this
-    analytic model."""
+    solver. The JAX package's measured-cost backend (a tuned ``TilePlan``
+    per GEMM) has no counterpart in the port yet: the card's tuner measures
+    the H100 kernels' plans, not Gemmini tile plans (ROADMAP A12's
+    remainder, ``tuned_plan_fn``)."""
     plan_fn = plan_fn or plan_gemm
     engine_cycles = 0.0
     hbm = 0.0

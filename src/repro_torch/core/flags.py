@@ -7,9 +7,11 @@ tree and compared cell-by-cell. The dry-run CLI sets them via
 ``--opt name[=value]``; tests pin them explicitly.
 
 In the port, ``remat_policy`` is read by the training forward
-(``repro_torch.models.transformer.forward``); ``tune_mode`` is held for
-the tuner (ROADMAP A12); the others shape XLA's partitioning of the JAX
-package's steps and have no reader here yet (the multi-device port, A15).
+(``repro_torch.models.transformer.forward``); ``tune_mode`` and
+``tune_cache`` by the tuner (``repro_torch.tune``: the GEMM, conv and
+flash wrappers, the serving engine's page size, the CLIs' warm-up); the
+others shape XLA's partitioning of the JAX package's steps and have no
+reader here yet (the multi-device port, A15).
 """
 
 from __future__ import annotations
@@ -20,17 +22,18 @@ from typing import Any, Dict
 TUNE_MODES = ("off", "cached", "full")
 
 _DEFAULTS: Dict[str, Any] = {
-    # T: empirical kernel-schedule autotuner (src/repro/tune), covering all
-    # three kernel classes: GEMM tile plans, attention block_q/block_k, and
-    # conv co_tile. "off" = static schedules only (greedy analytic GEMM
-    # plans, the kernels' shipped block defaults); "cached" = consult the
-    # persistent schedule cache, static on a miss (never measures); "full"
-    # = measure candidate schedules for unseen shapes and persist the
-    # winners. Seeded from $GEMMINI_TUNE so whole-model launchers pick it
-    # up without code changes.
+    # T: empirical kernel-schedule autotuner (repro_torch.tune), covering
+    # the card kernels' run-time plans: the GEMM's tiles and K splits, the
+    # conv's splits, flash attention's cluster and stages, the page size
+    # and the paged decode split. "off" = each kernel's plan of its shape;
+    # "cached" = consult the persistent schedule cache, the kernel's own
+    # plan on a miss (never measures); "full" = measure candidate
+    # schedules for unseen shapes and persist the winners. Seeded from
+    # $GEMMINI_TUNE so whole-model launchers pick it up without code
+    # changes.
     "tune_mode": os.environ.get("GEMMINI_TUNE", "off"),
     # Plan-cache file override; empty = $GEMMINI_TUNE_CACHE, else
-    # ~/.cache/gemmini-repro/tile_plans.json (see repro.tune.cache).
+    # ~/.cache/gemmini-repro/tile_plans_torch.json (repro_torch.tune.cache).
     "tune_cache": os.environ.get("GEMMINI_TUNE_CACHE", ""),
     # A: update KV caches with a one-hot select instead of
     # dynamic-update-slice (DUS on a sequence-sharded cache forces the

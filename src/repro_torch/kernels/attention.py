@@ -6,6 +6,16 @@ Replaces, in ``repro.kernels.attention``: ``flash_attention``,
 CUDA tensors (or raises) and runs its plain version for CPU tensors;
 ``<wrapper>.launches`` counts kernel launches.
 
+The two wrappers the tuner has a space for take an optional plan, its
+schedule: flash ``{"cluster": blocks per cluster (1, 2, 4), "stages": 1
+or 2}`` (:func:`flash_plan` gives a call's own), paged decode
+``{"split_keys": keys per split}`` (a multiple of 16 up to 4096; the
+kernel's own is 64). A plan the kernel cannot run raises. Under
+``GEMMINI_TUNE=cached`` / ``full`` a flash call with none resolves one
+through the tuner (memoized per shape); the paged decode's split comes
+with the engine's page size (``ExecutionContext.decode_split``). Dense
+decode and paged prefill run their own plans (ROADMAP A12).
+
 The plain versions mirror the JAX package's XLA twins in
 ``repro.models.attention``: flash attention's is the model function
 ``repro_torch.models.attention.blockwise_attention`` (the port of
@@ -29,6 +39,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core import flags
 from repro_torch.kernels import _build
 from repro_torch.models.attention import NEG_INF, blockwise_attention
 
@@ -182,13 +193,38 @@ def _workspace(device: torch.device, stream: int, tickets: int,
     return tk, part
 
 
+def _flash_args(plan: Optional[dict]) -> Tuple[int, int]:
+    return (int(plan["cluster"]), int(plan["stages"])) if plan else (0, 0)
+
+
+def _split_arg(plan: Optional[dict]) -> int:
+    return int(plan["split_keys"]) if plan else 0
+
+
+def flash_plan(b: int, tq: int, tk: int, h: int, kvh: int, d: int, *,
+               causal: bool = True, window: Optional[int] = None,
+               dtype: torch.dtype = torch.bfloat16, device=None) -> dict:
+    """The plan a flash call of these shapes runs when it names none:
+    ``{"cluster": blocks per cluster, "stages": K/V stages a warp}``."""
+    out = (ctypes.c_longlong * 2)()
+    fn = _build.bind("attention", "flash_attention_plan", [_I] * 9 + [_P])
+    with torch.cuda.device(device if device is not None
+                           else torch.cuda.current_device()):
+        _build.check(fn(b, tq, tk, h, kvh, d, int(causal), int(window or 0),
+                        _DT[dtype], ctypes.addressof(out)),
+                     "flash_attention_plan")
+    return {"cluster": out[0], "stages": out[1]}
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None,
                     softcap: Optional[float] = None,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    scale: Optional[float] = None,
+                    plan: Optional[dict] = None) -> torch.Tensor:
     """q: (B, Tq, H, D); k/v: (B, Tk, KVH, D); queries right-aligned to
     the keys. Returns (B, Tq, H, D) in q's dtype. On the card bf16 runs
-    the tensor-core kernel and fp32 the CUDA-core one (IEEE fp32)."""
+    the tensor-core kernel and fp32 the CUDA-core one (IEEE fp32);
+    ``plan``: the caller's ``{"cluster", "stages"}`` (module docstring)."""
     if q.device.type == "cpu":
         return blockwise_attention(q, k, v, causal=causal, window=window,
                                    softcap=softcap, scale=scale)
@@ -202,14 +238,19 @@ def flash_attention(q, k, v, *, causal: bool = True,
     _check_head("flash_attention", q, k, h, kvh, d)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     _check_cuda("flash_attention", (q, k, v))
+    if plan is None and flags.get("tune_mode") != "off":
+        from repro_torch.tune import tuner
+        plan = tuner.attn_schedule(b, tq, tk, h, kvh, d, causal, window,
+                                   q.dtype, q.device)
+    cluster, stages = _flash_args(plan)
     o = torch.empty_like(q)
     fn = _build.bind("attention", "flash_attention_launch",
                      [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
-                      _I, _P])
+                      _I, _P, _I, _I])
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, tq, tk,
              h, kvh, d, int(causal), int(window or 0), float(softcap or 0.0),
              _scale(scale, d), _DT[q.dtype],
-             torch.cuda.current_stream(q.device).cuda_stream)
+             torch.cuda.current_stream(q.device).cuda_stream, cluster, stages)
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
     return o
@@ -272,16 +313,18 @@ _PAGED_PLANS: Dict[tuple, tuple] = {}
 
 
 def paged_decode_plan(slots: int, max_pages: int, page: int, h: int,
-                      kvh: int, d: int, window: Optional[int] = None) -> tuple:
+                      kvh: int, d: int, window: Optional[int] = None, *,
+                      split_keys: int = 0) -> tuple:
     """The same for a paged call, from the shapes alone: the splits the
     table's reach (``max_pages * page`` keys) or the window can hold, so
     the grid never depends on the lengths; a block whose split is past its
     slot's live keys returns at once."""
-    key = (slots, max_pages, page, h, kvh, d, int(window or 0))
+    key = (slots, max_pages, page, h, kvh, d, int(window or 0),
+           int(split_keys))
     plan = _PAGED_PLANS.get(key)
     if plan is None:
         out = (ctypes.c_longlong * 5)()
-        fn = _build.bind("attention", "paged_decode_plan", [_I] * 7 + [_P])
+        fn = _build.bind("attention", "paged_decode_plan", [_I] * 8 + [_P])
         _build.check(fn(*key, ctypes.addressof(out)), "paged_decode_plan")
         plan = _PAGED_PLANS[key] = tuple(out)
     return plan
@@ -290,11 +333,13 @@ def paged_decode_plan(slots: int, max_pages: int, page: int, h: int,
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
                            window: Optional[int] = None,
                            softcap: Optional[float] = None,
-                           scale: Optional[float] = None) -> torch.Tensor:
+                           scale: Optional[float] = None,
+                           plan: Optional[dict] = None) -> torch.Tensor:
     """q: (S, 1, H, D); pools: (KVH, NP, page, D); block_tables: (S, MP)
     int32; lengths: (S,) int32 live tokens including the current one. The
     kernel reads tables and lengths in device memory; one launch, whose
-    grid (``paged_decode_plan``) and workspace come from the shapes."""
+    grid (``paged_decode_plan``) and workspace come from the shapes (and
+    ``plan``'s ``split_keys``)."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
                                             lengths, window=window,
@@ -318,18 +363,20 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
     lens = lengths.to(torch.int32).contiguous()
     _check_cuda("paged_decode_attention", (q, k_pool, v_pool), (tables, lens))
     mp = tables.shape[1]
-    plan = paged_decode_plan(s, mp, page, h, kvh, d, window)
+    split = _split_arg(plan)
+    grid = paged_decode_plan(s, mp, page, h, kvh, d, window,
+                             split_keys=split)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    tickets, ws = _workspace(q.device, stream, plan[1], plan[4])
+    tickets, ws = _workspace(q.device, stream, grid[1], grid[4])
     o = torch.empty_like(q)
     fn = _build.bind("attention", "paged_decode_launch",
                      [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                      _F, _F, _I, _P, _P, _P])
+                      _F, _F, _I, _P, _P, _P, _I])
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              tables.data_ptr(), lens.data_ptr(), o.data_ptr(), s, mp, h, kvh,
              d, npool, page, int(window or 0), float(softcap or 0.0),
              _scale(scale, d), _DT[q.dtype], stream, ws.data_ptr(),
-             tickets.data_ptr())
+             tickets.data_ptr(), split)
     _build.check(err, "paged_decode_attention")
     paged_decode_attention.launches += 1
     return o

@@ -23,6 +23,10 @@ bias and the GEMM's epilogue run once per output, after the last tap. A
 CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
 version ``repro_torch.kernels.ref.conv2d_ref`` (explicit im2col + GEMM).
 
+A call may name its plan (``plan={"tile": code, "splits": s}``; the codes
+are :func:`conv_plan`'s), else under ``GEMMINI_TUNE=cached`` / ``full``
+the tuner resolves one per shape, as for the GEMM.
+
 Launch counts, one per kernel of the ``kernels`` report:
 ``conv2d_implicit.launches`` the int8 kernel (``conv2d_implicit``), and
 ``COUNTS[dtype].launches`` the fp32, bf16, fp16 and int16 ones
@@ -35,20 +39,21 @@ from __future__ import annotations
 
 import ctypes
 from types import SimpleNamespace
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional
 
 import torch
 
+from repro_torch.core import flags
 from repro_torch.core.config import Activation
 from repro_torch.kernels import _build
 from repro_torch.kernels import epilogue as epi
 from repro_torch.kernels.gemm import (_ACT, _DT, _INT_OUT, _PLAN_KEYS,
                                       _check_int_shift, _device_index,
-                                      _workspace)
+                                      _plan_dict, _workspace)
 from repro_torch.kernels.ref import conv2d_ref
 
 _I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
-_ARGS = [_P, _P, _P, _P] + [_I] * 15 + [_F, _P, _P]
+_ARGS = [_P, _P, _P, _P] + [_I] * 15 + [_F, _P, _P, _I, _I]
 # Input codes of conv2d_launch, and each input's accumulator.
 _IN = {torch.int8: 0, torch.int16: 1, torch.float32: 2, torch.bfloat16: 3,
        torch.float16: 4}
@@ -56,7 +61,7 @@ _ACC = {torch.int8: torch.int32, torch.int16: torch.int32,
         torch.float32: torch.float32, torch.bfloat16: torch.float32,
         torch.float16: torch.float32}
 _REGIMES = ("skinny", "square", "cuda cores")
-_PLANS: Dict[Tuple[int, int, int, torch.dtype, int], dict] = {}
+_PLANS: Dict[tuple, dict] = {}
 
 
 def out_hw(h: int, w: int, kh: int, kw: int, stride: int,
@@ -66,7 +71,7 @@ def out_hw(h: int, w: int, kh: int, kw: int, stride: int,
 
 
 def conv_plan(m: int, n: int, k: int, dtype: torch.dtype = torch.int8,
-              device=None) -> dict:
+              device=None, *, tile: int = 0, splits: int = 0) -> dict:
     """The conv kernel's plan for ``dtype`` inputs and the implicit GEMM
     (M, N, K) = (N*OH*OW, CO, KH*KW*CI) on a card: ``regime`` ("skinny" 16
     x 64 or "square" 64 x 64 tiles on the tensor cores, int8 / bf16 /
@@ -78,26 +83,23 @@ def conv_plan(m: int, n: int, k: int, dtype: torch.dtype = torch.int8,
     ``workspace_bytes`` (0 for one split). It depends on the shape, the
     dtype and the card's SM count only; int8's equals
     :func:`repro_torch.kernels.gemm.gemm_s8_plan` of the implicit GEMM,
-    int16's equals fp32's."""
+    int16's equals fp32's. ``tile`` and ``splits`` name another plan (both
+    0: the shape's own; ``tile_code``): the tensor cores' 1 skinny, 2
+    square (any M), the CUDA cores' 1 (their one tile); a plan the kernel
+    cannot run raises ``RuntimeError``."""
     if dtype not in _IN:
         raise NotImplementedError(f"conv_plan: no conv kernel for {dtype}")
     index = _device_index(device)
-    key = (m, n, k, dtype, index)
+    key = (m, n, k, dtype, index, tile, splits)
     plan = _PLANS.get(key)
     if plan is None:
         out = (ctypes.c_longlong * len(_PLAN_KEYS))()
-        fn = _build.bind("conv", "conv_plan", [_I, _I, _I, _I, _P])
+        fn = _build.bind("conv", "conv_plan", [_I] * 6 + [_P])
         with torch.cuda.device(index):
-            _build.check(fn(m, n, k, _IN[dtype], ctypes.addressof(out)),
-                         "conv_plan")
-        raw = dict(zip(_PLAN_KEYS, out))
-        plan = {"regime": _REGIMES[raw["regime"]],
-                "tile": (raw["bm"], raw["bn"], raw["bk"]),
-                "splits": raw["splits"], "grid": raw["blocks"],
-                "threads": raw["threads"], "stages": raw["stages"],
-                "smem": raw["smem"],
-                "workspace_bytes": 4 * raw["workspace_words"]}
-        _PLANS[key] = plan
+            _build.check(fn(m, n, k, _IN[dtype], int(tile), int(splits),
+                            ctypes.addressof(out)), "conv_plan")
+        plan = _PLANS[key] = _plan_dict(dict(zip(_PLAN_KEYS, out)),
+                                        _REGIMES)
     return plan
 
 
@@ -105,8 +107,10 @@ def conv2d_implicit(x: torch.Tensor, w: torch.Tensor,
                     b: Optional[torch.Tensor] = None, *,
                     acc_dtype: torch.dtype, out_dtype: torch.dtype,
                     stride: int = 1, padding: int = 0, shift: int = 0,
-                    activation: Activation = Activation.NONE) -> torch.Tensor:
-    """x: (N, H, W, CI), w: (KH, KW, CI, CO), b: (CO,) -> (N, OH, OW, CO)."""
+                    activation: Activation = Activation.NONE,
+                    plan: Optional[dict] = None) -> torch.Tensor:
+    """x: (N, H, W, CI), w: (KH, KW, CI, CO), b: (CO,) -> (N, OH, OW, CO);
+    ``plan``: the caller's ``{"tile", "splits"}`` (module docstring)."""
     if x.device.type == "cpu":
         return conv2d_ref(x, w, b, stride=stride, padding=padding,
                           acc_dtype=acc_dtype, out_dtype=out_dtype,
@@ -142,8 +146,14 @@ def conv2d_implicit(x: torch.Tensor, w: torch.Tensor,
         b = b.to(acc_dtype).reshape(co).contiguous()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     m, k = n * oh * ow, kh * kw * ci
-    plan = _PLANS.get((m, co, k, x.dtype, x.device.index)) \
-        or conv_plan(m, co, k, x.dtype, x.device)
+    if plan is None and flags.get("tune_mode") != "off":
+        from repro_torch.tune import tuner
+        plan = tuner.conv_schedule(x.dtype, out_dtype, n, h, wd, ci, co, kh,
+                                   kw, stride, padding, b is not None,
+                                   x.device)
+    tile, splits = (plan["tile"], plan["splits"]) if plan else (0, 0)
+    plan = _PLANS.get((m, co, k, x.dtype, x.device.index, tile, splits)) \
+        or conv_plan(m, co, k, x.dtype, x.device, tile=tile, splits=splits)
     need = plan["workspace_bytes"]
     wsp = _workspace(x.device, stream, need).data_ptr() if need else None
     fn = _build.bind("conv", "conv2d_launch", _ARGS)
@@ -151,7 +161,8 @@ def conv2d_implicit(x: torch.Tensor, w: torch.Tensor,
              else None, out.data_ptr(), n, h, wd, ci, co, kh, kw, stride,
              padding, oh, ow, _IN[x.dtype], outs[out_dtype],
              _ACT[activation], shift,
-             1.0 / (1 << shift) if shift > 0 else 1.0, stream, wsp)
+             1.0 / (1 << shift) if shift > 0 else 1.0, stream, wsp, tile,
+             splits)
     _build.check(err, "conv2d_implicit")
     if x.dtype == torch.int8:
         conv2d_implicit.launches += 1

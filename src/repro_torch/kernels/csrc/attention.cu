@@ -93,8 +93,12 @@
 //
 // C interface: flash_attention_launch, paged_prefill_launch,
 // paged_decode_launch, decode_attention_launch (each returns
-// cudaGetLastError()), and decode_attention_plan / paged_decode_plan,
-// which report the grid and the workspace a decode call will use.
+// cudaGetLastError()), and flash_attention_plan, decode_attention_plan /
+// paged_decode_plan, which report the cluster and stages a flash call, or
+// the grid and the workspace a decode call, will use. Dense flash and
+// paged decode take an optional plan, the tuner's: a flash call's blocks
+// per cluster and stages, a paged decode call's keys per split (0s: the
+// plan of the shape).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -593,9 +597,26 @@ int flash_cluster(const FlashArgs& a, int& stages) {
   return cl;
 }
 
+// A caller's (cluster, stages): 0, 0 for the call's own; else blocks per
+// cluster a power of two up to `most`, stages 1 up to `stages_most`.
+inline bool flash_override(int cluster, int stages, int most,
+                           int stages_most) {
+  return cluster >= 1 && cluster <= most && (cluster & (cluster - 1)) == 0 &&
+         stages >= 1 && stages <= stages_most;
+}
+
 template <int D, typename Loader>
-cudaError_t launch_flash_tc(FlashArgs a, int batch, cudaStream_t s) {
-  const int cl = flash_cluster<D>(a, a.stages);
+cudaError_t launch_flash_tc(FlashArgs a, int batch, int cluster, int stages,
+                            cudaStream_t s) {
+  int cl;
+  if (cluster == 0 && stages == 0) {
+    cl = flash_cluster<D>(a, a.stages);
+  } else {
+    if (!flash_override(cluster, stages, FT_MAX_CLUSTER, 2))
+      return cudaErrorInvalidValue;
+    cl = cluster;
+    a.stages = stages;
+  }
   const dim3 grid(cl, (a.Tq + FT_ROWS - 1) / FT_ROWS, a.H * batch);
   auto kernel = flash_tc_kernel<D, Loader>;
   static bool configured = false;     // per instantiation: per loader
@@ -623,14 +644,16 @@ cudaError_t launch_flash_tc(FlashArgs a, int batch, cudaStream_t s) {
 }
 
 template <typename Loader>
-cudaError_t flash_tc_by_dim(int D, const FlashArgs& a, int batch,
-                            cudaStream_t s) {
+cudaError_t flash_tc_by_dim(int D, const FlashArgs& a, int batch, int cluster,
+                            int stages, cudaStream_t s) {
   switch (D) {
-    case 16: return launch_flash_tc<16, Loader>(a, batch, s);
-    case 32: return launch_flash_tc<32, Loader>(a, batch, s);
-    case 64: return launch_flash_tc<64, Loader>(a, batch, s);
-    case 128: return launch_flash_tc<128, Loader>(a, batch, s);
-    case 256: return launch_flash_tc<256, Loader>(a, batch, s);
+    case 16: return launch_flash_tc<16, Loader>(a, batch, cluster, stages, s);
+    case 32: return launch_flash_tc<32, Loader>(a, batch, cluster, stages, s);
+    case 64: return launch_flash_tc<64, Loader>(a, batch, cluster, stages, s);
+    case 128:
+      return launch_flash_tc<128, Loader>(a, batch, cluster, stages, s);
+    case 256:
+      return launch_flash_tc<256, Loader>(a, batch, cluster, stages, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1087,9 +1110,17 @@ int f32_plan(const F32Args& a, int batch, int& nrb, int& stages) {
 }
 
 template <int D, typename Loader>
-cudaError_t launch_f32(F32Args a, int batch, cudaStream_t s) {
+cudaError_t launch_f32(F32Args a, int batch, int cluster, int stages,
+                       cudaStream_t s) {
   int nrb;
-  const int cl = f32_plan<D>(a, batch, nrb, a.stages);
+  int cl = f32_plan<D>(a, batch, nrb, a.stages);
+  if (cluster != 0 || stages != 0) {
+    if (!flash_override(cluster, stages, F32_MAX_CLUSTER,
+                        F32Tile<D>::MAX_STAGES))
+      return cudaErrorInvalidValue;
+    cl = cluster;
+    a.stages = stages;
+  }
   if (nrb == 0 || batch == 0) return cudaSuccess;
   if (nrb > 65535 || (long long)a.KVH * batch > 65535)
     return cudaErrorInvalidValue;
@@ -1119,13 +1150,14 @@ cudaError_t launch_f32(F32Args a, int batch, cudaStream_t s) {
 }
 
 template <typename Loader>
-cudaError_t f32_by_dim(int D, const F32Args& a, int batch, cudaStream_t s) {
+cudaError_t f32_by_dim(int D, const F32Args& a, int batch, int cluster,
+                       int stages, cudaStream_t s) {
   switch (D) {
-    case 16: return launch_f32<16, Loader>(a, batch, s);
-    case 32: return launch_f32<32, Loader>(a, batch, s);
-    case 64: return launch_f32<64, Loader>(a, batch, s);
-    case 128: return launch_f32<128, Loader>(a, batch, s);
-    case 256: return launch_f32<256, Loader>(a, batch, s);
+    case 16: return launch_f32<16, Loader>(a, batch, cluster, stages, s);
+    case 32: return launch_f32<32, Loader>(a, batch, cluster, stages, s);
+    case 64: return launch_f32<64, Loader>(a, batch, cluster, stages, s);
+    case 128: return launch_f32<128, Loader>(a, batch, cluster, stages, s);
+    case 256: return launch_f32<256, Loader>(a, batch, cluster, stages, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1136,8 +1168,10 @@ cudaError_t f32_by_dim(int D, const F32Args& a, int batch, cudaStream_t s) {
 // ---------------------------------------------------------------------------
 constexpr int DS_WARPS = 8;
 // Keys per block. A sweep of 32, 64, 128 and 256 on the H100, at B=1 S=784
-// and at B=4 S=2048 (MQA, D=256), found 64 fastest at both (PERF.md).
+// and at B=4 S=2048 (MQA, D=256), found 64 fastest at both (PERF.md). A
+// caller's plan may name another: a multiple of 16 up to DS_MAX_SPLIT.
 constexpr int DS_SPLIT = 64;
+constexpr int DS_MAX_SPLIT = 4096;
 
 struct SplitArgs {
   const void* q;       // (B, 1, H, D) contiguous
@@ -1153,6 +1187,7 @@ struct SplitArgs {
   int MP, npool, page; // paged geometry
   int window;          // 0 = global
   int n_splits;        // blocks per (sequence, kv head, head group): the grid
+  int split;           // keys per split (DS_SPLIT unless the caller's plan)
   int nz, groups;      // head groups per kv head; B * KVH * nz
   float softcap;       // 0 = none
   float scale;
@@ -1179,8 +1214,8 @@ __host__ __device__ __forceinline__ void decode_keys(int S, int pos,
 }
 
 // The split decode kernel's K/V loader policies: the live keys [lo, hi) of
-// sequence b; where split 0 starts (split s covers [first + s * DS_SPLIT,
-// first + (s + 1) * DS_SPLIT) inside [lo, hi)); and where key row kpos of
+// sequence b; where split 0 starts (split s covers [first + s * split,
+// first + (s + 1) * split) inside [lo, hi)); and where key row kpos of
 // kv head kvh lies, in 16-byte words from channel d0.
 //
 // Dense: the range from the host's pos, splits from lo (the host plans
@@ -1207,8 +1242,8 @@ struct DenseDecodeKV {
 
 // Paged: the range from the slot's length in device memory (the host never
 // reads it, so a step's launch is the same whatever the lengths), within
-// the table's reach; splits on multiples of DS_SPLIT, so where the page
-// divides DS_SPLIT a split covers whole pages (page 64: one page, one
+// the table's reach; splits on multiples of the split, so where the page
+// divides it a split covers whole pages (page 64: one page, one
 // table entry). A row's page comes from the slot's block table; a key
 // outside [lo, hi) is never read, nor its table entry.
 template <typename T>
@@ -1226,7 +1261,7 @@ struct PagedDecodeKV {
     page = p.page;
     dim = D;
     decode_keys(p.MP * p.page, p.lengths[b] - 1, p.window, lo, hi);
-    first = lo / DS_SPLIT * DS_SPLIT;
+    first = lo / p.split * p.split;
   }
   __device__ long long row(int kpos) const {
     return ((long long)__ldg(table + kpos / page) * page + kpos % page) * dim;
@@ -1289,10 +1324,10 @@ decode_split_kernel(SplitArgs p) {
   // A sequence with no live key still has one split: it writes a zero row.
   const Loader kv(p, b, kvh, D, d0);
   const int live = kv.hi > kv.lo
-                       ? (kv.hi - kv.first + DS_SPLIT - 1) / DS_SPLIT : 1;
+                       ? (kv.hi - kv.first + p.split - 1) / p.split : 1;
   if (split >= live) return;
-  const int k_lo = max(kv.lo, kv.first + split * DS_SPLIT);
-  const int k_hi = min(kv.hi, kv.first + (split + 1) * DS_SPLIT);
+  const int k_lo = max(kv.lo, kv.first + split * p.split);
+  const int k_hi = min(kv.hi, kv.first + (split + 1) * p.split);
 
   float qr[REP][E], acc[REP][E], m[REP], l[REP];
 #pragma unroll
@@ -1452,37 +1487,45 @@ inline int split_rep(int H, int KVH) { return H / KVH <= 4 ? 4 : 8; }
 // groups), [2] query heads per block, [3] keys per split, [4] 4-byte words
 // of partials (none where a group has one split). Each group also takes
 // one ticket, in a buffer of its own.
-void fill_plan(int splits, int B, int H, int KVH, int D, long long* plan) {
+void fill_plan(int splits, int split, int B, int H, int KVH, int D,
+               long long* plan) {
   const int rep_blk = split_rep(H, KVH);
   const int rep = H / KVH;
   plan[0] = splits;
   plan[1] = (long long)B * KVH * ((rep + rep_blk - 1) / rep_blk);
   plan[2] = rep_blk;
-  plan[3] = DS_SPLIT;
+  plan[3] = split;
   plan[4] = splits > 1 ? splits * plan[1] * rep_blk * (D + 2LL) : 0;
+}
+
+// Keys per split: DS_SPLIT for 0, else the caller's (a multiple of 16 up
+// to DS_MAX_SPLIT), or 0 where it is none of these.
+inline int split_keys(int split) {
+  if (split == 0) return DS_SPLIT;
+  return split >= 16 && split <= DS_MAX_SPLIT && split % 16 == 0 ? split : 0;
 }
 
 // Dense: exactly the live splits of the host's pos.
 void decode_plan(int B, int S, int H, int KVH, int D, int pos, int window,
-                 long long* plan) {
+                 int split, long long* plan) {
   int lo, hi;
   decode_keys(S, pos, window, lo, hi);
   const int live = hi > lo ? hi - lo : 0;
-  fill_plan(live > 0 ? (live + DS_SPLIT - 1) / DS_SPLIT : 1, B, H, KVH, D,
+  fill_plan(live > 0 ? (live + split - 1) / split : 1, split, B, H, KVH, D,
             plan);
 }
 
 // Paged: from the shapes alone, the most splits any length can make live:
 // the table's reach, or a window (one more where it starts mid-split).
 void paged_plan(int S, int MP, int page, int H, int KVH, int D, int window,
-                long long* plan) {
+                int split, long long* plan) {
   const long long reach = (long long)MP * page;
-  long long splits = (reach + DS_SPLIT - 1) / DS_SPLIT;
+  long long splits = (reach + split - 1) / split;
   if (window > 0) {
-    const long long w = (window + DS_SPLIT - 1) / DS_SPLIT + 1;
+    const long long w = (window + split - 1) / split + 1;
     if (w < splits) splits = w;
   }
-  fill_plan(splits > 1 ? (int)splits : 1, S, H, KVH, D, plan);
+  fill_plan(splits > 1 ? (int)splits : 1, split, S, H, KVH, D, plan);
 }
 
 template <int D, typename T, int REP, typename Loader>
@@ -1524,12 +1567,27 @@ cudaError_t split_dispatch(int dtype, int D, int rep_blk, const SplitArgs& a,
                       : split_by_dim<float, 8, Loader>(D, a, s);
 }
 
+// The default (blocks per cluster, stages) of a flash call, by head dim.
+template <int D>
+void flash_default(const FlashArgs& a, const F32Args& f, int batch,
+                   int dtype, long long* plan) {
+  int stages = 1, nrb = 0;
+  plan[0] = dtype == DT_BF16 ? flash_cluster<D>(a, stages)
+                             : f32_plan<D>(f, batch, nrb, stages);
+  plan[1] = stages;
+}
+
 }  // namespace
 
+// flash_attention: q (B, Tq, H, D), k / v (B, Tk, KVH, D), queries
+// right-aligned to the keys. cluster, stages: the caller's plan (blocks
+// per cluster 1, 2 or 4; stages 1 or 2, fp32 at D = 256 only 1), or 0, 0
+// for the call's own (flash_attention_plan); a plan the kernel cannot run
+// is cudaErrorInvalidValue.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int Tq, int Tk,
     int H, int KVH, int D, int causal, int window, float softcap, float scale,
-    int dtype, void* stream) {
+    int dtype, void* stream, int cluster, int stages) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DT_BF16) {
     FlashArgs a{};
@@ -1537,7 +1595,7 @@ extern "C" int flash_attention_launch(
     a.v = static_cast<const bf16*>(v); a.o = static_cast<bf16*>(o);
     a.Tq = Tq; a.Tk = Tk; a.H = H; a.KVH = KVH; a.q_offset = Tk - Tq;
     a.causal = causal; a.window = window; a.softcap = softcap; a.scale = scale;
-    return (int)flash_tc_by_dim<DenseKV>(D, a, B, s);
+    return (int)flash_tc_by_dim<DenseKV>(D, a, B, cluster, stages, s);
   }
   F32Args a{};
   a.q = static_cast<const float*>(q); a.k = static_cast<const float*>(k);
@@ -1547,7 +1605,29 @@ extern "C" int flash_attention_launch(
   a.q_offset = Tk - Tq; a.kv_len = Tk;
   a.causal = causal; a.window = window; a.npool = 0; a.page = 1;
   a.softcap = softcap; a.scale = scale;
-  return (int)f32_by_dim<DenseKV32>(D, a, B, s);
+  return (int)f32_by_dim<DenseKV32>(D, a, B, cluster, stages, s);
+}
+
+// The plan a flash call of these arguments runs when the caller names
+// none; launches nothing. plan: [0] blocks per cluster, [1] stages.
+extern "C" int flash_attention_plan(int B, int Tq, int Tk, int H, int KVH,
+                                    int D, int causal, int window, int dtype,
+                                    long long* plan) {
+  if (KVH <= 0 || H % KVH) return (int)cudaErrorInvalidValue;
+  FlashArgs a{};
+  a.Tq = Tq; a.Tk = Tk; a.H = H; a.KVH = KVH; a.q_offset = Tk - Tq;
+  a.causal = causal; a.window = window;
+  F32Args f{};
+  f.Tq = Tq; f.H = H; f.KVH = KVH; f.q_offset = Tk - Tq; f.kv_len = Tk;
+  f.causal = causal; f.window = window; f.page = 1;
+  switch (D) {
+    case 16: flash_default<16>(a, f, B, dtype, plan); return 0;
+    case 32: flash_default<32>(a, f, B, dtype, plan); return 0;
+    case 64: flash_default<64>(a, f, B, dtype, plan); return 0;
+    case 128: flash_default<128>(a, f, B, dtype, plan); return 0;
+    case 256: flash_default<256>(a, f, B, dtype, plan); return 0;
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // bf16: the tensor-core flash kernel through PagedKV, the queries at
@@ -1568,7 +1648,7 @@ extern "C" int paged_prefill_launch(
     a.table = table; a.npool = npool; a.page = page;
     a.Tq = Tq; a.Tk = start + Tq; a.H = H; a.KVH = KVH; a.q_offset = start;
     a.causal = 1; a.window = window; a.softcap = softcap; a.scale = scale;
-    return (int)flash_tc_by_dim<PagedKV>(D, a, 1, s);
+    return (int)flash_tc_by_dim<PagedKV>(D, a, 1, 0, 0, s);
   }
   F32Args a{};
   a.q = static_cast<const float*>(q);
@@ -1580,23 +1660,28 @@ extern "C" int paged_prefill_launch(
   a.q_offset = start; a.kv_len = start + Tq;
   a.causal = 1; a.window = window; a.npool = npool; a.page = page;
   a.softcap = softcap; a.scale = scale;
-  return (int)f32_by_dim<PagedKV32>(D, a, 1, s);
+  return (int)f32_by_dim<PagedKV32>(D, a, 1, 0, 0, s);
 }
 
 // The split decode kernel's plan for a dense call (see decode_plan) and for
-// a paged one (see paged_plan); launch nothing.
+// a paged one (see paged_plan); launch nothing. The paged call's split:
+// keys per split, 0 for DS_SPLIT, else a multiple of 16 up to
+// DS_MAX_SPLIT (the caller's plan; another value is
+// cudaErrorInvalidValue).
 extern "C" int decode_attention_plan(int B, int S, int H, int KVH, int D,
                                      int pos, int window, long long* plan) {
   if (KVH <= 0 || H % KVH) return (int)cudaErrorInvalidValue;
-  decode_plan(B, S, H, KVH, D, pos, window, plan);
+  decode_plan(B, S, H, KVH, D, pos, window, DS_SPLIT, plan);
   return 0;
 }
 
 extern "C" int paged_decode_plan(int S, int MP, int page, int H, int KVH,
-                                 int D, int window, long long* plan) {
-  if (KVH <= 0 || H % KVH || MP <= 0 || page <= 0)
+                                 int D, int window, int split,
+                                 long long* plan) {
+  const int keys = split_keys(split);
+  if (KVH <= 0 || H % KVH || MP <= 0 || page <= 0 || keys == 0)
     return (int)cudaErrorInvalidValue;
-  paged_plan(S, MP, page, H, KVH, D, window, plan);
+  paged_plan(S, MP, page, H, KVH, D, window, keys, plan);
   return 0;
 }
 
@@ -1612,6 +1697,7 @@ extern "C" int decode_attention_launch(
   SplitArgs a{};
   a.q = q; a.k = k; a.v = v; a.o = o; a.ws = ws; a.tickets = tickets;
   a.n_splits = (int)plan[0]; a.groups = (int)plan[1];
+  a.split = (int)plan[3];
   a.H = H; a.KVH = KVH; a.S = S; a.pos = pos; a.window = window;
   a.nz = (H / KVH + (int)plan[2] - 1) / (int)plan[2];
   a.softcap = softcap; a.scale = scale;
@@ -1620,19 +1706,22 @@ extern "C" int decode_attention_launch(
 }
 
 // One launch whatever the lengths: the grid comes from the shapes, and
-// each block reads its slot's length on the card.
+// each block reads its slot's length on the card. split: as for
+// paged_decode_plan.
 extern "C" int paged_decode_launch(
     const void* q, const void* k_pool, const void* v_pool, const int* tables,
     const int* lengths, void* o, int S, int MP, int H, int KVH, int D,
     int npool, int page, int window, float softcap, float scale, int dtype,
-    void* stream, float* ws, int* tickets) {
+    void* stream, float* ws, int* tickets, int split) {
   long long plan[5];
-  const int err = paged_decode_plan(S, MP, page, H, KVH, D, window, plan);
+  const int err =
+      paged_decode_plan(S, MP, page, H, KVH, D, window, split, plan);
   if (err) return err;
   SplitArgs a{};
   a.q = q; a.k = k_pool; a.v = v_pool; a.o = o; a.ws = ws;
   a.tickets = tickets; a.tables = tables; a.lengths = lengths;
   a.n_splits = (int)plan[0]; a.groups = (int)plan[1];
+  a.split = (int)plan[3];
   a.H = H; a.KVH = KVH; a.MP = MP; a.npool = npool; a.page = page;
   a.window = window;
   a.nz = (H / KVH + (int)plan[2] - 1) / (int)plan[2];

@@ -369,7 +369,7 @@ ConvStripA<BYTES, ES, KU> strip_loader(const Shape& sh, const void* x, int m,
 template <typename In>
 int launch_tc(const Shape& sh, const void* x, const void* w, const void* bias,
               void* out, int out_code, int act, int shift, float out_scale,
-              void* workspace, cudaStream_t s) {
+              void* workspace, cudaStream_t s, int tile, int splits) {
   using Acc = typename igemm::Dp<In>::Acc;
   constexpr int ES = (int)sizeof(In);
   const int8_t* X = static_cast<const int8_t*>(x);
@@ -382,23 +382,25 @@ int launch_tc(const Shape& sh, const void* x, const void* w, const void* bias,
     const ConvRowsA al{{X, ci, m, ci, igemm::granule(X, ci)}};
     return static_cast<int>(igemm::launch<In, ConvRowsA, false>(
         al, B, sh.co, 0, D, 0, out, code, m, sh.co, k, shift, out_scale, act,
-        0, workspace, s));
+        0, workspace, s, 0, tile, splits));
   }
-  const igemm::Plan pl = igemm::plan_here(m, sh.co, k, 0, ES);
+  igemm::Plan pl;
+  if (!igemm::resolve_here(m, sh.co, k, 0, ES, tile, splits, pl))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Strips st = strip_geometry(sh, pl.bm, ES);
   if (st.bytes > 0) {
     using Strip = ConvStripA<16, ES, 1>;
     const Strip al = strip_loader<16, ES, 1>(sh, x, m, pl.bm, pl.smem, st);
     return static_cast<int>(igemm::launch<In, Strip, false>(
         al, B, sh.co, 0, D, 0, out, code, m, sh.co, k, shift, out_scale, act,
-        0, workspace, s, st.bytes));
+        0, workspace, s, st.bytes, tile, splits));
   }
   const ConvTapsA<16, 1> al{X,     sh.h,  sh.w,      ci,     sh.oh, sh.ow,
                             sh.kh, sh.kw, sh.stride, sh.pad, m,
                             taps_granule<16, 1>(X, ci)};
   return static_cast<int>(igemm::launch<In, ConvTapsA<16, 1>, false>(
       al, B, sh.co, 0, D, 0, out, code, m, sh.co, k, shift, out_scale, act,
-      0, workspace, s));
+      0, workspace, s, 0, tile, splits));
 }
 
 // The CUDA-core loop's plan for the conv (fp32 and int16 alike). One
@@ -477,6 +479,23 @@ sgemm::Plan cc_plan(int m, int n, int k, int sms) {
   return cc_plan_of<In>(m, n, k, best_s);
 }
 
+// The conv's plan with its K splits chosen by the caller (its one tile
+// shape: tile code 1); false where the kernel cannot run it: more splits
+// than k steps or than a tile merges (CC_MAX_SPLITS), or split partials
+// past the tickets.
+template <typename In>
+bool cc_resolve(int m, int n, int k, int tile, int splits, sgemm::Plan& p) {
+  if (tile == 0 && splits == 0) {
+    p = cc_plan<In>(m, n, k, hgemm::sm_count());
+    return true;
+  }
+  p = cc_plan_of<In>(m, n, k, splits > 0 ? splits : 1);
+  const long long tiles = (long long)p.tiles_m * p.tiles_n;
+  return tile == 1 && splits >= 1 && splits <= CC_MAX_SPLITS &&
+         splits <= (p.ksteps > 1 ? p.ksteps : 1) &&
+         (splits == 1 || tiles <= hgemm::MAX_TICKETS);
+}
+
 template <typename In, typename ALoad>
 int launch_cc_shape(const sgemm::Plan& pl, const sgemm::Args<In>& a,
                     const ALoad& al, int smem, cudaStream_t s) {
@@ -489,12 +508,14 @@ int launch_cc_shape(const sgemm::Plan& pl, const sgemm::Args<In>& a,
 template <typename In>
 int launch_cc(const Shape& sh, const void* x, const void* w, const void* bias,
               void* out, int out_code, int act, int shift, float out_scale,
-              void* workspace, cudaStream_t s) {
+              void* workspace, cudaStream_t s, int tile, int splits) {
   using Acc = typename sgemm::Dp<In>::Acc;
   constexpr int ES = (int)sizeof(In);
   const In* X = static_cast<const In*>(x);
   const int m = sh.m(), k = sh.k();
-  const sgemm::Plan pl = cc_plan<In>(m, sh.co, k, hgemm::sm_count());
+  sgemm::Plan pl;
+  if (!cc_resolve<In>(m, sh.co, k, tile, splits, pl))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (pl.splits > 1 && workspace == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const sgemm::Args<In> a = sgemm::make_args<In>(
@@ -524,31 +545,33 @@ int launch_cc(const Shape& sh, const void* x, const void* w, const void* bias,
 // CO) of out_dtype (OUT_* of the accumulator's kind); shift in [0, 31]
 // (integer) and out_scale 2^-shift (float); workspace: inputs whose plan
 // (conv_plan) splits K, its plan[9] 4-byte words owned by the stream, else
-// null.
+// null; tile, splits: the caller's plan (conv_plan's tile codes), or 0, 0
+// for the call's own.
 extern "C" int conv2d_launch(const void* x, const void* w, const void* bias,
                              void* out, int n, int h, int wd, int ci, int co,
                              int kh, int kw, int stride, int pad, int oh,
                              int ow, int in_dtype, int out_dtype, int act,
                              int shift, float out_scale, void* stream,
-                             void* workspace) {
+                             void* workspace, int tile, int splits) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Shape sh{n, h, wd, ci, co, kh, kw, stride, pad, oh, ow};
   switch (in_dtype) {
     case IN_I8:
       return launch_tc<int8_t>(sh, x, w, bias, out, out_dtype, act, shift,
-                               1.f, workspace, s);
+                               1.f, workspace, s, tile, splits);
     case IN_BF16:
       return launch_tc<__nv_bfloat16>(sh, x, w, bias, out, out_dtype, act,
-                                      shift, out_scale, workspace, s);
+                                      shift, out_scale, workspace, s, tile,
+                                      splits);
     case IN_F16:
       return launch_tc<__half>(sh, x, w, bias, out, out_dtype, act, shift,
-                               out_scale, workspace, s);
+                               out_scale, workspace, s, tile, splits);
     case IN_F32:
       return launch_cc<float>(sh, x, w, bias, out, out_dtype, act, shift,
-                              out_scale, workspace, s);
+                              out_scale, workspace, s, tile, splits);
     case IN_I16:
       return launch_cc<int16_t>(sh, x, w, bias, out, out_dtype, act, shift,
-                                1.f, workspace, s);
+                                1.f, workspace, s, tile, splits);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -560,26 +583,34 @@ extern "C" int conv2d_launch(const void* x, const void* w, const void* bias,
 // tensor-core loop; 2 the CUDA-core loop), [1] block rows, [2] block
 // columns, [3] k bytes (tensor cores) or values (CUDA cores) per stage,
 // [4] K splits, [5] blocks, [6] threads per block, [7] ring stages, [8]
-// shared memory bytes, [9] workspace 4-byte words (0 for one split).
-extern "C" int conv_plan(int m, int n, int k, int in_dtype,
-                         long long* plan) {
+// shared memory bytes, [9] workspace 4-byte words (0 for one split), [10]
+// the tile code. tile, splits: the caller's plan, or 0, 0 for the call's
+// own; tile codes: the tensor-core loop 1 skinny, 2 square (any M); the
+// CUDA-core loop 1 (its one shape); a plan the kernel cannot run is
+// cudaErrorInvalidValue.
+extern "C" int conv_plan(int m, int n, int k, int in_dtype, int tile,
+                         int splits, long long* plan) {
   if (m < 0 || n < 0 || k < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (in_dtype == IN_F32 || in_dtype == IN_I16) {
-    const sgemm::Plan p =
-        in_dtype == IN_F32
-            ? cc_plan<float>(m, n, k, hgemm::sm_count())
-            : cc_plan<int16_t>(m, n, k, hgemm::sm_count());
-    const long long out[10] = {2,        p.bm,     p.bn,      p.bk,
+    sgemm::Plan p;
+    const bool ok = in_dtype == IN_F32
+                        ? cc_resolve<float>(m, n, k, tile, splits, p)
+                        : cc_resolve<int16_t>(m, n, k, tile, splits, p);
+    if (!ok) return bad;
+    const long long out[11] = {2,        p.bm,     p.bn,      p.bk,
                                p.splits, p.blocks, p.threads, p.stages,
-                               p.smem,   p.ws_words};
-    for (int i = 0; i < 10; ++i) plan[i] = out[i];
+                               p.smem,   p.ws_words, 1};
+    for (int i = 0; i < 11; ++i) plan[i] = out[i];
     return 0;
   }
-  const igemm::Plan p =
-      igemm::plan_here(m, n, k, 0, in_dtype == IN_I8 ? 1 : 2);
-  const long long out[10] = {p.regime, p.bm,     p.bn,      igemm::BK,
+  igemm::Plan p;
+  if (!igemm::resolve_here(m, n, k, 0, in_dtype == IN_I8 ? 1 : 2, tile,
+                           splits, p))
+    return bad;
+  const long long out[11] = {p.regime, p.bm,     p.bn,      igemm::BK,
                              p.splits, p.blocks, p.threads, p.stages,
-                             p.smem,   p.ws_words};
-  for (int i = 0; i < 10; ++i) plan[i] = out[i];
+                             p.smem,   p.ws_words, igemm::tile_code(p)};
+  for (int i = 0; i < 11; ++i) plan[i] = out[i];
   return 0;
 }

@@ -47,7 +47,8 @@
 // C interface: gemm_launch (bf16 / fp32 inputs), gemm_plan (the bf16,
 // fp16, fp32 or int16 kernel's plan for a shape), gemm_s8_launch (int8
 // inputs), gemm_s8_plan (the int8 kernel's plan), epilogue_launch; each
-// launch returns cudaGetLastError().
+// launch returns cudaGetLastError(). The GEMM entries take an optional
+// plan (tile, splits), the tuner's: 0, 0 runs the plan of the shape.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -73,15 +74,16 @@ template <typename OutT>
 int launch_typed(const void* a, const void* b, const float* d, OutT* c, int m,
                  int n, int k, long long lda, long long ldb, int b_trans,
                  long long ldd, int in_dtype, int act, float out_scale, int ws,
-                 void* workspace, cudaStream_t s) {
+                 void* workspace, cudaStream_t s, int tile, int splits) {
   if (in_dtype == DT_BF16)
     return static_cast<int>(hgemm::launch<__nv_bfloat16, OutT>(
         static_cast<const __nv_bfloat16*>(a),
         static_cast<const __nv_bfloat16*>(b), d, c, m, n, k, lda, ldb,
-        b_trans, ldd, act, out_scale, ws, workspace, s));
+        b_trans, ldd, act, out_scale, ws, workspace, s, tile, splits));
   return static_cast<int>(sgemm::launch_gemm<float, OutT>(
       static_cast<const float*>(a), static_cast<const float*>(b), d, c, m, n,
-      k, lda, ldb, b_trans, ldd, act, 0, out_scale, ws, workspace, s));
+      k, lda, ldb, b_trans, ldd, act, 0, out_scale, ws, workspace, s, tile,
+      splits));
 }
 
 // accumulator_epilogue. Each thread takes whole runs of four values: one
@@ -209,25 +211,28 @@ int launch_epilogue(const void* acc, void* c, long long count, int shift,
 // one row), or null; c: contiguous (M, N) output; in_dtype fp32 (0) or
 // bf16 (1); out_dtype fp32 (0), bf16 (1) or fp16 (2); ws: weight-major
 // order; workspace: inputs whose plan splits K, gemm_plan's plan[9] 4-byte
-// words owned by the stream (tickets zeroed when it was made), else null.
+// words owned by the stream (tickets zeroed when it was made), else null;
+// tile, splits: the caller's plan (gemm_plan's tile codes), or 0, 0 for
+// the call's own; a plan the kernel cannot run is cudaErrorInvalidValue.
 extern "C" int gemm_launch(const void* a, const void* b, const void* d, void* c,
                            int m, int n, int k, long long lda, long long ldb,
                            int b_trans, long long ldd, int in_dtype,
                            int out_dtype, int act, float out_scale, int ws,
-                           void* stream, void* workspace) {
+                           void* stream, void* workspace, int tile,
+                           int splits) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* D = static_cast<const float*>(d);
   if (out_dtype == DT_BF16)
     return launch_typed<__nv_bfloat16>(
         a, b, D, static_cast<__nv_bfloat16*>(c), m, n, k, lda, ldb, b_trans,
-        ldd, in_dtype, act, out_scale, ws, workspace, s);
+        ldd, in_dtype, act, out_scale, ws, workspace, s, tile, splits);
   if (out_dtype == DT_F16)
     return launch_typed<__half>(a, b, D, static_cast<__half*>(c), m, n, k, lda,
                                 ldb, b_trans, ldd, in_dtype, act, out_scale,
-                                ws, workspace, s);
+                                ws, workspace, s, tile, splits);
   return launch_typed<float>(a, b, D, static_cast<float*>(c), m, n, k, lda,
                              ldb, b_trans, ldd, in_dtype, act, out_scale, ws,
-                             workspace, s);
+                             workspace, s, tile, splits);
 }
 
 // The kernel's plan for an (M, N, K) call with fp32 (in_dtype 0), bf16
@@ -239,33 +244,45 @@ extern "C" int gemm_launch(const void* a, const void* b, const void* d, void* c,
 // 16 x 64 tiles for int16; 1 wide; 2 fp32 CUDA cores; 3 square: int16's 64
 // x 64 tiles), [1] block rows, [2] block columns, [3] k per stage, [4] K
 // splits, [5] blocks, [6] threads per block, [7] ring stages, [8] shared
-// memory bytes, [9] workspace 4-byte words (0 for one split).
+// memory bytes, [9] workspace 4-byte words (0 for one split), [10] the
+// plan's tile code. tile, splits: the caller's plan, or 0, 0 for the
+// call's own; tile codes: bf16 / fp16 1 skinny (M <= 16), 2-5 the wide
+// tiles 128 x 64, 128 x 128, 128 x 256, 64 x 256 (M > 16); fp32 1 and 2
+// for 64- and 128-row tiles; int16 1 skinny, 2 square (any M); a plan the
+// kernel cannot run is cudaErrorInvalidValue.
 extern "C" int gemm_plan(int m, int n, int k, int b_trans, int in_dtype,
-                         long long* plan) {
+                         int tile, int splits, long long* plan) {
   if (m < 0 || n < 0 || k < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (in_dtype == DT_F32) {
-    const sgemm::Plan p =
-        sgemm::plan<float>(m, n, k, b_trans, hgemm::sm_count());
-    const long long out[10] = {2,        p.bm,     p.bn,      p.bk,
+    sgemm::Plan p;
+    if (!sgemm::resolve<float>(m, n, k, b_trans, hgemm::sm_count(), tile,
+                               splits, p))
+      return bad;
+    const long long out[11] = {2,        p.bm,     p.bn,      p.bk,
                                p.splits, p.blocks, p.threads, p.stages,
-                               p.smem,   p.ws_words};
-    for (int i = 0; i < 10; ++i) plan[i] = out[i];
+                               p.smem,   p.ws_words, sgemm::tile_code(p)};
+    for (int i = 0; i < 11; ++i) plan[i] = out[i];
     return 0;
   }
   if (in_dtype == DT_I16) {
-    const igemm::Plan p = igemm::plan_here(m, n, k, b_trans, 2);
-    const long long out[10] = {p.regime == igemm::SKINNY ? 0 : 3,
+    igemm::Plan p;
+    if (!igemm::resolve_here(m, n, k, b_trans, 2, tile, splits, p))
+      return bad;
+    const long long out[11] = {p.regime == igemm::SKINNY ? 0 : 3,
                                p.bm,     p.bn,     igemm::BK / 2,
                                p.splits, p.blocks, p.threads, p.stages,
-                               p.smem,   p.ws_words};
-    for (int i = 0; i < 10; ++i) plan[i] = out[i];
+                               p.smem,   p.ws_words, igemm::tile_code(p)};
+    for (int i = 0; i < 11; ++i) plan[i] = out[i];
     return 0;
   }
-  const hgemm::Plan p = hgemm::plan(m, n, k, b_trans, hgemm::sm_count());
-  const long long out[10] = {p.wide,   p.bm,     p.bn,      p.bk,
+  hgemm::Plan p;
+  if (!hgemm::resolve(m, n, k, b_trans, hgemm::sm_count(), tile, splits, p))
+    return bad;
+  const long long out[11] = {p.wide,   p.bm,     p.bn,      p.bk,
                              p.splits, p.blocks, p.threads, p.stages,
-                             p.smem,   p.ws_words};
-  for (int i = 0; i < 10; ++i) plan[i] = out[i];
+                             p.smem,   p.ws_words, hgemm::tile_code(p)};
+  for (int i = 0; i < 11; ++i) plan[i] = out[i];
   return 0;
 }
 
@@ -274,15 +291,20 @@ extern "C" int gemm_plan(int m, int n, int k, int b_trans, int in_dtype,
 // launches nothing. plan: [0] regime (0 skinny 16 x 64, 1 square 64 x 64),
 // [1] block rows, [2] block columns, [3] k per stage, [4] K splits, [5]
 // blocks, [6] threads per block, [7] ring stages, [8] shared memory bytes,
-// [9] workspace 4-byte words (0 for one split).
-extern "C" int gemm_s8_plan(int m, int n, int k, int b_trans,
-                            long long* plan) {
+// [9] workspace 4-byte words (0 for one split), [10] the tile code (1
+// skinny, 2 square). tile, splits: the caller's plan (either tile at any
+// M), or 0, 0 for the call's own; a plan the kernel cannot run is
+// cudaErrorInvalidValue.
+extern "C" int gemm_s8_plan(int m, int n, int k, int b_trans, int tile,
+                            int splits, long long* plan) {
   if (m < 0 || n < 0 || k < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const igemm::Plan p = igemm::plan_here(m, n, k, b_trans);
-  const long long out[10] = {p.regime, p.bm,     p.bn,      igemm::BK,
+  igemm::Plan p;
+  if (!igemm::resolve_here(m, n, k, b_trans, 1, tile, splits, p))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long out[11] = {p.regime, p.bm,     p.bn,      igemm::BK,
                              p.splits, p.blocks, p.threads, p.stages,
-                             p.smem,   p.ws_words};
-  for (int i = 0; i < 10; ++i) plan[i] = out[i];
+                             p.smem,   p.ws_words, igemm::tile_code(p)};
+  for (int i = 0; i < 11; ++i) plan[i] = out[i];
   return 0;
 }
 
@@ -291,18 +313,20 @@ extern "C" int gemm_s8_plan(int m, int n, int k, int b_trans,
 // int32 (out_dtype 0), int8 (1) or int16 (2); shift in [0, 31]; ws:
 // weight-stationary;
 // workspace: inputs whose plan splits K, gemm_s8_plan's plan[9] 4-byte
-// words owned by the stream (tickets zeroed when it was made), else null.
+// words owned by the stream (tickets zeroed when it was made), else null;
+// tile, splits: as for gemm_s8_plan.
 extern "C" int gemm_s8_launch(const void* a, const void* b, const void* d,
                               void* c, int m, int n, int k, long long lda,
                               long long ldb, int b_trans, long long ldd,
                               int out_dtype, int act, int shift, int ws,
-                              void* stream, void* workspace) {
+                              void* stream, void* workspace, int tile,
+                              int splits) {
   const int8_t* A = static_cast<const int8_t*>(a);
   const igemm::MatrixA al{A, lda, m, k, igemm::granule(A, lda)};
   return static_cast<int>(igemm::launch<int8_t>(
       al, static_cast<const int8_t*>(b), ldb, b_trans,
       static_cast<const int*>(d), ldd, c, out_dtype, m, n, k, shift, 1.f, act,
-      ws, workspace, static_cast<cudaStream_t>(stream)));
+      ws, workspace, static_cast<cudaStream_t>(stream), 0, tile, splits));
 }
 
 // acc: contiguous int32 (acc_dtype 0) or fp32 (1) values; c: the same

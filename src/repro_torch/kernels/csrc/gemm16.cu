@@ -47,11 +47,11 @@ template <typename OutT>
 int launch_f16(const void* a, const void* b, const void* d, void* c, int m,
                int n, int k, long long lda, long long ldb, int b_trans,
                long long ldd, int act, float out_scale, int ws,
-               void* workspace, cudaStream_t s) {
+               void* workspace, cudaStream_t s, int tile, int splits) {
   return static_cast<int>(hgemm::launch<__half, OutT>(
       static_cast<const __half*>(a), static_cast<const __half*>(b),
       static_cast<const float*>(d), static_cast<OutT*>(c), m, n, k, lda, ldb,
-      b_trans, ldd, act, out_scale, ws, workspace, s));
+      b_trans, ldd, act, out_scale, ws, workspace, s, tile, splits));
 }
 
 }  // namespace
@@ -61,38 +61,42 @@ int launch_f16(const void* a, const void* b, const void* d, void* c, int m,
 // broadcasts one row), or null; c: contiguous (M, N) fp32 (out_dtype 0),
 // bf16 (1) or fp16 (2); ws: weight-major order; workspace: inputs whose
 // plan (gemm_plan, in_dtype 2) splits K, its plan[9] 4-byte words owned by
-// the stream, else null.
+// the stream, else null; tile, splits: the caller's plan (gemm_plan's tile
+// codes), or 0, 0 for the call's own.
 extern "C" int gemm_f16_launch(const void* a, const void* b, const void* d,
                                void* c, int m, int n, int k, long long lda,
                                long long ldb, int b_trans, long long ldd,
                                int out_dtype, int act, float out_scale,
-                               int ws, void* stream, void* workspace) {
+                               int ws, void* stream, void* workspace,
+                               int tile, int splits) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (out_dtype == DT_BF16)
     return launch_f16<__nv_bfloat16>(a, b, d, c, m, n, k, lda, ldb, b_trans,
-                                     ldd, act, out_scale, ws, workspace, s);
+                                     ldd, act, out_scale, ws, workspace, s,
+                                     tile, splits);
   if (out_dtype == DT_F16)
     return launch_f16<__half>(a, b, d, c, m, n, k, lda, ldb, b_trans, ldd,
-                              act, out_scale, ws, workspace, s);
+                              act, out_scale, ws, workspace, s, tile, splits);
   return launch_f16<float>(a, b, d, c, m, n, k, lda, ldb, b_trans, ldd, act,
-                           out_scale, ws, workspace, s);
+                           out_scale, ws, workspace, s, tile, splits);
 }
 
 // int16 inputs: a, b as for gemm_f16_launch; d: int32 bias, row stride ldd
 // (0 broadcasts one row), or null; c: contiguous (M, N) int32 (out_dtype
 // 0), int8 (1) or int16 (2); shift in [0, 31]; workspace: inputs whose plan
 // (gemm_plan, in_dtype 3) splits K, its plan[9] 4-byte words owned by the
-// stream, else null.
+// stream, else null; tile, splits: as for gemm_f16_launch.
 extern "C" int gemm_s16_launch(const void* a, const void* b, const void* d,
                                void* c, int m, int n, int k, long long lda,
                                long long ldb, int b_trans, long long ldd,
                                int out_dtype, int act, int shift, int ws,
-                               void* stream, void* workspace) {
+                               void* stream, void* workspace, int tile,
+                               int splits) {
   // A as bytes: rows of 2 K bytes at a stride of 2 lda
   const int8_t* A = static_cast<const int8_t*>(a);
   const igemm::MatrixA al{A, 2 * lda, m, 2 * k, igemm::granule(A, 2 * lda)};
   return static_cast<int>(igemm::launch<int16_t>(
       al, static_cast<const int16_t*>(b), ldb, b_trans,
       static_cast<const int*>(d), ldd, c, out_dtype, m, n, k, shift, 1.f, act,
-      ws, workspace, static_cast<cudaStream_t>(stream)));
+      ws, workspace, static_cast<cudaStream_t>(stream), 0, tile, splits));
 }

@@ -146,6 +146,19 @@ inline int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
 
 inline int max_clusters(int size);
 
+// A plan's blocks and workspace from its tiles and splits: a skinny
+// block's fp32 partials (32 lanes x warps x values a lane, per 8 rows),
+// tickets ahead of them; a wide plan merges within its cluster.
+inline void set_blocks(Plan& p, int m, int b_trans) {
+  const long long tiles = (long long)p.tiles_m * p.tiles_n;
+  p.blocks = tiles * p.splits;
+  p.part_words = !p.wide && p.splits > 1
+                     ? p.blocks * 32LL * p.warps_n * (b_trans ? 4 : 16) *
+                           (m > 8 ? 2 : 1)
+                     : 0;
+  p.ws_words = !p.wide && p.splits > 1 ? MAX_TICKETS + p.part_words : 0;
+}
+
 // A wide plan of tile shape `shape` with `splits` K splits (0: as many as
 // fill the SMs, each at least WD_MIN_STEPS k steps, at most WD_MAX_SPLITS,
 // and no more than one wave of clusters: a split count whose clusters the
@@ -222,16 +235,62 @@ inline Plan plan(int m, int n, int k, int b_trans, int sms) {
     s = s < p.ksteps ? s : p.ksteps;
     s = s < SK_MAX_SPLITS ? s : SK_MAX_SPLITS;
     p.splits = s > 1 ? s : 1;
-    p.part_words = 32LL * p.warps_n * (b_trans ? 4 : 16) * (m > 8 ? 2 : 1);
   } else {
     plan_wide(m, n, k, wide_shape(m, n, sms), 0, sms, p);
   }
   const long long tiles = (long long)p.tiles_m * p.tiles_n;
   if (!p.wide && tiles > MAX_TICKETS) p.splits = 1;
-  p.blocks = tiles * p.splits;
-  p.part_words = p.splits > 1 ? p.blocks * p.part_words : 0;
-  p.ws_words = !p.wide && p.splits > 1 ? MAX_TICKETS + p.part_words : 0;
+  set_blocks(p, m, b_trans);
   return p;
+}
+
+// Tile codes of a plan the caller chooses (the tuner's schedule space):
+// the skinny kernel, or TILE_WIDE0 + a wide shape (WIDE_*).
+enum { TILE_SKINNY = 1, TILE_WIDE0 = 2 };
+
+inline int tile_code(const Plan& p) {
+  if (!p.wide) return TILE_SKINNY;
+  return TILE_WIDE0 + (p.bm == 64 ? WIDE_64x256 : p.bn == 64 ? WIDE_128x64
+                       : p.bn == 128 ? WIDE_128x128 : WIDE_128x256);
+}
+
+// The plan of a call with its tile and K splits chosen by the caller;
+// false where the kernels cannot run it: the skinny kernel above M = 16,
+// a wide tile at M <= 16, more splits than k steps or than the kernel
+// merges (SK_MAX_SPLITS, WD_MAX_SPLITS), skinny partials past the
+// tickets, or clusters of `splits` wide blocks the card cannot hold.
+inline bool plan_with(int m, int n, int k, int b_trans, int sms, int tile,
+                      int splits, Plan& p) {
+  if (splits < 1) return false;
+  if (tile == TILE_SKINNY) {
+    if (m > 16) return false;
+    p = plan(m, n, k, b_trans, sms);
+    const long long tiles = (long long)p.tiles_m * p.tiles_n;
+    if (splits > SK_MAX_SPLITS || splits > (p.ksteps > 1 ? p.ksteps : 1) ||
+        (splits > 1 && tiles > MAX_TICKETS))
+      return false;
+    p.splits = splits;
+    set_blocks(p, m, b_trans);
+    return true;
+  }
+  const int shape = tile - TILE_WIDE0;
+  if (m <= 16 || shape < WIDE_128x64 || shape > WIDE_64x256) return false;
+  p = Plan{};
+  plan_wide(m, n, k, shape, splits, sms, p);
+  if (p.splits != splits || (splits > 1 && max_clusters(splits) < 1))
+    return false;
+  set_blocks(p, m, b_trans);
+  return true;
+}
+
+// The call's plan: its own (tile = splits = 0) or the caller's.
+inline bool resolve(int m, int n, int k, int b_trans, int sms, int tile,
+                    int splits, Plan& p) {
+  if (tile == 0 && splits == 0) {
+    p = plan(m, n, k, b_trans, sms);
+    return true;
+  }
+  return plan_with(m, n, k, b_trans, sms, tile, splits, p);
 }
 
 template <typename Elt>
@@ -1414,13 +1473,17 @@ cudaError_t dispatch(const Args<Elt>& a, const Plan& pl, cudaStream_t s) {
 
 // One call; Elt: bf16 or __half. workspace: the plan's ws_words 4-byte
 // words (tickets, then partials), owned by the calling stream; null where
-// the plan needs none (one skinny split, or any wide plan).
+// the plan needs none (one skinny split, or any wide plan). tile, splits:
+// the caller's plan (plan_with), or 0, 0 for the call's own.
 template <typename Elt, typename OutT>
 cudaError_t launch(const Elt* A, const Elt* B, const float* D, OutT* C,
                    int m, int n, int k, long long lda, long long ldb,
                    int b_trans, long long ldd, int act, float out_scale,
-                   int ws, void* workspace, cudaStream_t s) {
-  const Plan pl = plan(m, n, k, b_trans, sm_count());
+                   int ws, void* workspace, cudaStream_t s, int tile = 0,
+                   int splits = 0) {
+  Plan pl;
+  if (!resolve(m, n, k, b_trans, sm_count(), tile, splits, pl))
+    return cudaErrorInvalidValue;
   if (pl.ws_words > 0 && workspace == nullptr) return cudaErrorInvalidValue;
   Args<Elt> a{};
   a.A = A; a.B = B; a.D = D; a.C = C;

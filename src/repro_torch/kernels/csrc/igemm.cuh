@@ -216,6 +216,36 @@ inline Plan plan(int m, int n, int k, int b_trans, int sms, int es = 1) {
   return p;
 }
 
+// Tile codes of a plan the caller chooses (the tuner's schedule space):
+// the regime plus one.
+inline int tile_code(const Plan& p) { return p.regime + 1; }
+
+// The plan of a call (k in bytes, as plan()) with its regime's tiles
+// (tile: SKINNY + 1 or SQUARE + 1, at any M) and K splits chosen by the
+// caller; false where the kernel cannot run it: more splits than k steps
+// or than a tile merges (MAX_SPLITS), or split partials past the tickets.
+inline bool plan_with(int m, int n, int k, int b_trans, int es, int tile,
+                      int splits, Plan& p) {
+  using hgemm::ceil_div;
+  if (tile != SKINNY + 1 && tile != SQUARE + 1) return false;
+  p = Plan{};
+  if (tile == SKINNY + 1) set_regime<SKINNY>(p);
+  else set_regime<SQUARE>(p);
+  p.tiles_m = ceil_div(m, p.bm);
+  p.tiles_n = ceil_div(n, p.bn);
+  p.ksteps = k > 0 ? ceil_div(k, BK) : 1;
+  const long long tiles = (long long)p.tiles_m * p.tiles_n;
+  if (splits < 1 || splits > MAX_SPLITS || splits > p.ksteps ||
+      (splits > 1 && tiles > hgemm::MAX_TICKETS))
+    return false;
+  p.splits = splits;
+  p.smem = smem_bytes(p.bm, p.bn, p.stages, b_trans, es);
+  p.blocks = tiles * splits;
+  p.ws_words =
+      splits > 1 ? hgemm::MAX_TICKETS + tiles * splits * p.bm * p.bn : 0;
+  return true;
+}
+
 // Output codes: int8 inputs OUT_32 int32, OUT_8 int8, OUT_16 int16;
 // 16-bit inputs OUT_32 fp32, OUT_BF16 bf16, OUT_16 fp16.
 enum { OUT_32 = 0, OUT_8 = 1, OUT_16 = 2, OUT_BF16 = 3 };
@@ -818,12 +848,24 @@ inline Plan plan_here(int m, int n, int k, int b_trans, int es = 1) {
   return plan(m, n, k * es, b_trans, hgemm::sm_count(), es);
 }
 
+// The same, or the caller's (tile, splits) where they are not 0, 0;
+// false where the kernel cannot run the caller's.
+inline bool resolve_here(int m, int n, int k, int b_trans, int es, int tile,
+                         int splits, Plan& p) {
+  if (tile == 0 && splits == 0) {
+    p = plan_here(m, n, k, b_trans, es);
+    return true;
+  }
+  return plan_with(m, n, k * es, b_trans, es, tile, splits, p);
+}
+
 // One call: A through `al` (its k counted in bytes), B (K, N) at ldb
 // (b_trans: the transpose of a row-major (N, K) buffer), D, C,
 // `out` (OUT_*) as Args says, out_scale 2^-shift for 16-bit inputs;
 // workspace: plan().ws_words 4-byte words owned by the calling stream
 // (tickets zeroed when it was made), may be null for one split;
-// extra_smem: bytes a staging loader takes after the plan's shared memory.
+// extra_smem: bytes a staging loader takes after the plan's shared memory;
+// tile, splits: the caller's plan (plan_with), or 0, 0 for the call's own.
 // TRANS_B_OK: whether this source instantiates the (N, K) path (the
 // conv's filters are never transposed).
 template <typename In, typename ALoad, bool TRANS_B_OK = true>
@@ -831,10 +873,12 @@ cudaError_t launch(const ALoad& al, const In* B, long long ldb, int b_trans,
                    const typename Dp<In>::Acc* D, long long ldd, void* C,
                    int out, int M, int N, int K, int shift, float out_scale,
                    int act, int ws, void* workspace, cudaStream_t s,
-                   int extra_smem = 0) {
+                   int extra_smem = 0, int tile = 0, int splits = 0) {
   using Acc = typename Dp<In>::Acc;
   constexpr int ES = (int)sizeof(In);
-  Plan pl = plan_here(M, N, K, b_trans, ES);
+  Plan pl;
+  if (!resolve_here(M, N, K, b_trans, ES, tile, splits, pl))
+    return cudaErrorInvalidValue;
   pl.smem += extra_smem;
   if (pl.splits > 1 && workspace == nullptr) return cudaErrorInvalidValue;
   Args<In> a{};

@@ -236,6 +236,50 @@ inline Plan plan(int m, int n, int k, int b_trans, int sms) {
   return p;
 }
 
+// Tile codes of a plan the caller chooses (the tuner's schedule space):
+// 1 for 64-row tiles, 2 for 128-row ones.
+inline int tile_code(const Plan& p) { return p.bm == 128 ? 2 : 1; }
+
+// The GEMM's plan with its tiles and K splits chosen by the caller; false
+// where the kernel cannot run it: more splits than k steps or than a tile
+// merges (MAX_SPLITS), or split partials past the tickets.
+template <typename In>
+inline bool plan_with(int m, int n, int k, int b_trans, int tile, int splits,
+                      Plan& p) {
+  using hgemm::ceil_div;
+  if (tile != 1 && tile != 2) return false;
+  p = Plan{};
+  p.bm = tile == 2 ? 128 : 64;
+  p.bn = BN;
+  p.bk = BK;
+  p.threads = p.bm * BN / 64;
+  p.stages = STAGES;
+  p.smem = smem_bytes<In>(p.bm, b_trans);
+  p.tiles_m = ceil_div(m, p.bm);
+  p.tiles_n = ceil_div(n, BN);
+  p.ksteps = ceil_div(k, BK);
+  const long long tiles = (long long)p.tiles_m * p.tiles_n;
+  if (splits < 1 || splits > MAX_SPLITS ||
+      splits > (p.ksteps > 1 ? p.ksteps : 1) ||
+      (splits > 1 && tiles > hgemm::MAX_TICKETS))
+    return false;
+  p.splits = splits;
+  p.blocks = tiles * splits;
+  p.ws_words = splits > 1 ? hgemm::MAX_TICKETS + p.blocks * p.bm * BN : 0;
+  return true;
+}
+
+// The call's plan: its own (tile = splits = 0) or the caller's.
+template <typename In>
+inline bool resolve(int m, int n, int k, int b_trans, int sms, int tile,
+                    int splits, Plan& p) {
+  if (tile == 0 && splits == 0) {
+    p = plan<In>(m, n, k, b_trans, sms);
+    return true;
+  }
+  return plan_with<In>(m, n, k, b_trans, tile, splits, p);
+}
+
 // OutT = AnyOut: the output type is the call's (Args::out), chosen in the
 // epilogue: 0 the accumulator's 32-bit type, 1 bf16 or int8, 2 fp16 or
 // int16. One kernel then serves every output (the conv's instantiations).
@@ -693,15 +737,18 @@ Args<In> make_args(const Plan& pl, const In* B,
 }
 
 // One GEMM call: A through `al`, B (K, N) at ldb (b_trans: the transpose
-// of a row-major (N, K) buffer), D, C as Args says; the GEMM's plan.
+// of a row-major (N, K) buffer), D, C as Args says; the GEMM's plan, or
+// the caller's (tile, splits: plan_with; 0, 0 for the call's own).
 template <typename In, typename OutT, typename ALoad>
 cudaError_t launch(const ALoad& al, const In* B,
                    const typename Dp<In>::Acc* D, OutT* C, int m, int n,
                    int k, long long ldb, int b_trans, long long ldd, int act,
                    int shift, float out_scale, int ws, void* workspace,
-                   cudaStream_t s) {
+                   cudaStream_t s, int tile = 0, int splits = 0) {
   constexpr bool BL = !Dp<In>::INT;
-  const Plan pl = plan<In>(m, n, k, b_trans, hgemm::sm_count());
+  Plan pl;
+  if (!resolve<In>(m, n, k, b_trans, hgemm::sm_count(), tile, splits, pl))
+    return cudaErrorInvalidValue;
   if (pl.splits > 1 && workspace == nullptr) return cudaErrorInvalidValue;
   const Args<In> a = make_args<In>(pl, B, D, C, 0, m, n, k, ldb, ldd, act,
                                    shift, out_scale, ws, workspace);
@@ -725,10 +772,11 @@ cudaError_t launch_gemm(const In* A, const In* B,
                         const typename Dp<In>::Acc* D, OutT* C, int m, int n,
                         int k, long long lda, long long ldb, int b_trans,
                         long long ldd, int act, int shift, float out_scale,
-                        int ws, void* workspace, cudaStream_t s) {
+                        int ws, void* workspace, cudaStream_t s,
+                        int tile = 0, int splits = 0) {
   const MatrixA<In> al{A, lda, m, k, quad_aligned(A, lda)};
   return launch<In, OutT>(al, B, D, C, m, n, k, ldb, b_trans, ldd, act,
-                          shift, out_scale, ws, workspace, s);
+                          shift, out_scale, ws, workspace, s, tile, splits);
 }
 
 }  // namespace sgemm

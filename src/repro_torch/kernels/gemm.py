@@ -56,6 +56,15 @@ the same Function runs the plain versions; on the card it launches only
 kernels. :func:`gemm_tape` lets the training forward's ``dots`` remat
 policy keep the GEMM outputs instead of recomputing them.
 
+A call may name its plan (``plan={"tile": code, "splits": s}``, the
+tuner's schedule; :func:`gemm_plan` lists the tile codes); with none it
+runs the plan of its shape, unless ``GEMMINI_TUNE`` is ``cached`` or
+``full``, where the tuner resolves one per shape (memoized, so a call
+pays a dict lookup; ``off`` never imports it). A plan the kernel cannot
+run raises; nothing is clamped or replaced. Split sums change their
+order with the plan, so a float plan is held by the same tolerances as
+the static one; int32 sums wrap and stay bit for bit.
+
 Launch counts, one per kernel of the ``kernels`` report:
 ``gemm.launches`` the bf16 kernel in OS order (the serving path's),
 ``gemm_os.launches`` the int8 kernel in OS order,
@@ -76,6 +85,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core import flags
 from repro_torch.core.config import Activation, Dataflow
 from repro_torch.kernels import _build
 from repro_torch.kernels import epilogue as epi
@@ -94,11 +104,11 @@ _INT_IN = {torch.int8: ("gemm", "gemm_s8_launch"),
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _FLOAT_ARGS = [_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _L, _I, _I, _I, _F, _I,
-               _P, _P]
+               _P, _P, _I, _I]
 _S8_ARGS = [_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _L, _I, _I, _I, _I, _P,
-            _P]
+            _P, _I, _I]
 _F16_ARGS = [_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _L, _I, _I, _F, _I, _P,
-             _P]
+             _P, _I, _I]
 _EPI_ARGS = [_P, _P, _L, _I, _I, _I, _I, _F, _P]
 
 
@@ -114,14 +124,25 @@ def _b_layout(b: torch.Tensor):
 
 
 _PLAN_KEYS = ("regime", "bm", "bn", "bk", "splits", "blocks", "threads",
-              "stages", "smem", "workspace_words")
+              "stages", "smem", "workspace_words", "tile_code")
 _REGIMES = ("skinny", "wide", "fp32", "square")
-_PLANS: Dict[Tuple[int, int, int, bool, int, torch.dtype], dict] = {}
+_PLANS: Dict[tuple, dict] = {}
 _WORKSPACE: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
+def _plan_dict(raw: dict, regimes: tuple) -> dict:
+    return {"regime": regimes[raw["regime"]],
+            "tile": (raw["bm"], raw["bn"], raw["bk"]),
+            "splits": raw["splits"], "grid": raw["blocks"],
+            "threads": raw["threads"], "stages": raw["stages"],
+            "smem": raw["smem"],
+            "workspace_bytes": 4 * raw["workspace_words"],
+            "tile_code": raw["tile_code"]}
+
+
 def gemm_plan(m: int, n: int, k: int, b_trans: bool = False,
-              device=None, dtype: torch.dtype = torch.bfloat16) -> dict:
+              device=None, dtype: torch.dtype = torch.bfloat16, *,
+              tile: int = 0, splits: int = 0) -> dict:
     """The kernel's plan for an (M, N, K) call on a card with ``dtype``
     inputs (bf16, fp16, fp32 or int16; int8 has :func:`gemm_s8_plan`), B
     row-major or (``b_trans``) read as the transpose of a row-major (N, K)
@@ -134,32 +155,34 @@ def gemm_plan(m: int, n: int, k: int, b_trans: bool = False,
     block, ``stages`` of the load ring (bf16 / fp16 skinny: 1, loads go
     straight to registers), ``smem`` bytes and ``workspace_bytes`` (tickets
     and partials; 0 for one split and for every wide plan, whose splits
-    merge within a cluster). It depends on the shape, B's layout and the
-    card's SM count only, so OS and WS take the same plan."""
+    merge within a cluster), and ``tile_code``. It depends on the shape, B's
+    layout and the card's SM count only, so OS and WS take the same plan.
+
+    ``tile`` and ``splits`` name another plan (both 0: the shape's own):
+    tile codes bf16 / fp16 1 skinny (M <= 16), 2-5 the wide tiles 128 x 64,
+    128 x 128, 128 x 256, 64 x 256 (M > 16); fp32 1 and 2 for 64- and
+    128-row tiles; int16 1 skinny, 2 square (any M). A plan the kernel
+    cannot run (more splits than its k steps or than it merges, a wide
+    cluster the card cannot hold) raises ``RuntimeError``."""
     if dtype not in _PLAN_DT:
         raise NotImplementedError(f"gemm_plan: no kernel plan for {dtype}")
     index = _device_index(device)
-    key = (m, n, k, bool(b_trans), index, dtype)
+    key = (m, n, k, bool(b_trans), index, dtype, tile, splits)
     plan = _PLANS.get(key)
     if plan is None:
         out = (ctypes.c_longlong * len(_PLAN_KEYS))()
-        fn = _build.bind("gemm", "gemm_plan", [_I, _I, _I, _I, _I, _P])
+        fn = _build.bind("gemm", "gemm_plan", [_I] * 7 + [_P])
         with torch.cuda.device(index):
             _build.check(fn(m, n, k, int(bool(b_trans)), _PLAN_DT[dtype],
-                            ctypes.addressof(out)), "gemm_plan")
-        raw = dict(zip(_PLAN_KEYS, out))
-        plan = {"regime": _REGIMES[raw["regime"]],
-                "tile": (raw["bm"], raw["bn"], raw["bk"]),
-                "splits": raw["splits"], "grid": raw["blocks"],
-                "threads": raw["threads"], "stages": raw["stages"],
-                "smem": raw["smem"],
-                "workspace_bytes": 4 * raw["workspace_words"]}
-        _PLANS[key] = plan
+                            int(tile), int(splits), ctypes.addressof(out)),
+                         "gemm_plan")
+        plan = _PLANS[key] = _plan_dict(dict(zip(_PLAN_KEYS, out)),
+                                        _REGIMES)
     return plan
 
 
 _S8_REGIMES = ("skinny", "square")
-_S8_PLANS: Dict[Tuple[int, int, int, bool, int], dict] = {}
+_S8_PLANS: Dict[tuple, dict] = {}
 
 
 def _device_index(device) -> int:
@@ -170,7 +193,7 @@ def _device_index(device) -> int:
 
 
 def gemm_s8_plan(m: int, n: int, k: int, b_trans: bool = False,
-                 device=None) -> dict:
+                 device=None, *, tile: int = 0, splits: int = 0) -> dict:
     """The int8 kernel's plan (``csrc/igemm.cuh``) for an (M, N, K) call on
     a card, B row-major or (``b_trans``) read as the transpose of a
     row-major (N, K) buffer: ``regime`` ("skinny": 16 x 64 tiles of 4
@@ -180,24 +203,21 @@ def gemm_s8_plan(m: int, n: int, k: int, b_trans: bool = False,
     and ``workspace_bytes`` (tickets and int32 partials, 0 for one split).
     It depends on the shape, B's layout and the card's SM count only, so
     OS and WS take the same plan and sum every tile alike; a conv's plan is
-    that of its implicit GEMM, (N*OH*OW, CO, KH*KW*CI), B row-major."""
+    that of its implicit GEMM, (N*OH*OW, CO, KH*KW*CI), B row-major.
+    ``tile`` (1 skinny, 2 square, at any M) and ``splits`` name another
+    plan, as for :func:`gemm_plan` (``tile_code``)."""
     index = _device_index(device)
-    key = (m, n, k, bool(b_trans), index)
+    key = (m, n, k, bool(b_trans), index, tile, splits)
     plan = _S8_PLANS.get(key)
     if plan is None:
         out = (ctypes.c_longlong * len(_PLAN_KEYS))()
-        fn = _build.bind("gemm", "gemm_s8_plan", [_I, _I, _I, _I, _P])
+        fn = _build.bind("gemm", "gemm_s8_plan", [_I] * 6 + [_P])
         with torch.cuda.device(index):
-            _build.check(fn(m, n, k, int(bool(b_trans)),
-                            ctypes.addressof(out)), "gemm_s8_plan")
-        raw = dict(zip(_PLAN_KEYS, out))
-        plan = {"regime": _S8_REGIMES[raw["regime"]],
-                "tile": (raw["bm"], raw["bn"], raw["bk"]),
-                "splits": raw["splits"], "grid": raw["blocks"],
-                "threads": raw["threads"], "stages": raw["stages"],
-                "smem": raw["smem"],
-                "workspace_bytes": 4 * raw["workspace_words"]}
-        _S8_PLANS[key] = plan
+            _build.check(fn(m, n, k, int(bool(b_trans)), int(tile),
+                            int(splits), ctypes.addressof(out)),
+                         "gemm_s8_plan")
+        plan = _S8_PLANS[key] = _plan_dict(dict(zip(_PLAN_KEYS, out)),
+                                           _S8_REGIMES)
     return plan
 
 
@@ -222,11 +242,12 @@ def _check_int_shift(shift: int) -> None:
 
 def _gemm(a: torch.Tensor, b: torch.Tensor, d: Optional[torch.Tensor], *,
           acc_dtype: torch.dtype, out_dtype: torch.dtype, shift: int,
-          activation: Activation, ws: bool, bwd: bool = False
-          ) -> torch.Tensor:
+          activation: Activation, ws: bool, bwd: bool = False,
+          plan: Optional[dict] = None) -> torch.Tensor:
     """The plain version for a CPU tensor; else the kernel of this datapath
     in OS or WS order (or an error). ``bwd``: a backward product, counted
-    in ``BWD_COUNT``."""
+    in ``BWD_COUNT``. ``plan``: the caller's ``{"tile", "splits"}``, else
+    the tuner's under ``cached`` / ``full``, else the shape's own."""
     if a.device.type == "cpu":
         return gemm_ref(a, b, d, acc_dtype=acc_dtype, out_dtype=out_dtype,
                         shift=shift, activation=activation)
@@ -272,12 +293,21 @@ def _gemm(a: torch.Tensor, b: torch.Tensor, d: Optional[torch.Tensor], *,
         return c
     stream = torch.cuda.current_stream(a.device).cuda_stream
     dptr = d.data_ptr() if d is not None else None
+    if plan is None and flags.get("tune_mode") != "off":
+        from repro_torch.tune import tuner
+        plan = tuner.gemm_schedule(a.dtype, acc_dtype, out_dtype, ws, m, n,
+                                   k, d is not None, bool(trans), a.device)
+    tile, splits = (plan["tile"], plan["splits"]) if plan else (0, 0)
     if a.dtype == torch.int8:
-        plan = _S8_PLANS.get((m, n, k, bool(trans), a.device.index)) \
-            or gemm_s8_plan(m, n, k, trans, a.device)
+        plan = _S8_PLANS.get((m, n, k, bool(trans), a.device.index, tile,
+                              splits)) \
+            or gemm_s8_plan(m, n, k, trans, a.device, tile=tile,
+                            splits=splits)
     else:
-        plan = _PLANS.get((m, n, k, bool(trans), a.device.index, a.dtype)) \
-            or gemm_plan(m, n, k, trans, a.device, a.dtype)
+        plan = _PLANS.get((m, n, k, bool(trans), a.device.index, a.dtype,
+                           tile, splits)) \
+            or gemm_plan(m, n, k, trans, a.device, a.dtype, tile=tile,
+                         splits=splits)
     need = plan["workspace_bytes"]
     wsp = _workspace(a.device, stream, need).data_ptr() if need else None
     scale = 1.0 / (1 << shift) if shift > 0 else 1.0
@@ -285,17 +315,17 @@ def _gemm(a: torch.Tensor, b: torch.Tensor, d: Optional[torch.Tensor], *,
         fn = _build.bind(*_INT_IN[a.dtype], _S8_ARGS)
         err = fn(a.data_ptr(), b.data_ptr(), dptr, c.data_ptr(), m, n, k,
                  a.stride(0), ldb, trans, ldd, _INT_OUT[out_dtype],
-                 _ACT[activation], shift, int(ws), stream, wsp)
+                 _ACT[activation], shift, int(ws), stream, wsp, tile, splits)
     elif a.dtype == torch.float16:
         fn = _build.bind("gemm16", "gemm_f16_launch", _F16_ARGS)
         err = fn(a.data_ptr(), b.data_ptr(), dptr, c.data_ptr(), m, n, k,
                  a.stride(0), ldb, trans, ldd, _DT[out_dtype],
-                 _ACT[activation], scale, int(ws), stream, wsp)
+                 _ACT[activation], scale, int(ws), stream, wsp, tile, splits)
     else:
         fn = _build.bind("gemm", "gemm_launch", _FLOAT_ARGS)
         err = fn(a.data_ptr(), b.data_ptr(), dptr, c.data_ptr(), m, n, k,
                  a.stride(0), ldb, trans, ldd, _DT[a.dtype], _DT[out_dtype],
-                 _ACT[activation], scale, int(ws), stream, wsp)
+                 _ACT[activation], scale, int(ws), stream, wsp, tile, splits)
     _build.check(err, "gemm_ws" if ws else "gemm")
     if bwd:
         BWD_COUNT.launches += 1
@@ -312,22 +342,25 @@ def _gemm(a: torch.Tensor, b: torch.Tensor, d: Optional[torch.Tensor], *,
 
 def gemm_os(a: torch.Tensor, b: torch.Tensor, d: Optional[torch.Tensor] = None,
             *, acc_dtype: torch.dtype, out_dtype: torch.dtype, shift: int = 0,
-            activation: Activation = Activation.NONE) -> torch.Tensor:
+            activation: Activation = Activation.NONE,
+            plan: Optional[dict] = None) -> torch.Tensor:
     """Output-stationary GEMM. a: (M, K); b: (K, N) with any strides; d:
     bias broadcastable to (M, N) (a (N,) / (1, N) row or a full (M, N)
-    matrix), cast to the accumulator dtype."""
+    matrix), cast to the accumulator dtype; ``plan``: the caller's
+    ``{"tile", "splits"}`` (module docstring)."""
     return _gemm(a, b, d, acc_dtype=acc_dtype, out_dtype=out_dtype,
-                 shift=shift, activation=activation, ws=False)
+                 shift=shift, activation=activation, ws=False, plan=plan)
 
 
 def gemm_ws(a: torch.Tensor, b: torch.Tensor, d: Optional[torch.Tensor] = None,
             *, acc_dtype: torch.dtype, out_dtype: torch.dtype, shift: int = 0,
-            activation: Activation = Activation.NONE) -> torch.Tensor:
+            activation: Activation = Activation.NONE,
+            plan: Optional[dict] = None) -> torch.Tensor:
     """Weight-stationary GEMM: the same function as :func:`gemm_os` (equal
     bit for bit on every datapath), the kernel walking the grid
     weight-major."""
     return _gemm(a, b, d, acc_dtype=acc_dtype, out_dtype=out_dtype,
-                 shift=shift, activation=activation, ws=True)
+                 shift=shift, activation=activation, ws=True, plan=plan)
 
 
 def gemm(a: torch.Tensor, b: torch.Tensor, d: Optional[torch.Tensor] = None,

@@ -14,7 +14,11 @@ The robustness and observability flags are the JAX CLI's: ``--faults``
 ``--deadline S``, ``--trace`` / ``--trace-out PATH`` (a Chrome trace,
 summarized by ``python -m repro_torch.obs PATH``) and ``--profile``
 (every ExecutionContext op timed, on a card by CUDA events, and its
-achieved share of the card's roofline printed per bucket).
+achieved share of the card's roofline printed per bucket). ``--tune
+{off,cached,full}`` (or ``GEMMINI_TUNE``; the file from
+``GEMMINI_TUNE_CACHE``) resolves the page size and the paged decode split
+at startup and warms every schedule the prompt length will launch, then
+prints the warm-up's hits and misses.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import time
 import numpy as np
 
 from repro_torch import configs
+from repro_torch.core import flags
 from repro_torch.obs import profile as oprofile
 from repro_torch.obs import trace as otrace
 from repro_torch.serving import ServingEngine
@@ -55,7 +60,7 @@ def serve(model_cfg, *, batch: int, prompt_len: int, gen_len: int,
     engine = ServingEngine(
         model_cfg, max_slots=max_slots, max_context=max_context,
         page_size=page_size or None, seed=seed, temperature=temperature,
-        policy=policy,
+        policy=policy, warm_prompt_lens=[prompt_len],
         prefill_chunk=None if prefill_chunk < 0 else prefill_chunk,
         admission_policy=admission_policy, faults=faults or None,
         enforce_deadlines=enforce_deadlines, trace=trace,
@@ -63,6 +68,17 @@ def serve(model_cfg, *, batch: int, prompt_len: int, gen_len: int,
         host_pool_pages=host_pool_pages or None, device=device)
     if engine.tracer is not None:
         otrace.install(engine.tracer)
+    if engine.warm_stats is not None:
+        from repro_torch import tune
+        s = engine.warm_stats
+        print(f"[serve] plan warmup ({flags.get('tune_mode')}): "
+              f"{s['gemm_shapes']} gemm + {s['attn_shapes']} attn + "
+              f"{s['paged_shapes']} paged shapes, {s['cache_hits']} cache "
+              f"hits, {s['cache_misses']} misses "
+              f"(cache: {tune.default_cache_path()})")
+        print(f"[serve] paged cache: page={engine.page_size} tokens, "
+              f"decode split={engine.engine.decode_split or 64} keys, "
+              f"arena={engine.alloc.n_pages} pages")
     tok_shape = (prompt_len, model_cfg.n_codebooks) \
         if model_cfg.n_codebooks > 1 else (prompt_len,)
     # Deadlines are absolute timestamps on the engine's clock.
@@ -103,7 +119,7 @@ def main(argv=None):
     ap.add_argument("--slots", type=int, default=0,
                     help="decode slots (default: min(batch, 8))")
     ap.add_argument("--page-size", type=int, default=0,
-                    help="KV page size (default 64)")
+                    help="KV page size (default: tuned or 64)")
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="chunked-prefill granularity in tokens; 0 = one "
                          "page, negative = single-pass prefill")
@@ -136,9 +152,16 @@ def main(argv=None):
                     help="time every ExecutionContext op (CUDA events on "
                          "a card, synchronised per op) and print achieved-"
                          "vs-roofline utilization per kernel bucket")
+    ap.add_argument("--tune", choices=flags.TUNE_MODES, default=None,
+                    help="kernel-schedule tuning mode (default: "
+                         "$GEMMINI_TUNE)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels, default) or cpu (plain path)")
     args = ap.parse_args(argv)
+    # Always re-set: set_flag validates, so a mistyped $GEMMINI_TUNE fails
+    # at startup instead of at the first schedule resolution.
+    flags.set_flag("tune_mode", args.tune if args.tune is not None
+                   else flags.get("tune_mode"))
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
     profiler = None
     if args.profile:

@@ -13,9 +13,12 @@ Without ``--device cpu`` it runs on the card (the kernels; it raises if
 there is none). The engine is bf16 in, fp32 accumulate, bf16 out, as the
 JAX launcher's. ``--fail-at N`` raises once at step N; the restart loop
 (``runtime.ft.run_with_restarts``) then builds a fresh run, which resumes
-from the newest committed checkpoint. The JAX launcher's ``--tp`` and
-``--xla-lhs`` shape a device mesh and have no counterpart until the
-multi-device port (ROADMAP A15); ``--tune`` waits for the tuner (A12).
+from the newest committed checkpoint. ``--tune {off,cached,full}`` (or
+``GEMMINI_TUNE``) warms the schedule of every GEMM and attention shape a
+step runs before the first step (``repro_torch.tune.warm_model_plans``);
+the backward products resolve theirs at their first call. The JAX
+launcher's ``--tp`` and ``--xla-lhs`` shape a device mesh and have no
+counterpart until the multi-device port (ROADMAP A15).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.core import flags
 from repro_torch.core.config import GemminiConfig
 from repro_torch.core.context import ExecutionContext
 from repro_torch.data import SyntheticLM, SyntheticLMConfig, make_batch
@@ -138,12 +142,33 @@ def main(argv=None):
     ap.add_argument("--fail-at", type=int, default=None,
                     help="inject one failure at this step (FT demo)")
     ap.add_argument("--max-restarts", type=int, default=2)
+    ap.add_argument("--tune", choices=flags.TUNE_MODES, default=None,
+                    help="kernel-schedule tuning mode (default: "
+                         "$GEMMINI_TUNE)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels, default) or cpu (plain path)")
     args = ap.parse_args(argv)
+    # Always re-set: set_flag validates, so a mistyped $GEMMINI_TUNE fails
+    # at startup instead of at the first schedule resolution.
+    flags.set_flag("tune_mode", args.tune if args.tune is not None
+                   else flags.get("tune_mode"))
 
     model_cfg = configs.get_smoke(args.arch) if args.smoke \
         else configs.get(args.arch)
+    if flags.get("tune_mode") != "off":
+        # Warm every GEMM shape a train step runs (one device: the whole
+        # batch is its M). No attention: the step trains through the
+        # model function, never the flash kernel.
+        from repro_torch import tune
+        stats = tune.warm_model_plans(
+            GemminiConfig(input_dtype="bf16", acc_dtype="fp32",
+                          output_dtype="bf16"), model_cfg, args.batch,
+            args.seq, include_decode=False, include_attention=False,
+            device=_device(args.device))
+        print(f"[train] plan warmup ({flags.get('tune_mode')}): "
+              f"{stats['gemm_shapes']} gemm shapes, "
+              f"{stats['cache_hits']} cache hits, "
+              f"{stats['cache_misses']} misses")
     armed = {"fail": args.fail_at}
 
     def make_runner(attempt, pods):

@@ -230,6 +230,90 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *,
     return p
 
 
+# Param names that are engine-backed (d_in, d_out) projection weights
+# (``repro.models.transformer._PROJ_KEYS``). MoE expert stacks are
+# excluded: their GEMMs run as one ``bmm`` in models/moe.py, not through
+# ctx.gemm, so they never resolve a schedule.
+_PROJ_KEYS = frozenset({"wq", "wk", "wv", "wo", "wi", "wg", "router",
+                        "in_proj", "out_proj", "unembed", "heads"})
+
+
+def model_gemm_calls(cfg: ModelConfig, batch: int, seq: int, *,
+                     include_decode: bool = True) -> list:
+    """Every engine GEMM the model's projections run, as (M, N, K,
+    has_bias, fp32 input, B transposed): the (batch*seq) prefill / train
+    GEMM and the (batch) decode GEMM of each projection weight's trailing
+    (d_in, d_out), walked from the parameter tree on the meta device (no
+    allocation). The last two fields are what the card plan also reads:
+    the MoE router multiplies fp32 activations, and the tied unembedding
+    reads the embedding table transposed in place."""
+    params = init_params(torch.Generator(), cfg, device="meta")
+    ms = [batch * seq] + ([batch] if include_decode else [])
+
+    def walk(node, names):
+        if isinstance(node, dict):
+            for key in sorted(node):    # jax.tree_util's leaf order
+                yield from walk(node[key], names + (key,))
+        else:
+            yield names, node
+
+    leaves = list(walk(params, ()))
+    siblings: dict = {}
+    for names, _ in leaves:
+        siblings.setdefault(names[:-1], set()).add(names[-1])
+    out, seen = [], set()
+    for names, leaf in leaves:
+        if leaf.dim() < 2:
+            continue
+        name = names[-1]
+        b_trans = False
+        if "moe" in names and name in ("wi", "wg", "wo"):
+            continue
+        if name in _PROJ_KEYS:
+            k_in, n_out = leaf.shape[-2], leaf.shape[-1]
+        elif name == "embed" and cfg.tie_embeddings and cfg.n_codebooks == 1:
+            k_in, n_out = leaf.shape[-1], leaf.shape[-2]   # unembed: table.T
+            b_trans = True
+        else:
+            continue
+        has_bias = (name.startswith("w")
+                    and "b" + name[1:] in siblings.get(names[:-1], ()))
+        for m in ms:
+            t = (int(m), int(n_out), int(k_in), bool(has_bias),
+                 name == "router", b_trans)
+            if t not in seen:
+                seen.add(t)
+                out.append(t)
+    return out
+
+
+def model_gemm_shapes(cfg: ModelConfig, batch: int, seq: int, *,
+                      include_decode: bool = True) -> list:
+    """Every (M, N, K, has_bias) GEMM shape the model's projections run
+    (``repro.models.transformer.model_gemm_shapes``, the same list in the
+    same order): :func:`model_gemm_calls` without the card plan's fields."""
+    out, seen = [], set()
+    for call in model_gemm_calls(cfg, batch, seq,
+                                 include_decode=include_decode):
+        if call[:4] not in seen:
+            seen.add(call[:4])
+            out.append(call[:4])
+    return out
+
+
+def model_attention_shapes(cfg: ModelConfig, batch: int, seq: int) -> list:
+    """Every (B, Tq, Tk, H, KVH, D, causal, window) flash-attention shape
+    the model runs at this (batch, seq): one per distinct per-layer window
+    (``repro.models.transformer.model_attention_shapes``)."""
+    if not cfg.has_attn:
+        return []
+    out = []
+    for w in sorted({int(w) for w in layer_windows(cfg)}):
+        out.append((batch, seq, seq, cfg.n_heads, cfg.n_kv_heads,
+                    cfg.head_dim, True, None if w == 0 else w))
+    return out
+
+
 def layer_params(params: Params, i: int) -> Params:
     """Layer ``i``'s slice of the stacked block tree (views, no copies)."""
     def take(node):

@@ -19,8 +19,15 @@ logits are not finite in ``fallbacks`` and re-runs it from the state it
 received. The JAX engine re-runs it on its XLA twin; here the re-run
 launches the same kernels, with the op hooks off, so an injected fault is
 recovered and a kernel that itself gives non-finite logits raises instead
-of being hidden behind plain versions. Schedule quarantine waits for the
-tuner.
+of being hidden behind plain versions. A guard trip at a decode step
+quarantines the tuned paged-attention schedule the engine resolved its
+page size (and decode split) under, as the JAX engine does.
+
+With tuning on (``GEMMINI_TUNE`` / ``--tune`` ``cached`` or ``full``) the
+page size and the paged decode kernel's keys per split come from
+``repro_torch.tune.resolve_paged_attn_schedule`` at startup, and
+``warm_prompt_lens`` pre-resolves every schedule the engine will launch
+(:meth:`ServingEngine.warm`), so no request tunes on the request path.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import flags
 from repro_torch.core.config import GemminiConfig
 from repro_torch.core.context import ExecutionContext
 from repro_torch.models import transformer as tf
@@ -43,8 +51,8 @@ from repro_torch.runtime.ft import StepWatchdog
 from repro_torch.serving.paged_cache import PagedKVAllocator, arena_pages
 from repro_torch.serving.scheduler import ContinuousScheduler, Request, summarize
 
-# Tokens per KV page when the caller names none (the JAX package's static
-# default; the tuned page size is ROADMAP queue A item 12).
+# Tokens per KV page when the caller names none and tuning is off (the JAX
+# package's static default; ``repro_torch.tune.schedules``).
 DEFAULT_PAGE_SIZE = 64
 
 
@@ -330,9 +338,12 @@ class EngineControlPlane:
         to one tuned schedule (the paged-attention key the page size was
         resolved under); prefill trips still fall back + count, but have
         no single schedule to blame."""
-        # The port has no tuner yet (ROADMAP queue A item 12), so there is
-        # no tuned schedule to bar: a guard trip falls back and counts.
-        return
+        key = self._paged_sched_key if site == "decode" else None
+        if key is None or key in self.quarantined:
+            return
+        from repro_torch import tune
+        tune.get_cache().quarantine(key)
+        self.quarantined.append(key)
 
     def _run_guarded(self, site: str, which: str, args: tuple):
         """One model step under the robustness envelope.
@@ -633,7 +644,8 @@ class ServingEngine(EngineControlPlane):
     ``$GEMMINI_FAULTS``; the guard is on iff faults are, unless
     ``nan_guard`` says otherwise), ``assert_invariants``, ``kv_offload`` /
     ``host_pool_pages`` / ``prefix_cache``, ``watchdog``, ``trace`` and
-    ``clock``.
+    ``clock``; ``warm_prompt_lens`` pre-resolves every tuned schedule the
+    given prompt lengths will launch (:meth:`warm`; only with tuning on).
 
     ``device`` (default ``"cuda"``) decides the datapath: on a CUDA
     device every projection and attention runs its hand-written kernel;
@@ -669,7 +681,8 @@ class ServingEngine(EngineControlPlane):
                  watchdog: Optional[StepWatchdog] = None,
                  trace=None,
                  clock=None,
-                 device="cuda"):
+                 device="cuda",
+                 warm_prompt_lens=()):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ServingEngine: CUDA is not available on this "
@@ -692,8 +705,25 @@ class ServingEngine(EngineControlPlane):
         # The recurrent-state rows of the step in flight (_run_guarded).
         self._pre_step = None
 
-        page_size = page_size or DEFAULT_PAGE_SIZE
+        # -- page geometry: the tuned schedule is the page size ------------
+        decode_split = 0
+        tuning = flags.get("tune_mode") != "off"
+        if page_size is None:
+            if tuning and model_cfg.has_attn:
+                from repro_torch import tune
+                sched = tune.resolve_paged_attn_schedule(
+                    cfg, max_slots, model_cfg.n_heads, model_cfg.n_kv_heads,
+                    model_cfg.head_dim, max_context, dtype=model_cfg.dtype,
+                    device=self.device)
+                page_size, decode_split = sched.page_size, sched.split_keys
+            else:
+                page_size = DEFAULT_PAGE_SIZE
         self.page_size = max(8, min(page_size, max_context))
+        if decode_split:
+            self.engine = dataclasses.replace(self.engine,
+                                              decode_split=decode_split)
+            self._rerun = dataclasses.replace(self._rerun,
+                                              decode_split=decode_split)
         self.max_pages_per_seq = -(-max_context // self.page_size)
         if n_pages is None:
             # Budget-derived arena, capped at what running slots can hold.
@@ -746,9 +776,59 @@ class ServingEngine(EngineControlPlane):
                                          self.max_pages_per_seq,
                                          dtype=model_cfg.dtype,
                                          device=self.device)
+        # The tuned schedule the decode path launches, for quarantine on a
+        # guard trip: the key resolve_paged_attn_schedule resolved the page
+        # size under (None with tuning off, or without attention).
+        if model_cfg.has_attn and tuning:
+            from repro_torch.tune import schedules as tsched
+            self._paged_sched_key = tsched.paged_attn_cache_key(
+                max_slots, model_cfg.n_heads, model_cfg.n_kv_heads,
+                model_cfg.head_dim, max_context, window=None,
+                dtype=model_cfg.dtype, device=self.device)
         tok_shape = (max_slots,) if model_cfg.n_codebooks == 1 \
             else (max_slots, model_cfg.n_codebooks)
         self._next_token = np.zeros(tok_shape, np.int32)
+        self.warm_stats: Optional[Dict[str, int]] = None
+        if warm_prompt_lens and tuning:
+            self.warm_stats = self.warm(warm_prompt_lens)
+
+    # -- plan warm-up ------------------------------------------------------
+    def warm(self, prompt_lens) -> Dict[str, int]:
+        """Pre-resolve every schedule the engine will launch (the JAX
+        engine's ``warm``): prefill GEMM and flash shapes per first-chunk
+        length (batch 1), continuation chunks' GEMMs, decode GEMMs at the
+        slot batch, and the paged schedule the pools were sized with -- so
+        no request tunes, or misses the cache, on the request path.
+        Continuation chunks launch no flash: their attention is the
+        block-table kernel, whose schedule is the page size."""
+        from repro_torch import tune
+        totals: Dict[str, int] = {}
+        # Prefill runs at bucket + meta tokens (embed_inputs prepends them).
+        first, rest = set(), set()
+        for p in prompt_lens:
+            dummy = Request(rid=-1,
+                            prompt=np.zeros((max(1, int(p)),), np.int32),
+                            max_new_tokens=0)
+            spans = self.sched._chunk_spans(dummy)
+            first.add(spans[0][2])
+            for (s, _e, pe) in spans[1:]:
+                rest.add(pe - s)
+        kw = dict(device=self.device)
+        for i, b in enumerate(sorted(first)):
+            st = tune.warm_model_plans(
+                self.engine.cfg, self.model_cfg, 1, b, include_decode=False,
+                paged_slots=self.max_slots if i == 0 else 0,
+                paged_max_context=self.max_context, **kw)
+            totals = {k: totals.get(k, 0) + v for k, v in st.items()}
+        for b in sorted(rest - first):
+            st = tune.warm_model_plans(self.engine.cfg, self.model_cfg, 1, b,
+                                       include_decode=False,
+                                       include_attention=False, **kw)
+            totals = {k: totals.get(k, 0) + v for k, v in st.items()}
+        st = tune.warm_model_plans(self.engine.cfg, self.model_cfg,
+                                   self.max_slots, 1,
+                                   include_attention=False, **kw)
+        return {k: totals.get(k, 0) + v for k, v in st.items()}
 
     # -- sampling ----------------------------------------------------------
     def _sample(self, logits: torch.Tensor) -> np.ndarray:

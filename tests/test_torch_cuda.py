@@ -2130,3 +2130,284 @@ def test_smoke_train_step_matches_cpu(card):
     torch.testing.assert_close(lc, lp, rtol=1e-5, atol=0)
     for x, y in zip(gc, gp):
         assert ((x - y).norm() / y.norm().clamp_min(1e-30)).item() <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# plans named by the caller (the tuner's schedules)
+# ---------------------------------------------------------------------------
+def _gemm_case(card, dtype, m, n=200, k=600, b_trans=False, seed=0):
+    """Operands and a runner of one GEMM datapath: (run(plan), plain, kind,
+    plan function)."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    if dtype in (torch.int8, torch.int16):
+        a = torch.randint(-100, 100, (m, k), generator=g, device=card,
+                          dtype=torch.int32).to(dtype)
+        bb = torch.randint(-100, 100, (n, k) if b_trans else (k, n),
+                           generator=g, device=card,
+                           dtype=torch.int32).to(dtype)
+        d = torch.randint(-1000, 1000, (n,), generator=g, device=card,
+                          dtype=torch.int32)
+        kw = dict(acc_dtype=torch.int32, out_dtype=torch.int32)
+    else:
+        a = torch.randn((m, k), generator=g, device=card).to(dtype)
+        bb = torch.randn((n, k) if b_trans else (k, n), generator=g,
+                         device=card).to(dtype)
+        d = torch.randn((n,), generator=g, device=card)
+        kw = dict(acc_dtype=torch.float32, out_dtype=torch.float32)
+    b = bb.t() if b_trans else bb
+
+    def run(plan=None):
+        return tgemm.gemm_os(a, b, d, plan=plan, **kw)
+
+    def plan_of(**o):
+        if dtype == torch.int8:
+            return tgemm.gemm_s8_plan(m, n, k, b_trans, card, **o)
+        return tgemm.gemm_plan(m, n, k, b_trans, card, dtype, **o)
+    plain = gemm_ref(a.cpu(), b.cpu(), d.cpu(), **kw)
+    return run, plain, a, b, plan_of
+
+
+def _check_gemm(got, plain, a, b, dtype):
+    if dtype in (torch.int8, torch.int16):
+        assert torch.equal(got.cpu(), plain)
+    else:
+        _close_bf16_gemm(got, plain, a.cpu(), b.cpu(), torch.float32)
+
+
+_REGIMES = [(torch.bfloat16, 4), (torch.bfloat16, 256), (torch.float16, 100),
+            (torch.float32, 4), (torch.float32, 256), (torch.int8, 4),
+            (torch.int8, 256), (torch.int16, 100)]
+
+
+@pytest.mark.parametrize("dtype,m", _REGIMES)
+@pytest.mark.parametrize("b_trans", [False, True])
+def test_gemm_plan_equal_to_default_is_bit_identical(card, dtype, m,
+                                                     b_trans):
+    """The shape's own plan named explicitly launches the same kernel on
+    the same grid: bit for bit the output of a call that names none."""
+    run, _, _, _, plan_of = _gemm_case(card, dtype, m, b_trans=b_trans)
+    own = plan_of()
+    named = {"tile": own["tile_code"], "splits": own["splits"]}
+    assert plan_of(**named)["grid"] == own["grid"]
+    assert torch.equal(run(named), run())
+    assert torch.equal(run({"tile": 0, "splits": 0}), run())
+
+
+# A plan other than the shape's own, per regime: (tile code, splits).
+_OTHER = {(torch.bfloat16, 4): [(1, 1), (1, 3)],
+          (torch.bfloat16, 256): [(2, 1), (3, 5), (4, 2), (2, 8)],
+          (torch.float16, 100): [(5, 3), (3, 1)],
+          (torch.float32, 4): [(1, 7), (2, 1)],
+          (torch.float32, 256): [(2, 3), (1, 16)],
+          (torch.int8, 4): [(2, 3), (1, 9)],
+          (torch.int8, 256): [(1, 2), (2, 5)],
+          (torch.int16, 100): [(1, 4), (2, 13)]}
+
+
+@pytest.mark.parametrize("dtype,m", _REGIMES)
+def test_gemm_other_plans_match_plain(card, dtype, m):
+    """Each GEMM regime at plans it would not pick itself: the float sums
+    in another order within the sum-order bound, int32 bit for bit."""
+    for b_trans in (False, True):
+        run, plain, a, b, plan_of = _gemm_case(card, dtype, m,
+                                               b_trans=b_trans)
+        for tile, splits in _OTHER[(dtype, m)]:
+            p = plan_of(tile=tile, splits=splits)
+            assert (p["tile_code"], p["splits"]) == (tile, splits)
+            _check_gemm(run({"tile": tile, "splits": splits}), plain, a, b,
+                        dtype)
+
+
+@pytest.mark.parametrize("dtype,m,tile,splits", [
+    (torch.bfloat16, 256, 2, 9),       # past WD_MAX_SPLITS
+    (torch.bfloat16, 256, 1, 1),       # the skinny kernel above M = 16
+    (torch.bfloat16, 4, 3, 1),         # a wide tile at M <= 16
+    (torch.bfloat16, 256, 6, 1),       # no such tile
+    (torch.bfloat16, 256, 2, 0),       # a tile without splits
+    (torch.float32, 256, 3, 1),
+    (torch.float32, 256, 1, 17),       # past sgemm's MAX_SPLITS
+    (torch.int8, 256, 2, 17),          # past igemm's MAX_SPLITS
+    (torch.int8, 4, 1, 20),            # more splits than k steps (10)
+    (torch.int16, 100, 0, 2)])         # splits without a tile
+def test_gemm_illegal_plan_raises(card, dtype, m, tile, splits):
+    """A plan the kernel cannot run raises, from the plan function and
+    from the launch; nothing is clamped or replaced."""
+    run, _, _, _, plan_of = _gemm_case(card, dtype, m)
+    with pytest.raises(RuntimeError):
+        plan_of(tile=tile, splits=splits)
+    with pytest.raises(RuntimeError):
+        run({"tile": tile, "splits": splits})
+
+
+def _conv_case(card, dtype, shape, seed=0):
+    n, h, ci, co, kh, stride, pad = shape
+    g = torch.Generator(device=card).manual_seed(seed)
+    if dtype in (torch.int8, torch.int16):
+        x = torch.randint(-100, 100, (n, h, h, ci), generator=g, device=card,
+                          dtype=torch.int32).to(dtype)
+        w = torch.randint(-100, 100, (kh, kh, ci, co), generator=g,
+                          device=card, dtype=torch.int32).to(dtype)
+        b = torch.randint(-1000, 1000, (co,), generator=g, device=card,
+                          dtype=torch.int32)
+        kw = dict(acc_dtype=torch.int32, out_dtype=torch.int32)
+    else:
+        x = torch.randn((n, h, h, ci), generator=g, device=card).to(dtype)
+        w = torch.randn((kh, kh, ci, co), generator=g, device=card).to(dtype)
+        b = torch.randn((co,), generator=g, device=card)
+        kw = dict(acc_dtype=torch.float32, out_dtype=torch.float32)
+    kw.update(stride=stride, padding=pad)
+    plain = tref.conv2d_ref(x.cpu(), w.cpu(), b.cpu(), **kw)
+    oh = (h + 2 * pad - kh) // stride + 1
+    mnk = (n * oh * oh, co, kh * kh * ci)
+    return (lambda plan=None: tconv.conv2d_implicit(x, w, b, plan=plan,
+                                                    **kw)), plain, mnk
+
+
+# the stem (a 3-channel tap: strips), a 3x3 layer and a 1x1 layer
+_CONVS = [(1, 32, 3, 64, 7, 2, 3), (1, 14, 64, 64, 3, 1, 1),
+          (2, 7, 128, 96, 1, 1, 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16,
+                                   torch.float32, torch.int16])
+@pytest.mark.parametrize("shape", _CONVS)
+def test_conv_plans(card, dtype, shape):
+    """The conv at its own plan named explicitly (bit for bit the call
+    that names none), at other plans (against the plain version: int32
+    exact, floats within 1e-4 relative of the largest magnitude), and an
+    illegal plan raises."""
+    run, plain, (m, n, k) = _conv_case(card, dtype, shape)
+    own = tconv.conv_plan(m, n, k, dtype, card)
+    named = {"tile": own["tile_code"], "splits": own["splits"]}
+    assert torch.equal(run(named), run())
+    cc = dtype in (torch.float32, torch.int16)
+    others = [(1, 1), (1, 2), (1, 4)] if cc else [(1, 2), (2, 1), (2, 2)]
+    for tile, splits in others:
+        got = run({"tile": tile, "splits": splits}).cpu()
+        if dtype in (torch.int8, torch.int16):
+            assert torch.equal(got, plain)
+        else:
+            scale = plain.abs().max().item()
+            tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+            torch.testing.assert_close(got.float(), plain.float(), rtol=tol,
+                                       atol=1e-4 * scale)
+    with pytest.raises(RuntimeError):
+        run({"tile": 2 if cc else 3, "splits": 1})
+    with pytest.raises(RuntimeError):
+        run({"tile": 1, "splits": 64})
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [64, 256])
+def test_flash_plans(card, dtype, d):
+    """Flash attention at its own (cluster, stages) named explicitly (bit
+    for bit), at every other plan of the space (against the plain version),
+    and illegal plans raise."""
+    from repro_torch.tune import schedules
+    g = torch.Generator(device=card).manual_seed(d)
+    b, tq, tk, h, kvh = 2, 200, 300, 4, 2
+    q = torch.randn((b, tq, h, d), generator=g, device=card).to(dtype)
+    k = torch.randn((b, tk, kvh, d), generator=g, device=card).to(dtype)
+    v = torch.randn((b, tk, kvh, d), generator=g, device=card).to(dtype)
+    kw = dict(causal=True, window=128)
+    own = tak.flash_plan(b, tq, tk, h, kvh, d, dtype=dtype, device=card,
+                         **kw)
+    base = tak.flash_attention(q, k, v, **kw)
+    assert torch.equal(tak.flash_attention(q, k, v, plan=own, **kw), base)
+    want = tak.blockwise_attention(q.cpu(), k.cpu(), v.cpu(), **kw)
+    for plan in schedules.enumerate_attn_schedules(dtype, d)[1:]:
+        _close(tak.flash_attention(q, k, v, plan=plan, **kw), want, dtype)
+    bad = [{"cluster": 3, "stages": 1}, {"cluster": 8, "stages": 1},
+           {"cluster": 1, "stages": 3}]
+    if dtype == torch.float32 and d == 256:
+        bad.append({"cluster": 1, "stages": 2})
+    for plan in bad:
+        with pytest.raises(RuntimeError):
+            tak.flash_attention(q, k, v, plan=plan, **kw)
+
+
+def test_decode_split_plans(card):
+    """The paged decode kernel at its own 64 keys per split named
+    explicitly (bit for bit), at other splits (against the plain version),
+    and an illegal split raises."""
+    rng = np.random.default_rng(0)
+    kvh, h, d, page, mp = 1, 4, 256, 16, 40
+    lens = [600, 37, 1, 640]
+    pk, pv, tables = _pools(rng, kvh, 200, page, d, lens, mp)
+    dt = torch.bfloat16
+    q = torch.tensor(rng.standard_normal((4, 1, h, d)), device=card).to(dt)
+    pk, pv = (torch.tensor(x, device=card).to(dt) for x in (pk, pv))
+    tables = torch.tensor(tables, device=card)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=card)
+    for window in (None, 100):
+        base = tak.paged_decode_attention(q, pk, pv, tables, lengths,
+                                          window=window)
+        same = tak.paged_decode_attention(q, pk, pv, tables, lengths,
+                                          window=window,
+                                          plan={"split_keys": 64})
+        assert torch.equal(same, base)
+        want = tak.paged_decode_attention_plain(
+            q.cpu(), pk.cpu(), pv.cpu(), tables.cpu(), lengths.cpu(),
+            window=window)
+        for split in (16, 48, 128, 512):
+            _close(tak.paged_decode_attention(
+                q, pk, pv, tables, lengths, window=window,
+                plan={"split_keys": split}), want, dt)
+    for split in (8, 24, 8192):
+        with pytest.raises(RuntimeError):
+            tak.paged_decode_attention(q, pk, pv, tables, lengths,
+                                       plan={"split_keys": split})
+
+
+def test_tuner_full_mode_on_card(card, tmp_path):
+    """Under ``full`` the first call of a shape measures its space on the
+    card and persists the winner, the second only looks it up; the output
+    holds against the plain version. A tuned winner, read back by a fresh
+    cache, is the plan that won, and in a fresh measurement (interleaved
+    with the shape's own plan) it is within TIE_BAND of that plan. ``off``
+    never consults the tuner."""
+    from repro_torch.core import flags
+    from repro_torch.tune import cache as tcache
+    from repro_torch.tune import measure, schedules, tuner
+    prev = flags.get("tune_mode"), flags.get("tune_cache")
+    flags.set_flag("tune_cache", str(tmp_path / "plans.json"))
+    tcache.reset_cache()
+    calls = {"n": 0}
+    real = measure.time_callable
+
+    def counting(*a, **kw):
+        calls["n"] += 1
+        return real(*a, **kw)
+    measure.time_callable = counting
+    try:
+        run, plain, a, b, _ = _gemm_case(card, torch.bfloat16, 256)
+        flags.set_flag("tune_mode", "full")
+        got = run()
+        first = calls["n"]
+        assert first > 1
+        _check_gemm(got, plain, a, b, torch.bfloat16)
+        run()
+        assert calls["n"] == first
+        dtypes = (torch.bfloat16, torch.float32, torch.float32)
+        rep = tuner._tune_gemm(dtypes, False, 256, 200, 600, True, False,
+                               card)
+        tcache.reset_cache()
+        assert tcache.get_cache().lookup_schedule(rep.cache_key, ()) == \
+            rep.winner
+        case = measure.gemm_case(dtypes, False, 256, 200, 600, True, False,
+                                 card)
+        t = ([], [])
+        for r in range(4):
+            for i in ((0, 1) if r % 2 == 0 else (1, 0)):
+                t[i].append(real(case, (schedules.STATIC, rep.winner)[i],
+                                 device=card)["min_us"])
+        assert min(t[1]) <= min(t[0]) * (1 + tuner.TIE_BAND)
+        flags.set_flag("tune_mode", "off")
+        n0 = calls["n"]
+        assert torch.equal(run(), run({"tile": 0, "splits": 0}))
+        assert calls["n"] == n0
+    finally:
+        measure.time_callable = real
+        flags.set_flag("tune_mode", prev[0])
+        flags.set_flag("tune_cache", prev[1])
+        tcache.reset_cache()

@@ -3,7 +3,7 @@ the K split count, on a card.
 
 Builds a copy of ``csrc/conv.cu`` whose ``sgemm.cuh`` carries
 ``globaltimer`` stamps (thread 0 of every block, at the phase boundaries
-below) and whose CUDA-core plan can be handed a split count, then, at
+below; a split count is handed to it as the caller's plan), then, at
 every distinct conv of ``dse.resnet(50)``'s stream
 (``chip_smoke.resnet50_shapes``; fp32, operands as phase 6b draws them,
 bias, shift 1 and ReLU), prints the shipped kernel's event time
@@ -83,14 +83,9 @@ def build(out: Path) -> Path:
         src = patch(src, anchor, "\n".join(lines[:at] + [stamp(slot)] +
                                            lines[at:]))
     conv = (_build.CSRC / "conv.cu").read_text()
-    conv = patch(conv, "  const sgemm::Plan pl = cc_plan<In>(m, sh.co, k, "
-                 "hgemm::sm_count());", "  const sgemm::Plan pl = g_splits "
-                 "> 0 ? cc_plan_of<In>(m, sh.co, k, g_splits) : cc_plan<In>("
-                 "m, sh.co, k, hgemm::sm_count());")
-    conv = patch(conv, "namespace {\n", "namespace {\nint g_splits = 0;\n")
-    conv += ('\nextern "C" void conv_phases_set(void* stamps, int splits) {\n'
+    conv += ('\nextern "C" void conv_phases_set(void* stamps) {\n'
              '  sgemm::g_stamps = static_cast<unsigned long long*>(stamps);\n'
-             '  g_splits = splits;\n}\n')
+             '}\n')
     out.mkdir(parents=True, exist_ok=True)
     (out / "sgemm.cuh").write_text(src)
     (out / "conv.cu").write_text(conv)    # includes the stamped sgemm.cuh
@@ -128,7 +123,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     timer = cs.Timer(torch)
     lib = ctypes.CDLL(str(build(ROOT / "build" / "conv_phases")))
-    lib.conv_phases_set.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.conv_phases_set.argtypes = [ctypes.c_void_p]
     launch = lib.conv2d_launch
     launch.argtypes = kc._ARGS
     launch.restype = ctypes.c_int
@@ -149,12 +144,13 @@ def main() -> int:
         out = torch.empty((1, oh, oh, co), device="cuda")
 
         def call(splits, stamps=None):
-            lib.conv_phases_set(stamps, splits)
+            # splits > 0: the caller's plan (the conv's one tile, code 1)
+            lib.conv_phases_set(stamps)
             err = launch(x.data_ptr(), w.data_ptr(), b.data_ptr(),
                          out.data_ptr(), 1, h, h, ci, co, kh, kh, st, pad,
                          oh, oh, 2, 0, 1, shift, 0.5,
                          torch.cuda.current_stream().cuda_stream,
-                         ws.data_ptr())
+                         ws.data_ptr(), 1 if splits else 0, splits)
             if err:
                 raise SystemExit(f"conv_phases: {label}: CUDA error {err}")
 
@@ -166,7 +162,7 @@ def main() -> int:
             torch.cuda.synchronize()
             call(0, stamps.data_ptr())
             torch.cuda.synchronize()
-        lib.conv_phases_set(None, 0)
+        lib.conv_phases_set(None)
         cs.check_close(torch, f"conv_phases {label}", out, want, "fp32")
         raw = stamps.view(-1, STAMPS).cpu().tolist()
         parts = []
@@ -192,7 +188,7 @@ def main() -> int:
                 mark = "*" if s == plan["splits"] else ""
                 times.append(f"s{s}{mark} {t * 1e3:.2f}")
             s *= 2
-        lib.conv_phases_set(None, 0)
+        lib.conv_phases_set(None)
         print(f"  splits (us, * the plan's): " + ", ".join(times), flush=True)
     return 0
 

@@ -16,13 +16,14 @@ to its last store:
 
   python3 tools/hgemm_phases.py
   python3 tools/hgemm_phases.py --sweep   # and the event time of every
-                                          # plan the kernel can take
+                                          # wide plan of the tuner's space
 
 Phases: ``landed`` (the first stage in shared memory), ``loop_end`` (the
 last product of the block's k steps), ``staged`` (the block's fp32 tile in
 shared memory; with split K, every tile of its cluster), ``done`` (its rows
 of the tile finished and stored, every thread). ``--sweep`` times every
-tile shape with 1 to 8 K splits. Every output is held against the plain
+tile shape with 1 to 8 K splits, named to the kernel as a caller's plan
+(``repro_torch.tune.schedules``). Every output is held against the plain
 version (``chip_smoke.check_close``). The stamps cost a few instructions
 each, so the phases are the instrumented kernel's. Needs a card and
 ``nvcc``; builds into ``build/hgemm_phases/``.
@@ -55,19 +56,14 @@ MARKS = [
     ("                                      m0, n0);\n  cluster.sync();", 4,
      1),
 ]
-# plan number f = 1 .. 4 * 8: wide tile shape (f - 1) / 8 with (f - 1) % 8
-# + 1 K splits (--sweep)
-FORCED = """
-inline Plan plan_forced(int m, int n, int k, int b_trans, int sms, int f) {
-  if (m <= 16) return plan(m, n, k, b_trans, sms);
-  Plan p{};
-  plan_wide(m, n, k, (f - 1) / 8, (f - 1) % 8 + 1, sms, p);
-  p.blocks = (long long)p.tiles_m * p.tiles_n * p.splits;
-  return p;
-}
 
-"""
-N_FORCED = 32
+
+def named(gemm, sched):
+    """``kernels.gemm._gemm`` with its plan forced to ``sched``."""
+    def call(*args, **kw):
+        kw["plan"] = sched
+        return gemm(*args, **kw)
+    return call
 
 
 def stamp(slot: int) -> str:
@@ -85,7 +81,7 @@ def patch(src: str, anchor: str, new: str) -> str:
 
 
 # The library's entry points: the gemm and gemm16 libraries' bf16 / fp16
-# launchers and gemm_plan, with a plan override for --sweep.
+# launchers and gemm_plan, each with the caller's plan (tile, splits).
 ENTRY = r'''
 #include "hgemm.cuh"
 
@@ -93,12 +89,13 @@ namespace {
 template <typename Elt, typename OutT>
 int run(const void* a, const void* b, const void* d, void* c, int m, int n,
         int k, long long lda, long long ldb, int b_trans, long long ldd,
-        int act, float out_scale, int ws, void* workspace, void* stream) {
+        int act, float out_scale, int ws, void* workspace, void* stream,
+        int tile, int splits) {
   return static_cast<int>(hgemm::launch<Elt, OutT>(
       static_cast<const Elt*>(a), static_cast<const Elt*>(b),
       static_cast<const float*>(d), static_cast<OutT*>(c), m, n, k, lda, ldb,
       b_trans, ldd, act, out_scale, ws, workspace,
-      static_cast<cudaStream_t>(stream)));
+      static_cast<cudaStream_t>(stream), tile, splits));
 }
 }  // namespace
 
@@ -107,45 +104,42 @@ extern "C" int gemm_launch(const void* a, const void* b, const void* d,
                            long long ldb, int b_trans, long long ldd,
                            int in_dtype, int out_dtype, int act,
                            float out_scale, int ws, void* stream,
-                           void* workspace) {
+                           void* workspace, int tile, int splits) {
   if (in_dtype != 1 || out_dtype != 1) return (int)cudaErrorInvalidValue;
   return run<hgemm::bf16, hgemm::bf16>(a, b, d, c, m, n, k, lda, ldb,
                                        b_trans, ldd, act, out_scale, ws,
-                                       workspace, stream);
+                                       workspace, stream, tile, splits);
 }
 
 extern "C" int gemm_f16_launch(const void* a, const void* b, const void* d,
                                void* c, int m, int n, int k, long long lda,
                                long long ldb, int b_trans, long long ldd,
                                int out_dtype, int act, float out_scale,
-                               int ws, void* stream, void* workspace) {
+                               int ws, void* stream, void* workspace,
+                               int tile, int splits) {
   if (out_dtype != 2) return (int)cudaErrorInvalidValue;
   return run<__half, __half>(a, b, d, c, m, n, k, lda, ldb, b_trans, ldd,
-                             act, out_scale, ws, workspace, stream);
+                             act, out_scale, ws, workspace, stream, tile,
+                             splits);
 }
 
 extern "C" int gemm_plan(int m, int n, int k, int b_trans, int in_dtype,
-                         long long* plan) {
+                         int tile, int splits, long long* plan) {
   if (in_dtype != 1 && in_dtype != 2) return (int)cudaErrorInvalidValue;
-  const hgemm::Plan p = PLAN_CALL;
-  const long long out[10] = {p.wide,   p.bm,     p.bn,      p.bk,
+  hgemm::Plan p;
+  if (!hgemm::resolve(m, n, k, b_trans, hgemm::sm_count(), tile, splits, p))
+    return (int)cudaErrorInvalidValue;
+  const long long out[11] = {p.wide,   p.bm,     p.bn,      p.bk,
                              p.splits, p.blocks, p.threads, p.stages,
-                             p.smem,   p.ws_words};
-  for (int i = 0; i < 10; ++i) plan[i] = out[i];
+                             p.smem,   p.ws_words, hgemm::tile_code(p)};
+  for (int i = 0; i < 11; ++i) plan[i] = out[i];
   return 0;
 }
 
-extern "C" void hgemm_phases_set(void* stamps, int forced) {
+extern "C" void hgemm_phases_set(void* stamps) {
   hgemm::g_stamps = static_cast<unsigned long long*>(stamps);
-  hgemm::g_forced = forced;
 }
 '''
-
-# the plan a call takes: the kernel's own, or (--sweep) a forced variant
-PLAN_ANCHOR = "  const Plan pl = plan(m, n, k, b_trans, sm_count());"
-PLAN_CALL = "hgemm::plan(m, n, k, b_trans, hgemm::sm_count())"
-FORCED_CALL = ("hgemm::g_forced ? hgemm::plan_forced(m, n, k, b_trans, "
-               "hgemm::sm_count(), hgemm::g_forced) : " + PLAN_CALL)
 
 
 def build(out: Path) -> Path:
@@ -153,17 +147,12 @@ def build(out: Path) -> Path:
 
     src = (_build.CSRC / "hgemm.cuh").read_text()
     src = patch(src, "namespace hgemm {\n", "namespace hgemm {\ninline "
-                "unsigned long long* g_stamps = nullptr;\ninline int g_forced "
-                "= 0;\n")
+                "unsigned long long* g_stamps = nullptr;\n")
     src = patch(src, "  int* tickets;      // splits > 1: one per tile, 0 "
                 "between calls\n", "  int* tickets;      // splits > 1: one "
                 "per tile, 0 between calls\n  unsigned long long* stamps;\n")
     src = patch(src, "  a.ws = ws;\n", "  a.ws = ws;\n  a.stamps = g_stamps;"
                 "\n")
-    src = patch(src, PLAN_ANCHOR, "  const Plan pl = " +
-                FORCED_CALL.replace("hgemm::", "") + ";")
-    src = patch(src, "template <typename Elt>\nstruct Args {",
-                FORCED + "template <typename Elt>\nstruct Args {")
     for anchor, slot, at in MARKS:
         lines = anchor.split("\n")
         src = patch(src, anchor, "\n".join(lines[:at] + [stamp(slot)] +
@@ -172,8 +161,7 @@ def build(out: Path) -> Path:
     for p in _build.CSRC.glob("*.cuh"):       # the stamped header's siblings
         (out / p.name).write_text(p.read_text())
     (out / "hgemm.cuh").write_text(src)
-    (out / "hgemm_phases.cu").write_text(
-        ENTRY.replace("PLAN_CALL", FORCED_CALL))
+    (out / "hgemm_phases.cu").write_text(ENTRY)
     lib = out / "libhgemm_phases.so"
     cmd = _build.nvcc_command(out / "hgemm_phases.cu", lib)
     # -fno-gnu-unique: the launchers' statics stay this library's own
@@ -200,12 +188,13 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import gemm as kg
     from repro_torch.kernels.ref import gemm_ref
+    from repro_torch.tune import schedules
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     lib = ctypes.CDLL(str(build(ROOT / "build" / "hgemm_phases")))
-    lib.hgemm_phases_set.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.hgemm_phases_set.argtypes = [ctypes.c_void_p]
     for name in ("gemm", "gemm16"):
         _build._LIBS[name] = lib
     for key in [k for k in _build._FNS if k[0] in ("gemm", "gemm16")]:
@@ -252,10 +241,10 @@ def main() -> int:
             stamps.zero_()
             timer.flush_buf.zero_()
             torch.cuda.synchronize()
-            lib.hgemm_phases_set(stamps.data_ptr(), 0)
+            lib.hgemm_phases_set(stamps.data_ptr())
             run_k()
             torch.cuda.synchronize()
-        lib.hgemm_phases_set(None, 0)
+        lib.hgemm_phases_set(None)
         raw = stamps.view(-1, STAMPS).cpu().tolist()
         parts = []
         for j, phase in enumerate(PHASES, 1):
@@ -271,27 +260,31 @@ def main() -> int:
               + ", ".join(parts) + f"; span {span:.2f}", flush=True)
         if not args.sweep:
             continue
-        times, seen = [], set()
-        for f in range(1, N_FORCED + 1):
-            lib.hgemm_phases_set(None, f)
-            kg._PLANS.clear()
-            p = kg.gemm_plan(m, n, k, trans, dtype=f16 if kind == "fp16"
-                             else bf16)
-            key = (p["tile"], p["splits"])
-            if p["regime"] != "wide" or key in seen:
-                continue
-            seen.add(key)
+        times = []
+        dt = f16 if kind == "fp16" else bf16
+        real = kg._gemm
+        for sched in schedules.enumerate_gemm_schedules(dt, m, n, k)[1:]:
             try:
-                cs.check_close(torch, f"hgemm_phases {label} plan {f}",
+                p = kg.gemm_plan(m, n, k, trans, dtype=dt, **sched)
+            except RuntimeError:
+                continue
+            # the case's call, with the plan named
+            kg._gemm = named(real, sched)
+            try:
+                cs.check_close(torch, f"hgemm_phases {label} {sched}",
                                run_k(), run_p(), kind)
             except SystemExit:
-                times.append(f"#{f} wrong")
+                times.append(f"{sched} wrong")
                 continue
-            bm, bn, _ = p["tile"]
-            times.append(f"{bm}x{bn} s{p['splits']} "
-                         f"{timer(run_k) * 1e3:.2f}")
-        lib.hgemm_phases_set(None, 0)
-        kg._PLANS.clear()
+            finally:
+                kg._gemm = real
+            kg._gemm = named(real, sched)
+            try:
+                bm, bn, _ = p["tile"]
+                times.append(f"{bm}x{bn} s{p['splits']} "
+                             f"{timer(run_k) * 1e3:.2f}")
+            finally:
+                kg._gemm = real
         print("  plans (us): " + ", ".join(times), flush=True)
     return 0
 
