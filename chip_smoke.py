@@ -159,7 +159,22 @@ Needs one CUDA card, ``nvcc`` and the repository checkout around this file
    first request's first 256 tokens' prefill logits held by
    ``hold_bf16`` and the decode step's wall logged beside phase 4b's; a
    guard trip under ``FAULT_PLAN`` quarantines the paged key, whose next
-   resolution is the static page.
+   resolution is the static page;
+17. contracts (``repro_torch.analysis.lint.card``): every probe plan of the
+   lint driver, all nine kernel families over the tuner's schedule space
+   widened past each limit: (a) the lint admits a plan exactly when its C
+   plan function accepts it (a plan that needs the card's cluster
+   co-residency is logged where the card refuses it), and an accepted
+   plan's contract equals the C array field for field; (b) every kernel
+   entry's ``ptxas`` registers, rounded to 8, times its threads and its
+   ``__launch_bounds__`` blocks fit 65,536; (c) each accepted plan
+   launched twice into an output between 4 KB guard bands filled with a
+   sentinel (NaN payloads for floats, bit patterns for ints), another
+   each time: every element written, the bands untouched, the output
+   equal to its plain version by phase 3's rules; (d) the stream's
+   ticket words 0 after each ticket plan; (e) the two launches bit-equal.
+   The counts (plans, admitted, refused, needing the card, C
+   disagreements) are logged; the phase has 90 s.
 
 Phase 3 also holds the chunked SSD (mamba2-1.3b's and hymba-1.5b's
 widths: the serving call, one 256-token chunk resumed, and 1000 tokens
@@ -204,6 +219,10 @@ row-major operand.
 Every profiler window (phases 4b, 6, 6b, 7-8) is held to the launch
 counters' growth over its passes (``profile_call``): a short window is
 taken again, and one that stays short fails the run.
+``python3 chip_smoke.py --phase 17`` runs phases 1, 2 and 17 alone (a
+quicker check of the contracts on a card); with no argument every phase
+runs.
+
 Every main path's launch counts are zeroed
 just before it and read just after; the kernels line takes each kernel's
 count from its own path: the serve phase, the engine phase, phase 6b (the
@@ -3717,6 +3736,46 @@ def run_tune_phase(torch, np, phase4b_decode_ms):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the launch contracts held to the card
+# ---------------------------------------------------------------------------
+CONTRACT_BUDGET_S = 90.0
+
+
+def run_contract_phase(torch, sources):
+    """The lint's verdict and geometry on every probe plan against the C
+    plan functions, the registers against the launch bounds, and every
+    accepted plan launched into guarded outputs
+    (``repro_torch.analysis.lint.card``)."""
+    from _ssd_exact import fp32_tolerance, ssd_fp64
+
+    from repro_torch.analysis.lint import card
+    from repro_torch.kernels import _build
+
+    kinds = {"int": "int", "bf16": "bf16", "fp16": "fp16", "fp32": "fp32"}
+    t0 = time.perf_counter()
+    try:
+        out = card.run(
+            torch, log=log,
+            close_fn=lambda name, got, want, kind: check_close(
+                torch, name, got, want, kinds[kind]),
+            ssd_exact=(ssd_fp64, fp32_tolerance),
+            build_logs={name: _build.build_log(name) for name in sources},
+            budget_s=CONTRACT_BUDGET_S)
+    except card.CardFailure as e:
+        fail(f"contracts: {e}")
+    c = out["counts"]
+    log(f"contracts: {c['plans']} plans checked, {c['admitted']} admitted "
+        f"and launched, {c['refused']} refused, {c['needs_card']} need the "
+        f"card ({c['card_refused']} refused by it), {c['c_disagree']} C "
+        f"disagreements; {out['sms']} SMs")
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"contract phase: {out['phase_s']:.1f} s")
+    if c["c_disagree"]:
+        fail(f"contracts: {c['c_disagree']} disagreements with the C plans")
+    return out
+
+
 def ptxas_summary(lines, names) -> str:
     """Per kernel name: its instantiations, their register range and the
     most spill bytes any of them has, from ``-Xptxas=-v`` lines (an entry
@@ -3790,6 +3849,21 @@ def main() -> int:
                        ("conv", ("igemm", "sgemm_kernel")),
                        ("ssd", ("ssd_tc_kernel", "ssd_kernel"))):
         log(f"ptxas {src}: " + ptxas_summary(ptxas.get(src, []), names))
+
+    if sys.argv[1:] == ["--phase", "17"]:
+        contracts = run_contract_phase(torch, secs)
+        with open(os.path.join(OUT_DIR, "chip_smoke_contracts.json"),
+                  "w") as f:
+            json.dump({"device": kind, "nvidia_smi": smi,
+                       "contracts": contracts}, f, indent=1, default=str)
+        log(f"phases 1, 2 and 17 passed in "
+            f"{time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if sys.argv[1:]:
+        fail(f"unknown arguments {sys.argv[1:]}: none, or --phase 17")
 
     # 3. kernels
     timer = Timer(torch)
@@ -3868,6 +3942,11 @@ def main() -> int:
     # every earlier phase ran with tuning off)
     tune_summary = run_tune_phase(torch, np,
                                   profile["decode_step"]["wall_ms"])
+    torch.cuda.empty_cache()
+
+    # 17. the launch contracts against the C plans, and every accepted
+    # plan launched into guarded outputs
+    contracts = run_contract_phase(torch, secs)
 
     # the kernels line
     meta = {
@@ -3933,7 +4012,7 @@ def main() -> int:
                    "moe_launches": moe_counts, "train_smoke": train_smoke,
                    "train": train_summary, "train_launches": train_counts,
                    "gemma3_4b": g4_summary, "gemma3_4b_launches": g4_counts,
-                   "tune": tune_summary},
+                   "tune": tune_summary, "contracts": contracts},
                   f, indent=1, default=str)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}), flush=True)

@@ -1,3 +1,4 @@
-"""Analysis helpers (port of ``repro.analysis``): the card's roofline
-peaks. The JAX package's HLO, lint and model-checker parts are later
-slices or have no counterpart here."""
+"""Analysis (port of ``repro.analysis``): the card's roofline peaks
+(``roofline``), the control-plane model checker (``mc``) and the
+launch-contract lint of the H100 kernels (``lint``). The JAX package's
+HLO cost analysis is XLA's; its counterpart is A15's dry run (ROADMAP)."""

@@ -41,6 +41,7 @@ import torch
 
 from repro_torch.core import flags
 from repro_torch.kernels import _build
+from repro_torch.kernels.contracts import kernel_contract
 from repro_torch.models.attention import NEG_INF, blockwise_attention
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -201,21 +202,32 @@ def _split_arg(plan: Optional[dict]) -> int:
     return int(plan["split_keys"]) if plan else 0
 
 
+_FLASH_PLAN_KEYS = ("cluster", "stages", "grid_x", "grid_y", "grid_z",
+                    "threads", "smem")
+
+
 def flash_plan(b: int, tq: int, tk: int, h: int, kvh: int, d: int, *,
                causal: bool = True, window: Optional[int] = None,
-               dtype: torch.dtype = torch.bfloat16, device=None) -> dict:
-    """The plan a flash call of these shapes runs when it names none:
-    ``{"cluster": blocks per cluster, "stages": K/V stages a warp}``."""
-    out = (ctypes.c_longlong * 2)()
-    fn = _build.bind("attention", "flash_attention_plan", [_I] * 9 + [_P])
+               dtype: torch.dtype = torch.bfloat16, device=None,
+               plan: Optional[dict] = None) -> dict:
+    """The launch a flash call of these shapes makes under ``plan``
+    (``{"cluster", "stages"}``; None for its own): blocks per cluster, K/V
+    stages a warp, the grid (bf16: clusters x row tiles of 16 x heads x
+    batch; fp32: clusters x kv heads x batch x row tiles of (position,
+    query head) pairs), threads and dynamic shared memory bytes. A plan
+    the kernel cannot run raises, as at launch."""
+    out = (ctypes.c_longlong * len(_FLASH_PLAN_KEYS))()
+    fn = _build.bind("attention", "flash_attention_plan", [_I] * 11 + [_P])
     with torch.cuda.device(device if device is not None
                            else torch.cuda.current_device()):
         _build.check(fn(b, tq, tk, h, kvh, d, int(causal), int(window or 0),
-                        _DT[dtype], ctypes.addressof(out)),
+                        _DT[dtype], *_flash_args(plan),
+                        ctypes.addressof(out)),
                      "flash_attention_plan")
-    return {"cluster": out[0], "stages": out[1]}
+    return dict(zip(_FLASH_PLAN_KEYS, out))
 
 
+@kernel_contract("flash_attention")
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None,
                     softcap: Optional[float] = None,
@@ -256,6 +268,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     return o
 
 
+@kernel_contract("decode_attention")
 def decode_attention(q, k, v, pos: int, *, window: Optional[int] = None,
                      softcap: Optional[float] = None,
                      scale: Optional[float] = None) -> torch.Tensor:
@@ -330,6 +343,7 @@ def paged_decode_plan(slots: int, max_pages: int, page: int, h: int,
     return plan
 
 
+@kernel_contract("paged_decode_attention")
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
                            window: Optional[int] = None,
                            softcap: Optional[float] = None,
@@ -382,6 +396,26 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
     return o
 
 
+def paged_prefill_plan(tq: int, start: int, h: int, kvh: int, d: int,
+                       window: Optional[int] = None, *,
+                       dtype: torch.dtype = torch.bfloat16,
+                       device=None) -> dict:
+    """The launch a paged prefill call of these arguments makes (its own
+    plan, from T, start and the window): blocks per cluster, K/V stages,
+    the grid (bf16: clusters x row tiles of 16 x heads; fp32: clusters x
+    kv heads x row tiles of (position, query head) pairs), threads and
+    dynamic shared memory bytes."""
+    out = (ctypes.c_longlong * len(_FLASH_PLAN_KEYS))()
+    fn = _build.bind("attention", "paged_prefill_plan", [_I] * 7 + [_P])
+    with torch.cuda.device(device if device is not None
+                           else torch.cuda.current_device()):
+        _build.check(fn(int(tq), int(start), h, kvh, d, int(window or 0),
+                        _DT[dtype], ctypes.addressof(out)),
+                     "paged_prefill_plan")
+    return dict(zip(_FLASH_PLAN_KEYS, out))
+
+
+@kernel_contract("paged_prefill_attention")
 def paged_prefill_attention(q, k_pool, v_pool, block_table, start: int, *,
                             window: Optional[int] = None,
                             softcap: Optional[float] = None,

@@ -46,6 +46,7 @@ import torch
 from repro_torch.core import flags
 from repro_torch.core.config import Activation
 from repro_torch.kernels import _build
+from repro_torch.kernels.contracts import kernel_contract
 from repro_torch.kernels import epilogue as epi
 from repro_torch.kernels.gemm import (_ACT, _DT, _INT_OUT, _PLAN_KEYS,
                                       _check_int_shift, _device_index,
@@ -103,6 +104,7 @@ def conv_plan(m: int, n: int, k: int, dtype: torch.dtype = torch.int8,
     return plan
 
 
+@kernel_contract("conv2d_implicit")
 def conv2d_implicit(x: torch.Tensor, w: torch.Tensor,
                     b: Optional[torch.Tensor] = None, *,
                     acc_dtype: torch.dtype, out_dtype: torch.dtype,

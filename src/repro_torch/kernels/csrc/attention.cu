@@ -93,9 +93,10 @@
 //
 // C interface: flash_attention_launch, paged_prefill_launch,
 // paged_decode_launch, decode_attention_launch (each returns
-// cudaGetLastError()), and flash_attention_plan, decode_attention_plan /
-// paged_decode_plan, which report the cluster and stages a flash call, or
-// the grid and the workspace a decode call, will use. Dense flash and
+// cudaGetLastError()), and flash_attention_plan, paged_prefill_plan,
+// decode_attention_plan / paged_decode_plan, which report the geometry a
+// flash or paged prefill call, or the grid and the workspace a decode
+// call, will use. Dense flash and
 // paged decode take an optional plan, the tuner's: a flash call's blocks
 // per cluster and stages, a paged decode call's keys per split (0s: the
 // plan of the shape).
@@ -605,19 +606,42 @@ inline bool flash_override(int cluster, int stages, int most,
          stages >= 1 && stages <= stages_most;
 }
 
+// A flash launch's geometry: blocks per cluster, K/V stages a warp, the
+// grid, threads per block and dynamic shared memory.
+struct FlashGeom {
+  int cluster, stages;
+  dim3 grid;
+  int threads, smem;
+};
+
+// The bf16 kernel's geometry for a call with the caller's (cluster,
+// stages), 0, 0 for its own; false where the kernel cannot run the
+// caller's.
+template <int D>
+bool flash_tc_geom(const FlashArgs& a, int batch, int cluster, int stages,
+                   FlashGeom& g) {
+  if (cluster == 0 && stages == 0) {
+    g.cluster = flash_cluster<D>(a, g.stages);
+  } else {
+    if (!flash_override(cluster, stages, FT_MAX_CLUSTER, 2)) return false;
+    g.cluster = cluster;
+    g.stages = stages;
+  }
+  g.grid = dim3(g.cluster, (a.Tq + FT_ROWS - 1) / FT_ROWS, a.H * batch);
+  g.threads = FT_WARPS * 32;
+  g.smem = FlashTile<D>::smem(g.stages);
+  return true;
+}
+
 template <int D, typename Loader>
 cudaError_t launch_flash_tc(FlashArgs a, int batch, int cluster, int stages,
                             cudaStream_t s) {
-  int cl;
-  if (cluster == 0 && stages == 0) {
-    cl = flash_cluster<D>(a, a.stages);
-  } else {
-    if (!flash_override(cluster, stages, FT_MAX_CLUSTER, 2))
-      return cudaErrorInvalidValue;
-    cl = cluster;
-    a.stages = stages;
-  }
-  const dim3 grid(cl, (a.Tq + FT_ROWS - 1) / FT_ROWS, a.H * batch);
+  FlashGeom g;
+  if (!flash_tc_geom<D>(a, batch, cluster, stages, g))
+    return cudaErrorInvalidValue;
+  a.stages = g.stages;
+  const int cl = g.cluster;
+  const dim3 grid = g.grid;
   auto kernel = flash_tc_kernel<D, Loader>;
   static bool configured = false;     // per instantiation: per loader
   if (!configured) {
@@ -629,8 +653,8 @@ cudaError_t launch_flash_tc(FlashArgs a, int batch, int cluster, int stages,
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
-  cfg.blockDim = dim3(FT_WARPS * 32);
-  cfg.dynamicSmemBytes = FlashTile<D>::smem(a.stages);
+  cfg.blockDim = dim3(g.threads);
+  cfg.dynamicSmemBytes = g.smem;
   cfg.stream = s;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -1109,21 +1133,36 @@ int f32_plan(const F32Args& a, int batch, int& nrb, int& stages) {
   return cl;
 }
 
-template <int D, typename Loader>
-cudaError_t launch_f32(F32Args a, int batch, int cluster, int stages,
-                       cudaStream_t s) {
+// The fp32 kernel's geometry, as flash_tc_geom (a grid of no blocks where
+// there are no rows or no sequences: nothing launches).
+template <int D>
+bool f32_geom(const F32Args& a, int batch, int cluster, int stages,
+              FlashGeom& g) {
   int nrb;
-  int cl = f32_plan<D>(a, batch, nrb, a.stages);
+  g.cluster = f32_plan<D>(a, batch, nrb, g.stages);
   if (cluster != 0 || stages != 0) {
     if (!flash_override(cluster, stages, F32_MAX_CLUSTER,
                         F32Tile<D>::MAX_STAGES))
-      return cudaErrorInvalidValue;
-    cl = cluster;
-    a.stages = stages;
+      return false;
+    g.cluster = cluster;
+    g.stages = stages;
   }
-  if (nrb == 0 || batch == 0) return cudaSuccess;
-  if (nrb > 65535 || (long long)a.KVH * batch > 65535)
+  if (nrb > 65535 || (long long)a.KVH * batch > 65535) return false;
+  g.grid = dim3(g.cluster, a.KVH * batch, nrb);
+  g.threads = F32_WARPS * 32;
+  g.smem = F32Tile<D>::smem(g.stages);
+  return true;
+}
+
+template <int D, typename Loader>
+cudaError_t launch_f32(F32Args a, int batch, int cluster, int stages,
+                       cudaStream_t s) {
+  FlashGeom g;
+  if (!f32_geom<D>(a, batch, cluster, stages, g))
     return cudaErrorInvalidValue;
+  a.stages = g.stages;
+  const int cl = g.cluster;
+  if (g.grid.z == 0 || batch == 0) return cudaSuccess;
   auto kernel = flash_f32_kernel<D, Loader>;
   static bool configured = false;     // per instantiation: per loader
   if (!configured) {
@@ -1134,9 +1173,9 @@ cudaError_t launch_f32(F32Args a, int batch, int cluster, int stages,
     configured = true;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cl, a.KVH * batch, nrb);
-  cfg.blockDim = dim3(F32_WARPS * 32);
-  cfg.dynamicSmemBytes = F32Tile<D>::smem(a.stages);
+  cfg.gridDim = g.grid;
+  cfg.blockDim = dim3(g.threads);
+  cfg.dynamicSmemBytes = g.smem;
   cfg.stream = s;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -1567,14 +1606,41 @@ cudaError_t split_dispatch(int dtype, int D, int rep_blk, const SplitArgs& a,
                       : split_by_dim<float, 8, Loader>(D, a, s);
 }
 
-// The default (blocks per cluster, stages) of a flash call, by head dim.
+// A flash call's geometry, as plan[0..6]: blocks per cluster, K/V stages
+// a warp, the grid (x: the cluster's blocks; bf16: y row tiles of 16, z
+// heads x batch; fp32: y kv heads x batch, z row tiles of the kv head's
+// (position, query head) pairs, 0 where nothing launches), threads per
+// block, dynamic shared memory bytes. The caller's (cluster, stages), 0, 0
+// for the call's own; false where the kernel cannot run them.
 template <int D>
-void flash_default(const FlashArgs& a, const F32Args& f, int batch,
-                   int dtype, long long* plan) {
-  int stages = 1, nrb = 0;
-  plan[0] = dtype == DT_BF16 ? flash_cluster<D>(a, stages)
-                             : f32_plan<D>(f, batch, nrb, stages);
-  plan[1] = stages;
+bool flash_geom_of(int dtype, const FlashArgs& a, const F32Args& f,
+                   int batch, int cluster, int stages, FlashGeom& g) {
+  return dtype == DT_BF16 ? flash_tc_geom<D>(a, batch, cluster, stages, g)
+                          : f32_geom<D>(f, batch, cluster, stages, g);
+}
+
+bool flash_geom_plan(int D, int dtype, const FlashArgs& a, const F32Args& f,
+                     int batch, int cluster, int stages, long long* plan) {
+  FlashGeom g{};
+  bool ok = false;
+  switch (D) {
+    case 16: ok = flash_geom_of<16>(dtype, a, f, batch, cluster, stages, g);
+      break;
+    case 32: ok = flash_geom_of<32>(dtype, a, f, batch, cluster, stages, g);
+      break;
+    case 64: ok = flash_geom_of<64>(dtype, a, f, batch, cluster, stages, g);
+      break;
+    case 128: ok = flash_geom_of<128>(dtype, a, f, batch, cluster, stages, g);
+      break;
+    case 256: ok = flash_geom_of<256>(dtype, a, f, batch, cluster, stages, g);
+      break;
+    default: break;
+  }
+  if (!ok) return false;
+  const long long out[7] = {g.cluster, g.stages, g.grid.x, g.grid.y,
+                            g.grid.z, g.threads, g.smem};
+  for (int i = 0; i < 7; ++i) plan[i] = out[i];
+  return true;
 }
 
 }  // namespace
@@ -1582,8 +1648,8 @@ void flash_default(const FlashArgs& a, const F32Args& f, int batch,
 // flash_attention: q (B, Tq, H, D), k / v (B, Tk, KVH, D), queries
 // right-aligned to the keys. cluster, stages: the caller's plan (blocks
 // per cluster 1, 2 or 4; stages 1 or 2, fp32 at D = 256 only 1), or 0, 0
-// for the call's own (flash_attention_plan); a plan the kernel cannot run
-// is cudaErrorInvalidValue.
+// for the call's own (flash_attention_plan reports either); a plan the
+// kernel cannot run is cudaErrorInvalidValue.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int Tq, int Tk,
     int H, int KVH, int D, int causal, int window, float softcap, float scale,
@@ -1608,10 +1674,13 @@ extern "C" int flash_attention_launch(
   return (int)f32_by_dim<DenseKV32>(D, a, B, cluster, stages, s);
 }
 
-// The plan a flash call of these arguments runs when the caller names
-// none; launches nothing. plan: [0] blocks per cluster, [1] stages.
+// The geometry flash_attention_launch runs for these arguments and the
+// caller's (cluster, stages), 0, 0 for the call's own (see
+// flash_geom_plan); launches nothing. A plan the kernel cannot run is
+// cudaErrorInvalidValue, as at launch.
 extern "C" int flash_attention_plan(int B, int Tq, int Tk, int H, int KVH,
                                     int D, int causal, int window, int dtype,
+                                    int cluster, int stages,
                                     long long* plan) {
   if (KVH <= 0 || H % KVH) return (int)cudaErrorInvalidValue;
   FlashArgs a{};
@@ -1620,14 +1689,9 @@ extern "C" int flash_attention_plan(int B, int Tq, int Tk, int H, int KVH,
   F32Args f{};
   f.Tq = Tq; f.H = H; f.KVH = KVH; f.q_offset = Tk - Tq; f.kv_len = Tk;
   f.causal = causal; f.window = window; f.page = 1;
-  switch (D) {
-    case 16: flash_default<16>(a, f, B, dtype, plan); return 0;
-    case 32: flash_default<32>(a, f, B, dtype, plan); return 0;
-    case 64: flash_default<64>(a, f, B, dtype, plan); return 0;
-    case 128: flash_default<128>(a, f, B, dtype, plan); return 0;
-    case 256: flash_default<256>(a, f, B, dtype, plan); return 0;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return flash_geom_plan(D, dtype, a, f, B, cluster, stages, plan)
+             ? 0
+             : (int)cudaErrorInvalidValue;
 }
 
 // bf16: the tensor-core flash kernel through PagedKV, the queries at
@@ -1661,6 +1725,23 @@ extern "C" int paged_prefill_launch(
   a.causal = 1; a.window = window; a.npool = npool; a.page = page;
   a.softcap = softcap; a.scale = scale;
   return (int)f32_by_dim<PagedKV32>(D, a, 1, 0, 0, s);
+}
+
+// The geometry paged_prefill_launch runs for these arguments, its own
+// plan (see flash_geom_plan; the pools' geometry does not enter it);
+// launches nothing.
+extern "C" int paged_prefill_plan(int Tq, int start, int H, int KVH, int D,
+                                  int window, int dtype, long long* plan) {
+  if (KVH <= 0 || H % KVH) return (int)cudaErrorInvalidValue;
+  FlashArgs a{};
+  a.Tq = Tq; a.Tk = start + Tq; a.H = H; a.KVH = KVH; a.q_offset = start;
+  a.causal = 1; a.window = window;
+  F32Args f{};
+  f.Tq = Tq; f.H = H; f.KVH = KVH; f.q_offset = start;
+  f.kv_len = start + Tq; f.causal = 1; f.window = window; f.page = 1;
+  return flash_geom_plan(D, dtype, a, f, 1, 0, 0, plan)
+             ? 0
+             : (int)cudaErrorInvalidValue;
 }
 
 // The split decode kernel's plan for a dense call (see decode_plan) and for

@@ -46,7 +46,8 @@
 //
 // C interface: gemm_launch (bf16 / fp32 inputs), gemm_plan (the bf16,
 // fp16, fp32 or int16 kernel's plan for a shape), gemm_s8_launch (int8
-// inputs), gemm_s8_plan (the int8 kernel's plan), epilogue_launch; each
+// inputs), gemm_s8_plan (the int8 kernel's plan), epilogue_launch and
+// epilogue_plan (its launch geometry); each
 // launch returns cudaGetLastError(). The GEMM entries take an optional
 // plan (tile, splits), the tuner's: 0, 0 runs the plan of the shape.
 
@@ -182,25 +183,37 @@ epilogue_kernel(const AccT* __restrict__ acc, OutT* __restrict__ C,
   }
 }
 
+// The launch geometry of one epilogue call: the head before the first
+// 16-byte-aligned accumulator address, whether the runs store packed, the
+// runs of four, and the blocks (two runs a thread; at most four blocks an
+// SM, looping beyond that).
+struct EpiGeom {
+  long long head, runs, blocks;
+  bool packed;
+};
+
+inline EpiGeom epi_geom(uintptr_t acc_addr, uintptr_t c_addr,
+                        long long count, int acc_size, int out_size) {
+  EpiGeom g;
+  g.head = std::min<long long>(count, (16 - acc_addr % 16) % 16 / acc_size);
+  g.packed = (c_addr + g.head * out_size) % (4 * out_size) == 0;
+  g.runs = (count - g.head) / 4;
+  const long long want = (g.runs + 2 * kEpiThreads - 1) / (2 * kEpiThreads);
+  g.blocks = std::max<long long>(
+      1, std::min<long long>(want, 4LL * hgemm::sm_count()));
+  return g;
+}
+
 template <typename AccT, typename OutT>
 int launch_epilogue(const void* acc, void* c, long long count, int shift,
                     int act, float out_scale, cudaStream_t s) {
   const uintptr_t addr = reinterpret_cast<uintptr_t>(acc);
   if (addr % sizeof(AccT)) return static_cast<int>(cudaErrorMisalignedAddress);
-  const long long head = std::min<long long>(
-      count, (16 - addr % 16) % 16 / sizeof(AccT));
-  const bool packed = reinterpret_cast<uintptr_t>(static_cast<OutT*>(c) +
-                                                  head) %
-                          (4 * sizeof(OutT)) ==
-                      0;
-  const long long runs = (count - head) / 4;
-  // Two runs a thread; at most four blocks an SM, looping beyond that.
-  const long long want = (runs + 2 * kEpiThreads - 1) / (2 * kEpiThreads);
-  const long long blocks = std::max<long long>(
-      1, std::min<long long>(want, 4LL * hgemm::sm_count()));
-  epilogue_kernel<AccT, OutT><<<(unsigned)blocks, kEpiThreads, 0, s>>>(
+  const EpiGeom g = epi_geom(addr, reinterpret_cast<uintptr_t>(c), count,
+                             sizeof(AccT), sizeof(OutT));
+  epilogue_kernel<AccT, OutT><<<(unsigned)g.blocks, kEpiThreads, 0, s>>>(
       static_cast<const AccT*>(acc), static_cast<OutT*>(c), count,
-      static_cast<int>(head), packed ? 1 : 0, shift, act, out_scale);
+      static_cast<int>(g.head), g.packed ? 1 : 0, shift, act, out_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -354,4 +367,28 @@ extern "C" int epilogue_launch(const void* acc, void* c, long long count,
                                           out_scale, s);
   return launch_epilogue<float, float>(acc, c, count, shift, act, out_scale,
                                        s);
+}
+
+// The launch geometry of epilogue_launch for these arguments (acc_addr,
+// c_addr: the two buffers' device addresses, or any addresses with the
+// same residues modulo 16); launches nothing. plan: [0] blocks, [1]
+// threads per block, [2] head elements (before the first 16-byte-aligned
+// accumulator address), [3] runs of four, [4] tail elements, [5] 1 where
+// the runs store packed. An accumulator address off its element size is
+// cudaErrorMisalignedAddress, as at launch.
+extern "C" int epilogue_plan(long long count, int acc_dtype, int out_dtype,
+                             unsigned long long acc_addr,
+                             unsigned long long c_addr, long long* plan) {
+  const int acc_size = 4;
+  const int out_size = acc_dtype == 0
+                           ? (out_dtype == OUT_I8 ? 1 : out_dtype == OUT_I16 ? 2 : 4)
+                           : (out_dtype == DT_F32 ? 4 : 2);
+  if (count < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (acc_addr % acc_size)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const EpiGeom g = epi_geom(acc_addr, c_addr, count, acc_size, out_size);
+  const long long out[6] = {g.blocks, kEpiThreads, g.head, g.runs,
+                            count - g.head - 4 * g.runs, g.packed ? 1 : 0};
+  for (int i = 0; i < 6; ++i) plan[i] = out[i];
+  return 0;
 }

@@ -89,7 +89,8 @@
 // compiled; N <= 128 and Q <= 256 are runtime values. dt, a_log, d_skip
 // and the states are fp32; y comes out in x's type.
 //
-// C interface: ssd_launch, returning cudaGetLastError().
+// C interface: ssd_launch, returning cudaGetLastError(), and ssd_plan, its
+// launch geometry.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -699,6 +700,13 @@ __global__ void __launch_bounds__(TC_THREADS) ssd_tc_kernel(TcArgs p) {
   }
 }
 
+// One chunk's launch geometry (chunk_geom, with the fp32 kernel's below).
+struct ChunkGeom {
+  int q, n_rt, n_hs, n_ns, n_yblk, n_state, blocks;
+};
+inline ChunkGeom chunk_geom(int dtype, int T, int H, int G, int N, int chunk,
+                            int t0, bool has_out);
+
 // One launch per chunk; the state between chunks goes through scratch,
 // two (B, H, N, P) buffers used in turn.
 template <int P>
@@ -714,19 +722,20 @@ cudaError_t launch_tc(TcArgs a, int batch, int chunk, const float* init,
   }
   const int smem = tc_smem_bytes<P>(a.N);
   const long long state = (long long)batch * a.H * a.N * P;
-  const int hpg = a.H / a.G;
-  a.n_hs = a.G * ((hpg + 1) / 2);
-  a.n_ns = (round16(a.N) + NSL - 1) / NSL;
   a.s_in = init;
   for (int c = 0, t0 = 0; t0 < a.T; ++c, t0 += chunk) {
-    a.t0 = t0;
-    a.q = min(chunk, a.T - t0);
-    const bool last = t0 + a.q >= a.T;
+    const bool last = t0 + min(chunk, a.T - t0) >= a.T;
     if (!last && !scratch) return cudaErrorInvalidValue;
     a.s_out = last ? fin : scratch + (c % 2) * state;
-    a.n_rt = (a.q + RT - 1) / RT;
-    a.n_yblk = a.n_rt * a.n_hs;
-    const int blocks = a.n_yblk + (a.s_out ? a.n_ns * a.H : 0);
+    const ChunkGeom g = chunk_geom(DT_BF16, a.T, a.H, a.G, a.N, chunk, t0,
+                                   a.s_out != nullptr);
+    a.t0 = t0;
+    a.q = g.q;
+    a.n_hs = g.n_hs;
+    a.n_ns = g.n_ns;
+    a.n_rt = g.n_rt;
+    a.n_yblk = g.n_yblk;
+    const int blocks = g.blocks;
     ssd_tc_kernel<P><<<dim3(blocks, batch), TC_THREADS, smem, s>>>(a);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
@@ -745,6 +754,33 @@ constexpr int FKT = 32;       // keys per key tile (== FRT: the last key tile
 // state rows (of N) per state block: 64 where N > 32, else 32
 __host__ __device__ constexpr int f32_state_rows(int n) {
   return n > 32 ? 64 : 32;
+}
+
+// One chunk's launch geometry, bf16 (tensor cores) or fp32 (CUDA cores):
+// its rows q, row tiles, head pairs, state slices of N, output and state
+// blocks, and the grid's blocks (fp32: output blocks in clusters of two,
+// the state blocks made even). has_out: the chunk writes a state (every
+// chunk but the last, and the last where the caller wants the final one).
+inline ChunkGeom chunk_geom(int dtype, int T, int H, int G, int N, int chunk,
+                            int t0, bool has_out) {
+  ChunkGeom g;
+  g.q = min(chunk, T - t0);
+  const int hpg = H / G;
+  g.n_hs = G * ((hpg + 1) / 2);
+  if (dtype == DT_BF16) {
+    g.n_ns = (round16(N) + NSL - 1) / NSL;
+    g.n_rt = (g.q + RT - 1) / RT;
+    g.n_yblk = g.n_rt * g.n_hs;
+    g.n_state = has_out ? g.n_ns * H : 0;
+    g.blocks = g.n_yblk + g.n_state;
+  } else {
+    g.n_ns = (N + f32_state_rows(N) - 1) / f32_state_rows(N);
+    g.n_rt = (g.q + FRT - 1) / FRT;
+    g.n_yblk = 2 * g.n_rt * g.n_hs;
+    g.n_state = has_out ? g.n_ns * H : 0;
+    g.blocks = g.n_yblk + ((g.n_state + 1) & ~1);
+  }
+  return g;
 }
 
 struct F32Args {
@@ -1240,9 +1276,6 @@ cudaError_t launch_f32(F32Args a, int batch, int chunk, const float* init,
     configured = true;
   }
   const long long state = (long long)batch * a.H * a.N * P;
-  const int hpg = a.H / a.G;
-  a.n_hs = a.G * ((hpg + 1) / 2);
-  a.n_ns = (a.N + f32_state_rows(a.N) - 1) / f32_state_rows(a.N);
   cudaLaunchConfig_t cfg = {};
   cfg.blockDim = dim3(F_THREADS);
   cfg.dynamicSmemBytes = f32_smem_bytes<P>(a.N);
@@ -1256,15 +1289,19 @@ cudaError_t launch_f32(F32Args a, int batch, int chunk, const float* init,
   cfg.numAttrs = 1;
   a.s_in = init;
   for (int c = 0, t0 = 0; t0 < a.T; ++c, t0 += chunk) {
-    a.t0 = t0;
-    a.q = min(chunk, a.T - t0);
-    const bool last = t0 + a.q >= a.T;
+    const bool last = t0 + min(chunk, a.T - t0) >= a.T;
     if (!last && !scratch) return cudaErrorInvalidValue;
     a.s_out = last ? fin : scratch + (c % 2) * state;
-    a.n_rt = (a.q + FRT - 1) / FRT;
-    a.n_yblk = 2 * a.n_rt * a.n_hs;
-    a.n_state = a.s_out ? a.n_ns * a.H : 0;
-    cfg.gridDim = dim3(a.n_yblk + ((a.n_state + 1) & ~1), batch);
+    const ChunkGeom g = chunk_geom(DT_F32, a.T, a.H, a.G, a.N, chunk, t0,
+                                   a.s_out != nullptr);
+    a.t0 = t0;
+    a.q = g.q;
+    a.n_hs = g.n_hs;
+    a.n_ns = g.n_ns;
+    a.n_rt = g.n_rt;
+    a.n_yblk = g.n_yblk;
+    a.n_state = g.n_state;
+    cfg.gridDim = dim3(g.blocks, batch);
     const cudaError_t e = cudaLaunchKernelEx(&cfg, ssd_kernel<P>, a);
     if (e != cudaSuccess) return e;
     a.s_in = a.s_out;
@@ -1319,4 +1356,42 @@ extern "C" int ssd_launch(
     case 64: return (int)launch_tc<64>(t, B, chunk, init, fin, scratch, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The launches ssd_launch makes for these arguments (one per chunk of
+// `chunk` rows); launches nothing. has_final: the caller wants the final
+// state. plan: [0] chunks, [1] threads per block, [2] dynamic shared
+// memory bytes, [3] blocks per cluster, [4] output blocks of a whole
+// chunk, [5] state blocks of a chunk that writes a state, [6] blocks of
+// the first chunk's grid row, [7] blocks of the last chunk's, [8] grid
+// rows (sequences), [9] fp32 words of the scratch that carries the state
+// between chunks (0 for one chunk).
+extern "C" int ssd_plan(int B, int T, int H, int G, int N, int P, int chunk,
+                        int dtype, int has_final, long long* plan) {
+  if (N < 1 || N > NMAX || chunk < 1 || chunk > QMAX || G < 1 || H % G ||
+      T < 1 || (P != 8 && P != 16 && P != 32 && P != 64))
+    return (int)cudaErrorInvalidValue;
+  const int dt = dtype == DT_BF16 ? DT_BF16 : DT_F32;
+  const int chunks = (T + chunk - 1) / chunk;
+  const ChunkGeom first = chunk_geom(dt, T, H, G, N, chunk, 0,
+                                     chunks > 1 || has_final);
+  const ChunkGeom last = chunk_geom(dt, T, H, G, N, chunk,
+                                    (chunks - 1) * chunk, has_final != 0);
+  const ChunkGeom whole = chunk_geom(dt, chunk, H, G, N, chunk, 0, true);
+  int smem = 0;
+  if (dt == DT_BF16) {
+    smem = P == 8 ? tc_smem_bytes<8>(N) : P == 16 ? tc_smem_bytes<16>(N)
+           : P == 32 ? tc_smem_bytes<32>(N) : tc_smem_bytes<64>(N);
+  } else {
+    smem = P == 8 ? f32_smem_bytes<8>(N) : P == 16 ? f32_smem_bytes<16>(N)
+           : P == 32 ? f32_smem_bytes<32>(N) : f32_smem_bytes<64>(N);
+  }
+  const long long out[10] = {
+      chunks, dt == DT_BF16 ? TC_THREADS : F_THREADS, smem,
+      dt == DT_BF16 ? 1 : 2, whole.n_yblk,
+      dt == DT_BF16 ? whole.n_state : (whole.n_state + 1) & ~1,
+      first.blocks, last.blocks, B,
+      chunks > 1 ? 2LL * B * H * N * P : 0};
+  for (int i = 0; i < 10; ++i) plan[i] = out[i];
+  return 0;
 }

@@ -88,6 +88,7 @@ import torch
 from repro_torch.core import flags
 from repro_torch.core.config import Activation, Dataflow
 from repro_torch.kernels import _build
+from repro_torch.kernels.contracts import kernel_contract
 from repro_torch.kernels import epilogue as epi
 from repro_torch.kernels.ref import gemm_ref
 
@@ -240,6 +241,7 @@ def _check_int_shift(shift: int) -> None:
         raise ValueError(f"int32 rounding shift must be in [0, 31], got {shift}")
 
 
+@kernel_contract("gemm", "gemm_s8")
 def _gemm(a: torch.Tensor, b: torch.Tensor, d: Optional[torch.Tensor], *,
           acc_dtype: torch.dtype, out_dtype: torch.dtype, shift: int,
           activation: Activation, ws: bool, bwd: bool = False,
@@ -470,6 +472,31 @@ class _GemmGrad(torch.autograd.Function):
         return da, db, dd, None, None, None
 
 
+_EPI_PLAN_KEYS = ("blocks", "threads", "head", "runs", "tail", "packed")
+
+
+def epilogue_plan(count: int, acc_dtype: torch.dtype, out_dtype: torch.dtype,
+                  acc_addr: int = 0, out_addr: int = 0, device=None) -> dict:
+    """The mvout epilogue's launch for ``count`` values of an int32 or fp32
+    accumulator at device address ``acc_addr`` into ``out_dtype`` at
+    ``out_addr`` (only their residues modulo 16 matter): ``blocks``,
+    ``threads``, ``head`` (values before the first 16-byte-aligned
+    accumulator address), ``runs`` of four, ``tail`` values and
+    ``packed`` (1 where the runs store four outputs at once)."""
+    if acc_dtype == torch.int32:
+        codes = (0, _INT_OUT[out_dtype])
+    else:
+        codes = (1, _DT[out_dtype])
+    out = (ctypes.c_longlong * len(_EPI_PLAN_KEYS))()
+    fn = _build.bind("gemm", "epilogue_plan",
+                     [_L, _I, _I, ctypes.c_ulonglong, ctypes.c_ulonglong, _P])
+    with torch.cuda.device(_device_index(device)):
+        _build.check(fn(int(count), *codes, int(acc_addr), int(out_addr),
+                        ctypes.addressof(out)), "epilogue_plan")
+    return dict(zip(_EPI_PLAN_KEYS, out))
+
+
+@kernel_contract("accumulator_epilogue")
 def accumulator_epilogue(acc: torch.Tensor, *, out_dtype: torch.dtype,
                          shift: int = 0,
                          activation: Activation = Activation.NONE

@@ -33,6 +33,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.contracts import kernel_contract
 from repro_torch.models.ssm import ssd_chunked
 
 P_DIMS = (8, 16, 32, 64)        # head dims the kernel is compiled for
@@ -96,6 +97,30 @@ def _rows16(*ts: torch.Tensor) -> bool:
                for t in ts)
 
 
+_PLAN_KEYS = ("chunks", "threads", "smem", "cluster", "out_blocks",
+              "state_blocks", "first_blocks", "last_blocks", "rows",
+              "scratch_words")
+
+
+def ssd_plan(bsz: int, t: int, h: int, g: int, n: int, p: int, chunk: int,
+             dtype: torch.dtype = torch.bfloat16,
+             final_state: bool = False, device=None) -> dict:
+    """The launches an :func:`ssd` call makes, one per chunk of ``chunk``
+    rows (the wrapper's ``min(chunk, T)``): threads, dynamic shared memory
+    bytes and blocks per cluster of each, the output and state blocks of a
+    whole chunk, the first and last chunk's blocks per grid row, the grid
+    rows and the scratch's fp32 words."""
+    out = (ctypes.c_longlong * len(_PLAN_KEYS))()
+    fn = _build.bind("ssd", "ssd_plan", [_I] * 9 + [_P])
+    with torch.cuda.device(device if device is not None
+                           else torch.cuda.current_device()):
+        _build.check(fn(bsz, t, h, g, n, p, chunk, _DT[dtype],
+                        int(bool(final_state)), ctypes.addressof(out)),
+                     "ssd_plan")
+    return dict(zip(_PLAN_KEYS, out))
+
+
+@kernel_contract("ssd")
 def ssd(x, dt, a_log, b, c, *, d_skip=None, chunk: int = 256,
         initial_state=None, return_final_state: bool = False):
     """The chunked SSD on the card (CUDA tensors) or ``ssd_plain`` (CPU

@@ -260,12 +260,19 @@ class FaultInjector:
         spec = self.fires(site, ("nan", "inf"))
         if spec is None:
             return out
+        bad = float("nan") if spec.kind == "nan" else float("inf")
         import torch
+        if not isinstance(out, torch.Tensor):
+            # a compute hook's host logits (numpy), as the JAX injector
+            # poisons any array
+            out = np.asarray(out)
+            if not np.issubdtype(out.dtype, np.inexact):
+                return np.full_like(out, np.iinfo(out.dtype).max)
+            return np.full_like(out, bad)
         if not out.is_floating_point():
             # Integer datapaths cannot hold NaN/Inf; saturate instead
             # (the closest observable analogue of a mis-tiled int kernel).
             return torch.full_like(out, torch.iinfo(out.dtype).max)
-        bad = float("nan") if spec.kind == "nan" else float("inf")
         return torch.full_like(out, bad)
 
     def straggle(self, site: str = "step") -> float:

@@ -56,10 +56,13 @@ from repro_torch.serving.scheduler import ContinuousScheduler, Request, summariz
 DEFAULT_PAGE_SIZE = 64
 
 
-def _all_finite(logits: torch.Tensor) -> bool:
-    """The NaN guard's test: one reduction where the logits live, read
-    once on the host."""
-    return bool(torch.isfinite(logits).all())
+def _all_finite(logits) -> bool:
+    """The NaN guard's test: a torch tensor is reduced where it lives and
+    read once on the host; anything else (a compute hook's numpy logits)
+    goes through numpy, as in the JAX engine."""
+    if isinstance(logits, torch.Tensor):
+        return bool(torch.isfinite(logits).all())
+    return bool(np.isfinite(np.asarray(logits)).all())
 
 
 def _env_check_default() -> bool:

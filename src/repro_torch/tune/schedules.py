@@ -25,10 +25,10 @@ and raise where the kernel cannot run it):
 In every space the shape's own plan is a candidate, ``{"tile": 0,
 "splits": 0}`` (attention ``{"cluster": 0, "stages": 0}``, paged
 ``split_keys`` 0), and the tie order (``order``) is: that plan, then the
-fewest waves, then the largest tile. The limits below mirror the kernel
-headers; on the card the C plan function is the authority (a cluster the
-card cannot hold, a skinny chunk's k steps), here they bound the lattice
-and stand in for it on the CPU, where the plain versions run.
+fewest waves, then the largest tile. Whether the kernel can take a
+schedule is its launch contract's verdict (``kernels/contracts.py``,
+``analysis/lint``), which the card holds to the C plan function's; only
+cluster co-residency is left to the card.
 """
 
 from __future__ import annotations
@@ -48,23 +48,13 @@ DEFAULT_SPLIT_KEYS = 64
 _PAGE_SIZES = (8, 16, 32, 64, 128, 256, 512)
 _SPLIT_KEYS = (32, 64, 128, 256, 512)
 
-# Kernel limits (csrc headers).
-MAX_TICKETS = 1024              # hgemm.cuh: tiles a split plan may have
-HGEMM_BK = 64                   # hgemm.cuh BK, SK_ROW_CHUNK
-SK_MAX_SPLITS = 32              # hgemm.cuh skinny
-WD_MAX_SPLITS = 8               # hgemm.cuh wide: one cluster of blocks
-WIDE_TILES = {2: (128, 64), 3: (128, 128), 4: (128, 256), 5: (64, 256)}
-IGEMM_BK = 64                   # igemm.cuh: k bytes a stage
-IGEMM_MAX_SPLITS = 16
-IGEMM_TILES = {1: (16, 64), 2: (64, 64)}
-SGEMM_BK = 16                   # sgemm.cuh
-SGEMM_MAX_SPLITS = 16
-SGEMM_TILES = {1: (64, 128), 2: (128, 128)}
-CC_TILE = (56, 64)              # conv.cu's CUDA-core plan
-CC_MAX_SPLITS = 32
-CC_MAX_CHAIN = 512
-FLASH_CLUSTERS = (1, 2, 4)
-FLASH_STAGES = (1, 2)
+# Kernel limits: the launch contracts' (kernels/contracts.py), the one
+# place in Python that mirrors the csrc headers.
+from repro_torch.kernels.contracts import (  # noqa: E402,F401
+    CC_MAX_CHAIN, CC_MAX_SPLITS, CC_TILE, DS_MAX_SPLIT, DS_SPLIT_ALIGN,
+    FLASH_CLUSTERS, FLASH_STAGES, HGEMM_BK, IGEMM_BK, IGEMM_MAX_SPLITS, IGEMM_TILES, MAX_TICKETS,
+    SGEMM_BK, SGEMM_MAX_SPLITS, SGEMM_TILES, SK_MAX_SPLITS, WD_MAX_SPLITS,
+    WIDE_TILES)
 
 STATIC = {"tile": 0, "splits": 0}
 FLASH_STATIC = {"cluster": 0, "stages": 0}
@@ -123,25 +113,24 @@ def gemm_max_splits(dtype: torch.dtype, m: int) -> int:
 
 
 def gemm_legal(dtype: torch.dtype, m: int, n: int, k: int,
-               sched: Dict[str, int]) -> bool:
+               sched: Dict[str, int], b_trans: bool = False) -> bool:
     """Whether the GEMM kernel of ``dtype`` inputs can take ``sched`` at
-    (M, N, K), by the header limits (the card's C plan function also
-    checks what only the card knows)."""
+    (M, N, K), B row-major or (``b_trans``) read transposed: a tile of the
+    space at M (:func:`gemm_tiles`) whose launch contract the lint admits
+    (``analysis/lint/feasibility.py``; the card's C plan function gives
+    the same verdict, apart from cluster co-residency)."""
+    from repro_torch.analysis.lint import feasibility
     tile, splits = sched["tile"], sched["splits"]
     if (tile, splits) == (0, 0):
         return True
-    tiles = gemm_tiles(dtype, m)
-    if tile not in tiles or splits < 1:
+    if tile not in gemm_tiles(dtype, m):
         return False
-    bm, bn = tiles[tile]
-    if splits > 1 and _ceil_div(m, bm) * _ceil_div(n, bn) > MAX_TICKETS \
-            and (dtype == torch.float32 or dtype in _INT or m <= 16):
-        return False
-    return splits <= min(gemm_max_splits(dtype, m), gemm_ksteps(dtype, k))
+    return feasibility.gemm_plan_feasible(dtype, m, n, k, sched,
+                                          b_trans=b_trans)
 
 
-def enumerate_gemm_schedules(dtype: torch.dtype, m: int, n: int,
-                             k: int) -> List[Dict[str, int]]:
+def enumerate_gemm_schedules(dtype: torch.dtype, m: int, n: int, k: int,
+                             b_trans: bool = False) -> List[Dict[str, int]]:
     """The shape's own plan, then every legal (tile, splits): the skinny
     kernel's splits in powers of two, else each tile at every split."""
     out = [dict(STATIC)]
@@ -152,7 +141,7 @@ def enumerate_gemm_schedules(dtype: torch.dtype, m: int, n: int,
     for tile in gemm_tiles(dtype, m):
         for s in counts:
             sched = {"tile": tile, "splits": s}
-            if gemm_legal(dtype, m, n, k, sched):
+            if gemm_legal(dtype, m, n, k, sched, b_trans):
                 out.append(sched)
     return out
 
@@ -180,17 +169,11 @@ def conv_dims(h: int, w: int, kh: int, kw: int, stride: int,
 def conv_legal(dtype: torch.dtype, m: int, n: int, k: int,
                sched: Dict[str, int]) -> bool:
     """Whether the conv kernel of ``dtype`` inputs can take ``sched`` for
-    the implicit GEMM (M, N, K), by the header limits."""
-    tile, splits = sched["tile"], sched["splits"]
-    if (tile, splits) == (0, 0):
+    the implicit GEMM (M, N, K): its launch contract is admitted."""
+    from repro_torch.analysis.lint import feasibility
+    if (sched["tile"], sched["splits"]) == (0, 0):
         return True
-    if dtype not in _CC:
-        return gemm_legal(torch.int8 if dtype == torch.int8 else
-                          torch.int16, m, n, k, sched)
-    ksteps = max(1, _ceil_div(k, SGEMM_BK))
-    tiles = _ceil_div(m, CC_TILE[0]) * _ceil_div(n, CC_TILE[1])
-    return tile == 1 and 1 <= splits <= min(CC_MAX_SPLITS, ksteps) and \
-        (splits == 1 or tiles <= MAX_TICKETS)
+    return feasibility.conv_plan_feasible(dtype, m, n, k, sched)
 
 
 def enumerate_conv_schedules(dtype: torch.dtype, m: int, n: int,
@@ -235,7 +218,8 @@ def enumerate_attn_schedules(dtype: torch.dtype,
                              d: int) -> List[Dict[str, int]]:
     """The call's own plan, then blocks per cluster x stages (fp32 at head
     dim 256 streams one stage: its shared memory)."""
-    stages = (1,) if dtype == torch.float32 and d >= 256 else FLASH_STAGES
+    from repro_torch.kernels.contracts import flash_max_stages
+    stages = FLASH_STAGES[:flash_max_stages(dtype, d)]
     return [dict(FLASH_STATIC)] + [{"cluster": c, "stages": s}
                                    for c in FLASH_CLUSTERS for s in stages]
 
@@ -300,9 +284,12 @@ def enumerate_paged_schedules(max_context: int) -> List[PagedAttnSchedule]:
 
 
 def paged_legal(sched: PagedAttnSchedule, max_context: int) -> bool:
+    """A page of the lattice, and keys per split the decode kernel takes:
+    its own (0), or a multiple of ``DS_SPLIT_ALIGN`` up to
+    ``DS_MAX_SPLIT``. The problem's own verdict is the tuner's filter."""
+    k = sched.split_keys
     return sched.page_size in paged_page_sizes(max_context) and (
-        sched.split_keys == 0 or (16 <= sched.split_keys <= 4096
-                                  and sched.split_keys % 16 == 0))
+        k == 0 or (0 < k <= DS_MAX_SPLIT and k % DS_SPLIT_ALIGN == 0))
 
 
 def paged_attn_cache_key(b: int, h: int, kvh: int, d: int, max_context: int,

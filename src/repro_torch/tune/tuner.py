@@ -27,6 +27,14 @@ and ``attn_schedule`` (dtype-level; the ``resolve_*`` functions take a
 config, as JAX's do, and call them), which keep each shape's resolution
 in ``cache.resolved``: after the first call a launch pays one dict
 lookup. Every ``tune_*`` returns a :class:`TuneReport`.
+
+Each candidate faces the launch-contract lint once before it is
+measured (``analysis/lint/feasibility.py``). The GEMM and conv spaces are
+enumerated through it (``schedules.gemm_legal`` / ``conv_legal``); the
+attention and paged spaces, which do not depend on the problem, go through
+:func:`_contract_filter` at the problem's shape: the shape's own plan
+always stays, a predicate that fails keeps its candidate, and a filter
+that would leave nothing keeps the whole space.
 JAX's ``tuned_plan_fn`` (the DSE's measured-cost hook, a Gemmini
 ``TilePlan`` the card never runs) is not ported (ROADMAP A12).
 """
@@ -38,6 +46,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.analysis.lint import feasibility
 from repro_torch.core import flags
 from repro_torch.core.config import Dataflow, GemminiConfig
 from repro_torch.core.tiling import _resolve_dataflow
@@ -48,6 +57,29 @@ from repro_torch.tune.schedules import PagedAttnSchedule
 
 # Measured times within 5% of the best are a tie -> the tie order decides.
 TIE_BAND = 0.05
+
+
+def _contract_filter(cands, keep_pred, feasible):
+    """Drop the candidates the launch-contract lint proves infeasible.
+
+    Strictly advisory, as the JAX tuner's: the shape's own plan
+    (``keep_pred``) is always kept (winner selection reads it first), a
+    predicate that raises keeps its candidate, and if the filter would
+    leave nothing the original list survives."""
+    kept = []
+    for c in cands:
+        try:
+            ok = keep_pred(c) or feasible(c)
+        except Exception:
+            ok = True
+        if ok:
+            kept.append(c)
+    return kept if kept else list(cands)
+
+
+def _is_first(cands):
+    first = cands[0] if cands else None
+    return lambda c: c is first
 
 
 def _check_mode() -> str:
@@ -198,7 +230,7 @@ def _tune_gemm(dtypes, ws: bool, m: int, n: int, k: int, has_bias: bool,
                cache: Optional[PlanCache] = None,
                persist: bool = True) -> TuneReport:
     in_dt = dtypes[0]
-    cands = schedules.enumerate_gemm_schedules(in_dt, m, n, k)
+    cands = schedules.enumerate_gemm_schedules(in_dt, m, n, k, b_trans)
     info = _gemm_info(in_dt, m, n, k, b_trans, dev)
     if dev.type == "cuda":
         from repro_torch.kernels import gemm as kg
@@ -265,7 +297,7 @@ def gemm_schedule(in_dt, acc_dt, out_dt, ws: bool, m: int, n: int, k: int,
             valid = _gemm_info(in_dt, m, n, k, b_trans, dev)
         else:
             def valid(p):
-                return schedules.gemm_legal(in_dt, m, n, k, p)
+                return schedules.gemm_legal(in_dt, m, n, k, p, b_trans)
         hit = get_cache().lookup_checked(key, ("tile", "splits"), valid)
         if hit is not None:
             return hit
@@ -401,11 +433,17 @@ def _tune_attention(b, tq, tk, h, kvh, d, causal, window, dtype, dev, *,
                     persist: bool = True) -> TuneReport:
     dtype = schedules.schedule_dtype(dtype)
     cands = schedules.enumerate_attn_schedules(dtype, d)
+    cands = _contract_filter(
+        cands, _is_first(cands),
+        lambda s: feasibility.attn_schedule_feasible(
+            s, b=b, tq=tq, tk=tk, h=h, kvh=kvh, d=d, causal=causal,
+            window=window, dtype=dtype))
     if dev.type == "cuda":
         from repro_torch.kernels import attention as ka
         own = ka.flash_plan(b, tq, tk, h, kvh, d, causal=causal,
                             window=window, dtype=dtype, device=dev)
-        cands = _dedupe(cands, lambda s: s == own)
+        cands = _dedupe(cands, lambda s: (s["cluster"], s["stages"]) ==
+                        (own["cluster"], own["stages"]))
     info = _attn_info(b, tq, tk, h, kvh, d, causal, window, dtype, dev)
     run = measure.attn_case(b, tq, tk, h, kvh, d, causal, window, dtype, dev)
     results = _measure_space(cands, run, info, dev,
@@ -485,6 +523,11 @@ def tune_paged_attention(cfg: Optional[GemminiConfig], b: int, h: int,
     dtype = schedules.schedule_dtype(dtype)
     sms = tcache.card(str(dev))[1]
     cands = schedules.enumerate_paged_schedules(max_context)
+    cands = _contract_filter(
+        cands, _is_first(cands),
+        lambda s: feasibility.paged_schedule_feasible(
+            s, b=b, h=h, kvh=kvh, d=d, max_context=max_context,
+            window=window, dtype=dtype))
     plain = None
     results: List[CandidateResult] = []
     cases: Dict[int, Callable] = {}

@@ -2411,3 +2411,43 @@ def test_tuner_full_mode_on_card(card, tmp_path):
         flags.set_flag("tune_mode", prev[0])
         flags.set_flag("tune_cache", prev[1])
         tcache.reset_cache()
+
+
+# ---------------------------------------------------------------------------
+# the launch contracts held to the C plan functions (chip_smoke phase 17's
+# checks (a) and (d) on one probe plan per kernel family)
+# ---------------------------------------------------------------------------
+def _family_probe(family):
+    """The family's first plan the lint admits that splits its sum through
+    tickets (or clusters), else its first admitted plan."""
+    from repro_torch.analysis.lint import checks, driver
+    first = None
+    for pr in driver.probes(("gemm",) if family.startswith("gemm")
+                            else (family,)):
+        if pr.family != family:
+            continue
+        c = pr.contract()
+        if not checks.admits(c) or c.needs_card:
+            continue
+        if any(r.via != "none" for r in c.reductions):
+            return pr
+        first = first or pr
+    return first
+
+
+@pytest.mark.parametrize("family", [
+    "gemm", "gemm_s8", "conv2d_implicit", "flash_attention",
+    "decode_attention", "paged_decode_attention", "paged_prefill_attention",
+    "ssd", "accumulator_epilogue"])
+def test_contract_agrees_with_c_plan_and_tickets_return(card, family):
+    from repro_torch.analysis.lint import card as lcard
+    pr = _family_probe(family)
+    counts = dict(plans=0, admitted=0, refused=0, needs_card=0,
+                  card_refused=0, c_disagree=0, launched=0)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    launcher = lcard.Launcher(torch, torch.device(
+        "cuda", torch.cuda.current_device()),
+        ssd_exact=(ssd_fp64, fp32_tolerance))
+    c = lcard.check_plan(torch, pr, sms, counts, print, launcher, [])
+    assert c is not None and counts["launched"] == 1
+    assert counts["c_disagree"] == 0
