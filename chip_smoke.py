@@ -219,9 +219,19 @@ row-major operand.
 Every profiler window (phases 4b, 6, 6b, 7-8) is held to the launch
 counters' growth over its passes (``profile_call``): a short window is
 taken again, and one that stays short fails the run.
+Phase 18 is the multi-device slice on one card: on a (1, 1) ``("data",
+"model")`` mesh over a one-rank NCCL group, two sharded ``make_train_step``
+steps of full-width gemma3-1b (phase 14's engine and batch) equal two
+unsharded steps bit for bit (losses, gradient norms, parameters, AdamW's
+m and v) and launch the same GEMMs; each wrapped op of the sharded
+context (the biased GEMM, the fused conv, flash, paged decode, the resumed
+SSD) given DTensors equals the unsharded call bit for bit, one launch
+each; a DTensor at each kernel entry raises ``TypeError``; and one
+full-size dry-run cell (gemma3-1b x train_4k on 16 x 16, ``fake``
+process group) runs in a subprocess and prints its row.
 ``python3 chip_smoke.py --phase 17`` runs phases 1, 2 and 17 alone (a
-quicker check of the contracts on a card); with no argument every phase
-runs.
+quicker check of the contracts on a card), ``--phase 18`` phases 1, 2 and
+18; with no argument every phase runs.
 
 Every main path's launch counts are zeroed
 just before it and read just after; the kernels line takes each kernel's
@@ -3776,6 +3786,312 @@ def run_contract_phase(torch, sources):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: multi-device on one card -- the sharded train step and the
+# sharded context on a (1, 1) NCCL mesh, and a 16 x 16 dry run
+# ---------------------------------------------------------------------------
+MESH_STEPS = 2
+DRYRUN_CELL = ("gemma3-1b", "train_4k")
+DRYRUN_TIMEOUT_S = 300
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def start_dryrun():
+    """The 16 x 16 dry-run cell in a subprocess (its ``fake`` process
+    group cannot share this process with the NCCL one), on the CPU only:
+    no card is visible to it."""
+    outdir = os.path.join(ROOT, "build", "chip_smoke_dryrun")
+    env = dict(os.environ, PYTHONPATH=SRC, CUDA_VISIBLE_DEVICES="")
+    arch, shape = DRYRUN_CELL
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--outdir", outdir], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, outdir, time.perf_counter()
+
+
+def finish_dryrun(proc, outdir, t0):
+    """Wait for the dry run; its row, held: per-device FLOPs at most the
+    cell's logical count (above DTensor), and 256 devices' at least it."""
+    try:
+        text = proc.communicate(timeout=DRYRUN_TIMEOUT_S)[0]
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"dry run: no result in {DRYRUN_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+    arch, shape = DRYRUN_CELL
+    for ln in text.splitlines():
+        if ln.startswith(f"[{arch} x") or ln.startswith(
+                ("  per device", "  collectives", "  logical", "  roofline")):
+            log(f"dry run | {ln}")
+    if proc.returncode != 0:
+        fail(f"dry run exited {proc.returncode}:\n{text[-3000:]}")
+    with open(os.path.join(outdir, f"baseline_{arch}_{shape}_16x16.json")) \
+            as f:
+        row = json.load(f)
+    flops, logical = row["flops"], row["logical_flops"]
+    if not (0 < flops <= logical <= flops * 256):
+        fail(f"dry run: per-device FLOPs {flops:.4e} against the logical "
+             f"{logical:.4e} over 256 devices")
+    log(f"dry run {arch} x {shape} x 16x16: {wall:.1f} s wall (a process "
+        f"on the CPU); per device {flops:.4e} FLOPs, {row['bytes']:.4e} "
+        f"bytes, collectives {row['coll_breakdown']}; logical "
+        f"{logical:.4e} (replication {row['replication']:.3f}); roofline "
+        f"compute {row['t_compute'] * 1e3:.3f} ms, memory "
+        f"{row['t_memory'] * 1e3:.3f} ms, collective "
+        f"{row['t_collective'] * 1e3:.3f} ms -> {row['bottleneck']}-bound")
+    return dict(row, wall_s=wall)
+
+
+def mesh_train_step(torch, mesh, smi):
+    """(a) Two sharded ``make_train_step`` steps of gemma3-1b at full
+    width (phase 14's engine, batch and data) on the (1, 1) mesh against
+    two unsharded steps from the same state: losses, gradient norms,
+    parameters and AdamW's m and v bit for bit; the sharded steps' GEMM
+    launches those of phase 14's steps (the counts zeroed just before them
+    and read just after)."""
+    from repro_torch import configs, kernels
+    from repro_torch.core import tree as tu
+    from repro_torch.core.config import GemminiConfig
+    from repro_torch.core.context import ExecutionContext
+    from repro_torch.data import (SyntheticLM, SyntheticLMConfig, make_batch,
+                                  make_global_batch)
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+
+    cfg = configs.get(TRAIN_ARCH)
+    ctx = ExecutionContext(cfg=GemminiConfig(
+        input_dtype="bf16", acc_dtype="fp32", output_dtype="bf16"))
+    sctx = ctx.with_mesh(mesh, shd.data_axis(mesh))
+    opt = adamw.AdamWConfig(lr=TRAIN_LR)
+    gen = SyntheticLM(SyntheticLMConfig(vocab=cfg.vocab, seq=TRAIN_SEQ,
+                                        global_batch=TRAIN_BATCH, seed=0))
+    tspec = shd.tokens_spec(mesh, TRAIN_BATCH)
+    ref_step = steps.make_train_step(ctx, cfg, opt)
+    sh_step = steps.make_train_step(sctx, cfg, opt, mesh)
+
+    def unsharded():
+        state = steps.init_train_state(cfg, seed=0, device="cuda")
+        out, walls = [], []
+        for i in range(MESH_STEPS):
+            t0 = time.perf_counter()
+            state, m = ref_step(state, make_batch(gen, i, "cuda"))
+            out.append((m["loss"].item(), m["grad_norm"].item()))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        return state, out, walls
+
+    state_u, metrics_u, walls_u = unsharded()
+    state_s = steps.init_train_state(cfg, seed=0, device="cuda", mesh=mesh)
+    want = train_gemm_launches(cfg)
+    metrics_s, walls_s = [], []
+    kernels.reset_launch_counts()
+    for i in range(MESH_STEPS):
+        t0 = time.perf_counter()
+        state_s, m = sh_step(state_s,
+                             make_global_batch(gen, i, mesh, tspec))
+        metrics_s.append((m["loss"].item(), m["grad_norm"].item()))
+        torch.cuda.synchronize()
+        walls_s.append(time.perf_counter() - t0)
+    counts = kernels.launch_counts()
+    got = {k: v for k, v in counts.items() if v}
+    if got != {k: MESH_STEPS * v for k, v in want.items()}:
+        fail(f"sharded train steps launched {got}, want {MESH_STEPS} x "
+             f"{want}")
+    if metrics_s != metrics_u:
+        fail(f"sharded train steps: (loss, grad norm) {metrics_s}, "
+             f"unsharded {metrics_u}")
+    differ = []
+    for name, tree_s, tree_u in (("params", state_s.params, state_u.params),
+                                 ("m", state_s.opt["m"], state_u.opt["m"]),
+                                 ("v", state_s.opt["v"], state_u.opt["v"])):
+        ref = dict(tu.flatten_with_paths(tree_u))
+        for path, x in tu.flatten_with_paths(tree_s):
+            if not torch.equal(x.full_tensor(), ref[path]):
+                differ.append(f"{name}/{path}")
+    if differ:
+        fail(f"sharded train steps: {len(differ)} leaves differ from the "
+             f"unsharded steps', e.g. {differ[:4]}")
+    n = len(tu.leaves(state_s.params))
+    log(f"{TRAIN_ARCH} sharded train step on the (1, 1) mesh, {TRAIN_BATCH}"
+        f" x {TRAIN_SEQ}: {MESH_STEPS} steps, (loss, grad norm) "
+        f"{metrics_s} bit for bit the unsharded steps', and all {n} "
+        f"parameters, m and v leaves; launches {got}; walls sharded "
+        f"{', '.join(f'{w:.3f}' for w in walls_s)} s, unsharded "
+        f"{', '.join(f'{w:.3f}' for w in walls_u)} s ({smi})")
+    return {"metrics": metrics_s, "walls_s": walls_s, "walls_u": walls_u,
+            "launches": got}
+
+
+def mesh_ctx_ops(torch, mesh):
+    """(b) Each wrapped op of the sharded context at phase 3's shapes,
+    given DTensors, against the unsharded call on the same tensors: bit
+    for bit, and each launches its kernel; then a DTensor handed straight
+    to each kernel entry raises ``TypeError``."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch import configs, kernels
+    from repro_torch.core.config import Activation, GemminiConfig
+    from repro_torch.core.context import ExecutionContext
+    from repro_torch.kernels import attention as ka
+    from repro_torch.kernels import conv as kc
+    from repro_torch.kernels import gemm as kg
+    from repro_torch.kernels import mamba2 as km
+    from repro_torch.launch import sharding as shd
+
+    g1 = configs.get("gemma3-1b")
+    m2 = configs.get("mamba2-1.3b")
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    bf16, f32, i8, i32 = torch.bfloat16, torch.float32, torch.int8, \
+        torch.int32
+
+    def randn(*shape, dtype=bf16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                ).to(dtype)
+
+    def rint(lo, hi, *shape, dtype=i8):
+        return torch.randint(lo, hi, shape, generator=gen, device="cuda",
+                             dtype=dtype)
+
+    def dt(x):
+        return None if x is None else DTensor.from_local(
+            x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+    bf = GemminiConfig(input_dtype="bf16", acc_dtype="fp32",
+                       output_dtype="bf16")
+    d, hd, nh, nkv = g1.d_model, g1.head_dim, g1.n_heads, g1.n_kv_heads
+    n_pages, page, mp = 512, 16, 64
+    lengths = [700, 33, 256, 1]
+    perm = torch.randperm(n_pages, generator=gen, device="cuda")
+    tables = perm[:4 * mp].reshape(4, mp).to(i32)
+    h, p, gr, n = m2.n_ssm_heads, m2.ssm_head_dim, m2.ssm_groups, m2.d_state
+    cases = {
+        "gemm (bias)": (bf, "gemm", lambda c, a, b, dd: c.gemm(a, b, dd),
+                        (randn(64, d), randn(d, nh * hd, scale=d ** -0.5),
+                         randn(1, nh * hd))),
+        "conv2d (fused)": (GemminiConfig(), "conv2d_implicit",
+                           lambda c, x, w, b: c.conv2d(
+                               x, w, b, stride=1, padding=1, shift=8,
+                               activation=Activation.RELU, fused=True),
+                           (rint(-64, 64, 2, 56, 56, 64),
+                            rint(-32, 32, 3, 3, 64, 64),
+                            rint(-500, 500, 64, dtype=i32))),
+        "flash_attention": (bf, "flash_attention",
+                            lambda c, q, k, v: c.flash_attention(
+                                q, k, v, window=g1.local_window),
+                            (randn(2, 256, nh, hd), randn(2, 256, nkv, hd),
+                             randn(2, 256, nkv, hd))),
+        "paged_attention": (bf, "paged_decode_attention",
+                            lambda c, q, kp, vp, t, ln: c.paged_attention(
+                                q, kp, vp, t, ln),
+                            (randn(4, 1, nh, hd),
+                             randn(nkv, n_pages, page, hd),
+                             randn(nkv, n_pages, page, hd), tables,
+                             torch.tensor(lengths, dtype=i32,
+                                          device="cuda"))),
+        "ssd (resumed)": (bf, "ssd",
+                          lambda c, x, dtt, a, b, cc, i: c.ssd(
+                              x, dtt, a, b, cc, chunk=256, initial_state=i,
+                              return_final_state=True),
+                          (randn(2, 256, h, p),
+                           torch.nn.functional.softplus(
+                               randn(2, 256, h, dtype=f32)),
+                           randn(h, dtype=f32), randn(2, 256, gr, n),
+                           randn(2, 256, gr, n),
+                           randn(2, h, n, p, dtype=f32, scale=0.5))),
+    }
+    out = {}
+    for name, (gcfg, kernel, fn, args) in cases.items():
+        want = fn(ExecutionContext(cfg=gcfg), *args)
+        kernels.reset_launch_counts()
+        got = fn(ExecutionContext(cfg=gcfg).with_mesh(
+            mesh, shd.data_axis(mesh)), *[dt(a) for a in args])
+        launched = kernels.launch_counts()[kernel]
+        wants = want if isinstance(want, tuple) else (want,)
+        gots = got if isinstance(got, tuple) else (got,)
+        same = all(isinstance(x, DTensor) and torch.equal(x.full_tensor(), w)
+                   for x, w in zip(gots, wants))
+        if not same or launched != 1:
+            fail(f"sharded ctx.{name}: bit for bit {same}, {kernel} "
+                 f"launches {launched} (want 1)")
+        out[name] = {"kernel": kernel, "launches": launched,
+                     "shapes": [list(a.shape) for a in args
+                                if a is not None]}
+    q, k, v = (dt(x) for x in cases["flash_attention"][3])
+    x8, w8, b32 = (dt(x) for x in cases["conv2d (fused)"][3])
+    a, b, dd = (dt(x) for x in cases["gemm (bias)"][3])
+    pq, kp, vp, tb, ln = (dt(x) for x in cases["paged_attention"][3])
+    sx, sdt, sa, sb, sc, si = (dt(x) for x in cases["ssd (resumed)"][3])
+    entries = {
+        "gemm_os": lambda: kg.gemm_os(a, b, dd, acc_dtype=f32,
+                                      out_dtype=bf16),
+        "gemm_ws": lambda: kg.gemm_ws(a, b, dd, acc_dtype=f32,
+                                      out_dtype=bf16),
+        "accumulator_epilogue": lambda: kg.accumulator_epilogue(
+            dt(randn(64, 64, dtype=f32)), out_dtype=bf16),
+        "conv2d_implicit": lambda: kc.conv2d_implicit(
+            x8, w8, b32, acc_dtype=i32, out_dtype=i8, padding=1),
+        "flash_attention": lambda: ka.flash_attention(q, k, v),
+        "decode_attention": lambda: ka.decode_attention(q[:, :1], k, v, 9),
+        "paged_decode_attention": lambda: ka.paged_decode_attention(
+            pq, kp, vp, tb, ln),
+        "paged_prefill_attention": lambda: ka.paged_prefill_attention(
+            pq[:1].transpose(0, 1), kp, vp, tb[0], 0),
+        "ssd": lambda: km.ssd(sx, sdt, sa, sb, sc, initial_state=si),
+    }
+    kernels.reset_launch_counts()
+    raised = []
+    for name, call in entries.items():
+        try:
+            call()
+        except TypeError as e:
+            if "DTensor" in str(e):
+                raised.append(name)
+                continue
+            raise
+        fail(f"{name} took a DTensor operand without raising")
+    if any(kernels.launch_counts().values()):
+        fail(f"a DTensor reached a launch: {kernels.launch_counts()}")
+    log(f"sharded context on the (1, 1) mesh: {', '.join(out)} bit for bit "
+        f"the unsharded calls, one launch each; a DTensor at each of "
+        f"{len(raised)} kernel entries raised TypeError ({', '.join(raised)})")
+    return {"ops": out, "entries_raise": raised}
+
+
+def run_mesh_phase(torch, smi):
+    """Phase 18 (module docstring): the dry run started first in its own
+    process, then (a) and (b) on a (1, 1) ``("data", "model")`` mesh over
+    a one-rank NCCL group in this process, destroyed at the end."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+
+    t_phase = time.perf_counter()
+    proc, outdir, t_dry = start_dryrun()
+    os.environ["MASTER_ADDR"] = "127.0.0.1"
+    os.environ["MASTER_PORT"] = str(_free_port())
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = mesh_lib.make_mesh((1, 1), ("data", "model"))
+        train = mesh_train_step(torch, mesh, smi)
+        torch.cuda.empty_cache()
+        ops = mesh_ctx_ops(torch, mesh)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    dry = finish_dryrun(proc, outdir, t_dry)
+    wall = time.perf_counter() - t_phase
+    log(f"phase 18 (multi-device): {wall:.1f} s wall on {smi}")
+    return {"train": train, "ctx": ops, "dryrun": dry, "wall_s": wall}
+
+
 def ptxas_summary(lines, names) -> str:
     """Per kernel name: its instantiations, their register range and the
     most spill bytes any of them has, from ``-Xptxas=-v`` lines (an entry
@@ -3862,8 +4178,20 @@ def main() -> int:
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
+    if sys.argv[1:] == ["--phase", "18"]:
+        mesh_summary = run_mesh_phase(torch, smi)
+        with open(os.path.join(OUT_DIR, "chip_smoke_mesh.json"), "w") as f:
+            json.dump({"device": kind, "nvidia_smi": smi,
+                       "mesh": mesh_summary}, f, indent=1, default=str)
+        log(f"phases 1, 2 and 18 passed in "
+            f"{time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if sys.argv[1:]:
-        fail(f"unknown arguments {sys.argv[1:]}: none, or --phase 17")
+        fail(f"unknown arguments {sys.argv[1:]}: none, --phase 17 or "
+             f"--phase 18")
 
     # 3. kernels
     timer = Timer(torch)
@@ -3947,6 +4275,12 @@ def main() -> int:
     # 17. the launch contracts against the C plans, and every accepted
     # plan launched into guarded outputs
     contracts = run_contract_phase(torch, secs)
+    torch.cuda.empty_cache()
+
+    # 18. multi-device: the sharded train step and context on a (1, 1)
+    # NCCL mesh (the sharded path's own run: counts zeroed inside), and
+    # the 16 x 16 dry run in a subprocess
+    mesh_summary = run_mesh_phase(torch, smi)
 
     # the kernels line
     meta = {
@@ -4012,7 +4346,8 @@ def main() -> int:
                    "moe_launches": moe_counts, "train_smoke": train_smoke,
                    "train": train_summary, "train_launches": train_counts,
                    "gemma3_4b": g4_summary, "gemma3_4b_launches": g4_counts,
-                   "tune": tune_summary, "contracts": contracts},
+                   "tune": tune_summary, "contracts": contracts,
+                   "mesh": mesh_summary},
                   f, indent=1, default=str)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}), flush=True)

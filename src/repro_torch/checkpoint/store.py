@@ -1,4 +1,4 @@
-"""Checkpointing, one process and one host file (port of
+"""Checkpointing: one file per process, elastic restore (port of
 ``repro.checkpoint.store``).
 
 The JAX module's layout:
@@ -14,12 +14,24 @@ landed, so a failure mid-save never corrupts the latest checkpoint. Leaves
 are indexed in ``jax.tree_util``'s order (:mod:`repro_torch.core.tree`)
 and bf16 is stored as a ``u2`` view (numpy has no bf16; the manifest keeps
 the true dtype), so for the same tree the keys and manifest fields are the
-JAX writer's. One process writes every leaf whole (offsets all 0); a
-restore pastes whatever shards the files hold at their offsets, so a
-checkpoint of the JAX package's multi-host writer loads too.
-``CheckpointManager.save_async`` copies the tensors to host memory at once
-and writes the files on a background thread; ``keep`` bounds how many
-checkpoints stay on disk.
+JAX writer's. A plain tensor is written whole by rank 0 (offsets all 0).
+A DTensor is written shard per process: each rank writes the blocks it
+holds (``host_<rank>.npz``) at their global offsets, one copy of a block
+replicated over a mesh dim (the rank at coordinate 0 there writes it).
+
+The commit goes by files, not collectives, so an async save's thread never
+races the training step's collectives: each rank renames its finished
+file into place, rank 0 waits for all of them, then writes the manifest
+and ``_COMMITTED`` and renames the directory; the other ranks wait for
+the commit before a synchronous save returns.
+
+A restore pastes whatever blocks the files hold at their offsets into the
+target's layout (elastic: another mesh, another placement, or whole
+tensors on one process), so any saved topology restores onto any target
+and a checkpoint of the JAX package's multi-host writer loads too.
+``CheckpointManager.save_async`` copies the local blocks to host memory
+at once and writes the files on a background thread; ``keep`` bounds how
+many checkpoints stay on disk.
 """
 
 from __future__ import annotations
@@ -29,12 +41,16 @@ import os
 import re
 import shutil
 import threading
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core import dtensor as shard
 from repro_torch.core import tree as tu
+
+COMMIT_TIMEOUT_S = 600.0     # how long a rank waits for the others' files
 
 # torch dtypes by the numpy name the manifest records, and back
 _NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
@@ -59,16 +75,66 @@ def _host(leaf) -> Tuple[np.ndarray, str]:
     return a, str(a.dtype)
 
 
-def _snapshot(tree) -> Any:
-    """Every tensor leaf copied to host memory now (the async save's)."""
-    return tu.tree_map(lambda x: x.detach().to("cpu", copy=True)
-                       if isinstance(x, torch.Tensor) else np.asarray(x),
-                       tree)
+class _Blocks:
+    """One leaf as this rank writes it: its global shape and dtype name,
+    and the (offsets, host array) blocks it owns (none for a replica)."""
+
+    def __init__(self, shape, dtype: str, blocks):
+        self.shape, self.dtype, self.blocks = tuple(shape), dtype, blocks
+
+
+def _world() -> Tuple[int, int]:
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _leaf_blocks(leaf, rank: int, copy: bool) -> _Blocks:
+    """``leaf``'s blocks this rank writes, in host memory (a copy of a
+    host tensor's with ``copy``)."""
+    if shard.is_dtensor(leaf):
+        from repro_torch.launch import sharding as shd
+        mesh = leaf.device_mesh
+        spec = shd.from_placements(leaf.placements, mesh, leaf.ndim)
+        coord = mesh.get_coordinate()
+        names = tuple(mesh.mesh_dim_names)
+        used = {a for e in spec for a in shd._names(e)}
+        owner = all(c == 0 for c, n in zip(coord, names) if n not in used)
+        arr, name = _host(leaf.to_local())
+        arr = np.array(arr, copy=True) if copy else arr
+        blocks = []
+        if owner:
+            sl = shd.local_slices(leaf.shape, spec, mesh, coord)
+            blocks = [(tuple(x.start for x in sl), arr)]
+        return _Blocks(leaf.shape, name, blocks)
+    arr, name = _host(leaf)
+    arr = np.array(arr, copy=True) if copy else arr
+    return _Blocks(arr.shape, name, [((0,) * arr.ndim, arr)]
+                   if rank == 0 else [])
+
+
+def _snapshot(tree, copy: bool = False) -> Any:
+    """Every leaf's own blocks in host memory (copied now with ``copy``:
+    the async save's)."""
+    rank, _ = _world()
+    return tu.tree_map(lambda x: x if isinstance(x, _Blocks)
+                       else _leaf_blocks(x, rank, copy), tree)
+
+
+def _wait_for(what: str, ready) -> None:
+    t0 = time.time()
+    while not ready():
+        if time.time() - t0 > COMMIT_TIMEOUT_S:
+            raise TimeoutError(f"checkpoint commit: {what} did not appear "
+                               f"in {COMMIT_TIMEOUT_S:.0f} s")
+        time.sleep(0.05)
 
 
 def save_checkpoint(ckpt_dir: str, step: int, tree: Any,
                     extra_meta: Optional[Dict] = None) -> str:
-    """Synchronous save. Returns the committed directory path.
+    """Synchronous save, every rank of the default process group calling
+    it (module docstring). Returns the committed directory path.
 
     An installed fault injector's ``ckpt_io`` spec (site ``checkpoint``)
     raises OSError before anything touches disk, as in the JAX module."""
@@ -76,20 +142,32 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Any,
     _inj = _faults.active()
     if _inj is not None and _inj.ckpt_fails():
         raise OSError(f"injected checkpoint-write failure at step {step}")
+    rank, world = _world()
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
     os.makedirs(tmp, exist_ok=True)
 
     shards_out: Dict[str, np.ndarray] = {}
     manifest_leaves = []
-    for li, (path, leaf) in enumerate(tu.flatten_with_paths(tree)):
-        arr, dtype = _host(leaf)
-        manifest_leaves.append(dict(path=path, shape=list(arr.shape),
-                                    dtype=dtype))
-        shards_out[f"{li}|{','.join('0' * arr.ndim)}"] = arr
-    np.savez(os.path.join(tmp, "host_00000.npz"), **shards_out)
+    for li, (path, leaf) in enumerate(tu.flatten_with_paths(
+            _snapshot(tree))):
+        manifest_leaves.append(dict(path=path, shape=list(leaf.shape),
+                                    dtype=leaf.dtype))
+        for off, arr in leaf.blocks:
+            shards_out[f"{li}|{','.join(map(str, off))}"] = arr
+    host = os.path.join(tmp, f"host_{rank:05d}.npz")
+    with open(host + ".part", "wb") as f:
+        np.savez(f, **shards_out)
+    os.rename(host + ".part", host)
+    if rank != 0:
+        _wait_for(f"{final}/_COMMITTED", lambda: os.path.exists(
+            os.path.join(final, "_COMMITTED")))
+        return final
+    _wait_for(f"{world} host files under {tmp}", lambda: all(
+        os.path.exists(os.path.join(tmp, f"host_{r:05d}.npz"))
+        for r in range(world)))
     manifest = dict(step=step, leaves=manifest_leaves,
-                    treedef=tu.treedef_str(tree), n_processes=1,
+                    treedef=tu.treedef_str(tree), n_processes=world,
                     extra=extra_meta or {})
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
@@ -126,7 +204,9 @@ def _to_tensor(block: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
 
 def restore_checkpoint(ckpt_dir: str, step: int, target: Any) -> Any:
     """Restore into ``target``'s structure: each leaf a tensor of the
-    target leaf's shape and dtype, on its device."""
+    target leaf's shape and dtype, on its device; a DTensor leaf in its
+    layout on its mesh (the elastic path), each rank reading only the
+    blocks that meet its own."""
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     if not os.path.exists(os.path.join(d, "_COMMITTED")):
         raise FileNotFoundError(f"no committed checkpoint at {d}")
@@ -144,6 +224,9 @@ def restore_checkpoint(ckpt_dir: str, step: int, target: Any) -> Any:
         shape, dtype = tuple(leaf.shape), leaf.dtype
         if li not in index:
             raise KeyError(f"leaf {li} ({path}) missing from checkpoint")
+        if shard.is_dtensor(leaf):
+            out_leaves.append(_restore_dtensor(leaf, index[li]))
+            continue
         blocks = [(off, _to_tensor(f[key], dtype))     # each read once
                   for off, f, key in index[li]]
         if len(blocks) == 1 and tuple(blocks[0][1].shape) == shape:
@@ -155,6 +238,31 @@ def restore_checkpoint(ckpt_dir: str, step: int, target: Any) -> Any:
                            zip(off, block.shape))] = block
         out_leaves.append(host.to(leaf.device))
     return tu.unflatten(target, out_leaves)
+
+
+def _restore_dtensor(leaf, saved) -> Any:
+    """The target DTensor ``leaf``'s own block, pasted from the saved
+    blocks that intersect it (``repro.checkpoint.store``'s ``make``)."""
+    from repro_torch.launch import sharding as shd
+    mesh = leaf.device_mesh
+    spec = shd.from_placements(leaf.placements, mesh, leaf.ndim)
+    sl = shd.local_slices(leaf.shape, spec, mesh, mesh.get_coordinate())
+    starts = tuple(x.start for x in sl)
+    stops = tuple(x.stop for x in sl)
+    out = torch.zeros(tuple(b - a for a, b in zip(starts, stops)),
+                      dtype=leaf.dtype)
+    for off, f, key in saved:
+        block = _to_tensor(f[key], leaf.dtype)
+        lo = tuple(max(o, a) for o, a in zip(off, starts))
+        hi = tuple(min(o + n, b) for o, n, b in
+                   zip(off, block.shape, stops))
+        if any(a >= b for a, b in zip(lo, hi)):
+            continue
+        src = tuple(slice(a - o, b - o) for a, o, b in zip(lo, off, hi))
+        dst = tuple(slice(a - s0, b - s0) for a, s0, b in zip(lo, starts, hi))
+        out[dst] = block[src]
+    return shd.from_blocks(out.to(leaf.to_local().device), leaf.shape, spec,
+                           mesh)
 
 
 class CheckpointManager:
@@ -175,7 +283,7 @@ class CheckpointManager:
                    extra_meta: Optional[Dict] = None):
         """Snapshot to host memory now; write files on a background thread."""
         self.wait()
-        snapshot = _snapshot(tree)
+        snapshot = _snapshot(tree, copy=True)
 
         def work():
             save_checkpoint(self.dir, step, snapshot, extra_meta)

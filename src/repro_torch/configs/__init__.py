@@ -36,6 +36,20 @@ def names():
     return sorted(_REGISTRY)
 
 
+# archs for which long_500k is runnable (sub-quadratic), as in the JAX
+# registry
+LONG_CONTEXT_ARCHS = frozenset({
+    "gemma2-2b", "gemma3-1b", "gemma3-4b", "hymba-1.5b", "mamba2-1.3b"})
+
+
+def shapes_for(arch: str):
+    """The dry run's shape cells of ``arch`` (``launch.steps.SHAPES``)."""
+    base = ["train_4k", "prefill_32k", "decode_32k"]
+    if arch in LONG_CONTEXT_ARCHS:
+        base.append("long_500k")
+    return tuple(base)
+
+
 def get_smoke(name: str) -> ModelConfig:
     """Reduced same-family config for CPU smoke tests (the JAX package's
     reduction rule)."""

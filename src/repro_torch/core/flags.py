@@ -10,8 +10,9 @@ In the port, ``remat_policy`` is read by the training forward
 (``repro_torch.models.transformer.forward``); ``tune_mode`` and
 ``tune_cache`` by the tuner (``repro_torch.tune``: the GEMM, conv and
 flash wrappers, the serving engine's page size, the CLIs' warm-up); the
-others shape XLA's partitioning of the JAX package's steps and have no
-reader here yet (the multi-device port, A15).
+others shape XLA's lowering of the JAX package's steps and have no
+reader here (``moe_grouped_dispatch`` waits for the grouped MoE dispatch,
+ROADMAP A15b).
 """
 
 from __future__ import annotations

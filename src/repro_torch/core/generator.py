@@ -15,7 +15,8 @@ checks the parameterization and returns a :class:`GemminiInstance` holding
 There is no backend argument: the device of the operands decides, as
 everywhere in the port. The CUDA kernels pick their own tiles; the header
 and plan describe the paper's accelerator, not the kernels' launch
-shapes. The mesh is a later slice.
+shapes. :meth:`GemminiInstance.with_mesh` derives an instance whose
+context hands each kernel its local shard (``core.context``).
 """
 
 from __future__ import annotations
@@ -36,10 +37,12 @@ class GemminiInstance:
     """One elaborated accelerator + its co-designed software parameters."""
 
     cfg: GemminiConfig
+    mesh: Any = None       # partitioned dispatch: kernels on local shards
+    axis: Any = "data"     # mesh axis the batch-like dims shard over
 
     @functools.cached_property
     def ctx(self) -> ExecutionContext:
-        return ExecutionContext(cfg=self.cfg)
+        return ExecutionContext(cfg=self.cfg, mesh=self.mesh, axis=self.axis)
 
     # -- engine entry points (delegates into ctx) --------------------------
     def gemm(self, a: torch.Tensor, b: torch.Tensor,
@@ -77,6 +80,13 @@ class GemminiInstance:
 
     def plan(self, m: int, n: int, k: int, **kw) -> TilePlan:
         return plan_gemm(self.cfg, m, n, k, **kw)
+
+    def with_mesh(self, mesh, axis: Any = "data") -> "GemminiInstance":
+        """A mesh-aware instance: its ops run each kernel on the local
+        shard, dim 0 of the batched operands split over ``axis``, and
+        resolve schedules at the per-device shapes (warm them with
+        ``tune.warm_model_plans(n_shards=...)``)."""
+        return dataclasses.replace(self, mesh=mesh, axis=axis)
 
 
 @functools.lru_cache(maxsize=64)

@@ -6,17 +6,18 @@ so a restart regenerates exactly the batches it lost, and rows are
 Markov-chain token streams (a fixed random transition table seeded by
 ``seed``) with document breaks, so a training run shows a falling loss.
 
-:func:`make_batch` builds one step's whole batch on one device, in place of
-the JAX module's host-sharded ``make_global_batch``, whose sharding comes
-with the multi-device port (ROADMAP A15). Its tokens and the multimodal
-stub's ``extra_embeds`` (deterministic low-rank features of the row id:
-VLM patch or audio-frame embeddings) equal the JAX batch's bit for bit.
+:func:`make_batch` builds one step's whole batch on one device;
+:func:`make_global_batch` builds it as DTensors on a device mesh, each
+rank generating only the rows its block covers (the JAX module's
+``make_global_batch``). Tokens and the multimodal stub's ``extra_embeds``
+(deterministic low-rank features of the row id: VLM patch or audio-frame
+embeddings) equal the JAX batch's bit for bit.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -76,6 +77,13 @@ class SyntheticLM:
         return {"tokens": toks, "labels": toks.copy()}
 
 
+def _embeds(cfg: SyntheticLMConfig, idx, t, d) -> np.ndarray:
+    """The multimodal stub's features at row ids ``idx``, token ``t`` and
+    feature ``d`` (broadcast index arrays)."""
+    return np.sin(0.1 * (idx * 131 + t * 17 + d) + cfg.seed
+                  ).astype(np.float32)
+
+
 def make_batch(gen: SyntheticLM, step: int, device="cpu",
                extra_embed_dim: Optional[int] = None,
                extra_tokens: int = 0) -> Dict[str, torch.Tensor]:
@@ -91,7 +99,42 @@ def make_batch(gen: SyntheticLM, step: int, device="cpu",
         idx = np.arange(cfg.global_batch).reshape(-1, 1, 1)
         t = np.arange(extra_tokens).reshape(1, -1, 1)
         d = np.arange(extra_embed_dim).reshape(1, 1, -1)
-        val = np.sin(0.1 * (idx * 131 + t * 17 + d) + cfg.seed)
         out["extra_embeds"] = torch.from_numpy(
-            val.astype(np.float32)).to(device)
+            _embeds(cfg, idx, t, d)).to(device)
+    return out
+
+
+def make_global_batch(gen: SyntheticLM, step: int, mesh, spec,
+                      extra_embed_dim: Optional[int] = None,
+                      extra_tokens: int = 0) -> Dict[str, torch.Tensor]:
+    """Step ``step``'s batch as DTensors on ``mesh`` laid out by ``spec``
+    (``launch.sharding.tokens_spec``): each rank generates only the rows
+    (and the columns) its block covers. The ``extra_embeds`` follow
+    ``spec`` where it has three entries, else its batch entry alone."""
+    from repro_torch.launch import sharding as shd
+    cfg = gen.cfg
+    n_q = max(1, cfg.n_codebooks)
+    shape: Tuple[int, ...] = (cfg.global_batch, cfg.seq)
+    if n_q > 1:
+        shape = shape + (n_q,)
+    coord = mesh.get_coordinate()
+    device = shd.mesh_device(mesh)
+    sl = shd.local_slices(shape, spec, mesh, coord)
+    rows = range(sl[0].start, sl[0].stop)
+    block = np.stack([gen.row(step, i) for i in rows]) if len(rows) else \
+        np.zeros((0,) + shape[1:], np.int32)
+    local = torch.from_numpy(np.ascontiguousarray(
+        block[(slice(None),) + sl[1:]])).to(device)
+    tokens = shd.from_blocks(local, shape, spec, mesh)
+    out = {"tokens": tokens, "labels": tokens}
+    if extra_embed_dim:
+        eshape = (cfg.global_batch, extra_tokens, extra_embed_dim)
+        espec = spec if len(spec) == 3 else shd.P(spec[0], None, None)
+        el = shd.local_slices(eshape, espec, mesh, coord)
+        idx = np.arange(eshape[0])[el[0]].reshape(-1, 1, 1)
+        t = np.arange(eshape[1])[el[1]].reshape(1, -1, 1)
+        d = np.arange(eshape[2])[el[2]].reshape(1, 1, -1)
+        out["extra_embeds"] = shd.from_blocks(
+            torch.from_numpy(_embeds(cfg, idx, t, d)).to(device), eshape,
+            espec, mesh)
     return out

@@ -40,6 +40,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.core import flags
+from repro_torch.core.dtensor import require_local
 from repro_torch.kernels import _build
 from repro_torch.kernels.contracts import kernel_contract
 from repro_torch.models.attention import NEG_INF, blockwise_attention
@@ -237,6 +238,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     the keys. Returns (B, Tq, H, D) in q's dtype. On the card bf16 runs
     the tensor-core kernel and fp32 the CUDA-core one (IEEE fp32);
     ``plan``: the caller's ``{"cluster", "stages"}`` (module docstring)."""
+    require_local("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return blockwise_attention(q, k, v, causal=causal, window=window,
                                    softcap=softcap, scale=scale)
@@ -279,6 +281,7 @@ def decode_attention(q, k, v, pos: int, *, window: Optional[int] = None,
     merges their partial softmax states in the same launch, in its
     stream's workspace."""
     pos = int(pos)
+    require_local("decode_attention", q, k, v)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, pos, window=window,
                                       softcap=softcap, scale=scale)
@@ -354,6 +357,8 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
     kernel reads tables and lengths in device memory; one launch, whose
     grid (``paged_decode_plan``) and workspace come from the shapes (and
     ``plan``'s ``split_keys``)."""
+    require_local("paged_decode_attention", q, k_pool, v_pool, block_tables,
+                  lengths)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
                                             lengths, window=window,
@@ -427,6 +432,7 @@ def paged_prefill_attention(q, k_pool, v_pool, block_table, start: int, *,
     K/V through the block table (one launch; its grid comes from T, start
     and the window), fp32 the CUDA-core one (IEEE fp32)."""
     start = int(start)
+    require_local("paged_prefill_attention", q, k_pool, v_pool, block_table)
     if q.device.type == "cpu":
         return paged_prefill_attention_plain(q, k_pool, v_pool, block_table,
                                              start, window=window,

@@ -45,6 +45,7 @@ import torch
 
 from repro_torch.core import flags
 from repro_torch.core.config import Activation
+from repro_torch.core.dtensor import require_local
 from repro_torch.kernels import _build
 from repro_torch.kernels.contracts import kernel_contract
 from repro_torch.kernels import epilogue as epi
@@ -113,6 +114,7 @@ def conv2d_implicit(x: torch.Tensor, w: torch.Tensor,
                     plan: Optional[dict] = None) -> torch.Tensor:
     """x: (N, H, W, CI), w: (KH, KW, CI, CO), b: (CO,) -> (N, OH, OW, CO);
     ``plan``: the caller's ``{"tile", "splits"}`` (module docstring)."""
+    require_local("conv2d_implicit", x, w, b)
     if x.device.type == "cpu":
         return conv2d_ref(x, w, b, stride=stride, padding=padding,
                           acc_dtype=acc_dtype, out_dtype=out_dtype,

@@ -87,6 +87,7 @@ import torch
 
 from repro_torch.core import flags
 from repro_torch.core.config import Activation, Dataflow
+from repro_torch.core.dtensor import require_local
 from repro_torch.kernels import _build
 from repro_torch.kernels.contracts import kernel_contract
 from repro_torch.kernels import epilogue as epi
@@ -250,6 +251,7 @@ def _gemm(a: torch.Tensor, b: torch.Tensor, d: Optional[torch.Tensor], *,
     in OS or WS order (or an error). ``bwd``: a backward product, counted
     in ``BWD_COUNT``. ``plan``: the caller's ``{"tile", "splits"}``, else
     the tuner's under ``cached`` / ``full``, else the shape's own."""
+    require_local("gemm_ws" if ws else "gemm", a, b, d)
     if a.device.type == "cpu":
         return gemm_ref(a, b, d, acc_dtype=acc_dtype, out_dtype=out_dtype,
                         shift=shift, activation=activation)
@@ -504,6 +506,7 @@ def accumulator_epilogue(acc: torch.Tensor, *, out_dtype: torch.dtype,
     """The mvout path: rounding shift, activation and saturation over a raw
     accumulator of any shape (int32 -> int8 / int16 / int32, or fp32 ->
     fp32 / bf16 / fp16)."""
+    require_local("accumulator_epilogue", acc)
     if acc.device.type == "cpu":
         return epi.apply(acc, shift=shift, activation=activation,
                          out_dtype=out_dtype)

@@ -33,6 +33,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.core.dtensor import require_local
 from repro_torch.kernels.contracts import kernel_contract
 from repro_torch.models.ssm import ssd_chunked
 
@@ -128,6 +129,7 @@ def ssd(x, dt, a_log, b, c, *, d_skip=None, chunk: int = 256,
     share the model dtype (fp32 or bf16) and are read by their strides,
     so the model's views into its fused projection are never copied; y is
     written in x's dtype, the states in fp32."""
+    require_local("ssd", x, dt, a_log, b, c, d_skip, initial_state)
     if x.device.type == "cpu":
         return ssd_plain(x, dt, a_log, b, c, d_skip=d_skip, chunk=chunk,
                          initial_state=initial_state,

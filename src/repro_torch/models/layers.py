@@ -15,6 +15,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import dtensor as shard
+
 Params = Dict[str, Any]
 
 
@@ -136,7 +138,9 @@ def mlp_apply(ctx, p: Params, x: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 def embed_apply(table: torch.Tensor, tokens: torch.Tensor, *,
                 scale_by_sqrt_dim: bool = False) -> torch.Tensor:
-    y = table[tokens.long()]
+    """``table[tokens]``; on DTensors each rank looks up its token rows in
+    the whole table (``core.dtensor.rows_call``)."""
+    y = shard.rows_call(lambda tok, tab: tab[tok.long()], tokens, table)
     if scale_by_sqrt_dim:
         y = (y.to(torch.float32) * math.sqrt(table.shape[1])).to(y.dtype)
     return y

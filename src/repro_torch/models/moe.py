@@ -26,8 +26,9 @@ order, so bf16 results can be held against it:
   after each add (the order of the JAX ``acc.at[tid].add``).
 
 Groups = 1 only: the JAX module's grouped dispatch (``_dispatch_grid``,
-the ``moe_grouped_dispatch`` flag) needs a device mesh and comes with the
-multi-device port (ROADMAP A15). The training forward calls
+the ``moe_grouped_dispatch`` flag) reads the current device mesh
+(``launch.mesh.activate_mesh``) and is the next multi-device slice
+(ROADMAP A15b). The training forward calls
 :func:`moe_apply` with the capacity bound (``dropless=False``) and
 differentiates it: the gate weights, the dispatch's row writes and the
 expert products all carry gradients, as the JAX module's do.

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.core import dtensor as shard
 from repro_torch.core import flags
 from repro_torch.kernels import gemm as gemm_kernel
 from repro_torch.models import attention as attn
@@ -123,6 +124,15 @@ class ModelConfig:
         elif self.family in ("dense", "hybrid") and self.d_ff:
             per_layer += 3 * d * self.d_ff
         return n + l * per_layer
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only top_k experts)."""
+        if self.family != "moe":
+            return self.param_count()
+        d, l, e = self.d_model, self.n_layers, self.n_experts
+        full = self.param_count()
+        inactive = l * 3 * d * self.moe_d_ff * (e - self.top_k)
+        return full - inactive
 
 
 def _require_ported(cfg: ModelConfig) -> None:
@@ -514,7 +524,8 @@ def _unbound_blocks(params: Params, n_layers: int):
 
 def forward(ctx, params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             extra_embeds: Optional[torch.Tensor] = None, *,
-            remat: bool = False) -> torch.Tensor:
+            remat: bool = False, residual_sharding=None,
+            logits_sharding=None) -> torch.Tensor:
     """The training (and whole-sequence) forward: tokens (B, T) [or (B, T,
     n_q)], ``extra_embeds`` (B, Ti, D) or None -> fp32 logits over every
     position (prefix and meta tokens included), as the JAX ``forward``.
@@ -531,24 +542,32 @@ def forward(ctx, params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     by ``flags.get("remat_policy")``: ``full`` saves nothing and recomputes
     the block in the backward, ``dots`` saves the engine GEMMs' outputs
     (``gemm_kernel.gemm_tape``) and recomputes the rest, ``none`` saves
-    everything (no checkpoint)."""
+    everything (no checkpoint).
+
+    ``residual_sharding`` / ``logits_sharding``: ``(mesh, placements)``
+    the (B, T, D) residual between blocks and the logits are redistributed
+    to when they are DTensors (``core.dtensor.constrain``, the JAX
+    forward's sharding constraints); None leaves them as they come."""
     _require_ported(cfg)
     h = embed_inputs(cfg, params, tokens, extra_embeds)
     b, t, _ = h.shape
     positions = torch.arange(t, device=h.device)[None].expand(b, t)
     win, bases = layer_windows(cfg), layer_rope_bases(cfg)
     policy = flags.get("remat_policy") if remat else "none"
+    h = shard.constrain(h, residual_sharding)
     ckpt_kw = dict(use_reentrant=False)
     if policy == "dots":
         ckpt_kw["context_fn"] = gemm_kernel.gemm_tape
     for i, bp in enumerate(_unbound_blocks(params, cfg.n_layers)):
         def body(h, bp=bp, window=int(win[i]), base=float(bases[i])):
-            return _block_apply(ctx, cfg, bp, h, positions, window, base)[0]
+            return shard.constrain(
+                _block_apply(ctx, cfg, bp, h, positions, window, base)[0],
+                residual_sharding)
         if policy == "none":
             h = body(h)
         else:
             h = torch.utils.checkpoint.checkpoint(body, h, **ckpt_kw)
-    return unembed(ctx, cfg, params, h)
+    return shard.constrain(unembed(ctx, cfg, params, h), logits_sharding)
 
 
 def loss_fn(ctx, params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -565,8 +584,8 @@ def loss_fn(ctx, params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     logits = logits[:, :-1]            # (B, T-1, V) or (B, T-1, n_q, V)
     tgt = labels[:, 1:].long()
     mask = (tgt >= 0).to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, tgt.clamp_min(0)[..., None])[..., 0]
+    lse = shard.logsumexp_last(logits)
+    ll = shard.take_last(logits, tgt.clamp_min(0))
     nll = (lse - ll) * mask
     return nll.sum() / torch.clamp_min(mask.sum(), 1.0)
 

@@ -10,9 +10,10 @@
 * **int8 linear quantization**, per-tensor symmetric, rounding half to
   even as ``jnp.round`` does: a 4x smaller payload than fp32.
 
-Nothing on the training path calls these yet, in the JAX package either:
-they wait for the data-parallel reduction of the multi-device port
-(ROADMAP A15).
+Nothing on the training path calls these, in the JAX package either: no
+module of it calls ``runtime/compression.py`` (only ``runtime/__init__``
+re-exports it), so the sharded train step reduces gradients without them
+(ROADMAP A15a).
 """
 
 from __future__ import annotations
