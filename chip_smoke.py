@@ -229,9 +229,20 @@ SSD) given DTensors equals the unsharded call bit for bit, one launch
 each; a DTensor at each kernel entry raises ``TypeError``; and one
 full-size dry-run cell (gemma3-1b x train_4k on 16 x 16, ``fake``
 process group) runs in a subprocess and prints its row.
+Phase 19 is the rest of the multi-device slice on one card, each check's
+launch counts zeroed just before it and read just after: on the (1, 1)
+mesh, full-width granite-moe-3b-a800m's ``make_prefill_step`` over 2 x
+512 tokens and one MoE layer's loss and gradients at 1 x 1024 with
+``moe_grouped_dispatch`` off and on (the grid is (1, 1): the grouped path
+runs with one group), bit for bit; two sharded ``grad_accum`` = 4 steps
+of full-width gemma3-1b (micro-batches of 1 x 1024) bit for bit the
+unsharded ``grad_accum`` steps; and gemma3-1b's 26 blocks through
+``pipeline_loss_fn`` at S = 1 on a ``("stage",)`` mesh, 4 micro-batches
+of 1 x 1024, bit for bit the blocks applied micro-batch by micro-batch;
+the GEMM launches equal each way.
 ``python3 chip_smoke.py --phase 17`` runs phases 1, 2 and 17 alone (a
 quicker check of the contracts on a card), ``--phase 18`` phases 1, 2 and
-18; with no argument every phase runs.
+18, ``--phase 19`` phases 1, 2 and 19; with no argument every phase runs.
 
 Every main path's launch counts are zeroed
 just before it and read just after; the kernels line takes each kernel's
@@ -4092,6 +4103,305 @@ def run_mesh_phase(torch, smi):
     return {"train": train, "ctx": ops, "dryrun": dry, "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: multi-device, the rest -- the grouped MoE dispatch, micro-
+# batches under a mesh and the GPipe stage loop, on one card
+# ---------------------------------------------------------------------------
+GROUPED_PREFILL = (2, 512)       # granite prefill batch x tokens
+GROUPED_LAYER_TOKENS = 1024      # one MoE layer's loss and gradients
+ACCUM = 4                        # micro-batches of 1 x TRAIN_SEQ
+PIPE_MICRO = 4
+
+
+def _bf16_ctx():
+    from repro_torch.core.config import GemminiConfig
+    from repro_torch.core.context import ExecutionContext
+    return ExecutionContext(cfg=GemminiConfig(
+        input_dtype="bf16", acc_dtype="fp32", output_dtype="bf16"))
+
+
+def _nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def mesh_grouped_moe(torch, mesh):
+    """(a) Full-width granite-moe-3b-a800m (bf16, weights from seed 0,
+    laid out by ``param_specs``) on the (1, 1) mesh: ``make_prefill_step``
+    over 2 x 512 tokens with ``moe_grouped_dispatch`` off and on, and one
+    MoE layer's loss (mean of y^2 in fp32) and gradients (the input and
+    every weight) at 1 x 1024 tokens with the capacity bound, off and on:
+    bit for bit, the same launches. The grid is (1, 1): the grouped path
+    runs with one group."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch import configs, kernels
+    from repro_torch.core import flags
+    from repro_torch.core import tree as tu
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+
+    cfg = configs.get(MOE_ARCH)
+    sctx = _bf16_ctx().with_mesh(mesh, shd.data_axis(mesh))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = tf.init_params(gen, cfg, device="cuda")
+    params = shd.distribute_tree(params, shd.param_specs(params, mesh), mesh)
+    b, t = GROUPED_PREFILL
+    toks = torch.randint(0, cfg.vocab, (b, t), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    batch = {"tokens": shd.distribute(toks, shd.tokens_spec(mesh, b),
+                                      mesh)}
+    prefill = steps.make_prefill_step(sctx, cfg, mesh)
+    out, counts, walls = {}, {}, {}
+    try:
+        for grouped in (0, 1):
+            flags.set_flag("moe_grouped_dispatch", grouped)
+            with mesh_lib.activate_mesh(mesh):
+                grid = moe._dispatch_grid(b, t)
+            if grid != ((1, (1, 1)) if grouped else (1, None)):
+                fail(f"grouped dispatch {grouped}: grid {grid}")
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            out[grouped] = prefill(params, batch).full_tensor()
+            torch.cuda.synchronize()
+            walls[grouped] = time.perf_counter() - t0
+            counts[grouped] = _nonzero(kernels.launch_counts())
+        if not torch.equal(out[0], out[1]) or counts[0] != counts[1] or \
+                not counts[1].get("gemm[fp32]"):
+            fail(f"{MOE_ARCH} grouped prefill: bit for bit "
+                 f"{torch.equal(out[0], out[1])}, launches off {counts[0]}"
+                 f" on {counts[1]}")
+
+        layer = tu.tree_map(lambda v: v[0], params["blocks"]["moe"])
+        x = torch.randn((1, GROUPED_LAYER_TOKENS, cfg.d_model),
+                        generator=gen, device="cuda").to(cfg.dtype)
+        xd = shd.distribute(x, shd.P("data", "model", None), mesh)
+        layer_out, layer_counts = {}, {}
+        for grouped in (0, 1):
+            flags.set_flag("moe_grouped_dispatch", grouped)
+            leaves = [v.detach().requires_grad_(True)
+                      for v in [xd] + tu.leaves(layer)]
+            lp = tu.unflatten(layer, leaves[1:])
+            kernels.reset_launch_counts()
+            with steps._mesh_scope(mesh):
+                y = moe.moe_apply(sctx, lp, leaves[0],
+                                  n_experts=cfg.n_experts, top_k=cfg.top_k,
+                                  capacity_factor=cfg.capacity_factor,
+                                  activation=cfg.activation)
+                loss = (y.to(torch.float32) ** 2).mean()
+                grads = torch.autograd.grad(loss, leaves)
+            torch.cuda.synchronize()
+            layer_counts[grouped] = _nonzero(kernels.launch_counts())
+            layer_out[grouped] = [loss.detach().full_tensor()] + [
+                g.full_tensor() if isinstance(g, DTensor) else g
+                for g in grads]
+    finally:
+        flags.reset()
+    differ = [i for i, (a, c) in enumerate(zip(layer_out[0], layer_out[1]))
+              if not torch.equal(a, c)]
+    if differ or layer_counts[0] != layer_counts[1]:
+        fail(f"{MOE_ARCH} grouped MoE layer: outputs {differ} differ "
+             f"(0 the loss, 1 the input's gradient), launches off "
+             f"{layer_counts[0]} on {layer_counts[1]}")
+    log(f"{MOE_ARCH} on the (1, 1) mesh, moe_grouped_dispatch off / on: "
+        f"prefill {b} x {t} last logits bit for bit, launches {counts[1]}"
+        f" both, walls {walls[0]:.3f} / {walls[1]:.3f} s; one MoE layer at"
+        f" 1 x {GROUPED_LAYER_TOKENS}: loss "
+        f"{float(layer_out[1][0]):.6f} and all {len(layer_out[1]) - 1} "
+        f"gradients bit for bit, launches {layer_counts[1]} both")
+    return {"prefill_launches": counts[1], "prefill_walls_s": walls,
+            "layer_launches": layer_counts[1],
+            "layer_loss": float(layer_out[1][0])}
+
+
+def mesh_grad_accum(torch, mesh, smi):
+    """(b) Two sharded ``make_train_step`` steps of full-width gemma3-1b
+    with ``grad_accum`` = ACCUM (batches of ACCUM x TRAIN_SEQ from
+    ``SyntheticLM`` seed 0, micro-batches of 1 x TRAIN_SEQ) on the (1, 1)
+    mesh against two unsharded ``grad_accum`` steps: losses, gradient
+    norms, parameters, m and v bit for bit; the GEMM launches equal and
+    ACCUM x ``train_gemm_launches`` a step."""
+    from repro_torch import configs, kernels
+    from repro_torch.core import tree as tu
+    from repro_torch.data import (SyntheticLM, SyntheticLMConfig, make_batch,
+                                  make_global_batch)
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+
+    cfg = configs.get(TRAIN_ARCH)
+    ctx = _bf16_ctx()
+    sctx = ctx.with_mesh(mesh, shd.data_axis(mesh))
+    opt = adamw.AdamWConfig(lr=TRAIN_LR)
+    gen = SyntheticLM(SyntheticLMConfig(vocab=cfg.vocab, seq=TRAIN_SEQ,
+                                        global_batch=ACCUM, seed=0))
+    tspec = shd.tokens_spec(mesh, ACCUM)
+    runs = {}
+    for name, step, state, batch in (
+            ("unsharded", steps.make_train_step(ctx, cfg, opt,
+                                                grad_accum=ACCUM),
+             lambda: steps.init_train_state(cfg, seed=0, device="cuda"),
+             lambda i: make_batch(gen, i, "cuda")),
+            ("sharded", steps.make_train_step(sctx, cfg, opt, mesh,
+                                              grad_accum=ACCUM),
+             lambda: steps.init_train_state(cfg, seed=0, device="cuda",
+                                            mesh=mesh),
+             lambda i: make_global_batch(gen, i, mesh, tspec))):
+        st = state()
+        metrics, walls = [], []
+        kernels.reset_launch_counts()
+        for i in range(MESH_STEPS):
+            t0 = time.perf_counter()
+            st, m = step(st, batch(i))
+            metrics.append((m["loss"].item(), m["grad_norm"].item()))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        runs[name] = (st, metrics, walls, _nonzero(kernels.launch_counts()))
+        if name == "unsharded":
+            continue
+        want = {k: MESH_STEPS * ACCUM * v
+                for k, v in train_gemm_launches(cfg).items()}
+        su, mu, _, cu = runs["unsharded"]
+        if runs[name][3] != cu or cu != want:
+            fail(f"grad_accum steps launched sharded {runs[name][3]}, "
+                 f"unsharded {cu}, want {want}")
+        if metrics != mu:
+            fail(f"grad_accum steps: (loss, grad norm) sharded {metrics}, "
+                 f"unsharded {mu}")
+        differ = []
+        for part, ts, tu_ in (("params", st.params, su.params),
+                              ("m", st.opt["m"], su.opt["m"]),
+                              ("v", st.opt["v"], su.opt["v"])):
+            ref = dict(tu.flatten_with_paths(tu_))
+            differ += [f"{part}/{p}" for p, x in tu.flatten_with_paths(ts)
+                       if not torch.equal(x.full_tensor(), ref[p])]
+        if differ:
+            fail(f"grad_accum steps: {len(differ)} leaves differ, e.g. "
+                 f"{differ[:4]}")
+        del su
+    st, metrics, walls_s, counts = runs["sharded"]
+    walls_u = runs["unsharded"][2]
+    log(f"{TRAIN_ARCH} grad_accum={ACCUM} on the (1, 1) mesh ({ACCUM} "
+        f"micro-batches of 1 x {TRAIN_SEQ}): {MESH_STEPS} steps, (loss, "
+        f"grad norm) {metrics} bit for bit the unsharded steps', and every "
+        f"parameter, m and v leaf; launches {counts} both; walls sharded "
+        f"{', '.join(f'{w:.3f}' for w in walls_s)} s, unsharded "
+        f"{', '.join(f'{w:.3f}' for w in walls_u)} s ({smi})")
+    return {"metrics": metrics, "launches": counts, "walls_s": walls_s,
+            "walls_u": walls_u}
+
+
+def mesh_pipeline(torch):
+    """(c) gemma3-1b's 26 blocks (full width, bf16, weights from seed 0)
+    through ``pipeline_loss_fn`` at S = 1 on a ``("stage",)`` mesh, the
+    stage parameters DTensors split over it, PIPE_MICRO micro-batches of
+    1 x TRAIN_SEQ (phase (b)'s first batch), against the same blocks
+    applied micro-batch by micro-batch with no stage loop: the loss and
+    every gradient leaf bit for bit, the same GEMM launches."""
+    from repro_torch import configs, kernels
+    from repro_torch.core import tree as tu
+    from repro_torch.data import SyntheticLM, SyntheticLMConfig, make_batch
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import pipeline as pp
+    from repro_torch.launch import sharding as shd
+
+    cfg = configs.get(TRAIN_ARCH)
+    ctx = _bf16_ctx()
+    smesh = mesh_lib.make_mesh((1,), ("stage",))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    from repro_torch.models import transformer as tf
+    params = tf.init_params(gen, cfg, device="cuda")
+    stages = pp.split_stages(params.pop("blocks"), 1)
+    toks = make_batch(SyntheticLM(SyntheticLMConfig(
+        vocab=cfg.vocab, seq=TRAIN_SEQ, global_batch=PIPE_MICRO, seed=0)),
+        0, "cuda")["tokens"]
+
+    def leaves_of(dist_stages):
+        rest = tu.tree_map(lambda v: v.detach().requires_grad_(True), params)
+        st = tu.tree_map(
+            lambda v: (shd.distribute(v, shd.P("stage"), smesh)
+                       if dist_stages else v).detach().requires_grad_(True),
+            stages)
+        return rest, st
+
+    runs = {}
+    for name in ("pipeline", "no stage loop"):
+        rest, st = leaves_of(name == "pipeline")
+        leaves = tu.leaves(rest) + tu.leaves(st)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        if name == "pipeline":
+            loss = pp.pipeline_loss_fn(*pp.transformer_stage_fns(
+                ctx, cfg, smesh))(dict(rest, stages=st), toks, toks,
+                                  mesh=smesh, n_micro=PIPE_MICRO)
+        else:
+            stage_fn, embed_fn, unembed_loss_fn = \
+                pp.transformer_stage_fns(ctx, cfg)
+            p = dict(rest, stages=st)
+            h = embed_fn(p, toks)
+            hm = h.reshape(PIPE_MICRO, -1, *h.shape[1:])
+            sp = tu.tree_map(lambda v: v[0], st)
+            y = torch.stack([stage_fn(p, sp, hm[i])
+                             for i in range(PIPE_MICRO)])
+            loss = unembed_loss_fn(p, y.reshape(-1, *y.shape[2:]), toks)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        grads = [g.full_tensor() if hasattr(g, "full_tensor") else g
+                 for g in grads]
+        runs[name] = (loss.detach(), grads, _nonzero(kernels.launch_counts()),
+                      wall)
+        del rest, st, leaves, loss
+    (lp, gp, cp, wp), (lr_, gr, cr, wr) = runs["pipeline"], \
+        runs["no stage loop"]
+    differ = [i for i, (a, b) in enumerate(zip(gp, gr))
+              if not torch.equal(a, b)]
+    if not torch.equal(lp, lr_) or differ or cp != cr or \
+            not cp.get("gemm[bwd]"):
+        fail(f"pipeline at S = 1: loss {float(lp)} vs {float(lr_)}, "
+             f"{len(differ)} gradient leaves differ, launches {cp} vs {cr}")
+    log(f"{TRAIN_ARCH} {cfg.n_layers} blocks through pipeline_loss_fn at S ="
+        f" 1 on the (stage,) mesh, {PIPE_MICRO} micro-batches of 1 x "
+        f"{TRAIN_SEQ}: loss {float(lp):.6f} and all {len(gp)} gradient "
+        f"leaves bit for bit the blocks applied micro-batch by micro-batch;"
+        f" launches {cp} both; walls {wp:.3f} / {wr:.3f} s")
+    return {"loss": float(lp), "launches": cp, "wall_s": wp,
+            "wall_reference_s": wr}
+
+
+def run_mesh_rest_phase(torch, smi):
+    """Phase 19 (module docstring): (a)-(c) over a one-rank NCCL group,
+    destroyed at the end."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+
+    t_phase = time.perf_counter()
+    os.environ["MASTER_ADDR"] = "127.0.0.1"
+    os.environ["MASTER_PORT"] = str(_free_port())
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    out = {}
+    try:
+        mesh = mesh_lib.make_mesh((1, 1), ("data", "model"))
+        for name, fn in (("grouped_moe", lambda: mesh_grouped_moe(torch,
+                                                                   mesh)),
+                         ("grad_accum", lambda: mesh_grad_accum(torch, mesh,
+                                                                 smi)),
+                         ("pipeline", lambda: mesh_pipeline(torch))):
+            t0 = time.perf_counter()
+            out[name] = dict(fn(), wall_phase_s=time.perf_counter() - t0)
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    wall = time.perf_counter() - t_phase
+    parts = ", ".join(f"{k} {v['wall_phase_s']:.1f} s"
+                      for k, v in out.items())
+    log(f"phase 19 (multi-device, the rest): {wall:.1f} s wall ({parts}) "
+        f"on {smi}")
+    return dict(out, wall_s=wall)
+
+
 def ptxas_summary(lines, names) -> str:
     """Per kernel name: its instantiations, their register range and the
     most spill bytes any of them has, from ``-Xptxas=-v`` lines (an entry
@@ -4189,9 +4499,21 @@ def main() -> int:
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
+    if sys.argv[1:] == ["--phase", "19"]:
+        rest_summary = run_mesh_rest_phase(torch, smi)
+        with open(os.path.join(OUT_DIR, "chip_smoke_mesh_rest.json"),
+                  "w") as f:
+            json.dump({"device": kind, "nvidia_smi": smi,
+                       "mesh_rest": rest_summary}, f, indent=1, default=str)
+        log(f"phases 1, 2 and 19 passed in "
+            f"{time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if sys.argv[1:]:
-        fail(f"unknown arguments {sys.argv[1:]}: none, --phase 17 or "
-             f"--phase 18")
+        fail(f"unknown arguments {sys.argv[1:]}: none, --phase 17, "
+             f"--phase 18 or --phase 19")
 
     # 3. kernels
     timer = Timer(torch)
@@ -4281,6 +4603,12 @@ def main() -> int:
     # NCCL mesh (the sharded path's own run: counts zeroed inside), and
     # the 16 x 16 dry run in a subprocess
     mesh_summary = run_mesh_phase(torch, smi)
+    torch.cuda.empty_cache()
+
+    # 19. multi-device, the rest: the grouped MoE dispatch, micro-batches
+    # under the mesh and the GPipe stage loop (each check zeroes the
+    # counts just before it and reads them just after)
+    rest_summary = run_mesh_rest_phase(torch, smi)
 
     # the kernels line
     meta = {
@@ -4347,7 +4675,7 @@ def main() -> int:
                    "train": train_summary, "train_launches": train_counts,
                    "gemma3_4b": g4_summary, "gemma3_4b_launches": g4_counts,
                    "tune": tune_summary, "contracts": contracts,
-                   "mesh": mesh_summary},
+                   "mesh": mesh_summary, "mesh_rest": rest_summary},
                   f, indent=1, default=str)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}), flush=True)

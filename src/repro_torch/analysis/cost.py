@@ -109,13 +109,17 @@ class CostReport:
 class CostCount(TorchDispatchMode):
     """Counts the local ops beneath DTensor into :attr:`report`.
 
-    ``axis_of_group``: c10d group name -> mesh axis name, so collective
-    bytes are kept per axis (:func:`group_axes` builds it from a mesh)."""
+    ``axis_of_ranks``: a process group's ranks -> mesh axis name, so
+    collective bytes are kept per axis (:func:`group_axes` builds it from a
+    mesh). A group is looked up by its ranks, not its name: DTensor may
+    issue a collective on the group of another mesh of the same layout
+    (one it cached an earlier plan for), which has another name; a group
+    of no axis is kept under its name."""
 
-    def __init__(self, axis_of_group: Optional[Dict[str, str]] = None):
+    def __init__(self, axis_of_ranks: Optional[Dict[tuple, str]] = None):
         super().__init__()
         self.report = CostReport()
-        self.axis_of_group = dict(axis_of_group or {})
+        self.axis_of_ranks = dict(axis_of_ranks or {})
         self._above = False         # inside an op on DTensors
         self.skip = 0               # inside DTensor's metadata propagation
 
@@ -151,7 +155,7 @@ class CostCount(TorchDispatchMode):
             rep.coll_counts[kind] += 1
             group = args[-1] if args and isinstance(args[-1], str) \
                 else kwargs.get("group_name")
-            rep.coll_by_axis[self.axis_of_group.get(group, str(group))] += b
+            rep.coll_by_axis[self._axis(group)] += b
             return
         f = flops_of(func, args, kwargs, out)
         if f:
@@ -164,10 +168,24 @@ class CostCount(TorchDispatchMode):
                            sum(_nbytes(t) for t in _tensors(out)))
 
 
-def group_axes(mesh) -> Dict[str, str]:
-    """c10d group name -> axis name for each dim of ``mesh``."""
+    def _axis(self, group) -> str:
+        import torch.distributed as dist
+        from torch.distributed.distributed_c10d import _resolve_process_group
+        try:
+            ranks = tuple(dist.get_process_group_ranks(
+                _resolve_process_group(group)))
+        except (LookupError, RuntimeError, ValueError):
+            return str(group)
+        return self.axis_of_ranks.get(ranks, str(group))
+
+
+def group_axes(mesh) -> Dict[tuple, str]:
+    """This rank's process group's ranks -> axis name for each dim of
+    ``mesh``."""
+    import torch.distributed as dist
     names = tuple(mesh.mesh_dim_names)
-    return {mesh.get_group(i).group_name: names[i] for i in range(len(names))}
+    return {tuple(dist.get_process_group_ranks(mesh.get_group(i))): names[i]
+            for i in range(len(names))}
 
 
 @contextlib.contextmanager

@@ -9,6 +9,7 @@ code runs under GSPMD.
 
 from __future__ import annotations
 
+import functools
 import sys
 
 import torch
@@ -78,6 +79,111 @@ def take_last(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                                            device=x.device)).sum(-1)
 
 
+def local_along(fn, x: torch.Tensor, dim) -> torch.Tensor:
+    """``fn(x)`` for an op along ``dim`` alone (a pad at its end, a
+    cumulative sum over it). A DTensor runs ``fn`` on this rank's shard
+    with ``dim`` made whole first (a split of it gathered; None: the
+    shard as it is, for an op of each element or each rank) and the
+    other placements kept; the output has those placements and ``dim``
+    as long as ``fn`` made it. The same local op as DTensor's own
+    propagation runs, so the values are the same, but some torch releases
+    (2.11) cannot propagate ``pad`` on a sharded DTensor or ``flip`` (the
+    backward of ``cumsum``), and this runs neither through DTensor."""
+    if not is_dtensor(x):
+        return fn(x)
+    from torch.distributed.tensor import DTensor, Replicate
+    nd, mesh = x.ndim, x.device_mesh
+    dim = None if dim is None else dim % nd
+    pl = tuple(Replicate() if dim is not None and getattr(p, "dim", None)
+               is not None and p.dim % nd == dim else p
+               for p in x.placements)
+    out = fn(x.redistribute(mesh, pl).to_local(grad_placements=pl))
+    shape = list(x.shape)
+    if dim is not None:
+        shape[dim] = out.shape[dim]
+    return DTensor.from_local(out, mesh, pl, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
+
+
+@functools.lru_cache(maxsize=None)
+def propagates(op) -> bool:
+    """True when this torch's DTensor has a sharding strategy of its own
+    for the aten overload ``op`` (torch 2.11 has none for ``index_put``;
+    neither 2.11 nor 2.13 has one for the fp32-output ``bmm``)."""
+    from torch.distributed.tensor import DTensor
+    prop = DTensor._op_dispatcher.sharding_propagator
+    return any(op in getattr(prop, reg, {}) for reg in (
+        "op_strategy_funcs", "op_single_dim_strategy_funcs", "op_to_rules"))
+
+
+def replicated_call(fn, *tensors, needs=None):
+    """``fn(*tensors)`` for a data movement DTensor cannot propagate in
+    some torch releases. ``needs``: the aten ops ``fn`` and its backward
+    run; where DTensor :func:`propagates` all of them, DTensors run ``fn``
+    through DTensor's own propagation. Else (and always without
+    ``needs``) every DTensor operand is gathered whole and ``fn`` runs on
+    the plain tensors on each rank (:func:`local_call` with no operand
+    split), the result a replicated DTensor: each rank then computes the
+    whole gradient, and the operands' gradients leave replicated. Plain
+    operands run ``fn`` as they are."""
+    dts = [t for t in tensors if is_dtensor(t)]
+    if not dts or (needs and all(propagates(op) for op in needs)):
+        return fn(*tensors)
+    n = len(tensors)
+    return local_call(fn, tensors, (False,) * n, False,
+                      dts[0].device_mesh, ())
+
+
+def rows_only(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor with every split of a dim other than 0 gathered (the
+    splits of dim 0 kept, unless it holds one row, which DTensor will not
+    flatten while split), so (B, T, ...) flattens to rows as DTensor
+    allows in every release; a plain tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    pl = tuple(Replicate() if getattr(p, "dim", None) is not None
+               and (p.dim % x.ndim != 0 or x.shape[0] == 1) else p
+               for p in x.placements)
+    return constrain(x, (x.device_mesh, pl))
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """x (n, ...) on each of ``group``'s n ranks: block i goes to rank i,
+    and block i of the result came from rank i. A functional collective
+    (the cost count sees it), differentiable: its backward is the same
+    exchange of the gradient blocks. The MoE's expert regroup: a group's
+    (E, cap, d) buffer cut into n expert blocks becomes this rank's
+    expert block of the n groups, and the same exchange brings the
+    expert outputs back."""
+    import torch.distributed._functional_collectives as funcol
+    y = funcol.all_to_all_single_autograd(x.contiguous(), None, None, group)
+    return funcol.wait_tensor(y)
+
+
+def split_rows(x: torch.Tensor, n: int):
+    """``x`` (B, ...) as ``n`` micro-batches of B / n rows, indexable by
+    micro-batch: ``x.reshape(n, -1, ...)`` for a plain tensor. A DTensor
+    splits each rank's own rows (no data moves): micro-batch i is the
+    i-th block of every rank's local rows, in ``x``'s placements. Raises
+    where a rank's rows do not divide by ``n``."""
+    if not is_dtensor(x):
+        return x.reshape(n, -1, *x.shape[1:])
+    from torch.distributed.tensor import DTensor
+    local = x.to_local()
+    if local.shape[0] % n:
+        raise ValueError(f"{local.shape[0]} local rows (of {x.shape[0]}) "
+                         f"do not split into {n} micro-batches")
+    shape = (x.shape[0] // n,) + tuple(x.shape[1:])
+    stride = torch.empty(shape, device="meta").stride()
+    return [DTensor.from_local(part, x.device_mesh, x.placements,
+                               run_check=False, shape=torch.Size(shape),
+                               stride=stride)
+            for part in local.reshape(n, -1, *local.shape[1:])]
+
+
 def constrain(x: torch.Tensor, layout) -> torch.Tensor:
     """``jax.lax.with_sharding_constraint``'s counterpart: a DTensor
     redistributed to ``layout`` (a ``(mesh, placements)`` pair); a plain
@@ -92,7 +198,9 @@ def constrain(x: torch.Tensor, layout) -> torch.Tensor:
 
 def place_rows(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     """A DTensor with dim 0 split over ``axes`` (major to minor) and whole
-    over the other mesh dims, where the axes divide dim 0; else ``x``."""
+    over the other mesh dims, where the axes divide dim 0; else ``x``.
+    One row (a micro-batch of one sequence) is whole everywhere: DTensor
+    will not flatten a split dim of one row."""
     from torch.distributed.tensor import Replicate, Shard
     names = tuple(mesh.mesh_dim_names)
     n = 1
@@ -100,7 +208,8 @@ def place_rows(x: torch.Tensor, mesh, axes) -> torch.Tensor:
         n *= mesh.size(names.index(a))
     if x.shape[0] % n or x.shape[0] < n:
         return x
-    pl = tuple(Shard(0) if name in axes else Replicate() for name in names)
+    pl = tuple(Shard(0) if name in axes and x.shape[0] > 1 else Replicate()
+               for name in names)
     return constrain(x, (mesh, pl))
 
 
@@ -153,8 +262,9 @@ def layout(mesh, axes, arrays, batched):
 
 
 class _Whole(torch.autograd.Function):
-    """A DTensor operand gathered whole (the local tensor, or a whole
-    DTensor where ``grad_placements`` is None); its gradient, each rank's
+    """A DTensor operand gathered whole, or into another layout of
+    ``placements`` (the local tensor, or the DTensor where
+    ``grad_placements`` is None); its gradient, each rank's
     partial sum, leaves as a DTensor of ``grad_placements`` (``Partial``
     over the split axes), so no reduction runs here: whoever needs it
     reduces it into the layout it needs (the ZeRO shard's

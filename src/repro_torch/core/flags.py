@@ -9,10 +9,10 @@ tree and compared cell-by-cell. The dry-run CLI sets them via
 In the port, ``remat_policy`` is read by the training forward
 (``repro_torch.models.transformer.forward``); ``tune_mode`` and
 ``tune_cache`` by the tuner (``repro_torch.tune``: the GEMM, conv and
-flash wrappers, the serving engine's page size, the CLIs' warm-up); the
-others shape XLA's lowering of the JAX package's steps and have no
-reader here (``moe_grouped_dispatch`` waits for the grouped MoE dispatch,
-ROADMAP A15b).
+flash wrappers, the serving engine's page size, the CLIs' warm-up);
+``moe_grouped_dispatch`` by the MoE layer under a mesh
+(``repro_torch.models.moe._dispatch_grid``); the others shape XLA's
+lowering of the JAX package's steps and have no reader here.
 """
 
 from __future__ import annotations
@@ -81,6 +81,11 @@ def set_flag(name: str, value: Any) -> None:
     if name == "tune_mode" and value not in TUNE_MODES:
         raise ValueError(f"tune_mode must be one of {TUNE_MODES}, got {value!r}")
     _values[name] = value
+
+
+def changed() -> Dict[str, Any]:
+    """The flags set away from their defaults (a dry-run row's record)."""
+    return {k: v for k, v in _values.items() if v != _DEFAULTS[k]}
 
 
 def reset() -> None:

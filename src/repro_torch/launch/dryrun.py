@@ -23,7 +23,13 @@ Usage (CPU):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --multi-pod
 
 Rows go to ``--outdir`` (default ``build/dryrun``, git-ignored), one JSON
-file per cell.
+file per cell, named by ``--variant``; a row records the flags ``--opt``
+set (``opts``). The steps run with their mesh active, so a flag that
+reads it takes effect, e.g. the MoE's grouped dispatch:
+
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch \
+      granite-moe-3b-a800m --shape train_4k --variant grouped \
+      --opt moe_grouped_dispatch=1
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.analysis import cost, roofline
+from repro_torch.core import flags
 from repro_torch.core import tree as tu
 from repro_torch.core.config import GemminiConfig
 from repro_torch.core.context import ExecutionContext
@@ -174,7 +181,7 @@ def run_cell(arch: str, shape: str, multi_pod: bool = False, *,
                                                 spec["seq"])
     row = rl.row()
     row.update(kind=kind, variant=variant, run_s=t_run, smoke=smoke,
-               batch=spec["batch"], seq=spec["seq"],
+               opts=flags.changed(), batch=spec["batch"], seq=spec["seq"],
                coll_counts=dict(counter.report.coll_counts),
                argument_bytes=arg_bytes, output_bytes=out_bytes)
     if verbose:
@@ -219,7 +226,6 @@ def main(argv=None):
     if not args.all and not args.arch:
         ap.error("--arch or --all")
 
-    from repro_torch.core import flags
     for spec in args.opt:
         flags.parse_opt(spec)
 

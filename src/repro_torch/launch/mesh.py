@@ -2,7 +2,10 @@
 
 Single pod: (data=16, model=16) = 256 devices. Multi-pod: (pod=2, data=16,
 model=16) = 512 devices; the ``pod`` axis extends the data-parallel
-domain across the boundary between nodes.
+domain across the boundary between nodes. A pipeline adds a ``stage``
+axis (``("stage",)`` or ``("stage", "data", "model")``;
+``launch.pipeline``), which the helpers below leave out of the data
+domain.
 
 :func:`make_production_mesh` is a function, never a module constant:
 importing this module touches no process group. A mesh is a
@@ -104,9 +107,12 @@ def _mesh(mesh):
 
 def data_axes(mesh=None) -> tuple:
     """The axes forming the data-parallel domain (of the active mesh when
-    ``mesh`` is None)."""
-    return ("pod", "data") if "pod" in axis_names(_mesh(mesh)) \
-        else ("data",)
+    ``mesh`` is None): ``pod`` and ``data``, those the mesh has (none on
+    a ``("stage",)`` mesh)."""
+    names = axis_names(_mesh(mesh))
+    if "pod" in names:
+        return ("pod", "data")
+    return ("data",) if "data" in names else ()
 
 
 def dp_size(mesh=None) -> int:
@@ -114,4 +120,6 @@ def dp_size(mesh=None) -> int:
 
 
 def tp_size(mesh=None) -> int:
-    return axis_size(_mesh(mesh), "model")
+    """Devices along ``model`` (1 on a mesh without that axis)."""
+    mesh = _mesh(mesh)
+    return axis_size(mesh, "model") if "model" in axis_names(mesh) else 1

@@ -19,7 +19,13 @@ local tensors through the sharded context (``ctx.with_mesh``;
 data-parallel partial sum; the train step reduce-scatters it into the
 ZeRO-1 layout of AdamW's m and v (``opt_state_specs``), updates that
 shard, and all-gathers the new parameters into their own layout.
-Micro-batches (``grad_accum`` > 1) are one device's only.
+With ``grad_accum`` > 1 under a mesh each rank splits its own
+rows (``core.dtensor.split_rows``): micro-batch i holds the i-th block
+of every data shard's rows, so no data moves. The JAX step splits the
+global rows instead; the mean loss and the mean gradient over the
+micro-batches are the same function of the batch either way (each
+micro-batch's loss is a mean over as many rows), and on one data shard
+the two splits are the same.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import torch
 
 from repro_torch.core import dtensor as shard
 from repro_torch.core import tree as tu
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import sharding as shd
 from repro_torch.models import transformer as tf
 from repro_torch.optim import adamw
@@ -87,11 +94,16 @@ def _residual_len(cfg: tf.ModelConfig, batch: Dict[str, Any]) -> int:
 
 def _mesh_scope(mesh):
     """Plain tensors the model makes (positions, masks) count as
-    replicated next to DTensors."""
-    if mesh is None:
-        return contextlib.nullcontext()
-    from torch.distributed.tensor.experimental import implicit_replication
-    return implicit_replication()
+    replicated next to DTensors, and ``mesh`` is the current one
+    (``launch.mesh.current_mesh``, which the MoE's grouped dispatch
+    reads)."""
+    stack = contextlib.ExitStack()
+    if mesh is not None:
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        stack.enter_context(implicit_replication())
+        stack.enter_context(mesh_lib.activate_mesh(mesh))
+    return stack
 
 
 def loss_and_grads(ctx, cfg: tf.ModelConfig, params, batch: Dict[str, Any],
@@ -100,8 +112,10 @@ def loss_and_grads(ctx, cfg: tf.ModelConfig, params, batch: Dict[str, Any],
     """(loss, gradient tree) of ``transformer.loss_fn`` over ``batch``
     (``tokens``, ``labels`` and, for a VLM, ``extra_embeds``). One batch:
     gradients in each parameter's dtype; micro-batches: fp32 sums divided
-    by ``grad_accum``, as the JAX step's accumulation. ``fwd_kw``: the
-    forward's sharding constraints (:func:`layouts`)."""
+    by ``grad_accum``, as the JAX step's accumulation (DTensors: each
+    rank's own rows split, module docstring; the sums kept in each
+    gradient's layout). ``fwd_kw``: the forward's sharding constraints
+    (:func:`layouts`, at one micro-batch's rows)."""
     leaves = [p.detach().requires_grad_(True) for p in tu.leaves(params)]
     p = tu.unflatten(params, leaves)
     tokens, labels = batch["tokens"], batch["labels"]
@@ -115,14 +129,14 @@ def loss_and_grads(ctx, cfg: tf.ModelConfig, params, batch: Dict[str, Any],
         loss, grads = one(tokens, labels, extra)
         return loss, tu.unflatten(params, list(grads))
 
-    def split(x):
-        return None if x is None else x.reshape(grad_accum, -1, *x.shape[1:])
-    tot = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    acc = [torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-           for x in leaves]
-    mbs = [split(x) for x in (tokens, labels, extra)]
+    mbs = [None if x is None else shard.split_rows(x, grad_accum)
+           for x in (tokens, labels, extra)]
+    tot = acc = None
     for i in range(grad_accum):
         lv, gi = one(*(None if m is None else m[i] for m in mbs))
+        if acc is None:             # zeros in each sum's own layout
+            tot = torch.zeros_like(lv, dtype=torch.float32)
+            acc = [torch.zeros_like(g, dtype=torch.float32) for g in gi]
         tot = tot + lv
         acc = [a + g for a, g in zip(acc, gi)]
     return tot / grad_accum, tu.unflatten(params,
@@ -140,13 +154,11 @@ def make_train_step(ctx, cfg: tf.ModelConfig, opt_cfg: adamw.AdamWConfig,
     does. ``mesh``: the state and batch are DTensors on it (module
     docstring; ``ctx`` is the caller's, sharded by ``with_mesh`` or, for
     the dry run, not)."""
-    if mesh is not None and grad_accum != 1:
-        raise NotImplementedError("micro-batches under a mesh are not "
-                                  "ported; pass grad_accum=1")
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         with _mesh_scope(mesh):
-            fwd_kw = layouts(cfg, mesh, batch["tokens"].shape[0],
+            fwd_kw = layouts(cfg, mesh,
+                             batch["tokens"].shape[0] // grad_accum,
                              _residual_len(cfg, batch))
             loss, grads = loss_and_grads(ctx, cfg, state.params, batch,
                                          grad_accum=grad_accum, **fwd_kw)

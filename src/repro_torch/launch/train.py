@@ -25,11 +25,12 @@ the default process group comes up (NCCL on the card, gloo under
 size, the state is initialized (or restored, onto this mesh whatever mesh
 saved it) in its ``param_specs`` / ZeRO-1 layout, each rank generates only
 its batch rows (``make_global_batch``), and the engine context hands each
-kernel its local shard; the tuner warms the per-device shapes. On the
-card, one process per card:
+kernel its local shard; the tuner warms the per-device shapes.
+``--grad-accum M`` splits each rank's rows into M micro-batches
+(``launch.steps``). On the card, one process per card:
 
   torchrun --nproc-per-node 1 -m repro_torch.launch.train --arch \
-      gemma3-1b --tp 1 --steps 4 --batch 4 --seq 1024
+      gemma3-1b --tp 1 --grad-accum 4 --steps 4 --batch 4 --seq 1024
 
 The JAX launcher's ``--xla-lhs`` only sets XLA's scheduler flags and has
 no counterpart.
@@ -146,12 +147,14 @@ def train_once(args, model_cfg, pods: int, armed: dict) -> RunResult:
         mesh, batch, 3 if model_cfg.n_codebooks > 1 else 2)
 
     if flags.get("tune_mode") != "off":
-        # Warm every GEMM shape a train step runs at the per-device batch
-        # (the data axes split it). No attention: the step trains through
-        # the model function, never the flash kernel.
+        # Warm every GEMM shape a train step runs at the per-device
+        # micro-batch (the data axes split the batch, --grad-accum each
+        # rank's rows). No attention: the step trains through the model
+        # function, never the flash kernel.
         from repro_torch import tune
         stats = tune.warm_model_plans(
-            _engine_cfg(), model_cfg, batch, seq, include_decode=False,
+            _engine_cfg(), model_cfg, batch // args.grad_accum, seq,
+            include_decode=False,
             include_attention=False, n_shards=engine.n_shards,
             device=device)
         _log(f"[train] plan warmup ({flags.get('tune_mode')}, "

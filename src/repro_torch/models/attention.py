@@ -18,6 +18,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.core import dtensor as shard
+
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 
@@ -74,8 +76,10 @@ def blockwise_attention(q, k, v, *, causal: bool = True,
     nb = -(-tk // block_k)
     pad = nb * block_k - tk
     if pad:
-        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
-        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        def pad_keys(t):
+            return torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+        k = shard.local_along(pad_keys, k, 1)
+        v = shard.local_along(pad_keys, v, 1)
 
     qf = q.to(torch.float32) * sc
     qpos = torch.arange(tq, device=dev) + q_offset

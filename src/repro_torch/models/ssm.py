@@ -17,6 +17,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import dtensor as shard
 from repro_torch.models import layers
 
 Params = Dict[str, Any]
@@ -90,10 +91,10 @@ def ssd_chunked(x, dt, a_log, b, c, *, d_skip=None, chunk: int = 256,
     xf, dtf = x.to(f32), dt.to(f32)
     bf, cf = b.to(f32), c.to(f32)
     if pad:
-        xf = torch.nn.functional.pad(xf, (0, 0, 0, 0, 0, pad))
-        dtf = torch.nn.functional.pad(dtf, (0, 0, 0, pad))
-        bf = torch.nn.functional.pad(bf, (0, 0, 0, 0, 0, pad))
-        cf = torch.nn.functional.pad(cf, (0, 0, 0, 0, 0, pad))
+        def pad_time(v):
+            return F.pad(v, (0, 0) * (v.ndim - 2) + (0, pad))
+        xf, dtf, bf, cf = (shard.local_along(pad_time, v, 1)
+                           for v in (xf, dtf, bf, cf))
     tt = t + pad
     nc = tt // q
 
@@ -103,7 +104,8 @@ def ssd_chunked(x, dt, a_log, b, c, *, d_skip=None, chunk: int = 256,
     bf = bf.reshape(bsz, nc, q, g, n).repeat_interleave(hpg, dim=3)
     cf = cf.reshape(bsz, nc, q, g, n).repeat_interleave(hpg, dim=3)
 
-    seg = torch.cumsum(dtf * a, dim=2)                         # inclusive
+    seg = shard.local_along(lambda v: torch.cumsum(v, dim=2), dtf * a,
+                            2)                                 # inclusive
     # L[i, j] = exp(seg_i - seg_j) for i >= j: masked BEFORE exp, so the
     # i < j branch (a positive exponent) never overflows.
     li = seg[:, :, :, None, :] - seg[:, :, None, :, :]         # (B,nc,Qi,Qj,H)

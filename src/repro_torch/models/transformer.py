@@ -30,6 +30,7 @@ import torch.utils.checkpoint
 
 from repro_torch.core import dtensor as shard
 from repro_torch.core import flags
+from repro_torch.core import tree as tu
 from repro_torch.kernels import gemm as gemm_kernel
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, moe, ssm
@@ -504,9 +505,9 @@ def unembed(ctx, cfg: ModelConfig, params: Params,
 # ---------------------------------------------------------------------------
 # full forward (train / prefill) and the loss
 # ---------------------------------------------------------------------------
-def _unbound_blocks(params: Params, n_layers: int):
-    """Per-layer block trees from one ``unbind`` of each stacked leaf.
-    Autograd then stacks the layers' gradients once per leaf
+def _unbound_blocks(blocks: Params, n_layers: int):
+    """Per-layer block trees from one ``unbind`` of each stacked leaf of
+    ``blocks``. Autograd then stacks the layers' gradients once per leaf
     (``UnbindBackward``), where a ``select`` per layer would write each
     layer's gradient into a zeroed copy of the whole stack."""
     def split(node):
@@ -518,8 +519,36 @@ def _unbound_blocks(params: Params, n_layers: int):
         if isinstance(node, dict):
             return {k: take(v, i) for k, v in node.items()}
         return node[i]
-    parts = split(params["blocks"])
+    parts = split(blocks)
     return [take(parts, i) for i in range(n_layers)]
+
+
+def apply_blocks(ctx, cfg: ModelConfig, blocks: Params, h: torch.Tensor,
+                 positions: torch.Tensor, *, first: int = 0,
+                 remat: bool = False, residual_sharding=None
+                 ) -> torch.Tensor:
+    """The residual ``h`` through the stacked ``blocks`` (a leading axis of
+    n layers), which are the model's layers ``first`` .. ``first + n - 1``:
+    each layer's static window and rope base are those of its index in
+    the whole model (gemma3's local / global pattern), so a pipeline stage
+    holding layers 13-25 runs them as :func:`forward` does. ``remat`` and
+    ``residual_sharding`` as in :func:`forward`."""
+    n = tu.leaves(blocks)[0].shape[0]
+    win, bases = layer_windows(cfg), layer_rope_bases(cfg)
+    policy = flags.get("remat_policy") if remat else "none"
+    ckpt_kw = dict(use_reentrant=False)
+    if policy == "dots":
+        ckpt_kw["context_fn"] = gemm_kernel.gemm_tape
+    for i, bp in enumerate(_unbound_blocks(blocks, n), start=first):
+        def body(h, bp=bp, window=int(win[i]), base=float(bases[i])):
+            return shard.constrain(
+                _block_apply(ctx, cfg, bp, h, positions, window, base)[0],
+                residual_sharding)
+        if policy == "none":
+            h = body(h)
+        else:
+            h = torch.utils.checkpoint.checkpoint(body, h, **ckpt_kw)
+    return h
 
 
 def forward(ctx, params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -550,24 +579,16 @@ def forward(ctx, params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     forward's sharding constraints); None leaves them as they come."""
     _require_ported(cfg)
     h = embed_inputs(cfg, params, tokens, extra_embeds)
-    b, t, _ = h.shape
-    positions = torch.arange(t, device=h.device)[None].expand(b, t)
-    win, bases = layer_windows(cfg), layer_rope_bases(cfg)
-    policy = flags.get("remat_policy") if remat else "none"
     h = shard.constrain(h, residual_sharding)
-    ckpt_kw = dict(use_reentrant=False)
-    if policy == "dots":
-        ckpt_kw["context_fn"] = gemm_kernel.gemm_tape
-    for i, bp in enumerate(_unbound_blocks(params, cfg.n_layers)):
-        def body(h, bp=bp, window=int(win[i]), base=float(bases[i])):
-            return shard.constrain(
-                _block_apply(ctx, cfg, bp, h, positions, window, base)[0],
-                residual_sharding)
-        if policy == "none":
-            h = body(h)
-        else:
-            h = torch.utils.checkpoint.checkpoint(body, h, **ckpt_kw)
+    h = apply_blocks(ctx, cfg, params["blocks"], h, positions_of(h),
+                     remat=remat, residual_sharding=residual_sharding)
     return shard.constrain(unembed(ctx, cfg, params, h), logits_sharding)
+
+
+def positions_of(h: torch.Tensor) -> torch.Tensor:
+    """(B, T) positions 0 .. T-1 of a (B, T, D) residual."""
+    b, t = h.shape[0], h.shape[1]
+    return torch.arange(t, device=h.device)[None].expand(b, t)
 
 
 def loss_fn(ctx, params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -577,8 +598,16 @@ def loss_fn(ctx, params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     The prefix and meta positions carry no loss; with codebooks the loss
     averages over every codebook's targets."""
     logits = forward(ctx, params, cfg, tokens, extra_embeds, **fwd_kw)
-    if extra_embeds is not None:       # prefix positions carry no loss
-        logits = logits[:, extra_embeds.shape[1]:]
+    return loss_from_logits(cfg, logits, labels, 0 if extra_embeds is None
+                            else extra_embeds.shape[1])
+
+
+def loss_from_logits(cfg: ModelConfig, logits: torch.Tensor,
+                     labels: torch.Tensor, n_prefix: int = 0) -> torch.Tensor:
+    """:func:`loss_fn`'s cross-entropy from the forward's fp32 logits,
+    ``n_prefix`` prefix positions (the VLM's patch embeddings) first."""
+    if n_prefix:                       # prefix positions carry no loss
+        logits = logits[:, n_prefix:]
     if cfg.n_meta_tokens:
         logits = logits[:, cfg.n_meta_tokens:]
     logits = logits[:, :-1]            # (B, T-1, V) or (B, T-1, n_q, V)

@@ -2062,6 +2062,33 @@ def test_moe_apply_on_card(card, top_k, shared):
     assert ((g - w).norm() / w.norm()).item() <= 2.0 ** -7
 
 
+def test_moe_expert_products_backward_on_card(card):
+    """The expert products' fp32-output ``bmm`` of bf16 operands
+    (``moe._bmm_f32``), which has no derivative of its own: both
+    gradients bit for bit the route autograd takes with the operands
+    widened to fp32 (the CPU's), at granite's widths (48 slots, 37 rows,
+    d 1536, d_ff 512). The forward sums the same exact bf16 products in
+    fp32 in another order (tensor cores against CUDA cores): within 4
+    sqrt(K) fp32 ulps relative L2, the size of two summation orders'
+    gap over K = 1536 terms."""
+    from repro_torch.models import moe
+
+    gen = torch.Generator(device=card).manual_seed(29)
+    a = torch.randn((48, 37, 1536), generator=gen, device=card).to(
+        torch.bfloat16).requires_grad_(True)
+    b = (torch.randn((48, 1536, 512), generator=gen, device=card) *
+         1536 ** -0.5).to(torch.bfloat16).requires_grad_(True)
+    g = torch.randn((48, 37, 512), generator=gen, device=card)
+    got = moe._bmm_f32(a, b)
+    ga, gb = torch.autograd.grad(got, (a, b), g)
+    want = torch.bmm(a.to(torch.float32), b.to(torch.float32))
+    wa, wb = torch.autograd.grad(want, (a, b), g)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert ((got - want).norm() / want.norm()).item() <= \
+        4 * 1536 ** 0.5 * 2.0 ** -24
+    assert torch.equal(ga, wa) and torch.equal(gb, wb)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("m,k,n,b_trans", [(37, 45, 29, False),
                                            (37, 45, 29, True),

@@ -78,6 +78,21 @@ def test_all_reduce_counted_twice():
     assert rep.coll_counts == {"all-reduce": 1, "all-gather": 1}
 
 
+def test_collectives_named_by_ranks_not_group_name():
+    """A collective on the group of another mesh of the same layout (as
+    DTensor issues when it reuses a plan cached for an earlier mesh) is
+    kept under the axis its ranks span, not the group's name."""
+    import torch.distributed._functional_collectives as funcol
+    first = dryrun.fake_mesh((2, 4), ("data", "model"))
+    mesh = dryrun.fake_mesh((2, 4), ("data", "model"))
+    assert first.get_group(1).group_name != mesh.get_group(1).group_name
+    x = torch.randn(1000)
+    with cost.count(mesh) as c:
+        funcol.wait_tensor(funcol.all_gather_tensor(x, 0, (first, 1)))
+        funcol.wait_tensor(funcol.all_gather_tensor(x, 0, (first, 0)))
+    assert c.report.coll_by_axis == {"model": 4 * 4000, "data": 2 * 4000}
+
+
 def test_dtensor_matmul_counts_one_device():
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
@@ -143,6 +158,7 @@ def test_save_row(mini_rows, tmp_path):
     dryrun.save_row(row, str(tmp_path))
     path = tmp_path / "baseline_gemma3-1b_decode_32k_2x4.json"
     assert json.loads(path.read_text())["flops"] == row["flops"]
+    assert row["opts"] == {}          # no flag set away from its default
 
 
 @pytest.mark.parametrize("arch,shape", [("mamba2-1.3b", "train_4k"),
@@ -159,3 +175,90 @@ def test_mini_dry_run_recurrent_and_moe(arch, shape):
     assert 0 < row["flops"] <= one["flops"] <= row["flops"] * 8
     assert row["coll_bytes"] > 0 and one["coll_bytes"] == 0
     assert row["logical_flops"] == pytest.approx(one["flops"], rel=1e-9)
+
+
+def _moe_layer_collectives(grouped: bool):
+    """The collectives of smoke granite-moe-3b-a800m's MoE layer (8 x 64
+    tokens, the residual layout; bf16) on fake DTensors on a fake (2, 4)
+    mesh, forward and backward apart."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch import configs
+    from repro_torch.core import flags
+    from repro_torch.core import tree as tu
+    from repro_torch.core.config import GemminiConfig
+    from repro_torch.core.context import ExecutionContext
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import moe
+    cfg = configs.get_smoke("granite-moe-3b-a800m")
+    mesh = dryrun.fake_mesh((2, 4), ("data", "model"))
+    ctx = ExecutionContext(cfg=GemminiConfig(
+        input_dtype="bf16", acc_dtype="fp32", output_dtype="bf16"))
+    flags.set_flag("moe_grouped_dispatch", int(grouped))
+    try:
+        with FakeTensorMode():
+            p = {"moe": moe.moe_init(torch.Generator(), cfg.d_model,
+                                     cfg.moe_d_ff, cfg.n_experts,
+                                     ep=cfg.expert_padding, dtype=cfg.dtype)}
+            p = shd.distribute_tree(p, shd.param_specs(p, mesh), mesh)
+            for leaf in tu.leaves(p):
+                leaf.requires_grad_(True)
+            x = shd.distribute(torch.empty((8, 64, cfg.d_model),
+                                           dtype=cfg.dtype),
+                               shd.P("data", "model", None), mesh)
+            x.requires_grad_(True)
+            with implicit_replication(), mesh_lib.activate_mesh(mesh), \
+                    dryrun._strided_shards_on_fake_tensors():
+                with cost.count(mesh) as fwd:
+                    y = moe.moe_apply(
+                        ctx, p["moe"], x, n_experts=cfg.n_experts,
+                        top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
+                with cost.count(mesh) as bwd:
+                    y.to(torch.float32).sum().backward()
+    finally:
+        flags.reset()
+    return cfg, fwd.report, bwd.report
+
+
+def test_grouped_dispatch_moves_only_the_regroup():
+    """With ``moe_grouped_dispatch`` on, the dispatch's cumsum, scatter and
+    combine run on each rank's group with no collective: the forward
+    gathers the fp32 router (d x E x 4 bytes, over ``model``) and makes
+    the regroup's two all-to-alls over ``model``; the backward makes the
+    two all-to-alls and nothing else. Ungrouped, DTensor gathers the
+    dispatch's tensors, more than four times the bytes."""
+    cfg, fwd, bwd = _moe_layer_collectives(True)
+    router = cfg.d_model * cfg.n_experts * 4
+    assert dict(fwd.coll_counts) == {"all-gather": 1, "all-to-all": 2}
+    assert fwd.coll_breakdown["all-gather"] == router
+    assert dict(bwd.coll_counts) == {"all-to-all": 2}
+    assert set(fwd.coll_by_axis) == set(bwd.coll_by_axis) == {"model"}
+    _, ufwd, ubwd = _moe_layer_collectives(False)
+    assert set(ufwd.coll_by_axis) == set(ubwd.coll_by_axis) == \
+        {"data", "model"}
+    assert ufwd.coll_bytes + ubwd.coll_bytes > \
+        4 * (fwd.coll_bytes + bwd.coll_bytes)
+
+
+
+@pytest.mark.parametrize("propagated", [True, False])
+def test_replicated_call_route(monkeypatch, propagated):
+    """``core.dtensor.replicated_call`` runs ``fn`` on the DTensors where
+    DTensor propagates every op it ``needs``, else on whole plain operands
+    (always without ``needs``); the result is a DTensor either way."""
+    from repro_torch.core import dtensor as shard
+    from repro_torch.launch import sharding as shd
+    assert shard.propagates(torch.ops.aten.mm.default)
+    mesh = dryrun.fake_mesh((2, 4), ("data", "model"))
+    x = shd.distribute(torch.randn(8, 4), shd.P("data", None), mesh)
+    monkeypatch.setattr(shard, "propagates", lambda op: propagated)
+    seen = []
+
+    def fn(t):
+        seen.append(shard.is_dtensor(t))
+        return t * 2
+    assert shard.is_dtensor(shard.replicated_call(
+        fn, x, needs=(torch.ops.aten.mul.Tensor,)))
+    assert shard.is_dtensor(shard.replicated_call(fn, x))
+    assert seen == [propagated, False]

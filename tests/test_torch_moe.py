@@ -212,3 +212,69 @@ def test_moe_init_tree_matches_jax():
                             dtype=torch.bfloat16)
     assert stacked["wi"].shape[0] == 3 == stacked["shared"]["wo"].shape[0]
     assert shapes(stacked, (3,)) == ref
+
+
+class _Mesh:
+    """A shape-only mesh stand-in (``launch.mesh`` reads its axis sizes
+    and names)."""
+
+    def __init__(self, **shape):
+        self.shape = dict(shape)
+        self.axis_names = tuple(shape)
+
+
+@pytest.mark.parametrize("flag,mesh,b,t,want", [
+    (0, _Mesh(data=2, model=2), 4, 16, (1, None)),      # flag off
+    (1, None, 4, 16, (1, None)),                         # no mesh
+    (1, _Mesh(stage=2, data=2), 4, 16, (1, None)),       # no model axis
+    (1, _Mesh(data=2, model=4), 3, 16, (1, None)),       # B does not divide
+    (1, _Mesh(data=2, model=4), 4, 6, (1, None)),        # T does not divide
+    (1, _Mesh(data=2, model=4), 4, 16, (8, (2, 4))),
+    (1, _Mesh(pod=2, data=2, model=2), 4, 16, (8, (4, 2))),
+], ids=["flag-off", "no-mesh", "no-model-axis", "b-indivisible",
+        "t-indivisible", "data-model", "pod-data-model"])
+def test_dispatch_grid(flag, mesh, b, t, want):
+    """``_dispatch_grid`` as the JAX function: (1, None) when the flag is
+    off, no mesh is active, the mesh has no ``model`` axis or the shapes
+    do not divide; else (gb x gt, (gb, gt)) with gb = pod x data."""
+    import contextlib
+    from repro_torch.core import flags
+    from repro_torch.launch import mesh as mesh_lib
+    scope = mesh_lib.activate_mesh(mesh) if mesh is not None \
+        else contextlib.nullcontext()
+    flags.set_flag("moe_grouped_dispatch", flag)
+    try:
+        with scope:
+            assert tmoe._dispatch_grid(b, t) == want
+    finally:
+        flags.reset()
+
+
+def test_grouped_dispatch_is_the_layer_per_group():
+    """Plain tensors under a (2, 4) grid: the grouped layer equals the
+    ungrouped layer applied to each group's tokens apart (B split over
+    data, T over model; each group's own capacity, here small enough to
+    drop tokens), fp32 within 1e-6 of the largest magnitude, and the
+    drops make it differ from one global group."""
+    from repro_torch.core import flags
+    from repro_torch.launch import mesh as mesh_lib
+    gen = torch.Generator().manual_seed(3)
+    p = tmoe.moe_init(gen, D, D_FF, 4, dtype=torch.float32)
+    x = torch.randn((4, 16, D), generator=gen)
+    kw = dict(n_experts=4, top_k=2, capacity_factor=0.5)
+    ctx = ExecutionContext(cfg=GemminiConfig(input_dtype="fp32",
+                                             acc_dtype="fp32",
+                                             output_dtype="fp32"))
+    flags.set_flag("moe_grouped_dispatch", 1)
+    try:
+        with mesh_lib.activate_mesh(_Mesh(data=2, model=4)):
+            got = tmoe.moe_apply(ctx, p, x, **kw)
+    finally:
+        flags.reset()
+    want = torch.cat([torch.cat([tmoe.moe_apply(
+        ctx, p, x[i * 2:(i + 1) * 2, j * 4:(j + 1) * 4], **kw)
+        for j in range(4)], dim=1) for i in range(2)], dim=0)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-6 * scale
+    assert float((got - tmoe.moe_apply(ctx, p, x, **kw)).abs().max()) > \
+        1e-3 * scale
