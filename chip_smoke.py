@@ -240,9 +240,25 @@ unsharded ``grad_accum`` steps; and gemma3-1b's 26 blocks through
 ``pipeline_loss_fn`` at S = 1 on a ``("stage",)`` mesh, 4 micro-batches
 of 1 x 1024, bit for bit the blocks applied micro-batch by micro-batch;
 the GEMM launches equal each way.
+Phase 20 is the remaining datapaths, each run's launch counts zeroed just
+before it and read just after: (a) gemma3-1b at fp16 (the model dtype and
+the fp16 engine config, published widths, seed 0) on phase 4's traffic,
+every request finished, tokens/s, TTFT and ITL beside the card's name
+and power limit, phase 4b's two steps profiled, a fresh prefill's logits
+held by ``hold_bf16`` at fp16; one static-path request as phase 10's
+(``decode_attention[fp16]`` every step of every layer); hymba-1.5b at
+fp16 on phase 8's 700 + 200 tokens, held the same way (an arch whose
+CPU fp16 logits are not finite is logged as not servable in fp16 and
+fails nothing); (b) every (input, accumulator, output) combination JAX
+accepts on the quickstart GEMM (OS == WS), ``accumulator_epilogue`` on
+every pair at (1000, 512) and (999, 513), ``conv2d_implicit`` at stage
+1's 3x3, and ResNet-50's stream on the int32 -> int32 -> int32 and bf16
+-> bf16 -> bf16 instances on all three routes, each against the plain
+version (``hold_any``); then a combination of each mechanism timed.
 ``python3 chip_smoke.py --phase 17`` runs phases 1, 2 and 17 alone (a
 quicker check of the contracts on a card), ``--phase 18`` phases 1, 2 and
-18, ``--phase 19`` phases 1, 2 and 19; with no argument every phase runs.
+18, ``--phase 19`` phases 1, 2 and 19, ``--phase 20`` phases 1, 2 and 20;
+with no argument every phase runs.
 
 Every main path's launch counts are zeroed
 just before it and read just after; the kernels line takes each kernel's
@@ -275,7 +291,7 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 # The input dtype of each check kind, whose peak rate bounds it
 # (``repro_torch.analysis.roofline``; "int" is the int8 datapath).
 KIND_DTYPE = {"bf16": "bfloat16", "fp16": "float16", "fp32": "float32",
-              "int": "int8", "int16": "int16"}
+              "int": "int8", "int16": "int16", "int32": "int32"}
 REPS = 25
 
 # Full-width logits, card against the CPU plain path: fp32 by ``hold_fp32``
@@ -287,6 +303,10 @@ REPS = 25
 FP32_FACTOR = 4.0
 FP32_PERTURB_SEED = 7
 BF16_FACTOR = 2.0
+# Phase 20: the fp16 model's engine config, and the prompt length of its
+# full-width 16-bit logits hold (the CPU's fp16 plain path runs it too).
+F16_ENGINE = dict(input_dtype="fp16", acc_dtype="fp32", output_dtype="fp16")
+F16_HOLD_TOKENS = 32
 
 # Phase 10's static path: one gemma3-1b request, a prompt long enough that
 # the 512-token window drops keys, then greedy decode steps.
@@ -380,7 +400,7 @@ def check_close(torch, name, got, want, kind):
     magnitude is the largest finite one. fp32: 1e-5 relative plus 1e-6 of
     the largest magnitude (sum order). int, int16: bit-exact, same dtype
     (the int32 sum is exact in any order)."""
-    if kind in ("int", "int16"):
+    if kind in ("int", "int16", "int32"):
         if got.dtype != want.dtype or got.shape != want.shape:
             fail(f"{name}: {got.dtype} {tuple(got.shape)} != {want.dtype} "
                  f"{tuple(want.shape)}")
@@ -685,7 +705,9 @@ def kernel_cases(torch, rng_seed=0):
     cfg = configs.get("gemma3-1b")
     d, hd, nh, nkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     gen = torch.Generator(device="cuda").manual_seed(rng_seed)
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16, f32, f16 = torch.bfloat16, torch.float32, torch.float16
+    KIND_OF = {bf16: "bf16", f32: "fp32", f16: "fp16"}
+    F16_SUFFIX = {f16: "[fp16]"}
 
     def randn(*shape, dtype=bf16, scale=1.0):
         return (torch.randn(shape, generator=gen, device="cuda") * scale
@@ -778,13 +800,13 @@ def kernel_cases(torch, rng_seed=0):
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 attn_mask=band, is_causal=band is None, enable_gqa=True)
         lib = library if softcap is None and t_q == t_k else None
-        kind = "fp32" if dtype == f32 else "bf16"
-        if dtype == bf16:
+        kind = KIND_OF[dtype]
+        if dtype != f32:
             cl, blocks = flash_grid(t_q, t_k, h, dh, window)
             grid = f"{blocks} blocks, clusters of {cl}"
         else:
             grid = f32_grid(t_q, t_k, h, kvh, dh, True, window)
-        cases.append(("flash_attention",
+        cases.append(("flash_attention" + F16_SUFFIX.get(dtype, ""),
                       f"{kind} Tq={t_q} Tk={t_k} H={h} KVH={kvh} D={dh} "
                       f"window={window} softcap={softcap}", rep, kind,
                       lambda: ka.flash_attention(q, k, v, **kw),
@@ -792,6 +814,11 @@ def kernel_cases(torch, rng_seed=0):
                       nbytes, 4.0 * dh * h * pairs, dict(grid=grid)))
     flash_case(256, 256, nh, nkv, hd, None, None, True)
     flash_case(256, 256, nh, nkv, hd, cfg.local_window, None, False)
+    # fp16 (phase 20's model) at the bf16 rows' shapes, SDPA fp16 beside
+    flash_case(256, 256, nh, nkv, hd, None, None, True, dtype=f16)
+    flash_case(256, 256, nh, nkv, hd, cfg.local_window, None, False,
+               dtype=f16)
+    flash_stress_case(torch, randn, cases, nh, nkv, hd)
     flash_case(64, 64, nh, nkv, hd, None, None, False)
     flash_case(64, 64, nh, nkv, hd, cfg.local_window, None, False)
     flash_case(100, 200, 8, 2, 128, 64, 50.0, False)
@@ -836,7 +863,7 @@ def kernel_cases(torch, rng_seed=0):
         pairs = sum(min(start + i + 1, window or 1 << 30) for i in range(t))
         live = start + t if window is None else min(start + t,
                                                     window - 1 + t)
-        kind = "fp32" if dtype == f32 else "bf16"
+        kind = KIND_OF[dtype]
         nbytes = q.element_size() * (2 * t * h * dh + 2 * live * kvh * dh) \
             + 4 * kv_pages
         # the dense flash kernel on the same keys gathered beforehand: what
@@ -844,12 +871,12 @@ def kernel_cases(torch, rng_seed=0):
         kg_, vg_ = (ka._gather(x, table[None])[:, :start + t].contiguous()
                     for x in (kp, vp))
         opts = dict(dense=lambda: ka.flash_attention(q, kg_, vg_, **kw))
-        if dtype == bf16:
+        if dtype != f32:
             cl, blocks = flash_grid(t, start + t, h, dh, window)
             opts["grid"] = f"{blocks} blocks, clusters of {cl}"
         else:
             opts["grid"] = f32_grid(t, start + t, h, kvh, dh, True, window)
-        cases.append(("paged_prefill_attention",
+        cases.append(("paged_prefill_attention" + F16_SUFFIX.get(dtype, ""),
                       f"{'fp32 ' if dtype == f32 else ''}T={t} start={start} "
                       f"H={h} KVH={kvh} D={dh} kv_pages={kv_pages} "
                       f"window={window} softcap={softcap}", rep, kind,
@@ -863,6 +890,8 @@ def kernel_cases(torch, rng_seed=0):
                      start == 768)
         prefill_case(256, start, nh, nkv, hd, 64, 128, 16, cfg.local_window,
                      None, False)
+    prefill_case(256, 768, nh, nkv, hd, 64, 128, 16, None, None, True,
+                 dtype=f16)
     prefill_case(64, 256, nh, nkv, hd, 64, 128, 5, None, None, False)
     prefill_case(50, 37, 8, 2, 128, 16, 40, 6, 24, 50.0, False)
     # hymba-1.5b's continuation chunk as phase 8's profile runs it: T=256 at
@@ -902,14 +931,14 @@ def kernel_cases(torch, rng_seed=0):
         live = sum(min(n, window or 1 << 30) for n in lengths)
         nbytes = (q.element_size() * (2 * s * h * dh + 2 * live * kvh * dh)
                   + 4 * s * (mp + 1))
-        kind = "fp32" if dtype == f32 else "bf16"
+        kind = KIND_OF[dtype]
         splits, groups, _, split, _ = ka.paged_decode_plan(s, mp, page, h,
                                                            kvh, dh, window)
         first = [(max(0, n - window) if window else 0) // split
                  for n in lengths]
         busy = sum(-(-n // split) - f if n else 1
                    for n, f in zip(lengths, first)) * (groups // s)
-        cases.append(("paged_decode_attention",
+        cases.append(("paged_decode_attention" + F16_SUFFIX.get(dtype, ""),
                       f"{'fp32 ' if dtype == f32 else ''}S={s} "
                       f"lengths={lengths} H={h} KVH={kvh} D={dh} "
                       f"window={window} softcap={softcap}", rep, kind,
@@ -922,6 +951,8 @@ def kernel_cases(torch, rng_seed=0):
                            f"of {split} keys x {groups}), {busy} live")))
     serve_lengths = [1010, 530, 310, 80]
     decode_case(serve_lengths, nh, nkv, hd, 64, 128, 32, None, None, True)
+    decode_case(serve_lengths, nh, nkv, hd, 64, 128, 32, None, None, True,
+                dtype=f16)
     decode_case(serve_lengths, nh, nkv, hd, 64, 128, 32, cfg.local_window,
                 None, False)
     decode_case([77, 0, 16, 33], 8, 2, 128, 16, 40, 8, 24, 50.0, False)
@@ -945,6 +976,7 @@ def kernel_cases(torch, rng_seed=0):
     engine_cases(torch, gen, cases)
     epilogue_cases(torch, gen, cases)
     datapath_cases(torch, gen, cases)
+    generic_cases(torch, gen, cases)
     recurrent_cases(torch, gen, cases)
     return cases
 
@@ -1032,29 +1064,30 @@ def recurrent_cases(torch, gen, cases):
     from repro_torch.kernels import attention as ka
     from repro_torch.kernels import mamba2 as km
 
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16, f32, f16 = torch.bfloat16, torch.float32, torch.float16
 
     def randn(*shape, dtype=bf16, scale=1.0):
         return (torch.randn(shape, generator=gen, device="cuda") * scale
                 ).to(dtype)
 
-    def ssd_case(arch, t, resume, rep):
+    def ssd_case(arch, t, resume, rep, dtype=bf16):
         cfg = configs.get(arch)
         h, p, g, n = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups, \
             cfg.d_state
         chunk = cfg.ssm_chunk
-        x = randn(1, t, h, p)
-        b, c = randn(1, t, g, n, scale=0.3), randn(1, t, g, n, scale=0.3)
+        kind = "fp16" if dtype == f16 else "bf16"
+        x = randn(1, t, h, p, dtype=dtype)
+        b, c = (randn(1, t, g, n, scale=0.3, dtype=dtype) for _ in range(2))
         dt = torch.nn.functional.softplus(randn(1, t, h, dtype=f32))
         a_log = torch.log(torch.linspace(1.0, 16.0, h, device="cuda"))
         d_skip = torch.ones((h,), dtype=f32, device="cuda")
         init = randn(1, h, n, p, dtype=f32, scale=0.5) if resume else None
         kw = dict(d_skip=d_skip, chunk=chunk, initial_state=init,
                   return_final_state=True)
-        name = f"ssd [{arch} T={t}]"
+        name = f"ssd [{kind} {arch} T={t}]"
 
         def check(got, want):
-            err = check_close(torch, name, got[0], want[0], "bf16")
+            err = check_close(torch, name, got[0], want[0], kind)
             _, exact = ssd_fp64(x, dt, a_log, b, c, d_skip=d_skip,
                                 initial_state=init)
             tol = fp32_tolerance(dt, a_log, chunk)
@@ -1070,13 +1103,17 @@ def recurrent_cases(torch, gen, cases):
         nbytes = (2 * 2 * t * h * p + 2 * 2 * t * g * n + 4 * t * h + 8 * h
                   + 4 * h * n * p * (2 if resume else 1))
         flops = ssd_flops(t, h, p, g, n, chunk, resume)
-        cases.append(("ssd", f"{arch} B=1 T={t} H={h} P={p} G={g} N={n} "
+        grid = ssd_grid(t, h, g, n, chunk) if dtype == bf16 else \
+            ssd32_grid(t, h, g, n, chunk) + " (fp32 kernel, 3 + 1 converts)"
+        cases.append(("ssd" + ("[fp16]" if dtype == f16 else ""),
+                      f"{'fp16 ' if dtype == f16 else ''}{arch} B=1 T={t} "
+                      f"H={h} P={p} G={g} N={n} "
                       f"chunk={chunk} {'resumed' if resume else 'fresh'}",
-                      rep, "bf16",
+                      rep, kind,
                       lambda: km.ssd(x, dt, a_log, b, c, **kw),
                       lambda: km.ssd_plain(x, dt, a_log, b, c, **kw), None,
                       nbytes, flops,
-                      dict(check=check, grid=ssd_grid(t, h, g, n, chunk),
+                      dict(check=check, grid=grid,
                            bound_fp32_ms=bound_ms(nbytes, flops,
                                                   "fp32")[0])))
     ssd_case("mamba2-1.3b", 256, True, True)
@@ -1086,6 +1123,9 @@ def recurrent_cases(torch, gen, cases):
     ssd_case("hymba-1.5b", 1000, False, False)
     ssd_case("hymba-1.5b", 1000, True, False)
     ssd_case("mamba2-1.3b", 7, False, False)
+    ssd_case("mamba2-1.3b", 256, True, True, dtype=f16)
+    ssd_case("hymba-1.5b", 256, True, False, dtype=f16)
+    ssd_stress_case(torch, gen, cases)
 
     def ssd32_case(arch, t, resume=False):
         """The fp32 CUDA-core kernel at the shape of phases 7-8's fp32
@@ -1158,7 +1198,7 @@ def recurrent_cases(torch, gen, cases):
             except RuntimeError as e:
                 log(f"scaled_dot_product_attention ({name}) refused: {e}")
                 del libs[name]
-        kind = "fp32" if dtype == f32 else "bf16"
+        kind = {f32: "fp32", bf16: "bf16", f16: "fp16"}[dtype]
         nbytes = q.element_size() * (2 * b * h * dh + 2 * b * live * kvh * dh)
         splits, groups, _, split, _ = ka.decode_plan(b, s, h, kvh, dh, pos,
                                                      window)
@@ -1166,7 +1206,7 @@ def recurrent_cases(torch, gen, cases):
                     f"{split} keys x {groups})")
         if "masked" in libs:
             opts["library_masked"] = libs["masked"]
-        cases.append(("decode_attention",
+        cases.append(("decode_attention" + ("[fp16]" if dtype == f16 else ""),
                       f"{kind} B={b} S={s} pos={pos} H={h} KVH={kvh} D={dh} "
                       f"window={window} softcap={softcap}", rep, kind,
                       lambda: ka.decode_attention(q, k, v, pos, **kw),
@@ -1178,6 +1218,8 @@ def recurrent_cases(torch, gen, cases):
     s_max = STATIC_PROMPT + STATIC_STEPS
     decode_case(1, s_max, g3.n_heads, g3.n_kv_heads, g3.head_dim, s_max - 1,
                 None, None, True)
+    decode_case(1, s_max, g3.n_heads, g3.n_kv_heads, g3.head_dim, s_max - 1,
+                None, None, True, dtype=f16)
     decode_case(1, s_max, g3.n_heads, g3.n_kv_heads, g3.head_dim, s_max - 1,
                 g3.local_window, None, False)
     # and a batch of four at the serve phase's longest context
@@ -1590,6 +1632,171 @@ def run_kernel_phase(torch, timer):
 
 
 # ---------------------------------------------------------------------------
+# phase 3, fp16 and the generic datapath: the stress rows and the rows of
+# the kernels line's new entries
+# ---------------------------------------------------------------------------
+def flash_stress_case(torch, randn, cases, h, kvh, dh):
+    """fp16 flash on a causal 2048-key prompt whose rows' softmax spans
+    more than 20 decades (q and k at 4x the serving scale, head dim ``dh``):
+    P in fp16 terms must stay finite and within the fp16 rule of the plain
+    version (the kernel's P = P_hi + P_lo flushes only terms under 2^-25)."""
+    import math
+
+    from repro_torch.kernels import attention as ka
+
+    t, f16 = 2048, torch.float16
+    q, k = (randn(1, t, n, dh, dtype=f16, scale=4.0) for n in (h, kvh))
+    v = randn(1, t, kvh, dh, dtype=f16)
+    s_last = (q[0, -1, 0].float() @ k[0, :, 0].float().T) / math.sqrt(dh)
+    decades = (s_last.max() - s_last.min()).item() / math.log(10.0)
+    if decades <= 20:
+        fail(f"flash fp16 stress: the last row spans {decades:.1f} decades")
+    pairs = t * (t + 1) // 2
+    cases.append((
+        "flash_attention[fp16]", f"fp16 stress Tq=Tk={t} H={h} KVH={kvh} "
+        f"D={dh}: last row's softmax over {decades:.0f} decades", False,
+        "fp16", lambda: ka.flash_attention(q, k, v, causal=True),
+        lambda: ka.blockwise_attention(q, k, v, causal=True),
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True),
+        2 * (2 * t * h * dh + 2 * t * kvh * dh), 4.0 * dh * h * pairs,
+        {"decades": decades}))
+
+
+def ssd_stress_case(torch, gen, cases):
+    """The fp16 SSD on one fresh 256-token chunk at mamba2-1.3b's widths
+    whose state passes fp16's 65504 (x around 1500, B = 1, a slow decay):
+    y within the fp16 rule of the plain version, the fp32 final state
+    finite, past 65504 and within ``fp32_tolerance`` of the fp64
+    recurrence."""
+    from _ssd_exact import fp32_tolerance, ssd_fp64
+
+    from repro_torch import configs
+    from repro_torch.kernels import mamba2 as km
+
+    cfg = configs.get("mamba2-1.3b")
+    h, p, g, n = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups, \
+        cfg.d_state
+    t, f16 = 256, torch.float16
+    x = (1000 + 1000 * torch.rand((1, t, h, p), generator=gen,
+                                  device="cuda")).to(f16)
+    b = torch.ones((1, t, g, n), dtype=f16, device="cuda")
+    c = (torch.randn((1, t, g, n), generator=gen, device="cuda") * 1e-3
+         ).to(f16)
+    dt = torch.nn.functional.softplus(
+        torch.randn((1, t, h), generator=gen, device="cuda"))
+    a_log = torch.log(torch.linspace(1e-3, 1e-2, h, device="cuda"))
+    d_skip = torch.ones((h,), dtype=torch.float32, device="cuda")
+    kw = dict(d_skip=d_skip, chunk=t, return_final_state=True)
+    name = "ssd[fp16] [stress: state past 65504]"
+
+    def check(got, want):
+        err = check_close(torch, name, got[0], want[0], "fp16")
+        st = got[1]
+        big = st.abs().max().item()
+        _, exact = ssd_fp64(x, dt, a_log, b, c, d_skip=d_skip)
+        tol = fp32_tolerance(dt, a_log, t)
+        st_err = (st.double() - exact).abs().max().item()
+        scale = exact.abs().max().item()
+        if not torch.isfinite(st).all() or big <= 65504 or \
+                st_err > tol * scale:
+            fail(f"{name}: state max {big:.3e} (must pass 65504), err "
+                 f"{st_err:.3e} against {tol * scale:.3e}")
+        log(f"{name}: state max {big:.4e}, final state err {st_err:.3e} "
+            f"(limit {tol * scale:.3e}, fp64 recurrence)")
+        return err
+
+    nbytes = 2 * 2 * t * h * p + 2 * 2 * t * g * n + 4 * t * h + 8 * h \
+        + 4 * h * n * p
+    cases.append(("ssd[fp16]", f"fp16 stress mamba2-1.3b B=1 T={t} H={h} "
+                  f"P={p} G={g} N={n} fresh, state past 65504", False,
+                  "fp16", lambda: km.ssd(x, dt, a_log, b, c, **kw),
+                  lambda: km.ssd_plain(x, dt, a_log, b, c, **kw), None,
+                  nbytes, ssd_flops(t, h, p, g, n, t, False),
+                  dict(check=check, grid=ssd32_grid(t, h, g, n, t))))
+
+
+def bits_equal(torch, name):
+    """A check that the kernel's output equals the plain version's bit for
+    bit (floats compared as their bits, so NaN and -0.0 count too)."""
+    ints = {2: torch.int16, 4: torch.int32}
+
+    def check(got, want):
+        same = got.dtype == want.dtype and got.shape == want.shape and (
+            torch.equal(got, want) if not got.is_floating_point() else
+            torch.equal(got.view(ints[got.element_size()]),
+                        want.view(ints[want.element_size()])))
+        if not same:
+            fail(f"{name}: differs from the plain version")
+        return 0.0
+    return check
+
+
+def generic_cases(torch, gen, cases):
+    """The generic datapath's kernels (``csrc/datapath.cu``) at the
+    quickstart GEMM and ResNet-50's stage-1 3x3 conv: gemm[int32] (int32
+    -> int32 -> int8, a bias, shift 10, ReLU), conv2d_implicit[int32]
+    (int32 -> int32 -> int32), convert (an int16 (1000, 2048) operand to
+    bf16, beside ``Tensor.to``, the one PyTorch call of the same function)
+    and epilogue[any] (a (1000, 512) fp32 sum rounded to a bf16
+    accumulator, a bf16 bias, shift 1, ReLU, bf16 out): each bit for bit."""
+    from repro_torch.core.config import Activation
+    from repro_torch.kernels import conv as kc
+    from repro_torch.kernels import datapath as kd
+    from repro_torch.kernels import epilogue as epi
+    from repro_torch.kernels import gemm as kg
+    from repro_torch.kernels.ref import conv2d_ref, epilogue_any_ref, gemm_ref
+
+    i32, bf16 = torch.int32, torch.bfloat16
+    relu = Activation.RELU
+
+    def ints(shape, lim, dtype=i32):
+        return torch.randint(-lim, lim, shape, generator=gen, device="cuda",
+                             dtype=dtype)
+
+    m, n, k = 1000, 512, 2048
+    a, b, bias = ints((m, k), 2 ** 20), ints((k, n), 2 ** 10), \
+        ints((n,), 2 ** 24)
+    kw = dict(acc_dtype=i32, out_dtype=torch.int8, shift=10, activation=relu)
+    pl = kg.gemm_s32_plan(m, n, k)
+    cases.append(("gemm[int32]", f"int32 -> int32 -> int8 M={m} N={n} K={k} "
+                  f"bias shift=10 relu", True, "int32",
+                  lambda: kg.gemm_os(a, b, bias, **kw),
+                  lambda: gemm_ref(a, b, bias, **kw), None,
+                  4 * (m * k + k * n + n) + m * n, 2.0 * m * n * k,
+                  {"plan": f"{pl['tile']} tiles, {pl['splits']} K splits, "
+                           f"{pl['grid']} blocks"}))
+    x, w, cb = ints((1, 56, 56, 64), 2 ** 10), ints((3, 3, 64, 64), 2 ** 10), \
+        ints((64,), 2 ** 20)
+    ckw = dict(acc_dtype=i32, out_dtype=i32, stride=1, padding=1, shift=8,
+               activation=relu)
+    mm, kk = 56 * 56, 9 * 64
+    cases.append(("conv2d_implicit[int32]", "int32 1x56x56x64 3x3/1 -> 64 "
+                  "shift=8 relu", True, "int32",
+                  lambda: kc.conv2d_implicit(x, w, cb, **ckw),
+                  lambda: conv2d_ref(x, w, cb, **ckw), None,
+                  4 * (x.numel() + w.numel() + 64 + mm * 64),
+                  2.0 * mm * 64 * kk,
+                  {"plan": conv_plan_text(kc, mm, 64, kk, i32)}))
+    x16 = ints((m, k), 2 ** 15, torch.int16)
+    cases.append(("convert", f"int16 ({m}, {k}) -> bf16", True, "bf16",
+                  lambda: kd.convert(x16, bf16),
+                  lambda: epi.convert(x16, bf16), lambda: x16.to(bf16),
+                  4 * m * k, 0.0,
+                  {"check": bits_equal(torch, "convert [int16 -> bf16]")}))
+    s32 = torch.randn((m, n), generator=gen, device="cuda") * 8
+    eb = torch.randn((n,), generator=gen, device="cuda").to(bf16)
+    ekw = (bf16, bf16, eb, bf16, 1, relu)
+    cases.append(("epilogue[any]", f"fp32 ({m}, {n}) -> bf16 acc + bf16 bias "
+                  f"-> bf16 shift=1 relu", True, "bf16",
+                  lambda: kd.epilogue_any(s32, *ekw),
+                  lambda: epilogue_any_ref(s32, *ekw), None,
+                  (4 + 2) * m * n + 2 * n, 0.0,
+                  {"check": bits_equal(torch, "epilogue[any]")}))
+
+
+# ---------------------------------------------------------------------------
 # phase 4: full-width serve
 # ---------------------------------------------------------------------------
 SERVE_PROMPTS = (1000, 512, 300, 64)
@@ -1704,6 +1911,8 @@ _KERNEL_NAMES = (("ssd_kernel", "ssd"), ("ssd_tc_kernel", "ssd"),
                  ("ConvRowsQ", "conv2d_implicit"),
                  ("ConvStripA", "conv2d_implicit"),
                  ("epilogue_kernel", "accumulator_epilogue"),
+                 ("epilogue_any_kernel", "accumulator_epilogue"),
+                 ("convert_kernel", "convert"),
                  ("hgemm::skinny_kernel", "gemm"),
                  ("hgemm::wide_kernel", "gemm"), ("sgemm_kernel", "gemm"),
                  ("igemm::kernel<short", "gemm"),
@@ -1720,7 +1929,12 @@ _COUNTER_CLASS = {"gemm": "gemm", "gemm[fp32]": "gemm", "gemm[fp16]": "gemm",
                   "accumulator_epilogue": "accumulator_epilogue",
                   "conv2d_implicit": "conv2d_implicit",
                   **{f"conv2d_implicit[{d}]": "conv2d_implicit"
-                     for d in ("fp32", "bf16", "fp16", "int16")},
+                     for d in ("fp32", "bf16", "fp16", "int16", "int32")},
+                  "gemm[int32]": "gemm", "convert": "convert",
+                  "epilogue[any]": "accumulator_epilogue",
+                  **{f"{k}[fp16]": k for k in (
+                      "ssd", "flash_attention", "paged_prefill_attention",
+                      "paged_decode_attention", "decode_attention")},
                   "ssd": "ssd", "flash_attention": "flash_attention",
                   "paged_prefill_attention": "paged_prefill_attention",
                   "paged_decode_attention": "paged_decode_attention",
@@ -2315,22 +2529,31 @@ ATTN_KERNELS = ("flash_attention", "paged_prefill_attention",
                 "paged_decode_attention", "decode_attention")
 
 
-def serve_family(torch, np, arch, prompt_lens, new_tokens, chunk=256):
-    """``arch`` at its published widths (bf16, weights from seed 0) through
+def serve_family(torch, np, arch, prompt_lens, new_tokens, chunk=256,
+                 fp16=False):
+    """``arch`` at its published widths (bf16, weights from seed 0; with
+    ``fp16`` the fp16 model dtype on the fp16 engine config) through
     ``ServingEngine``: the requests are submitted at once, launch counts
     zeroed just before ``run`` and read just after. Returns (engine,
     prompts, counts, ssd launches on resumed chunks, summary)."""
     from repro_torch import configs, kernels
+    from repro_torch.core.config import GemminiConfig
     from repro_torch.kernels import mamba2
     from repro_torch.serving import ServingEngine
 
     cfg = configs.get(arch)
+    extra = {}
+    if fp16:
+        cfg = dataclasses.replace(cfg, dtype=torch.float16)
+        extra["engine_cfg"] = GemminiConfig(**F16_ENGINE)
     t0 = time.perf_counter()
     engine = ServingEngine(cfg, max_slots=4, max_context=2048, page_size=64,
-                           prefill_chunk=chunk, seed=0, device="cuda")
+                           prefill_chunk=chunk, seed=0, device="cuda",
+                           **extra)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in _leaves(engine.params))
-    log(f"{arch} full width: {n_params / 1e9:.3f} B parameters, "
+    log(f"{arch} full width{' fp16' if fp16 else ''}: "
+        f"{n_params / 1e9:.3f} B parameters, "
         f"{cfg.n_layers} layers; init {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, (n,)).astype(np.int32)
@@ -2439,8 +2662,9 @@ def rel_l2(got, want) -> float:
     return ((g - w).norm() / w.norm().clamp_min(1e-300)).item()
 
 
-def hold_bf16(name, card, cpu, exact):
-    """bf16 logits on the card (kernels) against bf16 logits on the CPU
+def hold_bf16(name, card, cpu, exact, dtype="bf16"):
+    """bf16 (or ``dtype``: fp16, the same factor) logits on the card
+    (kernels) against those on the CPU
     (plain path), each measured from the CPU's fp32 logits on the same
     weights and tokens: the card's bf16 gap may be at most BF16_FACTOR
     times the CPU's. Both round at the same points (bf16 operands, fp32
@@ -2451,14 +2675,14 @@ def hold_bf16(name, card, cpu, exact):
     further from its fp32 ones than the card's bf16 logits are from the
     CPU's), so that gap says more about depth than about the kernels."""
     g_card, g_cpu = rel_l2(card, exact), rel_l2(cpu, exact)
-    log(f"{name}: bf16 relative L2 from the fp32 CPU logits: card "
+    log(f"{name}: {dtype} relative L2 from the fp32 CPU logits: card "
         f"{g_card:.3e}, CPU {g_cpu:.3e} (ratio {g_card / g_cpu:.3f}, limit "
-        f"{BF16_FACTOR}); card vs CPU in bf16 {rel_l2(card, cpu):.3e}")
+        f"{BF16_FACTOR}); card vs CPU in {dtype} {rel_l2(card, cpu):.3e}")
     if not g_card <= BF16_FACTOR * g_cpu:
-        fail(f"{name}: the card's bf16 logits are {g_card:.3e} from fp32, "
+        fail(f"{name}: the card's {dtype} logits are {g_card:.3e} from fp32, "
              f"over {BF16_FACTOR} x the CPU's {g_cpu:.3e}")
-    return {"bf16_card_vs_fp32": g_card, "bf16_cpu_vs_fp32": g_cpu,
-            "bf16_card_vs_cpu": rel_l2(card, cpu)}
+    return {f"{dtype}_card_vs_fp32": g_card, f"{dtype}_cpu_vs_fp32": g_cpu,
+            f"{dtype}_card_vs_cpu": rel_l2(card, cpu)}
 
 
 def hold_fp32(name, card, cpu, cpu_perturbed):
@@ -4427,6 +4651,372 @@ def ptxas_summary(lines, names) -> str:
 
 
 # ---------------------------------------------------------------------------
+# phase 20: the remaining datapaths -- fp16 served at full width, and the
+# GEMM, conv and epilogue on every dtype combination JAX accepts
+# ---------------------------------------------------------------------------
+DT_NAMES = ("int8", "int16", "int32", "bfloat16", "float16", "float32")
+_BITS = {"int8": 8, "int16": 16, "int32": 32, "bfloat16": 16,
+         "float16": 16, "float32": 32}
+_ULP = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10, "float32": 1e-5}
+
+
+def jax_raises(a: str, b: str, acc: str) -> bool:
+    ints = a.startswith("int") and b.startswith("int")
+    return ints and _BITS[acc] < max(_BITS[a], _BITS[b])
+
+
+def hold_any(torch, name, got, want, floats, mag=None):
+    """``got`` against the plain version's ``want`` by the datapath rule of
+    tests/test_torch_dtypes.py: bit for bit where ``floats`` is empty (the
+    product sums in an integer dtype), else NaNs and infinities in the same
+    places and the rest within the coarsest float's rule (fp32 1e-5
+    relative + 1e-6 of the largest magnitude; bf16 / fp16 one ulp + 2^-14
+    of it), an integer output one count more. ``mag``: each value's
+    magnitude before the bias, the activation and the output's saturation,
+    |A @ B| + |bias| over 2^shift: a sum rounded to a narrow accumulator
+    errs relative to it, and a bias that cancels it, a clip to int8 / int16
+    or an fp16 overflow hide it; the sum and the bias add each round in
+    the accumulator's dtype, either side of the plain version's, so a
+    value may differ by two of its ulps. Returns the max abs error."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        fail(f"{name}: {got.dtype} {tuple(got.shape)} != {want.dtype} "
+             f"{tuple(want.shape)}")
+    g, w = got.double(), want.double()
+    if not floats:
+        if not torch.equal(g.nan_to_num(), w.nan_to_num()) or \
+                not torch.equal(g.isnan(), w.isnan()):
+            fail(f"{name}: differs from the plain version, max abs err "
+                 f"{(g - w).abs().nan_to_num().max().item():.3e}")
+        return 0.0
+    odd = w.isnan() | w.isinf()
+    if not torch.equal(g.isnan(), w.isnan()) or \
+            not torch.equal(g.isinf(), w.isinf()) or \
+            not torch.equal(g[w.isinf()], w[w.isinf()]):
+        fail(f"{name}: NaN / inf places differ from the plain version's")
+    ref = w.abs() if mag is None else torch.maximum(
+        w.abs(), mag.double().expand(w.shape))
+    g, w, ref = g[~odd], w[~odd], ref[~odd]
+    if g.numel() == 0:
+        return 0.0
+    scale = ref.max().item()
+    rtol = max(_ULP[f] for f in floats)
+    atol = (1e-6 if rtol == 1e-5 else 2.0 ** -14) * scale + \
+        (0.0 if got.is_floating_point() else 1.0)
+    if mag is not None:
+        rtol *= 2
+    err = (g - w).abs()
+    bad = err > rtol * ref + atol
+    if bad.any():
+        fail(f"{name}: {int(bad.sum())} of {bad.numel()} outside the rule; "
+             f"max abs err {err.max().item():.3e} (scale {scale:.3e})")
+    return err.max().item()
+
+
+def float_route(torch, a, b, acc, out):
+    from repro_torch.kernels.ref import product_dtypes
+
+    dot = str(product_dtypes(getattr(torch, a), getattr(torch, b),
+                             getattr(torch, acc))).split(".")[-1]
+    if dot.startswith("int"):
+        return ()
+    return tuple(d for d in (dot, acc, out) if not d.startswith("int"))
+
+
+def draw_operand(torch, gen, name, shape, k=1):
+    """Integers uniform in +-2^(bits - 2) (int32: +-2^16); floats N(0, 1),
+    the weights' scaled by k^-1/2."""
+    if name.startswith("int"):
+        lim = {"int8": 64, "int16": 2 ** 14, "int32": 2 ** 16}[name]
+        return torch.randint(-lim, lim, shape, generator=gen, device="cuda",
+                             dtype=getattr(torch, name))
+    return (torch.randn(shape, generator=gen, device="cuda") * k ** -0.5
+            ).to(getattr(torch, name))
+
+
+def fp16_serving(torch, np, smi):
+    """(a): gemma3-1b at fp16 on phase 4's traffic (and phase 4b's decode
+    step and prefill chunk profiled), one static-path request
+    as phase 10 makes it, and hymba-1.5b at phase 8's 700 + 200 tokens,
+    each at published widths with random weights from seed 0 on the fp16
+    engine config, each run's launch counts zeroed just before it and read
+    just after. A full-width prompt's fresh prefill logits are held by
+    ``hold_bf16`` at fp16; where the CPU's own fp16 logits are not finite
+    the arch is not servable in fp16 with these weights, which is logged
+    and fails nothing."""
+    from repro_torch import kernels
+
+    counts, out, servable = {}, {}, []
+
+    def add(c):
+        for k_, v in c.items():
+            counts[k_] = counts.get(k_, 0) + v
+
+    def hold(engine, prompt, name):
+        card, cpu = prefill_logits(torch, engine, prompt)
+        if not torch.isfinite(cpu).all():
+            log(f"{name}: the CPU's own fp16 logits at full width are not "
+                f"finite: not servable in fp16 with these weights")
+            return None
+        if not torch.isfinite(card).all():
+            fail(f"{name}: the card's fp16 logits are not finite where the "
+                 f"CPU's are")
+        exact = prefill_logits(torch, engine, prompt, fp32=True,
+                               cpu_only=True)
+        return hold_bf16(name, card, cpu, exact, dtype="fp16")
+
+    engine, prompts, c, _, s = serve_family(torch, np, "gemma3-1b",
+                                            SERVE_PROMPTS, SERVE_NEW,
+                                            fp16=True)
+    add(c)
+    for kname in ("flash_attention[fp16]", "paged_prefill_attention[fp16]",
+                  "paged_decode_attention[fp16]", "gemm[fp16]"):
+        if c[kname] <= 0:
+            fail(f"fp16 gemma3-1b: {kname} did not launch: {c}")
+    log(f"fp16 gemma3-1b serve on {smi}: {s['tokens_per_s']:.2f} tok/s, "
+        f"TTFT p50 {s['p50_ttft_s'] * 1e3:.1f} ms p99 "
+        f"{s['p99_ttft_s'] * 1e3:.1f} ms, ITL p50 {s['p50_itl_s'] * 1e3:.2f} "
+        f"ms p95 {s['p95_itl_s'] * 1e3:.2f} ms")
+    rel = hold(engine, prompts[-1][:F16_HOLD_TOKENS], "fp16 gemma3-1b")
+    if rel is not None:
+        servable.append("gemma3-1b")
+    # phase 4b's two steps, profiled, at fp16
+    out["gemma3-1b"] = {"summary": s, "logits_rel_l2": rel,
+                        "profile": run_profile_phase(torch, engine)}
+
+    cfg = engine.model_cfg
+    prompt = np.random.default_rng(2).integers(
+        0, cfg.vocab, (STATIC_PROMPT,)).astype(np.int32)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    toks, logits = static_path(torch, engine.engine, cfg, engine.params,
+                               prompt, "cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = kernels.launch_counts()
+    add(c)
+    want = STATIC_STEPS * cfg.n_layers
+    if c["decode_attention[fp16]"] != want:
+        fail(f"fp16 static path: decode_attention[fp16] launched "
+             f"{c['decode_attention[fp16]']} times, want {want}")
+    if "gemma3-1b" in servable and not torch.isfinite(logits).all() or \
+            min(toks) < 0 or max(toks) >= cfg.vocab:
+        fail(f"fp16 static path: non-finite logits or bad tokens {toks}")
+    log(f"fp16 static path gemma3-1b: {STATIC_PROMPT}-token prompt + "
+        f"{STATIC_STEPS} steps in {wall:.3f} s; decode_attention[fp16] "
+        f"{want} launches")
+    out["static"] = {"wall_s": wall, "tokens": toks}
+    del engine
+    torch.cuda.empty_cache()
+
+    engine, prompts, c, resumed, s = serve_family(
+        torch, np, "hymba-1.5b", (700, 200), 16, fp16=True)
+    add(c)
+    for kname in ("ssd[fp16]", "flash_attention[fp16]",
+                  "paged_prefill_attention[fp16]",
+                  "paged_decode_attention[fp16]"):
+        if c[kname] <= 0 or resumed <= 0:
+            fail(f"fp16 hymba-1.5b: {kname} did not launch: {c}")
+    rel = hold(engine, prompts[1][:F16_HOLD_TOKENS], "fp16 hymba-1.5b")
+    if rel is not None:
+        servable.append("hymba-1.5b")
+    out["hymba-1.5b"] = {"summary": s, "logits_rel_l2": rel}
+    del engine
+    torch.cuda.empty_cache()
+    if not servable:
+        fail("phase 20: neither gemma3-1b nor hymba-1.5b is servable in fp16")
+    out["servable"] = servable
+    return counts, out
+
+
+def generic_matrix(torch, smi):
+    """(b): every (input, accumulator, output) combination JAX accepts, on
+    the card against the plain version: the quickstart GEMM (1000 x 512 x
+    2048, a bias row, shift 1, ReLU) on OS and on WS (equal bit for bit),
+    ``accumulator_epilogue`` on every (accumulator, output) pair at (1000,
+    512) and at (999, 513), ``conv2d_implicit`` at stage 1's 3x3 (1 x 56 x
+    56 x 64 -> 64), and ResNet-50's fused stream on the int32 -> int32 ->
+    int32 and bf16 -> bf16 -> bf16 instances on all three routes; launch
+    counts zeroed just before and read just after. Then a representative
+    combination of each mechanism timed beside its plain version."""
+    from repro_torch import kernels
+    from repro_torch.core.config import Activation, Dataflow, GemminiConfig
+    from repro_torch.core.generator import elaborate
+    from repro_torch.kernels import conv as kc
+    from repro_torch.kernels import epilogue as epi
+    from repro_torch.kernels import gemm as kg
+    from repro_torch.kernels.ref import conv2d_ref, gemm_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    relu = Activation.RELU
+    m, n, k = 1000, 512, 2048
+    ops = {d: (draw_operand(torch, gen, d, (m, k)),
+               draw_operand(torch, gen, d, (k, n), k)) for d in DT_NAMES}
+    bias = torch.randn((1, n), generator=gen, device="cuda") * 100
+    xs = {d: (draw_operand(torch, gen, d, (1, 56, 56, 64)),
+              draw_operand(torch, gen, d, (3, 3, 64, 64), 9 * 64))
+          for d in DT_NAMES}
+    cbias = torch.randn((64,), generator=gen, device="cuda") * 100
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    n_gemm = n_conv = n_epi = 0
+    worst = {}
+    for i in DT_NAMES:
+        a, b = ops[i]
+        x, w = xs[i]
+        for acc in DT_NAMES:
+            if jax_raises(i, i, acc):
+                continue
+            for out in DT_NAMES:
+                kw = dict(acc_dtype=getattr(torch, acc),
+                          out_dtype=getattr(torch, out), shift=1,
+                          activation=relu)
+                floats = float_route(torch, i, i, acc, out)
+                wide = dict(kw, out_dtype=torch.float32,
+                            activation=Activation.NONE)
+                mag = gemm_ref(a, b, None, **wide).abs() + bias.abs() / 2 \
+                    if floats else None
+                want = gemm_ref(a, b, bias, **kw)
+                got = {df: kg.gemm(a, b, bias, dataflow=Dataflow[df], **kw)
+                       for df in ("OS", "WS")}
+                label = f"{i} -> {acc} -> {out}"
+                if not torch.equal(got["OS"].view(torch.uint8),
+                                   got["WS"].view(torch.uint8)):
+                    fail(f"gemm [{label}]: OS and WS differ")
+                e = hold_any(torch, f"gemm [{label}]", got["OS"], want,
+                             floats, mag)
+                worst[label] = e
+                n_gemm += 2
+                mag = conv2d_ref(x, w, None, stride=1, padding=1, **wide) \
+                    .abs() + cbias.abs() / 2 if floats else None
+                want = conv2d_ref(x, w, cbias, stride=1, padding=1, **kw)
+                got = kc.conv2d_implicit(x, w, cbias, stride=1, padding=1,
+                                         **kw)
+                hold_any(torch, f"conv2d_implicit [{label}]", got, want,
+                         floats, mag)
+                n_conv += 1
+    for acc in DT_NAMES:
+        for out in DT_NAMES:
+            for shape in ((1000, 512), EPILOGUE_ODD):
+                acc_t = draw_operand(torch, gen, acc, shape) if \
+                    acc.startswith("int") else \
+                    torch.randn(shape, generator=gen, device="cuda").mul(
+                        40).to(getattr(torch, acc))
+                kw = dict(out_dtype=getattr(torch, out), shift=1,
+                          activation=relu)
+                hold_any(torch, f"accumulator_epilogue [{acc} -> {out} "
+                         f"{shape}]", kg.accumulator_epilogue(acc_t, **kw),
+                         epi.apply(acc_t, **kw), ())
+                n_epi += 1
+    streams = {}
+    for name, (i, a_, o) in (("int32", ("int32", "int32", "int32")),
+                             ("bf16", ("bf16", "bf16", "bf16"))):
+        inst = elaborate(GemminiConfig(dataflow=Dataflow.BOTH, input_dtype=i,
+                                       acc_dtype=a_, output_dtype=o))
+        cfg = inst.cfg
+        shift = 1 if cfg.input_torch.is_floating_point else 10
+        layers = resnet50_layers(torch, seed=1, dtype=cfg.input_torch)
+        floats = float_route(torch, *(str(t).split(".")[-1] for t in (
+            cfg.input_torch, cfg.input_torch, cfg.acc_torch,
+            cfg.output_torch)))
+        outs = {}
+        for route in ENGINE_ROUTES:
+            outs[route] = run_stream(inst, layers, shift, route)
+            torch.cuda.synchronize()
+            for (label, x, w, b, st, p, act), got in zip(layers,
+                                                         outs[route]):
+                want = conv2d_ref(x, w, b, stride=st, padding=p,
+                                  acc_dtype=cfg.acc_torch,
+                                  out_dtype=cfg.output_torch, shift=shift,
+                                  activation=act)
+                mag = (conv2d_ref(x, w, None, stride=st, padding=p,
+                                  acc_dtype=cfg.acc_torch,
+                                  out_dtype=torch.float32, shift=shift).abs()
+                       + b.float().abs() / 2 ** shift) if floats else None
+                hold_any(torch, f"resnet50 {name} [{route}] layer {label}",
+                         got, want, floats, mag)
+        for got_os, got_ws in zip(*(outs[r] for r in ENGINE_ROUTES[:2])):
+            if not torch.equal(got_os, got_ws):
+                fail(f"resnet50 {name}: OS and WS outputs differ")
+        streams[name] = {"instance": cfg.describe(), "layers": len(layers)}
+        log(f"resnet50 {name} ({cfg.describe()}): all three routes within "
+            f"the rule of conv2d_ref, OS == WS")
+        del outs
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    for kname in kernels.GENERIC_KERNELS:
+        if counts[kname] <= 0:
+            fail(f"kernel {kname} was not launched on phase 20's matrix")
+    log(f"phase 20 matrix: {n_gemm} GEMM calls, {n_conv} convs, {n_epi} "
+        f"epilogues and two 50-layer streams held in {wall:.1f} s; launch "
+        f"counts {kernels_nonzero(counts)}")
+
+    timer = Timer(torch)
+    mech = {}
+    reps = {
+        "(a) bf16 -> bf16 -> bf16 (hgemm + epilogue[any])":
+            ("bfloat16", "bfloat16", "bfloat16", "bfloat16"),
+        "(b) int32 -> int32 -> int8 (gemm[int32], fused)":
+            ("int32", "int32", "int32", "int8"),
+        "(a) int8 -> int16 -> int8 (igemm + epilogue[any])":
+            ("int8", "int8", "int16", "int8"),
+        "(d) int8 @ fp16 -> fp32 -> fp32 (convert x2 + sgemm + epilogue)":
+            ("int8", "float16", "float32", "float32"),
+        "(a) fp32 -> fp16 -> fp16 (sgemm + epilogue[any])":
+            ("float32", "float32", "float16", "float16")}
+    for label, (ia, ib, acc, out) in reps.items():
+        a, b = ops[ia][0], ops[ib][1]
+        kw = dict(acc_dtype=getattr(torch, acc),
+                  out_dtype=getattr(torch, out), shift=1, activation=relu)
+        before = kernels.launch_counts()
+        kg.gemm_os(a, b, bias, **kw)
+        torch.cuda.synchronize()
+        launched = {k_: v - before[k_]
+                    for k_, v in kernels.launch_counts().items()
+                    if v != before[k_]}
+        ms = timer(lambda: kg.gemm_os(a, b, bias, **kw))
+        plain = timer(lambda: gemm_ref(a, b, bias, **kw))
+        bytes_ = (a.element_size() * m * k + b.element_size() * k * n +
+                  4 * n + torch.empty((), dtype=getattr(torch, out))
+                  .element_size() * m * n)
+        dot = float_route(torch, ia, ib, acc, out)
+        kind = {"bfloat16": "bf16", "float16": "fp16", "float32": "fp32"}\
+            .get(dot[0] if dot else "", "int32" if ia == "int32" else "int")
+        b_ms, b_by = bound_ms(bytes_, 2.0 * m * n * k, kind)
+        mech[label] = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                       "bound_by": b_by, "launches": launched,
+                       "library_ms": None}
+        log(f"phase 20 {label}: {ms:.4f} ms ({launched}) plain "
+            f"{plain:.4f} ms bound {b_ms:.4f} ms ({b_by}); library none; "
+            f"on {smi}")
+    del timer
+    return counts, {"gemm_calls": n_gemm, "convs": n_conv,
+                    "epilogues": n_epi, "wall_s": wall, "streams": streams,
+                    "mechanisms": mech}
+
+
+def kernels_nonzero(counts):
+    return {k_: v for k_, v in counts.items() if v}
+
+
+def run_fp16_phase(torch, np, smi):
+    """Phase 20: (a) ``fp16_serving`` and (b) ``generic_matrix``.
+    Returns the launch counts of the fp16 kernels (from (a)'s runs) and of
+    the generic datapath's (from (b)'s), and the summary."""
+    from repro_torch import kernels
+
+    t0 = time.perf_counter()
+    serve_counts, serve = fp16_serving(torch, np, smi)
+    matrix_counts, matrix = generic_matrix(torch, smi)
+    counts = {k_: serve_counts.get(k_, 0) for k_ in kernels.FP16_KERNELS}
+    counts.update({k_: matrix_counts[k_] for k_ in kernels.GENERIC_KERNELS})
+    log(f"phase 20 passed in {time.perf_counter() - t0:.1f} s; launch "
+        f"counts {counts}")
+    return counts, {"serve": serve, "matrix": matrix}
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4473,7 +5063,9 @@ def main() -> int:
                                  "sgemm_kernel", "igemm")),
                        ("gemm16", ("skinny_kernel", "wide_kernel", "igemm")),
                        ("conv", ("igemm", "sgemm_kernel")),
-                       ("ssd", ("ssd_tc_kernel", "ssd_kernel"))):
+                       ("ssd", ("ssd_tc_kernel", "ssd_kernel")),
+                       ("datapath", ("convert_kernel", "epilogue_any_kernel",
+                                     "sgemm_kernel"))):
         log(f"ptxas {src}: " + ptxas_summary(ptxas.get(src, []), names))
 
     if sys.argv[1:] == ["--phase", "17"]:
@@ -4511,9 +5103,20 @@ def main() -> int:
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
+    if sys.argv[1:] == ["--phase", "20"]:
+        _, f16_summary = run_fp16_phase(torch, np, smi)
+        with open(os.path.join(OUT_DIR, "chip_smoke_fp16.json"), "w") as f:
+            json.dump({"device": kind, "nvidia_smi": smi,
+                       "fp16": f16_summary}, f, indent=1, default=str)
+        log(f"phases 1, 2 and 20 passed in "
+            f"{time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}: none, --phase 17, "
-             f"--phase 18 or --phase 19")
+             f"--phase 18, --phase 19 or --phase 20")
 
     # 3. kernels
     timer = Timer(torch)
@@ -4609,6 +5212,12 @@ def main() -> int:
     # under the mesh and the GPipe stage loop (each check zeroes the
     # counts just before it and reads them just after)
     rest_summary = run_mesh_rest_phase(torch, smi)
+    torch.cuda.empty_cache()
+
+    # 20. the remaining datapaths: fp16 served at full width, and every dtype
+    # combination of the GEMM, conv and epilogue (each run's counts zeroed
+    # just before it and read just after)
+    f16_counts, f16_summary = run_fp16_phase(torch, np, smi)
 
     # the kernels line
     meta = {
@@ -4634,11 +5243,27 @@ def main() -> int:
         "decode_attention": ("csrc/attention.cu",
                              "src/repro/kernels/attention.py:276"),
         "gemm[bwd]": ("csrc/gemm.cu", "src/repro/kernels/gemm.py:105"),
+        "flash_attention[fp16]": ("csrc/attention.cu",
+                                  "src/repro/kernels/attention.py:162"),
+        "paged_prefill_attention[fp16]": (
+            "csrc/attention.cu", "src/repro/kernels/attention.py:558"),
+        "paged_decode_attention[fp16]": (
+            "csrc/attention.cu", "src/repro/kernels/attention.py:418"),
+        "decode_attention[fp16]": ("csrc/attention.cu",
+                                   "src/repro/kernels/attention.py:276"),
+        "ssd[fp16]": ("csrc/ssd.cu", "src/repro/kernels/mamba2.py:151"),
+        "gemm[int32]": ("csrc/datapath.cu", "src/repro/kernels/gemm.py:105"),
+        "conv2d_implicit[int32]": ("csrc/conv.cu",
+                                   "src/repro/kernels/conv.py:140"),
+        "convert": ("csrc/datapath.cu", "src/repro/kernels/gemm.py:105"),
+        "epilogue[any]": ("csrc/datapath.cu",
+                          "src/repro/kernels/gemm.py:217"),
     }
     line = []
     for name, (src, replaces) in meta.items():
         r = rep_rows[name]
-        launches = (datapath_counts if name in DATAPATH_KERNELS else
+        launches = (f16_counts if name in f16_counts else
+                    datapath_counts if name in DATAPATH_KERNELS else
                     engine_counts if name in kernels.ENGINE_KERNELS else
                     ssm_counts if name in kernels.RECURRENT_KERNELS else
                     static_counts if name in kernels.STATIC_KERNELS else
@@ -4675,7 +5300,8 @@ def main() -> int:
                    "train": train_summary, "train_launches": train_counts,
                    "gemma3_4b": g4_summary, "gemma3_4b_launches": g4_counts,
                    "tune": tune_summary, "contracts": contracts,
-                   "mesh": mesh_summary, "mesh_rest": rest_summary},
+                   "mesh": mesh_summary, "mesh_rest": rest_summary,
+                   "fp16": f16_summary, "fp16_launches": f16_counts},
                   f, indent=1, default=str)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}), flush=True)

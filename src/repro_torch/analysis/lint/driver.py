@@ -203,7 +203,7 @@ def probes(families: Optional[Tuple[str, ...]] = None) -> Iterator[Probe]:
                         ("has_bias", name != "stem-7x7/2")),
                         tuple(sched.items()))
     if want("flash_attention"):
-        for dtype in ("bfloat16", "float32"):
+        for dtype in ("bfloat16", "float16", "float32"):
             for b, tq, tk, h, kvh, d, causal, win in FLASH_PROBES:
                 for sched in flash_plans(dtype, d):
                     yield Probe("flash_attention", (
@@ -213,7 +213,7 @@ def probes(families: Optional[Tuple[str, ...]] = None) -> Iterator[Probe]:
                         tuple(sched.items()))
     if want("paged_decode_attention"):
         h, kvh, d = PAGED_HEADS
-        for dtype in ("bfloat16", "float32"):
+        for dtype in ("bfloat16", "float16", "float32"):
             for page, split in paged_plans(PAGED_CONTEXT):
                 mp = -(-PAGED_CONTEXT // page)
                 yield Probe("paged_decode_attention", (
@@ -222,13 +222,13 @@ def probes(families: Optional[Tuple[str, ...]] = None) -> Iterator[Probe]:
                     ("n_pages", PAGED_SLOTS * mp + 1), ("window", 0),
                     ("dtype", dtype)), (("split_keys", split),))
     if want("paged_prefill_attention"):
-        for dtype in ("bfloat16", "float32"):
+        for dtype in ("bfloat16", "float16", "float32"):
             for tq, start, h, kvh, d, win in PREFILL_PROBES:
                 yield Probe("paged_prefill_attention", (
                     ("tq", tq), ("start", start), ("h", h), ("kvh", kvh),
                     ("d", d), ("window", win), ("dtype", dtype)))
     if want("decode_attention"):
-        for dtype in ("bfloat16", "float32"):
+        for dtype in ("bfloat16", "float16", "float32"):
             for b, s, h, kvh, d, pos, win in DECODE_PROBES:
                 yield Probe("decode_attention", (
                     ("b", b), ("s", s), ("h", h), ("kvh", kvh), ("d", d),

@@ -27,10 +27,13 @@ PEAK_FLOPS_FP16 = 989e12
 PEAK_FLOPS_FP32 = 67e12           # CUDA cores (no TF32)
 PEAK_OPS_INT8 = 1979e12           # OP/s, tensor cores
 PEAK_OPS_INT16 = PEAK_OPS_INT8 / 4
+# int32 has no tensor-core MMA: multiply-adds on the CUDA cores, 64 INT32
+# lanes an SM against 128 fp32 ones, so half the fp32 rate.
+PEAK_OPS_INT32 = PEAK_FLOPS_FP32 / 2
 
 _PEAKS = {torch.bfloat16: PEAK_FLOPS_BF16, torch.float16: PEAK_FLOPS_FP16,
           torch.float32: PEAK_FLOPS_FP32, torch.int8: PEAK_OPS_INT8,
-          torch.int16: PEAK_OPS_INT16}
+          torch.int16: PEAK_OPS_INT16, torch.int32: PEAK_OPS_INT32}
 
 
 def peak_ops(dtype: torch.dtype) -> float:

@@ -11,6 +11,16 @@ ENGINE_KERNELS = ("gemm[int8]", "gemm_ws", "accumulator_epilogue",
                   "conv2d_implicit[fp16]", "conv2d_implicit[int16]")
 RECURRENT_KERNELS = ("ssd",)
 STATIC_KERNELS = ("decode_attention",)
+# The fp16 model's instantiations of the serving, recurrent and static
+# paths' kernels.
+FP16_KERNELS = ("flash_attention[fp16]", "paged_prefill_attention[fp16]",
+                "paged_decode_attention[fp16]", "decode_attention[fp16]",
+                "ssd[fp16]")
+# The generic datapath (every other combination of the dtype table): the
+# int32 main loop of the GEMM and the conv, the conversion and the generic
+# epilogue.
+GENERIC_KERNELS = ("gemm[int32]", "conv2d_implicit[int32]", "convert",
+                    "epilogue[any]")
 # The MoE serving path's own: its router is an fp32-input GEMM on every
 # engine config.
 MOE_KERNELS = ("gemm[fp32]",)
@@ -27,10 +37,11 @@ def launch_counters():
     datatype), the fp32 GEMM in OS order (the fp32 engine config's, and the
     MoE router's on every config), the GEMM's backward products on any
     float datapath (the training path's), the recurrent families' chunked
-    SSD and the static reference path's dense decode attention."""
+    SSD and the static reference path's dense decode attention, their fp16
+    instantiations, and the generic datapath's kernels."""
     import torch
 
-    from repro_torch.kernels import attention, conv, gemm, mamba2
+    from repro_torch.kernels import attention, conv, datapath, gemm, mamba2
     return {"gemm": gemm.gemm,
             "flash_attention": attention.flash_attention,
             "paged_prefill_attention": attention.paged_prefill_attention,
@@ -48,7 +59,14 @@ def launch_counters():
             "conv2d_implicit[fp16]": conv.COUNTS[torch.float16],
             "conv2d_implicit[int16]": conv.COUNTS[torch.int16],
             "ssd": mamba2.ssd,
-            "decode_attention": attention.decode_attention}
+            "decode_attention": attention.decode_attention,
+            **{f"{name}[fp16]": count
+               for name, count in attention.F16_COUNTS.items()},
+            "ssd[fp16]": mamba2.F16_COUNT,
+            "gemm[int32]": gemm.OS_COUNTS[torch.int32],
+            "conv2d_implicit[int32]": conv.COUNTS[torch.int32],
+            "convert": datapath.convert,
+            "epilogue[any]": datapath.epilogue_any}
 
 
 def reset_launch_counts() -> None:

@@ -4,7 +4,11 @@ Replaces, in ``repro.kernels.attention``: ``flash_attention``,
 ``decode_attention``, ``paged_decode_attention`` and
 ``paged_prefill_attention``. Each wrapper launches its CUDA kernel for
 CUDA tensors (or raises) and runs its plain version for CPU tensors;
-``<wrapper>.launches`` counts kernel launches.
+``<wrapper>.launches`` counts kernel launches on bf16 and fp32 inputs,
+``F16_COUNTS[<wrapper name>].launches`` on fp16 ones. fp16 runs the bf16
+kernels' instantiations for ``__half`` (the tensor cores' .f16 MMA for
+flash and paged prefill; the CUDA-core decode kernels), the output in
+q's dtype as the JAX kernels write it.
 
 The two wrappers the tuner has a space for take an optional plan, its
 schedule: flash ``{"cluster": blocks per cluster (1, 2, 4), "stages": 1
@@ -35,6 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from types import SimpleNamespace
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -46,7 +51,7 @@ from repro_torch.kernels.contracts import kernel_contract
 from repro_torch.models.attention import NEG_INF, blockwise_attention
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
-_DT = {torch.float32: 0, torch.bfloat16: 1}
+_DT = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _WORKSPACE: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -155,7 +160,7 @@ def _check_cuda(name: str, vecs, others=()) -> None:
 def _check_head(name: str, q: torch.Tensor, k: torch.Tensor, h: int,
                 kvh: int, d: int) -> None:
     if q.dtype not in _DT or k.dtype != q.dtype:
-        raise NotImplementedError(f"{name}: takes bf16 or fp32, got "
+        raise NotImplementedError(f"{name}: takes bf16, fp16 or fp32, got "
                                   f"{q.dtype} / {k.dtype}")
     if d not in HEAD_DIMS:
         raise NotImplementedError(f"{name}: head_dim {d} not in {HEAD_DIMS}")
@@ -266,7 +271,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
              _scale(scale, d), _DT[q.dtype],
              torch.cuda.current_stream(q.device).cuda_stream, cluster, stages)
     _build.check(err, "flash_attention")
-    flash_attention.launches += 1
+    if q.dtype == torch.float16:
+        F16_COUNTS["flash_attention"].launches += 1
+    else:
+        flash_attention.launches += 1
     return o
 
 
@@ -309,7 +317,10 @@ def decode_attention(q, k, v, pos: int, *, window: Optional[int] = None,
              _scale(scale, d), _DT[q.dtype], stream, ws.data_ptr(),
              tickets.data_ptr())
     _build.check(err, "decode_attention")
-    decode_attention.launches += 1
+    if q.dtype == torch.float16:
+        F16_COUNTS["decode_attention"].launches += 1
+    else:
+        decode_attention.launches += 1
     return o
 
 
@@ -397,7 +408,10 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
              _scale(scale, d), _DT[q.dtype], stream, ws.data_ptr(),
              tickets.data_ptr(), split)
     _build.check(err, "paged_decode_attention")
-    paged_decode_attention.launches += 1
+    if q.dtype == torch.float16:
+        F16_COUNTS["paged_decode_attention"].launches += 1
+    else:
+        paged_decode_attention.launches += 1
     return o
 
 
@@ -465,7 +479,10 @@ def paged_prefill_attention(q, k_pool, v_pool, block_table, start: int, *,
              int(window or 0), float(softcap or 0.0), _scale(scale, d),
              _DT[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_prefill_attention")
-    paged_prefill_attention.launches += 1
+    if q.dtype == torch.float16:
+        F16_COUNTS["paged_prefill_attention"].launches += 1
+    else:
+        paged_prefill_attention.launches += 1
     return o
 
 
@@ -473,3 +490,9 @@ flash_attention.launches = 0
 decode_attention.launches = 0
 paged_decode_attention.launches = 0
 paged_prefill_attention.launches = 0
+# The fp16 instantiations' launches (the kernels report names them
+# flash_attention[fp16] and so on); bf16 and fp32 count in the wrapper's.
+F16_COUNTS = {name: SimpleNamespace(launches=0)
+              for name in ("flash_attention", "decode_attention",
+                           "paged_decode_attention",
+                           "paged_prefill_attention")}

@@ -763,6 +763,48 @@ def _conv_operands(ops, n, oh, ow, co, d):
 
 
 # ---------------------------------------------------------------------------
+# datapath.cu: the conversion and the generic epilogue, grid-stride loops
+# ---------------------------------------------------------------------------
+ANY_THREADS = 256
+ANY_MAX_BLOCKS = 132 * 16
+
+
+def _grid_stride_contract(name, kernel, count, src, out):
+    blocks = max(1, min(cdiv(count, ANY_THREADS), ANY_MAX_BLOCKS))
+    iters = max(1, cdiv(cdiv(count, ANY_THREADS), blocks))
+    ops = (OperandSpec("src", (max(count, 1),), (ANY_THREADS,), src,
+                       predicated=(0,)),
+           OperandSpec("c", (max(count, 1),), (ANY_THREADS,), out,
+                       output=True, predicated=(0,)))
+    region = Region((("it", iters), ("blk", blocks)),
+                    (("src", lambda it, b: (it * blocks + b,)),
+                     ("c", lambda it, b: (it * blocks + b,))),
+                    loops=("it",))
+    return LaunchContract(
+        name=name, regions=(region,), operands=ops, blocks=blocks,
+        threads=ANY_THREADS, plan=(("blocks", blocks),
+                                   ("threads", ANY_THREADS)),
+        kernel=kernel)
+
+
+@contract_builder("convert")
+def convert_contract(count: int, *, src_dtype, dtype) -> LaunchContract:
+    """``convert_launch``: one value a thread an iteration, blocks as
+    many as the values need up to 16 an SM."""
+    return _grid_stride_contract("convert", "convert_kernel", count,
+                                 dt(src_dtype), dt(dtype))
+
+
+@contract_builder("epilogue_any")
+def epilogue_any_contract(count: int, *, acc_dtype,
+                          out_dtype) -> LaunchContract:
+    """``epilogue_any_launch``: the generic epilogue, one value a thread an
+    iteration (the bias read beside it)."""
+    return _grid_stride_contract("epilogue_any", "epilogue_any_kernel", count,
+                                 dt(acc_dtype), dt(out_dtype))
+
+
+# ---------------------------------------------------------------------------
 # the mvout epilogue (gemm.cu epilogue_launch)
 # ---------------------------------------------------------------------------
 @contract_builder("accumulator_epilogue")
@@ -905,7 +947,7 @@ def _flash_contract(name, batch, tq, tk, h, kvh, d, q_offset, causal,
         else None
     kv_range = None if paged else \
         "the key range [lo, hi) of the block's query rows, clamped to Tk"
-    if _name(dtype) == "bfloat16":
+    if _name(dtype) in ("bfloat16", "float16"):
         p, lim = _flash_tc(tq, tk, h, batch, d, q_offset, causal, window,
                            cluster, stages)
         nq = cdiv(tq, FT_ROWS)

@@ -1,16 +1,21 @@
 """Conv2D as an implicit-im2col GEMM: the CUDA kernel (``csrc/conv.cu``)
 and its plain version.
 
-Replaces ``repro.kernels.conv.conv2d_implicit``, on every datapath a
-Gemmini instance of the dtype table elaborates: int8 and int16 inputs
-accumulate in a wrapping int32 and store int8, int16 (saturated) or
-int32; bf16, fp16 and fp32 inputs accumulate in fp32 and store bf16, fp16
-or fp32 (rounded to nearest even; an fp16 overflow stores +-inf). The
-kernel runs the implicit GEMM (N*OH*OW, CO, KH*KW*CI) on one of two main
+Replaces ``repro.kernels.conv.conv2d_implicit``, on every (input,
+filter, accumulator, output) combination JAX's ``conv2d_ref`` accepts,
+raising ``TypeError`` where it does (``ref.product_dtypes``). One launch
+with the epilogue fused runs int8, int16 and int32 inputs of one dtype
+into a wrapping int32, stored int8, int16 (saturated) or int32 (no
+GELU), and bf16, fp16 and fp32 inputs into fp32, stored bf16, fp16 or
+fp32 (rounded to nearest even; an fp16 overflow stores +-inf). Every
+other combination converts its operands to the dtype XLA sums them in
+(``datapath.convert``), runs that dtype's kernel into its wide sum and
+finishes on ``datapath.epilogue_any``, as the GEMM's ``_gemm_any`` does.
+The kernel runs the implicit GEMM (N*OH*OW, CO, KH*KW*CI) on one of two main
 loops, with a plan (:func:`conv_plan`: tiles and K splits over the taps
 from the shape, the splits merged through the stream's workspace): int8,
 bf16 and fp16 on the tensor cores (``csrc/igemm.cuh``, the GEMM's plan),
-fp32 and int16 on the CUDA cores (``csrc/sgemm.cuh`` with the conv's own
+fp32, int16 and int32 on the CUDA cores (``csrc/sgemm.cuh`` with the conv's own
 plan: 56 x 64 tiles of 7 x 8 micro-tiles, 4 groups of threads splitting
 each tile's k, no split longer than 512 k, so fp32's chains stay
 short). The patch matrix is never materialised: the kernel
@@ -29,10 +34,8 @@ the tuner resolves one per shape, as for the GEMM.
 
 Launch counts, one per kernel of the ``kernels`` report:
 ``conv2d_implicit.launches`` the int8 kernel (``conv2d_implicit``), and
-``COUNTS[dtype].launches`` the fp32, bf16, fp16 and int16 ones
-(``conv2d_implicit[fp32]`` and so on). Other combinations (int32 inputs,
-another accumulator, mixed input dtypes) raise ``NotImplementedError`` on
-the card.
+``COUNTS[dtype].launches`` the fp32, bf16, fp16, int16 and int32 ones
+(``conv2d_implicit[fp32]`` and so on).
 """
 
 from __future__ import annotations
@@ -47,21 +50,23 @@ from repro_torch.core import flags
 from repro_torch.core.config import Activation
 from repro_torch.core.dtensor import require_local
 from repro_torch.kernels import _build
+from repro_torch.kernels import datapath as dp
 from repro_torch.kernels.contracts import kernel_contract
 from repro_torch.kernels import epilogue as epi
 from repro_torch.kernels.gemm import (_ACT, _DT, _INT_OUT, _PLAN_KEYS,
                                       _check_int_shift, _device_index,
-                                      _plan_dict, _workspace)
-from repro_torch.kernels.ref import conv2d_ref
+                                      _plan_dict, _workspace, direct,
+                                      loop_dtype)
+from repro_torch.kernels.ref import conv2d_ref, product_dtypes
 
 _I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
 _ARGS = [_P, _P, _P, _P] + [_I] * 15 + [_F, _P, _P, _I, _I]
 # Input codes of conv2d_launch, and each input's accumulator.
 _IN = {torch.int8: 0, torch.int16: 1, torch.float32: 2, torch.bfloat16: 3,
-       torch.float16: 4}
-_ACC = {torch.int8: torch.int32, torch.int16: torch.int32,
-        torch.float32: torch.float32, torch.bfloat16: torch.float32,
-        torch.float16: torch.float32}
+       torch.float16: 4, torch.int32: 5}
+# Each input's accumulator on the fused datapaths.
+_ACC = {d: torch.int32 if not d.is_floating_point else torch.float32
+        for d in _IN}
 _REGIMES = ("skinny", "square", "cuda cores")
 _PLANS: Dict[tuple, dict] = {}
 
@@ -127,19 +132,23 @@ def conv2d_implicit(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"conv2d: input has {ci} channels, filter {ci2}")
     if w.device != x.device or (b is not None and b.device != x.device):
         raise ValueError("conv2d_implicit: operands on different devices")
-    outs = _INT_OUT if acc_dtype == torch.int32 else _DT
-    if x.dtype not in _IN or w.dtype != x.dtype or \
-            acc_dtype != _ACC[x.dtype] or out_dtype not in outs:
-        raise NotImplementedError(
-            f"conv2d_implicit kernel takes int8 / int16 x the same -> int32 "
-            f"-> int8 / int16 / int32, or bf16 / fp16 / fp32 x the same -> "
-            f"fp32 -> bf16 / fp16 / fp32, got {x.dtype} x {w.dtype} -> "
-            f"{acc_dtype} -> {out_dtype}")
     if stride < 1 or padding < 0:
         raise ValueError(f"stride {stride} / padding {padding}")
-    if acc_dtype == torch.int32:
+    dot = product_dtypes(x.dtype, w.dtype, acc_dtype)  # TypeError as JAX's
+    if not acc_dtype.is_floating_point:
         epi.check_int_activation(activation)
         _check_int_shift(shift)
+    if not direct(x.dtype, w.dtype, acc_dtype, out_dtype, activation):
+        loop = loop_dtype(x.dtype, w.dtype, dot)
+        wide = torch.float32 if loop.is_floating_point else torch.int32
+        s = conv2d_implicit(dp.convert(x, loop), dp.convert(w, loop), None,
+                            acc_dtype=wide, out_dtype=wide, stride=stride,
+                            padding=padding, plan=plan)
+        y = dp.epilogue_any(s.reshape(-1, co), dot, acc_dtype,
+                            None if b is None else b.reshape(co), out_dtype,
+                            shift, activation)
+        return y.reshape(s.shape)
+    outs = _INT_OUT if acc_dtype == torch.int32 else _DT
     oh, ow = out_hw(h, wd, kh, kw, stride, padding)
     out = torch.empty((n, max(oh, 0), max(ow, 0), co), dtype=out_dtype,
                       device=x.device)
@@ -147,10 +156,11 @@ def conv2d_implicit(x: torch.Tensor, w: torch.Tensor,
         return out
     x, w = x.contiguous(), w.contiguous()
     if b is not None:
-        b = b.to(acc_dtype).reshape(co).contiguous()
+        b = dp.convert(b, acc_dtype).reshape(co).contiguous()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     m, k = n * oh * ow, kh * kw * ci
-    if plan is None and flags.get("tune_mode") != "off":
+    if plan is None and flags.get("tune_mode") != "off" and \
+            x.dtype != torch.int32:
         from repro_torch.tune import tuner
         plan = tuner.conv_schedule(x.dtype, out_dtype, n, h, wd, ci, co, kh,
                                    kw, stride, padding, b is not None,
@@ -176,8 +186,8 @@ def conv2d_implicit(x: torch.Tensor, w: torch.Tensor,
 
 
 conv2d_implicit.launches = 0
-# The fp32, bf16, fp16 and int16 kernels' launches (the kernels report
+# The fp32, bf16, fp16, int16 and int32 kernels' launches (the kernels report
 # names them conv2d_implicit[fp32] and so on).
 COUNTS = {dtype: SimpleNamespace(launches=0)
           for dtype in (torch.float32, torch.bfloat16, torch.float16,
-                        torch.int16)}
+                        torch.int16, torch.int32)}

@@ -4,12 +4,12 @@
 //
 // Replaces, in src/repro/kernels/attention.py, and the kernel each entry
 // point reaches per dtype:
-//   flash_attention          (_attn_kernel)          bf16 -> flash_tc_kernel<D, DenseKV>
+//   flash_attention          (_attn_kernel)          bf16 / fp16 -> flash_tc_kernel<D, DenseKV, T>
 //                                                    fp32 -> flash_f32_kernel<D, DenseKV32>
-//   paged_prefill_attention  (_paged_prefill_kernel) bf16 -> flash_tc_kernel<D, PagedKV>
+//   paged_prefill_attention  (_paged_prefill_kernel) bf16 / fp16 -> flash_tc_kernel<D, PagedKV, T>
 //                                                    fp32 -> flash_f32_kernel<D, PagedKV32>
-//   paged_decode_attention   (_paged_decode_kernel)  both -> decode_split_kernel<D, T, REP, PagedDecodeKV>
-//   decode_attention         (_decode_kernel)        both -> decode_split_kernel<D, T, REP, DenseDecodeKV>
+//   paged_decode_attention   (_paged_decode_kernel)  all -> decode_split_kernel<D, T, REP, PagedDecodeKV>
+//   decode_attention         (_decode_kernel)        all -> decode_split_kernel<D, T, REP, DenseDecodeKV>
 //
 // All compute the TPU kernels' online softmax with fp32 statistics: scores
 // of the scaled query against each key, optional softcap, the causal /
@@ -88,8 +88,23 @@
 //    a CUDA graph). Paged splits start on multiples of 64 keys, so at page
 //    64 a split is one page.
 //
-// Head dims 16, 32, 64, 128 and 256 are compiled; inputs are fp32 or bf16
-// (accumulation is always fp32, output in the input type).
+// Head dims 16, 32, 64, 128 and 256 are compiled; inputs are fp32, bf16 or
+// fp16 (accumulation is always fp32, output in the input type, as the TPU
+// kernels upcast every operand to fp32 and write q's dtype).
+//
+// fp16 on the tensor cores (flash_tc_kernel<D, Loader, __half>): the same
+// fragments, ldmatrix and plan as bf16, the MMA's .f16 variant. Q and K
+// are fp16 already (exact products, fp32 sums). P is fp32 and its split
+// into two MMA operands of V's type is where fp16's narrow range could
+// bite; the design scales per row: P = exp(s - m) with m the row's running
+// maximum, so P <= 1 can never overflow fp16, and P = P_hi + P_lo in fp16
+// keeps ~22 bits for P >= 2^-14. Only terms with P < 2^-25 flush to zero
+// (fp16's subnormals end at 2^-24), each at most 2^-25 of its |V| against
+// an output that the row's maximum key (P = 1) and l >= 1 hold at fp16's
+// 2^-11 resolution: a 2048-key row of such terms moves the output by under
+// 2^-14 of the largest |V|, within the fp16 rule (phase 3 holds a row
+// whose softmax spans more than 20 decades). The decode kernels read fp16
+// K/V on the CUDA cores, converted to fp32 as bf16 is.
 //
 // C interface: flash_attention_launch, paged_prefill_launch,
 // paged_decode_launch, decode_attention_launch (each returns
@@ -103,9 +118,12 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cooperative_groups.h>
 #include <float.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -114,16 +132,44 @@ using bf16 = __nv_bfloat16;
 
 constexpr float NEG = -0.7f * FLT_MAX;
 constexpr unsigned FULL = 0xffffffffu;
-enum { DT_F32 = 0, DT_BF16 = 1 };
+enum { DT_F32 = 0, DT_BF16 = 1, DT_F16 = 2 };
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
+__device__ __forceinline__ float ld(const __half* p) {
+  return __half2float(*p);
+}
 __device__ __forceinline__ void st(float* p, float v) { *p = v; }
 __device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
+__device__ __forceinline__ void st(__half* p, float v) {
+  *p = __float2half_rn(v);
+}
+
+// A 16-bit element type's pair: its vector type, to and from two floats
+// (round to nearest even; fp16 past its range reads +-inf).
+template <typename T> struct Pair;
+template <> struct Pair<__nv_bfloat16> {
+  using type = __nv_bfloat162;
+  static __device__ __forceinline__ float2 f2(type h) {
+    return __bfloat1622float2(h);
+  }
+  static __device__ __forceinline__ type make(float x, float y) {
+    return __floats2bfloat162_rn(x, y);
+  }
+};
+template <> struct Pair<__half> {
+  using type = __half2;
+  static __device__ __forceinline__ float2 f2(type h) {
+    return __half22float2(h);
+  }
+  static __device__ __forceinline__ type make(float x, float y) {
+    return __floats2half2_rn(x, y);
+  }
+};
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -142,10 +188,10 @@ template <typename T, int N>
 __device__ __forceinline__ void load_row(const T* p, float (&out)[N]) {
   if constexpr (sizeof(T) == 2 && N == 8) {
     uint4 u = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+    const auto* h = reinterpret_cast<const typename Pair<T>::type*>(&u);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      float2 f = __bfloat1622float2(h[i]);
+      float2 f = Pair<T>::f2(h[i]);
       out[2 * i] = f.x;
       out[2 * i + 1] = f.y;
     }
@@ -269,24 +315,34 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(p)));
 }
-// c += a (16x16, row) * b (16x8, col); bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// c += a (16x16, row) * b (16x8, col); T (bf16 or fp16) in, fp32
+// accumulate: the same fragments, the instruction's type differs.
+template <typename T>
+__device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4],
+                                      uint32_t b0, uint32_t b1) {
+  if constexpr (std::is_same<T, __half>::value)
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 h) {
+template <typename P2>
+__device__ __forceinline__ uint32_t bits(P2 h) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
-// (x, y) as a bf16 pair hi plus the pair of what rounding left, lo.
+// (x, y) as a T pair hi plus the pair of what rounding left, lo.
+template <typename T>
 __device__ __forceinline__ void split_pair(float x, float y, uint32_t& hi,
                                            uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
+  const auto h = Pair<T>::make(x, y);
+  const float2 hf = Pair<T>::f2(h);
   hi = bits(h);
-  lo = bits(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+  lo = bits(Pair<T>::make(x - hf.x, y - hf.y));
 }
 
 // Live keys [lo, hi) of the 16-row query tile whose first row sits at
@@ -298,7 +354,7 @@ __host__ __device__ __forceinline__ void flash_tile_keys(
   if (causal && q0 + FT_ROWS < hi) hi = q0 + FT_ROWS;
 }
 
-template <int D, typename Loader>
+template <int D, typename Loader, typename T>
 __global__ void __launch_bounds__(FT_WARPS * 32, 1)
 flash_tc_kernel(FlashArgs p) {
   using Tl = FlashTile<D>;
@@ -398,8 +454,8 @@ flash_tc_kernel(FlashArgs p) {
         uint32_t r[4];
         ldsm_x4(r, ks + (j * 8 + (lane & 7) + ((lane >> 4) << 3)) * LD +
                        kk * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[j], qf[kk], r[0], r[1]);
-        mma_bf16(s[j + 1], qf[kk], r[2], r[3]);
+        mma16<T>(s[j], qf[kk], r[0], r[1]);
+        mma16<T>(s[j + 1], qf[kk], r[2], r[3]);
       }
     }
 
@@ -448,19 +504,19 @@ flash_tc_kernel(FlashArgs p) {
 #pragma unroll
     for (int kb = 0; kb < KT / 16; ++kb) {
       uint32_t ph[4], pl[4];
-      split_pair(s[2 * kb][0], s[2 * kb][1], ph[0], pl[0]);
-      split_pair(s[2 * kb][2], s[2 * kb][3], ph[1], pl[1]);
-      split_pair(s[2 * kb + 1][0], s[2 * kb + 1][1], ph[2], pl[2]);
-      split_pair(s[2 * kb + 1][2], s[2 * kb + 1][3], ph[3], pl[3]);
+      split_pair<T>(s[2 * kb][0], s[2 * kb][1], ph[0], pl[0]);
+      split_pair<T>(s[2 * kb][2], s[2 * kb][3], ph[1], pl[1]);
+      split_pair<T>(s[2 * kb + 1][0], s[2 * kb + 1][1], ph[2], pl[2]);
+      split_pair<T>(s[2 * kb + 1][2], s[2 * kb + 1][3], ph[3], pl[3]);
 #pragma unroll
       for (int n = 0; n < ND; n += 2) {
         uint32_t r[4];
         ldsm_x4_t(r, vs + (kb * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
                          n * 8 + (lane >> 4) * 8);
-        mma_bf16(acc[n], ph, r[0], r[1]);
-        mma_bf16(acc[n], pl, r[0], r[1]);
-        mma_bf16(acc[n + 1], ph, r[2], r[3]);
-        mma_bf16(acc[n + 1], pl, r[2], r[3]);
+        mma16<T>(acc[n], ph, r[0], r[1]);
+        mma16<T>(acc[n], pl, r[0], r[1]);
+        mma16<T>(acc[n + 1], ph, r[2], r[3]);
+        mma16<T>(acc[n + 1], pl, r[2], r[3]);
       }
     }
     __syncwarp();                         // stage is free for the next load
@@ -569,10 +625,9 @@ flash_tc_kernel(FlashArgs p) {
     }
     ls = fmaxf(ls, 1e-37f);
     bf16* out = p.o + (((long long)b * p.Tq + row0 + row) * p.H + h) * D + c;
-    reinterpret_cast<__nv_bfloat162*>(out)[0] =
-        __floats2bfloat162_rn(o.x / ls, o.y / ls);
-    reinterpret_cast<__nv_bfloat162*>(out)[1] =
-        __floats2bfloat162_rn(o.z / ls, o.w / ls);
+    using T2 = typename Pair<T>::type;
+    reinterpret_cast<T2*>(out)[0] = Pair<T>::make(o.x / ls, o.y / ls);
+    reinterpret_cast<T2*>(out)[1] = Pair<T>::make(o.z / ls, o.w / ls);
   }
   cluster.sync();                         // peers stop reading our partials
 }
@@ -633,7 +688,7 @@ bool flash_tc_geom(const FlashArgs& a, int batch, int cluster, int stages,
   return true;
 }
 
-template <int D, typename Loader>
+template <int D, typename Loader, typename T>
 cudaError_t launch_flash_tc(FlashArgs a, int batch, int cluster, int stages,
                             cudaStream_t s) {
   FlashGeom g;
@@ -642,8 +697,8 @@ cudaError_t launch_flash_tc(FlashArgs a, int batch, int cluster, int stages,
   a.stages = g.stages;
   const int cl = g.cluster;
   const dim3 grid = g.grid;
-  auto kernel = flash_tc_kernel<D, Loader>;
-  static bool configured = false;     // per instantiation: per loader
+  auto kernel = flash_tc_kernel<D, Loader, T>;
+  static bool configured = false;     // per instantiation
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -667,19 +722,31 @@ cudaError_t launch_flash_tc(FlashArgs a, int batch, int cluster, int stages,
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-template <typename Loader>
+template <typename Loader, typename T>
 cudaError_t flash_tc_by_dim(int D, const FlashArgs& a, int batch, int cluster,
                             int stages, cudaStream_t s) {
   switch (D) {
-    case 16: return launch_flash_tc<16, Loader>(a, batch, cluster, stages, s);
-    case 32: return launch_flash_tc<32, Loader>(a, batch, cluster, stages, s);
-    case 64: return launch_flash_tc<64, Loader>(a, batch, cluster, stages, s);
+    case 16:
+      return launch_flash_tc<16, Loader, T>(a, batch, cluster, stages, s);
+    case 32:
+      return launch_flash_tc<32, Loader, T>(a, batch, cluster, stages, s);
+    case 64:
+      return launch_flash_tc<64, Loader, T>(a, batch, cluster, stages, s);
     case 128:
-      return launch_flash_tc<128, Loader>(a, batch, cluster, stages, s);
+      return launch_flash_tc<128, Loader, T>(a, batch, cluster, stages, s);
     case 256:
-      return launch_flash_tc<256, Loader>(a, batch, cluster, stages, s);
+      return launch_flash_tc<256, Loader, T>(a, batch, cluster, stages, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// bf16 or fp16 (the 16-bit dtype code) on the tensor-core kernel.
+template <typename Loader>
+cudaError_t flash_tc_dispatch(int dtype, int D, const FlashArgs& a, int batch,
+                              int cluster, int stages, cudaStream_t s) {
+  return dtype == DT_F16
+             ? flash_tc_by_dim<Loader, __half>(D, a, batch, cluster, stages, s)
+             : flash_tc_by_dim<Loader, bf16>(D, a, batch, cluster, stages, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -1319,10 +1386,11 @@ __device__ __forceinline__ void to_float(const uint4 (&w)[E * sizeof(T) / 16],
   if constexpr (sizeof(T) == 2) {
 #pragma unroll
     for (int j = 0; j < E / 8; ++j) {
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w[j]);
+      const auto* h =
+          reinterpret_cast<const typename Pair<T>::type*>(&w[j]);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(h[i]);
+        const float2 f = Pair<T>::f2(h[i]);
         out[8 * j + 2 * i] = f.x;
         out[8 * j + 2 * i + 1] = f.y;
       }
@@ -1602,6 +1670,9 @@ cudaError_t split_dispatch(int dtype, int D, int rep_blk, const SplitArgs& a,
   if (dtype == DT_BF16)
     return rep_blk == 4 ? split_by_dim<bf16, 4, Loader>(D, a, s)
                         : split_by_dim<bf16, 8, Loader>(D, a, s);
+  if (dtype == DT_F16)
+    return rep_blk == 4 ? split_by_dim<__half, 4, Loader>(D, a, s)
+                        : split_by_dim<__half, 8, Loader>(D, a, s);
   return rep_blk == 4 ? split_by_dim<float, 4, Loader>(D, a, s)
                       : split_by_dim<float, 8, Loader>(D, a, s);
 }
@@ -1615,8 +1686,8 @@ cudaError_t split_dispatch(int dtype, int D, int rep_blk, const SplitArgs& a,
 template <int D>
 bool flash_geom_of(int dtype, const FlashArgs& a, const F32Args& f,
                    int batch, int cluster, int stages, FlashGeom& g) {
-  return dtype == DT_BF16 ? flash_tc_geom<D>(a, batch, cluster, stages, g)
-                          : f32_geom<D>(f, batch, cluster, stages, g);
+  return dtype != DT_F32 ? flash_tc_geom<D>(a, batch, cluster, stages, g)
+                         : f32_geom<D>(f, batch, cluster, stages, g);
 }
 
 bool flash_geom_plan(int D, int dtype, const FlashArgs& a, const F32Args& f,
@@ -1655,13 +1726,14 @@ extern "C" int flash_attention_launch(
     int H, int KVH, int D, int causal, int window, float softcap, float scale,
     int dtype, void* stream, int cluster, int stages) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_BF16) {
+  if (dtype != DT_F32) {   // bf16 or fp16: 16-bit storage, moved as bits
     FlashArgs a{};
     a.q = static_cast<const bf16*>(q); a.k = static_cast<const bf16*>(k);
     a.v = static_cast<const bf16*>(v); a.o = static_cast<bf16*>(o);
     a.Tq = Tq; a.Tk = Tk; a.H = H; a.KVH = KVH; a.q_offset = Tk - Tq;
     a.causal = causal; a.window = window; a.softcap = softcap; a.scale = scale;
-    return (int)flash_tc_by_dim<DenseKV>(D, a, B, cluster, stages, s);
+    return (int)flash_tc_dispatch<DenseKV>(dtype, D, a, B, cluster, stages,
+                                           s);
   }
   F32Args a{};
   a.q = static_cast<const float*>(q); a.k = static_cast<const float*>(k);
@@ -1703,7 +1775,7 @@ extern "C" int paged_prefill_launch(
     void* o, int Tq, int start, int H, int KVH, int D, int npool, int page,
     int window, float softcap, float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_BF16) {
+  if (dtype != DT_F32) {   // bf16 or fp16
     FlashArgs a{};
     a.q = static_cast<const bf16*>(q);
     a.k = static_cast<const bf16*>(k_pool);
@@ -1712,7 +1784,7 @@ extern "C" int paged_prefill_launch(
     a.table = table; a.npool = npool; a.page = page;
     a.Tq = Tq; a.Tk = start + Tq; a.H = H; a.KVH = KVH; a.q_offset = start;
     a.causal = 1; a.window = window; a.softcap = softcap; a.scale = scale;
-    return (int)flash_tc_by_dim<PagedKV>(D, a, 1, 0, 0, s);
+    return (int)flash_tc_dispatch<PagedKV>(dtype, D, a, 1, 0, 0, s);
   }
   F32Args a{};
   a.q = static_cast<const float*>(q);

@@ -1,7 +1,9 @@
 // Conv2D for Hopper as an implicit-im2col GEMM, on every datapath of the
 // generator's dtype table: int8 and int16 inputs (int32 accumulator, int8 /
 // int16 / int32 out), bf16, fp16 and fp32 inputs (fp32 accumulator, bf16 /
-// fp16 / fp32 out).
+// fp16 / fp32 out), and int32 inputs (int32 accumulator) on the CUDA-core
+// loop. Every other combination runs one of these into its wide sum and
+// datapath.cu's epilogue_any after it (kernels/conv.py).
 //
 // Replaces: src/repro/kernels/conv.py conv2d_implicit (_conv_kernel). On
 // the TPU the padded image block sits in VMEM and each filter tap adds one
@@ -13,8 +15,9 @@
 //   - int8, bf16, fp16: igemm.cuh's tensor-core loop (mma.sync s8, or
 //     m16n8k16 with fp32 accumulate; 16-bit filters read by
 //     ldmatrix.trans);
-//   - fp32, int16: sgemm.cuh's CUDA-core loop (IEEE FMAs, or wrapping
-//     int32 multiply-adds: Hopper has no int16 tensor-core MMA), with a
+//   - fp32, int16, int32: sgemm.cuh's CUDA-core loop (IEEE FMAs, or
+//     wrapping int32 multiply-adds: Hopper has no int16 or int32
+//     tensor-core MMA), with a
 //     plan of its own (cc_plan below: 56 x 64 tiles of 7 x 8 micro-tiles,
 //     4 k groups, no split longer than 512 k).
 // Either loop's plan (tile, K splits over the taps, the grid) comes from
@@ -70,7 +73,7 @@ extern __shared__ __align__(16) int8_t conv_dyn_smem[];
 namespace {
 
 // Input codes of conv2d_launch / conv_plan.
-enum { IN_I8 = 0, IN_I16 = 1, IN_F32 = 2, IN_BF16 = 3, IN_F16 = 4 };
+enum { IN_I8 = 0, IN_I16 = 1, IN_F32 = 2, IN_BF16 = 3, IN_F16 = 4, IN_I32 = 5 };
 // Output codes: integer accumulators 0 int32, 1 int8, 2 int16; fp32
 // accumulators 0 fp32, 1 bf16, 2 fp16.
 enum { OUT_32 = 0, OUT_8_OR_BF16 = 1, OUT_16 = 2 };
@@ -572,6 +575,9 @@ extern "C" int conv2d_launch(const void* x, const void* w, const void* bias,
     case IN_I16:
       return launch_cc<int16_t>(sh, x, w, bias, out, out_dtype, act, shift,
                                 1.f, workspace, s, tile, splits);
+    case IN_I32:
+      return launch_cc<int>(sh, x, w, bias, out, out_dtype, act, shift, 1.f,
+                            workspace, s, tile, splits);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -592,11 +598,13 @@ extern "C" int conv_plan(int m, int n, int k, int in_dtype, int tile,
                          int splits, long long* plan) {
   if (m < 0 || n < 0 || k < 0) return static_cast<int>(cudaErrorInvalidValue);
   const int bad = static_cast<int>(cudaErrorInvalidValue);
-  if (in_dtype == IN_F32 || in_dtype == IN_I16) {
+  if (in_dtype == IN_F32 || in_dtype == IN_I16 || in_dtype == IN_I32) {
     sgemm::Plan p;
     const bool ok = in_dtype == IN_F32
                         ? cc_resolve<float>(m, n, k, tile, splits, p)
-                        : cc_resolve<int16_t>(m, n, k, tile, splits, p);
+                    : in_dtype == IN_I16
+                        ? cc_resolve<int16_t>(m, n, k, tile, splits, p)
+                        : cc_resolve<int>(m, n, k, tile, splits, p);
     if (!ok) return bad;
     const long long out[11] = {2,        p.bm,     p.bn,      p.bk,
                                p.splits, p.blocks, p.threads, p.stages,

@@ -1,8 +1,11 @@
-// The engine's CUDA-core main loop for Hopper, two datapaths:
+// The engine's CUDA-core main loop for Hopper, three datapaths:
 //   fp32 x fp32 -> fp32 on IEEE FMAs (the fp32 engine config, Table 1's
-//     design point 4), and
+//     design point 4),
 //   int16 x int16 -> int32 on integer multiply-adds (an int16 instance's
 //     conv; its GEMM runs igemm.cuh's int8 tensor-core loop on byte planes),
+//     and
+//   int32 x int32 -> int32 the same way (datapath.cu's GEMM and conv.cu's
+//     int32 conv: the int32 inputs of an int32 accumulator),
 // C = epilogue(A @ B + D), for the engine GEMM (gemm.cu: fp32) and the
 // implicit-im2col conv (conv.cu: fp32 and int16), A coming through a
 // loader policy (ALoad: a row-major matrix here, or conv.cu's tap gather
@@ -121,6 +124,11 @@ template <> struct Dp<int16_t> {
   using Acc = int;
   static constexpr bool INT = true;
 };
+// int32 inputs (datapath.cu, conv.cu): int32 multiply-adds modulo 2^32.
+template <> struct Dp<int> {
+  using Acc = int;
+  static constexpr bool INT = true;
+};
 
 // 4 accumulator values of a quad in shared memory.
 template <typename Acc> struct Q4 { Acc x, y, z, w; };
@@ -132,6 +140,10 @@ __device__ __forceinline__ Q4<int> quad(const int16_t* p) {
   const uint2 v = *reinterpret_cast<const uint2*>(p);
   return {static_cast<int>(v.x << 16) >> 16, static_cast<int>(v.x) >> 16,
           static_cast<int>(v.y << 16) >> 16, static_cast<int>(v.y) >> 16};
+}
+__device__ __forceinline__ Q4<int> quad(const int* p) {
+  const int4 v = *reinterpret_cast<const int4*>(p);
+  return {v.x, v.y, v.z, v.w};
 }
 template <typename Acc>
 __device__ __forceinline__ Acc quad_at(const Q4<Acc>& q, int i) {

@@ -57,6 +57,14 @@
 // it. More warps in flight (wgmma, or more rows per block) is the next
 // step.
 //
+// fp16 inputs (an fp16 model) run ssd_kernel too, on x, B and C widened
+// exactly to fp32 by datapath.cu's convert kernel (kernels/mamba2.py), y
+// rounded back to fp16 the same way: the JAX kernel upcasts every operand
+// to fp32 in its body, and here the decay-weighted scores and the carried
+// state (which pass fp16's 65504 where x is large) stay in fp32, where the
+// bf16 kernel's split of fp32 operands into 16-bit MMA terms would need
+// fp16's range.
+//
 // fp32 inputs (the fp32 gate, phases 7-8's fp32 logits) run ssd_kernel on
 // the CUDA cores in IEEE fp32 (the tensor cores take no fp32 operands),
 // one launch per chunk like the bf16 kernel. Bound by operations there (67

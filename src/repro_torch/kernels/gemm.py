@@ -1,19 +1,27 @@
 """Engine GEMM on both dataflows, and the mvout epilogue: the CUDA kernels
 (``csrc/gemm.cu`` for int8, bf16 and fp32 inputs, ``csrc/gemm16.cu`` for
-fp16 and int16 inputs; main loops in ``csrc/hgemm.cuh`` (bf16, fp16),
-``csrc/sgemm.cuh`` (fp32) and ``csrc/igemm.cuh`` (int8, int16)) and their
-plain versions.
+fp16 and int16 inputs, ``csrc/datapath.cu`` for int32 inputs and the
+generic datapath; main loops in ``csrc/hgemm.cuh`` (bf16, fp16),
+``csrc/sgemm.cuh`` (fp32, int32) and ``csrc/igemm.cuh`` (int8, int16))
+and their plain versions.
 
 Replaces ``repro.kernels.gemm``: ``gemm_os``, ``gemm_ws``,
 ``accumulator_epilogue`` and the dataflow dispatch ``gemm``. The GEMMs
-compute ``C = act(round_shift(A @ B + D))`` on every datapath a Gemmini
-instance of the dtype table elaborates: float inputs (bf16, fp16, fp32)
-accumulate in fp32 and store bf16, fp16 or fp32 (rounded to nearest even;
-an fp16 overflow stores +-inf, as JAX's ``astype`` does); integer inputs
-(int8, int16) accumulate in a wrapping int32 (the bias added once, modulo
-2^32 like every int32 add of the kernel) and saturate to int8 or int16, or
-store int32. Other combinations (int32 inputs, another accumulator, mixed
-input dtypes) raise ``NotImplementedError`` on the card. A CUDA tensor
+compute ``C = act(round_shift(A @ B + D))`` on every (input, input,
+accumulator, output) combination JAX's ``gemm_ref`` accepts, and raise
+``TypeError`` exactly where it does (both inputs integer and the
+accumulator narrower: int16 -> int8, int32 -> int8 / int16 / bf16 /
+fp16). One kernel with its epilogue fused (:func:`direct`) runs float
+inputs (bf16, fp16, fp32) of one dtype into fp32 and out bf16, fp16 or
+fp32 (rounded to nearest even; an fp16 overflow stores +-inf, as JAX's
+``astype`` does), and integer inputs (int8, int16, int32) of one dtype
+into a wrapping int32 (the bias added once, modulo 2^32 like every int32
+add of the kernel) saturated to int8 or int16, or stored as int32. Every
+other combination -- another accumulator, mixed input dtypes, GELU on an
+integer accumulator -- runs :func:`_gemm_any`: the inputs converted to the
+dtype XLA sums them in (``ref.product_dtypes``), the wide sum on that
+dtype's main loop, and ``datapath.epilogue_any``; the result is the plain
+version's, its dtype rules documented in ``kernels/ref.py``. A CUDA tensor
 launches the kernel (or raises), a CPU tensor takes the plain version
 (``repro_torch.kernels.ref.gemm_ref``, ``epilogue.apply``). The kernels mask
 ragged edges themselves, so operands are never padded to a tile plan
@@ -68,11 +76,14 @@ the static one; int32 sums wrap and stay bit for bit.
 Launch counts, one per kernel of the ``kernels`` report:
 ``gemm.launches`` the bf16 kernel in OS order (the serving path's),
 ``gemm_os.launches`` the int8 kernel in OS order,
-``OS_COUNTS[dtype].launches`` the fp32 / fp16 / int16 kernel in OS order,
+``OS_COUNTS[dtype].launches`` the fp32 / fp16 / int16 / int32 kernel in OS
+order,
 ``gemm_ws.launches`` any of them in WS order,
 ``BWD_COUNT.launches`` either backward product, any float datapath
 (``gemm[bwd]``),
-``accumulator_epilogue.launches``.
+``accumulator_epilogue.launches``; :func:`_gemm_any`'s conversions and
+generic epilogue count in ``datapath.convert`` and
+``datapath.epilogue_any``, its product in its main loop's count.
 """
 
 from __future__ import annotations
@@ -89,9 +100,10 @@ from repro_torch.core import flags
 from repro_torch.core.config import Activation, Dataflow
 from repro_torch.core.dtensor import require_local
 from repro_torch.kernels import _build
+from repro_torch.kernels import datapath as dp
 from repro_torch.kernels.contracts import kernel_contract
 from repro_torch.kernels import epilogue as epi
-from repro_torch.kernels.ref import gemm_ref
+from repro_torch.kernels.ref import gemm_ref, product_dtypes
 
 _ACT = {Activation.NONE: 0, Activation.RELU: 1, Activation.RELU6: 2,
         Activation.GELU: 3, Activation.SILU: 4}
@@ -102,7 +114,8 @@ _INT_OUT = {torch.int32: 0, torch.int8: 1, torch.int16: 2}
 _PLAN_DT = {**_DT, torch.int16: 3}
 # The integer inputs and their kernels' libraries: (library, entry point).
 _INT_IN = {torch.int8: ("gemm", "gemm_s8_launch"),
-           torch.int16: ("gemm16", "gemm_s16_launch")}
+           torch.int16: ("gemm16", "gemm_s16_launch"),
+           torch.int32: ("datapath", "gemm_s32_launch")}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _FLOAT_ARGS = [_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _L, _I, _I, _I, _F, _I,
@@ -181,6 +194,75 @@ def gemm_plan(m: int, n: int, k: int, b_trans: bool = False,
         plan = _PLANS[key] = _plan_dict(dict(zip(_PLAN_KEYS, out)),
                                         _REGIMES)
     return plan
+
+
+_S32_PLANS: Dict[tuple, dict] = {}
+
+
+def gemm_s32_plan(m: int, n: int, k: int, b_trans: bool = False,
+                  device=None, *, tile: int = 0, splits: int = 0) -> dict:
+    """The int32 kernel's plan (``csrc/datapath.cu`` on ``sgemm.cuh``:
+    fp32's tiles and K splits, int32 multiply-adds modulo 2^32), as
+    :func:`gemm_plan` reports one; tile codes 1 and 2 (64- and 128-row
+    tiles)."""
+    index = _device_index(device)
+    key = (m, n, k, bool(b_trans), index, tile, splits)
+    plan = _S32_PLANS.get(key)
+    if plan is None:
+        out = (ctypes.c_longlong * len(_PLAN_KEYS))()
+        fn = _build.bind("datapath", "gemm_s32_plan", [_I] * 6 + [_P])
+        with torch.cuda.device(index):
+            _build.check(fn(m, n, k, int(bool(b_trans)), int(tile),
+                            int(splits), ctypes.addressof(out)),
+                         "gemm_s32_plan")
+        plan = _S32_PLANS[key] = _plan_dict(dict(zip(_PLAN_KEYS, out)),
+                                            _REGIMES)
+    return plan
+
+
+def direct(a_dtype: torch.dtype, b_dtype: torch.dtype, acc_dtype: torch.dtype,
+           out_dtype: torch.dtype, activation: Activation) -> bool:
+    """Whether one kernel computes this datapath with its epilogue fused:
+    inputs of one dtype, int8 / int16 / int32 into a wrapping int32 and
+    out int8, int16 or int32 (no GELU), or bf16 / fp16 / fp32 into fp32
+    and out bf16, fp16 or fp32. Every other combination JAX accepts runs
+    :func:`_gemm_any`."""
+    if a_dtype != b_dtype:
+        return False
+    if a_dtype in _INT_IN:
+        return acc_dtype == torch.int32 and out_dtype in _INT_OUT and \
+            activation is not Activation.GELU
+    return a_dtype in _DT and acc_dtype == torch.float32 and out_dtype in _DT
+
+
+def loop_dtype(a_dtype: torch.dtype, b_dtype: torch.dtype,
+               dot: torch.dtype) -> torch.dtype:
+    """The main loop a product summed in ``dot`` runs on: ``dot`` itself,
+    but integer inputs keep the wider input's loop (an int8 or int16 sum
+    wrapped to ``dot``'s width is the int32 sum wrapped)."""
+    if not (dot.is_floating_point or a_dtype.is_floating_point or
+            b_dtype.is_floating_point):
+        return max(a_dtype, b_dtype, key=lambda t: torch.iinfo(t).bits)
+    return dot
+
+
+def _gemm_any(a: torch.Tensor, b: torch.Tensor, d: Optional[torch.Tensor],
+              *, acc_dtype: torch.dtype, out_dtype: torch.dtype, shift: int,
+              activation: Activation, ws: bool,
+              plan: Optional[dict]) -> torch.Tensor:
+    """A combination no kernel fuses (``csrc/datapath.cu``): the inputs
+    converted to their main loop's dtype where they are not (mechanism
+    (d)), the product's wide sum on that loop ((a), or (b) for int32), the
+    generic epilogue ((c)). Two to four launches, each counted."""
+    dot = product_dtypes(a.dtype, b.dtype, acc_dtype)
+    loop = loop_dtype(a.dtype, b.dtype, dot)
+    wide = torch.float32 if loop.is_floating_point else torch.int32
+    a = dp.convert(a, loop)
+    b = dp.convert(b, loop)
+    s = _gemm(a, b, None, acc_dtype=wide, out_dtype=wide, shift=0,
+              activation=Activation.NONE, ws=ws, plan=plan)
+    return dp.epilogue_any(s, dot, acc_dtype, d, out_dtype, shift,
+                           activation)
 
 
 _S8_REGIMES = ("skinny", "square")
@@ -263,30 +345,20 @@ def _gemm(a: torch.Tensor, b: torch.Tensor, d: Optional[torch.Tensor], *,
         raise ValueError(f"inner dims mismatch: {tuple(a.shape)} @ {tuple(b.shape)}")
     if b.device != a.device or (d is not None and d.device != a.device):
         raise ValueError("gemm: operands on different devices")
-    if b.dtype != a.dtype:
-        raise NotImplementedError(f"gemm kernel takes inputs of one dtype, "
-                                  f"got {a.dtype} @ {b.dtype}")
-    integer = a.dtype in _INT_IN
-    if integer:
-        if acc_dtype != torch.int32 or out_dtype not in _INT_OUT:
-            raise NotImplementedError(
-                f"{a.dtype} gemm kernel accumulates in int32 and writes int8, "
-                f"int16 or int32, got acc {acc_dtype}, out {out_dtype}")
+    product_dtypes(a.dtype, b.dtype, acc_dtype)    # TypeError where JAX's
+    if not acc_dtype.is_floating_point:
         epi.check_int_activation(activation)
         _check_int_shift(shift)
-    elif a.dtype not in _DT:
-        raise NotImplementedError(
-            f"gemm kernel takes int8, int16, bf16, fp16 or fp32 inputs, got "
-            f"{a.dtype}")
-    elif acc_dtype != torch.float32 or out_dtype not in _DT:
-        raise NotImplementedError(
-            f"gemm kernel accumulates float inputs in fp32 and writes bf16, "
-            f"fp16 or fp32, got acc {acc_dtype}, out {out_dtype}")
+    if not direct(a.dtype, b.dtype, acc_dtype, out_dtype, activation):
+        return _gemm_any(a, b, d, acc_dtype=acc_dtype, out_dtype=out_dtype,
+                         shift=shift, activation=activation, ws=ws,
+                         plan=plan)
+    integer = a.dtype in _INT_IN
     a = a.contiguous()
     b, trans, ldb = _b_layout(b)
     ldd = 0
     if d is not None:
-        d = d.to(acc_dtype)
+        d = dp.convert(d, acc_dtype)
         if d.dim() == 2 and d.shape[0] == m and m > 1:
             d = d.expand(m, n).contiguous()
             ldd = n
@@ -297,7 +369,8 @@ def _gemm(a: torch.Tensor, b: torch.Tensor, d: Optional[torch.Tensor], *,
         return c
     stream = torch.cuda.current_stream(a.device).cuda_stream
     dptr = d.data_ptr() if d is not None else None
-    if plan is None and flags.get("tune_mode") != "off":
+    if plan is None and flags.get("tune_mode") != "off" and \
+            a.dtype != torch.int32:
         from repro_torch.tune import tuner
         plan = tuner.gemm_schedule(a.dtype, acc_dtype, out_dtype, ws, m, n,
                                    k, d is not None, bool(trans), a.device)
@@ -307,6 +380,11 @@ def _gemm(a: torch.Tensor, b: torch.Tensor, d: Optional[torch.Tensor], *,
                               splits)) \
             or gemm_s8_plan(m, n, k, trans, a.device, tile=tile,
                             splits=splits)
+    elif a.dtype == torch.int32:
+        plan = _S32_PLANS.get((m, n, k, bool(trans), a.device.index, tile,
+                               splits)) \
+            or gemm_s32_plan(m, n, k, trans, a.device, tile=tile,
+                             splits=splits)
     else:
         plan = _PLANS.get((m, n, k, bool(trans), a.device.index, a.dtype,
                            tile, splits)) \
@@ -504,26 +582,27 @@ def accumulator_epilogue(acc: torch.Tensor, *, out_dtype: torch.dtype,
                          activation: Activation = Activation.NONE
                          ) -> torch.Tensor:
     """The mvout path: rounding shift, activation and saturation over a raw
-    accumulator of any shape (int32 -> int8 / int16 / int32, or fp32 ->
-    fp32 / bf16 / fp16)."""
+    accumulator of any shape and any dtype of the table into any output:
+    int32 -> int8 / int16 / int32 (no GELU) and fp32 -> fp32 / bf16 / fp16
+    on the packed mvout kernel, every other pair on the generic epilogue
+    (:func:`repro_torch.kernels.datapath.epilogue_any`)."""
     require_local("accumulator_epilogue", acc)
     if acc.device.type == "cpu":
         return epi.apply(acc, shift=shift, activation=activation,
                          out_dtype=out_dtype)
     if acc.device.type != "cuda":
         raise ValueError(f"accumulator_epilogue: no kernel for device {acc.device}")
-    if acc.dtype == torch.int32:
-        if out_dtype not in _INT_OUT:
-            raise NotImplementedError(f"int32 accumulator -> {out_dtype}")
+    if not acc.is_floating_point():
         epi.check_int_activation(activation)
         _check_int_shift(shift)
+    if acc.dtype == torch.int32 and out_dtype in _INT_OUT and \
+            activation is not Activation.GELU:
         acc_code, out_code = 0, _INT_OUT[out_dtype]
-    elif acc.dtype == torch.float32:
-        if out_dtype not in _DT:
-            raise NotImplementedError(f"fp32 accumulator -> {out_dtype}")
+    elif acc.dtype == torch.float32 and out_dtype in _DT:
         acc_code, out_code = 1, _DT[out_dtype]
     else:
-        raise NotImplementedError(f"accumulator dtype {acc.dtype}")
+        return dp.epilogue_any(acc, acc.dtype, acc.dtype, None, out_dtype,
+                               shift, activation)
     acc = acc.contiguous()
     c = torch.empty(acc.shape, dtype=out_dtype, device=acc.device)
     if acc.numel() == 0:
@@ -542,12 +621,13 @@ gemm.launches = 0
 gemm_os.launches = 0
 gemm_ws.launches = 0
 accumulator_epilogue.launches = 0
-# The fp32, fp16 and int16 kernels' launches in OS order (gemm_os and gemm
-# run them; the kernels report names them gemm[fp32], gemm[fp16] and
-# gemm[int16]).
+# The fp32, fp16, int16 and int32 kernels' launches in OS order (gemm_os
+# and gemm run them; the kernels report names them gemm[fp32], gemm[fp16],
+# gemm[int16] and gemm[int32]).
 OS_COUNTS = {torch.float32: SimpleNamespace(launches=0),
              torch.float16: SimpleNamespace(launches=0),
-             torch.int16: SimpleNamespace(launches=0)}
+             torch.int16: SimpleNamespace(launches=0),
+             torch.int32: SimpleNamespace(launches=0)}
 # Either backward product of :class:`_GemmGrad`, on any float datapath (the
 # kernels report names it gemm[bwd]).
 BWD_COUNT = SimpleNamespace(launches=0)

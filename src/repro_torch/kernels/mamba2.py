@@ -17,7 +17,13 @@ segment (chunked prefill).
 
 On the card bf16 inputs run the tensor-core kernel and fp32 inputs the
 CUDA-core kernel, each one launch per chunk of the sequence (a serving
-call is one chunk); ``ssd.launches`` grows by one per call.
+call is one chunk); ``ssd.launches`` grows by one per call. fp16 inputs
+run the fp32 kernel: x, B and C widened exactly to fp32 by
+``datapath.convert`` (the JAX kernel upcasts every operand to fp32 in its
+body too), y written in fp32 and rounded to fp16 by the same kernel, so
+the decay-weighted scores and the carried state never meet fp16's range
+(a state past 65504 stays finite); ``F16_COUNT.launches`` counts its SSD
+launches, the conversions count in ``datapath.convert``.
 
 One deliberate difference from the JAX dispatch (``ops.ssd_impl``): there,
 a chunk that resumes from a carried state leaves the TPU kernel for the XLA
@@ -32,7 +38,10 @@ import ctypes
 
 import torch
 
+from types import SimpleNamespace
+
 from repro_torch.kernels import _build
+from repro_torch.kernels import datapath as dp
 from repro_torch.core.dtensor import require_local
 from repro_torch.kernels.contracts import kernel_contract
 from repro_torch.models.ssm import ssd_chunked
@@ -115,7 +124,9 @@ def ssd_plan(bsz: int, t: int, h: int, g: int, n: int, p: int, chunk: int,
     fn = _build.bind("ssd", "ssd_plan", [_I] * 9 + [_P])
     with torch.cuda.device(device if device is not None
                            else torch.cuda.current_device()):
-        _build.check(fn(bsz, t, h, g, n, p, chunk, _DT[dtype],
+        # fp16 runs the fp32 kernel on widened operands
+        code = _DT[torch.float32 if dtype == torch.float16 else dtype]
+        _build.check(fn(bsz, t, h, g, n, p, chunk, code,
                         int(bool(final_state)), ctypes.addressof(out)),
                      "ssd_plan")
     return dict(zip(_PLAN_KEYS, out))
@@ -126,7 +137,7 @@ def ssd(x, dt, a_log, b, c, *, d_skip=None, chunk: int = 256,
         initial_state=None, return_final_state: bool = False):
     """The chunked SSD on the card (CUDA tensors) or ``ssd_plain`` (CPU
     tensors); arguments and results as for :func:`ssd_plain`. x, b and c
-    share the model dtype (fp32 or bf16) and are read by their strides,
+    share the model dtype (fp32, bf16 or fp16) and are read by their strides,
     so the model's views into its fused projection are never copied; y is
     written in x's dtype, the states in fp32."""
     require_local("ssd", x, dt, a_log, b, c, d_skip, initial_state)
@@ -139,9 +150,11 @@ def ssd(x, dt, a_log, b, c, *, d_skip=None, chunk: int = 256,
     bsz, t, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     q = min(chunk, t)
-    if x.dtype not in _DT or b.dtype != x.dtype or c.dtype != x.dtype:
-        raise NotImplementedError(f"ssd: x, b and c must share fp32 or bf16, "
-                                  f"got {x.dtype} / {b.dtype} / {c.dtype}")
+    if x.dtype not in _DT and x.dtype != torch.float16 or \
+            b.dtype != x.dtype or c.dtype != x.dtype:
+        raise NotImplementedError(f"ssd: x, b and c must share fp32, bf16 "
+                                  f"or fp16, got {x.dtype} / {b.dtype} / "
+                                  f"{c.dtype}")
     if tuple(dt.shape) != (bsz, t, h) or tuple(c.shape) != tuple(b.shape) \
             or b.shape[:2] != x.shape[:2] or h % g \
             or tuple(a_log.shape) != (h,):
@@ -153,6 +166,9 @@ def ssd(x, dt, a_log, b, c, *, d_skip=None, chunk: int = 256,
             f"ssd: head dim {p} (compiled: {P_DIMS}), state {n} (<= "
             f"{N_MAX}), chunk {q} (<= {CHUNK_MAX}), T={t}")
     dev = x.device
+    out_dtype = x.dtype
+    if x.dtype == torch.float16:
+        x, b, c = (dp.convert(v, torch.float32) for v in (x, b, c))
     x, b, c = _inner_contiguous(x), _inner_contiguous(b), _inner_contiguous(c)
     dt = _inner_contiguous(dt.to(torch.float32))
     a_log = a_log.to(torch.float32).contiguous()
@@ -190,11 +206,17 @@ def ssd(x, dt, a_log, b, c, *, d_skip=None, chunk: int = 256,
              bsz, t, h, g, n, p, q, _DT[x.dtype], int(_rows16(x, b, c)),
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "ssd")
-    ssd.launches += 1
+    if out_dtype == torch.float16:
+        F16_COUNT.launches += 1
+    else:
+        ssd.launches += 1
     if init is not None:
         ssd.resumed_launches += 1
+    y = dp.convert(y, out_dtype)
     return (y, fin) if return_final_state else y
 
 
 ssd.launches = 0
 ssd.resumed_launches = 0        # the launches that carried a state in
+# The fp16 SSD's launches (the kernels report names them ssd[fp16]).
+F16_COUNT = SimpleNamespace(launches=0)

@@ -415,7 +415,8 @@ def conv_schedule(in_dt, out_dt, n, h, w, ci, co, kh, kw, stride, padding,
 # ---------------------------------------------------------------------------
 def _attn_info(b, tq, tk, h, kvh, d, causal, window, dtype, dev):
     from repro_torch.kernels import attention as ka
-    row_tiles = -(-tq // 16) * h * b if dtype == torch.bfloat16 else \
+    # bf16 and fp16: the tensor-core kernel's 16-row tiles of each head
+    row_tiles = -(-tq // 16) * h * b if dtype != torch.float32 else \
         -(-(tq * (h // kvh)) // 16) * kvh * b
 
     def info(sched):

@@ -817,20 +817,32 @@ def test_conv2d_implicit_matches_plain(card, n, h, w, ci, co, kh, kw, stride,
 
 @pytest.mark.parametrize("act", ["GELU", "SILU"])
 def test_int_kernels_refuse_float_units(card, act):
-    """GELU / SiLU on an int32 accumulator raise before any launch, as
-    the plain version does."""
-    x = torch.ones((4, 32), dtype=torch.int8, device=card)
-    kw = dict(acc_dtype=torch.int32, out_dtype=torch.int8,
+    """SiLU on an int32 accumulator raises ``TypeError`` before any launch,
+    as the plain version and JAX do; GELU runs as JAX computes it (fp32
+    on the shifted int32, clipped and truncated) and equals the plain
+    version bit for bit on the GEMMs, the mvout epilogue and the conv."""
+    x = torch.arange(-64, 64, dtype=torch.int8, device=card).reshape(4, 32)
+    kw = dict(acc_dtype=torch.int32, out_dtype=torch.int8, shift=4,
               activation=Activation[act])
-    for fn in (tgemm.gemm_os, tgemm.gemm_ws):
-        with pytest.raises(ValueError, match="float unit"):
-            fn(x, x.T, **kw)
-    with pytest.raises(ValueError, match="float unit"):
-        tgemm.accumulator_epilogue(x.int(), out_dtype=torch.int8,
-                                   activation=Activation[act])
-    with pytest.raises(ValueError, match="float unit"):
-        tconv.conv2d_implicit(x.reshape(1, 2, 2, 32), x.reshape(1, 1, 32, 4),
-                              **kw)
+    acc = x.int() * 37
+    xi, wi = x.reshape(1, 2, 2, 32), x.reshape(1, 1, 32, 4)
+    calls = [(lambda fn=fn: fn(x, x.T, **kw),
+              lambda: gemm_ref(x, x.T, None, **kw))
+             for fn in (tgemm.gemm_os, tgemm.gemm_ws)]
+    calls.append((lambda: tgemm.accumulator_epilogue(
+        acc, out_dtype=torch.int8, shift=4, activation=Activation[act]),
+        lambda: tepi.apply(acc, out_dtype=torch.int8, shift=4,
+                           activation=Activation[act])))
+    calls.append((lambda: tconv.conv2d_implicit(xi, wi, **kw),
+                  lambda: tref.conv2d_ref(xi, wi, None, **kw)))
+    for run, plain in calls:
+        if act == "SILU":
+            before = kernels.launch_counts()
+            with pytest.raises(TypeError, match="float unit"):
+                run()
+            assert kernels.launch_counts() == before
+        else:
+            assert torch.equal(run(), plain())
 
 
 def _ssd_inputs(card, dtype, bsz, t, h, p, g, n, seed, pad=0, resume=True):
@@ -2478,3 +2490,202 @@ def test_contract_agrees_with_c_plan_and_tickets_return(card, family):
     c = lcard.check_plan(torch, pr, sms, counts, print, launcher, [])
     assert c is not None and counts["launched"] == 1
     assert counts["c_disagree"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the generic datapath (csrc/datapath.cu) and fp16 through the attention and
+# SSD kernels
+# ---------------------------------------------------------------------------
+def _bits_equal(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if not got.is_floating_point():
+        return torch.equal(got, want)
+    ints = {2: torch.int16, 4: torch.int32}[got.element_size()]
+    return torch.equal(got.view(ints), want.view(ints))
+
+
+def _counted(name, fn):
+    before = kernels.launch_counts()[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] > before, name
+    return out
+
+
+@pytest.mark.parametrize("combo", [
+    # (a) the product on an existing loop, the sum rounded or wrapped
+    (torch.bfloat16, torch.bfloat16, torch.bfloat16, torch.bfloat16),
+    (torch.int8, torch.int8, torch.int16, torch.int8),
+    (torch.float32, torch.float32, torch.float16, torch.int8),
+    # (b) int32 inputs on the CUDA-core loop
+    (torch.int32, torch.int32, torch.int32, torch.int16),
+    (torch.int32, torch.int32, torch.float32, torch.float16),
+    # (d) mixed input dtypes converted first
+    (torch.int8, torch.float16, torch.float32, torch.float32),
+    (torch.float16, torch.bfloat16, torch.int32, torch.int32)],
+    ids=lambda c: str(c).split(".")[-1])
+@pytest.mark.parametrize("dataflow", ["OS", "WS"])
+def test_generic_gemm_mechanisms_match_plain(card, combo, dataflow):
+    """Each mechanism of the generic datapath against the plain version:
+    bit for bit where the product sums in an integer dtype, else within the
+    coarsest float's rule; OS and WS alike."""
+    from repro_torch.core.config import Dataflow
+
+    ia, ib, acc, out = combo
+    g = torch.Generator(device=card).manual_seed(30)
+    m, n, k = 77, 200, 300
+
+    def draw(dtype, shape):
+        if dtype.is_floating_point:
+            return torch.randn(shape, generator=g, device=card).to(dtype)
+        return torch.randint(-100, 100, shape, generator=g, device=card,
+                             dtype=dtype)
+    a, b = draw(ia, (m, k)), draw(ib, (k, n))
+    d = torch.randn((n,), generator=g, device=card) * 50
+    kw = dict(acc_dtype=acc, out_dtype=out, shift=1,
+              activation=Activation.RELU)
+    got = tgemm.gemm(a, b, d, dataflow=Dataflow[dataflow], **kw)
+    want = gemm_ref(a, b, d, **kw)
+    dot = tref.product_dtypes(ia, ib, acc)
+    if not dot.is_floating_point:
+        assert _bits_equal(got, want)
+        return
+    g_, w_ = got.double().cpu(), want.double().cpu()
+    finite = torch.isfinite(w_)
+    assert torch.equal(torch.isfinite(g_), finite)
+    ulp = max({torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}.get(t,
+              1e-5) for t in (dot, acc, out) if t.is_floating_point)
+    scale = w_[finite].abs().max().item()
+    atol = (1e-6 if ulp == 1e-5 else 2.0 ** -14) * scale + \
+        (0.0 if out.is_floating_point else 1.0)
+    assert ((g_ - w_)[finite].abs() <=
+            ulp * w_[finite].abs() + atol).all()
+
+
+def test_generic_conv_int32_and_bf16_accumulator_match_plain(card):
+    """(b) the int32 conv (one launch, bit for bit) and a bf16 accumulator
+    on the bf16 conv's wide sum plus the generic epilogue."""
+    g = torch.Generator(device=card).manual_seed(31)
+    x = torch.randint(-500, 500, (1, 14, 14, 32), generator=g, device=card,
+                      dtype=torch.int32)
+    w = torch.randint(-500, 500, (3, 3, 32, 24), generator=g, device=card,
+                      dtype=torch.int32)
+    b = torch.randint(-1000, 1000, (24,), generator=g, device=card,
+                      dtype=torch.int32)
+    kw = dict(acc_dtype=torch.int32, out_dtype=torch.int32, stride=1,
+              padding=1, shift=3, activation=Activation.RELU)
+    got = _counted("conv2d_implicit[int32]",
+                   lambda: tconv.conv2d_implicit(x, w, b, **kw))
+    assert _bits_equal(got, tref.conv2d_ref(x, w, b, **kw))
+    xb, wb = x.to(torch.bfloat16) / 64, w.to(torch.bfloat16) / 512
+    kw.update(acc_dtype=torch.bfloat16, out_dtype=torch.bfloat16)
+    got = _counted("epilogue[any]",
+                   lambda: tconv.conv2d_implicit(xb, wb, b, **kw))
+    _close(got, tref.conv2d_ref(xb, wb, b, **kw), torch.bfloat16)
+
+
+@pytest.mark.parametrize("pair", [(torch.int8, torch.bfloat16),
+                                  (torch.int16, torch.int8),
+                                  (torch.float32, torch.int32),
+                                  (torch.bfloat16, torch.float16),
+                                  (torch.float16, torch.float32)],
+                         ids=lambda p: str(p).split(".")[-1])
+def test_generic_epilogue_and_convert_bit_for_bit(card, pair):
+    """(c) accumulator_epilogue on other accumulators (GELU included) and
+    (d) the conversion, each bit for bit against the plain version."""
+    from repro_torch.kernels import datapath as tdp
+
+    acc, out = pair
+    g = torch.Generator(device=card).manual_seed(32)
+    x = (torch.randn((999, 513), generator=g, device=card) * 60)
+    x = x.to(acc) if acc.is_floating_point else x.round().to(acc)
+    for act in (Activation.RELU, Activation.GELU):
+        kw = dict(out_dtype=out, shift=2, activation=act)
+        got = _counted("epilogue[any]",
+                       lambda: tgemm.accumulator_epilogue(x, **kw))
+        assert _bits_equal(got, tepi.apply(x, **kw)), act
+    got = _counted("convert", lambda: tdp.convert(x, out))
+    assert _bits_equal(got, tepi.convert(x, out))
+    t = x[:, :500].t()                          # a strided view, read as is
+    assert _bits_equal(tdp.convert(t, out), tepi.convert(t, out))
+
+
+def _close_f16(got, want):
+    assert got.dtype == torch.float16
+    g, w = got.float().cpu(), want.float().cpu()
+    assert torch.isfinite(g).all()
+    scale = w.abs().max().item()
+    torch.testing.assert_close(g, w, rtol=2.0 ** -10,
+                               atol=2.0 ** -14 * scale)
+
+
+def test_fp16_attention_kernels_match_plain(card):
+    """fp16 through flash, paged prefill, paged decode and dense decode,
+    each counted under its [fp16] counter, against the plain versions."""
+    g = torch.Generator(device=card).manual_seed(33)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=card) * scale).to(
+            torch.float16)
+    q, k, v = r(1, 96, 8, 128), r(1, 96, 2, 128), r(1, 96, 2, 128)
+    got = _counted("flash_attention[fp16]",
+                   lambda: tak.flash_attention(q, k, v, window=40))
+    _close_f16(got, tak.blockwise_attention(q, k, v, window=40))
+    kp, vp = r(2, 20, 16, 128), r(2, 20, 16, 128)
+    table = torch.randperm(20, generator=g, device=card)[:8].to(torch.int32)
+    qp = r(1, 30, 8, 128)
+    got = _counted("paged_prefill_attention[fp16]",
+                   lambda: tak.paged_prefill_attention(qp, kp, vp, table, 50))
+    _close_f16(got, tak.paged_prefill_attention_plain(qp, kp, vp, table, 50))
+    tables = torch.randperm(20, generator=g, device=card)[:12].reshape(
+        3, 4).to(torch.int32)
+    lens = torch.tensor([40, 1, 64], dtype=torch.int32, device=card)
+    qd = r(3, 1, 8, 128)
+    got = _counted("paged_decode_attention[fp16]",
+                   lambda: tak.paged_decode_attention(qd, kp, vp, tables,
+                                                      lens))
+    _close_f16(got, tak.paged_decode_attention_plain(qd, kp, vp, tables,
+                                                     lens))
+    got = _counted("decode_attention[fp16]",
+                   lambda: tak.decode_attention(qd[:1], k, v, 90, window=64))
+    _close_f16(got, tak.decode_attention_plain(qd[:1], k, v, 90, window=64))
+
+
+def test_fp16_flash_stress_row_spanning_20_decades(card):
+    """A causal 2048-key row whose softmax spans more than 20 decades: the
+    fp16 kernel's P = P_hi + P_lo stays finite and within the fp16 rule."""
+    g = torch.Generator(device=card).manual_seed(34)
+    q, k = (torch.randn((1, 2048, n, 256), generator=g, device=card)
+            .mul(4).to(torch.float16) for n in (4, 1))
+    v = torch.randn((1, 2048, 1, 256), generator=g, device=card).to(
+        torch.float16)
+    s = (q[0, -1, 0].float() @ k[0, :, 0].float().T) / 16
+    assert (s.max() - s.min()).item() / np.log(10.0) > 20
+    got = tak.flash_attention(q, k, v)
+    _close_f16(got, tak.blockwise_attention(q, k, v))
+
+
+def test_fp16_ssd_and_its_stress_state_past_fp16_range(card):
+    """fp16 x, B, C on the fp32 kernel (widened exactly): y within the fp16
+    rule of the plain version, and a chunk whose state passes 65504 stays
+    finite with its fp32 state within the fp64 recurrence's tolerance."""
+    g = torch.Generator(device=card).manual_seed(35)
+    t, h, p, gg, n = 128, 8, 64, 1, 64
+    x = (1000 + 1000 * torch.rand((1, t, h, p), generator=g, device=card)
+         ).to(torch.float16)
+    b = torch.ones((1, t, gg, n), dtype=torch.float16, device=card)
+    c = (torch.randn((1, t, gg, n), generator=g, device=card) * 1e-3).to(
+        torch.float16)
+    dt = torch.nn.functional.softplus(torch.randn((1, t, h), generator=g,
+                                                  device=card))
+    a_log = torch.log(torch.linspace(1e-3, 1e-2, h, device=card))
+    d = torch.ones((h,), device=card)
+    y, st = _counted("ssd[fp16]", lambda: tm2.ssd(
+        x, dt, a_log, b, c, d_skip=d, chunk=t, return_final_state=True))
+    wy = tm2.ssd_plain(x, dt, a_log, b, c, d_skip=d, chunk=t)
+    _close_f16(y, wy)
+    assert torch.isfinite(st).all() and st.abs().max().item() > 65504
+    _, exact = ssd_fp64(x, dt, a_log, b, c, d_skip=d)
+    tol = fp32_tolerance(dt, a_log, t)
+    assert (st.double() - exact).abs().max().item() <= \
+        tol * exact.abs().max().item()

@@ -147,30 +147,34 @@ def test_accumulator_epilogue_fp32_matches_jax():
 
 @pytest.mark.parametrize("act", ["GELU", "SILU"])
 def test_float_units_refused_on_int_accumulator(act):
-    """GELU / SiLU are float units: the port refuses them on an int32
-    accumulator in the plain version (the kernels' wrappers run the same
-    check before a launch). The JAX package's SiLU raises there too; its
-    GELU truncates a float result, which is pinned here as the behaviour
-    the port does not copy."""
+    """GELU and SiLU on an int32 accumulator, as the JAX package's
+    epilogue computes them: SiLU is refused with ``TypeError`` (JAX's
+    sigmoid takes no integer), in the plain version and in the GEMM
+    wrapper before any launch; GELU runs in fp32 on the shifted value and
+    the float result is clipped and truncated to the integer output, equal
+    to JAX's bit for bit."""
     acc = np.array([[-300, -5, 0, 3, 5, 700]], np.int32)
-    with pytest.raises(ValueError, match="float unit"):
-        tepi.apply(_t(acc), shift=1, activation=Activation[act],
-                   out_dtype=torch.int8)
-    with pytest.raises(ValueError, match="float unit"):
-        tgemm.gemm(_t(acc.astype(np.int8)), _t(acc.astype(np.int8).T),
-                   acc_dtype=torch.int32, out_dtype=torch.int8,
-                   activation=Activation[act])
     from repro.kernels import epilogue as jepi
     if act == "SILU":
+        with pytest.raises(TypeError):
+            tepi.apply(_t(acc), shift=1, activation=Activation[act],
+                       out_dtype=torch.int8)
+        with pytest.raises(TypeError):
+            tgemm.gemm(_t(acc.astype(np.int8)), _t(acc.astype(np.int8).T),
+                       acc_dtype=torch.int32, out_dtype=torch.int8,
+                       activation=Activation[act])
         with pytest.raises(TypeError):
             jepi.apply(jnp.asarray(acc), shift=1, activation=JActivation.SILU,
                        out_dtype=jnp.int8)
     else:
-        got = jepi.apply(jnp.asarray(acc), shift=1,
-                         activation=JActivation.GELU, out_dtype=jnp.int8)
+        want = jepi.apply(jnp.asarray(acc), shift=1,
+                          activation=JActivation.GELU, out_dtype=jnp.int8)
         # rshift -> [-150, -2, 0, 2, 2, 350]; gelu in fp32; truncation
-        np.testing.assert_array_equal(np.asarray(got),
+        np.testing.assert_array_equal(np.asarray(want),
                                       [[0, 0, 0, 1, 1, 127]])
+        got = tepi.apply(_t(acc), shift=1, activation=Activation[act],
+                         out_dtype=torch.int8)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 # ---------------------------------------------------------------------------

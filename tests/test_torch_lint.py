@@ -240,7 +240,9 @@ def test_every_launching_wrapper_carries_a_contract():
                      "paged_decode_attention": ("paged_decode_attention",),
                      "paged_prefill_attention": ("paged_prefill_attention",),
                      "conv2d_implicit": ("conv2d_implicit",),
-                     "ssd": ("ssd",)}
+                     "ssd": ("ssd",),
+                     "convert": ("convert",),
+                     "epilogue_any": ("epilogue_any",)}
     assert all(n in kc.CONTRACT_BUILDERS for ns in names.values()
                for n in ns)
 

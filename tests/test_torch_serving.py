@@ -292,7 +292,7 @@ def test_dispatch_fallback_equals_dispatch_on_cpu(arch):
 def test_nvcc_command_targets_sm90a_into_ignored_build_dir():
     src = _build.sources()
     assert {p.name for p in src} == {"gemm.cu", "gemm16.cu", "attention.cu",
-                                     "conv.cu", "ssd.cu"}
+                                     "conv.cu", "ssd.cu", "datapath.cu"}
     cmd = _build.nvcc_command(src[0], _build.build_dir() / "lib.so")
     assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
     rel = _build.build_dir().relative_to(REPO)
