@@ -217,8 +217,9 @@ its plan, ``torch.matmul`` on the same operands, its launches per
 training step and the bytes ``grad_b`` copies to give the kernel a
 row-major operand.
 Every profiler window (phases 4b, 6, 6b, 7-8) is held to the launch
-counters' growth over its passes (``profile_call``): a short window is
-taken again, and one that stays short fails the run.
+counters' growth over its passes (``profile_call``, a marker kernel
+around each pass left out of the counts): a short window is taken again,
+and one that stays short fails the run.
 Phase 18 is the multi-device slice on one card: on a (1, 1) ``("data",
 "model")`` mesh over a one-rank NCCL group, two sharded ``make_train_step``
 steps of full-width gemma3-1b (phase 14's engine and batch) equal two
@@ -246,19 +247,32 @@ the fp16 engine config, published widths, seed 0) on phase 4's traffic,
 every request finished, tokens/s, TTFT and ITL beside the card's name
 and power limit, phase 4b's two steps profiled, a fresh prefill's logits
 held by ``hold_bf16`` at fp16; one static-path request as phase 10's
-(``decode_attention[fp16]`` every step of every layer); hymba-1.5b at
-fp16 on phase 8's 700 + 200 tokens, held the same way (an arch whose
-CPU fp16 logits are not finite is logged as not servable in fp16 and
-fails nothing); (b) every (input, accumulator, output) combination JAX
-accepts on the quickstart GEMM (OS == WS), ``accumulator_epilogue`` on
-every pair at (1000, 512) and (999, 513), ``conv2d_implicit`` at stage
-1's 3x3, and ResNet-50's stream on the int32 -> int32 -> int32 and bf16
--> bf16 -> bf16 instances on all three routes, each against the plain
+(``decode_attention[fp16]`` every step of every layer); hymba-1.5b at fp16 on
+phase 8's 700 + 200 tokens at 16 of its 32 layers, held the same way (an arch
+whose CPU fp16 logits are not finite is logged as not servable in fp16 and
+fails nothing); (b) every (input, accumulator, output) combination JAX accepts
+on the quickstart GEMM (OS == WS), ``accumulator_epilogue`` on every pair at
+(1000, 512) and (999, 513), ``conv2d_implicit`` at stage 1's 3x3, and
+ResNet-50's stream on the int32 -> int32 -> int32 and bf16 -> bf16 -> bf16
+instances on all three routes, each against the plain
 version (``hold_any``); then a combination of each mechanism timed.
+Phase 21 is the last kernel shapes (``run_shapes_phase``): (a) the four
+attention launchers at head dims 48, 80, 96 and 200 in bf16, fp16 and
+fp32, at 320 (fp32's instance at 512), on views 2 elements past a 16-byte
+boundary and in both mixed orders, and the SSD at mamba2-1.3b's d_inner as
+32 heads of P = 128, N = 256, a 512-token chunk resumed, at P = 96 and in
+both mixed orders; every call once with the counts zeroed just before and
+read just after (each wrapper, its fp16 and its mixed count must launch),
+then each against its plain version, timed beside its bound and SDPA
+where one call computes the same function; (b) the smoke gemma3-1b with
+head dim 80 and 200 served in fp32, card == CPU; (c) the port's
+``chaos_smoke`` example on the card; held to 60 s.
 ``python3 chip_smoke.py --phase 17`` runs phases 1, 2 and 17 alone (a
 quicker check of the contracts on a card), ``--phase 18`` phases 1, 2 and
-18, ``--phase 19`` phases 1, 2 and 19, ``--phase 20`` phases 1, 2 and 20;
-with no argument every phase runs.
+18, ``--phase 19`` phases 1, 2 and 19, ``--phase 20`` phases 1, 2 and 20,
+``--phase 21`` phases 1, 2 and 21 (rows in
+``chiprun_out/chip_smoke_shapes.json``); with no argument every phase
+runs.
 
 Every main path's launch counts are zeroed
 just before it and read just after; the kernels line takes each kernel's
@@ -307,6 +321,7 @@ BF16_FACTOR = 2.0
 # full-width 16-bit logits hold (the CPU's fp16 plain path runs it too).
 F16_ENGINE = dict(input_dtype="fp16", acc_dtype="fp32", output_dtype="fp16")
 F16_HOLD_TOKENS = 32
+F16_HYMBA_LAYERS = 16            # phase 20's fp16 hymba-1.5b: half depth
 
 # Phase 10's static path: one gemma3-1b request, a prompt long enough that
 # the 512-token window drops keys, then greedy decode steps.
@@ -1577,9 +1592,15 @@ def run_kernel_phase(torch, timer):
     fp32 CUDA-core peak), ``opts["library_masked"]`` a second one-call
     yardstick and ``opts["dense"]`` the dense kernel on keys gathered
     beforehand (timed beside the paged one)."""
+    return run_cases(torch, timer, kernel_cases(torch))
+
+
+def run_cases(torch, timer, cases):
+    """Check and time each case (``run_kernel_phase``'s tuples); returns
+    the rows and the representative row of each kernel."""
     rows, summary = [], {}
     for (kernel, label, rep, kind, run_k, run_p, run_lib, nbytes, flops,
-         *opts) in kernel_cases(torch):
+         *opts) in cases:
         opts = opts[0] if opts else {}
         got = run_k()
         torch.cuda.synchronize()
@@ -1932,9 +1953,10 @@ _COUNTER_CLASS = {"gemm": "gemm", "gemm[fp32]": "gemm", "gemm[fp16]": "gemm",
                      for d in ("fp32", "bf16", "fp16", "int16", "int32")},
                   "gemm[int32]": "gemm", "convert": "convert",
                   "epilogue[any]": "accumulator_epilogue",
-                  **{f"{k}[fp16]": k for k in (
+                  **{f"{k}[{v}]": k for k in (
                       "ssd", "flash_attention", "paged_prefill_attention",
-                      "paged_decode_attention", "decode_attention")},
+                      "paged_decode_attention", "decode_attention")
+                     for v in ("fp16", "mixed")},
                   "ssd": "ssd", "flash_attention": "flash_attention",
                   "paged_prefill_attention": "paged_prefill_attention",
                   "paged_decode_attention": "paged_decode_attention",
@@ -1947,6 +1969,12 @@ PROFILE_RETAKES = 4     # windows taken again before a short one is fatal
 # clocks disagreed by more than the gap. ``tools/profile_windows.py``
 # counts the short windows with and without it.
 PROFILE_PAD_S = 0.02
+# Marker kernels (``torch.cuda._sleep``, ATen's ``spin_kernel``) around
+# every profiled pass, left out of every count and time: a window whose
+# passes launch one kernel each (the fused stream's stem and classifier)
+# lost one of its n launches in every retake on some hosts late in the
+# script, and never where its kernel had neighbours in the trace.
+PROFILE_MARK_CYCLES = 1000
 
 
 def _kernel_class(name: str) -> str:
@@ -2020,6 +2048,10 @@ def profile_call(torch, name, fn, n=3, quiet=False, op_keys=()):
     # Windows still lose launches now and then (PR 19, PR 20): each is held
     # to the launch counters.
     for window in range(1, PROFILE_RETAKES + 2):
+        # Each retake idles twice as long at the edges as the window before
+        # it: on a host whose two clocks disagree by more than the gap, one
+        # function's windows all came up short at PROFILE_PAD_S.
+        pad = PROFILE_PAD_S * 2 ** (window - 1)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=n,
@@ -2027,11 +2059,15 @@ def profile_call(torch, name, fn, n=3, quiet=False, op_keys=()):
             for i in range(n + 1):
                 if i == 1:
                     before = kernels.launch_counts()
-                    time.sleep(PROFILE_PAD_S)
+                    time.sleep(pad)
+                if i:
+                    torch.cuda._sleep(PROFILE_MARK_CYCLES)
                 fn()
+                if i:
+                    torch.cuda._sleep(PROFILE_MARK_CYCLES)
                 torch.cuda.synchronize()
                 if i == n:
-                    time.sleep(PROFILE_PAD_S)
+                    time.sleep(pad)
                 prof.step()
         after = kernels.launch_counts()
         by_class, launches, by_key, other = {}, {}, {}, {}
@@ -2040,9 +2076,11 @@ def profile_call(torch, name, fn, n=3, quiet=False, op_keys=()):
             if a.key in by_op:
                 by_op[a.key] += a.device_time_total / 1e3 / n
             # Device activity only: an operator's entry repeats the time
-            # of the kernels it launched, and a step's mark spans the step.
+            # of the kernels it launched, a step's mark spans the step, and
+            # the markers are not the function's.
             if not str(a.device_type).endswith("CUDA") or \
-                    a.key.startswith("ProfilerStep"):
+                    a.key.startswith("ProfilerStep") or \
+                    "spin_kernel" in a.key:
                 continue
             cls = _kernel_class(a.key)
             by_class[cls] = (by_class.get(cls, 0.0) +
@@ -2057,7 +2095,10 @@ def profile_call(torch, name, fn, n=3, quiet=False, op_keys=()):
                            {k: after[k] - before[k] for k in after}, n)
         if why is None:
             break
-        log(f"profile {name}: window {window} short ({why}); taken again")
+        seen = ", ".join(f"{k[:60]} x{c}" for k, c in sorted(
+            by_key.items(), key=lambda kv: -kv[1])[:4])
+        log(f"profile {name}: window {window} short ({why}; recorded "
+            f"{seen}); taken again")
     else:
         fail(f"profile {name}: {PROFILE_RETAKES + 1} windows, every one "
              f"short ({why})")
@@ -2144,13 +2185,7 @@ def _tree_map(fn, tree):
 # ---------------------------------------------------------------------------
 def run_e2e_phase(torch, np):
     from repro_torch import configs
-    from repro_torch.convert import params_from_numpy
-    from repro_torch.core.config import GemminiConfig
-    from repro_torch.models import transformer as tf
-    from repro_torch.serving import ServingEngine
 
-    f32 = GemminiConfig(input_dtype="fp32", acc_dtype="fp32",
-                        output_dtype="fp32")
     # gemma3 with six layers, every third global, so both window kinds run;
     # the MoE archs route every token on the card's fp32 router GEMM;
     # llava-next-34b serves text only (its image stub feeds the training
@@ -2162,38 +2197,53 @@ def run_e2e_phase(torch, np):
                      ("llama4-scout-17b-a16e", {})):
         cfg = dataclasses.replace(configs.get_smoke(arch),
                                   dtype=torch.float32, **kw)
-        rng = np.random.default_rng(1)
-        tree = _tree_map(lambda t: t.numpy(),
-                         tf.init_params(torch.Generator().manual_seed(1), cfg))
-        # norm scales and biases start at zero: perturb them so the
-        # zero-centred norms and the GEMM's D input carry weight
-        for node, key in [(tree, "final_norm")] + [
-                (tree["blocks"], k) for k in ("ln1", "ln2", "post_ln1",
-                                              "post_ln2", "qnorm", "knorm")
-        ] + [(tree["blocks"]["attn"], k) for k in ("bq", "bk", "bv")]:
-            if key in node:
-                node[key] = node[key] + 0.3 * rng.standard_normal(
-                    node[key].shape).astype(np.float32)
-        prompts = [rng.integers(0, cfg.vocab, (n,)).astype(np.int32)
-                   for n in (37, 16, 70, 5)]
-        streams = {}
-        for device in ("cuda", "cpu"):
-            eng = ServingEngine(cfg, max_slots=4, max_context=128,
-                                page_size=8, prefill_chunk=16,
-                                engine_cfg=f32,
-                                params=params_from_numpy(tree, device),
-                                device=device)
-            for p in prompts:
-                eng.submit(p, 12)
-            rep = eng.run()
-            assert_clean(f"{arch} fp32 on {device}", rep["summary"])
-            streams[device] = [np.asarray(r["tokens"]).tolist()
-                               for r in rep["requests"]]
-        if streams["cuda"] != streams["cpu"]:
-            fail(f"{arch} fp32: greedy tokens differ between card and CPU:\n"
-                 f"  cuda {streams['cuda']}\n  cpu  {streams['cpu']}")
-        log(f"{arch} smoke fp32: card and CPU give equal greedy tokens for "
-            f"{len(prompts)} requests x 12 tokens")
+        fp32_card_equals_cpu(torch, np, arch, cfg)
+
+
+def fp32_card_equals_cpu(torch, np, arch, cfg):
+    """Serve four prompts (37, 16, 70 and 5 tokens, 12 new each) with
+    ``cfg`` at weights from seed 1 in fp32 on the card and on the CPU
+    (chunks of 16, page 8): the greedy tokens must be equal."""
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core.config import GemminiConfig
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import ServingEngine
+
+    rng = np.random.default_rng(1)
+    tree = _tree_map(lambda t: t.numpy(),
+                     tf.init_params(torch.Generator().manual_seed(1), cfg))
+    # norm scales and biases start at zero: perturb them so the
+    # zero-centred norms and the GEMM's D input carry weight
+    for node, key in [(tree, "final_norm")] + [
+            (tree["blocks"], k) for k in ("ln1", "ln2", "post_ln1",
+                                          "post_ln2", "qnorm", "knorm")
+    ] + [(tree["blocks"]["attn"], k) for k in ("bq", "bk", "bv")]:
+        if key in node:
+            node[key] = node[key] + 0.3 * rng.standard_normal(
+                node[key].shape).astype(np.float32)
+
+    f32 = GemminiConfig(input_dtype="fp32", acc_dtype="fp32",
+                        output_dtype="fp32")
+    prompts = [rng.integers(0, cfg.vocab, (n,)).astype(np.int32)
+               for n in (37, 16, 70, 5)]
+    streams = {}
+    for device in ("cuda", "cpu"):
+        eng = ServingEngine(cfg, max_slots=4, max_context=128,
+                            page_size=8, prefill_chunk=16,
+                            engine_cfg=f32,
+                            params=params_from_numpy(tree, device),
+                            device=device)
+        for p in prompts:
+            eng.submit(p, 12)
+        rep = eng.run()
+        assert_clean(f"{arch} fp32 on {device}", rep["summary"])
+        streams[device] = [np.asarray(r["tokens"]).tolist()
+                           for r in rep["requests"]]
+    if streams["cuda"] != streams["cpu"]:
+        fail(f"{arch} fp32: greedy tokens differ between card and CPU:\n"
+             f"  cuda {streams['cuda']}\n  cpu  {streams['cpu']}")
+    log(f"{arch} smoke fp32: card and CPU give equal greedy tokens for "
+        f"{len(prompts)} requests x 12 tokens")
 
 
 # ---------------------------------------------------------------------------
@@ -2530,18 +2580,21 @@ ATTN_KERNELS = ("flash_attention", "paged_prefill_attention",
 
 
 def serve_family(torch, np, arch, prompt_lens, new_tokens, chunk=256,
-                 fp16=False):
+                 fp16=False, layers=None):
     """``arch`` at its published widths (bf16, weights from seed 0; with
-    ``fp16`` the fp16 model dtype on the fp16 engine config) through
-    ``ServingEngine``: the requests are submitted at once, launch counts
-    zeroed just before ``run`` and read just after. Returns (engine,
-    prompts, counts, ssd launches on resumed chunks, summary)."""
+    ``fp16`` the fp16 model dtype on the fp16 engine config; ``layers``:
+    its depth cut to that many) through ``ServingEngine``: the requests
+    are submitted at once, launch counts zeroed just before ``run`` and
+    read just after. Returns (engine, prompts, counts, ssd launches on
+    resumed chunks, summary)."""
     from repro_torch import configs, kernels
     from repro_torch.core.config import GemminiConfig
     from repro_torch.kernels import mamba2
     from repro_torch.serving import ServingEngine
 
     cfg = configs.get(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     extra = {}
     if fp16:
         cfg = dataclasses.replace(cfg, dtype=torch.float16)
@@ -4736,13 +4789,13 @@ def draw_operand(torch, gen, name, shape, k=1):
 def fp16_serving(torch, np, smi):
     """(a): gemma3-1b at fp16 on phase 4's traffic (and phase 4b's decode
     step and prefill chunk profiled), one static-path request
-    as phase 10 makes it, and hymba-1.5b at phase 8's 700 + 200 tokens,
-    each at published widths with random weights from seed 0 on the fp16
-    engine config, each run's launch counts zeroed just before it and read
-    just after. A full-width prompt's fresh prefill logits are held by
-    ``hold_bf16`` at fp16; where the CPU's own fp16 logits are not finite
-    the arch is not servable in fp16 with these weights, which is logged
-    and fails nothing."""
+    as phase 10 makes it, and hymba-1.5b at phase 8's 700 + 200 tokens
+    (``F16_HYMBA_LAYERS`` of its layers), each at published widths with random
+    weights from seed 0 on the fp16 engine config, each run's launch counts
+    zeroed just before it and read just after. A full-width prompt's fresh
+    prefill logits are held by ``hold_bf16`` at fp16; where the CPU's own fp16
+    logits are not finite the arch is not servable in fp16 with these weights,
+    which is logged and fails nothing."""
     from repro_torch import kernels
 
     counts, out, servable = {}, {}, []
@@ -4808,8 +4861,11 @@ def fp16_serving(torch, np, smi):
     del engine
     torch.cuda.empty_cache()
 
+    # half depth (16 of 32 layers: the windowed layers and the global one
+    # at 16) keeps every kernel of the path and the script inside its limit
     engine, prompts, c, resumed, s = serve_family(
-        torch, np, "hymba-1.5b", (700, 200), 16, fp16=True)
+        torch, np, "hymba-1.5b", (700, 200), 16, fp16=True,
+        layers=F16_HYMBA_LAYERS)
     add(c)
     for kname in ("ssd[fp16]", "flash_attention[fp16]",
                   "paged_prefill_attention[fp16]",
@@ -5017,6 +5073,331 @@ def run_fp16_phase(torch, np, smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 21: the last kernel shapes -- any head dim, unaligned operands,
+# mixed float dtypes, the SSD's head dim, state and chunk
+# ---------------------------------------------------------------------------
+SHAPE_DIMS = (48, 80, 96, 200)
+SHAPES_WALL_S = 60.0
+SHAPE_ATTN = ("flash_attention", "paged_prefill_attention",
+              "paged_decode_attention", "decode_attention")
+SHAPE_REPLACES = {"flash_attention": "src/repro/kernels/attention.py:162",
+                  "paged_prefill_attention":
+                      "src/repro/kernels/attention.py:558",
+                  "paged_decode_attention":
+                      "src/repro/kernels/attention.py:418",
+                  "decode_attention": "src/repro/kernels/attention.py:276",
+                  "ssd": "src/repro/kernels/mamba2.py:151"}
+
+
+def offset_view(torch, t, off):
+    """``t``'s values in a buffer ``off`` elements past a 16-byte boundary:
+    a contiguous view whose rows the kernels read element by element."""
+    if not off:
+        return t
+    buf = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+    view = buf[off:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def sdpa_or_none(fn):
+    """The yardstick where this torch's SDPA takes the call, else None."""
+    if fn is None:
+        return None
+    try:                          # the yardstick only, never the port
+        fn()
+    except RuntimeError as e:
+        log(f"scaled_dot_product_attention refused: {e}")
+        return None
+    return fn
+
+
+def shape_cases(torch):
+    """Phase 21's checked shapes, as ``kernel_cases``' tuples: the four
+    attention launchers at head dims 48, 80, 96 and 200 in bf16, fp16 and
+    fp32 (flash and paged prefill on a 256-token causal chunk with 32 / 8
+    heads, once more with a window and a softcap; paged and dense decode on
+    phase 4's four slots); a flash and a paged decode call at head dim 320
+    (the fp32 instance at 512; bf16 widened); one view 2 elements past a
+    16-byte boundary per launcher; both mixed orders per launcher (q bf16
+    with k / v fp32, q fp32 with k / v fp16); the SSD at mamba2-1.3b's
+    d_inner as 32 heads of P = 128 at N = 256, one 512-token chunk resumed
+    (two column slices, two sub-chunks), and at P = 96, in bf16 and fp32;
+    and the SSD with x fp32 / B, C bf16 and x bf16 / B, C fp32. Each
+    row's bound takes its inputs' peak (fp32's where an operand is fp32)
+    and the SSD's operations at the sub-chunks it runs
+    (``launch_chunk``); its check the output dtype's rule."""
+    from _ssd_exact import fp32_tolerance, ssd_fp64
+
+    from repro_torch.kernels import attention as ka
+    from repro_torch.kernels import contracts as kc
+    from repro_torch.kernels import mamba2 as km
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    bf16, f32, f16 = torch.bfloat16, torch.float32, torch.float16
+    KIND = {bf16: "bf16", f32: "fp32", f16: "fp16"}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    h, kvh, page, n_pages = 32, 8, 64, 128
+    lengths = [1010, 530, 310, 80]
+    cases = []
+
+    def randn(*shape, dtype=bf16, scale=1.0, off=0):
+        t = (torch.randn(shape, generator=gen, device="cuda") * scale
+             ).to(dtype)
+        return offset_view(torch, t, off)
+
+    def route(qd, kd, d):
+        """(kernel name suffix, bound kind, label) of a call: the bound
+        takes the inputs' own peak, fp32's where an operand is fp32 (a
+        16-bit call widened at D > 256 could run at its 16-bit rate)."""
+        mixed = qd != kd
+        widened = mixed or (qd != f32 and d > 256)
+        name = "[mixed]" if mixed else "[fp16]" if qd == f16 else ""
+        label = f"{KIND[qd]}" + (f"/{KIND[kd]}" if mixed else "") + \
+            (" widened" if widened else "")
+        return name, "fp32" if f32 in (qd, kd) else KIND[qd], label
+
+    def check(kind, name):
+        return lambda got, want: check_close(torch, name, got, want, kind)
+
+    def flash(d, qd, kd, window=None, softcap=None, off=0, rep=False):
+        t = 256
+        q = randn(1, t, h, d, dtype=qd, off=off)
+        k, v = (randn(1, t, kvh, d, dtype=kd, off=off) for _ in range(2))
+        kw = dict(causal=True, window=window, softcap=softcap)
+        pairs = sum(min(i + 1, window or 1 << 30) for i in range(t))
+        nbytes = (2 * q.numel() * q.element_size() +
+                  2 * k.numel() * k.element_size())
+        suffix, bkind, label = route(qd, kd, d)
+        lib = None      # SDPA faults on a view off 16 bytes: none there
+        if softcap is None and window is None and qd == kd and not off:
+            def lib():
+                return sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), is_causal=True,
+                            enable_gqa=True)
+        lib = sdpa_or_none(lib)
+        full = f"flash_attention{suffix}"
+        label = (f"{label} T={t} H={h} KVH={kvh} D={d} window={window} "
+                 f"softcap={softcap}" + (f" offset={off}" if off else ""))
+        cases.append((full, label, rep, bkind,
+                      lambda: ka.flash_attention(q, k, v, **kw),
+                      lambda: ka.blockwise_attention(q, k, v, **kw), lib,
+                      nbytes, 4.0 * d * h * pairs,
+                      dict(check=check(KIND[qd], f"{full} [{label}]"))))
+
+    def prefill(d, qd, kd, window=None, softcap=None, off=0, rep=False):
+        t, start, kv_pages = 256, 768, 16
+        kp, vp = (randn(kvh, n_pages + 1, page, d, dtype=kd, off=off)
+                  for _ in range(2))
+        table = torch.randperm(n_pages, generator=gen, device="cuda")[
+            :kv_pages].to(torch.int32)
+        q = randn(1, t, h, d, dtype=qd, off=off)
+        kw = dict(window=window, softcap=softcap)
+        pairs = sum(min(start + i + 1, window or 1 << 30) for i in range(t))
+        live = start + t if window is None else min(start + t,
+                                                    window - 1 + t)
+        nbytes = (2 * q.numel() * q.element_size() +
+                  2 * live * kvh * d * kp.element_size() + 4 * kv_pages)
+        suffix, bkind, label = route(qd, kd, d)
+        full = f"paged_prefill_attention{suffix}"
+        label = (f"{label} T={t} start={start} H={h} KVH={kvh} D={d} "
+                 f"window={window} softcap={softcap}" +
+                 (f" offset={off}" if off else ""))
+        cases.append((full, label, rep, bkind,
+                      lambda: ka.paged_prefill_attention(q, kp, vp, table,
+                                                         start, **kw),
+                      lambda: ka.paged_prefill_attention_plain(
+                          q, kp, vp, table, start, **kw), None,
+                      nbytes, 4.0 * d * h * pairs,
+                      dict(check=check(KIND[qd], f"{full} [{label}]"))))
+
+    def paged_decode(d, qd, kd, off=0, rep=False):
+        s, mp = len(lengths), 32
+        kp, vp = (randn(kvh, n_pages + 1, page, d, dtype=kd, off=off)
+                  for _ in range(2))
+        tables = torch.randperm(n_pages, generator=gen, device="cuda")[
+            :s * mp].reshape(s, mp).to(torch.int32)
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        q = randn(s, 1, h, d, dtype=qd, off=off)
+        live = sum(lengths)
+        nbytes = (2 * q.numel() * q.element_size() +
+                  2 * live * kvh * d * kp.element_size() + 4 * s * (mp + 1))
+        suffix, bkind, label = route(qd, kd, d)
+        full = f"paged_decode_attention{suffix}"
+        label = (f"{label} S={s} lengths={lengths} H={h} KVH={kvh} D={d}" +
+                 (f" offset={off}" if off else ""))
+        cases.append((full, label, rep, bkind,
+                      lambda: ka.paged_decode_attention(q, kp, vp, tables,
+                                                        lens),
+                      lambda: ka.paged_decode_attention_plain(
+                          q, kp, vp, tables, lens), None,
+                      nbytes, 4.0 * d * h * live,
+                      dict(check=check(KIND[qd], f"{full} [{label}]"))))
+
+    def dense_decode(d, qd, kd, off=0, rep=False):
+        b, smax = len(lengths), max(lengths)
+        pos = smax - 1
+        q = randn(b, 1, h, d, dtype=qd, off=off)
+        k, v = (randn(b, smax, kvh, d, dtype=kd, off=off) for _ in range(2))
+        nbytes = (2 * q.numel() * q.element_size() +
+                  2 * k.numel() * k.element_size())
+        suffix, bkind, label = route(qd, kd, d)
+        lib = None
+        if qd == kd and not off:
+            def lib():
+                return sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), enable_gqa=True)
+        lib = sdpa_or_none(lib)
+        full = f"decode_attention{suffix}"
+        label = (f"{label} B={b} S={smax} pos={pos} H={h} KVH={kvh} D={d}" +
+                 (f" offset={off}" if off else ""))
+        cases.append((full, label, rep, bkind,
+                      lambda: ka.decode_attention(q, k, v, pos),
+                      lambda: ka.decode_attention_plain(q, k, v, pos), lib,
+                      nbytes, 4.0 * d * h * b * smax,
+                      dict(check=check(KIND[qd], f"{full} [{label}]"))))
+
+    for d in SHAPE_DIMS:
+        for dt in (bf16, f16, f32):
+            flash(d, dt, dt)
+            prefill(d, dt, dt)
+            paged_decode(d, dt, dt)
+            dense_decode(d, dt, dt)
+        flash(d, bf16, bf16, window=128, softcap=30.0)
+        prefill(d, bf16, bf16, window=128, softcap=30.0)
+    for dt in (bf16, f32):
+        flash(320, dt, dt)
+        paged_decode(320, dt, dt)
+    # a view 2 elements in per launcher (head dim 128: the alignment alone
+    # decides the route)
+    flash(128, bf16, bf16, off=2)
+    prefill(128, bf16, bf16, off=2)
+    paged_decode(128, bf16, bf16, off=2)
+    dense_decode(128, bf16, bf16, off=2)
+    for qd, kd in ((bf16, f32), (f32, f16)):
+        rep = qd == bf16
+        flash(128, qd, kd, rep=rep)
+        prefill(128, qd, kd, rep=rep)
+        paged_decode(128, qd, kd, rep=rep)
+        dense_decode(128, qd, kd, rep=rep)
+
+    def ssd(h_, p, n, t, chunk, xd, bd, rep=False):
+        x = randn(1, t, h_, p, dtype=xd)
+        b, c = (randn(1, t, 1, n, dtype=bd, scale=0.3) for _ in range(2))
+        dt = torch.nn.functional.softplus(randn(1, t, h_, dtype=f32))
+        a_log = torch.log(torch.linspace(1.0, 16.0, h_, device="cuda"))
+        d_skip = torch.ones((h_,), dtype=f32, device="cuda")
+        init = randn(1, h_, n, p, dtype=f32, scale=0.5)
+        kw = dict(d_skip=d_skip, chunk=chunk, initial_state=init,
+                  return_final_state=True)
+        mixed = xd != bd
+        full = "ssd" + ("[mixed]" if mixed else "")
+        label = (f"{KIND[xd]}" + (f"/{KIND[bd]}" if mixed else "") +
+                 f" B=1 T={t} H={h_} P={p} G=1 N={n} chunk={chunk} resumed")
+        name = f"{full} [{label}]"
+
+        def held(got, want):
+            exact_y, exact_s = ssd_fp64(x, dt, a_log, b, c, d_skip=d_skip,
+                                        initial_state=init)
+            tol = fp32_tolerance(dt, a_log, chunk)
+            pairs = [("state", got[1], exact_s)]
+            err = 0.0
+            if xd == f32:
+                pairs.append(("y", got[0], exact_y))
+            else:
+                err = check_close(torch, name, got[0], want[0], KIND[xd])
+            for what, v, ex in pairs:
+                e = (v.double() - ex).abs().max().item()
+                if not torch.isfinite(v).all() or \
+                        e > tol * ex.abs().max().item():
+                    fail(f"{name}: {what} err {e:.3e} > {tol:.2e} x "
+                         f"{ex.abs().max().item():.3e}")
+                err = max(err, e)
+            return err
+
+        nbytes = (x.element_size() * 2 * t * h_ * p +
+                  b.element_size() * 2 * t * n + 4 * t * h_ + 8 * h_ +
+                  4 * 2 * h_ * n * p)
+        plan = kc.ssd_contract(1, t, h_, 1, n, p, chunk,
+                               dtype=km.kernel_dtype(x, b, c),
+                               initial_state=True,
+                               final_state=True).plan_dict()
+        cases.append((full, label, rep,
+                      "fp32" if f32 in (xd, bd) else KIND[xd],
+                      lambda: km.ssd(x, dt, a_log, b, c, **kw),
+                      lambda: km.ssd_plain(x, dt, a_log, b, c, **kw), None,
+                      nbytes, ssd_flops(t, h_, p, 1, n,
+                                        km.launch_chunk(chunk, t), True),
+                      dict(check=held, grid=(
+                          f"{plan['chunks']} launches x {plan['slices']} "
+                          f"slices of {plan['first_blocks']} blocks"))))
+    for dt in (bf16, f32):
+        ssd(32, 128, 256, 512, 512, dt, dt, rep=dt == bf16)
+        ssd(32, 96, 128, 256, 256, dt, dt)
+    ssd(32, 128, 256, 512, 512, f32, bf16, rep=True)
+    ssd(32, 128, 256, 512, 512, bf16, f32)
+    return cases
+
+
+def run_shapes_phase(torch, np):
+    """Phase 21: (a) every shape case's kernel call once, the launch counts
+    zeroed just before and read just after (the new shapes' main path:
+    every wrapper and its fp16 and mixed counts must launch), then each
+    checked against its plain version and timed; (b) the port's
+    ``ServingEngine`` on the smoke gemma3-1b with head dim 80 and 200, fp32,
+    greedy tokens card == CPU (phase 5's check), flash, paged prefill and
+    paged decode launched; (c) the port's ``chaos_smoke`` example on the
+    card. Held to SHAPES_WALL_S. Returns the launch counts of (a), the rows
+    and the representative rows, and the summary."""
+    from repro_torch import configs, kernels
+    from repro_torch.examples import chaos_smoke
+
+    t0 = time.perf_counter()
+    timer = Timer(torch)
+    cases = shape_cases(torch)
+    kernels.reset_launch_counts()
+    for case in cases:
+        case[4]()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = [n for n in SHAPE_ATTN] + [f"{n}[fp16]" for n in SHAPE_ATTN] + \
+        list(kernels.MIXED_KERNELS) + ["ssd"]
+    for name in want:
+        if counts[name] <= 0:
+            fail(f"phase 21: {name} launched no time on the shapes' path")
+    rows, rep = run_cases(torch, timer, cases)
+    del timer, cases
+    torch.cuda.empty_cache()
+
+    engine = {}
+    for hd in (80, 200):
+        cfg = dataclasses.replace(configs.get_smoke("gemma3-1b"),
+                                  dtype=torch.float32, head_dim=hd)
+        kernels.reset_launch_counts()
+        fp32_card_equals_cpu(torch, np, f"gemma3-1b head_dim={hd}", cfg)
+        got = {k_: v for k_, v in kernels.launch_counts().items() if v}
+        for name in SHAPE_ATTN[:3]:
+            if not got.get(name):
+                fail(f"phase 21: gemma3-1b at head_dim {hd} launched no "
+                     f"{name}")
+        engine[hd] = got
+
+    kernels.reset_launch_counts()
+    rc = chaos_smoke.main(["--device", "cuda"])
+    chaos = {k_: v for k_, v in kernels.launch_counts().items() if v}
+    if rc != 0:
+        fail(f"phase 21: chaos_smoke returned {rc} on the card")
+    wall = time.perf_counter() - t0
+    log(f"phase 21 passed in {wall:.1f} s (limit {SHAPES_WALL_S:.0f} s); "
+        f"shape launch counts {dict((k_, v) for k_, v in counts.items() if v)}"
+        f"; engine {engine}; chaos_smoke 0 with {chaos}")
+    if wall > SHAPES_WALL_S:
+        fail(f"phase 21 took {wall:.1f} s, over {SHAPES_WALL_S:.0f} s")
+    return counts, rows, rep, {"wall_s": wall, "engine_launches": engine,
+                               "chaos_launches": chaos, "chaos_rc": rc}
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -5059,6 +5440,10 @@ def main() -> int:
     # kernel and source (each entry's lines in chip_smoke.json)
     for src, names in (("attention", ("flash_tc_kernel", "flash_f32_kernel",
                                       "decode_split_kernel")),
+                       ("attention_any", ("flash_tc_kernel",
+                                          "flash_f32_kernel")),
+                       ("attention_decode_any", ("decode_split_kernel",)),
+                       ("ssd_any", ("ssd_tc_kernel", "ssd_kernel")),
                        ("gemm", ("skinny_kernel", "wide_kernel",
                                  "sgemm_kernel", "igemm")),
                        ("gemm16", ("skinny_kernel", "wide_kernel", "igemm")),
@@ -5114,9 +5499,21 @@ def main() -> int:
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
+    if sys.argv[1:] == ["--phase", "21"]:
+        _, shape_rows, _, shape_summary = run_shapes_phase(torch, np)
+        with open(os.path.join(OUT_DIR, "chip_smoke_shapes.json"), "w") as f:
+            json.dump({"device": kind, "nvidia_smi": smi, "build_s": secs,
+                       "ptxas": ptxas, "kernels": shape_rows,
+                       "shapes": shape_summary}, f, indent=1, default=str)
+        log(f"phases 1, 2 and 21 passed in "
+            f"{time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}: none, --phase 17, "
-             f"--phase 18, --phase 19 or --phase 20")
+             f"--phase 18, --phase 19, --phase 20 or --phase 21")
 
     # 3. kernels
     timer = Timer(torch)
@@ -5218,16 +5615,24 @@ def main() -> int:
     # combination of the GEMM, conv and epilogue (each run's counts zeroed
     # just before it and read just after)
     f16_counts, f16_summary = run_fp16_phase(torch, np, smi)
+    torch.cuda.empty_cache()
+
+    # 21. the last kernel shapes: any head dim, unaligned operands, mixed
+    # dtypes, the SSD's head dim, state and chunk (their own path: counts
+    # zeroed inside), the engine at new head dims, chaos_smoke on the card
+    shape_counts, shape_rows, shape_rep, shape_summary = run_shapes_phase(
+        torch, np)
+    rep_rows.update({k_: shape_rep[k_] for k_ in kernels.MIXED_KERNELS})
 
     # the kernels line
     meta = {
         "gemm": ("csrc/gemm.cu", "src/repro/kernels/gemm.py:105"),
         "gemm[fp32]": ("csrc/gemm.cu", "src/repro/kernels/gemm.py:105"),
-        "flash_attention": ("csrc/attention.cu",
+        "flash_attention": ("csrc/attention.cuh",
                             "src/repro/kernels/attention.py:162"),
-        "paged_prefill_attention": ("csrc/attention.cu",
+        "paged_prefill_attention": ("csrc/attention.cuh",
                                     "src/repro/kernels/attention.py:558"),
-        "paged_decode_attention": ("csrc/attention.cu",
+        "paged_decode_attention": ("csrc/attention.cuh",
                                    "src/repro/kernels/attention.py:418"),
         "gemm[int8]": ("csrc/gemm.cu", "src/repro/kernels/gemm.py:105"),
         "gemm_ws": ("csrc/gemm.cu", "src/repro/kernels/gemm.py:184"),
@@ -5239,30 +5644,34 @@ def main() -> int:
         **{f"conv2d_implicit[{d}]": ("csrc/conv.cu",
                                      "src/repro/kernels/conv.py:140")
            for d in ("fp32", "bf16", "fp16", "int16")},
-        "ssd": ("csrc/ssd.cu", "src/repro/kernels/mamba2.py:151"),
-        "decode_attention": ("csrc/attention.cu",
+        "ssd": ("csrc/ssd.cuh", "src/repro/kernels/mamba2.py:151"),
+        "decode_attention": ("csrc/attention.cuh",
                              "src/repro/kernels/attention.py:276"),
         "gemm[bwd]": ("csrc/gemm.cu", "src/repro/kernels/gemm.py:105"),
-        "flash_attention[fp16]": ("csrc/attention.cu",
+        "flash_attention[fp16]": ("csrc/attention.cuh",
                                   "src/repro/kernels/attention.py:162"),
         "paged_prefill_attention[fp16]": (
-            "csrc/attention.cu", "src/repro/kernels/attention.py:558"),
+            "csrc/attention.cuh", "src/repro/kernels/attention.py:558"),
         "paged_decode_attention[fp16]": (
-            "csrc/attention.cu", "src/repro/kernels/attention.py:418"),
-        "decode_attention[fp16]": ("csrc/attention.cu",
+            "csrc/attention.cuh", "src/repro/kernels/attention.py:418"),
+        "decode_attention[fp16]": ("csrc/attention.cuh",
                                    "src/repro/kernels/attention.py:276"),
-        "ssd[fp16]": ("csrc/ssd.cu", "src/repro/kernels/mamba2.py:151"),
+        "ssd[fp16]": ("csrc/ssd.cuh", "src/repro/kernels/mamba2.py:151"),
         "gemm[int32]": ("csrc/datapath.cu", "src/repro/kernels/gemm.py:105"),
         "conv2d_implicit[int32]": ("csrc/conv.cu",
                                    "src/repro/kernels/conv.py:140"),
         "convert": ("csrc/datapath.cu", "src/repro/kernels/gemm.py:105"),
         "epilogue[any]": ("csrc/datapath.cu",
                           "src/repro/kernels/gemm.py:217"),
+        **{f"{n}[mixed]": ("csrc/attention.cuh", SHAPE_REPLACES[n])
+           for n in SHAPE_ATTN},
+        "ssd[mixed]": ("csrc/ssd.cuh", SHAPE_REPLACES["ssd"]),
     }
     line = []
     for name, (src, replaces) in meta.items():
         r = rep_rows[name]
-        launches = (f16_counts if name in f16_counts else
+        launches = (shape_counts if name in kernels.MIXED_KERNELS else
+                    f16_counts if name in f16_counts else
                     datapath_counts if name in DATAPATH_KERNELS else
                     engine_counts if name in kernels.ENGINE_KERNELS else
                     ssm_counts if name in kernels.RECURRENT_KERNELS else
@@ -5301,7 +5710,9 @@ def main() -> int:
                    "gemma3_4b": g4_summary, "gemma3_4b_launches": g4_counts,
                    "tune": tune_summary, "contracts": contracts,
                    "mesh": mesh_summary, "mesh_rest": rest_summary,
-                   "fp16": f16_summary, "fp16_launches": f16_counts},
+                   "fp16": f16_summary, "fp16_launches": f16_counts,
+                   "shapes": shape_summary, "shape_rows": shape_rows,
+                   "shape_launches": shape_counts},
                   f, indent=1, default=str)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}), flush=True)

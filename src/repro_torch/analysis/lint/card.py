@@ -444,7 +444,8 @@ class Launcher:
         out = Guarded(torch, tuple(e["q"].shape), dt, self.dev)
 
         def launch():
-            f = _bind("attention", "flash_attention_launch",
+            f = _bind(ka.kernel_lib(kw["d"], e["q"], e["k"], e["v"]),
+                      "flash_attention_launch",
                       [_P, _P, _P, _P] + [_I] * 8 + [ctypes.c_float] * 2 +
                       [_I, _P, _I, _I])
             return f(e["q"].data_ptr(), e["k"].data_ptr(), e["v"].data_ptr(),
@@ -474,7 +475,7 @@ class Launcher:
         from repro_torch.kernels import attention as ka
         kw, s = pr.kw, pr.schedule
         dt = getattr(torch, kw["dtype"])
-        key = ("paged", kw["page"], kw["dtype"])
+        key = ("paged", kw["page"], kw["dtype"], kw["d"])
         lens = [kw["max_pages"] * kw["page"], 1000, 17, 1][:kw["slots"]]
         if key not in self.cache:
             pk, pv, tables = self._pools(dt, kw["kvh"], kw["n_pages"],
@@ -492,7 +493,8 @@ class Launcher:
                                  plan["partial_words"])
 
         def launch():
-            f = _bind("attention", "paged_decode_launch",
+            f = _bind(ka.kernel_lib(kw["d"], e["q"], e["pk"], e["pv"],
+                                    decode=True), "paged_decode_launch",
                       [_P] * 6 + [_I] * 8 + [ctypes.c_float] * 2 +
                       [_I, _P, _P, _P, _I])
             return f(e["q"].data_ptr(), e["pk"].data_ptr(),
@@ -528,7 +530,8 @@ class Launcher:
         out = Guarded(torch, tuple(e["q"].shape), dt, self.dev)
 
         def launch():
-            f = _bind("attention", "paged_prefill_launch",
+            f = _bind(ka.kernel_lib(kw["d"], e["q"], e["pk"], e["pv"]),
+                      "paged_prefill_launch",
                       [_P] * 5 + [_I] * 8 + [ctypes.c_float] * 2 + [_I, _P])
             return f(e["q"].data_ptr(), e["pk"].data_ptr(),
                      e["pv"].data_ptr(), e["table"].data_ptr(),
@@ -557,7 +560,8 @@ class Launcher:
                                  plan["partial_words"])
 
         def launch():
-            f = _bind("attention", "decode_attention_launch",
+            f = _bind(ka.kernel_lib(kw["d"], e["q"], e["k"], e["v"],
+                                    decode=True), "decode_attention_launch",
                       [_P] * 4 + [_I] * 7 + [ctypes.c_float] * 2 +
                       [_I, _P, _P, _P])
             return f(e["q"].data_ptr(), e["k"].data_ptr(), e["v"].data_ptr(),
@@ -576,6 +580,7 @@ class Launcher:
         b_, t, h, g, n, p = (kw["bsz"], kw["t"], kw["h"], kw["g"], kw["n"],
                              kw["p"])
         chunk = min(kw["chunk"], t)
+        sub = km.launch_chunk(chunk, t)      # one launch's rows
         key = ("ssd", pr.problem)
         if key not in self.cache:
             x = self.randn(b_, t, h, p, dtype=dt)
@@ -599,11 +604,11 @@ class Launcher:
         fin = Guarded(torch, (b_, h, n, p), f32, self.dev) \
             if kw["final_state"] else None
         scratch = torch.empty((2, b_, h, n, p), dtype=f32, device=self.dev) \
-            if t > chunk else None
+            if t > sub else None
 
         def launch():
             x, bm, cm, dtv = e["x"], e["b"], e["c"], e["dt"]
-            f = _bind("ssd", "ssd_launch",
+            f = _bind(km.kernel_lib(p, n), "ssd_launch",
                       [_P, _L, _L, _L, _P, _L, _L, _L, _P, _P, _P, _L, _L,
                        _L, _P, _L, _L, _L, _P, _P, _P, _P, _I, _I, _I, _I,
                        _I, _I, _I, _I, _I, _P])
@@ -615,7 +620,7 @@ class Launcher:
                      y.out.data_ptr(),
                      fin.out.data_ptr() if fin is not None else None,
                      scratch.data_ptr() if scratch is not None else None,
-                     b_, t, h, g, n, p, chunk, km._DT[dt],
+                     b_, t, h, g, n, p, sub, km._DT[dt],
                      int(km._rows16(x, bm, cm)), self.stream)
 
         def check_y(name, got, _want, kind):

@@ -12,12 +12,19 @@ path gives it and at shapes chosen to stress it:
 * conv, each datapath: ResNet-50's stage-1 3x3, the 7x7/2 stem, and a
   ragged 1x15x15x24 -> 40 3x3 at stride 2;
 * flash: 1 x 256 x 256, H 4 / KVH 1, D 256, causal; 2 x 100 x 300, H 8
-  / KVH 2, D 64, window 128 (bf16 and fp32);
+  / KVH 2, D 64, window 128; 1 x 256 x 256, H 32 / KVH 8 at D 80 (the
+  next instance's zero-filled columns) and 1 x 64 x 64 at D 20 (rows of
+  no whole 16-byte words: the element-by-element loads), each dtype;
+  fp32 at D 320 (the 512 instance);
 * paged decode: 4 slots at 2048 context, every page size and keys per
-  split of the space; paged prefill: a 256-token chunk at 768 and 100
-  tokens at 37; dense decode at gemma3-1b's and gemma3-4b's heads;
+  split of the space, and the kernel's own split at D 80 (and fp32 at
+  D 320); paged prefill: a 256-token chunk at 768 and 100 tokens at 37,
+  the chunk at D 80 with 32 / 8 heads (and fp32 at D 320); dense decode
+  at gemma3-1b's and gemma3-4b's heads and at D 80 (fp32 D 320);
 * SSD: mamba2-1.3b's P 64, N 128, 64 heads: T = 256 resumed and 1000
-  fresh, bf16 and fp32;
+  fresh; its d_inner as 32 heads of P 128 at N 256, a 512-token chunk
+  resumed (two column slices, two sub-chunks); P 10 (element-by-element
+  rows and states), bf16 and fp32;
 * the mvout epilogue at (1000, 512) and (999, 513) read 4 bytes past a
   16-byte boundary, every datapath.
 
@@ -49,15 +56,26 @@ CONV_PROBES = {"stage1-3x3": (1, 56, 56, 64, 64, 3, 3, 1, 1),
                "ragged": (1, 15, 15, 24, 40, 3, 3, 2, 1)}
 # (b, tq, tk, h, kvh, d, causal, window)
 FLASH_PROBES = ((1, 256, 256, 4, 1, 256, True, 0),
-                (2, 100, 300, 8, 2, 64, True, 128))
+                (2, 100, 300, 8, 2, 64, True, 128),
+                (1, 256, 256, 32, 8, 80, True, 0),
+                (1, 64, 64, 4, 2, 20, True, 0))
+FLASH_F32_PROBES = ((1, 100, 100, 8, 2, 320, True, 0),)
 PAGED_SLOTS, PAGED_CONTEXT, PAGED_HEADS = 4, 2048, (8, 2, 128)
+# head dims of the paged decode's own plan at page 64 (fp32 only: 320)
+PAGED_DIMS, PAGED_F32_DIMS = (80,), (320,)
 # (tq, start, h, kvh, d, window)
-PREFILL_PROBES = ((256, 768, 8, 2, 128, 0), (100, 37, 8, 2, 64, 32))
+PREFILL_PROBES = ((256, 768, 8, 2, 128, 0), (100, 37, 8, 2, 64, 32),
+                  (256, 768, 32, 8, 80, 0))
+PREFILL_F32_PROBES = ((100, 37, 8, 2, 320, 32),)
 # (b, s, h, kvh, d, pos, window): gemma3-1b's heads and gemma3-4b's
-DECODE_PROBES = ((4, 2048, 4, 1, 256, 1000, 512), (4, 2048, 8, 4, 256, 2047, 0))
+DECODE_PROBES = ((4, 2048, 4, 1, 256, 1000, 512),
+                 (4, 2048, 8, 4, 256, 2047, 0), (4, 2048, 8, 2, 80, 2047, 0))
+DECODE_F32_PROBES = ((4, 2048, 8, 2, 320, 1000, 0),)
 # (b, t, h, g, n, p, chunk, initial, final)
 SSD_PROBES = ((2, 256, 64, 1, 128, 64, 256, True, True),
-              (1, 1000, 64, 1, 128, 64, 256, False, True))
+              (1, 1000, 64, 1, 128, 64, 256, False, True),
+              (1, 600, 32, 1, 256, 128, 512, True, True),
+              (1, 100, 4, 2, 64, 10, 64, True, True))
 EPILOGUE_SHAPES = (((1000, 512), 0), ((999, 513), 4))
 EPILOGUE_DTYPES = (("int32", "int8"), ("int32", "int16"),
                    ("int32", "int32"), ("float32", "float32"),
@@ -204,7 +222,8 @@ def probes(families: Optional[Tuple[str, ...]] = None) -> Iterator[Probe]:
                         tuple(sched.items()))
     if want("flash_attention"):
         for dtype in ("bfloat16", "float16", "float32"):
-            for b, tq, tk, h, kvh, d, causal, win in FLASH_PROBES:
+            for b, tq, tk, h, kvh, d, causal, win in FLASH_PROBES + (
+                    FLASH_F32_PROBES if dtype == "float32" else ()):
                 for sched in flash_plans(dtype, d):
                     yield Probe("flash_attention", (
                         ("b", b), ("tq", tq), ("tk", tk), ("h", h),
@@ -221,15 +240,25 @@ def probes(families: Optional[Tuple[str, ...]] = None) -> Iterator[Probe]:
                     ("h", h), ("kvh", kvh), ("d", d),
                     ("n_pages", PAGED_SLOTS * mp + 1), ("window", 0),
                     ("dtype", dtype)), (("split_keys", split),))
+            mp = PAGED_CONTEXT // 64
+            for d_ in PAGED_DIMS + (PAGED_F32_DIMS if dtype == "float32"
+                                    else ()):
+                yield Probe("paged_decode_attention", (
+                    ("slots", PAGED_SLOTS), ("max_pages", mp), ("page", 64),
+                    ("h", h), ("kvh", kvh), ("d", d_),
+                    ("n_pages", PAGED_SLOTS * mp + 1), ("window", 0),
+                    ("dtype", dtype)), (("split_keys", 0),))
     if want("paged_prefill_attention"):
         for dtype in ("bfloat16", "float16", "float32"):
-            for tq, start, h, kvh, d, win in PREFILL_PROBES:
+            for tq, start, h, kvh, d, win in PREFILL_PROBES + (
+                    PREFILL_F32_PROBES if dtype == "float32" else ()):
                 yield Probe("paged_prefill_attention", (
                     ("tq", tq), ("start", start), ("h", h), ("kvh", kvh),
                     ("d", d), ("window", win), ("dtype", dtype)))
     if want("decode_attention"):
         for dtype in ("bfloat16", "float16", "float32"):
-            for b, s, h, kvh, d, pos, win in DECODE_PROBES:
+            for b, s, h, kvh, d, pos, win in DECODE_PROBES + (
+                    DECODE_F32_PROBES if dtype == "float32" else ()):
                 yield Probe("decode_attention", (
                     ("b", b), ("s", s), ("h", h), ("kvh", kvh), ("d", d),
                     ("pos", pos), ("window", win), ("dtype", dtype)))

@@ -16,6 +16,11 @@ STATIC_KERNELS = ("decode_attention",)
 FP16_KERNELS = ("flash_attention[fp16]", "paged_prefill_attention[fp16]",
                 "paged_decode_attention[fp16]", "decode_attention[fp16]",
                 "ssd[fp16]")
+# The attention kernels and the SSD on mixed operand dtypes (the fp32
+# kernels on operands widened to fp32).
+MIXED_KERNELS = ("flash_attention[mixed]", "paged_prefill_attention[mixed]",
+                 "paged_decode_attention[mixed]", "decode_attention[mixed]",
+                 "ssd[mixed]")
 # The generic datapath (every other combination of the dtype table): the
 # int32 main loop of the GEMM and the conv, the conversion and the generic
 # epilogue.
@@ -38,7 +43,8 @@ def launch_counters():
     MoE router's on every config), the GEMM's backward products on any
     float datapath (the training path's), the recurrent families' chunked
     SSD and the static reference path's dense decode attention, their fp16
-    instantiations, and the generic datapath's kernels."""
+    instantiations and their launches on mixed dtypes, and the generic
+    datapath's kernels."""
     import torch
 
     from repro_torch.kernels import attention, conv, datapath, gemm, mamba2
@@ -63,6 +69,9 @@ def launch_counters():
             **{f"{name}[fp16]": count
                for name, count in attention.F16_COUNTS.items()},
             "ssd[fp16]": mamba2.F16_COUNT,
+            **{f"{name}[mixed]": count
+               for name, count in attention.MIXED_COUNTS.items()},
+            "ssd[mixed]": mamba2.MIXED_COUNT,
             "gemm[int32]": gemm.OS_COUNTS[torch.int32],
             "conv2d_implicit[int32]": conv.COUNTS[torch.int32],
             "convert": datapath.convert,

@@ -1,14 +1,31 @@
-"""Attention kernels (``csrc/attention.cu``) and their plain versions.
+"""Attention kernels (``csrc/attention.cuh``) and their plain versions.
 
 Replaces, in ``repro.kernels.attention``: ``flash_attention``,
 ``decode_attention``, ``paged_decode_attention`` and
 ``paged_prefill_attention``. Each wrapper launches its CUDA kernel for
 CUDA tensors (or raises) and runs its plain version for CPU tensors;
 ``<wrapper>.launches`` counts kernel launches on bf16 and fp32 inputs,
-``F16_COUNTS[<wrapper name>].launches`` on fp16 ones. fp16 runs the bf16
-kernels' instantiations for ``__half`` (the tensor cores' .f16 MMA for
-flash and paged prefill; the CUDA-core decode kernels), the output in
+``F16_COUNTS[<wrapper name>].launches`` on fp16 ones and
+``MIXED_COUNTS[<wrapper name>].launches`` on mixed ones. fp16 runs the
+bf16 kernels' instantiations for ``__half`` (the tensor cores' .f16 MMA
+for flash and paged prefill; the CUDA-core decode kernels), the output in
 q's dtype as the JAX kernels write it.
+
+Every call the JAX launchers take runs on the card up to a head dim of
+``HEAD_DIM_MAX``: a head dim d that is not compiled (``HEAD_DIMS``, and
+512 for fp32) runs the next compiled instance, its loaders zero-filling
+the columns past d; operands whose rows are not whole, 16-byte aligned
+words (d not a multiple of 8 at 16 bits, of 4 at fp32, or a base off a
+16-byte boundary) take the kernels' element-by-element loads. Mixed q /
+k / v dtypes, and a 16-bit head dim above 256 (no 16-bit instance holds a
+row of 512 in its registers), widen every operand to fp32 with
+``datapath.convert`` (exact), run the fp32 kernel and round the output to
+q's dtype, as the JAX kernels compute on operands upcast to fp32. The
+calls the kernels were first written for -- a compiled head dim, one
+dtype, whole aligned rows -- launch ``csrc/attention.cu``'s instances,
+every other call ``csrc/attention_any.cu``'s (flash, paged prefill) or
+``csrc/attention_decode_any.cu``'s (the two decodes; :func:`kernel_lib`),
+so the first keep their code.
 
 The two wrappers the tuner has a space for take an optional plan, its
 schedule: flash ``{"cluster": blocks per cluster (1, 2, 4), "stages": 1
@@ -47,10 +64,12 @@ import torch
 from repro_torch.core import flags
 from repro_torch.core.dtensor import require_local
 from repro_torch.kernels import _build
+from repro_torch.kernels import datapath as dp
 from repro_torch.kernels.contracts import kernel_contract
 from repro_torch.models.attention import NEG_INF, blockwise_attention
 
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 128, 256)      # compiled for every dtype
+HEAD_DIM_MAX = 512                      # compiled for fp32
 _DT = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -145,27 +164,63 @@ def paged_prefill_attention_plain(q, k_pool, v_pool, block_table, start: int, *,
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
-def _check_cuda(name: str, vecs, others=()) -> None:
-    """Same device for all; 16-byte alignment for the operands the kernel
-    reads in vector loads."""
-    dev = vecs[0].device
-    for t in (*vecs, *others):
+def _check_cuda(name: str, tensors) -> None:
+    """Same device for all (the kernels read any alignment)."""
+    dev = tensors[0].device
+    for t in tensors:
         if t.device != dev:
             raise ValueError(f"{name}: operands on different devices")
-    for t in vecs:
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: operand not 16-byte aligned")
 
 
-def _check_head(name: str, q: torch.Tensor, k: torch.Tensor, h: int,
-                kvh: int, d: int) -> None:
-    if q.dtype not in _DT or k.dtype != q.dtype:
+def _check_head(name: str, q: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor, h: int, kvh: int, d: int) -> None:
+    if any(t.dtype not in _DT for t in (q, k, v)):
         raise NotImplementedError(f"{name}: takes bf16, fp16 or fp32, got "
-                                  f"{q.dtype} / {k.dtype}")
-    if d not in HEAD_DIMS:
-        raise NotImplementedError(f"{name}: head_dim {d} not in {HEAD_DIMS}")
+                                  f"{q.dtype} / {k.dtype} / {v.dtype}")
+    if not 1 <= d <= HEAD_DIM_MAX:
+        raise NotImplementedError(
+            f"{name}: head_dim {d} above {HEAD_DIM_MAX}: a lane of the fp32 "
+            f"kernels holds D / 4 accumulators of its query row, 256 at "
+            f"D = 1024, past the 255 registers a thread has (the instance "
+            f"at 512 holds 128 and already spills)")
     if h % kvh:
         raise ValueError(f"{name}: H={h} not a multiple of KVH={kvh}")
+
+
+def kernel_dtype(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 d: int) -> torch.dtype:
+    """The dtype of the kernel a call runs: q's, where q, k and v share it
+    and an instance of that dtype holds the head dim; else fp32 (the
+    operands widened)."""
+    if q.dtype == k.dtype == v.dtype and (q.dtype == torch.float32 or
+                                          d <= HEAD_DIMS[-1]):
+        return q.dtype
+    return torch.float32
+
+
+def _any_lib(decode: bool) -> str:
+    """The generic library of a kernel family (``decode``: the two
+    decodes), whose plan functions hold every head dim; a plan is the same
+    in every library that holds its head dim."""
+    return "attention_decode_any" if decode else "attention_any"
+
+
+def kernel_lib(d: int, *ts: torch.Tensor, decode: bool = False) -> str:
+    """``attention`` for a compiled head dim whose operands' rows are
+    whole 16-byte words on 16-byte boundaries, else the generic library of
+    the kernel family (``decode``: the two decodes)."""
+    es = ts[0].element_size()
+    fast = d in HEAD_DIMS and d * es % 16 == 0 and \
+        all(t.data_ptr() % 16 == 0 for t in ts)
+    return "attention" if fast else _any_lib(decode)
+
+
+def _widened(run: torch.dtype, *ts: torch.Tensor):
+    """The operands in the kernel's dtype: ``datapath.convert`` (exact for
+    bf16 and fp16 to fp32; the same tensor where it already is)."""
+    return tuple(dp.convert(t, run) for t in ts)
+
+
 
 
 def _check_pools(name: str, q: torch.Tensor, k_pool: torch.Tensor,
@@ -223,7 +278,8 @@ def flash_plan(b: int, tq: int, tk: int, h: int, kvh: int, d: int, *,
     query head) pairs), threads and dynamic shared memory bytes. A plan
     the kernel cannot run raises, as at launch."""
     out = (ctypes.c_longlong * len(_FLASH_PLAN_KEYS))()
-    fn = _build.bind("attention", "flash_attention_plan", [_I] * 11 + [_P])
+    fn = _build.bind(_any_lib(False), "flash_attention_plan",
+                     [_I] * 11 + [_P])
     with torch.cuda.device(device if device is not None
                            else torch.cuda.current_device()):
         _build.check(fn(b, tq, tk, h, kvh, d, int(causal), int(window or 0),
@@ -254,28 +310,32 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} against k "
                          f"{tuple(k.shape)} / v {tuple(v.shape)}")
-    _check_head("flash_attention", q, k, h, kvh, d)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _check_head("flash_attention", q, k, v, h, kvh, d)
     _check_cuda("flash_attention", (q, k, v))
+    out_dtype, run = q.dtype, kernel_dtype(q, k, v, d)
+    mixed = not q.dtype == k.dtype == v.dtype
+    q, k, v = (t.contiguous() for t in _widened(run, q, k, v))
     if plan is None and flags.get("tune_mode") != "off":
         from repro_torch.tune import tuner
         plan = tuner.attn_schedule(b, tq, tk, h, kvh, d, causal, window,
-                                   q.dtype, q.device)
+                                   run, q.device)
     cluster, stages = _flash_args(plan)
     o = torch.empty_like(q)
-    fn = _build.bind("attention", "flash_attention_launch",
+    fn = _build.bind(kernel_lib(d, q, k, v), "flash_attention_launch",
                      [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                       _I, _P, _I, _I])
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, tq, tk,
              h, kvh, d, int(causal), int(window or 0), float(softcap or 0.0),
-             _scale(scale, d), _DT[q.dtype],
+             _scale(scale, d), _DT[run],
              torch.cuda.current_stream(q.device).cuda_stream, cluster, stages)
     _build.check(err, "flash_attention")
-    if q.dtype == torch.float16:
+    if mixed:
+        MIXED_COUNTS["flash_attention"].launches += 1
+    elif out_dtype == torch.float16:
         F16_COUNTS["flash_attention"].launches += 1
     else:
         flash_attention.launches += 1
-    return o
+    return dp.convert(o, out_dtype)
 
 
 @kernel_contract("decode_attention")
@@ -302,26 +362,31 @@ def decode_attention(q, k, v, pos: int, *, window: Optional[int] = None,
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"decode_attention: q {tuple(q.shape)} against k "
                          f"{tuple(k.shape)} / v {tuple(v.shape)}")
-    _check_head("decode_attention", q, k, h, kvh, d)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _check_head("decode_attention", q, k, v, h, kvh, d)
     _check_cuda("decode_attention", (q, k, v))
+    out_dtype, run = q.dtype, kernel_dtype(q, k, v, d)
+    mixed = not q.dtype == k.dtype == v.dtype
+    q, k, v = (t.contiguous() for t in _widened(run, q, k, v))
     plan = decode_plan(b, s, h, kvh, d, pos, window)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     tickets, ws = _workspace(q.device, stream, plan[1], plan[4])
     o = torch.empty_like(q)
-    fn = _build.bind("attention", "decode_attention_launch",
+    fn = _build.bind(kernel_lib(d, q, k, v, decode=True),
+                     "decode_attention_launch",
                      [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
                       _P, _P, _P])
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, h,
              kvh, d, pos, int(window or 0), float(softcap or 0.0),
-             _scale(scale, d), _DT[q.dtype], stream, ws.data_ptr(),
+             _scale(scale, d), _DT[run], stream, ws.data_ptr(),
              tickets.data_ptr())
     _build.check(err, "decode_attention")
-    if q.dtype == torch.float16:
+    if mixed:
+        MIXED_COUNTS["decode_attention"].launches += 1
+    elif out_dtype == torch.float16:
         F16_COUNTS["decode_attention"].launches += 1
     else:
         decode_attention.launches += 1
-    return o
+    return dp.convert(o, out_dtype)
 
 
 def decode_plan(b: int, s: int, h: int, kvh: int, d: int, pos: int,
@@ -330,7 +395,8 @@ def decode_plan(b: int, s: int, h: int, kvh: int, d: int, pos: int,
     query heads per block, keys per split, fp32 words of partials); its
     grid is splits x groups blocks, and each group takes one ticket."""
     out = (ctypes.c_longlong * 5)()
-    fn = _build.bind("attention", "decode_attention_plan", [_I] * 7 + [_P])
+    fn = _build.bind(_any_lib(True), "decode_attention_plan",
+                     [_I] * 7 + [_P])
     _build.check(fn(b, s, h, kvh, d, int(pos), int(window or 0),
                     ctypes.addressof(out)), "decode_attention_plan")
     return tuple(out)
@@ -351,7 +417,8 @@ def paged_decode_plan(slots: int, max_pages: int, page: int, h: int,
     plan = _PAGED_PLANS.get(key)
     if plan is None:
         out = (ctypes.c_longlong * 5)()
-        fn = _build.bind("attention", "paged_decode_plan", [_I] * 8 + [_P])
+        fn = _build.bind(_any_lib(True), "paged_decode_plan",
+                         [_I] * 8 + [_P])
         _build.check(fn(*key, ctypes.addressof(out)), "paged_decode_plan")
         plan = _PAGED_PLANS[key] = tuple(out)
     return plan
@@ -386,12 +453,15 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
         raise ValueError(f"paged_decode_attention: {s} slots against tables "
                          f"{tuple(block_tables.shape)} and lengths "
                          f"{tuple(lengths.shape)}")
-    _check_head("paged_decode_attention", q, k_pool, h, kvh, d)
-    q = q.contiguous()
-    k_pool, v_pool = k_pool.contiguous(), v_pool.contiguous()
+    _check_head("paged_decode_attention", q, k_pool, v_pool, h, kvh, d)
+    _check_cuda("paged_decode_attention",
+                (q, k_pool, v_pool, block_tables, lengths))
+    out_dtype, run = q.dtype, kernel_dtype(q, k_pool, v_pool, d)
+    mixed = not q.dtype == k_pool.dtype == v_pool.dtype
+    q, k_pool, v_pool = (t.contiguous()
+                         for t in _widened(run, q, k_pool, v_pool))
     tables = block_tables.to(torch.int32).contiguous()
     lens = lengths.to(torch.int32).contiguous()
-    _check_cuda("paged_decode_attention", (q, k_pool, v_pool), (tables, lens))
     mp = tables.shape[1]
     split = _split_arg(plan)
     grid = paged_decode_plan(s, mp, page, h, kvh, d, window,
@@ -399,20 +469,23 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     tickets, ws = _workspace(q.device, stream, grid[1], grid[4])
     o = torch.empty_like(q)
-    fn = _build.bind("attention", "paged_decode_launch",
+    fn = _build.bind(kernel_lib(d, q, k_pool, v_pool, decode=True),
+                     "paged_decode_launch",
                      [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                       _F, _F, _I, _P, _P, _P, _I])
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              tables.data_ptr(), lens.data_ptr(), o.data_ptr(), s, mp, h, kvh,
              d, npool, page, int(window or 0), float(softcap or 0.0),
-             _scale(scale, d), _DT[q.dtype], stream, ws.data_ptr(),
+             _scale(scale, d), _DT[run], stream, ws.data_ptr(),
              tickets.data_ptr(), split)
     _build.check(err, "paged_decode_attention")
-    if q.dtype == torch.float16:
+    if mixed:
+        MIXED_COUNTS["paged_decode_attention"].launches += 1
+    elif out_dtype == torch.float16:
         F16_COUNTS["paged_decode_attention"].launches += 1
     else:
         paged_decode_attention.launches += 1
-    return o
+    return dp.convert(o, out_dtype)
 
 
 def paged_prefill_plan(tq: int, start: int, h: int, kvh: int, d: int,
@@ -425,7 +498,7 @@ def paged_prefill_plan(tq: int, start: int, h: int, kvh: int, d: int,
     kv heads x row tiles of (position, query head) pairs), threads and
     dynamic shared memory bytes."""
     out = (ctypes.c_longlong * len(_FLASH_PLAN_KEYS))()
-    fn = _build.bind("attention", "paged_prefill_plan", [_I] * 7 + [_P])
+    fn = _build.bind(_any_lib(False), "paged_prefill_plan", [_I] * 7 + [_P])
     with torch.cuda.device(device if device is not None
                            else torch.cuda.current_device()):
         _build.check(fn(int(tq), int(start), h, kvh, d, int(window or 0),
@@ -462,28 +535,32 @@ def paged_prefill_attention(q, k_pool, v_pool, block_table, start: int, *,
         raise ValueError(f"paged_prefill_attention: table of "
                          f"{block_table.shape[0]} pages cannot hold positions "
                          f"up to {start + tq}")
-    _check_head("paged_prefill_attention", q, k_pool, h, kvh, d)
+    _check_head("paged_prefill_attention", q, k_pool, v_pool, h, kvh, d)
     if npool * page >= 1 << 31:
         raise ValueError(f"paged_prefill_attention: a pool of {npool} pages "
                          f"of {page} rows per kv head exceeds 2^31 rows")
-    q = q.contiguous()
-    k_pool, v_pool = k_pool.contiguous(), v_pool.contiguous()
+    _check_cuda("paged_prefill_attention", (q, k_pool, v_pool, block_table))
+    out_dtype, run = q.dtype, kernel_dtype(q, k_pool, v_pool, d)
+    mixed = not q.dtype == k_pool.dtype == v_pool.dtype
+    q, k_pool, v_pool = (t.contiguous()
+                         for t in _widened(run, q, k_pool, v_pool))
     table = block_table.to(torch.int32).contiguous()
-    _check_cuda("paged_prefill_attention", (q, k_pool, v_pool), (table,))
     o = torch.empty_like(q)
-    fn = _build.bind("attention", "paged_prefill_launch",
+    fn = _build.bind(kernel_lib(d, q, k_pool, v_pool), "paged_prefill_launch",
                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                       _F, _I, _P])
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              table.data_ptr(), o.data_ptr(), tq, start, h, kvh, d, npool, page,
              int(window or 0), float(softcap or 0.0), _scale(scale, d),
-             _DT[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+             _DT[run], torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_prefill_attention")
-    if q.dtype == torch.float16:
+    if mixed:
+        MIXED_COUNTS["paged_prefill_attention"].launches += 1
+    elif out_dtype == torch.float16:
         F16_COUNTS["paged_prefill_attention"].launches += 1
     else:
         paged_prefill_attention.launches += 1
-    return o
+    return dp.convert(o, out_dtype)
 
 
 flash_attention.launches = 0
@@ -496,3 +573,6 @@ F16_COUNTS = {name: SimpleNamespace(launches=0)
               for name in ("flash_attention", "decode_attention",
                            "paged_decode_attention",
                            "paged_prefill_attention")}
+# The launches on mixed q / k / v dtypes (the fp32 kernels on widened
+# operands; the kernels report's flash_attention[mixed] and so on).
+MIXED_COUNTS = {name: SimpleNamespace(launches=0) for name in F16_COUNTS}

@@ -18,7 +18,7 @@ own limits (``limits``), which the C plan functions check before a launch.
 The builders mirror the C plan functions line for line (``gemm_plan`` /
 ``gemm_s8_plan`` in ``csrc/gemm.cu`` over ``hgemm.cuh``, ``sgemm.cuh``
 and ``igemm.cuh``; ``conv_plan`` in ``csrc/conv.cu``; the attention plans
-in ``csrc/attention.cu``; ``ssd_plan`` in ``csrc/ssd.cu``;
+in ``csrc/attention.cuh``; ``ssd_plan`` in ``csrc/ssd.cuh``;
 ``epilogue_plan``) and take the card's SM count as an argument
 (``hgemm::sm_count()`` enters the plans; an H100 SXM has 132). Each
 contract's ``plan`` holds the figures the C function's array gives, field
@@ -83,9 +83,10 @@ FLASH_STAGES = (1, 2)
 DS_WARPS, DS_SPLIT, DS_MAX_SPLIT = 8, 64, 4096        # split decode
 DS_SPLIT_ALIGN = 16            # a caller's keys a split: a multiple of it
 EPI_THREADS = 256
-SSD_QMAX, SSD_NMAX = 256, 128
-SSD_P = (8, 16, 32, 64)
+SSD_QMAX, SSD_NMAX = 256, 256
+SSD_P = (8, 16, 32, 64)        # slice widths: any head dim runs as slices
 HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIM_MAX = 512             # fp32's widest instance (16-bit: 256)
 
 F32, BF16, F16, I8, I16, I32 = (("float", 4), ("float", 2), ("float", 2),
                                 ("int", 1), ("int", 2), ("int", 4))
@@ -850,6 +851,24 @@ def epilogue_contract(count: int, *, acc_dtype, out_dtype,
 # ---------------------------------------------------------------------------
 # attention.cu: flash (bf16 tensor cores, fp32 CUDA cores), split decode
 # ---------------------------------------------------------------------------
+def compiled_head_dim(d: int, dtype="float32") -> int:
+    """``attention.cuh`` compiled_dim: the instance a head dim d runs (the
+    next of HEAD_DIMS, 512 for fp32 up to HEAD_DIM_MAX), 0 for none."""
+    for c in HEAD_DIMS:
+        if 1 <= d <= c:
+            return c
+    return HEAD_DIM_MAX if _name(dtype) == "float32" and \
+        HEAD_DIMS[-1] < d <= HEAD_DIM_MAX else 0
+
+
+def ssd_slice_width(p: int) -> int:
+    """``ssd.cuh`` slice_width: the compiled width of head dim p's column
+    slices (p itself where compiled; 64 above 32)."""
+    if p < 1:
+        return 0
+    return next((w for w in SSD_P if p <= w), SSD_P[-1])
+
+
 def _ft_tile(d):
     kt = 16 if d >= 256 else 32 if d >= 128 else 64
     stage_bytes = 2 * kt * (d + 8) * 2
@@ -857,19 +876,27 @@ def _ft_tile(d):
         FT_ROWS * 4
 
 
+def f32_warps(d: int) -> int:
+    """Warps a block of the fp32 flash kernel at compiled head dim d."""
+    return 2 if d > 256 else F32_WARPS
+
+
 def _f32_tile(d):
     rpl = 4 if d <= 64 else 2 if d == 128 else 1
     rb = 8 * rpl
     ld = d + 4
     stage = 2 * F32_KT * ld
-    head = rb * ld + F32_WARPS * rb * (F32_KT + 4) + (F32_WARPS + 2) * rb
+    w = f32_warps(d)
+    head = rb * ld + w * rb * (F32_KT + 4) + (w + 2) * rb
     return rb, (1 if d >= 256 else 2), \
-        lambda st: 4 * (head + F32_WARPS * st * stage)
+        lambda st: 4 * (head + w * st * stage)
 
 
 def flash_max_stages(dtype, d: int) -> int:
-    """K/V stages a warp of the flash kernel streams at most."""
-    return 1 if _name(dtype) == "float32" and d >= 256 else 2
+    """K/V stages a warp of the flash kernel streams at most (head dim d:
+    its compiled instance's)."""
+    return 1 if _name(dtype) == "float32" and \
+        compiled_head_dim(d, dtype) >= 256 else 2
 
 
 def _flash_tc(tq, tk, h, batch, d, q_offset, causal, window, cluster,
@@ -905,6 +932,7 @@ def _flash_tc(tq, tk, h, batch, d, q_offset, causal, window, cluster,
 def _flash_f32(tq, h, kvh, batch, d, q_offset, kv_len, causal, window,
                cluster, stages, sms):
     rb, max_stages, smem = _f32_tile(d)
+    warps = f32_warps(d)
     g = h // kvh
     rows = tq * g
     nrb = cdiv(rows, rb)
@@ -918,10 +946,10 @@ def _flash_f32(tq, h, kvh, batch, d, q_offset, kv_len, causal, window,
             most = max(most, cdiv(hi, F32_KT) - lo // F32_KT)
     blocks = nrb * kvh * batch
     cl = 1
-    while cl < F32_MAX_CLUSTER and cl * F32_WARPS < most and \
+    while cl < F32_MAX_CLUSTER and cl * warps < most and \
             blocks * cl < sms:
         cl *= 2
-    st = 2 if max_stages > 1 and most > cl * F32_WARPS else 1
+    st = 2 if max_stages > 1 and most > cl * warps else 1
     limits = [Limit("row tiles", nrb, 0, 65535),
               Limit("kv heads x sequences", kvh * batch, 0, 65535)]
     if cluster != 0 or stages != 0:
@@ -932,14 +960,16 @@ def _flash_f32(tq, h, kvh, batch, d, q_offset, kv_len, causal, window,
                          1, 1),
                    Limit("stages", stages, 1, max_stages)]
     return dict(cluster=cl, stages=st, rb=rb, nrb=nrb,
-                grid=(cl, kvh * batch, nrb), threads=F32_WARPS * 32,
+                grid=(cl, kvh * batch, nrb), threads=warps * 32,
                 smem=smem(st)), limits
 
 
 def _flash_contract(name, batch, tq, tk, h, kvh, d, q_offset, causal,
                     window, dtype, cluster, stages, sms, paged):
     io = dt(dtype)
-    limits = [Limit("head dim", int(d in HEAD_DIMS), 1, 1),
+    dc = compiled_head_dim(d, dtype)
+    limits = [Limit("head dim", d, 1, HEAD_DIM_MAX if io == F32
+                    else HEAD_DIMS[-1]),
               Limit("query heads a multiple of kv heads",
                     int(kvh > 0 and h % kvh == 0), 1, 1)]
     kv_note = ("K/V rows gathered through the request's block table, "
@@ -948,8 +978,8 @@ def _flash_contract(name, batch, tq, tk, h, kvh, d, q_offset, causal,
     kv_range = None if paged else \
         "the key range [lo, hi) of the block's query rows, clamped to Tk"
     if _name(dtype) in ("bfloat16", "float16"):
-        p, lim = _flash_tc(tq, tk, h, batch, d, q_offset, causal, window,
-                           cluster, stages)
+        p, lim = _flash_tc(tq, tk, h, batch, dc or HEAD_DIMS[-1], q_offset,
+                           causal, window, cluster, stages)
         nq = cdiv(tq, FT_ROWS)
         ops = (OperandSpec("q", (batch, tq, h, d), (1, FT_ROWS, 1, d), io,
                            predicated=(1,)),
@@ -966,8 +996,8 @@ def _flash_contract(name, batch, tq, tk, h, kvh, d, q_offset, causal,
         blocks = p["cluster"] * nq * h * batch
         mma = (MmaPair(io, io, F32), MmaPair(io, io, F32))
     else:
-        p, lim = _flash_f32(tq, h, kvh, batch, d, q_offset, tk, causal,
-                            window, cluster, stages, sms)
+        p, lim = _flash_f32(tq, h, kvh, batch, dc or HEAD_DIM_MAX, q_offset,
+                            tk, causal, window, cluster, stages, sms)
         g = h // max(kvh, 1)
         nrb = p["nrb"]
         ops = (OperandSpec("q", (batch, kvh, tq * g, d), (1, 1, p["rb"], d),
@@ -995,7 +1025,7 @@ def _flash_contract(name, batch, tq, tk, h, kvh, d, q_offset, causal,
                               else "none"),),
         mma=mma, limits=tuple(limits + lim), plan=plan,
         kernel="flash_tc_kernel" if mma else "flash_f32_kernel",
-        kernel_args=(d,))
+        kernel_args=(dc,))
 
 
 @contract_builder("flash_attention")
@@ -1024,15 +1054,18 @@ def paged_prefill_contract(tq: int, start: int, h: int, kvh: int, d: int, *,
 def _split_contract(name, batch, h, kvh, d, splits, split, dtype,
                     extra_ops, paged):
     io = dt(dtype)
+    # the plan's compiled head dim (it does not see the dtype; 16-bit
+    # launches stop at 256)
+    dc = compiled_head_dim(d) or HEAD_DIM_MAX
     rep = h // kvh
-    rep_blk = 4 if rep <= 4 else 8
+    rep_blk = 2 if dc > 256 else 4 if rep <= 4 else 8
     nz = cdiv(rep, rep_blk)
     groups = batch * kvh * nz
-    partial = splits * groups * rep_blk * (d + 2) if splits > 1 else 0
+    partial = splits * groups * rep_blk * (dc + 2) if splits > 1 else 0
     vec = 16 // io[1]
-    gsz = min(d // vec, 32)
+    gsz = min(dc // vec, 32)
     ng = DS_WARPS * 32 // gsz
-    smem = 4 * ng * rep_blk * (d + 2)
+    smem = 4 * ng * rep_blk * (dc + 2)
     ops = (OperandSpec("q", (batch, kvh, rep, d), (1, 1, rep_blk, d), io,
                        predicated=(2,)),) + extra_ops + \
         (OperandSpec("o", (batch, kvh, rep, d), (1, 1, rep_blk, d), io,
@@ -1051,10 +1084,10 @@ def _split_contract(name, batch, h, kvh, d, splits, split, dtype,
         min_blocks=1, smem=smem,
         workspace_words=groups + partial if splits > 1 else 0,
         reductions=(red,), mma=(),
-        limits=(Limit("head dim", int(d in HEAD_DIMS), 1, 1),
+        limits=(Limit("head dim", d, 1, HEAD_DIM_MAX),
                 Limit("query heads a multiple of kv heads",
                       int(kvh > 0 and h % kvh == 0), 1, 1)),
-        plan=plan, kernel="decode_split_kernel", kernel_args=(d,))
+        plan=plan, kernel="decode_split_kernel", kernel_args=(dc,))
 
 
 @contract_builder("decode_attention")
@@ -1175,19 +1208,25 @@ def ssd_contract(bsz: int, t: int, h: int, g: int, n: int, p: int,
                  initial_state: bool = False,
                  final_state: bool = False) -> LaunchContract:
     """``ssd_launch`` (``ssd_plan``'s array): one launch a chunk, the
-    chunk as a launch axis. An output block writes one row tile of a
-    head pair (``hpg`` odd: the pair's second head predicated off), the
-    latest row tiles first; a state block one slice of N of one head; an
-    fp32 output block is a cluster of two splitting the key tiles."""
+    chunk as a launch axis (the wrapper's sub-chunks of at most
+    ``SSD_QMAX`` rows). An output block writes one row tile of a head pair
+    (``hpg`` odd: the pair's second head predicated off), the latest row
+    tiles first; a state block one slice of N of one head; an fp32 output
+    block is a cluster of two splitting the key tiles; the grid's z axis
+    takes the head dim's column slices (the last predicated where the
+    slice width does not divide P)."""
     name = _name(dtype)
     io = dt(dtype)
-    chunk = min(chunk, t)
+    limits = (Limit("state size", n, 1, SSD_NMAX),
+              Limit("T, head dim and chunk positive",
+                    int(min(t, p, chunk) >= 1), 1, 1),
+              Limit("groups divide heads", int(g >= 1 and h % g == 0), 1, 1))
+    chunk = min(chunk, t, SSD_QMAX)
     chunks = cdiv(t, chunk)
     hpg = h // max(g, 1)
-    limits = (Limit("state size", n, 1, SSD_NMAX),
-              Limit("chunk", chunk, 1, SSD_QMAX),
-              Limit("head dim", int(p in SSD_P), 1, 1),
-              Limit("groups divide heads", int(g >= 1 and h % g == 0), 1, 1))
+    pc = ssd_slice_width(p) or SSD_P[-1]
+    slices = cdiv(max(p, 1), pc)
+    pred_p = (5,) if p % pc else ()
     geoms = [_ssd_chunk(name, t, h, g, n, chunk, c * chunk,
                         c < chunks - 1 or final_state)
              for c in range(chunks)]
@@ -1206,8 +1245,8 @@ def ssd_contract(bsz: int, t: int, h: int, g: int, n: int, p: int,
                 ops.append(OperandSpec(
                     nm if out else src + nm[1:], (bsz, nchunks, q, g,
                                                   2 * sets, p),
-                    (1, 1, rows, 1, 2, p), io, output=out,
-                    predicated=(2, 4)))
+                    (1, 1, rows, 1, 2, pc), io, output=out,
+                    predicated=(2, 4) + pred_p))
     regions = []
     blocks = 0
     for last in (False, True):
@@ -1217,48 +1256,53 @@ def ssd_contract(bsz: int, t: int, h: int, g: int, n: int, p: int,
         nch = 1 if last else chunks - 1
         n_rt = geo["n_rt"]
         out_axes = (("c", nch), ("rt", n_rt), ("bb", bsz), ("grp", g),
-                    ("hp", sets)) + ((("kk", 2),) if fp32 else ())
+                    ("hp", sets), ("sl", slices)) + \
+            ((("kk", 2),) if fp32 else ())
 
-        def ymap(c, rt, bb, grp, hp, *kk, n_rt=n_rt):
-            return (bb, c, n_rt - 1 - rt, grp, hp, 0)
+        def ymap(c, rt, bb, grp, hp, sl, *kk, n_rt=n_rt):
+            return (bb, c, n_rt - 1 - rt, grp, hp, sl)
         nm = "y_last" if last else "y"
         regions.append(Region(out_axes, (("x" + nm[1:], ymap), (nm, ymap))))
         if geo["n_state"]:
-            maps = (("state", lambda c, ns, bb, hh: (bb, hh, ns, 0)),) \
+            maps = (("state", lambda c, ns, bb, hh, sl: (bb, hh, ns, sl)),) \
                 if last else ()
             regions.append(Region((("c", nch), ("ns", geo["n_ns"]),
-                                   ("bb", bsz), ("hh", h)), maps))
+                                   ("bb", bsz), ("hh", h), ("sl", slices)),
+                                  maps))
         pad = geo["blocks"] - geo["n_yblk"] - geo["n_state"]
         if pad:
-            regions.append(Region((("c", nch), ("idle", pad), ("bb", bsz))))
-        blocks += geo["blocks"] * bsz * nch
+            regions.append(Region((("c", nch), ("idle", pad), ("bb", bsz),
+                                   ("sl", slices))))
+        blocks += geo["blocks"] * bsz * nch * slices
     if initial_state:
-        ops.append(OperandSpec("s_in", (bsz, h, n, p), (1, 1, n, p), F32,
+        ops.append(OperandSpec("s_in", (bsz, h, n, p), (1, 1, n, pc), F32,
                                ranged="the carried state of the block's "
-                                      "heads, read whole"))
+                                      "heads and columns, read whole"))
     if final_state:
         ops.append(OperandSpec("state", (bsz, h, n, p),
-                               (1, 1, geoms[-1]["state_rows"], p), F32,
-                               output=True, predicated=(2,)))
+                               (1, 1, geoms[-1]["state_rows"], pc), F32,
+                               output=True, predicated=(2,) + tuple(
+                                   3 for _ in pred_p)))
     if chunks > 1:
         ops.append(OperandSpec(
             "scratch", (2, bsz, h, n, p), (1, bsz, h, n, p), F32,
             data_dependent="the state between chunks: chunk c writes buffer "
                            "c % 2 and reads the other"))
     plan = (("chunks", chunks), ("threads", 128), ("smem",
-                                                   _ssd_smem(name, n, p)),
+                                                   _ssd_smem(name, n, pc)),
             ("cluster", 2 if fp32 else 1), ("out_blocks", whole["n_yblk"]),
             ("state_blocks", whole["n_state"] if not fp32
              else (whole["n_state"] + 1) & ~1),
             ("first_blocks", geoms[0]["blocks"]),
             ("last_blocks", geoms[-1]["blocks"]), ("rows", bsz),
-            ("scratch_words", 2 * bsz * h * n * p if chunks > 1 else 0))
+            ("scratch_words", 2 * bsz * h * n * p if chunks > 1 else 0),
+            ("slices", slices))
     reds = tuple(Reduction(o.name, "kk", "cluster") for o in ops
                  if fp32 and o.output and o.name.startswith("y"))
     return LaunchContract(
         name="ssd", regions=tuple(regions), operands=tuple(ops),
         blocks=blocks, threads=128, cluster=2 if fp32 else 1, min_blocks=1,
-        smem=_ssd_smem(name, n, p), reductions=reds,
+        smem=_ssd_smem(name, n, pc), reductions=reds,
         mma=() if fp32 else (MmaPair(io, io, F32),), limits=limits,
         launches=chunks, plan=plan,
-        kernel="ssd_kernel" if fp32 else "ssd_tc_kernel", kernel_args=(p,))
+        kernel="ssd_kernel" if fp32 else "ssd_tc_kernel", kernel_args=(pc,))

@@ -1,4 +1,4 @@
-"""Chunked Mamba-2 SSD (``csrc/ssd.cu``) and its plain version.
+"""Chunked Mamba-2 SSD (``csrc/ssd.cuh``) and its plain version.
 
 Replaces ``repro.kernels.mamba2.ssd``. ``ssd`` launches the CUDA kernel for
 CUDA tensors (or raises) and runs ``ssd_plain`` for CPU tensors;
@@ -23,7 +23,18 @@ run the fp32 kernel: x, B and C widened exactly to fp32 by
 body too), y written in fp32 and rounded to fp16 by the same kernel, so
 the decay-weighted scores and the carried state never meet fp16's range
 (a state past 65504 stays finite); ``F16_COUNT.launches`` counts its SSD
-launches, the conversions count in ``datapath.convert``.
+launches, the conversions count in ``datapath.convert``. Mixed x / B / C
+dtypes take the same route (``MIXED_COUNT.launches``), y rounded to x's
+dtype.
+
+Every shape the JAX kernel takes runs on the card up to ``N_MAX``: a head
+dim P the kernels do not compile runs as column slices of at most 64 on
+the grid's z axis, and a chunk longer than ``SUB_CHUNK`` as consecutive
+sub-chunks of ``SUB_CHUNK`` rows, the state carried between them (the same
+function; only the grouping of the fp32 sums differs). A head dim of
+``P_DIMS`` with N <= ``N_FIRST`` launches ``csrc/ssd.cu``'s instances, the
+code they were first written as; every other shape ``csrc/ssd_any.cu``'s
+(:func:`kernel_lib`).
 
 One deliberate difference from the JAX dispatch (``ops.ssd_impl``): there,
 a chunk that resumes from a carried state leaves the TPU kernel for the XLA
@@ -46,10 +57,12 @@ from repro_torch.core.dtensor import require_local
 from repro_torch.kernels.contracts import kernel_contract
 from repro_torch.models.ssm import ssd_chunked
 
-P_DIMS = (8, 16, 32, 64)        # head dims the kernel is compiled for
-N_MAX = 128                     # largest state size it holds
-CHUNK_MAX = 256                 # longest chunk its per-chunk scan holds
+P_DIMS = (8, 16, 32, 64)        # slice widths the kernels are compiled for
+N_MAX = 256                     # largest state size a block holds
+N_FIRST = 128                   # ... ssd.cu's instances hold
+SUB_CHUNK = 256                 # longest chunk one launch's scan holds
 _DT = {torch.float32: 0, torch.bfloat16: 1}
+_FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -109,27 +122,50 @@ def _rows16(*ts: torch.Tensor) -> bool:
 
 _PLAN_KEYS = ("chunks", "threads", "smem", "cluster", "out_blocks",
               "state_blocks", "first_blocks", "last_blocks", "rows",
-              "scratch_words")
+              "scratch_words", "slices")
 
 
 def ssd_plan(bsz: int, t: int, h: int, g: int, n: int, p: int, chunk: int,
              dtype: torch.dtype = torch.bfloat16,
              final_state: bool = False, device=None) -> dict:
-    """The launches an :func:`ssd` call makes, one per chunk of ``chunk``
-    rows (the wrapper's ``min(chunk, T)``): threads, dynamic shared memory
-    bytes and blocks per cluster of each, the output and state blocks of a
-    whole chunk, the first and last chunk's blocks per grid row, the grid
-    rows and the scratch's fp32 words."""
+    """The launches an :func:`ssd` call of this ``chunk`` makes, one per
+    sub-chunk of ``launch_chunk(chunk, t)`` rows: threads, dynamic shared
+    memory bytes and blocks per cluster of each, the output and state
+    blocks of a whole sub-chunk, the first and last one's blocks per grid
+    row and column slice, the grid rows, the scratch's fp32 words and the
+    column slices (the grid's z). ``dtype``: the kernel's
+    (:func:`kernel_dtype`)."""
     out = (ctypes.c_longlong * len(_PLAN_KEYS))()
-    fn = _build.bind("ssd", "ssd_plan", [_I] * 9 + [_P])
+    fn = _build.bind(kernel_lib(p, n), "ssd_plan", [_I] * 9 + [_P])
     with torch.cuda.device(device if device is not None
                            else torch.cuda.current_device()):
         # fp16 runs the fp32 kernel on widened operands
         code = _DT[torch.float32 if dtype == torch.float16 else dtype]
-        _build.check(fn(bsz, t, h, g, n, p, chunk, code,
+        _build.check(fn(bsz, t, h, g, n, p, launch_chunk(chunk, t), code,
                         int(bool(final_state)), ctypes.addressof(out)),
                      "ssd_plan")
     return dict(zip(_PLAN_KEYS, out))
+
+
+def kernel_lib(p: int, n: int) -> str:
+    """``ssd`` for a compiled head dim and N <= ``N_FIRST``, else
+    ``ssd_any``."""
+    return "ssd" if p in P_DIMS and n <= N_FIRST else "ssd_any"
+
+
+def launch_chunk(chunk: int, t: int) -> int:
+    """The rows of one launch: the call's chunk (at most T), in sub-chunks
+    of at most ``SUB_CHUNK``."""
+    return min(chunk, t, SUB_CHUNK)
+
+
+def kernel_dtype(x: torch.Tensor, b: torch.Tensor,
+                 c: torch.Tensor) -> torch.dtype:
+    """The kernel a call runs: bf16 or fp32 where x, B and C share it,
+    else the fp32 kernel on widened operands (fp16, mixed dtypes)."""
+    if x.dtype == b.dtype == c.dtype and x.dtype in _DT:
+        return x.dtype
+    return torch.float32
 
 
 @kernel_contract("ssd")
@@ -137,9 +173,9 @@ def ssd(x, dt, a_log, b, c, *, d_skip=None, chunk: int = 256,
         initial_state=None, return_final_state: bool = False):
     """The chunked SSD on the card (CUDA tensors) or ``ssd_plain`` (CPU
     tensors); arguments and results as for :func:`ssd_plain`. x, b and c
-    share the model dtype (fp32, bf16 or fp16) and are read by their strides,
-    so the model's views into its fused projection are never copied; y is
-    written in x's dtype, the states in fp32."""
+    are fp32, bf16 or fp16, any mix, read by their strides where they share
+    bf16 or fp32, so the model's views into its fused projection are never
+    copied; y is written in x's dtype, the states in fp32."""
     require_local("ssd", x, dt, a_log, b, c, d_skip, initial_state)
     if x.device.type == "cpu":
         return ssd_plain(x, dt, a_log, b, c, d_skip=d_skip, chunk=chunk,
@@ -149,11 +185,9 @@ def ssd(x, dt, a_log, b, c, *, d_skip=None, chunk: int = 256,
         raise ValueError(f"ssd: no kernel for device {x.device}")
     bsz, t, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
-    q = min(chunk, t)
-    if x.dtype not in _DT and x.dtype != torch.float16 or \
-            b.dtype != x.dtype or c.dtype != x.dtype:
-        raise NotImplementedError(f"ssd: x, b and c must share fp32, bf16 "
-                                  f"or fp16, got {x.dtype} / {b.dtype} / "
+    if any(v.dtype not in _FLOATS for v in (x, b, c)):
+        raise NotImplementedError(f"ssd: x, b and c take fp32, bf16 or "
+                                  f"fp16, got {x.dtype} / {b.dtype} / "
                                   f"{c.dtype}")
     if tuple(dt.shape) != (bsz, t, h) or tuple(c.shape) != tuple(b.shape) \
             or b.shape[:2] != x.shape[:2] or h % g \
@@ -161,14 +195,18 @@ def ssd(x, dt, a_log, b, c, *, d_skip=None, chunk: int = 256,
         raise ValueError(f"ssd: x {tuple(x.shape)}, dt {tuple(dt.shape)}, "
                          f"b {tuple(b.shape)}, c {tuple(c.shape)}, a_log "
                          f"{tuple(a_log.shape)}")
-    if p not in P_DIMS or n > N_MAX or q > CHUNK_MAX or t == 0:
+    if n > N_MAX:
         raise NotImplementedError(
-            f"ssd: head dim {p} (compiled: {P_DIMS}), state {n} (<= "
-            f"{N_MAX}), chunk {q} (<= {CHUNK_MAX}), T={t}")
+            f"ssd: state size {n} above {N_MAX}: a block holds a 64-row C "
+            f"tile and both heads' carried states in shared memory, and past "
+            f"N = 320 they pass the 227 KB a block may hold")
+    if t == 0 or p == 0 or chunk < 1:
+        raise ValueError(f"ssd: T={t}, P={p}, chunk={chunk}")
+    q = launch_chunk(chunk, t)
     dev = x.device
-    out_dtype = x.dtype
-    if x.dtype == torch.float16:
-        x, b, c = (dp.convert(v, torch.float32) for v in (x, b, c))
+    out_dtype, run = x.dtype, kernel_dtype(x, b, c)
+    mixed = not x.dtype == b.dtype == c.dtype
+    x, b, c = (dp.convert(v, run) for v in (x, b, c))
     x, b, c = _inner_contiguous(x), _inner_contiguous(b), _inner_contiguous(c)
     dt = _inner_contiguous(dt.to(torch.float32))
     a_log = a_log.to(torch.float32).contiguous()
@@ -191,7 +229,7 @@ def ssd(x, dt, a_log, b, c, *, d_skip=None, chunk: int = 256,
     # Between chunks the kernels carry the state in two buffers.
     scratch = torch.empty((2, bsz, h, n, p), dtype=torch.float32,
                           device=dev) if t > q else None
-    fn = _build.bind("ssd", "ssd_launch",
+    fn = _build.bind(kernel_lib(p, n), "ssd_launch",
                      [_P, _L, _L, _L, _P, _L, _L, _L, _P, _P, _P, _L, _L, _L,
                       _P, _L, _L, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       _I, _I, _I, _P])
@@ -206,7 +244,9 @@ def ssd(x, dt, a_log, b, c, *, d_skip=None, chunk: int = 256,
              bsz, t, h, g, n, p, q, _DT[x.dtype], int(_rows16(x, b, c)),
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "ssd")
-    if out_dtype == torch.float16:
+    if mixed:
+        MIXED_COUNT.launches += 1
+    elif out_dtype == torch.float16:
         F16_COUNT.launches += 1
     else:
         ssd.launches += 1
@@ -220,3 +260,5 @@ ssd.launches = 0
 ssd.resumed_launches = 0        # the launches that carried a state in
 # The fp16 SSD's launches (the kernels report names them ssd[fp16]).
 F16_COUNT = SimpleNamespace(launches=0)
+# The launches on mixed x / B / C dtypes (ssd[mixed]).
+MIXED_COUNT = SimpleNamespace(launches=0)

@@ -2689,3 +2689,227 @@ def test_fp16_ssd_and_its_stress_state_past_fp16_range(card):
     tol = fp32_tolerance(dt, a_log, t)
     assert (st.double() - exact).abs().max().item() <= \
         tol * exact.abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# the last kernel shapes: any head dim, unaligned operands, mixed dtypes,
+# the SSD's head dim, state and chunk
+# ---------------------------------------------------------------------------
+_F16 = torch.float16
+
+
+def _close_out(got, want):
+    """By the output dtype: bf16 one bf16 ulp (2^-7 relative), fp16 one
+    fp16 ulp (2^-10), fp32 1e-5 relative; each plus 2^-14 (fp32: 1e-5) of
+    the largest magnitude (the sum orders differ)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    g, w = got.float().cpu(), want.float().cpu()
+    assert torch.isfinite(g).all()
+    scale = w.abs().max().item()
+    rtol, atol = {torch.bfloat16: (2.0 ** -7, 2.0 ** -14 * scale),
+                  _F16: (2.0 ** -10, 2.0 ** -14 * scale)}.get(
+                      got.dtype, (1e-5, 1e-5 * scale))
+    torch.testing.assert_close(g, w, rtol=rtol, atol=atol)
+
+
+def _offset(t, off):
+    """``t``'s values in a buffer ``off`` elements past a 16-byte boundary
+    (a contiguous view the kernels must read element by element)."""
+    buf = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+    view = buf[off:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _attn_inputs(card, rng, d, qd, kd, off=0):
+    """The four launchers' operands at head dim d: flash (2 x 40 x 8 /
+    2 heads), dense decode (2 x 1 against 70 keys), paged decode (3 slots)
+    and paged prefill (20 tokens at 50) over pools with NaN pages."""
+    h, kvh, page, mp = 8, 2, 16, 6
+    lens = [70, 0, 33]
+    pk, pv, tables = _pools(rng, kvh, 24, page, d, lens, mp)
+
+    def dev(x, dt):
+        return _offset(torch.from_numpy(np.asarray(x, np.float32)).to(
+            card, dt), off)
+    return dict(
+        q=dev(rng.standard_normal((2, 40, h, d)), qd),
+        k=dev(rng.standard_normal((2, 40, kvh, d)), kd),
+        v=dev(rng.standard_normal((2, 40, kvh, d)), kd),
+        qd=dev(rng.standard_normal((2, 1, h, d)), qd),
+        kc=dev(rng.standard_normal((2, 70, kvh, d)), kd),
+        vc=dev(rng.standard_normal((2, 70, kvh, d)), kd),
+        qs=dev(rng.standard_normal((3, 1, h, d)), qd),
+        qp=dev(rng.standard_normal((1, 20, h, d)), qd),
+        pk=dev(pk, kd), pv=dev(pv, kd),
+        tables=torch.from_numpy(tables).to(card),
+        lens=torch.tensor(lens, dtype=torch.int32, device=card))
+
+
+def _attn_calls(e, kw):
+    """(name, kernel call, plain call) of each launcher."""
+    return [
+        ("flash_attention",
+         lambda: tak.flash_attention(e["q"], e["k"], e["v"], **kw),
+         lambda: tak.blockwise_attention(e["q"], e["k"], e["v"], **kw)),
+        ("decode_attention",
+         lambda: tak.decode_attention(e["qd"], e["kc"], e["vc"], 60, **kw),
+         lambda: tak.decode_attention_plain(e["qd"], e["kc"], e["vc"], 60,
+                                            **kw)),
+        ("paged_decode_attention",
+         lambda: tak.paged_decode_attention(e["qs"], e["pk"], e["pv"],
+                                            e["tables"], e["lens"], **kw),
+         lambda: tak.paged_decode_attention_plain(
+             e["qs"], e["pk"], e["pv"], e["tables"], e["lens"], **kw)),
+        ("paged_prefill_attention",
+         lambda: tak.paged_prefill_attention(e["qp"], e["pk"], e["pv"],
+                                             e["tables"][0], 50, **kw),
+         lambda: tak.paged_prefill_attention_plain(
+             e["qp"], e["pk"], e["pv"], e["tables"][0], 50, **kw))]
+
+
+def _grew(name, before, mixed=False, dtype=None):
+    key = f"{name}[mixed]" if mixed else \
+        f"{name}[fp16]" if dtype == _F16 else name
+    return kernels.launch_counts()[key] == before[key] + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, _F16, torch.float32])
+@pytest.mark.parametrize("d", [8, 20, 48, 80, 200, 320, 512])
+def test_attention_any_head_dim(card, d, dtype):
+    """Every launcher at head dims between and past the compiled ones
+    (320 and 512: the fp32 instance at 512, 16-bit operands widened),
+    with a window and a softcap: one launch each, counted by q's dtype."""
+    e = _attn_inputs(card, np.random.default_rng(d), d, dtype, dtype)
+    for name, run, plain in _attn_calls(e, dict(window=24, softcap=30.0)):
+        before = kernels.launch_counts()
+        got = run()
+        assert _grew(name, before, dtype=dtype), name
+        _close_out(got, plain())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [64, 80])
+def test_attention_unaligned_operands(card, d, dtype):
+    """Operands 2 elements past a 16-byte boundary: the element-by-element
+    loads, the same result as the aligned call."""
+    rng = np.random.default_rng(7)
+    aligned = _attn_inputs(card, rng, d, dtype, dtype)
+    shifted = {k: (_offset(v, 2) if v.is_floating_point() else v)
+               for k, v in aligned.items()}
+    assert shifted["q"].data_ptr() % 16 != 0
+    kw = dict(window=None, softcap=None)
+    for (name, run, plain), (_, run_s, _) in zip(
+            _attn_calls(aligned, kw), _attn_calls(shifted, kw)):
+        got = run_s()
+        _close_out(got, plain())
+        _close_out(got, run())
+
+
+@pytest.mark.parametrize("qd,kd", [(torch.bfloat16, torch.float32),
+                                   (torch.float32, _F16),
+                                   (_F16, torch.bfloat16)])
+@pytest.mark.parametrize("d", [64, 96])
+def test_attention_mixed_dtypes(card, d, qd, kd):
+    """q in one dtype, k / v in another: the fp32 kernel on widened
+    operands, the output in q's dtype, counted in ``[mixed]``."""
+    e = _attn_inputs(card, np.random.default_rng(d), d, qd, kd)
+    for name, run, plain in _attn_calls(e, dict(window=24, softcap=None)):
+        before = kernels.launch_counts()
+        got = run()
+        assert _grew(name, before, mixed=True), name
+        _close_out(got, plain())
+
+
+def _shape_ssd_inputs(card, seed, t, h, g, n, p, xd, bd, resume, off=0):
+    gen = torch.Generator(device=card).manual_seed(seed)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        x = torch.randn(shape, generator=gen, device=card) * scale
+        return _offset(x.to(dtype), off)
+    x = randn(1, t, h, p, dtype=xd)
+    b = randn(1, t, g, n, dtype=bd, scale=0.3)
+    c = randn(1, t, g, n, dtype=bd, scale=0.3)
+    dt = torch.nn.functional.softplus(torch.randn((1, t, h), generator=gen,
+                                                  device=card))
+    a_log = torch.log(torch.linspace(1.0, 16.0, h, device=card))
+    d_skip = torch.ones((h,), device=card)
+    init = torch.randn((1, h, n, p), generator=gen, device=card) * 0.5 \
+        if resume else None
+    return x, dt, a_log, b, c, d_skip, init
+
+
+def _check_ssd(got, x, dt, a_log, b, c, d_skip, init, chunk):
+    """y against the plain version at the chunk asked for (the output
+    dtype's rule); y in fp32 and the final state against the fp64
+    recurrence within ``fp32_tolerance``."""
+    want = tm2.ssd_plain(x, dt, a_log, b, c, d_skip=d_skip, chunk=chunk,
+                         initial_state=init)
+    exact_y, exact_s = ssd_fp64(x, dt, a_log, b, c, d_skip=d_skip,
+                                initial_state=init)
+    tol = fp32_tolerance(dt, a_log, chunk)
+    if got[0].dtype == torch.float32:
+        pairs = ((got[0], exact_y), (got[1], exact_s))
+    else:
+        _close_out(got[0], want)
+        pairs = ((got[1], exact_s),)
+    for v, ex in pairs:
+        err = (v.double() - ex).abs().max().item()
+        assert torch.isfinite(v).all() and err <= tol * ex.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t,h,n,p,chunk,resume", [
+    (600, 4, 256, 128, 512, True),    # two slices, two sub-chunks + ragged
+    (256, 4, 128, 96, 256, False),    # a half-filled second slice
+    (300, 4, 200, 24, 300, True),     # P 24 on the 32-wide instance
+    (100, 4, 64, 10, 64, True),       # P 10: element rows and states
+    (80, 2, 256, 8, 80, False)])
+def test_ssd_any_head_dim_state_and_chunk(card, t, h, n, p, chunk, resume,
+                                          dtype):
+    args = _shape_ssd_inputs(card, p + n, t, h, 1, n, p, dtype, dtype, resume)
+    before = kernels.launch_counts()["ssd"]
+    got = tm2.ssd(*args[:5], d_skip=args[5], chunk=chunk,
+                  initial_state=args[6], return_final_state=True)
+    assert kernels.launch_counts()["ssd"] == before + 1
+    _check_ssd(got, *args, chunk)
+
+
+@pytest.mark.parametrize("xd,bd", [(torch.float32, torch.bfloat16),
+                                   (torch.bfloat16, torch.float32)])
+def test_ssd_mixed_dtypes(card, xd, bd):
+    args = _shape_ssd_inputs(card, 3, 300, 4, 2, 128, 64, xd, bd, True)
+    before = kernels.launch_counts()["ssd[mixed]"]
+    got = tm2.ssd(*args[:5], d_skip=args[5], chunk=256,
+                  initial_state=args[6], return_final_state=True)
+    assert kernels.launch_counts()["ssd[mixed]"] == before + 1
+    assert got[0].dtype == xd
+    _check_ssd(got, *args, 256)
+
+
+def test_wrappers_raise_nowhere_on_a_seeded_grid(card):
+    """32 draws of (head dim 1..512, q / k / v dtypes, alignment) through
+    the four attention launchers and 32 of (P 1..256, N 1..256, chunk
+    1..600, x / B / C dtypes, alignment) through the SSD: every call
+    launches and matches its plain version."""
+    rng = np.random.default_rng(2026)
+    floats = [torch.bfloat16, _F16, torch.float32]
+    for _ in range(32):
+        d = int(rng.integers(1, 513))
+        qd, kd = (floats[i] for i in rng.integers(0, 3, 2))
+        off = int(rng.integers(0, 2)) * 2
+        e = _attn_inputs(card, rng, d, qd, kd, off)
+        for name, run, plain in _attn_calls(e, dict(window=None,
+                                                    softcap=None)):
+            _close_out(run(), plain())
+    for _ in range(32):
+        p, n = (int(v) for v in rng.integers(1, 257, 2))
+        t = int(rng.integers(1, 601))
+        chunk = int(rng.integers(1, 601))
+        xd, bd = (floats[i] for i in rng.integers(0, 3, 2))
+        args = _shape_ssd_inputs(card, int(rng.integers(0, 1 << 30)), t, 2,
+                                 1, n, p, xd, bd, bool(rng.integers(0, 2)),
+                                 int(rng.integers(0, 2)))
+        got = tm2.ssd(*args[:5], d_skip=args[5], chunk=chunk,
+                      initial_state=args[6], return_final_state=True)
+        _check_ssd(got, *args, chunk)

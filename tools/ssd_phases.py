@@ -1,7 +1,8 @@
 """Where the SSD kernels' time goes, phase by phase, on a card.
 
-Builds a copy of ``csrc/ssd.cu`` with ``globaltimer`` stamps (thread 0 of
-every block, at the phase boundaries marked below), swaps it in for the
+Builds a copy of ``csrc/ssd.cuh`` (``ssd.cu``'s instances) with
+``globaltimer`` stamps (thread 0 of every block, at the phase boundaries
+marked below), swaps it in for the
 ``ssd`` library, runs the serving call (one 256-token chunk with a carried
 state; bf16) at mamba2-1.3b's and hymba-1.5b's widths, or with ``--fp32``
 the fp32 kernel there on phases 7-8's fp32 call (256 tokens fresh) and
@@ -33,7 +34,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 STAMPS = 24
 
-# (anchor line in ssd.cu, stamp slot, stamp before the line?)
+# (anchor line in ssd.cuh, stamp slot, stamp before the line?)
 MARKS = [
     ("  const int r_lo = warp * 16;", "0", True),
     ("  __syncthreads();                         // C, states, seg and "
@@ -80,13 +81,15 @@ def stamp(slot: str) -> str:
 def build(out: Path) -> Path:
     from repro_torch.kernels import _build
 
-    src = (ROOT / "src/repro_torch/kernels/csrc/ssd.cu").read_text()
+    src = "#define SSD_GENERIC false\n" + (
+        ROOT / "src/repro_torch/kernels/csrc/ssd.cuh").read_text().replace(
+            "#pragma once\n", "")
     src = src.replace("constexpr int TC_THREADS = 128;",
                       "__device__ unsigned long long* g_stamps;\n"
                       "constexpr int TC_THREADS = 128;")
     for line, slot, before in MARKS + MARKS_F32:
         if src.count(line) != 1:
-            raise SystemExit(f"ssd_phases: anchor not once in ssd.cu: "
+            raise SystemExit(f"ssd_phases: anchor not once in ssd.cuh: "
                              f"{line!r}")
         src = src.replace(line, stamp(slot) + line if before
                           else line + stamp(slot))
