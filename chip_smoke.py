@@ -148,8 +148,8 @@ Needs one CUDA card, ``nvcc`` and the repository checkout around this file
 16. tune (the kernel-schedule tuner, ``repro_torch.tune``; every earlier
    phase runs with tuning off): under ``GEMMINI_TUNE=full``, with a cache
    under ``build/`` deleted afterwards, the distinct GEMMs of gemma3-1b's
-   decode step (M = 4) and 256-token chunk, the training step's two
-   unembedding products, ResNet-50's distinct convs on the int8 and fp32
+   decode step (M = 4) and 256-token chunk, ResNet-50's distinct convs on
+   the int8 and fp32
    instances, phase 3's flash shape and phase 4's page size (4 slots,
    2048 context) are tuned; each winner within ``TIE_BAND`` of the static
    plan on the same measurement and held against its plain version by
@@ -212,10 +212,15 @@ the JSON carry the GEMM's sums over one decode step (M = 4) and one
 prefill chunk (M = 256), 7 projections per layer and the unembedding.
 The ``gemm[bwd]`` rows are the training step's backward products at its
 4 x 1024 token rows: dA = dC B^T and dB = A^T dC of every projection and
-of the tied unembedding (``kernels.gemm.grad_a`` / ``grad_b``), each with
-its plan, ``torch.matmul`` on the same operands, its launches per
-training step and the bytes ``grad_b`` copies to give the kernel a
-row-major operand.
+of the tied unembedding (``kernels.gemm.grad_a`` / ``grad_b``, on the
+backward kernel ``csrc/hgemm_bwd.cuh``), each with its plan (tile, the
+data-parallel and stream-K tiles, units, the shares of a split tile,
+grid), ``torch.matmul`` on the same operands, its launches per training
+step, a second launch bit-equal to the first and the bytes the call
+allocates beyond its output (0: its operands are read in place); two more
+rows hold granite-moe-3b-a800m's tied unembedding (vocab 49155, rows no
+tensor map describes) on the forward route, the forward kernels, at the
+same token rows.
 Every profiler window (phases 4b, 6, 6b, 7-8) is held to the launch
 counters' growth over its passes (``profile_call``, a marker kernel
 around each pass left out of the counts): a short window is taken again,
@@ -548,16 +553,16 @@ TRAIN_ROWS = 4 * 1024      # the training phase's batch x sequence
 
 def gemm_backward_cases(torch, randn):
     """The engine GEMM's backward products at gemma3-1b's training shapes
-    (M = 4 x 1024 token rows): (op, name, M, N, K, b_trans, run_kernel,
-    run_plain, run_library, bytes copied, note, run_exact) for dA = dC
-    B^T and dB =
-    A^T dC of every projection and of the tied unembedding (B =
-    ``table.T``), M x N x K the product's own (dA: M tokens, N = the
-    layer's input width, K = its output width; dB: M = input width, N =
-    output width, K tokens). ``kernels.gemm.grad_a`` / ``grad_b`` are the
-    calls the autograd Function makes; the yardstick is ``torch.matmul``
-    on the same operands; the bytes are the operand ``grad_b`` makes
-    contiguous (A^T or dC^T, whichever is smaller), beside the other."""
+    (M = 4 x 1024 token rows): (op, name, M, N, K, operands, run_kernel,
+    run_plain, run_library, run_exact) for dA = dC B^T and dB = A^T dC of
+    every projection and of the tied unembedding (B = ``table.T``), M x N
+    x K the product's own (dA: M tokens, N = the layer's input width, K =
+    its output width; dB: M = input width, N = output width, K tokens).
+    ``kernels.gemm.grad_a`` / ``grad_b`` are the calls the autograd
+    Function makes (the unembedding's dB written in the table's layout, as
+    dB^T = dC^T A); the yardstick is ``torch.matmul`` on the same
+    operands; ``operands`` are the backward kernel's (A, B) for its plan
+    and route."""
     from repro_torch import configs
     from repro_torch.kernels import gemm as kg
     from repro_torch.kernels.ref import gemm_ref
@@ -574,25 +579,83 @@ def gemm_backward_cases(torch, randn):
     out = []
     for name, k, n in proj + [("unembed", d, cfg.vocab)]:
         a = randn(m, k)
-        b = table.T if name == "unembed" else randn(k, n, scale=k ** -0.5)
+        tied = name == "unembed"
+        b = table.T if tied else randn(k, n, scale=k ** -0.5)
         dc = randn(m, n, scale=1e-3)
         # dA: dC (m x n) @ B^T (n x k); B^T is read in place
-        out.append(("dA", name, m, k, n, name != "unembed",
+        out.append(("dA", name, m, k, n, (dc, b.t()),
                     lambda dc=dc, b=b: kg.grad_a(dc, b, bf16),
                     lambda dc=dc, b=b: gemm_ref(dc, b.t(), None, **kw),
-                    lambda dc=dc, b=b: torch.matmul(dc, b.t()), 0, "",
+                    lambda dc=dc, b=b: torch.matmul(dc, b.t()),
                     lambda dc=dc, b=b: dc.double() @ b.t().double()))
-        copy_a, copy_dc = 2 * m * k, 2 * m * n
-        note = (f"copies A^T {copy_a} B (dC^T would be {copy_dc} B)"
-                if k <= n else
-                f"copies dC^T {copy_dc} B (A^T would be {copy_a} B)")
-        out.append(("dB", name, k, n, m, False,
-                    lambda a=a, dc=dc: kg.grad_b(a, dc, bf16),
+        # dB: A^T (k x m) @ dC (m x n), A^T read in place; the tied
+        # table's as dC^T A into the table's (n, k) layout
+        out.append(("dB", name, k, n, m, (dc.t(), a) if tied else
+                    (a.t(), dc),
+                    (lambda a=a, dc=dc: kg.grad_b(a, dc, bf16, trans=True))
+                    if tied else (lambda a=a, dc=dc: kg.grad_b(a, dc, bf16)),
                     lambda a=a, dc=dc: gemm_ref(a.t(), dc, None, **kw),
                     lambda a=a, dc=dc: torch.matmul(a.t(), dc),
-                    min(copy_a, copy_dc), note,
                     lambda a=a, dc=dc: a.t().double() @ dc.double()))
     return out
+
+
+def bwd_plan_text(operands):
+    """The backward route of a product's operands and, on the backward
+    kernel, its plan as phase 3 logs it: tile, ring, the data-parallel
+    tiles and the stream-K tiles over their blocks, units (a data-parallel
+    tile or a stream-K share each), the shares of a split tile, grid,
+    workspace."""
+    from repro_torch.kernels import gemm as kg
+
+    a, b = operands
+    route = kg.bwd_route(a, b, a.dtype)
+    if route != "persistent":
+        return route, {}
+    m, k = a.shape
+    n = b.shape[1]
+    p = kg.gemm_bwd_plan(m, n, k)
+    units = p["dp_tiles"] + p["sk_blocks"]
+    bm, bn, bk = p["tile"]
+    text = (f"{bm}x{bn}x{bk}, {p['stages']} stages, {p['dp_tiles']} tiles "
+            f"data-parallel + {p['sk_tiles']} stream-K over "
+            f"{p['sk_blocks']} blocks, {units} units, a split tile in "
+            f"{p['splits']} shares, grid {p['grid']} x {p['threads']}, "
+            f"workspace {p['workspace_bytes']} B")
+    return text, {"units": units, "splits": p["splits"], "grid": p["grid"],
+                  "dp_tiles": p["dp_tiles"], "sk_tiles": p["sk_tiles"],
+                  "sk_blocks": p["sk_blocks"], "tile": p["tile"]}
+
+
+def copied_bytes(torch, run_k):
+    """Device bytes a call asks the caching allocator for beyond its output
+    (a copy of an operand, a scratch buffer), by the allocator's requested
+    bytes (a block it hands out may be larger than asked): 0 for the
+    backward kernel, whose operands are read in place (the stream's
+    workspace is made by an earlier call)."""
+    key = "requested_bytes.all."
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_stats()[key + "current"]
+    torch.cuda.reset_peak_memory_stats()
+    out = run_k()
+    torch.cuda.synchronize()
+    extra = torch.cuda.memory_stats()[key + "peak"] - base - \
+        out.numel() * out.element_size()
+    del out
+    return max(int(extra), 0)
+
+
+def rerun_equal(torch, name, run_k, check):
+    """``check`` (a phase 3 check on (got, want)) and then a second launch
+    bit-equal to the first: the backward kernel's stream-K partials are
+    added in a fixed order."""
+    def hold(got, want):
+        err = check(got, want)
+        again = run_k()
+        if not torch.equal(got.view(torch.int16), again.view(torch.int16)):
+            fail(f"{name}: a second launch differs from the first")
+        return err
+    return hold
 
 
 # A product over this many terms or more is held to the exact (fp64)
@@ -753,23 +816,58 @@ def kernel_cases(torch, rng_seed=0):
                   2 * (64 * d + d * n + 64 * n + n), 2.0 * 64 * d * n,
                   {"plan": gemm_plan_text(kg, 64, n, d)}))
     # -- gemm[bwd]: the training step's backward products (dA, dB) of every
-    # projection and the tied unembedding; each runs once a layer a step
-    # (the unembedding's once a step)
-    for op, pname, m, n, k, b_trans, run_k, run_p, run_lib, copied, note, \
-            run_exact in gemm_backward_cases(torch, randn):
-        plan_mnk = (m, n, k) if op == "dA" or copied == 2 * k * m else \
-            (n, m, k)
+    # projection and the tied unembedding on the backward kernel; each runs
+    # once a layer a step (the unembedding's once a step)
+    for op, pname, m, n, k, operands, run_k, run_p, run_lib, run_exact in \
+            gemm_backward_cases(torch, randn):
         label = f"{op} {pname} M={m} N={n} K={k}"
-        opts = {"plan": gemm_plan_text(kg, *plan_mnk, b_trans),
+        plan, geo = bwd_plan_text(operands)
+        if not geo:
+            fail(f"gemm[bwd] [{label}]: routed to the {plan} kernels, not "
+                 f"the backward kernel")
+        check = hold_long_k(torch, f"gemm[bwd] [{label}]", run_exact) \
+            if k >= LONG_K else \
+            (lambda got, want, label=label: check_close(
+                torch, f"gemm[bwd] [{label}]", got, want, "bf16"))
+        opts = {"plan": plan, "bwd_plan": geo,
                 "launches_per_step": 1 if pname == "unembed" else
-                cfg.n_layers, "copied_bytes": copied, "note": note}
-        if k >= LONG_K:
-            opts["check"] = hold_long_k(torch, f"gemm[bwd] [{label}]",
-                                        run_exact)
+                cfg.n_layers,
+                "copied_bytes": lambda run_k=run_k: copied_bytes(torch,
+                                                                 run_k),
+                "check": rerun_equal(torch, f"gemm[bwd] [{label}]", run_k,
+                                     check)}
         cases.append((
             "gemm[bwd]", label, pname == "unembed" and op == "dB", "bf16",
             run_k, run_p, run_lib, 2 * (m * k + k * n + m * n),
             2.0 * m * n * k, opts))
+    # granite-moe-3b-a800m's tied unembedding in bf16 training at the same
+    # token rows: a vocab of 49155 leaves rows of no whole 16-byte words,
+    # which no tensor map describes, so both products take the forward
+    # route (the forward kernels; grad_b copies A^T), held to the plain
+    # version
+    gcfg = configs.get("granite-moe-3b-a800m")
+    gd, gv, rows = gcfg.d_model, gcfg.vocab, TRAIN_ROWS
+    gtable = randn(gv, gd, scale=gd ** -0.5)
+    ga, gdc = randn(rows, gd), randn(rows, gv, scale=1e-3)
+    kw16 = dict(acc_dtype=f32, out_dtype=bf16)
+    for op, m, n, k, operands, run_k, run_p, run_lib in (
+            ("dA", rows, gd, gv, (gdc, gtable),
+             lambda: kg.grad_a(gdc, gtable.T, bf16),
+             lambda: gemm_ref(gdc, gtable, None, **kw16),
+             lambda: torch.matmul(gdc, gtable)),
+            ("dB", gd, gv, rows, (gdc.t(), ga),
+             lambda: kg.grad_b(ga, gdc, bf16, trans=True),
+             lambda: gemm_ref(ga.t(), gdc, None, **kw16),
+             lambda: torch.matmul(ga.t(), gdc))):
+        label = f"{op} granite unembed M={m} N={n} K={k}"
+        route, geo = bwd_plan_text(operands)
+        if geo:
+            fail(f"gemm[bwd] [{label}]: a vocab of {gv} routed to the "
+                 f"backward kernel, which no tensor map lets read it")
+        cases.append((
+            "gemm[bwd]", label, False, "bf16", run_k, run_p, run_lib,
+            2 * (m * k + k * n + m * n), 2.0 * m * n * k,
+            {"plan": f"{route} route: " + gemm_plan_text(kg, m, n, k)}))
     # the fp32 datapath (fp32 engine config), TF32 off as main sets it
     for pname, m, n, k, run_k, run_p, run_lib, nbytes in fp32_gemm_cases(
             torch, randn):
@@ -1638,9 +1736,15 @@ def run_cases(torch, timer, cases):
             extra += f"  fp32 bound {opts['bound_fp32_ms']:.4f} ms"
         if "launches_per_step" in opts:
             row["launches_per_step"] = opts["launches_per_step"]
-            row["copied_bytes"] = opts["copied_bytes"]
-            extra += (f"  {opts['launches_per_step']} a training step"
-                      + (f"; {opts['note']}" if opts["note"] else ""))
+            copied = opts["copied_bytes"]
+            row["copied_bytes"] = copied() if callable(copied) else copied
+            if "bwd_plan" in opts:
+                row["bwd_plan"] = opts["bwd_plan"]
+                if row["copied_bytes"]:
+                    fail(f"{kernel} [{label}]: the call allocated "
+                         f"{row['copied_bytes']} bytes beyond its output")
+            extra += (f"  {opts['launches_per_step']} a training step, "
+                      f"copied {row['copied_bytes']} B")
         rows.append(row)
         log(f"{kernel:<24} {label:<62} err {err:.2e}  kernel {ms:8.4f} ms "
             f"(host {host_ms:7.4f})  plain {plain_ms:8.4f} ms  library "
@@ -1936,6 +2040,7 @@ _KERNEL_NAMES = (("ssd_kernel", "ssd"), ("ssd_tc_kernel", "ssd"),
                  ("convert_kernel", "convert"),
                  ("hgemm::skinny_kernel", "gemm"),
                  ("hgemm::wide_kernel", "gemm"), ("sgemm_kernel", "gemm"),
+                 ("hgemm_bwd::bwd_kernel", "gemm"),
                  ("igemm::kernel<short", "gemm"),
                  ("MatrixA", "gemm[int8]"),
                  ("flash_f32_kernel", "flash_attention"))
@@ -3502,6 +3607,7 @@ def run_train_phase(torch, np):
     from repro_torch.core.config import GemminiConfig
     from repro_torch.core.context import ExecutionContext
     from repro_torch.data import SyntheticLM, SyntheticLMConfig, make_batch
+    from repro_torch.kernels import gemm as kg
     from repro_torch.launch import steps
     from repro_torch.launch import train as train_cli
     from repro_torch.models import transformer as tf
@@ -3537,6 +3643,7 @@ def run_train_phase(torch, np):
     kernels.reset_launch_counts()
     for i in range(TRAIN_STEPS):
         before = kernels.launch_counts()
+        persistent = kg.BWD_COUNT.persistent
         t0 = time.perf_counter()
         state, metrics = train_step(state, batches[i])
         losses.append(float(metrics["loss"]))
@@ -3547,6 +3654,12 @@ def run_train_phase(torch, np):
         got = {k: after[k] - before[k] for k in after if after[k] - before[k]}
         if got != want:
             fail(f"train step {i}: launches {got}, want {want}")
+        # every backward product is 16-bit and tensor-map aligned here: all
+        # of them take the backward kernel
+        if kg.BWD_COUNT.persistent - persistent != want["gemm[bwd]"]:
+            fail(f"train step {i}: {kg.BWD_COUNT.persistent - persistent} "
+                 f"of {want['gemm[bwd]']} backward products on the "
+                 f"backward kernel")
         if i + 1 == TRAIN_CKPT_AT:
             t0 = time.perf_counter()
             mgr.save(TRAIN_CKPT_AT, state, extra_meta={"arch": cfg.name})
@@ -3557,7 +3670,8 @@ def run_train_phase(torch, np):
         f"{TRAIN_SEQ}, losses " + ", ".join(f"{x:.4f}" for x in losses)
         + "; grad norms " + ", ".join(f"{x:.3f}" for x in norms)
         + f"; step walls (s) " + ", ".join(f"{x:.3f}" for x in walls)
-        + f"; peak memory {peak:.2f} GiB; launches per step {want}")
+        + f"; peak memory {peak:.2f} GiB; launches per step {want}, "
+        f"every gemm[bwd] on the backward kernel")
     if not all(np.isfinite(losses)) or \
             not np.mean(losses[-3:]) < np.mean(losses[:3]):
         fail(f"{TRAIN_ARCH} train: losses {losses} not finite or not "
@@ -3694,9 +3808,9 @@ TUNE_CACHE = os.path.join(ROOT, "build", "chip_smoke_tune.json")
 
 def tune_gemm_shapes(torch):
     """The GEMMs phase 16 tunes: gemma3-1b's distinct engine GEMMs at a
-    decode step (M = 4) and a 256-token chunk, and the training step's two
-    unembedding products (dA: K = 262144; dB: N = 262144), as (label,
-    dtypes, ws, M, N, K, bias, B transposed)."""
+    decode step (M = 4) and a 256-token chunk, as (label, dtypes, ws, M, N,
+    K, bias, B transposed). (The training step's backward products run the
+    backward kernel, whose plan the tuner does not choose.)"""
     from repro_torch import configs
     from repro_torch.models import transformer as tf
 
@@ -3711,9 +3825,6 @@ def tune_gemm_shapes(torch):
                 out.append((f"M={m} N={n} K={k}" + (" B^T" if b_trans
                                                     else ""),
                             eng, False, m, n, k, bias, b_trans))
-    d, v = cfg.d_model, cfg.vocab
-    out.append(("unembed dA", eng, False, TRAIN_ROWS, d, v, False, False))
-    out.append(("unembed dB", eng, False, d, v, TRAIN_ROWS, False, False))
     return out
 
 
@@ -5447,6 +5558,8 @@ def main() -> int:
                        ("gemm", ("skinny_kernel", "wide_kernel",
                                  "sgemm_kernel", "igemm")),
                        ("gemm16", ("skinny_kernel", "wide_kernel", "igemm")),
+                       ("gemm_bwd", ("bwd_kernel",)),
+                       ("gemm_bwd16", ("bwd_kernel",)),
                        ("conv", ("igemm", "sgemm_kernel")),
                        ("ssd", ("ssd_tc_kernel", "ssd_kernel")),
                        ("datapath", ("convert_kernel", "epilogue_any_kernel",
@@ -5647,7 +5760,7 @@ def main() -> int:
         "ssd": ("csrc/ssd.cuh", "src/repro/kernels/mamba2.py:151"),
         "decode_attention": ("csrc/attention.cuh",
                              "src/repro/kernels/attention.py:276"),
-        "gemm[bwd]": ("csrc/gemm.cu", "src/repro/kernels/gemm.py:105"),
+        "gemm[bwd]": ("csrc/gemm_bwd.cu", "src/repro/kernels/gemm.py:105"),
         "flash_attention[fp16]": ("csrc/attention.cuh",
                                   "src/repro/kernels/attention.py:162"),
         "paged_prefill_attention[fp16]": (

@@ -217,6 +217,11 @@ def c_plan(torch, pr: driver.Probe):
             kw["bsz"], kw["t"], kw["h"], kw["g"], kw["n"], kw["p"],
             min(kw["chunk"], kw["t"]), getattr(torch, kw["dtype"]),
             kw["final_state"]))
+    elif pr.family == "gemm_bwd":
+        rc, raw = _raw("gemm_bwd", "gemm_bwd_plan", [_I] * 3,
+                       (kw["m"], kw["n"], kw["k"]),
+                       len(kg._BWD_PLAN_KEYS))
+        keys = kg._BWD_PLAN_KEYS
     elif pr.family == "accumulator_epilogue":
         return _wrapped(lambda: kg.epilogue_plan(
             kw["count"], getattr(torch, kw["acc_dtype"]),
@@ -383,6 +388,43 @@ class Launcher:
         return [("c", out, e["want"], _kind(dt))], launch, tickets
 
     _gemm = _gemm_s8 = _gemm_like
+
+    def _gemm_bwd(self, pr, c):
+        """The backward kernel on operands laid out as the probe names (A
+        M-major: the transpose of a row-major (K, M) buffer; B K-major:
+        of a row-major (N, K) one), its flags as the tickets."""
+        torch = self.torch
+        from repro_torch.kernels import gemm as kg
+        from repro_torch.kernels.ref import gemm_ref
+        kw = pr.kw
+        dt = getattr(torch, kw["dtype"])
+        m, n, k = kw["m"], kw["n"], kw["k"]
+        key = ("gemm_bwd", pr.problem)
+        if key not in self.cache:
+            a = self.operand(dt, k, m).t() if kw["a_mn"] else \
+                self.operand(dt, m, k)
+            b = self.operand(dt, n, k).t() if kw["b_k"] else \
+                self.operand(dt, k, n)
+            want = gemm_ref(a, b, None, acc_dtype=torch.float32,
+                            out_dtype=dt)
+            self.cache[key] = dict(a=a, b=b, want=want)
+        e = self.cache[key]
+        out = Guarded(torch, (m, n), dt, self.dev)
+        need = c.workspace_words * 4
+        wsp = kg._workspace(self.dev, self.stream, need) if need else None
+        _, a_mn, lda = kg._major(e["a"])
+        _, b_k, ldb = kg._major(e["b"])
+
+        def launch():
+            f = _bind(*kg._BWD_LIBS[dt], kg._BWD_ARGS)
+            return f(e["a"].data_ptr(), e["b"].data_ptr(),
+                     out.out.data_ptr(), m, n, k, lda, ldb, n, int(a_mn),
+                     int(b_k), self.stream,
+                     wsp.data_ptr() if wsp is not None else None)
+
+        def tickets():
+            return wsp[:kc.MAX_TICKETS] if wsp is not None else None
+        return [("c", out, e["want"], _kind(dt))], launch, tickets
 
     def _conv2d_implicit(self, pr, c):
         torch = self.torch

@@ -26,7 +26,10 @@ path gives it and at shapes chosen to stress it:
   resumed (two column slices, two sub-chunks); P 10 (element-by-element
   rows and states), bf16 and fp32;
 * the mvout epilogue at (1000, 512) and (999, 513) read 4 bytes past a
-  16-byte boundary, every datapath.
+  16-byte boundary, every datapath;
+* the backward products' kernel (bf16, fp16; its plan has no knob): a
+  ragged 1000 x 1000 x 1096 on each operand layout, a stream-K-heavy
+  296 x 136 x 4096 and a one-tile 104 x 72 x 88.
 
 Each family's space (:func:`gemm_plans` and the like) is the tuner's
 (``tune/schedules.py``) widened by the plans just past each limit, so
@@ -77,6 +80,9 @@ SSD_PROBES = ((2, 256, 64, 1, 128, 64, 256, True, True),
               (1, 600, 32, 1, 256, 128, 512, True, True),
               (1, 100, 4, 2, 64, 10, 64, True, True))
 EPILOGUE_SHAPES = (((1000, 512), 0), ((999, 513), 4))
+# (m, n, k, layouts (a_mn, b_k)) of the backward kernel
+BWD_PROBES = ((1000, 1000, 1096, ((0, 0), (0, 1), (1, 0), (1, 1))),
+              (296, 136, 4096, ((1, 0),)), (104, 72, 88, ((0, 1),)))
 EPILOGUE_DTYPES = (("int32", "int8"), ("int32", "int16"),
                    ("int32", "int32"), ("float32", "float32"),
                    ("float32", "bfloat16"), ("float32", "float16"))
@@ -107,7 +113,7 @@ class Probe:
         kw = {**self.kw, **self.schedule}
         if self.family in ("gemm", "gemm_s8", "conv2d_implicit",
                            "flash_attention", "paged_prefill_attention",
-                           "accumulator_epilogue"):
+                           "accumulator_epilogue", "gemm_bwd"):
             kw["sms"] = sms
         return kc.CONTRACT_BUILDERS[self.family](**kw)
 
@@ -269,6 +275,13 @@ def probes(families: Optional[Tuple[str, ...]] = None) -> Iterator[Probe]:
                     ("bsz", b), ("t", t), ("h", h), ("g", g), ("n", n),
                     ("p", p), ("chunk", chunk), ("dtype", dtype),
                     ("initial_state", init), ("final_state", fin)))
+    if want("gemm_bwd"):
+        for dtype in ("bfloat16", "float16"):
+            for m, n, k, layouts in BWD_PROBES:
+                for a_mn, b_k in layouts[:1 if dtype == "float16" else None]:
+                    yield Probe("gemm_bwd", (
+                        ("m", m), ("n", n), ("k", k), ("dtype", dtype),
+                        ("a_mn", bool(a_mn)), ("b_k", bool(b_k))), ())
     if want("accumulator_epilogue"):
         for (rows, cols), off in EPILOGUE_SHAPES:
             for acc, out in EPILOGUE_DTYPES:
@@ -280,7 +293,7 @@ def probes(families: Optional[Tuple[str, ...]] = None) -> Iterator[Probe]:
 
 FAMILIES = ("gemm", "conv2d_implicit", "flash_attention",
             "paged_decode_attention", "paged_prefill_attention",
-            "decode_attention", "ssd", "accumulator_epilogue")
+            "decode_attention", "ssd", "accumulator_epilogue", "gemm_bwd")
 
 
 def verdicts(families=None) -> Iterator[

@@ -79,10 +79,11 @@ def launch_counters():
 
 
 def reset_launch_counts() -> None:
-    from repro_torch.kernels import mamba2
+    from repro_torch.kernels import gemm, mamba2
     for fn in launch_counters().values():
         fn.launches = 0
     mamba2.ssd.resumed_launches = 0
+    gemm.BWD_COUNT.persistent = 0
 
 
 def launch_counts():

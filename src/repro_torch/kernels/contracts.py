@@ -57,6 +57,9 @@ WD_MIN_STEPS = 4
 WD_MAX_SPLITS = 8              # a tile's splits: one cluster of blocks
 WIDE_TILES = {2: (128, 64), 3: (128, 128), 4: (128, 256), 5: (64, 256)}
 GROUP_M = 8                    # OS order: M tiles a group
+BWD_BM, BWD_BK = 128, 64       # hgemm_bwd.cuh: tile rows, k a stage
+BWD_THREADS = 384              # two consumer warpgroups and a producer
+BWD_MIN_SEG = 16               # k steps a stream-K share holds at least
 IGEMM_BK = 64                  # igemm.cuh: k bytes a stage
 IGEMM_PAD = 16
 IGEMM_MAX_SPLITS = 16
@@ -464,6 +467,104 @@ def _hgemm_contract(m, n, k, b_trans, in_dt, out_dt, ws, has_bias,
         reductions=(red,), mma=(MmaPair(in_dt, in_dt, F32),),
         limits=tuple(limits), needs_card=needs, plan=plan,
         kernel=kernel[0], kernel_args=kernel[1])
+
+
+# ---------------------------------------------------------------------------
+# hgemm_bwd.cuh: the backward products, persistent and stream-K
+# ---------------------------------------------------------------------------
+def gemm_bwd_geometry(m: int, n: int, k: int,
+                      sms: int = SMS) -> Optional[Dict[str, int]]:
+    """``hgemm_bwd::plan``: the column tile, 192, or 128 where 192's
+    padded columns cost more at 5 : 4 a column; whole waves of tiles
+    data-parallel and each remaining tile in ``splits = sms // R`` equal
+    stream-K shares of at least BWD_MIN_SEG k steps, one a block. None
+    where the C plan refuses it."""
+    if m < 1 or n < 1 or k < 1 or sms < 1:
+        return None
+    bn = 128 if cdiv(n, 128) * 128 * 5 < cdiv(n, 192) * 192 * 4 else 192
+    stages = min((220 * 1024 - BWD_BM * bn * 2) //
+                 ((BWD_BM + bn) * BWD_BK * 2), 8)
+    tm, tn, ks = cdiv(m, BWD_BM), cdiv(n, bn), cdiv(k, BWD_BK)
+    tiles = tm * tn
+    if tiles >= 1 << 31:
+        return None
+    dp = tiles // sms * sms
+    sk = tiles - dp
+    splits = max(min(sms // sk if sk else 1, ks // BWD_MIN_SEG), 1)
+    if sk * splits > MAX_TICKETS:
+        return None
+    return {"bm": BWD_BM, "bn": bn, "bk": BWD_BK, "stages": stages,
+            "threads": BWD_THREADS,
+            "smem": stages * (BWD_BM + bn) * BWD_BK * 2 + BWD_BM * bn * 2
+            + 1024,
+            "tiles_m": tm, "tiles_n": tn, "ksteps": ks, "dp_tiles": dp,
+            "sk_tiles": sk, "splits": splits, "sk_blocks": sk * splits,
+            "grid": sms if dp else sk * splits,
+            "workspace_words": MAX_TICKETS + sk * splits * BWD_BM * bn
+            if splits > 1 else 0}
+
+
+def gemm_bwd_schedule(p: Dict[str, int]) -> list:
+    """Each block's units in the kernel's order (``hgemm_bwd::Walk``):
+    (tile, lo, hi, kind, contributors) for k steps [lo, hi) of a tile (row
+    major over the tiles of ``GROUP_M``-row groups), kind "whole", "later"
+    (a share after a split tile's first: its partial to the block's slot)
+    or "first" (the split tile's first share, whose block adds the
+    ``contributors``' partials, block numbers in k order, onto its own)."""
+    ks, dp, grid, s = p["ksteps"], p["dp_tiles"], p["grid"], p["splits"]
+    out = []
+    for g in range(grid):
+        units = [(t, 0, ks, "whole", ()) for t in range(g, dp, grid)]
+        if g < p["sk_blocks"]:
+            j = g % s
+            lo, hi = j * ks // s, (j + 1) * ks // s
+            if s == 1:
+                units.append((dp + g, lo, hi, "whole", ()))
+            elif j:
+                units.append((dp + g // s, lo, hi, "later", ()))
+            else:
+                units.append((dp + g // s, lo, hi, "first",
+                              tuple(range(g + 1, g + s))))
+        out.append(units)
+    return out
+
+
+@contract_builder("gemm_bwd")
+def gemm_bwd_contract(m: int, n: int, k: int, *, dtype="bfloat16",
+                      a_mn: bool = False, b_k: bool = False,
+                      sms: int = SMS) -> LaunchContract:
+    """``gemm_bwd_launch`` / ``gemm_bwd_f16_launch`` (``gemm_bwd_plan``'s
+    array): one block an SM walking its units; the output's tiles as loops
+    over the GROUP_M order, a tile's stream-K shares its split axis,
+    merged through the stream's workspace (a flag a stream-K block, then
+    its partial) in k order."""
+    d = dt(dtype)
+    p = gemm_bwd_geometry(m, n, k, sms)
+    limits = [Limit("m", m, 1, 1 << 31),
+              Limit("n", n, 1, 1 << 31), Limit("k", k, 1, 1 << 31)]
+    if p is None:
+        limits.append(Limit("plan", 0, 1, 1))
+        p = gemm_bwd_geometry(1, 1, 1, sms)
+    segs = p["splits"]
+    ops = _gemm_operands(m, n, k, BWD_BM, p["bn"], segs, p["ksteps"],
+                         BWD_BK, d, d, F32, False, False)
+    red = _ticket(segs, p["sk_blocks"], p["sk_blocks"] * BWD_BM * p["bn"])
+    walk = tuple(dataclasses.replace(r, loops=tuple(a for a, _ in r.grid))
+                 for r in _tile_regions(p["tiles_m"], p["tiles_n"], segs,
+                                        False, lambda kind: _select_maps(
+                                            _gemm_maps(kind), ops)))
+    plan = tuple((key, p[key]) for key in (
+        "bm", "bn", "bk", "stages", "threads", "smem", "tiles_m", "tiles_n",
+        "ksteps", "dp_tiles", "sk_tiles", "splits", "sk_blocks", "grid",
+        "workspace_words"))
+    return LaunchContract(
+        name="gemm_bwd",
+        regions=(Region((("block", p["grid"]),)),) + walk,
+        operands=ops, blocks=p["grid"], threads=BWD_THREADS,
+        smem=p["smem"], workspace_words=p["workspace_words"],
+        reductions=(red,), mma=(MmaPair(d, d, F32),), limits=tuple(limits),
+        plan=plan, kernel="hgemm_bwd::bwd_kernel",
+        kernel_args=(int(a_mn), int(b_k), p["bn"]))
 
 
 # ---------------------------------------------------------------------------

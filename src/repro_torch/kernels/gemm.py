@@ -50,13 +50,15 @@ stream and shared by every GEMM and conv on it.
 The gradient (:class:`_GemmGrad`, the training path's; the JAX kernels
 have none: JAX trains on XLA's dot). When an operand requires grad,
 :func:`gemm` runs the float datapath through a ``torch.autograd.Function``
-whose backward products run on the same kernels, fp32 accumulation, each
-output in its operand's dtype (JAX's grads take the parameter's dtype):
-``dA = dC @ B^T``, with B^T read through :func:`_b_layout` (no copy), and
-``dB = A^T @ dC``, or ``(dC^T @ A)^T`` where that copies fewer bytes (the
-kernel reads A row-major, so A^T or dC^T is made contiguous: M x K
-elements against M x N; the tied unembedding's dB, N = vocab, copies
-A); the bias's gradient is dC summed over rows in fp32. The output
+whose backward products, ``dA = dC @ B^T`` and ``dB = A^T @ dC``, fp32
+accumulation, each output in its operand's dtype (JAX's grads take the
+parameter's dtype), run on the backward kernel (``csrc/hgemm_bwd.cuh``,
+:func:`_gemm_bwd`) where :func:`bwd_route` admits them: 16-bit operands
+read in place by their strides, dB written in its parameter's layout.
+The rest run the forward kernels: dA with B^T read through
+:func:`_b_layout`, dB as ``A^T @ dC`` or ``(dC^T @ A)^T``, whichever
+copies fewer bytes (the forward kernels read A row-major). The bias's
+gradient is dC summed over rows in fp32. The output
 rounding passes the gradient straight through, as JAX's ``astype``
 transposes. A shift, an activation or an integer datapath has no
 derivative here and raises ``NotImplementedError`` under grad. On the CPU
@@ -80,7 +82,7 @@ Launch counts, one per kernel of the ``kernels`` report:
 order,
 ``gemm_ws.launches`` any of them in WS order,
 ``BWD_COUNT.launches`` either backward product, any float datapath
-(``gemm[bwd]``),
+(``gemm[bwd]``; ``BWD_COUNT.persistent`` those on the backward kernel),
 ``accumulator_epilogue.launches``; :func:`_gemm_any`'s conversions and
 generic epilogue count in ``datapath.convert`` and
 ``datapath.epilogue_any``, its product in its main loop's count.
@@ -496,21 +498,140 @@ def gemm_tape():
     return _taping("record", tape), _taping("replay", tape)
 
 
+_BWD_PLAN_KEYS = ("bm", "bn", "bk", "stages", "threads", "smem", "tiles_m",
+                  "tiles_n", "ksteps", "dp_tiles", "sk_tiles", "splits",
+                  "sk_blocks", "grid", "workspace_words")
+_BWD_PLANS: Dict[tuple, dict] = {}
+_BWD_ARGS = [_P, _P, _P, _I, _I, _I, _L, _L, _L, _I, _I, _P, _P]
+# the backward kernel's entry points by operand dtype: (library, launch)
+_BWD_LIBS = {torch.bfloat16: ("gemm_bwd", "gemm_bwd_launch"),
+             torch.float16: ("gemm_bwd16", "gemm_bwd_f16_launch")}
+
+
+def gemm_bwd_plan(m: int, n: int, k: int, device=None) -> dict:
+    """The backward kernel's plan (``csrc/hgemm_bwd.cuh``) for an (M, N, K)
+    product on a card: ``tile`` (128 rows, 192 or 128 columns, 64 k a
+    stage), ``stages``, ``threads``, ``smem`` bytes, ``tiles`` (M, N),
+    ``ksteps``, ``dp_tiles`` (whole waves, block g taking tiles g, g + G,
+    ...), ``sk_tiles`` (the rest, each in ``splits`` equal k ranges, one a
+    stream-K block: ``sk_blocks``), ``grid`` and ``workspace_bytes``
+    (flags, then a partial tile a stream-K block, where a tile is split).
+    It depends on the shape and the card's SM count only; the same for
+    bf16 and fp16 and every operand layout. A product past the kernel's
+    limits raises ``RuntimeError``."""
+    index = _device_index(device)
+    key = (m, n, k, index)
+    plan = _BWD_PLANS.get(key)
+    if plan is None:
+        out = (ctypes.c_longlong * len(_BWD_PLAN_KEYS))()
+        fn = _build.bind("gemm_bwd", "gemm_bwd_plan", [_I] * 3 + [_P])
+        with torch.cuda.device(index):
+            _build.check(fn(m, n, k, ctypes.addressof(out)),
+                         "gemm_bwd_plan")
+        raw = dict(zip(_BWD_PLAN_KEYS, out))
+        plan = _BWD_PLANS[key] = {
+            "tile": (raw["bm"], raw["bn"], raw["bk"]),
+            "stages": raw["stages"], "threads": raw["threads"],
+            "smem": raw["smem"], "tiles": (raw["tiles_m"], raw["tiles_n"]),
+            "ksteps": raw["ksteps"], "dp_tiles": raw["dp_tiles"],
+            "sk_tiles": raw["sk_tiles"], "splits": raw["splits"],
+            "sk_blocks": raw["sk_blocks"],
+            "grid": raw["grid"],
+            "workspace_bytes": 4 * raw["workspace_words"]}
+    return plan
+
+
+def _major(t: torch.Tensor):
+    """(t, trans, ld) of a 2-D operand read by its strides: row-major
+    (``t[i, j]`` at ``i * ld + j``; an A operand K-major, a B operand
+    N-major), or ``trans``, the transpose of a row-major buffer (at ``j *
+    ld + i``; an A operand M-major, a B operand K-major); a tensor with
+    neither unit stride is made contiguous."""
+    if t.stride(1) == 1:
+        return t, False, t.stride(0)
+    if t.stride(0) == 1:
+        return t, True, t.stride(1)
+    t = t.contiguous()
+    return t, False, t.stride(0)
+
+
+def bwd_route(a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype) -> str:
+    """Which kernel runs a backward product ``a @ b`` into ``dtype`` on the
+    card, by dtype, shape and strides alone: "persistent" (``csrc/
+    hgemm_bwd.cuh``: 16-bit operands of one dtype written in it, more than
+    16 rows, each operand a unit stride on one dim and its rows, and the
+    output's, whole 16-byte words on a 16-byte boundary, so that tensor
+    maps describe them), else "forward" (the forward kernels through
+    :func:`_gemm`: M <= 16 on the skinny kernel, rows off 16 bytes, such
+    as a vocab of 49155, on the wide kernel's cp.async ring, fp32 on the
+    CUDA-core kernel)."""
+    if a.dtype not in _BWD_LIBS or b.dtype != a.dtype or dtype != a.dtype \
+            or a.shape[0] <= 16 or a.shape[1] < 1 or b.shape[1] < 1 or \
+            b.shape[1] % 8:
+        return "forward"
+    for t in (a, b):
+        if t.stride(0) != 1 and t.stride(1) != 1 or \
+                _major(t)[2] % 8 or t.data_ptr() % 16:
+            return "forward"
+    return "persistent"
+
+
+@kernel_contract("gemm_bwd")
+def _gemm_bwd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """C = A @ B on the backward kernel (``bwd_route`` "persistent"):
+    16-bit operands read in place by their strides, fp32 sums, C (M, N)
+    contiguous in the operands' dtype. A CUDA launch, or an error."""
+    require_local("gemm_bwd", a, b)
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError(f"gemm_bwd: no kernel for {a.device} / {b.device}")
+    m, k = a.shape
+    n = b.shape[1]
+    a, a_mn, lda = _major(a)
+    b, b_k, ldb = _major(b)
+    c = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    need = gemm_bwd_plan(m, n, k, a.device)["workspace_bytes"]
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    wsp = _workspace(a.device, stream, need).data_ptr() if need else None
+    fn = _build.bind(*_BWD_LIBS[a.dtype], _BWD_ARGS)
+    err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, lda, ldb, n,
+             int(a_mn), int(b_k), stream, wsp)
+    _build.check(err, "gemm_bwd")
+    BWD_COUNT.launches += 1
+    BWD_COUNT.persistent += 1
+    return c
+
+
 def grad_a(dc: torch.Tensor, b: torch.Tensor,
            dtype: torch.dtype) -> torch.Tensor:
-    """dA = dC @ B^T, fp32 sums, written in ``dtype``: B^T is read through
-    :func:`_b_layout` (a row-major weight is read transposed, the tied
-    unembedding's ``table.T`` row-major), so nothing is copied but a
-    non-contiguous dC."""
+    """dA = dC @ B^T, fp32 sums, written in ``dtype``. On the card a 16-bit
+    product runs the backward kernel (:func:`bwd_route`), which reads dC
+    and B^T by their strides: a row-major weight as its transpose, the tied
+    unembedding's ``table.T`` as the row-major table; the rest runs the
+    forward kernels, B^T read through :func:`_b_layout` (no copy but a
+    non-contiguous dC)."""
+    if dc.device.type == "cuda" and bwd_route(dc, b.t(), dtype) == \
+            "persistent":
+        return _gemm_bwd(dc, b.t())
     return _gemm(dc, b.t(), None, acc_dtype=torch.float32, out_dtype=dtype,
                  shift=0, activation=Activation.NONE, ws=False, bwd=True)
 
 
-def grad_b(a: torch.Tensor, dc: torch.Tensor,
-           dtype: torch.dtype) -> torch.Tensor:
-    """dB = A^T @ dC, fp32 sums, written in ``dtype``. The kernel reads its
-    A operand row-major, so either A^T (M x K elements) or dC^T (M x N) is
+def grad_b(a: torch.Tensor, dc: torch.Tensor, dtype: torch.dtype,
+           trans: bool = False) -> torch.Tensor:
+    """dB = A^T @ dC, fp32 sums, written in ``dtype``. On the card a 16-bit
+    product runs the backward kernel (:func:`bwd_route`), which reads A^T
+    and dC in place and writes dB in its parameter's layout: row-major, or
+    (``trans``: B was the transpose of a row-major buffer, the tied
+    unembedding's ``table.T``) as the transpose of a row-major (N, K)
+    buffer, computed as dC^T @ A. Nothing is copied. The rest (and the
+    plain version on the CPU) runs the forward kernels, which read their A
+    operand row-major, so either A^T (M x K elements) or dC^T (M x N) is
     copied: A^T @ dC where K <= N, else (dC^T @ A)^T."""
+    if a.device.type == "cuda":
+        if trans and bwd_route(dc.t(), a, dtype) == "persistent":
+            return _gemm_bwd(dc.t(), a).t()
+        if not trans and bwd_route(a.t(), dc, dtype) == "persistent":
+            return _gemm_bwd(a.t(), dc)
     kw = dict(acc_dtype=torch.float32, out_dtype=dtype, shift=0,
               activation=Activation.NONE, ws=False, bwd=True)
     if a.shape[1] <= dc.shape[1]:
@@ -541,7 +662,8 @@ class _GemmGrad(torch.autograd.Function):
         # the output rounding transposes to a cast; widening is exact
         dc = dc.to(a.dtype)
         da = grad_a(dc, b, a.dtype) if need_a else None
-        db = grad_b(a, dc, b.dtype) if need_b else None
+        db = grad_b(a, dc, b.dtype, trans=b.stride(0) == 1 and
+                    b.stride(1) != 1) if need_b else None
         dd = None
         if need_d:
             shape, dtype = ctx.d_shape
@@ -629,5 +751,6 @@ OS_COUNTS = {torch.float32: SimpleNamespace(launches=0),
              torch.int16: SimpleNamespace(launches=0),
              torch.int32: SimpleNamespace(launches=0)}
 # Either backward product of :class:`_GemmGrad`, on any float datapath (the
-# kernels report names it gemm[bwd]).
-BWD_COUNT = SimpleNamespace(launches=0)
+# kernels report names it gemm[bwd]); ``persistent``: those of them on the
+# backward kernel (``csrc/hgemm_bwd.cuh``).
+BWD_COUNT = SimpleNamespace(launches=0, persistent=0)

@@ -2,7 +2,9 @@
 
 The ``resolve_*`` functions are what the kernels' dispatch consults on a
 launch that names no plan: ``resolve_plan`` for the engine GEMM (the
-backward products included), ``resolve_conv_schedule`` for the fused
+forward kernels, and the backward products that fall back to them: the
+16-bit ones on ``csrc/hgemm_bwd.cuh`` run that kernel's own plan,
+``kernels.gemm.gemm_bwd_plan``), ``resolve_conv_schedule`` for the fused
 conv, ``resolve_attn_schedule`` for flash attention, and
 ``resolve_paged_attn_schedule`` for the serving engine's page size and
 decode split (once, at startup). All honor the process flag

@@ -2132,6 +2132,149 @@ def test_gemm_backward_matches_plain(card, dtype, m, k, n, b_trans):
     assert [x.grad.dtype for x in leaves] == [dtype] * 3
 
 
+# gemma3-1b's backward products at the training shapes (4 x 1024 token
+# rows): (name, M, N, K) of each product as the backward kernel runs it
+_G3_BWD = [(f"{op} {name}", *mnk) for name, kin, nout in (
+    ("wq", 1152, 1024), ("wk", 1152, 256), ("wv", 1152, 256),
+    ("wo", 1024, 1152), ("wi", 1152, 6912), ("wg", 1152, 6912),
+    ("mlp.wo", 6912, 1152), ("unembed", 1152, 262144))
+    for op, mnk in (("dA", (4096, kin, nout)),
+                    ("dB", (nout, kin, 4096) if name == "unembed"
+                     else (kin, nout, 4096)))]
+
+
+def _bwd_operands(card, m, n, k, a_mn, b_k, dtype, seed):
+    """A (m, k) and B (k, n) on the card, each row-major or the transpose
+    of a row-major buffer (M-major A, K-major B)."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    a = torch.randn((k, m) if a_mn else (m, k), generator=g, device=card)
+    b = torch.randn((n, k) if b_k else (k, n), generator=g,
+                    device=card) * k ** -0.5
+    a, b = a.to(dtype), b.to(dtype)
+    return (a.t() if a_mn else a), (b.t() if b_k else b)
+
+
+def _hold_bwd(got, a, b, dtype):
+    """The backward kernel against the plain version on the card: below
+    2^16 terms by the dtype's rule (``_close`` for bf16; for fp16 one fp16
+    ulp of the value plus 2^-14 of the largest magnitude); above, both held
+    to the fp64 product, the kernel's relative L2 gap at most twice the
+    plain version's (the tensor cores' fp32 adds over 4096 k steps drift
+    by about 1e-3 of the partial sums, as ``chip_smoke.hold_long_k``)."""
+    want = gemm_ref(a, b, None, acc_dtype=torch.float32, out_dtype=dtype)
+    if a.shape[1] < 1 << 16 and dtype == torch.float16:
+        # one fp16 ulp (2^-10 relative) plus 2^-14 of the largest magnitude
+        g, w = got.float().cpu(), want.float().cpu()
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, rtol=2.0 ** -10,
+                                   atol=2.0 ** -14 * w.abs().max().item())
+        return
+    if a.shape[1] < 1 << 16:
+        _close(got, want, dtype)
+        return
+    exact = a.double() @ b.double()
+
+    def rel(x):
+        return ((x.double() - exact).norm() / exact.norm()).item()
+    assert torch.isfinite(got).all() and rel(got) <= 2 * rel(want)
+
+
+@pytest.mark.parametrize("name,m,n,k", _G3_BWD, ids=[p[0] for p in _G3_BWD])
+def test_backward_kernel_at_gemma3_products(card, name, m, n, k):
+    """Each of gemma3-1b's 16 backward products on the backward kernel,
+    its operands in the layouts the training step hands it (dA: dC
+    row-major, B^T of the row-major weight or the row-major table; dB:
+    A^T of the row-major activation, dC row-major; the unembedding's as
+    dC^T A), against the plain version; a second launch bit-equal."""
+    op, proj = name.split()
+    a_mn = op == "dB"
+    b_k = op == "dA" and proj != "unembed"
+    a, b = _bwd_operands(card, m, n, k, a_mn, b_k, torch.bfloat16, m + n)
+    assert tgemm.bwd_route(a, b, torch.bfloat16) == "persistent"
+    n0 = tgemm.BWD_COUNT.persistent
+    got = tgemm._gemm_bwd(a, b)
+    again = tgemm._gemm_bwd(a, b)
+    torch.cuda.synchronize()
+    assert tgemm.BWD_COUNT.persistent == n0 + 2
+    assert got.shape == (m, n) and got.is_contiguous()
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+    _hold_bwd(got, a, b, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("a_mn,b_k", [(0, 0), (0, 1), (1, 0), (1, 1)])
+@pytest.mark.parametrize("m,n,k", [(1000, 1000, 1096), (104, 72, 88),
+                                   (296, 136, 4096), (4104, 264, 520),
+                                   (1000, 200, 3000), (24, 8, 8)])
+def test_backward_kernel_ragged_layouts(card, m, n, k, a_mn, b_k, dtype):
+    """Ragged M, N and K (tiles of 128 x 128 / 192, 64 k a stage; whole
+    waves, split tiles, one tile alone) on every operand layout, bf16 and
+    fp16, against the plain version; a rerun bit-equal; the stream's flags
+    0 after the call."""
+    a, b = _bwd_operands(card, m, n, k, a_mn, b_k, dtype, m * 7 + n + k)
+    got = tgemm._gemm_bwd(a, b)
+    again = tgemm._gemm_bwd(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+    _hold_bwd(got, a, b, dtype)
+    stream = torch.cuda.current_stream(card).cuda_stream
+    ws = tgemm._WORKSPACE.get((card.index or 0, stream))
+    if ws is not None:
+        assert int((ws[:1024] != 0).sum()) == 0
+
+
+@pytest.mark.parametrize("trans", [False, True])
+def test_grad_b_copies_nothing_and_writes_the_parameter_layout(card, trans):
+    """``grad_b`` on the backward kernel allocates its output and nothing
+    else (the caching allocator's requested bytes peak at the output's
+    above their level before; the stream's workspace made by a call
+    before), and writes dB in the
+    parameter's layout: row-major, or the transpose of a row-major (N, K)
+    buffer where B was one (the tied table)."""
+    g = torch.Generator(device=card).manual_seed(11)
+    m, k, n = 4096, 1152, 2048 if trans else 6912
+    a = torch.randn((m, k), generator=g, device=card).to(torch.bfloat16)
+    dc = torch.randn((m, n), generator=g, device=card).to(torch.bfloat16)
+    tgemm.grad_b(a, dc, torch.bfloat16, trans=trans)       # the workspace
+    torch.cuda.synchronize()
+    key = "requested_bytes.all."
+    base = torch.cuda.memory_stats()[key + "current"]
+    torch.cuda.reset_peak_memory_stats()
+    db = tgemm.grad_b(a, dc, torch.bfloat16, trans=trans)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats()[key + "peak"] - base == \
+        db.numel() * db.element_size()
+    assert db.shape == (k, n)
+    assert db.stride() == ((1, k) if trans else (n, 1))
+    _hold_bwd(db, a.t(), dc, torch.bfloat16)
+
+
+def test_backward_routes_and_counts(card):
+    """Under grad, a 16-bit product whose operands a tensor map describes
+    takes the backward kernel for both products; M <= 16, a row of no
+    whole 16-byte words (granite's vocab of 49155) and fp32 take the
+    forward kernels. ``gemm[bwd]`` counts every product either way."""
+    g = torch.Generator(device=card).manual_seed(5)
+
+    def step(m, k, n, dtype):
+        a = torch.randn((m, k), generator=g, device=card).to(
+            dtype).requires_grad_(True)
+        b = torch.randn((k, n), generator=g, device=card).to(
+            dtype).requires_grad_(True)
+        n0, p0 = tgemm.BWD_COUNT.launches, tgemm.BWD_COUNT.persistent
+        c = tgemm.gemm(a, b, acc_dtype=torch.float32, out_dtype=dtype)
+        c.backward(torch.ones_like(c))
+        torch.cuda.synchronize()
+        return (tgemm.BWD_COUNT.launches - n0,
+                tgemm.BWD_COUNT.persistent - p0)
+    assert step(256, 512, 384, torch.bfloat16) == (2, 2)
+    assert step(256, 512, 384, torch.float16) == (2, 2)
+    assert step(256, 512, 49155, torch.bfloat16) == (2, 0)
+    assert step(256, 512, 384, torch.float32) == (2, 0)
+    # M <= 16: dA on the skinny kernel; dB (M = 512 rows) on the new one
+    assert step(8, 512, 384, torch.bfloat16) == (2, 1)
+
+
 def test_smoke_train_step_matches_cpu(card):
     """One fp32 training step of smoke gemma3-1b on the card and on the
     CPU from the same weights and batch: loss within 1e-5 relative, every

@@ -234,6 +234,7 @@ def test_every_launching_wrapper_carries_a_contract():
                     source._contract_names(fn):
                 names[fn.name] = source._contract_names(fn)
     assert names == {"_gemm": ("gemm", "gemm_s8"),
+                     "_gemm_bwd": ("gemm_bwd",),
                      "accumulator_epilogue": ("accumulator_epilogue",),
                      "flash_attention": ("flash_attention",),
                      "decode_attention": ("decode_attention",),

@@ -49,6 +49,10 @@ NAMES = [
     ("void sgemm::sgemm_kernel<float, 8, 16, 16, 1, false, true, float, "
      "sgemm::MatrixA<float>>(sgemm::Args<float>, sgemm::MatrixA<float>)",
      "gemm[fp32]"),
+    # the backward products' persistent kernel
+    ("void hgemm_bwd::bwd_kernel<__nv_bfloat16, true, false, 192>"
+     "(hgemm_bwd::Args, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st)",
+     "gemm[bwd]"),
 ]
 
 

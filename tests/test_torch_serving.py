@@ -291,7 +291,8 @@ def test_dispatch_fallback_equals_dispatch_on_cpu(arch):
 
 def test_nvcc_command_targets_sm90a_into_ignored_build_dir():
     src = _build.sources()
-    assert {p.name for p in src} == {"gemm.cu", "gemm16.cu", "attention.cu",
+    assert {p.name for p in src} == {"gemm.cu", "gemm16.cu", "gemm_bwd.cu",
+                                     "gemm_bwd16.cu", "attention.cu",
                                      "attention_any.cu",
                                      "attention_decode_any.cu", "conv.cu",
                                      "ssd.cu", "ssd_any.cu", "datapath.cu"}

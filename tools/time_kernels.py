@@ -1,7 +1,12 @@
 """Device time of kernels for a same-card comparison of two checkouts: the
 bf16 engine GEMM at gemma3-1b's 24 serving shapes (7 projections and the
 tied unembedding at M = 4, 64 and 256, the rows of ``chip_smoke.py`` phase
-3, with ``torch.matmul`` beside each), the fp32 GEMM at phase 3's fp32
+3, with ``torch.matmul`` beside each), its 16 backward products at the
+training shapes (``gemm[bwd]``: dA and dB of the 7 projections and the
+unembedding at 4 x 1024 token rows through ``kernels.gemm.grad_a`` /
+``grad_b``, whichever kernels the checkout routes them to, with
+``torch.matmul`` beside each and the step's sum over its 366 products),
+the fp32 GEMM at phase 3's fp32
 shapes (``torch.addmm`` / ``torch.matmul`` beside, TF32 off), the fp16
 GEMM at the quickstart (OS and WS) and at ResNet-50's host-im2col shapes
 (``torch.matmul`` beside) and the int16 GEMM at the same shapes on both
@@ -43,9 +48,10 @@ run:
 Each output is held against its plain version (``chip_smoke.check_close``;
 a miss is reported in the row's ``check``, not fatal) and timed with ``chip_smoke.Timer`` (CUDA events, L2 flushed, median of
 25), beside the host's cost of one call launched back to back
-(``enqueue_us``). Prints one JSON line ``{"tag", "device", "rows": [...], "gemm_step_sums"}``
-(the GEMM's sum over one decode step, M = 4, and one prefill chunk, M =
-256); needs a card.
+(``enqueue_us``). Prints one JSON line ``{"tag", "device", "rows": [...], "gemm_step_sums",
+"bwd_step_sum"}`` (the GEMM's sum over one decode step, M = 4, and one
+prefill chunk, M = 256; the backward products' over one training step);
+needs a card.
 """
 
 from __future__ import annotations
@@ -78,8 +84,39 @@ def gemm_cases(torch, cs):
               run_p, run_lib, (nbytes, 2.0 * m * n * k))
              for name, m, n, k, run_k, run_p, run_lib, nbytes
              in cs.fp32_gemm_cases(torch, randn)]
-    return rows + fp16_gemm_cases(torch, cs, gen) + int16_gemm_cases(torch,
-                                                                     cs, gen)
+    return rows + bwd_gemm_cases(torch, cs, randn) + \
+        fp16_gemm_cases(torch, cs, gen) + int16_gemm_cases(torch, cs, gen)
+
+
+def bwd_gemm_cases(torch, cs, randn):
+    """The backward products of ``chip_smoke.gemm_backward_cases``, each
+    with its launches a training step in the label. A checkout whose
+    ``grad_b`` has no ``trans`` (before the backward kernel) runs the
+    unembedding's dB as it did, into (d, vocab)."""
+    import inspect
+
+    from repro_torch import configs
+    from repro_torch.kernels import gemm as kg
+
+    bf16 = torch.bfloat16
+    layers = configs.get("gemma3-1b").n_layers
+    has_trans = "trans" in inspect.signature(kg.grad_b).parameters
+    out = []
+    for op, name, m, n, k, operands, run_k, run_p, run_lib, run_exact in \
+            cs.gemm_backward_cases(torch, randn):
+        if op == "dB" and name == "unembed" and not has_trans:
+            dc_t, a = operands
+            run_k = (lambda a=a, dc=dc_t.t(): kg.grad_b(a, dc, bf16))
+        held = []
+        if k >= cs.LONG_K:
+            held = [lambda got, run_p=run_p, run_exact=run_exact,
+                    label=f"gemm[bwd] {op} {name}":
+                    cs.hold_long_k(torch, label, run_exact)(got, run_p())]
+        per = 1 if name == "unembed" else layers
+        out.append(("gemm[bwd]", f"{op} {name} M={m} N={n} K={k} x{per}",
+                    "bf16", run_k, run_p, run_lib,
+                    (2 * (m * k + k * n + m * n), 2.0 * m * n * k), *held))
+    return out
 
 
 def int16_gemm_cases(torch, cs, gen):
@@ -670,6 +707,14 @@ def main() -> int:
         print(f"[time_kernels] {args.tag} gemm step sum M={m}: kernel "
               f"{sm['ms']:.4f} ms  torch.matmul {sm['library_ms']:.4f} ms",
               flush=True)
+    bwd = {key: sum(int(r["shape"].rsplit("x", 1)[1]) * r[key]
+                    for r in rows if r["kernel"] == "gemm[bwd]")
+           for key in ("ms", "library_ms", "bound_ms")}
+    if any(r["kernel"] == "gemm[bwd]" for r in rows):
+        print(f"[time_kernels] {args.tag} gemm[bwd] step sum (366 "
+              f"products): kernel {bwd['ms']:.4f} ms  torch.matmul "
+              f"{bwd['library_ms']:.4f} ms  bound {bwd['bound_ms']:.4f} ms",
+              flush=True)
     streams = engine_streams(torch, cs) if args.only in (None, "engine") \
         else conv_streams(torch, cs) if args.only == "conv" else {}
     for route, st in streams.items():
@@ -678,7 +723,8 @@ def main() -> int:
               flush=True)
     print(json.dumps({"tag": args.tag, "device": torch.cuda.get_device_name(0),
                       "src": os.path.abspath(args.src), "rows": rows,
-                      "gemm_step_sums": sums, "engine_streams": streams}))
+                      "gemm_step_sums": sums, "bwd_step_sum": bwd,
+                      "engine_streams": streams}))
     return 0
 
 
