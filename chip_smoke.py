@@ -161,7 +161,7 @@ Needs one CUDA card, ``nvcc`` and the repository checkout around this file
    guard trip under ``FAULT_PLAN`` quarantines the paged key, whose next
    resolution is the static page;
 17. contracts (``repro_torch.analysis.lint.card``): every probe plan of the
-   lint driver, all nine kernel families over the tuner's schedule space
+   lint driver, all ten kernel families over the tuner's schedule space
    widened past each limit: (a) the lint admits a plan exactly when its C
    plan function accepts it (a plan that needs the card's cluster
    co-residency is logged where the card refuses it), and an accepted
@@ -179,7 +179,13 @@ Needs one CUDA card, ``nvcc`` and the repository checkout around this file
 Phase 3 also holds the chunked SSD (mamba2-1.3b's and hymba-1.5b's
 widths: the serving call, one 256-token chunk resumed, and 1000 tokens
 fresh and resumed, and a ragged 7-token prompt; final states against the
-naive recurrence in fp64) and dense decode attention in bf16
+naive recurrence in fp64; fp16 at the serving call on its tensor-core
+kernel, and a chunk whose state passes 65504, which must launch no
+conversion), the operand conversion on each of its paths (int16 (1000,
+2048) -> bf16 packed, the same one value into its buffer, rows on
+mamba2-1.3b's SSD x view fp16 -> fp32, general on a transposed view;
+``Tensor.to`` beside each, bit for bit) and every dtype pair on each path
+bit for bit, and dense decode attention in bf16
 at phase 10's shapes, at four sequences of 2048 and at hymba-1.5b's
 shape, and in fp32 at phase 9's (each attention arch's longest request,
 its windows and softcap), paged decode in fp32 at phase 9's two slots,
@@ -253,7 +259,8 @@ every request finished, tokens/s, TTFT and ITL beside the card's name
 and power limit, phase 4b's two steps profiled, a fresh prefill's logits
 held by ``hold_bf16`` at fp16; one static-path request as phase 10's
 (``decode_attention[fp16]`` every step of every layer); hymba-1.5b at fp16 on
-phase 8's 700 + 200 tokens at 16 of its 32 layers, held the same way (an arch
+phase 8's 700 + 200 tokens at 16 of its 32 layers, held the same way and
+launching no ``convert`` (an arch
 whose CPU fp16 logits are not finite is logged as not servable in fp16 and
 fails nothing); (b) every (input, accumulator, output) combination JAX accepts
 on the quickstart GEMM (OS == WS), ``accumulator_epilogue`` on every pair at
@@ -265,8 +272,9 @@ Phase 21 is the last kernel shapes (``run_shapes_phase``): (a) the four
 attention launchers at head dims 48, 80, 96 and 200 in bf16, fp16 and
 fp32, at 320 (fp32's instance at 512), on views 2 elements past a 16-byte
 boundary and in both mixed orders, and the SSD at mamba2-1.3b's d_inner as
-32 heads of P = 128, N = 256, a 512-token chunk resumed, at P = 96 and in
-both mixed orders; every call once with the counts zeroed just before and
+32 heads of P = 128, N = 256, a 512-token chunk resumed, and at P = 96, in
+bf16, fp32 and fp16, and in both mixed orders; every call once with the
+counts zeroed just before and
 read just after (each wrapper, its fp16 and its mixed count must launch),
 then each against its plain version, timed beside its bound and SDPA
 where one call computes the same function; (b) the smoke gemma3-1b with
@@ -1216,8 +1224,9 @@ def recurrent_cases(torch, gen, cases):
         nbytes = (2 * 2 * t * h * p + 2 * 2 * t * g * n + 4 * t * h + 8 * h
                   + 4 * h * n * p * (2 if resume else 1))
         flops = ssd_flops(t, h, p, g, n, chunk, resume)
-        grid = ssd_grid(t, h, g, n, chunk) if dtype == bf16 else \
-            ssd32_grid(t, h, g, n, chunk) + " (fp32 kernel, 3 + 1 converts)"
+        grid = ssd_grid(t, h, g, n, chunk) + (
+            " (fp16: the scores on the .f16 MMA, the rest on exact bf16 "
+            "terms)" if dtype == f16 else "")
         cases.append(("ssd" + ("[fp16]" if dtype == f16 else ""),
                       f"{'fp16 ' if dtype == f16 else ''}{arch} B=1 T={t} "
                       f"H={h} P={p} G={g} N={n} "
@@ -1794,7 +1803,8 @@ def ssd_stress_case(torch, gen, cases):
     whose state passes fp16's 65504 (x around 1500, B = 1, a slow decay):
     y within the fp16 rule of the plain version, the fp32 final state
     finite, past 65504 and within ``fp32_tolerance`` of the fp64
-    recurrence."""
+    recurrence, and no ``convert`` launched (the tensor-core kernel reads
+    the fp16 operands as they are)."""
     from _ssd_exact import fp32_tolerance, ssd_fp64
 
     from repro_torch import configs
@@ -1817,7 +1827,13 @@ def ssd_stress_case(torch, gen, cases):
     name = "ssd[fp16] [stress: state past 65504]"
 
     def check(got, want):
+        from repro_torch.kernels import datapath as kd
         err = check_close(torch, name, got[0], want[0], "fp16")
+        before = kd.convert.launches
+        km.ssd(x, dt, a_log, b, c, **kw)
+        if kd.convert.launches != before:
+            fail(f"{name}: the fp16 call launched "
+                 f"{kd.convert.launches - before} conversions")
         st = got[1]
         big = st.abs().max().item()
         _, exact = ssd_fp64(x, dt, a_log, b, c, d_skip=d_skip)
@@ -1839,7 +1855,7 @@ def ssd_stress_case(torch, gen, cases):
                   "fp16", lambda: km.ssd(x, dt, a_log, b, c, **kw),
                   lambda: km.ssd_plain(x, dt, a_log, b, c, **kw), None,
                   nbytes, ssd_flops(t, h, p, g, n, t, False),
-                  dict(check=check, grid=ssd32_grid(t, h, g, n, t))))
+                  dict(check=check, grid=ssd_grid(t, h, g, n, t))))
 
 
 def bits_equal(torch, name):
@@ -1856,6 +1872,91 @@ def bits_equal(torch, name):
             fail(f"{name}: differs from the plain version")
         return 0.0
     return check
+
+
+def convert_views(torch, buf, dtype):
+    """The conversion's four paths on views into ``buf`` (a flat buffer of
+    at least 2 * 1000 * 2048 values, 16-byte aligned): packed (a contiguous
+    (1000, 2048)), its misaligned head (the same one value past the
+    buffer's start), rows (mamba2-1.3b's SSD x as the model slices it from
+    its fused projection: (1, 256, 64, 64) in rows of 8512, 4096 in) and
+    general (the (1000, 8, 256) transpose of (1000, 256, 8) pairs). Each:
+    (path, view)."""
+    m, k = 1000, 2048
+    return [("packed", buf[:m * k].view(m, k)),
+            ("head", buf[1:1 + m * k].view(m, k)),
+            ("rows", buf[:256 * 8512].view(1, 256, 8512)[
+                :, :, 4096:8192].view(1, 256, 64, 64)),
+            ("general", buf[:m * k].view(m, 256, 8).transpose(1, 2))]
+
+
+def convert_sweep(torch, gen):
+    """Every pair of distinct dtypes of the table on each of the four
+    paths (``convert_views``), bit for bit against the plain version,
+    each launch's path the one ``datapath.convert_plan`` names."""
+    from repro_torch.kernels import datapath as kd
+    from repro_torch.kernels import epilogue as epi
+
+    dtypes = list(kd.ANY)
+    n = 0
+    for src in dtypes:
+        if src.is_floating_point:
+            buf = (torch.randn((2 * 1000 * 2048,), generator=gen,
+                               device="cuda") * 20000).to(src)
+        else:
+            info = torch.iinfo(src)
+            buf = torch.randint(info.min, info.max, (2 * 1000 * 2048,),
+                                generator=gen, device="cuda", dtype=src)
+        for path, view in convert_views(torch, buf, src):
+            for dst in dtypes:
+                if dst == src:
+                    continue
+                plan = kd.convert_plan(view, dst)
+                want_path = {"packed": 0, "head": 0, "rows": 1,
+                             "general": 2}[path]
+                if plan["path"] != want_path or \
+                        (path == "head") != (plan["shift"] > 0):
+                    fail(f"convert {src} -> {dst} [{path}]: plan {plan}")
+                got = kd.convert(view, dst)
+                bits_equal(torch, f"convert {src} -> {dst} [{path}]")(
+                    got, epi.convert(view, dst))
+                n += 1
+    log(f"convert: {n} (pair, path) cases bit for bit (30 pairs x 4 paths)")
+
+
+def convert_cases(torch, gen, x16, cases):
+    """The conversion's timed rows, one a path, int16 -> bf16 (the
+    packed one, a (1000, 2048) operand, is the representative row) and the
+    rows path on the fp16 SSD's x view -> fp32, each beside ``Tensor.to``
+    on the same view and held bit for bit; then the sweep over every dtype
+    pair and path (``convert_sweep``)."""
+    from repro_torch.kernels import datapath as kd
+    from repro_torch.kernels import epilogue as epi
+
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    buf = torch.empty((2 * 1000 * 2048,), dtype=torch.int16, device="cuda")
+    buf[:x16.numel()].copy_(x16.view(-1))
+    buf[x16.numel():].copy_(x16.view(-1))
+    hbuf = (torch.randn((256 * 8512,), generator=gen, device="cuda") * 4
+            ).to(f16)
+    for path, view in convert_views(torch, buf, torch.int16):
+        src, dst = (view, bf16) if path != "rows" else \
+            (convert_views(torch, hbuf, f16)[2][1], f32)
+        n = src.numel()
+        name = f"convert [{src.dtype} -> {dst}, {path}]"
+        note = " (SSD x view)" if path == "rows" else ""
+        cases.append((
+            "convert", f"{str(src.dtype)[6:]} {tuple(src.shape)} -> "
+            f"{str(dst)[6:]} {path}{note}", path == "packed",
+            {bf16: "bf16", f16: "fp16", f32: "fp32"}[dst],
+            lambda src=src, dst=dst: kd.convert(src, dst),
+            lambda src=src, dst=dst: epi.convert(src, dst),
+            lambda src=src, dst=dst: src.to(dst),
+            (src.element_size() + torch.empty((), dtype=dst).element_size())
+            * n, 0.0,
+            {"check": bits_equal(torch, name),
+             "plan": str(kd.convert_plan(src, dst))}))
+    convert_sweep(torch, gen)
 
 
 def generic_cases(torch, gen, cases):
@@ -1905,11 +2006,7 @@ def generic_cases(torch, gen, cases):
                   2.0 * mm * 64 * kk,
                   {"plan": conv_plan_text(kc, mm, 64, kk, i32)}))
     x16 = ints((m, k), 2 ** 15, torch.int16)
-    cases.append(("convert", f"int16 ({m}, {k}) -> bf16", True, "bf16",
-                  lambda: kd.convert(x16, bf16),
-                  lambda: epi.convert(x16, bf16), lambda: x16.to(bf16),
-                  4 * m * k, 0.0,
-                  {"check": bits_equal(torch, "convert [int16 -> bf16]")}))
+    convert_cases(torch, gen, x16, cases)
     s32 = torch.randn((m, n), generator=gen, device="cuda") * 8
     eb = torch.randn((n,), generator=gen, device="cuda").to(bf16)
     ekw = (bf16, bf16, eb, bf16, 1, relu)
@@ -4983,6 +5080,9 @@ def fp16_serving(torch, np, smi):
                   "paged_decode_attention[fp16]"):
         if c[kname] <= 0 or resumed <= 0:
             fail(f"fp16 hymba-1.5b: {kname} did not launch: {c}")
+    if c["convert"]:
+        fail(f"fp16 hymba-1.5b: {c['convert']} convert launches (the fp16 "
+             f"SSD reads its operands as they are)")
     rel = hold(engine, prompts[1][:F16_HOLD_TOKENS], "fp16 hymba-1.5b")
     if rel is not None:
         servable.append("hymba-1.5b")
@@ -5233,7 +5333,8 @@ def shape_cases(torch):
     16-byte boundary per launcher; both mixed orders per launcher (q bf16
     with k / v fp32, q fp32 with k / v fp16); the SSD at mamba2-1.3b's
     d_inner as 32 heads of P = 128 at N = 256, one 512-token chunk resumed
-    (two column slices, two sub-chunks), and at P = 96, in bf16 and fp32;
+    (two column slices, two sub-chunks), and at P = 96, in bf16, fp32 and
+    fp16 (``ssd16_any.cu``);
     and the SSD with x fp32 / B, C bf16 and x bf16 / B, C fp32. Each
     row's bound takes its inputs' peak (fp32's where an operand is fp32)
     and the SSD's operations at the sub-chunks it runs
@@ -5402,7 +5503,7 @@ def shape_cases(torch):
         kw = dict(d_skip=d_skip, chunk=chunk, initial_state=init,
                   return_final_state=True)
         mixed = xd != bd
-        full = "ssd" + ("[mixed]" if mixed else "")
+        full = "ssd" + ("[mixed]" if mixed else "[fp16]" if xd == f16 else "")
         label = (f"{KIND[xd]}" + (f"/{KIND[bd]}" if mixed else "") +
                  f" B=1 T={t} H={h_} P={p} G=1 N={n} chunk={chunk} resumed")
         name = f"{full} [{label}]"
@@ -5442,7 +5543,7 @@ def shape_cases(torch):
                       dict(check=held, grid=(
                           f"{plan['chunks']} launches x {plan['slices']} "
                           f"slices of {plan['first_blocks']} blocks"))))
-    for dt in (bf16, f32):
+    for dt in (bf16, f32, f16):
         ssd(32, 128, 256, 512, 512, dt, dt, rep=dt == bf16)
         ssd(32, 96, 128, 256, 256, dt, dt)
     ssd(32, 128, 256, 512, 512, f32, bf16, rep=True)
@@ -5472,7 +5573,7 @@ def run_shapes_phase(torch, np):
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     want = [n for n in SHAPE_ATTN] + [f"{n}[fp16]" for n in SHAPE_ATTN] + \
-        list(kernels.MIXED_KERNELS) + ["ssd"]
+        list(kernels.MIXED_KERNELS) + ["ssd", "ssd[fp16]"]
     for name in want:
         if counts[name] <= 0:
             fail(f"phase 21: {name} launched no time on the shapes' path")
@@ -5555,6 +5656,8 @@ def main() -> int:
                                           "flash_f32_kernel")),
                        ("attention_decode_any", ("decode_split_kernel",)),
                        ("ssd_any", ("ssd_tc_kernel", "ssd_kernel")),
+                       ("ssd16", ("ssd_tc_kernel",)),
+                       ("ssd16_any", ("ssd_tc_kernel",)),
                        ("gemm", ("skinny_kernel", "wide_kernel",
                                  "sgemm_kernel", "igemm")),
                        ("gemm16", ("skinny_kernel", "wide_kernel", "igemm")),
@@ -5769,7 +5872,7 @@ def main() -> int:
             "csrc/attention.cuh", "src/repro/kernels/attention.py:418"),
         "decode_attention[fp16]": ("csrc/attention.cuh",
                                    "src/repro/kernels/attention.py:276"),
-        "ssd[fp16]": ("csrc/ssd.cuh", "src/repro/kernels/mamba2.py:151"),
+        "ssd[fp16]": ("csrc/ssd16.cu", "src/repro/kernels/mamba2.py:151"),
         "gemm[int32]": ("csrc/datapath.cu", "src/repro/kernels/gemm.py:105"),
         "conv2d_implicit[int32]": ("csrc/conv.cu",
                                    "src/repro/kernels/conv.py:140"),

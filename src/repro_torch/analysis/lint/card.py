@@ -222,6 +222,15 @@ def c_plan(torch, pr: driver.Probe):
                        (kw["m"], kw["n"], kw["k"]),
                        len(kg._BWD_PLAN_KEYS))
         keys = kg._BWD_PLAN_KEYS
+    elif pr.family == "convert":
+        from repro_torch.kernels import datapath as kd
+        sizes, strides = kw["sizes"], kw["strides"]
+        rc, raw = _raw("datapath", "convert_plan", [_I, _I] + [_L] * 9,
+                       (kd.ANY[getattr(torch, kw["src_dtype"])],
+                        kd.ANY[getattr(torch, kw["dtype"])], *sizes,
+                        *strides, kw["src_offset"]),
+                       len(kd.CONVERT_PLAN_KEYS))
+        keys = kd.CONVERT_PLAN_KEYS
     elif pr.family == "accumulator_epilogue":
         return _wrapped(lambda: kg.epilogue_plan(
             kw["count"], getattr(torch, kw["acc_dtype"]),
@@ -650,7 +659,7 @@ class Launcher:
 
         def launch():
             x, bm, cm, dtv = e["x"], e["b"], e["c"], e["dt"]
-            f = _bind(km.kernel_lib(p, n), "ssd_launch",
+            f = _bind(km.kernel_lib(p, n, dt), "ssd_launch",
                       [_P, _L, _L, _L, _P, _L, _L, _L, _P, _P, _P, _L, _L,
                        _L, _P, _L, _L, _L, _P, _P, _P, _P, _I, _I, _I, _I,
                        _I, _I, _I, _I, _I, _P])
@@ -668,7 +677,7 @@ class Launcher:
         def check_y(name, got, _want, kind):
             if dt == f32:
                 return _exact(torch, name, got, e["exact_y"], e["tol"])
-            return self.close(name, got, e["plain_y"], "bf16")
+            return self.close(name, got, e["plain_y"], _kind(dt))
 
         def check_s(name, got, _want, kind):
             return _exact(torch, name, got, e["exact_s"], e["tol"])
@@ -676,6 +685,48 @@ class Launcher:
         if fin is not None:
             outs.append(("state", fin, check_s, None))
         return outs, launch, lambda: None
+
+    def _convert(self, pr, c):
+        """The view the probe names, laid ``src_offset`` bytes into a
+        16-byte aligned buffer of values spanning each dtype's range (floats
+        past fp16's and the integers'), converted into a guarded output;
+        held to the plain version bit for bit."""
+        torch = self.torch
+        from repro_torch.kernels import datapath as kd
+        from repro_torch.kernels import epilogue as epi
+        kw = pr.kw
+        src = getattr(torch, kw["src_dtype"])
+        out_dt = getattr(torch, kw["dtype"])
+        sizes, strides = kw["sizes"], kw["strides"]
+        es = torch.empty((), dtype=src).element_size()
+        off = kw["src_offset"] // es
+        span = 1 + sum((sz - 1) * abs(st) for sz, st in zip(sizes, strides))
+        key = ("convert", src, span + off)
+        if key not in self.cache:
+            n = span + off
+            if src.is_floating_point:
+                base = self.randn(n, scale=20000.0).to(src)
+            else:
+                info = torch.iinfo(src)
+                base = self.randint(info.min, info.max, n, dtype=src)
+            self.cache[key] = base
+        view = self.cache[key].as_strided(sizes, strides, off)
+        want = epi.convert(view, out_dt)
+        out = Guarded(torch, sizes, out_dt, self.dev)
+
+        def launch():
+            f = _bind("datapath", "convert_launch", kd._CONVERT_ARGS)
+            return f(view.data_ptr(), kd.ANY[src], out.out.data_ptr(),
+                     kd.ANY[out_dt], *sizes, *strides, self.stream)
+
+        def bits_equal(name, got, _want, kind):
+            ints = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+            es_out = got.element_size()
+            if not torch.equal(got.contiguous().view(ints[es_out]),
+                               want.contiguous().view(ints[es_out])):
+                _fail(f"{name}: differs from the plain version's bits")
+            return 0.0
+        return [("c", out, bits_equal, _kind(out_dt))], launch, lambda: None
 
     def _accumulator_epilogue(self, pr, c):
         torch = self.torch

@@ -24,7 +24,11 @@ path gives it and at shapes chosen to stress it:
 * SSD: mamba2-1.3b's P 64, N 128, 64 heads: T = 256 resumed and 1000
   fresh; its d_inner as 32 heads of P 128 at N 256, a 512-token chunk
   resumed (two column slices, two sub-chunks); P 10 (element-by-element
-  rows and states), bf16 and fp32;
+  rows and states), bf16, fp16 and fp32;
+* the conversion, every pair of distinct dtypes on each of its paths:
+  packed (a contiguous view), its misaligned head (one value past a
+  16-byte boundary), rows (a packed innermost axis at a row stride that
+  moves each row's alignment) and general (a permuted view);
 * the mvout epilogue at (1000, 512) and (999, 513) read 4 bytes past a
   16-byte boundary, every datapath;
 * the backward products' kernel (bf16, fp16; its plan has no knob): a
@@ -80,6 +84,14 @@ SSD_PROBES = ((2, 256, 64, 1, 128, 64, 256, True, True),
               (1, 600, 32, 1, 256, 128, 512, True, True),
               (1, 100, 4, 2, 64, 10, 64, True, True))
 EPILOGUE_SHAPES = (((1000, 512), 0), ((999, 513), 4))
+# (path, sizes, strides, source offset in values) of the conversion's
+# probes, coalesced as ``contracts.convert_view`` leaves them
+CONVERT_PROBES = (("packed", (1, 1, 1, 60200), (0, 0, 0, 1), 0),
+                  ("head", (1, 1, 1, 60200), (0, 0, 0, 1), 1),
+                  ("rows", (1, 1, 96, 130), (0, 0, 136, 1), 3),
+                  ("general", (1, 6, 40, 77), (0, 3080, 1, 40), 0))
+CONVERT_DTYPES = ("int8", "int16", "int32", "bfloat16", "float16",
+                  "float32")
 # (m, n, k, layouts (a_mn, b_k)) of the backward kernel
 BWD_PROBES = ((1000, 1000, 1096, ((0, 0), (0, 1), (1, 0), (1, 1))),
               (296, 136, 4096, ((1, 0),)), (104, 72, 88, ((0, 1),)))
@@ -113,7 +125,7 @@ class Probe:
         kw = {**self.kw, **self.schedule}
         if self.family in ("gemm", "gemm_s8", "conv2d_implicit",
                            "flash_attention", "paged_prefill_attention",
-                           "accumulator_epilogue", "gemm_bwd"):
+                           "accumulator_epilogue", "gemm_bwd", "convert"):
             kw["sms"] = sms
         return kc.CONTRACT_BUILDERS[self.family](**kw)
 
@@ -269,7 +281,7 @@ def probes(families: Optional[Tuple[str, ...]] = None) -> Iterator[Probe]:
                     ("b", b), ("s", s), ("h", h), ("kvh", kvh), ("d", d),
                     ("pos", pos), ("window", win), ("dtype", dtype)))
     if want("ssd"):
-        for dtype in ("bfloat16", "float32"):
+        for dtype in ("bfloat16", "float16", "float32"):
             for b, t, h, g, n, p, chunk, init, fin in SSD_PROBES:
                 yield Probe("ssd", (
                     ("bsz", b), ("t", t), ("h", h), ("g", g), ("n", n),
@@ -282,6 +294,15 @@ def probes(families: Optional[Tuple[str, ...]] = None) -> Iterator[Probe]:
                     yield Probe("gemm_bwd", (
                         ("m", m), ("n", n), ("k", k), ("dtype", dtype),
                         ("a_mn", bool(a_mn)), ("b_k", bool(b_k))), ())
+    if want("convert"):
+        for _, sizes, strides, off in CONVERT_PROBES:
+            for src in CONVERT_DTYPES:
+                for dst in CONVERT_DTYPES:
+                    if src != dst:
+                        yield Probe("convert", (
+                            ("sizes", sizes), ("strides", strides),
+                            ("src_dtype", src), ("dtype", dst),
+                            ("src_offset", off * kc.dt(src)[1])))
     if want("accumulator_epilogue"):
         for (rows, cols), off in EPILOGUE_SHAPES:
             for acc, out in EPILOGUE_DTYPES:
@@ -293,7 +314,8 @@ def probes(families: Optional[Tuple[str, ...]] = None) -> Iterator[Probe]:
 
 FAMILIES = ("gemm", "conv2d_implicit", "flash_attention",
             "paged_decode_attention", "paged_prefill_attention",
-            "decode_attention", "ssd", "accumulator_epilogue", "gemm_bwd")
+            "decode_attention", "ssd", "accumulator_epilogue", "gemm_bwd",
+            "convert")
 
 
 def verdicts(families=None) -> Iterator[

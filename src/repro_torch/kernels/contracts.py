@@ -19,7 +19,8 @@ The builders mirror the C plan functions line for line (``gemm_plan`` /
 ``gemm_s8_plan`` in ``csrc/gemm.cu`` over ``hgemm.cuh``, ``sgemm.cuh``
 and ``igemm.cuh``; ``conv_plan`` in ``csrc/conv.cu``; the attention plans
 in ``csrc/attention.cuh``; ``ssd_plan`` in ``csrc/ssd.cuh``;
-``epilogue_plan``) and take the card's SM count as an argument
+``epilogue_plan``; ``convert_plan`` in ``csrc/datapath.cu``) and take the
+card's SM count as an argument
 (``hgemm::sm_count()`` enters the plans; an H100 SXM has 132). Each
 contract's ``plan`` holds the figures the C function's array gives, field
 for field, so the card can hold the two against each other. Where the
@@ -107,6 +108,13 @@ def dt(dtype) -> Tuple[str, int]:
 
 def _name(dtype) -> str:
     return str(dtype).replace("torch.", "")
+
+
+def _canon(dtype) -> str:
+    """A dtype's full torch name ("fp16" and torch.float16: "float16")."""
+    name = _name(dtype)
+    return {"fp32": "float32", "bf16": "bfloat16", "fp16": "float16"}.get(
+        name, name)
 
 
 def cdiv(a: int, b: int) -> int:
@@ -889,12 +897,108 @@ def _grid_stride_contract(name, kernel, count, src, out):
         kernel=kernel)
 
 
+# the conversion: a view as rows of packed 16-byte vectors or strided values
+CV_THREADS, CV_VECS, CV_SCALARS = 256, 4, 8
+CV_INT_MAX = 2 ** 31 - 1
+CV_PATHS = ("packed", "rows", "general")
+
+
+def convert_view(sizes, strides) -> Optional[Tuple[Tuple[int, ...],
+                                                   Tuple[int, ...]]]:
+    """A view's sizes and element strides as ``convert_launch`` takes them:
+    dims of one value dropped, neighbours that step as one dim merged (the
+    outer stride the inner one times its size), padded to 4 dims with
+    leading 1s; None where more than 4 dims remain."""
+    dims = []
+    for size, stride in zip(sizes, strides):
+        if size == 1:
+            continue
+        if dims and dims[-1][1] == stride * size:
+            dims[-1] = (dims[-1][0] * size, stride)
+        else:
+            dims.append((size, stride))
+    dims = dims or [(1, 1)]
+    if len(dims) > 4:
+        return None
+    dims = [(1, 0)] * (4 - len(dims)) + dims
+    return tuple(d[0] for d in dims), tuple(d[1] for d in dims)
+
+
+def convert_geometry(sizes, strides, src_dtype, dtype, src_offset: int = 0,
+                     sms: int = SMS) -> Optional[Dict[str, int]]:
+    """``datapath.cu`` convert_geom: the path and launch of a convert of the
+    4-D view (``convert_view``'s) whose first value lies ``src_offset``
+    bytes past a 16-byte boundary, or None where the C function refuses it.
+    packed: one contiguous row (its units ``shift`` bytes past 16: cut
+    from aligned words by funnel shifts where not 0); rows: the innermost
+    axis packed, rows at any stride; general: the innermost axis strided.
+    An item: ``group`` lanes of ``units`` units each (a unit: ``vec``
+    values, 16 bytes of the source, or one value on the general path)."""
+    src = dt(src_dtype)
+    if _canon(src_dtype) == _canon(dtype) or min(sizes) < 1 or sms < 1:
+        return None
+    rows, ln = sizes[0] * sizes[1] * sizes[2], sizes[3]
+    if ln > CV_INT_MAX:
+        return None
+    vec = strides[3] == 1 or ln == 1
+    v = 16 // src[1] if vec else 1
+    units = CV_VECS if vec else CV_SCALARS
+    per_row = cdiv(ln, v)
+    lanes = cdiv(per_row, units)
+    group = 1
+    while group < lanes and group < 32:
+        group *= 2
+    segs = cdiv(per_row, group * units)
+    items = rows * segs
+    return dict(path=0 if vec and rows == 1 else 1 if vec else 2,
+                blocks=min(cdiv(items * group, CV_THREADS), 4 * sms),
+                threads=CV_THREADS, group=group, units=units, vec=v,
+                rows=rows, len=ln, segs=segs,
+                shift=src_offset % 16 if vec else 0,
+                wide=int(items > CV_INT_MAX))
+
+
 @contract_builder("convert")
-def convert_contract(count: int, *, src_dtype, dtype) -> LaunchContract:
-    """``convert_launch``: one value a thread an iteration, blocks as
-    many as the values need up to 16 an SM."""
-    return _grid_stride_contract("convert", "convert_kernel", count,
-                                 dt(src_dtype), dt(dtype))
+def convert_contract(sizes, strides, *, src_dtype, dtype,
+                     src_offset: int = 0, sms: int = SMS) -> LaunchContract:
+    """``convert_launch`` (``convert_plan``'s array) on a coalesced 4-D
+    view: a grid-stride loop over the items of every row (item = row *
+    segs + segment, ``group`` lanes an item, ``CV_THREADS / group`` items a
+    block an iteration); the operands as the items' slots of ``group *
+    units * vec`` values, a row's last slot predicated."""
+    g = convert_geometry(sizes, strides, src_dtype, dtype, src_offset, sms)
+    limits = (Limit("distinct dtypes", int(_canon(src_dtype) !=
+                                           _canon(dtype)), 1, 1),
+              Limit("values a row", sizes[3], 1, CV_INT_MAX),
+              Limit("every size positive", int(min(sizes) >= 1), 1, 1))
+    if g is None:
+        return LaunchContract(name="convert", regions=(), operands=(),
+                              blocks=0, threads=CV_THREADS, limits=limits,
+                              kernel="convert_kernel")
+    slot = g["group"] * g["units"] * g["vec"]
+    items = g["rows"] * g["segs"]
+    per = CV_THREADS // g["group"]               # items a block an iteration
+    span = g["blocks"] * per
+    iters = max(1, cdiv(items, span))
+    ops = (OperandSpec("src", (items * slot,), (slot,), dt(src_dtype),
+                       predicated=(0,)),
+           OperandSpec("c", (items * slot,), (slot,), dt(dtype), output=True,
+                       predicated=(0,)))
+    region = Region((("it", iters), ("blk", g["blocks"]), ("w", per)),
+                    (("src", lambda it, b, w: (it * span + b * per + w,)),
+                     ("c", lambda it, b, w: (it * span + b * per + w,))),
+                    loops=("it", "w"))
+    plan = tuple((k, g[k]) for k in ("path", "blocks", "threads", "group",
+                                     "units", "vec", "rows", "len", "segs",
+                                     "shift", "wide"))
+    codes = {"int8": 0, "int16": 1, "int32": 2, "bfloat16": 3, "float16": 4,
+             "float32": 5}
+    return LaunchContract(
+        name="convert", regions=(region,), operands=ops, blocks=g["blocks"],
+        threads=CV_THREADS, limits=limits, plan=plan,
+        kernel="convert_kernel",
+        kernel_args=(codes[_canon(src_dtype)], codes[_canon(dtype)],
+                     int(g["path"] != 2)))
 
 
 @contract_builder("epilogue_any")
@@ -1260,8 +1364,11 @@ def _round4(v):
     return (v + 3) & ~3
 
 
+_SSD_TC = ("bfloat16", "float16")       # the tensor-core kernel's dtypes
+
+
 def _ssd_smem(dtype_name, n, p):
-    if dtype_name == "bfloat16":
+    if dtype_name in _SSD_TC:
         pp = max(p, 16)
         ldp, lds = pp + 8, pp + 4
         stage = 64 * (_round16(n) + 8) * 2 + 2 * 64 * ldp * 2
@@ -1282,7 +1389,7 @@ def _ssd_chunk(dtype_name, t, h, g, n, chunk, t0, has_out):
     q = min(chunk, t - t0)
     hpg = h // g
     n_hs = g * ((hpg + 1) // 2)
-    if dtype_name == "bfloat16":
+    if dtype_name in _SSD_TC:
         n_ns = cdiv(_round16(n), 64)
         n_rt = cdiv(q, 64)
         n_yblk = n_rt * n_hs
@@ -1299,7 +1406,7 @@ def _ssd_chunk(dtype_name, t, h, g, n, chunk, t0, has_out):
         rows = 32
     return dict(q=q, n_hs=n_hs, n_ns=n_ns, n_rt=n_rt, n_yblk=n_yblk,
                 n_state=n_state, blocks=blocks, rows=rows,
-                state_rows=64 if dtype_name == "bfloat16" or n > 32 else 32,
+                state_rows=64 if dtype_name in _SSD_TC or n > 32 else 32,
                 sets=(hpg + 1) // 2)
 
 
@@ -1315,8 +1422,10 @@ def ssd_contract(bsz: int, t: int, h: int, g: int, n: int, p: int,
     tiles first; a state block one slice of N of one head; an fp32 output
     block is a cluster of two splitting the key tiles; the grid's z axis
     takes the head dim's column slices (the last predicated where the
-    slice width does not divide P)."""
-    name = _name(dtype)
+    slice width does not divide P). fp16 runs the bf16 kernel's geometry
+    (``ssd16.cu``): its scores on the fp16 MMA, every other product on the
+    bf16 MMA over exact bf16 terms of its fp16 operand."""
+    name = _canon(dtype)
     io = dt(dtype)
     limits = (Limit("state size", n, 1, SSD_NMAX),
               Limit("T, head dim and chunk positive",
@@ -1334,7 +1443,7 @@ def ssd_contract(bsz: int, t: int, h: int, g: int, n: int, p: int,
     whole = _ssd_chunk(name, chunk, h, g, n, chunk, 0, True)
     sets = geoms[0]["sets"]
     rows = geoms[0]["rows"]
-    fp32 = name != "bfloat16"
+    fp32 = name not in _SSD_TC
     q_last = geoms[-1]["q"]
     # y (and x) as whole chunks and the last chunk: (B, chunk, rows, group,
     # head of the group's pairs, P); a pair's second head is predicated

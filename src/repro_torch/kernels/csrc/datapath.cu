@@ -35,8 +35,8 @@
 // write of each value at 3.35 TB/s); (b) the INT32 multiply-add rate of the
 // CUDA cores (half the fp32 FMA rate).
 //
-// C interface: convert_launch, epilogue_any_launch, gemm_s32_launch,
-// gemm_s32_plan; each launch returns cudaGetLastError().
+// C interface: convert_launch, convert_plan, epilogue_any_launch,
+// gemm_s32_launch, gemm_s32_plan; each launch returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -56,21 +56,237 @@ inline unsigned blocks_for(long long n) {
   return (unsigned)(b < 1 ? 1 : b < most ? b : most);
 }
 
-// dst[i] = convert(src at the i-th index of a (s0, s1, s2, s3) view with
-// element strides t0..t3), dst contiguous.
-__global__ void __launch_bounds__(THREADS)
-convert_kernel(const void* src, int sdt, void* dst, int ddt, long long s1,
-               long long s2, long long s3, long long t0, long long t1,
-               long long t2, long long t3, long long n) {
-  for (long long i = blockIdx.x * (long long)THREADS + threadIdx.x; i < n;
-       i += (long long)gridDim.x * THREADS) {
-    long long r = i;
-    const long long i3 = r % s3; r /= s3;
-    const long long i2 = r % s2; r /= s2;
-    const long long i1 = r % s1; r /= s1;
-    const long long at = r * t0 + i1 * t1 + i2 * t2 + i3 * t3;
-    epi::any_store(dst, i, ddt,
-                   epi::any_convert(sdt, ddt, epi::any_load(src, at, sdt)));
+// ---------------------------------------------------------------------------
+// convert: dst (contiguous) = XLA's convert of a strided view, one kernel
+// per (source, destination) dtype pair, the pair's scalar step
+// epi::any_cast (any_convert with its branches folded at compile time).
+//
+// The view is rows: s0 * s1 * s2 of them at strides t0..t2, each of len
+// values along the innermost axis at stride t3. A row is cut into items of
+// `group` lanes (a power of two up to a warp), each lane holding `units`
+// units in flight: 16 bytes of the source where the innermost axis is
+// packed (t3 == 1: 16 int8, 8 of a 16-bit type, 4 of a 32-bit one),
+// single values otherwise. Paths (convert_geom):
+//   packed  one row, the whole view contiguous: 16-byte loads, stores of
+//           the unit's converted bytes (16-byte words, or one 4- or 8-byte
+//           store), a scalar head up to the first aligned output and a
+//           scalar tail. Where the source's units do not start on 16 bytes
+//           (a view some values into its buffer: `shift` bytes past), each
+//           unit is cut from the two aligned 16-byte words it spans by
+//           funnel shifts (shift16), so loads and stores stay aligned;
+//   rows    the innermost axis packed, rows at any stride (a model's views
+//           into its fused projection, the KV pools' slices): the same
+//           path in each row, its head, shift and tail per row;
+//   general the rest: each lane walks its values along the row at stride
+//           t3, `units` loads in flight.
+// An item finds its row with two divisions; nothing divides per value.
+// Index math is 32-bit unless the items pass 2^31 (wide); a row holds at
+// most 2^31 - 1 values.
+// ---------------------------------------------------------------------------
+constexpr int CV_THREADS = 256;
+constexpr int CV_VECS = 4;        // 16-byte vectors a lane keeps in flight
+constexpr int CV_SCALARS = 8;     // strided values a lane keeps in flight
+constexpr long long CV_INT_MAX = 2147483647LL;
+enum { CV_PACKED = 0, CV_ROWS = 1, CV_GENERAL = 2 };
+
+struct CvArgs {
+  const void* src;
+  void* dst;
+  long long s1, s2;               // the rows' middle and inner outer dims
+  long long t0, t1, t2, t3;       // element strides
+  long long rows;
+  int len, group, segs;           // values a row; lanes an item; items a row
+};
+
+struct CvGeom {
+  int path, blocks, group, units, vec, segs, shift, wide;
+  long long rows;
+  int len;
+};
+
+// The launch's geometry (convert_plan reports it): false where the call
+// is refused (a dtype code out of range, equal dtypes, an empty view, a
+// row of 2^31 values or more). src_off: the source's address modulo 16
+// (the output is 16-byte aligned, so the first row's head is empty and its
+// units' shift is src_off).
+inline bool convert_geom(int sdt, int ddt, const long long* s,
+                         const long long* t, long long src_off, int sms,
+                         CvGeom& g) {
+  static const int width[6] = {1, 2, 4, 2, 2, 4};
+  if (sdt < 0 || sdt > 5 || ddt < 0 || ddt > 5 || sdt == ddt || sms < 1)
+    return false;
+  for (int i = 0; i < 4; ++i)
+    if (s[i] < 1) return false;
+  const long long rows = s[0] * s[1] * s[2], len = s[3];
+  if (len > CV_INT_MAX) return false;
+  const int ws = width[sdt];
+  const bool vec = t[3] == 1 || len == 1;
+  g.vec = vec ? 16 / ws : 1;
+  g.path = !vec ? CV_GENERAL : rows == 1 ? CV_PACKED : CV_ROWS;
+  g.units = vec ? CV_VECS : CV_SCALARS;
+  const long long per_row = (len + g.vec - 1) / g.vec;    // units, at most
+  const long long lanes = (per_row + g.units - 1) / g.units;
+  g.group = 1;
+  while (g.group < lanes && g.group < 32) g.group <<= 1;
+  const long long seg = (long long)g.group * g.units;
+  g.segs = (int)((per_row + seg - 1) / seg);
+  g.rows = rows;
+  g.len = (int)len;
+  const long long items = rows * g.segs;
+  g.wide = items > CV_INT_MAX;
+  const long long want = (items * g.group + CV_THREADS - 1) / CV_THREADS;
+  g.blocks = (int)(want < 4LL * sms ? want : 4LL * sms);
+  g.shift = vec ? (int)(src_off % 16) : 0;
+  return true;
+}
+
+// The 16 bytes at byte `m` (0 < m < 16) of the 32 in a, b.
+__device__ __forceinline__ uint4 shift16(uint4 a, uint4 b, unsigned m) {
+  const unsigned w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  const unsigned q = m >> 2, s = (m & 3u) * 8u;
+  unsigned v[5];
+#pragma unroll
+  for (int i = 0; i < 5; ++i)
+    v[i] = q == 0 ? w[i] : q == 1 ? w[i + 1] : q == 2 ? w[i + 2] : w[i + 3];
+  return make_uint4(__funnelshift_r(v[0], v[1], s),
+                    __funnelshift_r(v[1], v[2], s),
+                    __funnelshift_r(v[2], v[3], s),
+                    __funnelshift_r(v[3], v[4], s));
+}
+
+template <int S, int D, bool VEC, typename I>
+__device__ __forceinline__ void convert_items(const CvArgs& p) {
+  using ST = typename epi::AnyT<S>::T;
+  using DT = typename epi::AnyT<D>::T;
+  constexpr int V = VEC ? 16 / (int)sizeof(ST) : 1;
+  constexpr int U = VEC ? CV_VECS : CV_SCALARS;
+  constexpr int OB = V * (int)sizeof(DT);     // bytes a vector writes
+  constexpr int OW = OB < 16 ? OB : 16;       // bytes a store
+  const int G = p.group;
+  const int lane = threadIdx.x & (G - 1);
+  const I per_block = CV_THREADS / G;
+  const I stride = (I)gridDim.x * per_block;
+  const I items = (I)p.rows * (I)p.segs;
+  for (I item = (I)blockIdx.x * per_block + (I)(threadIdx.x / G);
+       item < items; item += stride) {
+    const I r = item / (I)p.segs;
+    const int sg = (int)(item - r * (I)p.segs);
+    const I r1 = r / (I)p.s2, i2 = r - r1 * (I)p.s2;
+    const I i0 = r1 / (I)p.s1, i1 = r1 - i0 * (I)p.s1;
+    const ST* sp = static_cast<const ST*>(p.src) + (long long)i0 * p.t0 +
+                   (long long)i1 * p.t1 + (long long)i2 * p.t2;
+    DT* dp = static_cast<DT*>(p.dst) + (long long)r * p.len;
+    const int u0 = sg * G * U + lane;
+    if constexpr (VEC) {
+      // the head: values up to the row's first output aligned to a store
+      const unsigned dmis = (unsigned)(reinterpret_cast<uintptr_t>(dp) &
+                                       (uintptr_t)(OW - 1));
+      const int head =
+          min(p.len, (int)(((OW - dmis) & (OW - 1)) / (unsigned)sizeof(DT)));
+      const int runs = (p.len - head) / V;
+      const ST* sv = sp + head;
+      DT* dv = dp + head;
+      const unsigned m = (unsigned)(reinterpret_cast<uintptr_t>(sv) & 15u);
+      const uint4* base = reinterpret_cast<const uint4*>(
+          reinterpret_cast<uintptr_t>(sv) - m);
+      uint4 in[U];
+      if (m == 0) {
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int j = u0 + u * G;
+          if (j < runs) in[u] = __ldg(base + j);
+        }
+      } else {
+        // unit j spans the aligned words j and j + 1; the second holds a
+        // byte of the unit, so it lies inside the source's allocation
+        uint4 hi[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int j = u0 + u * G;
+          if (j < runs) {
+            in[u] = __ldg(base + j);
+            hi[u] = __ldg(base + j + 1);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          if (u0 + u * G < runs) in[u] = shift16(in[u], hi[u], m);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = u0 + u * G;
+        if (j >= runs) break;
+        const ST* e = reinterpret_cast<const ST*>(&in[u]);
+        uint4 ob[(OB + 15) / 16];
+        DT* o = reinterpret_cast<DT*>(ob);
+#pragma unroll
+        for (int k = 0; k < V; ++k) o[k] = epi::any_cast<S, D>(e[k]);
+        DT* d = dv + j * V;
+        if constexpr (OB >= 16) {
+#pragma unroll
+          for (int w = 0; w < OB / 16; ++w)
+            reinterpret_cast<uint4*>(d)[w] = ob[w];
+        } else if constexpr (OB == 8) {
+          *reinterpret_cast<uint2*>(d) = *reinterpret_cast<const uint2*>(ob);
+        } else {
+          *reinterpret_cast<unsigned*>(d) =
+              *reinterpret_cast<const unsigned*>(ob);
+        }
+      }
+      if (sg == 0) {
+        for (int e = lane; e < head; e += G)
+          dp[e] = epi::any_cast<S, D>(sp[e]);
+        for (int e = head + runs * V + lane; e < p.len; e += G)
+          dp[e] = epi::any_cast<S, D>(sp[e]);
+      }
+    } else {
+      ST v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = u0 + u * G;
+        if (j < p.len) v[u] = sp[(long long)j * p.t3];
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = u0 + u * G;
+        if (j < p.len) dp[j] = epi::any_cast<S, D>(v[u]);
+      }
+    }
+  }
+}
+
+template <int S, int D, bool VEC>
+__global__ void __launch_bounds__(CV_THREADS)
+convert_kernel(CvArgs p, int wide) {
+  if (wide)
+    convert_items<S, D, VEC, long long>(p);
+  else
+    convert_items<S, D, VEC, int>(p);
+}
+
+template <int S, int D>
+cudaError_t convert_pair(const CvGeom& g, const CvArgs& a, cudaStream_t st) {
+  if constexpr (S == D) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (g.path == CV_GENERAL)
+      convert_kernel<S, D, false><<<g.blocks, CV_THREADS, 0, st>>>(a, g.wide);
+    else
+      convert_kernel<S, D, true><<<g.blocks, CV_THREADS, 0, st>>>(a, g.wide);
+    return cudaGetLastError();
+  }
+}
+
+template <int S>
+cudaError_t convert_from(int ddt, const CvGeom& g, const CvArgs& a,
+                         cudaStream_t st) {
+  switch (ddt) {
+    case 0: return convert_pair<S, 0>(g, a, st);
+    case 1: return convert_pair<S, 1>(g, a, st);
+    case 2: return convert_pair<S, 2>(g, a, st);
+    case 3: return convert_pair<S, 3>(g, a, st);
+    case 4: return convert_pair<S, 4>(g, a, st);
+    default: return convert_pair<S, 5>(g, a, st);
   }
 }
 
@@ -100,17 +316,51 @@ epilogue_any_kernel(const void* w, int wdt, int ddt, int adt, const void* bias,
 
 // dst (contiguous, dtype ddt) = XLA's convert of src (dtype sdt) read as a
 // 4-D view of sizes (s0, s1, s2, s3) and element strides (t0..t3); dtype
-// codes 0 int8, 1 int16, 2 int32, 3 bf16, 4 fp16, 5 fp32.
+// codes 0 int8, 1 int16, 2 int32, 3 bf16, 4 fp16, 5 fp32. The path is
+// convert_geom's (the caller coalesces the view first, kernels/datapath.py).
 extern "C" int convert_launch(const void* src, int sdt, void* dst, int ddt,
                               long long s0, long long s1, long long s2,
                               long long s3, long long t0, long long t1,
                               long long t2, long long t3, void* stream) {
-  const long long n = s0 * s1 * s2 * s3;
-  if (n <= 0) return 0;
-  convert_kernel<<<blocks_for(n), THREADS, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      src, sdt, dst, ddt, s1, s2, s3, t0, t1, t2, t3, n);
-  return static_cast<int>(cudaGetLastError());
+  const long long s[4] = {s0, s1, s2, s3}, t[4] = {t0, t1, t2, t3};
+  if (s0 * s1 * s2 * s3 == 0) return 0;
+  CvGeom g;
+  if (!convert_geom(sdt, ddt, s, t,
+                    (long long)(reinterpret_cast<uintptr_t>(src) & 15u),
+                    hgemm::sm_count(), g))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const CvArgs a{src, dst, s1, s2, t0, t1, t2, t3, g.rows, g.len, g.group,
+                 g.segs};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (sdt) {
+    case 0: return static_cast<int>(convert_from<0>(ddt, g, a, st));
+    case 1: return static_cast<int>(convert_from<1>(ddt, g, a, st));
+    case 2: return static_cast<int>(convert_from<2>(ddt, g, a, st));
+    case 3: return static_cast<int>(convert_from<3>(ddt, g, a, st));
+    case 4: return static_cast<int>(convert_from<4>(ddt, g, a, st));
+    default: return static_cast<int>(convert_from<5>(ddt, g, a, st));
+  }
+}
+
+// The launch convert_launch makes for this view (src_off: the source's
+// address modulo 16); launches nothing. plan: [0] path (0 packed, 1 rows,
+// 2 general), [1] blocks, [2] threads, [3] lanes an item, [4] units a lane
+// an item, [5] values a unit, [6] rows, [7] values a row, [8] items a row,
+// [9] the first row's units' bytes past 16 (shifted loads where not 0),
+// [10] 64-bit index math.
+extern "C" int convert_plan(int sdt, int ddt, long long s0, long long s1,
+                            long long s2, long long s3, long long t0,
+                            long long t1, long long t2, long long t3,
+                            long long src_off, long long* plan) {
+  const long long s[4] = {s0, s1, s2, s3}, t[4] = {t0, t1, t2, t3};
+  CvGeom g;
+  if (!convert_geom(sdt, ddt, s, t, src_off, hgemm::sm_count(), g))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long out[11] = {g.path,  g.blocks, CV_THREADS, g.group,
+                             g.units, g.vec,    g.rows,     g.len,
+                             g.segs,  g.shift,  g.wide};
+  for (int i = 0; i < 11; ++i) plan[i] = out[i];
+  return 0;
 }
 
 // c (contiguous (count / n_cols, n_cols), dtype odt) = the generic

@@ -150,32 +150,62 @@ struct AnyVal {
   float fv;
 };
 
+// The storage type of each dtype code, and one stored value as an AnyVal
+// and back: any_load / any_store with the dtype fixed at compile time
+// (datapath.cu's convert kernels are instantiated per dtype pair).
+template <int C> struct AnyT;
+template <> struct AnyT<ANY_I8> { using T = int8_t; };
+template <> struct AnyT<ANY_I16> { using T = int16_t; };
+template <> struct AnyT<ANY_I32> { using T = int; };
+template <> struct AnyT<ANY_BF16> { using T = __nv_bfloat16; };
+template <> struct AnyT<ANY_F16> { using T = __half; };
+template <> struct AnyT<ANY_F32> { using T = float; };
+
+template <int C>
+__device__ __forceinline__ AnyVal any_value(typename AnyT<C>::T v) {
+  if constexpr (C == ANY_BF16) return {0, __bfloat162float(v)};
+  else if constexpr (C == ANY_F16) return {0, __half2float(v)};
+  else if constexpr (C == ANY_F32) return {0, v};
+  else return {static_cast<int>(v), 0.f};
+}
+
+template <int C>
+__device__ __forceinline__ typename AnyT<C>::T any_raw(AnyVal v) {
+  if constexpr (C == ANY_I8) return static_cast<int8_t>(v.iv);
+  else if constexpr (C == ANY_I16) return static_cast<int16_t>(v.iv);
+  else if constexpr (C == ANY_I32) return v.iv;
+  else if constexpr (C == ANY_BF16) return __float2bfloat16_rn(v.fv);
+  else if constexpr (C == ANY_F16) return __float2half_rn(v.fv);
+  else return v.fv;
+}
+
 __device__ __forceinline__ AnyVal any_load(const void* p, long long i,
                                            int dt) {
   switch (dt) {
-    case ANY_I8: return {static_cast<const int8_t*>(p)[i], 0.f};
-    case ANY_I16: return {static_cast<const int16_t*>(p)[i], 0.f};
-    case ANY_I32: return {static_cast<const int*>(p)[i], 0.f};
+    case ANY_I8:
+      return any_value<ANY_I8>(static_cast<const int8_t*>(p)[i]);
+    case ANY_I16:
+      return any_value<ANY_I16>(static_cast<const int16_t*>(p)[i]);
+    case ANY_I32: return any_value<ANY_I32>(static_cast<const int*>(p)[i]);
     case ANY_BF16:
-      return {0, __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])};
-    case ANY_F16: return {0, __half2float(static_cast<const __half*>(p)[i])};
-    default: return {0, static_cast<const float*>(p)[i]};
+      return any_value<ANY_BF16>(static_cast<const __nv_bfloat16*>(p)[i]);
+    case ANY_F16:
+      return any_value<ANY_F16>(static_cast<const __half*>(p)[i]);
+    default: return any_value<ANY_F32>(static_cast<const float*>(p)[i]);
   }
 }
 
 __device__ __forceinline__ void any_store(void* p, long long i, int dt,
                                           AnyVal v) {
   switch (dt) {
-    case ANY_I8: static_cast<int8_t*>(p)[i] = static_cast<int8_t>(v.iv); break;
-    case ANY_I16:
-      static_cast<int16_t*>(p)[i] = static_cast<int16_t>(v.iv);
-      break;
-    case ANY_I32: static_cast<int*>(p)[i] = v.iv; break;
+    case ANY_I8: static_cast<int8_t*>(p)[i] = any_raw<ANY_I8>(v); break;
+    case ANY_I16: static_cast<int16_t*>(p)[i] = any_raw<ANY_I16>(v); break;
+    case ANY_I32: static_cast<int*>(p)[i] = any_raw<ANY_I32>(v); break;
     case ANY_BF16:
-      static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v.fv);
+      static_cast<__nv_bfloat16*>(p)[i] = any_raw<ANY_BF16>(v);
       break;
-    case ANY_F16: static_cast<__half*>(p)[i] = __float2half_rn(v.fv); break;
-    default: static_cast<float*>(p)[i] = v.fv; break;
+    case ANY_F16: static_cast<__half*>(p)[i] = any_raw<ANY_F16>(v); break;
+    default: static_cast<float*>(p)[i] = any_raw<ANY_F32>(v); break;
   }
 }
 
@@ -214,6 +244,14 @@ __device__ __forceinline__ AnyVal any_convert(int src, int dst, AnyVal v) {
   }
   if (any_int(dst)) return {any_f2i(dst, v.fv), 0.f};
   return {0, any_round(dst, v.fv)};
+}
+
+// XLA's convert of one stored value from dtype S to dtype D, both fixed at
+// compile time: any_convert's steps with its branches folded.
+template <int S, int D>
+__device__ __forceinline__ typename AnyT<D>::T any_cast(
+    typename AnyT<S>::T v) {
+  return any_raw<D>(any_convert(S, D, any_value<S>(v)));
 }
 
 // a + b in dtype dt (integers wrap; floats: the fp32 sum rounded to dt).

@@ -57,13 +57,22 @@
 // it. More warps in flight (wgmma, or more rows per block) is the next
 // step.
 //
-// fp16 inputs (an fp16 model) run ssd_kernel too, on x, B and C widened
-// exactly to fp32 by datapath.cu's convert kernel (kernels/mamba2.py), y
-// rounded back to fp16 the same way: the JAX kernel upcasts every operand
-// to fp32 in its body, and here the decay-weighted scores and the carried
-// state (which pass fp16's 65504 where x is large) stay in fp32, where the
-// bf16 kernel's split of fp32 operands into 16-bit MMA terms would need
-// fp16's range.
+// fp16 inputs (an fp16 model) run ssd_tc_kernel with T = __half, straight
+// from the caller's views: the same tiles, copies and shared memory as
+// bf16. The scores C_i B_j^T run on the .f16 MMA (fp16 x fp16 products are
+// exact in fp32, as bf16's are). Every other product splits its fp16
+// operand fragment, after ldmatrix, into two bf16 terms hi + lo that sum to
+// it exactly (fp16's 11-bit significand and its whole exponent range fit
+// two bf16 terms; split_f16) and runs on the bf16 MMA beside the existing
+// splits of the fp32-by-definition operands: C of the carried term against
+// S's two terms (3 products: the lo x lo one is below S's own split), x
+// against the weights' two terms (3), x against B * w's three terms in the
+// state update (5: all but lo x lo). bf16 has fp32's exponent, so the
+// weights, the carried state and B * w (which pass 65504 where x is large)
+// keep their range: a split into .f16 terms would overflow there. y is
+// rounded to fp16 in the store (__float2half_rn, past 65504 +-inf, as XLA
+// rounds the JAX kernel's fp32 y); the states stay fp32. The JAX kernel
+// upcasts x, B and C to fp32 in its body and rounds y once at the end.
 //
 // fp32 inputs (the fp32 gate, phases 7-8's fp32 logits) run ssd_kernel on
 // the CUDA cores in IEEE fp32 (the tensor cores take no fp32 operands),
@@ -112,11 +121,13 @@
 // 256, the state carried through the scratch (the same function, the
 // fp32 sums grouped by 256 rows).
 //
-// Two libraries share this code: ssd.cu instantiates the kernels with GEN
+// Four libraries share this code: ssd.cu instantiates the kernels with GEN
 // = false for P in {8, 16, 32, 64} and N <= 128 (the registry's models; the
 // code these kernels were first written as, the states' row P and no
 // slice), ssd_any.cu with GEN = true for every other head dim and N <= 256
-// (kernels/mamba2.py picks the library per call). They build in parallel.
+// (kernels/mamba2.py picks the library per call); ssd16.cu and
+// ssd16_any.cu the fp16 instances of ssd_tc_kernel at GEN = false and true
+// (SSD_HALF). They build in parallel.
 //
 // C interface (both libraries): ssd_launch, returning cudaGetLastError(),
 // and ssd_plan, its launch geometry.
@@ -124,13 +135,19 @@
 #pragma once
 
 #ifndef SSD_GENERIC
-#error "define SSD_GENERIC (false: ssd.cu, true: ssd_any.cu)"
+#error "define SSD_GENERIC (false: ssd.cu, ssd16.cu; true: the _any units)"
+#endif
+#ifndef SSD_HALF
+#define SSD_HALF false          // true: ssd16.cu, ssd16_any.cu (fp16 only)
 #endif
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -139,10 +156,10 @@ namespace cg = cooperative_groups;
 constexpr int QMAX = 256;     // longest chunk
 constexpr int NMAX = 256;     // largest state size (ssd_any.cu)
 constexpr int NMAX_FIRST = 128;   // ... of ssd.cu's instances
-enum { DT_F32 = 0, DT_BF16 = 1 };
+enum { DT_F32 = 0, DT_BF16 = 1, DT_F16 = 2 };
 
 // ---------------------------------------------------------------------------
-// bf16: ssd_tc_kernel, one chunk per launch on tensor cores.
+// bf16 and fp16: ssd_tc_kernel, one chunk per launch on tensor cores.
 // ---------------------------------------------------------------------------
 using bf16 = __nv_bfloat16;
 constexpr unsigned FULL = 0xffffffffu;
@@ -151,16 +168,18 @@ constexpr int RT = 64;            // chunk rows per output block, 16 a warp
 constexpr int NSL = 64;           // state rows (of N) per state block
 constexpr int LDB = NSL + 8;      // bf16 row of a state block's B slice
 
+// E: the inputs' and y's type, bf16 or __half.
+template <typename E>
 struct TcArgs {
-  const bf16* x; long long xsb, xst, xsh;    // (B, T, H, P), in elements
+  const E* x; long long xsb, xst, xsh;       // (B, T, H, P), in elements
   const float* dt; long long dsb, dst, dsh;  // (B, T, H)
   const float* a_log;                        // (H,)
   const float* d_skip;                       // (H,)
-  const bf16* b; long long bsb, bst, bsg;    // (B, T, G, N)
-  const bf16* c; long long csb, cst, csg;
+  const E* b; long long bsb, bst, bsg;       // (B, T, G, N)
+  const E* c; long long csb, cst, csg;
   const float* s_in;                         // (B, H, N, P) or null (zeros)
   float* s_out;                              // (B, H, N, P) or null (none)
-  bf16* y;                                   // (B, T, H, P) contiguous
+  E* y;                                      // (B, T, H, P) contiguous
   int T, H, G, N;
   int t0, q;                                 // this chunk: rows [t0, t0 + q)
   int n_rt, n_hs, n_ns;                      // row tiles, head pairs, N slices
@@ -223,12 +242,12 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
 }
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -242,8 +261,53 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+// c += a (16x16, row) * b (16x8, col); fp16 in, fp32 accumulate.
+__device__ __forceinline__ void mma_f16(float (&c)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// The scores' MMA of the inputs' type: bf16 or fp16 (each exact products).
+template <typename T>
+__device__ __forceinline__ void mma_in(float (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  if constexpr (std::is_same<T, __half>::value)
+    mma_f16(c, a, b0, b1);
+  else
+    mma_bf16(c, a, b0, b1);
+}
 __device__ __forceinline__ uint32_t bits(__nv_bfloat162 h) {
   return *reinterpret_cast<uint32_t*>(&h);
+}
+__device__ __forceinline__ uint32_t bits(__half2 h) {
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+// A pair of 16-bit values of type T (one register) as two floats, and two
+// floats rounded to nearest even into such a pair (fp16: past 65504, inf).
+template <typename T> __device__ __forceinline__ float2 unpack2(uint32_t v);
+template <> __device__ __forceinline__ float2 unpack2<bf16>(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+template <> __device__ __forceinline__ float2 unpack2<__half>(uint32_t v) {
+  return __half22float2(*reinterpret_cast<const __half2*>(&v));
+}
+template <typename T> __device__ __forceinline__ uint32_t pack2(float x,
+                                                                float y);
+template <> __device__ __forceinline__ uint32_t pack2<bf16>(float x, float y) {
+  return bits(__floats2bfloat162_rn(x, y));
+}
+template <> __device__ __forceinline__ uint32_t pack2<__half>(float x,
+                                                              float y) {
+  return bits(__floats2half2_rn(x, y));
+}
+template <typename T> __device__ __forceinline__ T round1(float x);
+template <> __device__ __forceinline__ bf16 round1<bf16>(float x) {
+  return __float2bfloat16(x);
+}
+template <> __device__ __forceinline__ __half round1<__half>(float x) {
+  return __float2half_rn(x);
 }
 // (x, y) as a bf16 pair hi plus the pair of what rounding left, lo.
 __device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
@@ -252,6 +316,21 @@ __device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
   const float2 hf = __bfloat1622float2(h);
   hi = bits(h);
   lo = bits(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+}
+// A pair of fp16 values as bf16 pairs hi + lo that sum to it exactly: hi
+// the nearest bf16, lo the remainder (at most 4 of fp16's ulps, a bf16 in
+// fp32's exponent range; an fp16 infinity leaves a NaN remainder).
+__device__ __forceinline__ void split_f16(uint32_t v, uint32_t& hi,
+                                          uint32_t& lo) {
+  const float2 f = unpack2<__half>(v);
+  split2(f.x, f.y, hi, lo);
+}
+// The four registers of an fp16 MMA fragment, each split so.
+__device__ __forceinline__ void split_frag(const uint32_t (&v)[4],
+                                           uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split_f16(v[e], hi[e], lo[e]);
 }
 // (x, y) as three bf16 pairs hi + mid + lo.
 __device__ __forceinline__ void split3(float x, float y, uint32_t& hi,
@@ -266,11 +345,13 @@ __device__ __forceinline__ void split3(float x, float y, uint32_t& hi,
   lo = bits(__floats2bfloat162_rn(rx - mf.x, ry - mf.y));
 }
 
-// rows x cols of a bf16 tile into shared memory (row stride ld) from rows
-// rs elements apart; rows >= live_r and columns >= live_c become zeros.
-// vec: 16-byte cp.async (the caller checked the alignment; live_c is a
-// multiple of 8); else element by element. The caller waits.
-__device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src,
+// rows x cols of a 16-bit tile (bf16 or fp16) into shared memory (row
+// stride ld) from rows rs elements apart; rows >= live_r and columns >=
+// live_c become zeros. vec: 16-byte cp.async (the caller checked the
+// alignment; live_c is a multiple of 8); else element by element. The
+// caller waits.
+template <typename T>
+__device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
                                           long long rs, int rows, int live_r,
                                           int cols, int live_c, int vec) {
   if (vec) {
@@ -284,7 +365,7 @@ __device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src,
     for (int e = threadIdx.x; e < rows * cols; e += TC_THREADS) {
       const int r = e / cols, c = e % cols;
       dst[r * ld + c] = r < live_r && c < live_c ? src[r * rs + c]
-                                                 : __float2bfloat16(0.f);
+                                                 : round1<T>(0.f);
     }
   }
 }
@@ -387,9 +468,10 @@ __device__ __forceinline__ void warp_seg(const float* dts, float* seg,
 // Output block: rows [i0, i0 + 64) of the chunk for a pair of heads of one
 // group. Every load it needs first (C, both carried states, dt) is in
 // flight at once; the key tiles stream through two stages.
-template <int P, bool GEN>
-__device__ void ssd_out_block(const TcArgs& p, int it, int hs, int bb,
+template <int P, bool GEN, typename T>
+__device__ void ssd_out_block(const TcArgs<T>& p, int it, int hs, int bb,
                               unsigned char* sm) {
+  constexpr bool F16 = std::is_same<T, __half>::value;
   using Sh = TcShape<P>;
   constexpr int PP = Sh::PP, NT = Sh::NT, LDP = Sh::LDP, LDS = Sh::LDS;
   const int N = p.N, NP = round16(N), LDN = NP + 8, NKS = NP / 16;
@@ -398,13 +480,13 @@ __device__ void ssd_out_block(const TcArgs& p, int it, int hs, int bb,
   float* segs = reinterpret_cast<float*>(sm);        // [2][QMAX]
   float* dts = segs + 2 * QMAX;                      // [2][QMAX]
   float* cfs = dts + 2 * QMAX;                       // [2][QMAX] column factors
-  bf16* Cs = reinterpret_cast<bf16*>(cfs + 2 * QMAX);  // [RT][LDN]
+  T* Cs = reinterpret_cast<T*>(cfs + 2 * QMAX);      // [RT][LDN]
   unsigned char* region = reinterpret_cast<unsigned char*>(Cs + RT * LDN);
   float* Ss = reinterpret_cast<float*>(region);      // [2][NP][LDS]
   const int stage_bytes = out_stage_bytes<P>(N);
   // stage st: B key tile [RT][LDN], then x of both heads [2][RT][LDP]
   auto Bs = [&](int st) {
-    return reinterpret_cast<bf16*>(region + st * stage_bytes);
+    return reinterpret_cast<T*>(region + st * stage_bytes);
   };
   auto Xs = [&](int st, int hh) { return Bs(st) + RT * LDN + hh * RT * LDP; };
 
@@ -416,9 +498,9 @@ __device__ void ssd_out_block(const TcArgs& p, int it, int hs, int bb,
   // rows of pf (!GEN: the one slice, P wide, rows of P)
   const int p0 = GEN ? blockIdx.z * P : 0, pw = GEN ? min(P, p.pf - p0) : P;
   const int pf = GEN ? p.pf : P, svec = GEN ? p.svec : 1;
-  const bf16* xb = p.x + bb * p.xsb + (long long)p.t0 * p.xst + p0;
-  const bf16* bp = p.b + bb * p.bsb + (long long)p.t0 * p.bst + grp * p.bsg;
-  const bf16* cp = p.c + bb * p.csb + (long long)p.t0 * p.cst + grp * p.csg;
+  const T* xb = p.x + bb * p.xsb + (long long)p.t0 * p.xst + p0;
+  const T* bp = p.b + bb * p.bsb + (long long)p.t0 * p.bst + grp * p.bsg;
+  const T* cp = p.c + bb * p.csb + (long long)p.t0 * p.cst + grp * p.csg;
   const int r_lo = warp * 16;                        // the warp's first row
   const bool live = r_lo < ni;
   const int ia = i0 + r_lo + g, ib = ia + 8;         // its fragment rows
@@ -457,12 +539,14 @@ __device__ void ssd_out_block(const TcArgs& p, int it, int hs, int bb,
     for (int n = 0; n < NT; ++n)
       acc[hh][n][0] = acc[hh][n][1] = acc[hh][n][2] = acc[hh][n][3] = 0.f;
 
-  // Carried term exp(seg_i) C_i @ S per head, S split into two bf16 terms.
+  // Carried term exp(seg_i) C_i @ S per head, S split into two bf16 terms
+  // (fp16: C too, exactly).
   if (p.s_in && live) {
 #pragma unroll 1
     for (int kk = 0; kk < NKS; ++kk) {
-      uint32_t a[4];
+      uint32_t a[4], ah[4], al[4];
       ldsm_x4(a, Cs + (r_lo + (lane & 15)) * LDN + kk * 16 + (lane >> 4) * 8);
+      if constexpr (F16) split_frag(a, ah, al);
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         if (hh >= nh) break;
@@ -473,8 +557,14 @@ __device__ void ssd_out_block(const TcArgs& p, int it, int hs, int bb,
           uint32_t h0b, l0b, h1b, l1b;
           split2(s[0], s[LDS], h0b, l0b);
           split2(s[8 * LDS], s[9 * LDS], h1b, l1b);
-          mma_bf16(acc[hh][n], a, h0b, h1b);
-          mma_bf16(acc[hh][n], a, l0b, l1b);
+          if constexpr (F16) {
+            mma_bf16(acc[hh][n], ah, h0b, h1b);
+            mma_bf16(acc[hh][n], ah, l0b, l1b);
+            mma_bf16(acc[hh][n], al, h0b, h1b);
+          } else {
+            mma_bf16(acc[hh][n], a, h0b, h1b);
+            mma_bf16(acc[hh][n], a, l0b, l1b);
+          }
         }
       }
     }
@@ -518,7 +608,7 @@ __device__ void ssd_out_block(const TcArgs& p, int it, int hs, int bb,
       // time, per head, the weights split in two bf16 terms, times x. On
       // the diagonal, keys past the warp's last row are dead.
       const int jn_end = jt == it ? 2 * (warp + 1) : RT / 8;
-      const bf16* bs = Bs(st);
+      const T* bs = Bs(st);
       float sc[RT / 8][4];
 #pragma unroll
       for (int jn = 0; jn < RT / 8; ++jn)
@@ -533,8 +623,8 @@ __device__ void ssd_out_block(const TcArgs& p, int it, int hs, int bb,
           uint32_t r[4];
           ldsm_x4(r, bs + (jn * 8 + (lane & 7) + ((lane >> 4) << 3)) * LDN +
                          kk * 16 + ((lane >> 3) & 1) * 8);
-          mma_bf16(sc[jn], a, r[0], r[1]);
-          mma_bf16(sc[jn + 1], a, r[2], r[3]);
+          mma_in<T>(sc[jn], a, r[0], r[1]);
+          mma_in<T>(sc[jn + 1], a, r[2], r[3]);
         }
       }
       float rf[2][2];                      // exp(seg_i - seg_e), rows ia, ib
@@ -545,9 +635,17 @@ __device__ void ssd_out_block(const TcArgs& p, int it, int hs, int bb,
         rf[hh][0] = jt < it && hh < nh && ia < jend ? expf(sg[ia] - last) : 0.f;
         rf[hh][1] = jt < it && hh < nh && ib < jend ? expf(sg[ib] - last) : 0.f;
       }
+      // 16 keys at a time: their scores (a register select, so that a
+      // loop that is not unrolled keeps sc in registers), per head the
+      // weights and the products with x.
+      auto key_block = [&](const int kb) {
+        float skb[2][4];
 #pragma unroll
-      for (int kb = 0; kb < RT / 16; ++kb) {
-        if (2 * kb >= jn_end) break;
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            skb[u][e] = kb == 0 ? sc[u][e] : kb == 1 ? sc[2 + u][e]
+                        : kb == 2 ? sc[4 + u][e] : sc[6 + u][e];
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           if (hh >= nh) break;
@@ -559,7 +657,7 @@ __device__ void ssd_out_block(const TcArgs& p, int it, int hs, int bb,
             for (int u = 0; u < 2; ++u)
 #pragma unroll
               for (int e = 0; e < 4; ++e)
-                w[u][e] = sc[2 * kb + u][e] * rf[hh][e >> 1] *
+                w[u][e] = skb[u][e] * rf[hh][e >> 1] *
                           cf[u * 8 + (e & 1)];
           } else {                         // the diagonal: masked, then exp
             const float* dd = dts + hh * QMAX;
@@ -572,7 +670,7 @@ __device__ void ssd_out_block(const TcArgs& p, int it, int hs, int bb,
                 const int i = e < 2 ? ia : ib;
                 const int j = j0 + kb * 16 + u * 8 + 2 * qd + (e & 1);
                 w[u][e] = j <= i && i < jend
-                              ? sc[2 * kb + u][e] *
+                              ? skb[u][e] *
                                     expf((e < 2 ? sa : sb) - sg[j]) * dd[j]
                               : 0.f;
               }
@@ -582,17 +680,46 @@ __device__ void ssd_out_block(const TcArgs& p, int it, int hs, int bb,
           split2(w[0][2], w[0][3], wh[1], wl[1]);
           split2(w[1][0], w[1][1], wh[2], wl[2]);
           split2(w[1][2], w[1][3], wh[3], wl[3]);
-          const bf16* xs = Xs(st, hh);
+          const T* xs = Xs(st, hh);
 #pragma unroll
           for (int n = 0; n < NT; n += 2) {
             uint32_t r[4];
             ldsm_x4_t(r, xs + (kb * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
                                   LDP + n * 8 + (lane >> 4) * 8);
-            mma_bf16(acc[hh][n], wh, r[0], r[1]);
-            mma_bf16(acc[hh][n], wl, r[0], r[1]);
-            mma_bf16(acc[hh][n + 1], wh, r[2], r[3]);
-            mma_bf16(acc[hh][n + 1], wl, r[2], r[3]);
+            if constexpr (F16) {             // x = hi + lo, exactly
+              uint32_t rh[4], rl[4];
+              split_frag(r, rh, rl);
+              mma_bf16(acc[hh][n], wh, rh[0], rh[1]);
+              mma_bf16(acc[hh][n], wh, rl[0], rl[1]);
+              mma_bf16(acc[hh][n], wl, rh[0], rh[1]);
+              mma_bf16(acc[hh][n + 1], wh, rh[2], rh[3]);
+              mma_bf16(acc[hh][n + 1], wh, rl[2], rl[3]);
+              mma_bf16(acc[hh][n + 1], wl, rh[2], rh[3]);
+            } else {
+              mma_bf16(acc[hh][n], wh, r[0], r[1]);
+              mma_bf16(acc[hh][n], wl, r[0], r[1]);
+              mma_bf16(acc[hh][n + 1], wh, r[2], r[3]);
+              mma_bf16(acc[hh][n + 1], wl, r[2], r[3]);
+            }
           }
+        }
+      };
+      static_assert(RT / 16 == 4, "key_block selects one of 4 key blocks");
+      if constexpr (F16) {
+        // fp16's block is twice bf16's code (the x splits, a third MMA).
+        // Unrolled, a block's first key tile took twice its next one
+        // (instruction fetch, tools/ssd_phases.py --fp16) and the call a
+        // quarter longer; looped, the code stays in the cache.
+#pragma unroll 1
+        for (int kb = 0; kb < RT / 16; ++kb) {
+          if (2 * kb >= jn_end) break;
+          key_block(kb);
+        }
+      } else {
+#pragma unroll
+        for (int kb = 0; kb < RT / 16; ++kb) {
+          if (2 * kb >= jn_end) break;
+          key_block(kb);
         }
       }
     }
@@ -606,7 +733,7 @@ __device__ void ssd_out_block(const TcArgs& p, int it, int hs, int bb,
   for (int hh = 0; hh < 2; ++hh) {
     if (hh >= nh) break;
     const float dsk = p.d_skip[h0 + hh];
-    const bf16* xs = Xs(it & 1, hh);
+    const T* xs = Xs(it & 1, hh);
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       const int col = n * 8 + 2 * qd;
@@ -615,19 +742,18 @@ __device__ void ssd_out_block(const TcArgs& p, int it, int hs, int bb,
       for (int half = 0; half < 2; ++half) {
         const int r = r_lo + g + 8 * half;
         if (r >= ni) continue;
-        const float2 xv = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(xs + r * LDP + col));
+        const float2 xv = unpack2<T>(
+            *reinterpret_cast<const uint32_t*>(xs + r * LDP + col));
         const long long t = p.t0 + i0 + r;
-        bf16* yp = p.y + ((bb * (long long)p.T + t) * p.H + h0 + hh) * pf +
-                   p0 + col;
+        T* yp = p.y + ((bb * (long long)p.T + t) * p.H + h0 + hh) * pf + p0 +
+                col;
         const float y0 = acc[hh][n][2 * half] + dsk * xv.x;
         const float y1 = acc[hh][n][2 * half + 1] + dsk * xv.y;
         if (!GEN || (col + 1 < pw && !(pf & 1))) {   // an aligned pair
-          *reinterpret_cast<__nv_bfloat162*>(yp) =
-              __floats2bfloat162_rn(y0, y1);
+          *reinterpret_cast<uint32_t*>(yp) = pack2<T>(y0, y1);
         } else {
-          yp[0] = __float2bfloat16(y0);
-          if (col + 1 < pw) yp[1] = __float2bfloat16(y1);
+          yp[0] = round1<T>(y0);
+          if (col + 1 < pw) yp[1] = round1<T>(y1);
         }
       }
     }
@@ -635,9 +761,10 @@ __device__ void ssd_out_block(const TcArgs& p, int it, int hs, int bb,
 }
 
 // State block: rows [n0, n0 + 64) of N of one head's state after the chunk.
-template <int P, bool GEN>
-__device__ void ssd_state_block(const TcArgs& p, int ns, int h, int bb,
+template <int P, bool GEN, typename T>
+__device__ void ssd_state_block(const TcArgs<T>& p, int ns, int h, int bb,
                                 unsigned char* sm) {
+  constexpr bool F16 = std::is_same<T, __half>::value;
   using Sh = TcShape<P>;
   constexpr int PP = Sh::PP, NT = Sh::NT, LDP = Sh::LDP;
   const int N = p.N, NP = round16(N), q = p.q, QP = round16(q);
@@ -646,8 +773,8 @@ __device__ void ssd_state_block(const TcArgs& p, int ns, int h, int bb,
   float* dts = reinterpret_cast<float*>(sm);         // [QMAX] dt, then seg
   float* wj = dts + QMAX;                            // [QMAX] decay * dt
   float* seg_last = wj + QMAX;                       // [4]
-  bf16* Bt = reinterpret_cast<bf16*>(seg_last + 4);  // [QMAX][LDB]
-  bf16* Xt = Bt + QMAX * LDB;                        // [QMAX][LDP]
+  T* Bt = reinterpret_cast<T*>(seg_last + 4);        // [QMAX][LDB]
+  T* Xt = Bt + QMAX * LDB;                           // [QMAX][LDP]
   float* red = reinterpret_cast<float*>(Xt + QMAX * LDP);  // [4][16][PP]
 
   const int grp = h / (p.H / p.G), n0 = ns * NSL;
@@ -706,7 +833,7 @@ __device__ void ssd_state_block(const TcArgs& p, int ns, int h, int bb,
   if (active) {
     for (int kk = ks0; kk < ks1; ++kk) {
       // A = (B * w)^T: the B slice read transposed, scaled by w_j (its k
-      // index), split into three bf16 terms.
+      // index), split into three bf16 terms (fp16: x into two, exactly).
       uint32_t r[4];
       ldsm_x4_t(r, Bt + (kk * 16 + (lane & 7) + ((lane >> 4) & 1) * 8) * LDB +
                        mt * 16 + ((lane >> 3) & 1) * 8);
@@ -714,8 +841,7 @@ __device__ void ssd_state_block(const TcArgs& p, int ns, int h, int bb,
       uint32_t ah[4], am[4], al[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&r[e]));
+        const float2 f = unpack2<T>(r[e]);
         const int k = e >= 2 ? 8 : 0;
         split3(f.x * w[k], f.y * w[k + 1], ah[e], am[e], al[e]);
       }
@@ -724,12 +850,25 @@ __device__ void ssd_state_block(const TcArgs& p, int ns, int h, int bb,
         uint32_t b[4];
         ldsm_x4_t(b, Xt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDP +
                          n * 8 + (lane >> 4) * 8);
-        mma_bf16(acc[n], ah, b[0], b[1]);
-        mma_bf16(acc[n], am, b[0], b[1]);
-        mma_bf16(acc[n], al, b[0], b[1]);
-        mma_bf16(acc[n + 1], ah, b[2], b[3]);
-        mma_bf16(acc[n + 1], am, b[2], b[3]);
-        mma_bf16(acc[n + 1], al, b[2], b[3]);
+        if constexpr (F16) {                 // every term but lo x lo
+          uint32_t bh[4], bl[4];
+          split_frag(b, bh, bl);
+#pragma unroll
+          for (int v = 0; v < 2; ++v) {
+            mma_bf16(acc[n + v], ah, bh[2 * v], bh[2 * v + 1]);
+            mma_bf16(acc[n + v], ah, bl[2 * v], bl[2 * v + 1]);
+            mma_bf16(acc[n + v], am, bh[2 * v], bh[2 * v + 1]);
+            mma_bf16(acc[n + v], am, bl[2 * v], bl[2 * v + 1]);
+            mma_bf16(acc[n + v], al, bh[2 * v], bh[2 * v + 1]);
+          }
+        } else {
+          mma_bf16(acc[n], ah, b[0], b[1]);
+          mma_bf16(acc[n], am, b[0], b[1]);
+          mma_bf16(acc[n], al, b[0], b[1]);
+          mma_bf16(acc[n + 1], ah, b[2], b[3]);
+          mma_bf16(acc[n + 1], am, b[2], b[3]);
+          mma_bf16(acc[n + 1], al, b[2], b[3]);
+        }
       }
     }
   }
@@ -779,15 +918,16 @@ __device__ void ssd_state_block(const TcArgs& p, int ns, int h, int bb,
 }
 
 // Output blocks first, longest row tile first, then the state blocks.
-template <int P, bool GEN>
-__global__ void __launch_bounds__(TC_THREADS) ssd_tc_kernel(TcArgs p) {
+template <int P, bool GEN, typename T>
+__global__ void __launch_bounds__(TC_THREADS) ssd_tc_kernel(TcArgs<T> p) {
   extern __shared__ __align__(16) unsigned char tsm[];
   const int bx = blockIdx.x, bb = blockIdx.y;
   if (bx < p.n_yblk) {
-    ssd_out_block<P, GEN>(p, p.n_rt - 1 - bx / p.n_hs, bx % p.n_hs, bb, tsm);
+    ssd_out_block<P, GEN, T>(p, p.n_rt - 1 - bx / p.n_hs, bx % p.n_hs, bb,
+                             tsm);
   } else {
     const int s = bx - p.n_yblk;
-    ssd_state_block<P, GEN>(p, s % p.n_ns, s / p.n_ns, bb, tsm);
+    ssd_state_block<P, GEN, T>(p, s % p.n_ns, s / p.n_ns, bb, tsm);
   }
 }
 
@@ -801,14 +941,14 @@ inline ChunkGeom chunk_geom(int dtype, int T, int H, int G, int N, int chunk,
 // One launch per chunk, the column slices on the grid's z; the state
 // between chunks goes through scratch, two (B, H, N, P) buffers used in
 // turn.
-template <int P, bool GEN>
-cudaError_t launch_tc(TcArgs a, int batch, int slices, int chunk,
+template <int P, bool GEN, typename T>
+cudaError_t launch_tc(TcArgs<T> a, int batch, int slices, int chunk,
                       const float* init, float* fin, float* scratch,
                       cudaStream_t s) {
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        ssd_tc_kernel<P, GEN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        ssd_tc_kernel<P, GEN, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         tc_smem_bytes<P>(GEN ? NMAX : NMAX_FIRST));
     if (e != cudaSuccess) return e;
     configured = true;
@@ -829,8 +969,8 @@ cudaError_t launch_tc(TcArgs a, int batch, int slices, int chunk,
     a.n_rt = g.n_rt;
     a.n_yblk = g.n_yblk;
     const int blocks = g.blocks;
-    ssd_tc_kernel<P, GEN><<<dim3(blocks, batch, slices), TC_THREADS, smem,
-                            s>>>(a);
+    ssd_tc_kernel<P, GEN, T><<<dim3(blocks, batch, slices), TC_THREADS, smem,
+                               s>>>(a);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
     a.s_in = a.s_out;
@@ -850,7 +990,8 @@ __host__ __device__ constexpr int f32_state_rows(int n) {
   return n > 32 ? 64 : 32;
 }
 
-// One chunk's launch geometry, bf16 (tensor cores) or fp32 (CUDA cores):
+// One chunk's launch geometry, bf16 or fp16 (tensor cores) or fp32 (CUDA
+// cores):
 // its rows q, row tiles, head pairs, state slices of N, output and state
 // blocks, and the grid's blocks (fp32: output blocks in clusters of two,
 // the state blocks made even). has_out: the chunk writes a state (every
@@ -861,7 +1002,7 @@ inline ChunkGeom chunk_geom(int dtype, int T, int H, int G, int N, int chunk,
   g.q = min(chunk, T - t0);
   const int hpg = H / G;
   g.n_hs = G * ((hpg + 1) / 2);
-  if (dtype == DT_BF16) {
+  if (dtype != DT_F32) {
     g.n_ns = (round16(N) + NSL - 1) / NSL;
     g.n_rt = (g.q + RT - 1) / RT;
     g.n_yblk = g.n_rt * g.n_hs;
@@ -1416,8 +1557,10 @@ cudaError_t launch_f32(F32Args a, int batch, int slices, int chunk,
   return cudaSuccess;
 }
 
-// The instances this translation unit launches (see the header comment).
+// The instances this translation unit launches (see the header comment):
+// GEN, and fp16 alone (SSD_HALF) or bf16 and fp32.
 constexpr bool kGeneric = SSD_GENERIC;
+constexpr bool kHalf = SSD_HALF;
 
 // The compiled slice width of head dim P (0 for none): P itself where it
 // is compiled, else the next compiled width, 64 for P > 64 (slices);
@@ -1427,10 +1570,55 @@ inline int slice_width(int P) {
   return kGeneric || w == P ? w : 0;
 }
 
+template <typename T>
+int launch_tc_any(TcArgs<T> t, int pc, int B, int slices, int chunk,
+                  const float* init, float* fin, float* scratch,
+                  cudaStream_t s) {
+  switch (pc) {
+    case 8:
+      return (int)launch_tc<8, kGeneric, T>(t, B, slices, chunk, init, fin,
+                                            scratch, s);
+    case 16:
+      return (int)launch_tc<16, kGeneric, T>(t, B, slices, chunk, init, fin,
+                                             scratch, s);
+    case 32:
+      return (int)launch_tc<32, kGeneric, T>(t, B, slices, chunk, init, fin,
+                                             scratch, s);
+    default:
+      return (int)launch_tc<64, kGeneric, T>(t, B, slices, chunk, init, fin,
+                                             scratch, s);
+  }
+}
+
+template <typename T>
+int launch_tc_call(const void* x, long long xsb, long long xst,
+                   long long xsh, const float* dt, long long dsb,
+                   long long dst, long long dsh, const float* a_log,
+                   const float* d_skip, const void* b, long long bsb,
+                   long long bst, long long bsg, const void* c,
+                   long long csb, long long cst, long long csg,
+                   const float* init, void* y, float* fin, float* scratch,
+                   int B, int T_, int H, int G, int N, int P, int pc,
+                   int slices, int chunk, int vec, cudaStream_t s) {
+  TcArgs<T> t{};
+  t.x = static_cast<const T*>(x); t.xsb = xsb; t.xst = xst; t.xsh = xsh;
+  t.dt = dt; t.dsb = dsb; t.dst = dst; t.dsh = dsh;
+  t.a_log = a_log; t.d_skip = d_skip;
+  t.b = static_cast<const T*>(b); t.bsb = bsb; t.bst = bst; t.bsg = bsg;
+  t.c = static_cast<const T*>(c); t.csb = csb; t.cst = cst; t.csg = csg;
+  t.y = static_cast<T*>(y);
+  t.T = T_; t.H = H; t.G = G; t.N = N;
+  t.vec = vec;
+  t.pf = P; t.svec = P % 4 == 0;
+  return launch_tc_any<T>(t, pc, B, slices, chunk, init, fin, scratch, s);
+}
+
 }  // namespace
 
 // Any head dim P >= 1 (column slices of slice_width(P)), N <= NMAX, chunk
-// <= QMAX (a longer one is the wrapper's sub-chunks).
+// <= QMAX (a longer one is the wrapper's sub-chunks). dtype: DT_F32 or
+// DT_BF16 in ssd.cu / ssd_any.cu, DT_F16 in ssd16.cu / ssd16_any.cu; any
+// other refused.
 extern "C" int ssd_launch(
     const void* x, long long xsb, long long xst, long long xsh,
     const float* dt, long long dsb, long long dst, long long dsh,
@@ -1441,11 +1629,22 @@ extern "C" int ssd_launch(
     int H, int G, int N, int P, int chunk, int dtype, int vec, void* stream) {
   const int pc = slice_width(P);
   if (N < 1 || N > (kGeneric ? NMAX : NMAX_FIRST) || chunk < 1 ||
-      chunk > QMAX || G < 1 || H % G || pc == 0)
+      chunk > QMAX || G < 1 || H % G || pc == 0 ||
+      (kHalf ? dtype != DT_F16 : dtype != DT_F32 && dtype != DT_BF16))
     return (int)cudaErrorInvalidValue;
   const int slices = (P + pc - 1) / pc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype != DT_BF16) {
+  if constexpr (kHalf) {
+    return launch_tc_call<__half>(x, xsb, xst, xsh, dt, dsb, dst, dsh, a_log,
+                                  d_skip, b, bsb, bst, bsg, c, csb, cst, csg,
+                                  init, y, fin, scratch, B, T, H, G, N, P, pc,
+                                  slices, chunk, vec, s);
+  } else {
+    if (dtype == DT_BF16)
+      return launch_tc_call<bf16>(x, xsb, xst, xsh, dt, dsb, dst, dsh, a_log,
+                                  d_skip, b, bsb, bst, bsg, c, csb, cst, csg,
+                                  init, y, fin, scratch, B, T, H, G, N, P, pc,
+                                  slices, chunk, vec, s);
     F32Args f{};
     f.x = static_cast<const float*>(x); f.xsb = xsb; f.xst = xst; f.xsh = xsh;
     f.dt = dt; f.dsb = dsb; f.dst = dst; f.dsh = dsh;
@@ -1471,30 +1670,6 @@ extern "C" int ssd_launch(
                                              scratch, s);
     }
   }
-  TcArgs t{};
-  t.x = static_cast<const bf16*>(x); t.xsb = xsb; t.xst = xst; t.xsh = xsh;
-  t.dt = dt; t.dsb = dsb; t.dst = dst; t.dsh = dsh;
-  t.a_log = a_log; t.d_skip = d_skip;
-  t.b = static_cast<const bf16*>(b); t.bsb = bsb; t.bst = bst; t.bsg = bsg;
-  t.c = static_cast<const bf16*>(c); t.csb = csb; t.cst = cst; t.csg = csg;
-  t.y = static_cast<bf16*>(y);
-  t.T = T; t.H = H; t.G = G; t.N = N;
-  t.vec = vec;
-  t.pf = P; t.svec = P % 4 == 0;
-  switch (pc) {
-    case 8:
-      return (int)launch_tc<8, kGeneric>(t, B, slices, chunk, init, fin,
-                                         scratch, s);
-    case 16:
-      return (int)launch_tc<16, kGeneric>(t, B, slices, chunk, init, fin,
-                                          scratch, s);
-    case 32:
-      return (int)launch_tc<32, kGeneric>(t, B, slices, chunk, init, fin,
-                                          scratch, s);
-    default:
-      return (int)launch_tc<64, kGeneric>(t, B, slices, chunk, init, fin,
-                                          scratch, s);
-  }
 }
 
 // The launches ssd_launch makes for these arguments (one per chunk of
@@ -1512,7 +1687,8 @@ extern "C" int ssd_plan(int B, int T, int H, int G, int N, int P, int chunk,
   if (N < 1 || N > (kGeneric ? NMAX : NMAX_FIRST) || chunk < 1 ||
       chunk > QMAX || G < 1 || H % G || T < 1 || pc == 0)
     return (int)cudaErrorInvalidValue;
-  const int dt = dtype == DT_BF16 ? DT_BF16 : DT_F32;
+  // bf16 and fp16 share the tensor-core kernel's geometry
+  const int dt = dtype == DT_BF16 || dtype == DT_F16 ? DT_BF16 : DT_F32;
   const int chunks = (T + chunk - 1) / chunk;
   const ChunkGeom first = chunk_geom(dt, T, H, G, N, chunk, 0,
                                      chunks > 1 || has_final);

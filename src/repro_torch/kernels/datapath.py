@@ -4,12 +4,14 @@ epilogue, with their plain versions.
 
 :func:`convert` is mechanism (d) of ``csrc/datapath.cu``: an operand
 whose dtype is not its main loop's (mixed input dtypes, a float input of
-an integer product, an fp16 SSD operand widened to fp32) converted by
-XLA's rules (``epilogue.convert``). :func:`epilogue_any` is mechanism
-(c): a main loop's wide sum (fp32 or int32) rounded or wrapped to the
-product's dtype, converted to the accumulator, the bias converted and
-added there, then ``epilogue.apply``. A CUDA tensor launches the kernel
-(or raises), a CPU tensor takes the plain version.
+an integer product, the operands of a mixed-dtype attention or SSD call
+and a 16-bit paged call above head dim 256 widened to fp32) converted by
+XLA's rules (``epilogue.convert``), one kernel per dtype pair on 16-byte
+vectors where the view's innermost axis is packed. :func:`epilogue_any`
+is mechanism (c): a main loop's wide sum (fp32 or int32) rounded or
+wrapped to the product's dtype, converted to the accumulator, the bias
+converted and added there, then ``epilogue.apply``. A CUDA tensor
+launches the kernel (or raises), a CPU tensor takes the plain version.
 
 Launch counts: ``convert.launches`` (the ``kernels`` report's
 ``convert``) and ``epilogue_any.launches`` (``epilogue[any]``).
@@ -26,7 +28,7 @@ from repro_torch.core.config import Activation
 from repro_torch.core.dtensor import require_local
 from repro_torch.kernels import _build
 from repro_torch.kernels import epilogue as epi
-from repro_torch.kernels.contracts import kernel_contract
+from repro_torch.kernels.contracts import convert_view, kernel_contract
 from repro_torch.kernels.ref import epilogue_any_ref
 
 # dtype codes of the C interface
@@ -46,13 +48,34 @@ def _check_dtype(name: str, *dtypes) -> None:
             raise TypeError(f"{name}: no datapath for {d}")
 
 
-def _dense_view(x: torch.Tensor):
-    """(x, sizes, strides) of a view of at most 4 dims, sizes padded with
-    leading 1s."""
-    if x.dim() > 4:
+def _view(x: torch.Tensor):
+    """(x, sizes, strides): ``x``'s view coalesced as the kernel takes it
+    (``contracts.convert_view``); a view that keeps more than 4 dims is
+    reshaped first (a copy where its strides ask for one)."""
+    v = convert_view(x.shape, x.stride())
+    if v is None:
         x = x.reshape(-1, *x.shape[-3:])
-    pad = 4 - x.dim()
-    return x, (1,) * pad + tuple(x.shape), (0,) * pad + tuple(x.stride())
+        v = convert_view(x.shape, x.stride())
+    return x, v[0], v[1]
+
+
+CONVERT_PLAN_KEYS = ("path", "blocks", "threads", "group", "units", "vec",
+                     "rows", "len", "segs", "shift", "wide")
+
+
+def convert_plan(x: torch.Tensor, dtype: torch.dtype) -> dict:
+    """The launch :func:`convert` makes for ``x`` on the card (the C
+    ``convert_plan``: its path, 0 packed, 1 rows, 2 general, and grid);
+    launches nothing."""
+    _check_dtype("convert", x.dtype, dtype)
+    _, sizes, strides = _view(x)
+    out = (ctypes.c_longlong * len(CONVERT_PLAN_KEYS))()
+    fn = _build.bind("datapath", "convert_plan",
+                     [_I, _I] + [_L] * 9 + [_P])
+    _build.check(fn(ANY[x.dtype], ANY[dtype], *sizes, *strides,
+                    x.data_ptr() % 16, ctypes.addressof(out)),
+                 "convert_plan")
+    return dict(zip(CONVERT_PLAN_KEYS, out))
 
 
 @kernel_contract("convert")
@@ -61,7 +84,9 @@ def convert(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     read through its strides, written contiguous, but a transposed
     row-major matrix (the tied unembedding's ``table.T``) stays a
     transposed view of its converted buffer, so a GEMM reads it as it read
-    ``x``. The same tensor where ``x`` is already ``dtype``."""
+    ``x``. The same tensor where ``x`` is already ``dtype``. The kernel's
+    path (packed, rows or general: ``contracts.convert_geometry``) follows
+    from the coalesced view and the source's alignment."""
     require_local("convert", x)
     if x.dtype == dtype:
         return x
@@ -77,7 +102,7 @@ def convert(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     out = torch.empty(x.shape, dtype=dtype, device=x.device)
     if x.numel() == 0:
         return out
-    v, sizes, strides = _dense_view(x)
+    v, sizes, strides = _view(x)
     fn = _build.bind("datapath", "convert_launch", _CONVERT_ARGS)
     err = fn(v.data_ptr(), ANY[x.dtype], out.data_ptr(), ANY[dtype], *sizes,
              *strides, torch.cuda.current_stream(x.device).cuda_stream)

@@ -15,26 +15,28 @@ the inter-chunk scan over the (N, P) state; the final state comes from the
 whole-sequence cumulative decay. ``initial_state`` resumes a previous
 segment (chunked prefill).
 
-On the card bf16 inputs run the tensor-core kernel and fp32 inputs the
-CUDA-core kernel, each one launch per chunk of the sequence (a serving
-call is one chunk); ``ssd.launches`` grows by one per call. fp16 inputs
-run the fp32 kernel: x, B and C widened exactly to fp32 by
-``datapath.convert`` (the JAX kernel upcasts every operand to fp32 in its
-body too), y written in fp32 and rounded to fp16 by the same kernel, so
-the decay-weighted scores and the carried state never meet fp16's range
-(a state past 65504 stays finite); ``F16_COUNT.launches`` counts its SSD
-launches, the conversions count in ``datapath.convert``. Mixed x / B / C
-dtypes take the same route (``MIXED_COUNT.launches``), y rounded to x's
-dtype.
+On the card bf16 and fp16 inputs run the tensor-core kernel and fp32
+inputs the CUDA-core kernel, each one launch per chunk of the sequence (a
+serving call is one chunk); ``ssd.launches`` grows by one per call. fp16
+inputs (``csrc/ssd16.cu``, ``csrc/ssd16_any.cu``) are read straight from
+the caller's views like bf16's: the scores run on the fp16 MMA, every
+other product splits its fp16 operand exactly into two bf16 terms (the
+JAX kernel upcasts x, B and C to fp32 in its body), so the decay-weighted
+scores, the carried state and its update keep fp32's range (a state past
+65504 stays finite); y is rounded to fp16 in the kernel's store, the
+states are fp32. ``F16_COUNT.launches`` counts its launches; such a call
+launches no ``datapath.convert``. Mixed x / B / C dtypes run the fp32
+kernel on operands widened by ``datapath.convert`` (exact), y written in
+fp32 and rounded to x's dtype the same way (``MIXED_COUNT.launches``).
 
 Every shape the JAX kernel takes runs on the card up to ``N_MAX``: a head
 dim P the kernels do not compile runs as column slices of at most 64 on
 the grid's z axis, and a chunk longer than ``SUB_CHUNK`` as consecutive
 sub-chunks of ``SUB_CHUNK`` rows, the state carried between them (the same
 function; only the grouping of the fp32 sums differs). A head dim of
-``P_DIMS`` with N <= ``N_FIRST`` launches ``csrc/ssd.cu``'s instances, the
-code they were first written as; every other shape ``csrc/ssd_any.cu``'s
-(:func:`kernel_lib`).
+``P_DIMS`` with N <= ``N_FIRST`` launches ``csrc/ssd.cu``'s instances
+(fp16: ``ssd16.cu``), the code they were first written as; every other
+shape ``csrc/ssd_any.cu``'s (``ssd16_any.cu``) (:func:`kernel_lib`).
 
 One deliberate difference from the JAX dispatch (``ops.ssd_impl``): there,
 a chunk that resumes from a carried state leaves the TPU kernel for the XLA
@@ -61,7 +63,7 @@ P_DIMS = (8, 16, 32, 64)        # slice widths the kernels are compiled for
 N_MAX = 256                     # largest state size a block holds
 N_FIRST = 128                   # ... ssd.cu's instances hold
 SUB_CHUNK = 256                 # longest chunk one launch's scan holds
-_DT = {torch.float32: 0, torch.bfloat16: 1}
+_DT = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -101,6 +103,17 @@ def ssd_plain(x, dt, a_log, b, c, *, d_skip=None, chunk: int = 256,
     return y, _final_state(x, dt, a_log, b, initial_state=initial_state)
 
 
+def split_f16(x: torch.Tensor):
+    """fp16 values as two bf16 terms (hi, lo) whose fp32 sum is the value
+    exactly: hi the nearest bf16 (ties to even), lo the remainder, itself a
+    bf16 (at most four of fp16's ulps, in fp32's exponent range). What the
+    fp16 SSD kernel does to each fp16 operand fragment before a bf16 MMA
+    (``csrc/ssd.cuh`` split_f16)."""
+    f = x.float()
+    hi = f.to(torch.bfloat16)
+    return hi, (f - hi.float()).to(torch.bfloat16)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrapper
 # ---------------------------------------------------------------------------
@@ -136,21 +149,20 @@ def ssd_plan(bsz: int, t: int, h: int, g: int, n: int, p: int, chunk: int,
     column slices (the grid's z). ``dtype``: the kernel's
     (:func:`kernel_dtype`)."""
     out = (ctypes.c_longlong * len(_PLAN_KEYS))()
-    fn = _build.bind(kernel_lib(p, n), "ssd_plan", [_I] * 9 + [_P])
+    fn = _build.bind(kernel_lib(p, n, dtype), "ssd_plan", [_I] * 9 + [_P])
     with torch.cuda.device(device if device is not None
                            else torch.cuda.current_device()):
-        # fp16 runs the fp32 kernel on widened operands
-        code = _DT[torch.float32 if dtype == torch.float16 else dtype]
-        _build.check(fn(bsz, t, h, g, n, p, launch_chunk(chunk, t), code,
+        _build.check(fn(bsz, t, h, g, n, p, launch_chunk(chunk, t), _DT[dtype],
                         int(bool(final_state)), ctypes.addressof(out)),
                      "ssd_plan")
     return dict(zip(_PLAN_KEYS, out))
 
 
-def kernel_lib(p: int, n: int) -> str:
+def kernel_lib(p: int, n: int, dtype: torch.dtype = torch.bfloat16) -> str:
     """``ssd`` for a compiled head dim and N <= ``N_FIRST``, else
-    ``ssd_any``."""
-    return "ssd" if p in P_DIMS and n <= N_FIRST else "ssd_any"
+    ``ssd_any``; ``ssd16`` / ``ssd16_any`` for the fp16 kernel."""
+    lib = "ssd" if p in P_DIMS and n <= N_FIRST else "ssd_any"
+    return lib.replace("ssd", "ssd16") if dtype == torch.float16 else lib
 
 
 def launch_chunk(chunk: int, t: int) -> int:
@@ -161,8 +173,8 @@ def launch_chunk(chunk: int, t: int) -> int:
 
 def kernel_dtype(x: torch.Tensor, b: torch.Tensor,
                  c: torch.Tensor) -> torch.dtype:
-    """The kernel a call runs: bf16 or fp32 where x, B and C share it,
-    else the fp32 kernel on widened operands (fp16, mixed dtypes)."""
+    """The kernel a call runs: bf16, fp16 or fp32 where x, B and C share
+    it, else the fp32 kernel on widened operands (mixed dtypes)."""
     if x.dtype == b.dtype == c.dtype and x.dtype in _DT:
         return x.dtype
     return torch.float32
@@ -174,7 +186,7 @@ def ssd(x, dt, a_log, b, c, *, d_skip=None, chunk: int = 256,
     """The chunked SSD on the card (CUDA tensors) or ``ssd_plain`` (CPU
     tensors); arguments and results as for :func:`ssd_plain`. x, b and c
     are fp32, bf16 or fp16, any mix, read by their strides where they share
-    bf16 or fp32, so the model's views into its fused projection are never
+    a dtype, so the model's views into its fused projection are never
     copied; y is written in x's dtype, the states in fp32."""
     require_local("ssd", x, dt, a_log, b, c, d_skip, initial_state)
     if x.device.type == "cpu":
@@ -206,7 +218,8 @@ def ssd(x, dt, a_log, b, c, *, d_skip=None, chunk: int = 256,
     dev = x.device
     out_dtype, run = x.dtype, kernel_dtype(x, b, c)
     mixed = not x.dtype == b.dtype == c.dtype
-    x, b, c = (dp.convert(v, run) for v in (x, b, c))
+    if mixed:
+        x, b, c = (dp.convert(v, run) for v in (x, b, c))
     x, b, c = _inner_contiguous(x), _inner_contiguous(b), _inner_contiguous(c)
     dt = _inner_contiguous(dt.to(torch.float32))
     a_log = a_log.to(torch.float32).contiguous()
@@ -229,7 +242,7 @@ def ssd(x, dt, a_log, b, c, *, d_skip=None, chunk: int = 256,
     # Between chunks the kernels carry the state in two buffers.
     scratch = torch.empty((2, bsz, h, n, p), dtype=torch.float32,
                           device=dev) if t > q else None
-    fn = _build.bind(kernel_lib(p, n), "ssd_launch",
+    fn = _build.bind(kernel_lib(p, n, run), "ssd_launch",
                      [_P, _L, _L, _L, _P, _L, _L, _L, _P, _P, _P, _L, _L, _L,
                       _P, _L, _L, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       _I, _I, _I, _P])
@@ -252,7 +265,8 @@ def ssd(x, dt, a_log, b, c, *, d_skip=None, chunk: int = 256,
         ssd.launches += 1
     if init is not None:
         ssd.resumed_launches += 1
-    y = dp.convert(y, out_dtype)
+    if mixed:
+        y = dp.convert(y, out_dtype)
     return (y, fin) if return_final_state else y
 
 

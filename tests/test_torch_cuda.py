@@ -2735,22 +2735,31 @@ def test_generic_conv_int32_and_bf16_accumulator_match_plain(card):
                          ids=lambda p: str(p).split(".")[-1])
 def test_generic_epilogue_and_convert_bit_for_bit(card, pair):
     """(c) accumulator_epilogue on other accumulators (GELU included) and
-    (d) the conversion, each bit for bit against the plain version."""
+    (d) the conversion on each of its paths (``datapath.convert_plan``):
+    packed, its misaligned head (one value past a 16-byte boundary), rows
+    (packed rows at a stride of 513 values) and general (a transposed
+    slice), each bit for bit against the plain version."""
     from repro_torch.kernels import datapath as tdp
 
     acc, out = pair
     g = torch.Generator(device=card).manual_seed(32)
-    x = (torch.randn((999, 513), generator=g, device=card) * 60)
-    x = x.to(acc) if acc.is_floating_point else x.round().to(acc)
+    buf = (torch.randn((999 * 513 + 1,), generator=g, device=card) * 60)
+    buf = buf.to(acc) if acc.is_floating_point else buf.round().to(acc)
+    x = buf[:999 * 513].view(999, 513)
     for act in (Activation.RELU, Activation.GELU):
         kw = dict(out_dtype=out, shift=2, activation=act)
         got = _counted("epilogue[any]",
                        lambda: tgemm.accumulator_epilogue(x, **kw))
         assert _bits_equal(got, tepi.apply(x, **kw)), act
-    got = _counted("convert", lambda: tdp.convert(x, out))
-    assert _bits_equal(got, tepi.convert(x, out))
-    t = x[:, :500].t()                          # a strided view, read as is
-    assert _bits_equal(tdp.convert(t, out), tepi.convert(t, out))
+    views = {"packed": (x, 0), "head": (buf[1:].view(999, 513), 0),
+             "rows": (x[:, 3:500], 1), "general": (x[:, :500].t(), 2)}
+    for path, (v, code) in views.items():
+        plan = tdp.convert_plan(v, out)
+        assert plan["path"] == code, (path, plan)
+        if code == 0:                       # one row: shifted loads or not
+            assert (plan["shift"] > 0) == (path == "head"), (path, plan)
+        got = _counted("convert", lambda v=v: tdp.convert(v, out))
+        assert _bits_equal(got, tepi.convert(v, out)), path
 
 
 def _close_f16(got, want):
@@ -2809,9 +2818,12 @@ def test_fp16_flash_stress_row_spanning_20_decades(card):
 
 
 def test_fp16_ssd_and_its_stress_state_past_fp16_range(card):
-    """fp16 x, B, C on the fp32 kernel (widened exactly): y within the fp16
-    rule of the plain version, and a chunk whose state passes 65504 stays
-    finite with its fp32 state within the fp64 recurrence's tolerance."""
+    """fp16 x, B, C on the tensor-core kernel as they are (no conversion
+    launched): y within the fp16 rule of the plain version, and a chunk
+    whose state passes 65504 stays finite with its fp32 state within the
+    fp64 recurrence's tolerance."""
+    from repro_torch.kernels import datapath as tdp
+
     g = torch.Generator(device=card).manual_seed(35)
     t, h, p, gg, n = 128, 8, 64, 1, 64
     x = (1000 + 1000 * torch.rand((1, t, h, p), generator=g, device=card)
@@ -2823,8 +2835,10 @@ def test_fp16_ssd_and_its_stress_state_past_fp16_range(card):
                                                   device=card))
     a_log = torch.log(torch.linspace(1e-3, 1e-2, h, device=card))
     d = torch.ones((h,), device=card)
+    converts = tdp.convert.launches
     y, st = _counted("ssd[fp16]", lambda: tm2.ssd(
         x, dt, a_log, b, c, d_skip=d, chunk=t, return_final_state=True))
+    assert tdp.convert.launches == converts
     wy = tm2.ssd_plain(x, dt, a_log, b, c, d_skip=d, chunk=t)
     _close_f16(y, wy)
     assert torch.isfinite(st).all() and st.abs().max().item() > 65504

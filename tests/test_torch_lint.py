@@ -549,3 +549,125 @@ def test_register_check_reads_ptxas_lines():
     skinny = kc.gemm_s8_contract(4, 1000, 1100, tile=1, splits=1)
     with pytest.raises(card.CardFailure, match="no ptxas entry"):
         card.check_registers({"gemm": log}, [skinny], **quiet)
+
+
+# ---------------------------------------------------------------------------
+# the fp16 SSD's contract and the conversion's paths
+# ---------------------------------------------------------------------------
+# ssd.cuh tc_smem_bytes<64>(N): the larger of an output block's (six fp32
+# rows of QMAX, the C tile (64, round16(N) + 8) bf16, then the larger of
+# two key stages (B tile and two x tiles of (64, 72)) and two (round16(N),
+# 68) fp32 states) and a state block's (dt, w, the (256, 72) B slice and
+# x, the row split's (4, 16, 64) fp32 partials); fp16 keeps bf16's bytes.
+_SSD_SMEM_P64 = {16: 92176, 128: 95232, 256: 179200}
+
+
+@pytest.mark.parametrize("n", [16, 128, 256])
+def test_fp16_ssd_contract_is_the_tensor_core_kernels(n):
+    """fp16 takes the tensor-core kernel's geometry and shared memory
+    (``ssd16.cu`` at N <= 128, ``ssd16_any.cu`` at 256), one launch a
+    chunk, 128 threads, no cluster; admitted by the lint."""
+    kw = dict(initial_state=True, final_state=True)
+    f16 = kc.ssd_contract(2, 256, 64, 1, n, 64, 256, dtype="float16", **kw)
+    b16 = kc.ssd_contract(2, 256, 64, 1, n, 64, 256, dtype="bfloat16", **kw)
+    f32 = kc.ssd_contract(2, 256, 64, 1, n, 64, 256, dtype="float32", **kw)
+    assert f16.plan == b16.plan and f16.plan != f32.plan
+    assert f16.smem == f16.plan_dict()["smem"] == _SSD_SMEM_P64[n]
+    assert (f16.kernel, f16.kernel_args, f16.cluster, f16.threads) == \
+        ("ssd_tc_kernel", (64,), 1, 128)
+    assert kc.dt(f16.mma[0].lhs) == kc.F16
+    assert checks.admits(f16) and checks.admits(b16)
+    assert kc.ssd_contract(1, 100, 4, 2, 300, 64, 64,
+                           dtype="float16").limits[0].ok is False
+
+
+def test_lint_probes_hold_the_fp16_ssd_and_every_conversion():
+    fams = {}
+    for pr in driver.probes(("ssd", "convert")):
+        key = (pr.family, pr.kw.get("src_dtype"), pr.kw["dtype"])
+        fams[key] = fams.get(key, 0) + 1
+        assert checks.admits(pr.contract()), pr.inst
+    assert fams[("ssd", None, "float16")] == len(driver.SSD_PROBES)
+    pairs = [k for k in fams if k[0] == "convert"]
+    assert len(pairs) == 30
+    assert all(fams[k] == len(driver.CONVERT_PROBES) for k in pairs)
+
+
+def _convert_views():
+    """CPU views that take each of the conversion's paths (the buffer's
+    first value 16-byte aligned)."""
+    base = torch.arange(4096, dtype=torch.float32)
+    assert base.data_ptr() % 16 == 0
+    return {"packed": base[:37 * 53].view(37, 53),
+            "head": base[1:1 + 37 * 53].view(37, 53),
+            "rows": base[:40 * 72].view(40, 72)[:, 3:67].view(40, 4, 16),
+            "general": base[:24 * 40].view(24, 40, 1).transpose(0, 1)}
+
+
+@pytest.mark.parametrize("path", ["packed", "head", "rows", "general"])
+def test_convert_plan_picks_its_path_and_the_plain_version_is_xla(path):
+    """``contracts.convert_geometry`` on the coalesced view
+    (``convert_view``) picks the path from sizes, strides and the source's
+    alignment; the contract is admitted, its loads shifted exactly where
+    the source starts off 16 bytes; and the plain conversion on those views
+    equals JAX's ``convert_element_type``, bit for bit, for every pair of
+    distinct dtypes (the rows view's rows start at 3, 75, ... values: each
+    row has its own shift on the card)."""
+    import jax
+    import jax.numpy as jnp
+    from repro_torch.kernels import datapath as tdp
+
+    names = ("int8", "int16", "int32", "bfloat16", "float16", "float32")
+    f = _convert_views()[path]
+    rng = np.random.default_rng(41)
+    for src in names:
+        vals = rng.standard_normal(4096) * 3e4
+        if src.startswith("int"):
+            info = np.iinfo(src)
+            vals = rng.integers(info.min, info.max, 4096, endpoint=True)
+        base = torch.from_numpy(np.asarray(vals)).to(getattr(torch, src))
+        x = base.as_strided(f.shape, f.stride(), f.storage_offset())
+        sizes, strides = kc.convert_view(x.shape, x.stride())
+        for dst in names:
+            if dst == src:
+                continue
+            g = kc.convert_geometry(sizes, strides, src, dst,
+                                    x.data_ptr() % 16)
+            assert kc.CV_PATHS[g["path"]] == {"head": "packed"}.get(path,
+                                                                   path)
+            if path in ("packed", "head"):
+                assert (g["shift"] > 0) == (path == "head")
+            c = kc.convert_contract(sizes, strides, src_dtype=src,
+                                    dtype=dst, src_offset=x.data_ptr() % 16)
+            assert checks.admits(c), (src, dst, path)
+            got = tdp.convert(x, getattr(torch, dst))
+            jx = jnp.asarray(x.float().numpy() if src == "bfloat16"
+                             else x.numpy())
+            if src == "bfloat16":
+                jx = jx.astype(jnp.bfloat16)
+            want = np.asarray(jax.lax.convert_element_type(jx, dst)
+                              .astype(jnp.float32 if dst == "bfloat16"
+                                      else dst))
+            have = got.float().numpy() if dst == "bfloat16" else \
+                got.numpy()
+            np.testing.assert_array_equal(have.view(np.uint8),
+                                          want.view(np.uint8),
+                                          err_msg=f"{src} -> {dst} {path}")
+
+
+def test_convert_view_coalesces_the_models_views():
+    """The SSD's x view from its fused projection is rows of H * P; a
+    contiguous tensor one packed row; a dim of one value dropped; more
+    than 4 dims left is None (the wrapper reshapes)."""
+    proj = torch.zeros(1, 256, 8512)
+    x = proj[..., 4096:8192].view(1, 256, 64, 64)
+    assert kc.convert_view(x.shape, x.stride()) == \
+        ((1, 1, 256, 4096), (0, 0, 8512, 1))
+    assert kc.convert_view((4, 5, 6), (30, 6, 1)) == \
+        ((1, 1, 1, 120), (0, 0, 0, 1))
+    assert kc.convert_view((3, 1, 7), (7, 99, 1)) == \
+        ((1, 1, 1, 21), (0, 0, 0, 1))
+    t = torch.zeros(2, 3, 4, 5, 6).permute(4, 3, 2, 1, 0)
+    assert kc.convert_view(t.shape, t.stride()) is None
+    assert kc.convert_geometry((1, 1, 1, 8), (0, 0, 0, 1), "float16",
+                               "float16") is None

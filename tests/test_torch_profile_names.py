@@ -49,6 +49,16 @@ NAMES = [
     ("void sgemm::sgemm_kernel<float, 8, 16, 16, 1, false, true, float, "
      "sgemm::MatrixA<float>>(sgemm::Args<float>, sgemm::MatrixA<float>)",
      "gemm[fp32]"),
+    # the conversion, one kernel per dtype pair and path
+    (f"void {_ANON}convert_kernel<1, 3, true>({_ANON}CvArgs, int)",
+     "convert"),
+    (f"void {_ANON}convert_kernel<5, 0, false>({_ANON}CvArgs, int)",
+     "convert"),
+    # the fp16 SSD: the tensor-core kernel for __half (ssd16.cu)
+    (f"void {_ANON}ssd_tc_kernel<64, false, __half>"
+     f"({_ANON}TcArgs<__half>)", "ssd[fp16]"),
+    (f"void {_ANON}ssd_tc_kernel<64, true, __nv_bfloat16>"
+     f"({_ANON}TcArgs<__nv_bfloat16>)", "ssd"),
     # the backward products' persistent kernel
     ("void hgemm_bwd::bwd_kernel<__nv_bfloat16, true, false, 192>"
      "(hgemm_bwd::Args, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st)",

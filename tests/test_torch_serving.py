@@ -295,7 +295,8 @@ def test_nvcc_command_targets_sm90a_into_ignored_build_dir():
                                      "gemm_bwd16.cu", "attention.cu",
                                      "attention_any.cu",
                                      "attention_decode_any.cu", "conv.cu",
-                                     "ssd.cu", "ssd_any.cu", "datapath.cu"}
+                                     "ssd.cu", "ssd_any.cu", "ssd16.cu",
+                                     "ssd16_any.cu", "datapath.cu"}
     cmd = _build.nvcc_command(src[0], _build.build_dir() / "lib.so")
     assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
     rel = _build.build_dir().relative_to(REPO)

@@ -1,17 +1,19 @@
 """Where the SSD kernels' time goes, phase by phase, on a card.
 
-Builds a copy of ``csrc/ssd.cuh`` (``ssd.cu``'s instances) with
-``globaltimer`` stamps (thread 0 of every block, at the phase boundaries
-marked below), swaps it in for the
-``ssd`` library, runs the serving call (one 256-token chunk with a carried
-state; bf16) at mamba2-1.3b's and hymba-1.5b's widths, or with ``--fp32``
-the fp32 kernel there on phases 7-8's fp32 call (256 tokens fresh) and
-the resumed chunk, and prints, per kind of block, the microseconds from
+Builds a copy of ``csrc/ssd.cuh`` (``ssd.cu``'s instances; with
+``--fp16`` ``ssd16.cu``'s) with ``globaltimer`` stamps (thread 0 of every
+block, at the phase boundaries marked below), swaps it in for the
+``ssd`` (``ssd16``) library, runs the serving call (one 256-token chunk
+with a carried state; bf16, or fp16 with ``--fp16``) at mamba2-1.3b's and
+hymba-1.5b's widths, or with ``--fp32`` the fp32 kernel there on phases
+7-8's fp32 call (256 tokens fresh) and the resumed chunk, and prints, per
+kind of block, the microseconds from
 the launch's first stamp at which each phase ended (min, median, max over
 the blocks), beside the copy's event time with its stamps off
 (``chip_smoke.Timer``: CUDA events, L2 flushed, median of 25):
 
   python3 tools/ssd_phases.py
+  python3 tools/ssd_phases.py --fp16
   python3 tools/ssd_phases.py --fp32
 
 Output blocks by row tile: ``loads`` (C, the carried states, dt, seg and
@@ -78,10 +80,11 @@ def stamp(slot: str) -> str:
             f"({slot})] = t_; }}\n")
 
 
-def build(out: Path) -> Path:
+def build(out: Path, half: bool = False) -> Path:
     from repro_torch.kernels import _build
 
     src = "#define SSD_GENERIC false\n" + (
+        "#define SSD_HALF true\n" if half else "") + (
         ROOT / "src/repro_torch/kernels/csrc/ssd.cuh").read_text().replace(
             "#pragma once\n", "")
     src = src.replace("constexpr int TC_THREADS = 128;",
@@ -117,7 +120,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--fp32", action="store_true",
                     help="the fp32 kernel (phases 7-8's fp32 call)")
+    ap.add_argument("--fp16", action="store_true",
+                    help="the fp16 tensor-core kernel (ssd16.cu)")
     args = ap.parse_args()
+    if args.fp32 and args.fp16:
+        ap.error("--fp32 and --fp16 name two kernels: pick one")
     import torch
     if not torch.cuda.is_available():
         print("ssd_phases: needs a CUDA card", file=sys.stderr)
@@ -129,16 +136,19 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import mamba2 as km
 
-    lib = ctypes.CDLL(str(build(ROOT / "build" / "ssd_phases")))
+    name = "ssd16" if args.fp16 else "ssd"
+    lib = ctypes.CDLL(str(build(ROOT / "build" / f"{name}_phases",
+                                half=args.fp16)))
     lib.ssd_set_stamps.argtypes = [ctypes.c_void_p]
-    _build._LIBS["ssd"] = lib
-    _build._FNS.pop(("ssd", "ssd_launch"), None)
+    _build._LIBS[name] = lib
+    _build._FNS.pop((name, "ssd_launch"), None)
     gen = torch.Generator(device="cuda").manual_seed(0)
     timer = cs.Timer(torch)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
-    dtype = torch.float32 if args.fp32 else torch.bfloat16
+    dtype = torch.float32 if args.fp32 else \
+        torch.float16 if args.fp16 else torch.bfloat16
     rt = 32 if args.fp32 else 64            # rows per output block
     calls = [(256, False), (256, True)] if args.fp32 else [(256, True)]
     for arch in ("mamba2-1.3b", "hymba-1.5b"):

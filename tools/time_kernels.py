@@ -18,9 +18,13 @@ chunk, fp32 paged prefill at the gate's last chunks and at hymba-1.5b's
 window 1024; the dense flash kernel on the same keys gathered beforehand
 beside each), paged decode at gemma3-1b's serving shape (global and with
 the 512-key window), and the chunked SSD at mamba2-1.3b's and
-hymba-1.5b's widths (bf16: the serving call, 256 tokens resumed, and 1000
-tokens fresh; fp32: 256 tokens fresh and resumed, 1000 fresh, held against
-the fp64 recurrence), and the engine (``--only engine``: the
+hymba-1.5b's widths (bf16 and fp16: the serving call, 256 tokens resumed,
+and 1000 tokens fresh; fp32: 256 tokens fresh and resumed, 1000 fresh,
+held against the fp64 recurrence), the operand conversion (``--only
+convert``: int16 -> bf16 on each of its paths, packed (1000, 2048), the
+same one value into its buffer, rows (mamba2-1.3b's SSD x view, fp16 ->
+fp32) and general (a transposed view), ``chip_smoke.convert_views``,
+``Tensor.to`` beside each), and the engine (``--only engine``: the
 int8 quickstart GEMM and ResNet-50's distinct layers as GEMMs on both
 dataflows beside ``torch._int_mm``, the int8 conv kernel at the stream's
 distinct convs, phase 3's rows of the float and 16-bit datapaths
@@ -43,7 +47,8 @@ run:
   python3 tools/time_kernels.py --src OTHER_CHECKOUT/src --tag parent
   python3 tools/time_kernels.py --tag change
   python3 tools/time_kernels.py --only ssd    # one group: gemm, attention,
-                                              # ssd, engine, epilogue, conv
+                                              # ssd, convert, engine,
+                                              # epilogue, conv
 
 Each output is held against its plain version (``chip_smoke.check_close``;
 a miss is reported in the row's ``check``, not fatal) and timed with ``chip_smoke.Timer`` (CUDA events, L2 flushed, median of
@@ -322,7 +327,7 @@ def attention_cases(torch):
 
 
 def ssd_cases(torch, cs):
-    """The bf16 chunked SSD (y held against the plain version)."""
+    """The bf16 and fp16 chunked SSD (y held against the plain version)."""
     from repro_torch import configs
     from repro_torch.kernels import mamba2 as km
 
@@ -332,8 +337,11 @@ def ssd_cases(torch, cs):
         cfg = configs.get(arch)
         h, p, g, n = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups, \
             cfg.d_state
-        for t, resume in ((256, True), (1000, False)):
-            def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        for (t, resume), kind in [(tr, k) for k in ("bf16", "fp16")
+                                  for tr in ((256, True), (1000, False))]:
+            io = torch.bfloat16 if kind == "bf16" else torch.float16
+
+            def randn(*shape, scale=1.0, dtype=io):
                 return (torch.randn(shape, generator=gen, device="cuda")
                         * scale).to(dtype)
             x = randn(1, t, h, p)
@@ -348,8 +356,9 @@ def ssd_cases(torch, cs):
                       if resume else None)
             nbytes = (2 * 2 * t * h * p + 2 * 2 * t * g * n + 4 * t * h +
                       8 * h + 4 * h * n * p * (2 if resume else 1))
-            out.append(("ssd", f"{arch} T={t} "
-                        f"{'resumed' if resume else 'fresh'}", "bf16",
+            out.append(("ssd" if kind == "bf16" else "ssd[fp16]",
+                        f"{kind} {arch} T={t} "
+                        f"{'resumed' if resume else 'fresh'}", kind,
                         lambda x=x, b=b, c=c, dt=dt, a=a_log, kw=kw:
                             km.ssd(x, dt, a, b, c, **kw)[0],
                         lambda x=x, b=b, c=c, dt=dt, a=a_log, kw=kw:
@@ -399,6 +408,41 @@ def ssd32_cases(torch, cs, gen):
                         init=init, label=label, chunk=chunk:
                             cs.ssd32_check(torch, f"ssd {label}", got, x, dt,
                                            a, b, c, d, init, chunk)))
+    return out
+
+
+def convert_cases(torch, cs):
+    """The operand conversion on each of its paths
+    (``chip_smoke.convert_views``): int16 -> bf16 packed (1000, 2048), the
+    same view one value into its buffer (the source off 16 bytes), general
+    (the (1000, 8, 256) transpose), and the rows path on mamba2-1.3b's SSD
+    x view, fp16 -> fp32; ``Tensor.to`` on the same view beside each, bit
+    for bit against the plain version."""
+    from repro_torch.kernels import datapath as kd
+    from repro_torch.kernels import epilogue as epi
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    i16, f16 = torch.int16, torch.float16
+    buf = torch.randint(-2 ** 15, 2 ** 15, (2 * 1000 * 2048,), generator=gen,
+                        device="cuda", dtype=i16)
+    hbuf = (torch.randn((256 * 8512,), generator=gen, device="cuda") * 4
+            ).to(f16)
+    out = []
+    for path, view in cs.convert_views(torch, buf, i16):
+        src, dst = (view, torch.bfloat16) if path != "rows" else \
+            (cs.convert_views(torch, hbuf, f16)[2][1], torch.float32)
+        n = src.numel()
+        es = src.element_size() + torch.empty((), dtype=dst).element_size()
+        label = f"{str(src.dtype)[6:]} {tuple(src.shape)} -> " \
+            f"{str(dst)[6:]} {path}"
+        out.append(("convert", label, "bf16" if dst == torch.bfloat16
+                    else "fp32",
+                    lambda src=src, dst=dst: kd.convert(src, dst),
+                    lambda src=src, dst=dst: epi.convert(src, dst),
+                    lambda src=src, dst=dst: src.to(dst), (es * n, 0.0),
+                    lambda got, src=src, dst=dst, label=label:
+                        cs.bits_equal(torch, f"convert {label}")(
+                            got, epi.convert(src, dst))))
     return out
 
 
@@ -636,8 +680,8 @@ def main() -> int:
     ap.add_argument("--src", default=os.path.join(ROOT, "src"),
                     help="directory holding the repro_torch package to time")
     ap.add_argument("--tag", default="", help="names the run in the output")
-    ap.add_argument("--only", choices=("gemm", "attention", "ssd", "engine",
-                                       "epilogue", "conv"),
+    ap.add_argument("--only", choices=("gemm", "attention", "ssd", "convert",
+                                       "engine", "epilogue", "conv"),
                     help="time one group of kernels")
     args = ap.parse_args()
     import torch
@@ -662,6 +706,8 @@ def main() -> int:
         cases += attention_cases(torch)
     if args.only in (None, "ssd"):
         cases += ssd_cases(torch, cs)
+    if args.only in (None, "convert"):
+        cases += convert_cases(torch, cs)
     if args.only in (None, "engine"):
         cases += engine_cases(torch, cs)
     if args.only in (None, "epilogue"):
@@ -686,7 +732,8 @@ def main() -> int:
         row = {"kernel": kernel, "shape": label, "max_abs_err": err,
                "check": check, "ms": timer(run_k),
                "enqueue_us": enqueue_us(torch, run_k)}
-        if kernel in ("gemm[int8]", "gemm_ws", "accumulator_epilogue") or \
+        if kernel in ("gemm[int8]", "gemm_ws", "accumulator_epilogue",
+                      "convert") or \
                 kernel.startswith(("conv2d_implicit", "gemm[")):
             row["plain_ms"] = timer(run_p)
         if run_lib is not None:
