@@ -2140,7 +2140,8 @@ _KERNEL_NAMES = (("ssd_kernel", "ssd"), ("ssd_tc_kernel", "ssd"),
                  ("hgemm_bwd::bwd_kernel", "gemm"),
                  ("igemm::kernel<short", "gemm"),
                  ("MatrixA", "gemm[int8]"),
-                 ("flash_f32_kernel", "flash_attention"))
+                 ("flash_f32_kernel", "flash_attention"),
+                 ("flash_wg_kernel", "flash_attention"))
 
 # Each launch counter of ``repro_torch.kernels.launch_counts`` by the
 # kernel class its launches show up as; "gemm_ws" counts a GEMM in WS
@@ -2162,7 +2163,10 @@ _COUNTER_CLASS = {"gemm": "gemm", "gemm[fp32]": "gemm", "gemm[fp16]": "gemm",
                   "ssd": "ssd", "flash_attention": "flash_attention",
                   "paged_prefill_attention": "paged_prefill_attention",
                   "paged_decode_attention": "paged_decode_attention",
-                  "decode_attention": "decode_attention"}
+                  "decode_attention": "decode_attention",
+                  # one kernel for both (the launch's table says which)
+                  "flash_attention[any]": "flash_attention",
+                  "paged_prefill_attention[any]": "flash_attention"}
 PROFILE_RETAKES = 4     # windows taken again before a short one is fatal
 # Idle time at each edge of a profiler window, in seconds. The profiler
 # keeps a device activity only where its converted timestamps fall inside
@@ -5288,6 +5292,7 @@ def run_fp16_phase(torch, np, smi):
 # mixed float dtypes, the SSD's head dim, state and chunk
 # ---------------------------------------------------------------------------
 SHAPE_DIMS = (48, 80, 96, 200)
+SHAPE_SLICED = (320, 640)       # flash and paged prefill in column slices
 SHAPES_WALL_S = 60.0
 SHAPE_ATTN = ("flash_attention", "paged_prefill_attention",
               "paged_decode_attention", "decode_attention")
@@ -5328,9 +5333,13 @@ def shape_cases(torch):
     attention launchers at head dims 48, 80, 96 and 200 in bf16, fp16 and
     fp32 (flash and paged prefill on a 256-token causal chunk with 32 / 8
     heads, once more with a window and a softcap; paged and dense decode on
-    phase 4's four slots); a flash and a paged decode call at head dim 320
-    (the fp32 instance at 512; bf16 widened); one view 2 elements past a
-    16-byte boundary per launcher; both mixed orders per launcher (q bf16
+    phase 4's four slots); flash and paged prefill at head dims 320 and
+    640 in each dtype (column slices: 16-bit on the generic kernel, fp32 of
+    the 128 instance, as at 200) and a paged decode at 320 (the fp32
+    instance at 512,
+    bf16 widened); one view 2 elements past a 16-byte boundary per
+    launcher, and 1 past for flash and paged prefill (the generic kernel's
+    element copies); both mixed orders per launcher (q bf16
     with k / v fp32, q fp32 with k / v fp16); the SSD at mamba2-1.3b's
     d_inner as 32 heads of P = 128 at N = 256, one 512-token chunk resumed
     (two column slices, two sub-chunks), and at P = 96, in bf16, fp32 and
@@ -5358,13 +5367,18 @@ def shape_cases(torch):
              ).to(dtype)
         return offset_view(torch, t, off)
 
-    def route(qd, kd, d):
+    def route(qd, kd, d, family="decode", off=0):
         """(kernel name suffix, bound kind, label) of a call: the bound
         takes the inputs' own peak, fp32's where an operand is fp32 (a
-        16-bit call widened at D > 256 could run at its 16-bit rate)."""
+        16-bit decode widened at D > 256 could run at its 16-bit rate).
+        16-bit flash and paged prefill off the compiled instances run the
+        generic kernel, ``[any]``."""
         mixed = qd != kd
-        widened = mixed or (qd != f32 and d > 256)
-        name = "[mixed]" if mixed else "[fp16]" if qd == f16 else ""
+        widened = mixed or (qd != f32 and d > 256 and family == "decode")
+        generic = family != "decode" and qd != f32 and not mixed and \
+            (d not in ka.HEAD_DIMS or off)
+        name = "[mixed]" if mixed else "[any]" if generic else \
+            "[fp16]" if qd == f16 else ""
         label = f"{KIND[qd]}" + (f"/{KIND[kd]}" if mixed else "") + \
             (" widened" if widened else "")
         return name, "fp32" if f32 in (qd, kd) else KIND[qd], label
@@ -5380,7 +5394,7 @@ def shape_cases(torch):
         pairs = sum(min(i + 1, window or 1 << 30) for i in range(t))
         nbytes = (2 * q.numel() * q.element_size() +
                   2 * k.numel() * k.element_size())
-        suffix, bkind, label = route(qd, kd, d)
+        suffix, bkind, label = route(qd, kd, d, "flash", off)
         lib = None      # SDPA faults on a view off 16 bytes: none there
         if softcap is None and window is None and qd == kd and not off:
             def lib():
@@ -5410,7 +5424,7 @@ def shape_cases(torch):
                                                     window - 1 + t)
         nbytes = (2 * q.numel() * q.element_size() +
                   2 * live * kvh * d * kp.element_size() + 4 * kv_pages)
-        suffix, bkind, label = route(qd, kd, d)
+        suffix, bkind, label = route(qd, kd, d, "prefill", off)
         full = f"paged_prefill_attention{suffix}"
         label = (f"{label} T={t} start={start} H={h} KVH={kvh} D={d} "
                  f"window={window} softcap={softcap}" +
@@ -5471,19 +5485,26 @@ def shape_cases(torch):
 
     for d in SHAPE_DIMS:
         for dt in (bf16, f16, f32):
-            flash(d, dt, dt)
-            prefill(d, dt, dt)
+            rep = d == 200 and dt == bf16       # the generic kernel's rows
+            flash(d, dt, dt, rep=rep)
+            prefill(d, dt, dt, rep=rep)
             paged_decode(d, dt, dt)
             dense_decode(d, dt, dt)
         flash(d, bf16, bf16, window=128, softcap=30.0)
         prefill(d, bf16, bf16, window=128, softcap=30.0)
+    for d in SHAPE_SLICED:
+        for dt in (bf16, f16, f32):
+            flash(d, dt, dt)
+            prefill(d, dt, dt)
     for dt in (bf16, f32):
-        flash(320, dt, dt)
         paged_decode(320, dt, dt)
     # a view 2 elements in per launcher (head dim 128: the alignment alone
-    # decides the route)
-    flash(128, bf16, bf16, off=2)
-    prefill(128, bf16, bf16, off=2)
+    # decides the route; 16-bit flash and paged prefill: the generic
+    # kernel's 4-byte copies), 1 in for flash and paged prefill (its
+    # element copies)
+    for off in (1, 2):
+        flash(128, bf16, bf16, off=off)
+        prefill(128, bf16, bf16, off=off)
     paged_decode(128, bf16, bf16, off=2)
     dense_decode(128, bf16, bf16, off=2)
     for qd, kd in ((bf16, f32), (f32, f16)):
@@ -5572,7 +5593,8 @@ def run_shapes_phase(torch, np):
         case[4]()
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    want = [n for n in SHAPE_ATTN] + [f"{n}[fp16]" for n in SHAPE_ATTN] + \
+    want = [n for n in SHAPE_ATTN] + \
+        [f"{n}[fp16]" for n in SHAPE_ATTN[2:]] + list(kernels.ANY_KERNELS) + \
         list(kernels.MIXED_KERNELS) + ["ssd", "ssd[fp16]"]
     for name in want:
         if counts[name] <= 0:
@@ -5652,8 +5674,9 @@ def main() -> int:
     # kernel and source (each entry's lines in chip_smoke.json)
     for src, names in (("attention", ("flash_tc_kernel", "flash_f32_kernel",
                                       "decode_split_kernel")),
-                       ("attention_any", ("flash_tc_kernel",
-                                          "flash_f32_kernel")),
+                       ("attention_any", ("flash_f32_kernel",)),
+                       ("attention_wg", ("flash_wg_kernel",)),
+                       ("attention_wg16", ("flash_wg_kernel",)),
                        ("attention_decode_any", ("decode_split_kernel",)),
                        ("ssd_any", ("ssd_tc_kernel", "ssd_kernel")),
                        ("ssd16", ("ssd_tc_kernel",)),
@@ -5838,7 +5861,8 @@ def main() -> int:
     # zeroed inside), the engine at new head dims, chaos_smoke on the card
     shape_counts, shape_rows, shape_rep, shape_summary = run_shapes_phase(
         torch, np)
-    rep_rows.update({k_: shape_rep[k_] for k_ in kernels.MIXED_KERNELS})
+    rep_rows.update({k_: shape_rep[k_] for k_ in kernels.MIXED_KERNELS +
+                     kernels.ANY_KERNELS})
 
     # the kernels line
     meta = {
@@ -5881,12 +5905,15 @@ def main() -> int:
                           "src/repro/kernels/gemm.py:217"),
         **{f"{n}[mixed]": ("csrc/attention.cuh", SHAPE_REPLACES[n])
            for n in SHAPE_ATTN},
+        **{f"{n}[any]": ("csrc/attention_wg.cuh", SHAPE_REPLACES[n])
+           for n in SHAPE_ATTN[:2]},
         "ssd[mixed]": ("csrc/ssd.cuh", SHAPE_REPLACES["ssd"]),
     }
     line = []
     for name, (src, replaces) in meta.items():
         r = rep_rows[name]
-        launches = (shape_counts if name in kernels.MIXED_KERNELS else
+        launches = (shape_counts if name in kernels.MIXED_KERNELS +
+                    kernels.ANY_KERNELS else
                     f16_counts if name in f16_counts else
                     datapath_counts if name in DATAPATH_KERNELS else
                     engine_counts if name in kernels.ENGINE_KERNELS else

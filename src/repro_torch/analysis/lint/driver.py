@@ -13,13 +13,15 @@ path gives it and at shapes chosen to stress it:
   ragged 1x15x15x24 -> 40 3x3 at stride 2;
 * flash: 1 x 256 x 256, H 4 / KVH 1, D 256, causal; 2 x 100 x 300, H 8
   / KVH 2, D 64, window 128; 1 x 256 x 256, H 32 / KVH 8 at D 80 (the
-  next instance's zero-filled columns) and 1 x 64 x 64 at D 20 (rows of
-  no whole 16-byte words: the element-by-element loads), each dtype;
-  fp32 at D 320 (the 512 instance);
+  generic kernels: 16-bit wgmma at width 80, fp32 the 128 instance's
+  zero-filled columns), 1 x 64 x 64 at D 20 (rows of no whole 16-byte
+  words: the element-by-element loads) and 1 x 128 x 192, H 16 / KVH 4
+  at D 640, window 96 (column slices), each dtype; fp32 at D 320;
 * paged decode: 4 slots at 2048 context, every page size and keys per
   split of the space, and the kernel's own split at D 80 (and fp32 at
   D 320); paged prefill: a 256-token chunk at 768 and 100 tokens at 37,
-  the chunk at D 80 with 32 / 8 heads (and fp32 at D 320); dense decode
+  the chunk at D 80 with 32 / 8 heads, 128 tokens at 200 at D 640
+  (column slices), and fp32 at D 320; dense decode
   at gemma3-1b's and gemma3-4b's heads and at D 80 (fp32 D 320);
 * SSD: mamba2-1.3b's P 64, N 128, 64 heads: T = 256 resumed and 1000
   fresh; its d_inner as 32 heads of P 128 at N 256, a 512-token chunk
@@ -65,14 +67,15 @@ CONV_PROBES = {"stage1-3x3": (1, 56, 56, 64, 64, 3, 3, 1, 1),
 FLASH_PROBES = ((1, 256, 256, 4, 1, 256, True, 0),
                 (2, 100, 300, 8, 2, 64, True, 128),
                 (1, 256, 256, 32, 8, 80, True, 0),
-                (1, 64, 64, 4, 2, 20, True, 0))
+                (1, 64, 64, 4, 2, 20, True, 0),
+                (1, 128, 192, 16, 4, 640, True, 96))
 FLASH_F32_PROBES = ((1, 100, 100, 8, 2, 320, True, 0),)
 PAGED_SLOTS, PAGED_CONTEXT, PAGED_HEADS = 4, 2048, (8, 2, 128)
 # head dims of the paged decode's own plan at page 64 (fp32 only: 320)
 PAGED_DIMS, PAGED_F32_DIMS = (80,), (320,)
 # (tq, start, h, kvh, d, window)
 PREFILL_PROBES = ((256, 768, 8, 2, 128, 0), (100, 37, 8, 2, 64, 32),
-                  (256, 768, 32, 8, 80, 0))
+                  (256, 768, 32, 8, 80, 0), (128, 200, 16, 4, 640, 0))
 PREFILL_F32_PROBES = ((100, 37, 8, 2, 320, 32),)
 # (b, s, h, kvh, d, pos, window): gemma3-1b's heads and gemma3-4b's
 DECODE_PROBES = ((4, 2048, 4, 1, 256, 1000, 512),

@@ -21,6 +21,10 @@ FP16_KERNELS = ("flash_attention[fp16]", "paged_prefill_attention[fp16]",
 MIXED_KERNELS = ("flash_attention[mixed]", "paged_prefill_attention[mixed]",
                  "paged_decode_attention[mixed]", "decode_attention[mixed]",
                  "ssd[mixed]")
+# The generic 16-bit flash and paged prefill kernel (attention_wg.cuh): a
+# head dim that is not compiled, above 256, or rows off 16 bytes, bf16 and
+# fp16.
+ANY_KERNELS = ("flash_attention[any]", "paged_prefill_attention[any]")
 # The generic datapath (every other combination of the dtype table): the
 # int32 main loop of the GEMM and the conv, the conversion and the generic
 # epilogue.
@@ -43,8 +47,8 @@ def launch_counters():
     MoE router's on every config), the GEMM's backward products on any
     float datapath (the training path's), the recurrent families' chunked
     SSD and the static reference path's dense decode attention, their fp16
-    instantiations and their launches on mixed dtypes, and the generic
-    datapath's kernels."""
+    instantiations and their launches on mixed dtypes, the generic 16-bit
+    flash and paged prefill kernel, and the generic datapath's kernels."""
     import torch
 
     from repro_torch.kernels import attention, conv, datapath, gemm, mamba2
@@ -72,6 +76,8 @@ def launch_counters():
             **{f"{name}[mixed]": count
                for name, count in attention.MIXED_COUNTS.items()},
             "ssd[mixed]": mamba2.MIXED_COUNT,
+            **{f"{name}[any]": count
+               for name, count in attention.ANY_COUNTS.items()},
             "gemm[int32]": gemm.OS_COUNTS[torch.int32],
             "conv2d_implicit[int32]": conv.COUNTS[torch.int32],
             "convert": datapath.convert,

@@ -6,30 +6,36 @@ Replaces, in ``repro.kernels.attention``: ``flash_attention``,
 CUDA tensors (or raises) and runs its plain version for CPU tensors;
 ``<wrapper>.launches`` counts kernel launches on bf16 and fp32 inputs,
 ``F16_COUNTS[<wrapper name>].launches`` on fp16 ones and
-``MIXED_COUNTS[<wrapper name>].launches`` on mixed ones. fp16 runs the
-bf16 kernels' instantiations for ``__half`` (the tensor cores' .f16 MMA
-for flash and paged prefill; the CUDA-core decode kernels), the output in
-q's dtype as the JAX kernels write it.
+``MIXED_COUNTS[<wrapper name>].launches`` on mixed ones and
+``ANY_COUNTS[<wrapper name>].launches`` (flash and paged prefill) on the
+generic 16-bit kernel's. fp16 runs the bf16 kernels' instantiations for
+``__half`` (the tensor cores' .f16 MMA for flash and paged prefill; the
+CUDA-core decode kernels), the output in q's dtype as the JAX kernels
+write it.
 
-Every call the JAX launchers take runs on the card up to a head dim of
-``HEAD_DIM_MAX``: a head dim d that is not compiled (``HEAD_DIMS``, and
-512 for fp32) runs the next compiled instance, its loaders zero-filling
-the columns past d; operands whose rows are not whole, 16-byte aligned
-words (d not a multiple of 8 at 16 bits, of 4 at fp32, or a base off a
-16-byte boundary) take the kernels' element-by-element loads. Mixed q /
-k / v dtypes, and a 16-bit head dim above 256 (no 16-bit instance holds a
-row of 512 in its registers), widen every operand to fp32 with
-``datapath.convert`` (exact), run the fp32 kernel and round the output to
-q's dtype, as the JAX kernels compute on operands upcast to fp32. The
-calls the kernels were first written for -- a compiled head dim, one
-dtype, whole aligned rows -- launch ``csrc/attention.cu``'s instances,
-every other call ``csrc/attention_any.cu``'s (flash, paged prefill) or
-``csrc/attention_decode_any.cu``'s (the two decodes; :func:`kernel_lib`),
-so the first keep their code.
+The calls the kernels were first written for -- a compiled head dim
+(``HEAD_DIMS``), one dtype, whole aligned rows -- launch
+``csrc/attention.cu``'s instances, so they keep their code; every other
+call a generic library (:func:`kernel_lib`). Flash and paged prefill run
+any head dim up to ``FLASH_HEAD_DIM_MAX`` of their dtype: bf16 and fp16
+on ``csrc/attention_wg.cuh``'s Hopper kernel (``attention_wg.cu``,
+``attention_wg16.cu``: wgmma at the head dim's own padded width, column
+slices of V and O above 256, TMA, ``cp.async`` or element copies by the
+rows' alignment), fp32 on ``attention_any.cu``'s CUDA-core kernel (the
+next compiled instance up to 128, above it column slices of the 128
+instance). The two decodes (``attention_decode_any.cu``) run a head dim d
+between the compiled ones on the next compiled instance, up to
+``HEAD_DIM_MAX`` (512, fp32's widest; a 16-bit decode above 256 widens to
+fp32). Operands whose rows are not whole, 16-byte aligned words take the
+kernels' narrower copies. Mixed q / k / v dtypes widen every operand to
+fp32 with ``datapath.convert`` (exact), run the fp32 kernel and round the
+output to q's dtype, as the JAX kernels compute on operands upcast to
+fp32.
 
 The two wrappers the tuner has a space for take an optional plan, its
 schedule: flash ``{"cluster": blocks per cluster (1, 2, 4), "stages": 1
-or 2}`` (:func:`flash_plan` gives a call's own), paged decode
+or 2}`` (K / V stages a warp; the generic 16-bit kernel's V tiles in
+flight; :func:`flash_plan` gives a call's own), paged decode
 ``{"split_keys": keys per split}`` (a multiple of 16 up to 4096; the
 kernel's own is 64). A plan the kernel cannot run raises. Under
 ``GEMMINI_TUNE=cached`` / ``full`` a flash call with none resolves one
@@ -64,13 +70,21 @@ import torch
 from repro_torch.core import flags
 from repro_torch.core.dtensor import require_local
 from repro_torch.kernels import _build
+from repro_torch.kernels import contracts as kc
 from repro_torch.kernels import datapath as dp
 from repro_torch.kernels.contracts import kernel_contract
 from repro_torch.models.attention import NEG_INF, blockwise_attention
 
-HEAD_DIMS = (16, 32, 64, 128, 256)      # compiled for every dtype
-HEAD_DIM_MAX = 512                      # compiled for fp32
+HEAD_DIMS = kc.HEAD_DIMS                # compiled for every dtype
+HEAD_DIM_MAX = kc.HEAD_DIM_MAX          # the decodes' widest (fp32)
+# flash and paged prefill: the widest head dim whose plan fits shared
+# memory (16-bit: a 64-row Q tile resident; fp32: 16 rows of Q)
+FLASH_HEAD_DIM_MAX = {torch.float32: kc.F32_HEAD_DIM_MAX,
+                      torch.bfloat16: kc.WG_HEAD_DIM_MAX,
+                      torch.float16: kc.WG_HEAD_DIM_MAX}
 _DT = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the generic 16-bit flash and paged prefill kernel's library per dtype
+_WG_LIBS = {torch.bfloat16: "attention_wg", torch.float16: "attention_wg16"}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _WORKSPACE: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -161,6 +175,43 @@ def paged_prefill_attention_plain(q, k_pool, v_pool, block_table, start: int, *,
         kv_len=int(start) + tq)
 
 
+def column_slice_attention_plain(q, k, v, *, causal: bool = True,
+                                 window: Optional[int] = None,
+                                 softcap: Optional[float] = None,
+                                 scale: Optional[float] = None,
+                                 width: Optional[int] = None) -> torch.Tensor:
+    """Flash attention as the generic kernels run a head dim above 256:
+    column slices of V and O (``width`` columns each; by default
+    ``contracts.wg_width``'s), each slice's scores over the whole head
+    dim (fp32), its softmax, then P V on the slice's columns alone. The
+    same function as ``blockwise_attention``: the plain form of the
+    mechanism, not a kernel's plain version."""
+    b, tq, h, d = q.shape
+    tk, kvh = k.shape[1], k.shape[2]
+    rep = h // kvh
+    width = width or kc.wg_width(d)[0]
+    sc = _scale(scale, d)
+    qpos = torch.arange(tq)[:, None] + (tk - tq)
+    kpos = torch.arange(tk)[None, :]
+    mask = torch.ones((tq, tk), dtype=torch.bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    mask = mask.to(q.device)
+    kh = k.repeat_interleave(rep, dim=2).to(torch.float32)
+    vh = v.repeat_interleave(rep, dim=2).to(torch.float32)
+    out = []
+    for c0 in range(0, d, width):
+        s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32) * sc, kh)
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+        out.append(torch.einsum("bhqk,bkhd->bqhd", p,
+                                vh[..., c0:c0 + width]))
+    return torch.cat(out, dim=-1).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -173,46 +224,64 @@ def _check_cuda(name: str, tensors) -> None:
 
 
 def _check_head(name: str, q: torch.Tensor, k: torch.Tensor,
-                v: torch.Tensor, h: int, kvh: int, d: int) -> None:
+                v: torch.Tensor, h: int, kvh: int, d: int,
+                decode: bool = False) -> None:
     if any(t.dtype not in _DT for t in (q, k, v)):
         raise NotImplementedError(f"{name}: takes bf16, fp16 or fp32, got "
                                   f"{q.dtype} / {k.dtype} / {v.dtype}")
-    if not 1 <= d <= HEAD_DIM_MAX:
+    if decode and not 1 <= d <= HEAD_DIM_MAX:
         raise NotImplementedError(
-            f"{name}: head_dim {d} above {HEAD_DIM_MAX}: a lane of the fp32 "
-            f"kernels holds D / 4 accumulators of its query row, 256 at "
-            f"D = 1024, past the 255 registers a thread has (the instance "
-            f"at 512 holds 128 and already spills)")
+            f"{name}: head_dim {d} above {HEAD_DIM_MAX}: a lane of the "
+            f"split decode holds its query rows' D / 32 accumulators, and "
+            f"the fp32 instance at 512 is its widest")
+    top = FLASH_HEAD_DIM_MAX[kernel_dtype(q, k, v, d)]
+    if not decode and not 1 <= d <= top:
+        raise NotImplementedError(
+            f"{name}: head_dim {d} above {top}: the resident query tile, "
+            f"one K chunk and one V tile would pass the 227 KB of shared "
+            f"memory a block holds")
     if h % kvh:
         raise ValueError(f"{name}: H={h} not a multiple of KVH={kvh}")
 
 
 def kernel_dtype(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 d: int) -> torch.dtype:
+                 d: int, decode: bool = False) -> torch.dtype:
     """The dtype of the kernel a call runs: q's, where q, k and v share it
-    and an instance of that dtype holds the head dim; else fp32 (the
-    operands widened)."""
+    and an instance of that dtype holds the head dim (every head dim for
+    flash and paged prefill; up to 256 at 16 bits for the decodes); else
+    fp32 (the operands widened)."""
     if q.dtype == k.dtype == v.dtype and (q.dtype == torch.float32 or
-                                          d <= HEAD_DIMS[-1]):
+                                          not decode or d <= HEAD_DIMS[-1]):
         return q.dtype
     return torch.float32
 
 
-def _any_lib(decode: bool) -> str:
-    """The generic library of a kernel family (``decode``: the two
-    decodes), whose plan functions hold every head dim; a plan is the same
-    in every library that holds its head dim."""
-    return "attention_decode_any" if decode else "attention_any"
+def _row_align(d: int, es: int, *ptrs: int) -> int:
+    """The largest of 16, 8, 4 and 2 bytes that divides every pointer and
+    a row's ``d * es`` bytes (``attention_wg.cuh`` row_align)."""
+    bits = 16
+    for p in ptrs:
+        bits |= p
+    return kc.row_align(d, es, bits)
+
+
+def _lib_of(d: int, dtype: torch.dtype, align: int,
+            decode: bool = False) -> str:
+    if d in HEAD_DIMS and align >= 16:
+        return "attention"
+    if decode:
+        return "attention_decode_any"
+    return _WG_LIBS.get(dtype, "attention_any")
 
 
 def kernel_lib(d: int, *ts: torch.Tensor, decode: bool = False) -> str:
     """``attention`` for a compiled head dim whose operands' rows are
-    whole 16-byte words on 16-byte boundaries, else the generic library of
-    the kernel family (``decode``: the two decodes)."""
-    es = ts[0].element_size()
-    fast = d in HEAD_DIMS and d * es % 16 == 0 and \
-        all(t.data_ptr() % 16 == 0 for t in ts)
-    return "attention" if fast else _any_lib(decode)
+    whole 16-byte words on 16-byte boundaries; else, for the two decodes,
+    ``attention_decode_any``, for flash and paged prefill
+    ``attention_wg`` (bf16), ``attention_wg16`` (fp16) or
+    ``attention_any`` (fp32), by the operands' dtype."""
+    align = _row_align(d, ts[0].element_size(), *(t.data_ptr() for t in ts))
+    return _lib_of(d, ts[0].dtype, align, decode)
 
 
 def _widened(run: torch.dtype, *ts: torch.Tensor):
@@ -263,30 +332,36 @@ def _split_arg(plan: Optional[dict]) -> int:
     return int(plan["split_keys"]) if plan else 0
 
 
-_FLASH_PLAN_KEYS = ("cluster", "stages", "grid_x", "grid_y", "grid_z",
-                    "threads", "smem")
+FLASH_PLAN_KEYS = kc.FLASH_PLAN_KEYS
+
+
+def _plan_align(d: int, dtype: torch.dtype, align: int) -> int:
+    return kc.row_align(d, kc.dt(dtype)[1], align)
 
 
 def flash_plan(b: int, tq: int, tk: int, h: int, kvh: int, d: int, *,
                causal: bool = True, window: Optional[int] = None,
                dtype: torch.dtype = torch.bfloat16, device=None,
-               plan: Optional[dict] = None) -> dict:
+               plan: Optional[dict] = None, align: int = 16) -> dict:
     """The launch a flash call of these shapes makes under ``plan``
-    (``{"cluster", "stages"}``; None for its own): blocks per cluster, K/V
-    stages a warp, the grid (bf16: clusters x row tiles of 16 x heads x
-    batch; fp32: clusters x kv heads x batch x row tiles of (position,
-    query head) pairs), threads and dynamic shared memory bytes. A plan
-    the kernel cannot run raises, as at launch."""
-    out = (ctypes.c_longlong * len(_FLASH_PLAN_KEYS))()
-    fn = _build.bind(_any_lib(False), "flash_attention_plan",
-                     [_I] * 11 + [_P])
+    (``{"cluster", "stages"}``; None for its own), its operands' rows on
+    ``align`` bytes (16: whole aligned words), in the library
+    :func:`kernel_lib` picks: blocks per cluster, stages (K/V a warp; the
+    generic 16-bit kernel's V tiles in flight), the grid, threads, dynamic
+    shared memory bytes, the instance's head dim, column slices, query
+    rows a block, K ring slots and load path (``contracts.flash_contract``
+    has the grids). A plan the kernel cannot run raises, as at launch."""
+    align = _plan_align(d, dtype, align)
+    out = (ctypes.c_longlong * len(FLASH_PLAN_KEYS))()
+    fn = _build.bind(_lib_of(d, dtype, align), "flash_attention_plan",
+                     [_I] * 12 + [_P])
     with torch.cuda.device(device if device is not None
                            else torch.cuda.current_device()):
         _build.check(fn(b, tq, tk, h, kvh, d, int(causal), int(window or 0),
-                        _DT[dtype], *_flash_args(plan),
+                        _DT[dtype], *_flash_args(plan), align,
                         ctypes.addressof(out)),
                      "flash_attention_plan")
-    return dict(zip(_FLASH_PLAN_KEYS, out))
+    return dict(zip(FLASH_PLAN_KEYS, out))
 
 
 @kernel_contract("flash_attention")
@@ -321,7 +396,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
                                    run, q.device)
     cluster, stages = _flash_args(plan)
     o = torch.empty_like(q)
-    fn = _build.bind(kernel_lib(d, q, k, v), "flash_attention_launch",
+    lib = kernel_lib(d, q, k, v, o)
+    fn = _build.bind(lib, "flash_attention_launch",
                      [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
                       _I, _P, _I, _I])
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, tq, tk,
@@ -331,6 +407,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
     _build.check(err, "flash_attention")
     if mixed:
         MIXED_COUNTS["flash_attention"].launches += 1
+    elif lib in _WG_LIBS.values():
+        ANY_COUNTS["flash_attention"].launches += 1
     elif out_dtype == torch.float16:
         F16_COUNTS["flash_attention"].launches += 1
     else:
@@ -362,9 +440,9 @@ def decode_attention(q, k, v, pos: int, *, window: Optional[int] = None,
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"decode_attention: q {tuple(q.shape)} against k "
                          f"{tuple(k.shape)} / v {tuple(v.shape)}")
-    _check_head("decode_attention", q, k, v, h, kvh, d)
+    _check_head("decode_attention", q, k, v, h, kvh, d, decode=True)
     _check_cuda("decode_attention", (q, k, v))
-    out_dtype, run = q.dtype, kernel_dtype(q, k, v, d)
+    out_dtype, run = q.dtype, kernel_dtype(q, k, v, d, decode=True)
     mixed = not q.dtype == k.dtype == v.dtype
     q, k, v = (t.contiguous() for t in _widened(run, q, k, v))
     plan = decode_plan(b, s, h, kvh, d, pos, window)
@@ -395,7 +473,7 @@ def decode_plan(b: int, s: int, h: int, kvh: int, d: int, pos: int,
     query heads per block, keys per split, fp32 words of partials); its
     grid is splits x groups blocks, and each group takes one ticket."""
     out = (ctypes.c_longlong * 5)()
-    fn = _build.bind(_any_lib(True), "decode_attention_plan",
+    fn = _build.bind("attention_decode_any", "decode_attention_plan",
                      [_I] * 7 + [_P])
     _build.check(fn(b, s, h, kvh, d, int(pos), int(window or 0),
                     ctypes.addressof(out)), "decode_attention_plan")
@@ -417,7 +495,7 @@ def paged_decode_plan(slots: int, max_pages: int, page: int, h: int,
     plan = _PAGED_PLANS.get(key)
     if plan is None:
         out = (ctypes.c_longlong * 5)()
-        fn = _build.bind(_any_lib(True), "paged_decode_plan",
+        fn = _build.bind("attention_decode_any", "paged_decode_plan",
                          [_I] * 8 + [_P])
         _build.check(fn(*key, ctypes.addressof(out)), "paged_decode_plan")
         plan = _PAGED_PLANS[key] = tuple(out)
@@ -453,10 +531,12 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
         raise ValueError(f"paged_decode_attention: {s} slots against tables "
                          f"{tuple(block_tables.shape)} and lengths "
                          f"{tuple(lengths.shape)}")
-    _check_head("paged_decode_attention", q, k_pool, v_pool, h, kvh, d)
+    _check_head("paged_decode_attention", q, k_pool, v_pool, h, kvh, d,
+                decode=True)
     _check_cuda("paged_decode_attention",
                 (q, k_pool, v_pool, block_tables, lengths))
-    out_dtype, run = q.dtype, kernel_dtype(q, k_pool, v_pool, d)
+    out_dtype, run = q.dtype, kernel_dtype(q, k_pool, v_pool, d,
+                                           decode=True)
     mixed = not q.dtype == k_pool.dtype == v_pool.dtype
     q, k_pool, v_pool = (t.contiguous()
                          for t in _widened(run, q, k_pool, v_pool))
@@ -491,20 +571,22 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths, *,
 def paged_prefill_plan(tq: int, start: int, h: int, kvh: int, d: int,
                        window: Optional[int] = None, *,
                        dtype: torch.dtype = torch.bfloat16,
-                       device=None) -> dict:
+                       device=None, page: int = 16,
+                       align: int = 16) -> dict:
     """The launch a paged prefill call of these arguments makes (its own
-    plan, from T, start and the window): blocks per cluster, K/V stages,
-    the grid (bf16: clusters x row tiles of 16 x heads; fp32: clusters x
-    kv heads x row tiles of (position, query head) pairs), threads and
-    dynamic shared memory bytes."""
-    out = (ctypes.c_longlong * len(_FLASH_PLAN_KEYS))()
-    fn = _build.bind(_any_lib(False), "paged_prefill_plan", [_I] * 7 + [_P])
+    plan, from T, start and the window; the page size and the rows'
+    alignment pick the generic 16-bit kernel's load path), as
+    :func:`flash_plan`'s fields."""
+    align = _plan_align(d, dtype, align)
+    out = (ctypes.c_longlong * len(FLASH_PLAN_KEYS))()
+    fn = _build.bind(_lib_of(d, dtype, align), "paged_prefill_plan",
+                     [_I] * 9 + [_P])
     with torch.cuda.device(device if device is not None
                            else torch.cuda.current_device()):
         _build.check(fn(int(tq), int(start), h, kvh, d, int(window or 0),
-                        _DT[dtype], ctypes.addressof(out)),
+                        _DT[dtype], page, align, ctypes.addressof(out)),
                      "paged_prefill_plan")
-    return dict(zip(_FLASH_PLAN_KEYS, out))
+    return dict(zip(FLASH_PLAN_KEYS, out))
 
 
 @kernel_contract("paged_prefill_attention")
@@ -546,7 +628,8 @@ def paged_prefill_attention(q, k_pool, v_pool, block_table, start: int, *,
                          for t in _widened(run, q, k_pool, v_pool))
     table = block_table.to(torch.int32).contiguous()
     o = torch.empty_like(q)
-    fn = _build.bind(kernel_lib(d, q, k_pool, v_pool), "paged_prefill_launch",
+    lib = kernel_lib(d, q, k_pool, v_pool, o)
+    fn = _build.bind(lib, "paged_prefill_launch",
                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                       _F, _I, _P])
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
@@ -556,6 +639,8 @@ def paged_prefill_attention(q, k_pool, v_pool, block_table, start: int, *,
     _build.check(err, "paged_prefill_attention")
     if mixed:
         MIXED_COUNTS["paged_prefill_attention"].launches += 1
+    elif lib in _WG_LIBS.values():
+        ANY_COUNTS["paged_prefill_attention"].launches += 1
     elif out_dtype == torch.float16:
         F16_COUNTS["paged_prefill_attention"].launches += 1
     else:
@@ -576,3 +661,8 @@ F16_COUNTS = {name: SimpleNamespace(launches=0)
 # The launches on mixed q / k / v dtypes (the fp32 kernels on widened
 # operands; the kernels report's flash_attention[mixed] and so on).
 MIXED_COUNTS = {name: SimpleNamespace(launches=0) for name in F16_COUNTS}
+# The generic 16-bit flash and paged prefill kernel's launches, bf16 and
+# fp16 (attention_wg.cuh; the kernels report's flash_attention[any] and
+# paged_prefill_attention[any]).
+ANY_COUNTS = {name: SimpleNamespace(launches=0)
+              for name in ("flash_attention", "paged_prefill_attention")}

@@ -90,7 +90,21 @@ EPI_THREADS = 256
 SSD_QMAX, SSD_NMAX = 256, 256
 SSD_P = (8, 16, 32, 64)        # slice widths: any head dim runs as slices
 HEAD_DIMS = (16, 32, 64, 128, 256)
-HEAD_DIM_MAX = 512             # fp32's widest instance (16-bit: 256)
+HEAD_DIM_MAX = 512             # the decodes' widest instance (fp32)
+F32_SLICE, F32_SLICE_FROM = 128, 128  # attention.cuh: fp32 column slices
+F32_SMEM_MAX = 232448
+F32_HEAD_DIM_MAX = 2432        # 19 slices: 16 rows of Q and 4 warps' stages
+# attention_wg.cuh: the generic 16-bit flash / paged prefill kernel
+WG_ROWS, WG_KT, WG_CHUNK, WG_THREADS = 64, 64, 64 * 128, 256
+WG_MAX_CLUSTER, WG_SLICE, WG_KS_MAX, WG_VS_MAX = 4, 256, 16, 2
+WG_SMEM_ONE, WG_SMEM_TWO = 232448 - 512, 233472 // 2 - 1024 - 512
+WG_WIDTHS = (16, 32, 48, 64, 80, 96, 112, 128, 160, 192, 224, 256)
+WG_HEAD_DIM_MAX = 1472         # 23 Q chunks, one K chunk and one V tile
+LOAD_TMA, LOAD_CP16, LOAD_CP4, LOAD_ELEM = 0, 1, 2, 3
+# the flash and paged prefill plan functions' array
+FLASH_PLAN_KEYS = ("cluster", "stages", "grid_x", "grid_y", "grid_z",
+                   "threads", "smem", "width", "slices", "rows", "kring",
+                   "load")
 
 F32, BF16, F16, I8, I16, I32 = (("float", 4), ("float", 2), ("float", 2),
                                 ("int", 1), ("int", 2), ("int", 4))
@@ -1081,27 +1095,37 @@ def _ft_tile(d):
         FT_ROWS * 4
 
 
-def f32_warps(d: int) -> int:
-    """Warps a block of the fp32 flash kernel at compiled head dim d."""
-    return 2 if d > 256 else F32_WARPS
-
-
 def _f32_tile(d):
     rpl = 4 if d <= 64 else 2 if d == 128 else 1
     rb = 8 * rpl
     ld = d + 4
     stage = 2 * F32_KT * ld
-    w = f32_warps(d)
-    head = rb * ld + w * rb * (F32_KT + 4) + (w + 2) * rb
+    head = rb * ld + F32_WARPS * rb * (F32_KT + 4) + (F32_WARPS + 2) * rb
     return rb, (1 if d >= 256 else 2), \
-        lambda st: 4 * (head + w * st * stage)
+        lambda st: 4 * (head + F32_WARPS * st * stage)
+
+
+def f32_flash_dim(d: int, generic: bool = True) -> Tuple[int, int]:
+    """``attention.cuh`` f32_flash_dim: (instance head dim, column slices)
+    of an fp32 flash call of head dim d (0 for none): attention.cu d
+    itself where compiled; the generic unit the next compiled one up to
+    F32_SLICE_FROM, above it slices of the F32_SLICE instance."""
+    if d < 1:
+        return 0, 1
+    if not generic:
+        return (d if d in HEAD_DIMS else 0), 1
+    if d <= F32_SLICE_FROM:
+        return compiled_head_dim(d), 1
+    return F32_SLICE, cdiv(d, F32_SLICE)
 
 
 def flash_max_stages(dtype, d: int) -> int:
     """K/V stages a warp of the flash kernel streams at most (head dim d:
-    its compiled instance's)."""
-    return 1 if _name(dtype) == "float32" and \
-        compiled_head_dim(d, dtype) >= 256 else 2
+    its fp32 instance's; the generic 16-bit kernel's V tiles in flight)."""
+    if _name(dtype) != "float32":
+        return 2
+    dc, slices = f32_flash_dim(d)
+    return 1 if dc >= 256 or slices > 1 else 2
 
 
 def _flash_tc(tq, tk, h, batch, d, q_offset, causal, window, cluster,
@@ -1131,13 +1155,16 @@ def _flash_tc(tq, tk, h, batch, d, q_offset, causal, window, cluster,
                    Limit("stages", stages, 1, 2)]
     return dict(cluster=cl, stages=st, grid=(cl, cdiv(tq, FT_ROWS),
                                             h * batch),
-                threads=FT_WARPS * 32, smem=smem(st)), limits
+                threads=FT_WARPS * 32, smem=smem(st), width=d, slices=1,
+                rows=FT_ROWS, kring=0), limits
 
 
-def _flash_f32(tq, h, kvh, batch, d, q_offset, kv_len, causal, window,
-               cluster, stages, sms):
+def _flash_f32(tq, h, kvh, batch, d, slices, q_offset, kv_len, causal,
+               window, cluster, stages, sms):
     rb, max_stages, smem = _f32_tile(d)
-    warps = f32_warps(d)
+    if slices > 1:
+        max_stages = 1
+    warps = F32_WARPS
     g = h // kvh
     rows = tq * g
     nrb = cdiv(rows, rb)
@@ -1149,42 +1176,194 @@ def _flash_f32(tq, h, kvh, batch, d, q_offset, kv_len, causal, window,
         hi = p1 + 1 if causal and p1 + 1 < kv_len else kv_len
         if hi > lo:
             most = max(most, cdiv(hi, F32_KT) - lo // F32_KT)
-    blocks = nrb * kvh * batch
+    blocks = nrb * kvh * batch * slices
     cl = 1
     while cl < F32_MAX_CLUSTER and cl * warps < most and \
             blocks * cl < sms:
         cl *= 2
     st = 2 if max_stages > 1 and most > cl * warps else 1
-    limits = [Limit("row tiles", nrb, 0, 65535),
-              Limit("kv heads x sequences", kvh * batch, 0, 65535)]
     if cluster != 0 or stages != 0:
         cl, st = cluster, stages
+    # Q rows of slices x d + 4 floats (d + 4 without slices)
+    nbytes = smem(st) + 4 * rb * (slices - 1) * d
+    limits = [Limit("row tiles", nrb, 0, 65535),
+              Limit("kv heads x sequences x slices", kvh * batch * slices,
+                    0, 65535),
+              Limit("shared memory", nbytes, 0, F32_SMEM_MAX)]
+    if cluster != 0 or stages != 0:
         limits += [Limit("cluster", cluster, 1, F32_MAX_CLUSTER),
                    Limit("cluster a power of two",
                          int(cluster & (cluster - 1) == 0 and cluster > 0),
                          1, 1),
                    Limit("stages", stages, 1, max_stages)]
     return dict(cluster=cl, stages=st, rb=rb, nrb=nrb,
-                grid=(cl, kvh * batch, nrb), threads=warps * 32,
-                smem=smem(st)), limits
+                grid=(cl, kvh * batch * slices, nrb), threads=warps * 32,
+                smem=nbytes, width=d, slices=slices, rows=rb,
+                kring=0), limits
+
+
+def wg_width(d: int) -> Tuple[int, int]:
+    """``attention_wg.cuh``: (instance width, column slices) of head dim
+    d: slices of at most WG_SLICE columns, each at the narrowest of
+    WG_WIDTHS that holds its share."""
+    slices = cdiv(max(d, 1), WG_SLICE)
+    share = cdiv(max(d, 1), slices)
+    return next(w for w in WG_WIDTHS if share <= w), slices
+
+
+def wg_blocks_per_sm(dv: int) -> int:
+    """Blocks an SM by the instance's launch bounds (``blocks_per_sm``)."""
+    return 2 if dv <= 160 else 1
+
+
+def wg_plan(batch, tq, tk, h, kvh, d, q_offset, causal, window, page,
+            align, sms, cluster=0, stages=0):
+    """``attention_wg.cuh`` plan, line for line: a dict of its fields, or
+    None where the C plan refuses the call (the limit it fails named in
+    ``"refused"``)."""
+    own = cluster == 0 and stages == 0
+    if d < 1 or kvh <= 0 or h % kvh:
+        return {"refused": "head dim or heads"}
+    if not own and not (1 <= cluster <= WG_MAX_CLUSTER and
+                        cluster & (cluster - 1) == 0 and
+                        1 <= stages <= WG_VS_MAX):
+        return {"refused": "the caller's plan"}
+    dv, slices = wg_width(d)
+    g = h // kvh
+    pg = 1
+    while pg < WG_ROWS and g % (2 * pg) == 0:
+        pg *= 2
+    rp = WG_ROWS // pg
+    nrt = cdiv(tq, rp)
+    nz = slices * (g // pg) * kvh * batch
+    if nrt > 65535 or nz > 65535:
+        return {"refused": "grid"}
+    tma_page = page % 8 == 0 and (page % WG_KT == 0 or WG_KT % page == 0)
+    load = (LOAD_TMA if page == 0 or tma_page else LOAD_CP16) \
+        if align >= 16 else LOAD_CP4 if align >= 4 else LOAD_ELEM
+    nch, dvb = cdiv(d, 64), cdiv(dv, 64)
+    qb, vst = nch * WG_CHUNK, dvb * WG_CHUNK
+    part = (2 * WG_ROWS + WG_ROWS * (dv + 8)) * 4
+    smem = 0
+    for bps in range(wg_blocks_per_sm(dv), 0, -1):
+        rem = (WG_SMEM_TWO if bps == 2 else WG_SMEM_ONE) - 1024 - qb
+        if rem < vst + WG_CHUNK:
+            continue
+        vs = 2 if rem >= 2 * vst + min(nch, 4) * WG_CHUNK else 1
+        if not own:
+            if rem < stages * vst + WG_CHUNK:
+                continue
+            vs = stages
+        ks = min((rem - vs * vst) // WG_CHUNK, WG_KS_MAX)
+        if qb + ks * WG_CHUNK + vs * vst < part:
+            continue
+        smem, blocks_sm, ring, vring = (1024 + qb + ks * WG_CHUNK +
+                                        vs * vst), bps, ks, vs
+        break
+    if smem == 0:
+        return {"refused": "shared memory"}
+    if own:
+        most = 0
+        for rt in range(nrt):
+            p0 = q_offset + rt * rp
+            p1 = q_offset + min(rt * rp + rp, tq) - 1
+            lo = max(p0 - window + 1, 0) if window > 0 else 0
+            hi = p1 + 1 if causal and p1 + 1 < tk else tk
+            if hi > lo:
+                most = max(most, cdiv(hi, WG_KT) - lo // WG_KT)
+        cl = 1
+        while cl < WG_MAX_CLUSTER and 2 * cl <= most and \
+                nrt * nz * cl * 2 <= sms * blocks_sm:
+            cl *= 2
+    else:
+        cl = cluster
+    return dict(cluster=cl, stages=vring, grid=(cl, nrt, nz),
+                threads=WG_THREADS, smem=smem, width=dv, slices=slices,
+                rows=WG_ROWS, kring=ring, load=load, pg=pg, rp=rp, nrt=nrt,
+                blocks_sm=blocks_sm)
+
+
+def _flash_wg(name, batch, tq, tk, h, kvh, d, q_offset, causal, window,
+              io, cluster, stages, sms, page, align, kv_note, kv_range):
+    p = wg_plan(batch, tq, tk, h, kvh, d, q_offset, causal, window, page,
+                align, sms, cluster, stages)
+    refused = p.get("refused")
+    limits = [Limit("query heads a multiple of kv heads",
+                    int(kvh > 0 and h % kvh == 0), 1, 1),
+              Limit("head dim", d, 1, WG_HEAD_DIM_MAX)]
+    if cluster != 0 or stages != 0:
+        limits += [Limit("cluster", cluster, 1, WG_MAX_CLUSTER),
+                   Limit("cluster a power of two",
+                         int(cluster & (cluster - 1) == 0 and cluster > 0),
+                         1, 1),
+                   Limit("stages", stages, 1, WG_VS_MAX)]
+    if refused:
+        limits.append(Limit(f"plan ({refused})", 0, 1, 1))
+        dv, slices = wg_width(d)
+        p = dict(cluster=max(cluster, 1), stages=max(stages, 1),
+                 grid=(1, 1, 1), threads=WG_THREADS, smem=0, width=dv,
+                 slices=slices, rows=WG_ROWS, kring=0, load=0, pg=1,
+                 rp=WG_ROWS, nrt=1, blocks_sm=1)
+    g = h // max(kvh, 1)
+    pg, nrt, dv, slices = p["pg"], p["nrt"], p["width"], p["slices"]
+    nhg = max(g // pg, 1)
+    view = (batch, tq, kvh, nhg, pg, d)
+    ops = (OperandSpec("q", view, (1, p["rp"], 1, 1, pg, d), io,
+                       predicated=(1,)),
+           OperandSpec("k", (batch, tk, kvh, d), (1, tk, 1, d), io,
+                       data_dependent=kv_note, ranged=kv_range),
+           OperandSpec("v", (batch, tk, kvh, d), (1, tk, 1, d), io,
+                       data_dependent=kv_note, ranged=kv_range),
+           OperandSpec("o", view, (1, p["rp"], 1, 1, pg, dv), io,
+                       output=True, predicated=(1, 5)))
+    maps = (("q", lambda c, y, b, kh, hg, s: (b, nrt - 1 - y, kh, hg, 0, 0)),
+            ("o", lambda c, y, b, kh, hg, s: (b, nrt - 1 - y, kh, hg, 0, s)))
+    region = Region((("c", p["cluster"]), ("y", nrt), ("b", batch),
+                     ("kh", kvh), ("hg", nhg), ("s", slices)), maps)
+    blocks = p["cluster"] * nrt * batch * kvh * nhg * slices
+    plan = tuple((k, p[k]) for k in ("cluster", "stages")) + \
+        (("grid_x", p["grid"][0]), ("grid_y", p["grid"][1]),
+         ("grid_z", p["grid"][2])) + \
+        tuple((k, p[k]) for k in FLASH_PLAN_KEYS[5:])
+    return LaunchContract(
+        name=name, regions=(region,), operands=ops, blocks=blocks,
+        threads=WG_THREADS, cluster=p["cluster"],
+        min_blocks=p["blocks_sm"], smem=p["smem"],
+        reductions=(Reduction("o", "c", "cluster" if p["cluster"] > 1
+                              else "none"),),
+        mma=(MmaPair(io, io, F32), MmaPair(io, io, F32)),
+        limits=tuple(limits), plan=plan,
+        kernel="attn_wg::flash_wg_kernel", kernel_args=(dv,))
+
+
+def row_align(d: int, es: int, align: int = 16) -> int:
+    """The largest of 16, 8, 4 and 2 bytes dividing ``align`` (the bases')
+    and a row's ``d * es`` bytes (``attention_wg.cuh`` row_align)."""
+    bits = d * es | align
+    return next(a for a in (16, 8, 4, 2, 1) if bits % a == 0)
 
 
 def _flash_contract(name, batch, tq, tk, h, kvh, d, q_offset, causal,
-                    window, dtype, cluster, stages, sms, paged):
+                    window, dtype, cluster, stages, sms, paged, page=16,
+                    align=16):
     io = dt(dtype)
-    dc = compiled_head_dim(d, dtype)
-    limits = [Limit("head dim", d, 1, HEAD_DIM_MAX if io == F32
-                    else HEAD_DIMS[-1]),
-              Limit("query heads a multiple of kv heads",
-                    int(kvh > 0 and h % kvh == 0), 1, 1)]
+    align = row_align(d, io[1], align)
     kv_note = ("K/V rows gathered through the request's block table, "
                "name * page + offset, one lookup a key row") if paged \
         else None
     kv_range = None if paged else \
         "the key range [lo, hi) of the block's query rows, clamped to Tk"
-    if _name(dtype) in ("bfloat16", "float16"):
-        p, lim = _flash_tc(tq, tk, h, batch, dc or HEAD_DIMS[-1], q_offset,
-                           causal, window, cluster, stages)
+    compiled = d in HEAD_DIMS and align >= 16
+    if io != F32 and not compiled:
+        return _flash_wg(name, batch, tq, tk, h, kvh, d, q_offset, causal,
+                         window, io, cluster, stages, sms,
+                         page if paged else 0, align, kv_note, kv_range)
+    limits = [Limit("query heads a multiple of kv heads",
+                    int(kvh > 0 and h % kvh == 0), 1, 1)]
+    load = LOAD_CP16 if align >= 16 else LOAD_ELEM
+    if io != F32:
+        p, lim = _flash_tc(tq, tk, h, batch, d, q_offset, causal, window,
+                           cluster, stages)
         nq = cdiv(tq, FT_ROWS)
         ops = (OperandSpec("q", (batch, tq, h, d), (1, FT_ROWS, 1, d), io,
                            predicated=(1,)),
@@ -1200,29 +1379,37 @@ def _flash_contract(name, batch, tq, tk, h, kvh, d, q_offset, causal,
                          ("h", h)), maps)
         blocks = p["cluster"] * nq * h * batch
         mma = (MmaPair(io, io, F32), MmaPair(io, io, F32))
+        dc = d
     else:
-        p, lim = _flash_f32(tq, h, kvh, batch, dc or HEAD_DIM_MAX, q_offset,
-                            tk, causal, window, cluster, stages, sms)
+        dc, slices = f32_flash_dim(d, generic=not compiled)
+        limits.append(Limit("head dim", d, 1, F32_HEAD_DIM_MAX))
+        p, lim = _flash_f32(tq, h, kvh, batch, dc or F32_SLICE, slices,
+                            q_offset, tk, causal, window, cluster, stages,
+                            sms)
         g = h // max(kvh, 1)
         nrb = p["nrb"]
+        ow = dc if slices > 1 else d
         ops = (OperandSpec("q", (batch, kvh, tq * g, d), (1, 1, p["rb"], d),
                            io, predicated=(2,)),
                OperandSpec("k", (batch, tk, kvh, d), (1, tk, 1, d), io,
                            data_dependent=kv_note, ranged=kv_range),
                OperandSpec("v", (batch, tk, kvh, d), (1, tk, 1, d), io,
                            data_dependent=kv_note, ranged=kv_range),
-               OperandSpec("o", (batch, kvh, tq * g, d), (1, 1, p["rb"], d),
-                           io, output=True, predicated=(2,)))
-        maps = (("q", lambda c, b, kh, z: (b, kh, nrb - 1 - z, 0)),
-                ("o", lambda c, b, kh, z: (b, kh, nrb - 1 - z, 0)))
+               OperandSpec("o", (batch, kvh, tq * g, d),
+                           (1, 1, p["rb"], ow), io, output=True,
+                           predicated=(2, 3)))
+        maps = (("q", lambda c, b, kh, s, z: (b, kh, nrb - 1 - z, 0)),
+                ("o", lambda c, b, kh, s, z: (b, kh, nrb - 1 - z, s)))
         region = Region((("c", p["cluster"]), ("b", batch), ("kh", kvh),
-                         ("z", nrb)), maps)
-        blocks = p["cluster"] * kvh * batch * nrb
+                         ("s", slices), ("z", nrb)), maps)
+        blocks = p["cluster"] * kvh * batch * slices * nrb
         mma = ()
     plan = (("cluster", p["cluster"]), ("stages", p["stages"]),
             ("grid_x", p["grid"][0]), ("grid_y", p["grid"][1]),
             ("grid_z", p["grid"][2]), ("threads", p["threads"]),
-            ("smem", p["smem"]))
+            ("smem", p["smem"]), ("width", p["width"]),
+            ("slices", p["slices"]), ("rows", p["rows"]),
+            ("kring", p["kring"]), ("load", load))
     return LaunchContract(
         name=name, regions=(region,), operands=ops, blocks=blocks,
         threads=p["threads"], cluster=p["cluster"], smem=p["smem"],
@@ -1237,23 +1424,28 @@ def _flash_contract(name, batch, tq, tk, h, kvh, d, q_offset, causal,
 def flash_contract(b: int, tq: int, tk: int, h: int, kvh: int, d: int, *,
                    causal: bool = True, window: Optional[int] = None,
                    dtype="bfloat16", cluster: int = 0, stages: int = 0,
-                   sms: int = SMS) -> LaunchContract:
+                   sms: int = SMS, align: int = 16) -> LaunchContract:
     """``flash_attention_launch`` (``flash_attention_plan``'s array),
-    queries right-aligned to the keys."""
+    queries right-aligned to the keys, rows on ``align`` bytes: a compiled
+    head dim on aligned rows is ``attention.cu``'s, any other call the
+    generic kernels' (16-bit ``attention_wg.cuh``, fp32 ``attention_any.cu``
+    with column slices above 256)."""
     return _flash_contract("flash_attention", b, tq, tk, h, kvh, d, tk - tq,
                            bool(causal), int(window or 0), dtype, cluster,
-                           stages, sms, paged=False)
+                           stages, sms, paged=False, align=align)
 
 
 @contract_builder("paged_prefill_attention")
 def paged_prefill_contract(tq: int, start: int, h: int, kvh: int, d: int, *,
                            window: Optional[int] = None, dtype="bfloat16",
-                           sms: int = SMS) -> LaunchContract:
+                           sms: int = SMS, page: int = 16,
+                           align: int = 16) -> LaunchContract:
     """``paged_prefill_launch`` (``paged_prefill_plan``'s array): the flash
-    kernels through the block-table loaders, one request, its own plan."""
+    kernels through the block-table loaders, one request, its own plan
+    (``page`` picks the generic 16-bit kernel's load path)."""
     return _flash_contract("paged_prefill_attention", 1, tq, start + tq, h,
                            kvh, d, start, True, int(window or 0), dtype, 0, 0,
-                           sms, paged=True)
+                           sms, paged=True, page=page, align=align)
 
 
 def _split_contract(name, batch, h, kvh, d, splits, split, dtype,

@@ -88,22 +88,27 @@
 //    a CUDA graph). Paged splits start on multiples of 64 keys, so at page
 //    64 a split is one page.
 //
-// Head dims 16, 32, 64, 128 and 256 are compiled, and 512 for fp32 (the
-// CUDA-core flash kernel at 2 warps a block, the split decode at 2 query
-// heads a block: a 16-row tensor-core tile of 512 columns passes the
-// register budget); inputs are fp32, bf16 or fp16 (accumulation is always
-// fp32, output in the input type, as the TPU kernels upcast every operand
-// to fp32 and write q's dtype). Any head dim d up to the largest compiled
-// one runs on the next compiled instance D >= d: the row length d is a
-// runtime value (the rows' stride), the loaders zero-fill columns d..D-1
-// in shared memory and registers (zeros add nothing to Q K^T and give
-// nothing in P V), and the stores write d columns. Each launch works out
-// whether its rows are whole, 16-byte aligned words (every operand's base
-// on 16 bytes and d times the element a multiple of 16): then the loads
-// are the 16-byte cp.async / vector loads, else an element-by-element,
-// zero-filled copy (vec = 0), like ssd.cu's. Mixed q / k / v dtypes and a
-// 16-bit head dim above 256 are the wrapper's: the operands widened to
-// fp32 (datapath.cu convert), the fp32 kernels, q's dtype out.
+// Head dims 16, 32, 64, 128 and 256 are compiled, and 512 for the fp32
+// split decode (2 query heads a block); inputs are fp32, bf16 or fp16
+// (accumulation is always fp32, output in the input type, as the TPU
+// kernels upcast every operand to fp32 and write q's dtype). In the
+// generic units (GEN) any head dim d up to the largest compiled one runs
+// (fp32 flash up to 128) on the next compiled instance D >= d: the row
+// length d is a runtime
+// value (the rows' stride), the loaders zero-fill columns d..D-1 in
+// shared memory and registers (zeros add nothing to Q K^T and give
+// nothing in P V), and the stores write d columns; the fp32 flash kernel
+// runs a head dim above 128 as column slices of its 128 instance (grid
+// y), each block's scores over the whole d (Q resident, K streamed 128
+// columns at a time), its P V and stores on its own columns. Each launch
+// works out whether its rows are whole, 16-byte aligned words (every
+// operand's base on 16 bytes and d times the element a multiple of 16):
+// then the loads are the 16-byte cp.async / vector loads, else an
+// element-by-element, zero-filled copy (vec = 0), like ssd.cu's. Mixed q /
+// k / v dtypes and a 16-bit decode head dim above 256 are the wrapper's:
+// the operands widened to fp32 (datapath.cu convert), the fp32 kernels,
+// q's dtype out. 16-bit flash and paged prefill off the compiled shapes
+// run attention_wg.cuh, not this file.
 //
 // fp16 on the tensor cores (flash_tc_kernel<D, Loader, __half>): the same
 // fragments, ldmatrix and plan as bf16, the MMA's .f16 variant. Q and K
@@ -120,12 +125,14 @@
 // K/V on the CUDA cores, converted to fp32 as bf16 is.
 //
 // Three libraries share this code. attention.cu instantiates every kernel
-// with GEN = false for the calls the kernels were first written for -- a
-// compiled head dim, one dtype, whole aligned 16-byte rows -- so their
-// code is the code it was; attention_any.cu (flash, paged prefill) and
-// attention_decode_any.cu (dense and paged decode) instantiate GEN = true
-// for every other call (kernels/attention.py picks the library per call),
-// and the fp32 kernels at 512. They build in parallel.
+// (GEN = false where a kernel has the parameter) for the calls the
+// kernels were first written for -- a compiled head dim, one dtype, whole
+// aligned 16-byte rows -- so their code is the code it was;
+// attention_any.cu (fp32 flash and paged prefill) and
+// attention_decode_any.cu (dense and paged decode, and the fp32 split
+// decode at 512) instantiate GEN = true for every other call
+// (kernels/attention.py picks the library per call). They build in
+// parallel.
 //
 // C interface (both libraries): flash_attention_launch, paged_prefill_launch,
 // paged_decode_launch, decode_attention_launch (each returns
@@ -186,22 +193,13 @@ inline int rows16(int d, int es, const void* a, const void* b, const void* c,
          aligned16(o);
 }
 
-// The element-by-element loads of a row that is not made of whole aligned
-// 16-byte words: n live elements of a 16-byte chunk (n <= 0: none), the
-// rest zeros, moved as raw bits.
-__device__ __forceinline__ void copy16_elems(void* dst, const void* src,
-                                             int n, int es) {
-  if (es == 2) {
-    const unsigned short* s = static_cast<const unsigned short*>(src);
-    unsigned short* d = static_cast<unsigned short*>(dst);
+// The element-by-element loads of an fp32 row that is not made of whole
+// aligned 16-byte words: n live values of a 16-byte chunk (n <= 0: none),
+// the rest zeros.
+__device__ __forceinline__ void copy4_floats(float* dst, const float* src,
+                                             int n) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) d[i] = i < n ? s[i] : 0;
-  } else {
-    const float* s = static_cast<const float*>(src);
-    float* d = static_cast<float*>(dst);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) d[i] = i < n ? s[i] : 0.f;
-  }
+  for (int i = 0; i < 4; ++i) dst[i] = i < n ? src[i] : 0.f;
 }
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
@@ -313,8 +311,6 @@ struct FlashArgs {
   int causal, window;  // window 0 = global
   int npool, page;     // paged geometry
   int stages;          // K/V stages per warp: 1 or 2
-  int d;               // the head dim, <= the compiled D
-  int vec;             // rows16: 16-byte loads, else element by element
   float softcap;       // 0 = none
   float scale;
 };
@@ -416,20 +412,6 @@ __device__ __forceinline__ void split_pair(float x, float y, uint32_t& hi,
   hi = bits(h);
   lo = bits(Pair<T>::make(x - hf.x, y - hf.y));
 }
-// Elements c and c + 1 (c even) of a 16-bit row of d elements as one
-// word, zeros past d: with vec one aligned 4-byte load (d a multiple of 8,
-// so the pair is whole or absent), else two 2-byte loads. !GEN: the
-// compiled instance's own rows (d = D, aligned), one load.
-template <bool GEN>
-__device__ __forceinline__ uint32_t ld_pair(const bf16* row, int c, int d,
-                                            int vec) {
-  if constexpr (!GEN) return *reinterpret_cast<const uint32_t*>(row + c);
-  if (vec) return c < d ? *reinterpret_cast<const uint32_t*>(row + c) : 0u;
-  const unsigned short* r = reinterpret_cast<const unsigned short*>(row);
-  const uint32_t lo = c < d ? r[c] : 0u, hi = c + 1 < d ? r[c + 1] : 0u;
-  return lo | (hi << 16);
-}
-
 // Live keys [lo, hi) of the 16-row query tile whose first row sits at
 // position q0 (the TPU kernels' block_live rule, per tile).
 __host__ __device__ __forceinline__ void flash_tile_keys(
@@ -439,7 +421,7 @@ __host__ __device__ __forceinline__ void flash_tile_keys(
   if (causal && q0 + FT_ROWS < hi) hi = q0 + FT_ROWS;
 }
 
-template <int D, typename Loader, typename T, bool GEN>
+template <int D, typename Loader, typename T>
 __global__ void __launch_bounds__(FT_WARPS * 32, 1)
 flash_tc_kernel(FlashArgs p) {
   using Tl = FlashTile<D>;
@@ -457,24 +439,26 @@ flash_tc_kernel(FlashArgs p) {
   const int h = blockIdx.z % p.H, b = blockIdx.z / p.H;
   const int kvh = h / (p.H / p.KVH);
   const int q0 = p.q_offset + row0;
-  const int dd = GEN ? p.d : D;                // row length, <= D
-  const Loader kv(p, b, kvh, dd);
+  const Loader kv(p, b, kvh, D);
   bf16* stage0 = reinterpret_cast<bf16*>(fsm + warp * warp_bytes);
 
-  // Q as A fragments: rows g and g + 8, columns 2 qd (+1) and + 8; zeros
-  // past the head dim.
+  // Q as A fragments: rows g and g + 8, columns 2 qd (+1) and + 8, one
+  // aligned 4-byte load each.
   uint32_t qf[KS][4];
   {
     const bool ok_a = row0 + g < p.Tq, ok_b = row0 + g + 8 < p.Tq;
-    const bf16* qa = p.q + (((long long)b * p.Tq + row0 + g) * p.H + h) * dd;
-    const bf16* qb = qa + 8LL * p.H * dd;
+    const bf16* qa = p.q + (((long long)b * p.Tq + row0 + g) * p.H + h) * D;
+    const bf16* qb = qa + 8LL * p.H * D;
+    auto pair = [](const bf16* row, int c) {
+      return *reinterpret_cast<const uint32_t*>(row + c);
+    };
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
       const int c = ks * 16 + 2 * qd;
-      qf[ks][0] = ok_a ? ld_pair<GEN>(qa, c, dd, p.vec) : 0u;
-      qf[ks][1] = ok_b ? ld_pair<GEN>(qb, c, dd, p.vec) : 0u;
-      qf[ks][2] = ok_a ? ld_pair<GEN>(qa, c + 8, dd, p.vec) : 0u;
-      qf[ks][3] = ok_b ? ld_pair<GEN>(qb, c + 8, dd, p.vec) : 0u;
+      qf[ks][0] = ok_a ? pair(qa, c) : 0u;
+      qf[ks][1] = ok_b ? pair(qb, c) : 0u;
+      qf[ks][2] = ok_a ? pair(qa, c + 8) : 0u;
+      qf[ks][3] = ok_b ? pair(qb, c + 8) : 0u;
     }
   }
 
@@ -507,18 +491,8 @@ flash_tc_kernel(FlashArgs p) {
         const int hi = __shfl_sync(FULL, names[RPL - 1], r & 31);
         if (r >= 32) name = hi;
       }
-      if constexpr (!GEN) {
-        cp_async16(ks + r * LD + col, kv.k_row(name) + col, ok);
-        cp_async16(vs + r * LD + col, kv.v_row(name) + col, ok);
-      } else if (p.vec) {
-        cp_async16(ks + r * LD + col, kv.k_row(name) + col, ok && col < dd);
-        cp_async16(vs + r * LD + col, kv.v_row(name) + col, ok && col < dd);
-      } else {
-        copy16_elems(ks + r * LD + col, kv.k_row(name) + col,
-                     ok ? dd - col : 0, 2);
-        copy16_elems(vs + r * LD + col, kv.v_row(name) + col,
-                     ok ? dd - col : 0, 2);
-      }
+      cp_async16(ks + r * LD + col, kv.k_row(name) + col, ok);
+      cp_async16(vs + r * LD + col, kv.v_row(name) + col, ok);
     }
   };
 
@@ -721,19 +695,10 @@ flash_tc_kernel(FlashArgs p) {
       }
     }
     ls = fmaxf(ls, 1e-37f);
-    bf16* out = p.o + (((long long)b * p.Tq + row0 + row) * p.H + h) * dd + c;
-    if (!GEN || p.vec) {                   // d a multiple of 8: 4 or none
-      if (!GEN || c < dd) {
-        using T2 = typename Pair<T>::type;
-        reinterpret_cast<T2*>(out)[0] = Pair<T>::make(o.x / ls, o.y / ls);
-        reinterpret_cast<T2*>(out)[1] = Pair<T>::make(o.z / ls, o.w / ls);
-      }
-    } else {
-      const float v4[4] = {o.x / ls, o.y / ls, o.z / ls, o.w / ls};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (c + i < dd) st(reinterpret_cast<T*>(out) + i, v4[i]);
-    }
+    bf16* out = p.o + (((long long)b * p.Tq + row0 + row) * p.H + h) * D + c;
+    using T2 = typename Pair<T>::type;
+    reinterpret_cast<T2*>(out)[0] = Pair<T>::make(o.x / ls, o.y / ls);
+    reinterpret_cast<T2*>(out)[1] = Pair<T>::make(o.z / ls, o.w / ls);
   }
   cluster.sync();                         // peers stop reading our partials
 }
@@ -773,6 +738,7 @@ struct FlashGeom {
   int cluster, stages;
   dim3 grid;
   int threads, smem;
+  int width, slices, rows;   // instance head dim, column slices, rows a block
 };
 
 // The bf16 kernel's geometry for a call with the caller's (cluster,
@@ -791,10 +757,13 @@ bool flash_tc_geom(const FlashArgs& a, int batch, int cluster, int stages,
   g.grid = dim3(g.cluster, (a.Tq + FT_ROWS - 1) / FT_ROWS, a.H * batch);
   g.threads = FT_WARPS * 32;
   g.smem = FlashTile<D>::smem(g.stages);
+  g.width = D;
+  g.slices = 1;
+  g.rows = FT_ROWS;
   return true;
 }
 
-template <int D, typename Loader, typename T, bool GEN>
+template <int D, typename Loader, typename T>
 cudaError_t launch_flash_tc(FlashArgs a, int batch, int cluster, int stages,
                             cudaStream_t s) {
   FlashGeom g;
@@ -803,7 +772,7 @@ cudaError_t launch_flash_tc(FlashArgs a, int batch, int cluster, int stages,
   a.stages = g.stages;
   const int cl = g.cluster;
   const dim3 grid = g.grid;
-  auto kernel = flash_tc_kernel<D, Loader, T, GEN>;
+  auto kernel = flash_tc_kernel<D, Loader, T>;
   static bool configured = false;     // per instantiation
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -828,33 +797,33 @@ cudaError_t launch_flash_tc(FlashArgs a, int batch, int cluster, int stages,
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-template <typename Loader, typename T, bool GEN>
+template <typename Loader, typename T>
 cudaError_t flash_tc_by_dim(int D, const FlashArgs& a, int batch, int cluster,
                             int stages, cudaStream_t s) {
   switch (D) {
     case 16:
-      return launch_flash_tc<16, Loader, T, GEN>(a, batch, cluster, stages, s);
+      return launch_flash_tc<16, Loader, T>(a, batch, cluster, stages, s);
     case 32:
-      return launch_flash_tc<32, Loader, T, GEN>(a, batch, cluster, stages, s);
+      return launch_flash_tc<32, Loader, T>(a, batch, cluster, stages, s);
     case 64:
-      return launch_flash_tc<64, Loader, T, GEN>(a, batch, cluster, stages, s);
+      return launch_flash_tc<64, Loader, T>(a, batch, cluster, stages, s);
     case 128:
-      return launch_flash_tc<128, Loader, T, GEN>(a, batch, cluster, stages,
+      return launch_flash_tc<128, Loader, T>(a, batch, cluster, stages,
                                                   s);
     case 256:
-      return launch_flash_tc<256, Loader, T, GEN>(a, batch, cluster, stages,
+      return launch_flash_tc<256, Loader, T>(a, batch, cluster, stages,
                                                   s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // bf16 or fp16 (the 16-bit dtype code) on the tensor-core kernel.
-template <typename Loader, bool GEN>
+template <typename Loader>
 cudaError_t flash_tc_dispatch(int dtype, int D, const FlashArgs& a, int batch,
                               int cluster, int stages, cudaStream_t s) {
-  return dtype == DT_F16 ? flash_tc_by_dim<Loader, __half, GEN>(
+  return dtype == DT_F16 ? flash_tc_by_dim<Loader, __half>(
                                D, a, batch, cluster, stages, s)
-                         : flash_tc_by_dim<Loader, bf16, GEN>(
+                         : flash_tc_by_dim<Loader, bf16>(
                                D, a, batch, cluster, stages, s);
 }
 
@@ -868,6 +837,13 @@ constexpr int F32_KT = 16;            // keys per tile
 constexpr int F32_KPL = F32_KT / 4;   // keys a lane
 static_assert(F32_KT % 4 == 0 && F32_KT <= 32, "a lane names a tile row");
 constexpr int F32_MAX_CLUSTER = 4;    // blocks per cluster (a power of two)
+constexpr int F32_SMEM_MAX = 232448;  // dynamic shared memory a block
+// The generic unit's head dims above F32_SLICE_FROM run as column slices
+// of the F32_SLICE instance: 2 rows a lane against the 256 instance's 1,
+// which at D = 200 took flash from 0.2044 to 0.1385 ms and paged prefill
+// from 0.9483 to 0.6571 on an H100 though each slice recomputes the
+// scores (PERF.md §6).
+constexpr int F32_SLICE = 128, F32_SLICE_FROM = 128;
 
 // Per head dim: a lane's rows (RPL; the block's RB = 8 RPL rows keep a
 // lane's accumulators at RPL x D / 4 <= 64 floats), the padded shared rows
@@ -876,11 +852,9 @@ constexpr int F32_MAX_CLUSTER = 4;    // blocks per cluster (a power of two)
 // and V tiles, and the block's shared memory: Q, each warp's P tile, the
 // merge's factors, then each warp's ring of stages, whose first stage
 // holds its partial (m[RB], l[RB], acc[RB][D]) after the loop.
-// D = 512 runs 2 warps a block: four warps' stages of 16 keys x 512
-// channels would pass the 227 KB a block may hold.
 template <int D>
 struct F32Tile {
-  static constexpr int WARPS = D > 256 ? 2 : F32_WARPS;
+  static constexpr int WARPS = F32_WARPS;
   static constexpr int RPL = D <= 64 ? 4 : D == 128 ? 2 : 1;
   static constexpr int RB = 8 * RPL;
   static constexpr int LD = D + 4;
@@ -908,8 +882,10 @@ struct F32Args {
   int causal, window;  // window 0 = global
   int npool, page;     // paged geometry
   int stages;          // K/V stages per warp: 1 or 2
-  int d;               // the head dim, <= the compiled D
+  int d;               // the head dim (GEN: any; else the compiled D)
   int vec;             // rows16: 16-byte loads, else element by element
+  int slices;          // GEN: column slices of V / O (1: none)
+  int ldq;             // GEN: floats a shared Q row (slices x D + 4)
   float softcap;       // 0 = none
   float scale;
 };
@@ -974,20 +950,33 @@ flash_f32_kernel(F32Args p) {
                 KT = F32_KT, KPL = F32_KPL, NC = D / 16,
                 NT = Tl::WARPS * 32;
   extern __shared__ __align__(16) float f32s[];
-  float* const qs = f32s;                              // [RB][LD], scaled
-  float* const ps = qs + RB * LD;                      // [warp][RB][LDP]
+  // GEN: a head dim d above D runs as p.slices column slices of V and O,
+  // one a block (grid y); each block's scores run over the whole d, Q
+  // resident at slices x D columns, K streamed D columns at a time.
+  const int ldq = GEN ? p.ldq : LD;                    // a shared Q row
+  const int head = GEN ? RB * ldq + Tl::WARPS * RB * LDP +
+                             (Tl::WARPS + 2) * RB
+                       : Tl::HEAD;
+  float* const qs = f32s;                              // [RB][ldq], scaled
+  float* const ps = qs + RB * ldq;                     // [warp][RB][LDP]
   float* const fac = ps + Tl::WARPS * RB * LDP;        // [(W + 2) RB]
   const int warp_floats = p.stages * Tl::STAGE;
-  auto warp_part = [&](int w) { return f32s + Tl::HEAD + w * warp_floats; };
+  auto warp_part = [&](int w) { return f32s + head + w * warp_floats; };
 
   cg::cluster_group cluster = cg::this_cluster();
   const int CL = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int rg = lane >> 2, kg = lane & 3;   // rows rg + 8 i, keys kg + 4 j
   const int G = p.H / p.KVH, rows = p.Tq * G;
-  const int kvh = blockIdx.y % p.KVH, b = blockIdx.y / p.KVH;
+  int yb = blockIdx.y, vc = 0;           // GEN: V / O columns [vc, vc + D)
+  if constexpr (GEN) {
+    vc = yb % p.slices * D;
+    yb /= p.slices;
+  }
+  const int kvh = yb % p.KVH, b = yb / p.KVH;
   const int rb0 = (gridDim.z - 1 - blockIdx.z) * RB;  // the latest rows first
-  const int dd = GEN ? p.d : D;                        // row length, <= D
+  const int dd = GEN ? p.d : D;                        // row length
+  const int qw = GEN ? ldq - 4 : D;                    // Q columns held
   const Loader kv(p, b, kvh, dd);
   float* const ring = warp_part(warp);
   float* const pw = ps + warp * RB * LDP;
@@ -1013,13 +1002,13 @@ flash_f32_kernel(F32Args p) {
   // Q by 16-byte cp.async (rows past the last and columns past d
   // zero-filled), in flight beside the first K/V tile; each thread scales
   // the chunks it copied.
-  for (int e = threadIdx.x; e < RB * D / 4; e += NT) {
-    const int r = e / (D / 4), c = (e % (D / 4)) * 4;
+  for (int e = threadIdx.x; e < RB * qw / 4; e += NT) {
+    const int r = e / (qw / 4), c = (e % (qw / 4)) * 4;
     const bool ok = rb0 + r < rows;
     const float* src = ok ? row_at(p.q, rb0 + r) + c : p.q;
     if constexpr (!GEN) cp_async16(qs + r * LD + c, src, ok);
-    else if (p.vec) cp_async16(qs + r * LD + c, src, ok && c < dd);
-    else copy16_elems(qs + r * LD + c, src, ok ? dd - c : 0, 4);
+    else if (p.vec) cp_async16(qs + r * ldq + c, src, ok && c < dd);
+    else copy4_floats(qs + r * ldq + c, src, ok ? dd - c : 0);
   }
   cp_async_commit();
   int qpos[RPL];       // rows past the last take the last position
@@ -1036,7 +1025,10 @@ flash_f32_kernel(F32Args p) {
   const int all_hi = p.causal ? min(p.kv_len, p.q_offset + rb0 / G + 1)
                               : p.kv_len;
 
-  auto load_tile = [&](int tile, int slot, int name) {
+  // K columns [kc, kc + D) of the tile's rows, and (with_v) V's [vc, vc +
+  // D); !GEN: both at 0.
+  auto load_tile = [&](int tile, int slot, int name, int kc = 0,
+                       bool with_v = true) {
     float* ks = ring + slot * Tl::STAGE;
     float* vs = ks + KT * LD;
 #pragma unroll
@@ -1049,13 +1041,17 @@ flash_f32_kernel(F32Args p) {
         cp_async16(ks + r * LD + col, kv.k_row(nm) + col, ok);
         cp_async16(vs + r * LD + col, kv.v_row(nm) + col, ok);
       } else if (p.vec) {
-        cp_async16(ks + r * LD + col, kv.k_row(nm) + col, ok && col < dd);
-        cp_async16(vs + r * LD + col, kv.v_row(nm) + col, ok && col < dd);
+        cp_async16(ks + r * LD + col, kv.k_row(nm) + kc + col,
+                   ok && kc + col < dd);
+        if (with_v)
+          cp_async16(vs + r * LD + col, kv.v_row(nm) + vc + col,
+                     ok && vc + col < dd);
       } else {
-        copy16_elems(ks + r * LD + col, kv.k_row(nm) + col,
-                     ok ? dd - col : 0, 4);
-        copy16_elems(vs + r * LD + col, kv.v_row(nm) + col,
-                     ok ? dd - col : 0, 4);
+        copy4_floats(ks + r * LD + col, kv.k_row(nm) + kc + col,
+                     ok ? dd - kc - col : 0);
+        if (with_v)
+          copy4_floats(vs + r * LD + col, kv.v_row(nm) + vc + col,
+                       ok ? dd - vc - col : 0);
       }
     }
   };
@@ -1073,14 +1069,15 @@ flash_f32_kernel(F32Args p) {
   if (t < t_end) load_tile(t, 0, name0);
   cp_async_commit();
   cp_async_wait<1>();                     // this thread's Q chunks
-  for (int e = threadIdx.x; e < RB * D / 4; e += NT) {
-    float4* x = reinterpret_cast<float4*>(qs + (e / (D / 4)) * LD +
-                                          (e % (D / 4)) * 4);
+  for (int e = threadIdx.x; e < RB * qw / 4; e += NT) {
+    float4* x = reinterpret_cast<float4*>(qs + (e / (qw / 4)) * ldq +
+                                          (e % (qw / 4)) * 4);
     float4 y = *x;
     y.x *= p.scale; y.y *= p.scale; y.z *= p.scale; y.w *= p.scale;
     *x = y;
   }
   __syncthreads();                        // Q is every warp's
+  int name_t = name0;                     // GEN: the tile's row names
   for (; t < t_end; t += n_split) {
     const int next = t + n_split;
     if (p.stages == 2 && next < t_end)
@@ -1094,30 +1091,47 @@ flash_f32_kernel(F32Args p) {
 
     // S = Q K^T as an RPL x KPL micro-tile a lane: per 4 channels, RPL +
     // KPL vector reads feed 4 RPL KPL FMAs; each score one fmaf chain
-    // over d.
+    // over d (GEN above D: D columns of K at a time, the next D loaded
+    // into the stage once every lane is done with these).
     float s[RPL][KPL];
 #pragma unroll
     for (int i = 0; i < RPL; ++i)
 #pragma unroll
       for (int j = 0; j < KPL; ++j) s[i][j] = 0.f;
+    // columns [kc, kc + D) of Q against the stage's K
+    auto scores = [&](int kc) {
 #pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qv[RPL], kv4[KPL];
+      for (int d = 0; d < D; d += 4) {
+        float4 qv[RPL], kv4[KPL];
 #pragma unroll
-      for (int i = 0; i < RPL; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(qs + (rg + 8 * i) * LD + d);
+        for (int i = 0; i < RPL; ++i)
+          qv[i] = *reinterpret_cast<const float4*>(qs + (rg + 8 * i) * ldq +
+                                                   kc + d);
 #pragma unroll
-      for (int j = 0; j < KPL; ++j)
-        kv4[j] = *reinterpret_cast<const float4*>(ks + (kg + 4 * j) * LD + d);
+        for (int j = 0; j < KPL; ++j)
+          kv4[j] = *reinterpret_cast<const float4*>(ks + (kg + 4 * j) * LD +
+                                                    d);
 #pragma unroll
-      for (int i = 0; i < RPL; ++i)
+        for (int i = 0; i < RPL; ++i)
 #pragma unroll
-        for (int j = 0; j < KPL; ++j) {
-          s[i][j] = fmaf(qv[i].x, kv4[j].x, s[i][j]);
-          s[i][j] = fmaf(qv[i].y, kv4[j].y, s[i][j]);
-          s[i][j] = fmaf(qv[i].z, kv4[j].z, s[i][j]);
-          s[i][j] = fmaf(qv[i].w, kv4[j].w, s[i][j]);
-        }
+          for (int j = 0; j < KPL; ++j) {
+            s[i][j] = fmaf(qv[i].x, kv4[j].x, s[i][j]);
+            s[i][j] = fmaf(qv[i].y, kv4[j].y, s[i][j]);
+            s[i][j] = fmaf(qv[i].z, kv4[j].z, s[i][j]);
+            s[i][j] = fmaf(qv[i].w, kv4[j].w, s[i][j]);
+          }
+      }
+    };
+    scores(0);
+    if constexpr (GEN) {
+      for (int kc = D; kc < dd; kc += D) {
+        __syncwarp();                     // every lane is done with the stage
+        load_tile(t, stage, name_t, kc, false);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncwarp();
+        scores(kc);
+      }
     }
 
     // Softcap and mask (a tile every row sees whole needs none); online
@@ -1187,8 +1201,12 @@ flash_f32_kernel(F32Args p) {
       }
     }
     __syncwarp();                         // stage and P are free again
-    if (p.stages == 2) stage ^= 1;
-    else if (next < t_end) load_tile(next, 0, name_of(next));
+    if (p.stages == 2) {
+      stage ^= 1;
+    } else if (next < t_end) {
+      if constexpr (GEN) name_t = name_of(next);
+      load_tile(next, 0, GEN ? name_t : name_of(next));
+    }
   }
   cp_async_wait<0>();
   __syncwarp();
@@ -1285,16 +1303,16 @@ flash_f32_kernel(F32Args p) {
       }
     }
     ls = fmaxf(ls, 1e-37f);
-    float* out = row_at(p.o, rb0 + row) + c;
+    float* out = row_at(p.o, rb0 + row) + vc + c;
     if (!GEN || p.vec) {                   // d a multiple of 4: 4 or none
-      if (!GEN || c < dd)
+      if (!GEN || vc + c < dd)
         *reinterpret_cast<float4*>(out) =
             make_float4(o.x / ls, o.y / ls, o.z / ls, o.w / ls);
     } else {
       const float v4[4] = {o.x / ls, o.y / ls, o.z / ls, o.w / ls};
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        if (c + i < dd) out[i] = v4[i];
+        if (vc + c + i < dd) out[i] = v4[i];
     }
   }
   if (CL > 1) cluster.sync();             // peers stop reading our partials
@@ -1310,11 +1328,12 @@ int sm_count() {
   return sms;
 }
 
-// The fp32 kernel's grid: row tiles (nrb) x kv heads x sequences, in
-// clusters of cl blocks. The busiest row tile's key tiles go one to a warp
-// where the block's warps alone are too few, doubling the cluster (at most
-// F32_MAX_CLUSTER) while the grid is short of the SMs; a warp streams two
-// stages where it has more than one tile (one for D = 256).
+// The fp32 kernel's grid: row tiles (nrb) x kv heads x sequences (x
+// column slices), in clusters of cl blocks. The busiest row tile's key
+// tiles go one to a warp where the block's warps alone are too few,
+// doubling the cluster (at most F32_MAX_CLUSTER) while the grid is short
+// of the SMs; a warp streams two stages where it has more than one tile
+// (one for D = 256 and for column slices, which stream K in D columns).
 template <int D>
 int f32_plan(const F32Args& a, int batch, int& nrb, int& stages) {
   constexpr int RB = F32Tile<D>::RB;
@@ -1329,14 +1348,22 @@ int f32_plan(const F32Args& a, int batch, int& nrb, int& stages) {
       most = n > most ? n : most;
     }
   }
-  const long long blocks = (long long)nrb * a.KVH * batch;
+  const long long blocks = (long long)nrb * a.KVH * batch * a.slices;
   int cl = 1;
   while (cl < F32_MAX_CLUSTER && cl * F32Tile<D>::WARPS < most &&
          blocks * cl < sm_count())
     cl *= 2;
-  stages = F32Tile<D>::MAX_STAGES > 1 && most > cl * F32Tile<D>::WARPS
+  stages = a.slices == 1 && F32Tile<D>::MAX_STAGES > 1 &&
+                   most > cl * F32Tile<D>::WARPS
                ? 2 : 1;
   return cl;
+}
+
+// Dynamic shared memory of the fp32 kernel at D with Q rows of ldq floats
+// (D + 4 but for column slices) and `stages` K/V stages a warp.
+template <int D>
+constexpr int f32_smem(int ldq, int stages) {
+  return F32Tile<D>::smem(stages) + 4 * F32Tile<D>::RB * (ldq - D - 4);
 }
 
 // The fp32 kernel's geometry, as flash_tc_geom (a grid of no blocks where
@@ -1348,16 +1375,20 @@ bool f32_geom(const F32Args& a, int batch, int cluster, int stages,
   g.cluster = f32_plan<D>(a, batch, nrb, g.stages);
   if (cluster != 0 || stages != 0) {
     if (!flash_override(cluster, stages, F32_MAX_CLUSTER,
-                        F32Tile<D>::MAX_STAGES))
+                        a.slices == 1 ? F32Tile<D>::MAX_STAGES : 1))
       return false;
     g.cluster = cluster;
     g.stages = stages;
   }
-  if (nrb > 65535 || (long long)a.KVH * batch > 65535) return false;
-  g.grid = dim3(g.cluster, a.KVH * batch, nrb);
+  const long long ys = (long long)a.KVH * batch * a.slices;
+  if (nrb > 65535 || ys > 65535) return false;
+  g.grid = dim3(g.cluster, (unsigned)ys, nrb);
   g.threads = F32Tile<D>::WARPS * 32;
-  g.smem = F32Tile<D>::smem(g.stages);
-  return true;
+  g.smem = f32_smem<D>(a.ldq, g.stages);
+  g.width = D;
+  g.slices = a.slices;
+  g.rows = F32Tile<D>::RB;
+  return g.smem <= F32_SMEM_MAX;
 }
 
 template <int D, typename Loader, bool GEN>
@@ -1374,7 +1405,7 @@ cudaError_t launch_f32(F32Args a, int batch, int cluster, int stages,
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        F32Tile<D>::smem(F32Tile<D>::MAX_STAGES));
+        GEN ? F32_SMEM_MAX : F32Tile<D>::smem(F32Tile<D>::MAX_STAGES));
     if (e != cudaSuccess) return e;
     configured = true;
   }
@@ -1402,10 +1433,9 @@ cudaError_t f32_by_dim(int D, const F32Args& a, int batch, int cluster,
     case 32: return launch_f32<32, Loader, GEN>(a, batch, cluster, stages, s);
     case 64: return launch_f32<64, Loader, GEN>(a, batch, cluster, stages, s);
     case 128: return launch_f32<128, Loader, GEN>(a, batch, cluster, stages, s);
-    case 256: return launch_f32<256, Loader, GEN>(a, batch, cluster, stages, s);
-    case 512:
-      if constexpr (GEN)       // the 512 instance serves head dims past 256
-        return launch_f32<512, Loader, GEN>(a, batch, cluster, stages, s);
+    case 256:                  // the generic unit slices head dims past 128
+      if constexpr (!GEN)
+        return launch_f32<256, Loader, GEN>(a, batch, cluster, stages, s);
       return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
@@ -1876,12 +1906,15 @@ cudaError_t split_dispatch(int dtype, int D, int rep_blk, const SplitArgs& a,
                       : split_by_dim<float, 8, Loader, GEN>(D, a, s);
 }
 
-// A flash call's geometry, as plan[0..6]: blocks per cluster, K/V stages
+// A flash call's geometry, as plan[0..11]: blocks per cluster, K/V stages
 // a warp, the grid (x: the cluster's blocks; bf16: y row tiles of 16, z
-// heads x batch; fp32: y kv heads x batch, z row tiles of the kv head's
-// (position, query head) pairs, 0 where nothing launches), threads per
-// block, dynamic shared memory bytes. The caller's (cluster, stages), 0, 0
-// for the call's own; false where the kernel cannot run them.
+// heads x batch; fp32: y kv heads x batch x column slices, z row tiles of
+// the kv head's (position, query head) pairs, 0 where nothing launches),
+// threads per block, dynamic shared memory bytes, the instance's head dim,
+// column slices, query rows a block, 0 (attention_wg.cuh's K ring), the
+// load path (1 cp.async of 16 bytes, 3 element copies; `align` the bytes
+// the rows sit on). The caller's (cluster, stages), 0, 0 for the call's
+// own; false where the kernel cannot run them.
 template <int D>
 bool flash_geom_of(int dtype, const FlashArgs& a, const F32Args& f,
                    int batch, int cluster, int stages, FlashGeom& g) {
@@ -1890,7 +1923,8 @@ bool flash_geom_of(int dtype, const FlashArgs& a, const F32Args& f,
 }
 
 bool flash_geom_plan(int D, int dtype, const FlashArgs& a, const F32Args& f,
-                     int batch, int cluster, int stages, long long* plan) {
+                     int batch, int cluster, int stages, int align,
+                     long long* plan) {
   FlashGeom g{};
   bool ok = false;
   switch (D) {
@@ -1904,22 +1938,21 @@ bool flash_geom_plan(int D, int dtype, const FlashArgs& a, const F32Args& f,
       break;
     case 256: ok = flash_geom_of<256>(dtype, a, f, batch, cluster, stages, g);
       break;
-    case 512: ok = dtype == DT_F32 && f32_geom<512>(f, batch, cluster, stages,
-                                                      g);
-      break;
     default: break;
   }
   if (!ok) return false;
-  const long long out[7] = {g.cluster, g.stages, g.grid.x, g.grid.y,
-                            g.grid.z, g.threads, g.smem};
-  for (int i = 0; i < 7; ++i) plan[i] = out[i];
+  const long long out[12] = {g.cluster, g.stages, g.grid.x, g.grid.y,
+                             g.grid.z, g.threads, g.smem, g.width,
+                             g.slices, g.rows, 0, align >= 16 ? 1 : 3};
+  for (int i = 0; i < 12; ++i) plan[i] = out[i];
   return true;
 }
 
 // The instances this translation unit launches: attention.cu the compiled
 // head dims on whole aligned rows (GEN false: the kernels' code for d = D
-// and vec, nothing else), attention_any.cu every head dim and alignment
-// (GEN true). A call the unit's instances do not hold is refused.
+// and vec, nothing else), attention_any.cu every fp32 head dim and
+// alignment (GEN true; 16-bit generic calls are attention_wg.cu's and
+// attention_wg16.cu's). A call the unit's instances do not hold is refused.
 constexpr bool kGeneric = ATTENTION_GENERIC;
 
 // The compiled head dim a launch of head dim d (fp32 or not) runs on rows
@@ -1929,19 +1962,37 @@ inline int unit_dim(int d, bool f32, int vec) {
   return kGeneric || (dc == d && vec) ? dc : 0;
 }
 
+// The fp32 flash instance a call of head dim d runs in this unit (0:
+// none), and its F32Args geometry: column slices and the shared Q row.
+inline int f32_flash_dim(int d, int vec, F32Args& a) {
+  int dc = 0;
+  a.slices = 1;
+  if (d >= 1 && (kGeneric || vec)) {
+    if (!kGeneric || d <= F32_SLICE_FROM) {
+      dc = compiled_dim(d, false);
+      if (!kGeneric && dc != d) dc = 0;
+    } else {
+      dc = F32_SLICE;
+      a.slices = (d + F32_SLICE - 1) / F32_SLICE;
+    }
+  }
+  a.ldq = a.slices * dc + 4;
+  return dc;
+}
+
 }  // namespace
 
 #if ATTENTION_FAMILIES & 1
-// Every entry takes the true head dim D (1 <= D <= 512; 16-bit operands
-// up to 256) and runs the compiled instance compiled_dim(D); each launch
-// finds its own vec (rows16 of its operands). A head dim no instance
-// holds is cudaErrorInvalidValue; so is, in attention.cu, a head dim
-// between compiled ones or rows that are not whole aligned 16-byte words
-// (the _any units').
+// Every entry takes the true head dim D and runs an instance of the unit:
+// attention.cu the compiled head dims (16-256) of every dtype on whole
+// aligned 16-byte rows, attention_any.cu fp32 at any head dim -- the next
+// compiled one up to 128, above it column slices of the 128 instance --
+// on any rows (each launch finds its own vec, rows16 of its operands). A
+// call no instance of the unit holds is cudaErrorInvalidValue.
 //
 // flash_attention: q (B, Tq, H, D), k / v (B, Tk, KVH, D), queries
 // right-aligned to the keys. cluster, stages: the caller's plan (blocks
-// per cluster 1, 2 or 4; stages 1 or 2, fp32 at a compiled 256 or 512
+// per cluster 1, 2 or 4; stages 1 or 2, fp32 at 256 or in column slices
 // only 1), or 0, 0 for the call's own (flash_attention_plan reports
 // either); a plan the kernel cannot run is cudaErrorInvalidValue.
 extern "C" int flash_attention_launch(
@@ -1950,19 +2001,25 @@ extern "C" int flash_attention_launch(
     int dtype, void* stream, int cluster, int stages) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int vec = rows16(D, dtype == DT_F32 ? 4 : 2, q, k, v, o);
-  const int dc = unit_dim(D, dtype == DT_F32, vec);
-  if (dc == 0) return (int)cudaErrorInvalidValue;
   if (dtype != DT_F32) {   // bf16 or fp16: 16-bit storage, moved as bits
-    FlashArgs a{};
-    a.q = static_cast<const bf16*>(q); a.k = static_cast<const bf16*>(k);
-    a.v = static_cast<const bf16*>(v); a.o = static_cast<bf16*>(o);
-    a.Tq = Tq; a.Tk = Tk; a.H = H; a.KVH = KVH; a.q_offset = Tk - Tq;
-    a.causal = causal; a.window = window; a.softcap = softcap; a.scale = scale;
-    a.d = D; a.vec = vec;
-    return (int)flash_tc_dispatch<DenseKV, kGeneric>(dtype, dc, a, B, cluster,
-                                                stages, s);
+    if constexpr (kGeneric) {
+      return (int)cudaErrorInvalidValue;
+    } else {
+      const int dc = unit_dim(D, false, vec);
+      if (dc == 0) return (int)cudaErrorInvalidValue;
+      FlashArgs a{};
+      a.q = static_cast<const bf16*>(q); a.k = static_cast<const bf16*>(k);
+      a.v = static_cast<const bf16*>(v); a.o = static_cast<bf16*>(o);
+      a.Tq = Tq; a.Tk = Tk; a.H = H; a.KVH = KVH; a.q_offset = Tk - Tq;
+      a.causal = causal; a.window = window; a.softcap = softcap;
+      a.scale = scale;
+      return (int)flash_tc_dispatch<DenseKV>(dtype, dc, a, B, cluster,
+                                             stages, s);
+    }
   }
   F32Args a{};
+  const int dc = f32_flash_dim(D, vec, a);
+  if (dc == 0) return (int)cudaErrorInvalidValue;
   a.q = static_cast<const float*>(q); a.k = static_cast<const float*>(k);
   a.v = static_cast<const float*>(v); a.o = static_cast<float*>(o);
   a.table = nullptr;
@@ -1974,29 +2031,32 @@ extern "C" int flash_attention_launch(
   return (int)f32_by_dim<DenseKV32, kGeneric>(dc, a, B, cluster, stages, s);
 }
 
-// The geometry flash_attention_launch runs for these arguments and the
-// caller's (cluster, stages), 0, 0 for the call's own (see
-// flash_geom_plan); launches nothing. A plan the kernel cannot run is
-// cudaErrorInvalidValue, as at launch.
+// The geometry flash_attention_launch runs for these arguments, the
+// caller's (cluster, stages), 0, 0 for the call's own, and rows on `align`
+// bytes (see flash_geom_plan); launches nothing. A call or plan the unit
+// cannot run is cudaErrorInvalidValue, as at launch.
 extern "C" int flash_attention_plan(int B, int Tq, int Tk, int H, int KVH,
                                     int D, int causal, int window, int dtype,
-                                    int cluster, int stages,
+                                    int cluster, int stages, int align,
                                     long long* plan) {
-  const int dc = compiled_dim(D, dtype == DT_F32);
-  if (KVH <= 0 || H % KVH || dc == 0) return (int)cudaErrorInvalidValue;
+  if (KVH <= 0 || H % KVH) return (int)cudaErrorInvalidValue;
+  F32Args f{};
+  const int dc = dtype == DT_F32 ? f32_flash_dim(D, align >= 16, f)
+                 : kGeneric      ? 0
+                                 : unit_dim(D, false, align >= 16);
+  if (dc == 0) return (int)cudaErrorInvalidValue;
   FlashArgs a{};
   a.Tq = Tq; a.Tk = Tk; a.H = H; a.KVH = KVH; a.q_offset = Tk - Tq;
   a.causal = causal; a.window = window;
-  F32Args f{};
   f.Tq = Tq; f.H = H; f.KVH = KVH; f.q_offset = Tk - Tq; f.kv_len = Tk;
   f.causal = causal; f.window = window; f.page = 1;
-  return flash_geom_plan(dc, dtype, a, f, B, cluster, stages, plan)
+  return flash_geom_plan(dc, dtype, a, f, B, cluster, stages, align, plan)
              ? 0
              : (int)cudaErrorInvalidValue;
 }
 
-// bf16: the tensor-core flash kernel through PagedKV, the queries at
-// [start, start + Tq), keys [0, start + Tq); its grid and cluster come
+// bf16 / fp16: the tensor-core flash kernel through PagedKV, the queries
+// at [start, start + Tq), keys [0, start + Tq); its grid and cluster come
 // from these arguments alone. fp32: the CUDA-core flash kernel through
 // PagedKV32 (IEEE fp32), likewise.
 extern "C" int paged_prefill_launch(
@@ -2005,21 +2065,26 @@ extern "C" int paged_prefill_launch(
     int window, float softcap, float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int vec = rows16(D, dtype == DT_F32 ? 4 : 2, q, k_pool, v_pool, o);
-  const int dc = unit_dim(D, dtype == DT_F32, vec);
-  if (dc == 0) return (int)cudaErrorInvalidValue;
   if (dtype != DT_F32) {   // bf16 or fp16
-    FlashArgs a{};
-    a.q = static_cast<const bf16*>(q);
-    a.k = static_cast<const bf16*>(k_pool);
-    a.v = static_cast<const bf16*>(v_pool);
-    a.o = static_cast<bf16*>(o);
-    a.table = table; a.npool = npool; a.page = page;
-    a.Tq = Tq; a.Tk = start + Tq; a.H = H; a.KVH = KVH; a.q_offset = start;
-    a.causal = 1; a.window = window; a.softcap = softcap; a.scale = scale;
-    a.d = D; a.vec = vec;
-    return (int)flash_tc_dispatch<PagedKV, kGeneric>(dtype, dc, a, 1, 0, 0, s);
+    if constexpr (kGeneric) {
+      return (int)cudaErrorInvalidValue;
+    } else {
+      const int dc = unit_dim(D, false, vec);
+      if (dc == 0) return (int)cudaErrorInvalidValue;
+      FlashArgs a{};
+      a.q = static_cast<const bf16*>(q);
+      a.k = static_cast<const bf16*>(k_pool);
+      a.v = static_cast<const bf16*>(v_pool);
+      a.o = static_cast<bf16*>(o);
+      a.table = table; a.npool = npool; a.page = page;
+      a.Tq = Tq; a.Tk = start + Tq; a.H = H; a.KVH = KVH; a.q_offset = start;
+      a.causal = 1; a.window = window; a.softcap = softcap; a.scale = scale;
+      return (int)flash_tc_dispatch<PagedKV>(dtype, dc, a, 1, 0, 0, s);
+    }
   }
   F32Args a{};
+  const int dc = f32_flash_dim(D, vec, a);
+  if (dc == 0) return (int)cudaErrorInvalidValue;
   a.q = static_cast<const float*>(q);
   a.k = static_cast<const float*>(k_pool);
   a.v = static_cast<const float*>(v_pool);
@@ -2034,19 +2099,23 @@ extern "C" int paged_prefill_launch(
 }
 
 // The geometry paged_prefill_launch runs for these arguments, its own
-// plan (see flash_geom_plan; the pools' geometry does not enter it);
+// plan (see flash_geom_plan; the pools' page size does not enter it);
 // launches nothing.
 extern "C" int paged_prefill_plan(int Tq, int start, int H, int KVH, int D,
-                                  int window, int dtype, long long* plan) {
-  const int dc = compiled_dim(D, dtype == DT_F32);
-  if (KVH <= 0 || H % KVH || dc == 0) return (int)cudaErrorInvalidValue;
+                                  int window, int dtype, int page, int align,
+                                  long long* plan) {
+  if (KVH <= 0 || H % KVH || page < 1) return (int)cudaErrorInvalidValue;
+  F32Args f{};
+  const int dc = dtype == DT_F32 ? f32_flash_dim(D, align >= 16, f)
+                 : kGeneric      ? 0
+                                 : unit_dim(D, false, align >= 16);
+  if (dc == 0) return (int)cudaErrorInvalidValue;
   FlashArgs a{};
   a.Tq = Tq; a.Tk = start + Tq; a.H = H; a.KVH = KVH; a.q_offset = start;
   a.causal = 1; a.window = window;
-  F32Args f{};
   f.Tq = Tq; f.H = H; f.KVH = KVH; f.q_offset = start;
   f.kv_len = start + Tq; f.causal = 1; f.window = window; f.page = 1;
-  return flash_geom_plan(dc, dtype, a, f, 1, 0, 0, plan)
+  return flash_geom_plan(dc, dtype, a, f, 1, 0, 0, align, plan)
              ? 0
              : (int)cudaErrorInvalidValue;
 }

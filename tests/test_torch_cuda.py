@@ -2925,8 +2925,16 @@ def _attn_calls(e, kw):
              e["qp"], e["pk"], e["pv"], e["tables"][0], 50, **kw))]
 
 
-def _grew(name, before, mixed=False, dtype=None):
+_WG_FAMILIES = ("flash_attention", "paged_prefill_attention")
+
+
+def _grew(name, before, mixed=False, dtype=None, generic=False):
+    """One launch of ``name``'s kernel, counted where the wrapper counts
+    it: mixed dtypes, the generic 16-bit flash / paged prefill kernel
+    (``[any]``), fp16's instantiations, else the wrapper's own."""
     key = f"{name}[mixed]" if mixed else \
+        f"{name}[any]" if generic and dtype != torch.float32 and \
+        name in _WG_FAMILIES else \
         f"{name}[fp16]" if dtype == _F16 else name
     return kernels.launch_counts()[key] == before[key] + 1
 
@@ -2935,13 +2943,15 @@ def _grew(name, before, mixed=False, dtype=None):
 @pytest.mark.parametrize("d", [8, 20, 48, 80, 200, 320, 512])
 def test_attention_any_head_dim(card, d, dtype):
     """Every launcher at head dims between and past the compiled ones
-    (320 and 512: the fp32 instance at 512, 16-bit operands widened),
-    with a window and a softcap: one launch each, counted by q's dtype."""
+    (320 and 512: 16-bit flash and paged prefill in column slices, the
+    fp32 ones in slices of the 128 instance, the decodes' fp32 instance at
+    512 with 16-bit operands widened), with a window and a softcap: one
+    launch each, counted by q's dtype and kernel."""
     e = _attn_inputs(card, np.random.default_rng(d), d, dtype, dtype)
     for name, run, plain in _attn_calls(e, dict(window=24, softcap=30.0)):
         before = kernels.launch_counts()
         got = run()
-        assert _grew(name, before, dtype=dtype), name
+        assert _grew(name, before, dtype=dtype, generic=True), name
         _close_out(got, plain())
 
 
@@ -3070,3 +3080,117 @@ def test_wrappers_raise_nowhere_on_a_seeded_grid(card):
         got = tm2.ssd(*args[:5], d_skip=args[5], chunk=chunk,
                       initial_state=args[6], return_final_state=True)
         _check_ssd(got, *args, chunk)
+
+
+# -- the generic 16-bit kernel (attention_wg.cuh) and fp32 column slices ------
+def _wg_case(card, seed, d, dtype, off=0, page=16, t=96, start=160, h=16,
+             kvh=4):
+    """Flash (1 x t x h / kvh heads against t keys) and paged prefill (t
+    tokens at ``start`` over pools of ``page``-row pages on a shuffled
+    table, every unowned row NaN) at head dim d, ``off`` elements past a
+    16-byte boundary."""
+    rng = np.random.default_rng(seed)
+    total = start + t
+    mp = -(-total // page)
+    pk, pv, tables = _pools(rng, kvh, mp + 3, page, d, [total], mp)
+
+    def dev(x):
+        return _offset(torch.from_numpy(np.asarray(x, np.float32)).to(
+            card, dtype), off)
+    return dict(q=dev(rng.standard_normal((1, t, h, d))),
+                k=dev(rng.standard_normal((1, t, kvh, d))),
+                v=dev(rng.standard_normal((1, t, kvh, d))),
+                pk=dev(pk), pv=dev(pv),
+                table=torch.from_numpy(tables[0]).to(card), start=start)
+
+
+def _wg_calls(e, kw):
+    return [("flash_attention",
+             lambda: tak.flash_attention(e["q"], e["k"], e["v"], **kw),
+             lambda: tak.blockwise_attention(e["q"], e["k"], e["v"], **kw)),
+            ("paged_prefill_attention",
+             lambda: tak.paged_prefill_attention(e["q"], e["pk"], e["pv"],
+                                                 e["table"], e["start"],
+                                                 **kw),
+             lambda: tak.paged_prefill_attention_plain(
+                 e["q"], e["pk"], e["pv"], e["table"], e["start"], **kw))]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, _F16, torch.float32])
+@pytest.mark.parametrize("d", [80, 200, 320, 640])
+@pytest.mark.parametrize("kw", [dict(window=None, softcap=None),
+                                dict(window=64, softcap=30.0)])
+def test_attention_wg_head_dims(card, d, dtype, kw):
+    """Flash and paged prefill at head dims 80 and 200 (the generic
+    kernel's own widths) and 320 and 640 (column slices), every float
+    dtype, with and without a window and a softcap: one launch each of
+    the generic kernel (16-bit: ``[any]``), held to the plain version; a
+    rerun is bit-equal; a 16-bit call launches no conversion."""
+    e = _wg_case(card, d, d, dtype)
+    for name, run, plain in _wg_calls(e, kw):
+        before = kernels.launch_counts()
+        got = run()
+        after = kernels.launch_counts()
+        assert _grew(name, before, dtype=dtype, generic=True), name
+        assert after["convert"] == before["convert"], name
+        _close_out(got, plain())
+        assert torch.equal(run(), got), name
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, _F16, torch.float32])
+@pytest.mark.parametrize("d", [80, 200, 320, 640])
+@pytest.mark.parametrize("off", [1, 2])
+def test_attention_wg_unaligned(card, d, dtype, off):
+    """Operands ``off`` elements past a 16-byte boundary (16-bit: 1 the
+    element copies, 2 the 4-byte cp.async; fp32 both the element loads):
+    the plain version's result, and the aligned call's."""
+    aligned = _wg_case(card, 3, d, dtype)
+    shifted = _wg_case(card, 3, d, dtype, off=off)
+    assert shifted["q"].data_ptr() % 16 != 0
+    kw = dict(window=None, softcap=None)
+    for (name, run, plain), (_, run_s, _) in zip(_wg_calls(aligned, kw),
+                                                 _wg_calls(shifted, kw)):
+        got = run_s()
+        _close_out(got, plain())
+        _close_out(got, run())
+
+
+@pytest.mark.parametrize("page", [8, 16, 24, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, _F16])
+def test_paged_prefill_wg_pages(card, page, dtype):
+    """Every load path of the generic kernel's paged prefill by page size
+    (8, 16: a TMA box a page; 64, 128: a box a key tile; 24: cp.async, a
+    page neither dividing nor divided by a tile) at head dim 200."""
+    e = _wg_case(card, page, 200, dtype, page=page, t=130, start=333)
+    name, run, plain = _wg_calls(e, dict(window=None, softcap=30.0))[1]
+    _close_out(run(), plain())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_wg_plans_and_limits(card, dtype):
+    """The plan functions agree with the contracts' mirror at head dims
+    80, 200, 320, 640 and 1024 (every alignment for 16 bits); a head dim
+    past the widest plan raises with its reason; decode above 512 still
+    raises."""
+    from repro_torch.kernels import contracts as kc
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for d in (80, 200, 320, 640, 1024):
+        for align in ((16, 8, 4, 2) if dtype != torch.float32 else (16,)):
+            got = tak.flash_plan(1, 256, 256, 32, 8, d, dtype=dtype,
+                                 align=align)
+            want = kc.flash_contract(1, 256, 256, 32, 8, d, dtype=dtype,
+                                     sms=sms, align=align).plan_dict()
+            assert got == want, (d, align)
+            got = tak.paged_prefill_plan(256, 768, 32, 8, d, dtype=dtype,
+                                         page=64, align=align)
+            want = kc.paged_prefill_contract(
+                256, 768, 32, 8, d, dtype=dtype, sms=sms, page=64,
+                align=align).plan_dict()
+            assert got == want, (d, align)
+    top = tak.FLASH_HEAD_DIM_MAX[dtype]
+    q = torch.zeros((1, 4, 2, top + 1), dtype=dtype, device=card)
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        tak.flash_attention(q, q[:, :, :1], q[:, :, :1])
+    q = torch.zeros((1, 1, 2, 640), dtype=dtype, device=card)
+    with pytest.raises(NotImplementedError, match="above 512"):
+        tak.decode_attention(q, q, q, 0)

@@ -59,6 +59,13 @@ NAMES = [
      f"({_ANON}TcArgs<__half>)", "ssd[fp16]"),
     (f"void {_ANON}ssd_tc_kernel<64, true, __nv_bfloat16>"
      f"({_ANON}TcArgs<__nv_bfloat16>)", "ssd"),
+    # the generic 16-bit flash and paged prefill kernel (one for both)
+    ("void attn_wg::flash_wg_kernel<80, __nv_bfloat16>(attn_wg::Args, "
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st)",
+     "flash_attention[any]"),
+    ("void attn_wg::flash_wg_kernel<224, __half>(attn_wg::Args, "
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st)",
+     "paged_prefill_attention[any]"),
     # the backward products' persistent kernel
     ("void hgemm_bwd::bwd_kernel<__nv_bfloat16, true, false, 192>"
      "(hgemm_bwd::Args, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st)",

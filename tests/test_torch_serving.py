@@ -294,7 +294,9 @@ def test_nvcc_command_targets_sm90a_into_ignored_build_dir():
     assert {p.name for p in src} == {"gemm.cu", "gemm16.cu", "gemm_bwd.cu",
                                      "gemm_bwd16.cu", "attention.cu",
                                      "attention_any.cu",
-                                     "attention_decode_any.cu", "conv.cu",
+                                     "attention_decode_any.cu",
+                                     "attention_wg.cu", "attention_wg16.cu",
+                                     "conv.cu",
                                      "ssd.cu", "ssd_any.cu", "ssd16.cu",
                                      "ssd16_any.cu", "datapath.cu"}
     cmd = _build.nvcc_command(src[0], _build.build_dir() / "lib.so")

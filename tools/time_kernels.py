@@ -12,7 +12,10 @@ GEMM at the quickstart (OS and WS) and at ResNet-50's host-im2col shapes
 (``torch.matmul`` beside) and the int16 GEMM at the same shapes on both
 dataflows (PyTorch has no int16 matmul on the card), fp32
 ``flash_attention`` at the fp32 gate's prompts and at hymba-1.5b's first
-chunk, fp32 paged prefill at the gate's last chunks and at hymba-1.5b's
+chunk, flash and paged prefill off the compiled instances (generic head
+dims, column slices, a view off 16 bytes; ``generic_attention_cases``,
+plain version and SDPA beside), fp32 paged prefill at the gate's last
+chunks and at hymba-1.5b's
 256-token continuation chunk at 768, bf16 paged prefill at a
 256-token chunk at 768 (gemma3-1b global and window 512, hymba-1.5b
 window 1024; the dense flash kernel on the same keys gathered beforehand
@@ -323,6 +326,134 @@ def attention_cases(torch):
                         qd, kp, vp, tables, lens, window=w),
                     lambda w=window: ka.paged_decode_attention_plain(
                         qd, kp, vp, tables, lens, window=w), None, work))
+    return out
+
+
+def generic_attention_cases(torch):
+    """Flash and paged prefill off the compiled instances (PERF.md's "any
+    head dim" rows), at a 256-token causal chunk with 32 / 8 heads: flash
+    at head dims 48, 80, 96 and 200 (bf16, fp16) and 320 (bf16, fp16,
+    fp32) with SDPA beside each, fp32 flash at 200; paged prefill at 768
+    over page-64 pools at 80, 96, 200 and 320 (bf16), fp32 at 200 and 320,
+    and bf16 at 128 two elements off 16 bytes; where the checkout takes
+    head dims past 512, flash and paged prefill at 640 in bf16 and fp32.
+    Where the checkout holds the generic 16-bit kernel, it is also timed
+    by a direct call at two compiled shapes the registry's models run on
+    ``attention.cu`` (gemma3-1b's D=256, H=4 / KVH=1 and hymba-1.5b's
+    D=64, H=25 / KVH=5) and at the aligned D=128 chunk (flash and paged
+    prefill): information for later work, not a route."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import attention as ka
+
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    kind_of = {bf16: "bf16", f16: "fp16", f32: "fp32"}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    h, kvh, t, start, page, n_pages = 32, 8, 256, 768, 64, 128
+    past_512 = hasattr(ka, "FLASH_HEAD_DIM_MAX")
+
+    def randn(*shape, dtype=bf16, off=0):
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        if not off:
+            return x
+        buf = torch.empty(x.numel() + off, dtype=dtype, device="cuda")
+        view = buf[off:].view(x.shape)
+        view.copy_(x)
+        return view
+
+    out = []
+    pairs = t * (t + 1) // 2
+    flash = [(d, dt) for d in (48, 80, 96, 200) for dt in (bf16, f16)] + \
+        [(200, f32)] + [(320, dt) for dt in (bf16, f16, f32)] + \
+        ([(640, bf16), (640, f32)] if past_512 else [])
+    for d, dt in flash:
+        q = randn(1, t, h, d, dtype=dt)
+        k, v = (randn(1, t, kvh, d, dtype=dt) for _ in range(2))
+        es = q.element_size()
+        out.append(("flash_attention", f"generic {kind_of[dt]} T={t} H={h} "
+                    f"KVH={kvh} D={d}", kind_of[dt],
+                    lambda q=q, k=k, v=v: ka.flash_attention(q, k, v),
+                    lambda q=q, k=k, v=v: ka.blockwise_attention(q, k, v),
+                    lambda q=q, k=k, v=v: sdpa(
+                        q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), is_causal=True, enable_gqa=True),
+                    (es * (2 * t * h * d + 2 * t * kvh * d),
+                     4.0 * d * h * pairs)))
+    perm = torch.randperm(n_pages, generator=gen, device="cuda")
+    table = perm[:16].to(torch.int32)
+    ppairs = sum(start + i + 1 for i in range(t))
+    prefill = [(d, bf16, 0) for d in (80, 96, 200, 320)] + \
+        [(200, f32, 0), (320, f32, 0), (128, bf16, 2), (128, bf16, 1)] + \
+        ([(640, bf16, 0), (640, f32, 0)] if past_512 else [])
+    for d, dt, off in prefill:
+        kp, vp = (randn(kvh, n_pages + 1, page, d, dtype=dt, off=off)
+                  for _ in range(2))
+        q = randn(1, t, h, d, dtype=dt, off=off)
+        es = q.element_size()
+        out.append(("paged_prefill_attention",
+                    f"generic {kind_of[dt]} T={t} start={start} H={h} "
+                    f"KVH={kvh} D={d}" + (f" offset={off}" if off else ""),
+                    kind_of[dt],
+                    lambda q=q, k=kp, v=vp: ka.paged_prefill_attention(
+                        q, k, v, table, start),
+                    lambda q=q, k=kp, v=vp: ka.paged_prefill_attention_plain(
+                        q, k, v, table, start), None,
+                    (es * (2 * t * h * d + 2 * (start + t) * kvh * d) + 64,
+                     4.0 * d * h * ppairs)))
+    if not (_build.CSRC / "attention_wg.cu").exists():
+        return out
+    # the aligned chunk at head dim 128 on the generic kernel: what the
+    # rows off 16 bytes above cost against it
+    pfn = _build.bind("attention_wg", "paged_prefill_launch",
+                      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 +
+                      [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    kp, vp = (randn(kvh, n_pages + 1, page, 128) for _ in range(2))
+    qp = randn(1, t, h, 128)
+
+    def direct_prefill():
+        o = torch.empty_like(qp)
+        _build.check(pfn(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                         table.data_ptr(), o.data_ptr(), t, start, h, kvh,
+                         128, n_pages + 1, page, 0, 0.0, 128 ** -0.5, 1,
+                         torch.cuda.current_stream().cuda_stream),
+                     "paged_prefill_launch")
+        return o
+    out.append(("paged_prefill_attention[any] direct",
+                f"aligned T={t} start={start} H={h} KVH={kvh} D=128", "bf16",
+                direct_prefill,
+                lambda: ka.paged_prefill_attention_plain(qp, kp, vp, table,
+                                                         start), None,
+                (2 * (2 * t * h * 128 + 2 * (start + t) * kvh * 128) + 64,
+                 4.0 * 128 * h * ppairs)))
+    fn = _build.bind("attention_wg", "flash_attention_launch",
+                     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 +
+                     [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p,
+                                             ctypes.c_int, ctypes.c_int])
+    for name, hh, kk, d in (("gemma3-1b", 4, 1, 256),
+                            ("hymba-1.5b", 25, 5, 64),
+                            ("aligned", h, kvh, 128)):
+        q = randn(1, t, hh, d)
+        k, v = (randn(1, t, kk, d) for _ in range(2))
+
+        def direct(q=q, k=k, v=v, hh=hh, kk=kk, d=d):
+            o = torch.empty_like(q)
+            _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            o.data_ptr(), 1, t, t, hh, kk, d, 1, 0, 0.0,
+                            d ** -0.5, 1,
+                            torch.cuda.current_stream().cuda_stream, 0, 0),
+                         "flash_attention_launch")
+            return o
+        work = (2 * (2 * t * hh * d + 2 * t * kk * d), 4.0 * d * hh * pairs)
+        label = f"{name} T={t} H={hh} KVH={kk} D={d}"
+        out.append(("flash_attention[any] direct", label, "bf16", direct,
+                    lambda q=q, k=k, v=v: ka.blockwise_attention(q, k, v),
+                    None, work))
+        out.append(("flash_attention", f"{label} compiled", "bf16",
+                    lambda q=q, k=k, v=v: ka.flash_attention(q, k, v),
+                    lambda q=q, k=k, v=v: ka.blockwise_attention(q, k, v),
+                    None, work))
     return out
 
 
@@ -703,7 +834,7 @@ def main() -> int:
     if args.only in (None, "gemm"):
         cases += gemm_cases(torch, cs)
     if args.only in (None, "attention"):
-        cases += attention_cases(torch)
+        cases += attention_cases(torch) + generic_attention_cases(torch)
     if args.only in (None, "ssd"):
         cases += ssd_cases(torch, cs)
     if args.only in (None, "convert"):
@@ -733,7 +864,7 @@ def main() -> int:
                "check": check, "ms": timer(run_k),
                "enqueue_us": enqueue_us(torch, run_k)}
         if kernel in ("gemm[int8]", "gemm_ws", "accumulator_epilogue",
-                      "convert") or \
+                      "convert") or label.startswith("generic") or \
                 kernel.startswith(("conv2d_implicit", "gemm[")):
             row["plain_ms"] = timer(run_p)
         if run_lib is not None:
